@@ -7,15 +7,21 @@
 2. builds the CUDA kernels of factored_neus_tpu_torch/csrc with nvcc;
 3. holds each kernel against its plain PyTorch twin at full width (f32,
    TF32 off) and times both with CUDA events;
-4. writes the analytic-sphere DTU scene (6 views, 128 x 160) with the
+4. runs one full-width stage-1 step on the card (kernels) and the same step
+   on the CPU (twins) and compares the loss and every parameter gradient;
+5. writes the analytic-sphere DTU scene (6 views, 128 x 160) with the
    port's PNG writer and trains 30 steps of confs/wmask.conf on it through
    the port's CLI, with every launch counter set to 0 just before;
-5. checks finite losses, that every kernel launched during training, and
+6. trains 10 more steps in a subprocess with the HBM-stash switch on
+   (FNEUS_PG_HBM_STASH=1, read at import), counters at 0 there too;
+7. checks finite losses, that every kernel launched during training (the
+   stash pair only in the stash run, K1-fwd and K1-bwd never there), and
    that the checkpoint loads back;
-6. prints {"kernels": [...]}, the card line, and as its last line
+8. prints {"kernels": [...]}, the card line, and as its last line
    {"ok": true, "device": {...}}.
 Any failure raises; the script then exits non-zero without the last line.
 """
+import copy
 import json
 import math
 import os
@@ -30,6 +36,9 @@ HBM_RATE = 3.35e12      # H100 SXM device memory bytes/s
 N_CORE = 512 * 128      # render-core points of one wmask step
 N_SWEEP = 512 * 64      # points of the ladder's first (largest) sweep
 TRAIN_STEPS = 30
+STASH_STEPS = 10
+STEP_RAYS = 64          # batch of the card-vs-CPU step check
+STASH_RUN = "--stash-run"
 
 
 def card_line() -> str:
@@ -70,12 +79,43 @@ def worst_scaled(a, b, atol: float, rtol: float):
     return float(d.max()), float(d.max()) / (atol + rtol * float(b.abs().max()))
 
 
+def check_vjp(label, got, ref64, ref32, names):
+    """Per-tensor check of a backward kernel against the float64 twin at
+    |err| <= 1e-4 + 1e-5 max|ref|; prints the f32 twin's own error beside
+    it.  Returns the kernel's max |err|."""
+    errs = [worst_scaled(a, b, 1e-4, 1e-5) for a, b in zip(got, ref64)]
+    e = max(e for e, _ in errs)
+    r, at = max((r, n) for (_, r), n in zip(errs, names))
+    own = [worst_scaled(a, b, 1e-4, 1e-5) for a, b in zip(ref32, ref64)]
+    print(f"{label}: max|err| {e:.3e} against the f64 twin; worst ratio to "
+          f"(1e-4 + 1e-5 max|ref|) {r:.3f} in {at} (max|ref| "
+          f"{float(ref64[names.index(at)].abs().max()):.3e}); the f32 "
+          f"twin's own: max|err| {max(e for e, _ in own):.3e}, worst ratio "
+          f"{max(r for _, r in own):.3f}")
+    if r > 1.0:
+        raise AssertionError(f"{label} disagrees with its plain twin")
+    return e
+
+
+def bf16_ulps(a, b):
+    """|a - b| of two bf16 tensors in units of the larger one's last
+    place (8 significant bits)."""
+    import torch
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    return (a - b).abs() / torch.ldexp(torch.ones_like(a), e - 8)
+
+
 def check_kernels(device):
     """Each kernel against its plain twin at the wmask step's shapes."""
     import torch
-    from factored_neus_tpu_torch.models.fields import SDFConfig, SDFNetwork
+    from factored_neus_tpu_torch.models.fields import (RenderingConfig,
+                                                       RenderingNetwork,
+                                                       SDFConfig, SDFNetwork)
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
+    from factored_neus_tpu_torch.ops import radiance_kernel as RK
     from factored_neus_tpu_torch.ops import sdf_kernel as SK
+    from factored_neus_tpu_torch.ops.embedder import positional_encoding
 
     cfg = SDFConfig()                                   # 8 x 256, skip 4
     net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(device)
@@ -86,6 +126,7 @@ def check_kernels(device):
     S = sum(i * o for i, o in zip(ins, outs))
     s_last = ins[-1] * outs[-1]
     wbytes = 4 * sum(i * o + o for i, o in zip(ins, outs))
+    stash_cols = GK.stash_columns(ws)
     gen = torch.Generator(device=device).manual_seed(1)
     x = torch.randn(N_CORE, 3, device=device, generator=gen) * 0.5
     results, gflop = [], {}
@@ -114,6 +155,7 @@ def check_kernels(device):
     if max(r_out, r_g) > 1.0 or not torch.isfinite(out_k).all():
         raise AssertionError("K1-fwd disagrees with its plain twin")
     fwd_flops = 2 * S + 2 * (S - s_last)
+    fwd_bytes = N_CORE * (12 + 4 * outs[-1] + 12) + wbytes
 
     def plain_fwd():
         with torch.no_grad():
@@ -123,8 +165,7 @@ def check_kernels(device):
           max(e_out, e_g),
           cuda_ms(lambda: GK.launch_forward(cfg, x, ws, bs), 10),
           cuda_ms(lambda: plain_fwd(), 5),
-          N_CORE * fwd_flops,
-          N_CORE * (12 + 4 * outs[-1] + 12) + wbytes)
+          N_CORE * fwd_flops, fwd_bytes)
 
     # K1-bwd: adds weight-gradient sums over 131,072 stacked rows.  The
     # reference is the plain twin in float64: in float32 the twin's own
@@ -155,32 +196,20 @@ def check_kernels(device):
     torch.cuda.synchronize()
     names = ["ct_x"] + [f"dW{l}" for l in range(L)] + [
         f"db{l}" for l in range(L)]
-    errs = [worst_scaled(a, b, 1e-4, 1e-5)
-            for a, b in zip([ct_x, *dws, *dbs], ref64)]
-    e_b = max(e for e, _ in errs)
-    r_b, at = max((r, n) for (_, r), n in zip(errs, names))
-    own = [worst_scaled(a, b, 1e-4, 1e-5) for a, b in zip(ref32, ref64)]
-    print(f"K1-bwd  N={N_CORE}: max|err| {e_b:.3e} over ct_x, dW, db against "
-          f"the f64 twin; worst ratio to (1e-4 + 1e-5 max|ref|) {r_b:.3f} "
-          f"in {at} (max|ref| "
-          f"{float(ref64[names.index(at)].abs().max()):.3e}); the f32 "
-          f"twin's own: max|err| {max(e for e, _ in own):.3e}, worst ratio "
-          f"{max(r for _, r in own):.3f}")
-    if r_b > 1.0:
-        raise AssertionError("K1-bwd disagrees with its plain twin")
+    e_b = check_vjp(f"K1-bwd  N={N_CORE}", [ct_x, *dws, *dbs], ref64, ref32,
+                    names)
     del ref32, ref64
     # primal and tangent forward (last layer not needed), the primal's
     # weight gradient and input cotangent, and the tangent's: its seed is
     # e0 / scale, so its last layer is a column of dW and a row of W
     bwd_flops = (4 * (S - s_last) + 2 * S + 2 * S
                  + 2 * (S - s_last) + 2 * ins[-1] + 2 * (S - s_last))
+    bwd_bytes = N_CORE * (12 + 4 * outs[-1] + 12 + 12) + 2 * wbytes
     entry("geometry_bwd", "factored_neus_tpu_torch/csrc/geometry_bwd.cu",
           "factored_neus_tpu/ops/pallas_geometry.py:846", e_b,
           cuda_ms(lambda: GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g),
                   5),
-          cuda_ms(plain32, 3),
-          N_CORE * bwd_flops,
-          N_CORE * (12 + 4 * outs[-1] + 12 + 12) + 2 * wbytes)
+          cuda_ms(plain32, 3), N_CORE * bwd_flops, bwd_bytes)
     del plain32
 
     # K2: the ladder's narrowed no-grad sweep (last layer = sdf column)
@@ -206,6 +235,153 @@ def check_kernels(device):
           cuda_ms(plain_sweep, 10), N_SWEEP * 2 * S_n,
           N_SWEEP * (12 + 4) + 4 * sum(
               w.numel() + b.numel() for w, b in zip(wn, bn)))
+
+    # K3-fwd: the radiance MLP of the same N points, f32 dots of width
+    # <= 289 summed in another order than cuBLAS
+    rcfg = RenderingConfig()                            # 289 -> 4 x 256 -> 3
+    rnet = RenderingNetwork(rcfg, torch.Generator().manual_seed(0)).to(
+        device)
+    with torch.no_grad():
+        rws, rbs = rnet.effective_weights()
+    d_feat = rcfg.d_feature
+    rin = [x, torch.randn(N_CORE, 3, device=device, generator=gen),
+           torch.nn.functional.normalize(
+               torch.randn(N_CORE, 3, device=device, generator=gen), dim=-1),
+           torch.randn(N_CORE, d_feat, device=device, generator=gen) * 0.5]
+    rS = sum(w.numel() for w in rws)                   # 271,360
+    rwbytes = 4 * sum(w.numel() + b.numel() for w, b in zip(rws, rbs))
+    rgb_k = RK.launch_forward(rcfg, rws, rbs, *rin)
+    with torch.no_grad():
+        rgb_p = RK.radiance_plain(rws, rbs, rcfg, *rin)
+    torch.cuda.synchronize()
+    e_r, r_r = worst(rgb_k, rgb_p, 1e-5, 0.0)
+    print(f"K3-fwd  N={N_CORE}: max|rgb err| {e_r:.3e} (tolerance 1e-5 abs: "
+          f"reordered f32 sums of <= 289 terms)")
+    if r_r > 1.0 or not torch.isfinite(rgb_k).all():
+        raise AssertionError("K3-fwd disagrees with its plain twin")
+
+    def plain_rad():
+        with torch.no_grad():
+            RK.radiance_plain(rws, rbs, rcfg, *rin)
+    entry("radiance_fwd", "factored_neus_tpu_torch/csrc/radiance_fwd.cu",
+          "factored_neus_tpu/ops/pallas_radiance.py:209", e_r,
+          cuda_ms(lambda: RK.launch_forward(rcfg, rws, rbs, *rin), 10),
+          cuda_ms(plain_rad, 10), N_CORE * 2 * rS,
+          N_CORE * 4 * (9 + d_feat + 3) + rwbytes)
+
+    # K3-bwd: dW and db sum 65,536 rows; against the f64 twin as K1-bwd.
+    # Where a pre-activation lies within f32 rounding of 0, an f64 forward
+    # falls on the other side of the ReLU's kink than the f32 one and
+    # computes another function: the f64 twin keeps the f32 masks.
+    ct_rgb = torch.randn(rgb_p.shape, device=device, generator=gen)
+    *rcts, rdws, rdbs = RK.launch_backward(rcfg, rws, rbs, *rin, ct_rgb)
+    rL = len(rws)
+
+    def x0(pts, normals, dirs, feat):
+        return torch.cat([pts, positional_encoding(dirs, rcfg.multires_view),
+                          normals, feat], -1)
+
+    masks, h = [], x0(*rin)
+    with torch.no_grad():
+        for l in range(rL - 1):
+            h = torch.relu(torch.nn.functional.linear(h, rws[l], rbs[l]))
+            masks.append(h > 0)
+    del h
+
+    def rad_pinned(ws_, bs_, *inputs):
+        h = x0(*inputs)
+        for l, (w, b) in enumerate(zip(ws_, bs_)):
+            h = torch.nn.functional.linear(h, w, b)
+            if l < rL - 1:
+                h = h * masks[l].to(h.dtype)
+        return torch.sigmoid(h)
+
+    def plain_rad_vjp(dtype, fn):
+        leaves = [t.to(dtype).clone().requires_grad_(True)
+                  for t in [*rin, *rws, *rbs]]
+
+        def run():
+            with torch.enable_grad():
+                rgb = fn(leaves[4:4 + rL], leaves[4 + rL:], *leaves[:4])
+            return torch.autograd.grad(rgb, leaves, ct_rgb.to(dtype))
+        return run
+
+    ref64 = [r.float() for r in plain_rad_vjp(torch.float64, rad_pinned)()]
+    ref32 = plain_rad_vjp(torch.float32, rad_pinned)()
+    rplain32 = plain_rad_vjp(torch.float32, lambda w, b, *a:
+                             RK.radiance_plain(w, b, rcfg, *a))
+    torch.cuda.synchronize()
+    rnames = ["ct_pts", "ct_normals", "ct_dirs", "ct_feat"] + [
+        f"dW{l}" for l in range(rL)] + [f"db{l}" for l in range(rL)]
+    e_rb = check_vjp(f"K3-bwd  N={N_CORE}", [*rcts, *rdws, *rdbs], ref64,
+                     ref32, rnames)
+    del ref32, ref64
+    entry("radiance_bwd", "factored_neus_tpu_torch/csrc/radiance_bwd.cu",
+          "factored_neus_tpu/ops/pallas_radiance.py:227", e_rb,
+          cuda_ms(lambda: RK.launch_backward(rcfg, rws, rbs, *rin, ct_rgb),
+                  5),
+          cuda_ms(rplain32, 5), N_CORE * 6 * rS,
+          N_CORE * 4 * (2 * (9 + d_feat) + 3) + 2 * rwbytes)
+    del rplain32
+
+    # K1-fwd-stash: K1-fwd's exact (out, grad) plus the bf16 stash; an
+    # entry may differ by one bf16 ulp where the two f32 sums round to
+    # neighbours, or by more near zero, within K1-fwd's f32 tolerance
+    out_k, grad_k, st_k = GK.launch_forward_stash(cfg, x, ws, bs)
+    out_p, grad_p, st_p = GK.geometry_fwd_stash_plain(ws, bs, x, cfg)
+    torch.cuda.synchronize()
+    e_out, r_out = worst(out_k, out_p, 1e-5, 0.0)
+    e_g, r_g = worst(grad_k, grad_p, 1e-5, 0.0)
+    ulps = bf16_ulps(st_k, st_p)
+    d_st = (st_k.float() - st_p.float()).abs()
+    n1 = int((ulps == 1.0).sum())
+    bad = int(((ulps > 1.0) & (d_st > 1e-5)).sum())
+    print(f"K1-fwd-stash N={N_CORE}: max|out err| {e_out:.3e}, max|grad "
+          f"err| {e_g:.3e} (1e-5 abs); stash [{N_CORE}, {stash_cols}] bf16: "
+          f"{int((ulps == 0).sum())} entries equal, {n1} one ulp apart, "
+          f"{int((ulps > 1.0).sum())} further apart but within 1e-5 (max "
+          f"{float(d_st.max()):.3e}), {bad} outside both")
+    if max(r_out, r_g) > 1.0 or bad:
+        raise AssertionError("K1-fwd-stash disagrees with its plain twin")
+    del out_p, grad_p, st_p, ulps, d_st
+
+    def plain_fwd_stash():
+        GK.geometry_fwd_stash_plain(ws, bs, x, cfg)
+    stash_bytes = N_CORE * 2 * stash_cols
+    entry("geometry_fwd_stash",
+          "factored_neus_tpu_torch/csrc/geometry_fwd.cu",
+          "factored_neus_tpu/ops/pallas_geometry.py:764", max(e_out, e_g),
+          cuda_ms(lambda: GK.launch_forward_stash(cfg, x, ws, bs), 10),
+          cuda_ms(plain_fwd_stash, 5), N_CORE * fwd_flops,
+          fwd_bytes + stash_bytes)
+
+    # K1-bwd-stash: the kernel's own stash fed to both; the f64 twin
+    # computes from the same bf16 values
+    got = GK.launch_backward_stash(cfg, x, ws, st_k, ct_out, ct_g)
+
+    def plain_bwd_stash(dtype):
+        args = [t.to(dtype) for t in (x, ct_out, ct_g)]
+        wsd = [w.to(dtype) for w in ws]
+        return lambda: GK.geometry_bwd_stash_plain(wsd, args[0], st_k,
+                                                   args[1], args[2], cfg)
+
+    flat = lambda r: [r[0], *r[1], *r[2]]
+    ref64 = [r.float() for r in flat(plain_bwd_stash(torch.float64)())]
+    splain32 = plain_bwd_stash(torch.float32)
+    ref32 = flat(splain32())
+    torch.cuda.synchronize()
+    e_sb = check_vjp(f"K1-bwd-stash N={N_CORE}", flat(got), ref64, ref32,
+                     names)
+    del ref32, ref64
+    entry("geometry_bwd_stash",
+          "factored_neus_tpu_torch/csrc/geometry_bwd.cu",
+          "factored_neus_tpu/ops/pallas_geometry.py:797", e_sb,
+          cuda_ms(lambda: GK.launch_backward_stash(cfg, x, ws, st_k, ct_out,
+                                                   ct_g), 5),
+          cuda_ms(splain32, 3),
+          N_CORE * (bwd_flops - 2 * (S - s_last)), bwd_bytes + stash_bytes)
+    del splain32, st_k
+
     for r in results:
         print(f"  {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} "
               f"ms) for {gflop[r['name']]:.1f} GFLOP, bound "
@@ -256,17 +432,17 @@ def write_sphere_scene(out_dir: str, n_views: int = 6, H: int = 128,
     np.savez(os.path.join(out_dir, "cameras_sphere.npz"), **cameras)
 
 
-def write_conf(tmp: str) -> str:
+def write_conf(tmp: str, steps: int = TRAIN_STEPS) -> str:
     """confs/wmask.conf with the scene, experiment directory and a
-    TRAIN_STEPS-step schedule pointed into tmp; writes the scene too."""
+    ``steps``-step schedule pointed into tmp; writes the scene too."""
     write_sphere_scene(os.path.join(tmp, "data", "sphere"))
     with open(os.path.join(HERE, "confs", "wmask.conf")) as f:
         text = f.read()
     subs = {r"base_exp_dir_geo = \S+": f"base_exp_dir_geo = {tmp}/exp/"
             "CASE_NAME/geometry",
             r"data_dir = \S+": f"data_dir = {tmp}/data/CASE_NAME/",
-            r"end_iter = 300000": f"end_iter = {TRAIN_STEPS}",
-            r"save_freq = \d+": f"save_freq = {TRAIN_STEPS}",
+            r"end_iter = 300000": f"end_iter = {steps}",
+            r"save_freq = \d+": f"save_freq = {steps}",
             r"val_freq = \d+": "val_freq = 100000",
             r"val_mesh_freq = \d+": "val_mesh_freq = 100000",
             r"report_freq = \d+": "report_freq = 10"}
@@ -280,18 +456,101 @@ def write_conf(tmp: str) -> str:
     return conf
 
 
-def train_wmask(tmp: str):
-    """Trains TRAIN_STEPS steps of full-width wmask.conf through the CLI;
+def all_kernels():
+    """Every launch counter of the port, by the kernel's name."""
+    from factored_neus_tpu_torch.ops import geometry_kernel as GK
+    from factored_neus_tpu_torch.ops import radiance_kernel as RK
+    from factored_neus_tpu_torch.ops import sdf_kernel as SK
+    return {k.name: k for k in (GK.K1_FWD, GK.K1_BWD, SK.SDF_FWD, RK.K3_FWD,
+                                RK.K3_BWD, GK.K1_FWD_STASH, GK.K1_BWD_STASH)}
+
+
+def check_step_against_cpu(tmp: str):
+    """One full-width stage-1 step at STEP_RAYS rays: the card (kernels)
+    against the CPU (twins), both float32, on the same weights, rays and
+    jitter; the loss and every parameter gradient at K1-bwd's per-tensor
+    tolerance.  Each one's distance from a float64 CPU step is printed
+    beside it: where a pre-activation of the radiance or RefColor MLP lies
+    within f32 rounding of 0, the float64 step falls on the other side of
+    the ReLU's kink, so it is no closer to what the float32 step
+    computes."""
+    import numpy as np
+    import torch
+    from factored_neus_tpu_torch.data import rays as RAYS
+    from factored_neus_tpu_torch.data.datasets import make_dataset
+    from factored_neus_tpu_torch.models.renderer import Stage1Model
+    from factored_neus_tpu_torch.train import stage1 as TS1
+    from factored_neus_tpu_torch.train.common import TrainConfig
+    from factored_neus_tpu_torch.utils import config as CFG
+
+    conf = CFG.load(write_conf(tmp), "sphere")
+    cpu = torch.device("cpu")
+    ds = make_dataset("dtu", conf["dataset"], cpu)
+    cfg = CFG.renderer_config(conf)
+    tcfg = TrainConfig.from_conf(conf)
+    rng = np.random.RandomState(0)
+    H, W = ds.images.shape[1:3]
+    px = torch.from_numpy(rng.randint(0, W, STEP_RAYS))
+    py = torch.from_numpy(rng.randint(0, H, STEP_RAYS))
+    batch = RAYS.rays_from_pixels(px, py, ds.images, ds.masks,
+                                  ds.intrinsics_all_inv, ds.pose_all, 0)
+    t_rand = torch.from_numpy(rng.uniform(-0.5, 0.5, (STEP_RAYS, 1)))
+    model = Stage1Model(cfg, CFG.variance_init_val(conf), seed=0,
+                        device=cpu)
+    kernels = all_kernels()
+    before = {n: k.launches for n, k in kernels.items()}
+
+    def step(m, device, dtype):
+        m = copy.deepcopy(m).to(device=device, dtype=dtype)
+        args = [t.to(device=device, dtype=dtype) for t in batch]
+        loss, _ = TS1.loss_on_batch(m, cfg, tcfg, *args, step=10,
+                                    t_rand=t_rand.to(device=device,
+                                                     dtype=dtype))
+        loss.backward()
+        return float(loss.detach()), {
+            n: p.grad.detach().to(cpu, torch.float64)
+            for n, p in m.named_parameters()}
+
+    l_card, g_card = step(model, torch.device("cuda"), torch.float32)
+    torch.cuda.synchronize()
+    launched = [n for n, k in kernels.items() if k.launches > before[n]]
+    l32, g32 = step(model, cpu, torch.float32)
+    l64, g64 = step(model, cpu, torch.float64)
+
+    def ratios(g, ref):
+        return {n: worst_scaled(g[n], ref[n], 1e-4, 1e-5)[1] for n in ref}
+
+    def loss_ratio(a, ref):
+        return abs(a - ref) / (1e-4 + 1e-5 * abs(ref))
+
+    rc = ratios(g_card, g32)
+    at = max(rc, key=rc.get)
+    l_ratio = loss_ratio(l_card, l32)
+    print(f"step check, {STEP_RAYS} rays full width (kernels {launched}): "
+          f"loss card {l_card:.8f} CPU {l32:.8f} (ratio {l_ratio:.3f}); "
+          f"worst gradient ratio to (1e-4 + 1e-5 max|ref|) {rc[at]:.3f} in "
+          f"{at}; from a float64 CPU step ({l64:.8f}): card loss ratio "
+          f"{loss_ratio(l_card, l64):.3f}, gradients "
+          f"{max(ratios(g_card, g64).values()):.3f}; CPU float32 loss ratio "
+          f"{loss_ratio(l32, l64):.3f}, gradients "
+          f"{max(ratios(g32, g64).values()):.3f}")
+    if l_ratio > 1.0 or rc[at] > 1.0 or not math.isfinite(l_card):
+        raise AssertionError("the card's stage-1 step disagrees with the "
+                             "CPU's")
+    if not {"geometry_fwd", "geometry_bwd", "sdf_fwd", "radiance_fwd",
+            "radiance_bwd"} <= set(launched):
+        raise AssertionError(f"the card's step ran only {launched}")
+
+
+def train_wmask(tmp: str, steps: int):
+    """Trains ``steps`` steps of full-width wmask.conf through the CLI;
     returns (runner, launches per kernel during training)."""
     import torch
     from factored_neus_tpu_torch import exp_runner
-    from factored_neus_tpu_torch.ops import geometry_kernel as GK
-    from factored_neus_tpu_torch.ops import sdf_kernel as SK
     from factored_neus_tpu_torch.utils import checkpoints as CK
 
-    conf = write_conf(tmp)
-    kernels = {"geometry_fwd": GK.K1_FWD, "geometry_bwd": GK.K1_BWD,
-               "sdf_fwd": SK.SDF_FWD}
+    conf = write_conf(tmp, steps)
+    kernels = all_kernels()
     for k in kernels.values():
         k.launches = 0
     runner = exp_runner.main(["--mode", "train", "--conf", conf, "--case",
@@ -305,14 +564,11 @@ def train_wmask(tmp: str):
               f"{m['rays_per_sec']:.0f}")
         if not math.isfinite(m["loss"]):
             raise AssertionError("non-finite training loss")
-    if runner.iter_step != TRAIN_STEPS or len(runner.history) != 3:
+    if runner.iter_step != steps or len(runner.history) != steps // 10:
         raise AssertionError("training did not run its steps")
-    print(f"launches during {TRAIN_STEPS} training steps: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} never launched in training")
+    print(f"launches during {steps} training steps: {launches}")
     ckpt = CK.load_checkpoint(runner.last_checkpoint)
-    if int(ckpt["iter_step"]) != TRAIN_STEPS:
+    if int(ckpt["iter_step"]) != steps:
         raise AssertionError("checkpoint iter_step")
     for k, v in runner.model.sdf.state_dict().items():
         if not torch.equal(torch.from_numpy(ckpt["sdf_network_fine"][k]),
@@ -320,6 +576,31 @@ def train_wmask(tmp: str):
             raise AssertionError(f"checkpoint does not load back: {k}")
     print(f"checkpoint {os.path.basename(runner.last_checkpoint)} loads back")
     return runner, launches
+
+
+STASH_PAIR = {"geometry_fwd_stash", "geometry_bwd_stash"}
+
+
+def stash_run() -> int:
+    """The second training run, in its own process so that the switch is
+    read at import: STASH_STEPS steps with FNEUS_PG_HBM_STASH=1.  Its last
+    line is {"launches": {...}, "rays_per_sec": ...}."""
+    sys.path.insert(0, HERE)
+    import torch
+    from factored_neus_tpu_torch.ops import geometry_kernel as GK
+    if not GK.STASH_BWD:
+        raise AssertionError("FNEUS_PG_HBM_STASH=1 did not switch the "
+                             "stash pair on")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        runner, launches = train_wmask(tmp, STASH_STEPS)
+    for name, n in launches.items():
+        if (n > 0) != (name not in ("geometry_fwd", "geometry_bwd")):
+            raise AssertionError(f"stash run: {name} launched {n} times")
+    print(json.dumps({"launches": launches,
+                      "rays_per_sec": runner.history[-1]["rays_per_sec"]}))
+    return 0
 
 
 def main() -> int:
@@ -331,10 +612,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:] == [STASH_RUN]:
+        return stash_run()
     sys.path.insert(0, HERE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from factored_neus_tpu_torch.ops import _cuda
+    from factored_neus_tpu_torch.ops import geometry_kernel as GK
+    if GK.STASH_BWD:
+        raise AssertionError("run without FNEUS_PG_HBM_STASH: the main "
+                             "path is the stash switch off")
 
     card = card_line()
     print(card)
@@ -348,11 +635,29 @@ def main() -> int:
     device = torch.device("cuda")
     kernels = check_kernels(device)
     with tempfile.TemporaryDirectory() as tmp:
-        runner, launches = train_wmask(tmp)
+        check_step_against_cpu(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        runner, launches = train_wmask(tmp, TRAIN_STEPS)
+    for name, n in launches.items():
+        if (n > 0) != (name not in STASH_PAIR):
+            raise AssertionError(f"main run: {name} launched {n} times")
     print(f"rays/s at iter {runner.history[-1]['iter']}: "
           f"{runner.history[-1]['rays_per_sec']:.0f} on {card}")
+
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), STASH_RUN], cwd=HERE,
+        env={**os.environ, "FNEUS_PG_HBM_STASH": "1"}, capture_output=True,
+        text=True, timeout=600)
+    print(child.stdout, end="")
+    if child.returncode != 0:
+        raise AssertionError(f"the stash run failed ({child.returncode}):\n"
+                             f"{child.stderr[-4000:]}")
+    stash = json.loads(child.stdout.strip().splitlines()[-1])
+    print(f"stash run rays/s over steps 1-{STASH_STEPS} (a new process: "
+          f"the first steps warm up): {stash['rays_per_sec']:.0f} on {card}")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = (stash["launches"] if k["name"] in STASH_PAIR
+                         else launches)[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

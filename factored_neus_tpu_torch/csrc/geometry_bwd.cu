@@ -23,16 +23,35 @@
 // The stacked pre-activations of one tile (9 x 64 x 260 floats) do not fit
 // in shared memory next to the two 64-row work tiles, so they go to a
 // per-block scratch that stays hot in L2.
+//
+// K1-bwd-stash (entry point geometry_bwd_stash) replaces
+// _make_geom.run_bwd_stash (body _build_bwd_kernel_from_stash): the primal
+// pre-activations come from the bf16 stash that K1-fwd-stash wrote, so
+// only the tangent forward is recomputed, as a half-tile product over the
+// 32 tangent rows; biases are not read.  Bound: operations, 2 S' fewer
+// FLOPs per row than K1-bwd (S' = S without the last layer), against
+// 4,018 more bytes read per row at full width.
+#include <cuda_bf16.h>
+
 #include "sdf_mlp.cuh"
 
 #define HALF (SDF_TILE / 2)
 
+// Column offset of layer l's pre-activations in a stash row.
+__device__ __forceinline__ int stash_col(const SdfDims& d, int l) {
+  int off = 0;
+  for (int i = 0; i < l; ++i) off += d.outs[i];
+  return off;
+}
+
+template <bool FROM_STASH>
 __global__ void __launch_bounds__(SDF_THREADS, 1)
 geometry_bwd_kernel(SdfDims d, const float* __restrict__ x,
                     const float* __restrict__ ct_out,
                     const float* __restrict__ ct_g, float* ct_x,
                     float* stash_all, float* part_all, long long P,
-                    int n_tiles) {
+                    int n_tiles, const __nv_bfloat16* __restrict__ bstash,
+                    int stash_cols) {
   extern __shared__ float smem[];
   const int ld = d.ld;
   float* E = smem;                              // [64][64] enc | denc
@@ -46,10 +65,23 @@ geometry_bwd_kernel(SdfDims d, const float* __restrict__ x,
   const float inv_scale = 1.f / d.scale;
   const int tid = threadIdx.x;
   const int lL = d.L - 1;
+  const int n_rows = d.n;
 
   bool first = true;
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, first = false) {
     const int row0 = t * HALF;
+    // primal pre-activation a_l of the tile's row r, column c: from the
+    // bf16 stash (so = the layer's column offset there), or from the
+    // scratch the stacked forward wrote
+    auto primal = [=](int l, int so, int r, int c) -> float {
+      if (FROM_STASH) {
+        const int row = row0 + r;
+        return row < n_rows ? __bfloat162float(
+                                  bstash[(size_t)row * stash_cols + so + c])
+                            : 0.f;
+      }
+      return stash[l * stash_layer + r * ld + c];
+    };
     if (tid < HALF) {
       const int row = row0 + tid;
       const bool valid = row < d.n;
@@ -66,23 +98,36 @@ geometry_bwd_kernel(SdfDims d, const float* __restrict__ x,
     __syncthreads();
 
     // stacked forward: primal rows take the bias and softplus, tangent rows
-    // the chain rule sigma(100 a) * ad; pre-activations go to the stash
+    // the chain rule sigma(100 a) * ad; pre-activations go to the scratch.
+    // From the stash only the tangent rows are computed.
     for (int l = 0; l < lL; ++l) {
       const float* xin = l == 0 ? E : A;
       const int ldx = l == 0 ? SDF_ENC_LD : ld;
       const int K = d.ins[l], N = d.outs[l];
-      SDF_TN_DISPATCH(N, tile_mm<TN>(xin, ldx, K, d.wT[l], N, N, R, ld));
+      if (FROM_STASH) {
+        SDF_TN_DISPATCH(N, (tile_mm<TN, 4>(xin + HALF * ldx, ldx, K,
+                                           d.wT[l], N, N, R + HALF * ld,
+                                           ld)));
+      } else {
+        SDF_TN_DISPATCH(N, tile_mm<TN>(xin, ldx, K, d.wT[l], N, N, R, ld));
+      }
       __syncthreads();
       const bool skip_next = (d.skip_mask >> (l + 1)) & 1;
       const float post = skip_next ? inv_sqrt2 : 1.f;
+      const int so = FROM_STASH ? stash_col(d, l) : 0;
       float* st = stash + l * stash_layer;
       for (int idx = tid; idx < HALF * N; idx += SDF_THREADS) {
         const int r = idx / N, c = idx - r * N;
-        const float a = R[r * ld + c] + __ldg(d.b[l] + c);
+        float a;
+        if (FROM_STASH) {
+          a = primal(l, so, r, c);
+        } else {
+          a = R[r * ld + c] + __ldg(d.b[l] + c);
+          st[r * ld + c] = a;
+          A[r * ld + c] = sp100(a) * post;
+        }
         const float ad = R[(HALF + r) * ld + c];
-        st[r * ld + c] = a;
         st[(HALF + r) * ld + c] = ad;
-        A[r * ld + c] = sp100(a) * post;
         A[(HALF + r) * ld + c] = sig100(a) * ad * post;
       }
       if (skip_next)
@@ -113,14 +158,16 @@ geometry_bwd_kernel(SdfDims d, const float* __restrict__ x,
     for (int l = lL; l >= 0; --l) {
       const int K = d.ins[l], N = d.outs[l];
       const bool skip = (d.skip_mask >> l) & 1;
-      // layer input (rebuilt from the stash; the forward left X_{L-1} in A)
-      if (l > 0 && l < lL) {
+      // layer input, rebuilt from the scratch or the stash (the stacked
+      // forward left X_{L-1} in A; from the stash only its tangent rows)
+      if (l > 0 && (FROM_STASH || l < lL)) {
         const int W = d.outs[l - 1];
         const float post = skip ? inv_sqrt2 : 1.f;
+        const int so = FROM_STASH ? stash_col(d, l - 1) : 0;
         const float* st = stash + (l - 1) * stash_layer;
         for (int idx = tid; idx < HALF * W; idx += SDF_THREADS) {
           const int r = idx / W, c = idx - r * W;
-          const float a = st[r * ld + c];
+          const float a = primal(l - 1, so, r, c);
           const float ad = st[(HALF + r) * ld + c];
           A[r * ld + c] = sp100(a) * post;
           A[(HALF + r) * ld + c] = sig100(a) * ad * post;
@@ -167,10 +214,11 @@ geometry_bwd_kernel(SdfDims d, const float* __restrict__ x,
         // h = sp(a): dh/da = s; hd = s ad: d(hd)/da = 100 s (1 - s) ad,
         // d(hd)/d(ad) = s
         const int W = d.outs[l - 1];
+        const int so = FROM_STASH ? stash_col(d, l - 1) : 0;
         const float* st = stash + (l - 1) * stash_layer;
         for (int idx = tid; idx < HALF * W; idx += SDF_THREADS) {
           const int r = idx / W, k = idx - r * W;
-          const float a = st[r * ld + k];
+          const float a = primal(l - 1, so, r, k);
           const float ad = st[(HALF + r) * ld + k];
           const float s = sig100(a);
           const float ds = 100.f * s * (1.f - s);
@@ -201,14 +249,46 @@ geometry_bwd_kernel(SdfDims d, const float* __restrict__ x,
   }
 }
 
-// out[j] = sum over blocks b (in order) of part[b][j]
-__global__ void reduce_partials_kernel(const float* __restrict__ part, int G,
-                                       long long P, float* out) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= P) return;
-  float s = 0.f;
-  for (int b = 0; b < G; ++b) s += part[(size_t)b * P + j];
-  out[j] = s;
+// The weight pointers start at index 7: [wT[L], wt[L], b[L]]; from the
+// stash at index 8, after the stash pointer, and without biases.
+template <bool FROM_STASH>
+static int launch_bwd(const int* ia, const unsigned long long* p, float scale,
+                      unsigned long long stream) {
+  SdfDims d;
+  int rc = sdf_dims_from_args(ia, scale, &d);
+  if (rc) return rc;
+  const int L = d.L;
+  const int pw = FROM_STASH ? 8 : 7;
+  long long P = 0;
+  int stash_cols = 0;
+  for (int l = 0; l < L; ++l) {
+    d.wT[l] = (const float*)p[pw + l];
+    d.wt[l] = (const float*)p[pw + L + l];
+    d.b[l] = FROM_STASH ? nullptr : (const float*)p[pw + 2 * L + l];
+    P += (long long)d.ins[l] * d.outs[l] + d.outs[l];
+    if (l + 1 < L) stash_cols += d.outs[l];
+  }
+  const __nv_bfloat16* bstash =
+      FROM_STASH ? (const __nv_bfloat16*)p[7] : nullptr;
+  const int grid = ia[6];
+  const int n_tiles = (d.n + HALF - 1) / HALF;
+  const size_t smem = (size_t)(2 * SDF_TILE * SDF_ENC_LD + 2 * SDF_TILE * d.ld) *
+                      sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      geometry_bwd_kernel<FROM_STASH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = (cudaStream_t)stream;
+  geometry_bwd_kernel<FROM_STASH><<<grid, SDF_THREADS, smem, s>>>(
+      d, (const float*)p[0], (const float*)p[1], (const float*)p[2],
+      (float*)p[3], (float*)p[4], (float*)p[5], P, n_tiles, bstash,
+      stash_cols);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int rb = 256;
+  reduce_partials_kernel<<<(int)((P + rb - 1) / rb), rb, 0, s>>>(
+      (const float*)p[5], grid, P, (float*)p[6]);
+  return (int)cudaGetLastError();
 }
 
 // Integer arguments: [L, multires, d_embed, ld, skip_mask, n, grid,
@@ -217,33 +297,13 @@ __global__ void reduce_partials_kernel(const float* __restrict__ part, int G,
 // followed by db [out].  Returns a cudaError_t value.
 extern "C" int geometry_bwd(const int* ia, const unsigned long long* p,
                             float scale, unsigned long long stream) {
-  SdfDims d;
-  int rc = sdf_dims_from_args(ia, scale, &d);
-  if (rc) return rc;
-  const int L = d.L;
-  long long P = 0;
-  for (int l = 0; l < L; ++l) {
-    d.wT[l] = (const float*)p[7 + l];
-    d.wt[l] = (const float*)p[7 + L + l];
-    d.b[l] = (const float*)p[7 + 2 * L + l];
-    P += (long long)d.ins[l] * d.outs[l] + d.outs[l];
-  }
-  const int grid = ia[6];
-  const int n_tiles = (d.n + HALF - 1) / HALF;
-  const size_t smem = (size_t)(2 * SDF_TILE * SDF_ENC_LD + 2 * SDF_TILE * d.ld) *
-                      sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      geometry_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  cudaStream_t s = (cudaStream_t)stream;
-  geometry_bwd_kernel<<<grid, SDF_THREADS, smem, s>>>(
-      d, (const float*)p[0], (const float*)p[1], (const float*)p[2],
-      (float*)p[3], (float*)p[4], (float*)p[5], P, n_tiles);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int rb = 256;
-  reduce_partials_kernel<<<(int)((P + rb - 1) / rb), rb, 0, s>>>(
-      (const float*)p[5], grid, P, (float*)p[6]);
-  return (int)cudaGetLastError();
+  return launch_bwd<false>(ia, p, scale, stream);
+}
+
+// Integer arguments as geometry_bwd.  Pointers: [x, ct_out, ct_grad, ct_x,
+// scratch, partials, grads, bf16 stash [n][sum of outs[0..L-2]], wT[L],
+// wt[L]]; the scratch holds only the tangent pre-activations.
+extern "C" int geometry_bwd_stash(const int* ia, const unsigned long long* p,
+                                  float scale, unsigned long long stream) {
+  return launch_bwd<true>(ia, p, scale, stream);
 }

@@ -14,11 +14,21 @@
 // persistent block reuses tile after tile, so it stays hot in L2.  The
 // sweep's first step needs no product: the cotangent e0/scale of the last
 // layer's output selects row 0 of its weight.
+//
+// K1-fwd-stash (entry point geometry_fwd_stash) replaces
+// _make_geom.run_fwd_stash (body _build_fwd_kernel_stashing): the same
+// kernel, which also writes the pre-activations of layers 0..L-2, rounded
+// to bf16 (round to nearest even), to a [n][sum of their widths] side
+// output for K1-bwd-stash: 4,018 bytes more per row at full width, still
+// far below the operations bound.  The stash never feeds (out, grad).
+#include <cuda_bf16.h>
+
 #include "sdf_mlp.cuh"
 
 __global__ void __launch_bounds__(SDF_THREADS, 1)
 geometry_fwd_kernel(SdfDims d, const float* __restrict__ x, float* out,
-                    float* grad, float* stash_all, int n_tiles) {
+                    float* grad, float* stash_all, int n_tiles,
+                    __nv_bfloat16* bstash, int stash_cols) {
   extern __shared__ float smem[];
   const int ld = d.ld;
   float* E = smem;                              // [64][64] enc, then its cot
@@ -41,6 +51,22 @@ geometry_fwd_kernel(SdfDims d, const float* __restrict__ x, float* out,
     }
     __syncthreads();
     forward_hidden(d, E, X, Y, stash, stash_layer);
+    if (bstash) {
+      // the hidden pre-activations, from the scratch to the bf16 stash
+      int so = 0;
+      for (int l = 0; l + 1 < d.L; ++l) {
+        const int N = d.outs[l];
+        const float* st = stash + l * stash_layer;
+        for (int idx = tid; idx < SDF_TILE * N; idx += SDF_THREADS) {
+          const int r = idx / N, c = idx - r * N;
+          const int row = row0 + r;
+          if (row < d.n)
+            bstash[(size_t)row * stash_cols + so + c] =
+                __float2bfloat16_rn(st[r * ld + c]);
+        }
+        so += N;
+      }
+    }
 
     // last layer -> [sdf / scale | feature]
     const int lL = d.L - 1;
@@ -115,19 +141,20 @@ geometry_fwd_kernel(SdfDims d, const float* __restrict__ x, float* out,
   }
 }
 
-// Integer arguments: [L, multires, d_embed, ld, skip_mask, n, grid,
-// ins[L], outs[L]].  Pointers: [x, out, grad, stash, wT[L], wt[L], b[L]].
-// Returns a cudaError_t value; 0 when the launch was accepted.
-extern "C" int geometry_fwd(const int* ia, const unsigned long long* p,
-                            float scale, unsigned long long stream) {
+// The weight pointers start at pw: [wT[L], wt[L], b[L]].
+static int launch_fwd(const int* ia, const unsigned long long* p, float scale,
+                      unsigned long long stream, __nv_bfloat16* bstash,
+                      int pw) {
   SdfDims d;
   int rc = sdf_dims_from_args(ia, scale, &d);
   if (rc) return rc;
   const int L = d.L;
+  int stash_cols = 0;
   for (int l = 0; l < L; ++l) {
-    d.wT[l] = (const float*)p[4 + l];
-    d.wt[l] = (const float*)p[4 + L + l];
-    d.b[l] = (const float*)p[4 + 2 * L + l];
+    d.wT[l] = (const float*)p[pw + l];
+    d.wt[l] = (const float*)p[pw + L + l];
+    d.b[l] = (const float*)p[pw + 2 * L + l];
+    if (l + 1 < L) stash_cols += d.outs[l];
   }
   const int grid = ia[6];
   const int n_tiles = (d.n + SDF_TILE - 1) / SDF_TILE;
@@ -139,6 +166,21 @@ extern "C" int geometry_fwd(const int* ia, const unsigned long long* p,
   if (e != cudaSuccess) return (int)e;
   geometry_fwd_kernel<<<grid, SDF_THREADS, smem, (cudaStream_t)stream>>>(
       d, (const float*)p[0], (float*)p[1], (float*)p[2], (float*)p[3],
-      n_tiles);
+      n_tiles, bstash, stash_cols);
   return (int)cudaGetLastError();
+}
+
+// Integer arguments: [L, multires, d_embed, ld, skip_mask, n, grid,
+// ins[L], outs[L]].  Pointers: [x, out, grad, stash, wT[L], wt[L], b[L]].
+// Returns a cudaError_t value; 0 when the launch was accepted.
+extern "C" int geometry_fwd(const int* ia, const unsigned long long* p,
+                            float scale, unsigned long long stream) {
+  return launch_fwd(ia, p, scale, stream, nullptr, 4);
+}
+
+// Integer arguments as geometry_fwd.  Pointers: [x, out, grad, scratch,
+// bf16 stash [n][sum of outs[0..L-2]], wT[L], wt[L], b[L]].
+extern "C" int geometry_fwd_stash(const int* ia, const unsigned long long* p,
+                                  float scale, unsigned long long stream) {
+  return launch_fwd(ia, p, scale, stream, (__nv_bfloat16*)p[4], 5);
 }

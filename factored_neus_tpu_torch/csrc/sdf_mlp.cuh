@@ -1,7 +1,8 @@
-// Shared device code of the SDF-MLP kernels (geometry forward/backward and
-// the forward-only sweep): the layer description, the positional encoding,
-// softplus(beta=100) and the two register-tiled f32 products every layer
-// runs on a 64-row tile held in shared memory.
+// Shared device code of the MLP kernels (geometry forward/backward, the
+// forward-only sweep and, through radiance_mlp.cuh, the radiance MLP): the
+// layer description, the positional encoding, softplus(beta=100), the two
+// register-tiled f32 products every layer runs on a 64-row tile held in
+// shared memory, and the fixed-order sum of per-block weight gradients.
 //
 // Design (Hopper, f32 CUDA cores): the full-width SDF MLP has ~2.1 MB of f32
 // weights, far above the 227 KB of shared memory a block may use, so weights
@@ -122,20 +123,21 @@ __device__ __forceinline__ void encode_backward_row(const float u[3],
   }
 }
 
-// Y[64][N] = X[64][K] @ B[K][N]; X, Y in shared memory (strides ldx, ldy),
-// B in global memory, row-major with stride ldb.  Columns >= N are neither
-// read nor written.
-template <int TN>
+// Y[8 RPW][N] = X[8 RPW][K] @ B[K][N]; X, Y in shared memory (strides ldx,
+// ldy), B in global memory, row-major with stride ldb.  Warp w owns rows
+// RPW w .. RPW w + RPW - 1: RPW = 8 is the full 64-row tile, RPW = 4 its
+// half.  Columns >= N are neither read nor written.
+template <int TN, int RPW = 8>
 __device__ __forceinline__ void tile_mm(const float* X, int ldx, int K,
                                         const float* __restrict__ B, int ldb,
                                         int N, float* Y, int ldy) {
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  float acc[8][TN];
+  float acc[RPW][TN];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < RPW; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  const float* xr = X + (ty * 8) * ldx;
+  const float* xr = X + (ty * RPW) * ldx;
 #pragma unroll 2
   for (int k = 0; k < K; ++k) {
     float bv[TN];
@@ -145,18 +147,18 @@ __device__ __forceinline__ void tile_mm(const float* X, int ldx, int K,
       bv[j] = n < N ? __ldg(B + (size_t)k * ldb + n) : 0.f;
     }
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < RPW; ++i) {
       const float a = xr[i * ldx + k];
 #pragma unroll
       for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a, bv[j], acc[i][j]);
     }
   }
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < RPW; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = tx + 32 * j;
-      if (n < N) Y[(ty * 8 + i) * ldy + n] = acc[i][j];
+      if (n < N) Y[(ty * RPW + i) * ldy + n] = acc[i][j];
     }
 }
 
@@ -205,6 +207,17 @@ __device__ __forceinline__ void tile_atb(const float* A, int lda, int M,
       }
     }
   }
+}
+
+// out[j] = sum over blocks b (in order) of part[b][j]: the fixed-order
+// second pass of the weight-gradient sums, so they are deterministic.
+__global__ void reduce_partials_kernel(const float* __restrict__ part, int G,
+                                       long long P, float* out) {
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= P) return;
+  float s = 0.f;
+  for (int b = 0; b < G; ++b) s += part[(size_t)b * P + j];
+  out[j] = s;
 }
 
 // Runtime dispatch on the number of 32-column groups a width needs.

@@ -2,7 +2,7 @@
 shapes.  Counterpart of factored_neus_tpu/models/fields.py:
 
   SDFNetwork              value_sweep (K2) and value_grad_feat (K1)
-  RenderingNetwork        IDR-mode radiance MLP
+  RenderingNetwork        IDR-mode radiance MLP (K3)
   SingleVarianceNetwork   inv_s = exp(10 * variance)
   RefColor                surface reflection colour (diffuse + specular)
 
@@ -20,6 +20,7 @@ from torch import nn
 
 from ..ops import geometry_kernel as GK
 from ..ops import math as U
+from ..ops import radiance_kernel as RK
 from ..ops import sdf_kernel as SK
 from ..ops.embedder import positional_encoding
 from ..ops.mlp import WNLinear, dense_init_, sdf_geometric_init_
@@ -50,7 +51,22 @@ class SDFConfig:
                 + (self.d_out,))
 
 
-class SDFNetwork(nn.Module):
+class _WNLayers(nn.Module):
+    """A stack of weight-normed layers lin0 .. lin{num_layers - 2}, handed
+    to the kernels as effective weights."""
+
+    def layers(self) -> List[WNLinear]:
+        return [getattr(self, f"lin{l}") for l in range(self.num_layers - 1)]
+
+    def effective_weights(self) -> Tuple[List[torch.Tensor],
+                                         List[torch.Tensor]]:
+        """Per-layer [out, in] weights (weight norm applied, differentiable
+        in g and v) and biases."""
+        ls = self.layers()
+        return [l.effective_weight() for l in ls], [l.bias for l in ls]
+
+
+class SDFNetwork(_WNLayers):
     """PE -> softplus(beta=100) MLP with skip concat / sqrt(2) -> [sdf | feat].
 
     Layer l maps dims[l] -> dims[l+1], minus d_embed when layer l+1 is a
@@ -74,16 +90,6 @@ class SDFNetwork(nn.Module):
         else:
             for lin in self.layers():
                 dense_init_(lin, gen)
-
-    def layers(self) -> List[WNLinear]:
-        return [getattr(self, f"lin{l}") for l in range(self.num_layers - 1)]
-
-    def effective_weights(self) -> Tuple[List[torch.Tensor],
-                                         List[torch.Tensor]]:
-        """Per-layer [out, in] weights (weight norm applied, differentiable
-        in g and v) and biases."""
-        ls = self.layers()
-        return [l.effective_weight() for l in ls], [l.bias for l in ls]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """[N, 3] -> [N, d_out] = [sdf / scale | feature] (plain PyTorch)."""
@@ -132,7 +138,7 @@ class RenderingConfig:
         return (d0,) + (self.d_hidden,) * self.n_layers + (self.d_out,)
 
 
-class RenderingNetwork(nn.Module):
+class RenderingNetwork(_WNLayers):
     def __init__(self, cfg: RenderingConfig,
                  gen: Optional[torch.Generator] = None):
         super().__init__()
@@ -147,23 +153,10 @@ class RenderingNetwork(nn.Module):
             setattr(self, f"lin{l}", lin)
 
     def forward(self, points, normals, view_dirs, feature_vectors):
-        cfg = self.cfg
-        if cfg.multires_view > 0:
-            view_dirs = positional_encoding(view_dirs, cfg.multires_view)
-        if cfg.mode == "idr":
-            x = torch.cat([points, view_dirs, normals, feature_vectors], -1)
-        elif cfg.mode == "no_view_dir":
-            x = torch.cat([points, normals, feature_vectors], -1)
-        elif cfg.mode == "no_normal":
-            x = torch.cat([points, view_dirs, feature_vectors], -1)
-        else:
-            raise ValueError(cfg.mode)
-        n = self.num_layers - 1
-        for l in range(n):
-            x = getattr(self, f"lin{l}")(x)
-            if l < n - 1:
-                x = torch.relu(x)
-        return torch.sigmoid(x) if cfg.squeeze_out else x
+        """rgb [N, d_out] through K3 (ops/radiance_kernel.py)."""
+        ws, bs = self.effective_weights()
+        return RK.radiance(ws, bs, self.cfg, points, normals, view_dirs,
+                           feature_vectors)
 
 
 class SingleVarianceNetwork(nn.Module):

@@ -5,8 +5,9 @@ The surface branch keeps the JAX package's static-shape form: RefColor runs
 for every ray at the two samples bracketing the first SDF sign change and
 the result is blended in where the ray has a crossing, which gives the
 reference's masked-gather results.  SDF value, feature and gradient come
-from K1 (ops/geometry_kernel.py); the up-sampling ladder's SDF sweeps from
-K2 (ops/sdf_kernel.py).
+from K1 (ops/geometry_kernel.py), or from its HBM-stash pair under
+FNEUS_PG_HBM_STASH=1; the up-sampling ladder's SDF sweeps from K2
+(ops/sdf_kernel.py); the radiance MLP from K3 (ops/radiance_kernel.py).
 """
 from __future__ import annotations
 

@@ -5,15 +5,17 @@ shared library with a plain C interface and loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds).  All sources are compiled at
 once, one ``nvcc`` process each, at the first launch or when
 ``build_all()`` is called, into ``build/kernels/`` beside the package; a
-library is rebuilt when it is older than its source or the shared header.
+library is rebuilt when it is older than its source or any shared header
+(``csrc/*.cuh``).
 
 Every exported C function has the signature
 ``int fn(const int* iargs, const unsigned long long* ptrs, float scale,
 unsigned long long stream)`` and returns a ``cudaError_t`` value: the
 wrapper raises on anything but 0, so a refused launch never passes
 silently.  Integer arguments are
-``[L, multires, d_embed, ld, skip_mask, n, grid, ins[L], outs[L]]``; the
-pointer list is documented beside each C function.
+``[L, multires, d_embed, ld, skip_mask, n, grid, ins[L], outs[L]]`` (the
+radiance kernels, which have no skip, take squeeze_out in place of
+skip_mask); the pointer list is documented beside each C function.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "kernels")
-SOURCES = ("geometry_fwd.cu", "geometry_bwd.cu", "sdf_fwd.cu")
+SOURCES = ("geometry_fwd.cu", "geometry_bwd.cu", "sdf_fwd.cu",
+           "radiance_fwd.cu", "radiance_bwd.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -59,8 +62,8 @@ def _stale(src: str) -> bool:
     lib = _lib_path(src)
     if not os.path.exists(lib):
         return True
-    newest = max(os.path.getmtime(os.path.join(CSRC, f))
-                 for f in (src, "sdf_mlp.cuh"))
+    deps = [src] + [f for f in os.listdir(CSRC) if f.endswith(".cuh")]
+    newest = max(os.path.getmtime(os.path.join(CSRC, f)) for f in deps)
     return os.path.getmtime(lib) < newest
 
 

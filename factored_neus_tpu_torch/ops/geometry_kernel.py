@@ -1,5 +1,5 @@
 """K1: the fused SDF geometry core and its backward (csrc/geometry_fwd.cu,
-csrc/geometry_bwd.cu), with their plain PyTorch twin.
+csrc/geometry_bwd.cu), with their plain PyTorch twins.
 
 Counterpart of factored_neus_tpu/ops/pallas_geometry.py
 (sdf_value_grad_feat_pallas).  ``geometry(ws, bs, x, cfg)`` returns
@@ -11,35 +11,151 @@ backward through the kernel.  The weights it takes are the EFFECTIVE ones
 (weight norm applied outside in autograd), so gradients still reach g and v.
 On a CPU tensor the wrapper runs the plain twin: the SDF forward plus
 ``torch.autograd.grad(create_graph=True)``.
+
+The HBM-stash pair (``stash=True``, default from ``FNEUS_PG_HBM_STASH`` as
+in the JAX package): K1-fwd-stash also returns the hidden layers'
+pre-activations in bf16 [N, sum of their widths], and K1-bwd-stash takes
+the primal activations from them and recomputes only the tangent forward.
+Its twins are ``geometry_fwd_stash_plain`` and ``geometry_bwd_stash_plain``;
+on a CPU tensor the same autograd Function runs them.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+import os
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from . import _cuda
-from .sdf_kernel import TILE, kernel_iargs, sdf_forward_plain
+from .mlp import softplus_beta
+from .sdf_kernel import TILE, kernel_iargs, layer_dims, sdf_forward_plain
 
 K1_FWD = _cuda.CudaKernel("geometry_fwd", "geometry_fwd.cu", "geometry_fwd")
 K1_BWD = _cuda.CudaKernel("geometry_bwd", "geometry_bwd.cu", "geometry_bwd")
+K1_FWD_STASH = _cuda.CudaKernel("geometry_fwd_stash", "geometry_fwd.cu",
+                                "geometry_fwd_stash")
+K1_BWD_STASH = _cuda.CudaKernel("geometry_bwd_stash", "geometry_bwd.cu",
+                                "geometry_bwd_stash")
+# the HBM-stash pair instead of K1-fwd / K1-bwd when ``geometry`` is not
+# told otherwise; read once, at import, like the JAX package's switch
+STASH_BWD = os.environ.get("FNEUS_PG_HBM_STASH", "0") == "1"
 
 
 def geometry_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
-                   x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+                   x: torch.Tensor, cfg,
+                   preacts: Optional[List[torch.Tensor]] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain twin: (out, grad) from one forward and one autograd VJP that
-    stays differentiable when gradients are enabled."""
+    stays differentiable when gradients are enabled.  The hidden layers'
+    pre-activations are appended to ``preacts`` when it is given."""
     create = torch.is_grad_enabled()
     with torch.enable_grad():
         xg = x if x.requires_grad else x.detach().requires_grad_(True)
-        out = sdf_forward_plain(ws, bs, cfg, xg)
+        out = sdf_forward_plain(ws, bs, cfg, xg, preacts)
         (grad,) = torch.autograd.grad(out[:, 0].sum(), xg,
                                       create_graph=create)
     if not create:
         return out.detach(), grad.detach()
     return out, grad
+
+
+def geometry_fwd_stash_plain(ws, bs, x: torch.Tensor, cfg
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Twin of K1-fwd-stash: (out, grad, stash), the stash being the
+    hidden pre-activations [N, sum of outs[:-1]] rounded to bf16."""
+    pre: List[torch.Tensor] = []
+    with torch.no_grad():
+        out, grad = geometry_plain(ws, bs, x, cfg, pre)
+    stash = torch.cat([a.detach() for a in pre], -1).to(torch.bfloat16)
+    return out, grad, stash
+
+
+def _encode_with_tangent(u, v, multires: int):
+    """The positional encoding of u and its tangent along v."""
+    enc, denc = [u], [v]
+    for i in range(multires):
+        f = 2.0 ** i
+        s, c = torch.sin(f * u), torch.cos(f * u)
+        enc += [s, c]
+        denc += [c * (f * v), -s * (f * v)]
+    return torch.cat(enc, -1), torch.cat(denc, -1)
+
+
+def _encode_backward(u, v, r, rd, multires: int):
+    """Cotangent of u from those of the encoding (r) and of its tangent
+    along v (rd)."""
+    ct = r[:, :3]
+    for i in range(multires):
+        f = 2.0 ** i
+        o = 3 + 6 * i
+        s, c = torch.sin(f * u), torch.cos(f * u)
+        ct = (ct + f * (r[:, o:o + 3] * c - r[:, o + 3:o + 6] * s)
+              - f * f * v * (rd[:, o:o + 3] * s + rd[:, o + 3:o + 6] * c))
+    return ct
+
+
+def geometry_bwd_stash_plain(ws: Sequence[torch.Tensor], x: torch.Tensor,
+                             stash: torch.Tensor, ct_out: torch.Tensor,
+                             ct_grad: torch.Tensor, cfg
+                             ) -> Tuple[torch.Tensor, List[torch.Tensor],
+                                        List[torch.Tensor]]:
+    """Twin of K1-bwd-stash (pallas_geometry._build_bwd_kernel_from_stash):
+    (ct_x, dW per layer [out, in], db per layer) with the primal h and
+    sigma(100 a) taken from the bf16 stash and the tangent forward along
+    ct_grad recomputed; biases are not read.  Computes in x's dtype."""
+    dt = x.dtype
+    ins, _, _ = layer_dims(cfg, ws)
+    L = len(ws)
+    skip = {l for l in cfg.skip_in if 0 <= l < L}
+    inv_sqrt2 = 1.0 / math.sqrt(2.0)
+    s = cfg.scale
+    with torch.no_grad():
+        u, v = x * s, ct_grad * s
+        enc, denc = _encode_with_tangent(u, v, cfg.multires)
+        a = torch.split(stash.to(dt), [w.shape[0] for w in ws[:-1]], dim=1)
+        sig = [torch.sigmoid(100.0 * al) for al in a]
+        ad, xd = [], denc
+        for l in range(L - 1):
+            if l in skip:
+                xd = torch.cat([xd, denc], -1) * inv_sqrt2
+            ad.append(xd @ ws[l].t())
+            xd = sig[l] * ad[l]
+
+        r = ct_out.clone()
+        r[:, 0] = r[:, 0] / s
+        rd = torch.zeros_like(r)
+        rd[:, 0] = 1.0 / s
+        r_enc, r_denc = torch.zeros_like(enc), torch.zeros_like(enc)
+        dws: List[torch.Tensor] = [None] * L
+        dbs: List[torch.Tensor] = [None] * L
+        for l in range(L - 1, -1, -1):
+            if l == 0:
+                xl, xdl = enc, denc
+            else:
+                xl, xdl = softplus_beta(a[l - 1], 100.0), sig[l - 1] * ad[l - 1]
+                if l in skip:
+                    xl = torch.cat([xl, enc], -1) * inv_sqrt2
+                    xdl = torch.cat([xdl, denc], -1) * inv_sqrt2
+            dws[l] = r.t() @ xl + rd.t() @ xdl
+            dbs[l] = r.sum(0)
+            r_in, rd_in = r @ ws[l], rd @ ws[l]
+            if l in skip:
+                hw = ins[l] - cfg.d_embed
+                r_in, rd_in = r_in * inv_sqrt2, rd_in * inv_sqrt2
+                r_enc = r_enc + r_in[:, hw:]
+                r_denc = r_denc + rd_in[:, hw:]
+                r_in, rd_in = r_in[:, :hw], rd_in[:, :hw]
+            if l == 0:
+                r_enc, r_denc = r_enc + r_in, r_denc + rd_in
+            else:
+                sg = sig[l - 1]
+                ds = 100.0 * sg * (1.0 - sg)
+                r, rd = r_in * sg + rd_in * ds * ad[l - 1], rd_in * sg
+        ct_x = _encode_backward(u, v, r_enc, r_denc, cfg.multires) * s
+    return ct_x, dws, dbs
 
 
 def _weights(ws, bs):
@@ -48,36 +164,61 @@ def _weights(ws, bs):
     return wT, wt, [b.detach().contiguous() for b in bs]
 
 
-def launch_forward(cfg, x, ws, bs):
+def stash_columns(ws: Sequence[torch.Tensor]) -> int:
+    """Width of a stash row: the hidden layers' widths summed."""
+    return sum(int(w.shape[0]) for w in ws[:-1])
+
+
+def _launch_forward(kernel, cfg, x, ws, bs, with_stash: bool):
     dev = x.device
     wT, wt, bs = _weights(ws, bs)
     x = x.detach().contiguous()
-    _cuda.check_cuda_tensors("geometry forward", [x, *wT, *wt, *bs])
+    _cuda.check_cuda_tensors(kernel.name, [x, *wT, *wt, *bs])
     n, L = x.shape[0], len(ws)
     out = torch.empty(n, wt[-1].shape[0], device=dev, dtype=torch.float32)
     grad = torch.empty(n, 3, device=dev, dtype=torch.float32)
-    if n == 0:
-        return out, grad
-    grid = min(math.ceil(n / TILE), _cuda.sm_count(dev))
-    iargs, ld = kernel_iargs(cfg, ws, n, grid)
-    stash = torch.empty(grid * L * TILE * ld, device=dev, dtype=torch.float32)
-    K1_FWD.launch(iargs, [x, out, grad, stash, *wT, *wt, *bs], cfg.scale,
-                  dev)
+    stash = (torch.empty(n, stash_columns(ws), device=dev,
+                         dtype=torch.bfloat16) if with_stash else None)
+    if n > 0:
+        grid = min(math.ceil(n / TILE), _cuda.sm_count(dev))
+        iargs, ld = kernel_iargs(cfg, ws, n, grid)
+        scratch = torch.empty(grid * L * TILE * ld, device=dev,
+                              dtype=torch.float32)
+        side = [stash] if with_stash else []
+        kernel.launch(iargs, [x, out, grad, scratch, *side, *wT, *wt, *bs],
+                      cfg.scale, dev)
+    return out, grad, stash
+
+
+def launch_forward(cfg, x, ws, bs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1-fwd: (out [N, d_out], grad [N, 3])."""
+    out, grad, _ = _launch_forward(K1_FWD, cfg, x, ws, bs, False)
     return out, grad
 
 
-def launch_backward(cfg, x, ws, bs, ct_out, ct_grad
-                    ) -> Tuple[torch.Tensor, List[torch.Tensor],
-                               List[torch.Tensor]]:
-    """(ct_x [N, 3], dW per layer [out, in], db per layer [out])."""
+def launch_forward_stash(cfg, x, ws, bs
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1-fwd-stash: (out, grad, bf16 stash [N, stash_columns(ws)])."""
+    return _launch_forward(K1_FWD_STASH, cfg, x, ws, bs, True)
+
+
+def _launch_backward(kernel, cfg, x, ws, bs, stash, ct_out, ct_grad):
     dev = x.device
     wT, wt, bs_c = _weights(ws, bs)
     x = x.detach().contiguous()
     ct_out = ct_out.contiguous()
     ct_grad = ct_grad.contiguous()
-    _cuda.check_cuda_tensors("geometry backward",
+    _cuda.check_cuda_tensors(kernel.name,
                              [x, ct_out, ct_grad, *wT, *wt, *bs_c])
     n, L = x.shape[0], len(ws)
+    if stash is not None and (stash.device != dev or
+                              stash.dtype != torch.bfloat16 or
+                              not stash.is_contiguous() or
+                              tuple(stash.shape) != (n, stash_columns(ws))):
+        raise ValueError(f"{kernel.name}: expects a contiguous bf16 stash "
+                         f"[{n}, {stash_columns(ws)}] on {dev}, got "
+                         f"{stash.dtype} {tuple(stash.shape)} on "
+                         f"{stash.device}")
     ins = [w.shape[1] for w in wt]
     outs = [w.shape[0] for w in wt]
     sizes = [i * o + o for i, o in zip(ins, outs)]
@@ -88,17 +229,34 @@ def launch_backward(cfg, x, ws, bs, ct_out, ct_grad
         half = TILE // 2
         grid = min(math.ceil(n / half), _cuda.sm_count(dev))
         iargs, ld = kernel_iargs(cfg, ws, n, grid)
-        stash = torch.empty(grid * L * TILE * ld, device=dev,
-                            dtype=torch.float32)
+        scratch = torch.empty(grid * L * TILE * ld, device=dev,
+                              dtype=torch.float32)
         part = torch.empty(grid * P, device=dev, dtype=torch.float32)
-        K1_BWD.launch(iargs, [x, ct_out, ct_grad, ct_x, stash, part, grads,
-                              *wT, *wt, *bs_c], cfg.scale, dev)
+        tail = [stash, *wT, *wt] if stash is not None else [*wT, *wt, *bs_c]
+        kernel.launch(iargs, [x, ct_out, ct_grad, ct_x, scratch, part, grads,
+                              *tail], cfg.scale, dev)
     dws, dbs, off = [], [], 0
     for i, o in zip(ins, outs):
         dws.append(grads[off:off + i * o].view(i, o).t())
         dbs.append(grads[off + i * o:off + i * o + o])
         off += i * o + o
     return ct_x, dws, dbs
+
+
+def launch_backward(cfg, x, ws, bs, ct_out, ct_grad
+                    ) -> Tuple[torch.Tensor, List[torch.Tensor],
+                               List[torch.Tensor]]:
+    """K1-bwd: (ct_x [N, 3], dW per layer [out, in], db per layer [out])."""
+    return _launch_backward(K1_BWD, cfg, x, ws, bs, None, ct_out, ct_grad)
+
+
+def launch_backward_stash(cfg, x, ws, stash, ct_out, ct_grad
+                          ) -> Tuple[torch.Tensor, List[torch.Tensor],
+                                     List[torch.Tensor]]:
+    """K1-bwd-stash: as launch_backward, the primal taken from ``stash``
+    (biases are not needed)."""
+    return _launch_backward(K1_BWD_STASH, cfg, x, ws, [], stash, ct_out,
+                            ct_grad)
 
 
 class GeometryFn(torch.autograd.Function):
@@ -124,11 +282,45 @@ class GeometryFn(torch.autograd.Function):
         return (None, ct_x, *dws, *dbs)
 
 
+class GeometryStashFn(torch.autograd.Function):
+    """(x, *ws, *bs) -> (out, grad) through K1-fwd-stash, which also keeps
+    the bf16 stash for the backward through K1-bwd-stash; on a CPU tensor
+    through their twins."""
+
+    @staticmethod
+    def forward(ctx, cfg, x, *params):
+        L = len(params) // 2
+        ws, bs = params[:L], params[L:]
+        if x.is_cuda:
+            out, grad, stash = launch_forward_stash(cfg, x, ws, bs)
+        else:
+            out, grad, stash = geometry_fwd_stash_plain(ws, bs, x, cfg)
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, stash, *ws)
+        return out, grad
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct_out, ct_grad):
+        x, stash, *ws = ctx.saved_tensors
+        if x.is_cuda:
+            ct_x, dws, dbs = launch_backward_stash(ctx.cfg, x, ws, stash,
+                                                   ct_out, ct_grad)
+        else:
+            ct_x, dws, dbs = geometry_bwd_stash_plain(ws, x, stash, ct_out,
+                                                      ct_grad, ctx.cfg)
+        return (None, ct_x, *dws, *dbs)
+
+
 def geometry(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
-             x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out [N, d_out], grad [N, 3]), differentiable in x, ws and bs."""
+             x: torch.Tensor, cfg, stash: Optional[bool] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [N, d_out], grad [N, 3]), differentiable in x, ws and bs;
+    through the HBM-stash pair when ``stash`` (default STASH_BWD)."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"geometry: unsupported device {x.device}")
+    if STASH_BWD if stash is None else stash:
+        return GeometryStashFn.apply(cfg, x, *ws, *bs)
     if x.is_cuda:
         return GeometryFn.apply(cfg, x, *ws, *bs)
-    if x.device.type == "cpu":
-        return geometry_plain(ws, bs, x, cfg)
-    raise ValueError(f"geometry: unsupported device {x.device}")
+    return geometry_plain(ws, bs, x, cfg)

@@ -14,7 +14,7 @@ shapes and the SDF config (positional encoding, skip layers, scale).
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -59,9 +59,12 @@ def kernel_iargs(cfg, ws, n: int, grid: int) -> Tuple[List[int], int]:
 
 
 def sdf_forward_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
-                      cfg, x: torch.Tensor) -> torch.Tensor:
+                      cfg, x: torch.Tensor,
+                      preacts: Optional[List[torch.Tensor]] = None
+                      ) -> torch.Tensor:
     """[N, 3] -> [N, d_out] = [sdf / scale | feature], the kernels' math in
-    plain PyTorch (fields.sdf_apply of the JAX package)."""
+    plain PyTorch (fields.sdf_apply of the JAX package).  The hidden
+    layers' pre-activations are appended to ``preacts`` when it is given."""
     enc = x * cfg.scale
     if cfg.multires > 0:
         enc = positional_encoding(enc, cfg.multires)
@@ -72,6 +75,8 @@ def sdf_forward_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
             h = torch.cat([h, enc], dim=-1) * inv_sqrt2
         h = torch.nn.functional.linear(h, w, b)
         if l < len(ws) - 1:
+            if preacts is not None:
+                preacts.append(h)
             h = softplus_beta(h, 100.0)
     return torch.cat([h[:, :1] / cfg.scale, h[:, 1:]], dim=-1)
 

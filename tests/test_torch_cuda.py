@@ -10,8 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from factored_neus_tpu_torch.models.fields import SDFConfig, SDFNetwork
+from factored_neus_tpu_torch.models.fields import (RenderingConfig,
+                                                   RenderingNetwork,
+                                                   SDFConfig, SDFNetwork)
 from factored_neus_tpu_torch.ops import geometry_kernel as GK
+from factored_neus_tpu_torch.ops import radiance_kernel as RK
 from factored_neus_tpu_torch.ops import sdf_kernel as SK
 
 
@@ -98,3 +101,133 @@ def test_autograd_function_and_launch_counts(cuda_device):
     for (name, a), b in zip(net.named_parameters(), ref.parameters()):
         torch.testing.assert_close(a.grad, b.grad, atol=1e-5, rtol=1e-4,
                                    msg=name)
+
+
+def bf16_ulps(a, b):
+    """|a - b| of two bf16 tensors in units of the larger one's last
+    place (8 significant bits)."""
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    return (a - b).abs() / torch.ldexp(torch.ones_like(a), e - 8)
+
+
+def stash_agrees(a, b):
+    """Each bf16 stash entry within one ulp of the other's or, near zero
+    where one ulp is finer than the f32 sums' own error, within K1-fwd's
+    f32 tolerance of 1e-5."""
+    return bool(((bf16_ulps(a, b) <= 1.0) |
+                 ((a.float() - b.float()).abs() <= 1e-5)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES)
+def test_stash_kernels_match_twins(cuda_device, case):
+    """K1-fwd-stash: exact (out, grad) and every stash entry within one
+    bf16 ulp of the twin's; K1-bwd-stash and its twin fed the kernel's own
+    stash."""
+    cfg, ws, bs, x = _net(case, cuda_device)
+    out_k, grad_k, st_k = GK.launch_forward_stash(cfg, x, ws, bs)
+    out_p, grad_p, st_p = GK.geometry_fwd_stash_plain(ws, bs, x, cfg)
+    torch.testing.assert_close(out_k, out_p, atol=1e-5, rtol=0)
+    torch.testing.assert_close(grad_k, grad_p, atol=1e-5, rtol=0)
+    assert st_k.dtype == torch.bfloat16 and st_k.shape == st_p.shape
+    assert stash_agrees(st_k, st_p)
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    ct_out = torch.randn(out_p.shape, device=cuda_device, generator=gen)
+    ct_g = torch.randn(x.shape, device=cuda_device, generator=gen)
+    got = GK.launch_backward_stash(cfg, x, ws, st_k, ct_out, ct_g)
+    want = GK.geometry_bwd_stash_plain(ws, x, st_k, ct_out, ct_g, cfg)
+    for a, b in zip([got[0], *got[1], *got[2]],
+                    [want[0], *want[1], *want[2]]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
+
+
+RAD_CASES = [  # (d_feature, d_hidden, n_layers, multires_view, n)
+    (64, 64, 3, 4, 300),
+    (64, 64, 1, 4, 150),
+    (32, 96, 2, 0, 77),
+    (256, 256, 4, 4, 1000),     # the wmask widths: 289 in, 256 hidden, 3 out
+]
+
+
+def _rad(case, device):
+    d_feature, d_hidden, n_layers, multires, n = case
+    cfg = RenderingConfig(d_feature=d_feature, d_hidden=d_hidden,
+                          n_layers=n_layers, multires_view=multires)
+    net = RenderingNetwork(cfg, torch.Generator().manual_seed(0)).to(device)
+    rng = np.random.RandomState(1)
+    dirs = rng.randn(n, 3)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    inputs = [rng.randn(n, 3) * 0.4, rng.randn(n, 3), dirs,
+              rng.randn(n, d_feature) * 0.5]
+    return cfg, net, [torch.from_numpy(a.astype(np.float32)).to(device)
+                      for a in inputs]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RAD_CASES)
+def test_radiance_kernels_match_twin(cuda_device, case):
+    cfg, net, inputs = _rad(case, cuda_device)
+    with torch.no_grad():
+        ws, bs = net.effective_weights()
+        want = RK.radiance_plain(ws, bs, cfg, *inputs)
+    torch.testing.assert_close(RK.launch_forward(cfg, ws, bs, *inputs), want,
+                               atol=1e-5, rtol=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    ct = torch.randn(want.shape, device=cuda_device, generator=gen)
+    *cts, dws, dbs = RK.launch_backward(cfg, ws, bs, *inputs, ct)
+    leaves = [t.clone().requires_grad_(True) for t in [*inputs, *ws, *bs]]
+    L = len(ws)
+    rgb = RK.radiance_plain(leaves[4:4 + L], leaves[4 + L:], cfg,
+                            *leaves[:4])
+    ref = torch.autograd.grad(rgb, leaves, ct)
+    for a, b in zip([*cts, *dws, *dbs], ref):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_radiance_function_and_launch_counts(cuda_device):
+    """RenderingNetwork on CUDA tensors: one K3-fwd and one K3-bwd launch,
+    and every parameter and input gradient equal to the plain twin's."""
+    cfg, net, inputs = _rad(RAD_CASES[0], cuda_device)
+    ref = RenderingNetwork(cfg, torch.Generator().manual_seed(0)).to(
+        cuda_device)
+
+    def run(model, fn):
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        rgb = fn(model, leaves)
+        (torch.mean(rgb ** 2) + rgb[:, 0].sum() * 1e-3).backward()
+        return [t.grad for t in leaves]
+
+    f0, b0 = RK.K3_FWD.launches, RK.K3_BWD.launches
+    got = run(net, lambda m, a: m(*a))
+    assert (RK.K3_FWD.launches - f0, RK.K3_BWD.launches - b0) == (1, 1)
+    want = run(ref, lambda m, a: RK.radiance_plain(
+        *m.effective_weights(), cfg, *a))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+    for (name, a), b in zip(net.named_parameters(), ref.parameters()):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-5, rtol=1e-4,
+                                   msg=name)
+
+    other = RenderingNetwork(RenderingConfig(
+        d_feature=64, d_hidden=64, n_layers=3, mode="no_view_dir", d_in=6,
+        multires_view=0)).to(cuda_device)
+    with pytest.raises(NotImplementedError, match="no_view_dir"):
+        other(inputs[0], inputs[1], inputs[2], inputs[3])
+
+
+@pytest.mark.gpu
+def test_stash_switch_launches_the_stash_pair(cuda_device, monkeypatch):
+    """With the switch on, value_grad_feat runs K1-fwd-stash and
+    K1-bwd-stash once each and neither K1-fwd nor K1-bwd."""
+    monkeypatch.setattr(GK, "STASH_BWD", True)
+    cfg, _, _, x = _net(CASES[0], cuda_device)
+    net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(cuda_device)
+    kernels = (GK.K1_FWD, GK.K1_BWD, GK.K1_FWD_STASH, GK.K1_BWD_STASH)
+    before = [k.launches for k in kernels]
+    s, f, g = net.value_grad_feat(x)
+    (((g.norm(dim=-1) - 1) ** 2).mean() + (f ** 2).mean()
+     + s.abs().mean()).backward()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [0, 0, 1, 1]

@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Where the time of one stage-1 step of the PyTorch port goes, on a GPU.
 
-    python3 tools/profile_torch_stage1.py
+    python3 tools/profile_torch_stage1.py            # K1-fwd / K1-bwd
+    python3 tools/profile_torch_stage1.py --stash    # the HBM-stash pair
 
 Trains full-width confs/wmask.conf on the analytic-sphere scene of
 chip_smoke.py: WARMUP steps, then a timed window of STEPS steps (host clock
 around steps that end in torch.cuda.synchronize) and a torch.profiler
 window of as many. Prints ms/step, rays/s, the device-busy share of the
-profiled window and device time by kernel, and writes the table as JSON to
-build/profile/profile_torch_stage1.json.
+profiled window and device time by kernel, each hand-written kernel named
+by its row of PERF.md's table, and writes the table as JSON to
+build/profile/profile_torch_stage1[_stash].json.  --stash sets
+FNEUS_PG_HBM_STASH=1 before the port is imported (the switch is read at
+import).
 """
 import json
 import os
@@ -20,9 +24,31 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(HERE, "build", "profile")
 STEPS = 10
 WARMUP = 5
+# device-side kernel name -> PERF.md's row (K1-fwd-stash runs K1-fwd's
+# __global__ function with its stash output switched on)
+TABLE_ROWS = (("geometry_bwd_kernel<true>", "K1-bwd-stash"),
+              ("geometry_bwd_kernel<false>", "K1-bwd"),
+              ("geometry_fwd_kernel", "K1-fwd"),
+              ("sdf_fwd_kernel", "K2"),
+              ("radiance_fwd_kernel", "K3-fwd"),
+              ("radiance_bwd_kernel", "K3-bwd"),
+              ("reduce_partials_kernel", "K1-bwd/K3-bwd partial sums"))
+
+
+def table_row(kernel: str, stash: bool) -> str:
+    for key, row in TABLE_ROWS:
+        if key in kernel:
+            return row + "-stash" if stash and row == "K1-fwd" else row
+    return ""
 
 
 def main() -> int:
+    stash = sys.argv[1:] == ["--stash"]
+    if sys.argv[1:] and not stash:
+        print("usage: profile_torch_stage1.py [--stash]", file=sys.stderr)
+        return 2
+    if stash:
+        os.environ["FNEUS_PG_HBM_STASH"] = "1"
     import torch
     if not torch.cuda.is_available():
         print("profile: no CUDA device", file=sys.stderr)
@@ -32,14 +58,17 @@ def main() -> int:
     from factored_neus_tpu_torch.data.datasets import make_dataset
     from factored_neus_tpu_torch.models.renderer import Stage1Model
     from factored_neus_tpu_torch.ops import _cuda
+    from factored_neus_tpu_torch.ops import geometry_kernel as GK
     from factored_neus_tpu_torch.train.common import TrainConfig
     from factored_neus_tpu_torch.train.stage1 import Stage1Trainer
     from factored_neus_tpu_torch.utils import config as CFG
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if GK.STASH_BWD != stash:
+        raise AssertionError("FNEUS_PG_HBM_STASH disagrees with --stash")
     card = chip_smoke.card_line()
-    print(card)
+    print(card, "HBM-stash pair" if stash else "K1-fwd / K1-bwd")
     _cuda.build_all()
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
@@ -81,7 +110,8 @@ def main() -> int:
         dev_us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0))
         if dev_us > 0:
-            rows.append({"name": e.key, "calls": e.count,
+            rows.append({"name": e.key, "row": table_row(e.key, stash),
+                         "calls": e.count,
                          "ms_per_step": dev_us / 1e3 / STEPS})
     rows.sort(key=lambda r: -r["ms_per_step"])
     busy = sum(r["ms_per_step"] for r in rows)
@@ -90,10 +120,11 @@ def main() -> int:
           f"{busy:.2f} ms/step ({100 * busy / step_ms:.1f}%)")
     for r in rows[:25]:
         print(f"  {r['ms_per_step']:9.3f} ms  {r['calls'] // STEPS:5d}x "
-              f" {r['name'][:100]}")
+              f" {r['row'] or '-':>26}  {r['name'][:80]}")
     os.makedirs(OUT, exist_ok=True)
-    with open(os.path.join(OUT, "profile_torch_stage1.json"), "w") as f:
-        json.dump({"card": card, "step_ms": 1e3 * wall,
+    name = "profile_torch_stage1" + ("_stash" if stash else "") + ".json"
+    with open(os.path.join(OUT, name), "w") as f:
+        json.dump({"card": card, "stash": stash, "step_ms": 1e3 * wall,
                    "profiled_step_ms": step_ms, "busy_ms": busy,
                    "kernels": rows}, f, indent=1)
     return 0
