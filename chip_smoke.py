@@ -7,17 +7,25 @@
 2. builds the CUDA kernels of factored_neus_tpu_torch/csrc with nvcc;
 3. holds each kernel against its plain PyTorch twin at full width (f32,
    TF32 off) and times both with CUDA events;
-4. runs one full-width stage-1 step on the card (kernels) and the same step
-   on the CPU (twins) and compares the loss and every parameter gradient;
+4. runs one full-width stage-1 step of confs/wmask.conf and one of
+   confs/womask.conf (background NeRF) on the card (kernels) and the same
+   steps on the CPU (twins), and compares the loss and every parameter
+   gradient;
 5. writes the analytic-sphere DTU scene (6 views, 128 x 160) with the
    port's PNG writer and trains 30 steps of confs/wmask.conf on it through
    the port's CLI, with every launch counter set to 0 just before;
-6. trains 10 more steps in a subprocess with the HBM-stash switch on
-   (FNEUS_PG_HBM_STASH=1, read at import), counters at 0 there too;
-7. checks finite losses, that every kernel launched during training (the
-   stash pair only in the stash run, K1-fwd and K1-bwd never there), and
-   that the checkpoint loads back;
-8. prints {"kernels": [...]}, the card line, and as its last line
+6. extracts the 512^3 mesh of that run's checkpoint through the CLI
+   (--mode validate_mesh --is_continue; the grid fill on K2), counters at
+   0 just before, checks it, and holds a 64^3 grid filled on the card
+   against the CPU twin's;
+7. trains 10 more wmask steps in a subprocess with the HBM-stash switch on
+   (FNEUS_PG_HBM_STASH=1, read at import), and 20 steps of
+   confs/womask.conf in another with the split backward
+   (FNEUS_PG_STACKED=0), counters at 0 there too;
+8. checks finite losses, that each run launched exactly its kernels (the
+   stash pair only in the stash run, K1-bwd-split only in the split run),
+   and that the checkpoint loads back;
+9. prints {"kernels": [...]}, the card line, and as its last line
    {"ok": true, "device": {...}}.
 Any failure raises; the script then exits non-zero without the last line.
 """
@@ -29,6 +37,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 F32_PEAK = 67e12        # H100 SXM f32 FLOP/s outside the tensor cores
@@ -37,8 +46,17 @@ N_CORE = 512 * 128      # render-core points of one wmask step
 N_SWEEP = 512 * 64      # points of the ladder's first (largest) sweep
 TRAIN_STEPS = 30
 STASH_STEPS = 10
-STEP_RAYS = 64          # batch of the card-vs-CPU step check
+SPLIT_STEPS = 20
+STEP_RAYS = 64          # batch of the card-vs-CPU step checks
 STASH_RUN = "--stash-run"
+SPLIT_RUN = "--split-run"
+MESH_RES = 512
+GRID_CHECK_RES = 64
+# the 512^3 card mesh's mean vertex radius against the CPU twin's 64^3 mesh
+# of the same weights (a smooth surface's mean radius barely moves between
+# the two grids), and the range of the geometric init's radius over seeds
+RADIUS_TOL = 0.01
+RADIUS_BAND = (0.25, 0.8)
 
 
 def card_line() -> str:
@@ -198,7 +216,13 @@ def check_kernels(device):
         f"db{l}" for l in range(L)]
     e_b = check_vjp(f"K1-bwd  N={N_CORE}", [ct_x, *dws, *dbs], ref64, ref32,
                     names)
-    del ref32, ref64
+    # K1-bwd-split: the same function with the chains as separate
+    # half-tile products; the same f64 reference and criterion
+    got = GK.launch_backward_split(cfg, x, ws, bs, ct_out, ct_g)
+    torch.cuda.synchronize()
+    e_sp = check_vjp(f"K1-bwd-split N={N_CORE}", [got[0], *got[1], *got[2]],
+                     ref64, ref32, names)
+    del ref32, ref64, got
     # primal and tangent forward (last layer not needed), the primal's
     # weight gradient and input cotangent, and the tangent's: its seed is
     # e0 / scale, so its last layer is a column of dW and a row of W
@@ -209,6 +233,12 @@ def check_kernels(device):
           "factored_neus_tpu/ops/pallas_geometry.py:846", e_b,
           cuda_ms(lambda: GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g),
                   5),
+          cuda_ms(plain32, 3), N_CORE * bwd_flops, bwd_bytes)
+    entry("geometry_bwd_split",
+          "factored_neus_tpu_torch/csrc/geometry_bwd.cu",
+          "factored_neus_tpu/ops/pallas_geometry.py:529", e_sp,
+          cuda_ms(lambda: GK.launch_backward_split(cfg, x, ws, bs, ct_out,
+                                                   ct_g), 5),
           cuda_ms(plain32, 3), N_CORE * bwd_flops, bwd_bytes)
     del plain32
 
@@ -385,7 +415,8 @@ def check_kernels(device):
     for r in results:
         print(f"  {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} "
               f"ms) for {gflop[r['name']]:.1f} GFLOP, bound "
-              f"{r['bound_ms']:.3f} ms by {r['bound_by']}")
+              f"{r['bound_ms']:.3f} ms by {r['bound_by']} "
+              f"({100 * r['bound_ms'] / r['ms']:.1f}% of it)")
     return results
 
 
@@ -432,11 +463,12 @@ def write_sphere_scene(out_dir: str, n_views: int = 6, H: int = 128,
     np.savez(os.path.join(out_dir, "cameras_sphere.npz"), **cameras)
 
 
-def write_conf(tmp: str, steps: int = TRAIN_STEPS) -> str:
-    """confs/wmask.conf with the scene, experiment directory and a
+def write_conf(tmp: str, steps: int = TRAIN_STEPS,
+               base: str = "wmask.conf") -> str:
+    """confs/<base> with the scene, experiment directory and a
     ``steps``-step schedule pointed into tmp; writes the scene too."""
     write_sphere_scene(os.path.join(tmp, "data", "sphere"))
-    with open(os.path.join(HERE, "confs", "wmask.conf")) as f:
+    with open(os.path.join(HERE, "confs", base)) as f:
         text = f.read()
     subs = {r"base_exp_dir_geo = \S+": f"base_exp_dir_geo = {tmp}/exp/"
             "CASE_NAME/geometry",
@@ -450,7 +482,7 @@ def write_conf(tmp: str, steps: int = TRAIN_STEPS) -> str:
         text, n = re.subn(pat, rep, text)
         if n != 1:
             raise AssertionError(f"conf edit {pat!r} matched {n} times")
-    conf = os.path.join(tmp, "wmask.conf")
+    conf = os.path.join(tmp, base)
     with open(conf, "w") as f:
         f.write(text)
     return conf
@@ -462,17 +494,36 @@ def all_kernels():
     from factored_neus_tpu_torch.ops import radiance_kernel as RK
     from factored_neus_tpu_torch.ops import sdf_kernel as SK
     return {k.name: k for k in (GK.K1_FWD, GK.K1_BWD, SK.SDF_FWD, RK.K3_FWD,
-                                RK.K3_BWD, GK.K1_FWD_STASH, GK.K1_BWD_STASH)}
+                                RK.K3_BWD, GK.K1_FWD_STASH, GK.K1_BWD_STASH,
+                                GK.K1_BWD_SPLIT)}
 
 
-def check_step_against_cpu(tmp: str):
-    """One full-width stage-1 step at STEP_RAYS rays: the card (kernels)
-    against the CPU (twins), both float32, on the same weights, rays and
-    jitter; the loss and every parameter gradient at K1-bwd's per-tensor
-    tolerance.  Each one's distance from a float64 CPU step is printed
-    beside it: where a pre-activation of the radiance or RefColor MLP lies
-    within f32 rounding of 0, the float64 step falls on the other side of
-    the ReLU's kink, so it is no closer to what the float32 step
+# the kernels each training run launches, and only those
+SHARED = {"sdf_fwd", "radiance_fwd", "radiance_bwd"}
+STASH_PAIR = {"geometry_fwd_stash", "geometry_bwd_stash"}
+MAIN_SET = SHARED | {"geometry_fwd", "geometry_bwd"}
+STASH_SET = SHARED | STASH_PAIR
+SPLIT_SET = SHARED | {"geometry_fwd", "geometry_bwd_split"}
+
+
+def check_launched(label: str, launches, want) -> None:
+    got = {n for n, c in launches.items() if c > 0}
+    if got != want:
+        raise AssertionError(f"{label}: launched {sorted(got)}, expected "
+                             f"{sorted(want)} ({launches})")
+
+
+def check_step_against_cpu(tmp: str, base: str = "wmask.conf",
+                           atol: float = 1e-4, rtol: float = 1e-5):
+    """One full-width stage-1 step of confs/<base> at STEP_RAYS rays: the
+    card (kernels) against the CPU (twins), both float32, on the same
+    weights, rays and jitters; the loss and every parameter gradient at
+    |err| <= atol + rtol max|ref| per tensor (wmask: K1-bwd's tolerance;
+    womask: test_torch_stage1's, 3e-4 + 2e-3, for the background NeRF's
+    cuBLAS sums).  Each one's distance from a float64 CPU step is printed
+    beside it: where a pre-activation of the radiance, RefColor or NeRF
+    MLP lies within f32 rounding of 0, the float64 step falls on the other
+    side of the ReLU's kink, so it is no closer to what the float32 step
     computes."""
     import numpy as np
     import torch
@@ -483,7 +534,7 @@ def check_step_against_cpu(tmp: str):
     from factored_neus_tpu_torch.train.common import TrainConfig
     from factored_neus_tpu_torch.utils import config as CFG
 
-    conf = CFG.load(write_conf(tmp), "sphere")
+    conf = CFG.load(write_conf(tmp, base=base), "sphere")
     cpu = torch.device("cpu")
     ds = make_dataset("dtu", conf["dataset"], cpu)
     cfg = CFG.renderer_config(conf)
@@ -495,6 +546,8 @@ def check_step_against_cpu(tmp: str):
     batch = RAYS.rays_from_pixels(px, py, ds.images, ds.masks,
                                   ds.intrinsics_all_inv, ds.pose_all, 0)
     t_rand = torch.from_numpy(rng.uniform(-0.5, 0.5, (STEP_RAYS, 1)))
+    t_out = torch.from_numpy(rng.uniform(0.0, 1.0, (STEP_RAYS,
+                                                    cfg.n_outside)))
     model = Stage1Model(cfg, CFG.variance_init_val(conf), seed=0,
                         device=cpu)
     kernels = all_kernels()
@@ -503,13 +556,15 @@ def check_step_against_cpu(tmp: str):
     def step(m, device, dtype):
         m = copy.deepcopy(m).to(device=device, dtype=dtype)
         args = [t.to(device=device, dtype=dtype) for t in batch]
-        loss, _ = TS1.loss_on_batch(m, cfg, tcfg, *args, step=10,
-                                    t_rand=t_rand.to(device=device,
-                                                     dtype=dtype))
+        loss, _ = TS1.loss_on_batch(
+            m, cfg, tcfg, *args, step=10,
+            t_rand=t_rand.to(device=device, dtype=dtype),
+            t_rand_out=t_out.to(device=device, dtype=dtype))
         loss.backward()
+        # the background NeRF takes no part where n_outside = 0
         return float(loss.detach()), {
             n: p.grad.detach().to(cpu, torch.float64)
-            for n, p in m.named_parameters()}
+            for n, p in m.named_parameters() if p.grad is not None}
 
     l_card, g_card = step(model, torch.device("cuda"), torch.float32)
     torch.cuda.synchronize()
@@ -517,18 +572,25 @@ def check_step_against_cpu(tmp: str):
     l32, g32 = step(model, cpu, torch.float32)
     l64, g64 = step(model, cpu, torch.float64)
 
+    if set(g_card) != set(g32) or (cfg.n_outside > 0) != any(
+            n.startswith("nerf.") for n in g_card):
+        raise AssertionError("the card's and the CPU's steps reached "
+                             "different parameters")
+
     def ratios(g, ref):
-        return {n: worst_scaled(g[n], ref[n], 1e-4, 1e-5)[1] for n in ref}
+        return {n: worst_scaled(g[n], ref[n], atol, rtol)[1] for n in ref}
 
     def loss_ratio(a, ref):
-        return abs(a - ref) / (1e-4 + 1e-5 * abs(ref))
+        return abs(a - ref) / (atol + rtol * abs(ref))
 
     rc = ratios(g_card, g32)
     at = max(rc, key=rc.get)
     l_ratio = loss_ratio(l_card, l32)
-    print(f"step check, {STEP_RAYS} rays full width (kernels {launched}): "
+    print(f"step check {base}, {STEP_RAYS} rays full width, {len(g32)} "
+          f"parameter tensors (kernels {launched}): "
           f"loss card {l_card:.8f} CPU {l32:.8f} (ratio {l_ratio:.3f}); "
-          f"worst gradient ratio to (1e-4 + 1e-5 max|ref|) {rc[at]:.3f} in "
+          f"worst gradient ratio to ({atol:g} + {rtol:g} max|ref|) "
+          f"{rc[at]:.3f} in "
           f"{at}; from a float64 CPU step ({l64:.8f}): card loss ratio "
           f"{loss_ratio(l_card, l64):.3f}, gradients "
           f"{max(ratios(g_card, g64).values()):.3f}; CPU float32 loss ratio "
@@ -537,19 +599,18 @@ def check_step_against_cpu(tmp: str):
     if l_ratio > 1.0 or rc[at] > 1.0 or not math.isfinite(l_card):
         raise AssertionError("the card's stage-1 step disagrees with the "
                              "CPU's")
-    if not {"geometry_fwd", "geometry_bwd", "sdf_fwd", "radiance_fwd",
-            "radiance_bwd"} <= set(launched):
+    if not MAIN_SET <= set(launched):
         raise AssertionError(f"the card's step ran only {launched}")
 
 
-def train_wmask(tmp: str, steps: int):
-    """Trains ``steps`` steps of full-width wmask.conf through the CLI;
-    returns (runner, launches per kernel during training)."""
+def train_run(tmp: str, steps: int, base: str = "wmask.conf"):
+    """Trains ``steps`` steps of full-width confs/<base> through the CLI;
+    returns (conf path, runner, launches per kernel during training)."""
     import torch
     from factored_neus_tpu_torch import exp_runner
     from factored_neus_tpu_torch.utils import checkpoints as CK
 
-    conf = write_conf(tmp, steps)
+    conf = write_conf(tmp, steps, base)
     kernels = all_kernels()
     for k in kernels.values():
         k.launches = 0
@@ -575,10 +636,107 @@ def train_wmask(tmp: str, steps: int):
                            v.cpu()):
             raise AssertionError(f"checkpoint does not load back: {k}")
     print(f"checkpoint {os.path.basename(runner.last_checkpoint)} loads back")
-    return runner, launches
+    return conf, runner, launches
 
 
-STASH_PAIR = {"geometry_fwd_stash", "geometry_bwd_stash"}
+def check_mesh(conf: str) -> None:
+    """--mode validate_mesh --is_continue at MESH_RES^3 on the checkpoint
+    of the run trained from ``conf``, counters at 0 just before: a
+    non-empty, closed mesh (every edge in two triangles) of finite
+    vertices in world space (the scene's scale mat is the identity), on
+    the SDF's zero set within a tenth of a grid cell (the plain twin
+    evaluates it); then a GRID_CHECK_RES^3 grid filled on the card (K2)
+    against the CPU twin's at 1e-5, and the mean vertex radius of the
+    card's mesh against that of the CPU twin's GRID_CHECK_RES^3 mesh of
+    the same checkpoint at RADIUS_TOL.  The geometric init (bias 0.5) is a
+    noisy sphere whose mean radius depends on the seed: over seeds 0-39
+    at full width, the port's init and the JAX package's both give mean
+    0.457 and std 0.07, range 0.28-0.67 (tools/init_mesh_radius.py), so
+    against the scene's 0.5 the radius is only held inside RADIUS_BAND."""
+    import numpy as np
+    import torch
+    from factored_neus_tpu_torch import exp_runner
+    from factored_neus_tpu_torch.meshing import extract as MEXT
+    from factored_neus_tpu_torch.meshing.ply import read_ply_mesh
+    from factored_neus_tpu_torch.native import marching_cubes
+    from factored_neus_tpu_torch.ops import sdf_kernel as SK
+
+    kernels = all_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    runner = exp_runner.main(["--mode", "validate_mesh", "--is_continue",
+                              "--conf", conf, "--case", "sphere", "--type",
+                              "dtu"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    if {n for n, c in launches.items() if c > 0} != {"sdf_fwd"}:
+        raise AssertionError(f"the mesh path launched {launches}")
+    if runner.iter_step != TRAIN_STEPS:
+        raise AssertionError("validate_mesh did not load the checkpoint")
+    v, t = read_ply_mesh(runner.last_mesh)
+    if len(t) == 0 or not np.isfinite(v).all():
+        raise AssertionError(f"mesh: {len(v)} vertices, {len(t)} triangles, "
+                             "or non-finite vertices")
+    radius = float(np.linalg.norm(v, axis=-1).mean())
+    edges = np.sort(np.concatenate([t[:, [0, 1]], t[:, [1, 2]],
+                                    t[:, [2, 0]]]), -1)
+    _, uses = np.unique(edges[:, 0] * len(v) + edges[:, 1],
+                        return_counts=True)
+    closed = bool((uses == 2).all())
+    ds, sdf = runner.dataset, runner.model.sdf
+    cell = float(np.max(ds.object_bbox_max - ds.object_bbox_min)) / (
+        MESH_RES - 1)
+    with torch.no_grad():
+        ws, bs = sdf.effective_weights()
+        vt = torch.from_numpy(v).float().cuda()
+        on = max(float(SK.sdf_forward_plain(ws, bs, sdf.cfg, c)[:, 0]
+                       .abs().max()) for c in vt.split(1 << 18))
+    times = runner.mesh_times
+    print(f"mesh {MESH_RES}^3 (iter {runner.iter_step}): {len(v)} "
+          f"vertices, {len(t)} triangles, closed {closed}; grid fill "
+          f"{times['fill_s']:.3f} s ({launches['sdf_fwd']} K2 launches), "
+          f"marching tetrahedra {times['march_s']:.3f} s, validate_mesh "
+          f"{wall:.3f} s in all; mean vertex radius {radius:.4f}; max "
+          f"|sdf(vertex)| {on:.3e} (cell {cell:.3e})")
+    if (not closed or on > 0.1 * cell
+            or not RADIUS_BAND[0] < radius < RADIUS_BAND[1]):
+        raise AssertionError("the mesh is open, off the SDF's zero set or "
+                             "outside the init's range of radii")
+
+    box = (ds.object_bbox_min, ds.object_bbox_max)
+    card = MEXT.extract_fields(*box, GRID_CHECK_RES,
+                               MEXT.sdf_grid_query(sdf), "cuda")
+    cpu = MEXT.extract_fields(*box, GRID_CHECK_RES, MEXT.sdf_grid_query(
+        copy.deepcopy(sdf).cpu()), "cpu")
+    err = float(np.abs(card - cpu).max())
+    print(f"grid {GRID_CHECK_RES}^3 card (K2) against the CPU twin: max|err| "
+          f"{err:.3e} (tolerance 1e-5 abs)")
+    if not err <= 1e-5:
+        raise AssertionError("the card's grid fill disagrees with the CPU's")
+    cv, _ = marching_cubes(cpu, 0.0)
+    lo, hi = (np.asarray(b, np.float32) for b in box)
+    cv = cv / (GRID_CHECK_RES - 1.0) * (hi - lo) + lo
+    cpu_radius = float(np.linalg.norm(cv, axis=-1).mean())
+    print(f"mean vertex radius: card {MESH_RES}^3 {radius:.4f}, CPU twin "
+          f"{GRID_CHECK_RES}^3 {cpu_radius:.4f} (tolerance {RADIUS_TOL})")
+    if not abs(radius - cpu_radius) <= RADIUS_TOL:
+        raise AssertionError("the card's mesh is off the CPU twin's surface")
+
+
+def subprocess_run(flag: str, env: dict, label: str) -> dict:
+    """Runs this script with ``flag`` in a child process (the switches are
+    read at import); returns its last line's JSON."""
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), flag], cwd=HERE,
+        env={**os.environ, **env}, capture_output=True, text=True,
+        timeout=600)
+    print(child.stdout, end="")
+    if child.returncode != 0:
+        raise AssertionError(f"the {label} run failed ({child.returncode}):"
+                             f"\n{child.stderr[-4000:]}")
+    return json.loads(child.stdout.strip().splitlines()[-1])
 
 
 def stash_run() -> int:
@@ -594,10 +752,35 @@ def stash_run() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with tempfile.TemporaryDirectory() as tmp:
-        runner, launches = train_wmask(tmp, STASH_STEPS)
-    for name, n in launches.items():
-        if (n > 0) != (name not in ("geometry_fwd", "geometry_bwd")):
-            raise AssertionError(f"stash run: {name} launched {n} times")
+        _, runner, launches = train_run(tmp, STASH_STEPS)
+    check_launched("stash run", launches, STASH_SET)
+    print(json.dumps({"launches": launches,
+                      "rays_per_sec": runner.history[-1]["rays_per_sec"]}))
+    return 0
+
+
+def split_run() -> int:
+    """The womask training run with the split backward, in its own
+    process so that the switch is read at import: SPLIT_STEPS steps of
+    confs/womask.conf with FNEUS_PG_STACKED=0, K1-bwd-split once a step
+    and K1-bwd never.  Its last line is {"launches": {...},
+    "rays_per_sec": ...}."""
+    sys.path.insert(0, HERE)
+    import torch
+    from factored_neus_tpu_torch.ops import geometry_kernel as GK
+    if GK.STACKED_BWD or GK.STASH_BWD:
+        raise AssertionError("FNEUS_PG_STACKED=0 did not switch K1-bwd-split "
+                             "on, or the stash switch is on")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        _, runner, launches = train_run(tmp, SPLIT_STEPS, "womask.conf")
+    if runner.cfg.n_outside != 32:
+        raise AssertionError("the womask run has no background NeRF")
+    check_launched("split run", launches, SPLIT_SET)
+    if launches["geometry_bwd_split"] != SPLIT_STEPS:
+        raise AssertionError("split run: K1-bwd-split did not launch once a "
+                             "step")
     print(json.dumps({"launches": launches,
                       "rays_per_sec": runner.history[-1]["rays_per_sec"]}))
     return 0
@@ -614,14 +797,17 @@ def main() -> int:
         return 2
     if sys.argv[1:] == [STASH_RUN]:
         return stash_run()
+    if sys.argv[1:] == [SPLIT_RUN]:
+        return split_run()
     sys.path.insert(0, HERE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from factored_neus_tpu_torch.ops import _cuda
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
-    if GK.STASH_BWD:
-        raise AssertionError("run without FNEUS_PG_HBM_STASH: the main "
-                             "path is the stash switch off")
+    if GK.STASH_BWD or not GK.STACKED_BWD:
+        raise AssertionError("run without FNEUS_PG_HBM_STASH and "
+                             "FNEUS_PG_STACKED: the main path is the stash "
+                             "switch off and the stacked backward")
 
     card = card_line()
     print(card)
@@ -637,27 +823,26 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         check_step_against_cpu(tmp)
     with tempfile.TemporaryDirectory() as tmp:
-        runner, launches = train_wmask(tmp, TRAIN_STEPS)
-    for name, n in launches.items():
-        if (n > 0) != (name not in STASH_PAIR):
-            raise AssertionError(f"main run: {name} launched {n} times")
-    print(f"rays/s at iter {runner.history[-1]['iter']}: "
-          f"{runner.history[-1]['rays_per_sec']:.0f} on {card}")
+        check_step_against_cpu(tmp, "womask.conf", 3e-4, 2e-3)
+    with tempfile.TemporaryDirectory() as tmp:
+        conf, runner, launches = train_run(tmp, TRAIN_STEPS)
+        check_launched("main run", launches, MAIN_SET)
+        print(f"rays/s at iter {runner.history[-1]['iter']}: "
+              f"{runner.history[-1]['rays_per_sec']:.0f} on {card}")
+        check_mesh(conf)
 
-    child = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), STASH_RUN], cwd=HERE,
-        env={**os.environ, "FNEUS_PG_HBM_STASH": "1"}, capture_output=True,
-        text=True, timeout=600)
-    print(child.stdout, end="")
-    if child.returncode != 0:
-        raise AssertionError(f"the stash run failed ({child.returncode}):\n"
-                             f"{child.stderr[-4000:]}")
-    stash = json.loads(child.stdout.strip().splitlines()[-1])
+    stash = subprocess_run(STASH_RUN, {"FNEUS_PG_HBM_STASH": "1"}, "stash")
     print(f"stash run rays/s over steps 1-{STASH_STEPS} (a new process: "
           f"the first steps warm up): {stash['rays_per_sec']:.0f} on {card}")
+    split = subprocess_run(SPLIT_RUN, {"FNEUS_PG_STACKED": "0"}, "split")
+    print(f"womask split run rays/s over steps 11-{SPLIT_STEPS}: "
+          f"{split['rays_per_sec']:.0f} on {card}")
     for k in kernels:
-        k["launches"] = (stash["launches"] if k["name"] in STASH_PAIR
+        k["launches"] = (stash["launches"] if k["name"] in STASH_PAIR else
+                         split["launches"] if k["name"] == "geometry_bwd_split"
                          else launches)[k["name"]]
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']} never launched")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

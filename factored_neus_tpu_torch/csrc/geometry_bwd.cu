@@ -31,6 +31,14 @@
 // 32 tangent rows; biases are not read.  Bound: operations, 2 S' fewer
 // FLOPs per row than K1-bwd (S' = S without the last layer), against
 // 4,018 more bytes read per row at full width.
+//
+// K1-bwd-split (entry point geometry_bwd_split) replaces the same call with
+// stacked=False (body _build_bwd_kernel): the same function as K1-bwd, with
+// the primal and tangent chains as separate row sets.  Each product of the
+// stacked sweep becomes two half-tile products, one over each chain's 32
+// rows (forward a = x W + b and ad = xd W, input cotangents r W^T and
+// rd W^T), and the weight gradient two 32-row sums x^T r and xd^T rd into
+// the same partial slice.  Bound: as K1-bwd.
 #include <cuda_bf16.h>
 
 #include "sdf_mlp.cuh"
@@ -44,7 +52,40 @@ __device__ __forceinline__ int stash_col(const SdfDims& d, int l) {
   return off;
 }
 
-template <bool FROM_STASH>
+// The three variants: the stacked 64-row products, the stash (primal from
+// the bf16 stash, tangent forward only), and the split chains.
+enum BwdMode { BWD_STACKED, BWD_STASH, BWD_SPLIT };
+
+// Y = X @ B over both chains of the tile: one 64-row product, or one
+// half-tile product per chain.
+template <int TN, int MODE>
+__device__ __forceinline__ void chains_mm(const float* X, int ldx, int K,
+                                          const float* __restrict__ B, int N,
+                                          float* Y, int ldy) {
+  if (MODE == BWD_SPLIT) {
+    tile_mm<TN, 4>(X, ldx, K, B, N, N, Y, ldy);
+    tile_mm<TN, 4>(X + HALF * ldx, ldx, K, B, N, N, Y + HALF * ldy, ldy);
+  } else {
+    tile_mm<TN>(X, ldx, K, B, N, N, Y, ldy);
+  }
+}
+
+// C (+)= X^T @ Rm summed over both chains' rows: one 64-row sum, or one
+// 32-row sum per chain into the same C.
+template <int TN, int MODE>
+__device__ __forceinline__ void chains_atb(const float* X, int ldx, int M,
+                                           const float* Rm, int ldr, int N,
+                                           float* C, bool first) {
+  if (MODE == BWD_SPLIT) {
+    tile_atb<TN, HALF>(X, ldx, M, Rm, ldr, N, C, first);
+    tile_atb<TN, HALF>(X + HALF * ldx, ldx, M, Rm + HALF * ldr, ldr, N, C,
+                       false);
+  } else {
+    tile_atb<TN>(X, ldx, M, Rm, ldr, N, C, first);
+  }
+}
+
+template <int MODE>
 __global__ void __launch_bounds__(SDF_THREADS, 1)
 geometry_bwd_kernel(SdfDims d, const float* __restrict__ x,
                     const float* __restrict__ ct_out,
@@ -52,6 +93,7 @@ geometry_bwd_kernel(SdfDims d, const float* __restrict__ x,
                     float* stash_all, float* part_all, long long P,
                     int n_tiles, const __nv_bfloat16* __restrict__ bstash,
                     int stash_cols) {
+  constexpr bool FROM_STASH = MODE == BWD_STASH;
   extern __shared__ float smem[];
   const int ld = d.ld;
   float* E = smem;                              // [64][64] enc | denc
@@ -109,7 +151,8 @@ geometry_bwd_kernel(SdfDims d, const float* __restrict__ x,
                                            d.wT[l], N, N, R + HALF * ld,
                                            ld)));
       } else {
-        SDF_TN_DISPATCH(N, tile_mm<TN>(xin, ldx, K, d.wT[l], N, N, R, ld));
+        SDF_TN_DISPATCH(N, (chains_mm<TN, MODE>(xin, ldx, K, d.wT[l], N, R,
+                                                ld)));
       }
       __syncthreads();
       const bool skip_next = (d.skip_mask >> (l + 1)) & 1;
@@ -183,7 +226,8 @@ geometry_bwd_kernel(SdfDims d, const float* __restrict__ x,
       const int ldxl = l == 0 ? SDF_ENC_LD : ld;
 
       // weight gradient [in][out] over both halves; bias over primal rows
-      SDF_TN_DISPATCH(N, tile_atb<TN>(xl, ldxl, K, R, ld, N, part + off, first));
+      SDF_TN_DISPATCH(N, (chains_atb<TN, MODE>(xl, ldxl, K, R, ld, N,
+                                               part + off, first)));
       float* pb = part + off + (long long)K * N;
       for (int c = tid; c < N; c += SDF_THREADS) {
         float s = 0.f;
@@ -193,7 +237,7 @@ geometry_bwd_kernel(SdfDims d, const float* __restrict__ x,
       __syncthreads();
 
       // input cotangents of both chains: A = R @ W^T
-      SDF_TN_DISPATCH(K, tile_mm<TN>(R, ld, N, d.wt[l], K, K, A, ld));
+      SDF_TN_DISPATCH(K, (chains_mm<TN, MODE>(R, ld, N, d.wt[l], K, A, ld)));
       __syncthreads();
       if (skip) {
         const int hw = K - d.d_embed;
@@ -251,9 +295,10 @@ geometry_bwd_kernel(SdfDims d, const float* __restrict__ x,
 
 // The weight pointers start at index 7: [wT[L], wt[L], b[L]]; from the
 // stash at index 8, after the stash pointer, and without biases.
-template <bool FROM_STASH>
+template <int MODE>
 static int launch_bwd(const int* ia, const unsigned long long* p, float scale,
                       unsigned long long stream) {
+  constexpr bool FROM_STASH = MODE == BWD_STASH;
   SdfDims d;
   int rc = sdf_dims_from_args(ia, scale, &d);
   if (rc) return rc;
@@ -275,11 +320,11 @@ static int launch_bwd(const int* ia, const unsigned long long* p, float scale,
   const size_t smem = (size_t)(2 * SDF_TILE * SDF_ENC_LD + 2 * SDF_TILE * d.ld) *
                       sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      geometry_bwd_kernel<FROM_STASH>,
+      geometry_bwd_kernel<MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
-  geometry_bwd_kernel<FROM_STASH><<<grid, SDF_THREADS, smem, s>>>(
+  geometry_bwd_kernel<MODE><<<grid, SDF_THREADS, smem, s>>>(
       d, (const float*)p[0], (const float*)p[1], (const float*)p[2],
       (float*)p[3], (float*)p[4], (float*)p[5], P, n_tiles, bstash,
       stash_cols);
@@ -297,7 +342,7 @@ static int launch_bwd(const int* ia, const unsigned long long* p, float scale,
 // followed by db [out].  Returns a cudaError_t value.
 extern "C" int geometry_bwd(const int* ia, const unsigned long long* p,
                             float scale, unsigned long long stream) {
-  return launch_bwd<false>(ia, p, scale, stream);
+  return launch_bwd<BWD_STACKED>(ia, p, scale, stream);
 }
 
 // Integer arguments as geometry_bwd.  Pointers: [x, ct_out, ct_grad, ct_x,
@@ -305,5 +350,12 @@ extern "C" int geometry_bwd(const int* ia, const unsigned long long* p,
 // wt[L]]; the scratch holds only the tangent pre-activations.
 extern "C" int geometry_bwd_stash(const int* ia, const unsigned long long* p,
                                   float scale, unsigned long long stream) {
-  return launch_bwd<true>(ia, p, scale, stream);
+  return launch_bwd<BWD_STASH>(ia, p, scale, stream);
+}
+
+// Arguments as geometry_bwd: the same function, the two chains as separate
+// half-tile products.
+extern "C" int geometry_bwd_split(const int* ia, const unsigned long long* p,
+                                  float scale, unsigned long long stream) {
+  return launch_bwd<BWD_SPLIT>(ia, p, scale, stream);
 }

@@ -162,10 +162,12 @@ __device__ __forceinline__ void tile_mm(const float* X, int ldx, int K,
     }
 }
 
-// C[M][N] (+)= A[64][M]^T @ Bm[64][N] summed over the tile's 64 rows; A and
-// Bm in shared memory, C in global memory (stride N).  first: store instead
-// of accumulate.  Used for the weight gradient of one layer.
-template <int TN>
+// C[M][N] (+)= A[ROWS][M]^T @ Bm[ROWS][N] summed over ROWS rows (the whole
+// 64-row tile, or one half of it); A and Bm in shared memory, C in global
+// memory (stride N).  first: store instead of accumulate.  Used for the
+// weight gradient of one layer.  Each thread reads and writes only its own
+// entries of C, so calls on the same C follow each other without a barrier.
+template <int TN, int ROWS = SDF_TILE>
 __device__ __forceinline__ void tile_atb(const float* A, int lda, int M,
                                          const float* Bm, int ldb, int N,
                                          float* C, bool first) {
@@ -178,7 +180,7 @@ __device__ __forceinline__ void tile_atb(const float* A, int lda, int M,
       for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
     const int mb = m0 + ty * 8;
 #pragma unroll 2
-    for (int r = 0; r < SDF_TILE; ++r) {
+    for (int r = 0; r < ROWS; ++r) {
       float bv[TN];
 #pragma unroll
       for (int j = 0; j < TN; ++j) {

@@ -5,10 +5,12 @@ shapes.  Counterpart of factored_neus_tpu/models/fields.py:
   RenderingNetwork        IDR-mode radiance MLP (K3)
   SingleVarianceNetwork   inv_s = exp(10 * variance)
   RefColor                surface reflection colour (diffuse + specular)
+  NeRF                    NeRF++ background model of the womask configs
 
 State-dict names follow the reference networks (``lin{l}.weight_g`` ...,
-``net_cd.{0,2,4,6,8}``, ``viewdir_mlp.{i}``, ``net_cs.0``), so a reference
-``.pth`` maps on directly.
+``net_cd.{0,2,4,6,8}``, ``viewdir_mlp.{i}``, ``net_cs.0``,
+``pts_linears.{i}``, ``views_linears.0``), so a reference ``.pth`` maps on
+directly.
 """
 from __future__ import annotations
 
@@ -227,3 +229,61 @@ class RefColor(nn.Module):
         srgb = lambda v: torch.clamp(U.linear_to_srgb(v), 0.0, 1.0)
         return {"rgb": srgb(brdf), "specular_rgb": srgb(specular),
                 "diffuse_rgb": srgb(diffuse)}
+
+
+@dataclasses.dataclass(frozen=True)
+class NeRFConfig:
+    D: int = 8
+    W: int = 256
+    d_in: int = 4
+    d_in_view: int = 3
+    multires: int = 10
+    multires_view: int = 4
+    skips: Tuple[int, ...] = (4,)
+
+    @property
+    def input_ch(self) -> int:
+        # multires = 0 is the identity encoding: d_in channels
+        return (self.d_in * (1 + 2 * self.multires) if self.multires > 0
+                else self.d_in)
+
+    @property
+    def input_ch_view(self) -> int:
+        return (self.d_in_view * (1 + 2 * self.multires_view)
+                if self.multires_view > 0 else self.d_in_view)
+
+
+class NeRF(nn.Module):
+    """(pts4 [N, 4], dirs [N, 3]) -> (density [N, 1], rgb [N, 3]), both raw
+    (the renderer applies softplus and sigmoid).  A plain ReLU MLP on
+    cuBLAS, as the JAX package leaves it to XLA.  The skip is the
+    reference NeRF's: after layer i in ``skips``, relu then concat
+    [encoded pts, h], with no 1/sqrt(2) (unlike the SDF network's)."""
+
+    def __init__(self, cfg: NeRFConfig = NeRFConfig(),
+                 gen: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        W, c = cfg.W, cfg.input_ch
+        self.pts_linears = nn.ModuleList(
+            [_linear(c, W, gen)] +
+            [_linear(W + c if i in cfg.skips else W, W, gen)
+             for i in range(cfg.D - 1)])
+        self.views_linears = nn.ModuleList(
+            [_linear(cfg.input_ch_view + W, W // 2, gen)])
+        self.feature_linear = _linear(W, W, gen)
+        self.alpha_linear = _linear(W, 1, gen)
+        self.rgb_linear = _linear(W // 2, 3, gen)
+
+    def forward(self, input_pts, input_views):
+        pts_e = positional_encoding(input_pts, self.cfg.multires)
+        views_e = positional_encoding(input_views, self.cfg.multires_view)
+        h = pts_e
+        for i, lin in enumerate(self.pts_linears):
+            h = torch.relu(lin(h))
+            if i in self.cfg.skips:
+                h = torch.cat([pts_e, h], -1)
+        alpha = self.alpha_linear(h)
+        h = torch.cat([self.feature_linear(h), views_e], -1)
+        h = torch.relu(self.views_linears[0](h))
+        return alpha, self.rgb_linear(h)

@@ -1,5 +1,7 @@
-"""NeuS stage-1 renderer without the background NeRF (n_outside = 0).
-Counterpart of factored_neus_tpu/models/renderer.py (render, render_core).
+"""NeuS stage-1 renderer, with the NeRF++ background model when
+n_outside > 0 (the womask configs).  Counterpart of
+factored_neus_tpu/models/renderer.py (render, render_core,
+render_core_outside).
 
 The surface branch keeps the JAX package's static-shape form: RefColor runs
 for every ray at the two samples bracketing the first SDF sign change and
@@ -8,6 +10,8 @@ reference's masked-gather results.  SDF value, feature and gradient come
 from K1 (ops/geometry_kernel.py), or from its HBM-stash pair under
 FNEUS_PG_HBM_STASH=1; the up-sampling ladder's SDF sweeps from K2
 (ops/sdf_kernel.py); the radiance MLP from K3 (ops/radiance_kernel.py).
+The background NeRF is a plain MLP on cuBLAS, as the JAX package leaves it
+to XLA.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ class RendererConfig:
     sdf: F.SDFConfig = F.SDFConfig()
     rendering: F.RenderingConfig = F.RenderingConfig()
     refcolor: F.RefColorConfig = F.RefColorConfig()
+    nerf: F.NeRFConfig = F.NeRFConfig()
 
     @property
     def n_total(self) -> int:
@@ -39,8 +44,10 @@ class RendererConfig:
 
 
 class Stage1Model(nn.Module):
-    """The networks stage 1 trains (the JAX params groups sdf, variance,
-    color and ref_color)."""
+    """The networks stage 1 trains (the JAX params groups nerf, sdf,
+    variance, color and ref_color).  The background NeRF is always held, as
+    in the JAX package, so checkpoints of every conf carry its group; where
+    n_outside = 0 it gets no gradient and Adam leaves it as it is."""
 
     def __init__(self, cfg: RendererConfig, variance_init_val: float = 0.3,
                  seed: int = 0, device="cpu"):
@@ -50,18 +57,51 @@ class Stage1Model(nn.Module):
         self.variance = F.SingleVarianceNetwork(variance_init_val)
         self.color = F.RenderingNetwork(cfg.rendering, gen)
         self.ref_color = F.RefColor(cfg.refcolor, gen)
+        self.nerf = F.NeRF(cfg.nerf, gen)
         self.to(device)
 
 
-def render_core(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d,
-                z_vals, sample_dist: float, background_rgb=None,
-                cos_anneal_ratio: float = 0.0) -> Dict[str, Any]:
-    """SDF + radiance + surface colour over [B, T] samples."""
-    B, T = z_vals.shape
+def _mid_points(rays_o, rays_d, z_vals, sample_dist: float):
+    """(dists [B, T], mid_z [B, T], pts [B, T, 3]) of the sample sections."""
     dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
                        torch.full_like(z_vals[:, :1], sample_dist)], -1)
     mid_z = z_vals + dists * 0.5
     pts = rays_o[:, None, :] + rays_d[:, None, :] * mid_z[..., :, None]
+    return dists, mid_z, pts
+
+
+def render_core_outside(model: Stage1Model, cfg: RendererConfig, rays_o,
+                        rays_d, z_vals, sample_dist: float,
+                        background_rgb=None) -> Dict[str, Any]:
+    """NeRF++ inverted-sphere background over [B, T] samples."""
+    B, T = z_vals.shape
+    dists, _, pts = _mid_points(rays_o, rays_d, z_vals, sample_dist)
+    dis_to_center = torch.clamp(torch.linalg.norm(pts, dim=-1, keepdim=True),
+                                1.0, 1e10)
+    pts4 = torch.cat([pts / dis_to_center, 1.0 / dis_to_center], -1)
+    dirs = rays_d[:, None, :].expand(B, T, 3)
+    density, color = model.nerf(pts4.reshape(-1, 4), dirs.reshape(-1, 3))
+    sampled_color = torch.sigmoid(color).reshape(B, T, 3)
+    alpha = 1.0 - torch.exp(
+        -torch.nn.functional.softplus(density.reshape(B, T)) * dists)
+    weights = S.alpha_to_weights(alpha)
+    color_out = torch.sum(weights[:, :, None] * sampled_color, dim=1)
+    if background_rgb is not None:
+        color_out = color_out + background_rgb * (
+            1.0 - torch.sum(weights, -1, keepdim=True))
+    return {"color": color_out, "sampled_color": sampled_color,
+            "alpha": alpha, "weights": weights}
+
+
+def render_core(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d,
+                z_vals, sample_dist: float, background_alpha=None,
+                background_sampled_color=None, background_rgb=None,
+                cos_anneal_ratio: float = 0.0) -> Dict[str, Any]:
+    """SDF + radiance + surface colour over [B, T] samples, composited
+    with the background model's [B, T + n_outside] alpha and colour when
+    they are given."""
+    B, T = z_vals.shape
+    dists, mid_z, pts = _mid_points(rays_o, rays_d, z_vals, sample_dist)
     dirs = rays_d[:, None, :].expand(pts.shape)
     pts_flat = pts.reshape(-1, 3)
     dirs_flat = dirs.reshape(-1, 3)
@@ -119,6 +159,16 @@ def render_core(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d,
     specular_color = torch.where(m, blend(ref["specular_rgb"]), one)
     diffuse_color = torch.where(m, blend(ref["diffuse_rgb"]), one)
 
+    if background_alpha is not None:
+        outside = 1.0 - inside_sphere
+        alpha = torch.cat([alpha * inside_sphere
+                           + background_alpha[:, :T] * outside,
+                           background_alpha[:, T:]], -1)
+        sampled_color = torch.cat(
+            [sampled_color * inside_sphere[:, :, None]
+             + background_sampled_color[:, :T] * outside[:, :, None],
+             background_sampled_color[:, T:]], 1)
+
     weights = S.alpha_to_weights(alpha)
     weights_sum = torch.sum(weights, -1, keepdim=True)
     color = torch.sum(sampled_color * weights[:, :, None], dim=1)
@@ -151,33 +201,61 @@ def render_core(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d,
 def render(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d, near,
            far, t_rand: Optional[torch.Tensor] = None,
            generator: Optional[torch.Generator] = None, background_rgb=None,
-           cos_anneal_ratio: float = 0.0,
-           perturb_overwrite: float = -1.0) -> Dict[str, Any]:
+           cos_anneal_ratio: float = 0.0, perturb_overwrite: float = -1.0,
+           t_rand_out: Optional[torch.Tensor] = None) -> Dict[str, Any]:
     """Stage-1 renderer.  The per-ray z jitter is ``t_rand`` [B, 1] in
     [-0.5, 0.5) when given, else drawn from ``generator`` when given, else
-    none (deterministic)."""
-    if cfg.n_outside > 0:
-        raise NotImplementedError("n_outside > 0 (the background NeRF of "
-                                  "womask.conf) is not ported yet")
-    B = rays_o.shape[0]
+    none (deterministic); with n_outside > 0 the background samples'
+    stratified jitter is ``t_rand_out`` [B, n_outside] in [0, 1), drawn in
+    the same way."""
+    B, n_out = rays_o.shape[0], cfg.n_outside
+    if t_rand_out is not None and tuple(t_rand_out.shape) != (B, n_out):
+        raise ValueError(f"t_rand_out must be [{B}, {n_out}] (n_outside), "
+                         f"got {tuple(t_rand_out.shape)}")
+    dev, dt = rays_o.device, rays_o.dtype
     sample_dist = 2.0 / cfg.n_samples
-    z_lin = torch.linspace(0.0, 1.0, cfg.n_samples, device=rays_o.device,
-                           dtype=rays_o.dtype)
+    z_lin = torch.linspace(0.0, 1.0, cfg.n_samples, device=dev, dtype=dt)
     z_vals = near + (far - near) * z_lin[None, :]
+    if n_out > 0:
+        z_out = torch.linspace(1e-3, 1.0 - 1.0 / (n_out + 1.0), n_out,
+                               device=dev, dtype=dt)
+        z_vals_outside = z_out[None].expand(B, n_out)
     perturb = cfg.perturb if perturb_overwrite < 0 else perturb_overwrite
     if perturb > 0:
         if t_rand is None and generator is not None:
-            t_rand = torch.rand((B, 1), generator=generator,
-                                device=rays_o.device) - 0.5
+            t_rand = torch.rand((B, 1), generator=generator, device=dev) - 0.5
         if t_rand is not None:
             z_vals = z_vals + t_rand * 2.0 / cfg.n_samples
+        if n_out > 0:
+            if t_rand_out is None and generator is not None:
+                t_rand_out = torch.rand((B, n_out), generator=generator,
+                                        device=dev)
+            if t_rand_out is not None:
+                mids = 0.5 * (z_out[1:] + z_out[:-1])
+                upper = torch.cat([mids, z_out[-1:]])
+                lower = torch.cat([z_out[:1], mids])
+                z_vals_outside = lower[None] + (upper - lower)[None] * \
+                    t_rand_out
+    if n_out > 0:
+        z_vals_outside = (far / torch.flip(z_vals_outside, [-1])
+                          + 1.0 / cfg.n_samples)
 
     if cfg.n_importance > 0:
         z_vals = S.hierarchical_z_vals(
             model.sdf.value_sweep, rays_o.detach(), rays_d.detach(),
             z_vals.detach(), cfg.n_importance, cfg.up_sample_steps)
 
+    background_alpha = background_sampled_color = None
+    if n_out > 0:
+        z_feed, _ = torch.sort(torch.cat([z_vals, z_vals_outside], -1), -1)
+        ret_out = render_core_outside(model, cfg, rays_o, rays_d, z_feed,
+                                      sample_dist)
+        background_alpha = ret_out["alpha"]
+        background_sampled_color = ret_out["sampled_color"]
+
     ret = render_core(model, cfg, rays_o, rays_d, z_vals, sample_dist,
+                      background_alpha=background_alpha,
+                      background_sampled_color=background_sampled_color,
                       background_rgb=background_rgb,
                       cos_anneal_ratio=cos_anneal_ratio)
     weights = ret["weights"]

@@ -18,6 +18,11 @@ pre-activations in bf16 [N, sum of their widths], and K1-bwd-stash takes
 the primal activations from them and recomputes only the tangent forward.
 Its twins are ``geometry_fwd_stash_plain`` and ``geometry_bwd_stash_plain``;
 on a CPU tensor the same autograd Function runs them.
+
+K1-bwd-split (``stacked=False``, default from ``FNEUS_PG_STACKED`` as in
+the JAX package) computes K1-bwd's function with the primal and tangent
+chains as separate half-tile products; its twin is K1-bwd's.  The stash
+switch takes precedence over it, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -38,9 +43,13 @@ K1_FWD_STASH = _cuda.CudaKernel("geometry_fwd_stash", "geometry_fwd.cu",
                                 "geometry_fwd_stash")
 K1_BWD_STASH = _cuda.CudaKernel("geometry_bwd_stash", "geometry_bwd.cu",
                                 "geometry_bwd_stash")
-# the HBM-stash pair instead of K1-fwd / K1-bwd when ``geometry`` is not
-# told otherwise; read once, at import, like the JAX package's switch
+K1_BWD_SPLIT = _cuda.CudaKernel("geometry_bwd_split", "geometry_bwd.cu",
+                                "geometry_bwd_split")
+# the HBM-stash pair instead of K1-fwd / K1-bwd, and K1-bwd-split instead
+# of K1-bwd, when ``geometry`` is not told otherwise; read once, at import,
+# like the JAX package's switches
 STASH_BWD = os.environ.get("FNEUS_PG_HBM_STASH", "0") == "1"
+STACKED_BWD = os.environ.get("FNEUS_PG_STACKED", "1") == "1"
 
 
 def geometry_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
@@ -250,6 +259,15 @@ def launch_backward(cfg, x, ws, bs, ct_out, ct_grad
     return _launch_backward(K1_BWD, cfg, x, ws, bs, None, ct_out, ct_grad)
 
 
+def launch_backward_split(cfg, x, ws, bs, ct_out, ct_grad
+                          ) -> Tuple[torch.Tensor, List[torch.Tensor],
+                                     List[torch.Tensor]]:
+    """K1-bwd-split: launch_backward's result, the primal and tangent
+    chains run as separate half-tile products."""
+    return _launch_backward(K1_BWD_SPLIT, cfg, x, ws, bs, None, ct_out,
+                            ct_grad)
+
+
 def launch_backward_stash(cfg, x, ws, stash, ct_out, ct_grad
                           ) -> Tuple[torch.Tensor, List[torch.Tensor],
                                      List[torch.Tensor]]:
@@ -260,15 +278,15 @@ def launch_backward_stash(cfg, x, ws, stash, ct_out, ct_grad
 
 
 class GeometryFn(torch.autograd.Function):
-    """(x, *ws, *bs) -> (out, grad) through K1-fwd; backward through
-    K1-bwd with both cotangents."""
+    """(x, *ws, *bs) -> (out, grad) through K1-fwd; backward with both
+    cotangents through K1-bwd, or K1-bwd-split when not ``stacked``."""
 
     @staticmethod
-    def forward(ctx, cfg, x, *params):
+    def forward(ctx, cfg, stacked, x, *params):
         L = len(params) // 2
         ws, bs = params[:L], params[L:]
         out, grad = launch_forward(cfg, x, ws, bs)
-        ctx.cfg = cfg
+        ctx.cfg, ctx.stacked = cfg, stacked
         ctx.save_for_backward(x, *params)
         return out, grad
 
@@ -277,9 +295,10 @@ class GeometryFn(torch.autograd.Function):
     def backward(ctx, ct_out, ct_grad):
         x, *params = ctx.saved_tensors
         L = len(params) // 2
-        ct_x, dws, dbs = launch_backward(ctx.cfg, x, params[:L], params[L:],
-                                         ct_out, ct_grad)
-        return (None, ct_x, *dws, *dbs)
+        launch = launch_backward if ctx.stacked else launch_backward_split
+        ct_x, dws, dbs = launch(ctx.cfg, x, params[:L], params[L:], ct_out,
+                                ct_grad)
+        return (None, None, ct_x, *dws, *dbs)
 
 
 class GeometryStashFn(torch.autograd.Function):
@@ -313,14 +332,18 @@ class GeometryStashFn(torch.autograd.Function):
 
 
 def geometry(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
-             x: torch.Tensor, cfg, stash: Optional[bool] = None
+             x: torch.Tensor, cfg, stash: Optional[bool] = None,
+             stacked: Optional[bool] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [N, d_out], grad [N, 3]), differentiable in x, ws and bs;
-    through the HBM-stash pair when ``stash`` (default STASH_BWD)."""
+    through the HBM-stash pair when ``stash`` (default STASH_BWD), else
+    with the backward through K1-bwd when ``stacked`` (default
+    STACKED_BWD) and K1-bwd-split when not."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"geometry: unsupported device {x.device}")
     if STASH_BWD if stash is None else stash:
         return GeometryStashFn.apply(cfg, x, *ws, *bs)
     if x.is_cuda:
-        return GeometryFn.apply(cfg, x, *ws, *bs)
+        return GeometryFn.apply(cfg, STACKED_BWD if stacked is None
+                                else bool(stacked), x, *ws, *bs)
     return geometry_plain(ws, bs, x, cfg)

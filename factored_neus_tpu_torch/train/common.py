@@ -56,7 +56,9 @@ class TrainConfig:
 
 def make_optimizer(model: torch.nn.Module,
                    tcfg: TrainConfig) -> torch.optim.Adam:
-    """Adam over every stage-1 parameter; set_lr() applies the schedule."""
+    """Adam over every stage-1 parameter (the JAX package's stage-1
+    trainable groups nerf, sdf, variance, color, ref_color: all of
+    Stage1Model); set_lr() applies the schedule."""
     return torch.optim.Adam(model.parameters(), lr=tcfg.learning_rate)
 
 

@@ -1,7 +1,8 @@
-"""Stage-1 runner: geometry + radiance training from a conf.  Counterpart
-of factored_neus_tpu/train/runner1.py for ``--mode train``: the loop,
-reports and checkpoints (groups keep the reference's names).  Validation
-images and meshes are not ported yet; their steps are logged and skipped.
+"""Stage-1 runner: geometry + radiance training from a conf, and mesh
+extraction.  Counterpart of factored_neus_tpu/train/runner1.py for the
+modes ``train`` and ``validate_mesh``: the loop, reports, checkpoints
+(groups keep the reference's names) and meshes at ``val_mesh_freq``.
+Validation images are not ported yet; their steps are logged and skipped.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import numpy as np
 import torch
 
 from ..data.datasets import make_dataset
+from ..meshing import extract as MEXT
+from ..meshing.ply import write_ply
 from ..models.renderer import Stage1Model
 from ..utils import checkpoints as CK
 from ..utils import config as CFG
@@ -23,9 +26,11 @@ from .common import TrainConfig
 from .stage1 import Stage1Trainer
 
 log = logging.getLogger("factored_neus_tpu_torch")
+MODES = ("train", "validate_mesh")
 
 # checkpoint group names of the reference (model attribute -> group)
 CKPT_KEYS = {
+    "nerf": "nerf",
     "sdf": "sdf_network_fine",
     "variance": "variance_network_fine",
     "color": "color_network_fine",
@@ -42,8 +47,9 @@ class Runner:
     def __init__(self, conf_path: str, mode: str = "train", case: str = "",
                  is_continue: bool = False, type: str = "dtu",
                  surface_weight: float = 0.1, seed: int = 0, device=None):
-        if mode != "train":
-            raise NotImplementedError(f"mode {mode!r} is not ported yet")
+        if mode not in MODES:
+            raise NotImplementedError(f"mode {mode!r} is not ported yet "
+                                      f"(ported: {', '.join(MODES)})")
         self.device = resolve_device(device)
         self.conf_path = conf_path
         self.conf = CFG.load(conf_path, case)
@@ -67,13 +73,16 @@ class Runner:
         self.iter_step = 0
         self.history: List[Dict[str, float]] = []
         self.last_checkpoint: Optional[str] = None
+        self.last_mesh: Optional[str] = None
+        self.mesh_times: Dict[str, float] = {}
         if is_continue:
             latest = CK.latest_checkpoint(self.base_exp_dir,
                                           self.tcfg.end_iter)
             if latest is not None:
                 log.info("resuming from %s", latest)
                 self.load_checkpoint(latest)
-        self.file_backup()
+        if mode == "train":
+            self.file_backup()
 
     def train(self) -> None:
         tcfg, n = self.tcfg, self.dataset.n_images
@@ -99,12 +108,11 @@ class Runner:
                          m["rays_per_sec"])
             if self.iter_step % tcfg.save_freq == 0:
                 self.save_checkpoint()
-            if (self.iter_step % tcfg.val_freq == 0
-                    or self.iter_step % tcfg.val_mesh_freq == 0) \
-                    and not skipped_val:
-                log.info("validation images and meshes are not ported yet; "
-                         "skipped")
+            if self.iter_step % tcfg.val_freq == 0 and not skipped_val:
+                log.info("validation images are not ported yet; skipped")
                 skipped_val = True
+            if self.iter_step % tcfg.val_mesh_freq == 0:
+                self.validate_mesh(world_space=True)
             if self.iter_step % n == 0:
                 perm = rng.permutation(n)
 
@@ -134,6 +142,28 @@ class Runner:
         sd["state"] = state
         opt.load_state_dict(sd)
         self.iter_step = int(loaded["iter_step"])
+
+    def validate_mesh(self, world_space: bool = False, resolution: int = 512,
+                      threshold: float = 0.0) -> str:
+        """Writes meshes/{iter:08d}.ply: the surface -sdf == threshold over
+        the object's bounding box, in world space through scale_mats_np[0]
+        when ``world_space``; the grid is filled by K2 on the card."""
+        ds = self.dataset
+        times: Dict[str, float] = {}
+        verts, tris = MEXT.extract_geometry(
+            ds.object_bbox_min, ds.object_bbox_max, resolution, threshold,
+            MEXT.sdf_grid_query(self.model.sdf), self.device, times=times)
+        if world_space:
+            s = ds.scale_mats_np[0]
+            verts = verts * s[0, 0] + s[:3, 3][None]
+        out = os.path.join(self.base_exp_dir, "meshes",
+                           f"{self.iter_step:08d}.ply")
+        write_ply(out, verts, tris)
+        self.last_mesh, self.mesh_times = out, times
+        log.info("mesh written: %s (%d vertices, %d triangles; %d^3 grid "
+                 "fill %.2f s, marching tetrahedra %.2f s)", out, len(verts),
+                 len(tris), resolution, times["fill_s"], times["march_s"])
+        return out
 
     def file_backup(self) -> None:
         rec = os.path.join(self.base_exp_dir, "recording")

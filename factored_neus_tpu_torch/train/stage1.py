@@ -18,9 +18,11 @@ from .common import TrainConfig, make_optimizer, set_lr
 def loss_on_batch(model: R.Stage1Model, cfg: R.RendererConfig,
                   tcfg: TrainConfig, rays_o, rays_d, color, mask, step: int,
                   t_rand: Optional[torch.Tensor] = None,
-                  generator: Optional[torch.Generator] = None):
-    """(loss, metrics) of one batch; the z jitter is t_rand when given,
-    else drawn from generator."""
+                  generator: Optional[torch.Generator] = None,
+                  t_rand_out: Optional[torch.Tensor] = None):
+    """(loss, metrics) of one batch; the z jitters are t_rand (and, with
+    the background model, t_rand_out) when given, else drawn from
+    generator."""
     near, far = RAYS.near_far_from_sphere(rays_o, rays_d)
     background_rgb = (torch.ones(1, 3, device=rays_o.device)
                       if tcfg.use_white_bkgd else None)
@@ -29,7 +31,8 @@ def loss_on_batch(model: R.Stage1Model, cfg: R.RendererConfig,
     else:
         mask = torch.ones_like(mask)
     out = R.render(model, cfg, rays_o, rays_d, near, far, t_rand=t_rand,
-                   generator=generator, background_rgb=background_rgb,
+                   generator=generator, t_rand_out=t_rand_out,
+                   background_rgb=background_rgb,
                    cos_anneal_ratio=schedule.cos_anneal_ratio(
                        step, tcfg.anneal_end))
     loss, metrics = L.stage1_losses(out, color, mask, tcfg)

@@ -1,6 +1,6 @@
 """Config schema: HOCON tree -> typed stage-1 configs.  Counterpart of
 factored_neus_tpu/utils/config.py (sdf_config, rendering_config,
-renderer_config, variance_init_val, load)."""
+nerf_config, renderer_config, variance_init_val, load)."""
 from __future__ import annotations
 
 from ..models import fields as F
@@ -38,6 +38,18 @@ def rendering_config(c: ConfigTree) -> F.RenderingConfig:
         squeeze_out=bool(d.get("squeeze_out", True)))
 
 
+def nerf_config(c: ConfigTree) -> F.NeRFConfig:
+    d = c.get("model.nerf", ConfigTree())
+    return F.NeRFConfig(
+        D=int(d.get("D", 8)),
+        W=int(d.get("W", 256)),
+        d_in=int(d.get("d_in", 4)),
+        d_in_view=int(d.get("d_in_view", 3)),
+        multires=int(d.get("multires", 10)),
+        multires_view=int(d.get("multires_view", 4)),
+        skips=tuple(d.get("skips", [4])))
+
+
 def renderer_config(c: ConfigTree,
                     section: str = "model.neus_renderer") -> RendererConfig:
     d = c.get(section, ConfigTree())
@@ -50,6 +62,7 @@ def renderer_config(c: ConfigTree,
         perturb=float(d.get("perturb", 1.0)),
         sdf=sdf,
         rendering=rendering_config(c),
+        nerf=nerf_config(c),
         # RefColor consumes the SDF feature vector (d_out - 1 dims)
         refcolor=F.RefColorConfig(d_feature=sdf.d_out - 1))
 

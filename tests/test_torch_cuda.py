@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from factored_neus_tpu_torch.meshing import extract as MEXT
 from factored_neus_tpu_torch.models.fields import (RenderingConfig,
                                                    RenderingNetwork,
                                                    SDFConfig, SDFNetwork)
@@ -101,6 +102,55 @@ def test_autograd_function_and_launch_counts(cuda_device):
     for (name, a), b in zip(net.named_parameters(), ref.parameters()):
         torch.testing.assert_close(a.grad, b.grad, atol=1e-5, rtol=1e-4,
                                    msg=name)
+
+
+def worst_scaled_ratio(a, b, atol=1e-4, rtol=1e-5):
+    """max |a - b| / (atol + rtol max|b|) over one tensor: a weight
+    gradient sums every row, so its error scales with the tensor."""
+    return float((a - b).abs().max()) / (atol + rtol * float(b.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES)
+def test_split_backward_matches_f64_twin(cuda_device, case):
+    """K1-bwd-split against the float64 twin per tensor at
+    |err| <= 1e-4 + 1e-5 max|ref|, as K1-bwd is held in chip_smoke.py."""
+    cfg, ws, bs, x = _net(case, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    n_out = ws[-1].shape[0]
+    ct_out = torch.randn(x.shape[0], n_out, device=cuda_device, generator=gen)
+    ct_g = torch.randn(x.shape, device=cuda_device, generator=gen)
+    ct_x, dws, dbs = GK.launch_backward_split(cfg, x, ws, bs, ct_out, ct_g)
+    leaves = [t.double().requires_grad_(True) for t in [x, *ws, *bs]]
+    L = len(ws)
+    o, g = GK.geometry_plain(leaves[1:1 + L], leaves[1 + L:], leaves[0], cfg)
+    ref = torch.autograd.grad((o, g), leaves, (ct_out.double(),
+                                               ct_g.double()))
+    for i, (a, b) in enumerate(zip([ct_x, *dws, *dbs], ref)):
+        assert a.shape == b.shape
+        assert worst_scaled_ratio(a.double(), b) <= 1.0, i
+
+
+@pytest.mark.gpu
+def test_split_switch_launches_k1_bwd_split(cuda_device, monkeypatch):
+    """With FNEUS_PG_STACKED off, value_grad_feat runs K1-fwd and
+    K1-bwd-split once each and not K1-bwd; the stash switch still wins."""
+    monkeypatch.setattr(GK, "STACKED_BWD", False)
+    cfg, _, _, x = _net(CASES[0], cuda_device)
+    net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(cuda_device)
+    kernels = (GK.K1_FWD, GK.K1_BWD, GK.K1_BWD_SPLIT, GK.K1_FWD_STASH,
+               GK.K1_BWD_STASH)
+
+    def launches():
+        before = [k.launches for k in kernels]
+        s, f, g = net.value_grad_feat(x)
+        (((g.norm(dim=-1) - 1) ** 2).mean() + (f ** 2).mean()
+         + s.abs().mean()).backward()
+        return [k.launches - b for k, b in zip(kernels, before)]
+
+    assert launches() == [1, 0, 1, 0, 0]
+    monkeypatch.setattr(GK, "STASH_BWD", True)
+    assert launches() == [0, 0, 0, 1, 1]
 
 
 def bf16_ulps(a, b):
@@ -231,3 +281,19 @@ def test_stash_switch_launches_the_stash_pair(cuda_device, monkeypatch):
     (((g.norm(dim=-1) - 1) ** 2).mean() + (f ** 2).mean()
      + s.abs().mean()).backward()
     assert [k.launches - b for k, b in zip(kernels, before)] == [0, 0, 1, 1]
+
+
+@pytest.mark.gpu
+def test_grid_fill_matches_cpu_twin(cuda_device):
+    """A 64^3 grid of the full-width SDF filled on the card (K2, slabs of
+    32 planes kept in flight) against the CPU twin's at 1e-5."""
+    net = SDFNetwork(SDFConfig(), torch.Generator().manual_seed(0))
+    box = ([-1.01] * 3, [1.01] * 3)
+    before = SK.SDF_FWD.launches
+    card = MEXT.extract_fields(*box, 64, MEXT.sdf_grid_query(
+        net.to(cuda_device)), cuda_device)
+    assert SK.SDF_FWD.launches - before == 2
+    cpu = MEXT.extract_fields(*box, 64, MEXT.sdf_grid_query(net.cpu()),
+                              "cpu")
+    assert np.abs(card - cpu).max() <= 1e-5
+    assert np.isfinite(card).all() and (card > 0).any() and (card < 0).any()

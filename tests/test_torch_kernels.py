@@ -4,6 +4,10 @@ against the XLA path and against the Pallas kernels in interpret mode, at
 the sizes and tolerances of tests/test_pallas_geometry.py.  The CUDA
 kernels themselves are held against the twins on the card by
 tests/test_torch_cuda.py and chip_smoke.py."""
+import os
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +21,8 @@ from factored_neus_tpu_torch import bridge
 from factored_neus_tpu_torch.models import fields as TF
 from factored_neus_tpu_torch.ops import geometry_kernel as GK
 from factored_neus_tpu_torch.ops import sdf_kernel as SK
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -109,13 +115,15 @@ def test_k2_twin_matches_jax(scale, skip):
 
 def test_cpu_path_launches_no_kernel():
     _, _, net, x = _setup()
-    before = (GK.K1_FWD.launches, GK.K1_BWD.launches, SK.SDF_FWD.launches)
+    kernels = (GK.K1_FWD, GK.K1_BWD, GK.K1_BWD_SPLIT, SK.SDF_FWD)
+    before = [k.launches for k in kernels]
     xt = torch.from_numpy(x).requires_grad_(True)
-    s, f, g = net.value_grad_feat(xt)
-    (s.sum() + g.sum()).backward()
+    for stacked in (True, False):
+        out, g = GK.geometry(*net.effective_weights(), xt, net.cfg,
+                             stacked=stacked)
+        (out[:, 0].sum() + g.sum()).backward()
     net.value_sweep(xt)
-    assert (GK.K1_FWD.launches, GK.K1_BWD.launches,
-            SK.SDF_FWD.launches) == before
+    assert [k.launches for k in kernels] == before
 
 
 def test_kernel_arguments_describe_the_network():
@@ -131,3 +139,66 @@ def test_kernel_arguments_describe_the_network():
     with pytest.raises(ValueError):
         SK.kernel_iargs(TF.SDFConfig(d_hidden=512), [
             torch.zeros(512, 39)] + [torch.zeros(512, 512)] * 2, 10, 1)
+
+
+@pytest.mark.parametrize("skip", [(2,), ()])
+def test_k1_split_twin_backward_matches_jax(skip):
+    """K1-bwd-split's function: the port's geometry with stacked=False
+    (on the CPU, K1-bwd's twin) against jax.grad through the Pallas
+    split-chain backward (stacked=False, interpret mode): the loss, d/dx
+    and every g/v/b gradient at the JAX test's tolerance."""
+    jcfg, params, net, x = _setup(1.0, skip)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    ws, bs = net.effective_weights()
+    out, g = GK.geometry(ws, bs, xt, net.cfg, stacked=False)
+    lt = _loss_terms_torch(out[:, 0], out[:, 1:], g, xt)
+    lt.backward()
+    tgrads = bridge.jax_tree_layers(net, grads=True)
+
+    def loss_split(p, x):
+        return _loss_terms_jax(*PG.sdf_value_grad_feat_pallas(
+            p, jcfg, x, bf16=False, block_rows=64, stacked=False), x)
+
+    np.testing.assert_allclose(float(lt), float(loss_split(
+        params, jnp.asarray(x))), rtol=1e-5)
+    gp, gx = jax.grad(loss_split, argnums=(0, 1))(params, jnp.asarray(x))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), atol=2e-5,
+                               rtol=1e-4, err_msg="d/dx")
+    for a, b in zip(jax.tree_util.tree_leaves(tgrads),
+                    jax.tree_util.tree_leaves(gp), strict=True):
+        np.testing.assert_allclose(a, np.asarray(b), atol=2e-5, rtol=1e-4)
+
+
+def test_stacked_switch_is_read_at_import():
+    """FNEUS_PG_STACKED=0 turns STACKED_BWD off in a fresh process, as
+    the JAX package's switch of the same name does; unset, it is on."""
+    code = ("from factored_neus_tpu_torch.ops import geometry_kernel as GK; "
+            "print(GK.STACKED_BWD, GK.STASH_BWD)")
+    for env, want in (({"FNEUS_PG_STACKED": "0"}, "False False"),
+                      ({}, "True False")):
+        base = {k: v for k, v in os.environ.items()
+                if k not in ("FNEUS_PG_STACKED", "FNEUS_PG_HBM_STASH")}
+        out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                             env={**base, **env}, capture_output=True,
+                             text=True, timeout=120, check=True).stdout
+        assert out.split() == want.split(), (env, out)
+
+
+def test_stash_switch_takes_precedence_over_split(monkeypatch):
+    """With both switches set, geometry() runs the stash pair (whose
+    gradients differ from the exact ones), as _make_geom does."""
+    _, _, net, x = _setup()
+    ws, bs = net.effective_weights()
+
+    def grad_x(**kw):
+        xt = torch.from_numpy(x).requires_grad_(True)
+        out, g = GK.geometry(ws, bs, xt, net.cfg, **kw)
+        (xg,) = torch.autograd.grad(
+            _loss_terms_torch(out[:, 0], out[:, 1:], g, xt), xt)
+        return xg
+
+    stash, exact = grad_x(stash=True), grad_x(stash=False, stacked=False)
+    monkeypatch.setattr(GK, "STACKED_BWD", False)
+    monkeypatch.setattr(GK, "STASH_BWD", True)
+    assert torch.equal(grad_x(), stash)
+    assert not torch.equal(stash, exact)

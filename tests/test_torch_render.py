@@ -28,7 +28,8 @@ def port_config(jcfg) -> TR.RendererConfig:
         n_outside=jcfg.n_outside, up_sample_steps=jcfg.up_sample_steps,
         perturb=jcfg.perturb, sdf=sub(TF.SDFConfig, jcfg.sdf),
         rendering=sub(TF.RenderingConfig, jcfg.rendering),
-        refcolor=sub(TF.RefColorConfig, jcfg.refcolor))
+        refcolor=sub(TF.RefColorConfig, jcfg.refcolor),
+        nerf=sub(TF.NeRFConfig, jcfg.nerf))
 
 
 def build_pair(seed=0):
@@ -56,7 +57,8 @@ def make_rays(B=24, seed=0):
 def test_bridge_roundtrip():
     _, jparams, _, model = build_pair()
     got = bridge.jax_tree(model)
-    want = {k: jparams[k] for k in ("sdf", "color", "variance", "ref_color")}
+    want = {k: jparams[k] for k in ("nerf", "sdf", "color", "variance",
+                                    "ref_color")}
     for a, b in zip(jax.tree_util.tree_leaves(got),
                     jax.tree_util.tree_leaves(want)):
         np.testing.assert_array_equal(a, np.asarray(b))
@@ -119,10 +121,11 @@ def test_render_matches_jax(jitter):
 
 
 def test_render_refuses_background_nerf():
+    """The background NeRF's jitter must cover n_outside samples a ray."""
     _, _, cfg, model = build_pair()
     import dataclasses
     o, d, near, far = make_rays(4)
     t = torch.from_numpy
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="n_outside"):
         TR.render(model, dataclasses.replace(cfg, n_outside=8), t(o), t(d),
-                  t(near), t(far))
+                  t(near), t(far), t_rand_out=torch.rand(4, 7))

@@ -2,6 +2,7 @@
 and every parameter gradient on the same weights, batch and z jitter, one
 Adam step, checkpoints, and the port's CLI on a fabricated DTU scene."""
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -24,7 +25,7 @@ from factored_neus_tpu_torch.train import stage1 as TS1
 from factored_neus_tpu_torch.train.runner1 import Runner
 from factored_neus_tpu_torch.utils import checkpoints as CK
 
-GROUPS = ("sdf", "variance", "color", "ref_color")
+GROUPS = ("nerf", "sdf", "variance", "color", "ref_color")
 
 
 def _batch(seed=7):
@@ -133,11 +134,22 @@ def test_checkpoint_roundtrip(tmp_path):
     assert CK.latest_checkpoint(str(tmp_path), end_iter=6) is None
 
 
+def no_mesh(conf: str) -> None:
+    """Turn the 512^3 mesh at val_mesh_freq off in a tiny conf (too slow
+    for the CPU twin)."""
+    with open(conf) as f:
+        text = f.read()
+    with open(conf, "w") as f:
+        f.write(re.sub(r"val_mesh_freq = \d+", "val_mesh_freq = 1000000",
+                       text))
+
+
 def test_cli_trains_fake_dtu_and_resumes(tmp_path):
     data = make_fake_dtu_scene(str(tmp_path / "data" / "fake_scan"))
     conf = write_tiny_conf(str(tmp_path / "tiny.conf"),
                            str(tmp_path / "data" / "CASE_NAME"),
                            str(tmp_path / "exp" / "CASE_NAME"), iters=4)
+    no_mesh(conf)
     argv = ["--mode", "train", "--conf", conf, "--case", "fake_scan",
             "--type", "dtu", "--device", "cpu"]
     runner = exp_runner.main(argv)

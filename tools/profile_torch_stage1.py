@@ -3,19 +3,22 @@
 
     python3 tools/profile_torch_stage1.py            # K1-fwd / K1-bwd
     python3 tools/profile_torch_stage1.py --stash    # the HBM-stash pair
+    python3 tools/profile_torch_stage1.py --womask [--split]
 
-Trains full-width confs/wmask.conf on the analytic-sphere scene of
-chip_smoke.py: WARMUP steps, then a timed window of STEPS steps (host clock
-around steps that end in torch.cuda.synchronize) and a torch.profiler
-window of as many. Prints ms/step, rays/s, the device-busy share of the
-profiled window and device time by kernel, each hand-written kernel named
-by its row of PERF.md's table, and writes the table as JSON to
-build/profile/profile_torch_stage1[_stash].json.  --stash sets
-FNEUS_PG_HBM_STASH=1 before the port is imported (the switch is read at
-import).
+Trains full-width confs/wmask.conf (--womask: confs/womask.conf, with the
+background NeRF) on the analytic-sphere scene of chip_smoke.py: WARMUP
+steps, then a timed window of STEPS steps (host clock around steps that
+end in torch.cuda.synchronize) and a torch.profiler window of as many.
+Prints ms/step, rays/s, the device-busy share of the profiled window and
+device time by kernel, each hand-written kernel named by its row of
+PERF.md's table, and writes the table as JSON to
+build/profile/profile_torch_stage1[_womask][_stash][_split].json.  --stash
+sets FNEUS_PG_HBM_STASH=1 and --split FNEUS_PG_STACKED=0 before the port
+is imported (the switches are read at import).
 """
 import json
 import os
+import re
 import sys
 import tempfile
 import time
@@ -25,17 +28,21 @@ OUT = os.path.join(HERE, "build", "profile")
 STEPS = 10
 WARMUP = 5
 # device-side kernel name -> PERF.md's row (K1-fwd-stash runs K1-fwd's
-# __global__ function with its stash output switched on)
-TABLE_ROWS = (("geometry_bwd_kernel<true>", "K1-bwd-stash"),
-              ("geometry_bwd_kernel<false>", "K1-bwd"),
-              ("geometry_fwd_kernel", "K1-fwd"),
+# __global__ function with its stash output switched on; the backward's
+# template argument is its BwdMode: 0 stacked, 1 stash, 2 split)
+BWD_ROWS = {"0": "K1-bwd", "1": "K1-bwd-stash", "2": "K1-bwd-split"}
+TABLE_ROWS = (("geometry_fwd_kernel", "K1-fwd"),
               ("sdf_fwd_kernel", "K2"),
               ("radiance_fwd_kernel", "K3-fwd"),
               ("radiance_bwd_kernel", "K3-bwd"),
               ("reduce_partials_kernel", "K1-bwd/K3-bwd partial sums"))
+FLAGS = ("--womask", "--stash", "--split")
 
 
 def table_row(kernel: str, stash: bool) -> str:
+    m = re.search(r"geometry_bwd_kernel<(?:\(int\))?(\d)>", kernel)
+    if m:
+        return BWD_ROWS[m.group(1)]
     for key, row in TABLE_ROWS:
         if key in kernel:
             return row + "-stash" if stash and row == "K1-fwd" else row
@@ -43,12 +50,16 @@ def table_row(kernel: str, stash: bool) -> str:
 
 
 def main() -> int:
-    stash = sys.argv[1:] == ["--stash"]
-    if sys.argv[1:] and not stash:
-        print("usage: profile_torch_stage1.py [--stash]", file=sys.stderr)
+    args = sys.argv[1:]
+    if not set(args) <= set(FLAGS) or len(set(args)) != len(args):
+        print("usage: profile_torch_stage1.py [--womask] [--stash] "
+              "[--split]", file=sys.stderr)
         return 2
+    womask, stash, split = (f in args for f in FLAGS)
     if stash:
         os.environ["FNEUS_PG_HBM_STASH"] = "1"
+    if split:
+        os.environ["FNEUS_PG_STACKED"] = "0"
     import torch
     if not torch.cuda.is_available():
         print("profile: no CUDA device", file=sys.stderr)
@@ -65,14 +76,16 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if GK.STASH_BWD != stash:
-        raise AssertionError("FNEUS_PG_HBM_STASH disagrees with --stash")
+    if GK.STASH_BWD != stash or GK.STACKED_BWD == split:
+        raise AssertionError("the switches disagree with the flags")
     card = chip_smoke.card_line()
-    print(card, "HBM-stash pair" if stash else "K1-fwd / K1-bwd")
+    base = "womask.conf" if womask else "wmask.conf"
+    print(card, base, "HBM-stash pair" if stash else
+          "K1-fwd / K1-bwd-split" if split else "K1-fwd / K1-bwd")
     _cuda.build_all()
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
-        conf = CFG.load(chip_smoke.write_conf(tmp), "sphere")
+        conf = CFG.load(chip_smoke.write_conf(tmp, base=base), "sphere")
         ds = make_dataset("dtu", conf["dataset"], dev)
     cfg = CFG.renderer_config(conf)
     tcfg = TrainConfig.from_conf(conf)
@@ -122,9 +135,11 @@ def main() -> int:
         print(f"  {r['ms_per_step']:9.3f} ms  {r['calls'] // STEPS:5d}x "
               f" {r['row'] or '-':>26}  {r['name'][:80]}")
     os.makedirs(OUT, exist_ok=True)
-    name = "profile_torch_stage1" + ("_stash" if stash else "") + ".json"
+    name = "profile_torch_stage1" + "".join(
+        f.replace("--", "_") for f in FLAGS if f in args) + ".json"
     with open(os.path.join(OUT, name), "w") as f:
-        json.dump({"card": card, "stash": stash, "step_ms": 1e3 * wall,
+        json.dump({"card": card, "conf": base, "stash": stash,
+                   "split": split, "step_ms": 1e3 * wall,
                    "profiled_step_ms": step_ms, "busy_ms": busy,
                    "kernels": rows}, f, indent=1)
     return 0
