@@ -6,7 +6,8 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels of factored_neus_tpu_torch/csrc with nvcc;
 3. holds each kernel against its plain PyTorch twin at full width (f32,
-   TF32 off) and times both with CUDA events;
+   TF32 off), checks that two K1-bwd launches agree bit for bit, and times
+   each kernel and twin with CUDA events;
 4. runs one full-width stage-1 step of confs/wmask.conf and one of
    confs/womask.conf (background NeRF) on the card (kernels) and the same
    steps on the CPU (twins), and compares the loss and every parameter
@@ -41,6 +42,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 F32_PEAK = 67e12        # H100 SXM f32 FLOP/s outside the tensor cores
+TF32_PEAK = 495e12      # H100 SXM dense TF32 tensor-core FLOP/s
 HBM_RATE = 3.35e12      # H100 SXM device memory bytes/s
 N_CORE = 512 * 128      # render-core points of one wmask step
 N_SWEEP = 512 * 64      # points of the ladder's first (largest) sweep
@@ -149,7 +151,11 @@ def check_kernels(device):
     x = torch.randn(N_CORE, 3, device=device, generator=gen) * 0.5
     results, gflop = [], {}
 
-    def entry(name, source, replaces, err, ms, plain_ms, flops, nbytes):
+    def entry(name, source, replaces, err, ms, plain_ms, flops, nbytes,
+              tensor_cores=False):
+        """bound_ms: the f32 CUDA-core bound; a kernel on the tensor cores
+        (K1, 3xTF32) adds bound_3xtf32_ms, three TF32 products' worth of
+        the same FLOPs over the TF32 peak (or the bytes, if larger)."""
         t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_RATE
         gflop[name] = flops / 1e9
         results.append({
@@ -159,6 +165,9 @@ def check_kernels(device):
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None})
+        if tensor_cores:
+            results[-1]["bound_3xtf32_ms"] = 1e3 * max(
+                3 * flops / TF32_PEAK, t_bytes)
 
     # K1-fwd: f32 dots of width <= 257 summed in another order than cuBLAS
     out_k, grad_k = GK.launch_forward(cfg, x, ws, bs)
@@ -183,7 +192,7 @@ def check_kernels(device):
           max(e_out, e_g),
           cuda_ms(lambda: GK.launch_forward(cfg, x, ws, bs), 10),
           cuda_ms(lambda: plain_fwd(), 5),
-          N_CORE * fwd_flops, fwd_bytes)
+          N_CORE * fwd_flops, fwd_bytes, tensor_cores=True)
 
     # K1-bwd: adds weight-gradient sums over 131,072 stacked rows.  The
     # reference is the plain twin in float64: in float32 the twin's own
@@ -216,6 +225,15 @@ def check_kernels(device):
         f"db{l}" for l in range(L)]
     e_b = check_vjp(f"K1-bwd  N={N_CORE}", [ct_x, *dws, *dbs], ref64, ref32,
                     names)
+    # the weight-gradient sums run in a fixed order: a second launch gives
+    # the same bits
+    again = GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g)
+    same = all(torch.equal(a, b) for a, b in zip(
+        [ct_x, *dws, *dbs], [again[0], *again[1], *again[2]]))
+    print(f"K1-bwd  two launches bitwise equal: {same}")
+    if not same:
+        raise AssertionError("K1-bwd is not deterministic")
+    del again
     # K1-bwd-split: the same function with the chains as separate
     # half-tile products; the same f64 reference and criterion
     got = GK.launch_backward_split(cfg, x, ws, bs, ct_out, ct_g)
@@ -233,13 +251,15 @@ def check_kernels(device):
           "factored_neus_tpu/ops/pallas_geometry.py:846", e_b,
           cuda_ms(lambda: GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g),
                   5),
-          cuda_ms(plain32, 3), N_CORE * bwd_flops, bwd_bytes)
+          cuda_ms(plain32, 3), N_CORE * bwd_flops, bwd_bytes,
+          tensor_cores=True)
     entry("geometry_bwd_split",
           "factored_neus_tpu_torch/csrc/geometry_bwd.cu",
           "factored_neus_tpu/ops/pallas_geometry.py:529", e_sp,
           cuda_ms(lambda: GK.launch_backward_split(cfg, x, ws, bs, ct_out,
                                                    ct_g), 5),
-          cuda_ms(plain32, 3), N_CORE * bwd_flops, bwd_bytes)
+          cuda_ms(plain32, 3), N_CORE * bwd_flops, bwd_bytes,
+          tensor_cores=True)
     del plain32
 
     # K2: the ladder's narrowed no-grad sweep (last layer = sdf column)
@@ -383,7 +403,7 @@ def check_kernels(device):
           "factored_neus_tpu/ops/pallas_geometry.py:764", max(e_out, e_g),
           cuda_ms(lambda: GK.launch_forward_stash(cfg, x, ws, bs), 10),
           cuda_ms(plain_fwd_stash, 5), N_CORE * fwd_flops,
-          fwd_bytes + stash_bytes)
+          fwd_bytes + stash_bytes, tensor_cores=True)
 
     # K1-bwd-stash: the kernel's own stash fed to both; the f64 twin
     # computes from the same bf16 values
@@ -409,14 +429,18 @@ def check_kernels(device):
           cuda_ms(lambda: GK.launch_backward_stash(cfg, x, ws, st_k, ct_out,
                                                    ct_g), 5),
           cuda_ms(splain32, 3),
-          N_CORE * (bwd_flops - 2 * (S - s_last)), bwd_bytes + stash_bytes)
+          N_CORE * (bwd_flops - 2 * (S - s_last)), bwd_bytes + stash_bytes,
+          tensor_cores=True)
     del splain32, st_k
 
     for r in results:
+        tc = r.get("bound_3xtf32_ms")
+        tc_text = (f"; 3xTF32 tensor-core bound {tc:.3f} ms "
+                   f"({100 * tc / r['ms']:.1f}% of it)" if tc else "")
         print(f"  {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} "
-              f"ms) for {gflop[r['name']]:.1f} GFLOP, bound "
+              f"ms) for {gflop[r['name']]:.1f} GFLOP, f32 bound "
               f"{r['bound_ms']:.3f} ms by {r['bound_by']} "
-              f"({100 * r['bound_ms'] / r['ms']:.1f}% of it)")
+              f"({100 * r['bound_ms'] / r['ms']:.1f}% of it){tc_text}")
     return results
 
 

@@ -14,39 +14,51 @@
 // input-cotangent products, and the tangent's, whose last layer is only a
 // column of dW and a row of W since its seed is e0 / scale.  This kernel
 // does 11.5 S: it runs the tangent's last layer as full stacked products,
-// like the rest of the stacked forward and reverse sweep.  What differs
-// from the TPU: there the grid runs in order and the weight
-// gradient accumulates in revisited VMEM blocks.  Here blocks run in
-// parallel, so each persistent block accumulates into its own slice of a
-// partial buffer, tile after tile in a fixed order, and a second small
-// kernel sums the slices in a fixed order: the result is deterministic.
-// The stacked pre-activations of one tile (9 x 64 x 260 floats) do not fit
-// in shared memory next to the two 64-row work tiles, so they go to a
-// per-block scratch that stays hot in L2.
+// like the rest of the stacked forward and reverse sweep.  Every product
+// runs on the tensor cores in 3xTF32 (tc_mma.cuh: forward X W and input
+// cotangents R W^T with the weights staged by cp.async, weight gradients
+// X^T R from the two tiles in shared memory), so the least time is three
+// TF32 products' worth of those FLOPs over 495 TFLOP/s.  What differs
+// from the TPU: there the grid runs in order and the weight gradient
+// accumulates in revisited VMEM blocks.  Here blocks run in parallel, so
+// each persistent block accumulates into its own slice of a partial
+// buffer, tile after tile in a fixed order, and a second small kernel sums
+// the slices in a fixed order: the result is deterministic.  Each tile
+// adds its 64-row sums to the slice with a read-modify-write of the whole
+// slice (2.1 MB at full width); the 132 slices (278 MB) do not fit in the
+// 50 MB L2, so that is ~4.2 MB of device-memory traffic per tile, ~8.6 GB
+// a call.  The stacked pre-activations of one tile (9 x 64 x ld floats) do
+// not fit in shared memory next to the two 64-row work tiles, so they go
+// to a per-block scratch (82 MB over 132 blocks, also more than L2 holds):
+// written once and read twice (the layer input rebuilt, then the
+// activation's derivative), ~3.2 GB a call at full width.
 //
 // K1-bwd-stash (entry point geometry_bwd_stash) replaces
 // _make_geom.run_bwd_stash (body _build_bwd_kernel_from_stash): the primal
 // pre-activations come from the bf16 stash that K1-fwd-stash wrote, so
-// only the tangent forward is recomputed, as a half-tile product over the
-// 32 tangent rows; biases are not read.  Bound: operations, 2 S' fewer
-// FLOPs per row than K1-bwd (S' = S without the last layer), against
-// 4,018 more bytes read per row at full width.
+// only the tangent forward is recomputed, as a 32-row product over the
+// tangent rows; biases are not read.  Bound: operations, 2 S' fewer FLOPs
+// per row than K1-bwd (S' = S without the last layer), against 4,018 more
+// bytes read per row at full width.
 //
 // K1-bwd-split (entry point geometry_bwd_split) replaces the same call with
 // stacked=False (body _build_bwd_kernel): the same function as K1-bwd, with
 // the primal and tangent chains as separate row sets.  Each product of the
-// stacked sweep becomes two half-tile products, one over each chain's 32
-// rows (forward a = x W + b and ad = xd W, input cotangents r W^T and
-// rd W^T), and the weight gradient two 32-row sums x^T r and xd^T rd into
-// the same partial slice.  Bound: as K1-bwd.
+// stacked sweep becomes two 32-row products, one over each chain's rows
+// (forward a = x W + b and ad = xd W, input cotangents r W^T and rd W^T),
+// each streaming the layer's weights once; the weight gradient sums the
+// primal chain's 32 rows (k-steps 0-3) and the tangent chain's (4-7) into
+// the same registers before the one read-modify-write of the slice.
+// Bound: as K1-bwd.
 #include <cuda_bf16.h>
 
 #include "sdf_mlp.cuh"
+#include "tc_mma.cuh"
 
-#define HALF (SDF_TILE / 2)
+#define HALF (TC_TILE / 2)
 
 // Column offset of layer l's pre-activations in a stash row.
-__device__ __forceinline__ int stash_col(const SdfDims& d, int l) {
+__device__ __forceinline__ int stash_col(const TcDims& d, int l) {
   int off = 0;
   for (int i = 0; i < l; ++i) off += d.outs[i];
   return off;
@@ -56,51 +68,56 @@ __device__ __forceinline__ int stash_col(const SdfDims& d, int l) {
 // the bf16 stash, tangent forward only), and the split chains.
 enum BwdMode { BWD_STACKED, BWD_STASH, BWD_SPLIT };
 
-// Y = X @ B over both chains of the tile: one 64-row product, or one
-// half-tile product per chain.
-template <int TN, int MODE>
-__device__ __forceinline__ void chains_mm(const float* X, int ldx, int K,
-                                          const float* __restrict__ B, int N,
-                                          float* Y, int ldy) {
-  if (MODE == BWD_SPLIT) {
-    tile_mm<TN, 4>(X, ldx, K, B, N, N, Y, ldy);
-    tile_mm<TN, 4>(X + HALF * ldx, ldx, K, B, N, N, Y + HALF * ldy, ldy);
+// Forward product of layer l into R: both chains' rows (stacked: one
+// 64-row product; split: one 32-row product per chain), or from the stash
+// the tangent rows alone.
+template <int MODE>
+__device__ __forceinline__ void bwd_forward(const TcDims& d, int l,
+                                            const float* xin, int ldx,
+                                            float* R, float* ring) {
+  const int kp = d.kp[l], off = d.fwd_off[l], S = d.fwd_st[l], np = d.np[l];
+  if (MODE == BWD_STACKED) {
+    tc_product<2>(d, xin, ldx, kp, off, S, np, R, d.ld, ring);
   } else {
-    tile_mm<TN>(X, ldx, K, B, N, N, Y, ldy);
+    if (MODE == BWD_SPLIT)
+      tc_product<1>(d, xin, ldx, kp, off, S, np, R, d.ld, ring);
+    tc_product<1>(d, xin + HALF * ldx, ldx, kp, off, S, np, R + HALF * d.ld,
+                  d.ld, ring);
   }
 }
 
-// C (+)= X^T @ Rm summed over both chains' rows: one 64-row sum, or one
-// 32-row sum per chain into the same C.
-template <int TN, int MODE>
-__device__ __forceinline__ void chains_atb(const float* X, int ldx, int M,
-                                           const float* Rm, int ldr, int N,
-                                           float* C, bool first) {
+// Input cotangents of both chains, A = R W_l (the W block of the pack).
+template <int MODE>
+__device__ __forceinline__ void bwd_input_cot(const TcDims& d, int l,
+                                              const float* R, float* A,
+                                              float* ring) {
+  const int kp = d.np[l], off = d.rev_off[l], S = d.rev_st[l], np = d.kp[l];
   if (MODE == BWD_SPLIT) {
-    tile_atb<TN, HALF>(X, ldx, M, Rm, ldr, N, C, first);
-    tile_atb<TN, HALF>(X + HALF * ldx, ldx, M, Rm + HALF * ldr, ldr, N, C,
-                       false);
+    tc_product<1>(d, R, d.ld, kp, off, S, np, A, d.ld, ring);
+    tc_product<1>(d, R + HALF * d.ld, d.ld, kp, off, S, np, A + HALF * d.ld,
+                  d.ld, ring);
   } else {
-    tile_atb<TN>(X, ldx, M, Rm, ldr, N, C, first);
+    tc_product<2>(d, R, d.ld, kp, off, S, np, A, d.ld, ring);
   }
 }
 
 template <int MODE>
-__global__ void __launch_bounds__(SDF_THREADS, 1)
-geometry_bwd_kernel(SdfDims d, const float* __restrict__ x,
+__global__ void __launch_bounds__(TC_THREADS, 1)
+geometry_bwd_kernel(TcDims d, const float* __restrict__ x,
                     const float* __restrict__ ct_out,
                     const float* __restrict__ ct_g, float* ct_x,
                     float* stash_all, float* part_all, long long P,
                     int n_tiles, const __nv_bfloat16* __restrict__ bstash,
                     int stash_cols) {
   constexpr bool FROM_STASH = MODE == BWD_STASH;
-  extern __shared__ float smem[];
-  const int ld = d.ld;
-  float* E = smem;                              // [64][64] enc | denc
-  float* RE = E + SDF_TILE * SDF_ENC_LD;        // [64][64] their cotangents
-  float* A = RE + SDF_TILE * SDF_ENC_LD;        // [64][ld] layer input / r_in
-  float* R = A + SDF_TILE * ld;                 // [64][ld] output cotangent
-  const size_t stash_layer = (size_t)SDF_TILE * ld;
+  extern __shared__ __align__(16) float smem[];
+  const int ld = d.ld, eld = d.eld;
+  float* E = smem;                              // [64][eld] enc | denc
+  float* RE = E + TC_TILE * eld;                // [64][eld] their cotangents
+  float* A = RE + TC_TILE * eld;                // [64][ld] layer input / r_in
+  float* R = A + TC_TILE * ld;                  // [64][ld] output cotangent
+  float* ring = R + TC_TILE * ld;               // two weight-slice stages
+  const size_t stash_layer = (size_t)TC_TILE * ld;
   float* stash = stash_all + (size_t)blockIdx.x * d.L * stash_layer;
   float* part = part_all + (size_t)blockIdx.x * P;
   const float inv_sqrt2 = 0.70710678118654752f;
@@ -108,6 +125,11 @@ geometry_bwd_kernel(SdfDims d, const float* __restrict__ x,
   const int tid = threadIdx.x;
   const int lL = d.L - 1;
   const int n_rows = d.n;
+
+  // the products read padding columns, which must be finite
+  for (int i = tid; i < TC_TILE * 2 * (eld + ld); i += TC_THREADS)
+    smem[i] = 0.f;
+  __syncthreads();
 
   bool first = true;
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, first = false) {
@@ -132,34 +154,23 @@ geometry_bwd_kernel(SdfDims d, const float* __restrict__ x,
         u[c] = valid ? x[row * 3 + c] * d.scale : 0.f;
         v[c] = valid ? ct_g[row * 3 + c] * d.scale : 0.f;
       }
-      encode_row(u, v, d.multires, E + tid * SDF_ENC_LD,
-                 E + (HALF + tid) * SDF_ENC_LD);
+      encode_row(u, v, d.multires, E + tid * eld, E + (HALF + tid) * eld);
     }
-    for (int idx = tid; idx < SDF_TILE * SDF_ENC_LD; idx += SDF_THREADS)
-      RE[idx] = 0.f;
+    for (int idx = tid; idx < TC_TILE * eld; idx += TC_THREADS) RE[idx] = 0.f;
     __syncthreads();
 
     // stacked forward: primal rows take the bias and softplus, tangent rows
     // the chain rule sigma(100 a) * ad; pre-activations go to the scratch.
     // From the stash only the tangent rows are computed.
     for (int l = 0; l < lL; ++l) {
-      const float* xin = l == 0 ? E : A;
-      const int ldx = l == 0 ? SDF_ENC_LD : ld;
-      const int K = d.ins[l], N = d.outs[l];
-      if (FROM_STASH) {
-        SDF_TN_DISPATCH(N, (tile_mm<TN, 4>(xin + HALF * ldx, ldx, K,
-                                           d.wT[l], N, N, R + HALF * ld,
-                                           ld)));
-      } else {
-        SDF_TN_DISPATCH(N, (chains_mm<TN, MODE>(xin, ldx, K, d.wT[l], N, R,
-                                                ld)));
-      }
+      const int N = d.outs[l];
+      bwd_forward<MODE>(d, l, l == 0 ? E : A, l == 0 ? eld : ld, R, ring);
       __syncthreads();
       const bool skip_next = (d.skip_mask >> (l + 1)) & 1;
       const float post = skip_next ? inv_sqrt2 : 1.f;
       const int so = FROM_STASH ? stash_col(d, l) : 0;
       float* st = stash + l * stash_layer;
-      for (int idx = tid; idx < HALF * N; idx += SDF_THREADS) {
+      for (int idx = tid; idx < HALF * N; idx += TC_THREADS) {
         const int r = idx / N, c = idx - r * N;
         float a;
         if (FROM_STASH) {
@@ -174,9 +185,9 @@ geometry_bwd_kernel(SdfDims d, const float* __restrict__ x,
         A[(HALF + r) * ld + c] = sig100(a) * ad * post;
       }
       if (skip_next)
-        for (int idx = tid; idx < SDF_TILE * d.d_embed; idx += SDF_THREADS) {
+        for (int idx = tid; idx < TC_TILE * d.d_embed; idx += TC_THREADS) {
           const int r = idx / d.d_embed, c = idx - r * d.d_embed;
-          A[r * ld + N + c] = E[r * SDF_ENC_LD + c] * inv_sqrt2;
+          A[r * ld + N + c] = E[r * eld + c] * inv_sqrt2;
         }
       __syncthreads();
     }
@@ -184,7 +195,7 @@ geometry_bwd_kernel(SdfDims d, const float* __restrict__ x,
     // seed: cotangent of the last layer's output
     {
       const int N = d.outs[lL];
-      for (int idx = tid; idx < HALF * N; idx += SDF_THREADS) {
+      for (int idx = tid; idx < HALF * N; idx += TC_THREADS) {
         const int r = idx / N, c = idx - r * N;
         const int row = row0 + r;
         const bool valid = row < d.n;
@@ -208,28 +219,26 @@ geometry_bwd_kernel(SdfDims d, const float* __restrict__ x,
         const float post = skip ? inv_sqrt2 : 1.f;
         const int so = FROM_STASH ? stash_col(d, l - 1) : 0;
         const float* st = stash + (l - 1) * stash_layer;
-        for (int idx = tid; idx < HALF * W; idx += SDF_THREADS) {
-          const int r = idx / W, c = idx - r * W;
-          const float a = primal(l - 1, so, r, c);
-          const float ad = st[(HALF + r) * ld + c];
-          A[r * ld + c] = sp100(a) * post;
-          A[(HALF + r) * ld + c] = sig100(a) * ad * post;
-        }
+        tc_rows_for<8>(
+            HALF, W, [&](int r, int c) { return primal(l - 1, so, r, c); },
+            [&](int r, int c) { return st[(HALF + r) * ld + c]; },
+            [&](int r, int c, float a, float ad) {
+              A[r * ld + c] = sp100(a) * post;
+              A[(HALF + r) * ld + c] = sig100(a) * ad * post;
+            });
         if (skip)
-          for (int idx = tid; idx < SDF_TILE * d.d_embed; idx += SDF_THREADS) {
+          for (int idx = tid; idx < TC_TILE * d.d_embed; idx += TC_THREADS) {
             const int r = idx / d.d_embed, c = idx - r * d.d_embed;
-            A[r * ld + W + c] = E[r * SDF_ENC_LD + c] * inv_sqrt2;
+            A[r * ld + W + c] = E[r * eld + c] * inv_sqrt2;
           }
         __syncthreads();
       }
-      const float* xl = l == 0 ? E : A;
-      const int ldxl = l == 0 ? SDF_ENC_LD : ld;
 
       // weight gradient [in][out] over both halves; bias over primal rows
-      SDF_TN_DISPATCH(N, (chains_atb<TN, MODE>(xl, ldxl, K, R, ld, N,
-                                               part + off, first)));
+      tc_weight_grad(l == 0 ? E : A, l == 0 ? eld : ld, K, R, ld, N,
+                     part + off, first, ring);
       float* pb = part + off + (long long)K * N;
-      for (int c = tid; c < N; c += SDF_THREADS) {
+      for (int c = tid; c < N; c += TC_THREADS) {
         float s = 0.f;
         for (int r = 0; r < HALF; ++r) s += R[r * ld + c];
         pb[c] = first ? s : pb[c] + s;
@@ -237,22 +246,22 @@ geometry_bwd_kernel(SdfDims d, const float* __restrict__ x,
       __syncthreads();
 
       // input cotangents of both chains: A = R @ W^T
-      SDF_TN_DISPATCH(K, (chains_mm<TN, MODE>(R, ld, N, d.wt[l], K, A, ld)));
+      bwd_input_cot<MODE>(d, l, R, A, ring);
       __syncthreads();
       if (skip) {
         const int hw = K - d.d_embed;
-        for (int idx = tid; idx < SDF_TILE * K; idx += SDF_THREADS) {
+        for (int idx = tid; idx < TC_TILE * K; idx += TC_THREADS) {
           const int r = idx / K, k = idx - r * K;
           const float v = A[r * ld + k] * inv_sqrt2;
-          if (k >= hw) RE[r * SDF_ENC_LD + k - hw] += v;
+          if (k >= hw) RE[r * eld + k - hw] += v;
           else A[r * ld + k] = v;
         }
         __syncthreads();
       }
       if (l == 0) {
-        for (int idx = tid; idx < SDF_TILE * d.d_embed; idx += SDF_THREADS) {
+        for (int idx = tid; idx < TC_TILE * d.d_embed; idx += TC_THREADS) {
           const int r = idx / d.d_embed, c = idx - r * d.d_embed;
-          RE[r * SDF_ENC_LD + c] += A[r * ld + c];
+          RE[r * eld + c] += A[r * ld + c];
         }
       } else {
         // h = sp(a): dh/da = s; hd = s ad: d(hd)/da = 100 s (1 - s) ad,
@@ -260,17 +269,17 @@ geometry_bwd_kernel(SdfDims d, const float* __restrict__ x,
         const int W = d.outs[l - 1];
         const int so = FROM_STASH ? stash_col(d, l - 1) : 0;
         const float* st = stash + (l - 1) * stash_layer;
-        for (int idx = tid; idx < HALF * W; idx += SDF_THREADS) {
-          const int r = idx / W, k = idx - r * W;
-          const float a = primal(l - 1, so, r, k);
-          const float ad = st[(HALF + r) * ld + k];
-          const float s = sig100(a);
-          const float ds = 100.f * s * (1.f - s);
-          const float rh = A[r * ld + k];
-          const float rdh = A[(HALF + r) * ld + k];
-          R[r * ld + k] = rh * s + rdh * ds * ad;
-          R[(HALF + r) * ld + k] = rdh * s;
-        }
+        tc_rows_for<8>(
+            HALF, W, [&](int r, int k) { return primal(l - 1, so, r, k); },
+            [&](int r, int k) { return st[(HALF + r) * ld + k]; },
+            [&](int r, int k, float a, float ad) {
+              const float s = sig100(a);
+              const float ds = 100.f * s * (1.f - s);
+              const float rh = A[r * ld + k];
+              const float rdh = A[(HALF + r) * ld + k];
+              R[r * ld + k] = rh * s + rdh * ds * ad;
+              R[(HALF + r) * ld + k] = rdh * s;
+            });
         off -= (long long)d.ins[l - 1] * W + W;
       }
       __syncthreads();
@@ -284,8 +293,8 @@ geometry_bwd_kernel(SdfDims d, const float* __restrict__ x,
           u[c] = x[row * 3 + c] * d.scale;
           v[c] = ct_g[row * 3 + c] * d.scale;
         }
-        encode_backward_row(u, v, d.multires, RE + tid * SDF_ENC_LD,
-                            RE + (HALF + tid) * SDF_ENC_LD, ct);
+        encode_backward_row(u, v, d.multires, RE + tid * eld,
+                            RE + (HALF + tid) * eld, ct);
         for (int c = 0; c < 3; ++c) ct_x[row * 3 + c] = ct[c] * d.scale;
       }
     }
@@ -293,38 +302,35 @@ geometry_bwd_kernel(SdfDims d, const float* __restrict__ x,
   }
 }
 
-// The weight pointers start at index 7: [wT[L], wt[L], b[L]]; from the
-// stash at index 8, after the stash pointer, and without biases.
+// Pointers: [x, ct_out, ct_grad, ct_x, scratch, partials, grads, then
+// (bf16 stash,) pack, b[L]]; from the stash without biases.
 template <int MODE>
 static int launch_bwd(const int* ia, const unsigned long long* p, float scale,
                       unsigned long long stream) {
   constexpr bool FROM_STASH = MODE == BWD_STASH;
-  SdfDims d;
-  int rc = sdf_dims_from_args(ia, scale, &d);
-  if (rc) return rc;
-  const int L = d.L;
   const int pw = FROM_STASH ? 8 : 7;
+  TcDims d;
+  int rc = tc_dims_from_args(ia, scale, (const float*)p[pw], &d);
+  if (rc) return rc;
   long long P = 0;
   int stash_cols = 0;
-  for (int l = 0; l < L; ++l) {
-    d.wT[l] = (const float*)p[pw + l];
-    d.wt[l] = (const float*)p[pw + L + l];
-    d.b[l] = FROM_STASH ? nullptr : (const float*)p[pw + 2 * L + l];
+  for (int l = 0; l < d.L; ++l) {
+    d.b[l] = FROM_STASH ? nullptr : (const float*)p[pw + 1 + l];
     P += (long long)d.ins[l] * d.outs[l] + d.outs[l];
-    if (l + 1 < L) stash_cols += d.outs[l];
+    if (l + 1 < d.L) stash_cols += d.outs[l];
   }
   const __nv_bfloat16* bstash =
       FROM_STASH ? (const __nv_bfloat16*)p[7] : nullptr;
   const int grid = ia[6];
   const int n_tiles = (d.n + HALF - 1) / HALF;
-  const size_t smem = (size_t)(2 * SDF_TILE * SDF_ENC_LD + 2 * SDF_TILE * d.ld) *
-                      sizeof(float);
+  const size_t smem = tc_smem_bytes(d, (size_t)TC_TILE * 2 * (d.eld + d.ld));
+  if (!smem) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       geometry_bwd_kernel<MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
-  geometry_bwd_kernel<MODE><<<grid, SDF_THREADS, smem, s>>>(
+  geometry_bwd_kernel<MODE><<<grid, TC_THREADS, smem, s>>>(
       d, (const float*)p[0], (const float*)p[1], (const float*)p[2],
       (float*)p[3], (float*)p[4], (float*)p[5], P, n_tiles, bstash,
       stash_cols);
@@ -336,25 +342,24 @@ static int launch_bwd(const int* ia, const unsigned long long* p, float scale,
   return (int)cudaGetLastError();
 }
 
-// Integer arguments: [L, multires, d_embed, ld, skip_mask, n, grid,
-// ins[L], outs[L]].  Pointers: [x, ct_out, ct_grad, ct_x, stash, partials,
-// grads, wT[L], wt[L], b[L]].  grads receives, per layer, dW as [in][out]
-// followed by db [out].  Returns a cudaError_t value.
+// Integer arguments: tc_dims_from_args'.  Pointers: [x, ct_out, ct_grad,
+// ct_x, scratch, partials, grads, pack, b[L]].  grads receives, per layer,
+// dW as [in][out] followed by db [out].  Returns a cudaError_t value.
 extern "C" int geometry_bwd(const int* ia, const unsigned long long* p,
                             float scale, unsigned long long stream) {
   return launch_bwd<BWD_STACKED>(ia, p, scale, stream);
 }
 
 // Integer arguments as geometry_bwd.  Pointers: [x, ct_out, ct_grad, ct_x,
-// scratch, partials, grads, bf16 stash [n][sum of outs[0..L-2]], wT[L],
-// wt[L]]; the scratch holds only the tangent pre-activations.
+// scratch, partials, grads, bf16 stash [n][sum of outs[0..L-2]], pack];
+// the scratch holds only the tangent pre-activations.
 extern "C" int geometry_bwd_stash(const int* ia, const unsigned long long* p,
                                   float scale, unsigned long long stream) {
   return launch_bwd<BWD_STASH>(ia, p, scale, stream);
 }
 
 // Arguments as geometry_bwd: the same function, the two chains as separate
-// half-tile products.
+// 32-row products.
 extern "C" int geometry_bwd_split(const int* ia, const unsigned long long* p,
                                   float scale, unsigned long long stream) {
   return launch_bwd<BWD_SPLIT>(ia, p, scale, stream);

@@ -9,10 +9,11 @@
 //
 // Bound: operations, 6 x 271,360 FLOPs per row at full width (forward,
 // weight gradient and input cotangent of every layer) against ~2 KB moved
-// per row.  The design is K1-bwd's: a persistent block walks 64-row tiles;
-// the first layer's input stays in shared memory, the hidden activations
-// h = relu(a) (their sign is the ReLU mask) go to a per-block scratch that
-// stays hot in L2; each block accumulates its weight gradients into its
+// per row.  A persistent block walks 64-row tiles; the first layer's input
+// stays in shared memory, the hidden activations h = relu(a) (their sign
+// is the ReLU mask) go to a per-block scratch (35 MB at 132 blocks: under
+// the 50 MB L2, but sharing it with the 143 MB of partial slices); each
+// block accumulates its weight gradients into its
 // own slice of a partial buffer, tile after tile, and a second kernel sums
 // the slices in a fixed order: deterministic, no atomics.  The first
 // layer's input cotangent is 289 columns wide, past the 288 the column

@@ -8,8 +8,8 @@
 // Bound: operations (2 x 459,008 FLOPs per row for the narrowed full-width
 // network against 12 bytes in and 4 out).  The design keeps the 64-row
 // activation tile in shared memory through all layers and streams each
-// layer's weight rows from L2, exactly like K1's forward half, with no
-// stash and no reverse sweep.
+// layer's weight rows from L2 into f32 CUDA-core products (tile_mm), with
+// no scratch and no reverse sweep.
 #include "sdf_mlp.cuh"
 
 __global__ void __launch_bounds__(SDF_THREADS, 1)
@@ -29,7 +29,7 @@ sdf_fwd_kernel(SdfDims d, const float* __restrict__ x, float* out) {
     encode_row(u, nullptr, d.multires, E + tid * SDF_ENC_LD, nullptr);
   }
   __syncthreads();
-  forward_hidden(d, E, X, Y, nullptr, 0);
+  forward_hidden(d, E, X, Y);
   const int lL = d.L - 1;
   const float* xin = lL == 0 ? E : X;
   const int ldx = lL == 0 ? SDF_ENC_LD : ld;

@@ -1,8 +1,10 @@
-// Shared device code of the MLP kernels (geometry forward/backward, the
-// forward-only sweep and, through radiance_mlp.cuh, the radiance MLP): the
-// layer description, the positional encoding, softplus(beta=100), the two
-// register-tiled f32 products every layer runs on a 64-row tile held in
-// shared memory, and the fixed-order sum of per-block weight gradients.
+// Shared device code of the MLP kernels: the layer description, the
+// positional encoding, softplus(beta=100), the two register-tiled f32
+// products every layer of the forward-only sweep and (through
+// radiance_mlp.cuh) the radiance MLP runs on a 64-row tile held in shared
+// memory, and the fixed-order sum of per-block weight gradients.  The
+// geometry kernels take only the encoding, softplus and that sum from here;
+// their products run on the tensor cores (tc_mma.cuh).
 //
 // Design (Hopper, f32 CUDA cores): the full-width SDF MLP has ~2.1 MB of f32
 // weights, far above the 227 KB of shared memory a block may use, so weights
@@ -123,21 +125,20 @@ __device__ __forceinline__ void encode_backward_row(const float u[3],
   }
 }
 
-// Y[8 RPW][N] = X[8 RPW][K] @ B[K][N]; X, Y in shared memory (strides ldx,
-// ldy), B in global memory, row-major with stride ldb.  Warp w owns rows
-// RPW w .. RPW w + RPW - 1: RPW = 8 is the full 64-row tile, RPW = 4 its
-// half.  Columns >= N are neither read nor written.
-template <int TN, int RPW = 8>
+// Y[64][N] = X[64][K] @ B[K][N]; X, Y in shared memory (strides ldx, ldy),
+// B in global memory, row-major with stride ldb.  Warp w owns rows 8w ..
+// 8w + 7.  Columns >= N are neither read nor written.
+template <int TN>
 __device__ __forceinline__ void tile_mm(const float* X, int ldx, int K,
                                         const float* __restrict__ B, int ldb,
                                         int N, float* Y, int ldy) {
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  float acc[RPW][TN];
+  float acc[8][TN];
 #pragma unroll
-  for (int i = 0; i < RPW; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  const float* xr = X + (ty * RPW) * ldx;
+  const float* xr = X + (ty * 8) * ldx;
 #pragma unroll 2
   for (int k = 0; k < K; ++k) {
     float bv[TN];
@@ -147,27 +148,27 @@ __device__ __forceinline__ void tile_mm(const float* X, int ldx, int K,
       bv[j] = n < N ? __ldg(B + (size_t)k * ldb + n) : 0.f;
     }
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) {
+    for (int i = 0; i < 8; ++i) {
       const float a = xr[i * ldx + k];
 #pragma unroll
       for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a, bv[j], acc[i][j]);
     }
   }
 #pragma unroll
-  for (int i = 0; i < RPW; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = tx + 32 * j;
-      if (n < N) Y[(ty * RPW + i) * ldy + n] = acc[i][j];
+      if (n < N) Y[(ty * 8 + i) * ldy + n] = acc[i][j];
     }
 }
 
-// C[M][N] (+)= A[ROWS][M]^T @ Bm[ROWS][N] summed over ROWS rows (the whole
-// 64-row tile, or one half of it); A and Bm in shared memory, C in global
-// memory (stride N).  first: store instead of accumulate.  Used for the
-// weight gradient of one layer.  Each thread reads and writes only its own
-// entries of C, so calls on the same C follow each other without a barrier.
-template <int TN, int ROWS = SDF_TILE>
+// C[M][N] (+)= A[64][M]^T @ Bm[64][N] summed over the tile's 64 rows; A and
+// Bm in shared memory, C in global memory (stride N).  first: store instead
+// of accumulate.  Used for the weight gradient of one layer.  Each thread
+// reads and writes only its own entries of C, so calls on the same C follow
+// each other without a barrier.
+template <int TN>
 __device__ __forceinline__ void tile_atb(const float* A, int lda, int M,
                                          const float* Bm, int ldb, int N,
                                          float* C, bool first) {
@@ -180,7 +181,7 @@ __device__ __forceinline__ void tile_atb(const float* A, int lda, int M,
       for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
     const int mb = m0 + ty * 8;
 #pragma unroll 2
-    for (int r = 0; r < ROWS; ++r) {
+    for (int r = 0; r < SDF_TILE; ++r) {
       float bv[TN];
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
@@ -238,13 +239,11 @@ __global__ void reduce_partials_kernel(const float* __restrict__ part, int G,
 
 // Forward over one 64-row tile.  On entry E holds the encoding (columns
 // [0, d_embed)) of the tile's rows.  Runs layers 0..L-2 through softplus,
-// leaving the last layer's INPUT in X (stride d.ld), and writes each hidden
-// pre-activation a_l to stash[l] (stride d.ld) when stash is given.  The
-// tile rows are independent; bias is added to every row.
+// leaving the last layer's INPUT in X (stride d.ld).  The tile rows are
+// independent; bias is added to every row.
 __device__ __forceinline__ void forward_hidden(const SdfDims& d,
                                                const float* E, float* X,
-                                               float* Y, float* stash,
-                                               size_t stash_layer) {
+                                               float* Y) {
   const int ld = d.ld;
   const float inv_sqrt2 = 0.70710678118654752f;
   for (int l = 0; l + 1 < d.L; ++l) {
@@ -259,7 +258,6 @@ __device__ __forceinline__ void forward_hidden(const SdfDims& d,
     for (int idx = threadIdx.x; idx < SDF_TILE * N; idx += SDF_THREADS) {
       const int r = idx / N, c = idx - r * N;
       const float a = Y[r * ld + c] + __ldg(bias + c);
-      if (stash) stash[l * stash_layer + r * ld + c] = a;
       X[r * ld + c] = sp100(a) * post;
     }
     if (skip_next)

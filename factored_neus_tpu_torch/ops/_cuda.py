@@ -15,7 +15,9 @@ wrapper raises on anything but 0, so a refused launch never passes
 silently.  Integer arguments are
 ``[L, multires, d_embed, ld, skip_mask, n, grid, ins[L], outs[L]]`` (the
 radiance kernels, which have no skip, take squeeze_out in place of
-skip_mask); the pointer list is documented beside each C function.
+skip_mask; K1's go on with the layout of their weight pack,
+``geometry_kernel.kernel_iargs``); the pointer list is documented beside
+each C function.
 """
 from __future__ import annotations
 

@@ -23,19 +23,25 @@ K1-bwd-split (``stacked=False``, default from ``FNEUS_PG_STACKED`` as in
 the JAX package) computes K1-bwd's function with the primal and tangent
 chains as separate half-tile products; its twin is K1-bwd's.  The stash
 switch takes precedence over it, as in the JAX package.
+
+The kernels multiply on the tensor cores in 3xTF32 (csrc/tc_mma.cuh).
+``pack_weights`` lays every layer's weight out once per call in the form
+they stage into shared memory, already split into TF32 big and small
+halves, and ``mm_3xtf32`` emulates their product arithmetic in plain
+PyTorch for the CPU tests.
 """
 from __future__ import annotations
 
 import math
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from . import _cuda
 from .mlp import softplus_beta
-from .sdf_kernel import TILE, kernel_iargs, layer_dims, sdf_forward_plain
+from .sdf_kernel import TILE, layer_dims, sdf_forward_plain
 
 K1_FWD = _cuda.CudaKernel("geometry_fwd", "geometry_fwd.cu", "geometry_fwd")
 K1_BWD = _cuda.CudaKernel("geometry_bwd", "geometry_bwd.cu", "geometry_bwd")
@@ -167,10 +173,138 @@ def geometry_bwd_stash_plain(ws: Sequence[torch.Tensor], x: torch.Tensor,
     return ct_x, dws, dbs
 
 
-def _weights(ws, bs):
-    wt = [w.detach().contiguous() for w in ws]
-    wT = [w.t().contiguous() for w in wt]
-    return wT, wt, [b.detach().contiguous() for b in bs]
+TF32_MASK = -8192          # 0xffffe000: sign, exponent, 10 mantissa bits
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32 (10-bit mantissa), to nearest with ties
+    away from zero: the kernels' split, (bits + 0x1000) & 0xffffe000."""
+    return ((x.view(torch.int32) + 0x1000) & TF32_MASK).view(torch.float32)
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """The TF32 value the tensor core reads of a float32 operand: its 13
+    low mantissa bits dropped (tools/tf32_mma_probe.py)."""
+    return (x.view(torch.int32) & TF32_MASK).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small): big = tf32_round(x), small = x - big, exact in f32."""
+    big = tf32_round(x)
+    return big, x - big
+
+
+def _toward_zero(t: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32 rounded toward zero, as the tensor core adds to
+    its float32 accumulator."""
+    r = t.float()
+    return torch.where(r.double().abs() > t.abs(),
+                       torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor,
+              stage: Optional[int] = 16) -> torch.Tensor:
+    """a [M, K] @ b [K, N] (float32) as the K1 kernels compute it: each
+    operand split into TF32 big and small, small_a big_b + big_a small_b +
+    big_a big_b per m16n8k8 instruction (8 k at a time, the products summed
+    exactly, the tensor core reading only the TF32 bits of each small), each
+    instruction's sum added to a float32 accumulator rounding toward zero;
+    every ``stage`` k (a ring stage of 16 weight rows, or the 64 rows of a
+    weight-gradient tile) the accumulator is added to the running float32
+    sum with a rounded add.  ``stage=None``: one accumulator over all k."""
+    ab, as_ = tf32_split(a.float().contiguous())
+    bb, bs = tf32_split(b.float().contiguous())
+    terms = [(tf32_truncate(as_).double(), bb.double()),
+             (ab.double(), tf32_truncate(bs).double()),
+             (ab.double(), bb.double())]
+    K = a.shape[1]
+    stage = stage or K
+    total = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32,
+                        device=a.device)
+    for k0 in range(0, K, stage):
+        part = torch.zeros_like(total)
+        for k in range(k0, min(k0 + stage, K), 8):
+            for x, y in terms:
+                part = _toward_zero(part.double() + x[:, k:k + 8] @ y[k:k + 8])
+        total = total + part
+    return total
+
+
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def staged_stride(width: int) -> int:
+    """Row stride (floats) of a packed weight block of ``width`` columns:
+    the width rounded up to 8, then up to 8 (mod 32), so that a B fragment
+    (4 rows x 8 columns) read from a slice staged with this stride hits 32
+    different shared-memory banks."""
+    s = _round8(width)
+    return s + (8 - s) % 32
+
+
+class PackLayout(NamedTuple):
+    """Offsets and row strides (floats) of each layer's two blocks in one
+    half of the pack: W^T [round8(in)][fwd_stride] for x W^T and W
+    [round8(out)][rev_stride] for r W; ``half`` floats per half."""
+    fwd_off: List[int]
+    fwd_stride: List[int]
+    rev_off: List[int]
+    rev_stride: List[int]
+    half: int
+
+
+def pack_layout(ins: Sequence[int], outs: Sequence[int]) -> PackLayout:
+    fo, fs, ro, rs, off = [], [], [], [], 0
+    for i, o in zip(ins, outs):
+        fo.append(off)
+        fs.append(staged_stride(o))
+        off += _round8(i) * fs[-1]
+        ro.append(off)
+        rs.append(staged_stride(i))
+        off += _round8(o) * rs[-1]
+    return PackLayout(fo, fs, ro, rs, off)
+
+
+def pack_weights(ws: Sequence[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, PackLayout]:
+    """The K1 kernels' weight buffer: [big | small] (tf32_split) of every
+    layer's W^T and W block in pack_layout's places, zero in the padding;
+    big + small is the weight exactly."""
+    if any(w.dtype != torch.float32 for w in ws):
+        raise ValueError("K1 kernels take float32 weights")
+    ins = [int(w.shape[1]) for w in ws]
+    outs = [int(w.shape[0]) for w in ws]
+    lay = pack_layout(ins, outs)
+    flat = torch.zeros(lay.half, device=ws[0].device, dtype=torch.float32)
+    for l, w in enumerate(ws):
+        i, o = ins[l], outs[l]
+        fwd = flat[lay.fwd_off[l]:lay.fwd_off[l] + _round8(i) *
+                   lay.fwd_stride[l]].view(_round8(i), lay.fwd_stride[l])
+        fwd[:i, :o] = w.detach().t()
+        rev = flat[lay.rev_off[l]:lay.rev_off[l] + _round8(o) *
+                   lay.rev_stride[l]].view(_round8(o), lay.rev_stride[l])
+        rev[:o, :i] = w.detach()
+    big, small = tf32_split(flat)
+    return torch.cat([big, small]), lay
+
+
+# widest layer whose tiles, weight ring and weight-gradient chunk fit in
+# K1-bwd's shared memory (227 KB): the full-width SDF's 257
+MAX_WIDTH = 257
+
+
+def kernel_iargs(cfg, ws, n: int, grid: int, lay: PackLayout
+                 ) -> Tuple[List[int], int]:
+    """Integer arguments of the K1 kernels (tc_dims_from_args) and the
+    activation row stride ld: the widest layer rounded up to 8, plus 4."""
+    ins, outs, skip_mask = layer_dims(cfg, ws)
+    if max(ins + outs) > MAX_WIDTH:
+        raise ValueError(f"K1 kernels take widths <= {MAX_WIDTH}")
+    ld = _round8(max(ins + outs)) + 4
+    return [len(ws), cfg.multires, cfg.d_embed, ld, skip_mask, n, grid,
+            *ins, *outs, *lay.fwd_off, *lay.fwd_stride, *lay.rev_off,
+            *lay.rev_stride, lay.half], ld
 
 
 def stash_columns(ws: Sequence[torch.Tensor]) -> int:
@@ -178,47 +312,52 @@ def stash_columns(ws: Sequence[torch.Tensor]) -> int:
     return sum(int(w.shape[0]) for w in ws[:-1])
 
 
-def _launch_forward(kernel, cfg, x, ws, bs, with_stash: bool):
+def _launch_forward(kernel, cfg, x, ws, bs, with_stash: bool, pack=None):
     dev = x.device
-    wT, wt, bs = _weights(ws, bs)
     x = x.detach().contiguous()
-    _cuda.check_cuda_tensors(kernel.name, [x, *wT, *wt, *bs])
+    bs = [b.detach().contiguous() for b in bs]
+    pack, lay = pack if pack is not None else pack_weights(ws)
+    _cuda.check_cuda_tensors(kernel.name, [x, pack, *bs])
     n, L = x.shape[0], len(ws)
-    out = torch.empty(n, wt[-1].shape[0], device=dev, dtype=torch.float32)
+    out = torch.empty(n, ws[-1].shape[0], device=dev, dtype=torch.float32)
     grad = torch.empty(n, 3, device=dev, dtype=torch.float32)
     stash = (torch.empty(n, stash_columns(ws), device=dev,
                          dtype=torch.bfloat16) if with_stash else None)
     if n > 0:
         grid = min(math.ceil(n / TILE), _cuda.sm_count(dev))
-        iargs, ld = kernel_iargs(cfg, ws, n, grid)
+        iargs, ld = kernel_iargs(cfg, ws, n, grid, lay)
         scratch = torch.empty(grid * L * TILE * ld, device=dev,
                               dtype=torch.float32)
         side = [stash] if with_stash else []
-        kernel.launch(iargs, [x, out, grad, scratch, *side, *wT, *wt, *bs],
+        kernel.launch(iargs, [x, out, grad, scratch, *side, pack, *bs],
                       cfg.scale, dev)
     return out, grad, stash
 
 
-def launch_forward(cfg, x, ws, bs) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1-fwd: (out [N, d_out], grad [N, 3])."""
-    out, grad, _ = _launch_forward(K1_FWD, cfg, x, ws, bs, False)
+def launch_forward(cfg, x, ws, bs, pack=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1-fwd: (out [N, d_out], grad [N, 3]); ``pack``: pack_weights(ws),
+    when the caller already has it."""
+    out, grad, _ = _launch_forward(K1_FWD, cfg, x, ws, bs, False, pack)
     return out, grad
 
 
-def launch_forward_stash(cfg, x, ws, bs
+def launch_forward_stash(cfg, x, ws, bs, pack=None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1-fwd-stash: (out, grad, bf16 stash [N, stash_columns(ws)])."""
-    return _launch_forward(K1_FWD_STASH, cfg, x, ws, bs, True)
+    return _launch_forward(K1_FWD_STASH, cfg, x, ws, bs, True, pack)
 
 
-def _launch_backward(kernel, cfg, x, ws, bs, stash, ct_out, ct_grad):
+def _launch_backward(kernel, cfg, x, ws, bs, stash, ct_out, ct_grad,
+                     pack=None):
     dev = x.device
-    wT, wt, bs_c = _weights(ws, bs)
+    bs_c = [b.detach().contiguous() for b in bs]
+    pack, lay = pack if pack is not None else pack_weights(ws)
     x = x.detach().contiguous()
     ct_out = ct_out.contiguous()
     ct_grad = ct_grad.contiguous()
     _cuda.check_cuda_tensors(kernel.name,
-                             [x, ct_out, ct_grad, *wT, *wt, *bs_c])
+                             [x, ct_out, ct_grad, pack, *bs_c])
     n, L = x.shape[0], len(ws)
     if stash is not None and (stash.device != dev or
                               stash.dtype != torch.bfloat16 or
@@ -228,8 +367,8 @@ def _launch_backward(kernel, cfg, x, ws, bs, stash, ct_out, ct_grad):
                          f"[{n}, {stash_columns(ws)}] on {dev}, got "
                          f"{stash.dtype} {tuple(stash.shape)} on "
                          f"{stash.device}")
-    ins = [w.shape[1] for w in wt]
-    outs = [w.shape[0] for w in wt]
+    ins = [int(w.shape[1]) for w in ws]
+    outs = [int(w.shape[0]) for w in ws]
     sizes = [i * o + o for i, o in zip(ins, outs)]
     P = sum(sizes)
     ct_x = torch.empty(n, 3, device=dev, dtype=torch.float32)
@@ -237,11 +376,11 @@ def _launch_backward(kernel, cfg, x, ws, bs, stash, ct_out, ct_grad):
     if n > 0:
         half = TILE // 2
         grid = min(math.ceil(n / half), _cuda.sm_count(dev))
-        iargs, ld = kernel_iargs(cfg, ws, n, grid)
+        iargs, ld = kernel_iargs(cfg, ws, n, grid, lay)
         scratch = torch.empty(grid * L * TILE * ld, device=dev,
                               dtype=torch.float32)
         part = torch.empty(grid * P, device=dev, dtype=torch.float32)
-        tail = [stash, *wT, *wt] if stash is not None else [*wT, *wt, *bs_c]
+        tail = [stash, pack] if stash is not None else [pack, *bs_c]
         kernel.launch(iargs, [x, ct_out, ct_grad, ct_x, scratch, part, grads,
                               *tail], cfg.scale, dev)
     dws, dbs, off = [], [], 0
@@ -252,29 +391,30 @@ def _launch_backward(kernel, cfg, x, ws, bs, stash, ct_out, ct_grad):
     return ct_x, dws, dbs
 
 
-def launch_backward(cfg, x, ws, bs, ct_out, ct_grad
+def launch_backward(cfg, x, ws, bs, ct_out, ct_grad, pack=None
                     ) -> Tuple[torch.Tensor, List[torch.Tensor],
                                List[torch.Tensor]]:
     """K1-bwd: (ct_x [N, 3], dW per layer [out, in], db per layer [out])."""
-    return _launch_backward(K1_BWD, cfg, x, ws, bs, None, ct_out, ct_grad)
+    return _launch_backward(K1_BWD, cfg, x, ws, bs, None, ct_out, ct_grad,
+                            pack)
 
 
-def launch_backward_split(cfg, x, ws, bs, ct_out, ct_grad
+def launch_backward_split(cfg, x, ws, bs, ct_out, ct_grad, pack=None
                           ) -> Tuple[torch.Tensor, List[torch.Tensor],
                                      List[torch.Tensor]]:
     """K1-bwd-split: launch_backward's result, the primal and tangent
     chains run as separate half-tile products."""
     return _launch_backward(K1_BWD_SPLIT, cfg, x, ws, bs, None, ct_out,
-                            ct_grad)
+                            ct_grad, pack)
 
 
-def launch_backward_stash(cfg, x, ws, stash, ct_out, ct_grad
+def launch_backward_stash(cfg, x, ws, stash, ct_out, ct_grad, pack=None
                           ) -> Tuple[torch.Tensor, List[torch.Tensor],
                                      List[torch.Tensor]]:
     """K1-bwd-stash: as launch_backward, the primal taken from ``stash``
     (biases are not needed)."""
     return _launch_backward(K1_BWD_STASH, cfg, x, ws, [], stash, ct_out,
-                            ct_grad)
+                            ct_grad, pack)
 
 
 class GeometryFn(torch.autograd.Function):
@@ -285,19 +425,20 @@ class GeometryFn(torch.autograd.Function):
     def forward(ctx, cfg, stacked, x, *params):
         L = len(params) // 2
         ws, bs = params[:L], params[L:]
-        out, grad = launch_forward(cfg, x, ws, bs)
+        pack, ctx.layout = pack_weights(ws)
+        out, grad = launch_forward(cfg, x, ws, bs, (pack, ctx.layout))
         ctx.cfg, ctx.stacked = cfg, stacked
-        ctx.save_for_backward(x, *params)
+        ctx.save_for_backward(x, pack, *params)
         return out, grad
 
     @staticmethod
     @once_differentiable
     def backward(ctx, ct_out, ct_grad):
-        x, *params = ctx.saved_tensors
+        x, pack, *params = ctx.saved_tensors
         L = len(params) // 2
         launch = launch_backward if ctx.stacked else launch_backward_split
         ct_x, dws, dbs = launch(ctx.cfg, x, params[:L], params[L:], ct_out,
-                                ct_grad)
+                                ct_grad, (pack, ctx.layout))
         return (None, None, ct_x, *dws, *dbs)
 
 
@@ -311,20 +452,24 @@ class GeometryStashFn(torch.autograd.Function):
         L = len(params) // 2
         ws, bs = params[:L], params[L:]
         if x.is_cuda:
-            out, grad, stash = launch_forward_stash(cfg, x, ws, bs)
+            pack, ctx.layout = pack_weights(ws)
+            out, grad, stash = launch_forward_stash(cfg, x, ws, bs,
+                                                    (pack, ctx.layout))
         else:
+            pack = None
             out, grad, stash = geometry_fwd_stash_plain(ws, bs, x, cfg)
         ctx.cfg = cfg
-        ctx.save_for_backward(x, stash, *ws)
+        ctx.save_for_backward(x, stash, pack, *ws)
         return out, grad
 
     @staticmethod
     @once_differentiable
     def backward(ctx, ct_out, ct_grad):
-        x, stash, *ws = ctx.saved_tensors
+        x, stash, pack, *ws = ctx.saved_tensors
         if x.is_cuda:
             ct_x, dws, dbs = launch_backward_stash(ctx.cfg, x, ws, stash,
-                                                   ct_out, ct_grad)
+                                                   ct_out, ct_grad,
+                                                   (pack, ctx.layout))
         else:
             ct_x, dws, dbs = geometry_bwd_stash_plain(ws, x, stash, ct_out,
                                                       ct_grad, ctx.cfg)

@@ -131,6 +131,73 @@ def test_split_backward_matches_f64_twin(cuda_device, case):
         assert worst_scaled_ratio(a.double(), b) <= 1.0, i
 
 
+def f64_vjp(cfg, x, ws, bs, ct_out, ct_g):
+    """(ct_x, dW..., db...) of the plain twin in float64."""
+    leaves = [t.double().requires_grad_(True) for t in [x, *ws, *bs]]
+    L = len(ws)
+    o, g = GK.geometry_plain(leaves[1:1 + L], leaves[1 + L:], leaves[0], cfg)
+    return torch.autograd.grad((o, g), leaves, (ct_out.double(),
+                                                ct_g.double()))
+
+
+RAGGED = (8, 256, 257, (4,), 6, 1.0, 9001)   # full width, 2-3 tiles a block
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["stacked", "split", "stash"])
+def test_k1_ragged_tiles_over_several_rounds(cuda_device, variant):
+    """9,001 rows at full width: the last tile of K1-fwd (64 rows) and of
+    K1-bwd (32 + 32) is ragged, and the persistent blocks take several
+    tiles each, so the partial slices accumulate.  K1-fwd against its f32
+    twin at 1e-5; the backward against the f64 twin per tensor at
+    |err| <= 1e-4 + 1e-5 max|ref| (the stash variant against its own f64
+    twin, fed the kernel's stash)."""
+    cfg, ws, bs, x = _net(RAGGED, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    ct_out = torch.randn(x.shape[0], ws[-1].shape[0], device=cuda_device,
+                         generator=gen)
+    ct_g = torch.randn(x.shape, device=cuda_device, generator=gen)
+    with torch.no_grad():
+        out_p, grad_p = GK.geometry_plain(ws, bs, x, cfg)
+    if variant == "stash":
+        out_k, grad_k, st = GK.launch_forward_stash(cfg, x, ws, bs)
+        got = GK.launch_backward_stash(cfg, x, ws, st, ct_out, ct_g)
+        want = GK.geometry_bwd_stash_plain([w.double() for w in ws],
+                                           x.double(), st, ct_out.double(),
+                                           ct_g.double(), cfg)
+        want = [want[0], *want[1], *want[2]]
+    else:
+        out_k, grad_k = GK.launch_forward(cfg, x, ws, bs)
+        launch = (GK.launch_backward if variant == "stacked"
+                  else GK.launch_backward_split)
+        got = launch(cfg, x, ws, bs, ct_out, ct_g)
+        want = f64_vjp(cfg, x, ws, bs, ct_out, ct_g)
+    torch.testing.assert_close(out_k, out_p, atol=1e-5, rtol=0)
+    torch.testing.assert_close(grad_k, grad_p, atol=1e-5, rtol=0)
+    for i, (a, b) in enumerate(zip([got[0], *got[1], *got[2]], want)):
+        assert a.shape == b.shape
+        assert worst_scaled_ratio(a.double(), b) <= 1.0, i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("launch", ["launch_backward",
+                                    "launch_backward_split"])
+def test_k1_backward_is_deterministic(cuda_device, launch):
+    """Two launches on the same inputs give bitwise-equal ct_x, dW and db:
+    the weight-gradient sums run in a fixed order (per-block partial
+    slices, then a fixed-order reduce), with no atomics."""
+    cfg, ws, bs, x = _net(RAGGED, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    ct_out = torch.randn(x.shape[0], ws[-1].shape[0], device=cuda_device,
+                         generator=gen)
+    ct_g = torch.randn(x.shape, device=cuda_device, generator=gen)
+    fn = getattr(GK, launch)
+    a = fn(cfg, x, ws, bs, ct_out, ct_g)
+    b = fn(cfg, x, ws, bs, ct_out, ct_g)
+    for u, v in zip([a[0], *a[1], *a[2]], [b[0], *b[1], *b[2]]):
+        assert torch.equal(u, v)
+
+
 @pytest.mark.gpu
 def test_split_switch_launches_k1_bwd_split(cuda_device, monkeypatch):
     """With FNEUS_PG_STACKED off, value_grad_feat runs K1-fwd and
