@@ -6,8 +6,12 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels of factored_neus_tpu_torch/csrc with nvcc;
 3. holds each kernel against its plain PyTorch twin at full width (f32,
-   TF32 off), checks that two K1-bwd launches agree bit for bit, and times
-   each kernel and twin with CUDA events;
+   TF32 off; K2 at both sweep shapes of a step, on K1's pack as in the
+   step and bitwise against its own pack; K3-bwd against its f64 twin on
+   the ReLU masks of its own forward, which may differ from the f32
+   forward's only within rounding of 0), checks that two K1-bwd and two
+   K3-bwd launches agree bit for bit, and times each kernel and twin with
+   CUDA events;
 4. runs one full-width stage-1 step of confs/wmask.conf and one of
    confs/womask.conf (background NeRF) on the card (kernels) and the same
    steps on the CPU (twins), and compares the loss and every parameter
@@ -46,6 +50,8 @@ TF32_PEAK = 495e12      # H100 SXM dense TF32 tensor-core FLOP/s
 HBM_RATE = 3.35e12      # H100 SXM device memory bytes/s
 N_CORE = 512 * 128      # render-core points of one wmask step
 N_SWEEP = 512 * 64      # points of the ladder's first (largest) sweep
+UP_SAMPLE_STEPS = 4     # the ladder's rounds: 3 more sweeps of new samples
+N_SWEEP_NEW = 512 * 16  # points of each later sweep
 TRAIN_STEPS = 30
 STASH_STEPS = 10
 SPLIT_STEPS = 20
@@ -59,6 +65,12 @@ GRID_CHECK_RES = 64
 # the two grids), and the range of the geometric init's radius over seeds
 RADIUS_TOL = 0.01
 RADIUS_BAND = (0.25, 0.8)
+# K3-bwd's ReLU masks against the f32 forward's: a pre-activation may take
+# the other side of 0 only within MASK_MARGIN of its layer's max|a| (a few
+# f32 roundings of a 289-term sum), and in at most MAX_MASK_FLIPS places of
+# a check (67,108,864 pre-activations at full size)
+MASK_MARGIN = 1e-6
+MAX_MASK_FLIPS = 16
 
 
 def card_line() -> str:
@@ -117,6 +129,68 @@ def check_vjp(label, got, ref64, ref32, names):
     return e
 
 
+def k3_bwd_masks(cfg, ws, bs, inputs):
+    """(masks, summary): the ReLU masks h_l > 0 [N, outs[l]] of K3-bwd's own
+    forward recompute, for its f64 twin to differentiate the function the
+    kernel computes.  Where a pre-activation lies within f32 rounding of 0,
+    a forward summed in another order falls on the other side of the kink,
+    one whole cotangent element apart.  K3-bwd runs over chunks of one tile
+    per block (SMs x TILE rows, ct_rgb = 0) into a scratch read back here;
+    a row's forward does not depend on the tile or block that takes it.
+    The masks are held against the f32 forward's (cuBLAS), which does not
+    depend on the kernel: they may differ only where |a_l| <= MASK_MARGIN
+    max|a_l|, and in at most MAX_MASK_FLIPS places, else this raises, so a
+    kernel fault that zeroes or flips activations cannot pass into the
+    twin."""
+    import torch
+    from factored_neus_tpu_torch.ops import _cuda
+    from factored_neus_tpu_torch.ops import radiance_kernel as RK
+    from factored_neus_tpu_torch.ops import tc_pack as TP
+    from factored_neus_tpu_torch.ops.embedder import positional_encoding
+    pts, normals, dirs, feat = inputs
+    dev, n, L = pts.device, pts.shape[0], len(ws)
+    ins = [int(w.shape[1]) for w in ws]
+    outs = [int(w.shape[0]) for w in ws]
+    chunk = _cuda.sm_count(dev) * TP.TILE
+    masks = [[] for _ in range(L - 1)]
+    for r0 in range(0, n, chunk):
+        m = min(chunk, n - r0)
+        grid = -(-m // TP.TILE)
+        _, ld = RK.bwd_kernel_iargs(cfg, ws, m, grid,
+                                    TP.pack_layout(ins, outs))
+        scratch = torch.empty(grid, L - 1, TP.TILE, ld, device=dev)
+        RK.launch_backward(cfg, ws, bs, *(t[r0:r0 + m] for t in inputs),
+                           torch.zeros(m, outs[-1], device=dev), scratch)
+        for l in range(L - 1):
+            h = scratch[:, l, :, :outs[l]].reshape(-1, outs[l])
+            masks[l].append(h[:m] > 0)
+    masks = [torch.cat(m) for m in masks]
+    h = torch.cat([pts, positional_encoding(dirs, cfg.multires_view),
+                   normals, feat], -1)
+    flips = near = 0
+    reach, over, margins = 0.0, 0.0, []
+    with torch.no_grad():
+        for l in range(L - 1):
+            a = torch.nn.functional.linear(h, ws[l], bs[l])
+            margins.append(MASK_MARGIN * float(a.abs().max()))
+            flip = masks[l] != (a > 0)
+            flips += int(flip.sum())
+            near += int((a.abs() <= margins[-1]).sum())
+            if flip.any():
+                far = float(a[flip].abs().max())
+                reach, over = max(reach, far), max(over, far / margins[-1])
+            h = torch.relu(a)
+    text = (f"of {sum(int(m.numel()) for m in masks)} pre-activations, "
+            f"{flips} on the other side of 0 in the f32 forward (at most "
+            f"{MAX_MASK_FLIPS}), all within {reach:.3e} of 0 ({over:.3f} of "
+            f"the margin {MASK_MARGIN:g} max|a_l| = {min(margins):.3e}-"
+            f"{max(margins):.3e}, inside which {near} lie)")
+    if flips > MAX_MASK_FLIPS or over > 1.0:
+        raise AssertionError(f"K3-bwd's ReLU masks differ from the f32 "
+                             f"forward's beyond rounding: {text}")
+    return masks, text
+
+
 def bf16_ulps(a, b):
     """|a - b| of two bf16 tensors in units of the larger one's last
     place (8 significant bits)."""
@@ -135,6 +209,7 @@ def check_kernels(device):
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
     from factored_neus_tpu_torch.ops import radiance_kernel as RK
     from factored_neus_tpu_torch.ops import sdf_kernel as SK
+    from factored_neus_tpu_torch.ops import tc_pack as TP
     from factored_neus_tpu_torch.ops.embedder import positional_encoding
 
     cfg = SDFConfig()                                   # 8 x 256, skip 4
@@ -154,8 +229,9 @@ def check_kernels(device):
     def entry(name, source, replaces, err, ms, plain_ms, flops, nbytes,
               tensor_cores=False):
         """bound_ms: the f32 CUDA-core bound; a kernel on the tensor cores
-        (K1, 3xTF32) adds bound_3xtf32_ms, three TF32 products' worth of
-        the same FLOPs over the TF32 peak (or the bytes, if larger)."""
+        (K1, K2, K3-bwd: 3xTF32) adds bound_3xtf32_ms, three TF32
+        products' worth of the same FLOPs over the TF32 peak (or the
+        bytes, if larger)."""
         t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_RATE
         gflop[name] = flops / 1e9
         results.append({
@@ -262,29 +338,64 @@ def check_kernels(device):
           tensor_cores=True)
     del plain32
 
-    # K2: the ladder's narrowed no-grad sweep (last layer = sdf column)
-    xs = x[:N_SWEEP].contiguous()
+    # K2: the ladder's narrowed no-grad sweeps (last layer = sdf column),
+    # on K1's pack of the same weights as in the step, at the two shapes of
+    # a step: the first sweep over N_SWEEP points and three of N_SWEEP_NEW
+    k1_pack = TP.pack_weights(ws)
     wn, bn = list(ws[:-1]) + [ws[-1][:1]], list(bs[:-1]) + [bs[-1][:1]]
-    s_k = SK.sdf_forward(wn, bn, cfg, xs)
-    with torch.no_grad():
-        s_p = SK.sdf_forward_plain(wn, bn, cfg, xs)
-    torch.cuda.synchronize()
-    e_s, r_s = worst(s_k, s_p, 1e-5, 0.0)
-    print(f"K2      N={N_SWEEP}: max|sdf err| {e_s:.3e} (tolerance 1e-5 "
-          f"abs: reordered f32 sums of <= 256 terms)")
-    if r_s > 1.0:
-        raise AssertionError("K2 disagrees with its plain twin")
     S_n = S - s_last + ins[-1]
-
-    def plain_sweep():
+    k2 = {}
+    for n in (N_SWEEP, N_SWEEP_NEW):
+        xs = x[:n].contiguous()
+        s_k = SK.sdf_forward(wn, bn, cfg, xs, k1_pack)
+        s_own = SK.sdf_forward(wn, bn, cfg, xs)
         with torch.no_grad():
-            SK.sdf_forward_plain(wn, bn, cfg, xs)
+            s_p = SK.sdf_forward_plain(wn, bn, cfg, xs)
+        torch.cuda.synchronize()
+        e_s, r_s = worst(s_k, s_p, 1e-5, 0.0)
+        same = torch.equal(s_k, s_own)
+        print(f"K2      N={n}: max|sdf err| {e_s:.3e} (tolerance 1e-5 "
+              f"abs: reordered f32 sums of <= 256 terms); on K1's pack "
+              f"bitwise equal to its own narrowed pack: {same}")
+        if r_s > 1.0 or not same:
+            raise AssertionError("K2 disagrees with its plain twin or with "
+                                 "itself on its own pack")
+
+        def plain_sweep():
+            with torch.no_grad():
+                SK.sdf_forward_plain(wn, bn, cfg, xs)
+        t_ops = n * 2 * S_n / F32_PEAK
+        t_bytes = (n * (12 + 4) + 4 * sum(
+            w.numel() + b.numel() for w, b in zip(wn, bn))) / HBM_RATE
+        k2[n] = {"err": e_s,
+                 "ms": cuda_ms(lambda: SK.sdf_forward(wn, bn, cfg, xs,
+                                                      k1_pack), 10),
+                 "plain_ms": cuda_ms(plain_sweep, 10),
+                 "flops": n * 2 * S_n, "bytes": t_bytes * HBM_RATE,
+                 "bound_ms": 1e3 * max(t_ops, t_bytes),
+                 "bound_3xtf32_ms": 1e3 * max(3 * n * 2 * S_n / TF32_PEAK,
+                                              t_bytes)}
+    big, small = k2[N_SWEEP], k2[N_SWEEP_NEW]
     entry("sdf_fwd", "factored_neus_tpu_torch/csrc/sdf_fwd.cu",
-          "factored_neus_tpu/ops/pallas_sdf.py:221", e_s,
-          cuda_ms(lambda: SK.sdf_forward(wn, bn, cfg, xs), 10),
-          cuda_ms(plain_sweep, 10), N_SWEEP * 2 * S_n,
-          N_SWEEP * (12 + 4) + 4 * sum(
-              w.numel() + b.numel() for w, b in zip(wn, bn)))
+          "factored_neus_tpu/ops/pallas_sdf.py:221",
+          max(big["err"], small["err"]), big["ms"], big["plain_ms"],
+          big["flops"], big["bytes"], tensor_cores=True)
+    sweeps = 1 + (UP_SAMPLE_STEPS - 1)
+    results[-1].update({
+        f"ms_{N_SWEEP_NEW}": small["ms"],
+        f"plain_ms_{N_SWEEP_NEW}": small["plain_ms"],
+        f"bound_ms_{N_SWEEP_NEW}": small["bound_ms"],
+        f"bound_3xtf32_ms_{N_SWEEP_NEW}": small["bound_3xtf32_ms"],
+        "step_ms": big["ms"] + (UP_SAMPLE_STEPS - 1) * small["ms"],
+        "step_plain_ms": big["plain_ms"] + (UP_SAMPLE_STEPS - 1) *
+        small["plain_ms"]})
+    print(f"K2 per step ({sweeps} sweeps: 1 x {N_SWEEP} + "
+          f"{UP_SAMPLE_STEPS - 1} x {N_SWEEP_NEW} rows): "
+          f"{results[-1]['step_ms']:.3f} ms (plain "
+          f"{results[-1]['step_plain_ms']:.3f}); at {N_SWEEP_NEW} rows "
+          f"{small['ms']:.3f} ms against bounds {small['bound_ms']:.3f} "
+          f"f32, {small['bound_3xtf32_ms']:.3f} 3xTF32")
+    del k1_pack
 
     # K3-fwd: the radiance MLP of the same N points, f32 dots of width
     # <= 289 summed in another order than cuBLAS
@@ -319,24 +430,18 @@ def check_kernels(device):
           cuda_ms(plain_rad, 10), N_CORE * 2 * rS,
           N_CORE * 4 * (9 + d_feat + 3) + rwbytes)
 
-    # K3-bwd: dW and db sum 65,536 rows; against the f64 twin as K1-bwd.
-    # Where a pre-activation lies within f32 rounding of 0, an f64 forward
-    # falls on the other side of the ReLU's kink than the f32 one and
-    # computes another function: the f64 twin keeps the f32 masks.
+    # K3-bwd: dW and db sum 65,536 rows; against the f64 twin as K1-bwd,
+    # with the ReLU masks of the kernel's own forward, held against the f32
+    # forward's (k3_bwd_masks)
     ct_rgb = torch.randn(rgb_p.shape, device=device, generator=gen)
     *rcts, rdws, rdbs = RK.launch_backward(rcfg, rws, rbs, *rin, ct_rgb)
     rL = len(rws)
+    masks, text = k3_bwd_masks(rcfg, rws, rbs, rin)
+    print(f"K3-bwd  ReLU masks of its own forward: {text}")
 
     def x0(pts, normals, dirs, feat):
         return torch.cat([pts, positional_encoding(dirs, rcfg.multires_view),
                           normals, feat], -1)
-
-    masks, h = [], x0(*rin)
-    with torch.no_grad():
-        for l in range(rL - 1):
-            h = torch.relu(torch.nn.functional.linear(h, rws[l], rbs[l]))
-            masks.append(h > 0)
-    del h
 
     def rad_pinned(ws_, bs_, *inputs):
         h = x0(*inputs)
@@ -366,12 +471,20 @@ def check_kernels(device):
     e_rb = check_vjp(f"K3-bwd  N={N_CORE}", [*rcts, *rdws, *rdbs], ref64,
                      ref32, rnames)
     del ref32, ref64
+    again = RK.launch_backward(rcfg, rws, rbs, *rin, ct_rgb)
+    same = all(torch.equal(a, b) for a, b in zip(
+        [*rcts, *rdws, *rdbs], [*again[:4], *again[4], *again[5]]))
+    print(f"K3-bwd  two launches bitwise equal: {same}")
+    if not same:
+        raise AssertionError("K3-bwd is not deterministic")
+    del again
     entry("radiance_bwd", "factored_neus_tpu_torch/csrc/radiance_bwd.cu",
           "factored_neus_tpu/ops/pallas_radiance.py:227", e_rb,
           cuda_ms(lambda: RK.launch_backward(rcfg, rws, rbs, *rin, ct_rgb),
                   5),
           cuda_ms(rplain32, 5), N_CORE * 6 * rS,
-          N_CORE * 4 * (2 * (9 + d_feat) + 3) + 2 * rwbytes)
+          N_CORE * 4 * (2 * (9 + d_feat) + 3) + 2 * rwbytes,
+          tensor_cores=True)
     del rplain32
 
     # K1-fwd-stash: K1-fwd's exact (out, grad) plus the bf16 stash; an
@@ -851,6 +964,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         conf, runner, launches = train_run(tmp, TRAIN_STEPS)
         check_launched("main run", launches, MAIN_SET)
+        per_step = {"sdf_fwd": UP_SAMPLE_STEPS, "radiance_bwd": 1,
+                    "geometry_fwd": 1, "geometry_bwd": 1, "radiance_fwd": 1}
+        if any(launches[k] != c * TRAIN_STEPS for k, c in per_step.items()):
+            raise AssertionError(f"main run: expected {per_step} launches a "
+                                 f"step over {TRAIN_STEPS} steps, got "
+                                 f"{launches}")
         print(f"rays/s at iter {runner.history[-1]['iter']}: "
               f"{runner.history[-1]['rays_per_sec']:.0f} on {card}")
         check_mesh(conf)

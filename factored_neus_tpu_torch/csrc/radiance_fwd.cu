@@ -7,10 +7,10 @@
 //
 // Bound: operations.  At full width a row costs 2 x 271,360 FLOPs (layers
 // 289->256, 3 x 256->256, 256->3) against 1,036 bytes in (the 256-d
-// feature dominates) and 12 out.  The design is K2's: one 64-row tile per
-// block, its activations in shared memory through the whole layer chain,
-// weight rows streamed from L2 with __ldg (1.09 MB of f32 weights do not
-// fit in shared memory).  The first layer's 289-wide input has its own
+// feature dominates) and 12 out.  The design is sdf_mlp.cuh's tile_mm on
+// the CUDA cores: one 64-row tile per block, its activations in shared
+// memory through the whole layer chain, weight rows streamed from L2 with
+// __ldg (1.09 MB of f32 weights do not fit in shared memory).  The first layer's 289-wide input has its own
 // stride so the hidden buffers stay 256 wide; nothing is padded in memory.
 #include "radiance_mlp.cuh"
 
@@ -27,7 +27,7 @@ radiance_fwd_kernel(SdfDims d, int ld0, int squeeze,
   float* Y = X + SDF_TILE * ld;          // [64][ld]  product output
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * SDF_TILE;
-  build_x0(d, ld0, row0, pts, nrm, dirs, feat, X0);
+  build_x0<SDF_THREADS>(d, ld0, row0, pts, nrm, dirs, feat, X0);
   for (int l = 0; l < d.L; ++l) {
     const float* xin = l == 0 ? X0 : X;
     const int ldx = l == 0 ? ld0 : ld;
@@ -66,7 +66,6 @@ extern "C" int radiance_fwd(const int* ia, const unsigned long long* p,
   const int L = d.L;
   for (int l = 0; l < L; ++l) {
     d.wT[l] = (const float*)p[5 + l];
-    d.wt[l] = nullptr;
     d.b[l] = (const float*)p[5 + L + l];
   }
   const int n_tiles = (d.n + SDF_TILE - 1) / SDF_TILE;

@@ -1,11 +1,12 @@
 // Shared device code of the radiance-MLP kernels (K3 forward and backward):
-// the argument layout and the first layer's input row
+// their argument layouts and the first layer's input row
 // [pts (3) | PE(dirs) (d_view) | normals (3) | feature (d_feat)] of the IDR
-// RenderingNetwork.  The products, the tile size and the partial-sum pass
-// are those of sdf_mlp.cuh.
+// RenderingNetwork.  K3-fwd's products are sdf_mlp.cuh's tile_mm (f32 CUDA
+// cores); K3-bwd's run on the tensor cores (tc_mma.cuh).
 #pragma once
 
 #include "sdf_mlp.cuh"
+#include "tc_mma.cuh"
 
 #define RAD_MAXW0 320        // widest first-layer input the kernels take
 
@@ -38,10 +39,46 @@ static inline int rad_dims_from_args(const int* ia, SdfDims* d, int* ld0,
   return 0;
 }
 
-// Writes the first layer's input of the tile's 64 rows to X0 (stride ld0);
-// rows past n are zero apart from the encoding's cosines.  Ends with a
-// barrier.
-__device__ __forceinline__ void build_x0(const SdfDims& d, int ld0, int row0,
+// K3-bwd's arguments [L, multires, d_view, ld, squeeze_out, n, grid,
+// ins[L], outs[L], then the pack's layout] (ops/radiance_kernel.
+// bwd_kernel_iargs) into TcDims: no skip, scale 1, d_embed = d_view.  The
+// first layer's input may be as wide as the row stride ld: a product's
+// depth is unbounded, and its input cotangent runs in products of at most
+// 256 columns, the second of which stages whole rows from 256 columns into
+// the block, past its end into the next block of the pack.  So only the
+// first layer's input, whose W block another block follows, may be wider
+// than 256.  Returns 0, or cudaErrorInvalidValue for a network or layout
+// this code cannot run.
+static inline int rad_tc_dims_from_args(const int* ia, const float* pack,
+                                        TcDims* d, int* squeeze) {
+  const int L = ia[0];
+  d->L = L;
+  d->multires = ia[1];
+  d->d_embed = ia[2];
+  d->ld = ia[3];
+  *squeeze = ia[4];
+  d->skip_mask = 0;
+  d->n = ia[5];
+  d->scale = 1.f;
+  d->pack = pack;
+  d->eld = 0;
+  if (L < 2 || L > TC_MAXL || d->d_embed != 3 * (1 + 2 * d->multires) ||
+      d->ld % 8 != 4)
+    return (int)cudaErrorInvalidValue;
+  int rc = tc_layers_from_args(ia, d->ld, d);
+  if (rc) return rc;
+  for (int l = 1; l < L; ++l)
+    if (d->ins[l] != d->outs[l - 1] || d->kp[l] > 256)
+      return (int)cudaErrorInvalidValue;
+  if (d->ins[0] <= 6 + d->d_embed) return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// Writes the first layer's input of the tile's 64 rows to X0 (stride ld0)
+// with THREADS threads; rows past n are zero apart from the encoding's
+// cosines.  Ends with a barrier.
+template <int THREADS, class Dims>
+__device__ __forceinline__ void build_x0(const Dims& d, int ld0, int row0,
                                          const float* __restrict__ pts,
                                          const float* __restrict__ nrm,
                                          const float* __restrict__ dirs,
@@ -63,7 +100,7 @@ __device__ __forceinline__ void build_x0(const SdfDims& d, int ld0, int row0,
     }
     encode_row(u, nullptr, d.multires, xr + 3, nullptr);
   }
-  for (int idx = tid; idx < SDF_TILE * d_feat; idx += SDF_THREADS) {
+  for (int idx = tid; idx < SDF_TILE * d_feat; idx += THREADS) {
     const int r = idx / d_feat, c = idx - r * d_feat;
     const int row = row0 + r;
     X0[r * ld0 + off_f + c] =

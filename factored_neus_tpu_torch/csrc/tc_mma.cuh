@@ -1,7 +1,8 @@
-// Tensor-core product engine of K1 (geometry_fwd.cu, geometry_bwd.cu): the
-// three products the fused SDF geometry runs on a 64-row tile held in shared
-// memory, in f32 accuracy through 3xTF32 on mma.sync, with the weights
-// staged into shared memory by cp.async.
+// Tensor-core product engine of K1 (geometry_fwd.cu, geometry_bwd.cu), K2
+// (sdf_fwd.cu) and K3-bwd (radiance_bwd.cu): the three products an MLP
+// kernel runs on a 64-row tile held in shared memory, in f32 accuracy
+// through 3xTF32 on mma.sync, with the weights staged into shared memory
+// by cp.async.
 //
 //   tc_mm   Y = X B          forward (B = W^T block) and input cotangents
 //                            (B = W block): X, Y in shared memory
@@ -23,11 +24,12 @@
 // is added to the running sum with a rounded f32 add.  The weight-gradient
 // sums run over 64 rows (8 k-steps) only and are added to the partial slice
 // the same way.  The weights come pre-split from the packer
-// (ops/geometry_kernel.pack_weights): big and small halves of one buffer, so
+// (ops/tc_pack.pack_weights): big and small halves of one buffer, so
 // the kernel splits only activations, as it loads their fragments.  That
-// doubles the weight bytes staged, but they come from L2 (the 8.7 MB pack
-// fits in its 50 MB) under the products, while a split in the kernel would
-// be redone by every warp that reads a weight fragment, for every tile.
+// doubles the weight bytes staged, but they come from L2 (the SDF's 8.7 MB
+// pack and the radiance MLP's 4.5 MB fit in its 50 MB) under the products,
+// while a split in the kernel would be redone by every warp that reads a
+// weight fragment, for every tile.
 //
 // Layout.  A block of 384 threads (12 warps) owns a 64-row tile: one block
 // per SM, as the tiles and the ring fill shared memory, and 12 warps rather
@@ -56,7 +58,7 @@
 #define TC_KS 16              // weight rows per ring stage
 #define TC_MAXL 16            // most layers a network may have
 #define TC_MAX_ENC 64         // widest positional encoding
-#define TC_MAXW 288           // widest layer: 6 n8 tiles of 6 column groups
+#define TC_MAXW 288           // widest product: 6 n8 tiles of 6 column groups
 #define TC_SMEM_MAX 232448    // shared memory a block may use
 
 struct TcDims {
@@ -88,26 +90,15 @@ __host__ __device__ inline int tc_chunk_stride(int N) {
   return sp + (36 - sp % 32) % 32;
 }
 
-// Integer arguments: [L, multires, d_embed, ld, skip_mask, n, grid, ins[L],
-// outs[L], fwd_off[L], fwd_st[L], rev_off[L], rev_st[L], H] (the layout of
-// ops/geometry_kernel.pack_layout).  Returns 0, or cudaErrorInvalidValue
-// for a network or layout this code cannot run.
-static inline int tc_dims_from_args(const int* ia, float scale,
-                                    const float* pack, TcDims* d) {
-  const int L = ia[0];
-  d->L = L;
-  d->multires = ia[1];
-  d->d_embed = ia[2];
-  d->ld = ia[3];
-  d->skip_mask = ia[4];
-  d->n = ia[5];
-  d->scale = scale;
-  d->pack = pack;
-  if (L < 1 || L > TC_MAXL || d->d_embed > TC_MAX_ENC ||
-      d->d_embed != 3 * (1 + 2 * d->multires) || (d->skip_mask & 1) ||
-      d->ld % 8 != 4)
-    return (int)cudaErrorInvalidValue;
-  d->eld = tc_round8(d->d_embed) + 4;
+// Reads the layers of the integer arguments [L, multires, d_embed, ld,
+// skip_mask, n, grid, ins[L], outs[L], fwd_off[L], fwd_st[L], rev_off[L],
+// rev_st[L], H] (the layout of ops/tc_pack.layout_iargs) into d (d->L and
+// d->ld set), checks them against the row stride ld, and sizes the ring.
+// A layer's input (the depth of its forward product, the width of its
+// input cotangent) may be max_kp wide; its output at most TC_MAXW.
+// Returns 0, or cudaErrorInvalidValue for a layout this code cannot run.
+static inline int tc_layers_from_args(const int* ia, int max_kp, TcDims* d) {
+  const int L = d->L;
   int widest = 0, chunk = 0;
   for (int l = 0; l < L; ++l) {
     d->ins[l] = ia[7 + l];
@@ -118,7 +109,7 @@ static inline int tc_dims_from_args(const int* ia, float scale,
     d->fwd_st[l] = ia[7 + 3 * L + l];
     d->rev_off[l] = ia[7 + 4 * L + l];
     d->rev_st[l] = ia[7 + 5 * L + l];
-    if (d->kp[l] > d->ld || d->np[l] > d->ld || d->kp[l] > TC_MAXW ||
+    if (d->kp[l] > d->ld || d->np[l] > d->ld || d->kp[l] > max_kp ||
         d->np[l] > TC_MAXW || d->fwd_st[l] < d->np[l] ||
         d->rev_st[l] < d->kp[l] || (d->fwd_st[l] | d->rev_st[l] |
                                     d->fwd_off[l] | d->rev_off[l]) % 8)
@@ -135,6 +126,28 @@ static inline int tc_dims_from_args(const int* ia, float scale,
   d->stage = 2 * TC_KS * widest;
   d->ring = ((2 * d->stage > chunk ? 2 * d->stage : chunk) + 3) / 4 * 4;
   return 0;
+}
+
+// The SDF networks' arguments (K1, K2): tc_layers_from_args' layout with
+// skip_mask.  Returns 0, or cudaErrorInvalidValue for a network or layout
+// this code cannot run.
+static inline int tc_dims_from_args(const int* ia, float scale,
+                                    const float* pack, TcDims* d) {
+  const int L = ia[0];
+  d->L = L;
+  d->multires = ia[1];
+  d->d_embed = ia[2];
+  d->ld = ia[3];
+  d->skip_mask = ia[4];
+  d->n = ia[5];
+  d->scale = scale;
+  d->pack = pack;
+  if (L < 1 || L > TC_MAXL || d->d_embed > TC_MAX_ENC ||
+      d->d_embed != 3 * (1 + 2 * d->multires) || (d->skip_mask & 1) ||
+      d->ld % 8 != 4)
+    return (int)cudaErrorInvalidValue;
+  d->eld = tc_round8(d->d_embed) + 4;
+  return tc_layers_from_args(ia, TC_MAXW, d);
 }
 
 // Bytes of shared memory a kernel with fixed_floats of its own and the

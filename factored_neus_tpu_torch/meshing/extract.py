@@ -3,8 +3,9 @@ Counterpart of factored_neus_tpu/meshing/extract.py (extract_fields,
 extract_geometry) on one device.
 
 The grid is filled SLAB x-planes at a time (R^2 x SLAB points per
-query, the last slab shorter where SLAB does not divide R); on the card the query is K2 (fields.SDFNetwork.value_sweep), and
-up to MAX_IN_FLIGHT slabs are queued ahead of the host, each copied back
+query, the last slab shorter where SLAB does not divide R); on the card
+the query is K2 (fields.SDFNetwork.value_sweep, one weight pack per mesh),
+and up to MAX_IN_FLIGHT slabs are queued ahead of the host, each copied back
 into pinned memory behind its kernel, so the copy of one slab overlaps the
 next slab's kernel.  Values cross to the host in float32 (the JAX
 package's float16 wire works around a slow TPU host link; here it would
@@ -28,8 +29,11 @@ MAX_IN_FLIGHT = 4
 def sdf_grid_query(sdf_net) -> Callable[[torch.Tensor], torch.Tensor]:
     """-sdf of points [N, 3] (the reference's grid convention, so the
     surface's normals point outward), without gradient: K2 on a CUDA
-    tensor, its plain twin on a CPU tensor."""
-    return lambda pts: -sdf_net.value_sweep(pts)
+    tensor, its plain twin on a CPU tensor; one weight pack for every
+    slab of the mesh."""
+    with torch.no_grad():
+        weights = sdf_net.kernel_weights()
+    return lambda pts: -sdf_net.value_sweep(pts, weights)
 
 
 def extract_fields(bound_min, bound_max, resolution: int,

@@ -1,7 +1,8 @@
 """Stage-1 neural fields as ``nn.Module``s with torch-native parameter
 shapes.  Counterpart of factored_neus_tpu/models/fields.py:
 
-  SDFNetwork              value_sweep (K2) and value_grad_feat (K1)
+  SDFNetwork              value_sweep (K2) and value_grad_feat (K1), on
+                          one weight pack a step (kernel_weights)
   RenderingNetwork        IDR-mode radiance MLP (K3)
   SingleVarianceNetwork   inv_s = exp(10 * variance)
   RefColor                surface reflection colour (diffuse + specular)
@@ -24,8 +25,14 @@ from ..ops import geometry_kernel as GK
 from ..ops import math as U
 from ..ops import radiance_kernel as RK
 from ..ops import sdf_kernel as SK
+from ..ops import tc_pack as TP
 from ..ops.embedder import positional_encoding
 from ..ops.mlp import WNLinear, dense_init_, sdf_geometric_init_
+
+
+# (effective weights, biases, weight pack or None): SDFNetwork.kernel_weights
+KernelWeights = Tuple[List[torch.Tensor], List[torch.Tensor],
+                      Optional[Tuple[torch.Tensor, TP.PackLayout]]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,20 +105,36 @@ class SDFNetwork(_WNLayers):
         ws, bs = self.effective_weights()
         return SK.sdf_forward_plain(ws, bs, self.cfg, x)
 
-    def value_sweep(self, x: torch.Tensor) -> torch.Tensor:
-        """sdf [N] for the no-grad sampling sweeps, through K2 with the last
-        layer narrowed to the sdf column (weight norm is per output row, so
-        the narrowed row computes the same sdf)."""
-        with torch.no_grad():
-            ws, bs = self.effective_weights()
-            ws = ws[:-1] + [ws[-1][:1]]
-            bs = bs[:-1] + [bs[-1][:1]]
-            return SK.sdf_forward(ws, bs, self.cfg, x)[:, 0]
-
-    def value_grad_feat(self, x: torch.Tensor):
-        """(sdf [N], feature [N, d_out-1], grad [N, 3]) through K1."""
+    def kernel_weights(self) -> KernelWeights:
+        """(ws, bs, pack): the effective weights and biases, differentiable
+        in g, v and b, and on a CUDA device their weight pack for K1 and K2
+        (tc_pack.pack_weights, built without grad; None on the CPU).  Built
+        once a step, it serves the ladder's sweeps and K1 alike."""
         ws, bs = self.effective_weights()
-        out, grad = GK.geometry(ws, bs, x, self.cfg)
+        pack = None
+        if ws[0].is_cuda:
+            with torch.no_grad():
+                pack = TP.pack_weights(ws)
+        return ws, bs, pack
+
+    def value_sweep(self, x: torch.Tensor,
+                    weights: Optional[KernelWeights] = None) -> torch.Tensor:
+        """sdf [N] for the no-grad sampling sweeps and the grid fill,
+        through K2 with the last layer narrowed to the sdf column (weight
+        norm is per output row, so the narrowed row computes the same sdf);
+        ``weights``: kernel_weights(), when the caller already has them."""
+        with torch.no_grad():
+            ws, bs, pack = weights or self.kernel_weights()
+            ws = list(ws[:-1]) + [ws[-1][:1]]
+            bs = list(bs[:-1]) + [bs[-1][:1]]
+            return SK.sdf_forward(ws, bs, self.cfg, x, pack)[:, 0]
+
+    def value_grad_feat(self, x: torch.Tensor,
+                        weights: Optional[KernelWeights] = None):
+        """(sdf [N], feature [N, d_out-1], grad [N, 3]) through K1;
+        ``weights``: kernel_weights(), when the caller already has them."""
+        ws, bs, pack = weights or self.kernel_weights()
+        out, grad = GK.geometry(ws, bs, x, self.cfg, pack=pack)
         return out[:, 0], out[:, 1:], grad
 
 

@@ -96,17 +96,21 @@ def render_core_outside(model: Stage1Model, cfg: RendererConfig, rays_o,
 def render_core(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d,
                 z_vals, sample_dist: float, background_alpha=None,
                 background_sampled_color=None, background_rgb=None,
-                cos_anneal_ratio: float = 0.0) -> Dict[str, Any]:
+                cos_anneal_ratio: float = 0.0,
+                sdf_weights: Optional[F.KernelWeights] = None
+                ) -> Dict[str, Any]:
     """SDF + radiance + surface colour over [B, T] samples, composited
     with the background model's [B, T + n_outside] alpha and colour when
-    they are given."""
+    they are given; ``sdf_weights``: model.sdf.kernel_weights() of the
+    step, when the caller already has them."""
     B, T = z_vals.shape
     dists, mid_z, pts = _mid_points(rays_o, rays_d, z_vals, sample_dist)
     dirs = rays_d[:, None, :].expand(pts.shape)
     pts_flat = pts.reshape(-1, 3)
     dirs_flat = dirs.reshape(-1, 3)
 
-    sdf, feature, gradients = model.sdf.value_grad_feat(pts_flat)
+    sdf, feature, gradients = model.sdf.value_grad_feat(pts_flat,
+                                                        sdf_weights)
     sdf = sdf[:, None]
     inv_s = torch.clamp(model.variance.inv_s(), 1e-6, 1e6)
 
@@ -240,10 +244,13 @@ def render(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d, near,
         z_vals_outside = (far / torch.flip(z_vals_outside, [-1])
                           + 1.0 / cfg.n_samples)
 
+    # one weight pack a step, for the ladder's sweeps (K2) and K1
+    sdf_weights = model.sdf.kernel_weights()
     if cfg.n_importance > 0:
         z_vals = S.hierarchical_z_vals(
-            model.sdf.value_sweep, rays_o.detach(), rays_d.detach(),
-            z_vals.detach(), cfg.n_importance, cfg.up_sample_steps)
+            lambda p: model.sdf.value_sweep(p, sdf_weights), rays_o.detach(),
+            rays_d.detach(), z_vals.detach(), cfg.n_importance,
+            cfg.up_sample_steps)
 
     background_alpha = background_sampled_color = None
     if n_out > 0:
@@ -257,7 +264,8 @@ def render(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d, near,
                       background_alpha=background_alpha,
                       background_sampled_color=background_sampled_color,
                       background_rgb=background_rgb,
-                      cos_anneal_ratio=cos_anneal_ratio)
+                      cos_anneal_ratio=cos_anneal_ratio,
+                      sdf_weights=sdf_weights)
     weights = ret["weights"]
     return {
         "color_fine": ret["color"],

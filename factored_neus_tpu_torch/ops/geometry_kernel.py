@@ -24,17 +24,16 @@ the JAX package) computes K1-bwd's function with the primal and tangent
 chains as separate half-tile products; its twin is K1-bwd's.  The stash
 switch takes precedence over it, as in the JAX package.
 
-The kernels multiply on the tensor cores in 3xTF32 (csrc/tc_mma.cuh).
-``pack_weights`` lays every layer's weight out once per call in the form
-they stage into shared memory, already split into TF32 big and small
-halves, and ``mm_3xtf32`` emulates their product arithmetic in plain
-PyTorch for the CPU tests.
+The kernels multiply on the tensor cores in 3xTF32 (csrc/tc_mma.cuh), on
+weights packed by ``tc_pack.pack_weights``: once a step, shared with K2's
+sweeps (``fields.SDFNetwork.kernel_weights``), or once per call when the
+caller gives no pack.
 """
 from __future__ import annotations
 
 import math
 import os
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -42,6 +41,7 @@ from torch.autograd.function import once_differentiable
 from . import _cuda
 from .mlp import softplus_beta
 from .sdf_kernel import TILE, layer_dims, sdf_forward_plain
+from .tc_pack import PackLayout, layout_iargs, pack_weights, round8
 
 K1_FWD = _cuda.CudaKernel("geometry_fwd", "geometry_fwd.cu", "geometry_fwd")
 K1_BWD = _cuda.CudaKernel("geometry_bwd", "geometry_bwd.cu", "geometry_bwd")
@@ -173,122 +173,6 @@ def geometry_bwd_stash_plain(ws: Sequence[torch.Tensor], x: torch.Tensor,
     return ct_x, dws, dbs
 
 
-TF32_MASK = -8192          # 0xffffe000: sign, exponent, 10 mantissa bits
-
-
-def tf32_round(x: torch.Tensor) -> torch.Tensor:
-    """float32 x rounded to TF32 (10-bit mantissa), to nearest with ties
-    away from zero: the kernels' split, (bits + 0x1000) & 0xffffe000."""
-    return ((x.view(torch.int32) + 0x1000) & TF32_MASK).view(torch.float32)
-
-
-def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
-    """The TF32 value the tensor core reads of a float32 operand: its 13
-    low mantissa bits dropped (tools/tf32_mma_probe.py)."""
-    return (x.view(torch.int32) & TF32_MASK).view(torch.float32)
-
-
-def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(big, small): big = tf32_round(x), small = x - big, exact in f32."""
-    big = tf32_round(x)
-    return big, x - big
-
-
-def _toward_zero(t: torch.Tensor) -> torch.Tensor:
-    """float64 -> float32 rounded toward zero, as the tensor core adds to
-    its float32 accumulator."""
-    r = t.float()
-    return torch.where(r.double().abs() > t.abs(),
-                       torch.nextafter(r, torch.zeros_like(r)), r)
-
-
-def mm_3xtf32(a: torch.Tensor, b: torch.Tensor,
-              stage: Optional[int] = 16) -> torch.Tensor:
-    """a [M, K] @ b [K, N] (float32) as the K1 kernels compute it: each
-    operand split into TF32 big and small, small_a big_b + big_a small_b +
-    big_a big_b per m16n8k8 instruction (8 k at a time, the products summed
-    exactly, the tensor core reading only the TF32 bits of each small), each
-    instruction's sum added to a float32 accumulator rounding toward zero;
-    every ``stage`` k (a ring stage of 16 weight rows, or the 64 rows of a
-    weight-gradient tile) the accumulator is added to the running float32
-    sum with a rounded add.  ``stage=None``: one accumulator over all k."""
-    ab, as_ = tf32_split(a.float().contiguous())
-    bb, bs = tf32_split(b.float().contiguous())
-    terms = [(tf32_truncate(as_).double(), bb.double()),
-             (ab.double(), tf32_truncate(bs).double()),
-             (ab.double(), bb.double())]
-    K = a.shape[1]
-    stage = stage or K
-    total = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32,
-                        device=a.device)
-    for k0 in range(0, K, stage):
-        part = torch.zeros_like(total)
-        for k in range(k0, min(k0 + stage, K), 8):
-            for x, y in terms:
-                part = _toward_zero(part.double() + x[:, k:k + 8] @ y[k:k + 8])
-        total = total + part
-    return total
-
-
-def _round8(n: int) -> int:
-    return -(-n // 8) * 8
-
-
-def staged_stride(width: int) -> int:
-    """Row stride (floats) of a packed weight block of ``width`` columns:
-    the width rounded up to 8, then up to 8 (mod 32), so that a B fragment
-    (4 rows x 8 columns) read from a slice staged with this stride hits 32
-    different shared-memory banks."""
-    s = _round8(width)
-    return s + (8 - s) % 32
-
-
-class PackLayout(NamedTuple):
-    """Offsets and row strides (floats) of each layer's two blocks in one
-    half of the pack: W^T [round8(in)][fwd_stride] for x W^T and W
-    [round8(out)][rev_stride] for r W; ``half`` floats per half."""
-    fwd_off: List[int]
-    fwd_stride: List[int]
-    rev_off: List[int]
-    rev_stride: List[int]
-    half: int
-
-
-def pack_layout(ins: Sequence[int], outs: Sequence[int]) -> PackLayout:
-    fo, fs, ro, rs, off = [], [], [], [], 0
-    for i, o in zip(ins, outs):
-        fo.append(off)
-        fs.append(staged_stride(o))
-        off += _round8(i) * fs[-1]
-        ro.append(off)
-        rs.append(staged_stride(i))
-        off += _round8(o) * rs[-1]
-    return PackLayout(fo, fs, ro, rs, off)
-
-
-def pack_weights(ws: Sequence[torch.Tensor]
-                 ) -> Tuple[torch.Tensor, PackLayout]:
-    """The K1 kernels' weight buffer: [big | small] (tf32_split) of every
-    layer's W^T and W block in pack_layout's places, zero in the padding;
-    big + small is the weight exactly."""
-    if any(w.dtype != torch.float32 for w in ws):
-        raise ValueError("K1 kernels take float32 weights")
-    ins = [int(w.shape[1]) for w in ws]
-    outs = [int(w.shape[0]) for w in ws]
-    lay = pack_layout(ins, outs)
-    flat = torch.zeros(lay.half, device=ws[0].device, dtype=torch.float32)
-    for l, w in enumerate(ws):
-        i, o = ins[l], outs[l]
-        fwd = flat[lay.fwd_off[l]:lay.fwd_off[l] + _round8(i) *
-                   lay.fwd_stride[l]].view(_round8(i), lay.fwd_stride[l])
-        fwd[:i, :o] = w.detach().t()
-        rev = flat[lay.rev_off[l]:lay.rev_off[l] + _round8(o) *
-                   lay.rev_stride[l]].view(_round8(o), lay.rev_stride[l])
-        rev[:o, :i] = w.detach()
-    big, small = tf32_split(flat)
-    return torch.cat([big, small]), lay
-
-
 # widest layer whose tiles, weight ring and weight-gradient chunk fit in
 # K1-bwd's shared memory (227 KB): the full-width SDF's 257
 MAX_WIDTH = 257
@@ -301,10 +185,9 @@ def kernel_iargs(cfg, ws, n: int, grid: int, lay: PackLayout
     ins, outs, skip_mask = layer_dims(cfg, ws)
     if max(ins + outs) > MAX_WIDTH:
         raise ValueError(f"K1 kernels take widths <= {MAX_WIDTH}")
-    ld = _round8(max(ins + outs)) + 4
+    ld = round8(max(ins + outs)) + 4
     return [len(ws), cfg.multires, cfg.d_embed, ld, skip_mask, n, grid,
-            *ins, *outs, *lay.fwd_off, *lay.fwd_stride, *lay.rev_off,
-            *lay.rev_stride, lay.half], ld
+            *ins, *outs, *layout_iargs(lay)], ld
 
 
 def stash_columns(ws: Sequence[torch.Tensor]) -> int:
@@ -419,16 +302,16 @@ def launch_backward_stash(cfg, x, ws, stash, ct_out, ct_grad, pack=None
 
 class GeometryFn(torch.autograd.Function):
     """(x, *ws, *bs) -> (out, grad) through K1-fwd; backward with both
-    cotangents through K1-bwd, or K1-bwd-split when not ``stacked``."""
+    cotangents through K1-bwd, or K1-bwd-split when not ``stacked``.
+    ``pack``: pack_weights(ws), built without grad by the caller."""
 
     @staticmethod
-    def forward(ctx, cfg, stacked, x, *params):
+    def forward(ctx, cfg, stacked, pack, x, *params):
         L = len(params) // 2
         ws, bs = params[:L], params[L:]
-        pack, ctx.layout = pack_weights(ws)
-        out, grad = launch_forward(cfg, x, ws, bs, (pack, ctx.layout))
-        ctx.cfg, ctx.stacked = cfg, stacked
-        ctx.save_for_backward(x, pack, *params)
+        out, grad = launch_forward(cfg, x, ws, bs, pack)
+        ctx.cfg, ctx.stacked, ctx.layout = cfg, stacked, pack[1]
+        ctx.save_for_backward(x, pack[0], *params)
         return out, grad
 
     @staticmethod
@@ -439,24 +322,22 @@ class GeometryFn(torch.autograd.Function):
         launch = launch_backward if ctx.stacked else launch_backward_split
         ct_x, dws, dbs = launch(ctx.cfg, x, params[:L], params[L:], ct_out,
                                 ct_grad, (pack, ctx.layout))
-        return (None, None, ct_x, *dws, *dbs)
+        return (None, None, None, ct_x, *dws, *dbs)
 
 
 class GeometryStashFn(torch.autograd.Function):
     """(x, *ws, *bs) -> (out, grad) through K1-fwd-stash, which also keeps
     the bf16 stash for the backward through K1-bwd-stash; on a CPU tensor
-    through their twins."""
+    through their twins (``pack`` None there)."""
 
     @staticmethod
-    def forward(ctx, cfg, x, *params):
+    def forward(ctx, cfg, pack, x, *params):
         L = len(params) // 2
         ws, bs = params[:L], params[L:]
         if x.is_cuda:
-            pack, ctx.layout = pack_weights(ws)
-            out, grad, stash = launch_forward_stash(cfg, x, ws, bs,
-                                                    (pack, ctx.layout))
+            out, grad, stash = launch_forward_stash(cfg, x, ws, bs, pack)
+            ctx.layout, pack = pack[1], pack[0]
         else:
-            pack = None
             out, grad, stash = geometry_fwd_stash_plain(ws, bs, x, cfg)
         ctx.cfg = cfg
         ctx.save_for_backward(x, stash, pack, *ws)
@@ -473,22 +354,27 @@ class GeometryStashFn(torch.autograd.Function):
         else:
             ct_x, dws, dbs = geometry_bwd_stash_plain(ws, x, stash, ct_out,
                                                       ct_grad, ctx.cfg)
-        return (None, ct_x, *dws, *dbs)
+        return (None, None, ct_x, *dws, *dbs)
 
 
 def geometry(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
              x: torch.Tensor, cfg, stash: Optional[bool] = None,
-             stacked: Optional[bool] = None
+             stacked: Optional[bool] = None,
+             pack: Optional[Tuple[torch.Tensor, PackLayout]] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [N, d_out], grad [N, 3]), differentiable in x, ws and bs;
     through the HBM-stash pair when ``stash`` (default STASH_BWD), else
     with the backward through K1-bwd when ``stacked`` (default
-    STACKED_BWD) and K1-bwd-split when not."""
+    STACKED_BWD) and K1-bwd-split when not.  ``pack``: pack_weights(ws)
+    when the caller already has it (on a CUDA tensor; built here if not)."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"geometry: unsupported device {x.device}")
+    if x.is_cuda and pack is None:
+        with torch.no_grad():
+            pack = pack_weights(ws)
     if STASH_BWD if stash is None else stash:
-        return GeometryStashFn.apply(cfg, x, *ws, *bs)
+        return GeometryStashFn.apply(cfg, pack, x, *ws, *bs)
     if x.is_cuda:
         return GeometryFn.apply(cfg, STACKED_BWD if stacked is None
-                                else bool(stacked), x, *ws, *bs)
+                                else bool(stacked), pack, x, *ws, *bs)
     return geometry_plain(ws, bs, x, cfg)

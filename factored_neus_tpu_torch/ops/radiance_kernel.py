@@ -12,6 +12,10 @@ backward returns dW, db and the cotangents of all four inputs, the view
 directions' through the encoding's Jacobian.  The kernels cover
 ``mode='idr'``, as the TPU kernel does; on a CUDA tensor another mode
 raises.  On a CPU tensor the wrapper runs the plain twin, in every mode.
+
+K3-fwd multiplies on the CUDA cores; K3-bwd on the tensor cores in 3xTF32
+(csrc/tc_mma.cuh), from a weight pack (tc_pack.pack_weights) built once
+per backward.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _cuda
+from . import tc_pack as TP
 from .embedder import positional_encoding
 from .sdf_kernel import MAX_WIDTH, TILE
 
@@ -73,6 +78,36 @@ def kernel_iargs(cfg, ws, n: int, grid: int) -> Tuple[List[int], int]:
     return iargs, ld
 
 
+BWD_MAX_HIDDEN = 256     # widest hidden layer K3-bwd takes (radiance_mlp.cuh)
+
+
+def bwd_kernel_iargs(cfg, ws, n: int, grid: int, lay: TP.PackLayout
+                     ) -> Tuple[List[int], int]:
+    """K3-bwd's integer arguments [L, multires, d_view, ld, squeeze_out, n,
+    grid, ins[L], outs[L], then the pack's layout] and its row stride ld,
+    the widest layer rounded up to 8, plus 4; raises for a network K3-bwd
+    cannot hold."""
+    iargs, _ = kernel_iargs(cfg, ws, n, grid)
+    L = len(ws)
+    ins, outs = iargs[7:7 + L], iargs[7 + L:7 + 2 * L]
+    if lay != TP.pack_layout(ins, outs):
+        raise ValueError("K3-bwd: the pack's layout is not the network's")
+    if max(ins[1:]) > BWD_MAX_HIDDEN:
+        raise ValueError(f"K3-bwd takes hidden widths <= {BWD_MAX_HIDDEN}")
+    ld = TP.round8(max(ins + outs)) + 4
+    if bwd_smem_bytes(lay, outs, ld) > TP.SMEM_MAX:
+        raise ValueError("K3-bwd: the network's tiles and weight ring do "
+                         "not fit in shared memory")
+    iargs[3] = ld
+    return iargs + TP.layout_iargs(lay), ld
+
+
+def bwd_smem_bytes(lay: TP.PackLayout, outs, ld: int) -> int:
+    """K3-bwd's shared memory: two tiles of stride ld and the weight ring
+    (no tile of its own for x0)."""
+    return TP.smem_bytes(lay, outs, 2 * TILE * ld)
+
+
 def _inputs(name, pts, normals, dirs, feat):
     t = [v.detach().contiguous() for v in (pts, normals, dirs, feat)]
     n = t[0].shape[0]
@@ -102,32 +137,41 @@ def launch_forward(cfg, ws, bs, pts, normals, dirs, feat) -> torch.Tensor:
     return out
 
 
-def launch_backward(cfg, ws, bs, pts, normals, dirs, feat, ct_rgb):
+def launch_backward(cfg, ws, bs, pts, normals, dirs, feat, ct_rgb,
+                    scratch=None):
     """K3-bwd: (ct_pts, ct_normals, ct_dirs, ct_feat, dW per layer
-    [out, in], db per layer [out])."""
+    [out, in], db per layer [out]).  ``scratch``: the kernel's per-block
+    buffer [grid, L - 1, TILE, ld] (grid = min(tiles, SMs), ld from
+    bwd_kernel_iargs), where each block leaves h = relu(a) of the hidden
+    layers of the last tile it took; a fresh one when None."""
     dev = pts.device
     pts, normals, dirs, feat = _inputs("radiance backward", pts, normals,
                                        dirs, feat)
-    wt = [w.detach().contiguous() for w in ws]
-    wT = [w.t().contiguous() for w in wt]
     bs = [b.detach().contiguous() for b in bs]
     ct_rgb = ct_rgb.contiguous()
+    with torch.no_grad():
+        pack, lay = TP.pack_weights(ws)
     _cuda.check_cuda_tensors("radiance backward", [pts, normals, dirs, feat,
-                                                   ct_rgb, *wT, *wt, *bs])
+                                                   ct_rgb, pack, *bs])
     n, L = pts.shape[0], len(ws)
-    ins = [w.shape[1] for w in wt]
-    outs = [w.shape[0] for w in wt]
+    ins = [int(w.shape[1]) for w in ws]
+    outs = [int(w.shape[0]) for w in ws]
     P = sum(i * o + o for i, o in zip(ins, outs))
     cts = [torch.empty_like(v) for v in (pts, normals, dirs, feat)]
     grads = torch.zeros(P, device=dev, dtype=torch.float32)
     if n > 0:
         grid = min(math.ceil(n / TILE), _cuda.sm_count(dev))
-        iargs, ld = kernel_iargs(cfg, ws, n, grid)
-        scratch = torch.empty(grid * (L - 1) * TILE * ld, device=dev,
-                              dtype=torch.float32)
+        iargs, ld = bwd_kernel_iargs(cfg, ws, n, grid, lay)
+        shape = (grid, L - 1, TILE, ld)
+        if scratch is None:
+            scratch = torch.empty(shape, device=dev, dtype=torch.float32)
+        elif tuple(scratch.shape) != shape:
+            raise ValueError(f"radiance backward: scratch must be {shape}, "
+                             f"got {tuple(scratch.shape)}")
+        _cuda.check_cuda_tensors("radiance backward", [pts, scratch])
         part = torch.empty(grid * P, device=dev, dtype=torch.float32)
         K3_BWD.launch(iargs, [pts, normals, dirs, feat, ct_rgb, *cts,
-                              scratch, part, grads, *wT, *wt, *bs], 1.0, dev)
+                              scratch, part, grads, pack, *bs], 1.0, dev)
     dws, dbs, off = [], [], 0
     for i, o in zip(ins, outs):
         dws.append(grads[off:off + i * o].view(i, o).t())

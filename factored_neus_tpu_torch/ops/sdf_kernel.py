@@ -2,14 +2,17 @@
 (csrc/sdf_fwd.cu), and its plain PyTorch twin.
 
 Counterpart of factored_neus_tpu/ops/pallas_sdf.py (sdf_forward_pallas).
-It serves the no-grad SDF sweeps of the up-sampling ladder, where the
-caller narrows the last layer to the sdf column (fields.SDFNetwork.
-value_sweep).  The wrapper runs the plain twin for CPU tensors only; for a
-CUDA tensor it launches the kernel or raises.
+It serves the no-grad SDF sweeps of the up-sampling ladder and the mesh
+grid fill, where the caller narrows the last layer to the sdf column
+(fields.SDFNetwork.value_sweep).  The wrapper runs the plain twin for CPU
+tensors only; for a CUDA tensor it launches the kernel or raises.
 
 The kernels take EFFECTIVE weights in torch layout ([out, in], weight norm
 already applied) and biases; the layer structure comes from the weights'
-shapes and the SDF config (positional encoding, skip layers, scale).
+shapes and the SDF config (positional encoding, skip layers, scale).  K2
+multiplies on the tensor cores in 3xTF32 (csrc/tc_mma.cuh) from a weight
+pack (tc_pack.pack_weights): its own, or K1's pack of the same step, whose
+last W^T block starts with the narrowed layer's column.
 """
 from __future__ import annotations
 
@@ -19,13 +22,14 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from . import _cuda
+from . import tc_pack as TP
 from .embedder import positional_encoding
 from .mlp import softplus_beta
 
 SDF_FWD = _cuda.CudaKernel("sdf_fwd", "sdf_fwd.cu", "sdf_fwd")
-TILE = 64
-ENC_LD = 64
-MAX_WIDTH = 288
+TILE = TP.TILE
+ENC_LD = 64               # widest positional encoding (TC_MAX_ENC)
+MAX_WIDTH = 288           # widest layer a tensor-core product covers
 
 
 def layer_dims(cfg, ws: Sequence[torch.Tensor]
@@ -50,12 +54,31 @@ def layer_dims(cfg, ws: Sequence[torch.Tensor]
     return ins, outs, skip_mask
 
 
-def kernel_iargs(cfg, ws, n: int, grid: int) -> Tuple[List[int], int]:
+def enc_stride(cfg) -> int:
+    """Shared-memory row stride of the encoding tile: round8 + 4."""
+    return TP.round8(cfg.d_embed) + 4
+
+
+def kernel_iargs(cfg, ws, n: int, grid: int, lay: TP.PackLayout
+                 ) -> Tuple[List[int], int]:
+    """K2's integer arguments (tc_dims_from_args: the layers, then the
+    pack's layout) and the activation row stride ld, the widest layer
+    rounded up to 8, plus 4; raises for a network whose tiles and weight
+    ring do not fit in a block's shared memory."""
     ins, outs, skip_mask = layer_dims(cfg, ws)
-    ld = int(math.ceil(max(ins + outs) / 4.0) * 4)
-    iargs = [len(ws), cfg.multires, cfg.d_embed, ld, skip_mask, n, grid,
-             *ins, *outs]
-    return iargs, ld
+    TP.check_layout(lay, ins, outs)
+    ld = TP.round8(max(ins + outs)) + 4
+    if smem_bytes(cfg, lay, outs, ld) > TP.SMEM_MAX:
+        raise ValueError("K2: the network's tiles and weight ring do not "
+                         "fit in shared memory")
+    return [len(ws), cfg.multires, cfg.d_embed, ld, skip_mask, n, grid,
+            *ins, *outs, *TP.layout_iargs(lay)], ld
+
+
+def smem_bytes(cfg, lay: TP.PackLayout, outs: Sequence[int], ld: int) -> int:
+    """K2's shared memory: the encoding tile, two activation tiles and the
+    weight ring."""
+    return TP.smem_bytes(lay, outs, TILE * (enc_stride(cfg) + 2 * ld))
 
 
 def sdf_forward_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
@@ -81,29 +104,35 @@ def sdf_forward_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
     return torch.cat([h[:, :1] / cfg.scale, h[:, 1:]], dim=-1)
 
 
-def _launch(ws, bs, cfg, x: torch.Tensor) -> torch.Tensor:
+def _launch(ws, bs, cfg, x: torch.Tensor, pack) -> torch.Tensor:
     dev = x.device
     x = x.detach().contiguous()
-    wT = [w.detach().t().contiguous() for w in ws]
     bs = [b.detach().contiguous() for b in bs]
-    _cuda.check_cuda_tensors("sdf_forward", [x, *wT, *bs])
+    pack, lay = pack if pack is not None else TP.pack_weights(ws)
+    _cuda.check_cuda_tensors("sdf_forward", [x, pack, *bs])
     n = x.shape[0]
     if x.dim() != 2 or x.shape[1] != 3:
         raise ValueError(f"sdf_forward: x must be [N, 3], got {tuple(x.shape)}")
     out = torch.empty(n, ws[-1].shape[0], device=dev, dtype=torch.float32)
     if n == 0:
         return out
-    iargs, _ = kernel_iargs(cfg, ws, n, 0)
-    SDF_FWD.launch(iargs, [x, out, *wT, *bs], cfg.scale, dev)
+    grid = min(-(-n // TILE), _cuda.sm_count(dev))
+    iargs, _ = kernel_iargs(cfg, ws, n, grid, lay)
+    SDF_FWD.launch(iargs, [x, out, pack, *bs], cfg.scale, dev)
     return out
 
 
 def sdf_forward(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor], cfg,
-                x: torch.Tensor) -> torch.Tensor:
+                x: torch.Tensor,
+                pack: Optional[Tuple[torch.Tensor, TP.PackLayout]] = None
+                ) -> torch.Tensor:
     """No-grad SDF forward: K2 on a CUDA tensor, the plain twin on a CPU
-    tensor.  The result carries no gradient."""
+    tensor.  The result carries no gradient.  ``pack``: pack_weights of ws,
+    or of the same network with the full last layer (K1's pack of the
+    step); built here when not given."""
     if x.is_cuda:
-        return _launch(ws, bs, cfg, x)
+        with torch.no_grad():
+            return _launch(ws, bs, cfg, x, pack)
     if x.device.type == "cpu":
         with torch.no_grad():
             return sdf_forward_plain(ws, bs, cfg, x)

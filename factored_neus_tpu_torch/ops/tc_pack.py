@@ -1,0 +1,183 @@
+"""The weight pack and the arithmetic of the tensor-core kernels
+(csrc/tc_mma.cuh): K1 (ops/geometry_kernel.py), K2 (ops/sdf_kernel.py) and
+K3-bwd (ops/radiance_kernel.py) multiply in 3xTF32 on ``mma.sync``.
+
+``pack_weights`` lays every layer's weight out once in the form the kernels
+stage into shared memory, already split into TF32 big and small halves;
+``layout_iargs`` is the layout as the kernels are told it, and
+``smem_bytes`` mirrors their shared-memory count (tc_dims_from_args and
+tc_smem_bytes), so a network a kernel cannot hold is refused before any
+launch.  ``mm_3xtf32`` emulates the kernels' product arithmetic in plain
+PyTorch for the CPU tests.
+"""
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+TILE = 64                  # rows of a tile (TC_TILE)
+RING_ROWS = 16             # weight rows per ring stage (TC_KS)
+SMEM_MAX = 232448          # shared memory a block may use (TC_SMEM_MAX)
+
+
+TF32_MASK = -8192          # 0xffffe000: sign, exponent, 10 mantissa bits
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32 (10-bit mantissa), to nearest with ties
+    away from zero: the kernels' split, (bits + 0x1000) & 0xffffe000."""
+    return ((x.view(torch.int32) + 0x1000) & TF32_MASK).view(torch.float32)
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """The TF32 value the tensor core reads of a float32 operand: its 13
+    low mantissa bits dropped (tools/tf32_mma_probe.py)."""
+    return (x.view(torch.int32) & TF32_MASK).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small): big = tf32_round(x), small = x - big, exact in f32."""
+    big = tf32_round(x)
+    return big, x - big
+
+
+def _toward_zero(t: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32 rounded toward zero, as the tensor core adds to
+    its float32 accumulator."""
+    r = t.float()
+    return torch.where(r.double().abs() > t.abs(),
+                       torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor,
+              stage: Optional[int] = 16) -> torch.Tensor:
+    """a [M, K] @ b [K, N] (float32) as the tensor-core kernels compute it: each
+    operand split into TF32 big and small, small_a big_b + big_a small_b +
+    big_a big_b per m16n8k8 instruction (8 k at a time, the products summed
+    exactly, the tensor core reading only the TF32 bits of each small), each
+    instruction's sum added to a float32 accumulator rounding toward zero;
+    every ``stage`` k (a ring stage of 16 weight rows, or the 64 rows of a
+    weight-gradient tile) the accumulator is added to the running float32
+    sum with a rounded add.  ``stage=None``: one accumulator over all k."""
+    ab, as_ = tf32_split(a.float().contiguous())
+    bb, bs = tf32_split(b.float().contiguous())
+    terms = [(tf32_truncate(as_).double(), bb.double()),
+             (ab.double(), tf32_truncate(bs).double()),
+             (ab.double(), bb.double())]
+    K = a.shape[1]
+    stage = stage or K
+    total = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32,
+                        device=a.device)
+    for k0 in range(0, K, stage):
+        part = torch.zeros_like(total)
+        for k in range(k0, min(k0 + stage, K), 8):
+            for x, y in terms:
+                part = _toward_zero(part.double() + x[:, k:k + 8] @ y[k:k + 8])
+        total = total + part
+    return total
+
+
+def round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def staged_stride(width: int) -> int:
+    """Row stride (floats) of a packed weight block of ``width`` columns:
+    the width rounded up to 8, then up to 8 (mod 32), so that a B fragment
+    (4 rows x 8 columns) read from a slice staged with this stride hits 32
+    different shared-memory banks."""
+    s = round8(width)
+    return s + (8 - s) % 32
+
+
+class PackLayout(NamedTuple):
+    """Offsets and row strides (floats) of each layer's two blocks in one
+    half of the pack: W^T [round8(in)][fwd_stride] for x W^T and W
+    [round8(out)][rev_stride] for r W; ``half`` floats per half."""
+    fwd_off: List[int]
+    fwd_stride: List[int]
+    rev_off: List[int]
+    rev_stride: List[int]
+    half: int
+
+
+def pack_layout(ins: Sequence[int], outs: Sequence[int]) -> PackLayout:
+    fo, fs, ro, rs, off = [], [], [], [], 0
+    for i, o in zip(ins, outs):
+        fo.append(off)
+        fs.append(staged_stride(o))
+        off += round8(i) * fs[-1]
+        ro.append(off)
+        rs.append(staged_stride(i))
+        off += round8(o) * rs[-1]
+    return PackLayout(fo, fs, ro, rs, off)
+
+
+def pack_weights(ws: Sequence[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, PackLayout]:
+    """The tensor-core kernels' weight buffer: [big | small] (tf32_split)
+    of every layer's W^T and W block in pack_layout's places, zero in the
+    padding; big + small is the weight exactly."""
+    if any(w.dtype != torch.float32 for w in ws):
+        raise ValueError("the tensor-core kernels take float32 weights")
+    ins = [int(w.shape[1]) for w in ws]
+    outs = [int(w.shape[0]) for w in ws]
+    lay = pack_layout(ins, outs)
+    flat = torch.zeros(lay.half, device=ws[0].device, dtype=torch.float32)
+    for l, w in enumerate(ws):
+        i, o = ins[l], outs[l]
+        fwd = flat[lay.fwd_off[l]:lay.fwd_off[l] + round8(i) *
+                   lay.fwd_stride[l]].view(round8(i), lay.fwd_stride[l])
+        fwd[:i, :o] = w.detach().t()
+        rev = flat[lay.rev_off[l]:lay.rev_off[l] + round8(o) *
+                   lay.rev_stride[l]].view(round8(o), lay.rev_stride[l])
+        rev[:o, :i] = w.detach()
+    big, small = tf32_split(flat)
+    return torch.cat([big, small]), lay
+
+
+def layout_iargs(lay: PackLayout) -> List[int]:
+    """The pack layout as the kernels' integer arguments take it after
+    ins and outs: fwd_off, fwd_stride, rev_off, rev_stride, half."""
+    return [*lay.fwd_off, *lay.fwd_stride, *lay.rev_off, *lay.rev_stride,
+            lay.half]
+
+
+def check_layout(lay: PackLayout, ins: Sequence[int],
+                 outs: Sequence[int]) -> None:
+    """Raises unless ``lay`` is the pack layout of layers ins -> outs, or of
+    the same network with a wider last layer (K2 reads K1's pack with the
+    last layer narrowed to the sdf column: it stages only the W^T blocks,
+    whose first columns are the narrowed layer's)."""
+    want = pack_layout(ins, outs)
+    L = len(ins)
+    ok = len(lay.fwd_off) == L and lay.fwd_off == want.fwd_off
+    ok = ok and lay.fwd_stride[:-1] == want.fwd_stride[:-1]
+    ok = ok and lay.rev_stride[:-1] == want.rev_stride[:-1]
+    ok = ok and lay.rev_off[:-1] == want.rev_off[:-1]
+    ok = ok and lay.fwd_stride[-1] >= want.fwd_stride[-1]
+    ok = ok and lay.rev_stride[-1] == want.rev_stride[-1]
+    if not ok:
+        raise ValueError("the weight pack's layout does not match the "
+                         "network's widths")
+
+
+def chunk_stride(width: int) -> int:
+    """Shared-memory row stride of a weight-gradient chunk (tc_chunk_stride):
+    >= width + 3 and 4 (mod 32)."""
+    sp = width + 3
+    return sp + (36 - sp % 32) % 32
+
+
+def smem_bytes(lay: PackLayout, outs: Sequence[int],
+               fixed_floats: int) -> int:
+    """Shared memory of a tensor-core kernel with ``fixed_floats`` of its own
+    tiles and the weight ring: two stages of RING_ROWS rows of the widest
+    staged block, big and small, or one 64-row weight-gradient chunk where
+    that is larger."""
+    widest = max(lay.fwd_stride + lay.rev_stride)
+    stage = 2 * RING_ROWS * widest
+    chunk = max(TILE * chunk_stride(o) + 3 for o in outs)
+    ring = -(-max(2 * stage, chunk) // 4) * 4
+    return 4 * (fixed_floats + ring)

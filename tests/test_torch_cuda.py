@@ -10,13 +10,19 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+from factored_neus_tpu_torch.data import rays as RAYS
 from factored_neus_tpu_torch.meshing import extract as MEXT
-from factored_neus_tpu_torch.models.fields import (RenderingConfig,
+from factored_neus_tpu_torch.models import renderer as TR
+from factored_neus_tpu_torch.models.fields import (RefColorConfig,
+                                                   RenderingConfig,
                                                    RenderingNetwork,
                                                    SDFConfig, SDFNetwork)
 from factored_neus_tpu_torch.ops import geometry_kernel as GK
 from factored_neus_tpu_torch.ops import radiance_kernel as RK
 from factored_neus_tpu_torch.ops import sdf_kernel as SK
+from factored_neus_tpu_torch.ops import tc_pack as TP
+from factored_neus_tpu_torch.ops.embedder import positional_encoding
 
 
 @pytest.fixture
@@ -364,3 +370,114 @@ def test_grid_fill_matches_cpu_twin(cuda_device):
                               "cpu")
     assert np.abs(card - cpu).max() <= 1e-5
     assert np.isfinite(card).all() and (card > 0).any() and (card < 0).any()
+
+
+def rad_f64_vjp(cfg, ws, bs, inputs, ct):
+    """(ct_pts, ct_normals, ct_dirs, ct_feat, dW..., db...) of the plain
+    twin in float64 with the ReLU masks of K3-bwd's own forward
+    (chip_smoke.k3_bwd_masks, which raises where they differ from the f32
+    forward's beyond rounding of 0): where a pre-activation lies within f32
+    rounding of 0, a forward summed in another order (cuBLAS's f32, f64, or
+    the 3xTF32 emulation) takes the other side of the kink and
+    differentiates another function, one whole cotangent element apart."""
+    L = len(ws)
+
+    def x0(pts, normals, dirs, feat):
+        return torch.cat([pts, positional_encoding(dirs, cfg.multires_view),
+                          normals, feat], -1)
+
+    masks, _ = chip_smoke.k3_bwd_masks(cfg, ws, bs, inputs)
+    leaves = [t.double().requires_grad_(True) for t in [*inputs, *ws, *bs]]
+    h = x0(*leaves[:4])
+    for l in range(L):
+        h = torch.nn.functional.linear(h, leaves[4 + l], leaves[4 + L + l])
+        if l < L - 1:
+            h = h * masks[l].to(h.dtype)
+    rgb = torch.sigmoid(h) if cfg.squeeze_out else h
+    return torch.autograd.grad(rgb, leaves, ct.double())
+
+
+RAD_RAGGED = (256, 256, 4, 4, 9001)   # full width, 1-2 tiles a block
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RAD_CASES + [RAD_RAGGED])
+def test_k3_bwd_matches_f64_twin(cuda_device, case):
+    """K3-bwd (tensor cores, 3xTF32) against the float64 twin per tensor at
+    |err| <= 1e-4 + 1e-5 max|ref|, the twin on the kernel's ReLU masks
+    once they are held against the f32 forward's (rad_f64_vjp); 9,001 rows
+    take the persistent blocks over several tiles, the last one ragged."""
+    cfg, net, inputs = _rad(case, cuda_device)
+    with torch.no_grad():
+        ws, bs = net.effective_weights()
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    ct = torch.randn(inputs[0].shape[0], cfg.d_out, device=cuda_device,
+                     generator=gen)
+    *cts, dws, dbs = RK.launch_backward(cfg, ws, bs, *inputs, ct)
+    want = rad_f64_vjp(cfg, ws, bs, inputs, ct)
+    for i, (a, b) in enumerate(zip([*cts, *dws, *dbs], want)):
+        assert a.shape == b.shape
+        assert worst_scaled_ratio(a.double(), b) <= 1.0, i
+
+
+@pytest.mark.gpu
+def test_k3_bwd_is_deterministic(cuda_device):
+    """Two K3-bwd launches on the same inputs give bitwise-equal
+    cotangents, dW and db (per-block partial slices, fixed-order reduce)."""
+    cfg, net, inputs = _rad(RAD_RAGGED, cuda_device)
+    with torch.no_grad():
+        ws, bs = net.effective_weights()
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    ct = torch.randn(inputs[0].shape[0], cfg.d_out, device=cuda_device,
+                     generator=gen)
+    a = RK.launch_backward(cfg, ws, bs, *inputs, ct)
+    b = RK.launch_backward(cfg, ws, bs, *inputs, ct)
+    for u, v in zip([*a[:4], *a[4], *a[5]], [*b[:4], *b[4], *b[5]]):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [8192, 32768, 9001])
+def test_k2_sweep_shapes_match_twin(cuda_device, n):
+    """K2 at the ladder's two sweep shapes (512 rays x 16 and x 64
+    samples) and a ragged count, full width, last layer narrowed: fed K1's
+    pack of the same weights (the step's route) within 1e-5 abs of its
+    twin, and bitwise equal to K2 fed its own narrowed pack."""
+    case = (8, 256, 257, (4,), 6, 1.0, n)
+    cfg, ws, bs, x = _net(case, cuda_device)
+    wn, bn = ws[:-1] + [ws[-1][:1]], bs[:-1] + [bs[-1][:1]]
+    k1_pack = TP.pack_weights(ws)
+    got = SK.sdf_forward(wn, bn, cfg, x, k1_pack)
+    own = SK.sdf_forward(wn, bn, cfg, x)
+    with torch.no_grad():
+        want = SK.sdf_forward_plain(wn, bn, cfg, x)
+    assert got.shape == (n, 1)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert torch.equal(got, own)
+
+
+@pytest.mark.gpu
+def test_step_launches_each_kernel_once_and_k2_four_times(cuda_device):
+    """One stage-1 render + backward on the card (narrow widths, 4-round
+    ladder): K2 four times (the first sweep and three of the four rounds'
+    new samples), K1-fwd, K1-bwd, K3-fwd and K3-bwd once each."""
+    cfg = TR.RendererConfig(
+        n_samples=16, n_importance=16, up_sample_steps=4,
+        sdf=SDFConfig(n_layers=4, d_hidden=64, d_out=65, skip_in=(2,),
+                      multires=4),
+        rendering=RenderingConfig(d_feature=64, d_hidden=64, n_layers=3),
+        refcolor=RefColorConfig(d_feature=64))
+    model = TR.Stage1Model(cfg, seed=0).to(cuda_device)
+    rng = np.random.RandomState(0)
+    o = rng.randn(32, 3) * 0.1 + np.array([0.0, 0.0, -3.0])
+    d = np.array([0.0, 0.0, 1.0]) + rng.randn(32, 3) * 0.1
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = (torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+            for a in (o, d))
+    near, far = RAYS.near_far_from_sphere(o, d)
+    kernels = (SK.SDF_FWD, GK.K1_FWD, GK.K1_BWD, RK.K3_FWD, RK.K3_BWD)
+    before = [k.launches for k in kernels]
+    out = TR.render(model, cfg, o, d, near, far)
+    (out["color_fine"].sum() + out["gradient_error"].sum()).backward()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [4, 1, 1,
+                                                                 1, 1]

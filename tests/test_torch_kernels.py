@@ -21,6 +21,7 @@ from factored_neus_tpu_torch import bridge
 from factored_neus_tpu_torch.models import fields as TF
 from factored_neus_tpu_torch.ops import geometry_kernel as GK
 from factored_neus_tpu_torch.ops import sdf_kernel as SK
+from factored_neus_tpu_torch.ops import tc_pack as TP
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -127,18 +128,25 @@ def test_cpu_path_launches_no_kernel():
 
 
 def test_kernel_arguments_describe_the_network():
-    """The integer arguments handed to the kernels, at full width."""
+    """The integer arguments handed to K2, at full width: the layers, then
+    the weight pack's layout; the narrowed sweep with K1's pack."""
     net = TF.SDFNetwork(TF.SDFConfig())
     ws, _ = net.effective_weights()
-    iargs, ld = SK.kernel_iargs(net.cfg, ws, n=1000, grid=7)
+    pack, lay = TP.pack_weights(ws)
+    iargs, ld = SK.kernel_iargs(net.cfg, ws, n=1000, grid=7, lay=lay)
     L = 9
-    assert iargs[:7] == [L, 6, 39, 260, 1 << 4, 1000, 7]
+    assert iargs[:7] == [L, 6, 39, 268, 1 << 4, 1000, 7]
     assert iargs[7:7 + L] == [39, 256, 256, 256, 256, 256, 256, 256, 256]
-    assert iargs[7 + L:] == [256, 256, 256, 217, 256, 256, 256, 256, 257]
-    assert ld == 260
+    assert iargs[7 + L:7 + 2 * L] == [256, 256, 256, 217, 256, 256, 256, 256,
+                                      257]
+    assert iargs[7 + 2 * L:] == TP.layout_iargs(lay)
+    assert ld == 268
+    narrowed = ws[:-1] + [ws[-1][:1]]
+    iargs, ld = SK.kernel_iargs(net.cfg, narrowed, 1000, 7, lay)
+    assert iargs[7 + L:7 + 2 * L][-1] == 1 and ld == 260
     with pytest.raises(ValueError):
         SK.kernel_iargs(TF.SDFConfig(d_hidden=512), [
-            torch.zeros(512, 39)] + [torch.zeros(512, 512)] * 2, 10, 1)
+            torch.zeros(512, 39)] + [torch.zeros(512, 512)] * 2, 10, 1, lay)
 
 
 @pytest.mark.parametrize("skip", [(2,), ()])

@@ -1,15 +1,21 @@
-"""The arithmetic and weight layout of the K1 tensor-core kernels
-(csrc/tc_mma.cuh), on the CPU: the 3xTF32 emulation of
-ops/geometry_kernel.py against float64 at K1's shapes and the card's
-tolerances, and the packed weight buffer the kernels stage from."""
+"""The arithmetic and weight layout of the tensor-core kernels (K1, K2,
+K3-bwd; csrc/tc_mma.cuh), on the CPU: the 3xTF32 emulation of
+ops/tc_pack.py against float64 at the kernels' shapes and the card's
+tolerances, the packed weight buffers the kernels stage from, and their
+shared-memory counts."""
 import math
 
 import numpy as np
 import pytest
 import torch
 
-from factored_neus_tpu_torch.models.fields import SDFConfig, SDFNetwork
+from factored_neus_tpu_torch.models.fields import (RenderingConfig,
+                                                   RenderingNetwork,
+                                                   SDFConfig, SDFNetwork)
 from factored_neus_tpu_torch.ops import geometry_kernel as GK
+from factored_neus_tpu_torch.ops import radiance_kernel as RK
+from factored_neus_tpu_torch.ops import sdf_kernel as SK
+from factored_neus_tpu_torch.ops import tc_pack as TP
 from factored_neus_tpu_torch.ops.embedder import positional_encoding
 from factored_neus_tpu_torch.ops.mlp import softplus_beta
 
@@ -23,15 +29,10 @@ NETS = [SDFConfig(),                                        # full width
                   multires=4)]
 
 
-@pytest.mark.parametrize("cfg", NETS, ids=["full", "small"])
-def test_pack_layout_and_split(cfg):
+def _check_pack(ws, pack, lay):
     """big + small == w exactly, big has no bits below TF32's mantissa,
-    padding is zero in both halves, and the offsets and strides are the
-    ones the kernels are told (16-byte aligned, a staged row 8 mod 32)."""
-    net = SDFNetwork(cfg, torch.Generator().manual_seed(0))
-    with torch.no_grad():
-        ws, _ = net.effective_weights()
-    pack, lay = GK.pack_weights(ws)
+    padding is zero in both halves, and the blocks tile the half in
+    order, 16-byte aligned, a staged row 8 mod 32."""
     H = lay.half
     assert pack.shape == (2 * H,) and pack.dtype == torch.float32
     big, small = pack[:H], pack[H:]
@@ -57,6 +58,18 @@ def test_pack_layout_and_split(cfg):
             covered[start:start + n] = True
             off += n
     assert off == H and covered.all()
+
+
+@pytest.mark.parametrize("cfg", NETS, ids=["full", "small"])
+def test_pack_layout_and_split(cfg):
+    """The K1 pack (_check_pack), and the offsets and strides the kernels
+    are told."""
+    net = SDFNetwork(cfg, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        ws, _ = net.effective_weights()
+    pack, lay = TP.pack_weights(ws)
+    _check_pack(ws, pack, lay)
+    H = lay.half
     iargs, ld = GK.kernel_iargs(cfg, ws, 1000, 7, lay)
     L = len(ws)
     assert ld % 8 == 4 and ld >= max(-(-w // 8) * 8 for w in
@@ -74,7 +87,7 @@ def test_k1_refuses_layers_wider_than_its_shared_memory():
     with torch.no_grad():
         ws, _ = net.effective_weights()
     with pytest.raises(ValueError, match="257"):
-        GK.kernel_iargs(cfg, ws, 100, 1, GK.pack_weights(ws)[1])
+        GK.kernel_iargs(cfg, ws, 100, 1, TP.pack_weights(ws)[1])
 
 
 def test_tf32_round_and_truncate():
@@ -84,10 +97,10 @@ def test_tf32_round_and_truncate():
     x = torch.tensor([one + 0.49 * u, one + 0.5 * u, -(one + 0.5 * u),
                       one + 0.75 * u, 3.0], dtype=torch.float32)
     want = torch.tensor([one, one + u, -(one + u), one + u, 3.0])
-    assert torch.equal(GK.tf32_round(x), want)
-    assert torch.equal(GK.tf32_truncate(x),
+    assert torch.equal(TP.tf32_round(x), want)
+    assert torch.equal(TP.tf32_truncate(x),
                        torch.tensor([one, one, -one, one, 3.0]))
-    big, small = GK.tf32_split(x)
+    big, small = TP.tf32_split(x)
     assert torch.equal(big + small, x)
 
 
@@ -141,9 +154,9 @@ def test_3xtf32_forward_within_k1_fwd_tolerance():
         ref = _k1_forward([w.double() for w in ws], [b.double() for b in bs],
                           cfg, x.double(), lambda a, b: a @ b)
         f32 = _k1_forward(ws, bs, cfg, x, lambda a, b: a @ b)
-        tc = _k1_forward(ws, bs, cfg, x, GK.mm_3xtf32)
+        tc = _k1_forward(ws, bs, cfg, x, TP.mm_3xtf32)
         flat = _k1_forward(ws, bs, cfg, x,
-                           lambda a, b: GK.mm_3xtf32(a, b, None))
+                           lambda a, b: TP.mm_3xtf32(a, b, None))
     err = lambda got: max(float((g.double() - r).abs().max())
                           for g, r in zip(got, ref))
     e_tc, e_f32, e_flat = err(tc), err(f32), err(flat)
@@ -166,7 +179,7 @@ def test_3xtf32_weight_gradient_within_k1_bwd_tolerance(rows, K, N):
     tc = torch.zeros(K, N)
     f32 = torch.zeros(K, N)
     for t in range(X.shape[0]):
-        tc = tc + GK.mm_3xtf32(X[t].t(), R[t], stage=rows)
+        tc = tc + TP.mm_3xtf32(X[t].t(), R[t], stage=rows)
         f32 = f32 + X[t].t() @ R[t]
     tol = 1e-4 + 1e-5 * float(ref.abs().max())
     e_tc = float((tc.double() - ref).abs().max())
@@ -184,9 +197,201 @@ def test_3xtf32_product_matches_float64(K, N):
     a = torch.from_numpy(rng.randn(64, K).astype(np.float32))
     b = torch.from_numpy(rng.randn(K, N).astype(np.float32))
     ref = a.double() @ b.double()
-    e_tc = float((GK.mm_3xtf32(a, b).double() - ref).abs().max())
+    e_tc = float((TP.mm_3xtf32(a, b).double() - ref).abs().max())
     e_f32 = float(((a @ b).double() - ref).abs().max())
     assert e_tc <= 4 * e_f32
     ai = torch.from_numpy(rng.randint(-8, 8, (64, K)).astype(np.float32))
     bi = torch.from_numpy(rng.randint(-8, 8, (K, N)).astype(np.float32))
-    assert torch.equal(GK.mm_3xtf32(ai, bi), ai @ bi)
+    assert torch.equal(TP.mm_3xtf32(ai, bi), ai @ bi)
+
+
+def _radiance(cfg, n, seed=0):
+    net = RenderingNetwork(cfg, torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        ws, bs = net.effective_weights()
+    rng = np.random.RandomState(seed + 1)
+    dirs = rng.randn(n, 3)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    inputs = [rng.randn(n, 3) * 0.4, rng.randn(n, 3), dirs,
+              rng.randn(n, cfg.d_feature) * 0.5]
+    inputs = [torch.from_numpy(a.astype(np.float32)) for a in inputs]
+    ct = torch.from_numpy(rng.randn(n, cfg.d_out).astype(np.float32))
+    return list(ws), list(bs), inputs, ct
+
+
+def _k3_backward(ws, bs, cfg, inputs, ct, mm, atb, masks=None):
+    """K3-bwd's (ct_pts, ct_normals, ct_dirs, ct_feat, dW..., db...) in the
+    kernel's order of operations: the forward x W^T through mm(a, b), the
+    ReLU masks from its own pre-activations unless ``masks`` are given,
+    the seed ct y (1 - y), the weight gradients through atb(x, r) (64-row
+    tiles), the input cotangents r W through mm."""
+    pts, normals, dirs, feat = inputs
+    x0 = torch.cat([pts, positional_encoding(dirs, cfg.multires_view),
+                    normals, feat], -1)
+    L = len(ws)
+    xs, own = [x0], []
+    for l in range(L):
+        a = mm(xs[-1], ws[l].t()) + bs[l]
+        if l < L - 1:
+            own.append(a > 0)
+            xs.append(torch.relu(a))
+    masks = own if masks is None else masks
+    y = torch.sigmoid(a)
+    r = ct * y * (1 - y)
+    dws, dbs = [None] * L, [None] * L
+    for l in range(L - 1, -1, -1):
+        dws[l] = atb(xs[l], r).t()
+        dbs[l] = r.sum(0)
+        r = mm(r, ws[l])
+        if l > 0:
+            r = r * masks[l - 1].to(r.dtype)
+    d_view = cfg.d_view
+    u = dirs
+    zero = torch.zeros_like(u)
+    r_enc = r[:, 3:3 + d_view]
+    ct_dirs = GK._encode_backward(u, zero, r_enc, torch.zeros_like(r_enc),
+                                  cfg.multires_view)
+    return ([r[:, :3], r[:, 3 + d_view:6 + d_view], ct_dirs,
+             r[:, 6 + d_view:]] + dws + dbs), own
+
+
+def _atb_tiles(mm):
+    """X^T R summed over 64-row tiles, each tile's sum added in float32."""
+    def atb(x, r):
+        total = torch.zeros(x.shape[1], r.shape[1], dtype=x.dtype)
+        for t0 in range(0, x.shape[0], 64):
+            total = total + mm(x[t0:t0 + 64].t(), r[t0:t0 + 64])
+        return total
+    return atb
+
+
+@pytest.mark.parametrize("case", [
+    (RenderingConfig(), 256),                          # 289 -> 4 x 256 -> 3
+    (RenderingConfig(d_feature=64, d_hidden=64, n_layers=3), 200)],
+    ids=["full", "small"])
+def test_3xtf32_radiance_backward_within_k3_bwd_tolerance(case):
+    """K3-bwd's three products at K3's widths in emulated 3xTF32 (forward
+    and input cotangents in ring stages of 16 k, weight gradients in 64-row
+    tiles) against float64 with the float32 forward's ReLU masks: every
+    tensor within K3-bwd's card criterion |err| <= 1e-4 + 1e-5 max|ref|,
+    and at most a few times the float32 chain's own error."""
+    cfg, n = case
+    ws, bs, inputs, ct = _radiance(cfg, n)
+    with torch.no_grad():
+        f32, masks = _k3_backward(ws, bs, cfg, inputs, ct,
+                                  lambda a, b: a @ b, lambda x, r: x.t() @ r)
+        ref, _ = _k3_backward([w.double() for w in ws],
+                              [b.double() for b in bs],
+                              cfg, [v.double() for v in inputs], ct.double(),
+                              lambda a, b: a @ b, lambda x, r: x.t() @ r,
+                              masks)
+        tc, tc_masks = _k3_backward(
+            ws, bs, cfg, inputs, ct, TP.mm_3xtf32,
+            _atb_tiles(lambda a, b: TP.mm_3xtf32(a, b, stage=64)))
+    # no pre-activation lies within the 3xTF32 sums' error of the kink here
+    assert all(torch.equal(a, b) for a, b in zip(tc_masks, masks))
+    for i, (a, b, c) in enumerate(zip(tc, f32, ref)):
+        assert a.shape == c.shape
+        tol = 1e-4 + 1e-5 * float(c.abs().max())
+        e_tc = float((a.double() - c).abs().max())
+        e_f32 = float((b.double() - c).abs().max())
+        assert e_tc <= tol, i
+        assert e_tc <= 4 * e_f32 + 1e-6, i
+
+
+def test_k3_pack_layout():
+    """K3-bwd's pack: the 289-wide first layer (W^T [296][264], W
+    [256][296]: 296 = 289 rounded to 8, already 8 mod 32), the 3-wide last
+    layer (W^T [256][8], W [8][264]), zero padding, and its layout at the
+    end of the kernel's arguments, with the row stride 300."""
+    cfg = RenderingConfig()
+    ws, _, _, _ = _radiance(cfg, 1)
+    pack, lay = TP.pack_weights(ws)
+    _check_pack(ws, pack, lay)
+    assert (lay.fwd_stride[0], lay.rev_stride[0]) == (264, 296)
+    assert (lay.fwd_stride[-1], lay.rev_stride[-1]) == (8, 264)
+    assert lay.rev_off[-1] - lay.fwd_off[-1] == 256 * 8
+    assert lay.half - lay.rev_off[-1] == 8 * 264
+    iargs, ld = RK.bwd_kernel_iargs(cfg, ws, 1000, 7, lay)
+    assert ld == 300 and ld % 8 == 4
+    assert iargs[:7] == [5, 4, 27, 300, 1, 1000, 7]
+    assert iargs[7:17] == [289, 256, 256, 256, 256, 256, 256, 256, 256, 3]
+    assert iargs[17:] == TP.layout_iargs(lay)
+    with pytest.raises(ValueError, match="layout"):
+        RK.bwd_kernel_iargs(cfg, ws, 1000, 7, TP.pack_layout(
+            [289, 256, 256, 256, 256], [256, 256, 256, 256, 16]))
+
+
+def test_k2_reads_k1_pack_narrowed():
+    """The narrowed sweep's weights in K1's pack of the same step: the
+    first column of the last W^T block (big + small) is the narrowed row,
+    and every W^T block K2 stages holds, in its first columns, what K2's
+    own narrowed pack holds; the layouts are accepted as the narrowed
+    network's."""
+    cfg = SDFConfig()
+    net = SDFNetwork(cfg, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        ws, _ = net.effective_weights()
+    narrowed = ws[:-1] + [ws[-1][:1]]
+    k1, lay = TP.pack_weights(ws)
+    own, lay_n = TP.pack_weights(narrowed)
+    L = len(ws)
+    for l in range(L):
+        kp = -(-ws[l].shape[1] // 8) * 8
+        cols = lay_n.fwd_stride[l]
+        assert lay_n.fwd_off[l] == lay.fwd_off[l]
+        for h in (0, 1):
+            a = k1[h * lay.half + lay.fwd_off[l]:][:kp * lay.fwd_stride[l]]
+            b = own[h * lay_n.half + lay_n.fwd_off[l]:][:kp * cols]
+            a = a.view(kp, lay.fwd_stride[l])[:, :cols]
+            b = b.view(kp, cols)
+            if l < L - 1:
+                assert torch.equal(a, b)
+            else:
+                assert torch.equal(a[:, :1], b[:, :1])
+                assert not b[:, 1:].any()
+    blk = (k1[:lay.half] + k1[lay.half:])[lay.fwd_off[-1]:][
+        :256 * lay.fwd_stride[-1]].view(256, lay.fwd_stride[-1])
+    assert torch.equal(blk[:, 0], narrowed[-1][0])
+    ins = [w.shape[1] for w in ws]
+    for ly in (lay, lay_n):
+        SK.kernel_iargs(cfg, narrowed, 100, 1, ly)
+    with pytest.raises(ValueError, match="layout"):
+        SK.kernel_iargs(cfg, narrowed, 100, 1, TP.pack_layout(
+            ins, [256] * 8 + [257])._replace(fwd_off=[0] * L))
+
+
+def test_shared_memory_counts_fit_a_block():
+    """The byte counts the kernels' headers state, from tc_pack.smem_bytes
+    (the mirror of tc_dims_from_args / tc_smem_bytes), at full width, all
+    within the 232,448 bytes a block may use: K1-fwd 216,064 (encoding,
+    two tiles at 268, ring of stride 264); K1-bwd 227,328 (four tiles);
+    K2 211,968 narrowed (two tiles at 260), from its own pack or K1's;
+    K3-bwd 229,376 (two tiles at 300, ring of stride 296).  A radiance MLP
+    with 288-wide hidden layers is refused before any launch."""
+    cfg = SDFConfig()
+    net = SDFNetwork(cfg, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        ws, _ = net.effective_weights()
+    _, lay = TP.pack_weights(ws)
+    outs = [w.shape[0] for w in ws]
+    eld = SK.enc_stride(cfg)
+    assert eld == 44
+    k1_fwd = TP.smem_bytes(lay, outs, 64 * (eld + 2 * 268))
+    k1_bwd = TP.smem_bytes(lay, outs, 64 * 2 * (eld + 268))
+    narrowed = ws[:-1] + [ws[-1][:1]]
+    n_outs = outs[:-1] + [1]
+    k2 = [SK.smem_bytes(cfg, ly, n_outs, SK.kernel_iargs(
+        cfg, narrowed, 100, 1, ly)[1]) for ly in
+        (lay, TP.pack_weights(narrowed)[1])]
+    rcfg = RenderingConfig()
+    rws, _, _, _ = _radiance(rcfg, 1)
+    _, rlay = TP.pack_weights(rws)
+    k3 = RK.bwd_smem_bytes(rlay, [w.shape[0] for w in rws], 300)
+    assert (k1_fwd, k1_bwd, k2, k3) == (216064, 227328, [211968] * 2,
+                                        229376)
+    assert max(k1_fwd, k1_bwd, *k2, k3) <= TP.SMEM_MAX == 232448
+    wide = RenderingConfig(d_hidden=288)
+    wws, _, _, _ = _radiance(wide, 1)
+    with pytest.raises(ValueError):
+        RK.bwd_kernel_iargs(wide, wws, 100, 1, TP.pack_weights(wws)[1])
