@@ -9,9 +9,10 @@
    TF32 off; K2 at both sweep shapes of a step, on K1's pack as in the
    step and bitwise against its own pack; K3-bwd against its f64 twin on
    the ReLU masks of its own forward, which may differ from the f32
-   forward's only within rounding of 0), checks that two K1-bwd and two
-   K3-bwd launches agree bit for bit, and times each kernel and twin with
-   CUDA events;
+   forward's only within rounding of 0), checks that two K1-bwd, two
+   K3-fwd and two K3-bwd launches agree bit for bit, and times each kernel
+   and twin with CUDA events (K3-fwd on the weight pack it shares with
+   K3-bwd in a step, the pack's own time beside it);
 4. runs one full-width stage-1 step of confs/wmask.conf and one of
    confs/womask.conf (background NeRF) on the card (kernels) and the same
    steps on the CPU (twins), and compares the loss and every parameter
@@ -156,8 +157,7 @@ def k3_bwd_masks(cfg, ws, bs, inputs):
     for r0 in range(0, n, chunk):
         m = min(chunk, n - r0)
         grid = -(-m // TP.TILE)
-        _, ld = RK.bwd_kernel_iargs(cfg, ws, m, grid,
-                                    TP.pack_layout(ins, outs))
+        _, ld = RK.kernel_iargs(cfg, ws, m, grid, TP.pack_layout(ins, outs))
         scratch = torch.empty(grid, L - 1, TP.TILE, ld, device=dev)
         RK.launch_backward(cfg, ws, bs, *(t[r0:r0 + m] for t in inputs),
                            torch.zeros(m, outs[-1], device=dev), scratch)
@@ -226,12 +226,11 @@ def check_kernels(device):
     x = torch.randn(N_CORE, 3, device=device, generator=gen) * 0.5
     results, gflop = [], {}
 
-    def entry(name, source, replaces, err, ms, plain_ms, flops, nbytes,
-              tensor_cores=False):
-        """bound_ms: the f32 CUDA-core bound; a kernel on the tensor cores
-        (K1, K2, K3-bwd: 3xTF32) adds bound_3xtf32_ms, three TF32
-        products' worth of the same FLOPs over the TF32 peak (or the
-        bytes, if larger)."""
+    def entry(name, source, replaces, err, ms, plain_ms, flops, nbytes):
+        """bound_ms: the f32 CUDA-core bound; bound_3xtf32_ms: three TF32
+        products' worth of the same FLOPs over the TF32 peak (or the bytes,
+        if larger), as every kernel multiplies on the tensor cores in
+        3xTF32."""
         t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_RATE
         gflop[name] = flops / 1e9
         results.append({
@@ -240,10 +239,8 @@ def check_kernels(device):
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None})
-        if tensor_cores:
-            results[-1]["bound_3xtf32_ms"] = 1e3 * max(
-                3 * flops / TF32_PEAK, t_bytes)
+            "library_ms": None,
+            "bound_3xtf32_ms": 1e3 * max(3 * flops / TF32_PEAK, t_bytes)})
 
     # K1-fwd: f32 dots of width <= 257 summed in another order than cuBLAS
     out_k, grad_k = GK.launch_forward(cfg, x, ws, bs)
@@ -268,7 +265,7 @@ def check_kernels(device):
           max(e_out, e_g),
           cuda_ms(lambda: GK.launch_forward(cfg, x, ws, bs), 10),
           cuda_ms(lambda: plain_fwd(), 5),
-          N_CORE * fwd_flops, fwd_bytes, tensor_cores=True)
+          N_CORE * fwd_flops, fwd_bytes)
 
     # K1-bwd: adds weight-gradient sums over 131,072 stacked rows.  The
     # reference is the plain twin in float64: in float32 the twin's own
@@ -327,15 +324,13 @@ def check_kernels(device):
           "factored_neus_tpu/ops/pallas_geometry.py:846", e_b,
           cuda_ms(lambda: GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g),
                   5),
-          cuda_ms(plain32, 3), N_CORE * bwd_flops, bwd_bytes,
-          tensor_cores=True)
+          cuda_ms(plain32, 3), N_CORE * bwd_flops, bwd_bytes)
     entry("geometry_bwd_split",
           "factored_neus_tpu_torch/csrc/geometry_bwd.cu",
           "factored_neus_tpu/ops/pallas_geometry.py:529", e_sp,
           cuda_ms(lambda: GK.launch_backward_split(cfg, x, ws, bs, ct_out,
                                                    ct_g), 5),
-          cuda_ms(plain32, 3), N_CORE * bwd_flops, bwd_bytes,
-          tensor_cores=True)
+          cuda_ms(plain32, 3), N_CORE * bwd_flops, bwd_bytes)
     del plain32
 
     # K2: the ladder's narrowed no-grad sweeps (last layer = sdf column),
@@ -379,7 +374,7 @@ def check_kernels(device):
     entry("sdf_fwd", "factored_neus_tpu_torch/csrc/sdf_fwd.cu",
           "factored_neus_tpu/ops/pallas_sdf.py:221",
           max(big["err"], small["err"]), big["ms"], big["plain_ms"],
-          big["flops"], big["bytes"], tensor_cores=True)
+          big["flops"], big["bytes"])
     sweeps = 1 + (UP_SAMPLE_STEPS - 1)
     results[-1].update({
         f"ms_{N_SWEEP_NEW}": small["ms"],
@@ -397,8 +392,9 @@ def check_kernels(device):
           f"f32, {small['bound_3xtf32_ms']:.3f} 3xTF32")
     del k1_pack
 
-    # K3-fwd: the radiance MLP of the same N points, f32 dots of width
-    # <= 289 summed in another order than cuBLAS
+    # K3-fwd: the radiance MLP of the same N points on the tensor cores
+    # (3xTF32), f32-accurate dots of width <= 289 summed in another order
+    # than cuBLAS; on the pack a step builds once for K3-fwd and K3-bwd
     rcfg = RenderingConfig()                            # 289 -> 4 x 256 -> 3
     rnet = RenderingNetwork(rcfg, torch.Generator().manual_seed(0)).to(
         device)
@@ -411,7 +407,8 @@ def check_kernels(device):
            torch.randn(N_CORE, d_feat, device=device, generator=gen) * 0.5]
     rS = sum(w.numel() for w in rws)                   # 271,360
     rwbytes = 4 * sum(w.numel() + b.numel() for w, b in zip(rws, rbs))
-    rgb_k = RK.launch_forward(rcfg, rws, rbs, *rin)
+    rpack = TP.pack_weights(rws)
+    rgb_k = RK.launch_forward(rcfg, rws, rbs, *rin, pack=rpack)
     with torch.no_grad():
         rgb_p = RK.radiance_plain(rws, rbs, rcfg, *rin)
     torch.cuda.synchronize()
@@ -420,15 +417,22 @@ def check_kernels(device):
           f"reordered f32 sums of <= 289 terms)")
     if r_r > 1.0 or not torch.isfinite(rgb_k).all():
         raise AssertionError("K3-fwd disagrees with its plain twin")
+    same = torch.equal(rgb_k, RK.launch_forward(rcfg, rws, rbs, *rin,
+                                                pack=rpack))
+    print(f"K3-fwd  two launches bitwise equal: {same}")
+    if not same:
+        raise AssertionError("K3-fwd is not deterministic")
 
     def plain_rad():
         with torch.no_grad():
             RK.radiance_plain(rws, rbs, rcfg, *rin)
     entry("radiance_fwd", "factored_neus_tpu_torch/csrc/radiance_fwd.cu",
           "factored_neus_tpu/ops/pallas_radiance.py:209", e_r,
-          cuda_ms(lambda: RK.launch_forward(rcfg, rws, rbs, *rin), 10),
+          cuda_ms(lambda: RK.launch_forward(rcfg, rws, rbs, *rin,
+                                            pack=rpack), 10),
           cuda_ms(plain_rad, 10), N_CORE * 2 * rS,
           N_CORE * 4 * (9 + d_feat + 3) + rwbytes)
+    results[-1]["pack_ms"] = cuda_ms(lambda: TP.pack_weights(rws), 10)
 
     # K3-bwd: dW and db sum 65,536 rows; against the f64 twin as K1-bwd,
     # with the ReLU masks of the kernel's own forward, held against the f32
@@ -471,20 +475,21 @@ def check_kernels(device):
     e_rb = check_vjp(f"K3-bwd  N={N_CORE}", [*rcts, *rdws, *rdbs], ref64,
                      ref32, rnames)
     del ref32, ref64
-    again = RK.launch_backward(rcfg, rws, rbs, *rin, ct_rgb)
+    # the second launch on K3-fwd's pack, as in a step
+    again = RK.launch_backward(rcfg, rws, rbs, *rin, ct_rgb, pack=rpack)
     same = all(torch.equal(a, b) for a, b in zip(
         [*rcts, *rdws, *rdbs], [*again[:4], *again[4], *again[5]]))
-    print(f"K3-bwd  two launches bitwise equal: {same}")
+    print(f"K3-bwd  two launches (its own pack, K3-fwd's) bitwise equal: "
+          f"{same}")
     if not same:
         raise AssertionError("K3-bwd is not deterministic")
-    del again
+    del again, rpack
     entry("radiance_bwd", "factored_neus_tpu_torch/csrc/radiance_bwd.cu",
           "factored_neus_tpu/ops/pallas_radiance.py:227", e_rb,
           cuda_ms(lambda: RK.launch_backward(rcfg, rws, rbs, *rin, ct_rgb),
                   5),
           cuda_ms(rplain32, 5), N_CORE * 6 * rS,
-          N_CORE * 4 * (2 * (9 + d_feat) + 3) + 2 * rwbytes,
-          tensor_cores=True)
+          N_CORE * 4 * (2 * (9 + d_feat) + 3) + 2 * rwbytes)
     del rplain32
 
     # K1-fwd-stash: K1-fwd's exact (out, grad) plus the bf16 stash; an
@@ -516,7 +521,7 @@ def check_kernels(device):
           "factored_neus_tpu/ops/pallas_geometry.py:764", max(e_out, e_g),
           cuda_ms(lambda: GK.launch_forward_stash(cfg, x, ws, bs), 10),
           cuda_ms(plain_fwd_stash, 5), N_CORE * fwd_flops,
-          fwd_bytes + stash_bytes, tensor_cores=True)
+          fwd_bytes + stash_bytes)
 
     # K1-bwd-stash: the kernel's own stash fed to both; the f64 twin
     # computes from the same bf16 values
@@ -542,18 +547,17 @@ def check_kernels(device):
           cuda_ms(lambda: GK.launch_backward_stash(cfg, x, ws, st_k, ct_out,
                                                    ct_g), 5),
           cuda_ms(splain32, 3),
-          N_CORE * (bwd_flops - 2 * (S - s_last)), bwd_bytes + stash_bytes,
-          tensor_cores=True)
+          N_CORE * (bwd_flops - 2 * (S - s_last)), bwd_bytes + stash_bytes)
     del splain32, st_k
 
     for r in results:
-        tc = r.get("bound_3xtf32_ms")
-        tc_text = (f"; 3xTF32 tensor-core bound {tc:.3f} ms "
-                   f"({100 * tc / r['ms']:.1f}% of it)" if tc else "")
+        tc = r["bound_3xtf32_ms"]
         print(f"  {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} "
               f"ms) for {gflop[r['name']]:.1f} GFLOP, f32 bound "
               f"{r['bound_ms']:.3f} ms by {r['bound_by']} "
-              f"({100 * r['bound_ms'] / r['ms']:.1f}% of it){tc_text}")
+              f"({100 * r['bound_ms'] / r['ms']:.1f}% of it); 3xTF32 "
+              f"tensor-core bound {tc:.3f} ms ({100 * tc / r['ms']:.1f}% of "
+              f"it)")
     return results
 
 

@@ -11,7 +11,7 @@
 // weight gradient and input cotangent of every layer) against ~2 KB moved
 // per row.  Every product runs on the tensor cores in 3xTF32 (tc_mma.cuh:
 // the forward X W^T and the input cotangents R W with the weights staged
-// by cp.async from one pack built per call, pre-split into TF32 big and
+// by cp.async from the step's one K3 pack, pre-split into TF32 big and
 // small halves; the weight gradients X^T R from the two tiles in shared
 // memory), so the least time is three TF32 products' worth of those FLOPs
 // over 495 TFLOP/s.  A persistent block (12 warps, one per SM) walks
@@ -70,7 +70,7 @@ radiance_bwd_kernel(TcDims d, int squeeze, const float* __restrict__ pts,
     const int pad = d.kp[0] - K0;
     for (int idx = tid; idx < TC_TILE * pad; idx += TC_THREADS)
       A[(idx / pad) * ld + K0 + idx % pad] = 0.f;
-    build_x0<TC_THREADS>(d, ld, row0, pts, nrm, dirs, feat, A);
+    build_x0(d, ld, row0, pts, nrm, dirs, feat, A);
   };
 
   bool first = true;

@@ -7,75 +7,99 @@
 //
 // Bound: operations.  At full width a row costs 2 x 271,360 FLOPs (layers
 // 289->256, 3 x 256->256, 256->3) against 1,036 bytes in (the 256-d
-// feature dominates) and 12 out.  The design is sdf_mlp.cuh's tile_mm on
-// the CUDA cores: one 64-row tile per block, its activations in shared
-// memory through the whole layer chain, weight rows streamed from L2 with
-// __ldg (1.09 MB of f32 weights do not fit in shared memory).  The first layer's 289-wide input has its own
-// stride so the hidden buffers stay 256 wide; nothing is padded in memory.
+// feature dominates) and 12 out.  Every product runs on the tensor cores
+// in 3xTF32 (tc_mma.cuh), so the least time is three TF32 products' worth
+// of those FLOPs over 495 TFLOP/s.  The design is K2's (sdf_fwd.cu) with
+// K3-bwd's forward half inside it: persistent blocks, one per SM, walk
+// 64-row tiles; a tile's activations stay in shared memory through the
+// whole layer chain while the W^T blocks of the weight pack (built once a
+// step and shared with K3-bwd, pre-split into TF32 big and small halves)
+// are staged slice by slice into the ring by cp.async.  No scratch.
+// K3-bwd's argument layout and shared-memory count: two tiles of 64 x 300
+// floats (ld = the 289-wide first input rounded to 8, plus 4), 153,600 B,
+// and the ring sized for the pack's widest block (W0 at stride 296),
+// 75,776 B: 229,376 B of the 232,448 a block may use.
 #include "radiance_mlp.cuh"
 
-__global__ void __launch_bounds__(SDF_THREADS, 1)
-radiance_fwd_kernel(SdfDims d, int ld0, int squeeze,
-                    const float* __restrict__ pts,
+__global__ void __launch_bounds__(TC_THREADS, 1)
+radiance_fwd_kernel(TcDims d, int squeeze, const float* __restrict__ pts,
                     const float* __restrict__ nrm,
                     const float* __restrict__ dirs,
-                    const float* __restrict__ feat, float* out) {
-  extern __shared__ float smem[];
+                    const float* __restrict__ feat, float* out,
+                    int n_tiles) {
+  extern __shared__ __align__(16) float smem[];
   const int ld = d.ld;
-  float* X0 = smem;                      // [64][ld0] first layer's input
-  float* X = X0 + SDF_TILE * ld0;        // [64][ld]  hidden activations
-  float* Y = X + SDF_TILE * ld;          // [64][ld]  product output
+  float* A = smem;                      // [64][ld] layer input
+  float* Y = A + TC_TILE * ld;          // [64][ld] product
+  float* ring = Y + TC_TILE * ld;       // two weight-slice stages
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * SDF_TILE;
-  build_x0<SDF_THREADS>(d, ld0, row0, pts, nrm, dirs, feat, X0);
-  for (int l = 0; l < d.L; ++l) {
-    const float* xin = l == 0 ? X0 : X;
-    const int ldx = l == 0 ? ld0 : ld;
-    const int K = d.ins[l], N = d.outs[l];
-    SDF_TN_DISPATCH(N, tile_mm<TN>(xin, ldx, K, d.wT[l], N, N, Y, ld));
-    __syncthreads();
-    const float* bias = d.b[l];
-    if (l + 1 < d.L) {
-      for (int idx = tid; idx < SDF_TILE * N; idx += SDF_THREADS) {
+  const int lL = d.L - 1;
+  const int K0 = d.ins[0], pad = d.kp[0] - K0;
+
+  // the products read padding columns, which must be finite
+  for (int i = tid; i < 2 * TC_TILE * ld; i += TC_THREADS) smem[i] = 0.f;
+  __syncthreads();
+
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int row0 = t * TC_TILE;
+    // x0 into A; its padding columns [K0, kp0) zero, as the first layer's
+    // product reads them
+    for (int idx = tid; idx < TC_TILE * pad; idx += TC_THREADS)
+      A[(idx / pad) * ld + K0 + idx % pad] = 0.f;
+    build_x0(d, ld, row0, pts, nrm, dirs, feat, A);
+
+    // hidden layers: h_{l+1} = relu(h_l W_l^T + b_l), back into A
+    for (int l = 0; l < lL; ++l) {
+      const int N = d.outs[l];
+      tc_product<2>(d, A, ld, d.kp[l], d.fwd_off[l], d.fwd_st[l], d.np[l],
+                    Y, ld, ring);
+      __syncthreads();
+      const float* bias = d.b[l];
+      for (int idx = tid; idx < TC_TILE * N; idx += TC_THREADS) {
         const int r = idx / N, c = idx - r * N;
-        X[r * ld + c] = fmaxf(Y[r * ld + c] + __ldg(bias + c), 0.f);
+        A[r * ld + c] = fmaxf(Y[r * ld + c] + __ldg(bias + c), 0.f);
       }
-    } else {
-      for (int idx = tid; idx < SDF_TILE * N; idx += SDF_THREADS) {
-        const int r = idx / N, c = idx - r * N;
-        const int row = row0 + r;
-        const float a = Y[r * ld + c] + __ldg(bias + c);
-        if (row < d.n)
-          out[(size_t)row * N + c] = squeeze ? 1.f / (1.f + expf(-a)) : a;
+      __syncthreads();
+    }
+
+    // last layer -> rgb, through the sigmoid with squeeze_out
+    const int N = d.outs[lL];
+    tc_product<2>(d, A, ld, d.kp[lL], d.fwd_off[lL], d.fwd_st[lL], d.np[lL],
+                  Y, ld, ring);
+    __syncthreads();
+    for (int idx = tid; idx < TC_TILE * N; idx += TC_THREADS) {
+      const int r = idx / N, c = idx - r * N;
+      const int row = row0 + r;
+      if (row < d.n) {
+        const float a = Y[r * ld + c] + __ldg(d.b[lL] + c);
+        out[(size_t)row * N + c] = squeeze ? 1.f / (1.f + expf(-a)) : a;
       }
     }
     __syncthreads();
   }
 }
 
-// Integer arguments: [L, multires, d_view, ld, squeeze_out, n, (unused),
-// ins[L], outs[L]].  Pointers: [pts, normals, dirs, feat, rgb, wT[L],
-// b[L]].  Returns a cudaError_t value; 0 when the launch was accepted.
+// Integer arguments: rad_tc_dims_from_args' (K3-bwd's).  Pointers: [pts,
+// normals, dirs, feat, rgb, pack, b[L]].  Returns a cudaError_t value; 0
+// when the launch was accepted.
 extern "C" int radiance_fwd(const int* ia, const unsigned long long* p,
                             float scale, unsigned long long stream) {
   (void)scale;
-  SdfDims d;
-  int ld0, squeeze;
-  int rc = rad_dims_from_args(ia, &d, &ld0, &squeeze);
+  TcDims d;
+  int squeeze;
+  int rc = rad_tc_dims_from_args(ia, (const float*)p[5], &d, &squeeze);
   if (rc) return rc;
-  const int L = d.L;
-  for (int l = 0; l < L; ++l) {
-    d.wT[l] = (const float*)p[5 + l];
-    d.b[l] = (const float*)p[5 + L + l];
-  }
-  const int n_tiles = (d.n + SDF_TILE - 1) / SDF_TILE;
-  const size_t smem = (size_t)SDF_TILE * (ld0 + 2 * d.ld) * sizeof(float);
+  for (int l = 0; l < d.L; ++l) d.b[l] = (const float*)p[6 + l];
+  const int grid = ia[6];
+  const int n_tiles = (d.n + TC_TILE - 1) / TC_TILE;
+  const size_t smem = tc_smem_bytes(d, (size_t)2 * TC_TILE * d.ld);
+  if (!smem || grid < 1) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       radiance_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  radiance_fwd_kernel<<<n_tiles, SDF_THREADS, smem, (cudaStream_t)stream>>>(
-      d, ld0, squeeze, (const float*)p[0], (const float*)p[1],
-      (const float*)p[2], (const float*)p[3], (float*)p[4]);
+  radiance_fwd_kernel<<<grid, TC_THREADS, smem, (cudaStream_t)stream>>>(
+      d, squeeze, (const float*)p[0], (const float*)p[1],
+      (const float*)p[2], (const float*)p[3], (float*)p[4], n_tiles);
   return (int)cudaGetLastError();
 }

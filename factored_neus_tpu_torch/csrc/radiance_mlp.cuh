@@ -1,49 +1,18 @@
 // Shared device code of the radiance-MLP kernels (K3 forward and backward):
-// their argument layouts and the first layer's input row
+// their one argument layout and the first layer's input row
 // [pts (3) | PE(dirs) (d_view) | normals (3) | feature (d_feat)] of the IDR
-// RenderingNetwork.  K3-fwd's products are sdf_mlp.cuh's tile_mm (f32 CUDA
-// cores); K3-bwd's run on the tensor cores (tc_mma.cuh).
+// RenderingNetwork.  Both run their products on the tensor cores
+// (tc_mma.cuh) from one weight pack.
 #pragma once
 
 #include "sdf_mlp.cuh"
 #include "tc_mma.cuh"
 
-#define RAD_MAXW0 320        // widest first-layer input the kernels take
-
-// Unpacks [L, multires, d_view, ld, squeeze_out, n, grid, ins[L], outs[L]]
-// (ops/radiance_kernel.py) into SdfDims (skip_mask 0, scale 1) and the
-// first layer's shared-memory stride *ld0.  Returns 0, or
-// cudaErrorInvalidValue for a network these kernels cannot run.
-static inline int rad_dims_from_args(const int* ia, SdfDims* d, int* ld0,
-                                     int* squeeze) {
-  d->L = ia[0];
-  d->multires = ia[1];
-  d->d_embed = ia[2];
-  d->ld = ia[3];
-  *squeeze = ia[4];
-  d->skip_mask = 0;
-  d->n = ia[5];
-  d->scale = 1.f;
-  if (d->L < 2 || d->L > SDF_MAXL || d->ld > SDF_MAXW ||
-      d->d_embed != 3 * (1 + 2 * d->multires))
-    return (int)cudaErrorInvalidValue;
-  for (int l = 0; l < d->L; ++l) {
-    d->ins[l] = ia[7 + l];
-    d->outs[l] = ia[7 + d->L + l];
-    if (d->outs[l] > d->ld || (l > 0 && d->ins[l] != d->outs[l - 1]))
-      return (int)cudaErrorInvalidValue;
-  }
-  if (d->ins[0] > RAD_MAXW0 || d->ins[0] <= 6 + d->d_embed)
-    return (int)cudaErrorInvalidValue;
-  *ld0 = (d->ins[0] + 3) / 4 * 4;
-  return 0;
-}
-
-// K3-bwd's arguments [L, multires, d_view, ld, squeeze_out, n, grid,
-// ins[L], outs[L], then the pack's layout] (ops/radiance_kernel.
-// bwd_kernel_iargs) into TcDims: no skip, scale 1, d_embed = d_view.  The
-// first layer's input may be as wide as the row stride ld: a product's
-// depth is unbounded, and its input cotangent runs in products of at most
+// K3's arguments [L, multires, d_view, ld, squeeze_out, n, grid, ins[L],
+// outs[L], then the pack's layout] (ops/radiance_kernel.kernel_iargs)
+// into TcDims: no skip, scale 1, d_embed = d_view.  The first layer's
+// input may be as wide as the row stride ld: a product's depth is
+// unbounded, and K3-bwd runs its input cotangent in products of at most
 // 256 columns, the second of which stages whole rows from 256 columns into
 // the block, past its end into the next block of the pack.  So only the
 // first layer's input, whose W block another block follows, may be wider
@@ -75,10 +44,9 @@ static inline int rad_tc_dims_from_args(const int* ia, const float* pack,
 }
 
 // Writes the first layer's input of the tile's 64 rows to X0 (stride ld0)
-// with THREADS threads; rows past n are zero apart from the encoding's
-// cosines.  Ends with a barrier.
-template <int THREADS, class Dims>
-__device__ __forceinline__ void build_x0(const Dims& d, int ld0, int row0,
+// with the block's threads; rows past n are zero apart from the
+// encoding's cosines.  Ends with a barrier.
+__device__ __forceinline__ void build_x0(const TcDims& d, int ld0, int row0,
                                          const float* __restrict__ pts,
                                          const float* __restrict__ nrm,
                                          const float* __restrict__ dirs,
@@ -88,7 +56,7 @@ __device__ __forceinline__ void build_x0(const Dims& d, int ld0, int row0,
   const int d_view = d.d_embed;
   const int off_n = 3 + d_view, off_f = 6 + d_view;
   const int d_feat = d.ins[0] - off_f;
-  if (tid < SDF_TILE) {
+  if (tid < TC_TILE) {
     const int row = row0 + tid;
     const bool valid = row < d.n;
     float* xr = X0 + tid * ld0;
@@ -100,7 +68,7 @@ __device__ __forceinline__ void build_x0(const Dims& d, int ld0, int row0,
     }
     encode_row(u, nullptr, d.multires, xr + 3, nullptr);
   }
-  for (int idx = tid; idx < SDF_TILE * d_feat; idx += THREADS) {
+  for (int idx = tid; idx < TC_TILE * d_feat; idx += TC_THREADS) {
     const int r = idx / d_feat, c = idx - r * d_feat;
     const int row = row0 + r;
     X0[r * ld0 + off_f + c] =

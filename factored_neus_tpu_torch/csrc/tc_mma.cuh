@@ -1,8 +1,8 @@
-// Tensor-core product engine of K1 (geometry_fwd.cu, geometry_bwd.cu), K2
-// (sdf_fwd.cu) and K3-bwd (radiance_bwd.cu): the three products an MLP
-// kernel runs on a 64-row tile held in shared memory, in f32 accuracy
-// through 3xTF32 on mma.sync, with the weights staged into shared memory
-// by cp.async.
+// Tensor-core product engine of every kernel: K1 (geometry_fwd.cu,
+// geometry_bwd.cu), K2 (sdf_fwd.cu) and K3 (radiance_fwd.cu,
+// radiance_bwd.cu): the products an MLP kernel runs on a 64-row tile held
+// in shared memory, in f32 accuracy through 3xTF32 on mma.sync, with the
+// weights staged into shared memory by cp.async.
 //
 //   tc_mm   Y = X B          forward (B = W^T block) and input cotangents
 //                            (B = W block): X, Y in shared memory

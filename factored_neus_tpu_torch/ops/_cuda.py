@@ -13,11 +13,10 @@ Every exported C function has the signature
 unsigned long long stream)`` and returns a ``cudaError_t`` value: the
 wrapper raises on anything but 0, so a refused launch never passes
 silently.  Integer arguments are
-``[L, multires, d_embed, ld, skip_mask, n, grid, ins[L], outs[L]]`` (the
+``[L, multires, d_embed, ld, skip_mask, n, grid, ins[L], outs[L]]``, then
+the layout of the kernel's weight pack (``tc_pack.layout_iargs``); the
 radiance kernels, which have no skip, take squeeze_out in place of
-skip_mask; K1's go on with the layout of their weight pack,
-``geometry_kernel.kernel_iargs``); the pointer list is documented beside
-each C function.
+skip_mask.  The pointer list is documented beside each C function.
 """
 from __future__ import annotations
 

@@ -13,9 +13,10 @@ directions' through the encoding's Jacobian.  The kernels cover
 ``mode='idr'``, as the TPU kernel does; on a CUDA tensor another mode
 raises.  On a CPU tensor the wrapper runs the plain twin, in every mode.
 
-K3-fwd multiplies on the CUDA cores; K3-bwd on the tensor cores in 3xTF32
-(csrc/tc_mma.cuh), from a weight pack (tc_pack.pack_weights) built once
-per backward.
+Both kernels multiply on the tensor cores in 3xTF32 (csrc/tc_mma.cuh),
+from one weight pack (tc_pack.pack_weights) that ``RadianceFn`` builds
+once in the forward and hands to the backward; they take one argument
+layout (``kernel_iargs``) and the same shared-memory count.
 """
 from __future__ import annotations
 
@@ -32,7 +33,6 @@ from .sdf_kernel import MAX_WIDTH, TILE
 
 K3_FWD = _cuda.CudaKernel("radiance_fwd", "radiance_fwd.cu", "radiance_fwd")
 K3_BWD = _cuda.CudaKernel("radiance_bwd", "radiance_bwd.cu", "radiance_bwd")
-MAX_IN = 320            # widest first-layer input (RAD_MAXW0 in the kernels)
 
 
 def radiance_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
@@ -56,10 +56,15 @@ def radiance_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
     return torch.sigmoid(x) if cfg.squeeze_out else x
 
 
-def kernel_iargs(cfg, ws, n: int, grid: int) -> Tuple[List[int], int]:
+MAX_HIDDEN = 256    # widest hidden layer the kernels take (radiance_mlp.cuh)
+
+
+def kernel_iargs(cfg, ws, n: int, grid: int, lay: TP.PackLayout
+                 ) -> Tuple[List[int], int]:
     """The kernels' integer arguments [L, multires, d_view, ld,
-    squeeze_out, n, grid, ins[L], outs[L]] and the hidden stride ld,
-    checked against the shapes the kernels can run."""
+    squeeze_out, n, grid, ins[L], outs[L], then the pack's layout] and the
+    row stride ld, the widest layer rounded up to 8, plus 4; raises for a
+    network the kernels cannot hold."""
     ins = [int(w.shape[1]) for w in ws]
     outs = [int(w.shape[0]) for w in ws]
     d_view = cfg.d_view
@@ -69,42 +74,23 @@ def kernel_iargs(cfg, ws, n: int, grid: int) -> Tuple[List[int], int]:
     for l in range(1, len(ws)):
         if ins[l] != outs[l - 1]:
             raise ValueError(f"layer {l}: input {ins[l]} != {outs[l - 1]}")
-    ld = int(math.ceil(max(outs) / 4.0) * 4)
-    if ld > MAX_WIDTH or ins[0] > MAX_IN:
-        raise ValueError(f"radiance kernels take widths <= {MAX_WIDTH} and "
-                         f"a first layer input <= {MAX_IN}")
-    iargs = [len(ws), cfg.multires_view, d_view, ld, int(cfg.squeeze_out),
-             n, grid, *ins, *outs]
-    return iargs, ld
-
-
-BWD_MAX_HIDDEN = 256     # widest hidden layer K3-bwd takes (radiance_mlp.cuh)
-
-
-def bwd_kernel_iargs(cfg, ws, n: int, grid: int, lay: TP.PackLayout
-                     ) -> Tuple[List[int], int]:
-    """K3-bwd's integer arguments [L, multires, d_view, ld, squeeze_out, n,
-    grid, ins[L], outs[L], then the pack's layout] and its row stride ld,
-    the widest layer rounded up to 8, plus 4; raises for a network K3-bwd
-    cannot hold."""
-    iargs, _ = kernel_iargs(cfg, ws, n, grid)
-    L = len(ws)
-    ins, outs = iargs[7:7 + L], iargs[7 + L:7 + 2 * L]
     if lay != TP.pack_layout(ins, outs):
-        raise ValueError("K3-bwd: the pack's layout is not the network's")
-    if max(ins[1:]) > BWD_MAX_HIDDEN:
-        raise ValueError(f"K3-bwd takes hidden widths <= {BWD_MAX_HIDDEN}")
+        raise ValueError("radiance kernels: the pack's layout is not the "
+                         "network's")
+    if max(ins[1:]) > MAX_HIDDEN or outs[-1] > MAX_WIDTH:
+        raise ValueError(f"radiance kernels take hidden widths <= "
+                         f"{MAX_HIDDEN} and outputs <= {MAX_WIDTH}")
     ld = TP.round8(max(ins + outs)) + 4
-    if bwd_smem_bytes(lay, outs, ld) > TP.SMEM_MAX:
-        raise ValueError("K3-bwd: the network's tiles and weight ring do "
-                         "not fit in shared memory")
-    iargs[3] = ld
-    return iargs + TP.layout_iargs(lay), ld
+    if smem_bytes(lay, outs, ld) > TP.SMEM_MAX:
+        raise ValueError("radiance kernels: the network's tiles and weight "
+                         "ring do not fit in shared memory")
+    return [len(ws), cfg.multires_view, d_view, ld, int(cfg.squeeze_out), n,
+            grid, *ins, *outs, *TP.layout_iargs(lay)], ld
 
 
-def bwd_smem_bytes(lay: TP.PackLayout, outs, ld: int) -> int:
-    """K3-bwd's shared memory: two tiles of stride ld and the weight ring
-    (no tile of its own for x0)."""
+def smem_bytes(lay: TP.PackLayout, outs, ld: int) -> int:
+    """Shared memory of K3-fwd and K3-bwd alike: two tiles of stride ld and
+    the weight ring (no tile of its own for x0)."""
     return TP.smem_bytes(lay, outs, 2 * TILE * ld)
 
 
@@ -119,38 +105,41 @@ def _inputs(name, pts, normals, dirs, feat):
     return t
 
 
-def launch_forward(cfg, ws, bs, pts, normals, dirs, feat) -> torch.Tensor:
-    """K3-fwd: rgb [N, d_out]."""
+def launch_forward(cfg, ws, bs, pts, normals, dirs, feat, pack=None
+                   ) -> torch.Tensor:
+    """K3-fwd: rgb [N, d_out]; ``pack``: TP.pack_weights(ws), when the
+    caller already has it."""
     dev = pts.device
     pts, normals, dirs, feat = _inputs("radiance forward", pts, normals,
                                        dirs, feat)
-    wT = [w.detach().t().contiguous() for w in ws]
     bs = [b.detach().contiguous() for b in bs]
+    pack, lay = pack if pack is not None else TP.pack_weights(ws)
     _cuda.check_cuda_tensors("radiance forward",
-                             [pts, normals, dirs, feat, *wT, *bs])
+                             [pts, normals, dirs, feat, pack, *bs])
     n = pts.shape[0]
     out = torch.empty(n, ws[-1].shape[0], device=dev, dtype=torch.float32)
     if n > 0:
-        iargs, _ = kernel_iargs(cfg, ws, n, 0)
-        K3_FWD.launch(iargs, [pts, normals, dirs, feat, out, *wT, *bs], 1.0,
+        grid = min(math.ceil(n / TILE), _cuda.sm_count(dev))
+        iargs, _ = kernel_iargs(cfg, ws, n, grid, lay)
+        K3_FWD.launch(iargs, [pts, normals, dirs, feat, out, pack, *bs], 1.0,
                       dev)
     return out
 
 
 def launch_backward(cfg, ws, bs, pts, normals, dirs, feat, ct_rgb,
-                    scratch=None):
+                    scratch=None, pack=None):
     """K3-bwd: (ct_pts, ct_normals, ct_dirs, ct_feat, dW per layer
     [out, in], db per layer [out]).  ``scratch``: the kernel's per-block
     buffer [grid, L - 1, TILE, ld] (grid = min(tiles, SMs), ld from
-    bwd_kernel_iargs), where each block leaves h = relu(a) of the hidden
-    layers of the last tile it took; a fresh one when None."""
+    kernel_iargs), where each block leaves h = relu(a) of the hidden
+    layers of the last tile it took; a fresh one when None.  ``pack``:
+    TP.pack_weights(ws), when the caller already has it."""
     dev = pts.device
     pts, normals, dirs, feat = _inputs("radiance backward", pts, normals,
                                        dirs, feat)
     bs = [b.detach().contiguous() for b in bs]
     ct_rgb = ct_rgb.contiguous()
-    with torch.no_grad():
-        pack, lay = TP.pack_weights(ws)
+    pack, lay = pack if pack is not None else TP.pack_weights(ws)
     _cuda.check_cuda_tensors("radiance backward", [pts, normals, dirs, feat,
                                                    ct_rgb, pack, *bs])
     n, L = pts.shape[0], len(ws)
@@ -161,7 +150,7 @@ def launch_backward(cfg, ws, bs, pts, normals, dirs, feat, ct_rgb,
     grads = torch.zeros(P, device=dev, dtype=torch.float32)
     if n > 0:
         grid = min(math.ceil(n / TILE), _cuda.sm_count(dev))
-        iargs, ld = bwd_kernel_iargs(cfg, ws, n, grid, lay)
+        iargs, ld = kernel_iargs(cfg, ws, n, grid, lay)
         shape = (grid, L - 1, TILE, ld)
         if scratch is None:
             scratch = torch.empty(shape, device=dev, dtype=torch.float32)
@@ -182,23 +171,25 @@ def launch_backward(cfg, ws, bs, pts, normals, dirs, feat, ct_rgb,
 
 class RadianceFn(torch.autograd.Function):
     """(pts, normals, dirs, feat, *ws, *bs) -> rgb through K3-fwd; backward
-    through K3-bwd."""
+    through K3-bwd, on the weight pack the forward built."""
 
     @staticmethod
     def forward(ctx, cfg, pts, normals, dirs, feat, *params):
         L = len(params) // 2
-        ctx.cfg = cfg
-        ctx.save_for_backward(pts, normals, dirs, feat, *params)
+        pack = TP.pack_weights(params[:L])
+        ctx.cfg, ctx.layout = cfg, pack[1]
+        ctx.save_for_backward(pts, normals, dirs, feat, pack[0], *params)
         return launch_forward(cfg, params[:L], params[L:], pts, normals,
-                              dirs, feat)
+                              dirs, feat, pack)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, ct_rgb):
-        pts, normals, dirs, feat, *params = ctx.saved_tensors
+        pts, normals, dirs, feat, pack, *params = ctx.saved_tensors
         L = len(params) // 2
         *cts, dws, dbs = launch_backward(ctx.cfg, params[:L], params[L:],
-                                         pts, normals, dirs, feat, ct_rgb)
+                                         pts, normals, dirs, feat, ct_rgb,
+                                         pack=(pack, ctx.layout))
         grads = [None, *cts, *dws, *dbs]
         return tuple(g if need else None
                      for g, need in zip(grads, ctx.needs_input_grad))

@@ -1,6 +1,6 @@
 """The weight pack and the arithmetic of the tensor-core kernels
 (csrc/tc_mma.cuh): K1 (ops/geometry_kernel.py), K2 (ops/sdf_kernel.py) and
-K3-bwd (ops/radiance_kernel.py) multiply in 3xTF32 on ``mma.sync``.
+K3 (ops/radiance_kernel.py) multiply in 3xTF32 on ``mma.sync``.
 
 ``pack_weights`` lays every layer's weight out once in the form the kernels
 stage into shared memory, already split into TF32 big and small halves;

@@ -437,6 +437,51 @@ def test_k3_bwd_is_deterministic(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [65536, 9001])
+def test_k3_fwd_full_width_matches_twin(cuda_device, n):
+    """K3-fwd (tensor cores, 3xTF32) at full width within 1e-5 abs of its
+    f32 twin: the step's 65,536 rows, and 9,001 that take the persistent
+    blocks over several tiles, the last one ragged."""
+    cfg, net, inputs = _rad((256, 256, 4, 4, n), cuda_device)
+    with torch.no_grad():
+        ws, bs = net.effective_weights()
+        want = RK.radiance_plain(ws, bs, cfg, *inputs)
+    got = RK.launch_forward(cfg, ws, bs, *inputs)
+    assert got.shape == (n, 3)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_k3_fwd_is_deterministic(cuda_device):
+    """Two K3-fwd launches, one on a pack built beforehand and one packing
+    on its own, give the same bits."""
+    cfg, net, inputs = _rad(RAD_RAGGED, cuda_device)
+    with torch.no_grad():
+        ws, bs = net.effective_weights()
+    a = RK.launch_forward(cfg, ws, bs, *inputs, pack=TP.pack_weights(ws))
+    b = RK.launch_forward(cfg, ws, bs, *inputs)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_k3_bwd_on_the_forwards_pack_matches_its_own(cuda_device):
+    """K3-bwd handed the pack K3-fwd read (as RadianceFn does) gives the
+    bits of K3-bwd packing on its own."""
+    cfg, net, inputs = _rad(RAD_RAGGED, cuda_device)
+    with torch.no_grad():
+        ws, bs = net.effective_weights()
+    pack = TP.pack_weights(ws)
+    RK.launch_forward(cfg, ws, bs, *inputs, pack=pack)
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    ct = torch.randn(inputs[0].shape[0], cfg.d_out, device=cuda_device,
+                     generator=gen)
+    a = RK.launch_backward(cfg, ws, bs, *inputs, ct, pack=pack)
+    b = RK.launch_backward(cfg, ws, bs, *inputs, ct)
+    for u, v in zip([*a[:4], *a[4], *a[5]], [*b[:4], *b[4], *b[5]]):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n", [8192, 32768, 9001])
 def test_k2_sweep_shapes_match_twin(cuda_device, n):
     """K2 at the ladder's two sweep shapes (512 rays x 16 and x 64

@@ -16,6 +16,7 @@ from factored_neus_tpu.ops import pallas_radiance as PR
 from factored_neus_tpu_torch import bridge
 from factored_neus_tpu_torch.models import fields as TF
 from factored_neus_tpu_torch.ops import radiance_kernel as RK
+from factored_neus_tpu_torch.ops import tc_pack as TP
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -104,13 +105,17 @@ def test_cpu_path_launches_no_kernel():
 
 
 def test_kernel_arguments_describe_the_network():
-    """The integer arguments handed to the kernels, at full width."""
+    """The integer arguments handed to both kernels, at full width: the
+    row stride 300 (289 rounded to 8, plus 4), then the pack's layout."""
     net = TF.RenderingNetwork(TF.RenderingConfig())
     ws, _ = net.effective_weights()
-    iargs, ld = RK.kernel_iargs(net.cfg, ws, n=1000, grid=7)
-    assert iargs == [5, 4, 27, 256, 1, 1000, 7,
-                     289, 256, 256, 256, 256, 256, 256, 256, 256, 3]
-    assert ld == 256
+    lay = TP.pack_layout([w.shape[1] for w in ws], [w.shape[0] for w in ws])
+    iargs, ld = RK.kernel_iargs(net.cfg, ws, n=1000, grid=7, lay=lay)
+    assert iargs == [5, 4, 27, 300, 1, 1000, 7,
+                     289, 256, 256, 256, 256, 256, 256, 256, 256, 3,
+                     *TP.layout_iargs(lay)]
+    assert ld == 300
+    wide = [torch.zeros(512, 289), torch.zeros(3, 512)]
     with pytest.raises(ValueError):
-        RK.kernel_iargs(TF.RenderingConfig(d_hidden=512), [
-            torch.zeros(512, 289), torch.zeros(3, 512)], 10, 1)
+        RK.kernel_iargs(TF.RenderingConfig(d_hidden=512), wide, 10, 1,
+                        TP.pack_layout([289, 512], [512, 3]))

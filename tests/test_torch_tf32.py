@@ -1,5 +1,5 @@
 """The arithmetic and weight layout of the tensor-core kernels (K1, K2,
-K3-bwd; csrc/tc_mma.cuh), on the CPU: the 3xTF32 emulation of
+K3; csrc/tc_mma.cuh), on the CPU: the 3xTF32 emulation of
 ops/tc_pack.py against float64 at the kernels' shapes and the card's
 tolerances, the packed weight buffers the kernels stage from, and their
 shared-memory counts."""
@@ -255,6 +255,43 @@ def _k3_backward(ws, bs, cfg, inputs, ct, mm, atb, masks=None):
              r[:, 6 + d_view:]] + dws + dbs), own
 
 
+def _k3_forward(ws, bs, cfg, inputs, mm):
+    """K3-fwd's rgb in the kernel's order of operations: x0, then per layer
+    mm(h, W^T) + b, ReLU on the hidden layers, the sigmoid last."""
+    pts, normals, dirs, feat = inputs
+    h = torch.cat([pts, positional_encoding(dirs, cfg.multires_view),
+                   normals, feat], -1)
+    for l, (w, b) in enumerate(zip(ws, bs)):
+        h = mm(h, w.t()) + b
+        if l < len(ws) - 1:
+            h = torch.relu(h)
+    return torch.sigmoid(h)
+
+
+RAD_CASES = [(RenderingConfig(), 256),                  # 289 -> 4 x 256 -> 3
+             (RenderingConfig(d_feature=64, d_hidden=64, n_layers=3), 200)]
+
+
+@pytest.mark.parametrize("case", RAD_CASES, ids=["full", "small"])
+def test_3xtf32_radiance_forward_within_k3_fwd_tolerance(case):
+    """K3-fwd's products at K3's widths in emulated 3xTF32 (ring stages of
+    16 k) against float64: rgb within K3-fwd's card tolerance of 1e-5 abs,
+    and at most a few times the float32 chain's own error."""
+    cfg, n = case
+    ws, bs, inputs, _ = _radiance(cfg, n)
+    with torch.no_grad():
+        ref = _k3_forward([w.double() for w in ws], [b.double() for b in bs],
+                          cfg, [v.double() for v in inputs],
+                          lambda a, b: a @ b)
+        f32 = _k3_forward(ws, bs, cfg, inputs, lambda a, b: a @ b)
+        tc = _k3_forward(ws, bs, cfg, inputs, TP.mm_3xtf32)
+    assert tc.shape == ref.shape == (n, cfg.d_out)
+    e_tc = float((tc.double() - ref).abs().max())
+    e_f32 = float((f32.double() - ref).abs().max())
+    assert e_tc <= 1e-5
+    assert e_tc <= 4 * e_f32 + 1e-6
+
+
 def _atb_tiles(mm):
     """X^T R summed over 64-row tiles, each tile's sum added in float32."""
     def atb(x, r):
@@ -265,10 +302,7 @@ def _atb_tiles(mm):
     return atb
 
 
-@pytest.mark.parametrize("case", [
-    (RenderingConfig(), 256),                          # 289 -> 4 x 256 -> 3
-    (RenderingConfig(d_feature=64, d_hidden=64, n_layers=3), 200)],
-    ids=["full", "small"])
+@pytest.mark.parametrize("case", RAD_CASES, ids=["full", "small"])
 def test_3xtf32_radiance_backward_within_k3_bwd_tolerance(case):
     """K3-bwd's three products at K3's widths in emulated 3xTF32 (forward
     and input cotangents in ring stages of 16 k, weight gradients in 64-row
@@ -300,10 +334,11 @@ def test_3xtf32_radiance_backward_within_k3_bwd_tolerance(case):
 
 
 def test_k3_pack_layout():
-    """K3-bwd's pack: the 289-wide first layer (W^T [296][264], W
-    [256][296]: 296 = 289 rounded to 8, already 8 mod 32), the 3-wide last
-    layer (W^T [256][8], W [8][264]), zero padding, and its layout at the
-    end of the kernel's arguments, with the row stride 300."""
+    """K3's pack, one for K3-fwd and K3-bwd: the 289-wide first layer (W^T
+    [296][264], W [256][296]: 296 = 289 rounded to 8, already 8 mod 32),
+    the 3-wide last layer (W^T [256][8], W [8][264]), zero padding, and
+    its layout at the end of the kernels' arguments, with the row stride
+    300."""
     cfg = RenderingConfig()
     ws, _, _, _ = _radiance(cfg, 1)
     pack, lay = TP.pack_weights(ws)
@@ -312,13 +347,13 @@ def test_k3_pack_layout():
     assert (lay.fwd_stride[-1], lay.rev_stride[-1]) == (8, 264)
     assert lay.rev_off[-1] - lay.fwd_off[-1] == 256 * 8
     assert lay.half - lay.rev_off[-1] == 8 * 264
-    iargs, ld = RK.bwd_kernel_iargs(cfg, ws, 1000, 7, lay)
+    iargs, ld = RK.kernel_iargs(cfg, ws, 1000, 7, lay)
     assert ld == 300 and ld % 8 == 4
     assert iargs[:7] == [5, 4, 27, 300, 1, 1000, 7]
     assert iargs[7:17] == [289, 256, 256, 256, 256, 256, 256, 256, 256, 3]
     assert iargs[17:] == TP.layout_iargs(lay)
     with pytest.raises(ValueError, match="layout"):
-        RK.bwd_kernel_iargs(cfg, ws, 1000, 7, TP.pack_layout(
+        RK.kernel_iargs(cfg, ws, 1000, 7, TP.pack_layout(
             [289, 256, 256, 256, 256], [256, 256, 256, 256, 16]))
 
 
@@ -367,8 +402,9 @@ def test_shared_memory_counts_fit_a_block():
     within the 232,448 bytes a block may use: K1-fwd 216,064 (encoding,
     two tiles at 268, ring of stride 264); K1-bwd 227,328 (four tiles);
     K2 211,968 narrowed (two tiles at 260), from its own pack or K1's;
-    K3-bwd 229,376 (two tiles at 300, ring of stride 296).  A radiance MLP
-    with 288-wide hidden layers is refused before any launch."""
+    K3-fwd and K3-bwd 229,376 (two tiles at 300, ring of stride 296).  A
+    radiance MLP with 288-wide hidden layers is refused before any
+    launch."""
     cfg = SDFConfig()
     net = SDFNetwork(cfg, torch.Generator().manual_seed(0))
     with torch.no_grad():
@@ -387,11 +423,11 @@ def test_shared_memory_counts_fit_a_block():
     rcfg = RenderingConfig()
     rws, _, _, _ = _radiance(rcfg, 1)
     _, rlay = TP.pack_weights(rws)
-    k3 = RK.bwd_smem_bytes(rlay, [w.shape[0] for w in rws], 300)
+    k3 = RK.smem_bytes(rlay, [w.shape[0] for w in rws], 300)
     assert (k1_fwd, k1_bwd, k2, k3) == (216064, 227328, [211968] * 2,
                                         229376)
     assert max(k1_fwd, k1_bwd, *k2, k3) <= TP.SMEM_MAX == 232448
     wide = RenderingConfig(d_hidden=288)
     wws, _, _, _ = _radiance(wide, 1)
     with pytest.raises(ValueError):
-        RK.bwd_kernel_iargs(wide, wws, 100, 1, TP.pack_weights(wws)[1])
+        RK.kernel_iargs(wide, wws, 100, 1, TP.pack_weights(wws)[1])

@@ -11,18 +11,20 @@ as chip_smoke.py).  K1-bwd (stacked):
 - ``no_weight_grad``: without the weight-gradient products X^T R and their
   read-modify-write of the per-block partial slice;
 - ``no_slice_traffic``: with the products but without the slice's copies
-  between device and shared memory (tensor-core kernel only);
+  between device and shared memory;
 - ``no_input_cot``: without the input-cotangent products R W^T;
 - ``no_forward``: without the stacked forward products X W;
 - ``no_products``: without all three (what is left: encoding, elementwise
   work, scratch traffic, bias sums, barriers).
-K1-fwd: ``all`` and ``no_products`` (tensor-core kernel only).
-A cut copy computes garbage: only its time is read.  The kernels are
-called through DIR's own wrappers (ops/geometry_kernel.launch_backward,
-launch_forward), so DIR may hold another version of the port, e.g. a
-parent commit unpacked with ``git archive``; a phase whose code the
-version does not have is reported as not applicable.  ``all`` is timed
-first and last, as a measure of the spread.  Prints one line per phase,
+K1-fwd: ``all`` and ``no_products``.  The cuts match the tensor-core
+kernels (tc_mma.cuh's products).  A cut copy computes garbage: only its
+time is read.  The kernels are called through DIR's own wrappers
+(ops/geometry_kernel.launch_backward, launch_forward), so DIR may hold
+another version of the port, e.g. a parent commit unpacked with ``git
+archive``; a phase whose code the version does not have (a version whose
+K1 multiplies on the CUDA cores has none but ``all``) is reported as not
+applicable.  ``all`` is timed first and last, as a measure of the
+spread.  Prints one line per phase,
 the card's name and power limit, and a JSON summary.
 """
 import ctypes
@@ -37,17 +39,11 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(HERE, "build", "phases")
 N_CORE = 512 * 128
 BWD, FWD = "geometry_bwd.cu", "geometry_fwd.cu"
-WG = [(BWD, r"SDF_TN_DISPATCH\(N, \(chains_atb<TN, MODE>\(.*?\)\)\);"),
-      (BWD, r"\n\s*tc_weight_grad\(.*?\);")]
-IC = [(BWD, r"SDF_TN_DISPATCH\(K, \(chains_mm<TN, MODE>\(R, ld, N, "
-            r"d\.wt\[l\], K, A, ld\)\)\);"),
-      (BWD, r"\n\s*bwd_input_cot<MODE>\(.*?\);")]
-FW = [(BWD, r"SDF_TN_DISPATCH\(N, \(chains_mm<TN, MODE>\(xin, ldx, K, "
-            r"d\.wT\[l\], N, R,\s*ld\)\)\);"),
-      (BWD, r"\n\s*bwd_forward<MODE>\(.*?\);")]
+WG = [(BWD, r"\n\s*tc_weight_grad\(.*?\);")]
+IC = [(BWD, r"\n\s*bwd_input_cot<MODE>\(.*?\);")]
+FW = [(BWD, r"\n\s*bwd_forward<MODE>\(.*?\);")]
 # (kernel source, phase): (file, regular expression) pairs whose matches are
-# cut; alternatives cover the CUDA-core kernels (tile_mm / tile_atb) and
-# the tensor-core ones (tc_mma.cuh); at least one must match
+# cut (the tensor-core kernels of tc_mma.cuh); at least one must match
 CUTS = {
     (BWD, "all"): [],
     (BWD, "no_weight_grad"): WG,
