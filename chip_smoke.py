@@ -12,7 +12,9 @@
    forward's only within rounding of 0), checks that two K1-bwd, two
    K3-fwd and two K3-bwd launches agree bit for bit, and times each kernel
    and twin with CUDA events (K3-fwd on the weight pack it shares with
-   K3-bwd in a step, the pack's own time beside it);
+   K3-bwd in a step, the pack's own time beside it); then K1-fwd, K3-fwd
+   and K2 again at a validation chunk's shapes (262,144 and 131,072
+   rows);
 4. runs one full-width stage-1 step of confs/wmask.conf and one of
    confs/womask.conf (background NeRF) on the card (kernels) and the same
    steps on the CPU (twins), and compares the loss and every parameter
@@ -24,6 +26,14 @@
    (--mode validate_mesh --is_continue; the grid fill on K2), counters at
    0 just before, checks it, and holds a 64^3 grid filled on the card
    against the CPU twin's;
+   then renders view 0's validation panels through the CLI (--mode
+   validate_image --is_continue --idx 0), counters at 0 just before: K2
+   four times a chunk, K1-fwd and K3-fwd once, no backward kernel; holds
+   one 2048-ray chunk of the card's render against the CPU twins'; times
+   a validation image of a DTU-size view (1200 x 1600 at level 4, 59
+   chunks); runs the modes interpolate_0_1 and mesh_dtu_shpere2world; and
+   scores the 512^3 mesh against the r = 0.5 sphere through the port's
+   evaltools, its native KD-tree held against brute force;
 7. trains 10 more wmask steps in a subprocess with the HBM-stash switch on
    (FNEUS_PG_HBM_STASH=1, read at import), and 20 steps of
    confs/womask.conf in another with the split backward
@@ -40,6 +50,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -66,6 +77,16 @@ GRID_CHECK_RES = 64
 # the two grids), and the range of the geometric init's radius over seeds
 RADIUS_TOL = 0.01
 RADIUS_BAND = (0.25, 0.8)
+VAL_CHUNK = 2048        # rays a chunk of a validation render (val_chunk)
+# a validation chunk, card against the CPU twin: at most CHUNK_TOL abs in
+# at least CHUNK_SHARE of the rays, and CHUNK_MAX in every ray (a ladder
+# sample that crosses a bin edge moves one ray)
+CHUNK_TOL, CHUNK_SHARE, CHUNK_MAX = 1e-4, 0.999, 2e-2
+VAL_KEYS = ("color_fine", "diffuse_color", "specular_color",
+            "surface_color")
+DTU_H, DTU_W, DTU_LEVEL = 1200, 1600, 4   # a DTU view, the conf's level
+INTERP_FRAMES = 120     # interpolate_<i>_<j>: 60 views, there and back
+KD_CHECK = 4096         # KD-tree queries held against brute force
 # K3-bwd's ReLU masks against the f32 forward's: a pre-activation may take
 # the other side of 0 only within MASK_MARGIN of its layer's max|a| (a few
 # f32 roundings of a 289-term sum), and in at most MAX_MASK_FLIPS places of
@@ -561,53 +582,89 @@ def check_kernels(device):
     return results
 
 
-def write_sphere_scene(out_dir: str, n_views: int = 6, H: int = 128,
-                       W: int = 160, radius: float = 3.0) -> None:
-    """The analytic-sphere DTU scene of tests/make_fake_dtu.py (grey sphere
-    r = 0.5, camera ring at height 0.4), written with the port's PNG
-    writer."""
-    import numpy as np
-    from factored_neus_tpu_torch.data.images import imwrite
-    focal = 1.1 * W
-    K = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]])
-    cameras = {}
-    for i in range(n_views):
-        ang = 2 * np.pi * i / n_views
-        c = np.array([radius * np.sin(ang), 0.4, -radius * np.cos(ang)])
-        fwd = -c / np.linalg.norm(c)
-        right = np.cross(np.array([0.0, -1.0, 0.0]), fwd)
-        right /= np.linalg.norm(right)
-        pose = np.eye(4)
-        pose[:3, 0], pose[:3, 1], pose[:3, 2], pose[:3, 3] = \
-            right, np.cross(fwd, right), fwd, c
-        P = np.eye(4)
-        P[:3, :4] = K @ np.linalg.inv(pose)[:3, :4]
-        cameras[f"world_mat_{i}"] = P.astype(np.float32)
-        cameras[f"scale_mat_{i}"] = np.eye(4, dtype=np.float32)
-        ys, xs = np.mgrid[0:H, 0:W]
-        p = np.stack([xs, ys, np.ones_like(xs)], -1).astype(np.float64)
-        cam = p @ np.linalg.inv(K).T
-        cam /= np.linalg.norm(cam, axis=-1, keepdims=True)
-        d = cam @ pose[:3, :3].T
-        b = 2 * (d @ c)
-        disc = b * b - 4 * ((c @ c) - 0.25)
-        hit = disc > 0
-        t = (-b - np.sqrt(np.maximum(disc, 0))) / 2
-        n = c[None, None] + t[..., None] * d
-        n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-9)
-        shade = np.clip(n[..., 1] * 0.5 + 0.5, 0, 1)
-        img = np.where(hit[..., None], 0.25 + 0.55 * shade[..., None], 0.05)
-        imwrite(os.path.join(out_dir, "image", f"{i:06d}.png"),
-                (img * 255).astype(np.uint8).repeat(3, -1))
-        imwrite(os.path.join(out_dir, "mask", f"{i:06d}.png"),
-                (hit[..., None] * np.ones(3)).astype(np.uint8) * 255)
-    np.savez(os.path.join(out_dir, "cameras_sphere.npz"), **cameras)
+def check_validation_shapes(device, results) -> None:
+    """K1-fwd and K3-fwd at a validation chunk's VAL_CHUNK x 128 rows and
+    K2 at its first sweep's VAL_CHUNK x 64 (the later three sweeps take
+    the step's 32,768 rows, timed in check_kernels), on the weights and
+    packs check_kernels builds, against their twins at 1e-5 abs; the times
+    and bounds go into each kernel's entry under *_val.  Every bound here
+    is by operations, which scale with the rows."""
+    import torch
+    from factored_neus_tpu_torch.models.fields import (RenderingConfig,
+                                                       RenderingNetwork,
+                                                       SDFConfig, SDFNetwork)
+    from factored_neus_tpu_torch.ops import geometry_kernel as GK
+    from factored_neus_tpu_torch.ops import radiance_kernel as RK
+    from factored_neus_tpu_torch.ops import sdf_kernel as SK
+    from factored_neus_tpu_torch.ops import tc_pack as TP
+
+    cfg, rcfg = SDFConfig(), RenderingConfig()
+    net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(device)
+    rnet = RenderingNetwork(rcfg, torch.Generator().manual_seed(0)).to(
+        device)
+    with torch.no_grad():
+        ws, bs = net.effective_weights()
+        rws, rbs = rnet.effective_weights()
+    pack, rpack = TP.pack_weights(ws), TP.pack_weights(rws)
+    gen = torch.Generator(device=device).manual_seed(2)
+    n = VAL_CHUNK * 128
+    x = torch.randn(n, 3, device=device, generator=gen) * 0.5
+    rin = [x, torch.randn(n, 3, device=device, generator=gen),
+           torch.nn.functional.normalize(
+               torch.randn(n, 3, device=device, generator=gen), dim=-1),
+           torch.randn(n, rcfg.d_feature, device=device, generator=gen) * 0.5]
+    wn, bn = list(ws[:-1]) + [ws[-1][:1]], list(bs[:-1]) + [bs[-1][:1]]
+    xs = x[:VAL_CHUNK * 64].contiguous()
+
+    def plain_k1():
+        with torch.no_grad():
+            return GK.geometry_plain(ws, bs, x, cfg)
+
+    def plain_k3():
+        with torch.no_grad():
+            return RK.radiance_plain(rws, rbs, rcfg, *rin)
+
+    def plain_k2():
+        with torch.no_grad():
+            return SK.sdf_forward_plain(wn, bn, cfg, xs)
+
+    cases = {
+        "geometry_fwd": (N_CORE, n, lambda: GK.launch_forward(
+            cfg, x, ws, bs, pack), plain_k1),
+        "radiance_fwd": (N_CORE, n, lambda: RK.launch_forward(
+            rcfg, rws, rbs, *rin, pack=rpack), plain_k3),
+        "sdf_fwd": (N_SWEEP, VAL_CHUNK * 64, lambda: SK.sdf_forward(
+            wn, bn, cfg, xs, pack), plain_k2)}
+    by_name = {r["name"]: r for r in results}
+    for name, (rows0, rows, kernel, plain) in cases.items():
+        got, want = kernel(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        err = max(worst(a, b, 1e-5, 0.0)[0] for a, b in zip(got, want))
+        e = by_name[name]
+        if e["bound_by"] != "operations":
+            raise AssertionError(f"{name}: bound by bytes at the step")
+        e.update({"rows_val": rows, "max_abs_err_val": err,
+                  "ms_val": cuda_ms(kernel, 5),
+                  "plain_ms_val": cuda_ms(plain, 3),
+                  "bound_ms_val": e["bound_ms"] * rows / rows0,
+                  "bound_3xtf32_ms_val": e["bound_3xtf32_ms"] * rows / rows0})
+        print(f"validation shape {name} N={rows}: max|err| {err:.3e} "
+              f"(tolerance 1e-5 abs), {e['ms_val']:.3f} ms (plain "
+              f"{e['plain_ms_val']:.3f}), bounds {e['bound_ms_val']:.3f} "
+              f"f32, {e['bound_3xtf32_ms_val']:.3f} 3xTF32 "
+              f"({e['bound_3xtf32_ms_val'] / e['ms_val']:.1%} of it)")
+        if not err <= 1e-5 or not all(torch.isfinite(g).all() for g in got):
+            raise AssertionError(f"{name} disagrees with its twin at the "
+                                 "validation shape")
 
 
 def write_conf(tmp: str, steps: int = TRAIN_STEPS,
                base: str = "wmask.conf") -> str:
     """confs/<base> with the scene, experiment directory and a
     ``steps``-step schedule pointed into tmp; writes the scene too."""
+    from factored_neus_tpu_torch.data.fake_scene import write_sphere_scene
     write_sphere_scene(os.path.join(tmp, "data", "sphere"))
     with open(os.path.join(HERE, "confs", base)) as f:
         text = f.read()
@@ -747,8 +804,9 @@ def check_step_against_cpu(tmp: str, base: str = "wmask.conf",
 def train_run(tmp: str, steps: int, base: str = "wmask.conf"):
     """Trains ``steps`` steps of full-width confs/<base> through the CLI;
     returns (conf path, runner, launches per kernel during training)."""
+    import numpy as np
     import torch
-    from factored_neus_tpu_torch import exp_runner
+    from factored_neus_tpu_torch import bridge, exp_runner
     from factored_neus_tpu_torch.utils import checkpoints as CK
 
     conf = write_conf(tmp, steps, base)
@@ -772,15 +830,17 @@ def train_run(tmp: str, steps: int, base: str = "wmask.conf"):
     ckpt = CK.load_checkpoint(runner.last_checkpoint)
     if int(ckpt["iter_step"]) != steps:
         raise AssertionError("checkpoint iter_step")
-    for k, v in runner.model.sdf.state_dict().items():
-        if not torch.equal(torch.from_numpy(ckpt["sdf_network_fine"][k]),
-                           v.cpu()):
-            raise AssertionError(f"checkpoint does not load back: {k}")
+    for i, (a, b) in enumerate(zip(ckpt["sdf_network_fine"],
+                                   bridge.jax_tree_layers(runner.model.sdf),
+                                   strict=True)):
+        if any(not np.array_equal(a[k], b[k]) for k in b):
+            raise AssertionError(f"checkpoint does not load back: sdf "
+                                 f"layer {i}")
     print(f"checkpoint {os.path.basename(runner.last_checkpoint)} loads back")
     return conf, runner, launches
 
 
-def check_mesh(conf: str) -> None:
+def check_mesh(conf: str) -> str:
     """--mode validate_mesh --is_continue at MESH_RES^3 on the checkpoint
     of the run trained from ``conf``, counters at 0 just before: a
     non-empty, closed mesh (every edge in two triangles) of finite
@@ -864,6 +924,185 @@ def check_mesh(conf: str) -> None:
           f"{GRID_CHECK_RES}^3 {cpu_radius:.4f} (tolerance {RADIUS_TOL})")
     if not abs(radius - cpu_radius) <= RADIUS_TOL:
         raise AssertionError("the card's mesh is off the CPU twin's surface")
+    return runner.last_mesh
+
+
+def check_val_launches(label: str, launches, chunks: int) -> None:
+    """A validation render launches K2 four times a chunk (the ladder's
+    sweeps), K1-fwd and K3-fwd once, and no backward kernel."""
+    want = {"sdf_fwd": UP_SAMPLE_STEPS * chunks, "geometry_fwd": chunks,
+            "radiance_fwd": chunks}
+    got = {n: c for n, c in launches.items() if c}
+    print(f"{label}: {chunks} chunks of {VAL_CHUNK} rays, launches {got}")
+    if got != want:
+        raise AssertionError(f"{label}: launched {got}, expected {want}")
+
+
+def check_validation(conf: str):
+    """--mode validate_image --is_continue --idx 0 through the CLI (level
+    1), counters at 0 just before: the five panels and the launches; then
+    one VAL_CHUNK-ray chunk of that view rendered by the card and by the
+    CPU twins on the same weights, held at CHUNK_TOL / CHUNK_SHARE /
+    CHUNK_MAX.  Returns the card's runner."""
+    import numpy as np
+    import torch
+    from factored_neus_tpu_torch import exp_runner
+    from factored_neus_tpu_torch.train.runner1 import Runner
+
+    kernels = all_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    runner = exp_runner.main(["--mode", "validate_image", "--is_continue",
+                              "--idx", "0", "--conf", conf, "--case",
+                              "sphere", "--type", "dtu"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    ds = runner.dataset
+    check_val_launches(f"validate_image {ds.H}x{ds.W} level 1 ({wall:.3f} "
+                       "s with the runner's start)", launches,
+                       math.ceil(ds.H * ds.W / VAL_CHUNK))
+    it = f"{runner.iter_step:08d}_0_0"
+    panels = [f"validations_fine/v_{it}.png", f"normals/n_{it}.png",
+              f"diffuse/d_{it}.png", f"specular/s_{it}.png",
+              f"CdPlusCs/DPlusS_{it}.png"]
+    missing = [p for p in panels if not os.path.exists(
+        os.path.join(runner.base_exp_dir, p))]
+    if runner.iter_step != TRAIN_STEPS or missing:
+        raise AssertionError(f"validate_image: iter {runner.iter_step}, "
+                             f"missing panels {missing}")
+
+    rays_o, rays_d = ds.gen_rays_at(0, 1)
+    o = rays_o.reshape(1, -1, 3)[:, :VAL_CHUNK]
+    d = rays_d.reshape(1, -1, 3)[:, :VAL_CHUNK]
+    card = runner._render_image(o, d, VAL_KEYS)
+    twin = Runner(conf, mode="validate_image", case="sphere",
+                  is_continue=True, device="cpu")
+    cpu = twin._render_image(o.cpu(), d.cpu(), VAL_KEYS)
+    bad = []
+    for key in (*VAL_KEYS, "normals"):
+        err = np.abs(card[key] - cpu[key]).reshape(VAL_CHUNK, -1).max(-1)
+        tight = int((err <= CHUNK_TOL).sum())
+        print(f"validation chunk {key}: card against the CPU twin, "
+              f"{tight} of {VAL_CHUNK} rays within {CHUNK_TOL:g} abs, max "
+              f"|err| {err.max():.3e} (need {CHUNK_SHARE:.1%} and "
+              f"{CHUNK_MAX:g})")
+        if tight < CHUNK_SHARE * VAL_CHUNK or not err.max() <= CHUNK_MAX:
+            bad.append(key)
+    if bad:
+        raise AssertionError(f"the card's validation render disagrees "
+                             f"with the CPU twin's in {bad}")
+    return runner
+
+
+def check_dtu_size_validation(tmp: str, conf: str, ckpt: str,
+                              card: str) -> None:
+    """A validation image of a DTU-size view (DTU_H x DTU_W, two views of
+    the sphere scene) at the conf's level DTU_LEVEL, on the checkpoint's
+    weights: seconds on a host clock ending in a synchronize, rays/s and
+    the launches of the first call (counters at 0 just before)."""
+    import torch
+    from factored_neus_tpu_torch.data.fake_scene import write_sphere_scene
+    from factored_neus_tpu_torch.train.runner1 import Runner
+
+    write_sphere_scene(os.path.join(tmp, "data", "dtu_size"), n_views=2,
+                       H=DTU_H, W=DTU_W)
+    runner = Runner(conf, mode="validate_image", case="dtu_size")
+    runner.load_checkpoint(ckpt)
+    kernels = all_kernels()
+    rays = (DTU_H // DTU_LEVEL) * (DTU_W // DTU_LEVEL)
+    secs = []
+    for _ in range(2):
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.validate_image(idx=0, resolution_level=DTU_LEVEL)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if len(secs) == 1:
+            check_val_launches(
+                f"validation image {DTU_H}x{DTU_W} level {DTU_LEVEL}",
+                {name: k.launches for name, k in kernels.items()},
+                math.ceil(rays / VAL_CHUNK))
+    print(f"validation image {DTU_H}x{DTU_W} at level {DTU_LEVEL}: {rays} "
+          f"rays, validate_image {secs[0]:.3f} s ({rays / secs[0]:.0f} "
+          f"rays/s), again {secs[1]:.3f} s ({rays / secs[1]:.0f} rays/s); "
+          f"the PNG read and resize of the view and the five panels' "
+          f"writes included; on {card}")
+
+
+def check_other_modes(conf: str, mesh: str) -> None:
+    """interpolate_0_1 (its frames) and mesh_dtu_shpere2world (the
+    512^3 mesh copied in as dtu122-300000, taken through the identity
+    scale mat) through the CLI."""
+    import numpy as np
+    from factored_neus_tpu_torch import exp_runner
+    from factored_neus_tpu_torch.meshing.ply import read_ply_mesh
+
+    base = ["--is_continue", "--conf", conf, "--case", "sphere", "--type",
+            "dtu"]
+    t0 = time.perf_counter()
+    runner = exp_runner.main(["--mode", "interpolate_0_1", *base])
+    wall = time.perf_counter() - t0
+    out = runner.last_video
+    n = (len([f for f in os.listdir(out) if f.endswith(".png")])
+         if os.path.isdir(out) else None)
+    print(f"interpolate_0_1: {out} ({n} PNG frames where it is a "
+          f"directory), {wall:.3f} s")
+    if not os.path.exists(out) or n not in (None, INTERP_FRAMES):
+        raise AssertionError("interpolate_0_1 wrote no video or frames")
+    src = os.path.join(os.path.dirname(mesh), "dtu122-300000.ply")
+    shutil.copyfile(mesh, src)
+    runner = exp_runner.main(["--mode", "mesh_dtu_shpere2world", *base])
+    v0, t0_ = read_ply_mesh(src)
+    v1, t1 = read_ply_mesh(runner.last_mesh)
+    print(f"mesh_dtu_shpere2world: {runner.last_mesh}, {len(v1)} vertices")
+    if not (np.array_equal(t0_, t1) and np.allclose(v0, v1, atol=1e-6)):
+        raise AssertionError("mesh_dtu_shpere2world changed the mesh")
+
+
+def check_eval(mesh: str) -> None:
+    """Chamfer d2s / s2d of the 512^3 mesh against the r = 0.5 sphere
+    through the port's evaltools (the native KD-tree); after 30 steps the
+    mesh is not the sphere, so the numbers are only held finite.  Then
+    KD_CHECK of the mesh's samples queried against the sphere's points,
+    the KD-tree against a brute-force float64 nearest neighbour."""
+    import numpy as np
+    from factored_neus_tpu_torch.evaltools.pointcloud import \
+        sample_mesh_points
+    from factored_neus_tpu_torch.meshing.ply import read_ply_mesh
+    from factored_neus_tpu_torch.native import KDTree
+    from factored_neus_tpu_torch.tools.quality import chamfer_vs_sphere
+
+    v, t = read_ply_mesh(mesh)
+    t0 = time.perf_counter()
+    d2s, s2d = chamfer_vs_sphere(v, t)
+    secs = time.perf_counter() - t0
+    print(f"eval of the {MESH_RES}^3 mesh against the r = 0.5 sphere: "
+          f"chamfer d2s {d2s:.6f} s2d {s2d:.6f}, {secs:.3f} s")
+    if not (math.isfinite(d2s) and math.isfinite(s2d)):
+        raise AssertionError("non-finite Chamfer distances")
+    pts = sample_mesh_points(v, t, 0.01)
+    q = pts[np.random.RandomState(0).choice(len(pts), KD_CHECK,
+                                            replace=False)]
+    g = np.random.RandomState(1).randn(100_000, 3)
+    g = 0.5 * g / np.linalg.norm(g, axis=-1, keepdims=True)
+    q32, g32 = q.astype(np.float32), g.astype(np.float32)
+    dist, idx = KDTree(g32).query(q32)
+    q64, g64 = q32.astype(np.float64), g32.astype(np.float64)
+    brute = np.concatenate([
+        np.sqrt(((c[:, None] - g64[None]) ** 2).sum(-1).min(1))
+        for c in np.array_split(q64, 64)])
+    err = float(np.abs(dist - brute).max())
+    hit = float(np.abs(np.linalg.norm(q64 - g64[idx], axis=-1)
+                       - brute).max())
+    print(f"KD-tree against brute force on {KD_CHECK} queries: max |dist "
+          f"err| {err:.3e}, max |err| of the returned points' distance "
+          f"{hit:.3e} (tolerance 1e-6)")
+    if not (err <= 1e-6 and hit <= 1e-6):
+        raise AssertionError("the KD-tree disagrees with brute force")
 
 
 def subprocess_run(flag: str, env: dict, label: str) -> dict:
@@ -961,6 +1200,7 @@ def main() -> int:
                 print(f"  {src}: {line.strip()}")
     device = torch.device("cuda")
     kernels = check_kernels(device)
+    check_validation_shapes(device, kernels)
     with tempfile.TemporaryDirectory() as tmp:
         check_step_against_cpu(tmp)
     with tempfile.TemporaryDirectory() as tmp:
@@ -976,7 +1216,11 @@ def main() -> int:
                                  f"{launches}")
         print(f"rays/s at iter {runner.history[-1]['iter']}: "
               f"{runner.history[-1]['rays_per_sec']:.0f} on {card}")
-        check_mesh(conf)
+        mesh = check_mesh(conf)
+        check_validation(conf)
+        check_dtu_size_validation(tmp, conf, runner.last_checkpoint, card)
+        check_other_modes(conf, mesh)
+        check_eval(mesh)
 
     stash = subprocess_run(STASH_RUN, {"FNEUS_PG_HBM_STASH": "1"}, "stash")
     print(f"stash run rays/s over steps 1-{STASH_STEPS} (a new process: "

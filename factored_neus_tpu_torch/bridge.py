@@ -1,22 +1,45 @@
 """Weight bridge between the JAX package's parameter pytrees (as numpy
-arrays) and the port's modules, for tests and tools.
+arrays) and the port's modules: the name and layout map of the port's
+checkpoints (utils/checkpoints.py), which keep the JAX package's format,
+and of the tests and tools.
 
 JAX layouts: weight-normed layers ``{'v': [in, out], 'g': [out], 'b'}``,
 plain layers ``{'w': [in, out], 'b'}``, the variance ``{'variance': []}``,
 the background NeRF ``{'pts_linears': [...], 'views_linear',
 'feature_linear', 'alpha_linear', 'rgb_linear'}``.
 The port keeps torch layouts: ``weight_v`` [out, in], ``weight_g`` [out, 1],
-``nn.Linear.weight`` [out, in].  Nothing here imports JAX.
+``nn.Linear.weight`` [out, in].  Tensors shaped like the parameters (their
+gradients, Adam's moments) cross by the same map: ``jax_tree(model,
+value=)`` reads them into the JAX layout, and ``load_jax_params(model,
+tree, assign=)`` hands them back per parameter in the torch layout.
+Nothing here imports JAX.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from .ops.mlp import WNLinear
+
+# parameter -> the tensor of that shape to read (the parameter itself,
+# its gradient, an optimizer moment)
+Value = Callable[[torch.Tensor], torch.Tensor]
+# (parameter, a value in the parameter's torch layout) -> None
+Assign = Callable[[torch.Tensor, torch.Tensor], None]
+
+
+def _copy_into(param: torch.Tensor, value: torch.Tensor) -> None:
+    with torch.no_grad():
+        param.copy_(value)
+
+
+def _grad_or_zeros(param: torch.Tensor) -> torch.Tensor:
+    """A parameter's .grad, zeros where it took no part in the loss (what
+    jax.grad gives for it)."""
+    return torch.zeros_like(param) if param.grad is None else param.grad
 
 
 def _linears(module: nn.Module) -> List[nn.Module]:
@@ -40,80 +63,101 @@ def _nerf_linears(nerf: nn.Module) -> Dict[str, Any]:
             "rgb_linear": nerf.rgb_linear}
 
 
-def _set_layer(lin: nn.Module, p: Dict[str, Any]) -> None:
-    t = lambda a: torch.as_tensor(np.asarray(a, np.float32))
-    with torch.no_grad():
-        if isinstance(lin, WNLinear):
-            lin.weight_v.copy_(t(p["v"]).T)
-            lin.weight_g.copy_(t(p["g"]).reshape(-1, 1))
-        else:
-            lin.weight.copy_(t(p["w"]).T)
-        lin.bias.copy_(t(p["b"]))
+def _set_layer(lin: nn.Module, p: Dict[str, Any],
+               assign: Assign = _copy_into) -> None:
+    t = lambda a: torch.tensor(np.asarray(a, np.float32))
+    if isinstance(lin, WNLinear):
+        assign(lin.weight_v, t(p["v"]).T)
+        assign(lin.weight_g, t(p["g"]).reshape(-1, 1))
+    else:
+        assign(lin.weight, t(p["w"]).T)
+    assign(lin.bias, t(p["b"]))
 
 
-def _get_layer(lin: nn.Module, grad: bool) -> Dict[str, np.ndarray]:
-    """A layer's parameters, or their .grad (zeros where a parameter took
-    no part in the loss, which is what jax.grad gives for it)."""
-    def a(x):
-        if grad:
-            x = torch.zeros_like(x) if x.grad is None else x.grad
-        return x.detach().cpu().numpy()
+def _get_layer(lin: nn.Module, value: Value) -> Dict[str, np.ndarray]:
+    a = lambda x: value(x).detach().cpu().numpy()
     if isinstance(lin, WNLinear):
         return {"v": a(lin.weight_v).T, "g": a(lin.weight_g).reshape(-1),
                 "b": a(lin.bias)}
     return {"w": a(lin.weight).T, "b": a(lin.bias)}
 
 
-def load_layers(module: nn.Module, layers: List[Dict[str, Any]]) -> None:
+def _value(grads: bool, value: Optional[Value]) -> Value:
+    if value is not None:
+        return value
+    return _grad_or_zeros if grads else (lambda p: p)
+
+
+def load_layers(module: nn.Module, layers: List[Dict[str, Any]],
+                assign: Assign = _copy_into) -> None:
     """Copy a JAX layer list into an SDFNetwork or RenderingNetwork."""
     for lin, p in zip(_linears(module), layers, strict=True):
-        _set_layer(lin, p)
+        _set_layer(lin, p, assign)
 
 
-def load_jax_params(model: nn.Module, params: Dict[str, Any]) -> None:
+def load_jax_group(model: nn.Module, group: str, params: Any,
+                   assign: Assign = _copy_into) -> None:
+    """Copy one JAX stage-1 params group (nerf, sdf, variance, color or
+    ref_color; numpy leaves) into a Stage1Model, or hand each value to
+    ``assign``."""
+    if group in ("sdf", "color"):
+        load_layers(getattr(model, group), params, assign)
+    elif group == "variance":
+        assign(model.variance.variance,
+               torch.tensor(np.asarray(params["variance"], np.float32)))
+    elif group == "ref_color":
+        for name, lins in _refcolor_linears(model.ref_color).items():
+            for lin, p in zip(lins, params[name], strict=True):
+                _set_layer(lin, p, assign)
+    elif group == "nerf":
+        load_nerf(model.nerf, params, assign)
+    else:
+        raise KeyError(f"no stage-1 params group {group!r}")
+
+
+def load_jax_params(model: nn.Module, params: Dict[str, Any],
+                    assign: Assign = _copy_into) -> None:
     """Copy a JAX stage-1 params dict (groups nerf, sdf, variance, color,
     ref_color; numpy leaves) into a Stage1Model."""
-    for group in ("sdf", "color"):
-        load_layers(getattr(model, group), params[group])
-    with torch.no_grad():
-        model.variance.variance.copy_(torch.as_tensor(
-            np.asarray(params["variance"]["variance"], np.float32)))
-    for name, lins in _refcolor_linears(model.ref_color).items():
-        for lin, p in zip(lins, params["ref_color"][name], strict=True):
-            _set_layer(lin, p)
-    load_nerf(model.nerf, params["nerf"])
+    for group in ("sdf", "color", "variance", "ref_color", "nerf"):
+        load_jax_group(model, group, params[group], assign)
 
 
-def load_nerf(nerf: nn.Module, params: Dict[str, Any]) -> None:
+def load_nerf(nerf: nn.Module, params: Dict[str, Any],
+              assign: Assign = _copy_into) -> None:
     """Copy a JAX NeRF params group into a NeRF module."""
     for name, lins in _nerf_linears(nerf).items():
         if isinstance(lins, list):
             for lin, p in zip(lins, params[name], strict=True):
-                _set_layer(lin, p)
+                _set_layer(lin, p, assign)
         else:
-            _set_layer(lins, params[name])
+            _set_layer(lins, params[name], assign)
 
 
-def jax_tree_layers(module: nn.Module, grads: bool = False
+def jax_tree_layers(module: nn.Module, grads: bool = False,
+                    value: Optional[Value] = None
                     ) -> List[Dict[str, np.ndarray]]:
-    """An SDFNetwork's or RenderingNetwork's layers (or their .grad) in the
-    JAX layout."""
-    return [_get_layer(l, grads) for l in _linears(module)]
+    """An SDFNetwork's or RenderingNetwork's layers (or their .grad, or
+    ``value`` of each parameter) in the JAX layout."""
+    get = _value(grads, value)
+    return [_get_layer(l, get) for l in _linears(module)]
 
 
-def jax_tree(model: nn.Module, grads: bool = False) -> Dict[str, Any]:
-    """The model's parameters (or their .grad) in the JAX pytree layout."""
+def jax_tree(model: nn.Module, grads: bool = False,
+             value: Optional[Value] = None) -> Dict[str, Any]:
+    """The model's parameters (or their .grad, or ``value`` of each
+    parameter) in the JAX pytree layout."""
+    get = _value(grads, value)
     tree: Dict[str, Any] = {
-        g: jax_tree_layers(getattr(model, g), grads) for g in ("sdf", "color")}
-    v = model.variance.variance
-    if grads:
-        v = torch.zeros_like(v) if v.grad is None else v.grad
-    tree["variance"] = {"variance": v.detach().cpu().numpy()}
+        g: jax_tree_layers(getattr(model, g), value=get)
+        for g in ("sdf", "color")}
+    tree["variance"] = {
+        "variance": get(model.variance.variance).detach().cpu().numpy()}
     tree["ref_color"] = {
-        name: [_get_layer(l, grads) for l in lins]
+        name: [_get_layer(l, get) for l in lins]
         for name, lins in _refcolor_linears(model.ref_color).items()}
     tree["nerf"] = {
-        name: ([_get_layer(l, grads) for l in lins] if isinstance(lins, list)
-               else _get_layer(lins, grads))
+        name: ([_get_layer(l, get) for l in lins] if isinstance(lins, list)
+               else _get_layer(lins, get))
         for name, lins in _nerf_linears(model.nerf).items()}
     return tree

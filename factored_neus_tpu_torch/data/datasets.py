@@ -1,6 +1,8 @@
 """Dataset loaders: host-side I/O, device-resident camera and image tables.
 Counterpart of factored_neus_tpu/data/datasets.py; this slice ports the DTU
-layout (cameras_sphere.npz + image/*.png + mask/*.png).
+layout (cameras_sphere.npz + image/*.png + mask/*.png), with the ray grids
+and ground-truth images of validation renders (gen_rays_at,
+gen_rays_between, image_at).
 """
 from __future__ import annotations
 
@@ -11,12 +13,15 @@ import numpy as np
 import torch
 
 from . import images as I
-from .cameras import load_K_Rt_from_P
+from . import rays as R
+from .cameras import interpolate_pose, load_K_Rt_from_P
 
 
 class DTUDataset:
     """DTU scans: P-matrix decomposition, /256 BGR images, bbox from the
     scale mats."""
+
+    color_bgr = True          # channel order of the image stack
 
     def __init__(self, conf, device: torch.device):
         self.conf = conf
@@ -62,6 +67,29 @@ class DTUDataset:
         inv0 = np.linalg.inv(s0)
         self.object_bbox_min = (inv0 @ s0 @ bbox_min[:, None])[:3, 0]
         self.object_bbox_max = (inv0 @ s0 @ bbox_max[:, None])[:3, 0]
+
+    def gen_rays_at(self, img_idx: int, resolution_level: int = 1):
+        """(rays_o, rays_d) [H // l, W // l, 3] of view img_idx."""
+        return R.gen_rays_grid(self.intrinsics_all_inv[img_idx],
+                               self.pose_all[img_idx], self.H, self.W,
+                               resolution_level)
+
+    def gen_rays_between(self, idx_0: int, idx_1: int, ratio: float,
+                         resolution_level: int = 1):
+        """The ray grid of a pose interpolated between views idx_0 and
+        idx_1, with view 0's intrinsics."""
+        pose = interpolate_pose(self.pose_all[idx_0].cpu().numpy(),
+                                self.pose_all[idx_1].cpu().numpy(), ratio)
+        return R.gen_rays_grid(self.intrinsics_all_inv[0],
+                               torch.from_numpy(pose).to(self.device),
+                               self.H, self.W, resolution_level)
+
+    def image_at(self, idx: int, resolution_level: int) -> np.ndarray:
+        """View idx re-read from its PNG, x256 and resized (bilinear) to
+        1/resolution_level: [H // l, W // l, 3] BGR in [0, 255]."""
+        img = I.imread_bgr_norm256(self.images_lis[idx]) * 256.0
+        return np.clip(I.imresize(img, self.W // resolution_level,
+                                  self.H // resolution_level), 0, 255)
 
 
 def make_dataset(kind: str, conf, device: torch.device):

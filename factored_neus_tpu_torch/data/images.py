@@ -4,7 +4,8 @@ through cv2/imageio: the port keeps its own codec so it needs no image
 library.
 
 Reading covers what OpenCV and libpng write for 8-bit images: grey, grey +
-alpha, RGB and RGBA, non-interlaced, with any of the five row filters.
+alpha, RGB and RGBA, non-interlaced, with any of the five row filters
+(unfiltered by the port's native host library, native/png_filters.cpp).
 Arrays returned by ``imread_bgr_norm256`` follow cv2's BGR channel order and
 the reference DTU loader's /256 normalisation; ``imwrite`` takes BGR like
 ``cv2.imwrite``.
@@ -20,44 +21,6 @@ import numpy as np
 _SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}          # PNG colour type -> channels
 _COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}
-
-
-def _unfilter(raw: bytes, H: int, W: int, bpp: int) -> np.ndarray:
-    stride = W * bpp
-    out = np.zeros((H, stride), np.uint8)
-    prev = np.zeros(stride, np.int32)
-    pos = 0
-    for y in range(H):
-        ftype = raw[pos]
-        line = np.frombuffer(raw, np.uint8, stride, pos + 1).astype(np.int32)
-        pos += 1 + stride
-        if ftype == 0:
-            cur = line
-        elif ftype == 1:                        # Sub: running sum per channel
-            cur = np.cumsum(line.reshape(W, bpp), axis=0).reshape(-1) & 255
-        elif ftype == 2:                        # Up
-            cur = (line + prev) & 255
-        elif ftype in (3, 4):                   # Average, Paeth: sequential
-            f = line.tolist()
-            b = prev.tolist()
-            c = [0] * stride
-            for i in range(stride):
-                left = c[i - bpp] if i >= bpp else 0
-                if ftype == 3:
-                    c[i] = (f[i] + ((left + b[i]) >> 1)) & 255
-                else:
-                    ul = b[i - bpp] if i >= bpp else 0
-                    p = left + b[i] - ul
-                    pa, pb, pc = abs(p - left), abs(p - b[i]), abs(p - ul)
-                    pred = left if (pa <= pb and pa <= pc) else (
-                        b[i] if pb <= pc else ul)
-                    c[i] = (f[i] + pred) & 255
-            cur = np.asarray(c, np.int32)
-        else:
-            raise ValueError(f"PNG: unknown row filter {ftype}")
-        out[y] = cur
-        prev = cur
-    return out.reshape(H, W, bpp)
 
 
 def png_decode(data: bytes) -> np.ndarray:
@@ -85,7 +48,9 @@ def png_decode(data: bytes) -> np.ndarray:
                          f"images are supported (depth {depth}, colour "
                          f"type {color}, interlace {interlace})")
     bpp = _CHANNELS[color]
-    return _unfilter(zlib.decompress(b"".join(idat)), H, W, bpp)
+    from ..native import png_unfilter
+    return png_unfilter(zlib.decompress(b"".join(idat)), H, W * bpp,
+                        bpp).reshape(H, W, bpp)
 
 
 def _chunk(tag: bytes, body: bytes) -> bytes:
@@ -122,6 +87,30 @@ def imread_bgr_u8(path: str) -> np.ndarray:
 def imread_bgr_norm256(path: str) -> np.ndarray:
     """8-bit image as float BGR / 256 (the DTU convention)."""
     return np.asarray(imread_bgr_u8(path), np.float64) / 256.0
+
+
+def _linear_taps(n_out: int, n_in: int):
+    """Source index pairs and weights of cv2's INTER_LINEAR along one axis:
+    half-pixel centres, the source position clamped to [0, n_in - 1]."""
+    s = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+    i0 = np.floor(s).astype(np.int64)
+    f = s - i0
+    low, high = i0 < 0, i0 >= n_in - 1
+    i0[low], f[low] = 0, 0.0
+    i0[high], f[high] = n_in - 1, 0.0
+    return i0, np.minimum(i0 + 1, n_in - 1), f
+
+
+def imresize(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """Bilinear resize of [H, W] or [H, W, C] to [h, w], as cv2.resize's
+    default (INTER_LINEAR) computes it for float images."""
+    img = np.asarray(img)
+    y0, y1, fy = _linear_taps(h, img.shape[0])
+    x0, x1, fx = _linear_taps(w, img.shape[1])
+    fy = fy.reshape((-1,) + (1,) * (img.ndim - 1))
+    rows = img[y0] * (1.0 - fy) + img[y1] * fy
+    fx = fx.reshape((1, -1) + (1,) * (img.ndim - 2))
+    return rows[:, x0] * (1.0 - fx) + rows[:, x1] * fx
 
 
 def imwrite(path: str, img: np.ndarray) -> None:

@@ -1,6 +1,6 @@
 """Ray generation on the device.  Counterpart of
-factored_neus_tpu/data/rays.py (gen_random_rays, near_far_from_sphere) for
-the 'c2w' camera convention of DTU scenes.
+factored_neus_tpu/data/rays.py (gen_rays_grid, gen_random_rays,
+near_far_from_sphere) for the 'c2w' camera convention of DTU scenes.
 
 The random pixel draw (``torch.Generator``) is kept apart from the
 deterministic ``rays_from_pixels`` so that a test can hand the same pixels
@@ -18,6 +18,20 @@ def pixel_to_dir_c2w(intr_inv, pose, p):
     cam = p @ intr_inv[:3, :3].T
     cam = cam / torch.linalg.norm(cam, dim=-1, keepdim=True)
     return cam @ pose[:3, :3].T
+
+
+def gen_rays_grid(intr_inv, pose, H: int, W: int, level: int = 1
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-image ray grid at 1/level resolution: (rays_o, rays_d)
+    [H // level, W // level, 3], on the pixel spacing
+    linspace(0, W - 1, W // level) of the reference's validation renders."""
+    dev = pose.device
+    tx = torch.linspace(0.0, W - 1.0, W // level, device=dev)
+    ty = torch.linspace(0.0, H - 1.0, H // level, device=dev)
+    py, px = torch.meshgrid(ty, tx, indexing="ij")
+    p = torch.stack([px, py, torch.ones_like(px)], dim=-1)
+    rays_d = pixel_to_dir_c2w(intr_inv, pose, p)
+    return pose[:3, 3].expand(rays_d.shape), rays_d
 
 
 def rays_from_pixels(px, py, images, masks, intr_inv_all, pose_all,

@@ -1,7 +1,7 @@
 """Minimal PLY mesh I/O (host side): binary-little-endian and ascii,
 vertices with optional normals and colours, triangle faces.  Counterpart of
-factored_neus_tpu/meshing/ply.py (write_ply, read_ply, read_ply_mesh): the
-port writes the same bytes for the same mesh.
+factored_neus_tpu/meshing/ply.py (write_ply, read_ply, read_ply_points,
+read_ply_mesh): the port writes the same bytes for the same mesh.
 """
 from __future__ import annotations
 
@@ -138,6 +138,13 @@ def read_ply(path: str):
         else:
             raise ValueError(f"unsupported PLY format {fmt}")
     return out
+
+
+def read_ply_points(path: str) -> np.ndarray:
+    """[N, 3] float64 vertex positions."""
+    data = read_ply(path)["vertex"]
+    return np.stack([np.asarray(data[c], np.float64)
+                     for c in ("x", "y", "z")], axis=1)
 
 
 def read_ply_mesh(path: str) -> Tuple[np.ndarray, np.ndarray]:

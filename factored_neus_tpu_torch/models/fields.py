@@ -3,7 +3,8 @@ shapes.  Counterpart of factored_neus_tpu/models/fields.py:
 
   SDFNetwork              value_sweep (K2) and value_grad_feat (K1), on
                           one weight pack a step (kernel_weights)
-  RenderingNetwork        IDR-mode radiance MLP (K3)
+  RenderingNetwork        IDR-mode radiance MLP (K3), on one weight pack
+                          a step (kernel_weights)
   SingleVarianceNetwork   inv_s = exp(10 * variance)
   RefColor                surface reflection colour (diffuse + specular)
   NeRF                    NeRF++ background model of the womask configs
@@ -74,6 +75,20 @@ class _WNLayers(nn.Module):
         ls = self.layers()
         return [l.effective_weight() for l in ls], [l.bias for l in ls]
 
+    def kernel_weights(self) -> KernelWeights:
+        """(ws, bs, pack): the effective weights and biases, differentiable
+        in g, v and b, and on a CUDA device their weight pack for the
+        kernels (tc_pack.pack_weights, built without grad; None on the
+        CPU).  Built once a step, or once a validation image, it serves
+        every launch on these weights: K1 and the ladder's K2 sweeps for
+        the SDF network, K3-fwd and K3-bwd for the radiance MLP."""
+        ws, bs = self.effective_weights()
+        pack = None
+        if ws[0].is_cuda:
+            with torch.no_grad():
+                pack = TP.pack_weights(ws)
+        return ws, bs, pack
+
 
 class SDFNetwork(_WNLayers):
     """PE -> softplus(beta=100) MLP with skip concat / sqrt(2) -> [sdf | feat].
@@ -104,18 +119,6 @@ class SDFNetwork(_WNLayers):
         """[N, 3] -> [N, d_out] = [sdf / scale | feature] (plain PyTorch)."""
         ws, bs = self.effective_weights()
         return SK.sdf_forward_plain(ws, bs, self.cfg, x)
-
-    def kernel_weights(self) -> KernelWeights:
-        """(ws, bs, pack): the effective weights and biases, differentiable
-        in g, v and b, and on a CUDA device their weight pack for K1 and K2
-        (tc_pack.pack_weights, built without grad; None on the CPU).  Built
-        once a step, it serves the ladder's sweeps and K1 alike."""
-        ws, bs = self.effective_weights()
-        pack = None
-        if ws[0].is_cuda:
-            with torch.no_grad():
-                pack = TP.pack_weights(ws)
-        return ws, bs, pack
 
     def value_sweep(self, x: torch.Tensor,
                     weights: Optional[KernelWeights] = None) -> torch.Tensor:
@@ -177,11 +180,13 @@ class RenderingNetwork(_WNLayers):
             dense_init_(lin, gen)
             setattr(self, f"lin{l}", lin)
 
-    def forward(self, points, normals, view_dirs, feature_vectors):
-        """rgb [N, d_out] through K3 (ops/radiance_kernel.py)."""
-        ws, bs = self.effective_weights()
+    def forward(self, points, normals, view_dirs, feature_vectors,
+                weights: Optional[KernelWeights] = None):
+        """rgb [N, d_out] through K3 (ops/radiance_kernel.py); ``weights``:
+        kernel_weights(), when the caller already has them."""
+        ws, bs, pack = weights or self.kernel_weights()
         return RK.radiance(ws, bs, self.cfg, points, normals, view_dirs,
-                           feature_vectors)
+                           feature_vectors, pack)
 
 
 class SingleVarianceNetwork(nn.Module):

@@ -16,7 +16,7 @@ to XLA.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -60,6 +60,12 @@ class Stage1Model(nn.Module):
         self.nerf = F.NeRF(cfg.nerf, gen)
         self.to(device)
 
+    def kernel_weights(self) -> Tuple[F.KernelWeights, F.KernelWeights]:
+        """The SDF network's and the radiance MLP's kernel weights (with
+        their packs on a CUDA device): built once a step by ``render``, or
+        once a validation image by its caller."""
+        return self.sdf.kernel_weights(), self.color.kernel_weights()
+
 
 def _mid_points(rays_o, rays_d, z_vals, sample_dist: float):
     """(dists [B, T], mid_z [B, T], pts [B, T, 3]) of the sample sections."""
@@ -97,12 +103,14 @@ def render_core(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d,
                 z_vals, sample_dist: float, background_alpha=None,
                 background_sampled_color=None, background_rgb=None,
                 cos_anneal_ratio: float = 0.0,
-                sdf_weights: Optional[F.KernelWeights] = None
+                sdf_weights: Optional[F.KernelWeights] = None,
+                color_weights: Optional[F.KernelWeights] = None
                 ) -> Dict[str, Any]:
     """SDF + radiance + surface colour over [B, T] samples, composited
     with the background model's [B, T + n_outside] alpha and colour when
-    they are given; ``sdf_weights``: model.sdf.kernel_weights() of the
-    step, when the caller already has them."""
+    they are given; ``sdf_weights`` and ``color_weights``: the SDF
+    network's and the radiance MLP's kernel_weights(), when the caller
+    already has them."""
     B, T = z_vals.shape
     dists, mid_z, pts = _mid_points(rays_o, rays_d, z_vals, sample_dist)
     dirs = rays_d[:, None, :].expand(pts.shape)
@@ -124,8 +132,8 @@ def render_core(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d,
     relax_inside = (pts_norm < 1.2).to(z_vals.dtype)
     inside_sphere_mask = torch.sum(inside_sphere, -1) > 0.0
 
-    sampled_color = model.color(pts_flat, gradients, dirs_flat,
-                                feature).reshape(B, T, 3)
+    sampled_color = model.color(pts_flat, gradients, dirs_flat, feature,
+                                color_weights).reshape(B, T, 3)
 
     # surface branch: first SDF sign change, RefColor at the two bracketing
     # samples, NeuS-weight blend
@@ -206,12 +214,15 @@ def render(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d, near,
            far, t_rand: Optional[torch.Tensor] = None,
            generator: Optional[torch.Generator] = None, background_rgb=None,
            cos_anneal_ratio: float = 0.0, perturb_overwrite: float = -1.0,
-           t_rand_out: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+           t_rand_out: Optional[torch.Tensor] = None,
+           weights: Optional[Tuple[F.KernelWeights, F.KernelWeights]] = None
+           ) -> Dict[str, Any]:
     """Stage-1 renderer.  The per-ray z jitter is ``t_rand`` [B, 1] in
     [-0.5, 0.5) when given, else drawn from ``generator`` when given, else
     none (deterministic); with n_outside > 0 the background samples'
     stratified jitter is ``t_rand_out`` [B, n_outside] in [0, 1), drawn in
-    the same way."""
+    the same way.  ``weights``: model.kernel_weights(), when the caller
+    renders many chunks on one set of weights; built here if not."""
     B, n_out = rays_o.shape[0], cfg.n_outside
     if t_rand_out is not None and tuple(t_rand_out.shape) != (B, n_out):
         raise ValueError(f"t_rand_out must be [{B}, {n_out}] (n_outside), "
@@ -244,8 +255,9 @@ def render(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d, near,
         z_vals_outside = (far / torch.flip(z_vals_outside, [-1])
                           + 1.0 / cfg.n_samples)
 
-    # one weight pack a step, for the ladder's sweeps (K2) and K1
-    sdf_weights = model.sdf.kernel_weights()
+    # one SDF weight pack, for the ladder's sweeps (K2) and K1, and one
+    # radiance pack for K3, a step (or a validation image)
+    sdf_weights, color_weights = weights or model.kernel_weights()
     if cfg.n_importance > 0:
         z_vals = S.hierarchical_z_vals(
             lambda p: model.sdf.value_sweep(p, sdf_weights), rays_o.detach(),
@@ -265,7 +277,7 @@ def render(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d, near,
                       background_sampled_color=background_sampled_color,
                       background_rgb=background_rgb,
                       cos_anneal_ratio=cos_anneal_ratio,
-                      sdf_weights=sdf_weights)
+                      sdf_weights=sdf_weights, color_weights=color_weights)
     weights = ret["weights"]
     return {
         "color_fine": ret["color"],

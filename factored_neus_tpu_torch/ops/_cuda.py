@@ -80,7 +80,8 @@ def build_all(sources: Sequence[str] = SOURCES) -> float:
         nvcc = _nvcc()
         procs = []
         for src in todo:
-            out = _lib_path(src) + ".tmp"
+            # per process, so concurrent builds never share a file
+            out = f"{_lib_path(src)}.tmp.{os.getpid()}"
             cmd = [nvcc, *NVCC_FLAGS, "-o", out, os.path.join(CSRC, src)]
             procs.append((src, out, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

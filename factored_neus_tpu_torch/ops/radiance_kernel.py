@@ -14,14 +14,15 @@ directions' through the encoding's Jacobian.  The kernels cover
 raises.  On a CPU tensor the wrapper runs the plain twin, in every mode.
 
 Both kernels multiply on the tensor cores in 3xTF32 (csrc/tc_mma.cuh),
-from one weight pack (tc_pack.pack_weights) that ``RadianceFn`` builds
-once in the forward and hands to the backward; they take one argument
-layout (``kernel_iargs``) and the same shared-memory count.
+from one weight pack (tc_pack.pack_weights), built once a step or once a
+validation image (``fields.RenderingNetwork.kernel_weights``), which
+``RadianceFn`` hands from the forward to the backward; they take one
+argument layout (``kernel_iargs``) and the same shared-memory count.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -171,12 +172,12 @@ def launch_backward(cfg, ws, bs, pts, normals, dirs, feat, ct_rgb,
 
 class RadianceFn(torch.autograd.Function):
     """(pts, normals, dirs, feat, *ws, *bs) -> rgb through K3-fwd; backward
-    through K3-bwd, on the weight pack the forward built."""
+    through K3-bwd, both on ``pack`` (pack_weights(ws), built without grad
+    by the caller)."""
 
     @staticmethod
-    def forward(ctx, cfg, pts, normals, dirs, feat, *params):
+    def forward(ctx, cfg, pack, pts, normals, dirs, feat, *params):
         L = len(params) // 2
-        pack = TP.pack_weights(params[:L])
         ctx.cfg, ctx.layout = cfg, pack[1]
         ctx.save_for_backward(pts, normals, dirs, feat, pack[0], *params)
         return launch_forward(cfg, params[:L], params[L:], pts, normals,
@@ -190,21 +191,29 @@ class RadianceFn(torch.autograd.Function):
         *cts, dws, dbs = launch_backward(ctx.cfg, params[:L], params[L:],
                                          pts, normals, dirs, feat, ct_rgb,
                                          pack=(pack, ctx.layout))
-        grads = [None, *cts, *dws, *dbs]
+        grads = [None, None, *cts, *dws, *dbs]
         return tuple(g if need else None
                      for g, need in zip(grads, ctx.needs_input_grad))
 
 
 def radiance(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor], cfg,
-             pts, normals, dirs, feat) -> torch.Tensor:
+             pts, normals, dirs, feat,
+             pack: Optional[Tuple[torch.Tensor, TP.PackLayout]] = None
+             ) -> torch.Tensor:
     """rgb [N, d_out], differentiable in every input, ws and bs: K3 on a
-    CUDA tensor, the plain twin on a CPU tensor."""
+    CUDA tensor, the plain twin on a CPU tensor.  ``pack``:
+    TP.pack_weights(ws), when the caller already has it (on a CUDA
+    tensor; built here if not)."""
     if pts.is_cuda:
         if cfg.mode != "idr":
             raise NotImplementedError(
                 f"the radiance kernels run mode 'idr' only, not "
                 f"{cfg.mode!r}")
-        return RadianceFn.apply(cfg, pts, normals, dirs, feat, *ws, *bs)
+        if pack is None:
+            with torch.no_grad():
+                pack = TP.pack_weights(ws)
+        return RadianceFn.apply(cfg, pack, pts, normals, dirs, feat, *ws,
+                                *bs)
     if pts.device.type == "cpu":
         return radiance_plain(ws, bs, cfg, pts, normals, dirs, feat)
     raise ValueError(f"radiance: unsupported device {pts.device}")

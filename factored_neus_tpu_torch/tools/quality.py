@@ -1,0 +1,245 @@
+"""Quality of port-trained scenes: trains stage 1 on the 49-view analytic
+sphere scene (384 x 512, camera heights 0.2-1.2) through the port's CLI
+and scores each run's final mesh against the sphere, as the JAX package's
+own protocol does (tools/tpu_chain_r5.sh, tools/multiseed_quality_eval.py):
+
+    python -m factored_neus_tpu_torch.tools.quality [--confs wmask womask]
+        [--seeds 0 1 2] [--end_iter 20000] [--parallel 3]
+        [--out build/quality] [--summary FILE] [--device cuda]
+
+Each run is confs/<conf>.conf with end_iter = --end_iter and recording =
+[], validation images and meshes at the conf's frequencies; up to
+--parallel runs share the device at a time.  The score of a run: Chamfer
+d2s and s2d of its last mesh against the r = 0.5 sphere (mesh samples at
+density 0.01 kept within |p| < 0.9, 100,000 sphere points; the port's
+evaltools), and the tail train PSNR, the mean of the last five reports.
+Per conf: mean and sample standard deviation over seeds, beside the JAX
+package's bars (evidence/msq49_summary.json) when the checkout has them;
+a conf whose mean lies outside the JAX mean +- 2 x the larger standard
+deviation is flagged as a gap.  Prints one JSON object and writes it to
+<out>/summary.json (and to --summary when given).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..data.fake_scene import SPHERE_R, write_sphere_scene
+from ..evaltools.pointcloud import nn_distances, sample_mesh_points
+from ..meshing.ply import read_ply_mesh
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+BARS = os.path.join(REPO, "evidence", "msq49_summary.json")
+METRICS = ("chamfer_d2s", "chamfer_s2d", "train_psnr_tail")
+SCENE = (49, 384, 512)          # views, H, W: the JAX runs' scene
+Y_RANGE = (0.2, 1.2)            # camera heights: a DTU scan's arc
+
+
+def chamfer_vs_sphere(verts: np.ndarray, faces: np.ndarray,
+                      radius: float = SPHERE_R, density: float = 0.01,
+                      keep_within: float = 0.9, n_gt: int = 100_000,
+                      seed: int = 1) -> Tuple[float, float]:
+    """(d2s, s2d): mean distances from the mesh's surface samples (density
+    ``density``, those with |p| < keep_within) to ``n_gt`` points on the
+    sphere of ``radius``, and back."""
+    pts = sample_mesh_points(verts, faces, density)
+    pts = pts[np.linalg.norm(pts, axis=-1) < keep_within]
+    v = np.random.RandomState(seed).randn(n_gt, 3)
+    gt = radius * v / np.linalg.norm(v, axis=-1, keepdims=True)
+    d2s = float(np.mean(nn_distances(pts.astype(np.float32),
+                                     gt.astype(np.float32))))
+    s2d = float(np.mean(nn_distances(gt.astype(np.float32),
+                                     pts.astype(np.float32))))
+    return d2s, s2d
+
+
+def write_run_conf(src: str, dst: str, data_dir: str, exp_dir: str,
+                   end_iter: int) -> str:
+    """confs/<conf> pointed at the scene and the run's directory, with
+    end_iter and an empty recording list."""
+    with open(src) as f:
+        text = f.read()
+    subs = {r"base_exp_dir_geo = \./exp/CASE_NAME":
+            f"base_exp_dir_geo = {exp_dir}/CASE_NAME",
+            r"data_dir = \S+": f"data_dir = {data_dir}/CASE_NAME/",
+            r"end_iter = 300000": f"end_iter = {end_iter}",
+            r"recording = \[[^]]*\]": "recording = []"}
+    for pat, rep in subs.items():
+        text, n = re.subn(pat, rep, text, count=1)
+        if n != 1:
+            raise ValueError(f"{src}: {pat!r} matched {n} times")
+    with open(dst, "w") as f:
+        f.write(text)
+    return dst
+
+
+def score_run(exp_dir: str, log_path: str) -> Dict[str, object]:
+    """The scores of one finished run (its last mesh and its log)."""
+    mesh_dir = os.path.join(exp_dir, "meshes")
+    meshes = sorted(f for f in os.listdir(mesh_dir) if f.endswith(".ply"))
+    if not meshes:
+        raise RuntimeError(f"{mesh_dir}: no mesh")
+    t0 = time.perf_counter()
+    d2s, s2d = chamfer_vs_sphere(*read_ply_mesh(os.path.join(mesh_dir,
+                                                             meshes[-1])))
+    with open(log_path) as f:
+        log = f.read()
+    psnrs = [float(m) for m in re.findall(r"psnr=([-0-9.]+)", log)]
+    rays = [float(m) for m in re.findall(r"rays/s=([0-9.]+)", log)]
+    return {"mesh": meshes[-1], "chamfer_d2s": d2s, "chamfer_s2d": s2d,
+            "train_psnr_tail": float(np.mean(psnrs[-5:])),
+            "rays_per_sec_median": float(np.median(rays)),
+            "eval_s": time.perf_counter() - t0}
+
+
+def mean_sd(values: Sequence[float]) -> List[float]:
+    a = np.asarray(values, np.float64)
+    return [float(a.mean()), float(a.std(ddof=1)) if len(a) > 1 else 0.0]
+
+
+def compare(port: Dict[str, List[float]], bars: Dict[str, List[float]]
+            ) -> Dict[str, object]:
+    """Per metric: the port's and the JAX package's mean +- sd, the
+    allowed gap 2 x max(sd) and whether the means lie further apart."""
+    out = {}
+    for m in METRICS:
+        (pm, ps), (jm, js) = port[m], bars[m]
+        allowed = 2.0 * max(ps, js)
+        out[m] = {"port": [pm, ps], "jax": [jm, js],
+                  "gap": abs(pm - jm), "allowed": allowed,
+                  "fault": bool(abs(pm - jm) > allowed)}
+    return out
+
+
+def card_line() -> str:
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        return "no nvidia-smi"
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--confs", nargs="+", default=["wmask", "womask"])
+    p.add_argument("--seeds", nargs="+", type=int, default=[0, 1, 2])
+    p.add_argument("--end_iter", type=int, default=20000)
+    p.add_argument("--parallel", type=int, default=3)
+    p.add_argument("--out", default=os.path.join(REPO, "build", "quality"))
+    p.add_argument("--summary", default=None)
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+
+    out = os.path.abspath(args.out)
+    data = os.path.join(out, "data")
+    write_sphere_scene(os.path.join(data, "fake_scan"), *SCENE,
+                       y_range=Y_RANGE)
+    # the native library and the kernels are built once, here, before the
+    # runs share the build directory
+    from ..native import load
+    load()
+    if args.device.startswith("cuda"):
+        from ..ops import _cuda
+        _cuda.build_all()
+    jobs = []
+    for conf in args.confs:
+        for seed in args.seeds:
+            name = f"{conf}_s{seed}"
+            exp = os.path.join(out, f"exp_{name}")
+            cpath = write_run_conf(
+                os.path.join(REPO, "confs", f"{conf}.conf"),
+                os.path.join(out, f"{name}.conf"), data, exp, args.end_iter)
+            geo = os.path.join(exp, "fake_scan", conf, "geometry")
+            jobs.append((conf, seed, name, cpath, geo))
+
+    # each run is scored as soon as it ends, its row printed at once, so
+    # the rows of finished runs survive a later failure
+    running: List[Tuple[tuple, subprocess.Popen, float, object]] = []
+    rows: Dict[str, List[Dict[str, object]]] = {c: [] for c in args.confs}
+    failed: List[str] = []
+
+    def reap_one() -> None:
+        while True:
+            for item in running:
+                job, proc, t0, logf = item
+                if proc.poll() is None:
+                    continue
+                running.remove(item)
+                logf.close()
+                conf, seed, name, _, geo = job
+                wall = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    failed.append(name)
+                    print(f"run {name} failed rc={proc.returncode} after "
+                          f"{wall:.1f} s; see {out}/{name}.log", flush=True)
+                    return
+                row = {"seed": seed, "wall_s": wall,
+                       **score_run(geo, os.path.join(out, f"{name}.log"))}
+                rows[conf].append(row)
+                print(f"run {name}: {json.dumps(row)}", flush=True)
+                return
+            time.sleep(1.0)
+
+    for job in jobs:
+        while len(running) >= args.parallel:
+            reap_one()
+        conf, seed, name, cpath, _ = job
+        logf = open(os.path.join(out, f"{name}.log"), "w")
+        cmd = [sys.executable, "-m", "factored_neus_tpu_torch.exp_runner",
+               "--mode", "train", "--conf", cpath, "--case", "fake_scan",
+               "--type", "dtu", "--seed", str(seed), "--device", args.device]
+        print(f"run {name} started", flush=True)
+        running.append((job, subprocess.Popen(
+            cmd, cwd=REPO, stdout=logf, stderr=subprocess.STDOUT),
+            time.perf_counter(), logf))
+    while running:
+        reap_one()
+
+    summary: Dict[str, object] = {
+        "card": card_line() if args.device.startswith("cuda") else "cpu",
+        "scene": {"n_views": SCENE[0], "H": SCENE[1], "W": SCENE[2],
+                  "y_range": list(Y_RANGE)},
+        "end_iter": args.end_iter, "parallel": args.parallel,
+        "failed": failed}
+    bars = {}
+    if os.path.exists(BARS):
+        with open(BARS) as f:
+            bars = json.load(f)
+    for conf in args.confs:
+        if not rows[conf]:
+            continue
+        rs = sorted(rows[conf], key=lambda r: r["seed"])
+        stats = {m: mean_sd([r[m] for r in rs]) for m in METRICS}
+        entry: Dict[str, object] = {"seeds": rs, **{
+            f"{m}_mean_sd": v for m, v in stats.items()}}
+        if conf in bars:
+            entry["against_jax"] = compare(stats, {
+                m: bars[conf][f"{m}_mean_sd"] for m in METRICS})
+        summary[conf] = entry
+    text = json.dumps(summary, indent=1)
+    with open(os.path.join(out, "summary.json"), "w") as f:
+        f.write(text)
+    if args.summary:
+        os.makedirs(os.path.dirname(os.path.abspath(args.summary)),
+                    exist_ok=True)
+        with open(args.summary, "w") as f:
+            f.write(text)
+    print(text)
+    if failed:
+        raise SystemExit(f"runs failed: {failed}")
+    return summary
+
+
+if __name__ == "__main__":
+    main()

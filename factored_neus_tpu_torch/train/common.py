@@ -1,11 +1,15 @@
-"""Shared training plumbing: the train-config schema and Adam with the
-warmup + cosine schedule.  Counterpart of factored_neus_tpu/train/common.py
-(TrainConfig.from_conf, make_optimizer); ``optax.adam``'s defaults equal
-``torch.optim.Adam``'s (betas 0.9/0.999, eps 1e-8)."""
+"""Shared training plumbing: the train-config schema, Adam with the
+warmup + cosine schedule, and the chunked full-image render of validation
+images and novel views.  Counterpart of factored_neus_tpu/train/common.py
+(TrainConfig.from_conf, make_optimizer, val_chunk_size, fetch_concat,
+chunked_render); ``optax.adam``'s defaults equal ``torch.optim.Adam``'s
+(betas 0.9/0.999, eps 1e-8)."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..utils import schedule
@@ -18,6 +22,7 @@ class TrainConfig:
     learning_rate_alpha: float = 0.05
     end_iter: int = 300000
     batch_size: int = 512
+    validate_resolution_level: int = 4
     warm_up_end: float = 5000.0
     anneal_end: float = 0.0
     use_white_bkgd: bool = False
@@ -28,6 +33,7 @@ class TrainConfig:
     igr_weight: float = 0.1
     mask_weight: float = 0.0
     surface_weight: float = 0.1
+    val_chunk: int = 2048       # rays a chunk of a validation render
     block_steps: int = 1
 
     @classmethod
@@ -40,6 +46,9 @@ class TrainConfig:
             learning_rate_alpha=float(t.get("learning_rate_alpha", 0.05)),
             end_iter=int(t.get("end_iter", 300000)),
             batch_size=int(t.get("batch_size", 512)),
+            validate_resolution_level=int(
+                t.get("validate_resolution_level", 4)),
+            val_chunk=int(t.get("val_chunk", 2048)),
             warm_up_end=float(t.get("warm_up_end", 0.0)),
             anneal_end=float(t.get("anneal_end", 0.0)),
             use_white_bkgd=bool(t.get("use_white_bkgd", False)),
@@ -70,3 +79,46 @@ def set_lr(opt: torch.optim.Optimizer, tcfg: TrainConfig, step: int) -> float:
     for g in opt.param_groups:
         g["lr"] = lr
     return lr
+
+
+def val_chunk_size(tcfg: TrainConfig) -> int:
+    """Rays a chunk of a validation or novel-view render: val_chunk, and
+    at least the batch size."""
+    return max(tcfg.val_chunk, tcfg.batch_size)
+
+
+def fetch_concat(chunks: Sequence[torch.Tensor], n: int) -> np.ndarray:
+    """The per-chunk device tensors concatenated, trimmed to the first n
+    rows and fetched to the host, once every chunk has been queued."""
+    return torch.cat(list(chunks)).cpu().numpy()[:n]
+
+
+def chunked_render(fn: Callable[[torch.Tensor, torch.Tensor, int],
+                                Dict[str, torch.Tensor]],
+                   rays_o: torch.Tensor, rays_d: torch.Tensor, chunk: int,
+                   keys: Sequence[str],
+                   post: Optional[Callable[[Dict[str, torch.Tensor]],
+                                           Dict[str, torch.Tensor]]] = None
+                   ) -> Tuple[Dict[str, np.ndarray], int, int]:
+    """Full-image render in chunks of ``chunk`` rays, the last one padded by
+    repeating its last ray.  fn(o_c, d_c, i) -> dict of per-ray tensors on
+    the device, i being the chunk's first ray; ``keys``: the entries kept;
+    ``post``: out -> dict of derived per-ray tensors (the normal map).
+    Every chunk is queued before anything is fetched.  Returns (dict of
+    [H * W, ...] arrays, H, W)."""
+    H, W = rays_o.shape[:2]
+    ro, rd = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+    n = ro.shape[0]
+    pad = (-n) % chunk
+    if pad:
+        ro = torch.cat([ro, ro[-1:].expand(pad, 3)])
+        rd = torch.cat([rd, rd[-1:].expand(pad, 3)])
+    acc: Dict[str, List[torch.Tensor]] = {k: [] for k in keys}
+    for i in range(0, ro.shape[0], chunk):
+        out = fn(ro[i:i + chunk], rd[i:i + chunk], i)
+        for k in keys:
+            acc[k].append(out[k])
+        if post is not None:
+            for k, v in post(out).items():
+                acc.setdefault(k, []).append(v)
+    return {k: fetch_concat(v, n) for k, v in acc.items()}, H, W

@@ -1,8 +1,11 @@
-"""Stage-1 runner: geometry + radiance training from a conf, and mesh
-extraction.  Counterpart of factored_neus_tpu/train/runner1.py for the
-modes ``train`` and ``validate_mesh``: the loop, reports, checkpoints
-(groups keep the reference's names) and meshes at ``val_mesh_freq``.
-Validation images are not ported yet; their steps are logged and skipped.
+"""Stage-1 runner: geometry + radiance training from a conf, validation
+images, meshes and novel views.  Counterpart of
+factored_neus_tpu/train/runner1.py for DTU scenes, in the modes ``train``,
+``validate_mesh``, ``validate_image``, ``mesh_dtu_shpere2world`` (the CLI's
+spelling) and ``interpolate_<i>_<j>``: the loop, reports and TensorBoard
+scalars under logs/, checkpoints in the JAX package's format (either
+package resumes from the other's), validation panels at ``val_freq`` and
+meshes at ``val_mesh_freq``.
 """
 from __future__ import annotations
 
@@ -10,23 +13,30 @@ import logging
 import os
 import shutil
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import bridge
+from ..data import images as IMG
+from ..data import rays as RAYS
 from ..data.datasets import make_dataset
 from ..meshing import extract as MEXT
-from ..meshing.ply import write_ply
-from ..models.renderer import Stage1Model
+from ..meshing.ply import read_ply_mesh, write_ply
+from ..models import renderer as R
 from ..utils import checkpoints as CK
 from ..utils import config as CFG
+from ..utils import schedule
 from ..utils.device import resolve_device
-from .common import TrainConfig
+from ..utils.logging import MetricsWriter, ThroughputMeter
+from ..utils.video import write_video
+from .common import TrainConfig, chunked_render, val_chunk_size
 from .stage1 import Stage1Trainer
 
 log = logging.getLogger("factored_neus_tpu_torch")
-MODES = ("train", "validate_mesh")
+MODES = ("train", "validate_mesh", "validate_image", "mesh_dtu_shpere2world",
+         "interpolate_<i>_<j>")
 
 # checkpoint group names of the reference (model attribute -> group)
 CKPT_KEYS = {
@@ -36,25 +46,103 @@ CKPT_KEYS = {
     "color": "color_network_fine",
     "ref_color": "refColor_network",
 }
+# groups of the later stages that a JAX stage-1 checkpoint carries; the
+# port keeps them as they were read and writes them back
+PASS_THROUGH = ("lvis_network", "indiLgt_network", "mateIllu_network")
 
 
-def _np_state(module: torch.nn.Module) -> Dict[str, np.ndarray]:
-    return {k: v.detach().cpu().numpy() for k, v in
-            module.state_dict().items()}
+def check_mode(mode: str) -> None:
+    ok = mode in MODES[:-1]
+    if mode.startswith("interpolate_"):
+        parts = mode.split("_")
+        ok = len(parts) == 3 and all(p.isdigit() for p in parts[1:])
+    if not ok:
+        raise NotImplementedError(f"mode {mode!r} is not ported (ported: "
+                                  f"{', '.join(MODES)})")
+
+
+def _jax_leaves(tree) -> List[np.ndarray]:
+    """A tree's leaves in jax.tree_util's order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [l for k in sorted(tree) for l in _jax_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [l for v in tree for l in _jax_leaves(v)]
+    return [tree]
+
+
+def optimizer_leaves(model: R.Stage1Model,
+                     opt: torch.optim.Adam) -> CK.Leaves:
+    """Adam's state as the JAX package's stage-1 optax state leaves: the
+    update count, the first moments, the second moments (each in the
+    params' tree order: the groups color, nerf, ref_color, sdf and
+    variance, which the JAX optimizer trains in stage 1) and the
+    schedule's count.  A parameter without state (it has had no gradient)
+    has zero moments."""
+    def moment(name):
+        return lambda p: (opt.state[p][name] if p in opt.state
+                          else torch.zeros_like(p))
+    steps = [float(s["step"]) for s in opt.state.values()]
+    count = np.asarray(int(max(steps, default=0)), np.int32)
+    return CK.Leaves([
+        count, *_jax_leaves(bridge.jax_tree(model, value=moment("exp_avg"))),
+        *_jax_leaves(bridge.jax_tree(model, value=moment("exp_avg_sq"))),
+        count])
+
+
+def load_optimizer_leaves(model: R.Stage1Model, opt: torch.optim.Adam,
+                          leaves: Sequence[np.ndarray]) -> None:
+    """Sets Adam's state from the JAX package's stage-1 optax leaves
+    (optimizer_leaves' layout).  A parameter whose two moments are zero
+    has had no gradient and gets no state, as in torch."""
+    structure = bridge.jax_tree(model)
+    n = len(_jax_leaves(structure))
+    if len(leaves) != 2 * n + 2:
+        raise ValueError(f"optimizer state: {len(leaves)} leaves, expected "
+                         f"{2 * n + 2} for this model")
+    count = int(leaves[0])
+
+    def tree_of(flat):
+        it = iter(flat)
+
+        def fill(t):
+            if isinstance(t, dict):
+                return {k: fill(t[k]) for k in sorted(t)}
+            if isinstance(t, list):
+                return [fill(v) for v in t]
+            return next(it)
+        return fill(structure)
+
+    moments: Dict[torch.Tensor, Dict[str, torch.Tensor]] = {}
+    for name, flat in (("exp_avg", leaves[1:1 + n]),
+                       ("exp_avg_sq", leaves[1 + n:1 + 2 * n])):
+        def keep(p, v, name=name):
+            moments.setdefault(p, {})[name] = torch.empty_like(p).copy_(v)
+        bridge.load_jax_params(model, tree_of(flat), keep)
+    opt.state.clear()
+    for p, m in moments.items():
+        if m["exp_avg"].any() or m["exp_avg_sq"].any():
+            opt.state[p] = {"step": torch.tensor(float(count)), **m}
+
+
+def _normal_map(out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Per-ray normal [B, 3]: the SDF gradients weighted by the render
+    weights inside the unit sphere, reduced on the device."""
+    g = out["gradients"]
+    w = out["weights"][:, :g.shape[1], None]
+    return {"normals": (g * w * out["inside_sphere"][..., None]).sum(1)}
 
 
 class Runner:
     def __init__(self, conf_path: str, mode: str = "train", case: str = "",
                  is_continue: bool = False, type: str = "dtu",
                  surface_weight: float = 0.1, seed: int = 0, device=None):
-        if mode not in MODES:
-            raise NotImplementedError(f"mode {mode!r} is not ported yet "
-                                      f"(ported: {', '.join(MODES)})")
+        check_mode(mode)
         self.device = resolve_device(device)
         self.conf_path = conf_path
         self.conf = CFG.load(conf_path, case)
         self.base_exp_dir = self.conf["general.base_exp_dir_geo"]
         os.makedirs(self.base_exp_dir, exist_ok=True)
+        self.type = type
         self.dataset = make_dataset(type, self.conf["dataset"], self.device)
         self.tcfg = TrainConfig.from_conf(self.conf,
                                           surface_weight=surface_weight)
@@ -62,8 +150,8 @@ class Runner:
         if self.tcfg.block_steps > 1:
             log.info("train.block_steps = %d: steps run one at a time",
                      self.tcfg.block_steps)
-        self.model = Stage1Model(self.cfg, CFG.variance_init_val(self.conf),
-                                 seed=seed, device=self.device)
+        self.model = R.Stage1Model(self.cfg, CFG.variance_init_val(self.conf),
+                                   seed=seed, device=self.device)
         ds = self.dataset
         self.trainer = Stage1Trainer(
             self.model, self.cfg, self.tcfg,
@@ -72,8 +160,10 @@ class Runner:
             seed=seed + 1)
         self.iter_step = 0
         self.history: List[Dict[str, float]] = []
+        self.passed_through: Dict[str, object] = {}
         self.last_checkpoint: Optional[str] = None
         self.last_mesh: Optional[str] = None
+        self.last_video: Optional[str] = None
         self.mesh_times: Dict[str, float] = {}
         if is_continue:
             latest = CK.latest_checkpoint(self.base_exp_dir,
@@ -86,15 +176,18 @@ class Runner:
 
     def train(self) -> None:
         tcfg, n = self.tcfg, self.dataset.n_images
+        writer = MetricsWriter(os.path.join(self.base_exp_dir, "logs"))
         rng = np.random.RandomState(self.iter_step)
         perm = rng.permutation(n)
-        skipped_val = False
         t_last, steps_since = time.perf_counter(), 0
+        meter = ThroughputMeter()
+        meter.start()
         while self.iter_step < tcfg.end_iter:
             metrics = self.trainer.step(int(perm[self.iter_step % n]),
                                         self.iter_step)
             self.iter_step += 1
             steps_since += 1
+            meter.step(tcfg.batch_size)
             if self.iter_step % tcfg.report_freq == 0:
                 m = {k: float(v) for k, v in metrics.items()}  # syncs
                 now = time.perf_counter()
@@ -103,45 +196,131 @@ class Runner:
                 m["iter"] = self.iter_step
                 t_last, steps_since = now, 0
                 self.history.append(m)
+                writer.scalars(
+                    {"Loss/loss": m["loss"],
+                     "Loss/color_loss": m["color_loss"],
+                     "Loss/eikonal_loss": m["eikonal_loss"],
+                     "Statistics/s_val": m["s_val"],
+                     "Statistics/cdf": m["cdf"],
+                     "Statistics/weight_max": m["weight_max"],
+                     "Statistics/psnr": m["psnr"],
+                     "Perf/rays_per_sec": meter.rays_per_sec},
+                    self.iter_step)
                 log.info("iter %d loss=%.5f psnr=%.2f rays/s=%.0f",
                          self.iter_step, m["loss"], m["psnr"],
                          m["rays_per_sec"])
             if self.iter_step % tcfg.save_freq == 0:
                 self.save_checkpoint()
-            if self.iter_step % tcfg.val_freq == 0 and not skipped_val:
-                log.info("validation images are not ported yet; skipped")
-                skipped_val = True
+            if self.iter_step % tcfg.val_freq == 0:
+                if self.type in ("dtu", "sk3d", "glossy_synthetic",
+                                 "glossy_real"):
+                    self.validate_image()
+                else:
+                    self.validate_synthetic_img()
             if self.iter_step % tcfg.val_mesh_freq == 0:
                 self.validate_mesh(world_space=True)
             if self.iter_step % n == 0:
                 perm = rng.permutation(n)
+        writer.close()
+
+    # -- checkpoints --------------------------------------------------------
 
     def save_checkpoint(self) -> str:
-        groups = {ck: _np_state(getattr(self.model, pk))
-                  for pk, ck in CKPT_KEYS.items()}
-        opt = self.trainer.opt.state_dict()
-        groups["optimizer"] = {
-            f"{i}.{k}": v.detach().cpu().numpy()
-            for i, st in opt["state"].items() for k, v in st.items()}
+        """The JAX runner's groups and layout: the params groups as JAX
+        trees, the optimizer as its optax leaves, iter_step, and the
+        later stages' groups where a loaded checkpoint carried them."""
+        tree = bridge.jax_tree(self.model)
+        groups: Dict[str, object] = {ck: tree[pk]
+                                     for pk, ck in CKPT_KEYS.items()}
+        groups["optimizer"] = optimizer_leaves(self.model, self.trainer.opt)
         groups["iter_step"] = np.asarray(self.iter_step)
+        groups.update(self.passed_through)
         self.last_checkpoint = CK.save_checkpoint(self.base_exp_dir,
                                                   self.iter_step, groups)
         return self.last_checkpoint
 
     def load_checkpoint(self, path: str) -> None:
+        """Reads a checkpoint of either package."""
         loaded = CK.load_checkpoint(path)
         for pk, ck in CKPT_KEYS.items():
-            getattr(self.model, pk).load_state_dict(
-                {k: torch.from_numpy(v) for k, v in loaded[ck].items()})
-        opt = self.trainer.opt
-        sd = opt.state_dict()
-        state: Dict[int, Dict[str, torch.Tensor]] = {}
-        for key, v in loaded.get("optimizer", {}).items():
-            i, name = key.split(".", 1)
-            state.setdefault(int(i), {})[name] = torch.from_numpy(v)
-        sd["state"] = state
-        opt.load_state_dict(sd)
+            bridge.load_jax_group(self.model, pk, loaded[ck])
+        if "optimizer" in loaded:
+            load_optimizer_leaves(self.model, self.trainer.opt,
+                                  loaded["optimizer"])
+        self.passed_through = {k: loaded[k] for k in PASS_THROUGH
+                               if k in loaded}
         self.iter_step = int(loaded["iter_step"])
+
+    def file_backup(self) -> None:
+        rec = os.path.join(self.base_exp_dir, "recording")
+        os.makedirs(rec, exist_ok=True)
+        shutil.copyfile(self.conf_path, os.path.join(rec, "config.conf"))
+
+    # -- validation ---------------------------------------------------------
+
+    def _render_image(self, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                      keys: Sequence[str] = ("color_fine",)
+                      ) -> Dict[str, np.ndarray]:
+        """Chunked no-grad render of a ray grid [H, W, 3]: dict of
+        [H, W, ...] arrays, "normals" among them.  One SDF pack and one
+        radiance pack serve every chunk."""
+        bg = (torch.ones(1, 3, device=self.device)
+              if self.tcfg.use_white_bkgd else None)
+        anneal = schedule.cos_anneal_ratio(self.iter_step,
+                                           self.tcfg.anneal_end)
+        with torch.no_grad():
+            weights = self.model.kernel_weights()
+
+            def fn(o, d, _i):
+                near, far = RAYS.near_far_from_sphere(o, d)
+                return R.render(self.model, self.cfg, o, d, near, far,
+                                background_rgb=bg, cos_anneal_ratio=anneal,
+                                perturb_overwrite=0.0, weights=weights)
+
+            res, H, W = chunked_render(fn, rays_o, rays_d,
+                                       val_chunk_size(self.tcfg), keys,
+                                       post=_normal_map)
+        return {k: v.reshape(H, W, -1) for k, v in res.items()}
+
+    def validate_image(self, idx: int = -1, resolution_level: int = -1
+                       ) -> Dict[str, np.ndarray]:
+        """The JAX runner's DTU validation panels of view idx (random when
+        < 0): validations_fine (render above the ground truth), normals,
+        diffuse, specular and CdPlusCs.  Returns the rendered arrays."""
+        if idx < 0:
+            idx = np.random.randint(self.dataset.n_images)
+        if resolution_level < 0:
+            resolution_level = self.tcfg.validate_resolution_level
+        rays_o, rays_d = self.dataset.gen_rays_at(idx, resolution_level)
+        res = self._render_image(rays_o, rays_d,
+                                 keys=("color_fine", "diffuse_color",
+                                       "specular_color", "surface_color"))
+        it, out = f"{self.iter_step:08d}_0_{idx}", self.base_exp_dir
+        img_fine = (res["color_fine"] * 256).clip(0, 255)
+        gt = self.dataset.image_at(idx, resolution_level)
+        IMG.imwrite(os.path.join(out, "validations_fine", f"v_{it}.png"),
+                    np.concatenate([img_fine, gt]))
+        rot = np.linalg.inv(self.dataset.pose_all[idx][:3, :3].cpu().numpy())
+        normal = (rot[None, None] @ res["normals"][..., None])[..., 0]
+        IMG.imwrite(os.path.join(out, "normals", f"n_{it}.png"),
+                    normal * 128 + 128)
+        IMG.imwrite(os.path.join(out, "diffuse", f"d_{it}.png"),
+                    (res["diffuse_color"] * 256).clip(0, 255))
+        IMG.imwrite(os.path.join(out, "specular", f"s_{it}.png"),
+                    (res["specular_color"] * 256).clip(0, 255))
+        IMG.imwrite(os.path.join(out, "CdPlusCs", f"DPlusS_{it}.png"),
+                    (res["surface_color"] * 256).clip(0, 255))
+        return res
+
+    def validate_synthetic_img(self, idx: int = -1,
+                               resolution_level: int = -1) -> None:
+        """The JAX runner's validation of the synthetic and Shiny families,
+        whose loaders the port does not have yet."""
+        raise NotImplementedError(
+            f"validate_synthetic_img serves dataset type {self.type!r}, "
+            "which the port does not load yet")
+
+    # -- meshes -------------------------------------------------------------
 
     def validate_mesh(self, world_space: bool = False, resolution: int = 512,
                       threshold: float = 0.0) -> str:
@@ -165,7 +344,40 @@ class Runner:
                  len(tris), resolution, times["fill_s"], times["march_s"])
         return out
 
-    def file_backup(self) -> None:
-        rec = os.path.join(self.base_exp_dir, "recording")
-        os.makedirs(rec, exist_ok=True)
-        shutil.copyfile(self.conf_path, os.path.join(rec, "config.conf"))
+    def mesh_dtu_sphere2world(self, mesh_name: str) -> str:
+        """meshes/{mesh_name}.ply taken from the unit sphere to world space
+        through scale_mats_np[0], written to meshes/00300000.ply."""
+        verts, tris = read_ply_mesh(os.path.join(
+            self.base_exp_dir, "meshes", f"{mesh_name}.ply"))
+        s = self.dataset.scale_mats_np[0]
+        verts = verts * s[0, 0] + s[:3, 3][None]
+        out = os.path.join(self.base_exp_dir, "meshes", "00300000.ply")
+        write_ply(out, verts, tris)
+        self.last_mesh = out
+        return out
+
+    # -- novel views --------------------------------------------------------
+
+    def render_novel_image(self, idx_0: int, idx_1: int, ratio: float,
+                           resolution_level: int) -> np.ndarray:
+        rays_o, rays_d = self.dataset.gen_rays_between(idx_0, idx_1, ratio,
+                                                       resolution_level)
+        res = self._render_image(rays_o, rays_d, keys=("color_fine",))
+        return (res["color_fine"] * 256).clip(0, 255).astype(np.uint8)
+
+    def interpolate_view(self, img_idx_0: int, img_idx_1: int,
+                         n_frames: int = 60) -> str:
+        """Novel views between two cameras, there and back, as a video at
+        render/{iter:08d}_{i}_{j}.mp4 (or that name's PNG frame directory
+        where no video encoder is installed)."""
+        images = []
+        for i in range(n_frames):
+            ratio = np.sin(((i / n_frames) - 0.5) * np.pi) * 0.5 + 0.5
+            images.append(self.render_novel_image(img_idx_0, img_idx_1,
+                                                  ratio, resolution_level=4))
+        images += images[::-1]
+        self.last_video = write_video(
+            os.path.join(self.base_exp_dir, "render",
+                         f"{self.iter_step:08d}_{img_idx_0}_{img_idx_1}.mp4"),
+            images, fps=30, bgr=self.dataset.color_bgr)
+        return self.last_video

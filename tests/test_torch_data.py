@@ -78,11 +78,54 @@ def _encode_with_filter(img: np.ndarray, ftype: int) -> bytes:
             + chunk(b"IEND", b""))
 
 
+def _row_filters(data: bytes, H: int, stride: int) -> set:
+    """The filter type bytes of a PNG's rows."""
+    pos, idat = 8, []
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat.append(data[pos + 8:pos + 8 + n])
+        pos += 12 + n
+    raw = zlib.decompress(b"".join(idat))
+    return {raw[y * (stride + 1)] for y in range(H)}
+
+
+_CV2_FILTER = {0: "NONE", 1: "SUB", 2: "UP", 3: "AVG", 4: "PAETH"}
+
+
 @pytest.mark.parametrize("ftype", [0, 1, 2, 3, 4])
 def test_png_row_filters(ftype):
+    """Each row filter, unfiltered by the native library: PNGs of the
+    reference encoder above, and PNGs cv2 writes with that filter forced
+    on every row (grey, RGB and RGBA: 1, 3 and 4 bytes a pixel)."""
     img = _image(C=3, seed=ftype)
     np.testing.assert_array_equal(
         TI.png_decode(_encode_with_filter(img, ftype)), img)
+    flag = getattr(cv2, f"IMWRITE_PNG_FILTER_{_CV2_FILTER[ftype]}")
+    for C in (1, 3, 4):
+        im = _image(H=40, W=57, C=C, seed=ftype + C)
+        im = im[..., 0] if C == 1 else im
+        ok, buf = cv2.imencode(".png", im, [cv2.IMWRITE_PNG_FILTER, flag])
+        assert ok
+        data = buf.tobytes()
+        assert _row_filters(data, 40, 57 * C) == {ftype}
+        want = cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)
+        want = want[..., None] if want.ndim == 2 else want
+        order = {1: [0], 3: [2, 1, 0], 4: [2, 1, 0, 3]}[C]
+        np.testing.assert_array_equal(TI.png_decode(data), want[..., order])
+
+
+def test_png_refuses_an_unknown_row_filter():
+    data = _encode_with_filter(_image(C=3), 0)
+    H, W = 13, 17
+    rows = bytearray(b"".join(bytes([0]) + bytes(W * 3) for _ in range(H)))
+    rows[5 * (W * 3 + 1)] = 7
+    chunk = lambda t, b: (struct.pack(">I", len(b)) + t + b + struct.pack(
+        ">I", zlib.crc32(t + b) & 0xFFFFFFFF))
+    bad = (data[:33] + chunk(b"IDAT", zlib.compress(bytes(rows)))
+           + chunk(b"IEND", b""))
+    with pytest.raises(ValueError, match="filter 7 in row 5"):
+        TI.png_decode(bad)
 
 
 def test_png_writer_roundtrips_through_cv2(tmp_path):

@@ -202,7 +202,11 @@ def test_cli_trains_womask_and_checkpoints_the_nerf(tmp_path):
     assert runner.iter_step == 4 and np.isfinite(runner.history[0]["loss"])
     ck = CK.load_checkpoint(runner.last_checkpoint)
     assert set(CKPT_KEYS.values()) <= set(ck)
-    init = TR.Stage1Model(runner.cfg, seed=0).nerf.state_dict()
-    moved = [k for k, v in ck["nerf"].items()
-             if not np.array_equal(v, init[k].numpy())]
-    assert moved and set(ck["nerf"]) == set(init)
+    # the checkpoint keeps the JAX package's layout (bridge.jax_tree)
+    init = bridge.jax_tree(TR.Stage1Model(runner.cfg, seed=0))["nerf"]
+    saved, start = (jax.tree_util.tree_flatten_with_path(t)[0]
+                    for t in (ck["nerf"], init))
+    assert [p for p, _ in saved] == [p for p, _ in start]
+    moved = [p for (p, v), (_, v0) in zip(saved, start)
+             if not np.array_equal(v, v0)]
+    assert moved
