@@ -41,7 +41,18 @@
 8. checks finite losses, that each run launched exactly its kernels (the
    stash pair only in the stash run, K1-bwd-split only in the split run),
    and that the checkpoint loads back;
-9. prints {"kernels": [...]}, the card line, and as its last line
+9. stage 2 on the 30-step stage-1 checkpoint: 30 full-width steps through
+   the port's stage-2 CLI (python -m factored_neus_tpu_torch.lvis),
+   counters at 0 just before: K2 six times a step, K1-fwd three times,
+   K3-fwd once, nothing else; the checkpoint loads back; K2 at the
+   secondary coarse sweep's 1,048,576 rows and the localisation sweep's
+   65,536, K1-fwd at 512 and 2,048 rows and K3-fwd at 2,048, on the run's
+   packs, against their twins at 1e-5 abs and timed; one 64-ray stage-2
+   step on the card against the same step on the CPU twins (same rays and
+   hemisphere draws); --mode validate_image through the CLI (counters at
+   0: K2 6, K1-fwd 3, K3-fwd 1 a chunk); and one 2048-ray chunk of that
+   view rendered by the card and by the CPU twins;
+10. prints {"kernels": [...]}, the card line, and as its last line
    {"ok": true, "device": {...}}.
 Any failure raises; the script then exits non-zero without the last line.
 """
@@ -93,6 +104,26 @@ KD_CHECK = 4096         # KD-tree queries held against brute force
 # a check (67,108,864 pre-activations at full size)
 MASK_MARGIN = 1e-6
 MAX_MASK_FLIPS = 16
+STAGE2_STEPS = 30
+# a stage-2 step at batch 512: launches per kernel, and the rows of the
+# sweeps that no stage-1 path runs (the secondary coarse sweep, 512 rays x
+# 4 directions x 512 samples; the localisation sweep, 512 x 128; K1-fwd
+# at the surface normals and at the secondary surface points; K3-fwd at
+# the first-hit colour)
+STAGE2_PER_STEP = {"sdf_fwd": 6, "geometry_fwd": 3, "radiance_fwd": 1}
+STAGE2_ROWS = {"sdf_fwd": (512 * 4 * 512, 512 * 128),
+               "geometry_fwd": (512, 512 * 4), "radiance_fwd": (512 * 4,)}
+# the stage-2 step, card against the CPU twins: the JAX package's stage-2
+# gradient tolerance (tests/test_torch_parity.py), per tensor, and on the
+# loss
+S2_ATOL, S2_RTOL = 1.2e-3, 3e-3
+# a stage-2 validation chunk, card against the CPU twins: at most
+# S2_FLIP_SHARE of the rays may change sdf_mask (an sdf within rounding of
+# 0 at a primary crossing), and of the others at least S2_CHUNK_SHARE must
+# agree within S2_CHUNK_TOL abs (the JAX package's lvis_render tolerance)
+# in all four maps: a secondary ray whose first crossing moves takes
+# another surface's colour
+S2_FLIP_SHARE, S2_CHUNK_SHARE, S2_CHUNK_TOL = 1e-3, 0.99, 3e-4
 
 
 def card_line() -> str:
@@ -662,16 +693,20 @@ def check_validation_shapes(device, results) -> None:
 
 def write_conf(tmp: str, steps: int = TRAIN_STEPS,
                base: str = "wmask.conf") -> str:
-    """confs/<base> with the scene, experiment directory and a
-    ``steps``-step schedule pointed into tmp; writes the scene too."""
+    """confs/<base> with the scene, experiment directories and a
+    ``steps``-step schedule (stage 1 and stage 2) pointed into tmp; writes
+    the scene too."""
     from factored_neus_tpu_torch.data.fake_scene import write_sphere_scene
     write_sphere_scene(os.path.join(tmp, "data", "sphere"))
     with open(os.path.join(HERE, "confs", base)) as f:
         text = f.read()
     subs = {r"base_exp_dir_geo = \S+": f"base_exp_dir_geo = {tmp}/exp/"
             "CASE_NAME/geometry",
+            r"base_exp_dir_lvis = \S+": f"base_exp_dir_lvis = {tmp}/exp/"
+            "CASE_NAME/lvis",
             r"data_dir = \S+": f"data_dir = {tmp}/data/CASE_NAME/",
             r"end_iter = 300000": f"end_iter = {steps}",
+            r"end_iter = 10000": f"end_iter = {steps}",
             r"save_freq = \d+": f"save_freq = {steps}",
             r"val_freq = \d+": "val_freq = 100000",
             r"val_mesh_freq = \d+": "val_mesh_freq = 100000",
@@ -694,6 +729,14 @@ def all_kernels():
     return {k.name: k for k in (GK.K1_FWD, GK.K1_BWD, SK.SDF_FWD, RK.K3_FWD,
                                 RK.K3_BWD, GK.K1_FWD_STASH, GK.K1_BWD_STASH,
                                 GK.K1_BWD_SPLIT)}
+
+
+def zero_counters():
+    """Sets every launch counter to 0; returns the kernels by name."""
+    kernels = all_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    return kernels
 
 
 # the kernels each training run launches, and only those
@@ -810,9 +853,7 @@ def train_run(tmp: str, steps: int, base: str = "wmask.conf"):
     from factored_neus_tpu_torch.utils import checkpoints as CK
 
     conf = write_conf(tmp, steps, base)
-    kernels = all_kernels()
-    for k in kernels.values():
-        k.launches = 0
+    kernels = zero_counters()
     runner = exp_runner.main(["--mode", "train", "--conf", conf, "--case",
                               "sphere", "--type", "dtu"])
     torch.cuda.synchronize()
@@ -862,9 +903,7 @@ def check_mesh(conf: str) -> str:
     from factored_neus_tpu_torch.native import marching_cubes
     from factored_neus_tpu_torch.ops import sdf_kernel as SK
 
-    kernels = all_kernels()
-    for k in kernels.values():
-        k.launches = 0
+    kernels = zero_counters()
     t0 = time.perf_counter()
     runner = exp_runner.main(["--mode", "validate_mesh", "--is_continue",
                               "--conf", conf, "--case", "sphere", "--type",
@@ -938,20 +977,26 @@ def check_val_launches(label: str, launches, chunks: int) -> None:
         raise AssertionError(f"{label}: launched {got}, expected {want}")
 
 
+def spread(rays):
+    """VAL_CHUNK rays spread evenly over a view's ray grid [H, W, 3] (every
+    k-th ray in raster order), so that a chunk sees the object as well as
+    the background: [VAL_CHUNK, 3]."""
+    flat = rays.reshape(-1, 3)
+    return flat[::max(1, flat.shape[0] // VAL_CHUNK)][:VAL_CHUNK]
+
+
 def check_validation(conf: str):
     """--mode validate_image --is_continue --idx 0 through the CLI (level
     1), counters at 0 just before: the five panels and the launches; then
-    one VAL_CHUNK-ray chunk of that view rendered by the card and by the
-    CPU twins on the same weights, held at CHUNK_TOL / CHUNK_SHARE /
-    CHUNK_MAX.  Returns the card's runner."""
+    one VAL_CHUNK-ray chunk spread over that view (spread) rendered by the
+    card and by the CPU twins on the same weights, held at CHUNK_TOL /
+    CHUNK_SHARE / CHUNK_MAX.  Returns the card's runner."""
     import numpy as np
     import torch
     from factored_neus_tpu_torch import exp_runner
     from factored_neus_tpu_torch.train.runner1 import Runner
 
-    kernels = all_kernels()
-    for k in kernels.values():
-        k.launches = 0
+    kernels = zero_counters()
     t0 = time.perf_counter()
     runner = exp_runner.main(["--mode", "validate_image", "--is_continue",
                               "--idx", "0", "--conf", conf, "--case",
@@ -973,9 +1018,7 @@ def check_validation(conf: str):
         raise AssertionError(f"validate_image: iter {runner.iter_step}, "
                              f"missing panels {missing}")
 
-    rays_o, rays_d = ds.gen_rays_at(0, 1)
-    o = rays_o.reshape(1, -1, 3)[:, :VAL_CHUNK]
-    d = rays_d.reshape(1, -1, 3)[:, :VAL_CHUNK]
+    o, d = (spread(r)[None] for r in ds.gen_rays_at(0, 1))
     card = runner._render_image(o, d, VAL_KEYS)
     twin = Runner(conf, mode="validate_image", case="sphere",
                   is_continue=True, device="cpu")
@@ -1105,6 +1148,274 @@ def check_eval(mesh: str) -> None:
         raise AssertionError("the KD-tree disagrees with brute force")
 
 
+def check_stage2_launches(label: str, launches, units: int) -> None:
+    """K2, K1-fwd and K3-fwd STAGE2_PER_STEP times a step (or a validation
+    chunk), over ``units`` of them, and no other kernel."""
+    want = {n: c * units for n, c in STAGE2_PER_STEP.items()}
+    got = {n: c for n, c in launches.items() if c}
+    print(f"{label}: launches {got}")
+    if got != want:
+        raise AssertionError(f"{label}: launched {got}, expected {want}")
+
+
+def stage2_run(conf: str, card: str):
+    """STAGE2_STEPS full-width stage-2 steps through the port's stage-2 CLI
+    on the stage-1 checkpoint of ``conf``'s run, counters at 0 just before;
+    the launches, finite losses, and the checkpoint read back.  Returns
+    (runner, launches)."""
+    import numpy as np
+    import torch
+    from factored_neus_tpu_torch import bridge, lvis
+    from factored_neus_tpu_torch.utils import checkpoints as CK
+
+    kernels = zero_counters()
+    runner = lvis.main(["--mode", "train", "--conf", conf, "--case",
+                        "sphere", "--type", "dtu"])
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    check_stage2_launches(f"stage-2 CLI, {STAGE2_STEPS} steps", launches,
+                          STAGE2_STEPS)
+    for m in runner.history:
+        print(f"stage 2 iter {m['iter']}: lvis loss {m['lvis_loss']:.5f} "
+              f"trace radiance loss {m['trace_radiance_loss']:.5f} hit rays "
+              f"{m['n_hit']:.0f} of {runner.tcfg.batch_size}, rays/s "
+              f"{m['rays_per_sec']:.0f}")
+        if not (math.isfinite(m["loss"]) and m["n_hit"] > 0):
+            raise AssertionError("stage 2: non-finite loss or no hit")
+    if (runner.iter_step != STAGE2_STEPS or runner.tcfg.batch_size != 512
+            or len(runner.history) != STAGE2_STEPS // 10):
+        raise AssertionError("stage 2 did not run its steps")
+    print(f"stage-2 rays/s at iter {runner.history[-1]['iter']}: "
+          f"{runner.history[-1]['rays_per_sec']:.0f} on {card}")
+    ckpt = CK.load_checkpoint(runner.last_checkpoint)
+    tree = bridge.jax_tree(runner.model, groups=("lvis", "indirect"))
+    for pk, ck in (("lvis", "lvis_network"), ("indirect", "indiLgt_network")):
+        for i, (a, b) in enumerate(zip(ckpt[ck], tree[pk], strict=True)):
+            if any(not np.array_equal(a[k], b[k]) for k in b):
+                raise AssertionError(f"stage-2 checkpoint does not load "
+                                     f"back: {ck} layer {i}")
+    if int(ckpt["iter_step"]) != STAGE2_STEPS or len(ckpt["optimizer"]) != 42:
+        raise AssertionError("stage-2 checkpoint: iter_step or optimizer")
+    print(f"stage-2 checkpoint {os.path.basename(runner.last_checkpoint)} "
+          f"loads back")
+    return runner, launches
+
+
+def check_stage2_shapes(device, results, model) -> None:
+    """K2, K1-fwd and K3-fwd at the stage-2 step's new shapes
+    (STAGE2_ROWS), on the stage-2 run's packs, against their twins at 1e-5
+    abs; times, plain times and bounds (by operations, which scale with
+    the rows: check_kernels' bounds at its rows) go into each kernel's
+    entry under "stage2"."""
+    import torch
+    from factored_neus_tpu_torch.ops import geometry_kernel as GK
+    from factored_neus_tpu_torch.ops import radiance_kernel as RK
+    from factored_neus_tpu_torch.ops import sdf_kernel as SK
+
+    (ws, bs, pack), (rws, rbs, rpack) = model.kernel_weights()
+    cfg, rcfg = model.stage1.sdf.cfg, model.stage1.color.cfg
+    wn, bn = list(ws[:-1]) + [ws[-1][:1]], list(bs[:-1]) + [bs[-1][:1]]
+    gen = torch.Generator(device=device).manual_seed(3)
+    by_name = {r["name"]: r for r in results}
+    rows0 = {"sdf_fwd": N_SWEEP, "geometry_fwd": N_CORE,
+             "radiance_fwd": N_CORE}
+
+    def rand(n, d=3, scale=0.5):
+        return torch.randn(n, d, device=device, generator=gen) * scale
+
+    def case(name, rows):
+        x = rand(rows)
+        if name == "sdf_fwd":
+            return (lambda: SK.sdf_forward(wn, bn, cfg, x, pack),
+                    lambda: SK.sdf_forward_plain(wn, bn, cfg, x))
+        if name == "geometry_fwd":
+            return (lambda: GK.launch_forward(cfg, x, ws, bs, pack),
+                    lambda: GK.geometry_plain(ws, bs, x, cfg))
+        rin = [x, rand(rows), torch.nn.functional.normalize(rand(rows), dim=-1),
+               rand(rows, rcfg.d_feature)]
+        return (lambda: RK.launch_forward(rcfg, rws, rbs, *rin, pack=rpack),
+                lambda: RK.radiance_plain(rws, rbs, rcfg, *rin))
+
+    for name, shapes in STAGE2_ROWS.items():
+        e = by_name[name]
+        if e["bound_by"] != "operations":
+            raise AssertionError(f"{name}: bound by bytes at the step")
+        for rows in shapes:
+            kernel, plain = case(name, rows)
+            with torch.no_grad():
+                got, want = kernel(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            torch.cuda.synchronize()
+            err = max(worst(a, b, 1e-5, 0.0)[0] for a, b in zip(got, want))
+            reps = 5 if rows >= N_CORE else 20
+
+            def plain_ng():
+                with torch.no_grad():
+                    plain()
+            row = {"rows": rows, "max_abs_err": err,
+                   "ms": cuda_ms(kernel, reps), "plain_ms": cuda_ms(plain_ng,
+                                                                    3),
+                   "bound_ms": e["bound_ms"] * rows / rows0[name],
+                   "bound_3xtf32_ms": e["bound_3xtf32_ms"] * rows
+                   / rows0[name]}
+            e.setdefault("stage2", []).append(row)
+            print(f"stage-2 shape {name} N={rows}: max|err| {err:.3e} "
+                  f"(tolerance 1e-5 abs), {row['ms']:.3f} ms (plain "
+                  f"{row['plain_ms']:.3f}), bounds {row['bound_ms']:.3f} "
+                  f"f32, {row['bound_3xtf32_ms']:.3f} 3xTF32 "
+                  f"({row['bound_3xtf32_ms'] / row['ms']:.1%} of it)")
+            if not err <= 1e-5 or not all(torch.isfinite(g).all()
+                                          for g in got):
+                raise AssertionError(f"{name} disagrees with its twin at "
+                                     f"{rows} rows")
+            del got, want
+
+
+def stage2_draws(rng, n: int):
+    import torch
+    return [torch.from_numpy(rng.rand(n, 4).astype("float32"))
+            for _ in range(2)]
+
+
+def check_stage2_step_against_cpu(conf: str) -> None:
+    """One full-width stage-2 step at STEP_RAYS rays of view 0: the card
+    (kernels) against the CPU (twins), both float32, on the same weights,
+    rays and hemisphere draws: sdf_mask equal (a flipped ray is printed
+    with its sdf margin, the least |sdf| of its localisation sweep), the
+    loss and every lvis and indirect gradient at S2_ATOL + S2_RTOL
+    max|ref| per tensor."""
+    import numpy as np
+    import torch
+    from factored_neus_tpu_torch.data import rays as RAYS
+    from factored_neus_tpu_torch.models import renderer as R
+    from factored_neus_tpu_torch.train import losses as L
+    from factored_neus_tpu_torch.train.runner2 import Runner
+
+    card, cpu = (Runner(conf, mode="validate_image", case="sphere",
+                        device=dev) for dev in ("cuda", "cpu"))
+    ds = cpu.dataset
+    rng = np.random.RandomState(0)
+    H, W = ds.images.shape[1:3]
+    px = torch.from_numpy(rng.randint(0, W, STEP_RAYS))
+    py = torch.from_numpy(rng.randint(0, H, STEP_RAYS))
+    o, d, _, _ = RAYS.rays_from_pixels(px, py, ds.images, ds.masks,
+                                       ds.intrinsics_all_inv, ds.pose_all, 0)
+    u = stage2_draws(rng, STEP_RAYS)
+
+    def step(runner, dev):
+        oo, dd = o.to(dev), d.to(dev)
+        near, far = RAYS.near_far_from_sphere(oo, dd)
+        out = R.lvis_render(runner.model, runner.cfg, oo, dd, near, far,
+                            *(v.to(dev) for v in u))
+        loss, m = L.stage2_losses(out)
+        loss.backward()
+        grads = {n: p.grad.detach().cpu().double()
+                 for n, p in runner.model.named_parameters()
+                 if p.grad is not None}
+        return float(loss.detach()), grads, out["sdf_mask"].cpu(), m
+
+    l_card, g_card, m_card, met = step(card, "cuda")
+    torch.cuda.synchronize()
+    l_cpu, g_cpu, m_cpu, _ = step(cpu, "cpu")
+    flips = (m_card != m_cpu).nonzero()[:, 0].tolist()
+    for i in flips:
+        oo, dd = o[i:i + 1].cuda(), d[i:i + 1].cuda()
+        near, far = RAYS.near_far_from_sphere(oo, dd)
+        with torch.no_grad():
+            _, sdf, _ = R._stage23_util(card.model.stage1, card.cfg, oo, dd,
+                                        near, far,
+                                        card.model.kernel_weights()[0])
+        print(f"stage-2 step: ray {i} sdf_mask card {bool(m_card[i])} CPU "
+              f"{bool(m_cpu[i])}, sdf margin {float(sdf.abs().min()):.3e}")
+    if set(g_card) != set(g_cpu) or not all(
+            n.startswith(("lvis.", "indirect.")) for n in g_card):
+        raise AssertionError("the stage-2 steps reached other parameters")
+    ratios = {n: worst_scaled(g_card[n], g_cpu[n], S2_ATOL, S2_RTOL)[1]
+              for n in g_cpu}
+    at = max(ratios, key=ratios.get)
+    l_ratio = abs(l_card - l_cpu) / (S2_ATOL + S2_RTOL * abs(l_cpu))
+    print(f"stage-2 step check, {STEP_RAYS} rays full width, "
+          f"{int(met['n_hit'])} hit, {len(g_cpu)} parameter tensors: loss "
+          f"card {l_card:.8f} CPU {l_cpu:.8f} (ratio {l_ratio:.3f}); worst "
+          f"gradient ratio to ({S2_ATOL:g} + {S2_RTOL:g} max|ref|) "
+          f"{ratios[at]:.3f} in {at}; sdf_mask flips {len(flips)}")
+    if flips or l_ratio > 1.0 or ratios[at] > 1.0 or not math.isfinite(
+            l_card):
+        raise AssertionError("the card's stage-2 step disagrees with the "
+                             "CPU's")
+
+
+def check_stage2_validation(conf: str) -> None:
+    """--mode validate_image of stage 2 through the CLI (level 1, a random
+    view), counters at 0 just before: the two panels and the launches a
+    chunk; then one VAL_CHUNK-ray chunk spread over view 0 (spread),
+    rendered by the card and by the CPU twins on the same weights and
+    hemisphere draws, a tenth of its rays at least on the surface, held at
+    S2_FLIP_SHARE, S2_CHUNK_SHARE and S2_CHUNK_TOL."""
+    import glob
+    import numpy as np
+    import torch
+    from factored_neus_tpu_torch import lvis
+    from factored_neus_tpu_torch.data import rays as RAYS
+    from factored_neus_tpu_torch.models import renderer as R
+    from factored_neus_tpu_torch.train.runner2 import PANEL_KEYS, Runner
+
+    kernels = zero_counters()
+    t0 = time.perf_counter()
+    runner = lvis.main(["--mode", "validate_image", "--is_continue",
+                        "--conf", conf, "--case", "sphere", "--type", "dtu"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ds = runner.dataset
+    chunks = math.ceil(ds.H * ds.W / VAL_CHUNK)
+    check_stage2_launches(
+        f"stage-2 validate_image {ds.H}x{ds.W} level 1, {chunks} chunks "
+        f"({wall:.3f} s with the runner's start)",
+        {name: k.launches for name, k in kernels.items()}, chunks)
+    it = runner.iter_step
+    found = [glob.glob(os.path.join(runner.base_exp_dir, p)) for p in
+             (f"lvis/lvis_{it}_*.png",
+              f"trace_radiance/trace_radiance{it}_*.png")]
+    if it != STAGE2_STEPS or not all(found):
+        raise AssertionError(f"stage-2 validate_image: iter {it}, panels "
+                             f"{found}")
+
+    o, d = (spread(r) for r in ds.gen_rays_at(0, 1))
+    u = stage2_draws(np.random.RandomState(1), VAL_CHUNK)
+    twin = Runner(conf, mode="validate_image", case="sphere",
+                  is_continue=True, device="cpu")
+    outs = []
+    for r, dev in ((runner, "cuda"), (twin, "cpu")):
+        oo, dd = o.to(dev), d.to(dev)
+        near, far = RAYS.near_far_from_sphere(oo, dd)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = R.lvis_render(r.model, r.cfg, oo, dd, near, far,
+                                *(v.to(dev) for v in u))
+        outs.append({k: v.cpu().numpy() for k, v in out.items()})
+        print(f"stage-2 chunk of {VAL_CHUNK} rays on {dev}: "
+              f"{time.perf_counter() - t0:.3f} s")
+    card, cpu = outs
+    if card["sdf_mask"].sum() < 0.1 * VAL_CHUNK:
+        raise AssertionError("the stage-2 chunk hardly sees the surface")
+    same = card["sdf_mask"] == cpu["sdf_mask"]
+    err = np.max([np.abs(card[k] - cpu[k]).reshape(VAL_CHUNK, -1).max(-1)
+                  for k in PANEL_KEYS], 0)[same]
+    tight = int((err <= S2_CHUNK_TOL).sum())
+    print(f"stage-2 validation chunk, card against the CPU twins: "
+          f"{int(card['sdf_mask'].sum())} of {VAL_CHUNK} rays hit, "
+          f"{VAL_CHUNK - int(same.sum())} sdf_mask flips (at most "
+          f"{S2_FLIP_SHARE:.1%}); of the others {tight} within "
+          f"{S2_CHUNK_TOL:g} abs in all four maps (need "
+          f"{S2_CHUNK_SHARE:.0%}), max |err| {err.max():.3e}")
+    if (VAL_CHUNK - same.sum() > S2_FLIP_SHARE * VAL_CHUNK
+            or tight < S2_CHUNK_SHARE * same.sum()
+            or not all(np.isfinite(card[k]).all() for k in PANEL_KEYS)):
+        raise AssertionError("the card's stage-2 render disagrees with the "
+                             "CPU twins'")
+
+
 def subprocess_run(flag: str, env: dict, label: str) -> dict:
     """Runs this script with ``flag`` in a child process (the switches are
     read at import); returns its last line's JSON."""
@@ -1221,6 +1532,11 @@ def main() -> int:
         check_dtu_size_validation(tmp, conf, runner.last_checkpoint, card)
         check_other_modes(conf, mesh)
         check_eval(mesh)
+        runner2, launches2 = stage2_run(conf, card)
+        check_stage2_shapes(device, kernels, runner2.model)
+        del runner2
+        check_stage2_step_against_cpu(conf)
+        check_stage2_validation(conf)
 
     stash = subprocess_run(STASH_RUN, {"FNEUS_PG_HBM_STASH": "1"}, "stash")
     print(f"stash run rays/s over steps 1-{STASH_STEPS} (a new process: "
@@ -1234,6 +1550,7 @@ def main() -> int:
                          else launches)[k["name"]]
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched")
+        k["stage2_launches"] = launches2[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

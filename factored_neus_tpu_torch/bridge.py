@@ -6,7 +6,10 @@ and of the tests and tools.
 JAX layouts: weight-normed layers ``{'v': [in, out], 'g': [out], 'b'}``,
 plain layers ``{'w': [in, out], 'b'}``, the variance ``{'variance': []}``,
 the background NeRF ``{'pts_linears': [...], 'views_linear',
-'feature_linear', 'alpha_linear', 'rgb_linear'}``.
+'feature_linear', 'alpha_linear', 'rgb_linear'}``, Lvis and IndirectLight
+a list of plain layers.  A model's groups are its ``GROUPS``: those of a
+Stage1Model, and of a Stage2Model, which keeps the stage-1 groups in its
+frozen ``stage1``.
 The port keeps torch layouts: ``weight_v`` [out, in], ``weight_g`` [out, 1],
 ``nn.Linear.weight`` [out, in].  Tensors shaped like the parameters (their
 gradients, Adam's moments) cross by the same map: ``jax_tree(model,
@@ -16,7 +19,7 @@ Nothing here imports JAX.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -24,6 +27,8 @@ from torch import nn
 
 from .ops.mlp import WNLinear
 
+# the Sequential of Lvis' and IndirectLight's layers
+_MLP = {"lvis": "lvis", "indirect": "indi"}
 # parameter -> the tensor of that shape to read (the parameter itself,
 # its gradient, an optimizer moment)
 Value = Callable[[torch.Tensor], torch.Tensor]
@@ -51,6 +56,19 @@ def _refcolor_linears(rc: nn.Module) -> Dict[str, List[nn.Linear]]:
     return {"net_cd": [rc.net_cd[i] for i in (0, 2, 4, 6, 8)],
             "viewdir_mlp": list(rc.viewdir_mlp),
             "net_cs": [rc.net_cs[0]]}
+
+
+def _mlp_linears(seq: nn.Sequential) -> List[nn.Linear]:
+    """The linear layers of Lvis' or IndirectLight's stack."""
+    return [m for m in seq if isinstance(m, nn.Linear)]
+
+
+def _module(model: nn.Module, group: str) -> nn.Module:
+    """The module of a params group: a Stage2Model holds the stage-1
+    groups in ``stage1``."""
+    if group not in ("lvis", "indirect") and hasattr(model, "stage1"):
+        model = model.stage1
+    return getattr(model, group)
 
 
 def _nerf_linears(nerf: nn.Module) -> Dict[str, Any]:
@@ -97,29 +115,35 @@ def load_layers(module: nn.Module, layers: List[Dict[str, Any]],
 
 def load_jax_group(model: nn.Module, group: str, params: Any,
                    assign: Assign = _copy_into) -> None:
-    """Copy one JAX stage-1 params group (nerf, sdf, variance, color or
-    ref_color; numpy leaves) into a Stage1Model, or hand each value to
-    ``assign``."""
+    """Copy one JAX params group (nerf, sdf, variance, color, ref_color,
+    lvis or indirect; numpy leaves) into a Stage1Model or Stage2Model, or
+    hand each value to ``assign``."""
+    if group not in model.GROUPS:
+        raise KeyError(f"no params group {group!r} in {type(model).__name__}")
+    module = _module(model, group)
     if group in ("sdf", "color"):
-        load_layers(getattr(model, group), params, assign)
+        load_layers(module, params, assign)
     elif group == "variance":
-        assign(model.variance.variance,
+        assign(module.variance,
                torch.tensor(np.asarray(params["variance"], np.float32)))
     elif group == "ref_color":
-        for name, lins in _refcolor_linears(model.ref_color).items():
+        for name, lins in _refcolor_linears(module).items():
             for lin, p in zip(lins, params[name], strict=True):
                 _set_layer(lin, p, assign)
     elif group == "nerf":
-        load_nerf(model.nerf, params, assign)
+        load_nerf(module, params, assign)
     else:
-        raise KeyError(f"no stage-1 params group {group!r}")
+        for lin, p in zip(_mlp_linears(getattr(module, _MLP[group])), params,
+                          strict=True):
+            _set_layer(lin, p, assign)
 
 
 def load_jax_params(model: nn.Module, params: Dict[str, Any],
-                    assign: Assign = _copy_into) -> None:
-    """Copy a JAX stage-1 params dict (groups nerf, sdf, variance, color,
-    ref_color; numpy leaves) into a Stage1Model."""
-    for group in ("sdf", "color", "variance", "ref_color", "nerf"):
+                    assign: Assign = _copy_into,
+                    groups: Optional[Sequence[str]] = None) -> None:
+    """Copy the model's groups (or ``groups``) of a JAX params dict (numpy
+    leaves) into a Stage1Model or Stage2Model."""
+    for group in groups or model.GROUPS:
         load_jax_group(model, group, params[group], assign)
 
 
@@ -143,21 +167,27 @@ def jax_tree_layers(module: nn.Module, grads: bool = False,
     return [_get_layer(l, get) for l in _linears(module)]
 
 
+def _jax_group(module: nn.Module, group: str, get: Value) -> Any:
+    if group in ("sdf", "color"):
+        return jax_tree_layers(module, value=get)
+    if group == "variance":
+        return {"variance": get(module.variance).detach().cpu().numpy()}
+    if group == "ref_color":
+        return {name: [_get_layer(l, get) for l in lins]
+                for name, lins in _refcolor_linears(module).items()}
+    if group == "nerf":
+        return {name: ([_get_layer(l, get) for l in lins]
+                       if isinstance(lins, list) else _get_layer(lins, get))
+                for name, lins in _nerf_linears(module).items()}
+    return [_get_layer(l, get)
+            for l in _mlp_linears(getattr(module, _MLP[group]))]
+
+
 def jax_tree(model: nn.Module, grads: bool = False,
-             value: Optional[Value] = None) -> Dict[str, Any]:
-    """The model's parameters (or their .grad, or ``value`` of each
-    parameter) in the JAX pytree layout."""
+             value: Optional[Value] = None,
+             groups: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+    """The parameters (or their .grad, or ``value`` of each parameter) of
+    the model's groups (or ``groups``) in the JAX pytree layout."""
     get = _value(grads, value)
-    tree: Dict[str, Any] = {
-        g: jax_tree_layers(getattr(model, g), value=get)
-        for g in ("sdf", "color")}
-    tree["variance"] = {
-        "variance": get(model.variance.variance).detach().cpu().numpy()}
-    tree["ref_color"] = {
-        name: [_get_layer(l, get) for l in lins]
-        for name, lins in _refcolor_linears(model.ref_color).items()}
-    tree["nerf"] = {
-        name: ([_get_layer(l, get) for l in lins] if isinstance(lins, list)
-               else _get_layer(lins, get))
-        for name, lins in _nerf_linears(model.nerf).items()}
-    return tree
+    return {g: _jax_group(_module(model, g), g, get)
+            for g in groups or model.GROUPS}

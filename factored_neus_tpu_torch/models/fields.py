@@ -8,15 +8,19 @@ shapes.  Counterpart of factored_neus_tpu/models/fields.py:
   SingleVarianceNetwork   inv_s = exp(10 * variance)
   RefColor                surface reflection colour (diffuse + specular)
   NeRF                    NeRF++ background model of the womask configs
+  Lvis                    stage-2 light visibility of (point, direction)
+  IndirectLight           stage-2 per-point mixture of SGs
 
 State-dict names follow the reference networks (``lin{l}.weight_g`` ...,
 ``net_cd.{0,2,4,6,8}``, ``viewdir_mlp.{i}``, ``net_cs.0``,
-``pts_linears.{i}``, ``views_linears.0``), so a reference ``.pth`` maps on
+``pts_linears.{i}``, ``views_linears.0``, ``lvis.{0,2,4,6,8}``,
+``indi.{0,2,4,6,8}``), so a reference ``.pth`` maps on
 directly.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -315,3 +319,81 @@ class NeRF(nn.Module):
         h = torch.cat([self.feature_linear(h), views_e], -1)
         h = torch.relu(self.views_linears[0](h))
         return alpha, self.rgb_linear(h)
+
+
+def _relu_mlp(dims: Tuple[int, ...], gen, last: Optional[nn.Module] = None
+              ) -> nn.Sequential:
+    """Linear layers dims[0] -> ... -> dims[-1] with ReLU between them and
+    ``last`` after the last one; the linears sit at the even indices."""
+    mods: List[nn.Module] = []
+    for i in range(len(dims) - 1):
+        mods.append(_linear(dims[i], dims[i + 1], gen))
+        if i < len(dims) - 2:
+            mods.append(nn.ReLU())
+    if last is not None:
+        mods.append(last)
+    return nn.Sequential(*mods)
+
+
+@dataclasses.dataclass(frozen=True)
+class LvisConfig:
+    multires_pts: int = 10
+    multires_view: int = 4
+
+    @property
+    def d_in(self) -> int:
+        return 3 * (1 + 2 * self.multires_pts) + 3 * (1 + 2 * self.multires_view)
+
+
+class Lvis(nn.Module):
+    """(pts [N, 3], dirs [N, 3]) -> visibility [N, 1]: the two encodings,
+    a 4x256 ReLU MLP, then 256 -> 1 and the sigmoid.  A plain MLP on
+    cuBLAS, as the JAX package leaves it to XLA."""
+
+    def __init__(self, cfg: LvisConfig = LvisConfig(),
+                 gen: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.lvis = _relu_mlp((cfg.d_in, 256, 256, 256, 256, 1), gen,
+                              nn.Sigmoid())
+
+    def forward(self, pts: torch.Tensor, view: torch.Tensor) -> torch.Tensor:
+        return self.lvis(torch.cat(
+            [positional_encoding(pts, self.cfg.multires_pts),
+             positional_encoding(view, self.cfg.multires_view)], -1))
+
+
+@dataclasses.dataclass(frozen=True)
+class IndirectLightConfig:
+    num_lgt_sgs: int = 24
+    multires_pts: int = 10
+
+    @property
+    def d_in(self) -> int:
+        return 3 * (1 + 2 * self.multires_pts)
+
+
+class IndirectLight(nn.Module):
+    """pts [N, 3] -> num_lgt_sgs SGs [N, L, 7] (axis 3, sharpness 1,
+    amplitude 3): the encoding, a 4x512 ReLU MLP, then 512 -> 6 L; the
+    axis from two sigmoid angles, sharpness 30 sigmoid + 0.1, amplitude
+    ReLU.  A plain MLP on cuBLAS."""
+
+    def __init__(self, cfg: IndirectLightConfig = IndirectLightConfig(),
+                 gen: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.indi = _relu_mlp((cfg.d_in, 512, 512, 512, 512,
+                               cfg.num_lgt_sgs * 6), gen)
+
+    def forward(self, pts: torch.Tensor) -> torch.Tensor:
+        out = self.indi(positional_encoding(pts, self.cfg.multires_pts))
+        out = out.reshape(-1, self.cfg.num_lgt_sgs, 6)
+        angles = torch.sigmoid(out[..., :2]) * (2.0 * math.pi)
+        theta, phi = angles[..., 0:1], angles[..., 1:2]
+        axis = torch.cat([torch.cos(theta) * torch.sin(phi),
+                          torch.sin(theta) * torch.sin(phi),
+                          torch.cos(phi)], -1)
+        sharpness = torch.sigmoid(out[..., 2:3]) * 30.0 + 0.1
+        amplitude = torch.relu(out[..., 3:6])
+        return torch.cat([axis, sharpness, amplitude], -1)

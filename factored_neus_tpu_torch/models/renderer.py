@@ -1,7 +1,8 @@
 """NeuS stage-1 renderer, with the NeRF++ background model when
-n_outside > 0 (the womask configs).  Counterpart of
+n_outside > 0 (the womask configs), and the stage-2 light-visibility
+renderer on the frozen stage-1 networks.  Counterpart of
 factored_neus_tpu/models/renderer.py (render, render_core,
-render_core_outside).
+render_core_outside, _stage23_util, lvis_render).
 
 The surface branch keeps the JAX package's static-shape form: RefColor runs
 for every ray at the two samples bracketing the first SDF sign change and
@@ -12,6 +13,14 @@ FNEUS_PG_HBM_STASH=1; the up-sampling ladder's SDF sweeps from K2
 (ops/sdf_kernel.py); the radiance MLP from K3 (ops/radiance_kernel.py).
 The background NeRF is a plain MLP on cuBLAS, as the JAX package leaves it
 to XLA.
+
+Stage 2 runs every SDF, geometry and radiance evaluation without gradient
+on the frozen stage-1 networks (one SDF and one K3 pack a run,
+``Stage2Model.kernel_weights``): per step K2 six times (the ladder's four
+sweeps, the localisation sweep, the secondary coarse sweep), K1-fwd three
+times (the surface normals, the secondary fine sweep, the secondary
+surface points) and K3-fwd once (the first-hit colour).  Lvis and
+IndirectLight, the networks it trains, are plain MLPs on cuBLAS.
 """
 from __future__ import annotations
 
@@ -23,7 +32,8 @@ from torch import nn
 
 from ..ops import sampling as S
 from . import fields as F
-from .secondary import first_crossing
+from . import secondary as SEC
+from .secondary import first_crossing, section_geometry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +47,14 @@ class RendererConfig:
     rendering: F.RenderingConfig = F.RenderingConfig()
     refcolor: F.RefColorConfig = F.RefColorConfig()
     nerf: F.NeRFConfig = F.NeRFConfig()
+    lvis: F.LvisConfig = F.LvisConfig()
+    indirect: F.IndirectLightConfig = F.IndirectLightConfig()
+    # rows of a chunk of the CPU twins' secondary sweeps (one launch on the
+    # card)
+    secondary_chunk: int = 131072
+    # one geometry sweep for both stage-2 fine-sample targets (else
+    # compute_weight and cal_fir_hit_rgb sweep apart)
+    fused_fine_sweep: bool = True
 
     @property
     def n_total(self) -> int:
@@ -48,6 +66,8 @@ class Stage1Model(nn.Module):
     variance, color and ref_color).  The background NeRF is always held, as
     in the JAX package, so checkpoints of every conf carry its group; where
     n_outside = 0 it gets no gradient and Adam leaves it as it is."""
+
+    GROUPS = ("sdf", "color", "variance", "ref_color", "nerf")
 
     def __init__(self, cfg: RendererConfig, variance_init_val: float = 0.3,
                  seed: int = 0, device="cpu"):
@@ -67,21 +87,12 @@ class Stage1Model(nn.Module):
         return self.sdf.kernel_weights(), self.color.kernel_weights()
 
 
-def _mid_points(rays_o, rays_d, z_vals, sample_dist: float):
-    """(dists [B, T], mid_z [B, T], pts [B, T, 3]) of the sample sections."""
-    dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
-                       torch.full_like(z_vals[:, :1], sample_dist)], -1)
-    mid_z = z_vals + dists * 0.5
-    pts = rays_o[:, None, :] + rays_d[:, None, :] * mid_z[..., :, None]
-    return dists, mid_z, pts
-
-
 def render_core_outside(model: Stage1Model, cfg: RendererConfig, rays_o,
                         rays_d, z_vals, sample_dist: float,
                         background_rgb=None) -> Dict[str, Any]:
     """NeRF++ inverted-sphere background over [B, T] samples."""
     B, T = z_vals.shape
-    dists, _, pts = _mid_points(rays_o, rays_d, z_vals, sample_dist)
+    dists, _, pts = section_geometry(rays_o, rays_d, z_vals, sample_dist)
     dis_to_center = torch.clamp(torch.linalg.norm(pts, dim=-1, keepdim=True),
                                 1.0, 1e10)
     pts4 = torch.cat([pts / dis_to_center, 1.0 / dis_to_center], -1)
@@ -112,7 +123,7 @@ def render_core(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d,
     network's and the radiance MLP's kernel_weights(), when the caller
     already has them."""
     B, T = z_vals.shape
-    dists, mid_z, pts = _mid_points(rays_o, rays_d, z_vals, sample_dist)
+    dists, mid_z, pts = section_geometry(rays_o, rays_d, z_vals, sample_dist)
     dirs = rays_d[:, None, :].expand(pts.shape)
     pts_flat = pts.reshape(-1, 3)
     dirs_flat = dirs.reshape(-1, 3)
@@ -295,4 +306,105 @@ def render(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d, near,
         "inside_sphere": ret["inside_sphere"],
         "specular_color": ret["specular_color"],
         "diffuse_color": ret["diffuse_color"],
+    }
+
+
+# ---------------------------------------------------------------------------
+# Stage 2
+# ---------------------------------------------------------------------------
+
+class Stage2Model(nn.Module):
+    """The stage-1 networks, frozen (``stage1``, requires_grad off), and
+    the two networks stage 2 trains: Lvis and IndirectLight (the JAX
+    params groups lvis and indirect)."""
+
+    GROUPS = Stage1Model.GROUPS + ("lvis", "indirect")
+
+    def __init__(self, cfg: RendererConfig, variance_init_val: float = 0.3,
+                 seed: int = 0, device="cpu"):
+        super().__init__()
+        self.stage1 = Stage1Model(cfg, variance_init_val, seed=seed,
+                                  device=device)
+        self.stage1.requires_grad_(False)
+        gen = torch.Generator().manual_seed(seed + 1)
+        self.lvis = F.Lvis(cfg.lvis, gen)
+        self.indirect = F.IndirectLight(cfg.indirect, gen)
+        self.to(device)
+        self._packs: Optional[Tuple[Any, Tuple]] = None
+
+    def kernel_weights(self) -> Tuple[F.KernelWeights, F.KernelWeights]:
+        """The frozen SDF network's and radiance MLP's kernel weights, built
+        once and kept until a stage-1 parameter changes (a checkpoint or
+        bridge load writes into them) or moves."""
+        key = tuple((p.data_ptr(), p._version)
+                    for p in self.stage1.parameters())
+        if self._packs is None or self._packs[1] != key:
+            with torch.no_grad():
+                self._packs = (self.stage1.kernel_weights(), key)
+        return self._packs[0]
+
+
+def _stage23_util(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d,
+                  near, far, sdf_weights: F.KernelWeights):
+    """The ladder without jitter, then the sdf at its mid-points for surface
+    localisation: (mid_z [B, T], sdf [B, T], inside_mask [B])."""
+    B = rays_o.shape[0]
+    z_lin = torch.linspace(0.0, 1.0, cfg.n_samples, device=rays_o.device,
+                           dtype=rays_o.dtype)
+    z_vals = near + (far - near) * z_lin[None, :]
+    sweep = lambda p: model.sdf.value_sweep(p, sdf_weights)
+    if cfg.n_importance > 0:
+        z_vals = S.hierarchical_z_vals(sweep, rays_o, rays_d, z_vals,
+                                       cfg.n_importance, cfg.up_sample_steps)
+    _, mid_z, pts = section_geometry(rays_o, rays_d, z_vals,
+                                     2.0 / cfg.n_samples)
+    sdf = sweep(pts.reshape(-1, 3)).reshape(B, -1)
+    inside_mask = torch.sum(torch.linalg.norm(pts, dim=-1) < 1.0, -1) > 0
+    return mid_z, sdf, inside_mask
+
+
+def lvis_render(model: Stage2Model, cfg: RendererConfig, rays_o, rays_d,
+                near, far, u_theta: Optional[torch.Tensor] = None,
+                u_z: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, Any]:
+    """Stage 2: the surface point of each ray, then the distillation
+    targets of its secondary rays (secondary.cal_indi_lgt) and the
+    predictions of Lvis and IndirectLight, which alone carry gradient.
+    Rays without a surface hit carry ones on both sides.  The hemisphere
+    draws are u_theta, u_z [B, 4] in [0, 1) when given, else drawn from
+    ``generator``."""
+    geo = model.stage1
+    sdf_w, color_w = model.kernel_weights()
+    with torch.no_grad():
+        mid_z, sdf, inside_mask = _stage23_util(geo, cfg, rays_o, rays_d,
+                                                near, far, sdf_w)
+        pts_surf, _, sdf_mask = SEC.surface_localize(mid_z, sdf, rays_o,
+                                                     rays_d, inside_mask)
+        n_surf = geo.sdf.value_grad_feat(pts_surf, sdf_w)[2]
+        inv_s = torch.clamp(geo.variance.inv_s(), 1e-6, 1e6)
+
+    def vgf(p):
+        return geo.sdf.value_grad_feat(p, sdf_w)
+
+    def full(p):
+        s, f, _ = vgf(p)
+        return torch.cat([s[:, None], f], -1)
+
+    res = SEC.cal_indi_lgt(
+        pts_surf, n_surf, lambda p: geo.sdf.value_sweep(p, sdf_w), full,
+        lambda p: vgf(p)[2], inv_s,
+        lambda p, n, d, f: geo.color(p, n, d, f, color_w),
+        lambda p, d: model.lvis(p, d), model.indirect, u_theta=u_theta,
+        u_z=u_z, generator=generator, chunk=cfg.secondary_chunk,
+        sdf_vgf=vgf if cfg.fused_fine_sweep else None)
+    one = torch.ones((), dtype=rays_o.dtype, device=rays_o.device)
+    m1, m2 = sdf_mask[:, None], sdf_mask[:, None, None]
+    return {
+        "gt_lvis": torch.where(m1, res["gt_lvis"], one),
+        "pre_lvis": torch.where(m1, res["pre_lvis"], one),
+        "gt_trace_radiance": torch.where(m2, res["gt_trace_radiance"], one),
+        "pre_trace_radiance": torch.where(m2, res["pre_trace_radiance"],
+                                          one),
+        "sdf_mask": sdf_mask,
     }

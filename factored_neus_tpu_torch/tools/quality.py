@@ -4,7 +4,7 @@ and scores each run's final mesh against the sphere, as the JAX package's
 own protocol does (tools/tpu_chain_r5.sh, tools/multiseed_quality_eval.py):
 
     python -m factored_neus_tpu_torch.tools.quality [--confs wmask womask]
-        [--seeds 0 1 2] [--end_iter 20000] [--parallel 3]
+        [--seeds 0 1 2] [--end_iter 20000] [--parallel 3] [--stage2]
         [--out build/quality] [--summary FILE] [--device cuda]
 
 Each run is confs/<conf>.conf with end_iter = --end_iter and recording =
@@ -16,8 +16,12 @@ evaltools), and the tail train PSNR, the mean of the last five reports.
 Per conf: mean and sample standard deviation over seeds, beside the JAX
 package's bars (evidence/msq49_summary.json) when the checkout has them;
 a conf whose mean lies outside the JAX mean +- 2 x the larger standard
-deviation is flagged as a gap.  Prints one JSON object and writes it to
-<out>/summary.json (and to --summary when given).
+deviation is flagged as a gap.  With --stage2, each run then trains the
+conf's stage 2 (train.lvis.end_iter steps) on its last stage-1 checkpoint
+through the port's stage-2 CLI, and its row adds the tail lvis and
+trace-radiance losses (the mean of the last five reports), the median
+stage-2 rays/s and the directory of its lvis panels.  Prints one JSON
+object and writes it to <out>/summary.json (and to --summary when given).
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BARS = os.path.join(REPO, "evidence", "msq49_summary.json")
 METRICS = ("chamfer_d2s", "chamfer_s2d", "train_psnr_tail")
+STAGE2_METRICS = ("lvis_loss_tail", "trace_radiance_loss_tail")
 SCENE = (49, 384, 512)          # views, H, W: the JAX runs' scene
 Y_RANGE = (0.2, 1.2)            # camera heights: a DTU scan's arc
 
@@ -70,6 +75,8 @@ def write_run_conf(src: str, dst: str, data_dir: str, exp_dir: str,
         text = f.read()
     subs = {r"base_exp_dir_geo = \./exp/CASE_NAME":
             f"base_exp_dir_geo = {exp_dir}/CASE_NAME",
+            r"base_exp_dir_lvis = \./exp/CASE_NAME":
+            f"base_exp_dir_lvis = {exp_dir}/CASE_NAME",
             r"data_dir = \S+": f"data_dir = {data_dir}/CASE_NAME/",
             r"end_iter = 300000": f"end_iter = {end_iter}",
             r"recording = \[[^]]*\]": "recording = []"}
@@ -99,6 +106,20 @@ def score_run(exp_dir: str, log_path: str) -> Dict[str, object]:
             "train_psnr_tail": float(np.mean(psnrs[-5:])),
             "rays_per_sec_median": float(np.median(rays)),
             "eval_s": time.perf_counter() - t0}
+
+
+def score_stage2(exp_dir: str, log_path: str) -> Dict[str, object]:
+    """The scores of one finished stage-2 run (its log and panels)."""
+    with open(log_path) as f:
+        reports = re.findall(r"lvis=([-0-9.]+) trace=([-0-9.]+) "
+                             r"rays/s=([0-9.]+)", f.read())
+    if not reports:
+        raise RuntimeError(f"{log_path}: no stage-2 report")
+    lv, tr, rays = (np.asarray(c, np.float64) for c in zip(*reports))
+    return {"lvis_loss_tail": float(lv[-5:].mean()),
+            "trace_radiance_loss_tail": float(tr[-5:].mean()),
+            "stage2_rays_per_sec_median": float(np.median(rays)),
+            "stage2_panels": os.path.join(exp_dir, "lvis")}
 
 
 def mean_sd(values: Sequence[float]) -> List[float]:
@@ -139,6 +160,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     p.add_argument("--out", default=os.path.join(REPO, "build", "quality"))
     p.add_argument("--summary", default=None)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--stage2", action="store_true",
+                   help="train and score stage 2 after each run")
     args = p.parse_args(argv)
 
     out = os.path.abspath(args.out)
@@ -162,30 +185,55 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
                 os.path.join(out, f"{name}.conf"), data, exp, args.end_iter)
             geo = os.path.join(exp, "fake_scan", conf, "geometry")
             jobs.append((conf, seed, name, cpath, geo))
+    stages = ["exp_runner"] + (["lvis"] if args.stage2 else [])
+
+    def start(job, stage: int):
+        """The job's stage-th CLI in a process of its own, logged to
+        <name>.log (stage 1) or <name>_lvis.log."""
+        conf, seed, name, cpath, _ = job
+        log = f"{name}.log" if stage == 0 else f"{name}_{stages[stage]}.log"
+        logf = open(os.path.join(out, log), "w")
+        cmd = [sys.executable, "-m",
+               f"factored_neus_tpu_torch.{stages[stage]}", "--mode", "train",
+               "--conf", cpath, "--case", "fake_scan", "--type", "dtu",
+               "--seed", str(seed), "--device", args.device]
+        print(f"run {name} {stages[stage]} started", flush=True)
+        return (job, subprocess.Popen(cmd, cwd=REPO, stdout=logf,
+                                      stderr=subprocess.STDOUT),
+                time.perf_counter(), logf, stage)
 
     # each run is scored as soon as it ends, its row printed at once, so
     # the rows of finished runs survive a later failure
-    running: List[Tuple[tuple, subprocess.Popen, float, object]] = []
+    running: List[Tuple[tuple, subprocess.Popen, float, object, int]] = []
+    walls: Dict[str, List[float]] = {}
     rows: Dict[str, List[Dict[str, object]]] = {c: [] for c in args.confs}
     failed: List[str] = []
 
     def reap_one() -> None:
         while True:
             for item in running:
-                job, proc, t0, logf = item
+                job, proc, t0, logf, stage = item
                 if proc.poll() is None:
                     continue
                 running.remove(item)
                 logf.close()
                 conf, seed, name, _, geo = job
-                wall = time.perf_counter() - t0
+                walls.setdefault(name, []).append(time.perf_counter() - t0)
                 if proc.returncode != 0:
                     failed.append(name)
                     print(f"run {name} failed rc={proc.returncode} after "
-                          f"{wall:.1f} s; see {out}/{name}.log", flush=True)
+                          f"{walls[name][-1]:.1f} s; see {logf.name}",
+                          flush=True)
                     return
-                row = {"seed": seed, "wall_s": wall,
+                if stage + 1 < len(stages):
+                    running.append(start(job, stage + 1))
+                    return
+                row = {"seed": seed, "wall_s": walls[name][0],
                        **score_run(geo, os.path.join(out, f"{name}.log"))}
+                if args.stage2:
+                    row.update(stage2_wall_s=walls[name][1], **score_stage2(
+                        geo.replace(os.sep + "geometry", os.sep + "lvis"),
+                        os.path.join(out, f"{name}_lvis.log")))
                 rows[conf].append(row)
                 print(f"run {name}: {json.dumps(row)}", flush=True)
                 return
@@ -194,15 +242,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     for job in jobs:
         while len(running) >= args.parallel:
             reap_one()
-        conf, seed, name, cpath, _ = job
-        logf = open(os.path.join(out, f"{name}.log"), "w")
-        cmd = [sys.executable, "-m", "factored_neus_tpu_torch.exp_runner",
-               "--mode", "train", "--conf", cpath, "--case", "fake_scan",
-               "--type", "dtu", "--seed", str(seed), "--device", args.device]
-        print(f"run {name} started", flush=True)
-        running.append((job, subprocess.Popen(
-            cmd, cwd=REPO, stdout=logf, stderr=subprocess.STDOUT),
-            time.perf_counter(), logf))
+        running.append(start(job, 0))
     while running:
         reap_one()
 
@@ -211,7 +251,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
         "scene": {"n_views": SCENE[0], "H": SCENE[1], "W": SCENE[2],
                   "y_range": list(Y_RANGE)},
         "end_iter": args.end_iter, "parallel": args.parallel,
-        "failed": failed}
+        "stage2": args.stage2, "failed": failed}
     bars = {}
     if os.path.exists(BARS):
         with open(BARS) as f:
@@ -220,7 +260,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
         if not rows[conf]:
             continue
         rs = sorted(rows[conf], key=lambda r: r["seed"])
-        stats = {m: mean_sd([r[m] for r in rs]) for m in METRICS}
+        stats = {m: mean_sd([r[m] for r in rs]) for m in METRICS
+                 + (STAGE2_METRICS if args.stage2 else ())}
         entry: Dict[str, object] = {"seeds": rs, **{
             f"{m}_mean_sd": v for m, v in stats.items()}}
         if conf in bars:

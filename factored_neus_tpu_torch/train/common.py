@@ -1,9 +1,11 @@
 """Shared training plumbing: the train-config schema, Adam with the
-warmup + cosine schedule, and the chunked full-image render of validation
-images and novel views.  Counterpart of factored_neus_tpu/train/common.py
-(TrainConfig.from_conf, make_optimizer, val_chunk_size, fetch_concat,
-chunked_render); ``optax.adam``'s defaults equal ``torch.optim.Adam``'s
-(betas 0.9/0.999, eps 1e-8)."""
+warmup + cosine schedule over a stage's trainable groups and its state as
+the JAX package's optax leaves, and the chunked full-image render of
+validation images and novel views.  Counterpart of
+factored_neus_tpu/train/common.py (STAGE_TRAINABLE, TrainConfig.from_conf,
+make_optimizer, val_chunk_size, fetch_concat, chunked_render);
+``optax.adam``'s defaults equal ``torch.optim.Adam``'s (betas 0.9/0.999,
+eps 1e-8)."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,8 +14,16 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import bridge
+from ..utils import checkpoints as CK
 from ..utils import schedule
 from ..utils.hocon import ConfigTree
+
+# the params groups each stage trains; the others stay frozen
+STAGE_TRAINABLE = {
+    1: ("nerf", "sdf", "variance", "color", "ref_color"),
+    2: ("lvis", "indirect"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,11 +47,14 @@ class TrainConfig:
     block_steps: int = 1
 
     @classmethod
-    def from_conf(cls, c: ConfigTree,
+    def from_conf(cls, c: ConfigTree, stage: int = 1,
                   surface_weight: float = 0.1) -> "TrainConfig":
-        """Stage-1 fields; warm_up_end defaults to 0 like the reference."""
+        """The stage's fields; warm_up_end defaults to 0 like the
+        reference.  Stage 2 takes end_iter, batch_size and warm_up_end
+        from train.lvis and the rest, the learning rate too, from
+        train."""
         t = c.get("train", ConfigTree())
-        return cls(
+        base = cls(
             learning_rate=float(t.get("learning_rate", 5e-4)),
             learning_rate_alpha=float(t.get("learning_rate_alpha", 0.05)),
             end_iter=int(t.get("end_iter", 300000)),
@@ -61,14 +74,94 @@ class TrainConfig:
             surface_weight=surface_weight,
             block_steps=int(t.get("block_steps", 1)),
         )
+        if stage == 1:
+            return base
+        if stage != 2:
+            raise NotImplementedError(f"stage {stage} is not ported")
+        lv = t.get("lvis", ConfigTree())
+        return dataclasses.replace(
+            base, end_iter=int(lv.get("end_iter", 10000)),
+            batch_size=int(lv.get("batch_size", 512)),
+            warm_up_end=float(lv.get("warm_up_end", 0.0)))
 
 
-def make_optimizer(model: torch.nn.Module,
-                   tcfg: TrainConfig) -> torch.optim.Adam:
-    """Adam over every stage-1 parameter (the JAX package's stage-1
-    trainable groups nerf, sdf, variance, color, ref_color: all of
-    Stage1Model); set_lr() applies the schedule."""
-    return torch.optim.Adam(model.parameters(), lr=tcfg.learning_rate)
+def make_optimizer(model: torch.nn.Module, tcfg: TrainConfig,
+                   stage: int = 1) -> torch.optim.Adam:
+    """Adam over the parameters of the stage's trainable groups (a
+    Stage1Model's, or a Stage2Model's lvis and indirect); set_lr() applies
+    the schedule."""
+    return torch.optim.Adam(
+        [p for g in STAGE_TRAINABLE[stage]
+         for p in getattr(model, g).parameters()], lr=tcfg.learning_rate)
+
+
+def _jax_leaves(tree) -> List[np.ndarray]:
+    """A tree's leaves in jax.tree_util's order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [l for k in sorted(tree) for l in _jax_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [l for v in tree for l in _jax_leaves(v)]
+    return [tree]
+
+
+def optimizer_leaves(model: torch.nn.Module, opt: torch.optim.Adam,
+                     stage: int = 1) -> CK.Leaves:
+    """Adam's state as the leaves of the JAX package's optax state of the
+    stage (its ``multi_transform`` keeps moments of the trainable groups
+    only): the update count, the first moments, the second moments (each
+    in the params' tree order, groups sorted: color, nerf, ref_color, sdf,
+    variance in stage 1; indirect, lvis in stage 2) and the schedule's
+    count.  A parameter without state (it has had no gradient) has zero
+    moments."""
+    def moment(name):
+        return lambda p: (opt.state[p][name] if p in opt.state
+                          else torch.zeros_like(p))
+    steps = [float(s["step"]) for s in opt.state.values()]
+    count = np.asarray(int(max(steps, default=0)), np.int32)
+    groups = STAGE_TRAINABLE[stage]
+    return CK.Leaves([
+        count, *_jax_leaves(bridge.jax_tree(model, value=moment("exp_avg"),
+                                            groups=groups)),
+        *_jax_leaves(bridge.jax_tree(model, value=moment("exp_avg_sq"),
+                                     groups=groups)),
+        count])
+
+
+def load_optimizer_leaves(model: torch.nn.Module, opt: torch.optim.Adam,
+                          leaves: Sequence[np.ndarray],
+                          stage: int = 1) -> None:
+    """Sets Adam's state from the JAX package's optax leaves of the stage
+    (optimizer_leaves' layout).  A parameter whose two moments are zero
+    has had no gradient and gets no state, as in torch."""
+    groups = STAGE_TRAINABLE[stage]
+    structure = bridge.jax_tree(model, groups=groups)
+    n = len(_jax_leaves(structure))
+    if len(leaves) != 2 * n + 2:
+        raise ValueError(f"optimizer state: {len(leaves)} leaves, expected "
+                         f"{2 * n + 2} for this model")
+    count = int(leaves[0])
+
+    def tree_of(flat):
+        it = iter(flat)
+
+        def fill(t):
+            if isinstance(t, dict):
+                return {k: fill(t[k]) for k in sorted(t)}
+            if isinstance(t, list):
+                return [fill(v) for v in t]
+            return next(it)
+        return fill(structure)
+
+    moments: Dict[torch.Tensor, Dict[str, torch.Tensor]] = {}
+    for name, flat in (("exp_avg", leaves[1:1 + n]),
+                       ("exp_avg_sq", leaves[1 + n:1 + 2 * n])):
+        def keep(p, v, name=name):
+            moments.setdefault(p, {})[name] = torch.empty_like(p).copy_(v)
+        bridge.load_jax_params(model, tree_of(flat), keep, groups)
+    opt.state.clear()
+    for p, m in moments.items():
+        if m["exp_avg"].any() or m["exp_avg_sq"].any():
+            opt.state[p] = {"step": torch.tensor(float(count)), **m}
 
 
 def set_lr(opt: torch.optim.Optimizer, tcfg: TrainConfig, step: int) -> float:

@@ -1,6 +1,8 @@
-"""Stage-1 loss.  Counterpart of factored_neus_tpu/train/losses.py
-(stage1_losses) on one device: color L1 / mask_sum + surface-colour L1 /
-mask_sdf_sum + eikonal + BCE(weight_sum, mask)."""
+"""Stage losses.  Counterpart of factored_neus_tpu/train/losses.py
+(stage1_losses, stage2_losses) on one device:
+  stage 1: color L1 / mask_sum + surface-colour L1 / mask_sdf_sum +
+           eikonal + BCE(weight_sum, mask);
+  stage 2: L1(lvis) / (4 n_hit) + L1(trace radiance) / (12 n_hit)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -40,3 +42,21 @@ def stage1_losses(out: Dict, true_rgb, mask, tcfg):
         "surface_loss": surface_loss, "eikonal_loss": eikonal_loss,
         "mask_loss": mask_loss, "psnr": psnr,
     }
+
+
+def stage2_losses(out: Dict):
+    """out: lvis_render() dict.  The lvis error is summed over every ray
+    (unhit rays carry ones on both sides, so zero error) and normalised by
+    the hit count x 4, as the reference does."""
+    sm = out["sdf_mask"].to(torch.float32)
+    n_hit = torch.sum(sm)
+    lvis_err = out["gt_lvis"] - out["pre_lvis"]
+    lvis_loss = torch.sum(torch.abs(lvis_err)) / (
+        n_hit * out["gt_lvis"].shape[1] + 1e-6)
+    tr_err = (out["gt_trace_radiance"] - out["pre_trace_radiance"]) \
+        * sm[:, None, None]
+    trace_loss = torch.sum(torch.abs(tr_err)) / (
+        n_hit * out["gt_trace_radiance"].shape[1] * 3 + 1e-6)
+    loss = lvis_loss + trace_loss
+    return loss, {"loss": loss, "lvis_loss": lvis_loss,
+                  "trace_radiance_loss": trace_loss, "n_hit": n_hit}

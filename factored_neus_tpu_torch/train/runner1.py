@@ -31,7 +31,8 @@ from ..utils import schedule
 from ..utils.device import resolve_device
 from ..utils.logging import MetricsWriter, ThroughputMeter
 from ..utils.video import write_video
-from .common import TrainConfig, chunked_render, val_chunk_size
+from .common import (TrainConfig, chunked_render, load_optimizer_leaves,
+                     optimizer_leaves, val_chunk_size)
 from .stage1 import Stage1Trainer
 
 log = logging.getLogger("factored_neus_tpu_torch")
@@ -59,69 +60,6 @@ def check_mode(mode: str) -> None:
     if not ok:
         raise NotImplementedError(f"mode {mode!r} is not ported (ported: "
                                   f"{', '.join(MODES)})")
-
-
-def _jax_leaves(tree) -> List[np.ndarray]:
-    """A tree's leaves in jax.tree_util's order (dict keys sorted)."""
-    if isinstance(tree, dict):
-        return [l for k in sorted(tree) for l in _jax_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [l for v in tree for l in _jax_leaves(v)]
-    return [tree]
-
-
-def optimizer_leaves(model: R.Stage1Model,
-                     opt: torch.optim.Adam) -> CK.Leaves:
-    """Adam's state as the JAX package's stage-1 optax state leaves: the
-    update count, the first moments, the second moments (each in the
-    params' tree order: the groups color, nerf, ref_color, sdf and
-    variance, which the JAX optimizer trains in stage 1) and the
-    schedule's count.  A parameter without state (it has had no gradient)
-    has zero moments."""
-    def moment(name):
-        return lambda p: (opt.state[p][name] if p in opt.state
-                          else torch.zeros_like(p))
-    steps = [float(s["step"]) for s in opt.state.values()]
-    count = np.asarray(int(max(steps, default=0)), np.int32)
-    return CK.Leaves([
-        count, *_jax_leaves(bridge.jax_tree(model, value=moment("exp_avg"))),
-        *_jax_leaves(bridge.jax_tree(model, value=moment("exp_avg_sq"))),
-        count])
-
-
-def load_optimizer_leaves(model: R.Stage1Model, opt: torch.optim.Adam,
-                          leaves: Sequence[np.ndarray]) -> None:
-    """Sets Adam's state from the JAX package's stage-1 optax leaves
-    (optimizer_leaves' layout).  A parameter whose two moments are zero
-    has had no gradient and gets no state, as in torch."""
-    structure = bridge.jax_tree(model)
-    n = len(_jax_leaves(structure))
-    if len(leaves) != 2 * n + 2:
-        raise ValueError(f"optimizer state: {len(leaves)} leaves, expected "
-                         f"{2 * n + 2} for this model")
-    count = int(leaves[0])
-
-    def tree_of(flat):
-        it = iter(flat)
-
-        def fill(t):
-            if isinstance(t, dict):
-                return {k: fill(t[k]) for k in sorted(t)}
-            if isinstance(t, list):
-                return [fill(v) for v in t]
-            return next(it)
-        return fill(structure)
-
-    moments: Dict[torch.Tensor, Dict[str, torch.Tensor]] = {}
-    for name, flat in (("exp_avg", leaves[1:1 + n]),
-                       ("exp_avg_sq", leaves[1 + n:1 + 2 * n])):
-        def keep(p, v, name=name):
-            moments.setdefault(p, {})[name] = torch.empty_like(p).copy_(v)
-        bridge.load_jax_params(model, tree_of(flat), keep)
-    opt.state.clear()
-    for p, m in moments.items():
-        if m["exp_avg"].any() or m["exp_avg_sq"].any():
-            opt.state[p] = {"step": torch.tensor(float(count)), **m}
 
 
 def _normal_map(out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -1,4 +1,6 @@
-"""Config schema: HOCON tree -> typed stage-1 configs.  Counterpart of
+"""Config schema: HOCON tree -> typed configs of stage 1 and, from the
+section model.lvis_renderer, stage 2 (the Lvis and IndirectLight configs
+keep their defaults, as in the JAX package).  Counterpart of
 factored_neus_tpu/utils/config.py (sdf_config, rendering_config,
 nerf_config, renderer_config, variance_init_val, load)."""
 from __future__ import annotations

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Where the time of one stage-1 step of the PyTorch port goes, on a GPU.
+"""Where the time of one stage-1 (or stage-2) step of the PyTorch port
+goes, on a GPU.
 
     python3 tools/profile_torch_stage1.py            # K1-fwd / K1-bwd
     python3 tools/profile_torch_stage1.py --stash    # the HBM-stash pair
     python3 tools/profile_torch_stage1.py --womask [--split]
+    python3 tools/profile_torch_stage1.py --stage2   # a stage-2 step
 
 Trains full-width confs/wmask.conf (--womask: confs/womask.conf, with the
 background NeRF) on the analytic-sphere scene of chip_smoke.py: WARMUP
 steps, then a timed window of STEPS steps (host clock around steps that
-end in torch.cuda.synchronize) and a torch.profiler window of as many.
+end in torch.cuda.synchronize) and a torch.profiler window of as many;
+--stage2 trains stage 2 of confs/wmask.conf instead (Lvis and
+IndirectLight on the frozen stage-1 networks of the seed-0 init).
 Prints ms/step, rays/s, the device-busy share of the profiled window and
 device time by kernel, each hand-written kernel named by its row of
 PERF.md's table, and writes the table as JSON to
-build/profile/profile_torch_stage1[_womask][_stash][_split].json.  --stash
+build/profile/profile_torch_stage1[_womask][_stash][_split][_stage2].json.  --stash
 sets FNEUS_PG_HBM_STASH=1 and --split FNEUS_PG_STACKED=0 before the port
 is imported (the switches are read at import).
 """
@@ -36,7 +40,7 @@ TABLE_ROWS = (("geometry_fwd_kernel", "K1-fwd"),
               ("radiance_fwd_kernel", "K3-fwd"),
               ("radiance_bwd_kernel", "K3-bwd"),
               ("reduce_partials_kernel", "K1-bwd/K3-bwd partial sums"))
-FLAGS = ("--womask", "--stash", "--split")
+FLAGS = ("--womask", "--stash", "--split", "--stage2")
 
 
 def table_row(kernel: str, stash: bool) -> str:
@@ -53,9 +57,9 @@ def main() -> int:
     args = sys.argv[1:]
     if not set(args) <= set(FLAGS) or len(set(args)) != len(args):
         print("usage: profile_torch_stage1.py [--womask] [--stash] "
-              "[--split]", file=sys.stderr)
+              "[--split] [--stage2]", file=sys.stderr)
         return 2
-    womask, stash, split = (f in args for f in FLAGS)
+    womask, stash, split, stage2 = (f in args for f in FLAGS)
     if stash:
         os.environ["FNEUS_PG_HBM_STASH"] = "1"
     if split:
@@ -67,11 +71,13 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import chip_smoke
     from factored_neus_tpu_torch.data.datasets import make_dataset
-    from factored_neus_tpu_torch.models.renderer import Stage1Model
+    from factored_neus_tpu_torch.models.renderer import (Stage1Model,
+                                                         Stage2Model)
     from factored_neus_tpu_torch.ops import _cuda
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
     from factored_neus_tpu_torch.train.common import TrainConfig
     from factored_neus_tpu_torch.train.stage1 import Stage1Trainer
+    from factored_neus_tpu_torch.train.stage2 import Stage2Trainer
     from factored_neus_tpu_torch.utils import config as CFG
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -80,19 +86,27 @@ def main() -> int:
         raise AssertionError("the switches disagree with the flags")
     card = chip_smoke.card_line()
     base = "womask.conf" if womask else "wmask.conf"
-    print(card, base, "HBM-stash pair" if stash else
-          "K1-fwd / K1-bwd-split" if split else "K1-fwd / K1-bwd")
+    print(card, base, "stage 2" if stage2 else "HBM-stash pair" if stash
+          else "K1-fwd / K1-bwd-split" if split else "K1-fwd / K1-bwd")
     _cuda.build_all()
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
         conf = CFG.load(chip_smoke.write_conf(tmp, base=base), "sphere")
         ds = make_dataset("dtu", conf["dataset"], dev)
-    cfg = CFG.renderer_config(conf)
-    tcfg = TrainConfig.from_conf(conf)
-    model = Stage1Model(cfg, CFG.variance_init_val(conf), seed=0, device=dev)
-    trainer = Stage1Trainer(model, cfg, tcfg, {
-        "images": ds.images, "masks": ds.masks,
-        "intr_inv": ds.intrinsics_all_inv, "poses": ds.pose_all}, seed=1)
+    data = {"images": ds.images, "masks": ds.masks,
+            "intr_inv": ds.intrinsics_all_inv, "poses": ds.pose_all}
+    if stage2:
+        cfg = CFG.renderer_config(conf, "model.lvis_renderer")
+        tcfg = TrainConfig.from_conf(conf, stage=2)
+        model = Stage2Model(cfg, CFG.variance_init_val(conf), seed=0,
+                            device=dev)
+        trainer = Stage2Trainer(model, cfg, tcfg, data, seed=2)
+    else:
+        cfg = CFG.renderer_config(conf)
+        tcfg = TrainConfig.from_conf(conf)
+        model = Stage1Model(cfg, CFG.variance_init_val(conf), seed=0,
+                            device=dev)
+        trainer = Stage1Trainer(model, cfg, tcfg, data, seed=1)
     step = 0
 
     def run(n):
@@ -106,7 +120,7 @@ def main() -> int:
     t0 = time.perf_counter()
     run(STEPS)
     wall = (time.perf_counter() - t0) / STEPS
-    print(f"stage-1 step: {1e3 * wall:.2f} ms, "
+    print(f"stage-{2 if stage2 else 1} step: {1e3 * wall:.2f} ms, "
           f"{tcfg.batch_size / wall:.0f} rays/s on {card}")
 
     from torch.profiler import ProfilerActivity, profile
@@ -139,7 +153,7 @@ def main() -> int:
         f.replace("--", "_") for f in FLAGS if f in args) + ".json"
     with open(os.path.join(OUT, name), "w") as f:
         json.dump({"card": card, "conf": base, "stash": stash,
-                   "split": split, "step_ms": 1e3 * wall,
+                   "split": split, "stage2": stage2, "step_ms": 1e3 * wall,
                    "profiled_step_ms": step_ms, "busy_ms": busy,
                    "kernels": rows}, f, indent=1)
     return 0
