@@ -52,7 +52,19 @@
    hemisphere draws); --mode validate_image through the CLI (counters at
    0: K2 6, K1-fwd 3, K3-fwd 1 a chunk); and one 2048-ray chunk of that
    view rendered by the card and by the CPU twins;
-10. prints {"kernels": [...]}, the card line, and as its last line
+10. stage 3 on the 30-step stage-2 checkpoint: 30 full-width steps
+   through the port's stage-3 CLI (python -m
+   factored_neus_tpu_torch.mateIllu), counters at 0 just before: K2 five
+   times a step, K1-fwd once, nothing else; the checkpoint read back into
+   a fresh runner; Lvis' factorised visibility sweep (cuBLAS, not a
+   kernel) against the flat forward and timed at a step's shape (4,096
+   directions x 512 points) and a validation chunk's (x 2,048), beside
+   its f32 bound; one 64-ray stage-3 step on the card against the same
+   step on the CPU twins (same rays and visibility draws); --mode
+   validate_image through the CLI (counters at 0: K2 5, K1-fwd 1 a
+   chunk), its panels and its envmap EXR read back; and one 2048-ray
+   chunk of that view rendered by the card and by the CPU twins;
+11. prints {"kernels": [...]}, the card line, and as its last line
    {"ok": true, "device": {...}}.
 Any failure raises; the script then exits non-zero without the last line.
 """
@@ -124,6 +136,18 @@ S2_ATOL, S2_RTOL = 1.2e-3, 3e-3
 # in all four maps: a secondary ray whose first crossing moves takes
 # another surface's colour
 S2_FLIP_SHARE, S2_CHUNK_SHARE, S2_CHUNK_TOL = 1e-3, 0.99, 3e-4
+STAGE3_STEPS = 30
+# a stage-3 step (or validation chunk): the ladder's four K2 sweeps and the
+# localisation sweep, and K1-fwd once at the surface points
+STAGE3_PER_STEP = {"sdf_fwd": 5, "geometry_fwd": 1}
+# the stage-3 step, card against the CPU twins: the JAX package's stage-3
+# gradient tolerance (tests/test_torch_parity.py), per tensor, and on the
+# loss; a validation chunk as stage 2's, on every map of the decomposition
+S3_ATOL, S3_RTOL = 6e-4, 3e-3
+S3_FLIP_SHARE, S3_CHUNK_SHARE, S3_CHUNK_TOL = 1e-3, 0.99, 3e-4
+# Lvis' factorised visibility sweep: 128 lobes x 32 samples, at the step's
+# 512 surface points and a validation chunk's 2,048
+OUTER_SHAPES = ((128 * 32, 512), (128 * 32, VAL_CHUNK))
 
 
 def card_line() -> str:
@@ -694,7 +718,7 @@ def check_validation_shapes(device, results) -> None:
 def write_conf(tmp: str, steps: int = TRAIN_STEPS,
                base: str = "wmask.conf") -> str:
     """confs/<base> with the scene, experiment directories and a
-    ``steps``-step schedule (stage 1 and stage 2) pointed into tmp; writes
+    ``steps``-step schedule (stages 1, 2 and 3) pointed into tmp; writes
     the scene too."""
     from factored_neus_tpu_torch.data.fake_scene import write_sphere_scene
     write_sphere_scene(os.path.join(tmp, "data", "sphere"))
@@ -704,9 +728,12 @@ def write_conf(tmp: str, steps: int = TRAIN_STEPS,
             "CASE_NAME/geometry",
             r"base_exp_dir_lvis = \S+": f"base_exp_dir_lvis = {tmp}/exp/"
             "CASE_NAME/lvis",
+            r"base_exp_dir_mateIllu = \S+": "base_exp_dir_mateIllu = "
+            f"{tmp}/exp/CASE_NAME/mateIllu",
             r"data_dir = \S+": f"data_dir = {tmp}/data/CASE_NAME/",
             r"end_iter = 300000": f"end_iter = {steps}",
             r"end_iter = 10000": f"end_iter = {steps}",
+            r"end_iter = 40000": f"end_iter = {steps}",
             r"save_freq = \d+": f"save_freq = {steps}",
             r"val_freq = \d+": "val_freq = 100000",
             r"val_mesh_freq = \d+": "val_mesh_freq = 100000",
@@ -1148,10 +1175,12 @@ def check_eval(mesh: str) -> None:
         raise AssertionError("the KD-tree disagrees with brute force")
 
 
-def check_stage2_launches(label: str, launches, units: int) -> None:
-    """K2, K1-fwd and K3-fwd STAGE2_PER_STEP times a step (or a validation
-    chunk), over ``units`` of them, and no other kernel."""
-    want = {n: c * units for n, c in STAGE2_PER_STEP.items()}
+def check_stage2_launches(label: str, launches, units: int,
+                          per_step=STAGE2_PER_STEP) -> None:
+    """The kernels of ``per_step`` (K2, K1-fwd and K3-fwd STAGE2_PER_STEP
+    times a stage-2 step or validation chunk) that many times a unit, over
+    ``units`` of them, and no other kernel."""
+    want = {n: c * units for n, c in per_step.items()}
     got = {n: c for n, c in launches.items() if c}
     print(f"{label}: launches {got}")
     if got != want:
@@ -1416,6 +1445,255 @@ def check_stage2_validation(conf: str) -> None:
                              "CPU twins'")
 
 
+def stage3_run(conf: str, card: str):
+    """STAGE3_STEPS full-width stage-3 steps through the port's stage-3 CLI
+    on the stage-2 checkpoint of ``conf``'s run, counters at 0 just
+    before; the launches, finite losses, and the checkpoint read back
+    into a fresh runner.  Returns (runner, launches)."""
+    import torch
+    from factored_neus_tpu_torch import mateIllu
+    from factored_neus_tpu_torch.train.runner3 import Runner
+    from factored_neus_tpu_torch.utils import checkpoints as CK
+
+    kernels = zero_counters()
+    runner = mateIllu.main(["--mode", "train", "--conf", conf, "--case",
+                            "sphere", "--type", "dtu"])
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    check_stage2_launches(f"stage-3 CLI, {STAGE3_STEPS} steps", launches,
+                          STAGE3_STEPS, STAGE3_PER_STEP)
+    for m in runner.history:
+        print(f"stage 3 iter {m['iter']}: rgb loss {m['rgb_loss']:.5f} "
+              f"encoder loss {m['encoder_loss']:.6f} psnr {m['psnr']:.2f} "
+              f"hit rays {m['n_hit']:.0f} of {runner.tcfg.batch_size}, "
+              f"rays/s {m['rays_per_sec']:.0f}")
+        if not (math.isfinite(m["loss"]) and m["n_hit"] > 0):
+            raise AssertionError("stage 3: non-finite loss or no hit")
+    if (runner.iter_step != STAGE3_STEPS or runner.tcfg.batch_size != 512
+            or len(runner.history) != STAGE3_STEPS // 10):
+        raise AssertionError("stage 3 did not run its steps")
+    print(f"stage-3 rays/s at iter {runner.history[-1]['iter']}: "
+          f"{runner.history[-1]['rays_per_sec']:.0f} on {card}")
+    ckpt = CK.load_checkpoint(runner.last_checkpoint)
+    back = Runner(conf, mode="validate_image", case="sphere",
+                  is_continue=True)
+    if back.iter_step != STAGE3_STEPS or len(ckpt["optimizer"]) != 56:
+        raise AssertionError("stage-3 checkpoint: iter_step or optimizer")
+    for (name, a), b in zip(back.model.state_dict().items(),
+                            runner.model.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"stage-3 checkpoint does not load back: "
+                                 f"{name}")
+    print(f"stage-3 checkpoint {os.path.basename(runner.last_checkpoint)} "
+          f"loads back into a fresh runner")
+    return runner, launches
+
+
+def check_outer_sweep(device, model, card: str) -> None:
+    """Lvis' factorised visibility sweep (Lvis.outer: PE and the first
+    layer on the two factors, then [D P, 256] through three 256 x 256
+    layers and 256 -> 1 on cuBLAS, f32) at OUTER_SHAPES: held against the
+    flat forward on the same pairs of 64 points (2e-5 rel, 2e-6 abs) and
+    timed with CUDA events beside the flat forward's time and its f32
+    bound, the larger of its operations over F32_PEAK and its bytes (the
+    inputs read once, the [D, P] output written once) over HBM_RATE."""
+    import torch
+    from factored_neus_tpu_torch.ops import sg as SG
+
+    lvis = model.lvis
+    lins = [m for m in lvis.lvis if isinstance(m, torch.nn.Linear)]
+    dp = 3 * (1 + 2 * lvis.cfg.multires_pts)
+    dd = 3 * (1 + 2 * lvis.cfg.multires_view)
+    gen = torch.Generator(device=device).manual_seed(5)
+    for D, P in OUTER_SHAPES:
+        pts = torch.randn(P, 3, device=device, generator=gen) * 0.4
+        dirs = SG._normalize(torch.randn(D, 3, device=device,
+                                         generator=gen))
+        with torch.no_grad():
+            got = lvis.outer(pts[:64], dirs)
+            flat = lvis(pts[:64][None].expand(D, 64, 3).reshape(-1, 3),
+                        dirs[:, None].expand(D, 64, 3).reshape(-1, 3)
+                        ).reshape(D, 64)
+            err = float(((got - flat).abs()
+                         / (2e-6 + 2e-5 * flat.abs())).max())
+            if not err <= 1.0 or not torch.isfinite(got).all():
+                raise AssertionError(f"Lvis.outer disagrees with the flat "
+                                     f"forward at D={D} (ratio {err:.3f})")
+            ms = cuda_ms(lambda: lvis.outer(pts, dirs), 5)
+            fp = pts[None].expand(D, P, 3).reshape(-1, 3)
+            fd = dirs[:, None].expand(D, P, 3).reshape(-1, 3)
+            flat_ms = cuda_ms(lambda: lvis(fp, fd), 3)
+        rows = D * P
+        flops = (2.0 * rows * sum(l.in_features * l.out_features
+                                  for l in lins[1:])
+                 + 2.0 * (P * dp + D * dd) * lins[0].out_features)
+        nbytes = 4.0 * (3 * (P + D) + rows + sum(l.weight.numel()
+                                                 + l.bias.numel()
+                                                 for l in lins))
+        bound = 1e3 * max(flops / F32_PEAK, nbytes / HBM_RATE)
+        print(f"visibility sweep Lvis.outer D={D} x P={P} ({rows} rows): "
+              f"{ms:.3f} ms (flat forward {flat_ms:.3f}), f32 bound "
+              f"{bound:.3f} ms by operations ({flops:.4g} FLOP; "
+              f"{100 * bound / ms:.1f}% of it), against the flat forward "
+              f"ratio {err:.3f} of (2e-6 + 2e-5 |ref|) on {card}")
+        del got, flat
+
+
+def s3_draws(rng, cfg):
+    """The visibility uniforms (u_theta, u_phi) [num_lgt_sgs, vis_nsamp]."""
+    import torch
+    shape = (cfg.material.num_lgt_sgs, cfg.material.vis_nsamp)
+    return [torch.from_numpy(rng.rand(*shape).astype("float32"))
+            for _ in range(2)]
+
+
+def check_stage3_step_against_cpu(conf: str) -> None:
+    """One full-width stage-3 step at STEP_RAYS rays of view 0 on the
+    30-step stage-3 checkpoint: the card (kernels) against the CPU
+    (twins), both float32, on the same weights, rays, colours, binarised
+    mask (the conf's mask_weight > 0) and visibility draws: sdf_mask
+    equal, at least a tenth of the rays on the surface, the loss and every
+    material gradient at S3_ATOL + S3_RTOL max|ref| per tensor."""
+    import numpy as np
+    import torch
+    from factored_neus_tpu_torch.data import rays as RAYS
+    from factored_neus_tpu_torch.models import renderer as R
+    from factored_neus_tpu_torch.train import losses as L
+    from factored_neus_tpu_torch.train.runner3 import Runner
+
+    card, cpu = (Runner(conf, mode="validate_image", case="sphere",
+                        is_continue=True, device=dev)
+                 for dev in ("cuda", "cpu"))
+    ds = cpu.dataset
+    rng = np.random.RandomState(0)
+    H, W = ds.images.shape[1:3]
+    px = torch.from_numpy(rng.randint(0, W, STEP_RAYS))
+    py = torch.from_numpy(rng.randint(0, H, STEP_RAYS))
+    batch = RAYS.rays_from_pixels(px, py, ds.images, ds.masks,
+                                  ds.intrinsics_all_inv, ds.pose_all, 0)
+    u = s3_draws(rng, cpu.cfg)
+
+    def step(runner, dev):
+        o, d, color, mask = (v.to(dev) for v in batch)
+        near, far = RAYS.near_far_from_sphere(o, d)
+        out = R.mate_illu_render(runner.model, runner.cfg, o, d, near, far,
+                                 *(v.to(dev) for v in u))
+        loss, m = L.stage3_losses(out, color, (mask > 0.5).float())
+        loss.backward()
+        grads = {n: p.grad.detach().cpu().double()
+                 for n, p in runner.model.named_parameters()
+                 if p.grad is not None}
+        return float(loss.detach()), grads, out["sdf_mask"].cpu(), m
+
+    l_card, g_card, s_card, m_card = step(card, "cuda")
+    torch.cuda.synchronize()
+    l_cpu, g_cpu, s_cpu, _ = step(cpu, "cpu")
+    flips = int((s_card != s_cpu).sum())
+    if set(g_card) != set(g_cpu) or not all(
+            n.startswith("material.") for n in g_card):
+        raise AssertionError("the stage-3 steps reached other parameters")
+    ratios = {n: worst_scaled(g_card[n], g_cpu[n], S3_ATOL, S3_RTOL)[1]
+              for n in g_cpu}
+    at = max(ratios, key=ratios.get)
+    l_ratio = abs(l_card - l_cpu) / (S3_ATOL + S3_RTOL * abs(l_cpu))
+    n_hit = int(m_card["n_hit"])
+    print(f"stage-3 step check, {STEP_RAYS} rays full width, {n_hit} hit, "
+          f"{flips} sdf_mask flips, {len(g_cpu)} parameter tensors: loss "
+          f"card {l_card:.8f} CPU {l_cpu:.8f} (ratio {l_ratio:.3f}); worst "
+          f"gradient ratio to ({S3_ATOL:g} + {S3_RTOL:g} max|ref|) "
+          f"{ratios[at]:.3f} in {at}")
+    if (flips or n_hit < 0.1 * STEP_RAYS or l_ratio > 1.0
+            or ratios[at] > 1.0 or not math.isfinite(l_card)):
+        raise AssertionError("the card's stage-3 step disagrees with the "
+                             "CPU's")
+
+
+def check_stage3_validation(conf: str) -> None:
+    """--mode validate_image of stage 3 through the CLI (level 1, view 0),
+    counters at 0 just before: the panels, the envmap EXR read back with
+    the port's reader, and the launches a chunk; then one VAL_CHUNK-ray
+    chunk spread over view 0 (spread), rendered by the card and by the CPU
+    twins on the same weights and visibility draws, a tenth of its rays at
+    least on the surface, held at S3_FLIP_SHARE, S3_CHUNK_SHARE and
+    S3_CHUNK_TOL over every map of the decomposition."""
+    import glob
+    import numpy as np
+    import torch
+    from factored_neus_tpu_torch import mateIllu
+    from factored_neus_tpu_torch.data import rays as RAYS
+    from factored_neus_tpu_torch.data.exr import read_exr
+    from factored_neus_tpu_torch.models import renderer as R
+    from factored_neus_tpu_torch.models.materials import get_light
+    from factored_neus_tpu_torch.train.runner3 import VAL_KEYS, Runner
+
+    kernels = zero_counters()
+    t0 = time.perf_counter()
+    runner = mateIllu.main(["--mode", "validate_image", "--is_continue",
+                            "--conf", conf, "--case", "sphere", "--type",
+                            "dtu", "--idx", "0"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ds = runner.dataset
+    chunks = math.ceil(ds.H * ds.W / VAL_CHUNK)
+    check_stage2_launches(
+        f"stage-3 validate_image {ds.H}x{ds.W} level 1, {chunks} chunks "
+        f"({wall:.3f} s with the runner's start)",
+        {name: k.launches for name, k in kernels.items()}, chunks,
+        STAGE3_PER_STEP)
+    it = runner.iter_step
+    found = [glob.glob(os.path.join(runner.base_exp_dir, p)) for p in
+             (f"rgb/rgb_{it}_0.png", f"rgb/rgbPre_{it}_0.png",
+              f"diffuse/d_{it}_0.png", f"specular/s_{it}_0.png",
+              f"roughness/r_{it}_0.png", f"lvis_mean/lvis_{it}_0.png",
+              f"indiLgt/indiLgt_{it}_0.png", f"normal/n_{it}_0.png")]
+    if it != STAGE3_STEPS or not all(found):
+        raise AssertionError(f"stage-3 validate_image: iter {it}, panels "
+                             f"{found}")
+    env = read_exr(runner.last_envmap)
+    with torch.no_grad():
+        want = get_light(runner.model.material).cpu().numpy()
+    if env.shape != (256, 512, 3) or not np.array_equal(env, want):
+        raise AssertionError(f"the envmap EXR does not read back: "
+                             f"{env.shape}")
+    print(f"envmap {os.path.basename(runner.last_envmap)} reads back equal, "
+          f"range {env.min():.4f} .. {env.max():.4f}")
+
+    o, d = (spread(r) for r in ds.gen_rays_at(0, 1))
+    u = s3_draws(np.random.RandomState(1), runner.cfg)
+    twin = Runner(conf, mode="validate_image", case="sphere",
+                  is_continue=True, device="cpu")
+    outs = []
+    for r, dev in ((runner, "cuda"), (twin, "cpu")):
+        oo, dd = o.to(dev), d.to(dev)
+        near, far = RAYS.near_far_from_sphere(oo, dd)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = R.mate_illu_render(r.model, r.cfg, oo, dd, near, far,
+                                     *(v.to(dev) for v in u))
+        outs.append({k: v.cpu().numpy() for k, v in out.items()
+                     if k in VAL_KEYS or k == "sdf_mask"})
+        print(f"stage-3 chunk of {VAL_CHUNK} rays on {dev}: "
+              f"{time.perf_counter() - t0:.3f} s")
+    card, cpu = outs
+    if card["sdf_mask"].sum() < 0.1 * VAL_CHUNK:
+        raise AssertionError("the stage-3 chunk hardly sees the surface")
+    same = card["sdf_mask"] == cpu["sdf_mask"]
+    err = np.max([np.abs(card[k] - cpu[k]).reshape(VAL_CHUNK, -1).max(-1)
+                  for k in VAL_KEYS], 0)[same]
+    tight = int((err <= S3_CHUNK_TOL).sum())
+    print(f"stage-3 validation chunk, card against the CPU twins: "
+          f"{int(card['sdf_mask'].sum())} of {VAL_CHUNK} rays hit, "
+          f"{VAL_CHUNK - int(same.sum())} sdf_mask flips (at most "
+          f"{S3_FLIP_SHARE:.1%}); of the others {tight} within "
+          f"{S3_CHUNK_TOL:g} abs in all {len(VAL_KEYS)} maps (need "
+          f"{S3_CHUNK_SHARE:.0%}), max |err| {err.max():.3e}")
+    if (VAL_CHUNK - same.sum() > S3_FLIP_SHARE * VAL_CHUNK
+            or tight < S3_CHUNK_SHARE * same.sum()
+            or not all(np.isfinite(card[k]).all() for k in VAL_KEYS)):
+        raise AssertionError("the card's stage-3 render disagrees with the "
+                             "CPU twins'")
+
+
 def subprocess_run(flag: str, env: dict, label: str) -> dict:
     """Runs this script with ``flag`` in a child process (the switches are
     read at import); returns its last line's JSON."""
@@ -1537,6 +1815,11 @@ def main() -> int:
         del runner2
         check_stage2_step_against_cpu(conf)
         check_stage2_validation(conf)
+        runner3, launches3 = stage3_run(conf, card)
+        check_outer_sweep(device, runner3.model, card)
+        del runner3
+        check_stage3_step_against_cpu(conf)
+        check_stage3_validation(conf)
 
     stash = subprocess_run(STASH_RUN, {"FNEUS_PG_HBM_STASH": "1"}, "stash")
     print(f"stash run rays/s over steps 1-{STASH_STEPS} (a new process: "
@@ -1551,6 +1834,7 @@ def main() -> int:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched")
         k["stage2_launches"] = launches2[k["name"]]
+        k["stage3_launches"] = launches3[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

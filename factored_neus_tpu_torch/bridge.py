@@ -7,9 +7,10 @@ JAX layouts: weight-normed layers ``{'v': [in, out], 'g': [out], 'b'}``,
 plain layers ``{'w': [in, out], 'b'}``, the variance ``{'variance': []}``,
 the background NeRF ``{'pts_linears': [...], 'views_linear',
 'feature_linear', 'alpha_linear', 'rgb_linear'}``, Lvis and IndirectLight
-a list of plain layers.  A model's groups are its ``GROUPS``: those of a
-Stage1Model, and of a Stage2Model, which keeps the stage-1 groups in its
-frozen ``stage1``.
+a list of plain layers, the material ``{'lgtSGs': [M, 7], 'brdf_encoder',
+'brdf_decoder', 'net_cs'}`` with lists of plain layers.  A model's groups
+are its ``GROUPS``: those of a Stage1Model, of a Stage2Model, which keeps
+the stage-1 groups in its frozen ``stage1``, and of a Stage3Model.
 The port keeps torch layouts: ``weight_v`` [out, in], ``weight_g`` [out, 1],
 ``nn.Linear.weight`` [out, in].  Tensors shaped like the parameters (their
 gradients, Adam's moments) cross by the same map: ``jax_tree(model,
@@ -29,6 +30,11 @@ from .ops.mlp import WNLinear
 
 # the Sequential of Lvis' and IndirectLight's layers
 _MLP = {"lvis": "lvis", "indirect": "indi"}
+# the material group's MLPs: JAX key -> the Sequential of EnvmapMaterial
+_MATERIAL_MLP = {"brdf_encoder": "brdf_encoder_layer",
+                 "brdf_decoder": "brdf_decoder_layer", "net_cs": "net_cs"}
+# the groups a Stage2Model or Stage3Model holds beside its ``stage1``
+_LATER = ("lvis", "indirect", "material")
 # parameter -> the tensor of that shape to read (the parameter itself,
 # its gradient, an optimizer moment)
 Value = Callable[[torch.Tensor], torch.Tensor]
@@ -59,14 +65,15 @@ def _refcolor_linears(rc: nn.Module) -> Dict[str, List[nn.Linear]]:
 
 
 def _mlp_linears(seq: nn.Sequential) -> List[nn.Linear]:
-    """The linear layers of Lvis' or IndirectLight's stack."""
+    """The linear layers of an nn.Sequential (Lvis' or IndirectLight's
+    stack, or one of EnvmapMaterial's MLPs)."""
     return [m for m in seq if isinstance(m, nn.Linear)]
 
 
 def _module(model: nn.Module, group: str) -> nn.Module:
-    """The module of a params group: a Stage2Model holds the stage-1
-    groups in ``stage1``."""
-    if group not in ("lvis", "indirect") and hasattr(model, "stage1"):
+    """The module of a params group: a Stage2Model or Stage3Model holds
+    the stage-1 groups in ``stage1``."""
+    if group not in _LATER and hasattr(model, "stage1"):
         model = model.stage1
     return getattr(model, group)
 
@@ -116,8 +123,8 @@ def load_layers(module: nn.Module, layers: List[Dict[str, Any]],
 def load_jax_group(model: nn.Module, group: str, params: Any,
                    assign: Assign = _copy_into) -> None:
     """Copy one JAX params group (nerf, sdf, variance, color, ref_color,
-    lvis or indirect; numpy leaves) into a Stage1Model or Stage2Model, or
-    hand each value to ``assign``."""
+    lvis, indirect or material; numpy leaves) into a Stage1Model,
+    Stage2Model or Stage3Model, or hand each value to ``assign``."""
     if group not in model.GROUPS:
         raise KeyError(f"no params group {group!r} in {type(model).__name__}")
     module = _module(model, group)
@@ -132,6 +139,13 @@ def load_jax_group(model: nn.Module, group: str, params: Any,
                 _set_layer(lin, p, assign)
     elif group == "nerf":
         load_nerf(module, params, assign)
+    elif group == "material":
+        assign(module.lgtSGs,
+               torch.tensor(np.asarray(params["lgtSGs"], np.float32)))
+        for name, seq in _MATERIAL_MLP.items():
+            for lin, p in zip(_mlp_linears(getattr(module, seq)),
+                              params[name], strict=True):
+                _set_layer(lin, p, assign)
     else:
         for lin, p in zip(_mlp_linears(getattr(module, _MLP[group])), params,
                           strict=True):
@@ -142,7 +156,7 @@ def load_jax_params(model: nn.Module, params: Dict[str, Any],
                     assign: Assign = _copy_into,
                     groups: Optional[Sequence[str]] = None) -> None:
     """Copy the model's groups (or ``groups``) of a JAX params dict (numpy
-    leaves) into a Stage1Model or Stage2Model."""
+    leaves) into a Stage1Model, Stage2Model or Stage3Model."""
     for group in groups or model.GROUPS:
         load_jax_group(model, group, params[group], assign)
 
@@ -179,6 +193,11 @@ def _jax_group(module: nn.Module, group: str, get: Value) -> Any:
         return {name: ([_get_layer(l, get) for l in lins]
                        if isinstance(lins, list) else _get_layer(lins, get))
                 for name, lins in _nerf_linears(module).items()}
+    if group == "material":
+        return {"lgtSGs": get(module.lgtSGs).detach().cpu().numpy(),
+                **{name: [_get_layer(l, get)
+                          for l in _mlp_linears(getattr(module, seq))]
+                   for name, seq in _MATERIAL_MLP.items()}}
     return [_get_layer(l, get)
             for l in _mlp_linears(getattr(module, _MLP[group]))]
 

@@ -8,7 +8,9 @@ shapes.  Counterpart of factored_neus_tpu/models/fields.py:
   SingleVarianceNetwork   inv_s = exp(10 * variance)
   RefColor                surface reflection colour (diffuse + specular)
   NeRF                    NeRF++ background model of the womask configs
-  Lvis                    stage-2 light visibility of (point, direction)
+  Lvis                    stage-2 light visibility of (point, direction),
+                          and its factorised sweep over every (direction,
+                          point) pair for stage 3 (outer)
   IndirectLight           stage-2 per-point mixture of SGs
 
 State-dict names follow the reference networks (``lin{l}.weight_g`` ...,
@@ -361,6 +363,28 @@ class Lvis(nn.Module):
         return self.lvis(torch.cat(
             [positional_encoding(pts, self.cfg.multires_pts),
              positional_encoding(view, self.cfg.multires_view)], -1))
+
+    def outer(self, pts: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+        """Visibility of every (direction, point) pair: pts [P, 3], dirs
+        [D, 3] -> [D, P].  The encodings and the first layer run on the
+        two factors, split by the first layer's input columns, and meet in
+        a broadcast add, bias and ReLU as [D P, 256]; layers 2-5 and the
+        sigmoid run on that.  The same function as the flat forward on
+        the D P pairs, up to the order of the first layer's sums."""
+        with torch.autograd.profiler.record_function("Lvis.outer"):
+            lins = [m for m in self.lvis if isinstance(m, nn.Linear)]
+            pe_p = positional_encoding(pts, self.cfg.multires_pts)
+            pe_d = positional_encoding(dirs, self.cfg.multires_view)
+            dp = pe_p.shape[-1]
+            w1 = lins[0].weight
+            a_p = torch.matmul(pe_p, w1[:, :dp].T)              # [P, H]
+            a_d = torch.matmul(pe_d, w1[:, dp:].T)              # [D, H]
+            x = torch.relu(a_d[:, None, :] + a_p[None, :, :] + lins[0].bias)
+            x = x.reshape(-1, x.shape[-1])
+            for lin in lins[1:-1]:
+                x = nn.functional.linear(x, lin.weight, lin.bias).relu_()
+            x = nn.functional.linear(x, lins[-1].weight, lins[-1].bias)
+            return torch.sigmoid(x).reshape(dirs.shape[0], pts.shape[0])
 
 
 @dataclasses.dataclass(frozen=True)

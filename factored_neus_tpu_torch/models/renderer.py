@@ -1,8 +1,9 @@
 """NeuS stage-1 renderer, with the NeRF++ background model when
-n_outside > 0 (the womask configs), and the stage-2 light-visibility
-renderer on the frozen stage-1 networks.  Counterpart of
+n_outside > 0 (the womask configs), the stage-2 light-visibility renderer
+on the frozen stage-1 networks and the stage-3 material renderer on the
+frozen stage-1 and stage-2 networks.  Counterpart of
 factored_neus_tpu/models/renderer.py (render, render_core,
-render_core_outside, _stage23_util, lvis_render).
+render_core_outside, _stage23_util, lvis_render, mate_illu_render).
 
 The surface branch keeps the JAX package's static-shape form: RefColor runs
 for every ray at the two samples bracketing the first SDF sign change and
@@ -21,6 +22,11 @@ sweeps, the localisation sweep, the secondary coarse sweep), K1-fwd three
 times (the surface normals, the secondary fine sweep, the secondary
 surface points) and K3-fwd once (the first-hit colour).  Lvis and
 IndirectLight, the networks it trains, are plain MLPs on cuBLAS.
+
+Stage 3 runs K2 five times a step (the ladder's four sweeps and the
+localisation sweep) and K1-fwd once (the surface points' feature and
+normal), on the same frozen pack, and no backward kernel: the gradient
+reaches only EnvmapMaterial, through cuBLAS MLPs and the SG shading.
 """
 from __future__ import annotations
 
@@ -30,9 +36,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..ops import math as U
 from ..ops import sampling as S
 from . import fields as F
 from . import secondary as SEC
+from .materials import EnvmapMaterial, EnvmapMaterialConfig
 from .secondary import first_crossing, section_geometry
 
 
@@ -49,6 +57,7 @@ class RendererConfig:
     nerf: F.NeRFConfig = F.NeRFConfig()
     lvis: F.LvisConfig = F.LvisConfig()
     indirect: F.IndirectLightConfig = F.IndirectLightConfig()
+    material: EnvmapMaterialConfig = EnvmapMaterialConfig()
     # rows of a chunk of the CPU twins' secondary sweeps (one launch on the
     # card)
     secondary_chunk: int = 131072
@@ -408,3 +417,66 @@ def lvis_render(model: Stage2Model, cfg: RendererConfig, rays_o, rays_d,
                                           one),
         "sdf_mask": sdf_mask,
     }
+
+
+# ---------------------------------------------------------------------------
+# Stage 3
+# ---------------------------------------------------------------------------
+
+class Stage3Model(Stage2Model):
+    """The stage-1 networks and Lvis and IndirectLight, all frozen
+    (requires_grad off), and the network stage 3 trains: EnvmapMaterial
+    (the JAX params group material)."""
+
+    GROUPS = Stage2Model.GROUPS + ("material",)
+
+    def __init__(self, cfg: RendererConfig, variance_init_val: float = 0.3,
+                 seed: int = 0, device="cpu"):
+        super().__init__(cfg, variance_init_val, seed=seed, device=device)
+        self.lvis.requires_grad_(False)
+        self.indirect.requires_grad_(False)
+        gen = torch.Generator().manual_seed(seed + 2)
+        self.material = EnvmapMaterial(cfg.material, gen).to(device)
+
+
+def mate_illu_render(model: Stage3Model, cfg: RendererConfig, rays_o,
+                     rays_d, near, far,
+                     u_theta: Optional[torch.Tensor] = None,
+                     u_phi: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None
+                     ) -> Dict[str, Any]:
+    """Stage 3: the surface point of each ray on the frozen geometry (the
+    ladder's four K2 sweeps and the localisation sweep, then K1-fwd once
+    for its feature and normal), RefColor's specular map in linear space
+    (the supervision maps), IndirectLight's SGs there, and EnvmapMaterial's
+    forward, which alone carries gradient.  Rays without a surface hit
+    carry ones in every map.  The visibility draws are u_theta, u_phi
+    [num_lgt_sgs, vis_nsamp] in [0, 1) when given, else drawn from
+    ``generator``."""
+    geo = model.stage1
+    sdf_w, _ = model.kernel_weights()
+    with torch.no_grad():
+        mid_z, sdf, inside_mask = _stage23_util(geo, cfg, rays_o, rays_d,
+                                                near, far, sdf_w)
+        pts_surf, _, sdf_mask = SEC.surface_localize(mid_z, sdf, rays_o,
+                                                     rays_d, inside_mask)
+        _, f_surf, n_surf = geo.sdf.value_grad_feat(pts_surf, sdf_w)
+        ref = geo.ref_color(pts_surf, f_surf, rays_d, n_surf)
+        diffuse_srgb = ref["diffuse_rgb"]
+        specular_linear = U.srgb_to_linear(ref["specular_rgb"])
+        indi = model.indirect(pts_surf)
+    out = model.material(pts_surf, rays_d, n_surf, indi, model.lvis,
+                         hit_mask=sdf_mask, u_theta=u_theta, u_phi=u_phi,
+                         generator=generator)
+    m = sdf_mask[:, None]
+    one = torch.ones((), dtype=rays_o.dtype, device=rays_o.device)
+    mask1 = lambda x: torch.where(m, x, one)
+    ret = {k: mask1(out[k]) for k in (
+        "rgb", "env_rgb", "indir_rgb", "diffuse_albedo", "specular_albedo",
+        "diffuse_rgb", "specular_rgb", "roughness", "lvis_mean")}
+    ret.update({k: out[k] for k in ("diffuse_loss", "specular_loss",
+                                    "encoder_loss", "smooth_loss")})
+    ret.update(sdf_mask=sdf_mask,
+               gt_specular_linear=mask1(specular_linear),
+               gt_diffuse_srgb=mask1(diffuse_srgb), n_out=mask1(n_surf))
+    return ret

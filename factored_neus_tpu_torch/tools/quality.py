@@ -5,6 +5,7 @@ own protocol does (tools/tpu_chain_r5.sh, tools/multiseed_quality_eval.py):
 
     python -m factored_neus_tpu_torch.tools.quality [--confs wmask womask]
         [--seeds 0 1 2] [--end_iter 20000] [--parallel 3] [--stage2]
+        [--stage3] [--from_stage N]
         [--out build/quality] [--summary FILE] [--device cuda]
 
 Each run is confs/<conf>.conf with end_iter = --end_iter and recording =
@@ -20,8 +21,16 @@ deviation is flagged as a gap.  With --stage2, each run then trains the
 conf's stage 2 (train.lvis.end_iter steps) on its last stage-1 checkpoint
 through the port's stage-2 CLI, and its row adds the tail lvis and
 trace-radiance losses (the mean of the last five reports), the median
-stage-2 rays/s and the directory of its lvis panels.  Prints one JSON
-object and writes it to <out>/summary.json (and to --summary when given).
+stage-2 rays/s and the directory of its lvis panels.  With --stage3 (it
+implies --stage2), each run then trains the conf's stage 3
+(train.metaIllu.end_iter steps) on its last stage-2 checkpoint through
+the port's stage-3 CLI, and its row adds the tail rgb loss and train
+PSNR (the mean of the last five reports), the median stage-3 rays/s and
+the directory of its rgb panels.  --from_stage N starts each run at
+stage N on what the earlier stages left under --out (their checkpoints,
+logs and last mesh), which are scored as they are: a run longer than one
+sitting can go in two.  Prints one JSON object and writes it to
+<out>/summary.json (and to --summary when given).
 """
 from __future__ import annotations
 
@@ -45,6 +54,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 BARS = os.path.join(REPO, "evidence", "msq49_summary.json")
 METRICS = ("chamfer_d2s", "chamfer_s2d", "train_psnr_tail")
 STAGE2_METRICS = ("lvis_loss_tail", "trace_radiance_loss_tail")
+STAGE3_METRICS = ("rgb_loss_tail", "stage3_psnr_tail")
 SCENE = (49, 384, 512)          # views, H, W: the JAX runs' scene
 Y_RANGE = (0.2, 1.2)            # camera heights: a DTU scan's arc
 
@@ -77,6 +87,8 @@ def write_run_conf(src: str, dst: str, data_dir: str, exp_dir: str,
             f"base_exp_dir_geo = {exp_dir}/CASE_NAME",
             r"base_exp_dir_lvis = \./exp/CASE_NAME":
             f"base_exp_dir_lvis = {exp_dir}/CASE_NAME",
+            r"base_exp_dir_mateIllu = \./exp/CASE_NAME":
+            f"base_exp_dir_mateIllu = {exp_dir}/CASE_NAME",
             r"data_dir = \S+": f"data_dir = {data_dir}/CASE_NAME/",
             r"end_iter = 300000": f"end_iter = {end_iter}",
             r"recording = \[[^]]*\]": "recording = []"}
@@ -122,6 +134,20 @@ def score_stage2(exp_dir: str, log_path: str) -> Dict[str, object]:
             "stage2_panels": os.path.join(exp_dir, "lvis")}
 
 
+def score_stage3(exp_dir: str, log_path: str) -> Dict[str, object]:
+    """The scores of one finished stage-3 run (its log and panels)."""
+    with open(log_path) as f:
+        reports = re.findall(r"rgb=([-0-9.]+) psnr=([-0-9.]+) "
+                             r"rays/s=([0-9.]+)", f.read())
+    if not reports:
+        raise RuntimeError(f"{log_path}: no stage-3 report")
+    rgb, psnr, rays = (np.asarray(c, np.float64) for c in zip(*reports))
+    return {"rgb_loss_tail": float(rgb[-5:].mean()),
+            "stage3_psnr_tail": float(psnr[-5:].mean()),
+            "stage3_rays_per_sec_median": float(np.median(rays)),
+            "stage3_panels": os.path.join(exp_dir, "rgb")}
+
+
 def mean_sd(values: Sequence[float]) -> List[float]:
     a = np.asarray(values, np.float64)
     return [float(a.mean()), float(a.std(ddof=1)) if len(a) > 1 else 0.0]
@@ -162,7 +188,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     p.add_argument("--device", default="cuda")
     p.add_argument("--stage2", action="store_true",
                    help="train and score stage 2 after each run")
+    p.add_argument("--stage3", action="store_true",
+                   help="train and score stages 2 and 3 after each run")
+    p.add_argument("--from_stage", type=int, default=1, choices=(1, 2, 3),
+                   help="start each run at this stage, on the earlier "
+                        "stages' results under --out")
     args = p.parse_args(argv)
+    args.stage2 = args.stage2 or args.stage3
 
     out = os.path.abspath(args.out)
     data = os.path.join(out, "data")
@@ -185,11 +217,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
                 os.path.join(out, f"{name}.conf"), data, exp, args.end_iter)
             geo = os.path.join(exp, "fake_scan", conf, "geometry")
             jobs.append((conf, seed, name, cpath, geo))
-    stages = ["exp_runner"] + (["lvis"] if args.stage2 else [])
+    stages = (["exp_runner"] + (["lvis"] if args.stage2 else [])
+              + (["mateIllu"] if args.stage3 else []))
+    if args.from_stage > len(stages):
+        raise SystemExit(f"--from_stage {args.from_stage}: the run has "
+                         f"{len(stages)} stages")
 
     def start(job, stage: int):
         """The job's stage-th CLI in a process of its own, logged to
-        <name>.log (stage 1) or <name>_lvis.log."""
+        <name>.log (stage 1), <name>_lvis.log or <name>_mateIllu.log."""
         conf, seed, name, cpath, _ = job
         log = f"{name}.log" if stage == 0 else f"{name}_{stages[stage]}.log"
         logf = open(os.path.join(out, log), "w")
@@ -205,7 +241,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     # each run is scored as soon as it ends, its row printed at once, so
     # the rows of finished runs survive a later failure
     running: List[Tuple[tuple, subprocess.Popen, float, object, int]] = []
-    walls: Dict[str, List[float]] = {}
+    walls: Dict[str, Dict[str, float]] = {}
     rows: Dict[str, List[Dict[str, object]]] = {c: [] for c in args.confs}
     failed: List[str] = []
 
@@ -218,22 +254,27 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
                 running.remove(item)
                 logf.close()
                 conf, seed, name, _, geo = job
-                walls.setdefault(name, []).append(time.perf_counter() - t0)
+                wall = time.perf_counter() - t0
+                walls.setdefault(name, {})[stages[stage]] = wall
                 if proc.returncode != 0:
                     failed.append(name)
                     print(f"run {name} failed rc={proc.returncode} after "
-                          f"{walls[name][-1]:.1f} s; see {logf.name}",
-                          flush=True)
+                          f"{wall:.1f} s; see {logf.name}", flush=True)
                     return
                 if stage + 1 < len(stages):
                     running.append(start(job, stage + 1))
                     return
-                row = {"seed": seed, "wall_s": walls[name][0],
+                w = walls[name]
+                row = {"seed": seed, "wall_s": w.get("exp_runner"),
                        **score_run(geo, os.path.join(out, f"{name}.log"))}
                 if args.stage2:
-                    row.update(stage2_wall_s=walls[name][1], **score_stage2(
+                    row.update(stage2_wall_s=w.get("lvis"), **score_stage2(
                         geo.replace(os.sep + "geometry", os.sep + "lvis"),
                         os.path.join(out, f"{name}_lvis.log")))
+                if args.stage3:
+                    row.update(stage3_wall_s=w.get("mateIllu"), **score_stage3(
+                        geo.replace(os.sep + "geometry", os.sep + "mateIllu"),
+                        os.path.join(out, f"{name}_mateIllu.log")))
                 rows[conf].append(row)
                 print(f"run {name}: {json.dumps(row)}", flush=True)
                 return
@@ -242,7 +283,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     for job in jobs:
         while len(running) >= args.parallel:
             reap_one()
-        running.append(start(job, 0))
+        running.append(start(job, args.from_stage - 1))
     while running:
         reap_one()
 
@@ -251,7 +292,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
         "scene": {"n_views": SCENE[0], "H": SCENE[1], "W": SCENE[2],
                   "y_range": list(Y_RANGE)},
         "end_iter": args.end_iter, "parallel": args.parallel,
-        "stage2": args.stage2, "failed": failed}
+        "stage2": args.stage2, "stage3": args.stage3,
+        "from_stage": args.from_stage, "failed": failed}
     bars = {}
     if os.path.exists(BARS):
         with open(BARS) as f:
@@ -261,7 +303,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
             continue
         rs = sorted(rows[conf], key=lambda r: r["seed"])
         stats = {m: mean_sd([r[m] for r in rs]) for m in METRICS
-                 + (STAGE2_METRICS if args.stage2 else ())}
+                 + (STAGE2_METRICS if args.stage2 else ())
+                 + (STAGE3_METRICS if args.stage3 else ())}
         entry: Dict[str, object] = {"seeds": rs, **{
             f"{m}_mean_sd": v for m, v in stats.items()}}
         if conf in bars:

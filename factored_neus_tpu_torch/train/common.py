@@ -23,6 +23,7 @@ from ..utils.hocon import ConfigTree
 STAGE_TRAINABLE = {
     1: ("nerf", "sdf", "variance", "color", "ref_color"),
     2: ("lvis", "indirect"),
+    3: ("material",),
 }
 
 
@@ -52,7 +53,8 @@ class TrainConfig:
         """The stage's fields; warm_up_end defaults to 0 like the
         reference.  Stage 2 takes end_iter, batch_size and warm_up_end
         from train.lvis and the rest, the learning rate too, from
-        train."""
+        train; stage 3 takes end_iter and batch_size from train.metaIllu
+        (or train.mateIllu) and keeps the global warm_up_end."""
         t = c.get("train", ConfigTree())
         base = cls(
             learning_rate=float(t.get("learning_rate", 5e-4)),
@@ -76,20 +78,25 @@ class TrainConfig:
         )
         if stage == 1:
             return base
-        if stage != 2:
-            raise NotImplementedError(f"stage {stage} is not ported")
-        lv = t.get("lvis", ConfigTree())
+        if stage == 2:
+            lv = t.get("lvis", ConfigTree())
+            return dataclasses.replace(
+                base, end_iter=int(lv.get("end_iter", 10000)),
+                batch_size=int(lv.get("batch_size", 512)),
+                warm_up_end=float(lv.get("warm_up_end", 0.0)))
+        if stage != 3:
+            raise ValueError(f"no stage {stage}")
+        mi = t.get("metaIllu", t.get("mateIllu", ConfigTree()))
         return dataclasses.replace(
-            base, end_iter=int(lv.get("end_iter", 10000)),
-            batch_size=int(lv.get("batch_size", 512)),
-            warm_up_end=float(lv.get("warm_up_end", 0.0)))
+            base, end_iter=int(mi.get("end_iter", 40000)),
+            batch_size=int(mi.get("batch_size", 512)))
 
 
 def make_optimizer(model: torch.nn.Module, tcfg: TrainConfig,
                    stage: int = 1) -> torch.optim.Adam:
     """Adam over the parameters of the stage's trainable groups (a
-    Stage1Model's, or a Stage2Model's lvis and indirect); set_lr() applies
-    the schedule."""
+    Stage1Model's, a Stage2Model's lvis and indirect, or a Stage3Model's
+    material); set_lr() applies the schedule."""
     return torch.optim.Adam(
         [p for g in STAGE_TRAINABLE[stage]
          for p in getattr(model, g).parameters()], lr=tcfg.learning_rate)
@@ -110,9 +117,9 @@ def optimizer_leaves(model: torch.nn.Module, opt: torch.optim.Adam,
     stage (its ``multi_transform`` keeps moments of the trainable groups
     only): the update count, the first moments, the second moments (each
     in the params' tree order, groups sorted: color, nerf, ref_color, sdf,
-    variance in stage 1; indirect, lvis in stage 2) and the schedule's
-    count.  A parameter without state (it has had no gradient) has zero
-    moments."""
+    variance in stage 1; indirect, lvis in stage 2; material in stage 3)
+    and the schedule's count.  A parameter without state (it has had no
+    gradient) has zero moments."""
     def moment(name):
         return lambda p: (opt.state[p][name] if p in opt.state
                           else torch.zeros_like(p))

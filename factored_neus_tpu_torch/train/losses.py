@@ -1,8 +1,9 @@
 """Stage losses.  Counterpart of factored_neus_tpu/train/losses.py
-(stage1_losses, stage2_losses) on one device:
+(stage1_losses, stage2_losses, stage3_losses) on one device:
   stage 1: color L1 / mask_sum + surface-colour L1 / mask_sdf_sum +
            eikonal + BCE(weight_sum, mask);
-  stage 2: L1(lvis) / (4 n_hit) + L1(trace radiance) / (12 n_hit)."""
+  stage 2: L1(lvis) / (4 n_hit) + L1(trace radiance) / (12 n_hit);
+  stage 3: L1(rgb) over the masked hit rays + the KL encoder loss."""
 from __future__ import annotations
 
 from typing import Dict
@@ -60,3 +61,20 @@ def stage2_losses(out: Dict):
     loss = lvis_loss + trace_loss
     return loss, {"loss": loss, "lvis_loss": lvis_loss,
                   "trace_radiance_loss": trace_loss, "n_hit": n_hit}
+
+
+def stage3_losses(out: Dict, true_rgb, mask):
+    """out: mate_illu_render() dict; mask [B, 1] already binarised or
+    ones.  The rgb L1 and the PSNR run over the rays that are in the mask
+    and hit the surface."""
+    sm = out["sdf_mask"][:, None].to(mask.dtype)
+    sdf_mask_sum = torch.sum(mask * sm) + 1e-5
+    rgb_err = (out["rgb"] - true_rgb) * mask * sm
+    rgb_loss = torch.sum(torch.abs(rgb_err)) / sdf_mask_sum
+    mse = torch.sum((out["rgb"] - true_rgb) ** 2 * mask * sm) \
+        / (sdf_mask_sum * 3.0)
+    encoder_loss = out["encoder_loss"]
+    loss = rgb_loss + encoder_loss
+    return loss, {"loss": loss, "rgb_loss": rgb_loss,
+                  "encoder_loss": encoder_loss, "psnr": psnr_from_mse(mse),
+                  "n_hit": torch.sum(sm)}

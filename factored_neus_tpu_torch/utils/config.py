@@ -1,11 +1,13 @@
 """Config schema: HOCON tree -> typed configs of stage 1 and, from the
-section model.lvis_renderer, stage 2 (the Lvis and IndirectLight configs
-keep their defaults, as in the JAX package).  Counterpart of
+section model.lvis_renderer, stages 2 and 3 (the Lvis, IndirectLight and
+material configs keep their defaults, as in the JAX package; the
+material's tonemap is the caller's: srgb for DTU).  Counterpart of
 factored_neus_tpu/utils/config.py (sdf_config, rendering_config,
 nerf_config, renderer_config, variance_init_val, load)."""
 from __future__ import annotations
 
 from ..models import fields as F
+from ..models.materials import EnvmapMaterialConfig
 from ..models.renderer import RendererConfig
 from .hocon import ConfigTree, parse_file
 
@@ -52,8 +54,8 @@ def nerf_config(c: ConfigTree) -> F.NeRFConfig:
         skips=tuple(d.get("skips", [4])))
 
 
-def renderer_config(c: ConfigTree,
-                    section: str = "model.neus_renderer") -> RendererConfig:
+def renderer_config(c: ConfigTree, section: str = "model.neus_renderer",
+                    tonemap: str = "srgb") -> RendererConfig:
     d = c.get(section, ConfigTree())
     sdf = sdf_config(c)
     return RendererConfig(
@@ -66,7 +68,8 @@ def renderer_config(c: ConfigTree,
         rendering=rendering_config(c),
         nerf=nerf_config(c),
         # RefColor consumes the SDF feature vector (d_out - 1 dims)
-        refcolor=F.RefColorConfig(d_feature=sdf.d_out - 1))
+        refcolor=F.RefColorConfig(d_feature=sdf.d_out - 1),
+        material=EnvmapMaterialConfig(tonemap=tonemap))
 
 
 def variance_init_val(c: ConfigTree) -> float:

@@ -1,6 +1,6 @@
 """The port imports nothing of JAX: every module of factored_neus_tpu_torch
 imports, and its CLIs train, validate, mesh and score a tiny scene, and
-train and validate stage 2 on it, in a
+train and validate stages 2 and 3 on it, in a
 process where jax, jaxlib and factored_neus_tpu cannot be imported (nor
 the optional cv2, imageio, PIL and TensorBoard writers, which the port
 does without)."""
@@ -52,6 +52,11 @@ CHILD = textwrap.dedent("""
     r2 = lvis.main(["--mode", "train", *base])
     assert r2.iter_step == 4 and r2.history, r2.iter_step
     lvis.main(["--mode", "validate_image", "--is_continue", *base])
+    from factored_neus_tpu_torch import mateIllu
+    r3 = mateIllu.main(["--mode", "train", *base])
+    assert r3.iter_step == 4 and r3.history, r3.iter_step
+    v3 = mateIllu.main(["--mode", "validate_image", "--is_continue", *base])
+    assert os.path.exists(v3.last_envmap), v3.last_envmap
     from factored_neus_tpu_torch.meshing.ply import read_ply_mesh
     meshes = os.path.join(r.base_exp_dir, "meshes")
     d2s, s2d = chamfer_vs_sphere(*read_ply_mesh(

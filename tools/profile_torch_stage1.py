@@ -1,24 +1,30 @@
 #!/usr/bin/env python3
-"""Where the time of one stage-1 (or stage-2) step of the PyTorch port
-goes, on a GPU.
+"""Where the time of one stage-1 (or stage-2, or stage-3) step of the
+PyTorch port goes, on a GPU.
 
     python3 tools/profile_torch_stage1.py            # K1-fwd / K1-bwd
     python3 tools/profile_torch_stage1.py --stash    # the HBM-stash pair
     python3 tools/profile_torch_stage1.py --womask [--split]
     python3 tools/profile_torch_stage1.py --stage2   # a stage-2 step
+    python3 tools/profile_torch_stage1.py --stage3   # a stage-3 step
 
 Trains full-width confs/wmask.conf (--womask: confs/womask.conf, with the
 background NeRF) on the analytic-sphere scene of chip_smoke.py: WARMUP
 steps, then a timed window of STEPS steps (host clock around steps that
 end in torch.cuda.synchronize) and a torch.profiler window of as many;
 --stage2 trains stage 2 of confs/wmask.conf instead (Lvis and
-IndirectLight on the frozen stage-1 networks of the seed-0 init).
+IndirectLight on the frozen stage-1 networks of the seed-0 init), and
+--stage3 its stage 3 (EnvmapMaterial on the frozen stage-1 and stage-2
+networks of the seed-0 init).  In a stage-3 step the device time of the
+kernels launched inside Lvis' factorised visibility sweep (its cuBLAS
+products and elementwise kernels, under the profiler range "Lvis.outer")
+is grouped in one row.
 Prints ms/step, rays/s, the device-busy share of the profiled window and
 device time by kernel, each hand-written kernel named by its row of
-PERF.md's table, and writes the table as JSON to
-build/profile/profile_torch_stage1[_womask][_stash][_split][_stage2].json.  --stash
-sets FNEUS_PG_HBM_STASH=1 and --split FNEUS_PG_STACKED=0 before the port
-is imported (the switches are read at import).
+PERF.md's table, and writes the table as JSON to build/profile/
+profile_torch_stage1[_womask][_stash][_split][_stage2][_stage3].json.
+--stash sets FNEUS_PG_HBM_STASH=1 and --split FNEUS_PG_STACKED=0 before
+the port is imported (the switches are read at import).
 """
 import json
 import os
@@ -40,7 +46,9 @@ TABLE_ROWS = (("geometry_fwd_kernel", "K1-fwd"),
               ("radiance_fwd_kernel", "K3-fwd"),
               ("radiance_bwd_kernel", "K3-bwd"),
               ("reduce_partials_kernel", "K1-bwd/K3-bwd partial sums"))
-FLAGS = ("--womask", "--stash", "--split", "--stage2")
+FLAGS = ("--womask", "--stash", "--split", "--stage2", "--stage3")
+OUTER = "Lvis.outer"        # the profiler range of the visibility sweep
+OUTER_ROW = "Lvis.outer (visibility sweep, cuBLAS)"
 
 
 def table_row(kernel: str, stash: bool) -> str:
@@ -53,13 +61,32 @@ def table_row(kernel: str, stash: bool) -> str:
     return ""
 
 
+def outer_kernels(prof) -> dict:
+    """[device us, launches] by kernel name of the kernels launched inside
+    the OUTER range (a CPU op's kernels, with an ancestor of that name)."""
+    import torch
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        p = e.cpu_parent
+        while p is not None and p.name != OUTER:
+            p = p.cpu_parent
+        if p is not None:
+            for k in e.kernels:
+                acc = out.setdefault(k.name, [0.0, 0])
+                acc[0] += k.duration
+                acc[1] += 1
+    return out
+
+
 def main() -> int:
     args = sys.argv[1:]
     if not set(args) <= set(FLAGS) or len(set(args)) != len(args):
         print("usage: profile_torch_stage1.py [--womask] [--stash] "
-              "[--split] [--stage2]", file=sys.stderr)
+              "[--split] [--stage2 | --stage3]", file=sys.stderr)
         return 2
-    womask, stash, split, stage2 = (f in args for f in FLAGS)
+    womask, stash, split, stage2, stage3 = (f in args for f in FLAGS)
     if stash:
         os.environ["FNEUS_PG_HBM_STASH"] = "1"
     if split:
@@ -72,12 +99,14 @@ def main() -> int:
     import chip_smoke
     from factored_neus_tpu_torch.data.datasets import make_dataset
     from factored_neus_tpu_torch.models.renderer import (Stage1Model,
-                                                         Stage2Model)
+                                                         Stage2Model,
+                                                         Stage3Model)
     from factored_neus_tpu_torch.ops import _cuda
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
     from factored_neus_tpu_torch.train.common import TrainConfig
     from factored_neus_tpu_torch.train.stage1 import Stage1Trainer
     from factored_neus_tpu_torch.train.stage2 import Stage2Trainer
+    from factored_neus_tpu_torch.train.stage3 import Stage3Trainer
     from factored_neus_tpu_torch.utils import config as CFG
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -86,7 +115,8 @@ def main() -> int:
         raise AssertionError("the switches disagree with the flags")
     card = chip_smoke.card_line()
     base = "womask.conf" if womask else "wmask.conf"
-    print(card, base, "stage 2" if stage2 else "HBM-stash pair" if stash
+    print(card, base, "stage 2" if stage2 else "stage 3" if stage3
+          else "HBM-stash pair" if stash
           else "K1-fwd / K1-bwd-split" if split else "K1-fwd / K1-bwd")
     _cuda.build_all()
     dev = torch.device("cuda")
@@ -95,12 +125,19 @@ def main() -> int:
         ds = make_dataset("dtu", conf["dataset"], dev)
     data = {"images": ds.images, "masks": ds.masks,
             "intr_inv": ds.intrinsics_all_inv, "poses": ds.pose_all}
+    stage = 2 if stage2 else 3 if stage3 else 1
     if stage2:
         cfg = CFG.renderer_config(conf, "model.lvis_renderer")
         tcfg = TrainConfig.from_conf(conf, stage=2)
         model = Stage2Model(cfg, CFG.variance_init_val(conf), seed=0,
                             device=dev)
         trainer = Stage2Trainer(model, cfg, tcfg, data, seed=2)
+    elif stage3:
+        cfg = CFG.renderer_config(conf, "model.lvis_renderer")
+        tcfg = TrainConfig.from_conf(conf, stage=3)
+        model = Stage3Model(cfg, CFG.variance_init_val(conf), seed=0,
+                            device=dev)
+        trainer = Stage3Trainer(model, cfg, tcfg, data, seed=3)
     else:
         cfg = CFG.renderer_config(conf)
         tcfg = TrainConfig.from_conf(conf)
@@ -120,7 +157,7 @@ def main() -> int:
     t0 = time.perf_counter()
     run(STEPS)
     wall = (time.perf_counter() - t0) / STEPS
-    print(f"stage-{2 if stage2 else 1} step: {1e3 * wall:.2f} ms, "
+    print(f"stage-{stage} step: {1e3 * wall:.2f} ms, "
           f"{tcfg.batch_size / wall:.0f} rays/s on {card}")
 
     from torch.profiler import ProfilerActivity, profile
@@ -129,17 +166,33 @@ def main() -> int:
         t0 = time.perf_counter()
         run(STEPS)
         window = time.perf_counter() - t0
-    rows = []
+    rows, spans = [], {}
+    grouped = outer_kernels(prof) if stage3 else {}
     for e in prof.key_averages():
         # device-side events only: CPU ops also carry their kernels' time
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         dev_us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
+        # a profiler range (record_function: the sweep, the optimizer's
+        # step) shows on the device as the span of its kernels, which are
+        # rows of their own: keep it apart from the kernels' busy time
+        if (getattr(e, "is_user_annotation", False) or e.key == OUTER
+                or e.key.startswith("Optimizer.")):
+            spans[e.key] = dev_us / 1e3 / STEPS
+            continue
+        us, n = grouped.get(e.key, (0.0, 0))
+        if e.count > n:
             rows.append({"name": e.key, "row": table_row(e.key, stash),
-                         "calls": e.count,
-                         "ms_per_step": dev_us / 1e3 / STEPS})
+                         "calls": e.count - n,
+                         "ms_per_step": (dev_us - us) / 1e3 / STEPS})
+    if grouped:
+        rows.append({"name": OUTER, "row": OUTER_ROW,
+                     "calls": sum(n for _, n in grouped.values()),
+                     "ms_per_step": sum(us for us, _ in grouped.values())
+                     / 1e3 / STEPS,
+                     "kernels": {k: us / 1e3 / STEPS
+                                 for k, (us, _) in grouped.items()}})
     rows.sort(key=lambda r: -r["ms_per_step"])
     busy = sum(r["ms_per_step"] for r in rows)
     step_ms = 1e3 * window / STEPS
@@ -148,14 +201,17 @@ def main() -> int:
     for r in rows[:25]:
         print(f"  {r['ms_per_step']:9.3f} ms  {r['calls'] // STEPS:5d}x "
               f" {r['row'] or '-':>26}  {r['name'][:80]}")
+    print(f"  launches a step: {sum(r['calls'] for r in rows) // STEPS}; "
+          f"profiler ranges on the device (spans, not busy time): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in spans.items()))
     os.makedirs(OUT, exist_ok=True)
     name = "profile_torch_stage1" + "".join(
         f.replace("--", "_") for f in FLAGS if f in args) + ".json"
     with open(os.path.join(OUT, name), "w") as f:
         json.dump({"card": card, "conf": base, "stash": stash,
-                   "split": split, "stage2": stage2, "step_ms": 1e3 * wall,
+                   "split": split, "stage": stage, "step_ms": 1e3 * wall,
                    "profiled_step_ms": step_ms, "busy_ms": busy,
-                   "kernels": rows}, f, indent=1)
+                   "spans_ms": spans, "kernels": rows}, f, indent=1)
     return 0
 
 
