@@ -64,7 +64,22 @@
    validate_image through the CLI (counters at 0: K2 5, K1-fwd 1 a
    chunk), its panels and its envmap EXR read back; and one 2048-ray
    chunk of that view rendered by the card and by the CPU twins;
-11. prints {"kernels": [...]}, the card line, and as its last line
+11. the synthetic families: writes a Blender-layout scene (800 x 800,
+   16 train and 4 test views, data/fake_scene.write_blender_scene) and
+   trains 30 full-width steps of each stage through the CLIs, stage 1 as
+   indisg_synthetic (the launches of item 5), stages 2 and 3 as
+   synthetic (those of items 9 and 10, stage 3 in linear space),
+   counters at 0 just before each; the synthetic panels of each stage
+   (stage 1 through the CLI at level 1, stages 2 and 3 at level 4); a
+   64-ray linear stage-3 step against the CPU twins; stage 3's
+   cal_synthetic_psnr (level 1), relighting under two SG envmaps and
+   test-split videos (level 8); validate_mesh_shiny of a shiny_refneus
+   runner at iteration 10000 (the 512^3 fill on K2, the Shiny
+   evaluation); and on fabricated glossy-synthetic and Sk3d scenes the
+   w2c rays on the card against the CPU and an roi_prob = 1 draw inside
+   its dilated box;
+12. prints {"kernels": [...]} (each kernel's launches in the synthetic
+   runs under "synthetic_launches"), the card line, and as its last line
    {"ok": true, "device": {...}}.
 Any failure raises; the script then exits non-zero without the last line.
 """
@@ -148,6 +163,22 @@ S3_FLIP_SHARE, S3_CHUNK_SHARE, S3_CHUNK_TOL = 1e-3, 0.99, 3e-4
 # Lvis' factorised visibility sweep: 128 lobes x 32 samples, at the step's
 # 512 surface points and a validation chunk's 2,048
 OUTER_SHAPES = ((128 * 32, 512), (128 * 32, VAL_CHUNK))
+# a stage-1 step: the ladder's four K2 sweeps, each other kernel once
+STAGE1_PER_STEP = {"sdf_fwd": UP_SAMPLE_STEPS, "radiance_bwd": 1,
+                   "geometry_fwd": 1, "geometry_bwd": 1, "radiance_fwd": 1}
+# the synthetic families (item 11): a Blender-layout scene at the published
+# Shiny Blender / NeRF-synthetic view size, 800 x 800, with 16 train and 4
+# test views (a cut: the published scenes have 100 and 200)
+SYN_CASE, SYN_H, SYN_W, SYN_TRAIN, SYN_TEST = "blender", 800, 800, 16, 4
+# the stage-2 and stage-3 renders that the JAX CLI makes at level 1 run at
+# level 4 here (a stage-3 chunk of 2048 rays costs ~0.13 s, so an 800^2
+# view at level 1 takes ~40 s); the test-split videos at level 8.
+# cal_synthetic_psnr needs level 1 (its ground truth is full size)
+SYN_LEVEL, SYN_VIDEO_LEVEL = 4, 8
+SYN_STAGES = ((1, "indisg_synthetic", STAGE1_PER_STEP),
+              (2, "synthetic", STAGE2_PER_STEP),
+              (3, "synthetic", STAGE3_PER_STEP))
+W2C_TOL = 1e-6          # the w2c rays, card against the CPU
 
 
 def card_line() -> str:
@@ -1547,13 +1578,15 @@ def s3_draws(rng, cfg):
             for _ in range(2)]
 
 
-def check_stage3_step_against_cpu(conf: str) -> None:
+def check_stage3_step_against_cpu(conf: str, case: str = "sphere",
+                                  type: str = "dtu") -> None:
     """One full-width stage-3 step at STEP_RAYS rays of view 0 on the
     30-step stage-3 checkpoint: the card (kernels) against the CPU
     (twins), both float32, on the same weights, rays, colours, binarised
     mask (the conf's mask_weight > 0) and visibility draws: sdf_mask
     equal, at least a tenth of the rays on the surface, the loss and every
-    material gradient at S3_ATOL + S3_RTOL max|ref| per tensor."""
+    material gradient at S3_ATOL + S3_RTOL max|ref| per tensor.  The
+    type's tonemap (linear for the synthetic types) is the runner's."""
     import numpy as np
     import torch
     from factored_neus_tpu_torch.data import rays as RAYS
@@ -1561,8 +1594,8 @@ def check_stage3_step_against_cpu(conf: str) -> None:
     from factored_neus_tpu_torch.train import losses as L
     from factored_neus_tpu_torch.train.runner3 import Runner
 
-    card, cpu = (Runner(conf, mode="validate_image", case="sphere",
-                        is_continue=True, device=dev)
+    card, cpu = (Runner(conf, mode="validate_image", case=case,
+                        is_continue=True, type=type, device=dev)
                  for dev in ("cuda", "cpu"))
     ds = cpu.dataset
     rng = np.random.RandomState(0)
@@ -1597,7 +1630,9 @@ def check_stage3_step_against_cpu(conf: str) -> None:
     at = max(ratios, key=ratios.get)
     l_ratio = abs(l_card - l_cpu) / (S3_ATOL + S3_RTOL * abs(l_cpu))
     n_hit = int(m_card["n_hit"])
-    print(f"stage-3 step check, {STEP_RAYS} rays full width, {n_hit} hit, "
+    print(f"stage-3 step check ({type}, tonemap "
+          f"{card.cfg.material.tonemap}), {STEP_RAYS} rays full width, "
+          f"{n_hit} hit, "
           f"{flips} sdf_mask flips, {len(g_cpu)} parameter tensors: loss "
           f"card {l_card:.8f} CPU {l_cpu:.8f} (ratio {l_ratio:.3f}); worst "
           f"gradient ratio to ({S3_ATOL:g} + {S3_RTOL:g} max|ref|) "
@@ -1692,6 +1727,278 @@ def check_stage3_validation(conf: str) -> None:
             or not all(np.isfinite(card[k]).all() for k in VAL_KEYS)):
         raise AssertionError("the card's stage-3 render disagrees with the "
                              "CPU twins'")
+
+
+def synthetic_train(conf: str, stage: int, type: str, per_step, card: str):
+    """TRAIN_STEPS full-width steps of ``stage`` through the port's CLI on
+    the Blender scene as ``type``, counters at 0 just before: the
+    kernels of ``per_step`` that many times a step and nothing else,
+    finite losses.  Returns (runner, launches)."""
+    import torch
+    from factored_neus_tpu_torch import exp_runner, lvis, mateIllu
+
+    cli = {1: exp_runner, 2: lvis, 3: mateIllu}[stage]
+    kernels = zero_counters()
+    t0 = time.perf_counter()
+    runner = cli.main(["--mode", "train", "--conf", conf, "--case",
+                       SYN_CASE, "--type", type])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    check_stage2_launches(f"synthetic stage {stage} ({type}), "
+                          f"{TRAIN_STEPS} steps", launches, TRAIN_STEPS,
+                          per_step)
+    if (runner.iter_step != TRAIN_STEPS or runner.tcfg.batch_size != 512
+            or not all(math.isfinite(m["loss"]) for m in runner.history)):
+        raise AssertionError(f"synthetic stage {stage}: steps or losses "
+                             f"{runner.history}")
+    print(f"synthetic stage {stage} ({type}, {SYN_H}x{SYN_W}): losses "
+          f"{[round(m['loss'], 5) for m in runner.history]}, rays/s at "
+          f"iter {runner.history[-1]['iter']} "
+          f"{runner.history[-1]['rays_per_sec']:.0f}, {wall:.3f} s with "
+          f"the runner's start and the scene's load, on {card}")
+    return runner, launches
+
+
+def check_finite(label: str, maps) -> None:
+    import numpy as np
+    bad = [k for k, v in maps.items() if not np.isfinite(v).all()]
+    if bad:
+        raise AssertionError(f"{label}: non-finite {bad}")
+
+
+def check_synthetic_stage3(conf: str, card: str) -> None:
+    """The stage-3 synthetic modes on the 30-step stage-3 checkpoint:
+    validate_synthetic_img (level SYN_LEVEL) in linear space,
+    cal_synthetic_psnr (level 1: three finite PSNRs, psnr/albedo.txt read
+    back), relgt_synthetic_img under two SG envmaps (the run's lgtSGs and
+    a copy turned 90 degrees about the scene's up axis, z: two different
+    images, lgtSGs restored) and validate_synthetic_video (level
+    SYN_VIDEO_LEVEL: five videos)."""
+    import numpy as np
+    import torch
+    from factored_neus_tpu_torch.train.runner3 import Runner
+
+    r = Runner(conf, mode="validate_synthetic_img", case=SYN_CASE,
+               is_continue=True, type="synthetic")
+    if r.cfg.material.tonemap != "none" or r.iter_step != TRAIN_STEPS:
+        raise AssertionError("the synthetic stage-3 runner is not linear "
+                             "or did not load its checkpoint")
+    t0 = time.perf_counter()
+    maps = r.validate_synthetic_img(idx=0, resolution_level=SYN_LEVEL)
+    torch.cuda.synchronize()
+    it = r.iter_step
+    found = [os.path.exists(os.path.join(r.base_exp_dir, p)) for p in (
+        f"rgb/rgb_{it}_0.png", f"diffuse/d_{it}_0.png",
+        f"specular/s_{it}_0.png", f"roughness/r_{it}_0.png",
+        f"lvis_mean/lvis_{it}_0.png", f"indi_light/indiLgt_{it}_0.png")]
+    check_finite("stage-3 validate_synthetic_img", maps)
+    if not all(found):
+        raise AssertionError(f"stage-3 synthetic panels missing: {found}")
+    print(f"stage-3 validate_synthetic_img level {SYN_LEVEL}: "
+          f"{time.perf_counter() - t0:.3f} s on {card}")
+
+    t0 = time.perf_counter()
+    psnrs = r.cal_synthetic_psnr(idx=1, resolution_level=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(r.base_exp_dir, "psnr", "albedo.txt")) as f:
+        back = [float(line.split(":")[1]) for line in f.read().split()]
+    print(f"stage-3 cal_synthetic_psnr, test view 1 at level 1 "
+          f"({SYN_H}x{SYN_W}): albedo {psnrs[0]:.4f} rgb {psnrs[1]:.4f} "
+          f"rough {psnrs[2]:.4f} dB, {wall:.3f} s on {card}")
+    if not all(math.isfinite(p) for p in psnrs) or back != list(psnrs):
+        raise AssertionError("cal_synthetic_psnr: non-finite or not read "
+                             "back")
+
+    lgt = r.model.material.lgtSGs
+    learned = lgt.detach().cpu().numpy()
+    turned = learned.copy()
+    rz = np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
+    turned[:, :3] = learned[:, :3] @ rz.T
+    paths = []
+    for name, sgs in (("learned", learned), ("turned", turned)):
+        path = os.path.join(r.base_exp_dir, "envmaps", name)
+        os.makedirs(path, exist_ok=True)
+        np.save(os.path.join(path, "sg_128.npy"), sgs)
+        paths.append(path)
+    t0 = time.perf_counter()
+    relit = r.relgt_synthetic_img(idx=0, resolution_level=SYN_LEVEL,
+                                  envmap_paths=paths)
+    wall = time.perf_counter() - t0
+    delta = float(np.abs(relit[0] - relit[1]).max())
+    same = np.array_equal(lgt.detach().cpu().numpy(), learned)
+    print(f"relgt_synthetic_img level {SYN_LEVEL}, 2 envmaps: max |learned "
+          f"- turned| {delta:.4f}, lgtSGs restored {same}, {wall:.3f} s on "
+          f"{card}")
+    if not (delta > 1e-3 and same) or not all(
+            np.isfinite(x).all() for x in relit):
+        raise AssertionError("relighting: the envmaps gave one image, or "
+                             "lgtSGs were not restored")
+    t0 = time.perf_counter()
+    videos = r.validate_synthetic_video(resolution_level=SYN_VIDEO_LEVEL)
+    print(f"validate_synthetic_video level {SYN_VIDEO_LEVEL}, {SYN_TEST} "
+          f"test views: {[os.path.basename(v) for v in videos]}, "
+          f"{time.perf_counter() - t0:.3f} s on {card}")
+    if len(videos) != 5 or not all(os.path.exists(v) for v in videos):
+        raise AssertionError("validate_synthetic_video")
+
+
+def check_shiny_mesh(conf: str, card: str) -> None:
+    """validate_mesh_shiny of a stage-1 runner of type shiny_refneus on the
+    30-step checkpoint, its iter_step set to 10000: the 64^3 mesh, the
+    512^3 grid fill on K2 (counters at 0 just before: K2 only), the mesh
+    through scale_mat and the Shiny evaluation against dense_pcd.ply with
+    test_info.json (finite d2s and s2d, result.txt written)."""
+    import torch
+    from factored_neus_tpu_torch.train.runner1 import (SHINY_EVAL_EVERY,
+                                                       Runner)
+
+    r = Runner(conf, mode="validate_mesh_shiny", case=SYN_CASE,
+               is_continue=True, type="shiny_refneus")
+    r.iter_step = SHINY_EVAL_EVERY
+    kernels = zero_counters()
+    t0 = time.perf_counter()
+    out = r.validate_mesh_shiny()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kernels.items() if k.launches}
+    d2s, s2d, overall = r.shiny_scores
+    t = r.mesh_times
+    with open(os.path.join(r.base_exp_dir, "result.txt")) as f:
+        last = f.read().splitlines()[-1]
+    print(f"validate_mesh_shiny at iter {r.iter_step}: 512^3 fill "
+          f"{t['fill_s']:.3f} s, marching {t['march_s']:.3f} s, Shiny "
+          f"evaluation {t['eval_s']:.3f} s, {wall:.3f} s in all (with the "
+          f"64^3 mesh) on {card}; launches {launches}; d2s {d2s:.6f} s2d "
+          f"{s2d:.6f} overall {overall:.6f} (Blender units)")
+    if (set(launches) != {"sdf_fwd"} or not out.endswith("_eval.ply")
+            or not (math.isfinite(d2s) and math.isfinite(s2d))
+            or not last.startswith(f"{SHINY_EVAL_EVERY}: ")):
+        raise AssertionError("validate_mesh_shiny: launches, mesh, scores "
+                             "or result.txt")
+
+
+def check_w2c_and_roi(tmp: str) -> None:
+    """A glossy-synthetic (w2c) scene and an Sk3d scene loaded on the card
+    and on the CPU: rays at injected pixels and the level-2 ray grid within
+    W2C_TOL; an Sk3d draw at roi_prob = 1 on the card (on images coding
+    each pixel's x and y) inside the box dilated by 10 px, every pixel,
+    and the constant 255/256 mask."""
+    import numpy as np
+    import torch
+    from factored_neus_tpu_torch.data import fake_scene as FS
+    from factored_neus_tpu_torch.data import rays as RAYS
+    from factored_neus_tpu_torch.data.datasets import make_dataset
+
+    glossy = FS.write_glossy_synthetic_scene(os.path.join(tmp, "glossy"),
+                                             n_views=6, H=400, W=400)
+    sk3d = FS.write_sk3d_scene(os.path.join(tmp, "sk3d"), n_views=4,
+                               H=300, W=400)
+    rng = np.random.RandomState(2)
+    for typ, data in (("glossy_synthetic", glossy), ("sk3d", sk3d)):
+        conf = {"data_dir": data, "sample_roi_prob": 1.0}
+        card, cpu = (make_dataset(typ, conf, torch.device(d))
+                     for d in ("cuda", "cpu"))
+        px = torch.from_numpy(rng.randint(0, cpu.W, 4096))
+        py = torch.from_numpy(rng.randint(0, cpu.H, 4096))
+        errs = []
+        for ds, dev in ((card, "cuda"), (cpu, "cpu")):
+            errs.append([v.cpu() for v in RAYS.rays_from_pixels(
+                px.to(dev), py.to(dev), ds.images, ds.masks,
+                ds.intrinsics_all_inv, ds.pose_all, 1, ds.convention,
+                ds.mask_ones)] + [v.cpu() for v in ds.gen_rays_at(2, 2)])
+        err = max(float((a - b).abs().max()) for a, b in zip(*errs))
+        print(f"{typ} ({card.convention}, mask_ones {card.mask_ones}) "
+              f"{card.H}x{card.W}: rays at 4096 injected pixels and the "
+              f"level-2 grid, card against the CPU: max |err| {err:.3e} "
+              f"(tolerance {W2C_TOL:g})")
+        if not err <= W2C_TOL:
+            raise AssertionError(f"{typ}: the card's rays disagree")
+    ys, xs = torch.meshgrid(torch.arange(card.H, device="cuda"),
+                            torch.arange(card.W, device="cuda"),
+                            indexing="ij")
+    coded = torch.stack([xs, ys, xs * 0], -1).float().expand(
+        card.n_images, -1, -1, -1).contiguous()
+    data = dict(card.train_data(), images=coded)
+    if data["roi_prob"] != 1.0 or data["roi_boxes"] is None:
+        raise AssertionError("sk3d: the ROI sampler is not on")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    _, d, color, mask = RAYS.sample_batch(gen, data, 3, 65536)
+    left, right, top, bottom = RAYS.roi_bounds(card.roi_boxes[3], card.H,
+                                               card.W)
+    x, y = color[:, 0], color[:, 1]
+    inside = bool(((x >= left) & (x < right) & (y >= top)
+                   & (y < bottom)).all())
+    print(f"sk3d roi_prob 1 on the card, 65536 pixels of view 3: x "
+          f"{int(x.min())}..{int(x.max())} in [{left}, {right}), y "
+          f"{int(y.min())}..{int(y.max())} in [{top}, {bottom}); all "
+          f"inside {inside}")
+    if (not inside or not bool((mask == 255.0 / 256.0).all())
+            or not bool(torch.isfinite(d).all())):
+        raise AssertionError("sk3d: the ROI draw left its box")
+
+
+def synthetic_phase(card: str):
+    """Item 11: the Blender-layout scene (SYN_H x SYN_W, SYN_TRAIN +
+    SYN_TEST views) through the three stages' CLIs at full width and
+    their synthetic modes; the Shiny mesh evaluation; the w2c and ROI
+    draws.  Returns {stage: launches of its training run}."""
+    import torch
+    from factored_neus_tpu_torch import exp_runner, lvis
+    from factored_neus_tpu_torch.data.fake_scene import write_blender_scene
+    from factored_neus_tpu_torch.data.images import imread_bgr_u8
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        conf = write_conf(tmp)
+        write_blender_scene(os.path.join(tmp, "data", SYN_CASE), SYN_TRAIN,
+                            SYN_TEST, SYN_H, SYN_W)
+        print(f"Blender-layout scene {SYN_H}x{SYN_W}, {SYN_TRAIN} train + "
+              f"{SYN_TEST} test views, written in "
+              f"{time.perf_counter() - t0:.3f} s (host)")
+        base = ["--conf", conf, "--case", SYN_CASE]
+        for stage, typ, per_step in SYN_STAGES:
+            _, out[f"stage{stage}"] = synthetic_train(conf, stage, typ,
+                                                      per_step, card)
+            t0 = time.perf_counter()
+            if stage == 1:
+                # the CLI's synthetic route: view 57, wrapped to 57 % 16
+                r = exp_runner.main(["--mode", "validate_image",
+                                     "--is_continue", "--type", typ, *base])
+                panel = os.path.join(r.base_exp_dir, "validations_fine",
+                                     f"v_{TRAIN_STEPS}_{57 % SYN_TRAIN}.png")
+                shape = imread_bgr_u8(panel).shape
+                level, want = 1, (2 * SYN_H, SYN_W, 3)
+            elif stage == 2:
+                r = lvis.Runner(conf, mode="validate_synthetic_img",
+                                case=SYN_CASE, is_continue=True, type=typ)
+                check_finite("stage-2 validate_synthetic_img",
+                             r.validate_synthetic_img(
+                                 idx=0, resolution_level=SYN_LEVEL))
+                panel = os.path.join(
+                    r.base_exp_dir, "trace_radiance", str(TRAIN_STEPS),
+                    f"trace_radiance_mean_{TRAIN_STEPS}_0.png")
+                shape = imread_bgr_u8(panel).shape
+                level = SYN_LEVEL
+                want = (2 * SYN_H // level, SYN_W // level, 3)
+            else:
+                check_stage3_step_against_cpu(conf, SYN_CASE, typ)
+                check_synthetic_stage3(conf, card)
+                continue
+            torch.cuda.synchronize()
+            print(f"stage-{stage} validate_synthetic_img level {level}: "
+                  f"{os.path.basename(panel)} {shape}, "
+                  f"{time.perf_counter() - t0:.3f} s on {card}")
+            if shape != want:
+                raise AssertionError(f"stage {stage}: panel {shape}")
+        t0 = time.perf_counter()
+        check_shiny_mesh(conf, card)
+        check_w2c_and_roi(tmp)
+        print(f"Shiny mesh, w2c and ROI checks: "
+              f"{time.perf_counter() - t0:.3f} s on {card}")
+    return out
 
 
 def subprocess_run(flag: str, env: dict, label: str) -> dict:
@@ -1797,8 +2104,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         conf, runner, launches = train_run(tmp, TRAIN_STEPS)
         check_launched("main run", launches, MAIN_SET)
-        per_step = {"sdf_fwd": UP_SAMPLE_STEPS, "radiance_bwd": 1,
-                    "geometry_fwd": 1, "geometry_bwd": 1, "radiance_fwd": 1}
+        per_step = STAGE1_PER_STEP
         if any(launches[k] != c * TRAIN_STEPS for k, c in per_step.items()):
             raise AssertionError(f"main run: expected {per_step} launches a "
                                  f"step over {TRAIN_STEPS} steps, got "
@@ -1820,6 +2126,10 @@ def main() -> int:
         del runner3
         check_stage3_step_against_cpu(conf)
         check_stage3_validation(conf)
+    t0 = time.perf_counter()
+    synthetic = synthetic_phase(card)
+    print(f"synthetic families phase: {time.perf_counter() - t0:.1f} s on "
+          f"{card}")
 
     stash = subprocess_run(STASH_RUN, {"FNEUS_PG_HBM_STASH": "1"}, "stash")
     print(f"stash run rays/s over steps 1-{STASH_STEPS} (a new process: "
@@ -1835,6 +2145,8 @@ def main() -> int:
             raise AssertionError(f"{k['name']} never launched")
         k["stage2_launches"] = launches2[k["name"]]
         k["stage3_launches"] = launches3[k["name"]]
+        k["synthetic_launches"] = {stage: launches[k["name"]]
+                                   for stage, launches in synthetic.items()}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

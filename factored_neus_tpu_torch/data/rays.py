@@ -1,16 +1,27 @@
 """Ray generation on the device.  Counterpart of
 factored_neus_tpu/data/rays.py (gen_rays_grid, gen_random_rays,
-near_far_from_sphere) for the 'c2w' camera convention of DTU scenes.
+near_far_from_sphere) in both camera conventions:
+
+  * 'c2w': pose[:3, :3] rotates camera to world and pose[:3, 3] is the
+    origin (DTU, Sk3d, Synthetic, Shiny);
+  * 'w2c': pose is [R | t] world to camera ("nero": glossy synthetic and
+    glossy real); directions are R^T K^-1 p, normalised after the
+    rotation, and the origin is -R^T t.
 
 The random pixel draw (``torch.Generator``) is kept apart from the
 deterministic ``rays_from_pixels`` so that a test can hand the same pixels
-to both packages.
+to both packages.  Sk3d scans draw a share ``roi_prob`` of the pixels from
+their region-of-interest box dilated by 10 px; with that share 0 the draw
+is the uniform one alone.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+
+ROI_DILATION = 10     # px added around an Sk3d scan's region of interest
+MASK_ONES = 255.0 / 256.0   # the constant mask of scans without masks
 
 
 def pixel_to_dir_c2w(intr_inv, pose, p):
@@ -20,7 +31,32 @@ def pixel_to_dir_c2w(intr_inv, pose, p):
     return cam @ pose[:3, :3].T
 
 
-def gen_rays_grid(intr_inv, pose, H: int, W: int, level: int = 1
+def pixel_to_dir_w2c(intr_inv, pose, p):
+    """The 'nero' convention: R^T K^-1 p, normalised after the rotation."""
+    world = (p @ intr_inv[:3, :3].T) @ pose[:3, :3]
+    return world / torch.linalg.norm(world, dim=-1, keepdim=True)
+
+
+def origin_c2w(pose):
+    return pose[:3, 3]
+
+
+def origin_w2c(pose):
+    return -pose[:3, :3].T @ pose[:3, 3]
+
+
+def _dirs_origin(intr_inv, pose, p, convention: str):
+    if convention == "c2w":
+        rays_d = pixel_to_dir_c2w(intr_inv, pose, p)
+        return origin_c2w(pose).expand(rays_d.shape), rays_d
+    if convention == "w2c":
+        rays_d = pixel_to_dir_w2c(intr_inv, pose, p)
+        return origin_w2c(pose).expand(rays_d.shape), rays_d
+    raise ValueError(f"unknown camera convention {convention!r}")
+
+
+def gen_rays_grid(intr_inv, pose, H: int, W: int, level: int = 1,
+                  convention: str = "c2w"
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-image ray grid at 1/level resolution: (rays_o, rays_d)
     [H // level, W // level, 3], on the pixel spacing
@@ -30,34 +66,78 @@ def gen_rays_grid(intr_inv, pose, H: int, W: int, level: int = 1
     ty = torch.linspace(0.0, H - 1.0, H // level, device=dev)
     py, px = torch.meshgrid(ty, tx, indexing="ij")
     p = torch.stack([px, py, torch.ones_like(px)], dim=-1)
-    rays_d = pixel_to_dir_c2w(intr_inv, pose, p)
-    return pose[:3, 3].expand(rays_d.shape), rays_d
+    return _dirs_origin(intr_inv, pose, p, convention)
 
 
 def rays_from_pixels(px, py, images, masks, intr_inv_all, pose_all,
-                     img_idx: int):
+                     img_idx: int, convention: str = "c2w",
+                     mask_ones: bool = False):
     """(rays_o, rays_d, color, mask[:, :1]) for integer pixels px, py [B]
-    of image img_idx; images/masks [n, H, W, 3] on the rays' device."""
+    of image img_idx; images/masks [n, H, W, 3] on the rays' device.  With
+    ``mask_ones`` the mask is the constant 255/256 and the mask stack is
+    not read."""
     color = images[img_idx][py, px]
-    mask = masks[img_idx][py, px]
+    if mask_ones:
+        mask = torch.full((px.shape[0], 1), MASK_ONES, device=images.device)
+    else:
+        mask = masks[img_idx][py, px][:, :1]
     p = torch.stack([px.to(torch.float32), py.to(torch.float32),
                      torch.ones_like(px, dtype=torch.float32)], dim=-1)
-    pose = pose_all[img_idx]
-    rays_d = pixel_to_dir_c2w(intr_inv_all[img_idx], pose, p)
-    rays_o = pose[:3, 3].expand(rays_d.shape)
-    return rays_o, rays_d, color, mask[:, :1]
+    rays_o, rays_d = _dirs_origin(intr_inv_all[img_idx], pose_all[img_idx],
+                                  p, convention)
+    return rays_o, rays_d, color, mask
+
+
+def roi_bounds(box: Sequence[int], H: int, W: int) -> Tuple[int, int, int,
+                                                            int]:
+    """(left, right, top, bottom) of an [l, r, t, b] box dilated by
+    ROI_DILATION px and clipped to the image; x in [left, right) and y in
+    [top, bottom) (at least one pixel each)."""
+    left, right, top, bottom = (int(v) for v in box)
+    left, top = max(0, left - ROI_DILATION), max(0, top - ROI_DILATION)
+    right = min(W, right + ROI_DILATION)
+    bottom = min(H, bottom + ROI_DILATION)
+    return left, max(right, left + 1), top, max(bottom, top + 1)
 
 
 def gen_random_rays(gen: torch.Generator, images, masks, intr_inv_all,
-                    pose_all, img_idx: int, batch_size: int):
+                    pose_all, img_idx: int, batch_size: int,
+                    convention: str = "c2w", mask_ones: bool = False,
+                    roi_box: Optional[Sequence[int]] = None,
+                    roi_prob: float = 0.0):
     """One training batch: uniform pixels of image img_idx drawn from gen
-    (a generator on the images' device)."""
+    (a generator on the images' device); with an ROI box and roi_prob > 0,
+    each pixel is replaced with probability roi_prob by one drawn
+    uniformly from the dilated box (roi_bounds), the draws made after the
+    uniform ones."""
     _, H, W = images.shape[:3]
     dev = images.device
     px = torch.randint(0, W, (batch_size,), generator=gen, device=dev)
     py = torch.randint(0, H, (batch_size,), generator=gen, device=dev)
+    if roi_box is not None and roi_prob > 0.0:
+        left, right, top, bottom = roi_bounds(roi_box, H, W)
+        in_x = torch.randint(left, right, (batch_size,), generator=gen,
+                             device=dev)
+        in_y = torch.randint(top, bottom, (batch_size,), generator=gen,
+                             device=dev)
+        take = torch.rand(batch_size, generator=gen, device=dev) < roi_prob
+        px, py = torch.where(take, in_x, px), torch.where(take, in_y, py)
     return rays_from_pixels(px, py, images, masks, intr_inv_all, pose_all,
-                            img_idx)
+                            img_idx, convention, mask_ones)
+
+
+def sample_batch(gen: torch.Generator, data: Dict, img_idx: int,
+                 batch_size: int):
+    """gen_random_rays on a dataset's training tables (``train_data()`` of
+    data.datasets: images, masks, intr_inv, poses and the optional
+    convention, mask_ones, roi_boxes and roi_prob)."""
+    boxes = data.get("roi_boxes")
+    return gen_random_rays(
+        gen, data["images"], data["masks"], data["intr_inv"], data["poses"],
+        img_idx, batch_size, convention=data.get("convention", "c2w"),
+        mask_ones=data.get("mask_ones", False),
+        roi_box=None if boxes is None else boxes[img_idx],
+        roi_prob=data.get("roi_prob", 0.0))
 
 
 def near_far_from_sphere(rays_o, rays_d) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -3,13 +3,16 @@
     python -m factored_neus_tpu_torch.lvis --mode train \
         --conf confs/wmask.conf --case <scan> --type dtu [--device cuda]
     ... --mode validate_image --is_continue
+    ... --mode validate_synthetic_img --is_continue
 
 ``train`` distils light visibility and indirect light from the newest
 stage-1 checkpoint under general.base_exp_dir_geo (train stage 1 first,
 ``python -m factored_neus_tpu_torch.exp_runner``) into
 general.base_exp_dir_lvis, with the lvis/ and trace_radiance/ panels at
 val_freq; ``validate_image`` writes those panels of a random view at full
-resolution for the latest stage-2 checkpoint (with --is_continue).  Runs
+resolution for the latest stage-2 checkpoint (with --is_continue), in
+sRGB for the types other than dtu and sk3d (``validate_synthetic_img``,
+the same panels).  --type is one of data.datasets.DATASET_TYPES.  Runs
 on the CUDA device unless --device says otherwise.
 """
 from __future__ import annotations
@@ -39,10 +42,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Runner:
                     seed=args.seed, device=args.device)
     if args.mode == "train":
         runner.train()
-    elif args.type in ("dtu", "sk3d"):
+    else:       # validate_synthetic_img is validate_image (by the type)
         runner.validate_image(resolution_level=1)
-    else:
-        runner.validate_synthetic_img(resolution_level=1)
     return runner
 
 

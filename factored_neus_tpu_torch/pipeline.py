@@ -24,7 +24,7 @@ import torch
 
 from . import bridge
 from .data import rays as RAYS
-from .data.datasets import make_dataset
+from .data.datasets import make_dataset, tonemap_for
 from .meshing import extract as MEXT
 from .models import renderer as R
 from .models.materials import get_light
@@ -62,12 +62,15 @@ class Pipeline:
                         mesh=None) -> "Pipeline":
         """The newest checkpoint of each stage up to ``stage`` (the later
         one's groups win); raises unless they provide every group the
-        stage serves."""
+        stage serves.  A stage-3 pipeline of the synthetic and Shiny types
+        renders in linear space, as stage 3 trained them."""
         _no_sharding(mesh)
         dev = resolve_device(device)
         conf = CFG.load(conf_path, case)
-        cfg = CFG.renderer_config(conf, "model.lvis_renderer" if stage > 1
-                                  else "model.neus_renderer")
+        cfg = CFG.renderer_config(
+            conf, "model.lvis_renderer" if stage > 1 else
+            "model.neus_renderer",
+            tonemap=tonemap_for(type) if stage >= 3 else "srgb")
         model = R.Stage3Model(cfg, CFG.variance_init_val(conf), device=dev)
         dirs = {1: conf.get("general.base_exp_dir_geo"),
                 2: conf.get("general.base_exp_dir_lvis"),

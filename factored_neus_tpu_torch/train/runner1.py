@@ -1,19 +1,22 @@
 """Stage-1 runner: geometry + radiance training from a conf, validation
 images, meshes and novel views.  Counterpart of
-factored_neus_tpu/train/runner1.py for DTU scenes, in the modes ``train``,
-``validate_mesh``, ``validate_image``, ``mesh_dtu_shpere2world`` (the CLI's
-spelling) and ``interpolate_<i>_<j>``: the loop, reports and TensorBoard
-scalars under logs/, checkpoints in the JAX package's format (either
-package resumes from the other's), validation panels at ``val_freq`` and
-meshes at ``val_mesh_freq``.
+factored_neus_tpu/train/runner1.py for every dataset family, in the modes
+``train``, ``validate_mesh``, ``validate_mesh_shiny``, ``validate_image``,
+``validate_synthetic_img``, ``mesh_dtu_shpere2world`` (the CLI's spelling)
+and ``interpolate_<i>_<j>``: the loop, reports and TensorBoard scalars
+under logs/, checkpoints in the JAX package's format (either package
+resumes from the other's), validation panels at ``val_freq`` and meshes at
+``val_mesh_freq`` (each chosen by the dataset type, as the JAX runner
+chooses).
 """
 from __future__ import annotations
 
+import json
 import logging
 import os
 import shutil
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,8 +39,14 @@ from .common import (TrainConfig, chunked_render, load_optimizer_leaves,
 from .stage1 import Stage1Trainer
 
 log = logging.getLogger("factored_neus_tpu_torch")
-MODES = ("train", "validate_mesh", "validate_image", "mesh_dtu_shpere2world",
+MODES = ("train", "validate_mesh", "validate_mesh_shiny", "validate_image",
+         "validate_synthetic_img", "mesh_dtu_shpere2world",
          "interpolate_<i>_<j>")
+# the types whose validation panels and meshes are the DTU runner's (the
+# others: validate_synthetic_img, and meshes in the unit sphere's frame)
+IMAGE_TYPES = ("dtu", "sk3d", "glossy_synthetic", "glossy_real")
+WORLD_MESH_TYPES = ("dtu", "sk3d")
+SHINY_EVAL_EVERY = 10000   # validate_mesh_shiny's 512^3 mesh and scores
 
 # checkpoint group names of the reference (model attribute -> group)
 CKPT_KEYS = {
@@ -90,11 +99,8 @@ class Runner:
                      self.tcfg.block_steps)
         self.model = R.Stage1Model(self.cfg, CFG.variance_init_val(self.conf),
                                    seed=seed, device=self.device)
-        ds = self.dataset
         self.trainer = Stage1Trainer(
-            self.model, self.cfg, self.tcfg,
-            {"images": ds.images, "masks": ds.masks,
-             "intr_inv": ds.intrinsics_all_inv, "poses": ds.pose_all},
+            self.model, self.cfg, self.tcfg, self.dataset.train_data(),
             seed=seed + 1)
         self.iter_step = 0
         self.history: List[Dict[str, float]] = []
@@ -103,6 +109,7 @@ class Runner:
         self.last_mesh: Optional[str] = None
         self.last_video: Optional[str] = None
         self.mesh_times: Dict[str, float] = {}
+        self.shiny_scores: Optional[Tuple[float, float, float]] = None
         if is_continue:
             latest = CK.latest_checkpoint(self.base_exp_dir,
                                           self.tcfg.end_iter)
@@ -150,13 +157,16 @@ class Runner:
             if self.iter_step % tcfg.save_freq == 0:
                 self.save_checkpoint()
             if self.iter_step % tcfg.val_freq == 0:
-                if self.type in ("dtu", "sk3d", "glossy_synthetic",
-                                 "glossy_real"):
+                if self.type in IMAGE_TYPES:
                     self.validate_image()
                 else:
                     self.validate_synthetic_img()
             if self.iter_step % tcfg.val_mesh_freq == 0:
-                self.validate_mesh(world_space=True)
+                if self.type == "shiny_refneus":
+                    self.validate_mesh_shiny()
+                else:
+                    self.validate_mesh(
+                        world_space=self.type in WORLD_MESH_TYPES)
             if self.iter_step % n == 0:
                 perm = rng.permutation(n)
         writer.close()
@@ -251,12 +261,35 @@ class Runner:
         return res
 
     def validate_synthetic_img(self, idx: int = -1,
-                               resolution_level: int = -1) -> None:
-        """The JAX runner's validation of the synthetic and Shiny families,
-        whose loaders the port does not have yet."""
-        raise NotImplementedError(
-            f"validate_synthetic_img serves dataset type {self.type!r}, "
-            "which the port does not load yet")
+                               resolution_level: int = -1
+                               ) -> Dict[str, np.ndarray]:
+        """The JAX runner's panels of the synthetic and Shiny families, in
+        sRGB (** (1 / 2.2)) of the linear render: validations_fine (render
+        above the ground truth), diffuse, specular and normals, named
+        {iter}_{idx}.  idx < 0 draws a view; a larger one wraps (the CLI's
+        default 57 exceeds small scenes).  Returns the rendered arrays."""
+        if idx < 0:
+            idx = np.random.randint(self.dataset.n_images)
+        idx %= self.dataset.n_images
+        if resolution_level < 0:
+            resolution_level = self.tcfg.validate_resolution_level
+        rays_o, rays_d = self.dataset.gen_rays_at(idx, resolution_level)
+        res = self._render_image(rays_o, rays_d,
+                                 keys=("color_fine", "diffuse_color",
+                                       "specular_color"))
+        tonemap = lambda x: np.power(np.clip(x, 0, 1), 1.0 / 2.2)
+        it, out = f"{self.iter_step}_{idx}", self.base_exp_dir
+        IMG.imwrite(os.path.join(out, "validations_fine", f"v_{it}.png"),
+                    np.concatenate([
+                        tonemap(res["color_fine"]) * 255,
+                        self.dataset.image_at(idx, resolution_level)]))
+        IMG.imwrite(os.path.join(out, "diffuse", f"d_{it}.png"),
+                    tonemap(res["diffuse_color"]) * 255)
+        IMG.imwrite(os.path.join(out, "specular", f"s_{it}.png"),
+                    (res["specular_color"] * 255).clip(0, 255))
+        IMG.imwrite(os.path.join(out, "normals", f"n_{it}.png"),
+                    res["normals"] * 128 + 128)
+        return res
 
     # -- meshes -------------------------------------------------------------
 
@@ -281,6 +314,56 @@ class Runner:
                  "fill %.2f s, marching tetrahedra %.2f s)", out, len(verts),
                  len(tris), resolution, times["fill_s"], times["march_s"])
         return out
+
+    def validate_mesh_shiny(self, resolution: int = 64,
+                            threshold: float = 0.0) -> str:
+        """The Shiny mesh evaluation: a resolution^3 mesh to
+        meshes/inter_mesh.ply, and at every SHINY_EVAL_EVERY-th iteration
+        the 512^3 mesh (meshes/{iter:08d}.ply), taken to the scene's frame
+        through the dataset's scale_mat ({iter:08d}_eval.ply) and scored
+        against <data_dir>/dense_pcd.ply with <data_dir>/test_info.json's
+        cut-offs and ground plane; "{iter}: d2s s2d overall" is appended
+        to result.txt.  Returns the last mesh written."""
+        ds, meshes = self.dataset, os.path.join(self.base_exp_dir, "meshes")
+        query = MEXT.sdf_grid_query(self.model.sdf)
+        verts, tris = MEXT.extract_geometry(
+            ds.object_bbox_min, ds.object_bbox_max, resolution, threshold,
+            query, self.device)
+        self.last_mesh = os.path.join(meshes, "inter_mesh.ply")
+        write_ply(self.last_mesh, verts, tris)
+        if self.iter_step % SHINY_EVAL_EVERY != 0 or self.iter_step == 0:
+            return self.last_mesh
+        times: Dict[str, float] = {}
+        verts, tris = MEXT.extract_geometry(
+            ds.object_bbox_min, ds.object_bbox_max, 512, threshold, query,
+            self.device, times=times)
+        write_ply(os.path.join(meshes, f"{self.iter_step:08d}.ply"), verts,
+                  tris)
+        s = ds.scale_mat
+        verts_eval = verts @ s[:3, :3].T + s[:3, 3][None]
+        self.last_mesh = os.path.join(meshes,
+                                      f"{self.iter_step:08d}_eval.ply")
+        write_ply(self.last_mesh, verts_eval, tris)
+        data_dir = self.conf["dataset.data_dir"]
+        with open(os.path.join(data_dir, "test_info.json")) as f:
+            info = json.load(f)
+        from ..evaltools.shiny import evaluation_shinyblender
+        t0 = time.perf_counter()
+        scores = evaluation_shinyblender(
+            verts_eval, tris, os.path.join(data_dir, "dense_pcd.ply"),
+            self.base_exp_dir, max_dist_d=info["max_dist_d"],
+            max_dist_t=info["max_dist_t"], points_for_plane=info["points"],
+            nonvalid_bbox=info.get("nonvalid_bbox"))
+        times["eval_s"] = time.perf_counter() - t0
+        self.mesh_times, self.shiny_scores = times, scores
+        with open(os.path.join(self.base_exp_dir, "result.txt"), "a") as f:
+            f.write(f"{self.iter_step}: {scores[0]} {scores[1]} "
+                    f"{scores[2]}\n")
+        log.info("Shiny evaluation at iter %d: d2s %.6f s2d %.6f overall "
+                 "%.6f (512^3 fill %.2f s, marching %.2f s, scoring "
+                 "%.2f s)", self.iter_step, *scores, times["fill_s"],
+                 times["march_s"], times["eval_s"])
+        return self.last_mesh
 
     def mesh_dtu_sphere2world(self, mesh_name: str) -> str:
         """meshes/{mesh_name}.ply taken from the unit sphere to world space

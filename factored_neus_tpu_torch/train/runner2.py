@@ -1,6 +1,7 @@
 """Stage-2 runner: light visibility and indirect light distilled from the
 frozen stage-1 networks.  Counterpart of factored_neus_tpu/train/runner2.py
-for DTU scenes, in the modes ``train`` and ``validate_image``: it chains
+for every dataset family, in the modes ``train`` and ``validate_image``
+(``validate_synthetic_img`` is the same panels): it chains
 from the newest stage-1 checkpoint under general.base_exp_dir_geo, trains
 Lvis and IndirectLight with TensorBoard scalars under logs/, writes
 checkpoints in the JAX package's format (the stage-1 groups, lvis_network,
@@ -33,7 +34,7 @@ from .runner1 import CKPT_KEYS
 from .stage2 import Stage2Trainer
 
 log = logging.getLogger("factored_neus_tpu_torch")
-MODES = ("train", "validate_image")
+MODES = ("train", "validate_image", "validate_synthetic_img")
 STAGE2_KEYS = dict(CKPT_KEYS, lvis="lvis_network", indirect="indiLgt_network")
 # the stage-3 group a loaded checkpoint may carry: written back as read
 PASS_THROUGH = ("mateIllu_network",)
@@ -70,11 +71,8 @@ class Runner:
                 f"no stage-1 checkpoint under {self.base_exp_dir_geometry} "
                 "(train stage 1 first)")
         self.load_checkpoint_geometry(geo)
-        ds = self.dataset
         self.trainer = Stage2Trainer(
-            self.model, self.cfg, self.tcfg,
-            {"images": ds.images, "masks": ds.masks,
-             "intr_inv": ds.intrinsics_all_inv, "poses": ds.pose_all},
+            self.model, self.cfg, self.tcfg, self.dataset.train_data(),
             seed=seed + 2)
         self.iter_step = 0
         self.history: List[Dict[str, float]] = []
@@ -190,10 +188,12 @@ class Runner:
 
     def validate_image(self, idx: int = -1, resolution_level: int = -1
                        ) -> Dict[str, np.ndarray]:
-        """The JAX stage-2 runner's DTU panels of view idx (random when
-        < 0): trace_radiance/trace_radiance{iter}_{idx}.png and
-        lvis/lvis_{iter}_{idx}.png, each the prediction above the target,
-        averaged over the 4 secondary rays.  Returns the rendered arrays."""
+        """The JAX stage-2 runner's panels of view idx (random when < 0),
+        each the prediction above the target, averaged over the 4
+        secondary rays: lvis/lvis_{iter}_{idx}.png, and
+        trace_radiance/trace_radiance{iter}_{idx}.png for DTU and Sk3d,
+        else trace_radiance/{iter}/trace_radiance_mean_{iter}_{idx}.png in
+        sRGB (** (1 / 2.2)).  Returns the rendered arrays."""
         if idx < 0:
             idx = np.random.randint(self.dataset.n_images)
         if resolution_level < 0:
@@ -207,19 +207,21 @@ class Runner:
         tr = {k: res[k].reshape(H, W, nsamp, 3).mean(-2)
               for k in ("gt_trace_radiance", "pre_trace_radiance")}
         it, out = self.iter_step, self.base_exp_dir
-        IMG.imwrite(os.path.join(out, "trace_radiance",
-                                 f"trace_radiance{it}_{idx}.png"),
-                    np.concatenate([tr["pre_trace_radiance"],
-                                    tr["gt_trace_radiance"]]) * 255)
+        if self.type in ("dtu", "sk3d"):
+            IMG.imwrite(os.path.join(out, "trace_radiance",
+                                     f"trace_radiance{it}_{idx}.png"),
+                        np.concatenate([tr["pre_trace_radiance"],
+                                        tr["gt_trace_radiance"]]) * 255)
+        else:
+            tonemap = lambda x: np.power(np.clip(x, 0, 1), 1 / 2.2)
+            IMG.imwrite(os.path.join(
+                out, "trace_radiance", str(it),
+                f"trace_radiance_mean_{it}_{idx}.png"),
+                np.concatenate([tonemap(tr["pre_trace_radiance"]),
+                                tonemap(tr["gt_trace_radiance"])]) * 255)
         IMG.imwrite(os.path.join(out, "lvis", f"lvis_{it}_{idx}.png"),
                     np.concatenate([lvis["pre_lvis"], lvis["gt_lvis"]])
                     * 255)
         return res
 
-    def validate_synthetic_img(self, idx: int = -1,
-                               resolution_level: int = -1) -> None:
-        """The JAX runner's validation of the synthetic and Shiny families,
-        whose loaders the port does not have yet."""
-        raise NotImplementedError(
-            f"validate_synthetic_img serves dataset type {self.type!r}, "
-            "which the port does not load yet")
+    validate_synthetic_img = validate_image

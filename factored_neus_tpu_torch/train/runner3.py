@@ -1,17 +1,17 @@
 """Stage-3 runner: materials and direct illumination on the frozen stage-1
 and stage-2 networks.  Counterpart of factored_neus_tpu/train/runner3.py
-for DTU scenes, in the modes ``train``, ``validate_image`` and
-``validate_video``: it chains from the newest stage-2 checkpoint under
+for every dataset family, in the modes ``train``, ``validate_image`` and
+``validate_video``, and the synthetic and NeRFactor modes
+(SYNTHETIC_MODES): it chains from the newest stage-2 checkpoint under
 general.base_exp_dir_lvis, trains EnvmapMaterial with TensorBoard scalars
 under logs/, writes checkpoints in the JAX package's format (every params
 group, mateIllu_network among them, Adam as the stage-3 optax leaves;
 either package resumes from the other's), the decomposition panels and
-the learned envmap as env_light/iter_step_<n>.exr.
-
-The synthetic and NeRFactor modes (validate_synthetic_img,
-cal_synthetic_psnr, cal_nerfactor_psnr, relgt_synthetic_img,
-validate_synthetic_video, relgt_synthetic_video) need the synthetic
-loader, which the port does not have yet: the runner raises for them.
+the learned envmap as env_light/iter_step_<n>.exr.  The synthetic and
+Shiny types render in linear space (tonemap 'none'), the others in sRGB,
+as the JAX runner chooses; the synthetic modes read the scene's test
+split (datasets.SyntheticDataset, split "test") where they need ground
+truth, and relight with SG envmaps read from <path>/sg_128.npy.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ import logging
 import os
 import shutil
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,10 +27,11 @@ import torch
 from .. import bridge
 from ..data import images as IMG
 from ..data import rays as RAYS
-from ..data.datasets import make_dataset
+from ..data.datasets import SyntheticDataset, make_dataset, tonemap_for
 from ..data.exr import write_exr
 from ..models import renderer as R
 from ..models.materials import get_light
+from ..ops import sg as SG
 from ..utils import checkpoints as CK
 from ..utils import config as CFG
 from ..utils.device import resolve_device
@@ -42,10 +43,11 @@ from .runner2 import STAGE2_KEYS
 from .stage3 import Stage3Trainer
 
 log = logging.getLogger("factored_neus_tpu_torch")
-MODES = ("train", "validate_image", "validate_video")
 SYNTHETIC_MODES = ("validate_synthetic_img", "cal_synthetic_psnr",
                    "cal_nerfactor_psnr", "relgt_synthetic_img",
                    "validate_synthetic_video", "relgt_synthetic_video")
+MODES = ("train", "validate_image", "validate_video") + SYNTHETIC_MODES
+ENVMAPS = ("./envmaps/envmap6", "./envmaps/envmap12")   # relighting's
 STAGE3_KEYS = dict(STAGE2_KEYS, material="mateIllu_network")
 VAL_KEYS = ("rgb", "env_rgb", "indir_rgb", "diffuse_albedo",
             "specular_albedo", "diffuse_rgb", "specular_rgb", "roughness",
@@ -58,10 +60,6 @@ class Runner:
     def __init__(self, conf_path: str, mode: str = "train", case: str = "",
                  is_continue: bool = False, type: str = "dtu", seed: int = 0,
                  device=None):
-        if mode in SYNTHETIC_MODES:
-            raise NotImplementedError(
-                f"mode {mode!r} serves the synthetic and NeRFactor scenes, "
-                "which the port does not load yet")
         if mode not in MODES:
             raise NotImplementedError(f"mode {mode!r} is not ported "
                                       f"(ported: {', '.join(MODES)})")
@@ -74,7 +72,8 @@ class Runner:
         self.type = type
         self.dataset = make_dataset(type, self.conf["dataset"], self.device)
         self.tcfg = TrainConfig.from_conf(self.conf, stage=3)
-        self.cfg = CFG.renderer_config(self.conf, "model.lvis_renderer")
+        self.cfg = CFG.renderer_config(self.conf, "model.lvis_renderer",
+                                       tonemap=tonemap_for(type))
         self.model = R.Stage3Model(self.cfg,
                                    CFG.variance_init_val(self.conf),
                                    seed=seed, device=self.device)
@@ -86,11 +85,8 @@ class Runner:
                 f"no stage-2 checkpoint under {self.base_exp_dir_lvis} "
                 "(train stage 2 first)")
         self.load_checkpoint_lvis(lvis_ckpt)
-        ds = self.dataset
         self.trainer = Stage3Trainer(
-            self.model, self.cfg, self.tcfg,
-            {"images": ds.images, "masks": ds.masks,
-             "intr_inv": ds.intrinsics_all_inv, "poses": ds.pose_all},
+            self.model, self.cfg, self.tcfg, self.dataset.train_data(),
             seed=seed + 3)
         self.iter_step = 0
         self.history: List[Dict[str, float]] = []
@@ -138,7 +134,10 @@ class Runner:
             if self.iter_step % tcfg.save_freq == 0:
                 self.save_checkpoint()
             if self.iter_step % tcfg.val_freq == 0:
-                self.validate_image()
+                if self.type in ("dtu", "sk3d"):
+                    self.validate_image()
+                else:
+                    self.validate_synthetic_img()
             if self.iter_step % n == 0:
                 perm = rng.permutation(n)
         writer.close()
@@ -184,12 +183,13 @@ class Runner:
 
     # -- rendering ----------------------------------------------------------
 
-    def render_decomposition(self, idx: int, resolution_level: int
+    def render_decomposition(self, dataset, idx: int, resolution_level: int
                              ) -> Dict[str, np.ndarray]:
-        """Chunked no-grad mate_illu_render of view idx: VAL_KEYS as
-        [H, W, C] arrays.  The visibility draws come from a generator
-        seeded with iter_step; the run's SDF pack serves every chunk."""
-        rays_o, rays_d = self.dataset.gen_rays_at(idx, resolution_level)
+        """Chunked no-grad mate_illu_render of view idx of ``dataset``
+        (the training scene or its test split): VAL_KEYS as [H, W, C]
+        arrays.  The visibility draws come from a generator seeded with
+        iter_step; the run's SDF pack serves every chunk."""
+        rays_o, rays_d = dataset.gen_rays_at(idx, resolution_level)
         gen = torch.Generator(device=self.device).manual_seed(self.iter_step)
         with torch.no_grad():
             def fn(o, d, _i):
@@ -212,7 +212,7 @@ class Runner:
             idx = np.random.randint(self.dataset.n_images)
         if resolution_level < 0:
             resolution_level = self.tcfg.validate_resolution_level
-        r = self.render_decomposition(idx, resolution_level)
+        r = self.render_decomposition(self.dataset, idx, resolution_level)
         s, d = self.iter_step, self.base_exp_dir
         to255 = lambda x: (x * 255).clip(0, 255)
         panels = {
@@ -255,7 +255,7 @@ class Runner:
         lists: Dict[str, List[np.ndarray]] = {k: [] for k in VIDEO_KEYS}
         gt = []
         for i in range(ds.n_images):
-            r = self.render_decomposition(i, resolution_level)
+            r = self.render_decomposition(ds, i, resolution_level)
             for k in VIDEO_KEYS:
                 lists[k].append(r[k])
             gt.append(ds.images[i].cpu().numpy().clip(0, 1))
@@ -274,3 +274,209 @@ class Runner:
                                  ("indiLgt.mp4", lists["indir_rgb"]),
                                  ("lvisMean.mp4", lists["lvis_mean"]))]
         return self.videos
+
+    # -- the synthetic and NeRFactor modes ---------------------------------
+
+    def test_split(self) -> SyntheticDataset:
+        """The scene's test split (transforms_test.json: rgba, albedo and
+        roughness ground truth)."""
+        return SyntheticDataset(self.conf["dataset"], self.device,
+                                split="test")
+
+    def validate_synthetic_img(self, idx: int = -1,
+                               resolution_level: int = -1
+                               ) -> Dict[str, np.ndarray]:
+        """The JAX stage-3 runner's panels of the synthetic and Shiny
+        families, in sRGB (** (1 / 2.2), roughness and lvis_mean linear):
+        rgb/ (indirect, direct, render, ground truth), diffuse/,
+        specular/, roughness/, lvis_mean/ and indi_light/; then the
+        envmap's EXR.  idx < 0 draws a view; a larger one wraps."""
+        if idx < 0:
+            idx = np.random.randint(self.dataset.n_images)
+        idx %= self.dataset.n_images
+        if resolution_level < 0:
+            resolution_level = self.tcfg.validate_resolution_level
+        r = self.render_decomposition(self.dataset, idx, resolution_level)
+        s, d = self.iter_step, self.base_exp_dir
+        panels = {
+            ("rgb", f"rgb_{s}_{idx}.png"): np.concatenate(
+                [_srgb255(r["indir_rgb"]), _srgb255(r["env_rgb"]),
+                 _srgb255(r["rgb"]),
+                 self.dataset.image_at(idx, resolution_level)]),
+            ("diffuse", f"d_{s}_{idx}.png"): np.concatenate(
+                [_srgb255(r["diffuse_rgb"]), _srgb255(r["diffuse_albedo"])]),
+            ("specular", f"s_{s}_{idx}.png"): np.concatenate(
+                [_srgb255(r["specular_rgb"]),
+                 _srgb255(r["specular_albedo"])]),
+            ("roughness", f"r_{s}_{idx}.png"): (r["roughness"]
+                                                * 255).clip(0, 255),
+            ("lvis_mean", f"lvis_{s}_{idx}.png"): (r["lvis_mean"]
+                                                   * 255).clip(0, 255),
+            ("indi_light", f"indiLgt_{s}_{idx}.png"): _srgb255(
+                r["indir_rgb"])}
+        for (sub, name), img in panels.items():
+            IMG.imwrite(os.path.join(d, sub, name), img)
+        self.export_envmap()
+        return r
+
+    def cal_synthetic_psnr(self, idx: int = -1, resolution_level: int = 1
+                           ) -> Tuple[float, float, float]:
+        """PSNR of the albedo, the render and the roughness of test view
+        idx against the test split's ground truth, over the pixels whose
+        predicted albedo is above 1e-6 (each sum / (mask sum x 3), as the
+        JAX runner computes them); writes the maps and psnr/albedo.txt.
+        An idx past the split wraps.  Returns (albedo, rgb, rough)."""
+        test = self.test_split()
+        if idx < 0:
+            idx = np.random.randint(test.n_images)
+        if idx >= test.n_images:
+            log.warning("test idx %d out of range for %d test images; "
+                        "using %d", idx, test.n_images, idx % test.n_images)
+            idx %= test.n_images
+        r = self.render_decomposition(test, idx, resolution_level)
+        gt_albedo = test.albedo[idx]
+        gt_rgb = test.images[idx].cpu().numpy()
+        gt_rough = test.rough[idx][..., :1]
+        albedo = r["diffuse_albedo"]
+        mask = (albedo > 1e-6).astype(np.float64)
+        msum = mask.sum()
+
+        def psnr(a, b):
+            return 20.0 * np.log10(1.0 / np.sqrt(
+                ((a - b) ** 2 * mask).sum() / (msum * 3.0)))
+
+        psnr_albedo = float(psnr(gt_albedo, albedo))
+        psnr_rgb = float(psnr(gt_rgb, r["rgb"]))
+        psnr_rough = float(20.0 * np.log10(1.0 / np.sqrt(
+            ((gt_rough - r["roughness"]) ** 2 * mask[..., :1]).sum()
+            / (mask[..., :1].sum() * 3.0))))
+        out = os.path.join(self.base_exp_dir, "psnr")
+        for name, img in ((f"preRGB_{idx}.png", _srgb255(r["rgb"])),
+                          (f"preAlbedo_{idx}.png", _srgb255(albedo)),
+                          (f"gtAlbedo_{idx}.png", _srgb255(gt_albedo)),
+                          (f"normal_{idx}.png",
+                           (r["n_out"] * 128 + 128).clip(0, 255)),
+                          (f"mask_{idx}.png", mask * 255),
+                          (f"r_{self.iter_step}_{idx}.png",
+                           (r["roughness"] * 255).clip(0, 255))):
+            IMG.imwrite(os.path.join(out, name), img)
+        with open(os.path.join(out, "albedo.txt"), "w") as f:
+            f.write(f"psnr_albedo:{psnr_albedo}\npsnr_rgb:{psnr_rgb}\n"
+                    f"psnr_rough:{psnr_rough}")
+        return psnr_albedo, psnr_rgb, psnr_rough
+
+    def cal_nerfactor_psnr(self, idx: int = -1, resolution_level: int = 1
+                           ) -> Dict[str, np.ndarray]:
+        """The NeRFactor-style prediction dumps of training view idx under
+        psnr/: the render and albedo (sRGB), the normal, the mask and the
+        roughness.  Returns the rendered arrays."""
+        ds = self.dataset
+        if idx < 0:
+            idx = np.random.randint(ds.n_images)
+        r = self.render_decomposition(ds, idx, resolution_level)
+        mask = np.broadcast_to(ds.masks[idx].cpu().numpy(),
+                               (ds.H, ds.W, 3))   # [1, 1, 3] under mask_ones
+        out = os.path.join(self.base_exp_dir, "psnr")
+        for name, img in ((f"preRGB_{idx}.png", _srgb255(r["rgb"])),
+                          (f"normal_{idx}.png",
+                           (r["n_out"] * 128 + 128).clip(0, 255)),
+                          (f"preAlbedo_{idx}.png",
+                           _srgb255(r["diffuse_albedo"])),
+                          (f"mask_{idx}.png", mask * 255),
+                          (f"r_{idx}.png",
+                           (r["roughness"] * 255).clip(0, 255))):
+            IMG.imwrite(os.path.join(out, name), img)
+        return r
+
+    def load_light(self, path: str) -> None:
+        """The SG envmap <path>/sg_128.npy [num_lgt_sgs, 7] in place of the
+        learned lgtSGs."""
+        sgs = np.load(os.path.join(path, "sg_128.npy"))
+        lgt = self.model.material.lgtSGs
+        with torch.no_grad():
+            lgt.copy_(torch.as_tensor(sgs, dtype=torch.float32))
+            energy = SG.compute_energy(lgt).sum(0)
+        log.info("loaded envmap energy: %s", energy.cpu().numpy())
+
+    def _relit(self, envmap_paths: Sequence[str], render) -> List:
+        """render(name) under each envmap in turn; the learned lgtSGs are
+        restored afterwards, whatever happens."""
+        lgt = self.model.material.lgtSGs
+        saved = lgt.detach().clone()
+        try:
+            out = []
+            for path in envmap_paths:
+                self.load_light(path)
+                out.append(render(os.path.basename(path.rstrip("/"))))
+            return out
+        finally:
+            with torch.no_grad():
+                lgt.copy_(saved)
+
+    def relgt_synthetic_img(self, idx: int = 0, resolution_level: int = 1,
+                            envmap_paths: Sequence[str] = ENVMAPS
+                            ) -> List[np.ndarray]:
+        """Test view idx rendered under each SG envmap of envmap_paths, in
+        sRGB, to video/reLgtRGB_<envmap>.png.  Returns the linear renders."""
+        test = self.test_split()
+        out = os.path.join(self.base_exp_dir, "video")
+
+        def render(name):
+            rgb = self.render_decomposition(test, idx,
+                                            resolution_level)["rgb"]
+            IMG.imwrite(os.path.join(out, f"reLgtRGB_{name}.png"),
+                        np.power(np.clip(rgb, 0, 1), 1 / 2.2) * 255)
+            return rgb
+
+        return self._relit(envmap_paths, render)
+
+    def _video(self, name: str, frames, fps: int = 20) -> str:
+        path = write_video(os.path.join(self.base_exp_dir, "video", name),
+                           [np.clip(f * 255, 0, 255).astype(np.uint8)
+                            for f in frames], fps=fps)
+        self.videos.append(path)
+        return path
+
+    def validate_synthetic_video(self, resolution_level: int = 1
+                                 ) -> List[str]:
+        """Every test view's render, albedo, indirect light (sRGB), mean
+        visibility and ground truth as videos under video/ (pre_img,
+        albedo, lvis, indiLgt, gt_img; 20 fps).  Returns the paths."""
+        test = self.test_split()
+        tm = lambda x: np.power(np.clip(x, 0, 1), 1 / 2.2)
+        lists: Dict[str, List[np.ndarray]] = {
+            k: [] for k in ("rgb", "diffuse_albedo", "indir_rgb",
+                            "lvis_mean", "gt")}
+        for i in range(test.n_images):
+            r = self.render_decomposition(test, i, resolution_level)
+            for k in ("rgb", "diffuse_albedo", "indir_rgb"):
+                lists[k].append(tm(r[k]))
+            lists["lvis_mean"].append(np.clip(r["lvis_mean"], 0, 1))
+            lists["gt"].append(tm(test.images[i].cpu().numpy()))
+        self.videos = []
+        for name, k in (("pre_img.mp4", "rgb"),
+                        ("albedo.mp4", "diffuse_albedo"),
+                        ("lvis.mp4", "lvis_mean"),
+                        ("indiLgt.mp4", "indir_rgb"), ("gt_img.mp4", "gt")):
+            self._video(name, lists[k])
+        return self.videos
+
+    def relgt_synthetic_video(self, envmap_paths: Sequence[str] = ENVMAPS,
+                              resolution_level: int = 1) -> List[str]:
+        """Every test view rendered under each SG envmap, in sRGB, as
+        video/relgt_<envmap>_img.mp4 (20 fps).  Returns the paths."""
+        test = self.test_split()
+        self.videos = []
+
+        def render(name):
+            frames = [np.power(np.clip(self.render_decomposition(
+                test, i, resolution_level)["rgb"], 0, 1), 1 / 2.2)
+                for i in range(test.n_images)]
+            return self._video(f"relgt_{name}_img.mp4", frames)
+
+        return self._relit(envmap_paths, render)
+
+
+def _srgb255(x: np.ndarray) -> np.ndarray:
+    """Linear [0, 1] -> sRGB (** (1 / 2.2)) in [0, 255]."""
+    return (np.power(np.clip(x, 0, 1), 1 / 2.2) * 255).clip(0, 255)

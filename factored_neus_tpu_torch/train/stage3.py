@@ -41,7 +41,7 @@ class Stage3Trainer:
     generator."""
 
     def __init__(self, model: R.Stage3Model, cfg: R.RendererConfig,
-                 tcfg: TrainConfig, data: Dict[str, torch.Tensor],
+                 tcfg: TrainConfig, data: Dict,
                  seed: int = 3):
         self.model, self.cfg, self.tcfg, self.data = model, cfg, tcfg, data
         self.opt = make_optimizer(model, tcfg, stage=3)
@@ -49,10 +49,8 @@ class Stage3Trainer:
         self.gen = torch.Generator(device=device).manual_seed(seed)
 
     def step(self, img_idx: int, step: int) -> Dict[str, torch.Tensor]:
-        d = self.data
-        rays_o, rays_d, color, mask = RAYS.gen_random_rays(
-            self.gen, d["images"], d["masks"], d["intr_inv"], d["poses"],
-            img_idx, self.tcfg.batch_size)
+        rays_o, rays_d, color, mask = RAYS.sample_batch(
+            self.gen, self.data, img_idx, self.tcfg.batch_size)
         loss, metrics = loss_on_batch(self.model, self.cfg, self.tcfg,
                                       rays_o, rays_d, color, mask,
                                       generator=self.gen)

@@ -148,9 +148,9 @@ def test_cli_validate_mesh_after_training(tmp_path, monkeypatch):
 
 
 def test_runner_refuses_unported_modes(tmp_path):
-    # validate_mesh_shiny waits for the Shiny loader; the error lists the
-    # ported modes
-    for mode in ("validate_mesh_shiny", "interpolate_0", "interpolate_a_b"):
+    # a mode the JAX runner does not have, or a malformed interpolate_<i>_<j>;
+    # the error lists the ported modes
+    for mode in ("validate_mesh_dense", "interpolate_0", "interpolate_a_b"):
         with pytest.raises(NotImplementedError, match="validate_mesh"):
             runner1.Runner(str(tmp_path / "none.conf"), mode=mode,
                            device="cpu")

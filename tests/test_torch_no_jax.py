@@ -1,6 +1,7 @@
 """The port imports nothing of JAX: every module of factored_neus_tpu_torch
 imports, and its CLIs train, validate, mesh and score a tiny scene, and
-train and validate stages 2 and 3 on it, in a
+train and validate stages 2 and 3 on it, and every dataset family is
+fabricated and loaded under each of its type names, in a
 process where jax, jaxlib and factored_neus_tpu cannot be imported (nor
 the optional cv2, imageio, PIL and TensorBoard writers, which the port
 does without)."""
@@ -61,6 +62,27 @@ CHILD = textwrap.dedent("""
     meshes = os.path.join(r.base_exp_dir, "meshes")
     d2s, s2d = chamfer_vs_sphere(*read_ply_mesh(
         os.path.join(meshes, sorted(os.listdir(meshes))[0])))
+    import torch
+    from factored_neus_tpu_torch.data import datasets as D
+    from factored_neus_tpu_torch.data import fake_scene as FS
+    fam = os.path.join(tmp, "families")
+    size = {"n_views": 2, "H": 6, "W": 8}
+    blender = FS.write_blender_scene(os.path.join(fam, "blender"), n_train=2,
+                                     n_test=1, H=8, W=10)
+    scenes = {"glossy_synthetic": FS.write_glossy_synthetic_scene(
+                  os.path.join(fam, "glossy"), **size),
+              "glossy_real": FS.write_glossy_real_scene(
+                  os.path.join(fam, "real"), **size),
+              "sk3d": FS.write_sk3d_scene(os.path.join(fam, "sk3d"), **size)}
+    for typ in D.DATASET_TYPES:
+        data_dir = scenes.get(typ, blender)
+        if typ == "dtu":
+            data_dir = os.path.join(tmp, "data", "fake_scan")
+        ds = D.make_dataset(typ, {"data_dir": data_dir}, torch.device("cpu"))
+        assert ds.n_images >= 2 and ds.images.shape[-1] == 3, typ
+    test = D.SyntheticDataset({"data_dir": blender}, torch.device("cpu"),
+                              split="test")
+    assert test.albedo.shape == (1, 8, 10, 3)
     leaked = sorted(m for m in sys.modules if blocked(m))
     assert not leaked, leaked
     print("ok", d2s, s2d)

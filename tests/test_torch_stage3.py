@@ -312,6 +312,11 @@ def test_stage3_runner_needs_a_stage2_checkpoint(tmp_path):
     conf = _conf(tmp_path, "none")
     with pytest.raises(FileNotFoundError, match="stage-2 checkpoint"):
         TR3.Runner(conf, case="fake_scan", device="cpu")
-    with pytest.raises(NotImplementedError, match="synthetic"):
+    # a mode the JAX runner does not have is refused before anything loads;
+    # the synthetic modes are ported and need the stage-2 checkpoint too
+    with pytest.raises(NotImplementedError, match="relgt_synthetic_img"):
+        TR3.Runner(conf, mode="relgt_envmap", case="fake_scan",
+                   device="cpu")
+    with pytest.raises(FileNotFoundError, match="stage-2 checkpoint"):
         TR3.Runner(conf, mode="relgt_synthetic_img", case="fake_scan",
                    device="cpu")

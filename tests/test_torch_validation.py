@@ -163,15 +163,24 @@ def test_validate_image_panels_match_jax(scene):
 
 def test_random_view_and_synthetic_validation(scene, monkeypatch):
     """idx < 0 draws the view from np.random.randint, as the JAX runner
-    does; the synthetic families' validation is named and refused."""
-    _, _, tr = scene
+    does; the synthetic families' validation (sRGB panels named
+    {iter}_{idx}) runs on the same runner and writes the JAX runner's
+    images within one grey level."""
+    _, jr, tr = scene
     monkeypatch.setattr(np.random, "randint", lambda n: n - 1)
     tr.validate_image(resolution_level=4)
     last = tr.dataset.n_images - 1
     assert os.path.exists(os.path.join(
         tr.base_exp_dir, "normals", f"n_{ITER:08d}_0_{last}.png"))
-    with pytest.raises(NotImplementedError, match="validate_synthetic_img"):
-        tr.validate_synthetic_img()
+    jr.validate_synthetic_img(resolution_level=4)
+    tr.validate_synthetic_img(resolution_level=4)
+    for d, p in (("validations_fine", "v"), ("normals", "n"),
+                 ("diffuse", "d"), ("specular", "s")):
+        name = os.path.join(d, f"{p}_{ITER}_{last}.png")
+        want = cv2.imread(os.path.join(jr.base_exp_dir, name))
+        got = cv2.imread(os.path.join(tr.base_exp_dir, name))
+        assert got is not None and got.shape == want.shape, name
+        assert np.abs(got.astype(int) - want.astype(int)).max() <= 1, name
 
 
 def test_novel_view_matches_jax(scene):
