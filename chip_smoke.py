@@ -78,12 +78,25 @@
    evaluation); and on fabricated glossy-synthetic and Sk3d scenes the
    w2c rays on the card against the CPU and an roi_prob = 1 draw inside
    its dilated box;
-12. prints {"kernels": [...]} (each kernel's launches in the synthetic
+12. K1's bf16 operand mode (FNEUS_CORE_ACT_BF16=1; the JAX step's
+   default): K1-fwd-bf16, K1-bwd-bf16, K1-bwd-split-bf16 and the stash
+   pair in bf16 at 65,536 and 9,001 rows against their twins and an f64
+   evaluation of the unrounded function (check_flips), two launches of
+   each bitwise equal, timed against their bf16 bound; one 64-ray
+   full-width wmask step with the mode on, card against CPU; then in a
+   subprocess with the switch on (read at import) 30 wmask steps through
+   the CLI (counters at 0: K1-fwd-bf16 and K1-bwd-bf16 once a step, K2
+   four times, K3 once each, no f32 K1), 10 with the stash switch and 10
+   with the split backward (their bf16 kernels once a step), one stage-1
+   CLI run with --gpu 0 --profile DIR whose trace names both K1 kernels,
+   and one with --debug_nans;
+13. prints {"kernels": [...]} (each kernel's launches in the synthetic
    runs under "synthetic_launches"), the card line, and as its last line
    {"ok": true, "device": {...}}.
 Any failure raises; the script then exits non-zero without the last line.
 """
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -98,6 +111,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 F32_PEAK = 67e12        # H100 SXM f32 FLOP/s outside the tensor cores
 TF32_PEAK = 495e12      # H100 SXM dense TF32 tensor-core FLOP/s
 HBM_RATE = 3.35e12      # H100 SXM device memory bytes/s
+BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
 N_CORE = 512 * 128      # render-core points of one wmask step
 N_SWEEP = 512 * 64      # points of the ladder's first (largest) sweep
 UP_SAMPLE_STEPS = 4     # the ladder's rounds: 3 more sweeps of new samples
@@ -108,6 +122,18 @@ SPLIT_STEPS = 20
 STEP_RAYS = 64          # batch of the card-vs-CPU step checks
 STASH_RUN = "--stash-run"
 SPLIT_RUN = "--split-run"
+BF16_RUN = "--bf16-run"
+BF16_STEPS = 30         # the bf16 mode's wmask run
+BF16_VARIANT_STEPS = 10  # its stash and split runs, and the hook runs
+N_RAGGED = 9001         # rows of the bf16 kernels' ragged check
+# the bf16 kernels against their twins (check_flips): the kernel's error
+# from the f64 function at most FLIP_GAIN x the twin's (max and rms) plus
+# 1e-5 (1e-6 rms) x max|ref|, and |kernel - twin| within FLIP_SHARE_TOL x
+# the twin's max error plus 1e-5 max|ref| in all but FLIP_OUTLIERS of the
+# elements: the two sum in other orders, so a pre-activation within f32
+# rounding of a bf16 rounding boundary rounds to one neighbour in one and
+# to the other in the other, and that one-ulp step travels down the chain
+FLIP_GAIN, FLIP_SHARE_TOL, FLIP_OUTLIERS = 1.25, 0.5, 1e-3
 MESH_RES = 512
 GRID_CHECK_RES = 64
 # the 512^3 card mesh's mean vertex radius against the CPU twin's 64^3 mesh
@@ -668,6 +694,187 @@ def check_kernels(device):
     return results
 
 
+def check_flips(label, got, twin, ref64, names):
+    """A bf16 kernel's tensors against its plain twin's (same inputs, same
+    bf16 roundings, sums in another order) and an f64 evaluation of the
+    unrounded function (ref64), per tensor (FLIP_GAIN, FLIP_SHARE_TOL,
+    FLIP_OUTLIERS).  Returns the kernel's max |kernel - twin|."""
+    worst_gain = worst_rms = worst_share = e_kt = 0.0
+    at = names[0]
+    for g, t, r, n in zip(got, twin, ref64, names):
+        g, t, r = g.double(), t.double(), r.double()
+        scale = float(r.abs().max())
+        ek, et, d = (g - r).abs(), (t - r).abs(), (g - t).abs()
+        gain = float(ek.max()) / (FLIP_GAIN * float(et.max()) + 1e-5 * scale)
+        rms = float(ek.pow(2).mean().sqrt()) / (
+            FLIP_GAIN * float(et.pow(2).mean().sqrt()) + 1e-6 * scale)
+        tol = FLIP_SHARE_TOL * float(et.max()) + 1e-5 * scale
+        share = float((d > tol).double().mean()) / FLIP_OUTLIERS
+        e_kt = max(e_kt, float(d.max()))
+        if max(gain, rms, share) > max(worst_gain, worst_rms, worst_share):
+            at = n
+        worst_gain, worst_rms = max(worst_gain, gain), max(worst_rms, rms)
+        worst_share = max(worst_share, share)
+    print(f"{label}: max|kernel - twin| {e_kt:.3e}; worst ratios to their "
+          f"limits: error from f64 (max) {worst_gain:.3f}, (rms) "
+          f"{worst_rms:.3f}, share beyond {FLIP_SHARE_TOL} x the twin's "
+          f"error {worst_share:.3f} (worst tensor {at})")
+    if max(worst_gain, worst_rms, worst_share) > 1.0:
+        raise AssertionError(f"{label} disagrees with its plain twin")
+    return e_kt
+
+
+def check_bf16_kernels(device):
+    """K1's bf16 operand mode: each bf16 kernel against its twin at the
+    step's 65,536 rows and at N_RAGGED rows (check_flips), two launches of
+    each bitwise equal, and its time against the bf16 bound."""
+    import torch
+    from factored_neus_tpu_torch.models.fields import SDFConfig, SDFNetwork
+    from factored_neus_tpu_torch.ops import geometry_kernel as GK
+
+    cfg = SDFConfig()
+    net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(device)
+    with torch.no_grad():
+        ws, bs = net.effective_weights()
+    ins = [w.shape[1] for w in ws]
+    outs = [w.shape[0] for w in ws]
+    S = sum(i * o for i, o in zip(ins, outs))
+    s_last = ins[-1] * outs[-1]
+    wbytes = 2 * sum(i * o for i, o in zip(ins, outs)) + 4 * sum(outs)
+    stash_bytes = 2 * GK.stash_columns(ws)
+    fwd_flops = 2 * S + 2 * (S - s_last)
+    bwd_flops = (4 * (S - s_last) + 2 * S + 2 * S
+                 + 2 * (S - s_last) + 2 * ins[-1] + 2 * (S - s_last))
+    pack = GK.make_pack(ws, bf16=True)
+    w64 = [w.double() for w in ws]
+    b64 = [b.double() for b in bs]
+    fnames = ["out", "grad"]
+    names = ["ct_x"] + [f"dW{l}" for l in range(len(ws))] + [
+        f"db{l}" for l in range(len(ws))]
+    flat = lambda r: [r[0], *r[1], *r[2]]
+    gen = torch.Generator(device=device).manual_seed(5)
+    results, errs = [], {}
+    for n in (N_CORE, N_RAGGED):
+        x = torch.randn(n, 3, device=device, generator=gen) * 0.5
+        ct_out = torch.randn(n, outs[-1], device=device, generator=gen)
+        ct_g = torch.randn(n, 3, device=device, generator=gen)
+        pre64 = []
+        with torch.no_grad():
+            ref_f = [t.float() for t in GK.geometry_plain(w64, b64,
+                                                          x.double(), cfg,
+                                                          pre64)]
+        ref_st = torch.cat(pre64, -1).float()
+        del pre64
+        ref_b = [t.float() for t in flat(GK.geometry_bwd_plain(
+            w64, b64, x.double(), ct_out.double(), ct_g.double(), cfg))]
+        tw_f = GK.geometry_plain(ws, bs, x, cfg, bf16=True)
+        tw_b = flat(GK.geometry_bwd_plain(ws, bs, x, ct_out, ct_g, cfg,
+                                          bf16=True))
+        out_k, grad_k, st_k = GK.launch_forward_stash(cfg, x, ws, bs, pack,
+                                                      bf16=True)
+        tw_sf = GK.geometry_fwd_stash_plain(ws, bs, x, cfg, bf16=True)
+        tw_sb = flat(GK.geometry_bwd_stash_plain(ws, x, st_k, ct_out, ct_g,
+                                                 cfg, bf16=True))
+        runs = {
+            "geometry_fwd_bf16": (lambda: GK.launch_forward(
+                cfg, x, ws, bs, pack, bf16=True), tw_f, ref_f, fnames),
+            "geometry_fwd_stash_bf16": (lambda: GK.launch_forward_stash(
+                cfg, x, ws, bs, pack, bf16=True)[:2], tw_sf[:2], ref_f,
+                fnames),
+            "geometry_bwd_bf16": (lambda: flat(GK.launch_backward(
+                cfg, x, ws, bs, ct_out, ct_g, pack, bf16=True)), tw_b, ref_b,
+                names),
+            "geometry_bwd_split_bf16": (lambda: flat(
+                GK.launch_backward_split(cfg, x, ws, bs, ct_out, ct_g, pack,
+                                         bf16=True)), tw_b, ref_b, names),
+            "geometry_bwd_stash_bf16": (lambda: flat(
+                GK.launch_backward_stash(cfg, x, ws, st_k, ct_out, ct_g,
+                                         pack, bf16=True)), tw_sb, ref_b,
+                names)}
+        # the stash itself: the bf16 forward's pre-activations rounded to
+        # bf16, held as the outputs are (a flip upstream moves an entry by
+        # more than one bf16 ulp, unlike the f32 mode's stash)
+        ulps = bf16_ulps(st_k, tw_sf[2])
+        print(f"K1-fwd-stash-bf16 N={n}: stash entries equal to the "
+              f"twin's {int((ulps == 0).sum())}, one bf16 ulp apart "
+              f"{int((ulps == 1).sum())}, further {int((ulps > 1).sum())}")
+        del ulps
+        check_flips(f"K1-fwd-stash-bf16 stash N={n}", [st_k.float()],
+                    [tw_sf[2].float()], [ref_st], ["stash"])
+        del ref_st
+        for name, (run, twin, ref, tnames) in runs.items():
+            got = run()
+            again = run()
+            torch.cuda.synchronize()
+            e = check_flips(f"{name} N={n}", got, twin, ref, tnames)
+            errs[name] = max(errs.get(name, 0.0), e)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name}: two launches differ")
+        print(f"bf16 K1 kernels N={n}: two launches of each bitwise equal")
+        if n != N_CORE:
+            continue
+
+        def plain(fn):
+            def run():
+                with torch.no_grad():
+                    fn()
+            return run
+        plain_ms = {
+            "geometry_fwd_bf16": cuda_ms(plain(lambda: GK.geometry_plain(
+                ws, bs, x, cfg, bf16=True)), 5),
+            "geometry_fwd_stash_bf16": cuda_ms(plain(
+                lambda: GK.geometry_fwd_stash_plain(ws, bs, x, cfg,
+                                                    bf16=True)), 5),
+            "geometry_bwd_bf16": cuda_ms(plain(lambda: GK.geometry_bwd_plain(
+                ws, bs, x, ct_out, ct_g, cfg, bf16=True)), 3),
+            "geometry_bwd_stash_bf16": cuda_ms(plain(
+                lambda: GK.geometry_bwd_stash_plain(ws, x, st_k, ct_out, ct_g,
+                                                    cfg, bf16=True)), 3)}
+        plain_ms["geometry_bwd_split_bf16"] = plain_ms["geometry_bwd_bf16"]
+        # what the bf16 mode adds to a step besides its kernels: the
+        # second pack (SDFNetwork.kernel_weights builds both)
+        pack_ms = {"pack_ms": cuda_ms(lambda: GK.make_pack(ws), 10),
+                   "pack_bf16_ms": cuda_ms(lambda: GK.make_pack(ws, True),
+                                           10)}
+        print(f"weight packs at full width: 3xTF32 {pack_ms['pack_ms']:.3f} "
+              f"ms, bf16 {pack_ms['pack_bf16_ms']:.3f} ms (CUDA events "
+              f"around 10 builds)")
+        fwd_bytes = n * (12 + 4 * outs[-1] + 12) + wbytes
+        bwd_bytes = n * (12 + 4 * outs[-1] + 12 + 12) + 2 * wbytes
+        work = {"geometry_fwd_bf16": (fwd_flops, fwd_bytes, 729),
+                "geometry_fwd_stash_bf16": (fwd_flops, fwd_bytes +
+                                            n * stash_bytes, 764),
+                "geometry_bwd_bf16": (bwd_flops, bwd_bytes, 846),
+                "geometry_bwd_split_bf16": (bwd_flops, bwd_bytes, 529),
+                "geometry_bwd_stash_bf16": (bwd_flops - 2 * (S - s_last),
+                                            bwd_bytes + n * stash_bytes,
+                                            797)}
+        for name, (run, _, _, _) in runs.items():
+            flops, nbytes, line = work[name]
+            t_ops, t_bytes = n * flops / BF16_PEAK, nbytes / HBM_RATE
+            src = "geometry_fwd.cu" if "fwd" in name else \
+                "geometry_bwd_bf16.cu"
+            results.append({
+                "name": name, "route": "cuda",
+                "source": f"factored_neus_tpu_torch/csrc/{src}",
+                "replaces": f"factored_neus_tpu/ops/pallas_geometry.py:{line}",
+                "launches": 0, "max_abs_err": 0.0,
+                "ms": cuda_ms(run, 5 if "bwd" in name else 10),
+                "plain_ms": plain_ms[name],
+                "bound_ms": 1e3 * max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": None})
+        results[0].update(pack_ms)
+        del tw_f, tw_b, tw_sf, tw_sb, ref_f, ref_b
+    for r in results:
+        r["max_abs_err"] = errs[r["name"]]
+        print(f"  {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} "
+              f"ms) at {N_CORE} rows, bf16 bound {r['bound_ms']:.3f} ms by "
+              f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% of "
+              f"it)")
+    return results
+
+
 def check_validation_shapes(device, results) -> None:
     """K1-fwd and K3-fwd at a validation chunk's VAL_CHUNK x 128 rows and
     K2 at its first sweep's VAL_CHUNK x 64 (the later three sweeps take
@@ -784,9 +991,8 @@ def all_kernels():
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
     from factored_neus_tpu_torch.ops import radiance_kernel as RK
     from factored_neus_tpu_torch.ops import sdf_kernel as SK
-    return {k.name: k for k in (GK.K1_FWD, GK.K1_BWD, SK.SDF_FWD, RK.K3_FWD,
-                                RK.K3_BWD, GK.K1_FWD_STASH, GK.K1_BWD_STASH,
-                                GK.K1_BWD_SPLIT)}
+    return {k.name: k for k in (SK.SDF_FWD, RK.K3_FWD, RK.K3_BWD,
+                                *GK.KERNELS.values())}
 
 
 def zero_counters():
@@ -803,6 +1009,15 @@ STASH_PAIR = {"geometry_fwd_stash", "geometry_bwd_stash"}
 MAIN_SET = SHARED | {"geometry_fwd", "geometry_bwd"}
 STASH_SET = SHARED | STASH_PAIR
 SPLIT_SET = SHARED | {"geometry_fwd", "geometry_bwd_split"}
+BF16_SET = SHARED | {"geometry_fwd_bf16", "geometry_bwd_bf16"}
+BF16_STASH_SET = SHARED | {"geometry_fwd_stash_bf16",
+                           "geometry_bwd_stash_bf16"}
+BF16_SPLIT_SET = SHARED | {"geometry_fwd_bf16", "geometry_bwd_split_bf16"}
+# which run of the bf16 subprocess gives each bf16 kernel its launches
+BF16_KERNEL_RUN = {"geometry_fwd_bf16": "main", "geometry_bwd_bf16": "main",
+                   "geometry_fwd_stash_bf16": "stash",
+                   "geometry_bwd_stash_bf16": "stash",
+                   "geometry_bwd_split_bf16": "split"}
 
 
 def check_launched(label: str, launches, want) -> None:
@@ -813,7 +1028,8 @@ def check_launched(label: str, launches, want) -> None:
 
 
 def check_step_against_cpu(tmp: str, base: str = "wmask.conf",
-                           atol: float = 1e-4, rtol: float = 1e-5):
+                           atol: float = 1e-4, rtol: float = 1e-5,
+                           bf16: bool = False):
     """One full-width stage-1 step of confs/<base> at STEP_RAYS rays: the
     card (kernels) against the CPU (twins), both float32, on the same
     weights, rays and jitters; the loss and every parameter gradient at
@@ -823,7 +1039,13 @@ def check_step_against_cpu(tmp: str, base: str = "wmask.conf",
     beside it: where a pre-activation of the radiance, RefColor or NeRF
     MLP lies within f32 rounding of 0, the float64 step falls on the other
     side of the ReLU's kink, so it is no closer to what the float32 step
-    computes."""
+    computes.  ``bf16``: all three with K1's bf16 mode on, the card held,
+    as check_flips holds a bf16 kernel, to its distance from the float64
+    step: at most FLIP_GAIN x the float32 CPU step's, plus atol + rtol
+    max|ref| and FLIP_SHARE_TOL x the CPU's distance from its step with
+    the mode off (the card and the CPU sum in other orders, so their bf16
+    roundings part in single elements, and an sdf within that of 0 moves
+    the first sign change that the surface branch reads)."""
     import numpy as np
     import torch
     from factored_neus_tpu_torch.data import rays as RAYS
@@ -836,7 +1058,8 @@ def check_step_against_cpu(tmp: str, base: str = "wmask.conf",
     conf = CFG.load(write_conf(tmp, base=base), "sphere")
     cpu = torch.device("cpu")
     ds = make_dataset("dtu", conf["dataset"], cpu)
-    cfg = CFG.renderer_config(conf)
+    cfg_off = CFG.renderer_config(conf)
+    cfg = dataclasses.replace(cfg_off, core_act_bf16=bf16)
     tcfg = TrainConfig.from_conf(conf)
     rng = np.random.RandomState(0)
     H, W = ds.images.shape[1:3]
@@ -852,11 +1075,11 @@ def check_step_against_cpu(tmp: str, base: str = "wmask.conf",
     kernels = all_kernels()
     before = {n: k.launches for n, k in kernels.items()}
 
-    def step(m, device, dtype):
+    def step(m, device, dtype, c=cfg):
         m = copy.deepcopy(m).to(device=device, dtype=dtype)
         args = [t.to(device=device, dtype=dtype) for t in batch]
         loss, _ = TS1.loss_on_batch(
-            m, cfg, tcfg, *args, step=10,
+            m, c, tcfg, *args, step=10,
             t_rand=t_rand.to(device=device, dtype=dtype),
             t_rand_out=t_out.to(device=device, dtype=dtype))
         loss.backward()
@@ -885,6 +1108,21 @@ def check_step_against_cpu(tmp: str, base: str = "wmask.conf",
     rc = ratios(g_card, g32)
     at = max(rc, key=rc.get)
     l_ratio = loss_ratio(l_card, l32)
+    if bf16:
+        l_off, g_off = step(model, cpu, torch.float32, cfg_off)
+        dist = lambda a, b: float((a - b).abs().max())
+        rc = {n: dist(g_card[n], g64[n]) / (
+            atol + rtol * float(g64[n].abs().max())
+            + FLIP_GAIN * dist(g32[n], g64[n])
+            + FLIP_SHARE_TOL * dist(g32[n], g_off[n])) for n in g64}
+        at = max(rc, key=rc.get)
+        l_ratio = abs(l_card - l64) / (
+            atol + rtol * abs(l64) + FLIP_GAIN * abs(l32 - l64)
+            + FLIP_SHARE_TOL * abs(l32 - l_off))
+        print(f"bf16 mode: CPU loss {l32:.8f} against {l_off:.8f} with it "
+              f"off; the card's loss and gradients held to their distance "
+              f"from the float64 step: worst ratio {max(l_ratio, rc[at]):.3f} "
+              f"({at})")
     print(f"step check {base}, {STEP_RAYS} rays full width, {len(g32)} "
           f"parameter tensors (kernels {launched}): "
           f"loss card {l_card:.8f} CPU {l32:.8f} (ratio {l_ratio:.3f}); "
@@ -898,7 +1136,7 @@ def check_step_against_cpu(tmp: str, base: str = "wmask.conf",
     if l_ratio > 1.0 or rc[at] > 1.0 or not math.isfinite(l_card):
         raise AssertionError("the card's stage-1 step disagrees with the "
                              "CPU's")
-    if not MAIN_SET <= set(launched):
+    if not (BF16_SET if bf16 else MAIN_SET) <= set(launched):
         raise AssertionError(f"the card's step ran only {launched}")
 
 
@@ -1272,7 +1510,7 @@ def check_stage2_shapes(device, results, model) -> None:
     from factored_neus_tpu_torch.ops import radiance_kernel as RK
     from factored_neus_tpu_torch.ops import sdf_kernel as SK
 
-    (ws, bs, pack), (rws, rbs, rpack) = model.kernel_weights()
+    (ws, bs, pack, _), (rws, rbs, rpack, _) = model.kernel_weights()
     cfg, rcfg = model.stage1.sdf.cfg, model.stage1.color.cfg
     wn, bn = list(ws[:-1]) + [ws[-1][:1]], list(bs[:-1]) + [bs[-1][:1]]
     gen = torch.Generator(device=device).manual_seed(3)
@@ -2062,6 +2300,76 @@ def split_run() -> int:
     return 0
 
 
+def bf16_run() -> int:
+    """K1's bf16 mode through the CLI, in its own process so that the
+    switch is read at import (FNEUS_CORE_ACT_BF16=1): BF16_STEPS wmask
+    steps (each bf16 K1 kernel and no f32 one once a step, counters at 0
+    just before), BF16_VARIANT_STEPS with the stash switch and as many with
+    the split backward (their bf16 kernels once a step), then a stage-1
+    run with --gpu 0 --profile DIR, whose trace must name K1-fwd's and
+    K1-bwd's kernels, and one with --debug_nans.  Its last line is
+    {"launches": {"main": ..., "stash": ..., "split": ...},
+    "rays_per_sec": ...}."""
+    sys.path.insert(0, HERE)
+    import torch
+    from factored_neus_tpu_torch import exp_runner
+    from factored_neus_tpu_torch.models.renderer import RendererConfig
+    from factored_neus_tpu_torch.ops import geometry_kernel as GK
+    if not RendererConfig().core_act_bf16 or GK.STASH_BWD or \
+            not GK.STACKED_BWD:
+        raise AssertionError("FNEUS_CORE_ACT_BF16=1 did not switch K1's "
+                             "bf16 mode on, or another switch is on")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _, runner, launches["main"] = train_run(tmp, BF16_STEPS)
+    check_launched("bf16 run", launches["main"], BF16_SET)
+    per_step = {**STAGE1_PER_STEP, "geometry_fwd": 0, "geometry_bwd": 0,
+                "geometry_fwd_bf16": 1, "geometry_bwd_bf16": 1}
+    if any(launches["main"][k] != c * BF16_STEPS
+           for k, c in per_step.items()):
+        raise AssertionError(f"bf16 run: expected {per_step} launches a "
+                             f"step over {BF16_STEPS} steps, got "
+                             f"{launches['main']}")
+    rays = runner.history[-1]["rays_per_sec"]
+    for label, stash, stacked, want in (
+            ("stash", True, True, BF16_STASH_SET),
+            ("split", False, False, BF16_SPLIT_SET)):
+        GK.STASH_BWD, GK.STACKED_BWD = stash, stacked
+        with tempfile.TemporaryDirectory() as tmp:
+            _, _, launches[label] = train_run(tmp, BF16_VARIANT_STEPS)
+        check_launched(f"bf16 {label} run", launches[label], want)
+        for k in want - SHARED:
+            if launches[label][k] != BF16_VARIANT_STEPS:
+                raise AssertionError(f"bf16 {label} run: {k} did not launch "
+                                     f"once a step")
+    GK.STASH_BWD, GK.STACKED_BWD = False, True
+    with tempfile.TemporaryDirectory() as tmp:
+        conf = write_conf(tmp, BF16_VARIANT_STEPS)
+        base = ["--mode", "train", "--conf", conf, "--case", "sphere",
+                "--type", "dtu"]
+        trace_dir = os.path.join(tmp, "trace")
+        exp_runner.main([*base, "--gpu", "0", "--profile", trace_dir])
+        traces = os.listdir(trace_dir)
+        with open(os.path.join(trace_dir, traces[0])) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"}
+        k1 = sorted({n for n in names if "geometry_" in n})
+        print(f"--profile: {traces[0]} names {len(names)} kernels, K1's: "
+              f"{k1}")
+        if not any("geometry_fwd_kernel" in n for n in k1) or \
+                not any("geometry_bwd_kernel" in n for n in k1):
+            raise AssertionError("the --profile trace does not name K1")
+        shutil.rmtree(os.path.join(tmp, "exp"))
+        r = exp_runner.main([*base, "--debug_nans"])
+        if r.iter_step != BF16_VARIANT_STEPS:
+            raise AssertionError("the --debug_nans run stopped early")
+        print(f"--debug_nans: {r.iter_step} steps, finite, no stop")
+    print(json.dumps({"launches": launches, "rays_per_sec": rays}))
+    return 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "factored_neus_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository",
@@ -2075,6 +2383,11 @@ def main() -> int:
         return stash_run()
     if sys.argv[1:] == [SPLIT_RUN]:
         return split_run()
+    if sys.argv[1:] == [BF16_RUN]:
+        return bf16_run()
+    # the f32 phases run with K1's bf16 mode off, whatever the default;
+    # it is read at import, and the bf16 phases turn it on explicitly
+    os.environ["FNEUS_CORE_ACT_BF16"] = "0"
     sys.path.insert(0, HERE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2097,6 +2410,9 @@ def main() -> int:
     device = torch.device("cuda")
     kernels = check_kernels(device)
     check_validation_shapes(device, kernels)
+    bf16_kernels = check_bf16_kernels(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        check_step_against_cpu(tmp, bf16=True)
     with tempfile.TemporaryDirectory() as tmp:
         check_step_against_cpu(tmp)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2137,6 +2453,14 @@ def main() -> int:
     split = subprocess_run(SPLIT_RUN, {"FNEUS_PG_STACKED": "0"}, "split")
     print(f"womask split run rays/s over steps 11-{SPLIT_STEPS}: "
           f"{split['rays_per_sec']:.0f} on {card}")
+    bf16 = subprocess_run(BF16_RUN, {"FNEUS_CORE_ACT_BF16": "1"}, "bf16")
+    print(f"bf16 wmask run rays/s over steps 21-{BF16_STEPS}: "
+          f"{bf16['rays_per_sec']:.0f} on {card}")
+    for k in bf16_kernels:
+        k["launches"] = bf16["launches"][BF16_KERNEL_RUN[k["name"]]][
+            k["name"]]
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']} never launched")
     for k in kernels:
         k["launches"] = (stash["launches"] if k["name"] in STASH_PAIR else
                          split["launches"] if k["name"] == "geometry_bwd_split"
@@ -2147,7 +2471,7 @@ def main() -> int:
         k["stage3_launches"] = launches3[k["name"]]
         k["synthetic_launches"] = {stage: launches[k["name"]]
                                    for stage, launches in synthetic.items()}
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels + bf16_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,11 +28,22 @@
 // to bf16 (round to nearest even), to a [n][sum of their widths] side
 // output for K1-bwd-stash: 4,018 bytes more per row at full width, still
 // far below the operations bound.  The stash never feeds (out, grad).
+//
+// K1-fwd-bf16 and K1-fwd-stash-bf16 (entry points geometry_fwd_bf16,
+// geometry_fwd_stash_bf16) are the same kernels in the bf16 operand mode
+// of pallas_geometry (_mm_fns(bf16=True), the JAX step's default): every
+// product on bf16 operands (rounded to nearest even) with an f32 sum, on
+// bf16 mma (tc_mma.cuh, BF) from pack_weights_bf16's pack; the encoding,
+// softplus, skip, biases and the reverse sweep's elementwise steps stay
+// f32, and the sweep's seed e0 / scale meets the last layer's bf16 row 0
+// rounded to bf16 itself, as JAX's dot rounds it.  Bound: operations, one
+// bf16 product's worth of the same FLOPs over 989 TFLOP/s.
 #include <cuda_bf16.h>
 
 #include "sdf_mlp.cuh"
 #include "tc_mma.cuh"
 
+template <bool BF>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 geometry_fwd_kernel(TcDims d, const float* __restrict__ x, float* out,
                     float* grad, float* stash_all, int n_tiles,
@@ -71,7 +82,7 @@ geometry_fwd_kernel(TcDims d, const float* __restrict__ x, float* out,
     int so = 0;
     for (int l = 0; l < lL; ++l) {
       const int N = d.outs[l];
-      tc_product<2>(d, l == 0 ? E : X, l == 0 ? eld : ld, d.kp[l],
+      tc_product<2, BF>(d, l == 0 ? E : X, l == 0 ? eld : ld, d.kp[l],
                     d.fwd_off[l], d.fwd_st[l], d.np[l], Y, ld, ring);
       __syncthreads();
       const bool skip_next = (d.skip_mask >> (l + 1)) & 1;
@@ -99,7 +110,7 @@ geometry_fwd_kernel(TcDims d, const float* __restrict__ x, float* out,
     // last layer -> [sdf / scale | feature]
     {
       const int K = d.ins[lL], N = d.outs[lL];
-      tc_product<2>(d, lL == 0 ? E : X, lL == 0 ? eld : ld, d.kp[lL],
+      tc_product<2, BF>(d, lL == 0 ? E : X, lL == 0 ? eld : ld, d.kp[lL],
                     d.fwd_off[lL], d.fwd_st[lL], d.np[lL], Y, ld, ring);
       __syncthreads();
       for (int idx = tid; idx < TC_TILE * N; idx += TC_THREADS) {
@@ -111,10 +122,16 @@ geometry_fwd_kernel(TcDims d, const float* __restrict__ x, float* out,
       }
       __syncthreads();
       // cotangent e0/scale through the last layer: row 0 of its weight
+      // (bf16: the low halves of word row 0, times e0/scale in bf16)
       const float* w0 = d.pack + d.rev_off[lL];
+      const float seed =
+          BF ? __bfloat162float(__float2bfloat16_rn(inv_scale)) : inv_scale;
       for (int idx = tid; idx < TC_TILE * K; idx += TC_THREADS) {
         const int r = idx / K, k = idx - r * K;
-        Y[r * ld + k] = (__ldg(w0 + k) + __ldg(w0 + d.H + k)) * inv_scale;
+        const float w =
+            BF ? __uint_as_float(__float_as_uint(__ldg(w0 + k)) << 16)
+               : __ldg(w0 + k) + __ldg(w0 + d.H + k);
+        Y[r * ld + k] = w * seed;
       }
       for (int idx = tid; idx < TC_TILE * eld; idx += TC_THREADS) E[idx] = 0.f;
       __syncthreads();
@@ -124,8 +141,8 @@ geometry_fwd_kernel(TcDims d, const float* __restrict__ x, float* out,
     for (int l = lL; l >= 0; --l) {
       const int K = d.ins[l];
       if (l < lL) {
-        tc_product<2>(d, X, ld, d.np[l], d.rev_off[l], d.rev_st[l], d.kp[l],
-                      Y, ld, ring);
+        tc_product<2, BF>(d, X, ld, d.np[l], d.rev_off[l], d.rev_st[l],
+                          d.kp[l], Y, ld, ring);
         __syncthreads();
       }
       if ((d.skip_mask >> l) & 1) {
@@ -172,11 +189,12 @@ geometry_fwd_kernel(TcDims d, const float* __restrict__ x, float* out,
 
 // Pointers: [x, out, grad, scratch, (bf16 stash,) pack, b[L]]; the biases
 // start at pw + 1.
+template <bool BF>
 static int launch_fwd(const int* ia, const unsigned long long* p, float scale,
                       unsigned long long stream, __nv_bfloat16* bstash,
                       int pw) {
   TcDims d;
-  int rc = tc_dims_from_args(ia, scale, (const float*)p[pw], &d);
+  int rc = tc_dims_from_args(ia, scale, (const float*)p[pw], &d, BF);
   if (rc) return rc;
   int stash_cols = 0;
   for (int l = 0; l < d.L; ++l) {
@@ -188,10 +206,10 @@ static int launch_fwd(const int* ia, const unsigned long long* p, float scale,
   const size_t smem = tc_smem_bytes(d, (size_t)TC_TILE * (d.eld + 2 * d.ld));
   if (!smem) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      geometry_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      geometry_fwd_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  geometry_fwd_kernel<<<grid, TC_THREADS, smem, (cudaStream_t)stream>>>(
+  geometry_fwd_kernel<BF><<<grid, TC_THREADS, smem, (cudaStream_t)stream>>>(
       d, (const float*)p[0], (float*)p[1], (float*)p[2], (float*)p[3],
       n_tiles, bstash, stash_cols);
   return (int)cudaGetLastError();
@@ -202,12 +220,27 @@ static int launch_fwd(const int* ia, const unsigned long long* p, float scale,
 // accepted.
 extern "C" int geometry_fwd(const int* ia, const unsigned long long* p,
                             float scale, unsigned long long stream) {
-  return launch_fwd(ia, p, scale, stream, nullptr, 4);
+  return launch_fwd<false>(ia, p, scale, stream, nullptr, 4);
 }
 
 // Integer arguments as geometry_fwd.  Pointers: [x, out, grad, scratch,
 // bf16 stash [n][sum of outs[0..L-2]], pack, b[L]].
 extern "C" int geometry_fwd_stash(const int* ia, const unsigned long long* p,
                                   float scale, unsigned long long stream) {
-  return launch_fwd(ia, p, scale, stream, (__nv_bfloat16*)p[4], 5);
+  return launch_fwd<false>(ia, p, scale, stream, (__nv_bfloat16*)p[4], 5);
+}
+
+// geometry_fwd's arguments, the pack pack_weights_bf16's: K1-fwd-bf16.
+extern "C" int geometry_fwd_bf16(const int* ia, const unsigned long long* p,
+                                 float scale, unsigned long long stream) {
+  return launch_fwd<true>(ia, p, scale, stream, nullptr, 4);
+}
+
+// geometry_fwd_stash's arguments, the pack pack_weights_bf16's:
+// K1-fwd-stash-bf16.
+extern "C" int geometry_fwd_stash_bf16(const int* ia,
+                                       const unsigned long long* p,
+                                       float scale,
+                                       unsigned long long stream) {
+  return launch_fwd<true>(ia, p, scale, stream, (__nv_bfloat16*)p[4], 5);
 }

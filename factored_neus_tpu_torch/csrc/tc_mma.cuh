@@ -47,8 +47,28 @@
 // while slice s is multiplied.  In tc_atb the k index runs over tile rows
 // paired as (2t, 2t + 1), which keeps both fragments conflict-free at the
 // same strides.
+//
+// bf16 operands (BF = true; K1's bf16 mode, the JAX package's
+// _mm_fns(bf16=True)).  Both operands of every product are rounded to bf16
+// to nearest even (JAX's astype) and multiplied on m16n8k16 bf16 mma with
+// an f32 sum: a bf16 x bf16 product is exact in f32.  The weights come
+// rounded from the packer (ops/tc_pack.pack_weights_bf16), one half, two
+// k-rows to a 32-bit word; activations are converted as their fragments
+// load (__floats2bfloat162_rn, never the TF32 split, which rounds ties
+// away).  A ring stage of TC_KS = 16 weight rows is one k16 step: 8 word
+// rows.  Within a stage the k index is permuted: thread t's A pairs are
+// columns (t, t + 4) and (t + 8, t + 12), and the packer pairs the same
+// weight rows into the words of its B fragment (tc_pack.bf16_pair_rows),
+// so the A fragment reads the same four floats a row as two TF32 k-steps
+// and the B fragment whole words, both conflict-free at the strides above
+// (ld = 4 mod 8, S = 8 mod 32 words).  In tc_atb the k index is the tile
+// row as it comes (rows 2t, 2t + 1 and 2t + 8, 2t + 9 of each 16): rows
+// 2t at ld = 4 (mod 8) start 8 banks apart, as in the TF32 pairing.
+// tools/tf32_mma_probe.py also reads how the bf16 mma sums; each stage
+// still sums into fresh accumulators.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -93,11 +113,13 @@ __host__ __device__ inline int tc_chunk_stride(int N) {
 // Reads the layers of the integer arguments [L, multires, d_embed, ld,
 // skip_mask, n, grid, ins[L], outs[L], fwd_off[L], fwd_st[L], rev_off[L],
 // rev_st[L], H] (the layout of ops/tc_pack.layout_iargs) into d (d->L and
-// d->ld set), checks them against the row stride ld, and sizes the ring.
-// A layer's input (the depth of its forward product, the width of its
-// input cotangent) may be max_kp wide; its output at most TC_MAXW.
-// Returns 0, or cudaErrorInvalidValue for a layout this code cannot run.
-static inline int tc_layers_from_args(const int* ia, int max_kp, TcDims* d) {
+// d->ld set), checks them against the row stride ld, and sizes the ring
+// for the pack's operand type (bf16: two k-rows a word, one half).  A
+// layer's input (the depth of its forward product, the width of its input
+// cotangent) may be max_kp wide; its output at most TC_MAXW.  Returns 0,
+// or cudaErrorInvalidValue for a layout this code cannot run.
+static inline int tc_layers_from_args(const int* ia, int max_kp, TcDims* d,
+                                      bool bf16 = false) {
   const int L = d->L;
   int widest = 0, chunk = 0;
   for (int l = 0; l < L; ++l) {
@@ -121,18 +143,20 @@ static inline int tc_layers_from_args(const int* ia, int max_kp, TcDims* d) {
   }
   d->H = ia[7 + 6 * L];
   if (d->H % 8) return (int)cudaErrorInvalidValue;
-  // the ring: two stages of TC_KS weight rows, big and small; it also
-  // holds a 64-row weight-gradient chunk while no weights are staged
-  d->stage = 2 * TC_KS * widest;
+  // the ring: two stages of TC_KS weight rows (big and small, or bf16
+  // pairs); it also holds a 64-row weight-gradient chunk while no weights
+  // are staged
+  d->stage = (bf16 ? TC_KS / 2 : 2 * TC_KS) * widest;
   d->ring = ((2 * d->stage > chunk ? 2 * d->stage : chunk) + 3) / 4 * 4;
   return 0;
 }
 
 // The SDF networks' arguments (K1, K2): tc_layers_from_args' layout with
-// skip_mask.  Returns 0, or cudaErrorInvalidValue for a network or layout
-// this code cannot run.
+// skip_mask; bf16: the pack is pack_weights_bf16's.  Returns 0, or
+// cudaErrorInvalidValue for a network or layout this code cannot run.
 static inline int tc_dims_from_args(const int* ia, float scale,
-                                    const float* pack, TcDims* d) {
+                                    const float* pack, TcDims* d,
+                                    bool bf16 = false) {
   const int L = ia[0];
   d->L = L;
   d->multires = ia[1];
@@ -147,7 +171,7 @@ static inline int tc_dims_from_args(const int* ia, float scale,
       d->ld % 8 != 4)
     return (int)cudaErrorInvalidValue;
   d->eld = tc_round8(d->d_embed) + 4;
-  return tc_layers_from_args(ia, TC_MAXW, d);
+  return tc_layers_from_args(ia, TC_MAXW, d, bf16);
 }
 
 // Bytes of shared memory a kernel with fixed_floats of its own and the
@@ -190,6 +214,21 @@ __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// Two floats as a bf16x2 operand word, each rounded to nearest even; lo
+// in the low half (the lower k index of the fragment's pair).
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // c += a b in 3xTF32, the small terms first.
 __device__ __forceinline__ void mma3(float c[4], const uint32_t ab[4],
                                      const uint32_t as[4], const uint32_t bb[2],
@@ -216,13 +255,14 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Y[32 RG][np] = X[32 RG][kp] @ B[kp][np], B the pack's block at off (row
-// stride S; its small half H floats further on).  X and Y are shared
-// memory (strides ldx, ldy); columns [kp, ...) of X are not read and
-// columns [np, ...) of Y are not written.  Every thread of the block calls
-// it; on return Y is written by each thread's own part, and other warps
-// may still read the last slice: the caller syncs before it reads Y or
-// uses the ring otherwise (another tc_mm syncs first).
-template <int NTW, int RG>
+// stride S; its small half H floats further on; bf16: rows paired into
+// words, tc_pack.bf16_pair_rows).  X and Y are shared memory (strides
+// ldx, ldy); columns [kp, ...) of X are not read and columns [np, ...) of
+// Y are not written.  Every thread of the block calls it; on return Y is
+// written by each thread's own part, and other warps may still read the
+// last slice: the caller syncs before it reads Y or uses the ring
+// otherwise (another tc_mm syncs first).
+template <int NTW, int RG, bool BF>
 __device__ __forceinline__ void tc_mm(const TcDims& d, const float* X,
                                       int ldx, int kp, int off, int S,
                                       int np, float* Y, int ldy,
@@ -236,14 +276,24 @@ __device__ __forceinline__ void tc_mm(const TcDims& d, const float* X,
   const int nst = (kp + ks - 1) / ks;
   const float* src = d.pack + off;
 
+  // bf16: a stage is ks / 2 word rows, all in the pack (its blocks are
+  // padded to 16 rows); 3xTF32: up to ks rows of each half
   auto load = [&](int s) {
     float* dst = ring + (s & 1) * d.stage;
-    const int k0 = s * ks, rows = min(ks, kp - k0);
-    const int n4 = rows * S / 4;                 // 16-byte pieces per half
-    const float* gb = src + (size_t)k0 * S;
-    for (int i = tid; i < 2 * n4; i += TC_THREADS) {
-      const int h = i >= n4, c = 4 * (i - h * n4);
-      cp_async16(dst + h * ks * S + c, gb + h * d.H + c);
+    const int k0 = s * ks;
+    if (BF) {
+      const int n4 = (ks / 2) * S / 4;
+      const float* gb = src + (size_t)(k0 / 2) * S;
+      for (int i = tid; i < n4; i += TC_THREADS)
+        cp_async16(dst + 4 * i, gb + 4 * i);
+    } else {
+      const int rows = min(ks, kp - k0);
+      const int n4 = rows * S / 4;               // 16-byte pieces per half
+      const float* gb = src + (size_t)k0 * S;
+      for (int i = tid; i < 2 * n4; i += TC_THREADS) {
+        const int h = i >= n4, c = 4 * (i - h * n4);
+        cp_async16(dst + h * ks * S + c, gb + h * d.H + c);
+      }
     }
     cp_async_commit();
   };
@@ -274,30 +324,55 @@ __device__ __forceinline__ void tc_mm(const TcDims& d, const float* X,
       for (int i = 0; i < NTW; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) part[m][i][e] = 0.f;
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      if (8 * q >= rows) break;
-      uint32_t ab[2][4], as[2][4];
+    if (BF) {
+      // one k16 step: A pairs (t, t + 4), (t + 8, t + 12) of each row;
+      // the upper eight k are zero where the stage holds only eight rows
+      const bool full = rows > 8;
+      uint32_t a[2][4];
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
-        const float* xr = xa + 16 * m * ldx + k0 + 8 * q;
-        tf32_split(xr[0], ab[m][0], as[m][0]);
-        tf32_split(xr[8 * ldx], ab[m][1], as[m][1]);
-        tf32_split(xr[4], ab[m][2], as[m][2]);
-        tf32_split(xr[8 * ldx + 4], ab[m][3], as[m][3]);
+        const float* xr = xa + 16 * m * ldx + k0;
+        a[m][0] = bf16_pair(xr[0], xr[4]);
+        a[m][1] = bf16_pair(xr[8 * ldx], xr[8 * ldx + 4]);
+        a[m][2] = full ? bf16_pair(xr[8], xr[12]) : 0u;
+        a[m][3] = full ? bf16_pair(xr[8 * ldx + 8], xr[8 * ldx + 12]) : 0u;
       }
-      const float* br = st + (8 * q + t) * S + g;
+      const uint32_t* br = (const uint32_t*)st + t * S + g;
 #pragma unroll
       for (int i = 0; i < NTW; ++i) {
         const int j = wc + CG * i;
         if (j < nt) {
-          const float* bj = br + 8 * j;
-          const uint32_t bb[2] = {__float_as_uint(bj[0]),
-                                  __float_as_uint(bj[4 * S])};
-          const uint32_t bs[2] = {__float_as_uint(bj[ks * S]),
-                                  __float_as_uint(bj[ks * S + 4 * S])};
-          mma3(part[0][i], ab[0], as[0], bb, bs);
-          mma3(part[1][i], ab[1], as[1], bb, bs);
+          const uint32_t b[2] = {br[8 * j], br[4 * S + 8 * j]};
+          mma_bf16(part[0][i], a[0], b);
+          mma_bf16(part[1][i], a[1], b);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (8 * q >= rows) break;
+        uint32_t ab[2][4], as[2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const float* xr = xa + 16 * m * ldx + k0 + 8 * q;
+          tf32_split(xr[0], ab[m][0], as[m][0]);
+          tf32_split(xr[8 * ldx], ab[m][1], as[m][1]);
+          tf32_split(xr[4], ab[m][2], as[m][2]);
+          tf32_split(xr[8 * ldx + 4], ab[m][3], as[m][3]);
+        }
+        const float* br = st + (8 * q + t) * S + g;
+#pragma unroll
+        for (int i = 0; i < NTW; ++i) {
+          const int j = wc + CG * i;
+          if (j < nt) {
+            const float* bj = br + 8 * j;
+            const uint32_t bb[2] = {__float_as_uint(bj[0]),
+                                    __float_as_uint(bj[4 * S])};
+            const uint32_t bs[2] = {__float_as_uint(bj[ks * S]),
+                                    __float_as_uint(bj[ks * S + 4 * S])};
+            mma3(part[0][i], ab[0], as[0], bb, bs);
+            mma3(part[1][i], ab[1], as[1], bb, bs);
+          }
         }
       }
     }
@@ -324,14 +399,15 @@ __device__ __forceinline__ void tc_mm(const TcDims& d, const float* X,
   }
 }
 
-// Y = X @ B over RG 32-row groups, dispatched on the warp's column tiles.
-template <int RG>
+// Y = X @ B over RG 32-row groups, dispatched on the warp's column tiles;
+// BF: on bf16 operands from a bf16 pack.
+template <int RG, bool BF = false>
 __device__ __forceinline__ void tc_product(const TcDims& d, const float* X,
                                            int ldx, int kp, int off, int S,
                                            int np, float* Y, int ldy,
                                            float* ring) {
-  TC_NTW_DISPATCH(tc_ntw(np, RG),
-                  (tc_mm<NTW, RG>(d, X, ldx, kp, off, S, np, Y, ldy, ring)));
+  TC_NTW_DISPATCH(tc_ntw(np, RG), (tc_mm<NTW, RG, BF>(d, X, ldx, kp, off, S,
+                                                      np, Y, ldy, ring)));
 }
 
 // fn(r, c, v0, v1) for every (r, c) of a rows x W block of a tile, with
@@ -421,14 +497,14 @@ struct TcRows {
 // C[K][N] (+)= X[64][K]^T @ R[64][N] summed over the tile's 64 rows; X, R
 // in shared memory (strides ldx, ldr; columns up to round8(K), round8(N)
 // are read and must be finite), C in global memory, row-major with stride
-// N.  first: store instead of accumulate.  The k index of k-step s runs
-// over rows 8s + 2t (k = t) and 8s + 2t + 1 (k = t + 4).  C is done in
-// chunks of 64 rows, each through the idle weight ring (as TcRows): its
-// old values are copied in by cp.async while its products run, each thread
-// adds its sums there, and the block writes the rows back in 16-byte
-// pieces, so device memory sees whole coalesced rows, not the fragments'
-// scattered pairs.
-template <int NTW>
+// N.  first: store instead of accumulate.  3xTF32: the k index of k-step s
+// runs over rows 8s + 2t (k = t) and 8s + 2t + 1 (k = t + 4); bf16: k-step
+// s is rows 16s .. 16s + 15 in order.  C is done in chunks of 64 rows,
+// each through the idle weight ring (as TcRows): its old values are
+// copied in by cp.async while its products run, each thread adds its sums
+// there, and the block writes the rows back in 16-byte pieces, so device
+// memory sees whole coalesced rows, not the fragments' scattered pairs.
+template <int NTW, bool BF>
 __device__ __forceinline__ void tc_atb(const float* X, int ldx, int K,
                                        const float* R, int ldr, int N,
                                        float* C, bool first, float* ring) {
@@ -447,34 +523,67 @@ __device__ __forceinline__ void tc_atb(const float* X, int ldx, int K,
       for (int i = 0; i < NTW; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[m][i][e] = 0.f;
+    if (BF) {
 #pragma unroll 2
-    for (int s = 0; s < 8; ++s) {
-      const float* x0 = X + (8 * s + 2 * t) * ldx;
-      const float* r0 = R + (8 * s + 2 * t) * ldr + g;
-      uint32_t ab[2][4], as[2][4];
+      for (int s = 0; s < 4; ++s) {
+        const float* x0 = X + (16 * s + 2 * t) * ldx;
+        const float* r0 = R + (16 * s + 2 * t) * ldr + g;
+        uint32_t a[2][4];
 #pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const int m0 = mc + 32 * wr + 16 * m;
-        const bool hi = m0 + 8 < kp;
-        const float* xm = x0 + m0 + g;
-        if (m0 < kp) {
-          tf32_split(xm[0], ab[m][0], as[m][0]);
-          tf32_split(hi ? xm[8] : 0.f, ab[m][1], as[m][1]);
-          tf32_split(xm[ldx], ab[m][2], as[m][2]);
-          tf32_split(hi ? xm[ldx + 8] : 0.f, ab[m][3], as[m][3]);
+        for (int m = 0; m < 2; ++m) {
+          const int m0 = mc + 32 * wr + 16 * m;
+          const bool hi = m0 + 8 < kp;
+          const float* xm = x0 + m0 + g;
+          if (m0 < kp) {
+            a[m][0] = bf16_pair(xm[0], xm[ldx]);
+            a[m][1] = hi ? bf16_pair(xm[8], xm[ldx + 8]) : 0u;
+            a[m][2] = bf16_pair(xm[8 * ldx], xm[9 * ldx]);
+            a[m][3] = hi ? bf16_pair(xm[8 * ldx + 8], xm[9 * ldx + 8]) : 0u;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < NTW; ++i) {
+          const int j = wc + CG * i;
+          if (j < nt) {
+            const uint32_t b[2] = {
+                bf16_pair(r0[8 * j], r0[ldr + 8 * j]),
+                bf16_pair(r0[8 * ldr + 8 * j], r0[9 * ldr + 8 * j])};
+#pragma unroll
+            for (int m = 0; m < 2; ++m)
+              if (mc + 32 * wr + 16 * m < kp) mma_bf16(acc[m][i], a[m], b);
+          }
         }
       }
+    } else {
+#pragma unroll 2
+      for (int s = 0; s < 8; ++s) {
+        const float* x0 = X + (8 * s + 2 * t) * ldx;
+        const float* r0 = R + (8 * s + 2 * t) * ldr + g;
+        uint32_t ab[2][4], as[2][4];
 #pragma unroll
-      for (int i = 0; i < NTW; ++i) {
-        const int j = wc + CG * i;
-        if (j < nt) {
-          uint32_t bb[2], bs[2];
-          tf32_split(r0[8 * j], bb[0], bs[0]);
-          tf32_split(r0[ldr + 8 * j], bb[1], bs[1]);
+        for (int m = 0; m < 2; ++m) {
+          const int m0 = mc + 32 * wr + 16 * m;
+          const bool hi = m0 + 8 < kp;
+          const float* xm = x0 + m0 + g;
+          if (m0 < kp) {
+            tf32_split(xm[0], ab[m][0], as[m][0]);
+            tf32_split(hi ? xm[8] : 0.f, ab[m][1], as[m][1]);
+            tf32_split(xm[ldx], ab[m][2], as[m][2]);
+            tf32_split(hi ? xm[ldx + 8] : 0.f, ab[m][3], as[m][3]);
+          }
+        }
 #pragma unroll
-          for (int m = 0; m < 2; ++m)
-            if (mc + 32 * wr + 16 * m < kp)
-              mma3(acc[m][i], ab[m], as[m], bb, bs);
+        for (int i = 0; i < NTW; ++i) {
+          const int j = wc + CG * i;
+          if (j < nt) {
+            uint32_t bb[2], bs[2];
+            tf32_split(r0[8 * j], bb[0], bs[0]);
+            tf32_split(r0[ldr + 8 * j], bb[1], bs[1]);
+#pragma unroll
+            for (int m = 0; m < 2; ++m)
+              if (mc + 32 * wr + 16 * m < kp)
+                mma3(acc[m][i], ab[m], as[m], bb, bs);
+          }
         }
       }
     }
@@ -510,11 +619,13 @@ __device__ __forceinline__ void tc_atb(const float* X, int ldx, int K,
   }
 }
 
-// C (+)= X^T R over the tile's 64 rows, dispatched on the column tiles.
+// C (+)= X^T R over the tile's 64 rows, dispatched on the column tiles;
+// BF: on bf16 operands.
+template <bool BF = false>
 __device__ __forceinline__ void tc_weight_grad(const float* X, int ldx, int K,
                                                const float* R, int ldr, int N,
                                                float* C, bool first,
                                                float* ring) {
   TC_NTW_DISPATCH(tc_ntw(tc_round8(N), 2),
-                  (tc_atb<NTW>(X, ldx, K, R, ldr, N, C, first, ring)));
+                  (tc_atb<NTW, BF>(X, ldx, K, R, ldr, N, C, first, ring)));
 }

@@ -21,18 +21,21 @@ meshes/00300000.ply; ``interpolate_<i>_<j>`` renders 60 views between
 cameras i and j, there and back, as render/{iter:08d}_<i>_<j>.mp4 (a
 directory of PNG frames where no video encoder is installed).  --type is
 one of data.datasets.DATASET_TYPES.  Runs on the CUDA device unless
---device says otherwise.
+--device says otherwise.  The JAX CLI's --gpu (ignored), --shard (a no-op
+on one device), --profile DIR (a torch.profiler trace of the run) and
+--debug_nans (stop at the first non-finite loss or gradient) are
+accepted too (utils/cli.py).
 """
 from __future__ import annotations
 
 import argparse
-import logging
 from typing import Optional, Sequence
 
 from .train.runner1 import MODES, Runner
+from .utils import cli
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Runner:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--mode", default="train", help=", ".join(MODES))
     p.add_argument("--mcube_threshold", type=float, default=0.0)
@@ -47,9 +50,17 @@ def main(argv: Optional[Sequence[str]] = None) -> Runner:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
-    args = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(message)s")
+    cli.add_jax_options(p)
+    return p
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Runner:
+    args = build_parser().parse_args(argv)
+    with cli.run_scope(args):
+        return _run(args)
+
+
+def _run(args: argparse.Namespace) -> Runner:
     runner = Runner(args.conf, mode=args.mode, case=args.case,
                     is_continue=args.is_continue, type=args.type,
                     surface_weight=args.surface_weight, seed=args.seed,

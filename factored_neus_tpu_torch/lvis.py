@@ -13,18 +13,20 @@ val_freq; ``validate_image`` writes those panels of a random view at full
 resolution for the latest stage-2 checkpoint (with --is_continue), in
 sRGB for the types other than dtu and sk3d (``validate_synthetic_img``,
 the same panels).  --type is one of data.datasets.DATASET_TYPES.  Runs
-on the CUDA device unless --device says otherwise.
+on the CUDA device unless --device says otherwise.  The JAX CLI's
+--mcube_threshold (unused), --gpu, --shard, --profile DIR and
+--debug_nans are accepted too (utils/cli.py).
 """
 from __future__ import annotations
 
 import argparse
-import logging
 from typing import Optional, Sequence
 
 from .train.runner2 import MODES, Runner
+from .utils import cli
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Runner:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--mode", default="train", help=", ".join(MODES))
     p.add_argument("--conf", required=True)
@@ -34,9 +36,17 @@ def main(argv: Optional[Sequence[str]] = None) -> Runner:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
-    args = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(message)s")
+    cli.add_jax_options(p, mcube_threshold=True)
+    return p
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Runner:
+    args = build_parser().parse_args(argv)
+    with cli.run_scope(args):
+        return _run(args)
+
+
+def _run(args: argparse.Namespace) -> Runner:
     runner = Runner(args.conf, mode=args.mode, case=args.case,
                     is_continue=args.is_continue, type=args.type,
                     seed=args.seed, device=args.device)

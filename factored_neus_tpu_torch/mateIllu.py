@@ -24,15 +24,17 @@ roughness PSNRs on the test split; ``relgt_synthetic_img`` /
 ./envmaps/envmap12 (sg_128.npy each), ``relgt_synthetic_video`` /
 ``relgt_video`` every test view so; ``validate_synthetic_video`` the test
 split's videos.  --type is one of data.datasets.DATASET_TYPES.  Runs on
-the CUDA device unless --device says otherwise.
+the CUDA device unless --device says otherwise.  The JAX CLI's
+--mcube_threshold (unused), --gpu, --shard, --profile DIR and
+--debug_nans are accepted too (utils/cli.py).
 """
 from __future__ import annotations
 
 import argparse
-import logging
 from typing import Optional, Sequence
 
 from .train.runner3 import MODES, Runner
+from .utils import cli
 
 # the test view of each Shiny case, and the evaluation view of each
 # synthetic case (the reference CLI's tables)
@@ -53,7 +55,7 @@ def _case_idx(case: str, table: dict, default: int) -> int:
     return default
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Runner:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--mode", default="train",
                    help=", ".join(MODES + tuple(CLI_MODES)))
@@ -65,9 +67,17 @@ def main(argv: Optional[Sequence[str]] = None) -> Runner:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
-    args = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(message)s")
+    cli.add_jax_options(p, mcube_threshold=True)
+    return p
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Runner:
+    args = build_parser().parse_args(argv)
+    with cli.run_scope(args):
+        return _run(args)
+
+
+def _run(args: argparse.Namespace) -> Runner:
     mode = CLI_MODES.get(args.mode, args.mode)
     runner = Runner(args.conf, mode=mode, case=args.case,
                     is_continue=args.is_continue, type=args.type,

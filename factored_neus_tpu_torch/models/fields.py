@@ -37,8 +37,10 @@ from ..ops.embedder import positional_encoding
 from ..ops.mlp import WNLinear, dense_init_, sdf_geometric_init_
 
 
-# (effective weights, biases, weight pack or None): SDFNetwork.kernel_weights
+# (effective weights, biases, weight pack or None, K1's pack or None):
+# SDFNetwork.kernel_weights
 KernelWeights = Tuple[List[torch.Tensor], List[torch.Tensor],
+                      Optional[Tuple[torch.Tensor, TP.PackLayout]],
                       Optional[Tuple[torch.Tensor, TP.PackLayout]]]
 
 
@@ -81,19 +83,23 @@ class _WNLayers(nn.Module):
         ls = self.layers()
         return [l.effective_weight() for l in ls], [l.bias for l in ls]
 
-    def kernel_weights(self) -> KernelWeights:
-        """(ws, bs, pack): the effective weights and biases, differentiable
-        in g, v and b, and on a CUDA device their weight pack for the
-        kernels (tc_pack.pack_weights, built without grad; None on the
-        CPU).  Built once a step, or once a validation image, it serves
-        every launch on these weights: K1 and the ladder's K2 sweeps for
-        the SDF network, K3-fwd and K3-bwd for the radiance MLP."""
+    def kernel_weights(self, bf16: bool = False) -> KernelWeights:
+        """(ws, bs, pack, k1_pack): the effective weights and biases,
+        differentiable in g, v and b, and on a CUDA device their weight
+        pack for the kernels (tc_pack.pack_weights, built without grad;
+        None on the CPU) and K1's: the same pack, or with ``bf16`` (K1's
+        bf16 operand mode) tc_pack.pack_weights_bf16's as well.  Built once
+        a step, or once a validation image, they serve every launch on
+        these weights: K1 and the ladder's K2 sweeps (which stay on the
+        3xTF32 pack) for the SDF network, K3-fwd and K3-bwd for the
+        radiance MLP."""
         ws, bs = self.effective_weights()
-        pack = None
+        pack = k1_pack = None
         if ws[0].is_cuda:
             with torch.no_grad():
                 pack = TP.pack_weights(ws)
-        return ws, bs, pack
+                k1_pack = TP.pack_weights_bf16(ws) if bf16 else pack
+        return ws, bs, pack, k1_pack
 
 
 class SDFNetwork(_WNLayers):
@@ -133,17 +139,22 @@ class SDFNetwork(_WNLayers):
         norm is per output row, so the narrowed row computes the same sdf);
         ``weights``: kernel_weights(), when the caller already has them."""
         with torch.no_grad():
-            ws, bs, pack = weights or self.kernel_weights()
+            ws, bs, pack, _ = weights or self.kernel_weights()
             ws = list(ws[:-1]) + [ws[-1][:1]]
             bs = list(bs[:-1]) + [bs[-1][:1]]
             return SK.sdf_forward(ws, bs, self.cfg, x, pack)[:, 0]
 
     def value_grad_feat(self, x: torch.Tensor,
-                        weights: Optional[KernelWeights] = None):
-        """(sdf [N], feature [N, d_out-1], grad [N, 3]) through K1;
-        ``weights``: kernel_weights(), when the caller already has them."""
-        ws, bs, pack = weights or self.kernel_weights()
-        out, grad = GK.geometry(ws, bs, x, self.cfg, pack=pack)
+                        weights: Optional[KernelWeights] = None,
+                        bf16: bool = False):
+        """(sdf [N], feature [N, d_out-1], grad [N, 3]) through K1, in its
+        bf16 operand mode when ``bf16``; ``weights``: kernel_weights(bf16),
+        when the caller already has them (K1's pack is built here when
+        theirs is not of the mode's operand type)."""
+        ws, bs, _, pack = weights or self.kernel_weights(bf16)
+        if pack is not None and (pack[1].operand == "bf16") != bf16:
+            pack = None
+        out, grad = GK.geometry(ws, bs, x, self.cfg, pack=pack, bf16=bf16)
         return out[:, 0], out[:, 1:], grad
 
 
@@ -190,7 +201,7 @@ class RenderingNetwork(_WNLayers):
                 weights: Optional[KernelWeights] = None):
         """rgb [N, d_out] through K3 (ops/radiance_kernel.py); ``weights``:
         kernel_weights(), when the caller already has them."""
-        ws, bs, pack = weights or self.kernel_weights()
+        ws, bs, pack, _ = weights or self.kernel_weights()
         return RK.radiance(ws, bs, self.cfg, points, normals, view_dirs,
                            feature_vectors, pack)
 

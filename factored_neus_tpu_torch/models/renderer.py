@@ -10,7 +10,9 @@ for every ray at the two samples bracketing the first SDF sign change and
 the result is blended in where the ray has a crossing, which gives the
 reference's masked-gather results.  SDF value, feature and gradient come
 from K1 (ops/geometry_kernel.py), or from its HBM-stash pair under
-FNEUS_PG_HBM_STASH=1; the up-sampling ladder's SDF sweeps from K2
+FNEUS_PG_HBM_STASH=1, in K1's bf16 operand mode under
+FNEUS_CORE_ACT_BF16=1 (``RendererConfig.core_act_bf16``; the render core
+only, as in the JAX package); the up-sampling ladder's SDF sweeps from K2
 (ops/sdf_kernel.py); the radiance MLP from K3 (ops/radiance_kernel.py).
 The background NeRF is a plain MLP on cuBLAS, as the JAX package leaves it
 to XLA.
@@ -31,6 +33,7 @@ reaches only EnvmapMaterial, through cuBLAS MLPs and the SG shading.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -64,6 +67,13 @@ class RendererConfig:
     # one geometry sweep for both stage-2 fine-sample targets (else
     # compute_weight and cal_fir_hit_rgb sweep apart)
     fused_fine_sweep: bool = True
+    # K1 (the stage-1 render core's SDF, feature and gradient, and its
+    # backward) in its bf16 operand mode, as the JAX package's
+    # core_act_bf16 turns on pallas_geometry's bf16 bodies; read from
+    # FNEUS_CORE_ACT_BF16 like the JAX package's.  Only K1 changes: the
+    # ladder's K2 and K3 stay f32, and so does the radiance MLP's input
+    # (the JAX package's act_dtype rounding there is not ported)
+    core_act_bf16: bool = os.environ.get("FNEUS_CORE_ACT_BF16", "0") == "1"
 
     @property
     def n_total(self) -> int:
@@ -89,11 +99,13 @@ class Stage1Model(nn.Module):
         self.nerf = F.NeRF(cfg.nerf, gen)
         self.to(device)
 
-    def kernel_weights(self) -> Tuple[F.KernelWeights, F.KernelWeights]:
+    def kernel_weights(self, bf16: bool = False
+                       ) -> Tuple[F.KernelWeights, F.KernelWeights]:
         """The SDF network's and the radiance MLP's kernel weights (with
-        their packs on a CUDA device): built once a step by ``render``, or
-        once a validation image by its caller."""
-        return self.sdf.kernel_weights(), self.color.kernel_weights()
+        their packs on a CUDA device; ``bf16``: K1's in its bf16 mode):
+        built once a step by ``render``, or once a validation image by its
+        caller."""
+        return self.sdf.kernel_weights(bf16), self.color.kernel_weights()
 
 
 def render_core_outside(model: Stage1Model, cfg: RendererConfig, rays_o,
@@ -137,8 +149,8 @@ def render_core(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d,
     pts_flat = pts.reshape(-1, 3)
     dirs_flat = dirs.reshape(-1, 3)
 
-    sdf, feature, gradients = model.sdf.value_grad_feat(pts_flat,
-                                                        sdf_weights)
+    sdf, feature, gradients = model.sdf.value_grad_feat(
+        pts_flat, sdf_weights, bf16=cfg.core_act_bf16)
     sdf = sdf[:, None]
     inv_s = torch.clamp(model.variance.inv_s(), 1e-6, 1e6)
 
@@ -277,7 +289,8 @@ def render(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d, near,
 
     # one SDF weight pack, for the ladder's sweeps (K2) and K1, and one
     # radiance pack for K3, a step (or a validation image)
-    sdf_weights, color_weights = weights or model.kernel_weights()
+    sdf_weights, color_weights = weights or model.kernel_weights(
+        cfg.core_act_bf16)
     if cfg.n_importance > 0:
         z_vals = S.hierarchical_z_vals(
             lambda p: model.sdf.value_sweep(p, sdf_weights), rays_o.detach(),

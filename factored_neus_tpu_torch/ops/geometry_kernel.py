@@ -28,6 +28,20 @@ The kernels multiply on the tensor cores in 3xTF32 (csrc/tc_mma.cuh), on
 weights packed by ``tc_pack.pack_weights``: once a step, shared with K2's
 sweeps (``fields.SDFNetwork.kernel_weights``), or once per call when the
 caller gives no pack.
+
+The bf16 operand mode (``bf16=True``; the stage-1 renderer's
+``RendererConfig.core_act_bf16``, ``FNEUS_CORE_ACT_BF16``, as in the JAX
+package) is pallas_geometry's ``_mm_fns(bf16=True)``: every product of
+the forward, of its reverse sweep and of the backward (the stacked
+primal and tangent rows, the weight gradients and the input cotangents)
+takes both operands rounded to bf16 and sums in f32; everything
+elementwise stays f32.  Each entry point has a bf16 twin kernel
+(K1-fwd-bf16, K1-bwd-bf16, K1-bwd-split-bf16, K1-fwd-stash-bf16,
+K1-bwd-stash-bf16) on bf16 ``mma.sync``, from ``tc_pack.pack_weights_bf16``.
+Its plain twins compute the same products explicitly
+(``geometry_plain(bf16=True)``, ``geometry_bwd_plain(bf16=True)``):
+autograd through a rounding would run the backward's products on
+unrounded cotangents.  On a CPU tensor the autograd Function runs them.
 """
 from __future__ import annotations
 
@@ -40,8 +54,10 @@ from torch.autograd.function import once_differentiable
 
 from . import _cuda
 from .mlp import softplus_beta
+from .embedder import positional_encoding
 from .sdf_kernel import TILE, layer_dims, sdf_forward_plain
-from .tc_pack import PackLayout, layout_iargs, pack_weights, round8
+from .tc_pack import (PackLayout, check_layout, layout_iargs, mm_bf16,
+                      pack_weights, pack_weights_bf16, round8)
 
 K1_FWD = _cuda.CudaKernel("geometry_fwd", "geometry_fwd.cu", "geometry_fwd")
 K1_BWD = _cuda.CudaKernel("geometry_bwd", "geometry_bwd.cu", "geometry_bwd")
@@ -51,6 +67,29 @@ K1_BWD_STASH = _cuda.CudaKernel("geometry_bwd_stash", "geometry_bwd.cu",
                                 "geometry_bwd_stash")
 K1_BWD_SPLIT = _cuda.CudaKernel("geometry_bwd_split", "geometry_bwd.cu",
                                 "geometry_bwd_split")
+# the bf16 operand mode's entry points
+K1_FWD_BF16 = _cuda.CudaKernel("geometry_fwd_bf16", "geometry_fwd.cu",
+                               "geometry_fwd_bf16")
+K1_BWD_BF16 = _cuda.CudaKernel("geometry_bwd_bf16", "geometry_bwd_bf16.cu",
+                               "geometry_bwd_bf16")
+K1_FWD_STASH_BF16 = _cuda.CudaKernel("geometry_fwd_stash_bf16",
+                                     "geometry_fwd.cu",
+                                     "geometry_fwd_stash_bf16")
+K1_BWD_STASH_BF16 = _cuda.CudaKernel("geometry_bwd_stash_bf16",
+                                     "geometry_bwd_bf16.cu",
+                                     "geometry_bwd_stash_bf16")
+K1_BWD_SPLIT_BF16 = _cuda.CudaKernel("geometry_bwd_split_bf16",
+                                     "geometry_bwd_bf16.cu",
+                                     "geometry_bwd_split_bf16")
+# the kernel of each (entry, operand mode)
+KERNELS = {("fwd", False): K1_FWD, ("fwd", True): K1_FWD_BF16,
+           ("bwd", False): K1_BWD, ("bwd", True): K1_BWD_BF16,
+           ("fwd_stash", False): K1_FWD_STASH,
+           ("fwd_stash", True): K1_FWD_STASH_BF16,
+           ("bwd_stash", False): K1_BWD_STASH,
+           ("bwd_stash", True): K1_BWD_STASH_BF16,
+           ("bwd_split", False): K1_BWD_SPLIT,
+           ("bwd_split", True): K1_BWD_SPLIT_BF16}
 # the HBM-stash pair instead of K1-fwd / K1-bwd, and K1-bwd-split instead
 # of K1-bwd, when ``geometry`` is not told otherwise; read once, at import,
 # like the JAX package's switches
@@ -58,13 +97,68 @@ STASH_BWD = os.environ.get("FNEUS_PG_HBM_STASH", "0") == "1"
 STACKED_BWD = os.environ.get("FNEUS_PG_STACKED", "1") == "1"
 
 
+def _skip_layers(cfg, L: int):
+    return {l for l in cfg.skip_in if 0 <= l < L}
+
+
+def _geometry_bf16(ws, bs, x: torch.Tensor, cfg,
+                   preacts: Optional[List[torch.Tensor]] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 mode's (out, grad), written out as pallas_geometry's
+    _build_fwd_kernel computes them: the forward with bf16 products, then
+    the reverse sweep from e0 / scale with bf16 products."""
+    ins, _, _ = layer_dims(cfg, ws)
+    L, skip = len(ws), _skip_layers(cfg, len(ws))
+    inv_sqrt2 = 1.0 / math.sqrt(2.0)
+    s = cfg.scale
+    with torch.no_grad():
+        u = x * s
+        enc = positional_encoding(u, cfg.multires)
+        h, pre = enc, []
+        for l in range(L):
+            if l in skip:
+                h = torch.cat([h, enc], -1) * inv_sqrt2
+            a = mm_bf16(h, ws[l].t()) + bs[l]
+            if l < L - 1:
+                pre.append(a)
+                h = softplus_beta(a, 100.0)
+        col = torch.ones(a.shape[1], dtype=a.dtype, device=a.device)
+        col[0] = 1.0 / s
+        out = a * col
+        r = torch.zeros_like(a)
+        r[:, 0] = 1.0 / s
+        r_enc = torch.zeros_like(enc)
+        for l in range(L - 1, -1, -1):
+            r_in = mm_bf16(r, ws[l])
+            if l in skip:
+                hw = ins[l] - cfg.d_embed
+                r_in = r_in * inv_sqrt2
+                r_enc = r_enc + r_in[:, hw:]
+                r_in = r_in[:, :hw]
+            if l == 0:
+                r_enc = r_enc + r_in
+            else:
+                r = r_in * torch.sigmoid(100.0 * pre[l - 1])
+        zero = torch.zeros_like(u)
+        grad = _encode_backward(u, zero, r_enc, torch.zeros_like(r_enc),
+                                cfg.multires) * s
+    if preacts is not None:
+        preacts.extend(pre)
+    return out, grad
+
+
 def geometry_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
                    x: torch.Tensor, cfg,
-                   preacts: Optional[List[torch.Tensor]] = None
+                   preacts: Optional[List[torch.Tensor]] = None,
+                   bf16: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain twin: (out, grad) from one forward and one autograd VJP that
     stays differentiable when gradients are enabled.  The hidden layers'
-    pre-activations are appended to ``preacts`` when it is given."""
+    pre-activations are appended to ``preacts`` when it is given.
+    ``bf16``: the bf16 mode's (out, grad), without gradient (its backward
+    is geometry_bwd_plain(bf16=True); ``geometry`` joins the two)."""
+    if bf16:
+        return _geometry_bf16(ws, bs, x, cfg, preacts)
     create = torch.is_grad_enabled()
     with torch.enable_grad():
         xg = x if x.requires_grad else x.detach().requires_grad_(True)
@@ -76,14 +170,15 @@ def geometry_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
     return out, grad
 
 
-def geometry_fwd_stash_plain(ws, bs, x: torch.Tensor, cfg
+def geometry_fwd_stash_plain(ws, bs, x: torch.Tensor, cfg, bf16: bool = False
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
-    """Twin of K1-fwd-stash: (out, grad, stash), the stash being the
-    hidden pre-activations [N, sum of outs[:-1]] rounded to bf16."""
+    """Twin of K1-fwd-stash (bf16: K1-fwd-stash-bf16): (out, grad, stash),
+    the stash being the hidden pre-activations [N, sum of outs[:-1]]
+    rounded to bf16."""
     pre: List[torch.Tensor] = []
     with torch.no_grad():
-        out, grad = geometry_plain(ws, bs, x, cfg, pre)
+        out, grad = geometry_plain(ws, bs, x, cfg, pre, bf16)
     stash = torch.cat([a.detach() for a in pre], -1).to(torch.bfloat16)
     return out, grad, stash
 
@@ -112,31 +207,45 @@ def _encode_backward(u, v, r, rd, multires: int):
     return ct
 
 
-def geometry_bwd_stash_plain(ws: Sequence[torch.Tensor], x: torch.Tensor,
-                             stash: torch.Tensor, ct_out: torch.Tensor,
-                             ct_grad: torch.Tensor, cfg
-                             ) -> Tuple[torch.Tensor, List[torch.Tensor],
-                                        List[torch.Tensor]]:
-    """Twin of K1-bwd-stash (pallas_geometry._build_bwd_kernel_from_stash):
-    (ct_x, dW per layer [out, in], db per layer) with the primal h and
-    sigma(100 a) taken from the bf16 stash and the tangent forward along
-    ct_grad recomputed; biases are not read.  Computes in x's dtype."""
+def geometry_bwd_plain(ws: Sequence[torch.Tensor],
+                       bs: Optional[Sequence[torch.Tensor]], x: torch.Tensor,
+                       ct_out: torch.Tensor, ct_grad: torch.Tensor, cfg,
+                       bf16: bool = False,
+                       stash: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, List[torch.Tensor],
+                                  List[torch.Tensor]]:
+    """Explicit twin of the K1 backward (pallas_geometry's
+    _build_bwd_kernel_stacked, or with ``stash`` _build_bwd_kernel_from_stash):
+    (ct_x, dW per layer [out, in], db per layer) from the primal forward
+    (recomputed with the biases, or taken from the bf16 ``stash``, which
+    reads no bias) and the tangent forward along ct_grad, then the reverse
+    sweep of both chains.  ``bf16``: every product on bf16-rounded
+    operands, as the bf16 kernels compute them.  Computes in x's dtype."""
     dt = x.dtype
+    mm = mm_bf16 if bf16 else torch.matmul
     ins, _, _ = layer_dims(cfg, ws)
-    L = len(ws)
-    skip = {l for l in cfg.skip_in if 0 <= l < L}
+    L, skip = len(ws), _skip_layers(cfg, len(ws))
     inv_sqrt2 = 1.0 / math.sqrt(2.0)
     s = cfg.scale
     with torch.no_grad():
         u, v = x * s, ct_grad * s
         enc, denc = _encode_with_tangent(u, v, cfg.multires)
-        a = torch.split(stash.to(dt), [w.shape[0] for w in ws[:-1]], dim=1)
+        if stash is None:
+            a, h = [], enc
+            for l in range(L - 1):
+                if l in skip:
+                    h = torch.cat([h, enc], -1) * inv_sqrt2
+                a.append(mm(h, ws[l].t()) + bs[l])
+                h = softplus_beta(a[l], 100.0)
+        else:
+            a = torch.split(stash.to(dt), [w.shape[0] for w in ws[:-1]],
+                            dim=1)
         sig = [torch.sigmoid(100.0 * al) for al in a]
         ad, xd = [], denc
         for l in range(L - 1):
             if l in skip:
                 xd = torch.cat([xd, denc], -1) * inv_sqrt2
-            ad.append(xd @ ws[l].t())
+            ad.append(mm(xd, ws[l].t()))
             xd = sig[l] * ad[l]
 
         r = ct_out.clone()
@@ -154,9 +263,9 @@ def geometry_bwd_stash_plain(ws: Sequence[torch.Tensor], x: torch.Tensor,
                 if l in skip:
                     xl = torch.cat([xl, enc], -1) * inv_sqrt2
                     xdl = torch.cat([xdl, denc], -1) * inv_sqrt2
-            dws[l] = r.t() @ xl + rd.t() @ xdl
+            dws[l] = mm(r.t(), xl) + mm(rd.t(), xdl)
             dbs[l] = r.sum(0)
-            r_in, rd_in = r @ ws[l], rd @ ws[l]
+            r_in, rd_in = mm(r, ws[l]), mm(rd, ws[l])
             if l in skip:
                 hw = ins[l] - cfg.d_embed
                 r_in, rd_in = r_in * inv_sqrt2, rd_in * inv_sqrt2
@@ -173,6 +282,18 @@ def geometry_bwd_stash_plain(ws: Sequence[torch.Tensor], x: torch.Tensor,
     return ct_x, dws, dbs
 
 
+def geometry_bwd_stash_plain(ws: Sequence[torch.Tensor], x: torch.Tensor,
+                             stash: torch.Tensor, ct_out: torch.Tensor,
+                             ct_grad: torch.Tensor, cfg, bf16: bool = False
+                             ) -> Tuple[torch.Tensor, List[torch.Tensor],
+                                        List[torch.Tensor]]:
+    """Twin of K1-bwd-stash (bf16: K1-bwd-stash-bf16): geometry_bwd_plain
+    with the primal h and sigma(100 a) taken from the bf16 stash and the
+    tangent forward along ct_grad recomputed; biases are not read."""
+    return geometry_bwd_plain(ws, None, x, ct_out, ct_grad, cfg, bf16,
+                              stash)
+
+
 # widest layer whose tiles, weight ring and weight-gradient chunk fit in
 # K1-bwd's shared memory (227 KB): the full-width SDF's 257
 MAX_WIDTH = 257
@@ -185,6 +306,7 @@ def kernel_iargs(cfg, ws, n: int, grid: int, lay: PackLayout
     ins, outs, skip_mask = layer_dims(cfg, ws)
     if max(ins + outs) > MAX_WIDTH:
         raise ValueError(f"K1 kernels take widths <= {MAX_WIDTH}")
+    check_layout(lay, ins, outs)
     ld = round8(max(ins + outs)) + 4
     return [len(ws), cfg.multires, cfg.d_embed, ld, skip_mask, n, grid,
             *ins, *outs, *layout_iargs(lay)], ld
@@ -195,11 +317,30 @@ def stash_columns(ws: Sequence[torch.Tensor]) -> int:
     return sum(int(w.shape[0]) for w in ws[:-1])
 
 
-def _launch_forward(kernel, cfg, x, ws, bs, with_stash: bool, pack=None):
+def make_pack(ws: Sequence[torch.Tensor], bf16: bool = False
+              ) -> Tuple[torch.Tensor, PackLayout]:
+    """The K1 kernels' weight pack of ws in the operand mode."""
+    return pack_weights_bf16(ws) if bf16 else pack_weights(ws)
+
+
+def _pack_for(kernel, ws, pack, bf16: bool):
+    """``pack`` (make_pack(ws, bf16), built here if None), refused when
+    its operand type is not the kernel's: no mode runs on another's pack."""
+    pack, lay = pack if pack is not None else make_pack(ws, bf16)
+    want = "bf16" if bf16 else "3xtf32"
+    if lay.operand != want:
+        raise ValueError(f"{kernel.name} multiplies on {want} operands: it "
+                         f"takes no {lay.operand} pack")
+    return pack, lay
+
+
+def _launch_forward(entry, cfg, x, ws, bs, with_stash: bool, pack=None,
+                    bf16: bool = False):
+    kernel = KERNELS[entry, bf16]
     dev = x.device
     x = x.detach().contiguous()
     bs = [b.detach().contiguous() for b in bs]
-    pack, lay = pack if pack is not None else pack_weights(ws)
+    pack, lay = _pack_for(kernel, ws, pack, bf16)
     _cuda.check_cuda_tensors(kernel.name, [x, pack, *bs])
     n, L = x.shape[0], len(ws)
     out = torch.empty(n, ws[-1].shape[0], device=dev, dtype=torch.float32)
@@ -217,25 +358,27 @@ def _launch_forward(kernel, cfg, x, ws, bs, with_stash: bool, pack=None):
     return out, grad, stash
 
 
-def launch_forward(cfg, x, ws, bs, pack=None
+def launch_forward(cfg, x, ws, bs, pack=None, bf16: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1-fwd: (out [N, d_out], grad [N, 3]); ``pack``: pack_weights(ws),
-    when the caller already has it."""
-    out, grad, _ = _launch_forward(K1_FWD, cfg, x, ws, bs, False, pack)
+    """K1-fwd (bf16: K1-fwd-bf16): (out [N, d_out], grad [N, 3]);
+    ``pack``: make_pack(ws, bf16), when the caller already has it."""
+    out, grad, _ = _launch_forward("fwd", cfg, x, ws, bs, False, pack, bf16)
     return out, grad
 
 
-def launch_forward_stash(cfg, x, ws, bs, pack=None
+def launch_forward_stash(cfg, x, ws, bs, pack=None, bf16: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K1-fwd-stash: (out, grad, bf16 stash [N, stash_columns(ws)])."""
-    return _launch_forward(K1_FWD_STASH, cfg, x, ws, bs, True, pack)
+    """K1-fwd-stash (bf16: K1-fwd-stash-bf16): (out, grad, bf16 stash
+    [N, stash_columns(ws)])."""
+    return _launch_forward("fwd_stash", cfg, x, ws, bs, True, pack, bf16)
 
 
-def _launch_backward(kernel, cfg, x, ws, bs, stash, ct_out, ct_grad,
-                     pack=None):
+def _launch_backward(entry, cfg, x, ws, bs, stash, ct_out, ct_grad,
+                     pack=None, bf16: bool = False):
+    kernel = KERNELS[entry, bf16]
     dev = x.device
     bs_c = [b.detach().contiguous() for b in bs]
-    pack, lay = pack if pack is not None else pack_weights(ws)
+    pack, lay = _pack_for(kernel, ws, pack, bf16)
     x = x.detach().contiguous()
     ct_out = ct_out.contiguous()
     ct_grad = ct_grad.contiguous()
@@ -274,44 +417,55 @@ def _launch_backward(kernel, cfg, x, ws, bs, stash, ct_out, ct_grad,
     return ct_x, dws, dbs
 
 
-def launch_backward(cfg, x, ws, bs, ct_out, ct_grad, pack=None
+def launch_backward(cfg, x, ws, bs, ct_out, ct_grad, pack=None,
+                    bf16: bool = False
                     ) -> Tuple[torch.Tensor, List[torch.Tensor],
                                List[torch.Tensor]]:
-    """K1-bwd: (ct_x [N, 3], dW per layer [out, in], db per layer [out])."""
-    return _launch_backward(K1_BWD, cfg, x, ws, bs, None, ct_out, ct_grad,
-                            pack)
+    """K1-bwd (bf16: K1-bwd-bf16): (ct_x [N, 3], dW per layer [out, in],
+    db per layer [out])."""
+    return _launch_backward("bwd", cfg, x, ws, bs, None, ct_out, ct_grad,
+                            pack, bf16)
 
 
-def launch_backward_split(cfg, x, ws, bs, ct_out, ct_grad, pack=None
+def launch_backward_split(cfg, x, ws, bs, ct_out, ct_grad, pack=None,
+                          bf16: bool = False
                           ) -> Tuple[torch.Tensor, List[torch.Tensor],
                                      List[torch.Tensor]]:
-    """K1-bwd-split: launch_backward's result, the primal and tangent
-    chains run as separate half-tile products."""
-    return _launch_backward(K1_BWD_SPLIT, cfg, x, ws, bs, None, ct_out,
-                            ct_grad, pack)
+    """K1-bwd-split (bf16: K1-bwd-split-bf16): launch_backward's result,
+    the primal and tangent chains run as separate half-tile products."""
+    return _launch_backward("bwd_split", cfg, x, ws, bs, None, ct_out,
+                            ct_grad, pack, bf16)
 
 
-def launch_backward_stash(cfg, x, ws, stash, ct_out, ct_grad, pack=None
+def launch_backward_stash(cfg, x, ws, stash, ct_out, ct_grad, pack=None,
+                          bf16: bool = False
                           ) -> Tuple[torch.Tensor, List[torch.Tensor],
                                      List[torch.Tensor]]:
-    """K1-bwd-stash: as launch_backward, the primal taken from ``stash``
-    (biases are not needed)."""
-    return _launch_backward(K1_BWD_STASH, cfg, x, ws, [], stash, ct_out,
-                            ct_grad, pack)
+    """K1-bwd-stash (bf16: K1-bwd-stash-bf16): as launch_backward, the
+    primal taken from ``stash`` (biases are not needed)."""
+    return _launch_backward("bwd_stash", cfg, x, ws, [], stash, ct_out,
+                            ct_grad, pack, bf16)
 
 
 class GeometryFn(torch.autograd.Function):
     """(x, *ws, *bs) -> (out, grad) through K1-fwd; backward with both
-    cotangents through K1-bwd, or K1-bwd-split when not ``stacked``.
-    ``pack``: pack_weights(ws), built without grad by the caller."""
+    cotangents through K1-bwd, or K1-bwd-split when not ``stacked``; in
+    the bf16 mode through their bf16 kernels.  ``pack``: make_pack(ws,
+    bf16), built without grad by the caller.  On a CPU tensor (``pack``
+    None) the bf16 mode runs the explicit twins; the f32 mode does not
+    come here on the CPU (geometry_plain differentiates itself)."""
 
     @staticmethod
-    def forward(ctx, cfg, stacked, pack, x, *params):
+    def forward(ctx, cfg, stacked, bf16, pack, x, *params):
         L = len(params) // 2
         ws, bs = params[:L], params[L:]
-        out, grad = launch_forward(cfg, x, ws, bs, pack)
-        ctx.cfg, ctx.stacked, ctx.layout = cfg, stacked, pack[1]
-        ctx.save_for_backward(x, pack[0], *params)
+        if x.is_cuda:
+            out, grad = launch_forward(cfg, x, ws, bs, pack, bf16)
+            ctx.layout, pack = pack[1], pack[0]
+        else:
+            out, grad = geometry_plain(ws, bs, x, cfg, bf16=bf16)
+        ctx.cfg, ctx.stacked, ctx.bf16 = cfg, stacked, bf16
+        ctx.save_for_backward(x, pack, *params)
         return out, grad
 
     @staticmethod
@@ -319,27 +473,33 @@ class GeometryFn(torch.autograd.Function):
     def backward(ctx, ct_out, ct_grad):
         x, pack, *params = ctx.saved_tensors
         L = len(params) // 2
-        launch = launch_backward if ctx.stacked else launch_backward_split
-        ct_x, dws, dbs = launch(ctx.cfg, x, params[:L], params[L:], ct_out,
-                                ct_grad, (pack, ctx.layout))
-        return (None, None, None, ct_x, *dws, *dbs)
+        ws, bs = params[:L], params[L:]
+        if x.is_cuda:
+            launch = launch_backward if ctx.stacked else launch_backward_split
+            ct_x, dws, dbs = launch(ctx.cfg, x, ws, bs, ct_out, ct_grad,
+                                    (pack, ctx.layout), ctx.bf16)
+        else:
+            ct_x, dws, dbs = geometry_bwd_plain(ws, bs, x, ct_out, ct_grad,
+                                                ctx.cfg, ctx.bf16)
+        return (None, None, None, None, ct_x, *dws, *dbs)
 
 
 class GeometryStashFn(torch.autograd.Function):
     """(x, *ws, *bs) -> (out, grad) through K1-fwd-stash, which also keeps
-    the bf16 stash for the backward through K1-bwd-stash; on a CPU tensor
-    through their twins (``pack`` None there)."""
+    the bf16 stash for the backward through K1-bwd-stash (bf16: their bf16
+    kernels); on a CPU tensor through their twins (``pack`` None there)."""
 
     @staticmethod
-    def forward(ctx, cfg, pack, x, *params):
+    def forward(ctx, cfg, bf16, pack, x, *params):
         L = len(params) // 2
         ws, bs = params[:L], params[L:]
         if x.is_cuda:
-            out, grad, stash = launch_forward_stash(cfg, x, ws, bs, pack)
+            out, grad, stash = launch_forward_stash(cfg, x, ws, bs, pack,
+                                                    bf16)
             ctx.layout, pack = pack[1], pack[0]
         else:
-            out, grad, stash = geometry_fwd_stash_plain(ws, bs, x, cfg)
-        ctx.cfg = cfg
+            out, grad, stash = geometry_fwd_stash_plain(ws, bs, x, cfg, bf16)
+        ctx.cfg, ctx.bf16 = cfg, bf16
         ctx.save_for_backward(x, stash, pack, *ws)
         return out, grad
 
@@ -350,31 +510,35 @@ class GeometryStashFn(torch.autograd.Function):
         if x.is_cuda:
             ct_x, dws, dbs = launch_backward_stash(ctx.cfg, x, ws, stash,
                                                    ct_out, ct_grad,
-                                                   (pack, ctx.layout))
+                                                   (pack, ctx.layout),
+                                                   ctx.bf16)
         else:
             ct_x, dws, dbs = geometry_bwd_stash_plain(ws, x, stash, ct_out,
-                                                      ct_grad, ctx.cfg)
-        return (None, None, ct_x, *dws, *dbs)
+                                                      ct_grad, ctx.cfg,
+                                                      ctx.bf16)
+        return (None, None, None, ct_x, *dws, *dbs)
 
 
 def geometry(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
              x: torch.Tensor, cfg, stash: Optional[bool] = None,
              stacked: Optional[bool] = None,
-             pack: Optional[Tuple[torch.Tensor, PackLayout]] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             pack: Optional[Tuple[torch.Tensor, PackLayout]] = None,
+             bf16: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [N, d_out], grad [N, 3]), differentiable in x, ws and bs;
     through the HBM-stash pair when ``stash`` (default STASH_BWD), else
     with the backward through K1-bwd when ``stacked`` (default
-    STACKED_BWD) and K1-bwd-split when not.  ``pack``: pack_weights(ws)
-    when the caller already has it (on a CUDA tensor; built here if not)."""
+    STACKED_BWD) and K1-bwd-split when not; ``bf16``: in the bf16 operand
+    mode, each through its bf16 kernel.  ``pack``: make_pack(ws, bf16)
+    when the caller already has it (on a CUDA tensor; built here if
+    not)."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"geometry: unsupported device {x.device}")
     if x.is_cuda and pack is None:
         with torch.no_grad():
-            pack = pack_weights(ws)
+            pack = make_pack(ws, bf16)
     if STASH_BWD if stash is None else stash:
-        return GeometryStashFn.apply(cfg, pack, x, *ws, *bs)
-    if x.is_cuda:
+        return GeometryStashFn.apply(cfg, bf16, pack, x, *ws, *bs)
+    if x.is_cuda or bf16:
         return GeometryFn.apply(cfg, STACKED_BWD if stacked is None
-                                else bool(stacked), pack, x, *ws, *bs)
+                                else bool(stacked), bf16, pack, x, *ws, *bs)
     return geometry_plain(ws, bs, x, cfg)

@@ -66,6 +66,9 @@ def kernel_iargs(cfg, ws, n: int, grid: int, lay: TP.PackLayout
     rounded up to 8, plus 4; raises for a network whose tiles and weight
     ring do not fit in a block's shared memory."""
     ins, outs, skip_mask = layer_dims(cfg, ws)
+    if lay.operand != "3xtf32":
+        raise ValueError(f"K2 multiplies in 3xTF32: it takes no "
+                         f"{lay.operand} pack")
     TP.check_layout(lay, ins, outs)
     ld = TP.round8(max(ins + outs)) + 4
     if smem_bytes(cfg, lay, outs, ld) > TP.SMEM_MAX:

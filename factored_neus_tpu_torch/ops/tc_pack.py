@@ -1,19 +1,23 @@
 """The weight pack and the arithmetic of the tensor-core kernels
 (csrc/tc_mma.cuh): K1 (ops/geometry_kernel.py), K2 (ops/sdf_kernel.py) and
-K3 (ops/radiance_kernel.py) multiply in 3xTF32 on ``mma.sync``.
+K3 (ops/radiance_kernel.py) multiply in 3xTF32 on ``mma.sync``; K1 also in
+its bf16 operand mode, on bf16 ``mma.sync``.
 
 ``pack_weights`` lays every layer's weight out once in the form the kernels
 stage into shared memory, already split into TF32 big and small halves;
-``layout_iargs`` is the layout as the kernels are told it, and
-``smem_bytes`` mirrors their shared-memory count (tc_dims_from_args and
-tc_smem_bytes), so a network a kernel cannot hold is refused before any
-launch.  ``mm_3xtf32`` emulates the kernels' product arithmetic in plain
-PyTorch for the CPU tests.
+``pack_weights_bf16`` lays them out rounded to bf16, two k-rows to a
+32-bit word.  ``layout_iargs`` is the layout as the kernels are told it,
+and ``smem_bytes`` mirrors their shared-memory count (tc_dims_from_args
+and tc_smem_bytes), so a network a kernel cannot hold is refused before
+any launch.  ``mm_3xtf32`` and ``mm_bf16`` emulate the kernels' product
+arithmetic in plain PyTorch for the CPU tests.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 TILE = 64                  # rows of a tile (TC_TILE)
@@ -78,8 +82,28 @@ def mm_3xtf32(a: torch.Tensor, b: torch.Tensor,
     return total
 
 
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest, ties to even) and back to x's dtype:
+    the operand of a bf16 product, as JAX's ``astype(bfloat16)`` and the
+    kernels' ``__floats2bfloat162_rn`` round it."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, K] @ b [K, N] on bf16 operands with a float32 (or, for float64
+    inputs, float64) sum: K1's bf16 mode, and pallas_geometry's
+    ``_mm_fns(bf16=True)``.  A product of two bf16 values is exact in
+    float32, so only the sum's order and rounding differ from the
+    kernels'."""
+    return bf16_round(a) @ bf16_round(b)
+
+
 def round8(n: int) -> int:
     return -(-n // 8) * 8
+
+
+def round16(n: int) -> int:
+    return -(-n // 16) * 16
 
 
 def staged_stride(width: int) -> int:
@@ -92,26 +116,42 @@ def staged_stride(width: int) -> int:
 
 
 class PackLayout(NamedTuple):
-    """Offsets and row strides (floats) of each layer's two blocks in one
-    half of the pack: W^T [round8(in)][fwd_stride] for x W^T and W
-    [round8(out)][rev_stride] for r W; ``half`` floats per half."""
+    """Offsets and row strides (32-bit words) of each layer's two blocks in
+    one half of the pack: W^T [round8(in)][fwd_stride] for x W^T and W
+    [round8(out)][rev_stride] for r W; ``half`` words per half.
+    ``operand``: "3xtf32" (float32 words; a big and a small half) or
+    "bf16" (one half; a block's k rows rounded up to 16 and paired into
+    words, bf16_pair_rows)."""
     fwd_off: List[int]
     fwd_stride: List[int]
     rev_off: List[int]
     rev_stride: List[int]
     half: int
+    operand: str = "3xtf32"
 
 
-def pack_layout(ins: Sequence[int], outs: Sequence[int]) -> PackLayout:
+OPERANDS = ("3xtf32", "bf16")
+
+
+def block_rows(k: int, operand: str) -> int:
+    """Word rows of a packed block of k weight rows (the product's depth):
+    k rounded up to 8 (3xTF32), or up to 16 and two to a word (bf16)."""
+    return round8(k) if operand == "3xtf32" else round16(k) // 2
+
+
+def pack_layout(ins: Sequence[int], outs: Sequence[int],
+                operand: str = "3xtf32") -> PackLayout:
+    if operand not in OPERANDS:
+        raise ValueError(f"unknown operand type {operand!r}")
     fo, fs, ro, rs, off = [], [], [], [], 0
     for i, o in zip(ins, outs):
         fo.append(off)
         fs.append(staged_stride(o))
-        off += round8(i) * fs[-1]
+        off += block_rows(i, operand) * fs[-1]
         ro.append(off)
         rs.append(staged_stride(i))
-        off += round8(o) * rs[-1]
-    return PackLayout(fo, fs, ro, rs, off)
+        off += block_rows(o, operand) * rs[-1]
+    return PackLayout(fo, fs, ro, rs, off, operand)
 
 
 def pack_weights(ws: Sequence[torch.Tensor]
@@ -137,6 +177,77 @@ def pack_weights(ws: Sequence[torch.Tensor]
     return torch.cat([big, small]), lay
 
 
+def bf16_pair_rows(k: int) -> torch.Tensor:
+    """[round16(k) // 2, 2] weight-row indices of a bf16 block's word rows:
+    in each group of 16 rows k0 .. k0 + 15, word row 8 g + t (t < 4) holds
+    rows (k0 + t, k0 + t + 4) and word row 8 g + 4 + t rows (k0 + 8 + t,
+    k0 + 12 + t), low half first.  That is the order in which thread t of
+    a warp reads an m16n8k16 B fragment (its k pairs 2t, 2t + 1 and
+    2t + 8, 2t + 9), with the A fragment's k permuted the same way, so
+    that both read single 32-bit words without bank conflicts
+    (csrc/tc_mma.cuh)."""
+    idx = []
+    for k0 in range(0, round16(k), 16):
+        for t in range(4):
+            idx.append((k0 + t, k0 + t + 4))
+        for t in range(4):
+            idx.append((k0 + 8 + t, k0 + 12 + t))
+    return torch.tensor(idx, dtype=torch.long)
+
+
+@functools.lru_cache(maxsize=16)
+def _bf16_sources(ins: Tuple[int, ...], outs: Tuple[int, ...],
+                  device: torch.device
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """For each word of a bf16 pack of layers ins -> outs, the indices of
+    its low and high halves in the weights flattened one after another
+    (each [out, in] row-major), or the index one past them (a zero) in
+    the padding; on ``device``, built once."""
+    lay = pack_layout(ins, outs, "bf16")
+    zero = sum(i * o for i, o in zip(ins, outs))
+    lo = np.full(lay.half, zero, np.int64)
+    hi = np.full(lay.half, zero, np.int64)
+    base = 0
+    for l, (i, o) in enumerate(zip(ins, outs)):
+        # W^T block: row k, column n is W[n][k]; W block: row k, column n
+        # is W[k][n]
+        for off, st, k_dim, n_dim, step_k, step_n in (
+                (lay.fwd_off[l], lay.fwd_stride[l], i, o, 1, i),
+                (lay.rev_off[l], lay.rev_stride[l], o, i, i, 1)):
+            n = base + step_n * np.arange(n_dim)
+            for r, (k0, k1) in enumerate(bf16_pair_rows(k_dim).tolist()):
+                row = slice(off + r * st, off + r * st + n_dim)
+                if k0 < k_dim:
+                    lo[row] = n + step_k * k0
+                if k1 < k_dim:
+                    hi[row] = n + step_k * k1
+        base += i * o
+    return torch.from_numpy(lo).to(device), torch.from_numpy(hi).to(device)
+
+
+def pack_weights_bf16(ws: Sequence[torch.Tensor]
+                      ) -> Tuple[torch.Tensor, PackLayout]:
+    """K1's bf16 weight buffer: every layer's W^T and W block rounded to
+    bf16 (to nearest even, as JAX's ``astype``), two k-rows to a 32-bit
+    word (bf16_pair_rows), in pack_layout(..., "bf16")'s places, zero in
+    the padding.  A float32 tensor of words; no small half."""
+    if any(w.dtype != torch.float32 for w in ws):
+        raise ValueError("the tensor-core kernels take float32 weights")
+    ins = tuple(int(w.shape[1]) for w in ws)
+    outs = tuple(int(w.shape[0]) for w in ws)
+    dev = ws[0].device
+    # one gather for each half from the weights laid end to end: a
+    # handful of launches a pack, whatever the depth (the pack is built
+    # once a step, beside the 3xTF32 pack)
+    lo, hi = _bf16_sources(ins, outs, dev)
+    src = torch.cat([w.detach().reshape(-1) for w in ws]
+                    + [torch.zeros(1, device=dev)])
+    half = [src[i].to(torch.bfloat16).view(torch.int16).to(torch.int32)
+            for i in (lo, hi)]
+    words = (half[0] & 0xFFFF) | (half[1] << 16)
+    return words.view(torch.float32), pack_layout(ins, outs, "bf16")
+
+
 def layout_iargs(lay: PackLayout) -> List[int]:
     """The pack layout as the kernels' integer arguments take it after
     ins and outs: fwd_off, fwd_stride, rev_off, rev_stride, half."""
@@ -150,7 +261,7 @@ def check_layout(lay: PackLayout, ins: Sequence[int],
     the same network with a wider last layer (K2 reads K1's pack with the
     last layer narrowed to the sdf column: it stages only the W^T blocks,
     whose first columns are the narrowed layer's)."""
-    want = pack_layout(ins, outs)
+    want = pack_layout(ins, outs, lay.operand)
     L = len(ins)
     ok = len(lay.fwd_off) == L and lay.fwd_off == want.fwd_off
     ok = ok and lay.fwd_stride[:-1] == want.fwd_stride[:-1]
@@ -174,10 +285,11 @@ def smem_bytes(lay: PackLayout, outs: Sequence[int],
                fixed_floats: int) -> int:
     """Shared memory of a tensor-core kernel with ``fixed_floats`` of its own
     tiles and the weight ring: two stages of RING_ROWS rows of the widest
-    staged block, big and small, or one 64-row weight-gradient chunk where
-    that is larger."""
+    staged block (3xTF32: big and small, a word a value; bf16: two values
+    a word), or one 64-row weight-gradient chunk where that is larger."""
     widest = max(lay.fwd_stride + lay.rev_stride)
-    stage = 2 * RING_ROWS * widest
+    stage = (2 * RING_ROWS if lay.operand == "3xtf32"
+             else RING_ROWS // 2) * widest
     chunk = max(TILE * chunk_stride(o) + 3 for o in outs)
     ring = -(-max(2 * stage, chunk) // 4) * 4
     return 4 * (fixed_floats + ring)

@@ -48,6 +48,7 @@ import numpy as np
 from ..data.fake_scene import SPHERE_R, write_sphere_scene
 from ..evaltools.pointcloud import nn_distances, sample_mesh_points
 from ..meshing.ply import read_ply_mesh
+from ..models.renderer import RendererConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -292,6 +293,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
         "scene": {"n_views": SCENE[0], "H": SCENE[1], "W": SCENE[2],
                   "y_range": list(Y_RANGE)},
         "end_iter": args.end_iter, "parallel": args.parallel,
+        # K1's bf16 operand mode, as the runs (children of this process)
+        # read it from FNEUS_CORE_ACT_BF16
+        "core_act_bf16": RendererConfig().core_act_bf16,
         "stage2": args.stage2, "stage3": args.stage3,
         "from_stage": args.from_stage, "failed": failed}
     bars = {}

@@ -13,6 +13,7 @@ import torch
 
 from ..data import rays as RAYS
 from ..models import renderer as R
+from ..utils import logging as LOG
 from . import losses as L
 from .common import TrainConfig, make_optimizer, set_lr
 
@@ -49,5 +50,7 @@ class Stage2Trainer:
         set_lr(self.opt, self.tcfg, step)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
+        LOG.check_finite(step, loss, ((n, p.grad) for n, p in
+                                      self.model.named_parameters()))
         self.opt.step()
         return {k: v.detach() for k, v in metrics.items()}

@@ -1,12 +1,89 @@
-"""TensorBoard scalars and the rays/s meter of the training loop.
-Counterpart of factored_neus_tpu/utils/logging.py (MetricsWriter,
-ThroughputMeter).  The writer is tensorboardX's, or else
-torch.utils.tensorboard's, and does nothing where neither imports."""
+"""TensorBoard scalars, the rays/s meter of the training loop, and the
+CLIs' hooks: log format, profiler trace and NaN stop.  Counterpart of
+factored_neus_tpu/utils/logging.py (setup_logging, MetricsWriter,
+ThroughputMeter, profiler_trace, debug_nans).  The writer is
+tensorboardX's, or else torch.utils.tensorboard's, and does nothing where
+neither imports."""
 from __future__ import annotations
 
+import contextlib
+import logging as _pylogging
 import os
 import time
-from typing import Dict
+from typing import Dict, Iterable, Optional, Tuple
+
+import torch
+
+log = _pylogging.getLogger("factored_neus_tpu_torch")
+
+# on inside ``debug_nans(True)``: check_finite then raises
+_DEBUG_NANS = False
+
+
+def setup_logging(level=_pylogging.INFO) -> None:
+    """The CLIs' log format."""
+    _pylogging.basicConfig(level=level,
+                           format="%(asctime)s %(levelname)s %(message)s")
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: Optional[str]):
+    """A torch.profiler trace of the enclosed run (CPU activity, and CUDA
+    kernels where a card is present), written to
+    ``log_dir/trace_<pid>.json`` (Chrome trace format) when the scope
+    ends; a no-op when log_dir is None."""
+    if log_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.stop()
+        path = os.path.join(log_dir, f"trace_{os.getpid()}.json")
+        prof.export_chrome_trace(path)
+        log.info("profiler trace written to %s", path)
+
+
+@contextlib.contextmanager
+def debug_nans(enabled: bool):
+    """Within the scope, a training step stops at its first non-finite
+    loss or gradient (check_finite raises FloatingPointError naming the
+    step and the tensor); a no-op when not enabled."""
+    global _DEBUG_NANS
+    if not enabled:
+        yield
+        return
+    prev, _DEBUG_NANS = _DEBUG_NANS, True
+    try:
+        yield
+    finally:
+        _DEBUG_NANS = prev
+
+
+def check_finite(step: int, loss: torch.Tensor,
+                 grads: Iterable[Tuple[str, torch.Tensor]]) -> None:
+    """Inside ``debug_nans(True)``: raises FloatingPointError at the first
+    non-finite value among the loss and the named gradients (one host
+    sync for all of them); does nothing otherwise."""
+    if not _DEBUG_NANS:
+        return
+    named = [("loss", loss.detach())] + [(n, g) for n, g in grads
+                                         if g is not None]
+    ok = torch.stack([torch.isfinite(t).all() for _, t in named]).cpu()
+    if not bool(ok.all()):
+        name = named[int((~ok).nonzero()[0])][0]
+        what = name if name == "loss" else f"gradient of {name}"
+        raise FloatingPointError(f"debug_nans: non-finite {what} at step "
+                                 f"{step}")
 
 
 def _summary_writer_class():

@@ -526,3 +526,75 @@ def test_step_launches_each_kernel_once_and_k2_four_times(cuda_device):
     (out["color_fine"].sum() + out["gradient_error"].sum()).backward()
     assert [k.launches - b for k, b in zip(kernels, before)] == [4, 1, 1,
                                                                  1, 1]
+
+
+def _bf16_runs(cfg, ws, bs, x, ct_out, ct_g, pack):
+    """Each bf16 K1 kernel and its plain twin: {name: (launch, twin)}, the
+    kernels' outputs as lists of tensors."""
+    flat = lambda r: [r[0], *r[1], *r[2]]
+    st_k = GK.launch_forward_stash(cfg, x, ws, bs, pack, bf16=True)[2]
+    tw_f = list(GK.geometry_plain(ws, bs, x, cfg, bf16=True))
+    tw_b = flat(GK.geometry_bwd_plain(ws, bs, x, ct_out, ct_g, cfg,
+                                      bf16=True))
+    return {
+        "fwd": (lambda: list(GK.launch_forward(cfg, x, ws, bs, pack,
+                                               bf16=True)), tw_f),
+        "fwd_stash": (lambda: list(GK.launch_forward_stash(
+            cfg, x, ws, bs, pack, bf16=True)[:2]), tw_f),
+        "bwd": (lambda: flat(GK.launch_backward(
+            cfg, x, ws, bs, ct_out, ct_g, pack, bf16=True)), tw_b),
+        "bwd_split": (lambda: flat(GK.launch_backward_split(
+            cfg, x, ws, bs, ct_out, ct_g, pack, bf16=True)), tw_b),
+        "bwd_stash": (lambda: flat(GK.launch_backward_stash(
+            cfg, x, ws, st_k, ct_out, ct_g, pack, bf16=True)),
+            flat(GK.geometry_bwd_stash_plain(ws, x, st_k, ct_out, ct_g, cfg,
+                                             bf16=True)))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES)
+def test_bf16_kernels_match_twins(cuda_device, case):
+    """K1's bf16 kernels against their twins and the f64 unrounded
+    function (chip_smoke.check_flips), two launches of each bitwise
+    equal."""
+    cfg, ws, bs, x = _net(case, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    ct_out = torch.randn(x.shape[0], ws[-1].shape[0], device=cuda_device,
+                         generator=gen)
+    ct_g = torch.randn(x.shape[0], 3, device=cuda_device, generator=gen)
+    w64, b64 = [w.double() for w in ws], [b.double() for b in bs]
+    ref_f = [t.float() for t in GK.geometry_plain(w64, b64, x.double(), cfg)]
+    r = GK.geometry_bwd_plain(w64, b64, x.double(), ct_out.double(),
+                              ct_g.double(), cfg)
+    ref_b = [t.float() for t in [r[0], *r[1], *r[2]]]
+    L = len(ws)
+    names_b = ["ct_x"] + [f"dW{l}" for l in range(L)] + [
+        f"db{l}" for l in range(L)]
+    pack = GK.make_pack(ws, bf16=True)
+    for name, (run, twin) in _bf16_runs(cfg, ws, bs, x, ct_out, ct_g,
+                                         pack).items():
+        got, again = run(), run()
+        fwd = name.startswith("fwd")
+        chip_smoke.check_flips(f"{name} {case}", got, twin,
+                               ref_f if fwd else ref_b,
+                               ["out", "grad"] if fwd else names_b)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), name
+
+
+@pytest.mark.gpu
+def test_bf16_mode_launches_the_bf16_kernels(cuda_device):
+    """value_grad_feat(bf16=True) through autograd: one K1-fwd-bf16 and one
+    K1-bwd-bf16 launch on the bf16 pack of kernel_weights(bf16=True), no
+    f32 K1 launch; the f32 pack stays the K2 sweep's."""
+    cfg, _, _, x = _net(CASES[0], cuda_device)
+    net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(cuda_device)
+    weights = net.kernel_weights(bf16=True)
+    assert weights[2][1].operand == "3xtf32"
+    assert weights[3][1].operand == "bf16"
+    kernels = (GK.K1_FWD, GK.K1_BWD, GK.K1_FWD_BF16, GK.K1_BWD_BF16)
+    before = [k.launches for k in kernels]
+    s, f, g = net.value_grad_feat(x, weights, bf16=True)
+    (((g.norm(dim=-1) - 1) ** 2).mean() + (f ** 2).mean()
+     + s.abs().mean()).backward()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [0, 0, 1, 1]
+    net.value_sweep(x, weights)

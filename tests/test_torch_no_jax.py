@@ -1,6 +1,8 @@
 """The port imports nothing of JAX: every module of factored_neus_tpu_torch
-imports, and its CLIs train, validate, mesh and score a tiny scene, and
-train and validate stages 2 and 3 on it, and every dataset family is
+imports, and its CLIs train (with the JAX CLIs' --gpu, --shard,
+--debug_nans, --profile and --mcube_threshold), validate, mesh and score a
+tiny scene, and train and validate stages 2 and 3 on it, and every
+dataset family is
 fabricated and loaded under each of its type names, in a
 process where jax, jaxlib and factored_neus_tpu cannot be imported (nor
 the optional cv2, imageio, PIL and TensorBoard writers, which the port
@@ -43,18 +45,25 @@ CHILD = textwrap.dedent("""
     write_sphere_scene(os.path.join(tmp, "data", "fake_scan"), n_views=3,
                        H=24, W=32)
     base = ["--conf", conf, "--case", "fake_scan", "--device", "cpu"]
-    r = exp_runner.main(["--mode", "train", *base])
+    # the JAX CLIs' options: --gpu, --shard, --debug_nans, --profile DIR
+    jax_flags = ["--gpu", "0", "--shard", "--debug_nans"]
+    trace = os.path.join(tmp, "trace")
+    r = exp_runner.main(["--mode", "train", *base, *jax_flags, "--profile",
+                         trace])
+    assert os.listdir(trace), trace
     r.validate_mesh(world_space=True, resolution=32)
     exp_runner.main(["--mode", "validate_image", "--is_continue", *base])
     r = exp_runner.main(["--mode", "interpolate_0_1", "--is_continue",
                          *base])
     assert r.last_video.endswith("_frames"), r.last_video
     from factored_neus_tpu_torch import lvis
-    r2 = lvis.main(["--mode", "train", *base])
+    r2 = lvis.main(["--mode", "train", *base, *jax_flags,
+                    "--mcube_threshold", "0.0"])
     assert r2.iter_step == 4 and r2.history, r2.iter_step
     lvis.main(["--mode", "validate_image", "--is_continue", *base])
     from factored_neus_tpu_torch import mateIllu
-    r3 = mateIllu.main(["--mode", "train", *base])
+    r3 = mateIllu.main(["--mode", "train", *base, *jax_flags,
+                        "--mcube_threshold", "0.0"])
     assert r3.iter_step == 4 and r3.history, r3.iter_step
     v3 = mateIllu.main(["--mode", "validate_image", "--is_continue", *base])
     assert os.path.exists(v3.last_envmap), v3.last_envmap

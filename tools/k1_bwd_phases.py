@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Per-phase time of K1-bwd and K1-fwd (csrc/geometry_{bwd,fwd}.cu) on a GPU.
 
-    python3 tools/k1_bwd_phases.py [--root DIR]
+    python3 tools/k1_bwd_phases.py [--root DIR] [--bf16]
 
 Builds copies of DIR's factored_neus_tpu_torch/csrc kernels (default: this
 checkout) into build/phases/, each with one phase cut out, and times them
@@ -23,7 +23,8 @@ time is read.  The kernels are called through DIR's own wrappers
 another version of the port, e.g. a parent commit unpacked with ``git
 archive``; a phase whose code the version does not have (a version whose
 K1 multiplies on the CUDA cores has none but ``all``) is reported as not
-applicable.  ``all`` is timed first and last, as a measure of the
+applicable.  ``--bf16``: the same cuts of K1's bf16 operand mode
+(K1-bwd-bf16 from geometry_bwd_bf16.cu, K1-fwd-bf16) on the bf16 pack.  ``all`` is timed first and last, as a measure of the
 spread.  Prints one line per phase,
 the card's name and power limit, and a JSON summary.
 """
@@ -39,11 +40,15 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(HERE, "build", "phases")
 N_CORE = 512 * 128
 BWD, FWD = "geometry_bwd.cu", "geometry_fwd.cu"
-WG = [(BWD, r"\n\s*tc_weight_grad\(.*?\);")]
-IC = [(BWD, r"\n\s*bwd_input_cot<MODE>\(.*?\);")]
-FW = [(BWD, r"\n\s*bwd_forward<MODE>\(.*?\);")]
+# K1-bwd's body: its own source, or (since the bf16 mode) a header that
+# the f32 and bf16 entry points share; the cuts go to whichever DIR has
+BWD_BODY = (BWD, "geometry_bwd.cuh")
+WG = [(f, r"\n\s*tc_weight_grad(?:<BF>)?\(.*?\);") for f in BWD_BODY]
+IC = [(f, r"\n\s*bwd_input_cot<MODE(?:, BF)?>\(.*?\);") for f in BWD_BODY]
+FW = [(f, r"\n\s*bwd_forward<MODE(?:, BF)?>\(.*?\);") for f in BWD_BODY]
 # (kernel source, phase): (file, regular expression) pairs whose matches are
-# cut (the tensor-core kernels of tc_mma.cuh); at least one must match
+# cut (the tensor-core kernels of tc_mma.cuh), where DIR has the file; at
+# least one must match
 CUTS = {
     (BWD, "all"): [],
     (BWD, "no_weight_grad"): WG,
@@ -53,30 +58,38 @@ CUTS = {
     (BWD, "no_forward"): FW,
     (BWD, "no_products"): WG + IC + FW,
     (FWD, "all"): [],
-    (FWD, "no_products"): [(FWD, r"\n\s*tc_product<2>\(.*?\);")],
+    (FWD, "no_products"): [(FWD, r"\n\s*tc_product<2(?:, BF)?>\(.*?\);")],
 }
 ORDER = [(BWD, p) for p in ("all", "no_weight_grad", "no_slice_traffic",
                             "no_input_cot", "no_forward", "no_products",
                             "all")] + [(FWD, "all"), (FWD, "no_products")]
 
 
-def build(root: str) -> dict:
+def build(root: str, bwd_entry: str = BWD) -> dict:
     """Writes and compiles the cut copies; returns {(source, phase):
-    library}, without the phases this version has no code for."""
+    library}, without the phases this version has no code for.
+    ``bwd_entry``: the source that is compiled for K1-bwd's cuts (its
+    body's cuts apply where they match)."""
     sys.path.insert(0, root)
     from factored_neus_tpu_torch.ops import _cuda
     csrc = os.path.join(root, "factored_neus_tpu_torch", "csrc")
     libs, procs = {}, []
     for (src, phase), cuts in CUTS.items():
-        files = {src, *(f for f, _ in cuts)}
-        if not all(os.path.exists(os.path.join(csrc, f)) for f in files):
+        entry = bwd_entry if src == BWD else src
+        if not os.path.exists(os.path.join(csrc, entry)):
             continue
+        cuts = [(f, pat) for f, pat in cuts
+                if os.path.exists(os.path.join(csrc, f))]
+        # every header is copied beside the entry, so that an include
+        # inside a header finds the cut copy, not the source's
+        files = {entry, *(f for f, _ in cuts),
+                 *(f for f in os.listdir(csrc) if f.endswith(".cuh"))}
         texts = {f: open(os.path.join(csrc, f)).read() for f in files}
         n = 0
         for f, pat in cuts:
             texts[f], k = re.subn(pat, ";", texts[f], flags=re.S)
             n += k
-        if cuts and n == 0:
+        if CUTS[src, phase] and n == 0:
             continue
         d = os.path.join(OUT, os.path.splitext(src)[0], phase)
         shutil.rmtree(d, ignore_errors=True)
@@ -87,8 +100,8 @@ def build(root: str) -> dict:
         lib = os.path.join(d, "lib.so")
         libs[(src, phase)] = lib
         procs.append((phase, subprocess.Popen(
-            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", csrc, "-o", lib,
-             os.path.join(d, src)], stdout=subprocess.PIPE,
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib,
+             os.path.join(d, entry)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)))
     for phase, p in procs:
         log, _ = p.communicate()
@@ -99,11 +112,14 @@ def build(root: str) -> dict:
 
 def main() -> int:
     args = sys.argv[1:]
+    bf16 = "--bf16" in args
+    args = [a for a in args if a != "--bf16"]
     root = HERE
     if args[:1] == ["--root"] and len(args) == 2:
         root = os.path.abspath(args[1])
     elif args:
-        print("usage: k1_bwd_phases.py [--root DIR]", file=sys.stderr)
+        print("usage: k1_bwd_phases.py [--root DIR] [--bf16]",
+              file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -111,7 +127,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     import chip_smoke
-    libs = build(root)
+    libs = build(root, "geometry_bwd_bf16.cu" if bf16 else BWD)
     from factored_neus_tpu_torch.models.fields import SDFConfig, SDFNetwork
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
 
@@ -126,13 +142,24 @@ def main() -> int:
     ct_out = torch.randn(N_CORE, ws[-1].shape[0], device=dev, generator=gen)
     ct_g = torch.randn(N_CORE, 3, device=dev, generator=gen)
 
-    kernels = {BWD: (GK.K1_BWD, "geometry_bwd", lambda: GK.launch_backward(
-        cfg, x, ws, bs, ct_out, ct_g)),
-               FWD: (GK.K1_FWD, "geometry_fwd", lambda: GK.launch_forward(
-                   cfg, x, ws, bs))}
+    if bf16:
+        pack = GK.make_pack(ws, bf16=True)
+        kernels = {BWD: (GK.K1_BWD_BF16, "geometry_bwd_bf16",
+                         lambda: GK.launch_backward(cfg, x, ws, bs, ct_out,
+                                                    ct_g, pack, bf16=True)),
+                   FWD: (GK.K1_FWD_BF16, "geometry_fwd_bf16",
+                         lambda: GK.launch_forward(cfg, x, ws, bs, pack,
+                                                   bf16=True))}
+    else:
+        kernels = {BWD: (GK.K1_BWD, "geometry_bwd",
+                         lambda: GK.launch_backward(cfg, x, ws, bs, ct_out,
+                                                    ct_g)),
+                   FWD: (GK.K1_FWD, "geometry_fwd",
+                         lambda: GK.launch_forward(cfg, x, ws, bs))}
     times = []
     for src, phase in ORDER:
-        label = f"K1-{'bwd' if src == BWD else 'fwd'} {phase}"
+        label = (f"K1-{'bwd' if src == BWD else 'fwd'}"
+                 f"{'-bf16' if bf16 else ''} {phase}")
         if (src, phase) not in libs:
             print(f"{label}: not applicable")
             continue
@@ -148,7 +175,8 @@ def main() -> int:
         print(f"{label}: {ms:.3f} ms")
     card = chip_smoke.card_line()
     print(card)
-    print(json.dumps({"root": root, "card": card, "times": times}))
+    print(json.dumps({"root": root, "bf16": bf16, "card": card,
+                      "times": times}))
     return 0
 
 

@@ -3,6 +3,7 @@
 PyTorch port goes, on a GPU.
 
     python3 tools/profile_torch_stage1.py            # K1-fwd / K1-bwd
+    python3 tools/profile_torch_stage1.py --bf16     # K1's bf16 mode
     python3 tools/profile_torch_stage1.py --stash    # the HBM-stash pair
     python3 tools/profile_torch_stage1.py --womask [--split]
     python3 tools/profile_torch_stage1.py --stage2   # a stage-2 step
@@ -23,8 +24,10 @@ Prints ms/step, rays/s, the device-busy share of the profiled window and
 device time by kernel, each hand-written kernel named by its row of
 PERF.md's table, and writes the table as JSON to build/profile/
 profile_torch_stage1[_womask][_stash][_split][_stage2][_stage3].json.
---stash sets FNEUS_PG_HBM_STASH=1 and --split FNEUS_PG_STACKED=0 before
-the port is imported (the switches are read at import).
+--stash sets FNEUS_PG_HBM_STASH=1, --split FNEUS_PG_STACKED=0 and --bf16
+FNEUS_CORE_ACT_BF16=1 (K1's bf16 operand mode; without it the tool sets
+0) before the port is imported (the switches are read at import); --bf16
+combines with the other stage-1 flags.
 """
 import json
 import os
@@ -39,25 +42,30 @@ STEPS = 10
 WARMUP = 5
 # device-side kernel name -> PERF.md's row (K1-fwd-stash runs K1-fwd's
 # __global__ function with its stash output switched on; the backward's
-# template argument is its BwdMode: 0 stacked, 1 stash, 2 split)
+# template arguments are its BwdMode, 0 stacked, 1 stash, 2 split, and
+# the bf16 operand mode, as K1-fwd's)
 BWD_ROWS = {"0": "K1-bwd", "1": "K1-bwd-stash", "2": "K1-bwd-split"}
 TABLE_ROWS = (("geometry_fwd_kernel", "K1-fwd"),
               ("sdf_fwd_kernel", "K2"),
               ("radiance_fwd_kernel", "K3-fwd"),
               ("radiance_bwd_kernel", "K3-bwd"),
               ("reduce_partials_kernel", "K1-bwd/K3-bwd partial sums"))
-FLAGS = ("--womask", "--stash", "--split", "--stage2", "--stage3")
+FLAGS = ("--womask", "--stash", "--split", "--stage2", "--stage3", "--bf16")
 OUTER = "Lvis.outer"        # the profiler range of the visibility sweep
 OUTER_ROW = "Lvis.outer (visibility sweep, cuBLAS)"
 
 
 def table_row(kernel: str, stash: bool) -> str:
-    m = re.search(r"geometry_bwd_kernel<(?:\(int\))?(\d)>", kernel)
+    m = re.search(r"geometry_bwd_kernel<(?:\(int\))?(\d), (true|false)>",
+                  kernel)
     if m:
-        return BWD_ROWS[m.group(1)]
+        return BWD_ROWS[m.group(1)] + ("-bf16" if m.group(2) == "true"
+                                       else "")
+    bf16 = "-bf16" if "geometry_fwd_kernel<true>" in kernel else ""
     for key, row in TABLE_ROWS:
         if key in kernel:
-            return row + "-stash" if stash and row == "K1-fwd" else row
+            return (row + "-stash" if stash and row == "K1-fwd" else row
+                    ) + bf16
     return ""
 
 
@@ -84,13 +92,14 @@ def main() -> int:
     args = sys.argv[1:]
     if not set(args) <= set(FLAGS) or len(set(args)) != len(args):
         print("usage: profile_torch_stage1.py [--womask] [--stash] "
-              "[--split] [--stage2 | --stage3]", file=sys.stderr)
+              "[--split] [--bf16] [--stage2 | --stage3]", file=sys.stderr)
         return 2
-    womask, stash, split, stage2, stage3 = (f in args for f in FLAGS)
+    womask, stash, split, stage2, stage3, bf16 = (f in args for f in FLAGS)
     if stash:
         os.environ["FNEUS_PG_HBM_STASH"] = "1"
     if split:
         os.environ["FNEUS_PG_STACKED"] = "0"
+    os.environ["FNEUS_CORE_ACT_BF16"] = "1" if bf16 else "0"
     import torch
     if not torch.cuda.is_available():
         print("profile: no CUDA device", file=sys.stderr)
@@ -117,7 +126,8 @@ def main() -> int:
     base = "womask.conf" if womask else "wmask.conf"
     print(card, base, "stage 2" if stage2 else "stage 3" if stage3
           else "HBM-stash pair" if stash
-          else "K1-fwd / K1-bwd-split" if split else "K1-fwd / K1-bwd")
+          else "K1-fwd / K1-bwd-split" if split else "K1-fwd / K1-bwd",
+          "in K1's bf16 mode" if bf16 else "")
     _cuda.build_all()
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
@@ -209,7 +219,7 @@ def main() -> int:
         f.replace("--", "_") for f in FLAGS if f in args) + ".json"
     with open(os.path.join(OUT, name), "w") as f:
         json.dump({"card": card, "conf": base, "stash": stash,
-                   "split": split, "stage": stage, "step_ms": 1e3 * wall,
+                   "split": split, "bf16": bf16, "stage": stage, "step_ms": 1e3 * wall,
                    "profiled_step_ms": step_ms, "busy_ms": busy,
                    "spans_ms": spans, "kernels": rows}, f, indent=1)
     return 0
