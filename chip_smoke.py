@@ -43,14 +43,17 @@
    and that the checkpoint loads back;
 9. stage 2 on the 30-step stage-1 checkpoint: 30 full-width steps through
    the port's stage-2 CLI (python -m factored_neus_tpu_torch.lvis),
-   counters at 0 just before: K2 six times a step, K1-fwd three times,
-   K3-fwd once, nothing else; the checkpoint loads back; K2 at the
-   secondary coarse sweep's 1,048,576 rows and the localisation sweep's
-   65,536, K1-fwd at 512 and 2,048 rows and K3-fwd at 2,048, on the run's
-   packs, against their twins at 1e-5 abs and timed; one 64-ray stage-2
-   step on the card against the same step on the CPU twins (same rays and
-   hemisphere draws); --mode validate_image through the CLI (counters at
-   0: K2 6, K1-fwd 3, K3-fwd 1 a chunk); and one 2048-ray chunk of that
+   counters at 0 just before: K2 five times a step, K2-bf16 once (the
+   secondary coarse sweep, sweep_act_bf16 being on by default), K1-fwd
+   three times, K3-fwd once, nothing else; the checkpoint loads back; K2
+   at the secondary coarse sweep's 1,048,576 rows (its route with
+   sweep_act_bf16 off) and the localisation sweep's 65,536, K1-fwd at 512
+   and 2,048 rows and K3-fwd at 2,048, on the run's packs, against their
+   twins at 1e-5 abs and timed; one 64-ray stage-2 step with the coarse
+   sweep in f32 on the card against the same step on the CPU twins (same
+   rays and hemisphere draws), and one with the default bf16 sweep (item
+   13); --mode validate_image through the CLI (counters at 0: K2 5,
+   K2-bf16 1, K1-fwd 3, K3-fwd 1 a chunk); and one 2048-ray chunk of that
    view rendered by the card and by the CPU twins;
 10. stage 3 on the 30-step stage-2 checkpoint: 30 full-width steps
    through the port's stage-3 CLI (python -m
@@ -83,20 +86,35 @@
    pair in bf16 at 65,536 and 9,001 rows against their twins and an f64
    evaluation of the unrounded function (check_flips), two launches of
    each bitwise equal, timed against their bf16 bound; one 64-ray
-   full-width wmask step with the mode on, card against CPU; then in a
-   subprocess with the switch on (read at import) 30 wmask steps through
-   the CLI (counters at 0: K1-fwd-bf16 and K1-bwd-bf16 once a step, K2
-   four times, K3 once each, no f32 K1), 10 with the stash switch and 10
-   with the split backward (their bf16 kernels once a step), one stage-1
-   CLI run with --gpu 0 --profile DIR whose trace names both K1 kernels,
+   full-width wmask step with the mode on (K1 and K3 in bf16, item 13),
+   card against CPU; then in a subprocess with the switch on (read at
+   import) 30 wmask steps through the CLI (counters at 0: K1-fwd-bf16,
+   K1-bwd-bf16, K3-fwd-bf16 and K3-bwd-bf16 once a step, K2 four times,
+   no f32 K1 or K3), 10 with the stash switch and 10 with the split
+   backward (their bf16 kernels once a step), one stage-1 CLI run with
+   --gpu 0 --profile DIR whose trace names K1's and K3's bf16 kernels,
    and one with --debug_nans;
-13. prints {"kernels": [...]} (each kernel's launches in the synthetic
-   runs under "synthetic_launches"), the card line, and as its last line
+13. the bf16 sweeps and the bf16 radiance MLP: K2-bf16 at 1,048,576,
+   65,536, 32,768 and 9,001 rows (on the full network's bf16 pack, the
+   last layer narrowed), K3-fwd-bf16 and K3-bwd-bf16 at 65,536 and 9,001
+   rows, each against its twin and the f64 unrounded function
+   (check_flips), two launches of each bitwise equal, timed against the
+   bf16 bound; the 64-ray wmask step of item 12 now runs K1 and K3 in
+   bf16; a 64-ray stage-2 step with the default bf16 coarse sweep, card
+   against CPU, held to the float64 step (item 9); the stage-2 CLI runs
+   launch K2-bf16 once a step (items 9 and 11); the bf16 subprocess runs
+   K3-fwd-bf16 and K3-bwd-bf16 in place of K3 (item 12); and in a
+   subprocess with FNEUS_PALLAS_SAMPLING=1 (read at import) 10 wmask steps
+   through the CLI (counters at 0: K2-bf16 four times a step, no K2);
+14. prints {"kernels": [...]} (each kernel's launches in the synthetic
+   runs under "synthetic_launches"; K2-bf16's in the use_pallas_sampling
+   run under "sampling_launches"), the card line, and as its last line
    {"ok": true, "device": {...}}.
 Any failure raises; the script then exits non-zero without the last line.
 """
 import copy
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -123,6 +141,8 @@ STEP_RAYS = 64          # batch of the card-vs-CPU step checks
 STASH_RUN = "--stash-run"
 SPLIT_RUN = "--split-run"
 BF16_RUN = "--bf16-run"
+SAMPLING_RUN = "--sampling-run"
+SAMPLING_STEPS = 10     # the use_pallas_sampling wmask run
 BF16_STEPS = 30         # the bf16 mode's wmask run
 BF16_VARIANT_STEPS = 10  # its stash and split runs, and the hook runs
 N_RAGGED = 9001         # rows of the bf16 kernels' ragged check
@@ -157,13 +177,22 @@ KD_CHECK = 4096         # KD-tree queries held against brute force
 # a check (67,108,864 pre-activations at full size)
 MASK_MARGIN = 1e-6
 MAX_MASK_FLIPS = 16
+# K3-bwd-bf16's ReLU masks against its twin's bf16 forward: a
+# pre-activation may take the other side of 0 only within BF16_MASK_ULP x
+# sum_k |x_k w_k| of it (one bf16 ulp, at most 2^-7 of a value, of every
+# rounded input term: the two round an activation to neighbours where
+# their f32 sums part near a rounding boundary) plus MASK_MARGIN x max|a|;
+# no count limit, as in bf16 such neighbours are common
+BF16_MASK_ULP = 2.0 ** -7
 STAGE2_STEPS = 30
-# a stage-2 step at batch 512: launches per kernel, and the rows of the
-# sweeps that no stage-1 path runs (the secondary coarse sweep, 512 rays x
-# 4 directions x 512 samples; the localisation sweep, 512 x 128; K1-fwd
-# at the surface normals and at the secondary surface points; K3-fwd at
-# the first-hit colour)
-STAGE2_PER_STEP = {"sdf_fwd": 6, "geometry_fwd": 3, "radiance_fwd": 1}
+# a stage-2 step at batch 512: launches per kernel (the secondary coarse
+# sweep on K2-bf16, sweep_act_bf16 being on by default), and the rows of
+# the sweeps that no stage-1 path runs (the secondary coarse sweep, 512
+# rays x 4 directions x 512 samples, on K2 with sweep_act_bf16 off; the
+# localisation sweep, 512 x 128; K1-fwd at the surface normals and at the
+# secondary surface points; K3-fwd at the first-hit colour)
+STAGE2_PER_STEP = {"sdf_fwd": 5, "sdf_fwd_bf16": 1, "geometry_fwd": 3,
+                   "radiance_fwd": 1}
 STAGE2_ROWS = {"sdf_fwd": (512 * 4 * 512, 512 * 128),
                "geometry_fwd": (512, 512 * 4), "radiance_fwd": (512 * 4,)}
 # the stage-2 step, card against the CPU twins: the JAX package's stage-2
@@ -263,19 +292,21 @@ def check_vjp(label, got, ref64, ref32, names):
     return e
 
 
-def k3_bwd_masks(cfg, ws, bs, inputs):
+def k3_bwd_masks(cfg, ws, bs, inputs, bf16: bool = False):
     """(masks, summary): the ReLU masks h_l > 0 [N, outs[l]] of K3-bwd's own
     forward recompute, for its f64 twin to differentiate the function the
-    kernel computes.  Where a pre-activation lies within f32 rounding of 0,
-    a forward summed in another order falls on the other side of the kink,
-    one whole cotangent element apart.  K3-bwd runs over chunks of one tile
-    per block (SMs x TILE rows, ct_rgb = 0) into a scratch read back here;
-    a row's forward does not depend on the tile or block that takes it.
-    The masks are held against the f32 forward's (cuBLAS), which does not
-    depend on the kernel: they may differ only where |a_l| <= MASK_MARGIN
-    max|a_l|, and in at most MAX_MASK_FLIPS places, else this raises, so a
-    kernel fault that zeroes or flips activations cannot pass into the
-    twin."""
+    kernel computes.  Where a pre-activation lies within f32 rounding of
+    0, a forward summed in another order falls on the other side of the
+    kink, one whole cotangent element apart.  K3-bwd runs over chunks of
+    one tile per block (SMs x TILE rows, ct_rgb = 0) into a scratch read
+    back here; a row's forward does not depend on the tile or block that
+    takes it.  The masks are held against the f32 forward's (cuBLAS),
+    which does not depend on the kernel: they may differ only where |a_l|
+    <= MASK_MARGIN max|a_l|, and in at most MAX_MASK_FLIPS places, else
+    this raises, so a kernel fault that zeroes or flips activations cannot
+    pass into the twin.  ``bf16``: K3-bwd-bf16's masks, for its bf16 twin,
+    held against the twin's bf16 forward within BF16_MASK_ULP's margin of
+    each element, in any number of places."""
     import torch
     from factored_neus_tpu_torch.ops import _cuda
     from factored_neus_tpu_torch.ops import radiance_kernel as RK
@@ -287,13 +318,16 @@ def k3_bwd_masks(cfg, ws, bs, inputs):
     outs = [int(w.shape[0]) for w in ws]
     chunk = _cuda.sm_count(dev) * TP.TILE
     masks = [[] for _ in range(L - 1)]
+    launch = (functools.partial(RK.launch_backward, bf16=True) if bf16
+              else RK.launch_backward)
     for r0 in range(0, n, chunk):
         m = min(chunk, n - r0)
         grid = -(-m // TP.TILE)
-        _, ld = RK.kernel_iargs(cfg, ws, m, grid, TP.pack_layout(ins, outs))
+        _, ld = RK.kernel_iargs(cfg, ws, m, grid, TP.pack_layout(
+            ins, outs, "bf16" if bf16 else "3xtf32"))
         scratch = torch.empty(grid, L - 1, TP.TILE, ld, device=dev)
-        RK.launch_backward(cfg, ws, bs, *(t[r0:r0 + m] for t in inputs),
-                           torch.zeros(m, outs[-1], device=dev), scratch)
+        launch(cfg, ws, bs, *(t[r0:r0 + m] for t in inputs),
+               torch.zeros(m, outs[-1], device=dev), scratch)
         for l in range(L - 1):
             h = scratch[:, l, :, :outs[l]].reshape(-1, outs[l])
             masks[l].append(h[:m] > 0)
@@ -304,23 +338,37 @@ def k3_bwd_masks(cfg, ws, bs, inputs):
     reach, over, margins = 0.0, 0.0, []
     with torch.no_grad():
         for l in range(L - 1):
-            a = torch.nn.functional.linear(h, ws[l], bs[l])
-            margins.append(MASK_MARGIN * float(a.abs().max()))
+            if bf16:
+                a = TP.mm_bf16(h, ws[l].t()) + bs[l]
+                margin = (BF16_MASK_ULP * (TP.bf16_round(h).abs()
+                                           @ TP.bf16_round(ws[l]).abs().t())
+                          + MASK_MARGIN * float(a.abs().max()))
+            else:
+                a = torch.nn.functional.linear(h, ws[l], bs[l])
+                margin = torch.full_like(a, MASK_MARGIN
+                                         * float(a.abs().max()))
+            margins.append(float(margin.max()))
             flip = masks[l] != (a > 0)
             flips += int(flip.sum())
-            near += int((a.abs() <= margins[-1]).sum())
+            near += int((a.abs() <= margin).sum())
             if flip.any():
-                far = float(a[flip].abs().max())
-                reach, over = max(reach, far), max(over, far / margins[-1])
+                reach = max(reach, float(a[flip].abs().max()))
+                over = max(over, float((a[flip].abs()
+                                        / margin[flip]).max()))
             h = torch.relu(a)
+            del margin
+    limit = "no limit" if bf16 else f"at most {MAX_MASK_FLIPS}"
+    rule = (f"{BF16_MASK_ULP:g} sum|x w| + {MASK_MARGIN:g} max|a_l|"
+            if bf16 else f"{MASK_MARGIN:g} max|a_l|")
     text = (f"of {sum(int(m.numel()) for m in masks)} pre-activations, "
-            f"{flips} on the other side of 0 in the f32 forward (at most "
-            f"{MAX_MASK_FLIPS}), all within {reach:.3e} of 0 ({over:.3f} of "
-            f"the margin {MASK_MARGIN:g} max|a_l| = {min(margins):.3e}-"
-            f"{max(margins):.3e}, inside which {near} lie)")
-    if flips > MAX_MASK_FLIPS or over > 1.0:
-        raise AssertionError(f"K3-bwd's ReLU masks differ from the f32 "
-                             f"forward's beyond rounding: {text}")
+            f"{flips} on the other side of 0 in the "
+            f"{'bf16 twin' if bf16 else 'f32'} forward ({limit}), all "
+            f"within {reach:.3e} of 0 ({over:.3f} of the margin {rule}, at "
+            f"most {max(margins):.3e}, inside which {near} lie)")
+    if (flips > MAX_MASK_FLIPS and not bf16) or over > 1.0:
+        raise AssertionError(f"K3-bwd's ReLU masks differ from the "
+                             f"{'bf16 twin' if bf16 else 'f32'} forward's "
+                             f"beyond rounding: {text}")
     return masks, text
 
 
@@ -875,6 +923,170 @@ def check_bf16_kernels(device):
     return results
 
 
+# item 13: K2-bf16 at the stage-2 coarse sweep's rows, the localisation
+# sweep's, the ladder's first sweep's and a ragged count; K3-fwd-bf16 and
+# K3-bwd-bf16 at the step's rows and a ragged count
+K2_BF16_ROWS = (512 * 4 * 512, 512 * 128, N_SWEEP, N_RAGGED)
+K3_BF16_ROWS = (N_CORE, N_RAGGED)
+
+
+def check_bf16_sweep_kernels(device):
+    """Item 13: K2-bf16 (on the full network's bf16 pack, the last layer
+    narrowed, as a stage-2 run reads it) at K2_BF16_ROWS, K3-fwd-bf16 and
+    K3-bwd-bf16 (on one bf16 pack, as a step hands it from the forward to
+    the backward) at K3_BF16_ROWS, each against its twin and the f64
+    unrounded function (check_flips), two launches of each bitwise equal,
+    and timed against its bf16 bound at the first shape (K2-bf16: every
+    shape, under "shapes").  K3-bwd-bf16's twin differentiates on the
+    kernel's own ReLU masks (k3_bwd_masks with bf16)."""
+    import torch
+    from factored_neus_tpu_torch.models.fields import (RenderingConfig,
+                                                       RenderingNetwork,
+                                                       SDFConfig, SDFNetwork)
+    from factored_neus_tpu_torch.ops import radiance_kernel as RK
+    from factored_neus_tpu_torch.ops import sdf_kernel as SK
+    from factored_neus_tpu_torch.ops import tc_pack as TP
+
+    cfg, rcfg = SDFConfig(), RenderingConfig()
+    net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(device)
+    rnet = RenderingNetwork(rcfg, torch.Generator().manual_seed(0)).to(
+        device)
+    with torch.no_grad():
+        ws, bs = net.effective_weights()
+        rws, rbs = rnet.effective_weights()
+    wn, bn = list(ws[:-1]) + [ws[-1][:1]], list(bs[:-1]) + [bs[-1][:1]]
+    S_n = sum(w.numel() for w in wn)                    # 459,008
+    k2_wbytes = sum(2 * w.numel() + 4 * b.numel() for w, b in zip(wn, bn))
+    pack = TP.pack_weights_bf16(ws)
+    gen = torch.Generator(device=device).manual_seed(13)
+    shapes, errs = [], {}
+    for n in K2_BF16_ROWS:
+        x = torch.randn(n, 3, device=device, generator=gen) * 0.5
+        run = lambda: [SK.sdf_forward(wn, bn, cfg, x, pack, bf16=True)]
+        with torch.no_grad():
+            twin = [SK.sdf_forward_plain(wn, bn, cfg, x, bf16=True)]
+            ref = [SK.sdf_forward_plain([w.double() for w in wn],
+                                        [b.double() for b in bn], cfg,
+                                        x.double()).float()]
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        errs["sdf_fwd_bf16"] = max(errs.get("sdf_fwd_bf16", 0.0),
+                                   check_flips(f"K2-bf16 N={n}", got, twin,
+                                               ref, ["sdf"]))
+        if not torch.equal(got[0], again[0]):
+            raise AssertionError("K2-bf16: two launches differ")
+        del twin, ref, got, again
+
+        def plain():
+            with torch.no_grad():
+                SK.sdf_forward_plain(wn, bn, cfg, x, bf16=True)
+        t_ops = n * 2 * S_n / BF16_PEAK
+        t_bytes = (n * (12 + 4) + k2_wbytes) / HBM_RATE
+        shapes.append({"rows": n, "ms": cuda_ms(run, 5 if n > N_CORE
+                                                 else 20),
+                       "plain_ms": cuda_ms(plain, 3),
+                       "bound_ms": 1e3 * max(t_ops, t_bytes),
+                       "bound_by": "operations" if t_ops >= t_bytes
+                       else "bytes"})
+        print(f"K2-bf16 N={n}: {shapes[-1]['ms']:.3f} ms (plain "
+              f"{shapes[-1]['plain_ms']:.3f}), bf16 bound "
+              f"{shapes[-1]['bound_ms']:.3f} ms "
+              f"({shapes[-1]['bound_ms'] / shapes[-1]['ms']:.1%} of it); "
+              f"two launches bitwise equal")
+        del x
+    results = [{"name": "sdf_fwd_bf16", "route": "cuda",
+                "source": "factored_neus_tpu_torch/csrc/sdf_fwd.cu",
+                "replaces": "factored_neus_tpu/ops/pallas_sdf.py:221",
+                "launches": 0, "max_abs_err": errs["sdf_fwd_bf16"],
+                **{k: shapes[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by")},
+                "library_ms": None, "rows": shapes[0]["rows"],
+                "shapes": shapes}]
+
+    rS = sum(w.numel() for w in rws)                   # 271,360
+    rwbytes = sum(2 * w.numel() + 4 * b.numel() for w, b in zip(rws, rbs))
+    rpack = TP.make_pack(rws, bf16=True)
+    d_feat = rcfg.d_feature
+    flat = lambda r: [*r[:4], *r[4], *r[5]]
+    names = ["ct_pts", "ct_normals", "ct_dirs", "ct_feat"] + [
+        f"{k}{l}" for k in ("dW", "db") for l in range(len(rws))]
+    w64, b64 = [w.double() for w in rws], [b.double() for b in rbs]
+    for n in K3_BF16_ROWS:
+        rin = [torch.randn(n, 3, device=device, generator=gen) * 0.5,
+               torch.randn(n, 3, device=device, generator=gen),
+               torch.nn.functional.normalize(
+                   torch.randn(n, 3, device=device, generator=gen), dim=-1),
+               torch.randn(n, d_feat, device=device, generator=gen) * 0.5]
+        ct = torch.randn(n, rcfg.d_out, device=device, generator=gen)
+        in64 = [t.double() for t in rin]
+        fwd = lambda: [RK.launch_forward(rcfg, rws, rbs, *rin, pack=rpack,
+                                         bf16=True)]
+        bwd = lambda: flat(RK.launch_backward(rcfg, rws, rbs, *rin, ct,
+                                              pack=rpack, bf16=True))
+        with torch.no_grad():
+            tw_f = [RK.radiance_plain(rws, rbs, rcfg, *rin, bf16=True)]
+            ref_f = [RK.radiance_plain(w64, b64, rcfg, *in64).float()]
+        # the backward's twin differentiates on the kernel's own ReLU
+        # masks (k3_bwd_masks, guarded against the twin's bf16 forward):
+        # where the two forwards round a pre-activation near 0 to opposite
+        # sides, their cotangents part by a whole element
+        masks, text = k3_bwd_masks(rcfg, rws, rbs, rin, bf16=True)
+        print(f"K3-bwd-bf16 N={n}: ReLU masks of its own forward: {text}")
+        tw_b = flat(RK.radiance_bwd_plain(rws, rbs, rcfg, *rin, ct,
+                                          bf16=True, masks=masks))
+        del masks
+        ref_b = [t.float() for t in flat(RK.radiance_bwd_plain(
+            w64, b64, rcfg, *in64, ct.double()))]
+        for name, run, twin, ref, tn in (
+                ("radiance_fwd_bf16", fwd, tw_f, ref_f, ["rgb"]),
+                ("radiance_bwd_bf16", bwd, tw_b, ref_b, names)):
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            errs[name] = max(errs.get(name, 0.0), check_flips(
+                f"{name} N={n}", got, twin, ref, tn))
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name}: two launches differ")
+        print(f"K3 bf16 kernels N={n}: two launches of each bitwise equal")
+        del tw_f, ref_f, tw_b, ref_b
+        if n != N_CORE:
+            continue
+
+        def plain(fn):
+            def run():
+                with torch.no_grad():
+                    fn()
+            return run
+        in_bytes = n * 4 * (9 + d_feat)
+        for name, run, plain_fn, flops, nbytes, line in (
+                ("radiance_fwd_bf16", fwd, plain(lambda: RK.radiance_plain(
+                    rws, rbs, rcfg, *rin, bf16=True)), 2 * rS,
+                 in_bytes + n * 12 + rwbytes, 209),
+                ("radiance_bwd_bf16", bwd, plain(lambda: RK.radiance_bwd_plain(
+                    rws, rbs, rcfg, *rin, ct, bf16=True)), 6 * rS,
+                 2 * in_bytes + n * 12 + 2 * rwbytes, 227)):
+            t_ops, t_bytes = n * flops / BF16_PEAK, nbytes / HBM_RATE
+            src = ("radiance_fwd.cu" if "fwd" in name
+                   else "radiance_bwd_bf16.cu")
+            results.append({
+                "name": name, "route": "cuda",
+                "source": f"factored_neus_tpu_torch/csrc/{src}",
+                "replaces": f"factored_neus_tpu/ops/pallas_radiance.py:{line}",
+                "launches": 0, "max_abs_err": 0.0,
+                "ms": cuda_ms(run, 10), "plain_ms": cuda_ms(plain_fn, 5),
+                "bound_ms": 1e3 * max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": None, "rows": n})
+        results[-1]["pack_bf16_ms"] = cuda_ms(
+            lambda: TP.make_pack(rws, bf16=True), 10)
+    for r in results:
+        r["max_abs_err"] = errs[r["name"]]
+        print(f"  {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} "
+              f"ms) at {r['rows']} rows, bf16 bound {r['bound_ms']:.3f} ms "
+              f"by {r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% of "
+              f"it)")
+    return results
+
+
 def check_validation_shapes(device, results) -> None:
     """K1-fwd and K3-fwd at a validation chunk's VAL_CHUNK x 128 rows and
     K2 at its first sweep's VAL_CHUNK x 64 (the later three sweeps take
@@ -991,7 +1203,7 @@ def all_kernels():
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
     from factored_neus_tpu_torch.ops import radiance_kernel as RK
     from factored_neus_tpu_torch.ops import sdf_kernel as SK
-    return {k.name: k for k in (SK.SDF_FWD, RK.K3_FWD, RK.K3_BWD,
+    return {k.name: k for k in (*SK.KERNELS.values(), *RK.KERNELS.values(),
                                 *GK.KERNELS.values())}
 
 
@@ -1009,15 +1221,21 @@ STASH_PAIR = {"geometry_fwd_stash", "geometry_bwd_stash"}
 MAIN_SET = SHARED | {"geometry_fwd", "geometry_bwd"}
 STASH_SET = SHARED | STASH_PAIR
 SPLIT_SET = SHARED | {"geometry_fwd", "geometry_bwd_split"}
-BF16_SET = SHARED | {"geometry_fwd_bf16", "geometry_bwd_bf16"}
-BF16_STASH_SET = SHARED | {"geometry_fwd_stash_bf16",
-                           "geometry_bwd_stash_bf16"}
-BF16_SPLIT_SET = SHARED | {"geometry_fwd_bf16", "geometry_bwd_split_bf16"}
+# the render core in bf16: K1 and K3 in their bf16 operand mode
+BF16_SHARED = {"sdf_fwd", "radiance_fwd_bf16", "radiance_bwd_bf16"}
+BF16_SET = BF16_SHARED | {"geometry_fwd_bf16", "geometry_bwd_bf16"}
+BF16_STASH_SET = BF16_SHARED | {"geometry_fwd_stash_bf16",
+                                "geometry_bwd_stash_bf16"}
+BF16_SPLIT_SET = BF16_SHARED | {"geometry_fwd_bf16",
+                                "geometry_bwd_split_bf16"}
+# every sampling sweep on K2-bf16 (use_pallas_sampling)
+SAMPLING_SET = (MAIN_SET - {"sdf_fwd"}) | {"sdf_fwd_bf16"}
 # which run of the bf16 subprocess gives each bf16 kernel its launches
 BF16_KERNEL_RUN = {"geometry_fwd_bf16": "main", "geometry_bwd_bf16": "main",
                    "geometry_fwd_stash_bf16": "stash",
                    "geometry_bwd_stash_bf16": "stash",
-                   "geometry_bwd_split_bf16": "split"}
+                   "geometry_bwd_split_bf16": "split",
+                   "radiance_fwd_bf16": "main", "radiance_bwd_bf16": "main"}
 
 
 def check_launched(label: str, launches, want) -> None:
@@ -1039,9 +1257,10 @@ def check_step_against_cpu(tmp: str, base: str = "wmask.conf",
     beside it: where a pre-activation of the radiance, RefColor or NeRF
     MLP lies within f32 rounding of 0, the float64 step falls on the other
     side of the ReLU's kink, so it is no closer to what the float32 step
-    computes.  ``bf16``: all three with K1's bf16 mode on, the card held,
-    as check_flips holds a bf16 kernel, to its distance from the float64
-    step: at most FLIP_GAIN x the float32 CPU step's, plus atol + rtol
+    computes.  ``bf16``: all three with the core's bf16 mode on (K1 and
+    K3 in bf16), the card held, as check_flips holds a bf16 kernel, to
+    its distance from the float64 step: at most FLIP_GAIN x the float32
+    CPU step's, plus atol + rtol
     max|ref| and FLIP_SHARE_TOL x the CPU's distance from its step with
     the mode off (the card and the CPU sum in other orders, so their bf16
     roundings part in single elements, and an sdf within that of 0 moves
@@ -1576,13 +1795,20 @@ def stage2_draws(rng, n: int):
             for _ in range(2)]
 
 
-def check_stage2_step_against_cpu(conf: str) -> None:
+def check_stage2_step_against_cpu(conf: str, sweep_bf16: bool = False
+                                  ) -> None:
     """One full-width stage-2 step at STEP_RAYS rays of view 0: the card
     (kernels) against the CPU (twins), both float32, on the same weights,
     rays and hemisphere draws: sdf_mask equal (a flipped ray is printed
     with its sdf margin, the least |sdf| of its localisation sweep), the
     loss and every lvis and indirect gradient at S2_ATOL + S2_RTOL
-    max|ref| per tensor."""
+    max|ref| per tensor, with the coarse sweep in f32 (sweep_act_bf16
+    off).  ``sweep_bf16``: the default step, the coarse sweep on K2-bf16
+    and its twin, the card held to its distance from a float64 CPU step
+    (the same bf16 roundings, exact sums), as check_step_against_cpu holds
+    the bf16 core: at most FLIP_GAIN x the float32 CPU step's, plus
+    S2_ATOL + S2_RTOL max|ref| and FLIP_SHARE_TOL x the CPU's distance
+    from its step with the sweep in f32."""
     import numpy as np
     import torch
     from factored_neus_tpu_torch.data import rays as RAYS
@@ -1601,27 +1827,37 @@ def check_stage2_step_against_cpu(conf: str) -> None:
                                        ds.intrinsics_all_inv, ds.pose_all, 0)
     u = stage2_draws(rng, STEP_RAYS)
 
-    def step(runner, dev):
-        oo, dd = o.to(dev), d.to(dev)
+    def step(runner, dev, dtype=torch.float32, c=None):
+        model = runner.model
+        if dtype != torch.float32:
+            model = copy.deepcopy(model).to(dtype=dtype)
+        model.zero_grad(set_to_none=True)
+        oo, dd = o.to(dev, dtype), d.to(dev, dtype)
         near, far = RAYS.near_far_from_sphere(oo, dd)
-        out = R.lvis_render(runner.model, runner.cfg, oo, dd, near, far,
-                            *(v.to(dev) for v in u))
+        out = R.lvis_render(model, c or cfg, oo, dd, near, far,
+                            *(v.to(dev, dtype) for v in u))
         loss, m = L.stage2_losses(out)
         loss.backward()
         grads = {n: p.grad.detach().cpu().double()
-                 for n, p in runner.model.named_parameters()
+                 for n, p in model.named_parameters()
                  if p.grad is not None}
         return float(loss.detach()), grads, out["sdf_mask"].cpu(), m
 
+    cfg = dataclasses.replace(card.cfg, sweep_act_bf16=sweep_bf16,
+                              use_pallas_sampling=False)
+    kernels = all_kernels()
+    before = {n: k.launches for n, k in kernels.items()}
     l_card, g_card, m_card, met = step(card, "cuda")
     torch.cuda.synchronize()
+    launched = {n: k.launches - before[n] for n, k in kernels.items()
+                if k.launches > before[n]}
     l_cpu, g_cpu, m_cpu, _ = step(cpu, "cpu")
     flips = (m_card != m_cpu).nonzero()[:, 0].tolist()
     for i in flips:
         oo, dd = o[i:i + 1].cuda(), d[i:i + 1].cuda()
         near, far = RAYS.near_far_from_sphere(oo, dd)
         with torch.no_grad():
-            _, sdf, _ = R._stage23_util(card.model.stage1, card.cfg, oo, dd,
+            _, sdf, _ = R._stage23_util(card.model.stage1, cfg, oo, dd,
                                         near, far,
                                         card.model.kernel_weights()[0])
         print(f"stage-2 step: ray {i} sdf_mask card {bool(m_card[i])} CPU "
@@ -1633,24 +1869,52 @@ def check_stage2_step_against_cpu(conf: str) -> None:
               for n in g_cpu}
     at = max(ratios, key=ratios.get)
     l_ratio = abs(l_card - l_cpu) / (S2_ATOL + S2_RTOL * abs(l_cpu))
-    print(f"stage-2 step check, {STEP_RAYS} rays full width, "
+    if sweep_bf16:
+        l64, g64, _, _ = step(cpu, "cpu", torch.float64)
+        l_off, g_off, _, _ = step(cpu, "cpu", c=dataclasses.replace(
+            cfg, sweep_act_bf16=False))
+        dist = lambda a, b: float((a - b).abs().max())
+        ratios = {n: dist(g_card[n], g64[n]) / (
+            S2_ATOL + S2_RTOL * float(g64[n].abs().max())
+            + FLIP_GAIN * dist(g_cpu[n], g64[n])
+            + FLIP_SHARE_TOL * dist(g_cpu[n], g_off[n])) for n in g64}
+        at = max(ratios, key=ratios.get)
+        l_ratio = abs(l_card - l64) / (
+            S2_ATOL + S2_RTOL * abs(l64) + FLIP_GAIN * abs(l_cpu - l64)
+            + FLIP_SHARE_TOL * abs(l_cpu - l_off))
+        print(f"stage-2 bf16 coarse sweep: CPU loss {l_cpu:.8f} against "
+              f"{l_off:.8f} with it in f32, float64 step {l64:.8f}; the "
+              f"card's loss and gradients held to their distance from the "
+              f"float64 step")
+    want = {**STAGE2_PER_STEP, "sdf_fwd": 5 + (not sweep_bf16),
+            "sdf_fwd_bf16": int(sweep_bf16)}
+    want = {n: c for n, c in want.items() if c}
+    print(f"stage-2 step check, {STEP_RAYS} rays full width, coarse sweep "
+          f"{'bf16' if sweep_bf16 else 'f32'} (launches {launched}), "
           f"{int(met['n_hit'])} hit, {len(g_cpu)} parameter tensors: loss "
-          f"card {l_card:.8f} CPU {l_cpu:.8f} (ratio {l_ratio:.3f}); worst "
-          f"gradient ratio to ({S2_ATOL:g} + {S2_RTOL:g} max|ref|) "
-          f"{ratios[at]:.3f} in {at}; sdf_mask flips {len(flips)}")
+          f"card {l_card:.8f} CPU {l_cpu:.8f}; worst ratio to its limit: "
+          f"loss {l_ratio:.3f}, gradients {ratios[at]:.3f} in {at}; "
+          f"sdf_mask flips {len(flips)}")
     if flips or l_ratio > 1.0 or ratios[at] > 1.0 or not math.isfinite(
-            l_card):
+            l_card) or launched != want:
         raise AssertionError("the card's stage-2 step disagrees with the "
                              "CPU's")
 
 
 def check_stage2_validation(conf: str) -> None:
     """--mode validate_image of stage 2 through the CLI (level 1, a random
-    view), counters at 0 just before: the two panels and the launches a
-    chunk; then one VAL_CHUNK-ray chunk spread over view 0 (spread),
-    rendered by the card and by the CPU twins on the same weights and
-    hemisphere draws, a tenth of its rays at least on the surface, held at
-    S2_FLIP_SHARE, S2_CHUNK_SHARE and S2_CHUNK_TOL."""
+    view; the default bf16 coarse sweep), counters at 0 just before: the
+    two panels and the launches a chunk; then one VAL_CHUNK-ray chunk
+    spread over view 0 (spread), rendered by the card and by the CPU twins
+    on the same weights and hemisphere draws with the coarse sweep in f32
+    (sweep_act_bf16 off), a tenth of its rays at least on the surface,
+    held at S2_FLIP_SHARE, S2_CHUNK_SHARE and S2_CHUNK_TOL.  Not in bf16:
+    two bf16 evaluations of the coarse sweep (K2-bf16 and its twin, each
+    within check_flips of the f64 sweep) part by ~1e-3 in sdf where their
+    sums round an activation to neighbouring bf16 values, which moves the
+    fine samples and gt_lvis by up to ~1e-1 in a quarter of the rays; the
+    bf16 sweep is held by the stage-2 step against the float64 step
+    (check_stage2_step_against_cpu)."""
     import glob
     import numpy as np
     import torch
@@ -1689,8 +1953,9 @@ def check_stage2_validation(conf: str) -> None:
         near, far = RAYS.near_far_from_sphere(oo, dd)
         t0 = time.perf_counter()
         with torch.no_grad():
-            out = R.lvis_render(r.model, r.cfg, oo, dd, near, far,
-                                *(v.to(dev) for v in u))
+            out = R.lvis_render(
+                r.model, dataclasses.replace(r.cfg, sweep_act_bf16=False),
+                oo, dd, near, far, *(v.to(dev) for v in u))
         outs.append({k: v.cpu().numpy() for k, v in out.items()})
         print(f"stage-2 chunk of {VAL_CHUNK} rays on {dev}: "
               f"{time.perf_counter() - t0:.3f} s")
@@ -2301,13 +2566,14 @@ def split_run() -> int:
 
 
 def bf16_run() -> int:
-    """K1's bf16 mode through the CLI, in its own process so that the
-    switch is read at import (FNEUS_CORE_ACT_BF16=1): BF16_STEPS wmask
-    steps (each bf16 K1 kernel and no f32 one once a step, counters at 0
-    just before), BF16_VARIANT_STEPS with the stash switch and as many with
-    the split backward (their bf16 kernels once a step), then a stage-1
-    run with --gpu 0 --profile DIR, whose trace must name K1-fwd's and
-    K1-bwd's kernels, and one with --debug_nans.  Its last line is
+    """The render core's bf16 mode through the CLI, in its own process so
+    that the switch is read at import (FNEUS_CORE_ACT_BF16=1): BF16_STEPS
+    wmask steps (K1-fwd-bf16, K1-bwd-bf16, K3-fwd-bf16 and K3-bwd-bf16 once
+    a step and no f32 K1 or K3, counters at 0 just before),
+    BF16_VARIANT_STEPS with the stash switch and as many with the split
+    backward (their bf16 kernels once a step), then a stage-1 run with
+    --gpu 0 --profile DIR, whose trace must name K1's and K3's bf16
+    kernels, and one with --debug_nans.  Its last line is
     {"launches": {"main": ..., "stash": ..., "split": ...},
     "rays_per_sec": ...}."""
     sys.path.insert(0, HERE)
@@ -2317,8 +2583,8 @@ def bf16_run() -> int:
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
     if not RendererConfig().core_act_bf16 or GK.STASH_BWD or \
             not GK.STACKED_BWD:
-        raise AssertionError("FNEUS_CORE_ACT_BF16=1 did not switch K1's "
-                             "bf16 mode on, or another switch is on")
+        raise AssertionError("FNEUS_CORE_ACT_BF16=1 did not switch the "
+                             "core's bf16 mode on, or another switch is on")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     launches = {}
@@ -2326,7 +2592,9 @@ def bf16_run() -> int:
         _, runner, launches["main"] = train_run(tmp, BF16_STEPS)
     check_launched("bf16 run", launches["main"], BF16_SET)
     per_step = {**STAGE1_PER_STEP, "geometry_fwd": 0, "geometry_bwd": 0,
-                "geometry_fwd_bf16": 1, "geometry_bwd_bf16": 1}
+                "radiance_fwd": 0, "radiance_bwd": 0,
+                "geometry_fwd_bf16": 1, "geometry_bwd_bf16": 1,
+                "radiance_fwd_bf16": 1, "radiance_bwd_bf16": 1}
     if any(launches["main"][k] != c * BF16_STEPS
            for k, c in per_step.items()):
         raise AssertionError(f"bf16 run: expected {per_step} launches a "
@@ -2340,7 +2608,7 @@ def bf16_run() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             _, _, launches[label] = train_run(tmp, BF16_VARIANT_STEPS)
         check_launched(f"bf16 {label} run", launches[label], want)
-        for k in want - SHARED:
+        for k in want - BF16_SHARED:
             if launches[label][k] != BF16_VARIANT_STEPS:
                 raise AssertionError(f"bf16 {label} run: {k} did not launch "
                                      f"once a step")
@@ -2355,18 +2623,51 @@ def bf16_run() -> int:
         with open(os.path.join(trace_dir, traces[0])) as f:
             names = {e.get("name", "") for e in json.load(f)["traceEvents"]
                      if e.get("cat") == "kernel"}
-        k1 = sorted({n for n in names if "geometry_" in n})
-        print(f"--profile: {traces[0]} names {len(names)} kernels, K1's: "
-              f"{k1}")
-        if not any("geometry_fwd_kernel" in n for n in k1) or \
-                not any("geometry_bwd_kernel" in n for n in k1):
-            raise AssertionError("the --profile trace does not name K1")
+        k13 = sorted({n for n in names if "geometry_" in n
+                      or "radiance_" in n})
+        print(f"--profile: {traces[0]} names {len(names)} kernels, K1's "
+              f"and K3's: {k13}")
+        if not all(any(k in n for n in k13) for k in (
+                "geometry_fwd_kernel", "geometry_bwd_kernel",
+                "radiance_fwd_kernel<true>", "radiance_bwd_kernel<true>")):
+            raise AssertionError("the --profile trace does not name K1 and "
+                                 "K3 in bf16")
         shutil.rmtree(os.path.join(tmp, "exp"))
         r = exp_runner.main([*base, "--debug_nans"])
         if r.iter_step != BF16_VARIANT_STEPS:
             raise AssertionError("the --debug_nans run stopped early")
         print(f"--debug_nans: {r.iter_step} steps, finite, no stop")
     print(json.dumps({"launches": launches, "rays_per_sec": rays}))
+    return 0
+
+
+def sampling_run() -> int:
+    """Item 13's use_pallas_sampling run, in its own process so that the
+    switch is read at import (FNEUS_PALLAS_SAMPLING=1): SAMPLING_STEPS
+    wmask steps through the CLI, counters at 0 just before: K2-bf16 four
+    times a step (the ladder's sweeps) and no f32 K2, each other kernel
+    of the main run once.  Its last line is {"launches": {...},
+    "rays_per_sec": ...}."""
+    sys.path.insert(0, HERE)
+    import torch
+    from factored_neus_tpu_torch.models.renderer import RendererConfig
+    cfg = RendererConfig()
+    if not cfg.use_pallas_sampling or cfg.core_act_bf16:
+        raise AssertionError("FNEUS_PALLAS_SAMPLING=1 did not switch the "
+                             "sampling sweeps to K2-bf16, or the core's "
+                             "bf16 mode is on")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        _, runner, launches = train_run(tmp, SAMPLING_STEPS)
+    check_launched("use_pallas_sampling run", launches, SAMPLING_SET)
+    per_step = {**STAGE1_PER_STEP, "sdf_fwd": 0,
+                "sdf_fwd_bf16": UP_SAMPLE_STEPS}
+    if any(launches[k] != c * SAMPLING_STEPS for k, c in per_step.items()):
+        raise AssertionError(f"use_pallas_sampling run: expected {per_step} "
+                             f"launches a step, got {launches}")
+    print(json.dumps({"launches": launches,
+                      "rays_per_sec": runner.history[-1]["rays_per_sec"]}))
     return 0
 
 
@@ -2385,9 +2686,15 @@ def main() -> int:
         return split_run()
     if sys.argv[1:] == [BF16_RUN]:
         return bf16_run()
-    # the f32 phases run with K1's bf16 mode off, whatever the default;
-    # it is read at import, and the bf16 phases turn it on explicitly
+    if sys.argv[1:] == [SAMPLING_RUN]:
+        return sampling_run()
+    # the f32 phases run with the core's bf16 mode off, whatever the
+    # default, and the sweeps at the JAX package's defaults (stage 2's
+    # coarse sweep on K2-bf16, the sampling sweeps on K2); the switches are
+    # read at import, and the bf16 phases turn them on explicitly
     os.environ["FNEUS_CORE_ACT_BF16"] = "0"
+    os.environ["FNEUS_SWEEP_ACT_BF16"] = "1"
+    os.environ["FNEUS_PALLAS_SAMPLING"] = "0"
     sys.path.insert(0, HERE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2411,6 +2718,7 @@ def main() -> int:
     kernels = check_kernels(device)
     check_validation_shapes(device, kernels)
     bf16_kernels = check_bf16_kernels(device)
+    sweep_kernels = check_bf16_sweep_kernels(device)
     with tempfile.TemporaryDirectory() as tmp:
         check_step_against_cpu(tmp, bf16=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2436,6 +2744,7 @@ def main() -> int:
         check_stage2_shapes(device, kernels, runner2.model)
         del runner2
         check_stage2_step_against_cpu(conf)
+        check_stage2_step_against_cpu(conf, sweep_bf16=True)
         check_stage2_validation(conf)
         runner3, launches3 = stage3_run(conf, card)
         check_outer_sweep(device, runner3.model, card)
@@ -2456,9 +2765,23 @@ def main() -> int:
     bf16 = subprocess_run(BF16_RUN, {"FNEUS_CORE_ACT_BF16": "1"}, "bf16")
     print(f"bf16 wmask run rays/s over steps 21-{BF16_STEPS}: "
           f"{bf16['rays_per_sec']:.0f} on {card}")
-    for k in bf16_kernels:
-        k["launches"] = bf16["launches"][BF16_KERNEL_RUN[k["name"]]][
-            k["name"]]
+    sampling = subprocess_run(SAMPLING_RUN, {"FNEUS_PALLAS_SAMPLING": "1"},
+                              "use_pallas_sampling")
+    print(f"use_pallas_sampling wmask run rays/s over steps "
+          f"1-{SAMPLING_STEPS} (a new process: the first steps warm up): "
+          f"{sampling['rays_per_sec']:.0f} on {card}")
+    for k in bf16_kernels + sweep_kernels:
+        if k["name"] == "sdf_fwd_bf16":
+            # the default stage-2 path's coarse sweep (item 9), and the
+            # use_pallas_sampling run's ladder
+            k["launches"] = launches2[k["name"]]
+            k["sampling_launches"] = sampling["launches"][k["name"]]
+            k["synthetic_launches"] = {stage: launches[k["name"]]
+                                       for stage, launches in
+                                       synthetic.items()}
+        else:
+            k["launches"] = bf16["launches"][BF16_KERNEL_RUN[k["name"]]][
+                k["name"]]
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched")
     for k in kernels:
@@ -2471,7 +2794,7 @@ def main() -> int:
         k["stage3_launches"] = launches3[k["name"]]
         k["synthetic_launches"] = {stage: launches[k["name"]]
                                    for stage, launches in synthetic.items()}
-    print(json.dumps({"kernels": kernels + bf16_kernels}))
+    print(json.dumps({"kernels": kernels + bf16_kernels + sweep_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

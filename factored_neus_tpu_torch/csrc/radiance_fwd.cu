@@ -19,8 +19,21 @@
 // floats (ld = the 289-wide first input rounded to 8, plus 4), 153,600 B,
 // and the ring sized for the pack's widest block (W0 at stride 296),
 // 75,776 B: 229,376 B of the 232,448 a block may use.
+//
+// K3-fwd-bf16 (entry point radiance_fwd_bf16) replaces run_fwd with
+// bf16=True (_mm_fns(True), rendering_apply_pallas' default): every
+// product on bf16 operands (to nearest even) with an f32 sum, on bf16 mma
+// (tc_mma.cuh, BF) from pack_weights_bf16's pack; the encoding, biases,
+// ReLU and sigmoid stay f32.  Bound: operations, one bf16 product's worth
+// of the FLOPs over 989 TFLOP/s.  The 289-wide x0 is 18 full k16 steps and
+// a half one (the engine's last stage of a depth of 296 is 8 rows deep and
+// reads no column past 296, so the zero padding [289, 296) and ld 300
+// serve both modes; the pack pads the block to 304 rows).  The bf16 ring
+// stages one half of 16 rows a stage, a quarter of the 3xTF32 ring, and is
+// sized by K3-bwd's weight-gradient chunk: 220,176 B in all.
 #include "radiance_mlp.cuh"
 
+template <bool BF>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 radiance_fwd_kernel(TcDims d, int squeeze, const float* __restrict__ pts,
                     const float* __restrict__ nrm,
@@ -51,8 +64,8 @@ radiance_fwd_kernel(TcDims d, int squeeze, const float* __restrict__ pts,
     // hidden layers: h_{l+1} = relu(h_l W_l^T + b_l), back into A
     for (int l = 0; l < lL; ++l) {
       const int N = d.outs[l];
-      tc_product<2>(d, A, ld, d.kp[l], d.fwd_off[l], d.fwd_st[l], d.np[l],
-                    Y, ld, ring);
+      tc_product<2, BF>(d, A, ld, d.kp[l], d.fwd_off[l], d.fwd_st[l], d.np[l],
+                        Y, ld, ring);
       __syncthreads();
       const float* bias = d.b[l];
       for (int idx = tid; idx < TC_TILE * N; idx += TC_THREADS) {
@@ -64,8 +77,8 @@ radiance_fwd_kernel(TcDims d, int squeeze, const float* __restrict__ pts,
 
     // last layer -> rgb, through the sigmoid with squeeze_out
     const int N = d.outs[lL];
-    tc_product<2>(d, A, ld, d.kp[lL], d.fwd_off[lL], d.fwd_st[lL], d.np[lL],
-                  Y, ld, ring);
+    tc_product<2, BF>(d, A, ld, d.kp[lL], d.fwd_off[lL], d.fwd_st[lL], d.np[lL],
+                      Y, ld, ring);
     __syncthreads();
     for (int idx = tid; idx < TC_TILE * N; idx += TC_THREADS) {
       const int r = idx / N, c = idx - r * N;
@@ -79,15 +92,12 @@ radiance_fwd_kernel(TcDims d, int squeeze, const float* __restrict__ pts,
   }
 }
 
-// Integer arguments: rad_tc_dims_from_args' (K3-bwd's).  Pointers: [pts,
-// normals, dirs, feat, rgb, pack, b[L]].  Returns a cudaError_t value; 0
-// when the launch was accepted.
-extern "C" int radiance_fwd(const int* ia, const unsigned long long* p,
-                            float scale, unsigned long long stream) {
-  (void)scale;
+template <bool BF>
+static int launch_radiance_fwd(const int* ia, const unsigned long long* p,
+                               unsigned long long stream) {
   TcDims d;
   int squeeze;
-  int rc = rad_tc_dims_from_args(ia, (const float*)p[5], &d, &squeeze);
+  int rc = rad_tc_dims_from_args(ia, (const float*)p[5], &d, &squeeze, BF);
   if (rc) return rc;
   for (int l = 0; l < d.L; ++l) d.b[l] = (const float*)p[6 + l];
   const int grid = ia[6];
@@ -95,11 +105,27 @@ extern "C" int radiance_fwd(const int* ia, const unsigned long long* p,
   const size_t smem = tc_smem_bytes(d, (size_t)2 * TC_TILE * d.ld);
   if (!smem || grid < 1) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      radiance_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      radiance_fwd_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  radiance_fwd_kernel<<<grid, TC_THREADS, smem, (cudaStream_t)stream>>>(
+  radiance_fwd_kernel<BF><<<grid, TC_THREADS, smem, (cudaStream_t)stream>>>(
       d, squeeze, (const float*)p[0], (const float*)p[1],
       (const float*)p[2], (const float*)p[3], (float*)p[4], n_tiles);
   return (int)cudaGetLastError();
+}
+
+// Integer arguments: rad_tc_dims_from_args' (K3-bwd's).  Pointers: [pts,
+// normals, dirs, feat, rgb, pack, b[L]].  Returns a cudaError_t value; 0
+// when the launch was accepted.
+extern "C" int radiance_fwd(const int* ia, const unsigned long long* p,
+                            float scale, unsigned long long stream) {
+  (void)scale;
+  return launch_radiance_fwd<false>(ia, p, stream);
+}
+
+// K3-fwd-bf16: radiance_fwd's arguments, the pack pack_weights_bf16's.
+extern "C" int radiance_fwd_bf16(const int* ia, const unsigned long long* p,
+                                 float scale, unsigned long long stream) {
+  (void)scale;
+  return launch_radiance_fwd<true>(ia, p, stream);
 }

@@ -2,7 +2,8 @@
 // their one argument layout and the first layer's input row
 // [pts (3) | PE(dirs) (d_view) | normals (3) | feature (d_feat)] of the IDR
 // RenderingNetwork.  Both run their products on the tensor cores
-// (tc_mma.cuh) from one weight pack.
+// (tc_mma.cuh) from one weight pack, in 3xTF32 or, in the bf16 operand
+// mode (K3-fwd-bf16, K3-bwd-bf16), on bf16 operands.
 #pragma once
 
 #include "sdf_mlp.cuh"
@@ -16,10 +17,12 @@
 // 256 columns, the second of which stages whole rows from 256 columns into
 // the block, past its end into the next block of the pack.  So only the
 // first layer's input, whose W block another block follows, may be wider
-// than 256.  Returns 0, or cudaErrorInvalidValue for a network or layout
-// this code cannot run.
+// than 256.  bf16: the pack is pack_weights_bf16's (the ring sized for
+// it).  Returns 0, or cudaErrorInvalidValue for a network or layout this
+// code cannot run.
 static inline int rad_tc_dims_from_args(const int* ia, const float* pack,
-                                        TcDims* d, int* squeeze) {
+                                        TcDims* d, int* squeeze,
+                                        bool bf16 = false) {
   const int L = ia[0];
   d->L = L;
   d->multires = ia[1];
@@ -34,7 +37,7 @@ static inline int rad_tc_dims_from_args(const int* ia, const float* pack,
   if (L < 2 || L > TC_MAXL || d->d_embed != 3 * (1 + 2 * d->multires) ||
       d->ld % 8 != 4)
     return (int)cudaErrorInvalidValue;
-  int rc = tc_layers_from_args(ia, d->ld, d);
+  int rc = tc_layers_from_args(ia, d->ld, d, bf16);
   if (rc) return rc;
   for (int l = 1; l < L; ++l)
     if (d->ins[l] != d->outs[l - 1] || d->kp[l] > 256)

@@ -2,9 +2,11 @@
 shapes.  Counterpart of factored_neus_tpu/models/fields.py:
 
   SDFNetwork              value_sweep (K2) and value_grad_feat (K1), on
-                          one weight pack a step (kernel_weights)
-  RenderingNetwork        IDR-mode radiance MLP (K3), on one weight pack
-                          a step (kernel_weights)
+                          the weight packs of a step (kernel_weights),
+                          each also in the bf16 operand mode
+  RenderingNetwork        IDR-mode radiance MLP (K3, also in the bf16
+                          operand mode), on one weight pack a step
+                          (kernel_weights)
   SingleVarianceNetwork   inv_s = exp(10 * variance)
   RefColor                surface reflection colour (diffuse + specular)
   NeRF                    NeRF++ background model of the womask configs
@@ -37,8 +39,8 @@ from ..ops.embedder import positional_encoding
 from ..ops.mlp import WNLinear, dense_init_, sdf_geometric_init_
 
 
-# (effective weights, biases, weight pack or None, K1's pack or None):
-# SDFNetwork.kernel_weights
+# (effective weights, biases, 3xTF32 weight pack or None, bf16 weight pack
+# or None): _WNLayers.kernel_weights
 KernelWeights = Tuple[List[torch.Tensor], List[torch.Tensor],
                       Optional[Tuple[torch.Tensor, TP.PackLayout]],
                       Optional[Tuple[torch.Tensor, TP.PackLayout]]]
@@ -83,23 +85,30 @@ class _WNLayers(nn.Module):
         ls = self.layers()
         return [l.effective_weight() for l in ls], [l.bias for l in ls]
 
-    def kernel_weights(self, bf16: bool = False) -> KernelWeights:
-        """(ws, bs, pack, k1_pack): the effective weights and biases,
+    def kernel_weights(self, bf16: bool = False, f32: bool = True
+                       ) -> KernelWeights:
+        """(ws, bs, pack, pack16): the effective weights and biases,
         differentiable in g, v and b, and on a CUDA device their weight
-        pack for the kernels (tc_pack.pack_weights, built without grad;
-        None on the CPU) and K1's: the same pack, or with ``bf16`` (K1's
-        bf16 operand mode) tc_pack.pack_weights_bf16's as well.  Built once
-        a step, or once a validation image, they serve every launch on
-        these weights: K1 and the ladder's K2 sweeps (which stay on the
-        3xTF32 pack) for the SDF network, K3-fwd and K3-bwd for the
-        radiance MLP."""
+        packs for the kernels, built without grad (None on the CPU, or
+        where not asked for): ``f32``, tc_pack.pack_weights' (3xTF32);
+        ``bf16``, tc_pack.pack_weights_bf16's (the bf16 operand mode).
+        Built once a step, or once a validation image or a stage-2/3 run,
+        they serve every launch on these weights: K1 and the K2 sweeps,
+        each on the pack of its mode, for the SDF network; K3-fwd and
+        K3-bwd for the radiance MLP."""
         ws, bs = self.effective_weights()
-        pack = k1_pack = None
+        pack = pack16 = None
         if ws[0].is_cuda:
             with torch.no_grad():
-                pack = TP.pack_weights(ws)
-                k1_pack = TP.pack_weights_bf16(ws) if bf16 else pack
-        return ws, bs, pack, k1_pack
+                pack = TP.pack_weights(ws) if f32 else None
+                pack16 = TP.pack_weights_bf16(ws) if bf16 else None
+        return ws, bs, pack, pack16
+
+
+def mode_pack(weights: KernelWeights, bf16: bool):
+    """The pack of kernel_weights' result that the operand mode reads
+    (None where it was not built: the kernel wrapper builds its own)."""
+    return weights[3] if bf16 else weights[2]
 
 
 class SDFNetwork(_WNLayers):
@@ -133,16 +142,21 @@ class SDFNetwork(_WNLayers):
         return SK.sdf_forward_plain(ws, bs, self.cfg, x)
 
     def value_sweep(self, x: torch.Tensor,
-                    weights: Optional[KernelWeights] = None) -> torch.Tensor:
+                    weights: Optional[KernelWeights] = None,
+                    bf16: bool = False) -> torch.Tensor:
         """sdf [N] for the no-grad sampling sweeps and the grid fill,
-        through K2 with the last layer narrowed to the sdf column (weight
-        norm is per output row, so the narrowed row computes the same sdf);
-        ``weights``: kernel_weights(), when the caller already has them."""
+        through K2 (``bf16``: K2-bf16) with the last layer narrowed to the
+        sdf column (weight norm is per output row, so the narrowed row
+        computes the same sdf); ``weights``: kernel_weights(), when the
+        caller already has them (the pack of the mode is built here when
+        theirs has none)."""
         with torch.no_grad():
-            ws, bs, pack, _ = weights or self.kernel_weights()
+            weights = weights or self.kernel_weights(bf16, f32=not bf16)
+            ws, bs = weights[:2]
             ws = list(ws[:-1]) + [ws[-1][:1]]
             bs = list(bs[:-1]) + [bs[-1][:1]]
-            return SK.sdf_forward(ws, bs, self.cfg, x, pack)[:, 0]
+            return SK.sdf_forward(ws, bs, self.cfg, x,
+                                  mode_pack(weights, bf16), bf16)[:, 0]
 
     def value_grad_feat(self, x: torch.Tensor,
                         weights: Optional[KernelWeights] = None,
@@ -150,11 +164,10 @@ class SDFNetwork(_WNLayers):
         """(sdf [N], feature [N, d_out-1], grad [N, 3]) through K1, in its
         bf16 operand mode when ``bf16``; ``weights``: kernel_weights(bf16),
         when the caller already has them (K1's pack is built here when
-        theirs is not of the mode's operand type)."""
-        ws, bs, _, pack = weights or self.kernel_weights(bf16)
-        if pack is not None and (pack[1].operand == "bf16") != bf16:
-            pack = None
-        out, grad = GK.geometry(ws, bs, x, self.cfg, pack=pack, bf16=bf16)
+        theirs has none of the mode's operand type)."""
+        weights = weights or self.kernel_weights(bf16, f32=not bf16)
+        out, grad = GK.geometry(*weights[:2], x, self.cfg,
+                                pack=mode_pack(weights, bf16), bf16=bf16)
         return out[:, 0], out[:, 1:], grad
 
 
@@ -198,12 +211,15 @@ class RenderingNetwork(_WNLayers):
             setattr(self, f"lin{l}", lin)
 
     def forward(self, points, normals, view_dirs, feature_vectors,
-                weights: Optional[KernelWeights] = None):
-        """rgb [N, d_out] through K3 (ops/radiance_kernel.py); ``weights``:
-        kernel_weights(), when the caller already has them."""
-        ws, bs, pack, _ = weights or self.kernel_weights()
-        return RK.radiance(ws, bs, self.cfg, points, normals, view_dirs,
-                           feature_vectors, pack)
+                weights: Optional[KernelWeights] = None, bf16: bool = False):
+        """rgb [N, d_out] through K3 (ops/radiance_kernel.py), in its bf16
+        operand mode (K3-fwd-bf16, K3-bwd-bf16) when ``bf16``; ``weights``:
+        kernel_weights(bf16, f32=not bf16), when the caller already has
+        them."""
+        weights = weights or self.kernel_weights(bf16, f32=not bf16)
+        return RK.radiance(*weights[:2], self.cfg, points, normals,
+                           view_dirs, feature_vectors,
+                           mode_pack(weights, bf16), bf16)
 
 
 class SingleVarianceNetwork(nn.Module):

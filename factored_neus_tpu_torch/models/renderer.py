@@ -10,25 +10,31 @@ for every ray at the two samples bracketing the first SDF sign change and
 the result is blended in where the ray has a crossing, which gives the
 reference's masked-gather results.  SDF value, feature and gradient come
 from K1 (ops/geometry_kernel.py), or from its HBM-stash pair under
-FNEUS_PG_HBM_STASH=1, in K1's bf16 operand mode under
-FNEUS_CORE_ACT_BF16=1 (``RendererConfig.core_act_bf16``; the render core
-only, as in the JAX package); the up-sampling ladder's SDF sweeps from K2
+FNEUS_PG_HBM_STASH=1; the up-sampling ladder's SDF sweeps from K2
 (ops/sdf_kernel.py); the radiance MLP from K3 (ops/radiance_kernel.py).
-The background NeRF is a plain MLP on cuBLAS, as the JAX package leaves it
-to XLA.
+Under FNEUS_CORE_ACT_BF16=1 (``RendererConfig.core_act_bf16``; the render
+core only, as in the JAX package) K1 and K3 run in their bf16 operand
+mode.  The background NeRF is a plain MLP on cuBLAS, as the JAX package
+leaves it to XLA.
 
 Stage 2 runs every SDF, geometry and radiance evaluation without gradient
-on the frozen stage-1 networks (one SDF and one K3 pack a run,
-``Stage2Model.kernel_weights``): per step K2 six times (the ladder's four
-sweeps, the localisation sweep, the secondary coarse sweep), K1-fwd three
-times (the surface normals, the secondary fine sweep, the secondary
-surface points) and K3-fwd once (the first-hit colour).  Lvis and
-IndirectLight, the networks it trains, are plain MLPs on cuBLAS.
+on the frozen stage-1 networks (one set of packs a run,
+``Stage2Model.kernel_weights``): per step K2 five times (the ladder's four
+sweeps and the localisation sweep), the secondary coarse sweep once, on
+K2-bf16 under ``sweep_act_bf16`` (the default, as in the JAX package) and
+on K2 otherwise, K1-fwd three times (the surface normals, the secondary
+fine sweep, the secondary surface points) and K3-fwd once (the first-hit
+colour).  Lvis and IndirectLight, the networks it trains, are plain MLPs
+on cuBLAS.
 
 Stage 3 runs K2 five times a step (the ladder's four sweeps and the
 localisation sweep) and K1-fwd once (the surface points' feature and
-normal), on the same frozen pack, and no backward kernel: the gradient
+normal), on the same frozen packs, and no backward kernel: the gradient
 reaches only EnvmapMaterial, through cuBLAS MLPs and the SG shading.
+
+``use_pallas_sampling`` (off by default, as in the JAX package) puts every
+sweep that the JAX package's _sdf_fwd_sampling serves on K2-bf16: the
+ladder's four in every stage and stage 2's coarse sweep.
 """
 from __future__ import annotations
 
@@ -64,15 +70,31 @@ class RendererConfig:
     # rows of a chunk of the CPU twins' secondary sweeps (one launch on the
     # card)
     secondary_chunk: int = 131072
+    # route the no-grad SDF sweeps (the ladder's, in every stage, and stage
+    # 2's secondary coarse sweep) through K2-bf16, the port of the JAX
+    # package's Pallas sweep (pallas_sdf, single-pass bf16 products: the
+    # sdf error only nudges where importance samples land); off by
+    # default, as in the JAX package.  FNEUS_PALLAS_SAMPLING=1 turns it on
+    # for a CLI run (the port's switch, read at import: no conf sets it)
+    use_pallas_sampling: bool = os.environ.get("FNEUS_PALLAS_SAMPLING",
+                                               "0") == "1"
+    # stage 2's secondary coarse sweep (1,048,576 rows a step, which only
+    # places the fine samples) on bf16 operands, on K2-bf16, as the JAX
+    # package's stage-2 step runs it by default (its XLA path stores the
+    # sweep's activations in bf16, rounding the skip input twice where
+    # the kernel rounds it once).  FNEUS_SWEEP_ACT_BF16=0 turns it off for
+    # a CLI run (the port's switch, read at import)
+    sweep_act_bf16: bool = os.environ.get("FNEUS_SWEEP_ACT_BF16",
+                                          "1") == "1"
     # one geometry sweep for both stage-2 fine-sample targets (else
     # compute_weight and cal_fir_hit_rgb sweep apart)
     fused_fine_sweep: bool = True
-    # K1 (the stage-1 render core's SDF, feature and gradient, and its
-    # backward) in its bf16 operand mode, as the JAX package's
-    # core_act_bf16 turns on pallas_geometry's bf16 bodies; read from
-    # FNEUS_CORE_ACT_BF16 like the JAX package's.  Only K1 changes: the
-    # ladder's K2 and K3 stay f32, and so does the radiance MLP's input
-    # (the JAX package's act_dtype rounding there is not ported)
+    # the stage-1 render core in the bf16 operand mode, as the JAX
+    # package's core_act_bf16: K1 (the SDF, feature and gradient, and its
+    # backward) on pallas_geometry's bf16 bodies and K3 (the radiance MLP
+    # and its backward) where the JAX step rounds the radiance MLP's
+    # activations (act_dtype); read from FNEUS_CORE_ACT_BF16 like the JAX
+    # package's.  The ladder's sweeps stay as use_pallas_sampling says
     core_act_bf16: bool = os.environ.get("FNEUS_CORE_ACT_BF16", "0") == "1"
 
     @property
@@ -99,13 +121,28 @@ class Stage1Model(nn.Module):
         self.nerf = F.NeRF(cfg.nerf, gen)
         self.to(device)
 
-    def kernel_weights(self, bf16: bool = False
+    def kernel_weights(self, bf16: bool = False, sweep_bf16: bool = False
                        ) -> Tuple[F.KernelWeights, F.KernelWeights]:
-        """The SDF network's and the radiance MLP's kernel weights (with
-        their packs on a CUDA device; ``bf16``: K1's in its bf16 mode):
-        built once a step by ``render``, or once a validation image by its
-        caller."""
-        return self.sdf.kernel_weights(bf16), self.color.kernel_weights()
+        """The SDF network's and the radiance MLP's kernel weights, with
+        the packs that their kernels read on a CUDA device: ``bf16``, the
+        render core in its bf16 mode (K1's and K3's bf16 packs, and no
+        3xTF32 radiance pack); ``sweep_bf16``, the ladder's sweeps on
+        K2-bf16 (the SDF network's bf16 pack; its 3xTF32 pack only where K1
+        or a sweep still reads it).  Built once a step by ``render``, or
+        once a validation image by its caller."""
+        return (self.sdf.kernel_weights(bf16 or sweep_bf16,
+                                        f32=not (bf16 and sweep_bf16)),
+                self.color.kernel_weights(bf16, f32=not bf16))
+
+
+def sampling_sweep(sdf_net: F.SDFNetwork, cfg: RendererConfig,
+                   weights: F.KernelWeights, coarse: bool = False):
+    """sdf_fwd for a no-grad sampling sweep, with the JAX package's
+    precedence (_sdf_fwd_sampling): K2-bf16 under use_pallas_sampling;
+    else K2-bf16 for the stage-2 coarse sweep (``coarse``) under
+    sweep_act_bf16; else K2."""
+    bf16 = cfg.use_pallas_sampling or (coarse and cfg.sweep_act_bf16)
+    return lambda p: sdf_net.value_sweep(p, weights, bf16)
 
 
 def render_core_outside(model: Stage1Model, cfg: RendererConfig, rays_o,
@@ -165,7 +202,8 @@ def render_core(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d,
     inside_sphere_mask = torch.sum(inside_sphere, -1) > 0.0
 
     sampled_color = model.color(pts_flat, gradients, dirs_flat, feature,
-                                color_weights).reshape(B, T, 3)
+                                color_weights, cfg.core_act_bf16
+                                ).reshape(B, T, 3)
 
     # surface branch: first SDF sign change, RefColor at the two bracketing
     # samples, NeuS-weight blend
@@ -287,13 +325,13 @@ def render(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d, near,
         z_vals_outside = (far / torch.flip(z_vals_outside, [-1])
                           + 1.0 / cfg.n_samples)
 
-    # one SDF weight pack, for the ladder's sweeps (K2) and K1, and one
-    # radiance pack for K3, a step (or a validation image)
+    # the SDF weight packs, for the ladder's sweeps (K2) and K1, and the
+    # radiance pack for K3, once a step (or a validation image)
     sdf_weights, color_weights = weights or model.kernel_weights(
-        cfg.core_act_bf16)
+        cfg.core_act_bf16, cfg.use_pallas_sampling)
     if cfg.n_importance > 0:
         z_vals = S.hierarchical_z_vals(
-            lambda p: model.sdf.value_sweep(p, sdf_weights), rays_o.detach(),
+            sampling_sweep(model.sdf, cfg, sdf_weights), rays_o.detach(),
             rays_d.detach(), z_vals.detach(), cfg.n_importance,
             cfg.up_sample_steps)
 
@@ -354,15 +392,19 @@ class Stage2Model(nn.Module):
         self.to(device)
         self._packs: Optional[Tuple[Any, Tuple]] = None
 
-    def kernel_weights(self) -> Tuple[F.KernelWeights, F.KernelWeights]:
-        """The frozen SDF network's and radiance MLP's kernel weights, built
-        once and kept until a stage-1 parameter changes (a checkpoint or
-        bridge load writes into them) or moves."""
-        key = tuple((p.data_ptr(), p._version)
-                    for p in self.stage1.parameters())
+    def kernel_weights(self, bf16: bool = False, sweep_bf16: bool = False
+                       ) -> Tuple[F.KernelWeights, F.KernelWeights]:
+        """The frozen SDF network's and radiance MLP's kernel weights
+        (Stage1Model.kernel_weights' packs; ``sweep_bf16``: with the SDF
+        network's bf16 pack, for the sweeps on K2-bf16), built once and
+        kept until a stage-1 parameter changes (a checkpoint or bridge load
+        writes into them) or moves, or other packs are asked for."""
+        key = (tuple((p.data_ptr(), p._version)
+                     for p in self.stage1.parameters()), bf16, sweep_bf16)
         if self._packs is None or self._packs[1] != key:
             with torch.no_grad():
-                self._packs = (self.stage1.kernel_weights(), key)
+                self._packs = (self.stage1.kernel_weights(bf16, sweep_bf16),
+                               key)
         return self._packs[0]
 
 
@@ -374,13 +416,15 @@ def _stage23_util(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d,
     z_lin = torch.linspace(0.0, 1.0, cfg.n_samples, device=rays_o.device,
                            dtype=rays_o.dtype)
     z_vals = near + (far - near) * z_lin[None, :]
-    sweep = lambda p: model.sdf.value_sweep(p, sdf_weights)
     if cfg.n_importance > 0:
-        z_vals = S.hierarchical_z_vals(sweep, rays_o, rays_d, z_vals,
-                                       cfg.n_importance, cfg.up_sample_steps)
+        z_vals = S.hierarchical_z_vals(
+            sampling_sweep(model.sdf, cfg, sdf_weights), rays_o, rays_d,
+            z_vals, cfg.n_importance, cfg.up_sample_steps)
     _, mid_z, pts = section_geometry(rays_o, rays_d, z_vals,
                                      2.0 / cfg.n_samples)
-    sdf = sweep(pts.reshape(-1, 3)).reshape(B, -1)
+    # the localisation sweep stays f32 in every mode, as in the JAX package
+    sdf = model.sdf.value_sweep(pts.reshape(-1, 3),
+                                sdf_weights).reshape(B, -1)
     inside_mask = torch.sum(torch.linalg.norm(pts, dim=-1) < 1.0, -1) > 0
     return mid_z, sdf, inside_mask
 
@@ -397,7 +441,8 @@ def lvis_render(model: Stage2Model, cfg: RendererConfig, rays_o, rays_d,
     draws are u_theta, u_z [B, 4] in [0, 1) when given, else drawn from
     ``generator``."""
     geo = model.stage1
-    sdf_w, color_w = model.kernel_weights()
+    sdf_w, color_w = model.kernel_weights(
+        sweep_bf16=cfg.use_pallas_sampling or cfg.sweep_act_bf16)
     with torch.no_grad():
         mid_z, sdf, inside_mask = _stage23_util(geo, cfg, rays_o, rays_d,
                                                 near, far, sdf_w)
@@ -414,11 +459,12 @@ def lvis_render(model: Stage2Model, cfg: RendererConfig, rays_o, rays_d,
         return torch.cat([s[:, None], f], -1)
 
     res = SEC.cal_indi_lgt(
-        pts_surf, n_surf, lambda p: geo.sdf.value_sweep(p, sdf_w), full,
+        pts_surf, n_surf, sampling_sweep(geo.sdf, cfg, sdf_w), full,
         lambda p: vgf(p)[2], inv_s,
         lambda p, n, d, f: geo.color(p, n, d, f, color_w),
         lambda p, d: model.lvis(p, d), model.indirect, u_theta=u_theta,
         u_z=u_z, generator=generator, chunk=cfg.secondary_chunk,
+        sdf_fwd_coarse=sampling_sweep(geo.sdf, cfg, sdf_w, coarse=True),
         sdf_vgf=vgf if cfg.fused_fine_sweep else None)
     one = torch.ones((), dtype=rays_o.dtype, device=rays_o.device)
     m1, m2 = sdf_mask[:, None], sdf_mask[:, None, None]
@@ -467,7 +513,7 @@ def mate_illu_render(model: Stage3Model, cfg: RendererConfig, rays_o,
     [num_lgt_sgs, vis_nsamp] in [0, 1) when given, else drawn from
     ``generator``."""
     geo = model.stage1
-    sdf_w, _ = model.kernel_weights()
+    sdf_w, _ = model.kernel_weights(sweep_bf16=cfg.use_pallas_sampling)
     with torch.no_grad():
         mid_z, sdf, inside_mask = _stage23_util(geo, cfg, rays_o, rays_d,
                                                 near, far, sdf_w)

@@ -7,6 +7,8 @@ Every primary ray is traced at static shape and callers mask with the
 ``sdf_mask`` of surface localisation, as in the JAX package.  The
 functions take the networks as closures over points [N, 3]:
   sdf_fwd         -> sdf [N]                      (K2 on the card)
+  sdf_fwd_coarse  -> sdf [N], the coarse sweep's  (K2-bf16 on the card
+                                                   under sweep_act_bf16)
   sdf_apply_full  -> [sdf | feature] [N, 1 + F]   (K1-fwd)
   sdf_grad        -> dsdf/dx [N, 3]               (K1-fwd)
   sdf_vgf         -> (sdf [N], feature, grad)     (K1-fwd, one launch)
@@ -150,13 +152,16 @@ def fine_sweep_targets(sdf_vgf, color_fn, inv_s, rays_o, rays_d, z_vals,
 
 @torch.no_grad()
 def _trace_targets(surf_flat, dirs_flat, z_coarse, sdf_fwd, sdf_apply_full,
-                   sdf_grad, inv_s, color_fn, chunk, sdf_vgf):
+                   sdf_grad, inv_s, color_fn, chunk, sdf_vgf,
+                   sdf_fwd_coarse=None):
     """(occupancy [R], first-hit rgb [R, 3]) of secondary rays from
     surf_flat along dirs_flat [R, 3]: the coarse sweep over z_coarse
-    [R, N_COARSE], N_FINE up-sampled positions, then the fine sweep."""
+    [R, N_COARSE] (through sdf_fwd_coarse, sdf_fwd when None), N_FINE
+    up-sampled positions, then the fine sweep."""
     R = surf_flat.shape[0]
     pts = surf_flat[:, None, :] + dirs_flat[:, None, :] * z_coarse[:, :, None]
-    coarse_sdf = _sweep(sdf_fwd, pts.reshape(-1, 3), chunk).reshape(R, -1)
+    coarse_sdf = _sweep(sdf_fwd_coarse or sdf_fwd, pts.reshape(-1, 3),
+                        chunk).reshape(R, -1)
     z_fine = S.up_sample(surf_flat, dirs_flat, z_coarse, coarse_sdf, N_FINE,
                          inv_s)
     if sdf_vgf is not None:
@@ -174,16 +179,18 @@ def _trace_targets(surf_flat, dirs_flat, z_coarse, sdf_fwd, sdf_apply_full,
 def cal_indi_lgt(surf, normal, sdf_fwd, sdf_apply_full, sdf_grad, inv_s,
                  color_fn, lvis_fn, indirect_fn, u_theta=None, u_z=None,
                  generator: Optional[torch.Generator] = None,
-                 chunk: int = 131072, sdf_vgf=None
+                 chunk: int = 131072, sdf_fwd_coarse=None, sdf_vgf=None
                  ) -> Dict[str, torch.Tensor]:
     """Distillation targets of N_HEMI_DIRS cosine-hemisphere secondary rays
     per surface point: gt / pre lvis [P, 4] and trace radiance [P, 4, 3].
     The draws are u_theta, u_z [P, 4] in [0, 1) when given, else drawn
     from ``generator``: theta = 2 pi u_theta, phi = asin(0.95 u_z) from
-    the normal.  With ``sdf_vgf`` the two fine-sample passes share one
-    sweep (fine_sweep_targets), else compute_weight and cal_fir_hit_rgb
-    run apart.  Only pre_lvis and pre_trace_radiance carry gradient (of
-    lvis_fn and indirect_fn)."""
+    the normal.  ``sdf_fwd_coarse`` (sdf_fwd when None) serves the coarse
+    sweep only, which places the fine samples (stage 2's bf16 sweep);
+    the targets go through sdf_fwd and sdf_vgf.  With ``sdf_vgf`` the two
+    fine-sample passes share one sweep (fine_sweep_targets), else
+    compute_weight and cal_fir_hit_rgb run apart.  Only pre_lvis and
+    pre_trace_radiance carry gradient (of lvis_fn and indirect_fn)."""
     P = surf.shape[0]
     if u_theta is None:
         u_theta, u_z = (torch.rand((P, N_HEMI_DIRS), generator=generator,
@@ -199,7 +206,7 @@ def cal_indi_lgt(surf, normal, sdf_fwd, sdf_apply_full, sdf_grad, inv_s,
                                                        N_COARSE)
     occu, rgb = _trace_targets(surf_flat, dirs_flat, z_coarse, sdf_fwd,
                                sdf_apply_full, sdf_grad, inv_s, color_fn,
-                               chunk, sdf_vgf)
+                               chunk, sdf_vgf, sdf_fwd_coarse)
     pre_sgs = indirect_fn(surf)                                # [P, L, 7]
     return {
         "gt_lvis": (1.0 - occu).reshape(P, N_HEMI_DIRS),

@@ -56,8 +56,9 @@ from . import _cuda
 from .mlp import softplus_beta
 from .embedder import positional_encoding
 from .sdf_kernel import TILE, layer_dims, sdf_forward_plain
-from .tc_pack import (PackLayout, check_layout, layout_iargs, mm_bf16,
-                      pack_weights, pack_weights_bf16, round8)
+from .tc_pack import (PackLayout, check_layout, layout_iargs, make_pack,
+                      mm_bf16, round8)
+from .tc_pack import pack_for as _pack_for
 
 K1_FWD = _cuda.CudaKernel("geometry_fwd", "geometry_fwd.cu", "geometry_fwd")
 K1_BWD = _cuda.CudaKernel("geometry_bwd", "geometry_bwd.cu", "geometry_bwd")
@@ -315,23 +316,6 @@ def kernel_iargs(cfg, ws, n: int, grid: int, lay: PackLayout
 def stash_columns(ws: Sequence[torch.Tensor]) -> int:
     """Width of a stash row: the hidden layers' widths summed."""
     return sum(int(w.shape[0]) for w in ws[:-1])
-
-
-def make_pack(ws: Sequence[torch.Tensor], bf16: bool = False
-              ) -> Tuple[torch.Tensor, PackLayout]:
-    """The K1 kernels' weight pack of ws in the operand mode."""
-    return pack_weights_bf16(ws) if bf16 else pack_weights(ws)
-
-
-def _pack_for(kernel, ws, pack, bf16: bool):
-    """``pack`` (make_pack(ws, bf16), built here if None), refused when
-    its operand type is not the kernel's: no mode runs on another's pack."""
-    pack, lay = pack if pack is not None else make_pack(ws, bf16)
-    want = "bf16" if bf16 else "3xtf32"
-    if lay.operand != want:
-        raise ValueError(f"{kernel.name} multiplies on {want} operands: it "
-                         f"takes no {lay.operand} pack")
-    return pack, lay
 
 
 def _launch_forward(entry, cfg, x, ws, bs, with_stash: bool, pack=None,

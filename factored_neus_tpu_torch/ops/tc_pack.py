@@ -1,7 +1,7 @@
 """The weight pack and the arithmetic of the tensor-core kernels
 (csrc/tc_mma.cuh): K1 (ops/geometry_kernel.py), K2 (ops/sdf_kernel.py) and
-K3 (ops/radiance_kernel.py) multiply in 3xTF32 on ``mma.sync``; K1 also in
-its bf16 operand mode, on bf16 ``mma.sync``.
+K3 (ops/radiance_kernel.py) multiply in 3xTF32 on ``mma.sync``, and each
+also in its bf16 operand mode, on bf16 ``mma.sync``.
 
 ``pack_weights`` lays every layer's weight out once in the form the kernels
 stage into shared memory, already split into TF32 big and small halves;
@@ -227,10 +227,13 @@ def _bf16_sources(ins: Tuple[int, ...], outs: Tuple[int, ...],
 
 def pack_weights_bf16(ws: Sequence[torch.Tensor]
                       ) -> Tuple[torch.Tensor, PackLayout]:
-    """K1's bf16 weight buffer: every layer's W^T and W block rounded to
-    bf16 (to nearest even, as JAX's ``astype``), two k-rows to a 32-bit
-    word (bf16_pair_rows), in pack_layout(..., "bf16")'s places, zero in
-    the padding.  A float32 tensor of words; no small half."""
+    """The bf16 kernels' weight buffer (K1's and K2-bf16's of the SDF
+    network, K3's of the radiance MLP): every layer's W^T and W block
+    rounded to bf16 (to nearest even, as JAX's ``astype``), two k-rows to
+    a 32-bit word (bf16_pair_rows), in pack_layout(..., "bf16")'s places,
+    zero in the padding (a block's k rows padded to 16: the radiance MLP's
+    289-wide first layer to 304).  A float32 tensor of words; no small
+    half."""
     if any(w.dtype != torch.float32 for w in ws):
         raise ValueError("the tensor-core kernels take float32 weights")
     ins = tuple(int(w.shape[1]) for w in ws)
@@ -248,6 +251,25 @@ def pack_weights_bf16(ws: Sequence[torch.Tensor]
     return words.view(torch.float32), pack_layout(ins, outs, "bf16")
 
 
+def make_pack(ws: Sequence[torch.Tensor], bf16: bool = False
+              ) -> Tuple[torch.Tensor, PackLayout]:
+    """The kernels' weight pack of ws in the operand mode."""
+    return pack_weights_bf16(ws) if bf16 else pack_weights(ws)
+
+
+def pack_for(kernel, ws: Sequence[torch.Tensor], pack, bf16: bool
+             ) -> Tuple[torch.Tensor, PackLayout]:
+    """``pack`` (make_pack(ws, bf16), built here if None), refused when
+    its operand type is not that of ``kernel`` (a CudaKernel): no mode
+    runs on another's pack."""
+    pack, lay = pack if pack is not None else make_pack(ws, bf16)
+    want = "bf16" if bf16 else "3xtf32"
+    if lay.operand != want:
+        raise ValueError(f"{kernel.name} multiplies on {want} operands: it "
+                         f"takes no {lay.operand} pack")
+    return pack, lay
+
+
 def layout_iargs(lay: PackLayout) -> List[int]:
     """The pack layout as the kernels' integer arguments take it after
     ins and outs: fwd_off, fwd_stride, rev_off, rev_stride, half."""
@@ -258,9 +280,10 @@ def layout_iargs(lay: PackLayout) -> List[int]:
 def check_layout(lay: PackLayout, ins: Sequence[int],
                  outs: Sequence[int]) -> None:
     """Raises unless ``lay`` is the pack layout of layers ins -> outs, or of
-    the same network with a wider last layer (K2 reads K1's pack with the
-    last layer narrowed to the sdf column: it stages only the W^T blocks,
-    whose first columns are the narrowed layer's)."""
+    the same network with a wider last layer (K2 reads K1's pack, and
+    K2-bf16 the step's bf16 pack, with the last layer narrowed to the sdf
+    column: it stages only the W^T blocks, whose first columns are the
+    narrowed layer's), in the layout's operand type."""
     want = pack_layout(ins, outs, lay.operand)
     L = len(ins)
     ok = len(lay.fwd_off) == L and lay.fwd_off == want.fwd_off

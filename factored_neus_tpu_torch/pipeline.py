@@ -113,7 +113,8 @@ class Pipeline:
                     ) -> Dict[str, np.ndarray]:
         """The stage-1 render (no jitter, cos_anneal_ratio 1) of a ray
         grid [H, W, 3]: colour, surface, diffuse and specular maps."""
-        weights = self.model.kernel_weights()
+        weights = self.model.kernel_weights(self.cfg.core_act_bf16,
+                                            self.cfg.use_pallas_sampling)
         return self._run_chunks(
             rays_o, rays_d,
             lambda o, d, n, f: R.render(self.model.stage1, self.cfg, o, d, n,

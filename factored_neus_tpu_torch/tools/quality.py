@@ -29,7 +29,10 @@ PSNR (the mean of the last five reports), the median stage-3 rays/s and
 the directory of its rgb panels.  --from_stage N starts each run at
 stage N on what the earlier stages left under --out (their checkpoints,
 logs and last mesh), which are scored as they are: a run longer than one
-sitting can go in two.  Prints one JSON object and writes it to
+sitting can go in two.  The runs take the render core's and the sweeps'
+modes from FNEUS_CORE_ACT_BF16, FNEUS_SWEEP_ACT_BF16 and
+FNEUS_PALLAS_SAMPLING as this process finds them, and the summary
+records them.  Prints one JSON object and writes it to
 <out>/summary.json (and to --summary when given).
 """
 from __future__ import annotations
@@ -293,9 +296,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
         "scene": {"n_views": SCENE[0], "H": SCENE[1], "W": SCENE[2],
                   "y_range": list(Y_RANGE)},
         "end_iter": args.end_iter, "parallel": args.parallel,
-        # K1's bf16 operand mode, as the runs (children of this process)
-        # read it from FNEUS_CORE_ACT_BF16
+        # the render core's bf16 operand mode (K1 and K3) and the sweeps'
+        # modes (stage 2's coarse sweep on K2-bf16; every sampling sweep
+        # on K2-bf16), as the runs (children of this process) read them
+        # from FNEUS_CORE_ACT_BF16, FNEUS_SWEEP_ACT_BF16 and
+        # FNEUS_PALLAS_SAMPLING
         "core_act_bf16": RendererConfig().core_act_bf16,
+        "sweep_act_bf16": RendererConfig().sweep_act_bf16,
+        "use_pallas_sampling": RendererConfig().use_pallas_sampling,
         "stage2": args.stage2, "stage3": args.stage3,
         "from_stage": args.from_stage, "failed": failed}
     bars = {}

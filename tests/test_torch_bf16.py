@@ -246,8 +246,8 @@ def test_stage1_step_with_bf16_k1_matches_jax():
     geometry core in interpret mode).  The SDF network's gradients are
     within TWIN_RTOL of JAX-bf16's and closer to them than JAX-f32's are;
     the loss and the other gradients within JAX's own bf16-to-f32
-    distance (JAX also rounds the radiance MLP's activations to bf16, which
-    the port leaves f32) plus the stage-1 f32 tolerance."""
+    distance (JAX rounds the radiance MLP's activations on its XLA path,
+    the port at K3-bf16's products) plus the stage-1 f32 tolerance."""
     jcfg, jparams, cfg, model = build_pair()
     jcfg = dataclasses.replace(jcfg, use_pallas_geometry=True)
     o, d, rgb, mask = _batch()

@@ -6,6 +6,8 @@ a machine without them it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -598,3 +600,116 @@ def test_bf16_mode_launches_the_bf16_kernels(cuda_device):
      + s.abs().mean()).backward()
     assert [k.launches - b for k, b in zip(kernels, before)] == [0, 0, 1, 1]
     net.value_sweep(x, weights)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES + [(8, 256, 257, (4,), 6, 1.0, n)
+                                          for n in (32768, 9001)])
+def test_k2_bf16_matches_twin(cuda_device, case):
+    """K2-bf16 (the last layer narrowed) on the full network's bf16 pack
+    against its twin and the f64 unrounded sweep (chip_smoke.check_flips),
+    two launches bitwise equal, and bitwise equal to K2-bf16 on its own
+    narrowed pack; the ladder's 32,768 rows and a ragged 9,001 at full
+    width."""
+    cfg, ws, bs, x = _net(case, cuda_device)
+    wn, bn = ws[:-1] + [ws[-1][:1]], bs[:-1] + [bs[-1][:1]]
+    pack = TP.pack_weights_bf16(ws)
+    got = SK.sdf_forward(wn, bn, cfg, x, pack, bf16=True)
+    with torch.no_grad():
+        twin = SK.sdf_forward_plain(wn, bn, cfg, x, bf16=True)
+        ref = SK.sdf_forward_plain([w.double() for w in wn],
+                                   [b.double() for b in bn], cfg, x.double())
+    chip_smoke.check_flips(f"K2-bf16 {case}", [got], [twin], [ref.float()],
+                           ["sdf"])
+    assert torch.equal(got, SK.sdf_forward(wn, bn, cfg, x, pack, bf16=True))
+    assert torch.equal(got, SK.sdf_forward(wn, bn, cfg, x, bf16=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RAD_CASES + [RAD_RAGGED])
+def test_k3_bf16_kernels_match_twins(cuda_device, case):
+    """K3-fwd-bf16 and K3-bwd-bf16 against their twins and the f64
+    unrounded function (chip_smoke.check_flips; the backward's twin on the
+    kernel's own ReLU masks, chip_smoke.k3_bwd_masks with bf16: in bf16
+    the two forwards round pre-activations near 0 to opposite sides more
+    often than in 3xTF32, so the masks are held to a margin of each
+    element's bf16 rounding, in any number of places), two launches of
+    each bitwise equal, K3-bwd-bf16 on the forward's pack bitwise equal to
+    its own."""
+    cfg, net, inputs = _rad(case, cuda_device)
+    with torch.no_grad():
+        ws, bs = net.effective_weights()
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    ct = torch.randn(inputs[0].shape[0], cfg.d_out, device=cuda_device,
+                     generator=gen)
+    flat = lambda r: [*r[:4], *r[4], *r[5]]
+    w64, b64 = [w.double() for w in ws], [b.double() for b in bs]
+    in64 = [t.double() for t in inputs]
+    pack = TP.make_pack(ws, bf16=True)
+    fwd = lambda: RK.launch_forward(cfg, ws, bs, *inputs, pack=pack,
+                                    bf16=True)
+    bwd = lambda: flat(RK.launch_backward(cfg, ws, bs, *inputs, ct,
+                                          pack=pack, bf16=True))
+    with torch.no_grad():
+        tw_f = RK.radiance_plain(ws, bs, cfg, *inputs, bf16=True)
+        ref_f = RK.radiance_plain(w64, b64, cfg, *in64).float()
+    masks, _ = chip_smoke.k3_bwd_masks(cfg, ws, bs, inputs, bf16=True)
+    tw_b = flat(RK.radiance_bwd_plain(ws, bs, cfg, *inputs, ct, bf16=True,
+                                      masks=masks))
+    ref_b = [t.float() for t in flat(RK.radiance_bwd_plain(
+        w64, b64, cfg, *in64, ct.double()))]
+    names = ["ct_pts", "ct_normals", "ct_dirs", "ct_feat"] + [
+        f"{k}{l}" for k in ("dW", "db") for l in range(len(ws))]
+    got = fwd()
+    chip_smoke.check_flips(f"K3-fwd-bf16 {case}", [got], [tw_f], [ref_f],
+                           ["rgb"])
+    assert torch.equal(got, fwd())
+    got = bwd()
+    chip_smoke.check_flips(f"K3-bwd-bf16 {case}", got, tw_b, ref_b, names)
+    assert all(torch.equal(a, b) for a, b in zip(got, bwd()))
+    own = flat(RK.launch_backward(cfg, ws, bs, *inputs, ct, bf16=True))
+    assert all(torch.equal(a, b) for a, b in zip(got, own))
+
+
+@pytest.mark.gpu
+def test_bf16_switches_launch_the_bf16_kernels(cuda_device):
+    """A stage-1 render + backward with core_act_bf16 and
+    use_pallas_sampling (narrow widths): K2-bf16 four times and no K2,
+    K1-fwd-bf16, K1-bwd-bf16, K3-fwd-bf16 and K3-bwd-bf16 once and no f32
+    K1 or K3, every pack built once; then stage 2's lvis_render at the
+    defaults: the coarse sweep on K2-bf16, once, and K2 five times."""
+    cfg = TR.RendererConfig(
+        n_samples=16, n_importance=16, up_sample_steps=4,
+        sdf=SDFConfig(n_layers=4, d_hidden=64, d_out=65, skip_in=(2,),
+                      multires=4),
+        rendering=RenderingConfig(d_feature=64, d_hidden=64, n_layers=3),
+        refcolor=RefColorConfig(d_feature=64), core_act_bf16=True,
+        use_pallas_sampling=True)
+    model = TR.Stage2Model(cfg, seed=0).to(cuda_device)
+    rng = np.random.RandomState(0)
+    o = rng.randn(32, 3) * 0.1 + np.array([0.0, 0.0, -3.0])
+    d = np.array([0.0, 0.0, 1.0]) + rng.randn(32, 3) * 0.1
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = (torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+            for a in (o, d))
+    near, far = RAYS.near_far_from_sphere(o, d)
+    kernels = (SK.SDF_FWD, SK.SDF_FWD_BF16, GK.K1_FWD, GK.K1_BWD,
+               GK.K1_FWD_BF16, GK.K1_BWD_BF16, RK.K3_FWD, RK.K3_BWD,
+               RK.K3_FWD_BF16, RK.K3_BWD_BF16)
+    geo = TR.Stage1Model(cfg, seed=0).to(cuda_device)
+    weights = geo.kernel_weights(True, True)
+    assert [w[2] is None for w in weights] == [True, True]
+    assert [w[3][1].operand for w in weights] == ["bf16", "bf16"]
+    before = [k.launches for k in kernels]
+    out = TR.render(geo, cfg, o, d, near, far, weights=weights)
+    (out["color_fine"].sum() + out["gradient_error"].sum()).backward()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [
+        0, 4, 0, 0, 1, 1, 0, 0, 1, 1]
+    cfg2 = dataclasses.replace(cfg, core_act_bf16=False,
+                               use_pallas_sampling=False)
+    before = [k.launches for k in kernels]
+    with torch.no_grad():
+        TR.lvis_render(model, cfg2, o, d, near, far,
+                       generator=torch.Generator(device=cuda_device))
+    assert [k.launches - b for k, b in zip(kernels, before)] == [
+        5, 1, 3, 0, 0, 0, 1, 0, 0, 0]

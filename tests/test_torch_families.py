@@ -71,11 +71,12 @@ def _tiny_conf(tmp, name, val_freq=None):
     return conf
 
 
-def _f32_sweeps(jr, stage):
-    """The JAX runner's render at f32 sweeps (the port's arithmetic)."""
+def _f32_sweeps(jr, tr, stage):
+    """The JAX runner's render at f32 sweeps, and the port runner's."""
     jr.cfg = dataclasses.replace(jr.cfg, sweep_act_bf16=False)
     jr._render_fn = (JS1.make_render_fn(jr.cfg, jr.tcfg) if stage == 1
                      else JS3.make_render_fn(jr.cfg))
+    tr.cfg = dataclasses.replace(tr.cfg, sweep_act_bf16=False)
 
 
 @pytest.fixture(scope="module")
@@ -101,8 +102,8 @@ def chain(tmp_path_factory):
                     is_continue=True, type="indisg_synthetic", device="cpu")
     t3 = TR3.Runner(conf, mode="cal_synthetic_psnr", case=CASE,
                     is_continue=True, type="synthetic", device="cpu")
-    _f32_sweeps(j1, 1)
-    _f32_sweeps(j3, 3)
+    _f32_sweeps(j1, t1, 1)
+    _f32_sweeps(j3, t3, 3)
     return tmp, conf, j1, t1, j3, t3
 
 

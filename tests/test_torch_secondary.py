@@ -1,8 +1,9 @@
 """The PyTorch port's stage-2 pieces against the JAX package on bridged
 weights (tests/util_scene.tiny_config, f32, CPU): the SG helpers, the
 chunked sweeps, Lvis and IndirectLight, each secondary-ray function, and
-lvis_render with the hemisphere draws reproduced from JAX's key.  JAX runs
-with sweep_act_bf16 off, so its coarse sweep is f32 like the port's."""
+lvis_render with the hemisphere draws reproduced from JAX's key.  Both
+packages run with sweep_act_bf16 off, so their coarse sweeps are f32
+(tests/test_torch_bf16_sweep.py holds the bf16 default)."""
 import dataclasses
 
 import jax
@@ -31,13 +32,13 @@ t = torch.from_numpy
 
 
 def pair2(fused: bool = True):
-    """(jcfg, jparams, cfg, model): the tiny JAX config at f32 sweeps and a
+    """(jcfg, jparams, cfg, model): the tiny configs at f32 sweeps and a
     Stage2Model holding the same weights in every group."""
     jcfg, jparams, cfg, _ = build_pair()
     jcfg = dataclasses.replace(jcfg, sweep_act_bf16=False,
                                fused_fine_sweep=fused)
     cfg = dataclasses.replace(cfg, secondary_chunk=jcfg.secondary_chunk,
-                              fused_fine_sweep=fused)
+                              fused_fine_sweep=fused, sweep_act_bf16=False)
     model = TR.Stage2Model(cfg)
     bridge.load_jax_params(model, jax.tree_util.tree_map(np.asarray,
                                                          jparams))

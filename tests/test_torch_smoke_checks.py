@@ -94,3 +94,65 @@ def test_k3_bwd_mask_guard(monkeypatch, fault, near_zero, passes):
     else:
         with pytest.raises(AssertionError, match="beyond rounding"):
             chip_smoke.k3_bwd_masks(cfg, ws, bs, inputs)
+
+
+def _stand_in_bf16(fault):
+    """K3-bwd-bf16's scratch as its twin's bf16 forward fills it, with
+    ``fault(l, a, h)`` applied per chunk."""
+    def launch(cfg, ws, bs, pts, normals, dirs, feat, ct, scratch=None,
+               bf16=False):
+        assert bf16
+        h = _x0(cfg, pts, normals, dirs, feat)
+        for l in range(len(ws) - 1):
+            a = TP.mm_bf16(h, ws[l].t()) + bs[l]
+            h = torch.relu(a)
+            pad = torch.zeros(scratch.shape[0] * TP.TILE, ws[l].shape[0])
+            pad[:len(h)] = fault(l, a, h.clone())
+            scratch[:, l, :, :ws[l].shape[0]] = pad.view(
+                scratch.shape[0], TP.TILE, -1)
+    return launch
+
+
+def _flip_within_bf16_rounding(l, a, h):
+    """Every layer-1 pre-activation within 1e-4 of 0 to the other side:
+    well inside one bf16 ulp of its inputs' terms."""
+    if l == 1:
+        near = a.abs() < 1e-4
+        h[near] = torch.where(a[near] > 0, 0.0, 1e-9)
+    return h
+
+
+@pytest.mark.parametrize("fault,flipped,passes", [
+    (lambda l, a, h: h, False, True),
+    (_flip_within_bf16_rounding, True, True),
+    (_flip_row, False, False),
+    (_zero_row, False, False),
+])
+def test_k3_bwd_bf16_mask_guard(monkeypatch, fault, flipped, passes):
+    """The bf16 guard (k3_bwd_masks with bf16): the masks of K3-bwd-bf16's
+    forward against its twin's bf16 forward may differ wherever a
+    pre-activation lies within BF16_MASK_ULP x sum|x w| of 0, in any
+    number of places, and nowhere else: a flip far from 0 and a row of
+    zeroed activations fail."""
+    cfg = RenderingConfig(d_feature=32, d_hidden=64, n_layers=3,
+                          multires_view=4)
+    net = RenderingNetwork(cfg, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        ws, bs = [list(t) for t in net.effective_weights()]
+    rng = np.random.RandomState(1)
+    dirs = rng.randn(N, 3)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    inputs = [torch.from_numpy(v.astype(np.float32)) for v in (
+        rng.randn(N, 3) * 0.4, rng.randn(N, 3), dirs,
+        rng.randn(N, 32) * 0.5)]
+    monkeypatch.setattr(_cuda, "sm_count", lambda dev: 3)
+    monkeypatch.setattr(RK, "launch_backward", _stand_in_bf16(fault))
+    if passes:
+        masks, text = chip_smoke.k3_bwd_masks(cfg, ws, bs, inputs,
+                                              bf16=True)
+        assert [tuple(m.shape) for m in masks] == [(N, 64)] * 3
+        n = int(text.split(", ")[1].split(" on the other side")[0])
+        assert (n > 0) == flipped, text
+    else:
+        with pytest.raises(AssertionError, match="beyond rounding"):
+            chip_smoke.k3_bwd_masks(cfg, ws, bs, inputs, bf16=True)

@@ -173,7 +173,9 @@ def _next_step(jr, tr, step):
     check_next_step(jr.params, dataclasses.replace(jr.cfg,
                                                    sweep_act_bf16=False),
                     JC.make_optimizer(jr.tcfg, stage=2), jr.opt_state,
-                    tr.model, tr.cfg, tr.tcfg, tr.trainer.opt, step)
+                    tr.model, dataclasses.replace(tr.cfg,
+                                                  sweep_act_bf16=False),
+                    tr.tcfg, tr.trainer.opt, step)
 
 
 def test_port_resumes_a_jax_stage2_checkpoint(tmp_path):

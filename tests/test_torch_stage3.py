@@ -73,7 +73,8 @@ def pair3():
     a Stage3Model holding the same weights in every group."""
     jcfg, jparams = _jax_side()
     cfg = dataclasses.replace(port_config(jcfg),
-                              material=material_config(jcfg.material))
+                              material=material_config(jcfg.material),
+                              sweep_act_bf16=False)
     model = TR.Stage3Model(cfg)
     bridge.load_jax_params(model, jparams)
     return jcfg, jparams, cfg, model
@@ -259,8 +260,9 @@ def _assert_same_state(jr, tr):
 def _next_step(jr, tr, step):
     jcfg = dataclasses.replace(jr.cfg, sweep_act_bf16=False)
     check_next_step(jr.params, jcfg, JC.make_optimizer(jr.tcfg, stage=3),
-                    jr.opt_state, tr.model, tr.cfg, tr.tcfg, tr.trainer.opt,
-                    step)
+                    jr.opt_state, tr.model,
+                    dataclasses.replace(tr.cfg, sweep_act_bf16=False),
+                    tr.tcfg, tr.trainer.opt, step)
 
 
 def test_port_resumes_a_jax_stage3_checkpoint(tmp_path):

@@ -7,6 +7,7 @@ PyTorch port goes, on a GPU.
     python3 tools/profile_torch_stage1.py --stash    # the HBM-stash pair
     python3 tools/profile_torch_stage1.py --womask [--split]
     python3 tools/profile_torch_stage1.py --stage2   # a stage-2 step
+    python3 tools/profile_torch_stage1.py --stage2 --sweep-f32
     python3 tools/profile_torch_stage1.py --stage3   # a stage-3 step
 
 Trains full-width confs/wmask.conf (--womask: confs/womask.conf, with the
@@ -24,10 +25,14 @@ Prints ms/step, rays/s, the device-busy share of the profiled window and
 device time by kernel, each hand-written kernel named by its row of
 PERF.md's table, and writes the table as JSON to build/profile/
 profile_torch_stage1[_womask][_stash][_split][_stage2][_stage3].json.
---stash sets FNEUS_PG_HBM_STASH=1, --split FNEUS_PG_STACKED=0 and --bf16
-FNEUS_CORE_ACT_BF16=1 (K1's bf16 operand mode; without it the tool sets
-0) before the port is imported (the switches are read at import); --bf16
-combines with the other stage-1 flags.
+--stash sets FNEUS_PG_HBM_STASH=1, --split FNEUS_PG_STACKED=0, --bf16
+FNEUS_CORE_ACT_BF16=1 (the render core's bf16 operand mode, K1 and K3;
+without it the tool sets 0) and --sweep-f32 FNEUS_SWEEP_ACT_BF16=0 (stage
+2's coarse sweep on K2 in 3xTF32 rather than its default K2-bf16) before
+the port is imported (the switches are read at import; the tool sets
+FNEUS_PALLAS_SAMPLING=0); --bf16 combines with the other stage-1 flags.
+The table names each kernel's operand mode (-bf16) and records the
+config's sweep modes.
 """
 import json
 import os
@@ -50,7 +55,8 @@ TABLE_ROWS = (("geometry_fwd_kernel", "K1-fwd"),
               ("radiance_fwd_kernel", "K3-fwd"),
               ("radiance_bwd_kernel", "K3-bwd"),
               ("reduce_partials_kernel", "K1-bwd/K3-bwd partial sums"))
-FLAGS = ("--womask", "--stash", "--split", "--stage2", "--stage3", "--bf16")
+FLAGS = ("--womask", "--stash", "--split", "--stage2", "--stage3", "--bf16",
+         "--sweep-f32")
 OUTER = "Lvis.outer"        # the profiler range of the visibility sweep
 OUTER_ROW = "Lvis.outer (visibility sweep, cuBLAS)"
 
@@ -61,7 +67,7 @@ def table_row(kernel: str, stash: bool) -> str:
     if m:
         return BWD_ROWS[m.group(1)] + ("-bf16" if m.group(2) == "true"
                                        else "")
-    bf16 = "-bf16" if "geometry_fwd_kernel<true>" in kernel else ""
+    bf16 = "-bf16" if "_kernel<true>" in kernel else ""
     for key, row in TABLE_ROWS:
         if key in kernel:
             return (row + "-stash" if stash and row == "K1-fwd" else row
@@ -92,14 +98,18 @@ def main() -> int:
     args = sys.argv[1:]
     if not set(args) <= set(FLAGS) or len(set(args)) != len(args):
         print("usage: profile_torch_stage1.py [--womask] [--stash] "
-              "[--split] [--bf16] [--stage2 | --stage3]", file=sys.stderr)
+              "[--split] [--bf16] [--stage2 [--sweep-f32] | --stage3]",
+              file=sys.stderr)
         return 2
-    womask, stash, split, stage2, stage3, bf16 = (f in args for f in FLAGS)
+    womask, stash, split, stage2, stage3, bf16, sweep_f32 = (
+        f in args for f in FLAGS)
     if stash:
         os.environ["FNEUS_PG_HBM_STASH"] = "1"
     if split:
         os.environ["FNEUS_PG_STACKED"] = "0"
     os.environ["FNEUS_CORE_ACT_BF16"] = "1" if bf16 else "0"
+    os.environ["FNEUS_SWEEP_ACT_BF16"] = "0" if sweep_f32 else "1"
+    os.environ["FNEUS_PALLAS_SAMPLING"] = "0"
     import torch
     if not torch.cuda.is_available():
         print("profile: no CUDA device", file=sys.stderr)
@@ -127,7 +137,9 @@ def main() -> int:
     print(card, base, "stage 2" if stage2 else "stage 3" if stage3
           else "HBM-stash pair" if stash
           else "K1-fwd / K1-bwd-split" if split else "K1-fwd / K1-bwd",
-          "in K1's bf16 mode" if bf16 else "")
+          "in the core's bf16 mode (K1, K3)" if bf16 else "",
+          "coarse sweep on K2" if stage2 and sweep_f32
+          else "coarse sweep on K2-bf16" if stage2 else "")
     _cuda.build_all()
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
@@ -219,7 +231,10 @@ def main() -> int:
         f.replace("--", "_") for f in FLAGS if f in args) + ".json"
     with open(os.path.join(OUT, name), "w") as f:
         json.dump({"card": card, "conf": base, "stash": stash,
-                   "split": split, "bf16": bf16, "stage": stage, "step_ms": 1e3 * wall,
+                   "split": split, "bf16": bf16,
+                   "sweep_act_bf16": cfg.sweep_act_bf16,
+                   "use_pallas_sampling": cfg.use_pallas_sampling,
+                   "stage": stage, "step_ms": 1e3 * wall,
                    "profiled_step_ms": step_ms, "busy_ms": busy,
                    "spans_ms": spans, "kernels": rows}, f, indent=1)
     return 0
