@@ -94,12 +94,14 @@
    backward (their bf16 kernels once a step), one stage-1 CLI run with
    --gpu 0 --profile DIR whose trace names K1's and K3's bf16 kernels,
    and one with --debug_nans;
-13. the bf16 sweeps and the bf16 radiance MLP: K2-bf16 at 1,048,576,
-   65,536, 32,768 and 9,001 rows (on the full network's bf16 pack, the
-   last layer narrowed), K3-fwd-bf16 and K3-bwd-bf16 at 65,536 and 9,001
-   rows, each against its twin and the f64 unrounded function
-   (check_flips), two launches of each bitwise equal, timed against the
-   bf16 bound; the 64-ray wmask step of item 12 now runs K1 and K3 in
+13. the bf16 sweeps and the bf16 radiance MLP: K2-bf16 (on wgmma: its
+   ptxas report and SASS, which must hold HGMMA and no HMMA.16816) at
+   1,048,576, 65,536, 32,768, 9,001 and 8,192 rows (on the full network's
+   slab pack, the last layer narrowed) and with the full 257-wide output
+   at 65,536 rows, K3-fwd-bf16 and K3-bwd-bf16 at 65,536 and 9,001 rows,
+   each against its twin and the f64 unrounded function (check_flips),
+   two launches of each bitwise equal, timed against the bf16 bound; the
+   64-ray wmask step of item 12 now runs K1 and K3 in
    bf16; a 64-ray stage-2 step with the default bf16 coarse sweep, card
    against CPU, held to the float64 step (item 9); the stage-2 CLI runs
    launch K2-bf16 once a step (items 9 and 11); the bf16 subprocess runs
@@ -924,21 +926,59 @@ def check_bf16_kernels(device):
 
 
 # item 13: K2-bf16 at the stage-2 coarse sweep's rows, the localisation
-# sweep's, the ladder's first sweep's and a ragged count; K3-fwd-bf16 and
-# K3-bwd-bf16 at the step's rows and a ragged count
-K2_BF16_ROWS = (512 * 4 * 512, 512 * 128, N_SWEEP, N_RAGGED)
+# sweep's, the ladder's first sweep's, a ragged count and the ladder's later
+# sweeps' (fewer 64-row tiles than SMs: one consumer warpgroup a block);
+# K3-fwd-bf16 and K3-bwd-bf16 at the step's rows and a ragged count
+K2_BF16_ROWS = (512 * 4 * 512, 512 * 128, N_SWEEP, N_RAGGED, N_SWEEP_NEW)
+K2_BF16_FULL_ROWS = 512 * 128   # the full [sdf | feature] output's check
+
+
+def sass_counts(lib: str, opcodes) -> dict:
+    """How many SASS instructions of a shared library start with each
+    opcode (cuobjdump -sass of the toolkit beside nvcc)."""
+    from factored_neus_tpu_torch.ops import _cuda
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                     sass)
+    return {op: sum(o.startswith(op) for o in ops) for op in opcodes}
+
+
+def k2_bf16_build_report() -> dict:
+    """K2-bf16's registers, spills and shared memory as ptxas reported them
+    at the build, any wgmma serialization ptxas warned of, and its SASS's
+    HGMMA (warpgroup) and HMMA.16816 (mma.sync bf16) counts; raises
+    unless it runs on wgmma alone."""
+    from factored_neus_tpu_torch.ops import _cuda
+    src = "sdf_fwd_bf16.cu"
+    log = _cuda.BUILD_LOG.get(src, "")
+    info = [l.strip() for l in log.splitlines()
+            if "registers" in l or "spill" in l or "smem" in l
+            or "wgmma" in l.lower()]
+    counts = sass_counts(_cuda._lib_path(src), ("HGMMA", "HMMA.16816"))
+    for line in info:
+        print(f"  K2-bf16 ptxas: {line}")
+    print(f"  K2-bf16 SASS: {counts['HGMMA']} HGMMA, "
+          f"{counts['HMMA.16816']} HMMA.16816")
+    if counts["HGMMA"] == 0 or counts["HMMA.16816"] != 0:
+        raise AssertionError("K2-bf16 must run on wgmma and not on "
+                             "mma.sync")
+    return {"ptxas": info, "sass": counts}
 K3_BF16_ROWS = (N_CORE, N_RAGGED)
 
 
 def check_bf16_sweep_kernels(device):
-    """Item 13: K2-bf16 (on the full network's bf16 pack, the last layer
-    narrowed, as a stage-2 run reads it) at K2_BF16_ROWS, K3-fwd-bf16 and
-    K3-bwd-bf16 (on one bf16 pack, as a step hands it from the forward to
-    the backward) at K3_BF16_ROWS, each against its twin and the f64
-    unrounded function (check_flips), two launches of each bitwise equal,
-    and timed against its bf16 bound at the first shape (K2-bf16: every
-    shape, under "shapes").  K3-bwd-bf16's twin differentiates on the
-    kernel's own ReLU masks (k3_bwd_masks with bf16)."""
+    """Item 13: K2-bf16 (its build report first; on the full network's
+    slab pack, the last layer narrowed, as a stage-2 run reads it) at
+    K2_BF16_ROWS and with the full output at K2_BF16_FULL_ROWS,
+    K3-fwd-bf16 and K3-bwd-bf16 (on one bf16 pack, as a step hands it
+    from the forward to the backward) at K3_BF16_ROWS, each against its
+    twin and the f64 unrounded function (check_flips), two launches of
+    each bitwise equal, and timed against its bf16 bound at the first
+    shape (K2-bf16: every shape, under "shapes").  K3-bwd-bf16's twin
+    differentiates on the kernel's own ReLU masks (k3_bwd_masks with
+    bf16)."""
     import torch
     from factored_neus_tpu_torch.models.fields import (RenderingConfig,
                                                        RenderingNetwork,
@@ -957,7 +997,9 @@ def check_bf16_sweep_kernels(device):
     wn, bn = list(ws[:-1]) + [ws[-1][:1]], list(bs[:-1]) + [bs[-1][:1]]
     S_n = sum(w.numel() for w in wn)                    # 459,008
     k2_wbytes = sum(2 * w.numel() + 4 * b.numel() for w, b in zip(wn, bn))
-    pack = TP.pack_weights_bf16(ws)
+    build = k2_bf16_build_report()
+    # the full network's slab pack, read narrowed, as a stage-2 run has it
+    pack = SK.make_sweep_pack(cfg, ws)
     gen = torch.Generator(device=device).manual_seed(13)
     shapes, errs = [], {}
     for n in K2_BF16_ROWS:
@@ -994,14 +1036,37 @@ def check_bf16_sweep_kernels(device):
               f"({shapes[-1]['bound_ms'] / shapes[-1]['ms']:.1%} of it); "
               f"two launches bitwise equal")
         del x
+
+    # the full [sdf | feature] output, 257 wide (m64n256 + m64n8 last)
+    n = K2_BF16_FULL_ROWS
+    x = torch.randn(n, 3, device=device, generator=gen) * 0.5
+    full = lambda: SK.sdf_forward(ws, bs, cfg, x, pack, bf16=True)
+    with torch.no_grad():
+        twin = SK.sdf_forward_plain(ws, bs, cfg, x, bf16=True)
+        ref = SK.sdf_forward_plain([w.double() for w in ws],
+                                   [b.double() for b in bs], cfg,
+                                   x.double()).float()
+    got, again = full(), full()
+    torch.cuda.synchronize()
+    split = lambda t: [t[:, :1], t[:, 1:]]
+    errs["sdf_fwd_bf16"] = max(errs["sdf_fwd_bf16"], check_flips(
+        f"K2-bf16 full output N={n}", split(got), split(twin), split(ref),
+        ["sdf", "feature"]))
+    if not torch.equal(got, again):
+        raise AssertionError("K2-bf16 full output: two launches differ")
+    full_ms = cuda_ms(full, 20)
+    print(f"K2-bf16 full output N={n}: {full_ms:.3f} ms; two launches "
+          f"bitwise equal")
+    del x, twin, ref, got, again
     results = [{"name": "sdf_fwd_bf16", "route": "cuda",
-                "source": "factored_neus_tpu_torch/csrc/sdf_fwd.cu",
+                "source": "factored_neus_tpu_torch/csrc/sdf_fwd_bf16.cu",
                 "replaces": "factored_neus_tpu/ops/pallas_sdf.py:221",
                 "launches": 0, "max_abs_err": errs["sdf_fwd_bf16"],
                 **{k: shapes[0][k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by")},
                 "library_ms": None, "rows": shapes[0]["rows"],
-                "shapes": shapes}]
+                "shapes": shapes, "full_output_ms": full_ms,
+                "build": build}]
 
     rS = sum(w.numel() for w in rws)                   # 271,360
     rwbytes = sum(2 * w.numel() + 4 * b.numel() for w, b in zip(rws, rbs))
@@ -1729,7 +1794,7 @@ def check_stage2_shapes(device, results, model) -> None:
     from factored_neus_tpu_torch.ops import radiance_kernel as RK
     from factored_neus_tpu_torch.ops import sdf_kernel as SK
 
-    (ws, bs, pack, _), (rws, rbs, rpack, _) = model.kernel_weights()
+    (ws, bs, pack, *_), (rws, rbs, rpack, *_) = model.kernel_weights()
     cfg, rcfg = model.stage1.sdf.cfg, model.stage1.color.cfg
     wn, bn = list(ws[:-1]) + [ws[-1][:1]], list(bs[:-1]) + [bs[-1][:1]]
     gen = torch.Generator(device=device).manual_seed(3)

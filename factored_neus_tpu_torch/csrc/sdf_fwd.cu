@@ -23,23 +23,10 @@
 // ring, two stages of 16 rows of stride 264, big and small (67,584 B):
 // 211,968 B of the 232,448 a block may use.
 //
-// K2-bf16 (entry point sdf_fwd_bf16) replaces sdf_forward_pallas with
-// bf16_matmul=True (the same body, the rounding at _build_kernel's
-// product): every layer's operands rounded to bf16 (to nearest even) and
-// summed in f32, on bf16 mma (tc_mma.cuh, BF) from pack_weights_bf16's
-// pack, K1's bf16 pack where the step has one.  The encoding, biases and
-// softplus stay f32; the skip input [h | enc] / sqrt 2 is formed in f32 and
-// rounded once, as its fragments load, as Pallas rounds it at the dot.
-// The 39 encoding columns are one full k16 step, one more full and a half
-// step (the engine's last stage of a depth of 40 is 8 rows deep and reads
-// no column past 40; the pack pads the block to 48 rows).  Bound:
-// operations, one bf16 product's worth of the FLOPs over 989 TFLOP/s.  Its
-// ring is a quarter of the 3xTF32 one's a stage, so shared memory does not
-// grow (210,960 B at full width).
+// K2-bf16, the same function on bf16 operands, is sdf_fwd_bf16.cu (wgmma).
 #include "sdf_mlp.cuh"
 #include "tc_mma.cuh"
 
-template <bool BF>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 sdf_fwd_kernel(TcDims d, const float* __restrict__ x, float* out,
                int n_tiles) {
@@ -74,8 +61,8 @@ sdf_fwd_kernel(TcDims d, const float* __restrict__ x, float* out,
     // encoding appended before a skip)
     for (int l = 0; l < lL; ++l) {
       const int N = d.outs[l];
-      tc_product<2, BF>(d, l == 0 ? E : X, l == 0 ? eld : ld, d.kp[l],
-                        d.fwd_off[l], d.fwd_st[l], d.np[l], Y, ld, ring);
+      tc_product<2>(d, l == 0 ? E : X, l == 0 ? eld : ld, d.kp[l],
+                    d.fwd_off[l], d.fwd_st[l], d.np[l], Y, ld, ring);
       __syncthreads();
       const bool skip_next = (d.skip_mask >> (l + 1)) & 1;
       const float post = skip_next ? inv_sqrt2 : 1.f;
@@ -94,8 +81,8 @@ sdf_fwd_kernel(TcDims d, const float* __restrict__ x, float* out,
 
     // last layer -> [sdf / scale | feature], or sdf / scale when narrowed
     const int N = d.outs[lL];
-    tc_product<2, BF>(d, lL == 0 ? E : X, lL == 0 ? eld : ld, d.kp[lL],
-                      d.fwd_off[lL], d.fwd_st[lL], d.np[lL], Y, ld, ring);
+    tc_product<2>(d, lL == 0 ? E : X, lL == 0 ? eld : ld, d.kp[lL],
+                  d.fwd_off[lL], d.fwd_st[lL], d.np[lL], Y, ld, ring);
     __syncthreads();
     for (int idx = tid; idx < TC_TILE * N; idx += TC_THREADS) {
       const int r = idx / N, c = idx - r * N;
@@ -108,11 +95,14 @@ sdf_fwd_kernel(TcDims d, const float* __restrict__ x, float* out,
   }
 }
 
-template <bool BF>
-static int launch_sdf_fwd(const int* ia, const unsigned long long* p,
-                          float scale, unsigned long long stream) {
+// Integer arguments: tc_dims_from_args' (the pack's layout after ins and
+// outs; the last layer's outs may be narrower than the pack's block).
+// Pointers: [x, out, pack, b[L]].  Returns a cudaError_t value; 0 when the
+// launch was accepted.
+extern "C" int sdf_fwd(const int* ia, const unsigned long long* p,
+                       float scale, unsigned long long stream) {
   TcDims d;
-  int rc = tc_dims_from_args(ia, scale, (const float*)p[2], &d, BF);
+  int rc = tc_dims_from_args(ia, scale, (const float*)p[2], &d);
   if (rc) return rc;
   for (int l = 0; l < d.L; ++l) d.b[l] = (const float*)p[3 + l];
   const int grid = ia[6];
@@ -120,25 +110,10 @@ static int launch_sdf_fwd(const int* ia, const unsigned long long* p,
   const size_t smem = tc_smem_bytes(d, (size_t)TC_TILE * (d.eld + 2 * d.ld));
   if (!smem || grid < 1) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      sdf_fwd_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sdf_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  sdf_fwd_kernel<BF><<<grid, TC_THREADS, smem, (cudaStream_t)stream>>>(
+  sdf_fwd_kernel<<<grid, TC_THREADS, smem, (cudaStream_t)stream>>>(
       d, (const float*)p[0], (float*)p[1], n_tiles);
   return (int)cudaGetLastError();
-}
-
-// Integer arguments: tc_dims_from_args' (the pack's layout after ins and
-// outs; the last layer's outs may be narrower than the pack's block).
-// Pointers: [x, out, pack, b[L]].  Returns a cudaError_t value; 0 when the
-// launch was accepted.
-extern "C" int sdf_fwd(const int* ia, const unsigned long long* p,
-                       float scale, unsigned long long stream) {
-  return launch_sdf_fwd<false>(ia, p, scale, stream);
-}
-
-// K2-bf16: sdf_fwd's arguments, the pack pack_weights_bf16's.
-extern "C" int sdf_fwd_bf16(const int* ia, const unsigned long long* p,
-                            float scale, unsigned long long stream) {
-  return launch_sdf_fwd<true>(ia, p, scale, stream);
 }

@@ -40,10 +40,11 @@ from ..ops.mlp import WNLinear, dense_init_, sdf_geometric_init_
 
 
 # (effective weights, biases, 3xTF32 weight pack or None, bf16 weight pack
-# or None): _WNLayers.kernel_weights
+# or None, K2-bf16's slab pack or None): _WNLayers.kernel_weights
 KernelWeights = Tuple[List[torch.Tensor], List[torch.Tensor],
                       Optional[Tuple[torch.Tensor, TP.PackLayout]],
-                      Optional[Tuple[torch.Tensor, TP.PackLayout]]]
+                      Optional[Tuple[torch.Tensor, TP.PackLayout]],
+                      Optional[Tuple[torch.Tensor, TP.SweepLayout]]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,30 +86,39 @@ class _WNLayers(nn.Module):
         ls = self.layers()
         return [l.effective_weight() for l in ls], [l.bias for l in ls]
 
-    def kernel_weights(self, bf16: bool = False, f32: bool = True
-                       ) -> KernelWeights:
-        """(ws, bs, pack, pack16): the effective weights and biases,
-        differentiable in g, v and b, and on a CUDA device their weight
-        packs for the kernels, built without grad (None on the CPU, or
-        where not asked for): ``f32``, tc_pack.pack_weights' (3xTF32);
-        ``bf16``, tc_pack.pack_weights_bf16's (the bf16 operand mode).
-        Built once a step, or once a validation image or a stage-2/3 run,
-        they serve every launch on these weights: K1 and the K2 sweeps,
-        each on the pack of its mode, for the SDF network; K3-fwd and
-        K3-bwd for the radiance MLP."""
+    def kernel_weights(self, bf16: bool = False, f32: bool = True,
+                       sweep_bf16: bool = False) -> KernelWeights:
+        """(ws, bs, pack, pack16, sweep16): the effective weights and
+        biases, differentiable in g, v and b, and on a CUDA device their
+        weight packs for the kernels, built without grad (None on the CPU,
+        or where not asked for): ``f32``, tc_pack.pack_weights' (3xTF32);
+        ``bf16``, tc_pack.pack_weights_bf16's (the bf16 operand mode);
+        ``sweep_bf16`` (the SDF network only), K2-bf16's slab pack
+        (sdf_kernel.make_sweep_pack).  Built once a step, or once a
+        validation image or a stage-2/3 run, they serve every launch on
+        these weights: K1 and the K2 sweeps, each on the pack of its mode,
+        for the SDF network; K3-fwd and K3-bwd for the radiance MLP."""
         ws, bs = self.effective_weights()
-        pack = pack16 = None
+        pack = pack16 = sweep16 = None
         if ws[0].is_cuda:
             with torch.no_grad():
                 pack = TP.pack_weights(ws) if f32 else None
                 pack16 = TP.pack_weights_bf16(ws) if bf16 else None
-        return ws, bs, pack, pack16
+                sweep16 = (SK.make_sweep_pack(self.cfg, ws) if sweep_bf16
+                           else None)
+        return ws, bs, pack, pack16, sweep16
 
 
 def mode_pack(weights: KernelWeights, bf16: bool):
-    """The pack of kernel_weights' result that the operand mode reads
-    (None where it was not built: the kernel wrapper builds its own)."""
+    """The pack of kernel_weights' result that K1's or K3's operand mode
+    reads (None where it was not built: the kernel wrapper builds its
+    own)."""
     return weights[3] if bf16 else weights[2]
+
+
+def sweep_pack(weights: KernelWeights, bf16: bool):
+    """The pack that K2 (bf16: K2-bf16) reads, as mode_pack."""
+    return weights[4] if bf16 else weights[2]
 
 
 class SDFNetwork(_WNLayers):
@@ -151,12 +161,13 @@ class SDFNetwork(_WNLayers):
         caller already has them (the pack of the mode is built here when
         theirs has none)."""
         with torch.no_grad():
-            weights = weights or self.kernel_weights(bf16, f32=not bf16)
+            weights = weights or self.kernel_weights(f32=not bf16,
+                                                     sweep_bf16=bf16)
             ws, bs = weights[:2]
             ws = list(ws[:-1]) + [ws[-1][:1]]
             bs = list(bs[:-1]) + [bs[-1][:1]]
             return SK.sdf_forward(ws, bs, self.cfg, x,
-                                  mode_pack(weights, bf16), bf16)[:, 0]
+                                  sweep_pack(weights, bf16), bf16)[:, 0]
 
     def value_grad_feat(self, x: torch.Tensor,
                         weights: Optional[KernelWeights] = None,

@@ -127,11 +127,11 @@ class Stage1Model(nn.Module):
         the packs that their kernels read on a CUDA device: ``bf16``, the
         render core in its bf16 mode (K1's and K3's bf16 packs, and no
         3xTF32 radiance pack); ``sweep_bf16``, the ladder's sweeps on
-        K2-bf16 (the SDF network's bf16 pack; its 3xTF32 pack only where K1
-        or a sweep still reads it).  Built once a step by ``render``, or
+        K2-bf16 (the SDF network's slab pack; its 3xTF32 pack only where
+        K1 or a sweep still reads it).  Built once a step by ``render``, or
         once a validation image by its caller."""
-        return (self.sdf.kernel_weights(bf16 or sweep_bf16,
-                                        f32=not (bf16 and sweep_bf16)),
+        return (self.sdf.kernel_weights(bf16, f32=not (bf16 and sweep_bf16),
+                                        sweep_bf16=sweep_bf16),
                 self.color.kernel_weights(bf16, f32=not bf16))
 
 
@@ -396,7 +396,7 @@ class Stage2Model(nn.Module):
                        ) -> Tuple[F.KernelWeights, F.KernelWeights]:
         """The frozen SDF network's and radiance MLP's kernel weights
         (Stage1Model.kernel_weights' packs; ``sweep_bf16``: with the SDF
-        network's bf16 pack, for the sweeps on K2-bf16), built once and
+        network's slab pack, for the sweeps on K2-bf16), built once and
         kept until a stage-1 parameter changes (a checkpoint or bridge load
         writes into them) or moves, or other packs are asked for."""
         key = (tuple((p.data_ptr(), p._version)

@@ -14,14 +14,17 @@ multiplies on the tensor cores in 3xTF32 (csrc/tc_mma.cuh) from a weight
 pack (tc_pack.pack_weights): its own, or K1's pack of the same step, whose
 last W^T block starts with the narrowed layer's column.
 
-K2-bf16 (``bf16=True``) is sdf_forward_pallas(bf16_matmul=True): every
-layer's operands rounded to bf16 and summed in f32, on bf16 ``mma.sync``
-from tc_pack.pack_weights_bf16's pack (its own, or the step's bf16 pack of
-the full network).  It serves the sweeps of the renderer's
-``use_pallas_sampling`` and stage 2's secondary coarse sweep under
-``sweep_act_bf16`` (models/renderer.py).  Its twin is
+K2-bf16 (``bf16=True``, csrc/sdf_fwd_bf16.cu) is
+sdf_forward_pallas(bf16_matmul=True): every layer's operands rounded to
+bf16 and summed in f32, on Hopper's warpgroup ``wgmma`` from
+tc_pack.pack_sweep_bf16's slab pack (make_sweep_pack: its own, or the one
+a run or step builds, fields.SDFNetwork.kernel_weights(sweep_bf16=True),
+which may hold the full last layer).  It serves the sweeps of the
+renderer's ``use_pallas_sampling`` and stage 2's secondary coarse sweep
+under ``sweep_act_bf16`` (models/renderer.py).  Its twin is
 ``sdf_forward_plain(bf16=True)``, each product explicit on bf16-rounded
-operands (tc_pack.mm_bf16).
+operands (tc_pack.mm_bf16); ``sdf_forward_slabs`` is the kernel's own
+arithmetic over its pack in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -36,12 +39,16 @@ from .embedder import positional_encoding
 from .mlp import softplus_beta
 
 SDF_FWD = _cuda.CudaKernel("sdf_fwd", "sdf_fwd.cu", "sdf_fwd")
-SDF_FWD_BF16 = _cuda.CudaKernel("sdf_fwd_bf16", "sdf_fwd.cu", "sdf_fwd_bf16")
+SDF_FWD_BF16 = _cuda.CudaKernel("sdf_fwd_bf16", "sdf_fwd_bf16.cu",
+                                "sdf_fwd_bf16")
 # the kernel of each operand mode (bf16 or not)
 KERNELS = {False: SDF_FWD, True: SDF_FWD_BF16}
 TILE = TP.TILE
 ENC_LD = 64               # widest positional encoding (TC_MAX_ENC)
 MAX_WIDTH = 288           # widest layer a tensor-core product covers
+WG_ROWS = 64              # rows of a K2-bf16 warpgroup's tile
+SW_ENC_STRIDE = 48        # K2-bf16's encoding tile row (floats, SW_EW)
+SW_MAX_STAGES = 8         # most stages of K2-bf16's slab ring
 
 
 def layer_dims(cfg, ws: Sequence[torch.Tensor]
@@ -71,17 +78,16 @@ def enc_stride(cfg) -> int:
     return TP.round8(cfg.d_embed) + 4
 
 
-def kernel_iargs(cfg, ws, n: int, grid: int, lay: TP.PackLayout,
-                 bf16: bool = False) -> Tuple[List[int], int]:
-    """K2's (bf16: K2-bf16's) integer arguments (tc_dims_from_args: the
-    layers, then the pack's layout) and the activation row stride ld, the
-    widest layer rounded up to 8, plus 4; raises for a pack of the other
-    operand type, or a network whose tiles and weight ring do not fit in a
-    block's shared memory."""
+def kernel_iargs(cfg, ws, n: int, grid: int, lay: TP.PackLayout
+                 ) -> Tuple[List[int], int]:
+    """K2's integer arguments (tc_dims_from_args: the layers, then the
+    pack's layout) and the activation row stride ld, the widest layer
+    rounded up to 8, plus 4; raises for a pack of another operand type, or
+    a network whose tiles and weight ring do not fit in a block's shared
+    memory."""
     ins, outs, skip_mask = layer_dims(cfg, ws)
-    if lay.operand != ("bf16" if bf16 else "3xtf32"):
-        raise ValueError(f"K2{'-bf16' if bf16 else ''} multiplies in "
-                         f"{'bf16' if bf16 else '3xTF32'}: it takes no "
+    if lay.operand != "3xtf32":
+        raise ValueError(f"K2 multiplies in 3xTF32: it takes no "
                          f"{lay.operand} pack")
     TP.check_layout(lay, ins, outs)
     ld = TP.round8(max(ins + outs)) + 4
@@ -92,10 +98,63 @@ def kernel_iargs(cfg, ws, n: int, grid: int, lay: TP.PackLayout,
             *ins, *outs, *TP.layout_iargs(lay)], ld
 
 
+def skip_layers(cfg, n_layers: int) -> Tuple[int, ...]:
+    return tuple(l for l in cfg.skip_in if 0 <= l < n_layers)
+
+
+def make_sweep_pack(cfg, ws: Sequence[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, TP.SweepLayout]:
+    """K2-bf16's slab pack of ws (tc_pack.pack_sweep_bf16)."""
+    return TP.pack_sweep_bf16(ws, skip_layers(cfg, len(ws)), cfg.d_embed)
+
+
+def sweep_iargs(cfg, ws, n: int, lay, sms: int) -> Tuple[List[int], int]:
+    """K2-bf16's integer arguments (csrc/sdf_fwd_bf16.cu) and its grid:
+    64-row tiles, two consumer warpgroups a block (128 rows a pass) when
+    there are more tiles than SMs, else one, so that a small call still
+    spreads over the SMs; one persistent block a pass up to one a SM.
+    Raises unless ``lay`` is the slab layout of ws, or of the same network
+    with a wider last layer (the full network's pack, read narrowed: the
+    first 8 columns of each slab of its last layer)."""
+    ins, outs, _ = layer_dims(cfg, ws)
+    if not isinstance(lay, TP.SweepLayout):
+        raise ValueError(f"K2-bf16 multiplies on wgmma: it takes no "
+                         f"{lay.operand} pack")
+    want = TP.sweep_layout(ins, outs, skip_layers(cfg, len(ws)),
+                           cfg.d_embed)
+    if (lay.enc, lay.nslab, lay.off, lay.cols[:-1]) != (
+            want.enc, want.nslab, want.off, want.cols[:-1]) or \
+            lay.cols[-1] < want.cols[-1]:
+        raise ValueError("K2-bf16: the pack's slab layout does not match "
+                         "the network's widths")
+    tiles = -(-n // WG_ROWS)
+    nc = 2 if tiles > sms else 1
+    n_pass = -(-tiles // nc)
+    grid = min(n_pass, sms)
+    L = len(ws)
+    widest = TP.SLAB_ROW * max(want.cols)
+    if sweep_smem(L, nc, widest)[0] < max(want.nslab):
+        raise ValueError("K2-bf16: a layer's slabs do not fit in the ring")
+    stride = [TP.SLAB_ROW * c for c in lay.cols]
+    return [L, cfg.multires, cfg.d_embed, n, nc, grid, n_pass, *lay.enc,
+            *stride, *lay.off, *outs], grid
+
+
 def smem_bytes(cfg, lay: TP.PackLayout, outs: Sequence[int], ld: int) -> int:
     """K2's shared memory: the encoding tile, two activation tiles and the
     weight ring."""
     return TP.smem_bytes(lay, outs, TILE * (enc_stride(cfg) + 2 * ld))
+
+
+def sweep_smem(n_layers: int, nc: int, widest_copy: int) -> Tuple[int, int]:
+    """(stages, bytes) of K2-bf16's shared memory (the mirror of
+    sdf_fwd_bf16's launcher): alignment slack, nc encoding tiles, the
+    biases, and as many ring stages of the widest slab copy (rounded to
+    1024 bytes, with its two mbarriers) as fit, at most SW_MAX_STAGES."""
+    stage = -(-widest_copy // 1024) * 1024
+    fixed = 1024 + nc * WG_ROWS * SW_ENC_STRIDE * 4 + n_layers * 264 * 4
+    ns = min(SW_MAX_STAGES, (TP.SMEM_MAX - fixed) // (stage + 16))
+    return ns, fixed + ns * (stage + 16)
 
 
 def sdf_forward_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
@@ -124,13 +183,53 @@ def sdf_forward_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
     return torch.cat([h[:, :1] / cfg.scale, h[:, 1:]], dim=-1)
 
 
+def sdf_forward_slabs(pack: Tuple[torch.Tensor, TP.SweepLayout],
+                      bs: Sequence[torch.Tensor], cfg, x: torch.Tensor,
+                      out_dim: int) -> torch.Tensor:
+    """K2-bf16's arithmetic in plain PyTorch, read from its slab pack: the
+    encoding and h padded to the pack's k-steps (a hidden layer 256 wide,
+    softplus(0) in its padding, which meets zero weight rows), each
+    product a float32 sum of the slabs' products in order, the skip input
+    / sqrt 2 rounded once; [N, out_dim], out_dim the last layer's width
+    (at most the pack's)."""
+    pack, lay = pack
+    L = len(lay.enc)
+    enc = x * cfg.scale
+    if cfg.multires > 0:
+        enc = positional_encoding(enc, cfg.multires)
+    enc = torch.nn.functional.pad(enc, (0, TP.ENC_COLS - enc.shape[1]))
+    inv_sqrt2 = 1.0 / math.sqrt(2.0)
+    h = None
+    for l in range(L):
+        parts = [] if l == 0 else [h]
+        if lay.enc[l]:
+            parts.append(TP.bf16_round(enc * (1.0 if l == 0 else inv_sqrt2)))
+        blk = TP.sweep_block(pack, lay, l)
+        a = torch.cat(parts, -1)
+        a = torch.nn.functional.pad(a, (0, blk.shape[0] - a.shape[1]))
+        acc = torch.zeros(x.shape[0], blk.shape[1], dtype=torch.float32,
+                          device=x.device)
+        for k0 in range(0, blk.shape[0], TP.SLAB_K):
+            acc = acc + a[:, k0:k0 + TP.SLAB_K] @ blk[k0:k0 + TP.SLAB_K]
+        b = torch.nn.functional.pad(bs[l].float(),
+                                    (0, blk.shape[1] - bs[l].shape[0]))
+        y = acc + b
+        if l < L - 1:
+            y = softplus_beta(y, 100.0)
+            h = TP.bf16_round(y * inv_sqrt2 if lay.enc[l + 1] else y)
+    y = y[:, :out_dim]
+    return torch.cat([y[:, :1] / cfg.scale, y[:, 1:]], dim=-1)
+
+
 def _launch(ws, bs, cfg, x: torch.Tensor, pack, bf16: bool
             ) -> torch.Tensor:
     kernel = KERNELS[bf16]
     dev = x.device
     x = x.detach().contiguous()
     bs = [b.detach().contiguous() for b in bs]
-    pack, lay = pack if pack is not None else TP.make_pack(ws, bf16)
+    if pack is None:
+        pack = make_sweep_pack(cfg, ws) if bf16 else TP.make_pack(ws)
+    pack, lay = pack
     _cuda.check_cuda_tensors(kernel.name, [x, pack, *bs])
     n = x.shape[0]
     if x.dim() != 2 or x.shape[1] != 3:
@@ -138,8 +237,11 @@ def _launch(ws, bs, cfg, x: torch.Tensor, pack, bf16: bool
     out = torch.empty(n, ws[-1].shape[0], device=dev, dtype=torch.float32)
     if n == 0:
         return out
-    grid = min(-(-n // TILE), _cuda.sm_count(dev))
-    iargs, _ = kernel_iargs(cfg, ws, n, grid, lay, bf16)
+    if bf16:
+        iargs, _ = sweep_iargs(cfg, ws, n, lay, _cuda.sm_count(dev))
+    else:
+        grid = min(-(-n // TILE), _cuda.sm_count(dev))
+        iargs, _ = kernel_iargs(cfg, ws, n, grid, lay)
     kernel.launch(iargs, [x, out, pack, *bs], cfg.scale, dev)
     return out
 
@@ -150,7 +252,7 @@ def sdf_forward(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor], cfg,
                 bf16: bool = False) -> torch.Tensor:
     """No-grad SDF forward: K2 (bf16: K2-bf16) on a CUDA tensor, the plain
     twin on a CPU tensor.  The result carries no gradient.  ``pack``:
-    pack_weights (bf16: pack_weights_bf16) of ws, or of the same network
+    pack_weights (bf16: make_sweep_pack) of ws, or of the same network
     with the full last layer (the step's pack); built here when not
     given."""
     if x.is_cuda:

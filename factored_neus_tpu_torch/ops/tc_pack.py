@@ -1,13 +1,16 @@
 """The weight pack and the arithmetic of the tensor-core kernels
 (csrc/tc_mma.cuh): K1 (ops/geometry_kernel.py), K2 (ops/sdf_kernel.py) and
 K3 (ops/radiance_kernel.py) multiply in 3xTF32 on ``mma.sync``, and each
-also in its bf16 operand mode, on bf16 ``mma.sync``.
+also in its bf16 operand mode, on bf16 ``mma.sync`` (K2-bf16 on ``wgmma``).
 
 ``pack_weights`` lays every layer's weight out once in the form the kernels
 stage into shared memory, already split into TF32 big and small halves;
 ``pack_weights_bf16`` lays them out rounded to bf16, two k-rows to a
-32-bit word.  ``layout_iargs`` is the layout as the kernels are told it,
-and ``smem_bytes`` mirrors their shared-memory count (tc_dims_from_args
+32-bit word.  ``pack_sweep_bf16`` is K2-bf16's (csrc/sdf_fwd_bf16.cu, on
+wgmma): each layer's bf16 W^T cut into slabs of 64 k, each slab the exact
+shared-memory image its wgmma B descriptor reads (csrc/wgmma.cuh).
+``layout_iargs`` is the layout as the kernels are told it, and
+``smem_bytes`` mirrors their shared-memory count (tc_dims_from_args
 and tc_smem_bytes), so a network a kernel cannot hold is refused before
 any launch.  ``mm_3xtf32`` and ``mm_bf16`` emulate the kernels' product
 arithmetic in plain PyTorch for the CPU tests.
@@ -316,3 +319,133 @@ def smem_bytes(lay: PackLayout, outs: Sequence[int],
     chunk = max(TILE * chunk_stride(o) + 3 for o in outs)
     ring = -(-max(2 * stage, chunk) // 4) * 4
     return 4 * (fixed_floats + ring)
+
+
+# -- K2-bf16's pack: slabs for wgmma ----------------------------------------
+
+SLAB_K = 64                # k rows of a slab: one 128-byte row of bf16
+SLAB_ROW = 128             # bytes of one column's row in a slab
+HIDDEN_COLS = 256          # columns of a hidden layer's product
+FULL_LAST_COLS = 264       # 256 + 8: a full last layer (m64n256 + m64n8)
+NARROW_LAST_COLS = 8       # a last layer of at most 8 outputs (m64n8)
+ENC_COLS = 48              # widest encoding: three k-steps
+
+
+class SweepLayout(NamedTuple):
+    """Layout of pack_sweep_bf16's pack.  Layer l's input, the k rows of
+    its W^T: h (the last layer's output, zero-padded to HIDDEN_COLS; none
+    for layer 0), then, where ``enc[l]`` (layer 0 and a skip layer), the
+    encoding (zero-padded to ENC_COLS): a skip layer's rows are reordered
+    to [h | pad | enc | pad].  Its ``nslab[l]`` slabs of SLAB_K rows (four
+    of h, one of the encoding) each hold ``cols[l]`` columns (256 for a
+    hidden layer, 8 or 264 for the last) and start at byte ``off[l] + s *
+    cols[l] * SLAB_ROW``; ``nbytes`` in all.  The fixed depths let the
+    kernel issue every layer's products in one straight path."""
+    enc: List[int]
+    nslab: List[int]
+    cols: List[int]
+    off: List[int]
+    nbytes: int
+    operand: str = "wgmma-bf16"
+
+
+def sweep_layout(ins: Sequence[int], outs: Sequence[int],
+                 skip_layers: Sequence[int], d_embed: int) -> SweepLayout:
+    """The slab layout of an SDF network of layers ins -> outs whose layer
+    0 and ``skip_layers`` read the d_embed-wide encoding after h; raises for
+    a network K2-bf16 cannot run (a hidden layer over 256 columns, a last
+    layer over 264, an encoding over 48, a skip into the last layer, a
+    single layer)."""
+    L = len(ins)
+    if d_embed > ENC_COLS or any(o > HIDDEN_COLS for o in outs[:-1]) or \
+            outs[-1] > FULL_LAST_COLS or L < 2 or L - 1 in skip_layers:
+        raise ValueError(f"K2-bf16 takes two layers or more, hidden widths "
+                         f"<= {HIDDEN_COLS}, a last layer <= "
+                         f"{FULL_LAST_COLS} with no skip into it and an "
+                         f"encoding <= {ENC_COLS} wide")
+    enc, nslab, cols, off, pos = [], [], [], [], 0
+    for l in range(L):
+        enc.append(int(l == 0 or l in skip_layers))
+        nslab.append((HIDDEN_COLS // SLAB_K if l else 0) + enc[-1])
+        cols.append(HIDDEN_COLS if l < L - 1 else
+                    NARROW_LAST_COLS if outs[l] <= NARROW_LAST_COLS
+                    else FULL_LAST_COLS)
+        off.append(pos)
+        pos += nslab[-1] * cols[-1] * SLAB_ROW
+    return SweepLayout(enc, nslab, cols, off, pos)
+
+
+def swizzle128(e: np.ndarray) -> np.ndarray:
+    """Element index (bf16) within a slab of plain index e = n * 64 + k:
+    the 128-byte swizzle, 16-byte chunk (k // 8) ^ (n % 8).  Its own
+    inverse."""
+    return e ^ (((e >> 6) & 7) << 3)
+
+
+def sweep_k_rows(lay: SweepLayout, l: int, in_dim: int,
+                 d_embed: int) -> np.ndarray:
+    """Row k of layer l's slabs for each input column of its W [out, in]:
+    h's columns first, the encoding's from row HIDDEN_COLS on (from row 0
+    in layer 0)."""
+    c = np.arange(in_dim)
+    if not lay.enc[l]:
+        return c
+    h = in_dim - d_embed
+    return np.where(c < h, c, (HIDDEN_COLS if l else 0) + c - h)
+
+
+@functools.lru_cache(maxsize=16)
+def _sweep_sources(ins: Tuple[int, ...], outs: Tuple[int, ...],
+                   skip_layers: Tuple[int, ...], d_embed: int,
+                   device: torch.device) -> Tuple[torch.Tensor, SweepLayout]:
+    """For each bf16 element of the pack, the index of its weight in the
+    weights flattened one after another (each [out, in] row-major), or
+    the index one past them (a zero); on ``device``, built once."""
+    lay = sweep_layout(ins, outs, skip_layers, d_embed)
+    zero = sum(i * o for i, o in zip(ins, outs))
+    src = np.full(lay.nbytes // 2, zero, np.int64)
+    base = 0
+    for l, (i, o) in enumerate(zip(ins, outs)):
+        k = sweep_k_rows(lay, l, i, d_embed)[None, :]       # [1, in]
+        n = np.arange(o)[:, None]                            # [out, 1]
+        e = (lay.off[l] // 2 + (k // SLAB_K) * lay.cols[l] * SLAB_K
+             + swizzle128(n * SLAB_K + k % SLAB_K))
+        src[e.ravel()] = base + np.arange(o * i)
+        base += i * o
+    return torch.from_numpy(src).to(device), lay
+
+
+def pack_sweep_bf16(ws: Sequence[torch.Tensor], skip_layers: Sequence[int],
+                    d_embed: int) -> Tuple[torch.Tensor, SweepLayout]:
+    """K2-bf16's weight pack of an SDF network (effective weights ws, layer
+    0 and ``skip_layers`` reading the encoding): every layer's W^T rounded
+    to bf16 (to nearest even, as JAX's ``astype``) in sweep_layout's slabs,
+    each the 128-byte-swizzled image one bulk copy lands in shared memory
+    (swizzle128), zero in the padding.  A float32 tensor of the bytes."""
+    if any(w.dtype != torch.float32 for w in ws):
+        raise ValueError("the tensor-core kernels take float32 weights")
+    ins = tuple(int(w.shape[1]) for w in ws)
+    outs = tuple(int(w.shape[0]) for w in ws)
+    dev = ws[0].device
+    idx, lay = _sweep_sources(ins, outs, tuple(sorted(skip_layers)),
+                              d_embed, dev)
+    src = torch.cat([w.detach().reshape(-1) for w in ws]
+                    + [torch.zeros(1, device=dev)])
+    return src[idx].to(torch.bfloat16).view(torch.float32), lay
+
+
+def sweep_block(pack: torch.Tensor, lay: SweepLayout, l: int
+                ) -> torch.Tensor:
+    """Layer l's slabs read back: the [64 nslab, cols] float32 block of
+    bf16 values that its products multiply, row k of layer l's input
+    (sweep_k_rows) by output column n."""
+    flat = pack.view(torch.bfloat16)
+    cols = lay.cols[l]
+    sw = torch.from_numpy(swizzle128(np.arange(cols * SLAB_K))).to(
+        pack.device)
+    blocks = []
+    for s in range(lay.nslab[l]):
+        start = lay.off[l] // 2 + s * cols * SLAB_K
+        image = flat[start:start + cols * SLAB_K]
+        blocks.append(image[sw].view(cols, SLAB_K).t())
+    return torch.cat(blocks).float()

@@ -77,12 +77,14 @@ def _closer(port, j16, j32, atol, name):
 
 def test_bf16_packs_serve_k2_narrowed_and_k3():
     """pack_weights_bf16 holds the radiance MLP's five layers (the 289-wide
-    first input padded to 304 rows, two to a word); check_layout accepts
-    the full network's bf16 pack for K2's narrowed last layer; K2-bf16 and
-    K3 in bf16 take the bf16 pack and refuse the 3xTF32 one (and K2 the
-    reverse); the kernels' shared memory at full width (K2-bf16 210,960 B,
-    K3's bf16 pair 220,176 B: the bf16 ring is sized by K3-bwd's
-    weight-gradient chunk, so neither grows) and their counters."""
+    first input padded to 304 rows, two to a word); K3 in bf16 takes the
+    bf16 pack and refuses the 3xTF32 one; K2-bf16 takes the full network's
+    slab pack (tc_pack.sweep_layout) for its narrowed last layer and
+    refuses the bf16 and 3xTF32 packs (and K2 the slab pack); the kernels'
+    shared memory at full width (K2-bf16's ring six slabs of 32 KB,
+    231,808 B, five of 33 KB for the full output; K3's bf16 pair
+    220,176 B: the bf16 ring is sized by K3-bwd's weight-gradient chunk,
+    so it does not grow) and their counters."""
     rcfg = TF.RenderingConfig()
     rng = np.random.RandomState(0)
     rws = [t(rng.randn(o, i).astype(np.float32))
@@ -118,12 +120,29 @@ def test_bf16_packs_serve_k2_narrowed_and_k3():
     wn = ws[:-1] + [ws[-1][:1]]
     ins, outs, _ = SK.layer_dims(cfg, wn)
     TP.check_layout(full16, ins, outs)
-    _, ld = SK.kernel_iargs(cfg, wn, 64, 1, full16, bf16=True)
-    assert SK.smem_bytes(cfg, full16, outs, ld) == 210960
+    sweep = TP.sweep_layout([w.shape[1] for w in ws],
+                            [w.shape[0] for w in ws], (4,), cfg.d_embed)
+    assert sweep.nslab == [1, 4, 4, 4, 5, 4, 4, 4, 4]
+    assert sweep.enc == [1, 0, 0, 0, 1, 0, 0, 0, 0]
+    assert sweep.cols == [256] * 8 + [264]
+    # 1,048,576 rows: two consumer warpgroups, a block an SM; 8,192: one
+    iargs, grid = SK.sweep_iargs(cfg, wn, 1 << 20, sweep, 132)
+    assert grid == 132 and iargs[4:7] == [2, 132, 8192]
+    iargs, grid = SK.sweep_iargs(cfg, wn, 8192, sweep, 132)
+    assert grid == 128 and iargs[4:7] == [1, 128, 128]
+    assert SK.sweep_smem(len(wn), 2, 256 * 128) == (6, 231808)
+    assert SK.sweep_smem(len(wn), 2, 264 * 128) == (5, 204144)
     with pytest.raises(ValueError, match="3xTF32"):
         SK.kernel_iargs(cfg, wn, 64, 1, full16)
-    with pytest.raises(ValueError, match="bf16: it takes no 3xtf32"):
-        SK.kernel_iargs(cfg, wn, 64, 1, TP.pack_layout(ins, outs), bf16=True)
+    with pytest.raises(ValueError, match="3xTF32: it takes no wgmma-bf16"):
+        SK.kernel_iargs(cfg, wn, 64, 1, sweep)
+    with pytest.raises(ValueError, match="wgmma: it takes no bf16"):
+        SK.sweep_iargs(cfg, wn, 64, full16, 132)
+    with pytest.raises(ValueError, match="wgmma: it takes no 3xtf32"):
+        SK.sweep_iargs(cfg, wn, 64, TP.pack_layout(ins, outs), 132)
+    with pytest.raises(ValueError, match="slab layout"):
+        SK.sweep_iargs(cfg, ws, 64, TP.sweep_layout(ins, outs, (4,), 39),
+                       132)
     assert {SK.KERNELS[True].name, RK.KERNELS["fwd", True].name,
             RK.KERNELS["bwd", True].name} == {
         "sdf_fwd_bf16", "radiance_fwd_bf16", "radiance_bwd_bf16"}

@@ -606,14 +606,14 @@ def test_bf16_mode_launches_the_bf16_kernels(cuda_device):
 @pytest.mark.parametrize("case", CASES + [(8, 256, 257, (4,), 6, 1.0, n)
                                           for n in (32768, 9001)])
 def test_k2_bf16_matches_twin(cuda_device, case):
-    """K2-bf16 (the last layer narrowed) on the full network's bf16 pack
+    """K2-bf16 (the last layer narrowed) on the full network's slab pack
     against its twin and the f64 unrounded sweep (chip_smoke.check_flips),
     two launches bitwise equal, and bitwise equal to K2-bf16 on its own
     narrowed pack; the ladder's 32,768 rows and a ragged 9,001 at full
     width."""
     cfg, ws, bs, x = _net(case, cuda_device)
     wn, bn = ws[:-1] + [ws[-1][:1]], bs[:-1] + [bs[-1][:1]]
-    pack = TP.pack_weights_bf16(ws)
+    pack = SK.make_sweep_pack(cfg, ws)
     got = SK.sdf_forward(wn, bn, cfg, x, pack, bf16=True)
     with torch.no_grad():
         twin = SK.sdf_forward_plain(wn, bn, cfg, x, bf16=True)

@@ -8,6 +8,7 @@ PyTorch port goes, on a GPU.
     python3 tools/profile_torch_stage1.py --womask [--split]
     python3 tools/profile_torch_stage1.py --stage2   # a stage-2 step
     python3 tools/profile_torch_stage1.py --stage2 --sweep-f32
+    python3 tools/profile_torch_stage1.py --sampling # the ladder on K2-bf16
     python3 tools/profile_torch_stage1.py --stage3   # a stage-3 step
 
 Trains full-width confs/wmask.conf (--womask: confs/womask.conf, with the
@@ -28,9 +29,10 @@ profile_torch_stage1[_womask][_stash][_split][_stage2][_stage3].json.
 --stash sets FNEUS_PG_HBM_STASH=1, --split FNEUS_PG_STACKED=0, --bf16
 FNEUS_CORE_ACT_BF16=1 (the render core's bf16 operand mode, K1 and K3;
 without it the tool sets 0) and --sweep-f32 FNEUS_SWEEP_ACT_BF16=0 (stage
-2's coarse sweep on K2 in 3xTF32 rather than its default K2-bf16) before
-the port is imported (the switches are read at import; the tool sets
-FNEUS_PALLAS_SAMPLING=0); --bf16 combines with the other stage-1 flags.
+2's coarse sweep on K2 in 3xTF32 rather than its default K2-bf16) and
+--sampling FNEUS_PALLAS_SAMPLING=1 (every sampling sweep on K2-bf16;
+without it the tool sets 0) before the port is imported (the switches
+are read at import); --bf16 and --sampling combine with the other flags.
 The table names each kernel's operand mode (-bf16) and records the
 config's sweep modes.
 """
@@ -52,11 +54,12 @@ WARMUP = 5
 BWD_ROWS = {"0": "K1-bwd", "1": "K1-bwd-stash", "2": "K1-bwd-split"}
 TABLE_ROWS = (("geometry_fwd_kernel", "K1-fwd"),
               ("sdf_fwd_kernel", "K2"),
+              ("sdf_fwd_bf16_kernel", "K2-bf16"),
               ("radiance_fwd_kernel", "K3-fwd"),
               ("radiance_bwd_kernel", "K3-bwd"),
               ("reduce_partials_kernel", "K1-bwd/K3-bwd partial sums"))
 FLAGS = ("--womask", "--stash", "--split", "--stage2", "--stage3", "--bf16",
-         "--sweep-f32")
+         "--sweep-f32", "--sampling")
 OUTER = "Lvis.outer"        # the profiler range of the visibility sweep
 OUTER_ROW = "Lvis.outer (visibility sweep, cuBLAS)"
 
@@ -98,10 +101,10 @@ def main() -> int:
     args = sys.argv[1:]
     if not set(args) <= set(FLAGS) or len(set(args)) != len(args):
         print("usage: profile_torch_stage1.py [--womask] [--stash] "
-              "[--split] [--bf16] [--stage2 [--sweep-f32] | --stage3]",
-              file=sys.stderr)
+              "[--split] [--bf16] [--sampling] [--stage2 [--sweep-f32] | "
+              "--stage3]", file=sys.stderr)
         return 2
-    womask, stash, split, stage2, stage3, bf16, sweep_f32 = (
+    womask, stash, split, stage2, stage3, bf16, sweep_f32, sampling = (
         f in args for f in FLAGS)
     if stash:
         os.environ["FNEUS_PG_HBM_STASH"] = "1"
@@ -109,7 +112,7 @@ def main() -> int:
         os.environ["FNEUS_PG_STACKED"] = "0"
     os.environ["FNEUS_CORE_ACT_BF16"] = "1" if bf16 else "0"
     os.environ["FNEUS_SWEEP_ACT_BF16"] = "0" if sweep_f32 else "1"
-    os.environ["FNEUS_PALLAS_SAMPLING"] = "0"
+    os.environ["FNEUS_PALLAS_SAMPLING"] = "1" if sampling else "0"
     import torch
     if not torch.cuda.is_available():
         print("profile: no CUDA device", file=sys.stderr)
@@ -139,7 +142,8 @@ def main() -> int:
           else "K1-fwd / K1-bwd-split" if split else "K1-fwd / K1-bwd",
           "in the core's bf16 mode (K1, K3)" if bf16 else "",
           "coarse sweep on K2" if stage2 and sweep_f32
-          else "coarse sweep on K2-bf16" if stage2 else "")
+          else "coarse sweep on K2-bf16" if stage2 else "",
+          "every sampling sweep on K2-bf16" if sampling else "")
     _cuda.build_all()
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:

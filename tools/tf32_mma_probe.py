@@ -14,6 +14,14 @@ known, to read what the products of csrc/tc_mma.cuh depend on:
   toward zero (both);
 - whether the k products of one instruction (8 TF32, 16 bf16) are summed
   exactly before they meet the accumulator (both).
+It also builds Hopper's warpgroup ``wgmma.mma_async.m64n8k16`` and
+``m64n256k16`` (bf16, A from registers, B from a 128-byte swizzled slab
+in shared memory, through csrc/wgmma.cuh as csrc/sdf_fwd_bf16.cu uses
+them) and reads the same for wgmma, and how its f32 accumulator carries a
+sum across the k-steps of one commit group and across commit groups (a
+k-slab each, waited on between them), and holds one m64n256 product of
+random bf16 values against the float64 product (the fragment and slab
+layouts).
 Prints one line per case and a JSON summary with the card's name and power
 limit.
 """
@@ -30,6 +38,7 @@ SOURCE = r"""
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include "wgmma.cuh"
 // D[16][8] = A[16][8] B[8][8] + C[16][8], all row-major, one warp
 __global__ void probe_kernel(const float* A, const float* B, const float* C,
                              float* D) {
@@ -80,6 +89,71 @@ __global__ void probe_bf16_kernel(const float* A, const float* B,
   D[(g + 8) * 8 + 2 * t] = c[2];
   D[(g + 8) * 8 + 2 * t + 1] = c[3];
 }
+// D[64][N] = A[64][16 ks] B[16 ks][N] + C[64][N] (row-major) on one
+// warpgroup: k-step j one wgmma on the slab's descriptor + 2 j (ks <= 4);
+// split: each k-step its own commit group, waited on before the next
+template <int N>
+__global__ void probe_wgmma_kernel(const float* A, const float* B,
+                                   const float* C, float* D, int ks,
+                                   int split) {
+  __shared__ __align__(1024) __nv_bfloat16 Bs[N * 64];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, K = 16 * ks, r0 = 16 * warp + g;
+  for (int i = tid; i < N * 64; i += 128) {
+    const int n = i / 64, k = i % 64;
+    Bs[i ^ (((i >> 6) & 7) << 3)] =
+        __float2bfloat16_rn(k < K ? B[k * N + n] : 0.f);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  uint32_t a[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float* x0 = A + r0 * K + 16 * j + 2 * t;
+    const float* x1 = x0 + 8 * K;
+    const bool in = j < ks;
+    a[j][0] = in ? pack_bf16(x0[0], x0[1]) : 0u;
+    a[j][1] = in ? pack_bf16(x1[0], x1[1]) : 0u;
+    a[j][2] = in ? pack_bf16(x0[8], x0[9]) : 0u;
+    a[j][3] = in ? pack_bf16(x1[8], x1[9]) : 0u;
+  }
+  float acc[N / 2];
+#pragma unroll
+  for (int q = 0; q < N / 8; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[4 * q + e] = C[(r0 + 8 * (e >> 1)) * N + 8 * q + 2 * t + (e & 1)];
+  const uint64_t desc = desc_sw128(smem_u32(Bs));
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j >= ks) break;
+    if constexpr (N == 8) wgmma_n8(acc, a[j], desc + 2 * j, 1);
+    else wgmma_n256(acc, a[j], desc + 2 * j, 1);
+    if (split) {
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      wgmma_fence();
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+#pragma unroll
+  for (int q = 0; q < N / 8; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      D[(r0 + 8 * (e >> 1)) * N + 8 * q + 2 * t + (e & 1)] = acc[4 * q + e];
+}
+extern "C" int probe_wgmma(const float* A, const float* B, const float* C,
+                           float* D, int n, int ks, int split) {
+  if (n == 8)
+    probe_wgmma_kernel<8><<<1, 128>>>(A, B, C, D, ks, split);
+  else
+    probe_wgmma_kernel<256><<<1, 128>>>(A, B, C, D, ks, split);
+  return (int)cudaDeviceSynchronize();
+}
 extern "C" int probe(const float* A, const float* B, const float* C,
                      float* D) {
   probe_kernel<<<1, 32>>>(A, B, C, D);
@@ -91,6 +165,73 @@ extern "C" int probe_bf16(const float* A, const float* B, const float* C,
   return (int)cudaDeviceSynchronize();
 }
 """
+
+
+def probe_wgmma(so, accum, u):
+    """The wgmma cases: the accumulation cases of mma.sync on m64n8k16,
+    0.75 ulp added to 1 in each of four k-steps of one commit group and
+    of four groups waited on one by one, and one m64n256k16 product over
+    four k-steps of random bf16 values against float64."""
+    import numpy as np
+    import torch
+    fn = so.probe_wgmma
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+
+    def run(A, B, C, n, ks, split=0):
+        t = [torch.from_numpy(np.ascontiguousarray(v, np.float32)).cuda()
+             for v in (A, B, C)]
+        D = torch.zeros(64, n, device="cuda")
+        rc = fn(*[v.data_ptr() for v in t], D.data_ptr(), n, ks, split)
+        if rc:
+            raise RuntimeError(f"wgmma probe failed: cudaError_t {rc}")
+        return D.cpu().numpy().astype(np.float64)
+
+    four = {1 + 4 * u: "each k-step rounds to nearest",
+            1.0: "each k-step rounds toward zero",
+            1 + 3 * u: "the k-steps summed before one rounding"}
+    cases = [(name, 1, 0, arow, c00, meaning, np.eye(16, 8))
+             for name, identity, arow, c00, meaning in accum[:2]]
+    cases.append(("sixteen products of 0.125 ulp into 1", 1, 0,
+                  [0.125 * u] * 16, 1.0,
+                  {1 + 2 * u: "products summed before the accumulator",
+                   1.0: "products added one by one, or their sum lost"},
+                  np.ones((16, 8))))
+    b4 = np.zeros((64, 8))
+    b4[[0, 16, 32, 48], 0] = 1.0
+    a4 = np.zeros(64)
+    a4[[0, 16, 32, 48]] = 0.75 * u
+    cases.append(("0.75 ulp into 1 in each of 4 k-steps, one group", 4, 0,
+                  a4, 1.0, four, b4))
+    cases.append(("0.75 ulp into 1 in each of 4 k-slabs, a group each", 4,
+                  1, a4, 1.0, four, b4))
+    rows = []
+    for name, ks, split, arow, c00, meaning, B in cases:
+        A = np.zeros((64, 16 * ks))
+        A[0, :len(arow)] = arow
+        C = np.zeros((64, 8))
+        C[0, 0] = c00
+        d = float(run(A, B, C, 8, ks, split)[0, 0])
+        got = next((m for v, m in meaning.items()
+                    if d == float(np.float32(v))),
+                   "none of the expected results")
+        print(f"wgmma {name}: {d!r} -> {got}")
+        rows.append({"mma": "wgmma", "case": name, "result": d,
+                     "reads_as": got})
+    rng = np.random.RandomState(0)
+    bf = lambda v: torch.from_numpy(v.astype(np.float32)).to(
+        torch.bfloat16).float().numpy().astype(np.float64)
+    A, B = bf(rng.randn(64, 64)), bf(rng.randn(64, 256))
+    D = run(A, B, np.zeros((64, 256)), 256, 4)
+    err = float(np.abs(D - A @ B).max() / np.abs(A @ B).max())
+    ok = err < 1e-6
+    print(f"wgmma m64n256k16 x 4 k-steps, random bf16: max error "
+          f"{err:.2e} of max|AB| -> {'layouts agree' if ok else 'WRONG'}")
+    rows.append({"mma": "wgmma", "case": "m64n256 random", "result": err,
+                 "reads_as": "layouts agree" if ok else "wrong"})
+    if not ok:
+        raise AssertionError("wgmma m64n256: fragment or slab layout wrong")
+    return rows
 
 
 def main() -> int:
@@ -105,8 +246,8 @@ def main() -> int:
     src, lib = os.path.join(OUT, "probe.cu"), os.path.join(OUT, "libprobe.so")
     with open(src, "w") as f:
         f.write(SOURCE)
-    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib, src],
-                   check=True)
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", _cuda.CSRC,
+                    "-o", lib, src], check=True)
     so = ctypes.CDLL(lib)
     u = 2.0 ** -23                                  # one f32 ulp at 1
     # (instruction, k, name, B is the identity, A row 0, C[0][0],
@@ -152,6 +293,7 @@ def main() -> int:
                    "none of the expected results")
         print(f"{kind} {name}: {d!r} -> {got}")
         rows.append({"mma": kind, "case": name, "result": d, "reads_as": got})
+    rows += probe_wgmma(so, accum, u)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
