@@ -85,7 +85,12 @@
    default): K1-fwd-bf16, K1-bwd-bf16, K1-bwd-split-bf16 and the stash
    pair in bf16 at 65,536 and 9,001 rows against their twins and an f64
    evaluation of the unrounded function (check_flips), two launches of
-   each bitwise equal, timed against their bf16 bound; one 64-ray
+   each bitwise equal, timed against their bf16 bound; K1-bwd-bf16 (on
+   wgmma: its ptxas report and SASS, which must hold HGMMA
+   and no HMMA) also timed at 9,001 rows ("shapes" in its kernels entry),
+   its kernels' registers and shared memory read from the device
+   ("attrs"), and the bytes its design moves by the source note's
+   reckoning printed beside them; one 64-ray
    full-width wmask step with the mode on (K1 and K3 in bf16, item 13),
    card against CPU; then in a subprocess with the switch on (read at
    import) 30 wmask steps through the CLI (counters at 0: K1-fwd-bf16,
@@ -744,6 +749,69 @@ def check_kernels(device):
     return results
 
 
+def k1_bwd_wg_attrs() -> dict:
+    """K1-bwd-bf16's two wgmma kernels as the device holds them after a
+    launch (cudaFuncGetAttributes through geometry_bwd_bf16_attrs):
+    registers a thread, dynamic shared memory a block as the launcher set
+    it, static shared memory."""
+    import ctypes
+    from factored_neus_tpu_torch.ops import _cuda
+    out = (ctypes.c_int * 6)()
+    rc = _cuda._load("geometry_bwd_bf16_wg.cu").geometry_bwd_bf16_attrs(out)
+    if rc:
+        raise RuntimeError(f"geometry_bwd_bf16_attrs: cudaError {rc}")
+    return {k: {"regs": out[3 * i], "dynamic_smem": out[3 * i + 1],
+                "static_smem": out[3 * i + 2]}
+            for i, k in enumerate(("sweep", "wgrad"))}
+
+
+def k1_bwd_wg_shape(cfg, ws, n, run, plain, bwd_flops, slabs) -> dict:
+    """K1-bwd-bf16 (on wgmma) at n points: its time and its twin's (CUDA
+    events) and its bf16 bound, for the kernels line; printed beside them,
+    the kernels' registers and shared memory as the device holds them,
+    the launch plan, and the bytes the design moves to and from device
+    memory by the reckoning of geometry_bwd_bf16_wg.cu's note (the f32
+    scratch written and read, each tile's X_l and R_l images written, then
+    read by the weight-gradient pass, R_l once for each of its units), a
+    count, not a measurement."""
+    import torch
+    from factored_neus_tpu_torch.ops import _cuda
+    from factored_neus_tpu_torch.ops import geometry_kernel as GK
+    dev = ws[0].device
+    plan = GK.bwd_wg_plan(cfg, ws, n, slabs, _cuda.sm_count(dev))
+    ins = [w.shape[1] for w in ws]
+    outs = [w.shape[0] for w in ws]
+    L, tiles, blk = len(ws), plan["tiles"], GK.WG_BLOCK
+    scratch = 2 * tiles * (L - 1) * 2 * GK.WG_POINTS * 256 * 4
+    x_img = [(4 if l else 1) * blk for l in range(L)]
+    r_img = [(5 if o > 256 else 4) * blk for o in outs]
+    written = tiles * (sum(x_img) + sum(r_img))
+    read = tiles * sum(-(-i // 64) * blk + (-(-i // 64) + 1) // 2 * r
+                       for i, r in zip(ins, r_img))
+    design = scratch + written + read
+
+    def twin():
+        with torch.no_grad():
+            plain()
+    shape = {"rows": n, "ms": cuda_ms(run, 5),
+             "plain_ms": cuda_ms(twin, 3),
+             "bound_ms": 1e3 * n * bwd_flops / BF16_PEAK}
+    attrs = k1_bwd_wg_attrs()
+    print(f"  K1-bwd-bf16 (wgmma) N={n}: {shape['ms']:.3f} ms (plain "
+          f"{shape['plain_ms']:.3f} ms), bf16 bound {shape['bound_ms']:.3f}"
+          f" ms ({100 * shape['bound_ms'] / shape['ms']:.1f}% of it); by the "
+          f"source note's reckoning the design moves {design / 1e9:.2f} GB "
+          f"to and from device memory; {plan['grid']} sweep blocks of "
+          f"{plan['nc']} consumers, {plan['units']} weight-gradient units x "
+          f"{plan['chunks']} chunks of {plan['per']} tiles")
+    for k, a in attrs.items():
+        print(f"  K1-bwd-bf16 {k} kernel (cudaFuncGetAttributes): "
+              f"{a['regs']} registers a thread, {a['dynamic_smem']} B "
+              f"dynamic + {a['static_smem']} B static shared memory a block "
+              f"(bwd_wg_plan's count: {plan[k + '_smem']} B)")
+    return shape, attrs
+
+
 def check_flips(label, got, twin, ref64, names):
     """A bf16 kernel's tensors against its plain twin's (same inputs, same
     bf16 roundings, sums in another order) and an f64 evaluation of the
@@ -781,6 +849,7 @@ def check_bf16_kernels(device):
     import torch
     from factored_neus_tpu_torch.models.fields import SDFConfig, SDFNetwork
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
+    from factored_neus_tpu_torch.ops import tc_pack as TP
 
     cfg = SDFConfig()
     net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(device)
@@ -796,6 +865,10 @@ def check_bf16_kernels(device):
     bwd_flops = (4 * (S - s_last) + 2 * S + 2 * S
                  + 2 * (S - s_last) + 2 * ins[-1] + 2 * (S - s_last))
     pack = GK.make_pack(ws, bf16=True)
+    # K1-bwd-bf16 runs on wgmma from its two slab packs
+    build = wgmma_build_report("K1-bwd-bf16", "geometry_bwd_bf16_wg.cu")
+    slabs = GK.make_bwd_slabs(cfg, list(ws))
+    wg_shapes = []
     w64 = [w.double() for w in ws]
     b64 = [b.double() for b in bs]
     fnames = ["out", "grad"]
@@ -832,8 +905,8 @@ def check_bf16_kernels(device):
                 cfg, x, ws, bs, pack, bf16=True)[:2], tw_sf[:2], ref_f,
                 fnames),
             "geometry_bwd_bf16": (lambda: flat(GK.launch_backward(
-                cfg, x, ws, bs, ct_out, ct_g, pack, bf16=True)), tw_b, ref_b,
-                names),
+                cfg, x, ws, bs, ct_out, ct_g, slabs, bf16=True)), tw_b,
+                ref_b, names),
             "geometry_bwd_split_bf16": (lambda: flat(
                 GK.launch_backward_split(cfg, x, ws, bs, ct_out, ct_g, pack,
                                          bf16=True)), tw_b, ref_b, names),
@@ -861,6 +934,11 @@ def check_bf16_kernels(device):
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{name}: two launches differ")
         print(f"bf16 K1 kernels N={n}: two launches of each bitwise equal")
+        shape, wg_attrs = k1_bwd_wg_shape(
+            cfg, ws, n, runs["geometry_bwd_bf16"][0],
+            lambda: GK.geometry_bwd_plain(ws, bs, x, ct_out, ct_g, cfg,
+                                          bf16=True), bwd_flops, slabs)
+        wg_shapes.append(shape)
         if n != N_CORE:
             continue
 
@@ -882,13 +960,21 @@ def check_bf16_kernels(device):
                                                     cfg, bf16=True)), 3)}
         plain_ms["geometry_bwd_split_bf16"] = plain_ms["geometry_bwd_bf16"]
         # what the bf16 mode adds to a step besides its kernels: the
-        # second pack (SDFNetwork.kernel_weights builds both)
+        # packs SDFNetwork.kernel_weights(bf16=True) builds beside the
+        # 3xTF32 one (the bf16 pack; K1-bwd-bf16's forward and reverse
+        # slab packs where a backward can follow)
         pack_ms = {"pack_ms": cuda_ms(lambda: GK.make_pack(ws), 10),
                    "pack_bf16_ms": cuda_ms(lambda: GK.make_pack(ws, True),
-                                           10)}
+                                           10),
+                   "sweep_pack_bf16_ms": cuda_ms(
+                       lambda: GK.make_sweep_pack(cfg, ws), 10),
+                   "rev_pack_bf16_ms": cuda_ms(
+                       lambda: TP.pack_rev_bf16(ws, cfg.d_embed), 10)}
         print(f"weight packs at full width: 3xTF32 {pack_ms['pack_ms']:.3f} "
-              f"ms, bf16 {pack_ms['pack_bf16_ms']:.3f} ms (CUDA events "
-              f"around 10 builds)")
+              f"ms, bf16 {pack_ms['pack_bf16_ms']:.3f} ms, K1-bwd-bf16's "
+              f"slab packs {pack_ms['sweep_pack_bf16_ms']:.3f} ms (forward)"
+              f" + {pack_ms['rev_pack_bf16_ms']:.3f} ms (reverse) (CUDA "
+              f"events around 10 builds each)")
         fwd_bytes = n * (12 + 4 * outs[-1] + 12) + wbytes
         bwd_bytes = n * (12 + 4 * outs[-1] + 12 + 12) + 2 * wbytes
         work = {"geometry_fwd_bf16": (fwd_flops, fwd_bytes, 729),
@@ -903,7 +989,8 @@ def check_bf16_kernels(device):
             flops, nbytes, line = work[name]
             t_ops, t_bytes = n * flops / BF16_PEAK, nbytes / HBM_RATE
             src = "geometry_fwd.cu" if "fwd" in name else \
-                "geometry_bwd_bf16.cu"
+                "geometry_bwd_bf16_wg.cu" if name == "geometry_bwd_bf16" \
+                else "geometry_bwd_bf16.cu"
             results.append({
                 "name": name, "route": "cuda",
                 "source": f"factored_neus_tpu_torch/csrc/{src}",
@@ -918,6 +1005,9 @@ def check_bf16_kernels(device):
         del tw_f, tw_b, tw_sf, tw_sb, ref_f, ref_b
     for r in results:
         r["max_abs_err"] = errs[r["name"]]
+        if r["name"] == "geometry_bwd_bf16":
+            r.update(shapes=wg_shapes, sass=build["sass"],
+                     ptxas=build["ptxas"], attrs=wg_attrs)
         print(f"  {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} "
               f"ms) at {N_CORE} rows, bf16 bound {r['bound_ms']:.3f} ms by "
               f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% of "
@@ -945,26 +1035,26 @@ def sass_counts(lib: str, opcodes) -> dict:
     return {op: sum(o.startswith(op) for o in ops) for op in opcodes}
 
 
-def k2_bf16_build_report() -> dict:
-    """K2-bf16's registers, spills and shared memory as ptxas reported them
-    at the build, any wgmma serialization ptxas warned of, and its SASS's
-    HGMMA (warpgroup) and HMMA.16816 (mma.sync bf16) counts; raises
-    unless it runs on wgmma alone."""
+def wgmma_build_report(label: str, src: str) -> dict:
+    """A wgmma kernel's registers, spills and shared memory as ptxas
+    reported them at the build of its source, any wgmma serialization
+    ptxas warned of, and its library's SASS HGMMA (warpgroup) and HMMA
+    (mma.sync) counts; raises unless it runs on wgmma alone."""
     from factored_neus_tpu_torch.ops import _cuda
-    src = "sdf_fwd_bf16.cu"
     log = _cuda.BUILD_LOG.get(src, "")
     info = [l.strip() for l in log.splitlines()
             if "registers" in l or "spill" in l or "smem" in l
             or "wgmma" in l.lower()]
-    counts = sass_counts(_cuda._lib_path(src), ("HGMMA", "HMMA.16816"))
+    counts = sass_counts(_cuda._lib_path(src), ("HGMMA", "HMMA"))
     for line in info:
-        print(f"  K2-bf16 ptxas: {line}")
-    print(f"  K2-bf16 SASS: {counts['HGMMA']} HGMMA, "
-          f"{counts['HMMA.16816']} HMMA.16816")
-    if counts["HGMMA"] == 0 or counts["HMMA.16816"] != 0:
-        raise AssertionError("K2-bf16 must run on wgmma and not on "
-                             "mma.sync")
+        print(f"  {label} ptxas: {line}")
+    print(f"  {label} SASS: {counts['HGMMA']} HGMMA, {counts['HMMA']} HMMA")
+    if counts["HGMMA"] == 0 or counts["HMMA"] != 0:
+        raise AssertionError(f"{label} must run on wgmma and not on "
+                             f"mma.sync")
     return {"ptxas": info, "sass": counts}
+
+
 K3_BF16_ROWS = (N_CORE, N_RAGGED)
 
 
@@ -997,7 +1087,7 @@ def check_bf16_sweep_kernels(device):
     wn, bn = list(ws[:-1]) + [ws[-1][:1]], list(bs[:-1]) + [bs[-1][:1]]
     S_n = sum(w.numel() for w in wn)                    # 459,008
     k2_wbytes = sum(2 * w.numel() + 4 * b.numel() for w, b in zip(wn, bn))
-    build = k2_bf16_build_report()
+    build = wgmma_build_report("K2-bf16", "sdf_fwd_bf16.cu")
     # the full network's slab pack, read narrowed, as a stage-2 run has it
     pack = SK.make_sweep_pack(cfg, ws)
     gen = torch.Generator(device=device).manual_seed(13)
@@ -2693,8 +2783,9 @@ def bf16_run() -> int:
         print(f"--profile: {traces[0]} names {len(names)} kernels, K1's "
               f"and K3's: {k13}")
         if not all(any(k in n for n in k13) for k in (
-                "geometry_fwd_kernel", "geometry_bwd_kernel",
-                "radiance_fwd_kernel<true>", "radiance_bwd_kernel<true>")):
+                "geometry_fwd_kernel", "geometry_bwd_wg_sweep",
+                "geometry_bwd_wg_wgrad", "radiance_fwd_kernel<true>",
+                "radiance_bwd_kernel<true>")):
             raise AssertionError("the --profile trace does not name K1 and "
                                  "K3 in bf16")
         shutil.rmtree(os.path.join(tmp, "exp"))

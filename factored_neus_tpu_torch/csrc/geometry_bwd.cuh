@@ -51,9 +51,10 @@
 // the same registers before the one read-modify-write of the slice.
 // Bound: as K1-bwd.
 //
-// K1-bwd-bf16, K1-bwd-split-bf16 and K1-bwd-stash-bf16 (BF, entry points
-// in geometry_bwd_bf16.cu) are the three in the bf16 operand mode of
-// pallas_geometry (_mm_fns(bf16=True), the JAX step's default): every
+// K1-bwd-split-bf16 and K1-bwd-stash-bf16 (BF, entry points in
+// geometry_bwd_bf16.cu) are two of the three in the bf16 operand mode of
+// pallas_geometry (_mm_fns(bf16=True), the JAX step's default; the third,
+// K1-bwd-bf16, is geometry_bwd_bf16_wg.cu on wgmma): every
 // product -- the stacked forward, the weight gradients X^T R and the input
 // cotangents R W^T, so the eikonal Hessian-vector term too -- on bf16
 // operands (rounded to nearest even, the seeds ct_out / scale and e0 /

@@ -1,0 +1,985 @@
+// K1-bwd-bf16: the backward of K1-fwd in the bf16 operand mode, on Hopper's
+// warpgroup tensor cores (wgmma.cuh).  Replaces the TPU kernel
+// factored_neus_tpu/ops/pallas_geometry.py _make_geom.run_bwd with
+// bf16=True (body _build_bwd_kernel_stacked, products _mm_fns(bf16=True)):
+// the primal forward and a forward tangent along ct_grad recomputed as
+// stacked rows (primal: bias and softplus(beta=100); tangent: sigma(100 a)
+// ad), their f32 pre-activations kept, both chains swept in reverse from
+// the seeds ct_out (column 0 / scale) and e0 / scale, dW = X^T R with both
+// operands rounded to bf16 and an f32 sum, db the f32 sum of the primal
+// R, ct_x through the encoding's backward (the eikonal Hessian-vector
+// term included).  Every product takes bf16 operands (nearest even) and
+// sums in f32; everything elementwise stays f32.
+//
+// Bound: operations, 5,768,704 FLOP a point at full width over 989 TFLOP/s
+// (0.382 ms at 65,536 points).  Three kernels, launched one after another:
+//
+// 1. The sweep (geometry_bwd_wg_sweep).  A block is one producer
+//    warpgroup and nc = 1 or 2 consumer warpgroups, persistent over passes
+//    blockIdx.x, + gridDim.x, ...; a consumer's tile is 32 points, 64
+//    stacked rows.
+//    - Stacked rows in one thread.  Warp w of a consumer holds the
+//      primal rows of points 8w .. 8w + 7 as rows 16w + g and their
+//      tangent rows as rows 16w + 8 + g of the m64 tile (g = lane / 4):
+//      in wgmma's accumulator a thread then holds a point's primal and
+//      tangent values of the same columns (registers 4q + 0, 1 and 4q +
+//      2, 3), so sigma(100 a) ad and r_h s + rd_h ds ad need no exchange
+//      between warps.  Any order of the rows is the same product.
+//    - Products on wgmma m64n256k16 (layer 0's r W on m64n48k16) with A
+//      in registers: a layer's result, after its elementwise step and
+//      rounding to bf16, is the next product's A.  B streams as slabs by
+//      cp.async.bulk on mbarriers, as in K2-bf16 (sdf_fwd_bf16.cu): the
+//      forward X W from pack_sweep_bf16's slabs, the reverse r W from
+//      pack_rev_bf16's (W itself: the B of r W is W with k its output).
+//      Fixed depths: 256 rows a hidden layer, the encoding's 48 in one
+//      more slab, a 257-wide last layer's output 256 in a fifth slab (one
+//      k-step read).  No block-wide barrier in the loop.
+//    - The f32 scratch holds sigma(100 a) and ad (what the reverse step
+//      reads of a; JAX keeps a, from which both derive alike), a thread's
+//      own values as float4s in its own order: written once in the
+//      forward, read once in the reverse, layers read first written last.
+//    - Each layer's bf16 X_l (in the forward, from the A fragments) and
+//      R_l (in the reverse) go to device memory as tile images: the exact
+//      operands of JAX's dot_at, MN-major with the 128-byte swizzle
+//      (wgmma.cuh), one 4-byte pair a store.  MN-major because a thread
+//      holds neighbouring columns of a row, which that layout keeps
+//      together; the K-major one would need a transpose through shared
+//      memory, which the ring leaves no room for.
+//    - db: each layer's f32 primal R, summed over the warp's 8 points by
+//      a transposing shuffle reduction (each lane ends with 8 column
+//      sums), is added to the warp's own slot in device memory, tile
+//      after tile in order.
+//    - ct_x: the encoding's cotangents of the skip layer and layer 0 in
+//      shared memory, then pe_backward per point.
+// 2. The weight-gradient pass (geometry_bwd_wg_wgrad): dW_l = X_l^T R_l
+//    over all stacked rows, split over K: a block takes a (layer, pair of
+//    64-row blocks of dW, chunk of tiles); its producer streams each
+//    tile's R_l image and the two X_l blocks into a ring, its two
+//    consumers run wgmma m64n256k16 (+ m64n64k16 for a 257-wide layer)
+//    with A and B both MN-major from shared memory.  A consumer's
+//    accumulator sums its whole chunk (wgmma adds each k-step rounding
+//    toward zero, tools/tf32_mma_probe.py: over ~1,200 k-steps a bias of
+//    a few 1e-5 of an entry, far under the bf16 operands' rounding) and
+//    is then stored to its f32 slot in device memory, in its own register
+//    order.
+// 3. The reduce (geometry_bwd_wg_reduce): dW the sum of the chunks' slots
+//    and db of the warps' slots, each in a fixed order.  No float atomics:
+//    two launches are bitwise equal.
+//
+// Bytes at full width, 65,536 points (2,048 tiles): the scratch 524 KB a
+// tile written and read (2.15 GB), the images 590 KB a tile written (X 8
+// and 32 KB, R 32 KB, the last layer's 40 KB: 1.21 GB) and read by the
+// weight-gradient pass, the R images twice where a layer's dW has four
+// 64-row blocks (1.69 GB; the second read may come from L2), its slots
+// ~19 MB, db's ~10 MB: ~5.05 GB, ~1.5 ms at 3.35 TB/s (chip_smoke.py
+// counts it) -- against ~8.6 GB of partial-slice read-modify-writes and
+// ~3.2 GB of scratch in the mma.sync body.  The products need 0.38 ms at
+// the bf16 rate.
+#include "sdf_mlp.cuh"
+#include "wgmma.cuh"
+
+#define GW_MAXL 16        // most layers
+#define GW_EW 48          // row (floats) of the encoding tiles
+#define GW_BW 264         // bias row and db slot row (floats) of a layer
+#define GW_MAX_NS 8       // most ring stages
+#define GW_SMEM_MAX 232448
+#define GW_PTS 32         // points of a consumer's tile (64 stacked rows)
+#define GW_SLAB 32768     // bytes of a 256-column slab
+#define GW_PQ 40          // float4 rows of a weight-gradient slot (320 / 8)
+#define GW_MAXU 32        // most weight-gradient units (layer, block pair)
+#define GW_XB 8192        // bytes of a 64-column block of a tile image
+
+struct GwDims {
+  int L, multires, d_embed, n, nc, ns, n_pass, n_img;
+  float scale;
+  const float *x, *ct_out, *ct_g;
+  float *ct_x, *scratch, *dbp;
+  unsigned char* img;
+  const unsigned char *fpack, *rpack;
+  int ins[GW_MAXL], outs[GW_MAXL];
+  int enc[GW_MAXL];        // layer l reads the encoding (layer 0, a skip)
+  int f_nslab[GW_MAXL];    // forward slabs of layer l (l < L - 1)
+  int f_off[GW_MAXL];      // byte offset of its first (pack_sweep_bf16)
+  int r_nslab[GW_MAXL];    // reverse slabs of layer l
+  int r_off[GW_MAXL];      // byte offset of its first (pack_rev_bf16)
+  int r_copy[GW_MAXL];     // bytes of one of its reverse slabs
+  int xb[GW_MAXL], rb[GW_MAXL];   // bytes of a tile's X_l and R_l images
+  long long x_img[GW_MAXL], r_img[GW_MAXL];   // tile 0's image of each
+  const float* b[GW_MAXL];
+};
+
+__device__ __forceinline__ float gw_ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float gw_lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// softplus(beta=100) on the SFU, as K2-bf16: its result is rounded to
+// bf16 at once (2^-9 relative), far above the approximations' error
+__device__ __forceinline__ float gw_sp100(float a) {
+  const float e = gw_ex2(fabsf(a) * -144.26950408889634f);
+  return fmaxf(a, 0.f) + gw_lg2(1.f + e) * 0.006931471805599453f;
+}
+
+__device__ __forceinline__ float bf_lo(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+
+__device__ __forceinline__ float bf_hi(uint32_t v) {
+  return __uint_as_float(v & 0xFFFF0000u);
+}
+
+// -- the sweep ---------------------------------------------------------------
+
+__device__ __forceinline__ void gw_put(const GwDims& d, unsigned char* ring,
+                                       uint64_t* full, uint64_t* empty,
+                                       int it, const unsigned char* src,
+                                       int bytes) {
+  const int st = it % d.ns;
+  mbar_wait(empty + st, ((it / d.ns) & 1) ^ 1);
+  mbar_expect_tx(full + st, bytes);
+  bulk_g2s(ring + st * GW_SLAB, src, bytes, full + st);
+}
+
+__device__ __forceinline__ void gw_producer(const GwDims& d,
+                                            unsigned char* ring,
+                                            uint64_t* full, uint64_t* empty) {
+  int it = 0;
+  for (int p = blockIdx.x; p < d.n_pass; p += gridDim.x) {
+    for (int l = 0; l + 1 < d.L; ++l)
+      for (int s = 0; s < d.f_nslab[l]; ++s, ++it)
+        gw_put(d, ring, full, empty, it, d.fpack + d.f_off[l] + s * GW_SLAB,
+               GW_SLAB);
+    for (int l = d.L - 1; l >= 0; --l)
+      for (int s = 0; s < d.r_nslab[l]; ++s, ++it)
+        gw_put(d, ring, full, empty, it,
+               d.rpack + d.r_off[l] + s * d.r_copy[l], d.r_copy[l]);
+  }
+}
+
+// One slab's NK k-steps from fragments f[K0 ..] into acc (N columns: 256,
+// or 48 for layer 0's r W), once it has landed in ring slab s; FIRST: the
+// layer's first slab, whose first product overwrites acc.  One commit
+// group, every index known at compile time.
+template <int N, int NK, int K0, bool FIRST, int NA>
+__device__ __forceinline__ void gw_slab(const GwDims& d, int s,
+                                        unsigned char* ring, uint64_t* full,
+                                        float (&acc)[N / 2],
+                                        const uint32_t (&f)[NA][4]) {
+  const int st = s % d.ns;
+  mbar_wait(full + st, (s / d.ns) & 1);
+  wgmma_fence();
+  const uint64_t desc = desc_sw128(smem_u32(ring + st * GW_SLAB));
+#pragma unroll
+  for (int k = 0; k < NK; ++k) {
+    const int keep = FIRST && k == 0 ? 0 : 1;
+    if constexpr (N == 256)
+      wgmma_n256(acc, f[K0 + k], desc + 2 * k, keep);
+    else
+      wgmma_n48(acc, f[K0 + k], desc + 2 * k, keep);
+  }
+  wgmma_commit();
+}
+
+// Waits for a layer's NS commit groups oldest first, releasing each slab's
+// stage (from ring slab it on) as its products retire: one arrival a warp.
+template <int NS, int S = 0>
+__device__ __forceinline__ void gw_release(const GwDims& d, int it,
+                                           uint64_t* empty, int lead) {
+  if constexpr (S < NS) {
+    wgmma_wait<NS - 1 - S>();
+    mbar_arrive_if(empty + (it + S) % d.ns, lead);
+    gw_release<NS, S + 1>(d, it, empty, lead);
+  }
+}
+
+// A forward layer from ring slab it on: with H, h's 16 k-steps from a in
+// four slabs; with ENC (layer 0, a skip layer), the encoding's 3 from ef.
+template <bool H, bool ENC>
+__device__ __forceinline__ void gw_fwd_layer(const GwDims& d, int it,
+                                             unsigned char* ring,
+                                             uint64_t* full, uint64_t* empty,
+                                             float (&acc)[128],
+                                             const uint32_t (&a)[16][4],
+                                             const uint32_t (&ef)[3][4],
+                                             int lead) {
+  if constexpr (H) {
+    gw_slab<256, 4, 0, true>(d, it, ring, full, acc, a);
+    gw_slab<256, 4, 4, false>(d, it + 1, ring, full, acc, a);
+    gw_slab<256, 4, 8, false>(d, it + 2, ring, full, acc, a);
+    gw_slab<256, 4, 12, false>(d, it + 3, ring, full, acc, a);
+  }
+  if constexpr (ENC)
+    gw_slab<256, 3, 0, !H>(d, it + (H ? 4 : 0), ring, full, acc, ef);
+  gw_release<(H ? 4 : 0) + (ENC ? 1 : 0)>(d, it, empty, lead);
+  fence_regs(acc);
+}
+
+// A reverse layer from ring slab it on: r's 16 k-steps from a in four
+// slabs and, with EXTRA (a last layer over 256 wide), its 17th from ex.
+template <int N, bool EXTRA>
+__device__ __forceinline__ void gw_rev_layer(const GwDims& d, int it,
+                                             unsigned char* ring,
+                                             uint64_t* full, uint64_t* empty,
+                                             float (&acc)[N / 2],
+                                             const uint32_t (&a)[16][4],
+                                             const uint32_t (&ex)[1][4],
+                                             int lead) {
+  gw_slab<N, 4, 0, true>(d, it, ring, full, acc, a);
+  gw_slab<N, 4, 4, false>(d, it + 1, ring, full, acc, a);
+  gw_slab<N, 4, 8, false>(d, it + 2, ring, full, acc, a);
+  gw_slab<N, 4, 12, false>(d, it + 3, ring, full, acc, a);
+  if constexpr (EXTRA) gw_slab<N, 1, 0, false>(d, it + 4, ring, full, acc, ex);
+  gw_release<4 + (EXTRA ? 1 : 0)>(d, it, empty, lead);
+  fence_regs(acc);
+}
+
+// The four bf16 pairs of k-step j (f: a fragment) into a tile image in
+// its columns' own order (X_0's image, the fifth block of a 257-wide
+// layer's R): the primal pairs at row 16 warp + g, the tangent ones 8 rows
+// on, columns 16j + 2t (+ 8 for f[2], f[3]); MN-major, 128-byte swizzle
+// (wgmma.cuh).
+__device__ __forceinline__ void gw_img(unsigned char* im, int j,
+                                       const uint32_t (&f)[4], int warp,
+                                       int g, int t) {
+  unsigned char* o = im + (j >> 2) * GW_XB + (16 * warp + g) * 128 + 4 * t;
+  const int c0 = ((2 * (j & 3)) ^ g) << 4, c1 = ((2 * (j & 3) + 1) ^ g) << 4;
+  *(uint32_t*)(o + c0) = f[0];
+  *(uint32_t*)(o + 1024 + c0) = f[1];
+  *(uint32_t*)(o + c1) = f[2];
+  *(uint32_t*)(o + 1024 + c1) = f[3];
+}
+
+// The position of column c (< 256) of a 256-column tile image: thread
+// (g, t) holds columns 8q + 2t, 8q + 2t + 1 of its rows for q < 32; the
+// image keeps its pairs of q = 4r .. 4r + 3 as one 16-byte chunk, chunk 4
+// (r % 2) + t of block r / 2, so that a thread stores 16 bytes at once and
+// a warp's store covers 64 contiguous bytes of each of its 8 rows.  dW's
+// rows (X's columns) and columns (R's) come out in this order, which the
+// reduce undoes; a product does not care in which order its columns are.
+__device__ __forceinline__ int gw_perm(int c) {
+  const int q = c >> 3, r = q >> 2;
+  return ((r >> 1) << 6) + ((((r & 1) << 2) + ((c >> 1) & 3)) << 3) +
+         ((q & 3) << 1) + (c & 1);
+}
+
+// Chunk r (pairs of q = 4r .. 4r + 3) of a thread's primal row (p) and
+// tangent row (t4) into a 256-column tile image, in gw_perm's order.
+__device__ __forceinline__ void gw_img_chunk(unsigned char* im, int r,
+                                             const uint4& p, const uint4& t4,
+                                             int warp, int g, int t) {
+  unsigned char* o = im + (r >> 1) * GW_XB + (16 * warp + g) * 128 +
+                     (((((r & 1) << 2) + t) ^ g) << 4);
+  *(uint4*)o = p;
+  *(uint4*)(o + 1024) = t4;
+}
+
+// The fragments a (k-steps 0 .. 15) into a 256-column tile image.
+__device__ __forceinline__ void gw_img256(unsigned char* im,
+                                          const uint32_t (&a)[16][4],
+                                          int warp, int g, int t) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    gw_img_chunk(im, r,
+                 make_uint4(a[2 * r][0], a[2 * r][2], a[2 * r + 1][0],
+                            a[2 * r + 1][2]),
+                 make_uint4(a[2 * r][1], a[2 * r][3], a[2 * r + 1][1],
+                            a[2 * r + 1][3]),
+                 warp, g, t);
+}
+
+// sigma(100 a) on the SFU (ex2.approx, rcp.approx: a few ulp in f32)
+__device__ __forceinline__ float gw_sig100(float a) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n"
+      : "=f"(r)
+      : "f"(1.f + gw_ex2(a * -144.26950408889634f)));
+  return r;
+}
+
+// Bias + softplus and sigma(100 a) ad (x 1/sqrt 2 before a skip, SKIP) of
+// a forward layer's stacked result, rounded to bf16: the next layer's A
+// fragments; sigma(100 a) and ad (f32) to the layer's scratch sc.
+template <bool SKIP>
+__device__ __forceinline__ void gw_activate(const float (&acc)[128],
+                                            const float* bl, int t,
+                                            uint32_t (&a)[16][4],
+                                            float4* sc) {
+  const float post = SKIP ? 0.70710678118654752f : 1.f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = 2 * j + h;
+      const float2 bb = *(const float2*)(bl + 8 * q + 2 * t);
+      const float a0 = acc[4 * q] + bb.x, a1 = acc[4 * q + 1] + bb.y;
+      const float ad0 = acc[4 * q + 2], ad1 = acc[4 * q + 3];
+      const float s0 = gw_sig100(a0), s1 = gw_sig100(a1);
+      sc[q * 128] = make_float4(s0, s1, ad0, ad1);
+      a[j][2 * h] = pack_bf16(gw_sp100(a0) * post, gw_sp100(a1) * post);
+      a[j][2 * h + 1] = pack_bf16(s0 * ad0 * post, s1 * ad1 * post);
+    }
+}
+
+// A skip layer's X image: [h (w columns) | enc (d_embed)] / sqrt 2 in W's
+// column order (gw_perm's positions), h from the fragments a (already /
+// sqrt 2), enc from the point's encoding rows ep (primal) and et
+// (tangent).
+__device__ __forceinline__ void gw_img256_skip(unsigned char* im,
+                                               const uint32_t (&a)[16][4],
+                                               const float* ep,
+                                               const float* et, int w,
+                                               int d_embed, int warp, int g,
+                                               int t) {
+  const float inv_sqrt2 = 0.70710678118654752f;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    uint32_t f[2][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch) {
+        // pair q = 4r + i of the primal (ch 0) or tangent (ch 1) row
+        const int j = 2 * r + (i >> 1), ai = 2 * (i & 1) + ch;
+        const int c = 8 * (4 * r + i) + 2 * t;
+        const float* e = ch ? et : ep;
+        float v[2] = {bf_lo(a[j][ai]), bf_hi(a[j][ai])};
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int ce = c + k - w;
+          if (ce >= 0) v[k] = ce < d_embed ? e[ce] * inv_sqrt2 : 0.f;
+        }
+        f[ch][i] = pack_bf16(v[0], v[1]);
+      }
+    gw_img_chunk(im, r, make_uint4(f[0][0], f[0][1], f[0][2], f[0][3]),
+                 make_uint4(f[1][0], f[1][1], f[1][2], f[1][3]), warp, g, t);
+  }
+}
+
+// Sums over the warp's 8 points of the primal entries acc[4q + e] (the
+// stacked accumulator's, f32) by a transposing shuffle reduction: after
+// it, acc[32 m + e] holds column 64 m + 8 g + 2 t + e's sum (m < 4).
+__device__ __forceinline__ void gw_db_reduce(float (&acc)[128], int g) {
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    const bool bit = (g >> s) & 1;
+#pragma unroll
+    for (int q = 0; q < 32; q += 2 << s)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float lo = acc[4 * q + e], hi = acc[4 * (q + (1 << s)) + e];
+        const float send = bit ? lo : hi;
+        const float keep = bit ? hi : lo;
+        acc[4 * q + e] = keep + __shfl_xor_sync(0xffffffffu, send, 4 << s);
+      }
+  }
+}
+
+// R_l in acc (f32, stacked): its bf16 A fragments a, its tile image im,
+// and its primal rows' column sums added to the warp's db slot row sl
+// (set on the block's first pass).
+__device__ __forceinline__ void gw_r_finish(float (&acc)[128],
+                                            uint32_t (&a)[16][4],
+                                            unsigned char* im, float* sl,
+                                            bool first, int warp, int g,
+                                            int t) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[j][i] = pack_bf16(acc[8 * j + 2 * i], acc[8 * j + 2 * i + 1]);
+  gw_img256(im, a, warp, g, t);
+  gw_db_reduce(acc, g);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    float2* o = (float2*)(sl + 64 * m + 8 * g + 2 * t);
+    const float2 v = make_float2(acc[32 * m], acc[32 * m + 1]);
+    *o = first ? v : make_float2(o->x + v.x, o->y + v.y);
+  }
+}
+
+// The reverse step of layer l (l >= 1) from R_in = r W_l in acc: with SKIP
+// (layer l reads [h | enc] / sqrt 2) R_in / sqrt 2 and its encoding
+// columns (w on) added to the point's re rows; then h = sp(a), hd =
+// sigma(100 a) ad: r = r_h s + rd_h ds ad, rd = rd_h s (s and ad of layer
+// l - 1 from its scratch sc), zero from column w on.
+template <bool SKIP>
+__device__ __forceinline__ void gw_rev_step(float (&acc)[128],
+                                            const float4* sc, int w,
+                                            int d_embed, float* rp,
+                                            float* rt, int t) {
+  const float inv_sqrt2 = 0.70710678118654752f;
+#pragma unroll
+  for (int q = 0; q < 32; ++q) {
+    const float4 v = sc[q * 128];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * q + 2 * t + e;
+      float rh = acc[4 * q + e], rdh = acc[4 * q + 2 + e];
+      if (SKIP) {
+        rh *= inv_sqrt2;
+        rdh *= inv_sqrt2;
+        if (c >= w && c < w + d_embed) {
+          rp[c - w] += rh;
+          rt[c - w] += rdh;
+        }
+      }
+      const float s = e ? v.y : v.x, ad = e ? v.w : v.z;
+      const float ds = 100.f * s * (1.f - s);
+      const bool in = c < w;
+      acc[4 * q + e] = in ? rh * s + rdh * ds * ad : 0.f;
+      acc[4 * q + 2 + e] = in ? rdh * s : 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ void gw_consumer(const GwDims& d, int wg,
+                                            unsigned char* ring, float* E,
+                                            float* RE, const float* bias,
+                                            uint64_t* full, uint64_t* empty) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int pt = 8 * warp + g;                  // this thread's point
+  const int lead = lane == 0;
+  const float inv_sqrt2 = 0.70710678118654752f;
+  const float inv_scale = 1.f / d.scale;
+  const int L = d.L, lL = L - 1, N = d.outs[lL], de = d.d_embed;
+  const int cid = blockIdx.x * d.nc + wg;
+  float4* scr = (float4*)d.scratch + (size_t)cid * lL * 32 * 128 + tid;
+  float* dbw = d.dbp + ((size_t)cid * 4 + warp) * L * GW_BW;
+  const float* ep = E + pt * 2 * GW_EW;
+  const float* et = ep + GW_EW;
+  float* rp = RE + pt * 2 * GW_EW;
+  float* rt = rp + GW_EW;
+  uint32_t a[16][4];
+  float acc[128];
+  int it = 0;
+
+  for (int p = blockIdx.x; p < d.n_pass; p += gridDim.x) {
+    const bool first = p == blockIdx.x;
+    const int tile = p * d.nc + wg;
+    const int P = tile * GW_PTS + pt;
+    const bool valid = P < d.n;
+    // the encoding and its tangent, and zero cotangents (every thread is
+    // done with the last tile's)
+    bar_sync(1 + wg, 128);
+    if (tid < GW_PTS) {
+      const int row = tile * GW_PTS + tid;
+      float u[3], v[3];
+      for (int c = 0; c < 3; ++c) {
+        u[c] = row < d.n ? d.x[(size_t)row * 3 + c] * d.scale : 0.f;
+        v[c] = row < d.n ? d.ct_g[(size_t)row * 3 + c] * d.scale : 0.f;
+      }
+      float* e = E + tid * 2 * GW_EW;
+      encode_row(u, v, d.multires, e, e + GW_EW);
+      for (int c = de; c < GW_EW; ++c) e[c] = e[GW_EW + c] = 0.f;
+      for (int c = 0; c < 2 * GW_EW; ++c) RE[tid * 2 * GW_EW + c] = 0.f;
+    }
+    bar_sync(1 + wg, 128);
+
+    // the stacked forward, layers 0 .. L - 2
+    for (int l = 0; l < lL; ++l) {
+      uint32_t ef[3][4];
+      if (d.enc[l]) {
+        const float sc = l == 0 ? 1.f : inv_sqrt2;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const int c = 16 * j + 2 * t;
+          ef[j][0] = pack_bf16(ep[c] * sc, ep[c + 1] * sc);
+          ef[j][1] = pack_bf16(et[c] * sc, et[c + 1] * sc);
+          ef[j][2] = pack_bf16(ep[c + 8] * sc, ep[c + 9] * sc);
+          ef[j][3] = pack_bf16(et[c + 8] * sc, et[c + 9] * sc);
+        }
+      }
+      if (l == 0) {
+        unsigned char* x0 = d.img + d.x_img[0] + (size_t)tile * d.xb[0];
+        const uint32_t zero[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int j = 0; j < 3; ++j) gw_img(x0, j, ef[j], warp, g, t);
+        gw_img(x0, 3, zero, warp, g, t);
+        gw_fwd_layer<false, true>(d, it, ring, full, empty, acc, a, ef,
+                                  lead);
+      } else if (d.enc[l]) {
+        gw_fwd_layer<true, true>(d, it, ring, full, empty, acc, a, ef,
+                                 lead);
+      } else {
+        gw_fwd_layer<true, false>(d, it, ring, full, empty, acc, a, ef,
+                                  lead);
+      }
+      it += d.f_nslab[l];
+      const float* bl = bias + l * GW_BW;
+      float4* sl = scr + l * 32 * 128;
+      unsigned char* xn =
+          d.img + d.x_img[l + 1] + (size_t)tile * d.xb[l + 1];
+      if (d.enc[l + 1]) {
+        gw_activate<true>(acc, bl, t, a, sl);
+        gw_img256_skip(xn, a, ep, et, d.outs[l], de, warp, g, t);
+      } else {
+        gw_activate<false>(acc, bl, t, a, sl);
+        gw_img256(xn, a, warp, g, t);
+      }
+    }
+
+    // the seeds: ct_out (column 0 / scale) on the primal rows, e0 / scale
+    // on the tangent rows; a last layer over 256 wide has its columns 256
+    // on in ex (k-step 16)
+    uint32_t ex[1][4] = {{0u, 0u, 0u, 0u}};
+    {
+      const float* co = d.ct_out + (size_t)P * N;
+#pragma unroll
+      for (int q = 0; q < 32; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * q + 2 * t + e;
+          acc[4 * q + e] =
+              valid && c < N ? co[c] * (c == 0 ? inv_scale : 1.f) : 0.f;
+          acc[4 * q + 2 + e] = valid && c == 0 ? inv_scale : 0.f;
+        }
+      if (N > 256) {
+        float xv[2][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 256 + 8 * h + 2 * t + e;
+            xv[h][e] = valid && c < N ? co[c] : 0.f;
+          }
+        ex[0][0] = pack_bf16(xv[0][0], xv[0][1]);
+        ex[0][2] = pack_bf16(xv[1][0], xv[1][1]);
+        const uint32_t f[4] = {ex[0][0], 0u, ex[0][2], 0u};
+        gw_img(d.img + d.r_img[lL] + (size_t)tile * d.rb[lL], 16, f, warp,
+               g, t);
+        // db's columns 256 + 2t + e: summed over the warp's points
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = xv[0][e];
+#pragma unroll
+          for (int s = 4; s < 32; s <<= 1)
+            v += __shfl_xor_sync(0xffffffffu, v, s);
+          float* o = dbw + lL * GW_BW + 256 + 2 * t + e;
+          if (g == 0) *o = first ? v : *o + v;
+        }
+      }
+      gw_r_finish(acc, a, d.img + d.r_img[lL] + (size_t)tile * d.rb[lL],
+                  dbw + lL * GW_BW, first, warp, g, t);
+    }
+
+    // the reverse sweep: r W of layer l, then layer l - 1's step (its
+    // scratch on its way to L2 while the product runs)
+    for (int l = lL; l >= 1; --l) {
+      l2_prefetch_if(scr - tid + (l - 1) * 32 * 128, 32 * 128 * 16,
+                     tid == 0);
+      if (l == lL && N > 256)
+        gw_rev_layer<256, true>(d, it, ring, full, empty, acc, a, ex, lead);
+      else
+        gw_rev_layer<256, false>(d, it, ring, full, empty, acc, a, ex, lead);
+      it += d.r_nslab[l];
+      const float4* sl = scr + (l - 1) * 32 * 128;
+      if (d.enc[l]) {
+        __syncwarp();
+        gw_rev_step<true>(acc, sl, d.outs[l - 1], de, rp, rt, t);
+      } else {
+        gw_rev_step<false>(acc, sl, d.outs[l - 1], de, rp, rt, t);
+      }
+      gw_r_finish(acc, a,
+                  d.img + d.r_img[l - 1] + (size_t)tile * d.rb[l - 1],
+                  dbw + (l - 1) * GW_BW, first, warp, g, t);
+    }
+    {
+      // layer 0: r W_0, the encoding's cotangents
+      float acc48[24];
+      gw_rev_layer<48, false>(d, it, ring, full, empty, acc48, a, ex, lead);
+      it += d.r_nslab[0];
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < 6; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * q + 2 * t + e;
+          if (c < de) {
+            rp[c] += acc48[4 * q + e];
+            rt[c] += acc48[4 * q + 2 + e];
+          }
+        }
+    }
+    bar_sync(1 + wg, 128);
+    if (tid < GW_PTS) {
+      const int row = tile * GW_PTS + tid;
+      if (row < d.n) {
+        float u[3], v[3], ct[3];
+        for (int c = 0; c < 3; ++c) {
+          u[c] = d.x[(size_t)row * 3 + c] * d.scale;
+          v[c] = d.ct_g[(size_t)row * 3 + c] * d.scale;
+        }
+        const float* r = RE + tid * 2 * GW_EW;
+        encode_backward_row(u, v, d.multires, r, r + GW_EW, ct);
+        for (int c = 0; c < 3; ++c)
+          d.ct_x[(size_t)row * 3 + c] = ct[c] * d.scale;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(384, 1)
+geometry_bwd_wg_sweep(const __grid_constant__ GwDims d) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) &
+                                    1023);
+  float* E0 = (float*)(ring + (size_t)d.ns * GW_SLAB);
+  float* RE0 = E0 + d.nc * GW_PTS * 2 * GW_EW;
+  float* bias = RE0 + d.nc * GW_PTS * 2 * GW_EW;
+  uint64_t* full = (uint64_t*)(bias + d.L * GW_BW);
+  uint64_t* empty = full + d.ns;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < d.ns; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * d.nc);
+    }
+    mbar_fence_init();
+  }
+  for (int i = threadIdx.x; i < d.L * GW_BW; i += blockDim.x) {
+    const int l = i / GW_BW, c = i - l * GW_BW;
+    bias[i] = c < d.outs[l] ? d.b[l][c] : 0.f;
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 0) {
+    regs_dec<24>();
+    if (threadIdx.x == 0) gw_producer(d, ring, full, empty);
+  } else {
+    regs_inc<240>();
+    const size_t tile_f = (size_t)GW_PTS * 2 * GW_EW;
+    gw_consumer(d, wg - 1, ring, E0 + (wg - 1) * tile_f,
+                RE0 + (wg - 1) * tile_f, bias, full, empty);
+  }
+}
+
+// -- the weight-gradient pass ------------------------------------------------
+
+struct WgDims {
+  int n_img, per, S, ns, stage_bytes;
+  const unsigned char* img;
+  float* part;
+  long long x_img[GW_MAXL], r_img[GW_MAXL];
+  int xb[GW_MAXL], rb[GW_MAXL];
+  int u_layer[GW_MAXU], u_mb[GW_MAXU], u_nmb[GW_MAXU];
+};
+
+// one tile's X_l blocks and R_l image a stage: R at the stage's start, X
+// blocks mb, mb + 1 after it
+__device__ __forceinline__ void wg_producer(const WgDims& d, int l, int mb,
+                                            int nmb, int t0, int t1,
+                                            unsigned char* ring,
+                                            uint64_t* full, uint64_t* empty) {
+  const int rb = d.rb[l], xbytes = nmb * GW_XB;
+  int it = 0;
+  for (int tile = t0; tile < t1; ++tile, ++it) {
+    const int st = it % d.ns;
+    unsigned char* s = ring + (size_t)st * d.stage_bytes;
+    mbar_wait(empty + st, ((it / d.ns) & 1) ^ 1);
+    mbar_expect_tx(full + st, rb + xbytes);
+    bulk_g2s(s, d.img + d.r_img[l] + (size_t)tile * rb, rb, full + st);
+    bulk_g2s(s + rb, d.img + d.x_img[l] + (size_t)tile * d.xb[l] +
+                         mb * GW_XB, xbytes, full + st);
+  }
+}
+
+// One tile's 4 k-steps into acc (and acc64, WIDE: a layer over 256 wide);
+// KEEP0 == 0: the first overwrites.  One commit group.
+template <bool WIDE>
+__device__ __forceinline__ void wg_tile(uint32_t s, int rb, int w,
+                                        float (&acc)[128], float (&acc64)[32],
+                                        int keep0) {
+  const uint64_t da = desc_mn128(s + rb + w * GW_XB, GW_XB, 1024);
+  const uint64_t db = desc_mn128(s, GW_XB, 1024);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int keep = k == 0 ? keep0 : 1;
+    wgmma_ss_n256(acc, da + 128 * k, db + 128 * k, keep);
+    if constexpr (WIDE)
+      wgmma_ss_n64(acc64, da + 128 * k, db + 4 * (GW_XB >> 4) + 128 * k,
+                   keep);
+  }
+  wgmma_commit();
+}
+
+template <bool WIDE>
+__device__ __forceinline__ void wg_consumer(const WgDims& d, int l, int w,
+                                            int t0, int t1,
+                                            unsigned char* ring,
+                                            uint64_t* full, uint64_t* empty,
+                                            float4* slot) {
+  const int tid = threadIdx.x & 127, lead = (tid & 31) == 0;
+  const int rb = d.rb[l];
+  float acc[128], acc64[32];
+  int it = 0;
+  for (int tile = t0; tile < t1; ++tile, ++it) {
+    const int st = it % d.ns;
+    mbar_wait(full + st, (it / d.ns) & 1);
+    wg_tile<WIDE>(smem_u32(ring + (size_t)st * d.stage_bytes), rb, w, acc,
+                  acc64, tile != t0);
+    // the previous tile's products have retired: release its stage
+    wgmma_wait<1>();
+    mbar_arrive_if(empty + (it + d.ns - 1) % d.ns, lead && tile != t0);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if constexpr (WIDE) fence_regs(acc64);
+#pragma unroll
+  for (int q = 0; q < 32; ++q)
+    slot[q * 128 + tid] = make_float4(acc[4 * q], acc[4 * q + 1],
+                                      acc[4 * q + 2], acc[4 * q + 3]);
+  if constexpr (WIDE) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      slot[(32 + q) * 128 + tid] =
+          make_float4(acc64[4 * q], acc64[4 * q + 1], acc64[4 * q + 2],
+                      acc64[4 * q + 3]);
+  }
+}
+
+__global__ void __launch_bounds__(384, 1)
+geometry_bwd_wg_wgrad(const __grid_constant__ WgDims d) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) &
+                                    1023);
+  uint64_t* full = (uint64_t*)(ring + (size_t)d.ns * d.stage_bytes);
+  uint64_t* empty = full + d.ns;
+  const int u = blockIdx.x / d.S, c = blockIdx.x - u * d.S;
+  const int l = d.u_layer[u], mb = d.u_mb[u], nmb = d.u_nmb[u];
+  const int t0 = c * d.per, t1 = min(d.n_img, t0 + d.per);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < d.ns; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * nmb);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 0) {
+    regs_dec<24>();
+    if (threadIdx.x == 0)
+      wg_producer(d, l, mb, nmb, t0, t1, ring, full, empty);
+  } else if (wg - 1 < nmb) {
+    regs_inc<240>();
+    float4* slot = (float4*)d.part + ((size_t)blockIdx.x * 2 + wg - 1) *
+                                         GW_PQ * 128;
+    if (d.rb[l] > 4 * GW_XB)
+      wg_consumer<true>(d, l, wg - 1, t0, t1, ring, full, empty, slot);
+    else
+      wg_consumer<false>(d, l, wg - 1, t0, t1, ring, full, empty, slot);
+  }
+}
+
+// -- the reduce --------------------------------------------------------------
+
+struct RdDims {
+  int L, S, n_wslots;
+  long long P;
+  const float *part, *dbp;
+  float* grads;
+  int ins[GW_MAXL], outs[GW_MAXL], u_first[GW_MAXL];
+};
+
+// grads[j]: per layer dW [in][out] (the sum of its chunks' slots, in
+// order), then db [out] (the sum of the warps' slots, in order)
+__global__ void geometry_bwd_wg_reduce(const __grid_constant__ RdDims r) {
+  long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= r.P) return;
+  int l = 0;
+  for (; l < r.L; ++l) {
+    const long long sz = (long long)r.ins[l] * r.outs[l] + r.outs[l];
+    if (j < sz) break;
+    j -= sz;
+  }
+  const int out = r.outs[l];
+  float s = 0.f;
+  if (j < (long long)r.ins[l] * out) {
+    const int m0 = (int)(j / out), n0 = (int)(j - (long long)m0 * out);
+    // dW's coordinates in the pass: X_l's and R_l's columns where their
+    // images keep them (gw_perm; X_0's and R's fifth block in order)
+    const int m = l ? gw_perm(m0) : m0, n = n0 < 256 ? gw_perm(n0) : n0;
+    const int mb = m >> 6, mm = m & 63;
+    const int u = r.u_first[l] + (mb >> 1), w = mb & 1;
+    const int tid = 32 * (mm >> 4) + 4 * (mm & 7) + ((n & 7) >> 1);
+    const int q = n < 256 ? n >> 3 : 32 + ((n - 256) >> 3);
+    const int comp = 2 * ((mm >> 3) & 1) + (n & 1);
+    for (int c = 0; c < r.S; ++c)
+      s += r.part[((((size_t)(u * r.S + c) * 2 + w) * GW_PQ + q) * 128 +
+                   tid) * 4 + comp];
+  } else {
+    const int n = (int)(j - (long long)r.ins[l] * out);
+    for (int ws = 0; ws < r.n_wslots; ++ws)
+      s += r.dbp[((size_t)ws * r.L + l) * GW_BW + n];
+  }
+  r.grads[blockIdx.x * (long long)blockDim.x + threadIdx.x] = s;
+}
+
+// Integer arguments: [L, multires, d_embed, n, nc, grid, n_pass, S, per,
+// then per layer ins[L], outs[L], enc[L], f_nslab[L], f_off[L],
+// r_nslab[L], r_off[L], r_cols[L]] (ops/geometry_kernel.bwd_wg_iargs: the
+// two slab packs' layouts, tc_pack.SweepLayout; S chunks of per tiles for
+// the weight-gradient pass).  Pointers: [x, ct_out, ct_grad, ct_x, scratch,
+// images, db slots, dW slots, grads, forward pack, reverse pack, b[L]];
+// grads receives, per layer, dW as [in][out] followed by db [out].
+// Returns a cudaError_t value; 0 when the three launches were accepted.
+extern "C" int geometry_bwd_bf16(const int* ia, const unsigned long long* p,
+                                 float scale, unsigned long long stream) {
+  GwDims d;
+  d.L = ia[0];
+  d.multires = ia[1];
+  d.d_embed = ia[2];
+  d.n = ia[3];
+  d.nc = ia[4];
+  const int grid = ia[5];
+  d.n_pass = ia[6];
+  const int S = ia[7], per = ia[8];
+  const int L = d.L;
+  if (L < 2 || L > GW_MAXL || d.d_embed > GW_EW ||
+      d.d_embed != 3 * (1 + 2 * d.multires) || d.nc < 1 || d.nc > 2 ||
+      grid < 1 || d.n_pass < 1 || S < 1 || per < 1)
+    return (int)cudaErrorInvalidValue;
+  d.scale = scale;
+  d.x = (const float*)p[0];
+  d.ct_out = (const float*)p[1];
+  d.ct_g = (const float*)p[2];
+  d.ct_x = (float*)p[3];
+  d.scratch = (float*)p[4];
+  d.img = (unsigned char*)p[5];
+  d.dbp = (float*)p[6];
+  d.fpack = (const unsigned char*)p[9];
+  d.rpack = (const unsigned char*)p[10];
+  d.n_img = d.n_pass * d.nc;
+  const int* q = ia + 9;
+  long long off = 0;
+  for (int l = 0; l < L; ++l) {
+    d.ins[l] = q[l];
+    d.outs[l] = q[L + l];
+    d.enc[l] = q[2 * L + l];
+    d.f_nslab[l] = q[3 * L + l];
+    d.f_off[l] = q[4 * L + l];
+    d.r_nslab[l] = q[5 * L + l];
+    d.r_off[l] = q[6 * L + l];
+    const int r_cols = q[7 * L + l];
+    d.r_copy[l] = r_cols * 128;
+    d.b[l] = (const float*)p[11 + l];
+    const bool last = l == L - 1;
+    // layer 0 reads the encoding alone, a skip layer [h | enc], the last
+    // layer h alone
+    if (d.ins[l] > 256 || d.outs[l] > (last ? 264 : 256) ||
+        (d.enc[l] != 0 && d.enc[l] != 1) || (l == 0 && !d.enc[0]) ||
+        (l == 0 && d.ins[0] != d.d_embed) || (last && d.enc[l]) ||
+        (!last && d.f_nslab[l] != (l ? 4 : 0) + d.enc[l]) ||
+        d.r_nslab[l] != 4 + (d.outs[l] > 256) ||
+        r_cols != (l ? 256 : 48) || d.f_off[l] % 1024 || d.r_off[l] % 1024)
+      return (int)cudaErrorInvalidValue;
+    if (l && d.ins[l] != d.outs[l - 1] + (d.enc[l] ? d.d_embed : 0))
+      return (int)cudaErrorInvalidValue;
+    // a tile's images: X_0 one 64-column block, X_l four; R_l four, five
+    // for a last layer over 256 wide
+    d.xb[l] = (l ? 4 : 1) * GW_XB;
+    d.rb[l] = (d.outs[l] > 256 ? 5 : 4) * GW_XB;
+    d.x_img[l] = off;
+    off += (long long)d.n_img * d.xb[l];
+    d.r_img[l] = off;
+    off += (long long)d.n_img * d.rb[l];
+  }
+  const size_t fixed = 1024 + (size_t)d.nc * 2 * GW_PTS * 2 * GW_EW * 4 +
+                       (size_t)L * GW_BW * 4;
+  const int ns = (int)((GW_SMEM_MAX - fixed) / ((size_t)GW_SLAB + 16));
+  d.ns = ns < GW_MAX_NS ? ns : GW_MAX_NS;
+  // a consumer holds every slab of a layer (at most 5) until its products
+  // retire
+  if (d.ns < 5) return (int)cudaErrorInvalidValue;
+  const size_t smem = fixed + (size_t)d.ns * (GW_SLAB + 16);
+  cudaError_t e = cudaFuncSetAttribute(
+      geometry_bwd_wg_sweep, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = (cudaStream_t)stream;
+  geometry_bwd_wg_sweep<<<grid, 128 * (1 + d.nc), smem, s>>>(d);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  // the weight-gradient pass over the tiles that hold a point
+  WgDims w;
+  RdDims r;
+  r.L = L;
+  w.n_img = (d.n + GW_PTS - 1) / GW_PTS;
+  w.per = per;
+  w.S = r.S = S;
+  w.img = d.img;
+  w.part = (float*)p[7];
+  if ((long long)S * per < w.n_img || (long long)(S - 1) * per >= w.n_img)
+    return (int)cudaErrorInvalidValue;
+  int nu = 0, widest = 0;
+  for (int l = 0; l < L; ++l) {
+    w.x_img[l] = d.x_img[l];
+    w.r_img[l] = d.r_img[l];
+    w.xb[l] = d.xb[l];
+    w.rb[l] = d.rb[l];
+    r.ins[l] = d.ins[l];
+    r.outs[l] = d.outs[l];
+    r.u_first[l] = nu;
+    const int nmb = (d.ins[l] + 63) / 64;
+    for (int mb = 0; mb < nmb; mb += 2) {
+      if (nu == GW_MAXU) return (int)cudaErrorInvalidValue;
+      w.u_layer[nu] = l;
+      w.u_mb[nu] = mb;
+      w.u_nmb[nu] = nmb - mb < 2 ? nmb - mb : 2;
+      const int sb = d.rb[l] + w.u_nmb[nu] * GW_XB;
+      widest = widest > sb ? widest : sb;
+      ++nu;
+    }
+  }
+  w.stage_bytes = (widest + 1023) / 1024 * 1024;
+  const int wns = (int)((GW_SMEM_MAX - 1024) / ((size_t)w.stage_bytes + 16));
+  w.ns = wns < GW_MAX_NS ? wns : GW_MAX_NS;
+  if (w.ns < 2) return (int)cudaErrorInvalidValue;
+  const size_t wsmem = 1024 + (size_t)w.ns * (w.stage_bytes + 16);
+  e = cudaFuncSetAttribute(geometry_bwd_wg_wgrad,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)wsmem);
+  if (e != cudaSuccess) return (int)e;
+  geometry_bwd_wg_wgrad<<<nu * S, 384, wsmem, s>>>(w);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  r.n_wslots = grid * d.nc * 4;
+  r.part = w.part;
+  r.dbp = d.dbp;
+  r.grads = (float*)p[8];
+  r.P = 0;
+  for (int l = 0; l < L; ++l)
+    r.P += (long long)d.ins[l] * d.outs[l] + d.outs[l];
+  const int rb = 256;
+  geometry_bwd_wg_reduce<<<(int)((r.P + rb - 1) / rb), rb, 0, s>>>(r);
+  return (int)cudaGetLastError();
+}
+
+// The sweep's and the weight-gradient pass's attributes as the device
+// holds them, read after a launch: out[3 i .. 3 i + 2] = registers a
+// thread, dynamic shared memory a block (as the launcher last set it),
+// static shared memory, for i = 0 (sweep) and 1 (weight-gradient pass).
+// Returns a cudaError_t value.
+extern "C" int geometry_bwd_bf16_attrs(int* out) {
+  const void* fns[2] = {(const void*)geometry_bwd_wg_sweep,
+                        (const void*)geometry_bwd_wg_wgrad};
+  for (int i = 0; i < 2; ++i) {
+    cudaFuncAttributes a;
+    const cudaError_t e = cudaFuncGetAttributes(&a, fns[i]);
+    if (e != cudaSuccess) return (int)e;
+    out[3 * i] = a.numRegs;
+    out[3 * i + 1] = a.maxDynamicSharedSizeBytes;
+    out[3 * i + 2] = (int)a.sharedSizeBytes;
+  }
+  return 0;
+}

@@ -5,10 +5,17 @@
 //   mbar_*        mbarriers: init, predicated arrive, arrive.expect_tx,
 //                 parity wait
 //   bulk_g2s      cp.async.bulk global -> shared, completing on an mbarrier
+//   l2_prefetch_if  cp.async.bulk.prefetch.L2: global memory into L2
 //   desc_sw128    a wgmma B descriptor for a K-major, 128-byte swizzled
-//                 slab (tc_pack.pack_sweep_bf16 lays slabs out in it)
+//                 slab (tc_pack.pack_sweep_bf16 and pack_rev_bf16 lay
+//                 slabs out in it)
+//   desc_mn128    a descriptor of an MN-major, 128-byte swizzled tile
+//                 image (geometry_bwd_bf16_wg.cu's weight-gradient pass)
 //   wgmma_n256,   wgmma.mma_async m64nNk16 f32 += bf16 x bf16, A from
-//   wgmma_n8      registers
+//   wgmma_n48,    registers
+//   wgmma_n8
+//   wgmma_ss_n256, the same with A and B both MN-major in shared memory
+//   wgmma_ss_n64
 //   wgmma_fence / commit / wait, fence_regs (the compiler's view of the
 //                 accumulators' ordering against the wait)
 //   regs_inc / regs_dec   setmaxnreg, a warpgroup's register budget
@@ -31,6 +38,14 @@
 // of one layer's result, each rounded to bf16 and paired, are exactly
 // k-step j's A fragment of the next layer (the layout FlashAttention-3
 // uses for P), and activations never leave registers.
+//
+// The MN-major tile image.  A matrix of 64 k rows (a row of the product's
+// depth each) and 64 c columns (M of A, or N of B) is c blocks of 8,192
+// bytes, one a 64 columns; in a block, row k's 64 values (128 bytes) at
+// 128 k bytes, its 16-byte chunks permuted by chunk ^ (k % 8), eight rows
+// a 1024-byte atom.  k-step j (rows 16j .. 16j + 15) is the descriptor of
+// the image plus 2048 j bytes; the leading byte offset is 8,192 (block to
+// block), the stride byte offset 1024 (eight rows to the next eight).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -106,6 +121,17 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
       : "memory");
 }
 
+// bytes (a multiple of 16, 16-byte aligned) from global memory into L2,
+// without waiting, where pred is nonzero (predicated, as mbar_arrive_if)
+__device__ __forceinline__ void l2_prefetch_if(const void* src,
+                                               uint32_t bytes, int pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
+      "@p cp.async.bulk.prefetch.L2.global [%0], %1;\n}\n" ::"l"(src),
+      "r"(bytes), "r"(pred)
+      : "memory");
+}
+
 // B descriptor of a K-major slab with the 128-byte swizzle at shared
 // address saddr (1024-byte aligned for k-step 0): start >> 4, leading byte
 // offset 1 (unused with this swizzle), stride byte offset 1024 >> 4,
@@ -114,6 +140,18 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
   return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// Descriptor of an MN-major tile image with the 128-byte swizzle at shared
+// address saddr (1024-byte aligned): start >> 4, leading byte offset (from
+// one 64-element block of M or N to the next) >> 4, stride byte offset
+// (from eight k rows to the next eight) >> 4, layout type 1 (128B).
+// Adding 128 moves it one k-step (16 rows, 2048 bytes) on.
+__device__ __forceinline__ uint64_t desc_mn128(uint32_t saddr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -219,4 +257,96 @@ __device__ __forceinline__ void wgmma_n8(float (&d)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
         "r"(scale_d));
+}
+
+// D[64][48] (+)= A[64][16] B[16][48]: A from registers, B from a K-major
+// slab (desc_sw128) of 48 columns; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_n48(float (&d)[24],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+// D[64][256] (+)= A[64][16] B[16][256], A and B both from shared memory,
+// both MN-major (desc_mn128: the transpose bits set); scale_d = 0
+// overwrites D.
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, "
+      "%128, %129, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64][64] (+)= A[64][16] B[16][64], as wgmma_ss_n256.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }

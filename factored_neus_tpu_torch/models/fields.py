@@ -40,10 +40,12 @@ from ..ops.mlp import WNLinear, dense_init_, sdf_geometric_init_
 
 
 # (effective weights, biases, 3xTF32 weight pack or None, bf16 weight pack
-# or None, K2-bf16's slab pack or None): _WNLayers.kernel_weights
+# or None, K2-bf16's slab pack or None, K1-bwd-bf16's reverse slab pack or
+# None): _WNLayers.kernel_weights
 KernelWeights = Tuple[List[torch.Tensor], List[torch.Tensor],
                       Optional[Tuple[torch.Tensor, TP.PackLayout]],
                       Optional[Tuple[torch.Tensor, TP.PackLayout]],
+                      Optional[Tuple[torch.Tensor, TP.SweepLayout]],
                       Optional[Tuple[torch.Tensor, TP.SweepLayout]]]
 
 
@@ -88,13 +90,14 @@ class _WNLayers(nn.Module):
 
     def kernel_weights(self, bf16: bool = False, f32: bool = True,
                        sweep_bf16: bool = False) -> KernelWeights:
-        """(ws, bs, pack, pack16, sweep16): the effective weights and
-        biases, differentiable in g, v and b, and on a CUDA device their
-        weight packs for the kernels, built without grad (None on the CPU,
-        or where not asked for): ``f32``, tc_pack.pack_weights' (3xTF32);
-        ``bf16``, tc_pack.pack_weights_bf16's (the bf16 operand mode);
-        ``sweep_bf16`` (the SDF network only), K2-bf16's slab pack
-        (sdf_kernel.make_sweep_pack).  Built once a step, or once a
+        """(ws, bs, pack, pack16, sweep16, rev16): the effective weights
+        and biases, differentiable in g, v and b, and on a CUDA device
+        their weight packs for the kernels, built without grad (None on
+        the CPU, or where not asked for): ``f32``, tc_pack.pack_weights'
+        (3xTF32); ``bf16``, tc_pack.pack_weights_bf16's (the bf16 operand
+        mode); ``sweep_bf16`` (the SDF network only), K2-bf16's slab pack
+        (sdf_kernel.make_sweep_pack); rev16, the SDF network's
+        (SDFNetwork.kernel_weights).  Built once a step, or once a
         validation image or a stage-2/3 run, they serve every launch on
         these weights: K1 and the K2 sweeps, each on the pack of its mode,
         for the SDF network; K3-fwd and K3-bwd for the radiance MLP."""
@@ -106,7 +109,7 @@ class _WNLayers(nn.Module):
                 pack16 = TP.pack_weights_bf16(ws) if bf16 else None
                 sweep16 = (SK.make_sweep_pack(self.cfg, ws) if sweep_bf16
                            else None)
-        return ws, bs, pack, pack16, sweep16
+        return ws, bs, pack, pack16, sweep16, None
 
 
 def mode_pack(weights: KernelWeights, bf16: bool):
@@ -151,6 +154,22 @@ class SDFNetwork(_WNLayers):
         ws, bs = self.effective_weights()
         return SK.sdf_forward_plain(ws, bs, self.cfg, x)
 
+    def kernel_weights(self, bf16: bool = False, f32: bool = True,
+                       sweep_bf16: bool = False) -> KernelWeights:
+        """_WNLayers.kernel_weights and, in the bf16 mode where a backward
+        through K1-bwd-bf16 can follow (grad enabled and
+        geometry_kernel.wg_backward()), K1-bwd-bf16's two slab packs
+        (geometry_kernel.make_bwd_slabs: the first is K2-bf16's slab
+        pack, sweep16, which the sweeps share; the second
+        tc_pack.pack_rev_bf16's, rev16)."""
+        wg = bf16 and torch.is_grad_enabled() and GK.wg_backward()
+        ws, bs, pack, pack16, sweep16, rev16 = super().kernel_weights(
+            bf16, f32, sweep_bf16 or wg)
+        if wg and ws[0].is_cuda:
+            with torch.no_grad():
+                rev16 = TP.pack_rev_bf16(ws, self.cfg.d_embed)
+        return ws, bs, pack, pack16, sweep16, rev16
+
     def value_sweep(self, x: torch.Tensor,
                     weights: Optional[KernelWeights] = None,
                     bf16: bool = False) -> torch.Tensor:
@@ -178,7 +197,9 @@ class SDFNetwork(_WNLayers):
         theirs has none of the mode's operand type)."""
         weights = weights or self.kernel_weights(bf16, f32=not bf16)
         out, grad = GK.geometry(*weights[:2], x, self.cfg,
-                                pack=mode_pack(weights, bf16), bf16=bf16)
+                                pack=mode_pack(weights, bf16), bf16=bf16,
+                                slabs=(weights[4:6] if weights[5] is not None
+                                       else None))
         return out[:, 0], out[:, 1:], grad
 
 

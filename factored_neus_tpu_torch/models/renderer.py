@@ -128,8 +128,11 @@ class Stage1Model(nn.Module):
         render core in its bf16 mode (K1's and K3's bf16 packs, and no
         3xTF32 radiance pack); ``sweep_bf16``, the ladder's sweeps on
         K2-bf16 (the SDF network's slab pack; its 3xTF32 pack only where
-        K1 or a sweep still reads it).  Built once a step by ``render``, or
-        once a validation image by its caller."""
+        K1 or a sweep still reads it); with ``bf16``, where a backward can
+        follow (fields.SDFNetwork.kernel_weights), also K1-bwd-bf16's two
+        slab packs (geometry_kernel.make_bwd_slabs, the first K2-bf16's
+        too).  Built once a step by ``render``, or once a validation image
+        by its caller."""
         return (self.sdf.kernel_weights(bf16, f32=not (bf16 and sweep_bf16),
                                         sweep_bf16=sweep_bf16),
                 self.color.kernel_weights(bf16, f32=not bf16))

@@ -37,8 +37,15 @@ primal and tangent rows, the weight gradients and the input cotangents)
 takes both operands rounded to bf16 and sums in f32; everything
 elementwise stays f32.  Each entry point has a bf16 twin kernel
 (K1-fwd-bf16, K1-bwd-bf16, K1-bwd-split-bf16, K1-fwd-stash-bf16,
-K1-bwd-stash-bf16) on bf16 ``mma.sync``, from ``tc_pack.pack_weights_bf16``.
-Its plain twins compute the same products explicitly
+K1-bwd-stash-bf16) on bf16 ``mma.sync``, from ``tc_pack.pack_weights_bf16``,
+but K1-bwd-bf16: it runs on Hopper's warpgroup ``wgmma``
+(csrc/geometry_bwd_bf16_wg.cu), a stacked sweep whose weights stream as
+slabs (``make_bwd_slabs``: tc_pack.pack_sweep_bf16's for X W and
+pack_rev_bf16's for r W, built once a step, where a backward can follow,
+by ``fields.SDFNetwork.kernel_weights(bf16=True)``), which writes each
+layer's bf16 X_l and R_l, then a split-K ``wgmma`` pass dW_l = X_l^T R_l
+and a fixed-order reduce (``weight_grad_pass_plain`` is that pass in plain
+PyTorch).  Its plain twins compute the same products explicitly
 (``geometry_plain(bf16=True)``, ``geometry_bwd_plain(bf16=True)``):
 autograd through a rounding would run the backward's products on
 unrounded cotangents.  On a CPU tensor the autograd Function runs them.
@@ -53,9 +60,11 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _cuda
+from . import tc_pack as TP
 from .mlp import softplus_beta
 from .embedder import positional_encoding
-from .sdf_kernel import TILE, layer_dims, sdf_forward_plain
+from .sdf_kernel import (TILE, layer_dims, make_sweep_pack, sdf_forward_plain,
+                         skip_layers)
 from .tc_pack import (PackLayout, check_layout, layout_iargs, make_pack,
                       mm_bf16, round8)
 from .tc_pack import pack_for as _pack_for
@@ -71,8 +80,8 @@ K1_BWD_SPLIT = _cuda.CudaKernel("geometry_bwd_split", "geometry_bwd.cu",
 # the bf16 operand mode's entry points
 K1_FWD_BF16 = _cuda.CudaKernel("geometry_fwd_bf16", "geometry_fwd.cu",
                                "geometry_fwd_bf16")
-K1_BWD_BF16 = _cuda.CudaKernel("geometry_bwd_bf16", "geometry_bwd_bf16.cu",
-                               "geometry_bwd_bf16")
+K1_BWD_BF16 = _cuda.CudaKernel("geometry_bwd_bf16",
+                               "geometry_bwd_bf16_wg.cu", "geometry_bwd_bf16")
 K1_FWD_STASH_BF16 = _cuda.CudaKernel("geometry_fwd_stash_bf16",
                                      "geometry_fwd.cu",
                                      "geometry_fwd_stash_bf16")
@@ -212,7 +221,8 @@ def geometry_bwd_plain(ws: Sequence[torch.Tensor],
                        bs: Optional[Sequence[torch.Tensor]], x: torch.Tensor,
                        ct_out: torch.Tensor, ct_grad: torch.Tensor, cfg,
                        bf16: bool = False,
-                       stash: Optional[torch.Tensor] = None
+                       stash: Optional[torch.Tensor] = None,
+                       operands: Optional[dict] = None
                        ) -> Tuple[torch.Tensor, List[torch.Tensor],
                                   List[torch.Tensor]]:
     """Explicit twin of the K1 backward (pallas_geometry's
@@ -221,7 +231,9 @@ def geometry_bwd_plain(ws: Sequence[torch.Tensor],
     (recomputed with the biases, or taken from the bf16 ``stash``, which
     reads no bias) and the tangent forward along ct_grad, then the reverse
     sweep of both chains.  ``bf16``: every product on bf16-rounded
-    operands, as the bf16 kernels compute them.  Computes in x's dtype."""
+    operands, as the bf16 kernels compute them.  ``operands``: receives,
+    for each layer l, the weight gradient's operands (x_l, xd_l, r_l, rd_l)
+    (weight_grad_pass_plain).  Computes in x's dtype."""
     dt = x.dtype
     mm = mm_bf16 if bf16 else torch.matmul
     ins, _, _ = layer_dims(cfg, ws)
@@ -266,6 +278,8 @@ def geometry_bwd_plain(ws: Sequence[torch.Tensor],
                     xdl = torch.cat([xdl, denc], -1) * inv_sqrt2
             dws[l] = mm(r.t(), xl) + mm(rd.t(), xdl)
             dbs[l] = r.sum(0)
+            if operands is not None:
+                operands[l] = (xl, xdl, r, rd)
             r_in, rd_in = mm(r, ws[l]), mm(rd, ws[l])
             if l in skip:
                 hw = ins[l] - cfg.d_embed
@@ -281,6 +295,33 @@ def geometry_bwd_plain(ws: Sequence[torch.Tensor],
                 r, rd = r_in * sg + rd_in * ds * ad[l - 1], rd_in * sg
         ct_x = _encode_backward(u, v, r_enc, r_denc, cfg.multires) * s
     return ct_x, dws, dbs
+
+
+def weight_grad_pass_plain(operands: dict, tiles_per_chunk: int
+                           ) -> Tuple[List[torch.Tensor],
+                                      List[torch.Tensor]]:
+    """K1-bwd-bf16's weight-gradient pass in plain PyTorch, on the
+    operands geometry_bwd_plain(bf16=True, operands=...) recorded: (dW
+    per layer [out, in], db per layer).  The points are cut into chunks
+    of ``tiles_per_chunk`` tiles of WG_POINTS; dW_l is the sum, chunk
+    after chunk, of [x_l; xd_l]^T [r_l; rd_l] over the chunk's stacked
+    rows, on bf16-rounded operands with an f32 sum (pallas_geometry's
+    stacked dot_at); db_l the f32 sum of r_l, rounded to nothing."""
+    L = len(operands)
+    dws, dbs = [], []
+    for l in range(L):
+        xl, xdl, r, rd = operands[l]
+        step = WG_POINTS * tiles_per_chunk
+        dw = None
+        for c0 in range(0, xl.shape[0], step):
+            c = slice(c0, c0 + step)
+            x2 = torch.cat([xl[c], xdl[c]])
+            r2 = torch.cat([r[c], rd[c]])
+            part = mm_bf16(r2.t(), x2)
+            dw = part if dw is None else dw + part
+        dws.append(dw)
+        dbs.append(r.sum(0))
+    return dws, dbs
 
 
 def geometry_bwd_stash_plain(ws: Sequence[torch.Tensor], x: torch.Tensor,
@@ -357,6 +398,124 @@ def launch_forward_stash(cfg, x, ws, bs, pack=None, bf16: bool = False
     return _launch_forward("fwd_stash", cfg, x, ws, bs, True, pack, bf16)
 
 
+# K1-bwd-bf16 (csrc/geometry_bwd_bf16_wg.cu): a consumer warpgroup's tile
+# of points (GW_PTS; 64 stacked rows), the float4 rows of a weight-gradient
+# slot (GW_PQ), the bytes of a 64-column block of a tile image (GW_XB), a
+# db slot's row (GW_BW)
+WG_POINTS = 32
+WG_SLOT_ROWS = 40
+WG_BLOCK = 8192
+WG_DB_ROW = 264
+
+
+def make_bwd_slabs(cfg, ws: Sequence[torch.Tensor]):
+    """K1-bwd-bf16's two slab packs of ws: (pack_sweep_bf16's, the
+    forward X W, also K2-bf16's; pack_rev_bf16's, the reverse r W)."""
+    return make_sweep_pack(cfg, ws), TP.pack_rev_bf16(ws, cfg.d_embed)
+
+
+def wg_backward(stash: Optional[bool] = None,
+                stacked: Optional[bool] = None) -> bool:
+    """Whether geometry's bf16 mode takes its backward through
+    K1-bwd-bf16, which reads make_bwd_slabs' packs: not through the stash
+    pair (``stash``, default STASH_BWD) and stacked (``stacked``, default
+    STACKED_BWD)."""
+    return (not (STASH_BWD if stash is None else stash)
+            and (STACKED_BWD if stacked is None else bool(stacked)))
+
+
+def bwd_wg_plan(cfg, ws, n: int, slabs, sms: int) -> dict:
+    """K1-bwd-bf16's launch: its integer arguments (``iargs``,
+    geometry_bwd_bf16_wg.cu) and the sizes of what the wrapper allocates.
+    The sweep: tiles of WG_POINTS points, two consumer warpgroups a block
+    when there are more tiles than SMs, else one; one persistent block a
+    pass up to one a SM.  The weight-gradient pass: ``units`` (a layer
+    and a pair of 64-row blocks of its dW) times ``chunks`` of ``per``
+    tiles, at most one block a SM where the tiles allow.  Raises unless
+    ``slabs`` holds make_bwd_slabs' layouts for ws."""
+    ins, outs, _ = layer_dims(cfg, ws)
+    (_, flay), (_, rlay) = slabs
+    if not (isinstance(flay, TP.SweepLayout) and flay.operand == "wgmma-bf16"
+            and isinstance(rlay, TP.SweepLayout)
+            and rlay.operand == "wgmma-bf16-rev"):
+        raise ValueError("K1-bwd-bf16 multiplies on wgmma: it takes "
+                         "make_bwd_slabs' two slab packs")
+    want = TP.sweep_layout(ins, outs, skip_layers(cfg, len(ws)), cfg.d_embed)
+    if (flay.enc, flay.nslab, flay.off, flay.cols[:-1]) != (
+            want.enc, want.nslab, want.off, want.cols[:-1]) or \
+            rlay != TP.rev_layout(ins, outs, cfg.d_embed):
+        raise ValueError("K1-bwd-bf16: the slab packs' layouts do not match "
+                         "the network's widths")
+    L = len(ws)
+    tiles = -(-n // WG_POINTS)
+    nc = 2 if tiles > sms else 1
+    n_pass = -(-tiles // nc)
+    grid = min(n_pass, sms)
+    units = sum((-(-i // 64) + 1) // 2 for i in ins)   # 64-row blocks, 2 a unit
+    per = -(-tiles // max(1, sms // units))
+    chunks = -(-tiles // per)
+    img = n_pass * nc * WG_BLOCK * sum(
+        (4 if l else 1) + (5 if o > 256 else 4) for l, o in enumerate(outs))
+    iargs = [L, cfg.multires, cfg.d_embed, n, nc, grid, n_pass, chunks, per,
+             *ins, *outs, *flay.enc, *flay.nslab[:-1], 0, *flay.off[:-1], 0,
+             *rlay.nslab, *rlay.off, *rlay.cols]
+    # shared memory a block (the source's count): the sweep's encoding
+    # tiles, biases and slab ring; the pass's ring of R and X images
+    fixed = 1024 + nc * 2 * WG_POINTS * 2 * 48 * 4 + L * WG_DB_ROW * 4
+    ns = min(8, (TP.SMEM_MAX - fixed) // (32768 + 16))
+    stage = -(-max((5 if o > 256 else 4) * WG_BLOCK + min(2, -(-i // 64))
+                   * WG_BLOCK for i, o in zip(ins, outs)) // 1024) * 1024
+    wns = min(8, (TP.SMEM_MAX - 1024) // (stage + 16))
+    return {"iargs": iargs, "grid": grid, "nc": nc, "n_pass": n_pass,
+            "units": units, "chunks": chunks, "per": per,
+            "sweep_smem": fixed + ns * (32768 + 16),
+            "wgrad_smem": 1024 + wns * (stage + 16),
+            "tiles": tiles,
+            "scratch_floats": grid * nc * (L - 1) * 32 * 128 * 4,
+            "image_bytes": img,
+            "db_floats": grid * nc * 4 * L * WG_DB_ROW,
+            "slot_floats": units * chunks * 2 * WG_SLOT_ROWS * 128 * 4}
+
+
+def _launch_backward_wg(cfg, x, ws, bs, ct_out, ct_grad, slabs):
+    """K1-bwd-bf16 on make_bwd_slabs' packs."""
+    kernel = K1_BWD_BF16
+    dev = x.device
+    if slabs is None:
+        raise ValueError("K1-bwd-bf16 reads make_bwd_slabs' packs, built "
+                         "once a step by SDFNetwork.kernel_weights: none "
+                         "was given")
+    (fp, _), (rp, _) = slabs
+    bs_c = [b.detach().contiguous() for b in bs]
+    x = x.detach().contiguous()
+    ct_out = ct_out.contiguous()
+    ct_grad = ct_grad.contiguous()
+    _cuda.check_cuda_tensors(kernel.name,
+                             [x, ct_out, ct_grad, fp, rp, *bs_c])
+    n = x.shape[0]
+    ins = [int(w.shape[1]) for w in ws]
+    outs = [int(w.shape[0]) for w in ws]
+    P = sum(i * o + o for i, o in zip(ins, outs))
+    ct_x = torch.empty(n, 3, device=dev, dtype=torch.float32)
+    if n > 0:
+        plan = bwd_wg_plan(cfg, ws, n, slabs, _cuda.sm_count(dev))
+        grads = torch.empty(P, device=dev, dtype=torch.float32)
+        f32 = lambda k: torch.empty(k, device=dev, dtype=torch.float32)
+        img = torch.empty(plan["image_bytes"], device=dev, dtype=torch.uint8)
+        kernel.launch(plan["iargs"],
+                      [x, ct_out, ct_grad, ct_x, f32(plan["scratch_floats"]),
+                       img, f32(plan["db_floats"]), f32(plan["slot_floats"]),
+                       grads, fp, rp, *bs_c], cfg.scale, dev)
+    else:
+        grads = torch.zeros(P, device=dev, dtype=torch.float32)
+    dws, dbs, off = [], [], 0
+    for i, o in zip(ins, outs):
+        dws.append(grads[off:off + i * o].view(i, o).t())
+        dbs.append(grads[off + i * o:off + i * o + o])
+        off += i * o + o
+    return ct_x, dws, dbs
+
+
 def _launch_backward(entry, cfg, x, ws, bs, stash, ct_out, ct_grad,
                      pack=None, bf16: bool = False):
     kernel = KERNELS[entry, bf16]
@@ -406,7 +565,10 @@ def launch_backward(cfg, x, ws, bs, ct_out, ct_grad, pack=None,
                     ) -> Tuple[torch.Tensor, List[torch.Tensor],
                                List[torch.Tensor]]:
     """K1-bwd (bf16: K1-bwd-bf16): (ct_x [N, 3], dW per layer [out, in],
-    db per layer [out])."""
+    db per layer [out]).  ``pack``: make_pack(ws) for K1-bwd,
+    make_bwd_slabs(cfg, ws) for K1-bwd-bf16 (which raises without it)."""
+    if bf16:
+        return _launch_backward_wg(cfg, x, ws, bs, ct_out, ct_grad, pack)
     return _launch_backward("bwd", cfg, x, ws, bs, None, ct_out, ct_grad,
                             pack, bf16)
 
@@ -435,12 +597,14 @@ class GeometryFn(torch.autograd.Function):
     """(x, *ws, *bs) -> (out, grad) through K1-fwd; backward with both
     cotangents through K1-bwd, or K1-bwd-split when not ``stacked``; in
     the bf16 mode through their bf16 kernels.  ``pack``: make_pack(ws,
-    bf16), built without grad by the caller.  On a CPU tensor (``pack``
+    bf16), built without grad by the caller; ``slabs``:
+    make_bwd_slabs(cfg, ws), the packs of K1-bwd-bf16 (the bf16 mode,
+    stacked), saved here for the backward.  On a CPU tensor (``pack``
     None) the bf16 mode runs the explicit twins; the f32 mode does not
     come here on the CPU (geometry_plain differentiates itself)."""
 
     @staticmethod
-    def forward(ctx, cfg, stacked, bf16, pack, x, *params):
+    def forward(ctx, cfg, stacked, bf16, pack, slabs, x, *params):
         L = len(params) // 2
         ws, bs = params[:L], params[L:]
         if x.is_cuda:
@@ -448,7 +612,7 @@ class GeometryFn(torch.autograd.Function):
             ctx.layout, pack = pack[1], pack[0]
         else:
             out, grad = geometry_plain(ws, bs, x, cfg, bf16=bf16)
-        ctx.cfg, ctx.stacked, ctx.bf16 = cfg, stacked, bf16
+        ctx.cfg, ctx.stacked, ctx.bf16, ctx.slabs = cfg, stacked, bf16, slabs
         ctx.save_for_backward(x, pack, *params)
         return out, grad
 
@@ -458,14 +622,17 @@ class GeometryFn(torch.autograd.Function):
         x, pack, *params = ctx.saved_tensors
         L = len(params) // 2
         ws, bs = params[:L], params[L:]
-        if x.is_cuda:
+        if x.is_cuda and ctx.bf16 and ctx.stacked:
+            ct_x, dws, dbs = _launch_backward_wg(ctx.cfg, x, ws, bs, ct_out,
+                                                 ct_grad, ctx.slabs)
+        elif x.is_cuda:
             launch = launch_backward if ctx.stacked else launch_backward_split
             ct_x, dws, dbs = launch(ctx.cfg, x, ws, bs, ct_out, ct_grad,
                                     (pack, ctx.layout), ctx.bf16)
         else:
             ct_x, dws, dbs = geometry_bwd_plain(ws, bs, x, ct_out, ct_grad,
                                                 ctx.cfg, ctx.bf16)
-        return (None, None, None, None, ct_x, *dws, *dbs)
+        return (None, None, None, None, None, ct_x, *dws, *dbs)
 
 
 class GeometryStashFn(torch.autograd.Function):
@@ -507,14 +674,17 @@ def geometry(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
              x: torch.Tensor, cfg, stash: Optional[bool] = None,
              stacked: Optional[bool] = None,
              pack: Optional[Tuple[torch.Tensor, PackLayout]] = None,
-             bf16: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+             bf16: bool = False, slabs=None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [N, d_out], grad [N, 3]), differentiable in x, ws and bs;
     through the HBM-stash pair when ``stash`` (default STASH_BWD), else
     with the backward through K1-bwd when ``stacked`` (default
     STACKED_BWD) and K1-bwd-split when not; ``bf16``: in the bf16 operand
     mode, each through its bf16 kernel.  ``pack``: make_pack(ws, bf16)
-    when the caller already has it (on a CUDA tensor; built here if
-    not)."""
+    when the caller already has it (on a CUDA tensor; built here if not).
+    ``slabs``: make_bwd_slabs(cfg, ws), which a backward through
+    K1-bwd-bf16 reads (on a CUDA tensor with grad enabled, the bf16 mode
+    raises without them where wg_backward(stash, stacked))."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"geometry: unsupported device {x.device}")
     if x.is_cuda and pack is None:
@@ -523,6 +693,11 @@ def geometry(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
     if STASH_BWD if stash is None else stash:
         return GeometryStashFn.apply(cfg, bf16, pack, x, *ws, *bs)
     if x.is_cuda or bf16:
-        return GeometryFn.apply(cfg, STACKED_BWD if stacked is None
-                                else bool(stacked), bf16, pack, x, *ws, *bs)
+        stacked = STACKED_BWD if stacked is None else bool(stacked)
+        if (x.is_cuda and bf16 and stacked and slabs is None
+                and torch.is_grad_enabled()):
+            raise ValueError("geometry: the bf16 mode's backward reads "
+                             "make_bwd_slabs' packs (slabs=)")
+        return GeometryFn.apply(cfg, stacked, bf16, pack, slabs, x, *ws,
+                                *bs)
     return geometry_plain(ws, bs, x, cfg)

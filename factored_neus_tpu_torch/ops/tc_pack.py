@@ -9,6 +9,9 @@ stage into shared memory, already split into TF32 big and small halves;
 32-bit word.  ``pack_sweep_bf16`` is K2-bf16's (csrc/sdf_fwd_bf16.cu, on
 wgmma): each layer's bf16 W^T cut into slabs of 64 k, each slab the exact
 shared-memory image its wgmma B descriptor reads (csrc/wgmma.cuh).
+K1-bwd-bf16 (csrc/geometry_bwd_bf16_wg.cu) reads it for its forward and
+``pack_rev_bf16`` for its reverse sweep: each layer's bf16 W in the same
+slabs, the B of r W.
 ``layout_iargs`` is the layout as the kernels are told it, and
 ``smem_bytes`` mirrors their shared-memory count (tc_dims_from_args
 and tc_smem_bytes), so a network a kernel cannot hold is refused before
@@ -449,3 +452,74 @@ def sweep_block(pack: torch.Tensor, lay: SweepLayout, l: int
         image = flat[start:start + cols * SLAB_K]
         blocks.append(image[sw].view(cols, SLAB_K).t())
     return torch.cat(blocks).float()
+
+
+# -- K1-bwd-bf16's reverse pack: W in slabs, the B of R W -------------------
+
+REV_LAST_EXTRA = 8         # outputs of a last layer beyond 256 (k-step 16)
+
+
+def rev_layout(ins: Sequence[int], outs: Sequence[int],
+               d_embed: int) -> SweepLayout:
+    """The slab layout of pack_rev_bf16: layer l's slabs hold W_l with k
+    the layer's output (the depth of r W) and n its input: four slabs of
+    SLAB_K outputs (a layer's outputs zero-padded to 256), a fifth for a
+    last layer of 257-264 outputs (read for its first k-step only), each
+    ENC_COLS columns wide for layer 0 (the encoding) and HIDDEN_COLS for
+    the others (a skip layer's [h | enc] in W's own column order); no
+    encoding slabs (``enc`` all 0).  Raises for a network K1-bwd-bf16
+    cannot run."""
+    L = len(ins)
+    if L < 2 or ins[0] != d_embed or d_embed > ENC_COLS or \
+            any(i > HIDDEN_COLS for i in ins[1:]) or \
+            any(o > HIDDEN_COLS for o in outs[:-1]) or \
+            outs[-1] > HIDDEN_COLS + REV_LAST_EXTRA:
+        raise ValueError(f"K1-bwd-bf16 takes two layers or more, an "
+                         f"encoding <= {ENC_COLS} wide, hidden widths <= "
+                         f"{HIDDEN_COLS} and a last layer <= "
+                         f"{HIDDEN_COLS + REV_LAST_EXTRA}")
+    nslab, cols, off, pos = [], [], [], 0
+    for l in range(L):
+        nslab.append(HIDDEN_COLS // SLAB_K + int(outs[l] > HIDDEN_COLS))
+        cols.append(ENC_COLS if l == 0 else HIDDEN_COLS)
+        off.append(pos)
+        pos += nslab[-1] * cols[-1] * SLAB_ROW
+    return SweepLayout([0] * L, nslab, cols, off, pos, "wgmma-bf16-rev")
+
+
+@functools.lru_cache(maxsize=16)
+def _rev_sources(ins: Tuple[int, ...], outs: Tuple[int, ...], d_embed: int,
+                 device: torch.device) -> Tuple[torch.Tensor, SweepLayout]:
+    """As _sweep_sources, for pack_rev_bf16: row k = output o, column n =
+    input i of W_l [out, in]."""
+    lay = rev_layout(ins, outs, d_embed)
+    zero = sum(i * o for i, o in zip(ins, outs))
+    src = np.full(lay.nbytes // 2, zero, np.int64)
+    base = 0
+    for l, (i, o) in enumerate(zip(ins, outs)):
+        k = np.arange(o)[:, None]                            # [out, 1]
+        n = np.arange(i)[None, :]                            # [1, in]
+        e = (lay.off[l] // 2 + (k // SLAB_K) * lay.cols[l] * SLAB_K
+             + swizzle128(n * SLAB_K + k % SLAB_K))
+        src[e.ravel()] = base + np.arange(o * i)
+        base += i * o
+    return torch.from_numpy(src).to(device), lay
+
+
+def pack_rev_bf16(ws: Sequence[torch.Tensor], d_embed: int
+                  ) -> Tuple[torch.Tensor, SweepLayout]:
+    """K1-bwd-bf16's reverse pack (effective weights ws, layer 0 reading
+    the d_embed-wide encoding): every layer's W rounded to bf16 (to nearest
+    even) in rev_layout's slabs, the 128-byte-swizzled image one bulk copy
+    lands in shared memory, zero in the padding.  The product r W of the
+    reverse sweep reads it as wgmma's B: k an output of the layer, n an
+    input.  A float32 tensor of the bytes."""
+    if any(w.dtype != torch.float32 for w in ws):
+        raise ValueError("the tensor-core kernels take float32 weights")
+    ins = tuple(int(w.shape[1]) for w in ws)
+    outs = tuple(int(w.shape[0]) for w in ws)
+    dev = ws[0].device
+    idx, lay = _rev_sources(ins, outs, d_embed, dev)
+    src = torch.cat([w.detach().reshape(-1) for w in ws]
+                    + [torch.zeros(1, device=dev)])
+    return src[idx].to(torch.bfloat16).view(torch.float32), lay

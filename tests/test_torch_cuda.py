@@ -544,7 +544,8 @@ def _bf16_runs(cfg, ws, bs, x, ct_out, ct_g, pack):
         "fwd_stash": (lambda: list(GK.launch_forward_stash(
             cfg, x, ws, bs, pack, bf16=True)[:2]), tw_f),
         "bwd": (lambda: flat(GK.launch_backward(
-            cfg, x, ws, bs, ct_out, ct_g, pack, bf16=True)), tw_b),
+            cfg, x, ws, bs, ct_out, ct_g, GK.make_bwd_slabs(cfg, ws),
+            bf16=True)), tw_b),
         "bwd_split": (lambda: flat(GK.launch_backward_split(
             cfg, x, ws, bs, ct_out, ct_g, pack, bf16=True)), tw_b),
         "bwd_stash": (lambda: flat(GK.launch_backward_stash(
@@ -584,15 +585,62 @@ def test_bf16_kernels_match_twins(cuda_device, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [65536, 9001])
+def test_k1_bwd_bf16_wgmma_matches_twin(cuda_device, n):
+    """K1-bwd-bf16 (csrc/geometry_bwd_bf16_wg.cu, on wgmma) at full width,
+    the step's 65,536 points and a ragged 9,001, against its twin and the
+    f64 unrounded function (chip_smoke.check_flips), two launches bitwise
+    equal; an mma.sync pack is refused, and so is a launch without the
+    slab packs."""
+    cfg = SDFConfig()
+    net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(cuda_device)
+    with torch.no_grad():
+        ws, bs = net.effective_weights()
+    ws, bs = list(ws), list(bs)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(n, 3, device=cuda_device, generator=gen) * 0.5
+    ct_out = torch.randn(n, ws[-1].shape[0], device=cuda_device,
+                         generator=gen)
+    ct_g = torch.randn(n, 3, device=cuda_device, generator=gen)
+    flat = lambda r: [r[0], *r[1], *r[2]]
+    slabs = GK.make_bwd_slabs(cfg, ws)
+    got = flat(GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g, slabs,
+                                  bf16=True))
+    again = flat(GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g, slabs,
+                                    bf16=True))
+    twin = flat(GK.geometry_bwd_plain(ws, bs, x, ct_out, ct_g, cfg,
+                                      bf16=True))
+    ref = [t.float() for t in flat(GK.geometry_bwd_plain(
+        [w.double() for w in ws], [b.double() for b in bs], x.double(),
+        ct_out.double(), ct_g.double(), cfg))]
+    L = len(ws)
+    names = ["ct_x"] + [f"dW{l}" for l in range(L)] + [
+        f"db{l}" for l in range(L)]
+    chip_smoke.check_flips(f"K1-bwd-bf16 N={n}", got, twin, ref, names)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    with pytest.raises(ValueError, match="wgmma"):
+        GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g,
+                           (GK.make_pack(ws, True),) * 2, bf16=True)
+    with pytest.raises(ValueError, match="none was given"):
+        GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g, None, bf16=True)
+
+
+@pytest.mark.gpu
 def test_bf16_mode_launches_the_bf16_kernels(cuda_device):
-    """value_grad_feat(bf16=True) through autograd: one K1-fwd-bf16 and one
-    K1-bwd-bf16 launch on the bf16 pack of kernel_weights(bf16=True), no
-    f32 K1 launch; the f32 pack stays the K2 sweep's."""
+    """value_grad_feat(bf16=True) through autograd: one K1-fwd-bf16 launch
+    on the bf16 pack of kernel_weights(bf16=True) and one K1-bwd-bf16 on
+    its two slab packs, no f32 K1 launch; the f32 pack stays the K2
+    sweep's.  Without grad no backward follows, and the reverse slab pack
+    is not built."""
     cfg, _, _, x = _net(CASES[0], cuda_device)
     net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(cuda_device)
     weights = net.kernel_weights(bf16=True)
     assert weights[2][1].operand == "3xtf32"
     assert weights[3][1].operand == "bf16"
+    assert weights[4][1].operand == "wgmma-bf16"
+    assert weights[5][1].operand == "wgmma-bf16-rev"
+    with torch.no_grad():
+        assert net.kernel_weights(bf16=True)[5] is None
     kernels = (GK.K1_FWD, GK.K1_BWD, GK.K1_FWD_BF16, GK.K1_BWD_BF16)
     before = [k.launches for k in kernels]
     s, f, g = net.value_grad_feat(x, weights, bf16=True)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Per-phase time of K1-bwd and K1-fwd (csrc/geometry_{bwd,fwd}.cu) on a GPU.
 
-    python3 tools/k1_bwd_phases.py [--root DIR] [--bf16]
+    python3 tools/k1_bwd_phases.py [--root DIR] [--bf16 [--clocks]]
 
 Builds copies of DIR's factored_neus_tpu_torch/csrc kernels (default: this
 checkout) into build/phases/, each with one phase cut out, and times them
@@ -23,10 +23,23 @@ time is read.  The kernels are called through DIR's own wrappers
 another version of the port, e.g. a parent commit unpacked with ``git
 archive``; a phase whose code the version does not have (a version whose
 K1 multiplies on the CUDA cores has none but ``all``) is reported as not
-applicable.  ``--bf16``: the same cuts of K1's bf16 operand mode
-(K1-bwd-bf16 from geometry_bwd_bf16.cu, K1-fwd-bf16) on the bf16 pack.  ``all`` is timed first and last, as a measure of the
-spread.  Prints one line per phase,
-the card's name and power limit, and a JSON summary.
+applicable.  ``--bf16``: K1's bf16 operand mode: K1-fwd-bf16 with the
+same cuts on the bf16 pack, and K1-bwd-bf16, which runs on
+wgmma (geometry_bwd_bf16_wg.cu: a stacked sweep, a split-K weight-gradient
+pass, a reduce), on its two slab packs, with its own cuts:
+- ``no_products``: without every wgmma of the sweep and the pass;
+- ``no_wgrad_pass``: the weight-gradient pass not launched;
+- ``no_images``: the sweep writes no X_l / R_l image (the pass reads
+  stale ones);
+- ``no_scratch``: the sweep neither writes nor reads its f32 scratch;
+- ``no_softplus``: each softplus replaced by its argument;
+and ``--clocks``: ``all``, ``no_products`` and ``no_softplus`` also run
+back to back while nvidia-smi samples the SM clock and the power draw
+(k2_bf16_phases.clocks_under).  A version of DIR without
+geometry_bwd_bf16_wg.cu has none of these but ``all`` (the mma.sync
+body's cuts apply there instead).  ``all`` is timed first and last, as
+a measure of the spread.  Prints one line per phase, the card's name and
+power limit, and a JSON summary.
 """
 import ctypes
 import json
@@ -63,6 +76,70 @@ CUTS = {
 ORDER = [(BWD, p) for p in ("all", "no_weight_grad", "no_slice_traffic",
                             "no_input_cot", "no_forward", "no_products",
                             "all")] + [(FWD, "all"), (FWD, "no_products")]
+# K1-bwd-bf16 on wgmma: (file, regular expression, replacement) triples
+WG = "geometry_bwd_bf16_wg.cu"
+CUTS_WG = {
+    "all": [],
+    "no_products": [(WG, r"wgmma_n256\(acc,[^;]*;", ";"),
+                    (WG, r"wgmma_n48\(acc,[^;]*;", ";"),
+                    (WG, r"wgmma_ss_n256\(acc,[^;]*;", ";"),
+                    (WG, r"wgmma_ss_n64\(acc64,[^;]*;", ";")],
+    "no_wgrad_pass": [(WG, r"geometry_bwd_wg_wgrad<<<[^;]*;", ";")],
+    "no_images": [(WG, r"\*\(uint32_t\*\)\(o \+[^;]*;", ";"),
+                  (WG, r"\*\(uint4\*\)\(?o[^;]*;", ";")],
+    "no_scratch": [(WG, r"sc\[q \* 128\] = make_float4[^;]*;", ";"),
+                   (WG, r"const float4 v = sc\[q \* 128\];",
+                    "const float4 v = make_float4(0.5f, 0.5f, 1.f, 1.f);"),
+                   (WG, r"l2_prefetch_if\([^;]*;", ";")],
+    "no_softplus": [(WG, r"return fmaxf\(a, 0\.f\) \+ gw_lg2\([^;]*;",
+                     "return a;")],
+}
+ORDER_WG = ["all", "no_products", "no_wgrad_pass", "no_images",
+            "no_scratch", "no_softplus", "all"]
+CLOCKED = ("all", "no_products", "no_softplus")
+
+
+def build_wg(root: str) -> dict:
+    """The cut copies of K1-bwd-bf16 on wgmma (CUTS_WG), where DIR has
+    it: {phase: library}; each cut must match."""
+    sys.path.insert(0, root)
+    from factored_neus_tpu_torch.ops import _cuda
+    csrc = os.path.join(root, "factored_neus_tpu_torch", "csrc")
+    if not os.path.exists(os.path.join(csrc, WG)):
+        return {}
+    libs, procs = {}, []
+    for phase, cuts in CUTS_WG.items():
+        files = {WG, *(f for f in os.listdir(csrc) if f.endswith(".cuh"))}
+        texts = {f: open(os.path.join(csrc, f)).read() for f in files}
+        for f, pat, rep in cuts:
+            texts[f], k = re.subn(pat, rep, texts[f], flags=re.S)
+            if k == 0:
+                raise RuntimeError(f"{phase}: {pat!r} matches nothing")
+        d = os.path.join(OUT, "geometry_bwd_bf16_wg", phase)
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+        for f, text in texts.items():
+            with open(os.path.join(d, f), "w") as fh:
+                fh.write(text)
+        libs[phase] = os.path.join(d, "lib.so")
+        procs.append((phase, subprocess.Popen(
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", libs[phase],
+             os.path.join(d, WG)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    for phase, p in procs:
+        log, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for {phase}:\n{log}")
+    return libs
+
+
+def _bind(kernel, lib: str, symbol: str) -> None:
+    fn = getattr(ctypes.CDLL(lib), symbol)
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_float,
+                   ctypes.c_ulonglong]
+    fn.restype = ctypes.c_int
+    kernel._fn = fn
 
 
 def build(root: str, bwd_entry: str = BWD) -> dict:
@@ -112,13 +189,13 @@ def build(root: str, bwd_entry: str = BWD) -> dict:
 
 def main() -> int:
     args = sys.argv[1:]
-    bf16 = "--bf16" in args
-    args = [a for a in args if a != "--bf16"]
+    bf16, clocks = "--bf16" in args, "--clocks" in args
+    args = [a for a in args if a not in ("--bf16", "--clocks")]
     root = HERE
     if args[:1] == ["--root"] and len(args) == 2:
         root = os.path.abspath(args[1])
-    elif args:
-        print("usage: k1_bwd_phases.py [--root DIR] [--bf16]",
+    elif args or (clocks and not bf16):
+        print("usage: k1_bwd_phases.py [--root DIR] [--bf16 [--clocks]]",
               file=sys.stderr)
         return 2
     import torch
@@ -126,8 +203,14 @@ def main() -> int:
         print("phases: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    sys.path.insert(0, os.path.join(HERE, "tools"))
     import chip_smoke
+    libs_wg = build_wg(root) if bf16 else {}
     libs = build(root, "geometry_bwd_bf16.cu" if bf16 else BWD)
+    if libs_wg:
+        # K1-bwd-bf16 is the wgmma source's: the mma.sync body's cuts do
+        # not apply to it
+        libs = {k: v for k, v in libs.items() if k[0] != BWD}
     from factored_neus_tpu_torch.models.fields import SDFConfig, SDFNetwork
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
 
@@ -144,9 +227,12 @@ def main() -> int:
 
     if bf16:
         pack = GK.make_pack(ws, bf16=True)
+        bwd_pack = (GK.make_bwd_slabs(cfg, list(ws))
+                    if hasattr(GK, "make_bwd_slabs") else pack)
         kernels = {BWD: (GK.K1_BWD_BF16, "geometry_bwd_bf16",
                          lambda: GK.launch_backward(cfg, x, ws, bs, ct_out,
-                                                    ct_g, pack, bf16=True)),
+                                                    ct_g, bwd_pack,
+                                                    bf16=True)),
                    FWD: (GK.K1_FWD_BF16, "geometry_fwd_bf16",
                          lambda: GK.launch_forward(cfg, x, ws, bs, pack,
                                                    bf16=True))}
@@ -157,19 +243,32 @@ def main() -> int:
                    FWD: (GK.K1_FWD, "geometry_fwd",
                          lambda: GK.launch_forward(cfg, x, ws, bs))}
     times = []
+    if libs_wg:
+        import k2_bf16_phases
+        kernel, symbol, call = kernels[BWD]
+        for phase in ORDER_WG:
+            _bind(kernel, libs_wg[phase], symbol)
+            ms = chip_smoke.cuda_ms(call, 5)
+            times.append({"kernel": "K1-bwd", "phase": phase, "ms": ms})
+            print(f"K1-bwd-bf16 (wgmma) {phase}: {ms:.3f} ms")
+            if clocks and phase in CLOCKED and not any(
+                    "sm_mhz" in t for t in times[:-1]
+                    if t["phase"] == phase):
+                times[-1].update(k2_bf16_phases.clocks_under(call, torch))
+                print(f"  under load: SM clock {times[-1]['sm_mhz']:.0f} "
+                      f"MHz, {times[-1]['power_w']:.1f} W "
+                      f"({times[-1]['samples']} samples)")
+        kernel._fn = None
     for src, phase in ORDER:
+        if libs_wg and src == BWD:
+            continue
         label = (f"K1-{'bwd' if src == BWD else 'fwd'}"
                  f"{'-bf16' if bf16 else ''} {phase}")
         if (src, phase) not in libs:
             print(f"{label}: not applicable")
             continue
         kernel, symbol, call = kernels[src]
-        fn = getattr(ctypes.CDLL(libs[(src, phase)]), symbol)
-        fn.argtypes = [ctypes.POINTER(ctypes.c_int),
-                       ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_float,
-                       ctypes.c_ulonglong]
-        fn.restype = ctypes.c_int
-        kernel._fn = fn
+        _bind(kernel, libs[(src, phase)], symbol)
         ms = chip_smoke.cuda_ms(call, 5)
         times.append({"kernel": label[:6], "phase": phase, "ms": ms})
         print(f"{label}: {ms:.3f} ms")

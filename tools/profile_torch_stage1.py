@@ -52,7 +52,10 @@ WARMUP = 5
 # template arguments are its BwdMode, 0 stacked, 1 stash, 2 split, and
 # the bf16 operand mode, as K1-fwd's)
 BWD_ROWS = {"0": "K1-bwd", "1": "K1-bwd-stash", "2": "K1-bwd-split"}
-TABLE_ROWS = (("geometry_fwd_kernel", "K1-fwd"),
+TABLE_ROWS = (("geometry_bwd_wg_sweep", "K1-bwd-bf16 (sweep)"),
+              ("geometry_bwd_wg_wgrad", "K1-bwd-bf16 (weight-gradient pass)"),
+              ("geometry_bwd_wg_reduce", "K1-bwd-bf16 (reduce)"),
+              ("geometry_fwd_kernel", "K1-fwd"),
               ("sdf_fwd_kernel", "K2"),
               ("sdf_fwd_bf16_kernel", "K2-bf16"),
               ("radiance_fwd_kernel", "K3-fwd"),

@@ -21,7 +21,9 @@ them) and reads the same for wgmma, and how its f32 accumulator carries a
 sum across the k-steps of one commit group and across commit groups (a
 k-slab each, waited on between them), and holds one m64n256 product of
 random bf16 values against the float64 product (the fragment and slab
-layouts).
+layouts), one m64n48 product, and the product X^T R with A and B both
+MN-major tile images in shared memory, as K1-bwd-bf16's weight-gradient
+pass (csrc/geometry_bwd_bf16_wg.cu) runs it.
 Prints one line per case and a JSON summary with the card's name and power
 limit.
 """
@@ -129,6 +131,7 @@ __global__ void probe_wgmma_kernel(const float* A, const float* B,
   for (int j = 0; j < 4; ++j) {
     if (j >= ks) break;
     if constexpr (N == 8) wgmma_n8(acc, a[j], desc + 2 * j, 1);
+    else if constexpr (N == 48) wgmma_n48(acc, a[j], desc + 2 * j, 1);
     else wgmma_n256(acc, a[j], desc + 2 * j, 1);
     if (split) {
       wgmma_commit();
@@ -150,8 +153,55 @@ extern "C" int probe_wgmma(const float* A, const float* B, const float* C,
                            float* D, int n, int ks, int split) {
   if (n == 8)
     probe_wgmma_kernel<8><<<1, 128>>>(A, B, C, D, ks, split);
+  else if (n == 48)
+    probe_wgmma_kernel<48><<<1, 128>>>(A, B, C, D, ks, split);
   else
     probe_wgmma_kernel<256><<<1, 128>>>(A, B, C, D, ks, split);
+  return (int)cudaDeviceSynchronize();
+}
+// D[64][320] = X^T R for X [64 k][64 m] and R [64 k][320 n] (row-major),
+// both laid out as MN-major tile images (wgmma.cuh) in shared memory, on
+// wgmma_ss_n256 (columns 0 .. 255) and wgmma_ss_n64 (256 .. 319) over
+// four k-steps: geometry_bwd_bf16_wg.cu's weight-gradient product
+__global__ void probe_wgmma_ss_kernel(const float* X, const float* R,
+                                      float* D) {
+  __shared__ __align__(1024) unsigned char sm[6 * 8192];
+  unsigned char* rs = sm;               // R: five 64-column blocks
+  unsigned char* xs = sm + 5 * 8192;    // X: one
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  for (int i = tid; i < 64 * 384; i += 128) {
+    const int k = i / 384, c = i % 384;
+    const float v = c < 320 ? R[k * 320 + c] : X[k * 64 + c - 320];
+    unsigned char* base = c < 320 ? rs : xs;
+    const int cc = c < 320 ? c : c - 320;
+    *(__nv_bfloat16*)(base + (cc >> 6) * 8192 + k * 128 +
+                      ((((cc & 63) >> 3) ^ (k & 7)) << 4) + (cc & 7) * 2) =
+        __float2bfloat16_rn(v);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  float acc[128], acc64[32];
+  const uint64_t da = desc_mn128(smem_u32(xs), 8192, 1024);
+  const uint64_t db = desc_mn128(smem_u32(rs), 8192, 1024);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    wgmma_ss_n256(acc, da + 128 * k, db + 128 * k, k);
+    wgmma_ss_n64(acc64, da + 128 * k, db + 4 * 512 + 128 * k, k);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_regs(acc64);
+  const int r0 = 16 * warp + g;
+  for (int q = 0; q < 40; ++q)
+    for (int e = 0; e < 4; ++e)
+      D[(r0 + 8 * (e >> 1)) * 320 + 8 * q + 2 * t + (e & 1)] =
+          q < 32 ? acc[4 * q + e] : acc64[4 * (q - 32) + e];
+}
+extern "C" int probe_wgmma_ss(const float* X, const float* R, float* D) {
+  probe_wgmma_ss_kernel<<<1, 128>>>(X, R, D);
   return (int)cudaDeviceSynchronize();
 }
 extern "C" int probe(const float* A, const float* B, const float* C,
@@ -231,6 +281,39 @@ def probe_wgmma(so, accum, u):
                  "reads_as": "layouts agree" if ok else "wrong"})
     if not ok:
         raise AssertionError("wgmma m64n256: fragment or slab layout wrong")
+    # m64n48 (layer 0's r W in K1-bwd-bf16) on the same slab layout
+    B48 = bf(rng.randn(64, 48))
+    D = run(A, B48, np.zeros((64, 48)), 48, 4)
+    err = float(np.abs(D - A @ B48).max() / np.abs(A @ B48).max())
+    ok48 = err < 1e-6
+    print(f"wgmma m64n48k16 x 4 k-steps, random bf16: max error {err:.2e} "
+          f"of max|AB| -> {'layouts agree' if ok48 else 'WRONG'}")
+    rows.append({"mma": "wgmma", "case": "m64n48 random", "result": err,
+                 "reads_as": "layouts agree" if ok48 else "wrong"})
+    # A and B both MN-major tile images in shared memory (the transpose
+    # bits): K1-bwd-bf16's weight-gradient product X^T R
+    fn_ss = so.probe_wgmma_ss
+    fn_ss.argtypes = [ctypes.c_void_p] * 3
+    fn_ss.restype = ctypes.c_int
+    X, R = bf(rng.randn(64, 64)), bf(rng.randn(64, 320))
+    t = [torch.from_numpy(np.ascontiguousarray(v, np.float32)).cuda()
+         for v in (X, R)]
+    D = torch.zeros(64, 320, device="cuda")
+    rc = fn_ss(t[0].data_ptr(), t[1].data_ptr(), D.data_ptr())
+    if rc:
+        raise RuntimeError(f"wgmma ss probe failed: cudaError_t {rc}")
+    want = X.T @ R
+    err = float(np.abs(D.cpu().numpy() - want).max() / np.abs(want).max())
+    okss = err < 1e-6
+    print(f"wgmma m64n256k16 + m64n64k16, A and B MN-major from shared "
+          f"memory, x 4 k-steps, random bf16: max error {err:.2e} of "
+          f"max|X^T R| -> {'layouts agree' if okss else 'WRONG'}")
+    rows.append({"mma": "wgmma", "case": "MN-major ss random",
+                 "result": err,
+                 "reads_as": "layouts agree" if okss else "wrong"})
+    if not (ok48 and okss):
+        raise AssertionError("wgmma m64n48 or the MN-major images: layout "
+                             "wrong")
     return rows
 
 
