@@ -105,7 +105,10 @@
    slab pack, the last layer narrowed) and with the full 257-wide output
    at 65,536 rows, K3-fwd-bf16 and K3-bwd-bf16 at 65,536 and 9,001 rows,
    each against its twin and the f64 unrounded function (check_flips),
-   two launches of each bitwise equal, timed against the bf16 bound; the
+   two launches of each bitwise equal, timed against the bf16 bound
+   (K3-bwd-bf16, on wgmma, as K1-bwd-bf16: its ptxas report,
+   SASS, attributes and both sizes' times, its twin on the ReLU masks the
+   kernel itself keeps, k3_bwd_masks; its slab packs' build times); the
    64-ray wmask step of item 12 now runs K1 and K3 in
    bf16; a 64-ray stage-2 step with the default bf16 coarse sweep, card
    against CPU, held to the float64 step (item 9); the stage-2 CLI runs
@@ -121,7 +124,6 @@ Any failure raises; the script then exits non-zero without the last line.
 """
 import copy
 import dataclasses
-import functools
 import json
 import math
 import os
@@ -311,9 +313,11 @@ def k3_bwd_masks(cfg, ws, bs, inputs, bf16: bool = False):
     which does not depend on the kernel: they may differ only where |a_l|
     <= MASK_MARGIN max|a_l|, and in at most MAX_MASK_FLIPS places, else
     this raises, so a kernel fault that zeroes or flips activations cannot
-    pass into the twin.  ``bf16``: K3-bwd-bf16's masks, for its bf16 twin,
-    held against the twin's bf16 forward within BF16_MASK_ULP's margin of
-    each element, in any number of places."""
+    pass into the twin.  ``bf16``: K3-bwd-bf16's masks, the bits its sweep
+    keeps in registers and applies (written out through launch_backward's
+    ``masks``, one launch over every row), for its bf16 twin, held against
+    the twin's bf16 forward within BF16_MASK_ULP's margin of each element,
+    in any number of places."""
     import torch
     from factored_neus_tpu_torch.ops import _cuda
     from factored_neus_tpu_torch.ops import radiance_kernel as RK
@@ -323,22 +327,27 @@ def k3_bwd_masks(cfg, ws, bs, inputs, bf16: bool = False):
     dev, n, L = pts.device, pts.shape[0], len(ws)
     ins = [int(w.shape[1]) for w in ws]
     outs = [int(w.shape[0]) for w in ws]
-    chunk = _cuda.sm_count(dev) * TP.TILE
-    masks = [[] for _ in range(L - 1)]
-    launch = (functools.partial(RK.launch_backward, bf16=True) if bf16
-              else RK.launch_backward)
-    for r0 in range(0, n, chunk):
-        m = min(chunk, n - r0)
-        grid = -(-m // TP.TILE)
-        _, ld = RK.kernel_iargs(cfg, ws, m, grid, TP.pack_layout(
-            ins, outs, "bf16" if bf16 else "3xtf32"))
-        scratch = torch.empty(grid, L - 1, TP.TILE, ld, device=dev)
-        launch(cfg, ws, bs, *(t[r0:r0 + m] for t in inputs),
-               torch.zeros(m, outs[-1], device=dev), scratch)
-        for l in range(L - 1):
-            h = scratch[:, l, :, :outs[l]].reshape(-1, outs[l])
-            masks[l].append(h[:m] > 0)
-    masks = [torch.cat(m) for m in masks]
+    if bf16:
+        masks = []
+        RK.launch_backward(cfg, ws, bs, *inputs,
+                           torch.zeros(n, outs[-1], device=dev),
+                           pack=RK.make_bwd_slabs(cfg, ws), bf16=True,
+                           masks=masks)
+    else:
+        chunk = _cuda.sm_count(dev) * TP.TILE
+        masks = [[] for _ in range(L - 1)]
+        for r0 in range(0, n, chunk):
+            m = min(chunk, n - r0)
+            grid = -(-m // TP.TILE)
+            _, ld = RK.kernel_iargs(cfg, ws, m, grid,
+                                    TP.pack_layout(ins, outs))
+            scratch = torch.empty(grid, L - 1, TP.TILE, ld, device=dev)
+            RK.launch_backward(cfg, ws, bs, *(t[r0:r0 + m] for t in inputs),
+                               torch.zeros(m, outs[-1], device=dev), scratch)
+            for l in range(L - 1):
+                h = scratch[:, l, :, :outs[l]].reshape(-1, outs[l])
+                masks[l].append(h[:m] > 0)
+        masks = [torch.cat(m) for m in masks]
     h = torch.cat([pts, positional_encoding(dirs, cfg.multires_view),
                    normals, feat], -1)
     flips = near = 0
@@ -367,7 +376,8 @@ def k3_bwd_masks(cfg, ws, bs, inputs, bf16: bool = False):
     limit = "no limit" if bf16 else f"at most {MAX_MASK_FLIPS}"
     rule = (f"{BF16_MASK_ULP:g} sum|x w| + {MASK_MARGIN:g} max|a_l|"
             if bf16 else f"{MASK_MARGIN:g} max|a_l|")
-    text = (f"of {sum(int(m.numel()) for m in masks)} pre-activations, "
+    text = (f"of {sum(int(m.numel()) for m in masks)} pre-activations "
+            f"({sum(int(m.sum()) for m in masks)} positive), "
             f"{flips} on the other side of 0 in the "
             f"{'bf16 twin' if bf16 else 'f32'} forward ({limit}), all "
             f"within {reach:.3e} of 0 ({over:.3f} of the margin {rule}, at "
@@ -749,32 +759,59 @@ def check_kernels(device):
     return results
 
 
-def k1_bwd_wg_attrs() -> dict:
-    """K1-bwd-bf16's two wgmma kernels as the device holds them after a
-    launch (cudaFuncGetAttributes through geometry_bwd_bf16_attrs):
+def wg_attrs(src: str, symbol: str) -> dict:
+    """A wgmma backward's sweep and weight-gradient kernels as the device
+    holds them after a launch (cudaFuncGetAttributes through the source's
+    ``symbol``: geometry_bwd_bf16_attrs, radiance_bwd_bf16_attrs):
     registers a thread, dynamic shared memory a block as the launcher set
     it, static shared memory."""
     import ctypes
     from factored_neus_tpu_torch.ops import _cuda
     out = (ctypes.c_int * 6)()
-    rc = _cuda._load("geometry_bwd_bf16_wg.cu").geometry_bwd_bf16_attrs(out)
+    rc = getattr(_cuda._load(src), symbol)(out)
     if rc:
-        raise RuntimeError(f"geometry_bwd_bf16_attrs: cudaError {rc}")
+        raise RuntimeError(f"{symbol}: cudaError {rc}")
     return {k: {"regs": out[3 * i], "dynamic_smem": out[3 * i + 1],
                 "static_smem": out[3 * i + 2]}
             for i, k in enumerate(("sweep", "wgrad"))}
 
 
-def k1_bwd_wg_shape(cfg, ws, n, run, plain, bwd_flops, slabs) -> dict:
-    """K1-bwd-bf16 (on wgmma) at n points: its time and its twin's (CUDA
-    events) and its bf16 bound, for the kernels line; printed beside them,
-    the kernels' registers and shared memory as the device holds them,
-    the launch plan, and the bytes the design moves to and from device
-    memory by the reckoning of geometry_bwd_bf16_wg.cu's note (the f32
-    scratch written and read, each tile's X_l and R_l images written, then
-    read by the weight-gradient pass, R_l once for each of its units), a
-    count, not a measurement."""
+def wg_shape(label, n, run, plain, bound_ms, plan, design, src,
+             symbol) -> tuple:
+    """A wgmma backward at n rows: its time and its twin's (CUDA events)
+    and its bf16 bound, for the kernels line; printed beside them, the
+    kernels' registers and shared memory as the device holds them
+    (wg_attrs), the launch plan, and the bytes the design moves to and
+    from device memory by the reckoning of its source note (``design``),
+    a count, not a measurement."""
     import torch
+
+    def twin():
+        with torch.no_grad():
+            plain()
+    shape = {"rows": n, "ms": cuda_ms(run, 5),
+             "plain_ms": cuda_ms(twin, 3), "bound_ms": bound_ms}
+    attrs = wg_attrs(src, symbol)
+    print(f"  {label} (wgmma) N={n}: {shape['ms']:.3f} ms (plain "
+          f"{shape['plain_ms']:.3f} ms), bf16 bound {shape['bound_ms']:.3f}"
+          f" ms ({100 * shape['bound_ms'] / shape['ms']:.1f}% of it); by the "
+          f"source note's reckoning the design moves {design / 1e9:.2f} GB "
+          f"to and from device memory; {plan['grid']} sweep blocks of "
+          f"{plan['nc']} consumers, {plan['units']} weight-gradient units x "
+          f"{plan['chunks']} chunks of {plan['per']} tiles")
+    for k, a in attrs.items():
+        print(f"  {label} {k} kernel (cudaFuncGetAttributes): "
+              f"{a['regs']} registers a thread, {a['dynamic_smem']} B "
+              f"dynamic + {a['static_smem']} B static shared memory a block "
+              f"(the plan's count: {plan[k + '_smem']} B)")
+    return shape, attrs
+
+
+def k1_bwd_wg_shape(cfg, ws, n, run, plain, bwd_flops, slabs) -> tuple:
+    """K1-bwd-bf16 (on wgmma) at n points (wg_shape); the design's bytes:
+    the f32 scratch written and read, each tile's X_l and R_l images
+    written, then read by the weight-gradient pass, R_l once for each of
+    its units (geometry_bwd_bf16_wg.cu's note)."""
     from factored_neus_tpu_torch.ops import _cuda
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
     dev = ws[0].device
@@ -788,28 +825,35 @@ def k1_bwd_wg_shape(cfg, ws, n, run, plain, bwd_flops, slabs) -> dict:
     written = tiles * (sum(x_img) + sum(r_img))
     read = tiles * sum(-(-i // 64) * blk + (-(-i // 64) + 1) // 2 * r
                        for i, r in zip(ins, r_img))
-    design = scratch + written + read
+    return wg_shape("K1-bwd-bf16", n, run, plain,
+                    1e3 * n * bwd_flops / BF16_PEAK, plan,
+                    scratch + written + read, "geometry_bwd_bf16_wg.cu",
+                    "geometry_bwd_bf16_attrs")
 
-    def twin():
-        with torch.no_grad():
-            plain()
-    shape = {"rows": n, "ms": cuda_ms(run, 5),
-             "plain_ms": cuda_ms(twin, 3),
-             "bound_ms": 1e3 * n * bwd_flops / BF16_PEAK}
-    attrs = k1_bwd_wg_attrs()
-    print(f"  K1-bwd-bf16 (wgmma) N={n}: {shape['ms']:.3f} ms (plain "
-          f"{shape['plain_ms']:.3f} ms), bf16 bound {shape['bound_ms']:.3f}"
-          f" ms ({100 * shape['bound_ms'] / shape['ms']:.1f}% of it); by the "
-          f"source note's reckoning the design moves {design / 1e9:.2f} GB "
-          f"to and from device memory; {plan['grid']} sweep blocks of "
-          f"{plan['nc']} consumers, {plan['units']} weight-gradient units x "
-          f"{plan['chunks']} chunks of {plan['per']} tiles")
-    for k, a in attrs.items():
-        print(f"  K1-bwd-bf16 {k} kernel (cudaFuncGetAttributes): "
-              f"{a['regs']} registers a thread, {a['dynamic_smem']} B "
-              f"dynamic + {a['static_smem']} B static shared memory a block "
-              f"(bwd_wg_plan's count: {plan[k + '_smem']} B)")
-    return shape, attrs
+
+def k3_bwd_wg_shape(cfg, ws, n, run, plain, bwd_flops, slabs) -> tuple:
+    """K3-bwd-bf16 (on wgmma) at n rows (wg_shape); the design's bytes:
+    each tile's X_l and R_l images written, then read by the
+    weight-gradient pass, X_l once and R_l once for each of its units,
+    the inputs read and the cotangents written once
+    (radiance_bwd_bf16_wg.cu's note)."""
+    from factored_neus_tpu_torch.ops import _cuda
+    from factored_neus_tpu_torch.ops import radiance_kernel as RK
+    dev = ws[0].device
+    plan = RK.bwd_wg_plan(cfg, ws, n, slabs, _cuda.sm_count(dev))
+    ins = [w.shape[1] for w in ws]
+    L, tiles, blk = len(ws), plan["tiles"], RK.WG_BLOCK
+    x_img = [(4 if l else 5) * blk for l in range(L)]
+    r_img = [(4 if l < L - 1 else 1) * blk for l in range(L)]
+    nmb = [5] + [-(-i // 64) for i in ins[1:]]
+    written = tiles * (sum(x_img) + sum(r_img))
+    read = tiles * sum(b * blk + (b + 1) // 2 * r
+                       for b, r in zip(nmb, r_img))
+    io = n * 4 * (2 * (9 + cfg.d_feature) + cfg.d_out)
+    return wg_shape("K3-bwd-bf16", n, run, plain,
+                    1e3 * n * bwd_flops / BF16_PEAK, plan,
+                    written + read + io, "radiance_bwd_bf16_wg.cu",
+                    "radiance_bwd_bf16_attrs")
 
 
 def check_flips(label, got, twin, ref64, names):
@@ -934,7 +978,7 @@ def check_bf16_kernels(device):
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{name}: two launches differ")
         print(f"bf16 K1 kernels N={n}: two launches of each bitwise equal")
-        shape, wg_attrs = k1_bwd_wg_shape(
+        shape, k1_attrs = k1_bwd_wg_shape(
             cfg, ws, n, runs["geometry_bwd_bf16"][0],
             lambda: GK.geometry_bwd_plain(ws, bs, x, ct_out, ct_g, cfg,
                                           bf16=True), bwd_flops, slabs)
@@ -1007,7 +1051,7 @@ def check_bf16_kernels(device):
         r["max_abs_err"] = errs[r["name"]]
         if r["name"] == "geometry_bwd_bf16":
             r.update(shapes=wg_shapes, sass=build["sass"],
-                     ptxas=build["ptxas"], attrs=wg_attrs)
+                     ptxas=build["ptxas"], attrs=k1_attrs)
         print(f"  {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} "
               f"ms) at {N_CORE} rows, bf16 bound {r['bound_ms']:.3f} ms by "
               f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% of "
@@ -1160,12 +1204,16 @@ def check_bf16_sweep_kernels(device):
 
     rS = sum(w.numel() for w in rws)                   # 271,360
     rwbytes = sum(2 * w.numel() + 4 * b.numel() for w, b in zip(rws, rbs))
+    # K3-bwd-bf16 runs on wgmma from its two slab packs
+    build3 = wgmma_build_report("K3-bwd-bf16", "radiance_bwd_bf16_wg.cu")
     rpack = TP.make_pack(rws, bf16=True)
+    rslabs = RK.make_bwd_slabs(rcfg, rws)
     d_feat = rcfg.d_feature
     flat = lambda r: [*r[:4], *r[4], *r[5]]
     names = ["ct_pts", "ct_normals", "ct_dirs", "ct_feat"] + [
         f"{k}{l}" for k in ("dW", "db") for l in range(len(rws))]
     w64, b64 = [w.double() for w in rws], [b.double() for b in rbs]
+    k3_shapes = []
     for n in K3_BF16_ROWS:
         rin = [torch.randn(n, 3, device=device, generator=gen) * 0.5,
                torch.randn(n, 3, device=device, generator=gen),
@@ -1177,7 +1225,7 @@ def check_bf16_sweep_kernels(device):
         fwd = lambda: [RK.launch_forward(rcfg, rws, rbs, *rin, pack=rpack,
                                          bf16=True)]
         bwd = lambda: flat(RK.launch_backward(rcfg, rws, rbs, *rin, ct,
-                                              pack=rpack, bf16=True))
+                                              pack=rslabs, bf16=True))
         with torch.no_grad():
             tw_f = [RK.radiance_plain(rws, rbs, rcfg, *rin, bf16=True)]
             ref_f = [RK.radiance_plain(w64, b64, rcfg, *in64).float()]
@@ -1203,6 +1251,10 @@ def check_bf16_sweep_kernels(device):
                 raise AssertionError(f"{name}: two launches differ")
         print(f"K3 bf16 kernels N={n}: two launches of each bitwise equal")
         del tw_f, ref_f, tw_b, ref_b
+        shape, k3_attrs = k3_bwd_wg_shape(
+            rcfg, rws, n, bwd, lambda: RK.radiance_bwd_plain(
+                rws, rbs, rcfg, *rin, ct, bf16=True), 6 * rS, rslabs)
+        k3_shapes.append(shape)
         if n != N_CORE:
             continue
 
@@ -1221,7 +1273,7 @@ def check_bf16_sweep_kernels(device):
                  2 * in_bytes + n * 12 + 2 * rwbytes, 227)):
             t_ops, t_bytes = n * flops / BF16_PEAK, nbytes / HBM_RATE
             src = ("radiance_fwd.cu" if "fwd" in name
-                   else "radiance_bwd_bf16.cu")
+                   else "radiance_bwd_bf16_wg.cu")
             results.append({
                 "name": name, "route": "cuda",
                 "source": f"factored_neus_tpu_torch/csrc/{src}",
@@ -1231,10 +1283,25 @@ def check_bf16_sweep_kernels(device):
                 "bound_ms": 1e3 * max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "library_ms": None, "rows": n})
-        results[-1]["pack_bf16_ms"] = cuda_ms(
-            lambda: TP.make_pack(rws, bf16=True), 10)
+        # what the bf16 mode adds to a step besides its kernels: the
+        # radiance MLP's bf16 pack (K3-fwd-bf16) and, where a backward can
+        # follow, K3-bwd-bf16's two slab packs
+        results[-1].update(
+            pack_bf16_ms=cuda_ms(lambda: TP.make_pack(rws, bf16=True), 10),
+            sweep_pack_bf16_ms=cuda_ms(
+                lambda: TP.pack_rad_sweep_bf16(rws, 6 + rcfg.d_view), 10),
+            rev_pack_bf16_ms=cuda_ms(
+                lambda: TP.pack_rad_rev_bf16(rws, 6 + rcfg.d_view), 10))
+        print(f"radiance weight packs at full width: bf16 "
+              f"{results[-1]['pack_bf16_ms']:.3f} ms, K3-bwd-bf16's slab "
+              f"packs {results[-1]['sweep_pack_bf16_ms']:.3f} ms (forward) "
+              f"+ {results[-1]['rev_pack_bf16_ms']:.3f} ms (reverse) (CUDA "
+              f"events around 10 builds each)")
     for r in results:
         r["max_abs_err"] = errs[r["name"]]
+        if r["name"] == "radiance_bwd_bf16":
+            r.update(shapes=k3_shapes, sass=build3["sass"],
+                     ptxas=build3["ptxas"], attrs=k3_attrs)
         print(f"  {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} "
               f"ms) at {r['rows']} rows, bf16 bound {r['bound_ms']:.3f} ms "
               f"by {r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% of "
@@ -2785,7 +2852,7 @@ def bf16_run() -> int:
         if not all(any(k in n for n in k13) for k in (
                 "geometry_fwd_kernel", "geometry_bwd_wg_sweep",
                 "geometry_bwd_wg_wgrad", "radiance_fwd_kernel<true>",
-                "radiance_bwd_kernel<true>")):
+                "radiance_bwd_wg_sweep", "radiance_bwd_wg_wgrad")):
             raise AssertionError("the --profile trace does not name K1 and "
                                  "K3 in bf16")
         shutil.rmtree(os.path.join(tmp, "exp"))

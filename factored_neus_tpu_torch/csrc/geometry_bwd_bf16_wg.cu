@@ -65,6 +65,9 @@
 // 3. The reduce (geometry_bwd_wg_reduce): dW the sum of the chunks' slots
 //    and db of the warps' slots, each in a fixed order.  No float atomics:
 //    two launches are bitwise equal.
+// The slab ring, the image writers, the db reduction, the pass and the
+// reduce are wg_bwd.cuh's, which K3-bwd-bf16 (radiance_bwd_bf16_wg.cu)
+// shares; their arithmetic is the same as before they moved there.
 //
 // Bytes at full width, 65,536 points (2,048 tiles): the scratch 524 KB a
 // tile written and read (2.15 GB), the images 590 KB a tile written (X 8
@@ -76,18 +79,10 @@
 // ~3.2 GB of scratch in the mma.sync body.  The products need 0.38 ms at
 // the bf16 rate.
 #include "sdf_mlp.cuh"
-#include "wgmma.cuh"
+#include "wg_bwd.cuh"
 
-#define GW_MAXL 16        // most layers
 #define GW_EW 48          // row (floats) of the encoding tiles
-#define GW_BW 264         // bias row and db slot row (floats) of a layer
-#define GW_MAX_NS 8       // most ring stages
-#define GW_SMEM_MAX 232448
 #define GW_PTS 32         // points of a consumer's tile (64 stacked rows)
-#define GW_SLAB 32768     // bytes of a 256-column slab
-#define GW_PQ 40          // float4 rows of a weight-gradient slot (320 / 8)
-#define GW_MAXU 32        // most weight-gradient units (layer, block pair)
-#define GW_XB 8192        // bytes of a 64-column block of a tile image
 
 struct GwDims {
   int L, multires, d_embed, n, nc, ns, n_pass, n_img;
@@ -137,16 +132,6 @@ __device__ __forceinline__ float bf_hi(uint32_t v) {
 
 // -- the sweep ---------------------------------------------------------------
 
-__device__ __forceinline__ void gw_put(const GwDims& d, unsigned char* ring,
-                                       uint64_t* full, uint64_t* empty,
-                                       int it, const unsigned char* src,
-                                       int bytes) {
-  const int st = it % d.ns;
-  mbar_wait(empty + st, ((it / d.ns) & 1) ^ 1);
-  mbar_expect_tx(full + st, bytes);
-  bulk_g2s(ring + st * GW_SLAB, src, bytes, full + st);
-}
-
 __device__ __forceinline__ void gw_producer(const GwDims& d,
                                             unsigned char* ring,
                                             uint64_t* full, uint64_t* empty) {
@@ -154,48 +139,12 @@ __device__ __forceinline__ void gw_producer(const GwDims& d,
   for (int p = blockIdx.x; p < d.n_pass; p += gridDim.x) {
     for (int l = 0; l + 1 < d.L; ++l)
       for (int s = 0; s < d.f_nslab[l]; ++s, ++it)
-        gw_put(d, ring, full, empty, it, d.fpack + d.f_off[l] + s * GW_SLAB,
-               GW_SLAB);
+        gw_put(d.ns, ring, full, empty, it,
+               d.fpack + d.f_off[l] + s * GW_SLAB, GW_SLAB);
     for (int l = d.L - 1; l >= 0; --l)
       for (int s = 0; s < d.r_nslab[l]; ++s, ++it)
-        gw_put(d, ring, full, empty, it,
+        gw_put(d.ns, ring, full, empty, it,
                d.rpack + d.r_off[l] + s * d.r_copy[l], d.r_copy[l]);
-  }
-}
-
-// One slab's NK k-steps from fragments f[K0 ..] into acc (N columns: 256,
-// or 48 for layer 0's r W), once it has landed in ring slab s; FIRST: the
-// layer's first slab, whose first product overwrites acc.  One commit
-// group, every index known at compile time.
-template <int N, int NK, int K0, bool FIRST, int NA>
-__device__ __forceinline__ void gw_slab(const GwDims& d, int s,
-                                        unsigned char* ring, uint64_t* full,
-                                        float (&acc)[N / 2],
-                                        const uint32_t (&f)[NA][4]) {
-  const int st = s % d.ns;
-  mbar_wait(full + st, (s / d.ns) & 1);
-  wgmma_fence();
-  const uint64_t desc = desc_sw128(smem_u32(ring + st * GW_SLAB));
-#pragma unroll
-  for (int k = 0; k < NK; ++k) {
-    const int keep = FIRST && k == 0 ? 0 : 1;
-    if constexpr (N == 256)
-      wgmma_n256(acc, f[K0 + k], desc + 2 * k, keep);
-    else
-      wgmma_n48(acc, f[K0 + k], desc + 2 * k, keep);
-  }
-  wgmma_commit();
-}
-
-// Waits for a layer's NS commit groups oldest first, releasing each slab's
-// stage (from ring slab it on) as its products retire: one arrival a warp.
-template <int NS, int S = 0>
-__device__ __forceinline__ void gw_release(const GwDims& d, int it,
-                                           uint64_t* empty, int lead) {
-  if constexpr (S < NS) {
-    wgmma_wait<NS - 1 - S>();
-    mbar_arrive_if(empty + (it + S) % d.ns, lead);
-    gw_release<NS, S + 1>(d, it, empty, lead);
   }
 }
 
@@ -210,14 +159,14 @@ __device__ __forceinline__ void gw_fwd_layer(const GwDims& d, int it,
                                              const uint32_t (&ef)[3][4],
                                              int lead) {
   if constexpr (H) {
-    gw_slab<256, 4, 0, true>(d, it, ring, full, acc, a);
-    gw_slab<256, 4, 4, false>(d, it + 1, ring, full, acc, a);
-    gw_slab<256, 4, 8, false>(d, it + 2, ring, full, acc, a);
-    gw_slab<256, 4, 12, false>(d, it + 3, ring, full, acc, a);
+    gw_slab<256, 4, 0, true>(d.ns, it, ring, full, acc, a);
+    gw_slab<256, 4, 4, false>(d.ns, it + 1, ring, full, acc, a);
+    gw_slab<256, 4, 8, false>(d.ns, it + 2, ring, full, acc, a);
+    gw_slab<256, 4, 12, false>(d.ns, it + 3, ring, full, acc, a);
   }
   if constexpr (ENC)
-    gw_slab<256, 3, 0, !H>(d, it + (H ? 4 : 0), ring, full, acc, ef);
-  gw_release<(H ? 4 : 0) + (ENC ? 1 : 0)>(d, it, empty, lead);
+    gw_slab<256, 3, 0, !H>(d.ns, it + (H ? 4 : 0), ring, full, acc, ef);
+  gw_release<(H ? 4 : 0) + (ENC ? 1 : 0)>(d.ns, it, empty, lead);
   fence_regs(acc);
 }
 
@@ -231,67 +180,14 @@ __device__ __forceinline__ void gw_rev_layer(const GwDims& d, int it,
                                              const uint32_t (&a)[16][4],
                                              const uint32_t (&ex)[1][4],
                                              int lead) {
-  gw_slab<N, 4, 0, true>(d, it, ring, full, acc, a);
-  gw_slab<N, 4, 4, false>(d, it + 1, ring, full, acc, a);
-  gw_slab<N, 4, 8, false>(d, it + 2, ring, full, acc, a);
-  gw_slab<N, 4, 12, false>(d, it + 3, ring, full, acc, a);
-  if constexpr (EXTRA) gw_slab<N, 1, 0, false>(d, it + 4, ring, full, acc, ex);
-  gw_release<4 + (EXTRA ? 1 : 0)>(d, it, empty, lead);
+  gw_slab<N, 4, 0, true>(d.ns, it, ring, full, acc, a);
+  gw_slab<N, 4, 4, false>(d.ns, it + 1, ring, full, acc, a);
+  gw_slab<N, 4, 8, false>(d.ns, it + 2, ring, full, acc, a);
+  gw_slab<N, 4, 12, false>(d.ns, it + 3, ring, full, acc, a);
+  if constexpr (EXTRA)
+    gw_slab<N, 1, 0, false>(d.ns, it + 4, ring, full, acc, ex);
+  gw_release<4 + (EXTRA ? 1 : 0)>(d.ns, it, empty, lead);
   fence_regs(acc);
-}
-
-// The four bf16 pairs of k-step j (f: a fragment) into a tile image in
-// its columns' own order (X_0's image, the fifth block of a 257-wide
-// layer's R): the primal pairs at row 16 warp + g, the tangent ones 8 rows
-// on, columns 16j + 2t (+ 8 for f[2], f[3]); MN-major, 128-byte swizzle
-// (wgmma.cuh).
-__device__ __forceinline__ void gw_img(unsigned char* im, int j,
-                                       const uint32_t (&f)[4], int warp,
-                                       int g, int t) {
-  unsigned char* o = im + (j >> 2) * GW_XB + (16 * warp + g) * 128 + 4 * t;
-  const int c0 = ((2 * (j & 3)) ^ g) << 4, c1 = ((2 * (j & 3) + 1) ^ g) << 4;
-  *(uint32_t*)(o + c0) = f[0];
-  *(uint32_t*)(o + 1024 + c0) = f[1];
-  *(uint32_t*)(o + c1) = f[2];
-  *(uint32_t*)(o + 1024 + c1) = f[3];
-}
-
-// The position of column c (< 256) of a 256-column tile image: thread
-// (g, t) holds columns 8q + 2t, 8q + 2t + 1 of its rows for q < 32; the
-// image keeps its pairs of q = 4r .. 4r + 3 as one 16-byte chunk, chunk 4
-// (r % 2) + t of block r / 2, so that a thread stores 16 bytes at once and
-// a warp's store covers 64 contiguous bytes of each of its 8 rows.  dW's
-// rows (X's columns) and columns (R's) come out in this order, which the
-// reduce undoes; a product does not care in which order its columns are.
-__device__ __forceinline__ int gw_perm(int c) {
-  const int q = c >> 3, r = q >> 2;
-  return ((r >> 1) << 6) + ((((r & 1) << 2) + ((c >> 1) & 3)) << 3) +
-         ((q & 3) << 1) + (c & 1);
-}
-
-// Chunk r (pairs of q = 4r .. 4r + 3) of a thread's primal row (p) and
-// tangent row (t4) into a 256-column tile image, in gw_perm's order.
-__device__ __forceinline__ void gw_img_chunk(unsigned char* im, int r,
-                                             const uint4& p, const uint4& t4,
-                                             int warp, int g, int t) {
-  unsigned char* o = im + (r >> 1) * GW_XB + (16 * warp + g) * 128 +
-                     (((((r & 1) << 2) + t) ^ g) << 4);
-  *(uint4*)o = p;
-  *(uint4*)(o + 1024) = t4;
-}
-
-// The fragments a (k-steps 0 .. 15) into a 256-column tile image.
-__device__ __forceinline__ void gw_img256(unsigned char* im,
-                                          const uint32_t (&a)[16][4],
-                                          int warp, int g, int t) {
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-    gw_img_chunk(im, r,
-                 make_uint4(a[2 * r][0], a[2 * r][2], a[2 * r + 1][0],
-                            a[2 * r + 1][2]),
-                 make_uint4(a[2 * r][1], a[2 * r][3], a[2 * r + 1][1],
-                            a[2 * r + 1][3]),
-                 warp, g, t);
 }
 
 // sigma(100 a) on the SFU (ex2.approx, rcp.approx: a few ulp in f32)
@@ -359,25 +255,6 @@ __device__ __forceinline__ void gw_img256_skip(unsigned char* im,
       }
     gw_img_chunk(im, r, make_uint4(f[0][0], f[0][1], f[0][2], f[0][3]),
                  make_uint4(f[1][0], f[1][1], f[1][2], f[1][3]), warp, g, t);
-  }
-}
-
-// Sums over the warp's 8 points of the primal entries acc[4q + e] (the
-// stacked accumulator's, f32) by a transposing shuffle reduction: after
-// it, acc[32 m + e] holds column 64 m + 8 g + 2 t + e's sum (m < 4).
-__device__ __forceinline__ void gw_db_reduce(float (&acc)[128], int g) {
-#pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    const bool bit = (g >> s) & 1;
-#pragma unroll
-    for (int q = 0; q < 32; q += 2 << s)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float lo = acc[4 * q + e], hi = acc[4 * (q + (1 << s)) + e];
-        const float send = bit ? lo : hi;
-        const float keep = bit ? hi : lo;
-        acc[4 * q + e] = keep + __shfl_xor_sync(0xffffffffu, send, 4 << s);
-      }
   }
 }
 
@@ -662,165 +539,16 @@ geometry_bwd_wg_sweep(const __grid_constant__ GwDims d) {
 
 // -- the weight-gradient pass ------------------------------------------------
 
-struct WgDims {
-  int n_img, per, S, ns, stage_bytes;
-  const unsigned char* img;
-  float* part;
-  long long x_img[GW_MAXL], r_img[GW_MAXL];
-  int xb[GW_MAXL], rb[GW_MAXL];
-  int u_layer[GW_MAXU], u_mb[GW_MAXU], u_nmb[GW_MAXU];
-};
-
-// one tile's X_l blocks and R_l image a stage: R at the stage's start, X
-// blocks mb, mb + 1 after it
-__device__ __forceinline__ void wg_producer(const WgDims& d, int l, int mb,
-                                            int nmb, int t0, int t1,
-                                            unsigned char* ring,
-                                            uint64_t* full, uint64_t* empty) {
-  const int rb = d.rb[l], xbytes = nmb * GW_XB;
-  int it = 0;
-  for (int tile = t0; tile < t1; ++tile, ++it) {
-    const int st = it % d.ns;
-    unsigned char* s = ring + (size_t)st * d.stage_bytes;
-    mbar_wait(empty + st, ((it / d.ns) & 1) ^ 1);
-    mbar_expect_tx(full + st, rb + xbytes);
-    bulk_g2s(s, d.img + d.r_img[l] + (size_t)tile * rb, rb, full + st);
-    bulk_g2s(s + rb, d.img + d.x_img[l] + (size_t)tile * d.xb[l] +
-                         mb * GW_XB, xbytes, full + st);
-  }
-}
-
-// One tile's 4 k-steps into acc (and acc64, WIDE: a layer over 256 wide);
-// KEEP0 == 0: the first overwrites.  One commit group.
-template <bool WIDE>
-__device__ __forceinline__ void wg_tile(uint32_t s, int rb, int w,
-                                        float (&acc)[128], float (&acc64)[32],
-                                        int keep0) {
-  const uint64_t da = desc_mn128(s + rb + w * GW_XB, GW_XB, 1024);
-  const uint64_t db = desc_mn128(s, GW_XB, 1024);
-  wgmma_fence();
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int keep = k == 0 ? keep0 : 1;
-    wgmma_ss_n256(acc, da + 128 * k, db + 128 * k, keep);
-    if constexpr (WIDE)
-      wgmma_ss_n64(acc64, da + 128 * k, db + 4 * (GW_XB >> 4) + 128 * k,
-                   keep);
-  }
-  wgmma_commit();
-}
-
-template <bool WIDE>
-__device__ __forceinline__ void wg_consumer(const WgDims& d, int l, int w,
-                                            int t0, int t1,
-                                            unsigned char* ring,
-                                            uint64_t* full, uint64_t* empty,
-                                            float4* slot) {
-  const int tid = threadIdx.x & 127, lead = (tid & 31) == 0;
-  const int rb = d.rb[l];
-  float acc[128], acc64[32];
-  int it = 0;
-  for (int tile = t0; tile < t1; ++tile, ++it) {
-    const int st = it % d.ns;
-    mbar_wait(full + st, (it / d.ns) & 1);
-    wg_tile<WIDE>(smem_u32(ring + (size_t)st * d.stage_bytes), rb, w, acc,
-                  acc64, tile != t0);
-    // the previous tile's products have retired: release its stage
-    wgmma_wait<1>();
-    mbar_arrive_if(empty + (it + d.ns - 1) % d.ns, lead && tile != t0);
-  }
-  wgmma_wait<0>();
-  fence_regs(acc);
-  if constexpr (WIDE) fence_regs(acc64);
-#pragma unroll
-  for (int q = 0; q < 32; ++q)
-    slot[q * 128 + tid] = make_float4(acc[4 * q], acc[4 * q + 1],
-                                      acc[4 * q + 2], acc[4 * q + 3]);
-  if constexpr (WIDE) {
-#pragma unroll
-    for (int q = 0; q < 8; ++q)
-      slot[(32 + q) * 128 + tid] =
-          make_float4(acc64[4 * q], acc64[4 * q + 1], acc64[4 * q + 2],
-                      acc64[4 * q + 3]);
-  }
-}
-
 __global__ void __launch_bounds__(384, 1)
 geometry_bwd_wg_wgrad(const __grid_constant__ WgDims d) {
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) &
-                                    1023);
-  uint64_t* full = (uint64_t*)(ring + (size_t)d.ns * d.stage_bytes);
-  uint64_t* empty = full + d.ns;
-  const int u = blockIdx.x / d.S, c = blockIdx.x - u * d.S;
-  const int l = d.u_layer[u], mb = d.u_mb[u], nmb = d.u_nmb[u];
-  const int t0 = c * d.per, t1 = min(d.n_img, t0 + d.per);
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < d.ns; ++s) {
-      mbar_init(full + s, 1);
-      mbar_init(empty + s, 4 * nmb);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-  const int wg = threadIdx.x >> 7;
-  if (wg == 0) {
-    regs_dec<24>();
-    if (threadIdx.x == 0)
-      wg_producer(d, l, mb, nmb, t0, t1, ring, full, empty);
-  } else if (wg - 1 < nmb) {
-    regs_inc<240>();
-    float4* slot = (float4*)d.part + ((size_t)blockIdx.x * 2 + wg - 1) *
-                                         GW_PQ * 128;
-    if (d.rb[l] > 4 * GW_XB)
-      wg_consumer<true>(d, l, wg - 1, t0, t1, ring, full, empty, slot);
-    else
-      wg_consumer<false>(d, l, wg - 1, t0, t1, ring, full, empty, slot);
-  }
+  wg_wgrad_body(d, smem_raw);
 }
 
 // -- the reduce --------------------------------------------------------------
 
-struct RdDims {
-  int L, S, n_wslots;
-  long long P;
-  const float *part, *dbp;
-  float* grads;
-  int ins[GW_MAXL], outs[GW_MAXL], u_first[GW_MAXL];
-};
-
-// grads[j]: per layer dW [in][out] (the sum of its chunks' slots, in
-// order), then db [out] (the sum of the warps' slots, in order)
 __global__ void geometry_bwd_wg_reduce(const __grid_constant__ RdDims r) {
-  long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= r.P) return;
-  int l = 0;
-  for (; l < r.L; ++l) {
-    const long long sz = (long long)r.ins[l] * r.outs[l] + r.outs[l];
-    if (j < sz) break;
-    j -= sz;
-  }
-  const int out = r.outs[l];
-  float s = 0.f;
-  if (j < (long long)r.ins[l] * out) {
-    const int m0 = (int)(j / out), n0 = (int)(j - (long long)m0 * out);
-    // dW's coordinates in the pass: X_l's and R_l's columns where their
-    // images keep them (gw_perm; X_0's and R's fifth block in order)
-    const int m = l ? gw_perm(m0) : m0, n = n0 < 256 ? gw_perm(n0) : n0;
-    const int mb = m >> 6, mm = m & 63;
-    const int u = r.u_first[l] + (mb >> 1), w = mb & 1;
-    const int tid = 32 * (mm >> 4) + 4 * (mm & 7) + ((n & 7) >> 1);
-    const int q = n < 256 ? n >> 3 : 32 + ((n - 256) >> 3);
-    const int comp = 2 * ((mm >> 3) & 1) + (n & 1);
-    for (int c = 0; c < r.S; ++c)
-      s += r.part[((((size_t)(u * r.S + c) * 2 + w) * GW_PQ + q) * 128 +
-                   tid) * 4 + comp];
-  } else {
-    const int n = (int)(j - (long long)r.ins[l] * out);
-    for (int ws = 0; ws < r.n_wslots; ++ws)
-      s += r.dbp[((size_t)ws * r.L + l) * GW_BW + n];
-  }
-  r.grads[blockIdx.x * (long long)blockDim.x + threadIdx.x] = s;
+  wg_reduce_body(r);
 }
 
 // Integer arguments: [L, multires, d_embed, n, nc, grid, n_pass, S, per,
@@ -920,7 +648,7 @@ extern "C" int geometry_bwd_bf16(const int* ia, const unsigned long long* p,
   w.part = (float*)p[7];
   if ((long long)S * per < w.n_img || (long long)(S - 1) * per >= w.n_img)
     return (int)cudaErrorInvalidValue;
-  int nu = 0, widest = 0;
+  int nmb[GW_MAXL];
   for (int l = 0; l < L; ++l) {
     w.x_img[l] = d.x_img[l];
     w.r_img[l] = d.r_img[l];
@@ -928,23 +656,17 @@ extern "C" int geometry_bwd_bf16(const int* ia, const unsigned long long* p,
     w.rb[l] = d.rb[l];
     r.ins[l] = d.ins[l];
     r.outs[l] = d.outs[l];
-    r.u_first[l] = nu;
-    const int nmb = (d.ins[l] + 63) / 64;
-    for (int mb = 0; mb < nmb; mb += 2) {
-      if (nu == GW_MAXU) return (int)cudaErrorInvalidValue;
-      w.u_layer[nu] = l;
-      w.u_mb[nu] = mb;
-      w.u_nmb[nu] = nmb - mb < 2 ? nmb - mb : 2;
-      const int sb = d.rb[l] + w.u_nmb[nu] * GW_XB;
-      widest = widest > sb ? widest : sb;
-      ++nu;
-    }
+    // X_0's columns in their own order, every other X_l's and R_l's first
+    // 256 at gw_perm
+    r.xn[l] = l ? 0 : d.ins[0];
+    r.xn_at[l] = 0;
+    r.rn[l] = 256;
+    nmb[l] = (d.ins[l] + 63) / 64;
   }
-  w.stage_bytes = (widest + 1023) / 1024 * 1024;
-  const int wns = (int)((GW_SMEM_MAX - 1024) / ((size_t)w.stage_bytes + 16));
-  w.ns = wns < GW_MAX_NS ? wns : GW_MAX_NS;
-  if (w.ns < 2) return (int)cudaErrorInvalidValue;
-  const size_t wsmem = 1024 + (size_t)w.ns * (w.stage_bytes + 16);
+  size_t wsmem;
+  int nu;
+  const int rc = wg_plan_pass(L, nmb, &w, &r, &wsmem, &nu);
+  if (rc) return rc;
   e = cudaFuncSetAttribute(geometry_bwd_wg_wgrad,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)wsmem);
@@ -954,6 +676,7 @@ extern "C" int geometry_bwd_bf16(const int* ia, const unsigned long long* p,
   if (e != cudaSuccess) return (int)e;
 
   r.n_wslots = grid * d.nc * 4;
+  r.db_tree = 0;
   r.part = w.part;
   r.dbp = d.dbp;
   r.grads = (float*)p[8];

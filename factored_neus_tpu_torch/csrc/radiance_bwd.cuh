@@ -1,5 +1,5 @@
-// K3-bwd: the backward of K3-fwd (the kernel's body; entry points in
-// radiance_bwd.cu and radiance_bwd_bf16.cu).  Given ct_rgb it recomputes
+// K3-bwd: the backward of K3-fwd (the kernel's body; entry point in
+// radiance_bwd.cu).  Given ct_rgb it recomputes
 // the forward, then reverse-sweeps: the sigmoid's y (1 - y), the ReLU
 // masks a > 0, the weight and bias gradients summed over all rows, and the
 // cotangents of pts, normals, feature and, through the positional
@@ -37,18 +37,9 @@
 // columns wide, past the 288 a product covers (TC_MAXW), so input
 // cotangents run as products of at most 256 columns.
 //
-// K3-bwd-bf16 (BF = true; entry point radiance_bwd_bf16 in
-// radiance_bwd_bf16.cu, built apart so that the two instantiations
-// compile in parallel) replaces run_bwd with bf16=True: every product of
-// the recompute, of the weight gradients (X^T R) and of the input
-// cotangents (R W) takes bf16 operands (to nearest even) with an f32 sum,
-// as _mm_fns(True)'s dot, dot_at and dot_bt do; the seed, the ReLU masks
-// (the sign of the f32 pre-activation of the bf16 forward), the bias
-// gradients and the encoding's Jacobian stay f32.  Bound: operations, one
-// bf16 product's worth of the FLOPs over 989 TFLOP/s.  Its shared memory
-// is K3-fwd-bf16's, 220,176 B: the ring stages one bf16 half a weight
-// where 3xTF32 stages a big and a small float, and is sized by the
-// weight-gradient chunk.
+// The body is a template on BF, bf16 operands, which tc_mma.cuh's
+// products take; only the 3xTF32 instantiation (BF = false) is built.
+// K3-bwd-bf16 runs on wgmma in radiance_bwd_bf16_wg.cu.
 #pragma once
 
 #include "radiance_mlp.cuh"

@@ -5,8 +5,8 @@ shapes.  Counterpart of factored_neus_tpu/models/fields.py:
                           the weight packs of a step (kernel_weights),
                           each also in the bf16 operand mode
   RenderingNetwork        IDR-mode radiance MLP (K3, also in the bf16
-                          operand mode), on one weight pack a step
-                          (kernel_weights)
+                          operand mode), on one weight pack a step and,
+                          for K3-bwd-bf16, two slab packs (kernel_weights)
   SingleVarianceNetwork   inv_s = exp(10 * variance)
   RefColor                surface reflection colour (diffuse + specular)
   NeRF                    NeRF++ background model of the womask configs
@@ -40,8 +40,9 @@ from ..ops.mlp import WNLinear, dense_init_, sdf_geometric_init_
 
 
 # (effective weights, biases, 3xTF32 weight pack or None, bf16 weight pack
-# or None, K2-bf16's slab pack or None, K1-bwd-bf16's reverse slab pack or
-# None): _WNLayers.kernel_weights
+# or None, the forward slab pack or None, the reverse slab pack or None):
+# _WNLayers.kernel_weights.  The slab packs are K2-bf16's and K1-bwd-bf16's
+# for the SDF network, K3-bwd-bf16's for the radiance MLP.
 KernelWeights = Tuple[List[torch.Tensor], List[torch.Tensor],
                       Optional[Tuple[torch.Tensor, TP.PackLayout]],
                       Optional[Tuple[torch.Tensor, TP.PackLayout]],
@@ -251,7 +252,23 @@ class RenderingNetwork(_WNLayers):
         weights = weights or self.kernel_weights(bf16, f32=not bf16)
         return RK.radiance(*weights[:2], self.cfg, points, normals,
                            view_dirs, feature_vectors,
-                           mode_pack(weights, bf16), bf16)
+                           mode_pack(weights, bf16), bf16,
+                           slabs=(weights[4:6] if weights[5] is not None
+                                  else None))
+
+    def kernel_weights(self, bf16: bool = False, f32: bool = True,
+                       sweep_bf16: bool = False) -> KernelWeights:
+        """_WNLayers.kernel_weights and, in the bf16 mode where a backward
+        through K3-bwd-bf16 can follow (mode 'idr', grad enabled),
+        K3-bwd-bf16's two slab packs (radiance_kernel.make_bwd_slabs) as
+        sweep16 and rev16."""
+        ws, bs, pack, pack16, _, _ = super().kernel_weights(bf16, f32)
+        sweep16 = rev16 = None
+        if bf16 and self.cfg.mode == "idr" and torch.is_grad_enabled() \
+                and ws[0].is_cuda:
+            with torch.no_grad():
+                sweep16, rev16 = RK.make_bwd_slabs(self.cfg, ws)
+        return ws, bs, pack, pack16, sweep16, rev16
 
 
 class SingleVarianceNetwork(nn.Module):

@@ -131,8 +131,9 @@ class Stage1Model(nn.Module):
         K1 or a sweep still reads it); with ``bf16``, where a backward can
         follow (fields.SDFNetwork.kernel_weights), also K1-bwd-bf16's two
         slab packs (geometry_kernel.make_bwd_slabs, the first K2-bf16's
-        too).  Built once a step by ``render``, or once a validation image
-        by its caller."""
+        too) and K3-bwd-bf16's (radiance_kernel.make_bwd_slabs,
+        fields.RenderingNetwork.kernel_weights).  Built once a step by
+        ``render``, or once a validation image by its caller."""
         return (self.sdf.kernel_weights(bf16, f32=not (bf16 and sweep_bf16),
                                         sweep_bf16=sweep_bf16),
                 self.color.kernel_weights(bf16, f32=not bf16))

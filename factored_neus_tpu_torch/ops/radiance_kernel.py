@@ -25,15 +25,23 @@ MLP's activations there) is rendering_apply_pallas(bf16=True)'s
 ``_mm_fns(True)``: every product of the forward, of the backward's
 recompute, of its weight gradients and of its input cotangents takes
 bf16-rounded operands and sums in f32; everything elementwise stays f32.
-K3-fwd-bf16 and K3-bwd-bf16 run it on bf16 ``mma.sync`` from
-tc_pack.pack_weights_bf16's pack.  Their twins compute the same products
+K3-fwd-bf16 runs it on bf16 ``mma.sync`` from tc_pack.pack_weights_bf16's
+pack; K3-bwd-bf16 on Hopper's warpgroup ``wgmma``
+(csrc/radiance_bwd_bf16_wg.cu): a sweep whose weights stream as slabs
+(``make_bwd_slabs``: tc_pack.pack_rad_sweep_bf16's for X W and
+pack_rad_rev_bf16's for r W, built once a step where a backward can
+follow, by ``fields.RenderingNetwork.kernel_weights(bf16=True)``), which
+keeps the ReLU masks in registers and writes each layer's bf16 X_l and
+R_l, then the split-K ``wgmma`` pass dW_l = X_l^T R_l that K1-bwd-bf16
+shares (csrc/wg_bwd.cuh).  Their twins compute the same products
 explicitly (``radiance_plain(bf16=True)``, ``radiance_bwd_plain(
-bf16=True)``): autograd through a rounding would run the backward's
-products on unrounded cotangents.  On a CPU tensor the autograd Function
-runs them.
+bf16=True)``; ``weight_grad_pass_plain``, the pass's split-K sums):
+autograd through a rounding would run the backward's products on
+unrounded cotangents.  On a CPU tensor the autograd Function runs them.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional, Sequence, Tuple
 
@@ -50,8 +58,8 @@ K3_BWD = _cuda.CudaKernel("radiance_bwd", "radiance_bwd.cu", "radiance_bwd")
 # the bf16 operand mode's entry points
 K3_FWD_BF16 = _cuda.CudaKernel("radiance_fwd_bf16", "radiance_fwd.cu",
                                "radiance_fwd_bf16")
-K3_BWD_BF16 = _cuda.CudaKernel("radiance_bwd_bf16", "radiance_bwd_bf16.cu",
-                               "radiance_bwd_bf16")
+K3_BWD_BF16 = _cuda.CudaKernel("radiance_bwd_bf16",
+                               "radiance_bwd_bf16_wg.cu", "radiance_bwd_bf16")
 # the kernel of each (entry, operand mode)
 KERNELS = {("fwd", False): K3_FWD, ("fwd", True): K3_FWD_BF16,
            ("bwd", False): K3_BWD, ("bwd", True): K3_BWD_BF16}
@@ -93,14 +101,17 @@ def radiance_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
 def radiance_bwd_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
                        cfg, pts, normals, dirs, feat, ct_rgb,
                        bf16: bool = False,
-                       masks: Optional[Sequence[torch.Tensor]] = None):
+                       masks: Optional[Sequence[torch.Tensor]] = None,
+                       operands: Optional[dict] = None):
     """Explicit twin of K3-bwd (bf16: K3-bwd-bf16), pallas_radiance's
     _build_bwd_kernel: the forward recomputed, the seed through the
     sigmoid, then per layer dW = r^T x_l, db = sum r and r W through the
     ReLU masks a > 0; ``bf16``: every product on bf16-rounded operands.
     ``masks``: the hidden layers' masks to differentiate with in place of
     the recompute's own (a kernel's, to hold it on the function it
-    computes where a pre-activation lies within rounding of 0).  Returns
+    computes where a pre-activation lies within rounding of 0).
+    ``operands``: receives, for each layer l, the weight gradient's
+    operands (x_l, r_l) (weight_grad_pass_plain).  Returns
     launch_backward's (ct_pts, ct_normals, ct_dirs, ct_feat, dW per layer
     [out, in], db per layer), in pts' dtype; a cotangent of an input that
     the mode does not read is zero."""
@@ -120,6 +131,8 @@ def radiance_bwd_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
         for l in range(L - 1, -1, -1):
             dws[l] = mm(r.t(), xs[l])
             dbs[l] = r.sum(0)
+            if operands is not None:
+                operands[l] = (xs[l], r)
             r_in = mm(r, ws[l])
             if l > 0:
                 mask = xs[l] > 0 if masks is None else masks[l - 1]
@@ -136,6 +149,29 @@ def radiance_bwd_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
                                              cfg.multires_view)
         ct_pts, ct_dirs, ct_normals, ct_feat = cts
     return ct_pts, ct_normals, ct_dirs, ct_feat, dws, dbs
+
+
+def weight_grad_pass_plain(operands: dict, tiles_per_chunk: int
+                           ) -> Tuple[List[torch.Tensor],
+                                      List[torch.Tensor]]:
+    """K3-bwd-bf16's weight-gradient pass in plain PyTorch, on the
+    operands radiance_bwd_plain(bf16=True, operands=...) recorded: (dW
+    per layer [out, in], db per layer).  The rows are cut into chunks of
+    ``tiles_per_chunk`` tiles of WG_TILE rows; dW_l is the sum, chunk
+    after chunk, of x_l^T r_l over the chunk's rows on bf16-rounded
+    operands with an f32 sum (pallas_radiance's dot_at); db_l the f32 sum
+    of r_l, rounded to nothing."""
+    dws, dbs = [], []
+    step = WG_TILE * tiles_per_chunk
+    for l in range(len(operands)):
+        x, r = operands[l]
+        dw = None
+        for c0 in range(0, x.shape[0], step):
+            part = TP.mm_bf16(r[c0:c0 + step].t(), x[c0:c0 + step])
+            dw = part if dw is None else dw + part
+        dws.append(dw)
+        dbs.append(r.sum(0))
+    return dws, dbs
 
 
 MAX_HIDDEN = 256    # widest hidden layer the kernels take (radiance_mlp.cuh)
@@ -212,22 +248,44 @@ def launch_forward(cfg, ws, bs, pts, normals, dirs, feat, pack=None,
     return out
 
 
+def _unpack_grads(grads, ins, outs):
+    dws, dbs, off = [], [], 0
+    for i, o in zip(ins, outs):
+        dws.append(grads[off:off + i * o].view(i, o).t())
+        dbs.append(grads[off + i * o:off + i * o + o])
+        off += i * o + o
+    return dws, dbs
+
+
 def launch_backward(cfg, ws, bs, pts, normals, dirs, feat, ct_rgb,
-                    scratch=None, pack=None, bf16: bool = False):
+                    scratch=None, pack=None, bf16: bool = False,
+                    masks: Optional[list] = None):
     """K3-bwd (bf16: K3-bwd-bf16): (ct_pts, ct_normals, ct_dirs, ct_feat,
-    dW per layer [out, in], db per layer [out]).  ``scratch``: the
-    kernel's per-block buffer [grid, L - 1, TILE, ld] (grid = min(tiles,
-    SMs), ld from kernel_iargs), where each block leaves h = relu(a) of
-    the hidden layers of the last tile it took; a fresh one when None.
-    ``pack``: tc_pack.make_pack(ws, bf16), when the caller already has
-    it."""
-    kernel = KERNELS["bwd", bf16]
+    dW per layer [out, in], db per layer [out]).  ``scratch``: K3-bwd's
+    per-block buffer [grid, L - 1, TILE, ld] (grid = min(tiles, SMs), ld
+    from kernel_iargs), where each block leaves h = relu(a) of the hidden
+    layers of the last tile it took; a fresh one when None.  ``pack``:
+    tc_pack.make_pack(ws), when the caller already has it; in the bf16
+    mode make_bwd_slabs(cfg, ws), which K3-bwd-bf16 reads (it raises
+    without them).  ``masks`` (bf16 only): a list that receives the ReLU
+    masks a_l > 0 [N, outs[l]] of the kernel's own forward, one a hidden
+    layer (decode_mask_bits)."""
+    if bf16:
+        if scratch is not None:
+            raise ValueError("K3-bwd-bf16 keeps its ReLU masks in registers: "
+                             "it takes no scratch (masks= writes them out)")
+        return _launch_backward_wg(cfg, ws, bs, pts, normals, dirs, feat,
+                                   ct_rgb, pack, masks)
+    if masks is not None:
+        raise ValueError("K3-bwd leaves its ReLU masks in scratch= "
+                         "(masks= is K3-bwd-bf16's)")
+    kernel = K3_BWD
     dev = pts.device
     pts, normals, dirs, feat = _inputs(kernel.name, pts, normals, dirs,
                                        feat)
     bs = [b.detach().contiguous() for b in bs]
     ct_rgb = ct_rgb.contiguous()
-    pack, lay = TP.pack_for(kernel, ws, pack, bf16)
+    pack, lay = TP.pack_for(kernel, ws, pack, False)
     _cuda.check_cuda_tensors(kernel.name, [pts, normals, dirs, feat,
                                            ct_rgb, pack, *bs])
     n, L = pts.shape[0], len(ws)
@@ -249,25 +307,179 @@ def launch_backward(cfg, ws, bs, pts, normals, dirs, feat, ct_rgb,
         part = torch.empty(grid * P, device=dev, dtype=torch.float32)
         kernel.launch(iargs, [pts, normals, dirs, feat, ct_rgb, *cts,
                               scratch, part, grads, pack, *bs], 1.0, dev)
-    dws, dbs, off = [], [], 0
-    for i, o in zip(ins, outs):
-        dws.append(grads[off:off + i * o].view(i, o).t())
-        dbs.append(grads[off + i * o:off + i * o + o])
-        off += i * o + o
-    return (*cts, dws, dbs)
+    return (*cts, *_unpack_grads(grads, ins, outs))
+
+
+# K3-bwd-bf16 (csrc/radiance_bwd_bf16_wg.cu): a consumer warpgroup's tile
+# (RW_TILE rows), the float4 rows of a weight-gradient slot (GW_PQ), the
+# bytes of a 64-column block of a tile image (GW_XB), a db slot's row
+# (GW_BW), the row of a consumer's narrow-column tile (RW_EW)
+WG_TILE = 64
+WG_SLOT_ROWS = 40
+WG_BLOCK = 8192
+WG_DB_ROW = 264
+WG_NARROW_ROW = 52
+
+
+def _narrow(cfg) -> int:
+    """The narrow columns of x0: [pts | PE(dirs) | normals]."""
+    return 6 + cfg.d_view
+
+
+def make_bwd_slabs(cfg, ws: Sequence[torch.Tensor]):
+    """K3-bwd-bf16's two slab packs of ws: (tc_pack.pack_rad_sweep_bf16's,
+    the forward X W; pack_rad_rev_bf16's, the reverse r W)."""
+    return (TP.pack_rad_sweep_bf16(ws, _narrow(cfg)),
+            TP.pack_rad_rev_bf16(ws, _narrow(cfg)))
+
+
+def bwd_wg_plan(cfg, ws, n: int, slabs, sms: int,
+                masks: bool = False) -> dict:
+    """K3-bwd-bf16's launch: its integer arguments (``iargs``,
+    radiance_bwd_bf16_wg.cu) and the sizes of what the wrapper allocates.
+    The sweep: tiles of WG_TILE rows, two consumer warpgroups a block when
+    there are more tiles than SMs, else one; one persistent block a pass
+    up to one a SM.  The weight-gradient pass: ``units`` (a layer and a
+    pair of 64-row blocks of its dW; layer 0 has five blocks, the
+    feature's four and the narrow columns') times ``chunks`` of ``per``
+    tiles, at most one block a SM where the tiles allow.  ``masks``: the
+    sweep also writes its ReLU masks' bits (``mask_words`` int32).  Raises
+    unless ``slabs`` holds make_bwd_slabs' layouts for ws."""
+    ins = [int(w.shape[1]) for w in ws]
+    outs = [int(w.shape[0]) for w in ws]
+    if cfg.mode != "idr" or cfg.d_in != 9 or \
+            ins[0] != _narrow(cfg) + cfg.d_feature:
+        raise ValueError("K3-bwd-bf16 takes [pts | PE(dirs) | normals | "
+                         "feature]")
+    (_, flay), (_, rlay) = slabs
+    if not (isinstance(flay, TP.SweepLayout)
+            and flay.operand == "wgmma-bf16-rad"
+            and isinstance(rlay, TP.SweepLayout)
+            and rlay.operand == "wgmma-bf16-rad-rev"):
+        raise ValueError("K3-bwd-bf16 multiplies on wgmma: it takes "
+                         "make_bwd_slabs' two slab packs")
+    if flay != TP.rad_sweep_layout(ins, outs, _narrow(cfg)) or \
+            rlay != TP.rad_rev_layout(ins, outs, _narrow(cfg)):
+        raise ValueError("K3-bwd-bf16: the slab packs' layouts do not match "
+                         "the network's widths")
+    L = len(ws)
+    tiles = -(-n // WG_TILE)
+    nc = 2 if tiles > sms else 1
+    n_pass = -(-tiles // nc)
+    grid = min(n_pass, sms)
+    nmb = [5] + [-(-i // 64) for i in ins[1:]]
+    units = sum((b + 1) // 2 for b in nmb)
+    per = -(-tiles // max(1, sms // units))
+    chunks = -(-tiles // per)
+    img = n_pass * nc * WG_BLOCK * (5 + 4 * (L - 1) + 4 * (L - 1) + 1)
+    iargs = [L, cfg.multires_view, cfg.d_view, n, nc, grid, n_pass, chunks,
+             per, int(cfg.squeeze_out), int(masks), *ins, *outs, *flay.off,
+             *rlay.off]
+    # shared memory a block (the source's count): the sweep's narrow
+    # tiles, biases and slab ring; the pass's ring of R and X images
+    fixed = 1024 + nc * WG_TILE * WG_NARROW_ROW * 4 + L * WG_DB_ROW * 4
+    ns = min(8, (TP.SMEM_MAX - fixed) // (32768 + 16))
+    rblocks = [4] * (L - 1) + [1]
+    stage = -(-max((r + min(2, b)) * WG_BLOCK for r, b in zip(rblocks, nmb))
+              // 1024) * 1024
+    wns = min(8, (TP.SMEM_MAX - 1024) // (stage + 16))
+    return {"iargs": iargs, "grid": grid, "nc": nc, "n_pass": n_pass,
+            "units": units, "chunks": chunks, "per": per,
+            "sweep_smem": fixed + ns * (32768 + 16),
+            "wgrad_smem": 1024 + wns * (stage + 16),
+            "tiles": tiles, "image_bytes": img,
+            "db_floats": grid * nc * 4 * L * WG_DB_ROW,
+            "slot_floats": units * chunks * 2 * WG_SLOT_ROWS * 128 * 4,
+            "mask_words": n_pass * nc * 128 * (L - 1) * 4 if masks else 0}
+
+
+@functools.lru_cache(maxsize=4)
+def _mask_places(device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """For thread tid of a consumer and accumulator index i = 4 q + e:
+    the row (16 w + g + 8 (e >= 2)) and column (8 q + 2 t + e % 2) of its
+    value in the tile, and the word (i / 32) and bit (i % 32) of its
+    mask."""
+    tid = torch.arange(128)[:, None]
+    i = torch.arange(128)[None, :]
+    lane = tid % 32
+    row = 16 * (tid // 32) + lane // 4 + 8 * (i % 4 >= 2)
+    col = 8 * (i // 4) + 2 * (lane % 4) + i % 2
+    return tuple(v.to(device) for v in (row, col, (i // 32)[0],
+                                        (i % 32)[0]))
+
+
+def decode_mask_bits(bits: torch.Tensor, n: int,
+                     outs: Sequence[int]) -> List[torch.Tensor]:
+    """The ReLU masks a_l > 0 [n, outs[l]] of each hidden layer from
+    K3-bwd-bf16's mask words ([tiles, 128 threads, hidden layers, 4]
+    int32: bit i % 32 of word i / 32 is accumulator index i of the
+    thread)."""
+    row, col, word, bit = _mask_places(bits.device)
+    tiles = bits.shape[0]
+    out = []
+    for l in range(bits.shape[2]):
+        b = (bits[:, :, l, word] >> bit) & 1               # [tiles, 128, 128]
+        m = torch.zeros(tiles, WG_TILE, 256, dtype=torch.bool,
+                        device=bits.device)
+        m[:, row, col] = b.bool()
+        out.append(m.view(-1, 256)[:n, :outs[l]])
+    return out
+
+
+def _launch_backward_wg(cfg, ws, bs, pts, normals, dirs, feat, ct_rgb,
+                        slabs, masks: Optional[list] = None):
+    """K3-bwd-bf16 on make_bwd_slabs' packs."""
+    kernel = K3_BWD_BF16
+    dev = pts.device
+    if slabs is None:
+        raise ValueError("K3-bwd-bf16 reads make_bwd_slabs' packs, built "
+                         "once a step by RenderingNetwork.kernel_weights: "
+                         "none was given")
+    (fp, _), (rp, _) = slabs
+    pts, normals, dirs, feat = _inputs(kernel.name, pts, normals, dirs,
+                                       feat)
+    bs = [b.detach().contiguous() for b in bs]
+    ct_rgb = ct_rgb.contiguous()
+    _cuda.check_cuda_tensors(kernel.name, [pts, normals, dirs, feat, ct_rgb,
+                                           fp, rp, *bs])
+    n = pts.shape[0]
+    ins = [int(w.shape[1]) for w in ws]
+    outs = [int(w.shape[0]) for w in ws]
+    P = sum(i * o + o for i, o in zip(ins, outs))
+    cts = [torch.empty_like(v) for v in (pts, normals, dirs, feat)]
+    if n > 0:
+        plan = bwd_wg_plan(cfg, ws, n, slabs, _cuda.sm_count(dev),
+                           masks is not None)
+        grads = torch.empty(P, device=dev, dtype=torch.float32)
+        f32 = lambda k: torch.empty(k, device=dev, dtype=torch.float32)
+        img = torch.empty(plan["image_bytes"], device=dev, dtype=torch.uint8)
+        bits = torch.empty(max(1, plan["mask_words"]), device=dev,
+                           dtype=torch.int32)
+        kernel.launch(plan["iargs"],
+                      [pts, normals, dirs, feat, ct_rgb, *cts, img,
+                       f32(plan["db_floats"]), f32(plan["slot_floats"]),
+                       grads, fp, rp, bits, *bs], 1.0, dev)
+        if masks is not None:
+            masks.extend(decode_mask_bits(
+                bits.view(-1, 128, len(ws) - 1, 4), n, outs))
+    else:
+        grads = torch.zeros(P, device=dev, dtype=torch.float32)
+    return (*cts, *_unpack_grads(grads, ins, outs))
 
 
 class RadianceFn(torch.autograd.Function):
     """(pts, normals, dirs, feat, *ws, *bs) -> rgb through K3-fwd; backward
     through K3-bwd, both on ``pack`` (tc_pack.make_pack(ws, bf16), built
     without grad by the caller); ``bf16``: through K3-fwd-bf16 and
-    K3-bwd-bf16.
+    K3-bwd-bf16, the latter on ``slabs`` (make_bwd_slabs(cfg, ws), saved
+    here for the backward).
     On a CPU tensor (``pack`` None) the bf16 mode runs the explicit twins;
     the f32 mode does not come here on the CPU (radiance_plain
     differentiates itself)."""
 
     @staticmethod
-    def forward(ctx, cfg, bf16, pack, pts, normals, dirs, feat, *params):
+    def forward(ctx, cfg, bf16, pack, slabs, pts, normals, dirs, feat,
+                *params):
         L = len(params) // 2
         ws, bs = params[:L], params[L:]
         if pts.is_cuda:
@@ -276,7 +488,7 @@ class RadianceFn(torch.autograd.Function):
             ctx.layout, pack = pack[1], pack[0]
         else:
             rgb = radiance_plain(ws, bs, cfg, pts, normals, dirs, feat, bf16)
-        ctx.cfg, ctx.bf16 = cfg, bf16
+        ctx.cfg, ctx.bf16, ctx.slabs = cfg, bf16, slabs
         ctx.save_for_backward(pts, normals, dirs, feat, pack, *params)
         return rgb
 
@@ -289,12 +501,13 @@ class RadianceFn(torch.autograd.Function):
         if pts.is_cuda:
             *cts, dws, dbs = launch_backward(
                 ctx.cfg, ws, bs, pts, normals, dirs, feat, ct_rgb,
-                pack=(pack, ctx.layout), bf16=ctx.bf16)
+                pack=ctx.slabs if ctx.bf16 else (pack, ctx.layout),
+                bf16=ctx.bf16)
         else:
             *cts, dws, dbs = radiance_bwd_plain(ws, bs, ctx.cfg, pts,
                                                 normals, dirs, feat, ct_rgb,
                                                 ctx.bf16)
-        grads = [None, None, None, *cts, *dws, *dbs]
+        grads = [None, None, None, None, *cts, *dws, *dbs]
         return tuple(g if need else None
                      for g, need in zip(grads, ctx.needs_input_grad))
 
@@ -302,25 +515,30 @@ class RadianceFn(torch.autograd.Function):
 def radiance(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor], cfg,
              pts, normals, dirs, feat,
              pack: Optional[Tuple[torch.Tensor, TP.PackLayout]] = None,
-             bf16: bool = False) -> torch.Tensor:
+             bf16: bool = False, slabs=None) -> torch.Tensor:
     """rgb [N, d_out], differentiable in every input, ws and bs: K3 on a
     CUDA tensor, the plain twin on a CPU tensor; ``bf16``: in the bf16
     operand mode, through K3-fwd-bf16 and K3-bwd-bf16 or their twins.
     ``pack``: tc_pack.make_pack(ws, bf16), when the caller already has it
-    (on a CUDA tensor; built here if not)."""
+    (on a CUDA tensor; built here if not).  ``slabs``: make_bwd_slabs(cfg,
+    ws), which a backward through K3-bwd-bf16 reads (on a CUDA tensor with
+    grad enabled, the bf16 mode raises without them)."""
     if pts.is_cuda:
         if cfg.mode != "idr":
             raise NotImplementedError(
                 f"the radiance kernels run mode 'idr' only, not "
                 f"{cfg.mode!r}")
+        if bf16 and slabs is None and torch.is_grad_enabled():
+            raise ValueError("radiance: the bf16 mode's backward reads "
+                             "make_bwd_slabs' packs (slabs=)")
         if pack is None:
             with torch.no_grad():
                 pack = TP.make_pack(ws, bf16)
-        return RadianceFn.apply(cfg, bf16, pack, pts, normals, dirs, feat,
-                                *ws, *bs)
+        return RadianceFn.apply(cfg, bf16, pack, slabs, pts, normals, dirs,
+                                feat, *ws, *bs)
     if pts.device.type == "cpu":
         if bf16:
-            return RadianceFn.apply(cfg, True, None, pts, normals, dirs,
-                                    feat, *ws, *bs)
+            return RadianceFn.apply(cfg, True, None, None, pts, normals,
+                                    dirs, feat, *ws, *bs)
         return radiance_plain(ws, bs, cfg, pts, normals, dirs, feat)
     raise ValueError(f"radiance: unsupported device {pts.device}")

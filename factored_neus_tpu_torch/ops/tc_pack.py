@@ -11,7 +11,10 @@ wgmma): each layer's bf16 W^T cut into slabs of 64 k, each slab the exact
 shared-memory image its wgmma B descriptor reads (csrc/wgmma.cuh).
 K1-bwd-bf16 (csrc/geometry_bwd_bf16_wg.cu) reads it for its forward and
 ``pack_rev_bf16`` for its reverse sweep: each layer's bf16 W in the same
-slabs, the B of r W.
+slabs, the B of r W.  K3-bwd-bf16 (csrc/radiance_bwd_bf16_wg.cu) has its
+own pair for the radiance MLP, ``pack_rad_sweep_bf16`` and
+``pack_rad_rev_bf16`` (layer 0's feature rows first, its 33 narrow rows
+in a slab of their own).
 ``layout_iargs`` is the layout as the kernels are told it, and
 ``smem_bytes`` mirrors their shared-memory count (tc_dims_from_args
 and tc_smem_bytes), so a network a kernel cannot hold is refused before
@@ -437,21 +440,25 @@ def pack_sweep_bf16(ws: Sequence[torch.Tensor], skip_layers: Sequence[int],
     return src[idx].to(torch.bfloat16).view(torch.float32), lay
 
 
+def _read_slabs(pack: torch.Tensor, start: int, nslab: int, cols: int
+                ) -> torch.Tensor:
+    """``nslab`` slabs of ``cols`` columns from byte ``start`` of a pack
+    read back: the [64 nslab, cols] float32 block (k by n)."""
+    flat = pack.view(torch.bfloat16)
+    sw = torch.from_numpy(swizzle128(np.arange(cols * SLAB_K))).to(
+        pack.device)
+    first = start // 2
+    images = flat[first:first + nslab * cols * SLAB_K].view(nslab, -1)
+    return images[:, sw].view(nslab, cols, SLAB_K).transpose(1, 2).reshape(
+        nslab * SLAB_K, cols).float()
+
+
 def sweep_block(pack: torch.Tensor, lay: SweepLayout, l: int
                 ) -> torch.Tensor:
     """Layer l's slabs read back: the [64 nslab, cols] float32 block of
     bf16 values that its products multiply, row k of layer l's input
     (sweep_k_rows) by output column n."""
-    flat = pack.view(torch.bfloat16)
-    cols = lay.cols[l]
-    sw = torch.from_numpy(swizzle128(np.arange(cols * SLAB_K))).to(
-        pack.device)
-    blocks = []
-    for s in range(lay.nslab[l]):
-        start = lay.off[l] // 2 + s * cols * SLAB_K
-        image = flat[start:start + cols * SLAB_K]
-        blocks.append(image[sw].view(cols, SLAB_K).t())
-    return torch.cat(blocks).float()
+    return _read_slabs(pack, lay.off[l], lay.nslab[l], lay.cols[l])
 
 
 # -- K1-bwd-bf16's reverse pack: W in slabs, the B of R W -------------------
@@ -523,3 +530,160 @@ def pack_rev_bf16(ws: Sequence[torch.Tensor], d_embed: int
     src = torch.cat([w.detach().reshape(-1) for w in ws]
                     + [torch.zeros(1, device=dev)])
     return src[idx].to(torch.bfloat16).view(torch.float32), lay
+
+
+# -- K3-bwd-bf16's packs: the radiance MLP in slabs --------------------------
+
+RAD_LAST_COLS = 8          # widest last layer of the radiance MLP (m64n8)
+RAD_MAX_HIDDEN = 4         # most hidden layers (their ReLU masks in registers)
+
+
+def _rad_check(ins: Sequence[int], outs: Sequence[int],
+               d_narrow: int) -> None:
+    """Raises for a radiance MLP K3-bwd-bf16 cannot run: its first layer's
+    input is [narrow (d_narrow) | feature], the narrow columns at most
+    ENC_COLS and the feature 2-256 wide (an even count); at most
+    RAD_MAX_HIDDEN hidden layers of at most 256 and a last layer of at most
+    RAD_LAST_COLS outputs."""
+    L = len(ins)
+    d_feat = ins[0] - d_narrow
+    if L < 2 or L - 1 > RAD_MAX_HIDDEN or d_narrow > ENC_COLS or \
+            not 2 <= d_feat <= HIDDEN_COLS or d_feat % 2 or \
+            any(o > HIDDEN_COLS for o in outs[:-1]) or \
+            outs[-1] > RAD_LAST_COLS or \
+            any(ins[l] != outs[l - 1] for l in range(1, L)):
+        raise ValueError(f"K3-bwd-bf16 takes 1-{RAD_MAX_HIDDEN} hidden "
+                         f"layers <= {HIDDEN_COLS} wide, a last layer <= "
+                         f"{RAD_LAST_COLS}, narrow columns <= {ENC_COLS} "
+                         f"and an even feature width <= {HIDDEN_COLS}")
+
+
+def rad_sweep_layout(ins: Sequence[int], outs: Sequence[int],
+                     d_narrow: int) -> SweepLayout:
+    """The slab layout of pack_rad_sweep_bf16, the forward X W of
+    K3-bwd-bf16: layer 0's W^T with the feature's rows first (k 0 ..
+    255, four slabs) and the d_narrow narrow rows [pts | PE(dirs) |
+    normals] at k = 256 (a fifth slab, ``enc``); a hidden layer four
+    slabs; each HIDDEN_COLS wide but the last layer's four, RAD_LAST_COLS
+    wide (m64n8).  Raises for a network the kernel cannot run."""
+    _rad_check(ins, outs, d_narrow)
+    L = len(ins)
+    nslab = [HIDDEN_COLS // SLAB_K + int(l == 0) for l in range(L)]
+    cols = [HIDDEN_COLS] * (L - 1) + [RAD_LAST_COLS]
+    off, pos = [], 0
+    for l in range(L):
+        off.append(pos)
+        pos += nslab[l] * cols[l] * SLAB_ROW
+    return SweepLayout([1] + [0] * (L - 1), nslab, cols, off, pos,
+                       "wgmma-bf16-rad")
+
+
+def rad_rev_layout(ins: Sequence[int], outs: Sequence[int],
+                   d_narrow: int) -> SweepLayout:
+    """The slab layout of pack_rad_rev_bf16, the reverse r W of
+    K3-bwd-bf16: layer l's W with k its output and n its input.  A hidden
+    layer and layer 0 four slabs of SLAB_K outputs (zero-padded to 256),
+    the last layer one (its outputs in k-step 0); layer 0's n is the
+    feature's 256 columns, then, in four more slabs ENC_COLS wide, the
+    narrow columns (``cols[0]`` = 256 + 48 counts both)."""
+    _rad_check(ins, outs, d_narrow)
+    L = len(ins)
+    nslab = [8] + [HIDDEN_COLS // SLAB_K] * (L - 2) + [1]
+    cols = [HIDDEN_COLS + ENC_COLS] + [HIDDEN_COLS] * (L - 1)
+    off, pos = [], 0
+    for l in range(L):
+        off.append(pos)
+        pos += (HIDDEN_COLS // SLAB_K * cols[l] if l == 0
+                else nslab[l] * cols[l]) * SLAB_ROW
+    return SweepLayout([0] * L, nslab, cols, off, pos, "wgmma-bf16-rad-rev")
+
+
+def _slab_elems(start: int, cols: int, k: np.ndarray,
+                n: np.ndarray) -> np.ndarray:
+    """bf16 element of (k, n) in slabs of ``cols`` columns from element
+    ``start`` on (one slab a SLAB_K rows of k)."""
+    return start + (k // SLAB_K) * cols * SLAB_K + swizzle128(
+        n * SLAB_K + k % SLAB_K)
+
+
+def _rad_columns(i: np.ndarray, d_narrow: int) -> np.ndarray:
+    """Where K3-bwd-bf16's layer 0 keeps input column i of W_0 ([narrow
+    | feature]): the feature's at i - d_narrow, the narrow ones at
+    HIDDEN_COLS + i."""
+    return np.where(i >= d_narrow, i - d_narrow, HIDDEN_COLS + i)
+
+
+@functools.lru_cache(maxsize=16)
+def _rad_sources(ins: Tuple[int, ...], outs: Tuple[int, ...], d_narrow: int,
+                 reverse: bool, device: torch.device
+                 ) -> Tuple[torch.Tensor, SweepLayout]:
+    """As _sweep_sources, for pack_rad_sweep_bf16 (``reverse`` False: k =
+    the row of W^T, layer 0's reordered by _rad_columns) and
+    pack_rad_rev_bf16 (k = W's output, n = its input, layer 0's narrow
+    columns in their own slabs)."""
+    lay = (rad_rev_layout if reverse else rad_sweep_layout)(ins, outs,
+                                                           d_narrow)
+    zero = sum(i * o for i, o in zip(ins, outs))
+    src = np.full(lay.nbytes // 2, zero, np.int64)
+    base = 0
+    for l, (i, o) in enumerate(zip(ins, outs)):
+        o_idx = np.arange(o)[:, None]                        # [out, 1]
+        i_idx = np.arange(i)[None, :]                        # [1, in]
+        col = _rad_columns(i_idx, d_narrow) if l == 0 else i_idx
+        start = lay.off[l] // 2
+        if not reverse:
+            e = _slab_elems(start, lay.cols[l], col, o_idx)
+        elif l == 0:
+            feat = col < HIDDEN_COLS
+            e = np.where(feat, _slab_elems(start, HIDDEN_COLS, o_idx, col),
+                         _slab_elems(start + 4 * HIDDEN_COLS * SLAB_K,
+                                     ENC_COLS, o_idx, col - HIDDEN_COLS))
+        else:
+            e = _slab_elems(start, lay.cols[l], o_idx, i_idx)
+        src[np.broadcast_to(e, (o, i)).ravel()] = base + np.arange(o * i)
+        base += i * o
+    return torch.from_numpy(src).to(device), lay
+
+
+def _pack_rad(ws: Sequence[torch.Tensor], d_narrow: int, reverse: bool
+              ) -> Tuple[torch.Tensor, SweepLayout]:
+    if any(w.dtype != torch.float32 for w in ws):
+        raise ValueError("the tensor-core kernels take float32 weights")
+    ins = tuple(int(w.shape[1]) for w in ws)
+    outs = tuple(int(w.shape[0]) for w in ws)
+    dev = ws[0].device
+    idx, lay = _rad_sources(ins, outs, d_narrow, reverse, dev)
+    src = torch.cat([w.detach().reshape(-1) for w in ws]
+                    + [torch.zeros(1, device=dev)])
+    return src[idx].to(torch.bfloat16).view(torch.float32), lay
+
+
+def pack_rad_sweep_bf16(ws: Sequence[torch.Tensor], d_narrow: int
+                        ) -> Tuple[torch.Tensor, SweepLayout]:
+    """K3-bwd-bf16's forward pack of the radiance MLP (effective weights
+    ws, layer 0 reading [d_narrow narrow columns | feature]): every
+    layer's W^T rounded to bf16 (to nearest even) in rad_sweep_layout's
+    slabs, each the 128-byte-swizzled image one bulk copy lands in shared
+    memory (swizzle128), zero in the padding.  A float32 tensor of the
+    bytes."""
+    return _pack_rad(ws, d_narrow, False)
+
+
+def pack_rad_rev_bf16(ws: Sequence[torch.Tensor], d_narrow: int
+                      ) -> Tuple[torch.Tensor, SweepLayout]:
+    """K3-bwd-bf16's reverse pack: every layer's W rounded to bf16 in
+    rad_rev_layout's slabs (k an output of the layer, n an input), as
+    pack_rad_sweep_bf16."""
+    return _pack_rad(ws, d_narrow, True)
+
+
+def rad_block(pack: torch.Tensor, lay: SweepLayout, l: int) -> torch.Tensor:
+    """Layer l of a K3-bwd-bf16 pack read back through the swizzle's
+    inverse: the float32 [64 nslab, cols] block of bf16 values (k by n)
+    that its products multiply; layer 0 of the reverse pack as [256, 304],
+    its narrow slabs' columns after the feature's."""
+    if lay.operand == "wgmma-bf16-rad-rev" and l == 0:
+        narrow = lay.off[0] + 4 * HIDDEN_COLS * SLAB_ROW
+        return torch.cat([_read_slabs(pack, lay.off[0], 4, HIDDEN_COLS),
+                          _read_slabs(pack, narrow, 4, ENC_COLS)], 1)
+    return sweep_block(pack, lay, l)

@@ -682,8 +682,8 @@ def test_k3_bf16_kernels_match_twins(cuda_device, case):
     the two forwards round pre-activations near 0 to opposite sides more
     often than in 3xTF32, so the masks are held to a margin of each
     element's bf16 rounding, in any number of places), two launches of
-    each bitwise equal, K3-bwd-bf16 on the forward's pack bitwise equal to
-    its own."""
+    each bitwise equal, K3-bwd-bf16 (on wgmma, from its two slab packs)
+    bitwise equal with and without its mask output."""
     cfg, net, inputs = _rad(case, cuda_device)
     with torch.no_grad():
         ws, bs = net.effective_weights()
@@ -694,10 +694,11 @@ def test_k3_bf16_kernels_match_twins(cuda_device, case):
     w64, b64 = [w.double() for w in ws], [b.double() for b in bs]
     in64 = [t.double() for t in inputs]
     pack = TP.make_pack(ws, bf16=True)
+    slabs = RK.make_bwd_slabs(cfg, ws)
     fwd = lambda: RK.launch_forward(cfg, ws, bs, *inputs, pack=pack,
                                     bf16=True)
     bwd = lambda: flat(RK.launch_backward(cfg, ws, bs, *inputs, ct,
-                                          pack=pack, bf16=True))
+                                          pack=slabs, bf16=True))
     with torch.no_grad():
         tw_f = RK.radiance_plain(ws, bs, cfg, *inputs, bf16=True)
         ref_f = RK.radiance_plain(w64, b64, cfg, *in64).float()
@@ -715,8 +716,49 @@ def test_k3_bf16_kernels_match_twins(cuda_device, case):
     got = bwd()
     chip_smoke.check_flips(f"K3-bwd-bf16 {case}", got, tw_b, ref_b, names)
     assert all(torch.equal(a, b) for a, b in zip(got, bwd()))
-    own = flat(RK.launch_backward(cfg, ws, bs, *inputs, ct, bf16=True))
-    assert all(torch.equal(a, b) for a, b in zip(got, own))
+    own = []
+    with_masks = flat(RK.launch_backward(cfg, ws, bs, *inputs, ct,
+                                         pack=slabs, bf16=True, masks=own))
+    assert all(torch.equal(a, b) for a, b in zip(got, with_masks))
+    assert all(torch.equal(a, b) for a, b in zip(own, masks))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [65536, 9001])
+def test_k3_bwd_bf16_wgmma_matches_twin(cuda_device, n):
+    """K3-bwd-bf16 (csrc/radiance_bwd_bf16_wg.cu, on wgmma) at full width,
+    the step's 65,536 rows and a ragged 9,001, against its twin on the
+    kernel's own ReLU masks and the f64 unrounded function
+    (chip_smoke.check_flips), two launches bitwise equal; an mma.sync pack
+    is refused, and so is a launch without the slab packs."""
+    cfg, net, inputs = _rad((256, 256, 4, 4, n), cuda_device)
+    with torch.no_grad():
+        ws, bs = net.effective_weights()
+    ws, bs = list(ws), list(bs)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    ct = torch.randn(n, cfg.d_out, device=cuda_device, generator=gen)
+    flat = lambda r: [*r[:4], *r[4], *r[5]]
+    slabs = RK.make_bwd_slabs(cfg, ws)
+    masks = []
+    got = flat(RK.launch_backward(cfg, ws, bs, *inputs, ct, pack=slabs,
+                                  bf16=True, masks=masks))
+    again = flat(RK.launch_backward(cfg, ws, bs, *inputs, ct, pack=slabs,
+                                    bf16=True))
+    twin = flat(RK.radiance_bwd_plain(ws, bs, cfg, *inputs, ct, bf16=True,
+                                      masks=masks))
+    ref = [t.float() for t in flat(RK.radiance_bwd_plain(
+        [w.double() for w in ws], [b.double() for b in bs], cfg,
+        *[t.double() for t in inputs], ct.double()))]
+    L = len(ws)
+    names = ["ct_pts", "ct_normals", "ct_dirs", "ct_feat"] + [
+        f"{k}{l}" for k in ("dW", "db") for l in range(L)]
+    chip_smoke.check_flips(f"K3-bwd-bf16 N={n}", got, twin, ref, names)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    with pytest.raises(ValueError, match="wgmma"):
+        RK.launch_backward(cfg, ws, bs, *inputs, ct,
+                           pack=(TP.make_pack(ws, True),) * 2, bf16=True)
+    with pytest.raises(ValueError, match="none was given"):
+        RK.launch_backward(cfg, ws, bs, *inputs, ct, bf16=True)
 
 
 @pytest.mark.gpu
@@ -748,6 +790,10 @@ def test_bf16_switches_launch_the_bf16_kernels(cuda_device):
     weights = geo.kernel_weights(True, True)
     assert [w[2] is None for w in weights] == [True, True]
     assert [w[3][1].operand for w in weights] == ["bf16", "bf16"]
+    assert [w[1].operand for w in weights[1][4:]] == [
+        "wgmma-bf16-rad", "wgmma-bf16-rad-rev"]
+    with torch.no_grad():
+        assert geo.kernel_weights(True, True)[1][4:] == (None, None)
     before = [k.launches for k in kernels]
     out = TR.render(geo, cfg, o, d, near, far, weights=weights)
     (out["color_fine"].sum() + out["gradient_error"].sum()).backward()

@@ -1,9 +1,10 @@
 """chip_smoke.py's guard on K3-bwd's ReLU masks, on the CPU: the f64 twin
 takes the masks of the kernel's own forward only where they differ from
 the f32 forward's within rounding of 0.  A stand-in for K3-bwd fills the
-scratch from the plain f32 forward, with or without an injected fault;
-the guard passes a flip at a pre-activation within its margin and fails a
-row of zeroed activations and a flip far from 0."""
+scratch from the plain f32 forward (for K3-bwd-bf16: its mask output from
+the plain bf16 forward), with or without an injected fault; the guard
+passes a flip at a pre-activation within its margin and fails a row of
+zeroed activations and a flip far from 0."""
 import numpy as np
 import pytest
 import torch
@@ -97,19 +98,16 @@ def test_k3_bwd_mask_guard(monkeypatch, fault, near_zero, passes):
 
 
 def _stand_in_bf16(fault):
-    """K3-bwd-bf16's scratch as its twin's bf16 forward fills it, with
-    ``fault(l, a, h)`` applied per chunk."""
-    def launch(cfg, ws, bs, pts, normals, dirs, feat, ct, scratch=None,
-               bf16=False):
-        assert bf16
+    """K3-bwd-bf16's mask output (launch_backward's ``masks``) as its
+    twin's bf16 forward gives it, with ``fault(l, a, h)`` applied."""
+    def launch(cfg, ws, bs, pts, normals, dirs, feat, ct, pack=None,
+               bf16=False, masks=None):
+        assert bf16 and pack is not None
         h = _x0(cfg, pts, normals, dirs, feat)
         for l in range(len(ws) - 1):
             a = TP.mm_bf16(h, ws[l].t()) + bs[l]
             h = torch.relu(a)
-            pad = torch.zeros(scratch.shape[0] * TP.TILE, ws[l].shape[0])
-            pad[:len(h)] = fault(l, a, h.clone())
-            scratch[:, l, :, :ws[l].shape[0]] = pad.view(
-                scratch.shape[0], TP.TILE, -1)
+            masks.append(fault(l, a, h.clone()) > 0)
     return launch
 
 

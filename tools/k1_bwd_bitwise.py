@@ -1,0 +1,89 @@
+#!/usr/bin/env python3
+"""K1-bwd-bf16's results, this checkout's build against another
+version's, bit for bit, on a GPU.
+
+    python3 tools/k1_bwd_bitwise.py DIR
+
+Builds DIR's factored_neus_tpu_torch/csrc/geometry_bwd_bf16_wg.cu (for
+example a parent commit unpacked with ``git archive`` into a directory
+that .gitignore lists) into build/bitwise/, and runs it and this
+checkout's build through this checkout's wrapper
+(ops/geometry_kernel.launch_backward, whose arguments both versions take)
+on the same inputs: the full-width SDF network at chip_smoke.py's 65,536
+and 9,001 points.  Every output (ct_x, each dW and db) must be equal bit
+for bit.  Prints one line a size, the card's name and power limit, and a
+JSON summary; exits 1 on any difference.
+"""
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = "geometry_bwd_bf16_wg.cu"
+OUT = os.path.join(HERE, "build", "bitwise")
+
+
+def main() -> int:
+    if len(sys.argv) != 2:
+        print("usage: k1_bwd_bitwise.py DIR", file=sys.stderr)
+        return 2
+    other = os.path.abspath(sys.argv[1])
+    import torch
+    if not torch.cuda.is_available():
+        print("bitwise: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import chip_smoke
+    import k1_bwd_phases
+    from factored_neus_tpu_torch.models.fields import SDFConfig, SDFNetwork
+    from factored_neus_tpu_torch.ops import _cuda
+    from factored_neus_tpu_torch.ops import geometry_kernel as GK
+
+    os.makedirs(OUT, exist_ok=True)
+    lib = os.path.join(OUT, "lib_other.so")
+    p = subprocess.run(
+        [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib,
+         os.path.join(other, "factored_neus_tpu_torch", "csrc", SRC)],
+        capture_output=True, text=True)
+    if p.returncode:
+        raise RuntimeError(f"nvcc failed for {other}:\n{p.stdout}{p.stderr}")
+    dev = torch.device("cuda")
+    cfg = SDFConfig()
+    net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(dev)
+    with torch.no_grad():
+        ws, bs = net.effective_weights()
+    ws, bs = list(ws), list(bs)
+    slabs = GK.make_bwd_slabs(cfg, ws)
+    kernel = GK.K1_BWD_BF16
+    gen = torch.Generator(device=dev).manual_seed(5)
+    flat = lambda r: [r[0], *r[1], *r[2]]
+    sizes = []
+    for n in (chip_smoke.N_CORE, chip_smoke.N_RAGGED):
+        x = torch.randn(n, 3, device=dev, generator=gen) * 0.5
+        ct_out = torch.randn(n, ws[-1].shape[0], device=dev, generator=gen)
+        ct_g = torch.randn(n, 3, device=dev, generator=gen)
+
+        def run():
+            return [t.clone() for t in flat(GK.launch_backward(
+                cfg, x, ws, bs, ct_out, ct_g, slabs, bf16=True))]
+        kernel._fn = None
+        mine = run()
+        k1_bwd_phases._bind(kernel, lib, "geometry_bwd_bf16")
+        theirs = run()
+        kernel._fn = None
+        torch.cuda.synchronize()
+        differ = [i for i, (a, b) in enumerate(zip(mine, theirs))
+                  if not torch.equal(a, b)]
+        sizes.append({"rows": n, "tensors": len(mine), "differ": differ})
+        print(f"K1-bwd-bf16 N={n}: {len(mine) - len(differ)} of "
+              f"{len(mine)} output tensors bitwise equal to {other}'s")
+    card = chip_smoke.card_line()
+    print(card)
+    print(json.dumps({"other": other, "card": card, "sizes": sizes}))
+    return 1 if any(s["differ"] for s in sizes) else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

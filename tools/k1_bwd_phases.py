@@ -76,22 +76,26 @@ CUTS = {
 ORDER = [(BWD, p) for p in ("all", "no_weight_grad", "no_slice_traffic",
                             "no_input_cot", "no_forward", "no_products",
                             "all")] + [(FWD, "all"), (FWD, "no_products")]
-# K1-bwd-bf16 on wgmma: (file, regular expression, replacement) triples
+# K1-bwd-bf16 on wgmma: (files, regular expression, replacement) triples;
+# a cut applies to each of its files that the version has (the slab ring,
+# image writers and pass moved from the kernel's source into wg_bwd.cuh,
+# which K3-bwd-bf16 shares) and must match in one of them
 WG = "geometry_bwd_bf16_wg.cu"
+SHARED = (WG, "wg_bwd.cuh")
 CUTS_WG = {
     "all": [],
-    "no_products": [(WG, r"wgmma_n256\(acc,[^;]*;", ";"),
-                    (WG, r"wgmma_n48\(acc,[^;]*;", ";"),
-                    (WG, r"wgmma_ss_n256\(acc,[^;]*;", ";"),
-                    (WG, r"wgmma_ss_n64\(acc64,[^;]*;", ";")],
-    "no_wgrad_pass": [(WG, r"geometry_bwd_wg_wgrad<<<[^;]*;", ";")],
-    "no_images": [(WG, r"\*\(uint32_t\*\)\(o \+[^;]*;", ";"),
-                  (WG, r"\*\(uint4\*\)\(?o[^;]*;", ";")],
-    "no_scratch": [(WG, r"sc\[q \* 128\] = make_float4[^;]*;", ";"),
-                   (WG, r"const float4 v = sc\[q \* 128\];",
+    "no_products": [(SHARED, r"wgmma_n256\(acc,[^;]*;", ";"),
+                    (SHARED, r"wgmma_n48\(acc,[^;]*;", ";"),
+                    (SHARED, r"wgmma_ss_n256\(acc,[^;]*;", ";"),
+                    (SHARED, r"wgmma_ss_n64\(acc64,[^;]*;", ";")],
+    "no_wgrad_pass": [((WG,), r"geometry_bwd_wg_wgrad<<<[^;]*;", ";")],
+    "no_images": [(SHARED, r"\*\(uint32_t\*\)\(o \+[^;]*;", ";"),
+                  (SHARED, r"\*\(uint4\*\)\(?o[^;]*;", ";")],
+    "no_scratch": [((WG,), r"sc\[q \* 128\] = make_float4[^;]*;", ";"),
+                   ((WG,), r"const float4 v = sc\[q \* 128\];",
                     "const float4 v = make_float4(0.5f, 0.5f, 1.f, 1.f);"),
-                   (WG, r"l2_prefetch_if\([^;]*;", ";")],
-    "no_softplus": [(WG, r"return fmaxf\(a, 0\.f\) \+ gw_lg2\([^;]*;",
+                   ((WG,), r"l2_prefetch_if\([^;]*;", ";")],
+    "no_softplus": [((WG,), r"return fmaxf\(a, 0\.f\) \+ gw_lg2\([^;]*;",
                      "return a;")],
 }
 ORDER_WG = ["all", "no_products", "no_wgrad_pass", "no_images",
@@ -99,23 +103,29 @@ ORDER_WG = ["all", "no_products", "no_wgrad_pass", "no_images",
 CLOCKED = ("all", "no_products", "no_softplus")
 
 
-def build_wg(root: str) -> dict:
-    """The cut copies of K1-bwd-bf16 on wgmma (CUTS_WG), where DIR has
-    it: {phase: library}; each cut must match."""
+def build_cut(root: str, src: str, cuts: dict, name: str) -> dict:
+    """The cut copies of a wgmma kernel's source ``src`` (cuts: {phase:
+    [(files, pattern, replacement)]}), where DIR has it, each in
+    build/phases/<name>/<phase>/ with every header beside it: {phase:
+    library}; each cut must match."""
     sys.path.insert(0, root)
     from factored_neus_tpu_torch.ops import _cuda
     csrc = os.path.join(root, "factored_neus_tpu_torch", "csrc")
-    if not os.path.exists(os.path.join(csrc, WG)):
+    if not os.path.exists(os.path.join(csrc, src)):
         return {}
     libs, procs = {}, []
-    for phase, cuts in CUTS_WG.items():
-        files = {WG, *(f for f in os.listdir(csrc) if f.endswith(".cuh"))}
+    for phase, phase_cuts in cuts.items():
+        files = {src, *(f for f in os.listdir(csrc) if f.endswith(".cuh"))}
         texts = {f: open(os.path.join(csrc, f)).read() for f in files}
-        for f, pat, rep in cuts:
-            texts[f], k = re.subn(pat, rep, texts[f], flags=re.S)
+        for names, pat, rep in phase_cuts:
+            k = 0
+            for f in names:
+                if f in texts:
+                    texts[f], kf = re.subn(pat, rep, texts[f], flags=re.S)
+                    k += kf
             if k == 0:
                 raise RuntimeError(f"{phase}: {pat!r} matches nothing")
-        d = os.path.join(OUT, "geometry_bwd_bf16_wg", phase)
+        d = os.path.join(OUT, name, phase)
         shutil.rmtree(d, ignore_errors=True)
         os.makedirs(d)
         for f, text in texts.items():
@@ -124,13 +134,19 @@ def build_wg(root: str) -> dict:
         libs[phase] = os.path.join(d, "lib.so")
         procs.append((phase, subprocess.Popen(
             [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", libs[phase],
-             os.path.join(d, WG)], stdout=subprocess.PIPE,
+             os.path.join(d, src)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)))
     for phase, p in procs:
         log, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {phase}:\n{log}")
     return libs
+
+
+def build_wg(root: str) -> dict:
+    """The cut copies of K1-bwd-bf16 on wgmma (CUTS_WG), where DIR has
+    it: {phase: library}."""
+    return build_cut(root, WG, CUTS_WG, "geometry_bwd_bf16_wg")
 
 
 def _bind(kernel, lib: str, symbol: str) -> None:

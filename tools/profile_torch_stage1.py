@@ -55,6 +55,9 @@ BWD_ROWS = {"0": "K1-bwd", "1": "K1-bwd-stash", "2": "K1-bwd-split"}
 TABLE_ROWS = (("geometry_bwd_wg_sweep", "K1-bwd-bf16 (sweep)"),
               ("geometry_bwd_wg_wgrad", "K1-bwd-bf16 (weight-gradient pass)"),
               ("geometry_bwd_wg_reduce", "K1-bwd-bf16 (reduce)"),
+              ("radiance_bwd_wg_sweep", "K3-bwd-bf16 (sweep)"),
+              ("radiance_bwd_wg_wgrad", "K3-bwd-bf16 (weight-gradient pass)"),
+              ("radiance_bwd_wg_reduce", "K3-bwd-bf16 (reduce)"),
               ("geometry_fwd_kernel", "K1-fwd"),
               ("sdf_fwd_kernel", "K2"),
               ("sdf_fwd_bf16_kernel", "K2-bf16"),
