@@ -12,9 +12,14 @@
    forward's only within rounding of 0), checks that two K1-bwd, two
    K3-fwd and two K3-bwd launches agree bit for bit, and times each kernel
    and twin with CUDA events (K3-fwd on the weight pack it shares with
-   K3-bwd in a step, the pack's own time beside it); then K1-fwd, K3-fwd
-   and K2 again at a validation chunk's shapes (262,144 and 131,072
-   rows);
+   K3-bwd in a step, the pack's own time beside it); K1-bwd (3xTF32 on
+   wgmma, csrc/geometry_bwd_wg.cu: its ptxas report and SASS, which must
+   hold HGMMA and no HMMA) at the step's 65,536 points and a ragged 9,001,
+   each against the f64 twin (check_vjp) with two launches bitwise equal,
+   timed at both ("shapes"), its two kernels' registers and shared memory
+   read from the device ("attrs"), the bytes of its design and its f32
+   slab packs' build times; then K1-fwd, K3-fwd and K2 again at a
+   validation chunk's shapes (262,144 and 131,072 rows);
 4. runs one full-width stage-1 step of confs/wmask.conf and one of
    confs/womask.conf (background NeRF) on the card (kernels) and the same
    steps on the CPU (twins), and compares the loss and every parameter
@@ -468,10 +473,13 @@ def check_kernels(device):
     # K1-bwd: adds weight-gradient sums over 131,072 stacked rows.  The
     # reference is the plain twin in float64: in float32 the twin's own
     # summation error (cuBLAS's order over 131,072 rows) is as large as the
-    # kernel's, so the f64 twin measures the kernel's error alone.
+    # kernel's, so the f64 twin measures the kernel's error alone.  It runs
+    # on wgmma from its two f32 slab packs, built once as a step does.
+    build = wgmma_build_report("K1-bwd", "geometry_bwd_wg.cu")
+    slabs = GK.make_bwd_slabs(cfg, ws, bf16=False)
     ct_out = torch.randn(out_p.shape, device=device, generator=gen)
     ct_g = torch.randn(N_CORE, 3, device=device, generator=gen)
-    ct_x, dws, dbs = GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g)
+    ct_x, dws, dbs = GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g, slabs)
     L = len(ws)
 
     def plain_vjp(dtype):
@@ -498,7 +506,7 @@ def check_kernels(device):
                     names)
     # the weight-gradient sums run in a fixed order: a second launch gives
     # the same bits
-    again = GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g)
+    again = GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g, slabs)
     same = all(torch.equal(a, b) for a, b in zip(
         [ct_x, *dws, *dbs], [again[0], *again[1], *again[2]]))
     print(f"K1-bwd  two launches bitwise equal: {same}")
@@ -518,11 +526,31 @@ def check_kernels(device):
     bwd_flops = (4 * (S - s_last) + 2 * S + 2 * S
                  + 2 * (S - s_last) + 2 * ins[-1] + 2 * (S - s_last))
     bwd_bytes = N_CORE * (12 + 4 * outs[-1] + 12 + 12) + 2 * wbytes
-    entry("geometry_bwd", "factored_neus_tpu_torch/csrc/geometry_bwd.cu",
+    entry("geometry_bwd", "factored_neus_tpu_torch/csrc/geometry_bwd_wg.cu",
           "factored_neus_tpu/ops/pallas_geometry.py:846", e_b,
-          cuda_ms(lambda: GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g),
-                  5),
+          cuda_ms(lambda: GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g,
+                                             slabs), 5),
           cuda_ms(plain32, 3), N_CORE * bwd_flops, bwd_bytes)
+    k1b = results[-1]
+    shapes, attrs = [], None
+    for n in (N_CORE, N_RAGGED):
+        shape, attrs, e_n = k1_bwd_wgf_check(cfg, ws, bs, n, bwd_flops,
+                                             slabs, gen)
+        shapes.append(shape)
+        k1b["max_abs_err"] = max(k1b["max_abs_err"], e_n)
+    # what K1-bwd adds to a step besides its kernels: its two slab packs,
+    # built by SDFNetwork.kernel_weights beside the 3xTF32 pack
+    pack_ms = {"pack_ms": cuda_ms(lambda: TP.pack_weights(ws), 10),
+               "sweep_pack_f32_ms": cuda_ms(lambda: TP.pack_sweep_f32(
+                   ws, sorted(SK.skip_layers(cfg, L)), cfg.d_embed), 10),
+               "rev_pack_f32_ms": cuda_ms(
+                   lambda: TP.pack_rev_f32(ws, cfg.d_embed), 10)}
+    print(f"K1-bwd's slab packs at full width: {pack_ms['sweep_pack_f32_ms']:.3f}"
+          f" ms (forward) + {pack_ms['rev_pack_f32_ms']:.3f} ms (reverse), "
+          f"beside the 3xTF32 pack's {pack_ms['pack_ms']:.3f} ms (CUDA "
+          f"events around 10 builds each)")
+    k1b.update(shapes=shapes, sass=build["sass"], ptxas=build["ptxas"],
+               attrs=attrs, **pack_ms)
     entry("geometry_bwd_split",
           "factored_neus_tpu_torch/csrc/geometry_bwd.cu",
           "factored_neus_tpu/ops/pallas_geometry.py:529", e_sp,
@@ -762,7 +790,8 @@ def check_kernels(device):
 def wg_attrs(src: str, symbol: str) -> dict:
     """A wgmma backward's sweep and weight-gradient kernels as the device
     holds them after a launch (cudaFuncGetAttributes through the source's
-    ``symbol``: geometry_bwd_bf16_attrs, radiance_bwd_bf16_attrs):
+    ``symbol``: geometry_bwd_attrs, geometry_bwd_bf16_attrs,
+    radiance_bwd_bf16_attrs):
     registers a thread, dynamic shared memory a block as the launcher set
     it, static shared memory."""
     import ctypes
@@ -777,9 +806,9 @@ def wg_attrs(src: str, symbol: str) -> dict:
 
 
 def wg_shape(label, n, run, plain, bound_ms, plan, design, src,
-             symbol) -> tuple:
+             symbol, bound_name="bf16") -> tuple:
     """A wgmma backward at n rows: its time and its twin's (CUDA events)
-    and its bf16 bound, for the kernels line; printed beside them, the
+    and its bound (``bound_name``: bf16, or 3xTF32), for the kernels line; printed beside them, the
     kernels' registers and shared memory as the device holds them
     (wg_attrs), the launch plan, and the bytes the design moves to and
     from device memory by the reckoning of its source note (``design``),
@@ -793,7 +822,8 @@ def wg_shape(label, n, run, plain, bound_ms, plan, design, src,
              "plain_ms": cuda_ms(twin, 3), "bound_ms": bound_ms}
     attrs = wg_attrs(src, symbol)
     print(f"  {label} (wgmma) N={n}: {shape['ms']:.3f} ms (plain "
-          f"{shape['plain_ms']:.3f} ms), bf16 bound {shape['bound_ms']:.3f}"
+          f"{shape['plain_ms']:.3f} ms), {bound_name} bound "
+          f"{shape['bound_ms']:.3f}"
           f" ms ({100 * shape['bound_ms'] / shape['ms']:.1f}% of it); by the "
           f"source note's reckoning the design moves {design / 1e9:.2f} GB "
           f"to and from device memory; {plan['grid']} sweep blocks of "
@@ -829,6 +859,56 @@ def k1_bwd_wg_shape(cfg, ws, n, run, plain, bwd_flops, slabs) -> tuple:
                     1e3 * n * bwd_flops / BF16_PEAK, plan,
                     scratch + written + read, "geometry_bwd_bf16_wg.cu",
                     "geometry_bwd_bf16_attrs")
+
+
+def k1_bwd_wgf_check(cfg, ws, bs, n, bwd_flops, slabs, gen) -> tuple:
+    """K1-bwd (3xTF32 on wgmma) at n points: against the f64 twin
+    (check_vjp) with two launches bitwise equal, then wg_shape's times
+    against its 3xTF32 bound, attributes and the bytes of its design: the
+    f32 scratch written and read, each tile's X_l and R_l images written,
+    then read by the weight-gradient pass, X_l once for each R half and
+    R_l once for each X pair, the slots and db slots (geometry_bwd_wg.cu's
+    note).  Returns (shape, attrs, max
+    |err|)."""
+    import torch
+    from factored_neus_tpu_torch.ops import _cuda
+    from factored_neus_tpu_torch.ops import geometry_kernel as GK
+    dev = ws[0].device
+    x = torch.randn(n, 3, device=dev, generator=gen) * 0.5
+    ct_out = torch.randn(n, ws[-1].shape[0], device=dev, generator=gen)
+    ct_g = torch.randn(n, 3, device=dev, generator=gen)
+    flat = lambda r: [r[0], *r[1], *r[2]]
+    L = len(ws)
+    names = ["ct_x"] + [f"dW{l}" for l in range(L)] + [
+        f"db{l}" for l in range(L)]
+    run = lambda: flat(GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g,
+                                          slabs))
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    ref64 = [t.float() for t in flat(GK.geometry_bwd_plain(
+        [w.double() for w in ws], [b.double() for b in bs], x.double(),
+        ct_out.double(), ct_g.double(), cfg))]
+    ref32 = flat(GK.geometry_bwd_plain(ws, bs, x, ct_out, ct_g, cfg))
+    e = check_vjp(f"K1-bwd (wgmma) N={n}", got, ref64, ref32, names)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"K1-bwd (wgmma) N={n}: two launches bitwise equal: {same}")
+    if not same:
+        raise AssertionError("K1-bwd is not deterministic")
+    del got, again, ref64, ref32
+    plan = GK.bwd_wg_plan(cfg, ws, n, slabs, _cuda.sm_count(dev))
+    tiles, cx = plan["tiles"], [64] + [256] * (L - 1)
+    cr = [264 if w.shape[0] > 256 else 256 for w in ws]
+    scratch = 2 * tiles * (L - 1) * 16 * 256 * 16
+    written = plan["image_bytes"]
+    read = tiles * 4 * sum(2 * 2 * c * 32 + -(-c // 128) * 2 * r * 32
+                           for c, r in zip(cx, cr))
+    slots = 4 * (2 * plan["slot_floats"] + 2 * plan["db_floats"])
+    shape, attrs = wg_shape("K1-bwd", n, run, lambda: GK.geometry_bwd_plain(
+        ws, bs, x, ct_out, ct_g, cfg), 1e3 * n * 3 * bwd_flops / TF32_PEAK,
+        plan, scratch + written + read + slots, "geometry_bwd_wg.cu",
+        "geometry_bwd_attrs", "3xTF32")
+    shape["max_abs_err"] = e
+    return shape, attrs, e
 
 
 def k3_bwd_wg_shape(cfg, ws, n, run, plain, bwd_flops, slabs) -> tuple:

@@ -1,12 +1,12 @@
-// K1-bwd: the backward of K1-fwd.  Given the cotangents (ct_out, ct_grad)
-// of (out, grad), it recomputes the primal forward together with a forward
-// tangent along ct_grad, stacked as 32 primal + 32 tangent rows of one
-// 64-row tile, then reverse-sweeps both chains (reverse over forward: the
-// Hessian-vector term of the eikonal loss) -> ct_x and the weight and bias
-// gradients summed over all rows.
-//
-// Replaces the TPU kernel factored_neus_tpu/ops/pallas_geometry.py
-// (_make_geom.run_bwd, body _build_bwd_kernel_stacked).
+// K1-bwd-stash and K1-bwd-split on mma.sync: the backward of K1-fwd.
+// Given the cotangents (ct_out, ct_grad) of (out, grad), it recomputes the
+// primal forward together with a forward tangent along ct_grad, 32 primal
+// + 32 tangent rows of one 64-row tile, then reverse-sweeps both chains
+// (reverse over forward: the Hessian-vector term of the eikonal loss) ->
+// ct_x and the weight and bias gradients summed over all rows.  K1-bwd,
+// the stacked call (_make_geom.run_bwd, body _build_bwd_kernel_stacked),
+// is geometry_bwd_wg.cu on wgmma; the notes below on the products, the
+// partial slices and the scratch hold for both variants here.
 //
 // Bound: operations.  The function needs about 11.0 S FLOPs per row
 // (S = 524,544 multiply-adds at full width): the primal and tangent
@@ -80,26 +80,22 @@ __device__ __forceinline__ int stash_col(const TcDims& d, int l) {
   return off;
 }
 
-// The three variants: the stacked 64-row products, the stash (primal from
-// the bf16 stash, tangent forward only), and the split chains.
-enum BwdMode { BWD_STACKED, BWD_STASH, BWD_SPLIT };
+// The two variants: the stash (primal from the bf16 stash, tangent
+// forward only) and the split chains.  The numbers are part of the
+// kernels' names, which tools/profile_torch_stage1.py reads.
+enum BwdMode { BWD_STASH = 1, BWD_SPLIT = 2 };
 
-// Forward product of layer l into R: both chains' rows (stacked: one
-// 64-row product; split: one 32-row product per chain), or from the stash
-// the tangent rows alone.
+// Forward product of layer l into R: both chains' rows (split: one 32-row
+// product per chain), or from the stash the tangent rows alone.
 template <int MODE, bool BF>
 __device__ __forceinline__ void bwd_forward(const TcDims& d, int l,
                                             const float* xin, int ldx,
                                             float* R, float* ring) {
   const int kp = d.kp[l], off = d.fwd_off[l], S = d.fwd_st[l], np = d.np[l];
-  if (MODE == BWD_STACKED) {
-    tc_product<2, BF>(d, xin, ldx, kp, off, S, np, R, d.ld, ring);
-  } else {
-    if (MODE == BWD_SPLIT)
-      tc_product<1, BF>(d, xin, ldx, kp, off, S, np, R, d.ld, ring);
-    tc_product<1, BF>(d, xin + HALF * ldx, ldx, kp, off, S, np,
-                      R + HALF * d.ld, d.ld, ring);
-  }
+  if (MODE == BWD_SPLIT)
+    tc_product<1, BF>(d, xin, ldx, kp, off, S, np, R, d.ld, ring);
+  tc_product<1, BF>(d, xin + HALF * ldx, ldx, kp, off, S, np,
+                    R + HALF * d.ld, d.ld, ring);
 }
 
 // Input cotangents of both chains, A = R W_l (the W block of the pack).

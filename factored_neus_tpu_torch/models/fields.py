@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -39,15 +39,24 @@ from ..ops.embedder import positional_encoding
 from ..ops.mlp import WNLinear, dense_init_, sdf_geometric_init_
 
 
-# (effective weights, biases, 3xTF32 weight pack or None, bf16 weight pack
-# or None, the forward slab pack or None, the reverse slab pack or None):
-# _WNLayers.kernel_weights.  The slab packs are K2-bf16's and K1-bwd-bf16's
-# for the SDF network, K3-bwd-bf16's for the radiance MLP.
-KernelWeights = Tuple[List[torch.Tensor], List[torch.Tensor],
-                      Optional[Tuple[torch.Tensor, TP.PackLayout]],
-                      Optional[Tuple[torch.Tensor, TP.PackLayout]],
-                      Optional[Tuple[torch.Tensor, TP.SweepLayout]],
-                      Optional[Tuple[torch.Tensor, TP.SweepLayout]]]
+_Pack = Optional[Tuple[torch.Tensor, TP.PackLayout]]
+_Slabs = Optional[Tuple[torch.Tensor, TP.SweepLayout]]
+
+
+class KernelWeights(NamedTuple):
+    """_WNLayers.kernel_weights' result: the effective weights and biases,
+    and the packs the kernels read, each None where it was not built.
+    The slab packs are, for the SDF network, K2-bf16's and K1-bwd-bf16's
+    (sweep16, rev16) and K1-bwd's (sweep32, rev32); for the radiance MLP
+    K3-bwd-bf16's (sweep16, rev16)."""
+    ws: List[torch.Tensor]
+    bs: List[torch.Tensor]
+    pack: _Pack = None         # 3xTF32 (tc_pack.pack_weights)
+    pack16: _Pack = None       # bf16 (tc_pack.pack_weights_bf16)
+    sweep16: _Slabs = None     # the forward bf16 slab pack
+    rev16: _Slabs = None       # the reverse bf16 slab pack
+    sweep32: _Slabs = None     # the forward f32 slab pack (K1-bwd)
+    rev32: _Slabs = None       # the reverse f32 slab pack (K1-bwd)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,14 +100,14 @@ class _WNLayers(nn.Module):
 
     def kernel_weights(self, bf16: bool = False, f32: bool = True,
                        sweep_bf16: bool = False) -> KernelWeights:
-        """(ws, bs, pack, pack16, sweep16, rev16): the effective weights
-        and biases, differentiable in g, v and b, and on a CUDA device
-        their weight packs for the kernels, built without grad (None on
-        the CPU, or where not asked for): ``f32``, tc_pack.pack_weights'
-        (3xTF32); ``bf16``, tc_pack.pack_weights_bf16's (the bf16 operand
-        mode); ``sweep_bf16`` (the SDF network only), K2-bf16's slab pack
-        (sdf_kernel.make_sweep_pack); rev16, the SDF network's
-        (SDFNetwork.kernel_weights).  Built once a step, or once a
+        """KernelWeights: the effective weights and biases, differentiable
+        in g, v and b, and on a CUDA device their weight packs for the
+        kernels, built without grad (None on the CPU, or where not asked
+        for): ``f32``, tc_pack.pack_weights' (3xTF32, ``pack``); ``bf16``,
+        tc_pack.pack_weights_bf16's (the bf16 operand mode, ``pack16``);
+        ``sweep_bf16`` (the SDF network only), K2-bf16's slab pack
+        (sdf_kernel.make_sweep_pack, ``sweep16``); the backward's slab
+        packs, the subclasses' (SDFNetwork.kernel_weights).  Built once a step, or once a
         validation image or a stage-2/3 run, they serve every launch on
         these weights: K1 and the K2 sweeps, each on the pack of its mode,
         for the SDF network; K3-fwd and K3-bwd for the radiance MLP."""
@@ -110,19 +119,30 @@ class _WNLayers(nn.Module):
                 pack16 = TP.pack_weights_bf16(ws) if bf16 else None
                 sweep16 = (SK.make_sweep_pack(self.cfg, ws) if sweep_bf16
                            else None)
-        return ws, bs, pack, pack16, sweep16, None
+        return KernelWeights(ws, bs, pack, pack16, sweep16)
 
 
 def mode_pack(weights: KernelWeights, bf16: bool):
     """The pack of kernel_weights' result that K1's or K3's operand mode
     reads (None where it was not built: the kernel wrapper builds its
     own)."""
-    return weights[3] if bf16 else weights[2]
+    return weights.pack16 if bf16 else weights.pack
 
 
 def sweep_pack(weights: KernelWeights, bf16: bool):
     """The pack that K2 (bf16: K2-bf16) reads, as mode_pack."""
-    return weights[4] if bf16 else weights[2]
+    return weights.sweep16 if bf16 else weights.pack
+
+
+def bwd_slabs(weights: KernelWeights, bf16: bool):
+    """The two slab packs that the operand mode's wgmma backward reads
+    (K1-bwd-bf16 or K3-bwd-bf16: sweep16, rev16; K1-bwd: sweep32,
+    rev32), or None where they were not built."""
+    if bf16:
+        return ((weights.sweep16, weights.rev16)
+                if weights.rev16 is not None else None)
+    return ((weights.sweep32, weights.rev32)
+            if weights.rev32 is not None else None)
 
 
 class SDFNetwork(_WNLayers):
@@ -157,19 +177,28 @@ class SDFNetwork(_WNLayers):
 
     def kernel_weights(self, bf16: bool = False, f32: bool = True,
                        sweep_bf16: bool = False) -> KernelWeights:
-        """_WNLayers.kernel_weights and, in the bf16 mode where a backward
-        through K1-bwd-bf16 can follow (grad enabled and
-        geometry_kernel.wg_backward()), K1-bwd-bf16's two slab packs
-        (geometry_kernel.make_bwd_slabs: the first is K2-bf16's slab
-        pack, sweep16, which the sweeps share; the second
-        tc_pack.pack_rev_bf16's, rev16)."""
-        wg = bf16 and torch.is_grad_enabled() and GK.wg_backward()
-        ws, bs, pack, pack16, sweep16, rev16 = super().kernel_weights(
-            bf16, f32, sweep_bf16 or wg)
-        if wg and ws[0].is_cuda:
+        """_WNLayers.kernel_weights and, where a stacked backward can
+        follow (grad enabled and geometry_kernel.wg_backward()), its two
+        slab packs (geometry_kernel.make_bwd_slabs): in the bf16 mode
+        K1-bwd-bf16's (the first is K2-bf16's slab pack, sweep16, which
+        the sweeps share; the second tc_pack.pack_rev_bf16's, rev16), else,
+        where a parameter requires grad, K1-bwd's (tc_pack.pack_sweep_f32's
+        and pack_rev_f32's, sweep32 and rev32)."""
+        wg = torch.is_grad_enabled() and GK.wg_backward()
+        wg16 = wg and bf16
+        wg32 = wg and not bf16 and any(p.requires_grad
+                                       for p in self.parameters())
+        kw = super().kernel_weights(bf16, f32, sweep_bf16 or wg16)
+        if kw.ws[0].is_cuda and (wg16 or wg32):
             with torch.no_grad():
-                rev16 = TP.pack_rev_bf16(ws, self.cfg.d_embed)
-        return ws, bs, pack, pack16, sweep16, rev16
+                if wg16:
+                    kw = kw._replace(
+                        rev16=TP.pack_rev_bf16(kw.ws, self.cfg.d_embed))
+                else:
+                    sweep32, rev32 = GK.make_bwd_slabs(self.cfg, kw.ws,
+                                                       bf16=False)
+                    kw = kw._replace(sweep32=sweep32, rev32=rev32)
+        return kw
 
     def value_sweep(self, x: torch.Tensor,
                     weights: Optional[KernelWeights] = None,
@@ -183,7 +212,7 @@ class SDFNetwork(_WNLayers):
         with torch.no_grad():
             weights = weights or self.kernel_weights(f32=not bf16,
                                                      sweep_bf16=bf16)
-            ws, bs = weights[:2]
+            ws, bs = weights.ws, weights.bs
             ws = list(ws[:-1]) + [ws[-1][:1]]
             bs = list(bs[:-1]) + [bs[-1][:1]]
             return SK.sdf_forward(ws, bs, self.cfg, x,
@@ -197,10 +226,9 @@ class SDFNetwork(_WNLayers):
         when the caller already has them (K1's pack is built here when
         theirs has none of the mode's operand type)."""
         weights = weights or self.kernel_weights(bf16, f32=not bf16)
-        out, grad = GK.geometry(*weights[:2], x, self.cfg,
+        out, grad = GK.geometry(weights.ws, weights.bs, x, self.cfg,
                                 pack=mode_pack(weights, bf16), bf16=bf16,
-                                slabs=(weights[4:6] if weights[5] is not None
-                                       else None))
+                                slabs=bwd_slabs(weights, bf16))
         return out[:, 0], out[:, 1:], grad
 
 
@@ -250,11 +278,10 @@ class RenderingNetwork(_WNLayers):
         kernel_weights(bf16, f32=not bf16), when the caller already has
         them."""
         weights = weights or self.kernel_weights(bf16, f32=not bf16)
-        return RK.radiance(*weights[:2], self.cfg, points, normals,
-                           view_dirs, feature_vectors,
+        return RK.radiance(weights.ws, weights.bs, self.cfg, points,
+                           normals, view_dirs, feature_vectors,
                            mode_pack(weights, bf16), bf16,
-                           slabs=(weights[4:6] if weights[5] is not None
-                                  else None))
+                           slabs=bwd_slabs(weights, True))
 
     def kernel_weights(self, bf16: bool = False, f32: bool = True,
                        sweep_bf16: bool = False) -> KernelWeights:
@@ -262,13 +289,13 @@ class RenderingNetwork(_WNLayers):
         through K3-bwd-bf16 can follow (mode 'idr', grad enabled),
         K3-bwd-bf16's two slab packs (radiance_kernel.make_bwd_slabs) as
         sweep16 and rev16."""
-        ws, bs, pack, pack16, _, _ = super().kernel_weights(bf16, f32)
-        sweep16 = rev16 = None
+        kw = super().kernel_weights(bf16, f32)
         if bf16 and self.cfg.mode == "idr" and torch.is_grad_enabled() \
-                and ws[0].is_cuda:
+                and kw.ws[0].is_cuda:
             with torch.no_grad():
-                sweep16, rev16 = RK.make_bwd_slabs(self.cfg, ws)
-        return ws, bs, pack, pack16, sweep16, rev16
+                sweep16, rev16 = RK.make_bwd_slabs(self.cfg, kw.ws)
+            kw = kw._replace(sweep16=sweep16, rev16=rev16)
+        return kw
 
 
 class SingleVarianceNetwork(nn.Module):

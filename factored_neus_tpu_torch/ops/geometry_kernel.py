@@ -1,5 +1,6 @@
 """K1: the fused SDF geometry core and its backward (csrc/geometry_fwd.cu,
-csrc/geometry_bwd.cu), with their plain PyTorch twins.
+csrc/geometry_bwd_wg.cu, csrc/geometry_bwd.cu), with their plain PyTorch
+twins.
 
 Counterpart of factored_neus_tpu/ops/pallas_geometry.py
 (sdf_value_grad_feat_pallas).  ``geometry(ws, bs, x, cfg)`` returns
@@ -27,7 +28,16 @@ switch takes precedence over it, as in the JAX package.
 The kernels multiply on the tensor cores in 3xTF32 (csrc/tc_mma.cuh), on
 weights packed by ``tc_pack.pack_weights``: once a step, shared with K2's
 sweeps (``fields.SDFNetwork.kernel_weights``), or once per call when the
-caller gives no pack.
+caller gives no pack.  K1-bwd, the stacked backward, runs on Hopper's
+warpgroup ``wgmma`` in 3xTF32 (csrc/geometry_bwd_wg.cu): a stacked sweep
+whose weights stream as big and small TF32 slabs (``make_bwd_slabs(cfg,
+ws, bf16=False)``: tc_pack.pack_sweep_f32's for X W and pack_rev_f32's
+for r W, built once a step, where a backward can follow, by
+``fields.SDFNetwork.kernel_weights``), which writes each layer's f32 X_l
+and R_l, then a split-K ``wgmma`` pass dW_l = X_l^T R_l and a fixed-order
+reduce (``weight_grad_pass_plain(f32=True)`` is that pass in plain
+PyTorch, ``sweep_mm_f32`` the sweep's products).  K1-bwd-split and
+K1-bwd-stash stay on ``mma.sync`` (csrc/geometry_bwd.cuh).
 
 The bf16 operand mode (``bf16=True``; the stage-1 renderer's
 ``RendererConfig.core_act_bf16``, ``FNEUS_CORE_ACT_BF16``, as in the JAX
@@ -70,7 +80,8 @@ from .tc_pack import (PackLayout, check_layout, layout_iargs, make_pack,
 from .tc_pack import pack_for as _pack_for
 
 K1_FWD = _cuda.CudaKernel("geometry_fwd", "geometry_fwd.cu", "geometry_fwd")
-K1_BWD = _cuda.CudaKernel("geometry_bwd", "geometry_bwd.cu", "geometry_bwd")
+K1_BWD = _cuda.CudaKernel("geometry_bwd", "geometry_bwd_wg.cu",
+                          "geometry_bwd")
 K1_FWD_STASH = _cuda.CudaKernel("geometry_fwd_stash", "geometry_fwd.cu",
                                 "geometry_fwd_stash")
 K1_BWD_STASH = _cuda.CudaKernel("geometry_bwd_stash", "geometry_bwd.cu",
@@ -222,7 +233,7 @@ def geometry_bwd_plain(ws: Sequence[torch.Tensor],
                        ct_out: torch.Tensor, ct_grad: torch.Tensor, cfg,
                        bf16: bool = False,
                        stash: Optional[torch.Tensor] = None,
-                       operands: Optional[dict] = None
+                       operands: Optional[dict] = None, mm=None
                        ) -> Tuple[torch.Tensor, List[torch.Tensor],
                                   List[torch.Tensor]]:
     """Explicit twin of the K1 backward (pallas_geometry's
@@ -233,9 +244,11 @@ def geometry_bwd_plain(ws: Sequence[torch.Tensor],
     sweep of both chains.  ``bf16``: every product on bf16-rounded
     operands, as the bf16 kernels compute them.  ``operands``: receives,
     for each layer l, the weight gradient's operands (x_l, xd_l, r_l, rd_l)
-    (weight_grad_pass_plain).  Computes in x's dtype."""
+    (weight_grad_pass_plain).  ``mm``: the products of the sweep (a, b)
+    -> a @ b, in place of the operand mode's (sweep_mm_f32 emulates
+    K1-bwd's).  Computes in x's dtype."""
     dt = x.dtype
-    mm = mm_bf16 if bf16 else torch.matmul
+    mm = mm or (mm_bf16 if bf16 else torch.matmul)
     ins, _, _ = layer_dims(cfg, ws)
     L, skip = len(ws), _skip_layers(cfg, len(ws))
     inv_sqrt2 = 1.0 / math.sqrt(2.0)
@@ -297,27 +310,62 @@ def geometry_bwd_plain(ws: Sequence[torch.Tensor],
     return ct_x, dws, dbs
 
 
-def weight_grad_pass_plain(operands: dict, tiles_per_chunk: int
+# K1-bwd's sweep (csrc/geometry_bwd_wg.cu): each slab of 32 k summed into
+# a fresh wgmma accumulator (toward zero), then added to the running sum
+# with a rounded add; its pass: each 32-row stage the same way
+WGF_SWEEP_STAGE = 32
+WGF_PASS_STAGE = 32
+
+
+def sweep_mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as K1-bwd's sweep computes a product (geometry_bwd_plain's
+    ``mm``): a, the layer input from the A tile, split by the tensor core's
+    truncation (small made beside it); b, the weights, pre-split by the
+    packer (rounded); 3xTF32 a k-step, a rounded add every slab."""
+    return TP.mm_3xtf32(a, b, WGF_SWEEP_STAGE, "trunc", "round")
+
+
+def _tile_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The stacked rows of a (primal) and b (tangent) [n, C] in the order
+    of K1-bwd's tiles: tile after tile of WG_POINTS points, in each warp's
+    16 rows its 8 points' primal rows, then their tangent rows; the points
+    padded with zero rows to whole tiles."""
+    n, T = a.shape[0], -(-a.shape[0] // WG_POINTS)
+    pad = lambda v: torch.cat([v, v.new_zeros(T * WG_POINTS - n, v.shape[1])])
+    return torch.stack([pad(a).view(T, 4, 8, -1), pad(b).view(T, 4, 8, -1)],
+                       2).reshape(T * 2 * WG_POINTS, -1)
+
+
+def weight_grad_pass_plain(operands: dict, tiles_per_chunk: int,
+                           f32: bool = False
                            ) -> Tuple[List[torch.Tensor],
                                       List[torch.Tensor]]:
-    """K1-bwd-bf16's weight-gradient pass in plain PyTorch, on the
-    operands geometry_bwd_plain(bf16=True, operands=...) recorded: (dW
-    per layer [out, in], db per layer).  The points are cut into chunks
-    of ``tiles_per_chunk`` tiles of WG_POINTS; dW_l is the sum, chunk
-    after chunk, of [x_l; xd_l]^T [r_l; rd_l] over the chunk's stacked
-    rows, on bf16-rounded operands with an f32 sum (pallas_geometry's
-    stacked dot_at); db_l the f32 sum of r_l, rounded to nothing."""
+    """A wgmma backward's weight-gradient pass in plain PyTorch, on the
+    operands geometry_bwd_plain(operands=...) recorded: (dW per layer
+    [out, in], db per layer).  The points are cut into chunks of
+    ``tiles_per_chunk`` tiles of WG_POINTS; dW_l is the sum, chunk after
+    chunk, of [x_l; xd_l]^T [r_l; rd_l] over the chunk's stacked rows: on
+    bf16-rounded operands with an f32 sum (K1-bwd-bf16, pallas_geometry's
+    stacked dot_at), or (``f32``: K1-bwd's) in 3xTF32 on both operands as
+    the tensor core reads them from the images, the rows in the tiles'
+    order, each 32-row stage into a fresh accumulator added to the chunk's
+    sum with a rounded add; db_l the f32 sum of r_l."""
     L = len(operands)
     dws, dbs = [], []
     for l in range(L):
         xl, xdl, r, rd = operands[l]
-        step = WG_POINTS * tiles_per_chunk
+        if f32:
+            x2, r2 = _tile_rows(xl, xdl), _tile_rows(r, rd)
+        step = (2 if f32 else 1) * WG_POINTS * tiles_per_chunk
         dw = None
-        for c0 in range(0, xl.shape[0], step):
+        for c0 in range(0, (x2 if f32 else xl).shape[0], step):
             c = slice(c0, c0 + step)
-            x2 = torch.cat([xl[c], xdl[c]])
-            r2 = torch.cat([r[c], rd[c]])
-            part = mm_bf16(r2.t(), x2)
+            if f32:
+                part = TP.mm_3xtf32(x2[c].t(), r2[c], WGF_PASS_STAGE,
+                                    "trunc", "trunc").t()
+            else:
+                part = mm_bf16(torch.cat([r[c], rd[c]]).t(),
+                               torch.cat([xl[c], xdl[c]]))
             dw = part if dw is None else dw + part
         dws.append(dw)
         dbs.append(r.sum(0))
@@ -408,25 +456,80 @@ WG_BLOCK = 8192
 WG_DB_ROW = 264
 
 
-def make_bwd_slabs(cfg, ws: Sequence[torch.Tensor]):
-    """K1-bwd-bf16's two slab packs of ws: (pack_sweep_bf16's, the
-    forward X W, also K2-bf16's; pack_rev_bf16's, the reverse r W)."""
+def make_bwd_slabs(cfg, ws: Sequence[torch.Tensor], bf16: bool = True):
+    """The two slab packs of ws that a wgmma backward reads: K1-bwd-bf16's
+    (pack_sweep_bf16's, the forward X W, also K2-bf16's; pack_rev_bf16's,
+    the reverse r W), or with ``bf16`` False K1-bwd's (pack_sweep_f32's,
+    pack_rev_f32's: TF32 big and small halves)."""
+    if not bf16:
+        skip = sorted(skip_layers(cfg, len(ws)))
+        return (TP.pack_sweep_f32(ws, skip, cfg.d_embed),
+                TP.pack_rev_f32(ws, cfg.d_embed))
     return make_sweep_pack(cfg, ws), TP.pack_rev_bf16(ws, cfg.d_embed)
 
 
 def wg_backward(stash: Optional[bool] = None,
                 stacked: Optional[bool] = None) -> bool:
-    """Whether geometry's bf16 mode takes its backward through
-    K1-bwd-bf16, which reads make_bwd_slabs' packs: not through the stash
-    pair (``stash``, default STASH_BWD) and stacked (``stacked``, default
-    STACKED_BWD)."""
+    """Whether geometry takes its backward through a wgmma kernel (K1-bwd,
+    or K1-bwd-bf16 in the bf16 mode), which reads make_bwd_slabs' packs:
+    not through the stash pair (``stash``, default STASH_BWD) and stacked
+    (``stacked``, default STACKED_BWD)."""
     return (not (STASH_BWD if stash is None else stash)
             and (STACKED_BWD if stacked is None else bool(stacked)))
 
 
+# K1-bwd (csrc/geometry_bwd_wg.cu): a weight-gradient slot row (FW_SN), the
+# sweep's shared memory (its ring of two 64 KB slab stages, the 64 KB A
+# tile, the encoding tiles, the barriers)
+WGF_SLOT_COLS = 136
+WGF_SWEEP_SMEM = 1024 + 2 * 65536 + 65536 + 2 * WG_POINTS * 2 * 48 * 4 + 32
+
+
+def _bwd_wgf_plan(cfg, ws, n: int, slabs, sms: int) -> dict:
+    """K1-bwd's launch (bwd_wg_plan for make_bwd_slabs(bf16=False)'s
+    packs): the sweep, a block of two consumer warpgroups a tile, one
+    persistent block a tile up to one a SM; the weight-gradient pass,
+    ``units`` (a layer, a pair of 64-column X blocks, a 128-column R half)
+    times ``chunks`` of ``per`` tiles."""
+    ins, outs, _ = layer_dims(cfg, ws)
+    (_, flay), (_, rlay) = slabs
+    if flay != TP.sweep_layout_f32(ins, outs, skip_layers(cfg, len(ws)),
+                                   cfg.d_embed) or \
+            rlay != TP.rev_layout_f32(ins, outs, cfg.d_embed):
+        raise ValueError("K1-bwd: the slab packs' layouts do not match the "
+                         "network's widths")
+    L = len(ws)
+    tiles = -(-n // WG_POINTS)
+    grid = min(tiles, sms)
+    cx = [64] + [256] * (L - 1)
+    cr = [264 if o > 256 else 256 for o in outs]
+    units = sum(2 * -(-c // 128) for c in cx)
+    per = -(-tiles // max(1, sms // units))
+    chunks = -(-tiles // per)
+    img = tiles * 4 * sum(2 * x * 32 + 2 * r * 32 for x, r in zip(cx, cr))
+    stage = max(2 * (r - 128 if h else 128) * 128 + min(128, x - 128 * p) * 128
+                for x, r in zip(cx, cr) for p in range(-(-x // 128))
+                for h in (0, 1))
+    stage = -(-stage // 1024) * 1024
+    wns = min(8, (TP.SMEM_MAX - 1024) // (stage + 24))
+    iargs = [L, cfg.multires, cfg.d_embed, n, grid, tiles, chunks, per,
+             *ins, *outs, *flay.enc[:-1], 0, *flay.off[:-1], 0, *rlay.off,
+             *rlay.cols]
+    return {"iargs": iargs, "grid": grid, "nc": 2, "n_pass": tiles,
+            "units": units, "chunks": chunks, "per": per,
+            "sweep_smem": WGF_SWEEP_SMEM,
+            "wgrad_smem": 1024 + wns * (stage + 24), "tiles": tiles,
+            "scratch_floats": grid * (L - 1) * 16 * 256 * 4,
+            "image_bytes": img,
+            "db_floats": grid * 4 * L * WG_DB_ROW,
+            "slot_floats": units * chunks * 2 * 64 * WGF_SLOT_COLS}
+
+
 def bwd_wg_plan(cfg, ws, n: int, slabs, sms: int) -> dict:
-    """K1-bwd-bf16's launch: its integer arguments (``iargs``,
-    geometry_bwd_bf16_wg.cu) and the sizes of what the wrapper allocates.
+    """A wgmma backward's launch: its integer arguments (``iargs``,
+    geometry_bwd_bf16_wg.cu, or for K1-bwd's f32 slab packs
+    geometry_bwd_wg.cu, _bwd_wgf_plan) and the sizes of what the wrapper
+    allocates.
     The sweep: tiles of WG_POINTS points, two consumer warpgroups a block
     when there are more tiles than SMs, else one; one persistent block a
     pass up to one a SM.  The weight-gradient pass: ``units`` (a layer
@@ -435,11 +538,12 @@ def bwd_wg_plan(cfg, ws, n: int, slabs, sms: int) -> dict:
     ``slabs`` holds make_bwd_slabs' layouts for ws."""
     ins, outs, _ = layer_dims(cfg, ws)
     (_, flay), (_, rlay) = slabs
-    if not (isinstance(flay, TP.SweepLayout) and flay.operand == "wgmma-bf16"
-            and isinstance(rlay, TP.SweepLayout)
-            and rlay.operand == "wgmma-bf16-rev"):
-        raise ValueError("K1-bwd-bf16 multiplies on wgmma: it takes "
-                         "make_bwd_slabs' two slab packs")
+    ops = tuple(getattr(lay, "operand", None) for lay in (flay, rlay))
+    if ops == ("wgmma-f32", "wgmma-f32-rev"):
+        return _bwd_wgf_plan(cfg, ws, n, slabs, sms)
+    if ops != ("wgmma-bf16", "wgmma-bf16-rev"):
+        raise ValueError("K1-bwd and K1-bwd-bf16 multiply on wgmma: they "
+                         "take make_bwd_slabs' two slab packs")
     want = TP.sweep_layout(ins, outs, skip_layers(cfg, len(ws)), cfg.d_embed)
     if (flay.enc, flay.nslab, flay.off, flay.cols[:-1]) != (
             want.enc, want.nslab, want.off, want.cols[:-1]) or \
@@ -477,14 +581,20 @@ def bwd_wg_plan(cfg, ws, n: int, slabs, sms: int) -> dict:
             "slot_floats": units * chunks * 2 * WG_SLOT_ROWS * 128 * 4}
 
 
-def _launch_backward_wg(cfg, x, ws, bs, ct_out, ct_grad, slabs):
-    """K1-bwd-bf16 on make_bwd_slabs' packs."""
-    kernel = K1_BWD_BF16
+def _launch_backward_wg(cfg, x, ws, bs, ct_out, ct_grad, slabs,
+                        bf16: bool = True):
+    """K1-bwd-bf16 (``bf16``) or K1-bwd on make_bwd_slabs' packs of the
+    mode."""
+    kernel = K1_BWD_BF16 if bf16 else K1_BWD
     dev = x.device
     if slabs is None:
-        raise ValueError("K1-bwd-bf16 reads make_bwd_slabs' packs, built "
-                         "once a step by SDFNetwork.kernel_weights: none "
-                         "was given")
+        raise ValueError(f"{kernel.name} reads make_bwd_slabs' packs, built "
+                         f"once a step by SDFNetwork.kernel_weights: none "
+                         f"was given")
+    want = "wgmma-bf16" if bf16 else "wgmma-f32"
+    if getattr(slabs[0][1], "operand", None) != want:
+        raise ValueError(f"{kernel.name} multiplies on {want} slabs: it "
+                         f"takes no other pack")
     (fp, _), (rp, _) = slabs
     bs_c = [b.detach().contiguous() for b in bs]
     x = x.detach().contiguous()
@@ -565,12 +675,12 @@ def launch_backward(cfg, x, ws, bs, ct_out, ct_grad, pack=None,
                     ) -> Tuple[torch.Tensor, List[torch.Tensor],
                                List[torch.Tensor]]:
     """K1-bwd (bf16: K1-bwd-bf16): (ct_x [N, 3], dW per layer [out, in],
-    db per layer [out]).  ``pack``: make_pack(ws) for K1-bwd,
-    make_bwd_slabs(cfg, ws) for K1-bwd-bf16 (which raises without it)."""
-    if bf16:
-        return _launch_backward_wg(cfg, x, ws, bs, ct_out, ct_grad, pack)
-    return _launch_backward("bwd", cfg, x, ws, bs, None, ct_out, ct_grad,
-                            pack, bf16)
+    db per layer [out]).  ``pack``: make_bwd_slabs(cfg, ws, bf16), which
+    K1-bwd-bf16 raises without and K1-bwd builds here when it is None."""
+    if pack is None and not bf16:
+        with torch.no_grad():
+            pack = make_bwd_slabs(cfg, ws, bf16=False)
+    return _launch_backward_wg(cfg, x, ws, bs, ct_out, ct_grad, pack, bf16)
 
 
 def launch_backward_split(cfg, x, ws, bs, ct_out, ct_grad, pack=None,
@@ -598,8 +708,8 @@ class GeometryFn(torch.autograd.Function):
     cotangents through K1-bwd, or K1-bwd-split when not ``stacked``; in
     the bf16 mode through their bf16 kernels.  ``pack``: make_pack(ws,
     bf16), built without grad by the caller; ``slabs``:
-    make_bwd_slabs(cfg, ws), the packs of K1-bwd-bf16 (the bf16 mode,
-    stacked), saved here for the backward.  On a CPU tensor (``pack``
+    make_bwd_slabs(cfg, ws, bf16), the packs of K1-bwd or K1-bwd-bf16
+    (stacked), saved here for the backward.  On a CPU tensor (``pack``
     None) the bf16 mode runs the explicit twins; the f32 mode does not
     come here on the CPU (geometry_plain differentiates itself)."""
 
@@ -622,9 +732,9 @@ class GeometryFn(torch.autograd.Function):
         x, pack, *params = ctx.saved_tensors
         L = len(params) // 2
         ws, bs = params[:L], params[L:]
-        if x.is_cuda and ctx.bf16 and ctx.stacked:
+        if x.is_cuda and ctx.stacked:
             ct_x, dws, dbs = _launch_backward_wg(ctx.cfg, x, ws, bs, ct_out,
-                                                 ct_grad, ctx.slabs)
+                                                 ct_grad, ctx.slabs, ctx.bf16)
         elif x.is_cuda:
             launch = launch_backward if ctx.stacked else launch_backward_split
             ct_x, dws, dbs = launch(ctx.cfg, x, ws, bs, ct_out, ct_grad,
@@ -682,8 +792,9 @@ def geometry(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
     STACKED_BWD) and K1-bwd-split when not; ``bf16``: in the bf16 operand
     mode, each through its bf16 kernel.  ``pack``: make_pack(ws, bf16)
     when the caller already has it (on a CUDA tensor; built here if not).
-    ``slabs``: make_bwd_slabs(cfg, ws), which a backward through
-    K1-bwd-bf16 reads (on a CUDA tensor with grad enabled, the bf16 mode
+    ``slabs``: make_bwd_slabs(cfg, ws, bf16), which a backward through
+    K1-bwd or K1-bwd-bf16 reads (on a CUDA tensor, where a backward can
+    follow, i.e. with grad enabled and x or a weight requiring it, it
     raises without them where wg_backward(stash, stacked))."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"geometry: unsupported device {x.device}")
@@ -694,9 +805,10 @@ def geometry(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
         return GeometryStashFn.apply(cfg, bf16, pack, x, *ws, *bs)
     if x.is_cuda or bf16:
         stacked = STACKED_BWD if stacked is None else bool(stacked)
-        if (x.is_cuda and bf16 and stacked and slabs is None
-                and torch.is_grad_enabled()):
-            raise ValueError("geometry: the bf16 mode's backward reads "
+        if (x.is_cuda and stacked and slabs is None
+                and torch.is_grad_enabled()
+                and any(t.requires_grad for t in (x, *ws, *bs))):
+            raise ValueError("geometry: the stacked backward reads "
                              "make_bwd_slabs' packs (slabs=)")
         return GeometryFn.apply(cfg, stacked, bf16, pack, slabs, x, *ws,
                                 *bs)

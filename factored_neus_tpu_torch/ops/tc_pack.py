@@ -63,18 +63,30 @@ def _toward_zero(t: torch.Tensor) -> torch.Tensor:
                        torch.nextafter(r, torch.zeros_like(r)), r)
 
 
+def _split(x: torch.Tensor, how: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) of float32 x: big rounded to TF32 (``round``, the
+    packer's and tc_mma.cuh's split) or its 13 low mantissa bits dropped
+    (``trunc``: the tensor core's own reading of an f32 operand in shared
+    memory, with small = x - big made beside it); small exact in f32."""
+    big = tf32_round(x) if how == "round" else tf32_truncate(x)
+    return big, x - big
+
+
 def mm_3xtf32(a: torch.Tensor, b: torch.Tensor,
-              stage: Optional[int] = 16) -> torch.Tensor:
+              stage: Optional[int] = 16, a_split: str = "round",
+              b_split: str = "round") -> torch.Tensor:
     """a [M, K] @ b [K, N] (float32) as the tensor-core kernels compute it: each
     operand split into TF32 big and small, small_a big_b + big_a small_b +
-    big_a big_b per m16n8k8 instruction (8 k at a time, the products summed
-    exactly, the tensor core reading only the TF32 bits of each small), each
-    instruction's sum added to a float32 accumulator rounding toward zero;
-    every ``stage`` k (a ring stage of 16 weight rows, or the 64 rows of a
-    weight-gradient tile) the accumulator is added to the running float32
-    sum with a rounded add.  ``stage=None``: one accumulator over all k."""
-    ab, as_ = tf32_split(a.float().contiguous())
-    bb, bs = tf32_split(b.float().contiguous())
+    big_a big_b per 8-k instruction (m16n8k8 mma.sync or m64nNk8 wgmma: the
+    products summed exactly, the tensor core reading only the TF32 bits of
+    each small), each instruction's sum added to a float32 accumulator
+    rounding toward zero; every ``stage`` k (a ring stage of 16 weight rows,
+    the 64 rows of a weight-gradient tile, the 32 rows of a wgmma pass
+    stage) the accumulator is added to the running float32 sum with a
+    rounded add.  ``stage=None``: one accumulator over all k.  ``a_split``,
+    ``b_split``: each operand's split (_split), ``round`` or ``trunc``."""
+    ab, as_ = _split(a.float().contiguous(), a_split)
+    bb, bs = _split(b.float().contiguous(), b_split)
     terms = [(tf32_truncate(as_).double(), bb.double()),
              (ab.double(), tf32_truncate(bs).double()),
              (ab.double(), bb.double())]
@@ -687,3 +699,164 @@ def rad_block(pack: torch.Tensor, lay: SweepLayout, l: int) -> torch.Tensor:
         return torch.cat([_read_slabs(pack, lay.off[0], 4, HIDDEN_COLS),
                           _read_slabs(pack, narrow, 4, ENC_COLS)], 1)
     return sweep_block(pack, lay, l)
+
+
+# -- K1-bwd's f32 packs: TF32 big and small slabs for wgmma ------------------
+
+F32_SLAB_K = 32            # k rows of an f32 slab: one 128-byte row of f32
+
+
+def tf32_slot(c: np.ndarray) -> np.ndarray:
+    """The k slot of column (or row) c in K1-bwd's f32 tiles and slabs:
+    within each group of 8, slot t holds 2t and slot t + 4 holds 2t + 1,
+    the order in which wgmma's accumulator holds a thread's columns, so a
+    layer's result is the next product's A fragment as it stands
+    (csrc/wgmma.cuh).  A permutation of each group of 8."""
+    c = np.asarray(c)
+    return (c & ~7) + ((c & 7) >> 1) + ((c & 1) << 2)
+
+
+def swizzle32(e: np.ndarray) -> np.ndarray:
+    """f32 index within a slab part of plain index e = n * 32 + k: the
+    128-byte swizzle, 16-byte chunk (k // 4) ^ (n % 8).  Its own
+    inverse."""
+    return e ^ (((e >> 5) & 7) << 2)
+
+
+def sweep_layout_f32(ins: Sequence[int], outs: Sequence[int],
+                     skip_layers: Sequence[int], d_embed: int) -> SweepLayout:
+    """The slab layout of pack_sweep_f32, the forward X W of K1-bwd: layer
+    l < L - 1's W^T with k its input in W's own column order (a skip
+    layer's [h | enc]) at tf32_slot(k), zero-padded to 64 k (layer 0, the
+    encoding) or 256 (the others); ``nslab[l]`` slabs of F32_SLAB_K k,
+    each HIDDEN_COLS columns, its big half then its small half (2 x 32 KB);
+    the last layer has none (``nslab`` 0).  ``enc[l]``: layer l reads the
+    encoding (layer 0, a skip layer).  Raises for a network K1-bwd cannot
+    run."""
+    L = len(ins)
+    if L < 2 or ins[0] != d_embed or d_embed > ENC_COLS or \
+            any(i > HIDDEN_COLS for i in ins[1:]) or \
+            any(o > HIDDEN_COLS for o in outs[:-1]) or \
+            outs[-1] > HIDDEN_COLS + REV_LAST_EXTRA or L - 1 in skip_layers:
+        raise ValueError(f"K1-bwd takes two layers or more, an encoding <= "
+                         f"{ENC_COLS} wide, hidden widths <= {HIDDEN_COLS}, "
+                         f"a last layer <= {HIDDEN_COLS + REV_LAST_EXTRA} "
+                         f"and no skip into it")
+    enc, nslab, cols, off, pos = [], [], [], [], 0
+    for l in range(L):
+        enc.append(int(l == 0 or l in skip_layers))
+        nslab.append(0 if l == L - 1 else 2 if l == 0 else 8)
+        cols.append(HIDDEN_COLS)
+        off.append(pos)
+        pos += nslab[-1] * 2 * HIDDEN_COLS * SLAB_ROW
+    return SweepLayout(enc, nslab, cols, off, pos, "wgmma-f32")
+
+
+def rev_layout_f32(ins: Sequence[int], outs: Sequence[int],
+                   d_embed: int) -> SweepLayout:
+    """The slab layout of pack_rev_f32, the reverse r W of K1-bwd: layer
+    l's W with k its output at tf32_slot(k) and n its input: eight slabs
+    of F32_SLAB_K outputs (zero-padded to 256) and a ninth for a last
+    layer of 257-264 outputs (its first k-step read), each ENC_COLS
+    columns wide for layer 0 and HIDDEN_COLS for the others, big half then
+    small half.  Raises as sweep_layout_f32."""
+    sweep_layout_f32(ins, outs, (), d_embed)
+    L = len(ins)
+    nslab, cols, off, pos = [], [], [], 0
+    for l in range(L):
+        nslab.append(HIDDEN_COLS // F32_SLAB_K + int(outs[l] > HIDDEN_COLS))
+        cols.append(ENC_COLS if l == 0 else HIDDEN_COLS)
+        off.append(pos)
+        pos += nslab[-1] * 2 * cols[-1] * SLAB_ROW
+    return SweepLayout([0] * L, nslab, cols, off, pos, "wgmma-f32-rev")
+
+
+def _f32_elems(start: int, cols: int, k: np.ndarray, n: np.ndarray,
+               small: bool) -> np.ndarray:
+    """f32 element of (k slot k, column n) in f32 slabs of ``cols`` columns
+    from element ``start`` on (a slab a F32_SLAB_K slots: big part, then
+    small part)."""
+    return (start + (k // F32_SLAB_K) * 2 * cols * F32_SLAB_K
+            + int(small) * cols * F32_SLAB_K
+            + swizzle32(n * F32_SLAB_K + k % F32_SLAB_K))
+
+
+@functools.lru_cache(maxsize=16)
+def _f32_sources(ins: Tuple[int, ...], outs: Tuple[int, ...],
+                 skip_layers: Tuple[int, ...], d_embed: int, reverse: bool,
+                 device: torch.device
+                 ) -> Tuple[torch.Tensor, torch.Tensor, SweepLayout]:
+    """For each f32 element of pack_sweep_f32's (``reverse`` False) or
+    pack_rev_f32's pack, the index of its weight in the weights flattened
+    one after another (each [out, in] row-major), or the index one past
+    them (a zero), and whether it is the weight's small half; on
+    ``device``, built once."""
+    lay = (rev_layout_f32(ins, outs, d_embed) if reverse else
+           sweep_layout_f32(ins, outs, skip_layers, d_embed))
+    zero = sum(i * o for i, o in zip(ins, outs))
+    src = np.full(lay.nbytes // 4, zero, np.int64)
+    small = np.zeros(lay.nbytes // 4, bool)
+    base = 0
+    for l, (i, o) in enumerate(zip(ins, outs)):
+        if lay.nslab[l]:
+            o_idx = np.arange(o)[:, None]                    # [out, 1]
+            i_idx = np.arange(i)[None, :]                    # [1, in]
+            k, n = ((tf32_slot(o_idx), i_idx) if reverse
+                    else (tf32_slot(i_idx), o_idx))
+            for half in (False, True):
+                e = _f32_elems(lay.off[l] // 4, lay.cols[l], k, n, half)
+                e = np.broadcast_to(e, (o, i)).ravel()
+                src[e] = base + np.arange(o * i)
+                small[e] = half
+        base += i * o
+    return (torch.from_numpy(src).to(device),
+            torch.from_numpy(small).to(device), lay)
+
+
+def _pack_f32(ws: Sequence[torch.Tensor], skip_layers: Sequence[int],
+              d_embed: int, reverse: bool) -> Tuple[torch.Tensor, SweepLayout]:
+    if any(w.dtype != torch.float32 for w in ws):
+        raise ValueError("the tensor-core kernels take float32 weights")
+    ins = tuple(int(w.shape[1]) for w in ws)
+    outs = tuple(int(w.shape[0]) for w in ws)
+    dev = ws[0].device
+    idx, small, lay = _f32_sources(ins, outs, tuple(sorted(skip_layers)),
+                                   d_embed, reverse, dev)
+    src = torch.cat([w.detach().reshape(-1) for w in ws]
+                    + [torch.zeros(1, device=dev)])
+    big, sm = tf32_split(src)
+    return torch.where(small, sm[idx], big[idx]), lay
+
+
+def pack_sweep_f32(ws: Sequence[torch.Tensor], skip_layers: Sequence[int],
+                   d_embed: int) -> Tuple[torch.Tensor, SweepLayout]:
+    """K1-bwd's forward pack of an SDF network (effective weights ws,
+    layer 0 and ``skip_layers`` reading the encoding): every hidden layer's
+    W^T split into TF32 big (rounded to nearest, ties away) and small (W -
+    big, exact), in sweep_layout_f32's slabs, each half the
+    128-byte-swizzled image one bulk copy lands in shared memory
+    (swizzle32), zero in the padding.  big + small is W exactly."""
+    return _pack_f32(ws, skip_layers, d_embed, False)
+
+
+def pack_rev_f32(ws: Sequence[torch.Tensor], d_embed: int
+                 ) -> Tuple[torch.Tensor, SweepLayout]:
+    """K1-bwd's reverse pack: every layer's W (k its output, n its input)
+    split as pack_sweep_f32's, in rev_layout_f32's slabs."""
+    return _pack_f32(ws, (), d_embed, True)
+
+
+def f32_block(pack: torch.Tensor, lay: SweepLayout, l: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Layer l of an f32 slab pack read back through the swizzle's
+    inverse: (big, small), each the float32 [32 nslab, cols] block (k slot
+    by n) that its products multiply."""
+    nslab, cols = lay.nslab[l], lay.cols[l]
+    sw = torch.from_numpy(swizzle32(np.arange(cols * F32_SLAB_K))).to(
+        pack.device)
+    first = lay.off[l] // 4
+    slabs = pack[first:first + nslab * 2 * cols * F32_SLAB_K].view(
+        nslab, 2, cols * F32_SLAB_K)[:, :, sw]
+    blk = slabs.view(nslab, 2, cols, F32_SLAB_K).permute(1, 0, 3, 2)
+    blk = blk.reshape(2, nslab * F32_SLAB_K, cols)
+    return blk[0], blk[1]

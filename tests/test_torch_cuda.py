@@ -626,6 +626,69 @@ def test_k1_bwd_bf16_wgmma_matches_twin(cuda_device, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [65536, 9001])
+def test_k1_bwd_wgmma_f32_matches_f64_twin(cuda_device, n):
+    """K1-bwd (csrc/geometry_bwd_wg.cu, 3xTF32 on wgmma) at full width,
+    the step's 65,536 points and a ragged 9,001, against the f64 twin at
+    chip_smoke.check_vjp's bound, two launches bitwise equal; a bf16 slab
+    pack is refused, and the f32 slab packs are built when none is
+    given."""
+    cfg = SDFConfig()
+    net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(cuda_device)
+    with torch.no_grad():
+        ws, bs = net.effective_weights()
+    ws, bs = list(ws), list(bs)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(n, 3, device=cuda_device, generator=gen) * 0.5
+    ct_out = torch.randn(n, ws[-1].shape[0], device=cuda_device,
+                         generator=gen)
+    ct_g = torch.randn(n, 3, device=cuda_device, generator=gen)
+    flat = lambda r: [r[0], *r[1], *r[2]]
+    slabs = GK.make_bwd_slabs(cfg, ws, bf16=False)
+    got = flat(GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g, slabs))
+    again = flat(GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g))
+    ref = [t.float() for t in flat(GK.geometry_bwd_plain(
+        [w.double() for w in ws], [b.double() for b in bs], x.double(),
+        ct_out.double(), ct_g.double(), cfg))]
+    twin = flat(GK.geometry_bwd_plain(ws, bs, x, ct_out, ct_g, cfg))
+    L = len(ws)
+    names = ["ct_x"] + [f"dW{l}" for l in range(L)] + [
+        f"db{l}" for l in range(L)]
+    chip_smoke.check_vjp(f"K1-bwd N={n}", got, ref, twin, names)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    with pytest.raises(ValueError, match="wgmma-f32"):
+        GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g,
+                           GK.make_bwd_slabs(cfg, ws))
+
+
+@pytest.mark.gpu
+def test_f32_mode_builds_the_f32_slabs(cuda_device):
+    """kernel_weights() with grad on carries K1-bwd's two f32 slab packs
+    (sweep32, rev32), which value_grad_feat hands to the backward: one
+    K1-fwd and one K1-bwd launch; without grad, or with every parameter
+    frozen, none is built, and geometry() without them raises where a
+    backward can follow."""
+    cfg, _, _, x = _net(CASES[0], cuda_device)
+    net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(cuda_device)
+    weights = net.kernel_weights()
+    assert weights.sweep32[1].operand == "wgmma-f32"
+    assert weights.rev32[1].operand == "wgmma-f32-rev"
+    assert weights.rev16 is None and weights.pack[1].operand == "3xtf32"
+    with torch.no_grad():
+        assert net.kernel_weights().rev32 is None
+    kernels = (GK.K1_FWD, GK.K1_BWD, GK.K1_BWD_BF16)
+    before = [k.launches for k in kernels]
+    s, f, g = net.value_grad_feat(x, weights)
+    (((g.norm(dim=-1) - 1) ** 2).mean() + (f ** 2).mean()
+     + s.abs().mean()).backward()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 0]
+    with pytest.raises(ValueError, match="slabs"):
+        GK.geometry(weights.ws, weights.bs, x, cfg, pack=weights.pack)
+    net.requires_grad_(False)
+    assert net.kernel_weights().rev32 is None
+
+
+@pytest.mark.gpu
 def test_bf16_mode_launches_the_bf16_kernels(cuda_device):
     """value_grad_feat(bf16=True) through autograd: one K1-fwd-bf16 launch
     on the bf16 pack of kernel_weights(bf16=True) and one K1-bwd-bf16 on
@@ -790,10 +853,11 @@ def test_bf16_switches_launch_the_bf16_kernels(cuda_device):
     weights = geo.kernel_weights(True, True)
     assert [w[2] is None for w in weights] == [True, True]
     assert [w[3][1].operand for w in weights] == ["bf16", "bf16"]
-    assert [w[1].operand for w in weights[1][4:]] == [
+    assert [w[1].operand for w in weights[1][4:6]] == [
         "wgmma-bf16-rad", "wgmma-bf16-rad-rev"]
+    assert weights[1][6:] == (None, None)
     with torch.no_grad():
-        assert geo.kernel_weights(True, True)[1][4:] == (None, None)
+        assert geo.kernel_weights(True, True)[1][4:] == (None,) * 4
     before = [k.launches for k in kernels]
     out = TR.render(geo, cfg, o, d, near, far, weights=weights)
     (out["color_fine"].sum() + out["gradient_error"].sum()).backward()

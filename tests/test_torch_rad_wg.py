@@ -248,7 +248,7 @@ def test_kernel_weights_build_no_slabs_on_the_cpu():
     cfg, _ = _net("1 x 64")
     net = RenderingNetwork(cfg, torch.Generator().manual_seed(0))
     weights = net.kernel_weights(bf16=True, f32=False)
-    assert weights[2:] == (None, None, None, None)
+    assert weights[2:] == (None,) * (len(weights) - 2)
     rng = np.random.RandomState(0)
     inputs = [torch.from_numpy(rng.randn(70, d).astype(np.float32))
               for d in (3, 3, 3, cfg.d_feature)]

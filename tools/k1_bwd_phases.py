@@ -1,7 +1,23 @@
 #!/usr/bin/env python3
-"""Per-phase time of K1-bwd and K1-fwd (csrc/geometry_{bwd,fwd}.cu) on a GPU.
+"""Per-phase time of K1-bwd and K1-fwd (csrc/geometry_{bwd_wg,bwd,fwd}.cu)
+on a GPU.
 
-    python3 tools/k1_bwd_phases.py [--root DIR] [--bf16 [--clocks]]
+    python3 tools/k1_bwd_phases.py [--root DIR] [--bf16] [--clocks]
+
+K1-bwd in f32 runs on wgmma in 3xTF32 (geometry_bwd_wg.cu: a stacked
+sweep, a split-K weight-gradient pass, a reduce), on its two f32 slab
+packs, with these cuts:
+- ``no_products``: without every wgmma of the sweep and the pass;
+- ``no_wgrad_pass``: the weight-gradient pass not launched;
+- ``no_images``: the sweep writes no X_l / R_l image (the pass reads
+  stale ones);
+- ``no_scratch``: the sweep neither writes nor reads its f32 scratch;
+- ``no_slabs``: the sweep's producer copies no weight slab (each stage
+  is marked full at once: the products read stale slabs);
+``--clocks``: ``all`` and ``no_products`` also run back to back while
+nvidia-smi samples the SM clock and the power draw.  A version of DIR
+without geometry_bwd_wg.cu (K1-bwd on mma.sync, geometry_bwd.cuh) gets
+the cuts below instead.
 
 Builds copies of DIR's factored_neus_tpu_torch/csrc kernels (default: this
 checkout) into build/phases/, each with one phase cut out, and times them
@@ -101,6 +117,26 @@ CUTS_WG = {
 ORDER_WG = ["all", "no_products", "no_wgrad_pass", "no_images",
             "no_scratch", "no_softplus", "all"]
 CLOCKED = ("all", "no_products", "no_softplus")
+# K1-bwd on wgmma in 3xTF32: (files, regular expression, replacement)
+WGF = "geometry_bwd_wg.cu"
+CUTS_WGF = {
+    "all": [],
+    "no_products": [((WGF,), r"tf32_mma(?:_ss)?<N>\([^;]*;", ";"),
+                    ((WGF,), r"wgmma_tf32_(?:ss_)?n(?:128|8)\(acc8?,[^;]*;",
+                     ";")],
+    "no_wgrad_pass": [((WGF,), r"geometry_bwd_wgf_wgrad<<<[^;]*;", ";")],
+    "no_images": [((WGF,), r"(?:im|x0)\[img_at\([^;]*;", ";")],
+    "no_scratch": [((WGF,), r"sl\[q \* 256\] = make_float4[^;]*;", ";"),
+                   ((WGF,), r"const float4 v = sl\[q \* 256\];",
+                    "const float4 v = make_float4(0.5f, 0.5f, 1.f, 1.f);"),
+                   ((WGF,), r"l2_prefetch_if\([^;]*;", ";")],
+    "no_slabs": [((WGF,), r"mbar_expect_tx\(full \+ st, bytes\);\s*"
+                  r"bulk_g2s\(ring \+ st \* FW_STAGE[^;]*;",
+                  "mbar_arrive_if(full + st, 1);")],
+}
+ORDER_WGF = ["all", "no_products", "no_wgrad_pass", "no_images",
+             "no_scratch", "no_slabs", "all"]
+CLOCKED_WGF = ("all", "no_products")
 
 
 def build_cut(root: str, src: str, cuts: dict, name: str) -> dict:
@@ -143,10 +179,12 @@ def build_cut(root: str, src: str, cuts: dict, name: str) -> dict:
     return libs
 
 
-def build_wg(root: str) -> dict:
-    """The cut copies of K1-bwd-bf16 on wgmma (CUTS_WG), where DIR has
-    it: {phase: library}."""
-    return build_cut(root, WG, CUTS_WG, "geometry_bwd_bf16_wg")
+def build_wg(root: str, bf16: bool = True) -> dict:
+    """The cut copies of K1-bwd-bf16 (CUTS_WG) or of K1-bwd (CUTS_WGF) on
+    wgmma, where DIR has it: {phase: library}."""
+    if bf16:
+        return build_cut(root, WG, CUTS_WG, "geometry_bwd_bf16_wg")
+    return build_cut(root, WGF, CUTS_WGF, "geometry_bwd_wg")
 
 
 def _bind(kernel, lib: str, symbol: str) -> None:
@@ -210,8 +248,8 @@ def main() -> int:
     root = HERE
     if args[:1] == ["--root"] and len(args) == 2:
         root = os.path.abspath(args[1])
-    elif args or (clocks and not bf16):
-        print("usage: k1_bwd_phases.py [--root DIR] [--bf16 [--clocks]]",
+    elif args:
+        print("usage: k1_bwd_phases.py [--root DIR] [--bf16] [--clocks]",
               file=sys.stderr)
         return 2
     import torch
@@ -221,10 +259,10 @@ def main() -> int:
     sys.path.insert(0, HERE)
     sys.path.insert(0, os.path.join(HERE, "tools"))
     import chip_smoke
-    libs_wg = build_wg(root) if bf16 else {}
+    libs_wg = build_wg(root, bf16)
     libs = build(root, "geometry_bwd_bf16.cu" if bf16 else BWD)
     if libs_wg:
-        # K1-bwd-bf16 is the wgmma source's: the mma.sync body's cuts do
+        # K1-bwd(-bf16) is the wgmma source's: the mma.sync body's cuts do
         # not apply to it
         libs = {k: v for k, v in libs.items() if k[0] != BWD}
     from factored_neus_tpu_torch.models.fields import SDFConfig, SDFNetwork
@@ -253,21 +291,26 @@ def main() -> int:
                          lambda: GK.launch_forward(cfg, x, ws, bs, pack,
                                                    bf16=True))}
     else:
+        slabs = (GK.make_bwd_slabs(cfg, list(ws), bf16=False) if libs_wg
+                 else None)
         kernels = {BWD: (GK.K1_BWD, "geometry_bwd",
                          lambda: GK.launch_backward(cfg, x, ws, bs, ct_out,
-                                                    ct_g)),
+                                                    ct_g, slabs)),
                    FWD: (GK.K1_FWD, "geometry_fwd",
                          lambda: GK.launch_forward(cfg, x, ws, bs))}
     times = []
     if libs_wg:
         import k2_bf16_phases
         kernel, symbol, call = kernels[BWD]
-        for phase in ORDER_WG:
+        order, clocked = ((ORDER_WG, CLOCKED) if bf16
+                          else (ORDER_WGF, CLOCKED_WGF))
+        for phase in order:
             _bind(kernel, libs_wg[phase], symbol)
             ms = chip_smoke.cuda_ms(call, 5)
             times.append({"kernel": "K1-bwd", "phase": phase, "ms": ms})
-            print(f"K1-bwd-bf16 (wgmma) {phase}: {ms:.3f} ms")
-            if clocks and phase in CLOCKED and not any(
+            print(f"K1-bwd{'-bf16' if bf16 else ''} (wgmma) {phase}: "
+                  f"{ms:.3f} ms")
+            if clocks and phase in clocked and not any(
                     "sm_mhz" in t for t in times[:-1]
                     if t["phase"] == phase):
                 times[-1].update(k2_bf16_phases.clocks_under(call, torch))

@@ -48,11 +48,14 @@ OUT = os.path.join(HERE, "build", "profile")
 STEPS = 10
 WARMUP = 5
 # device-side kernel name -> PERF.md's row (K1-fwd-stash runs K1-fwd's
-# __global__ function with its stash output switched on; the backward's
-# template arguments are its BwdMode, 0 stacked, 1 stash, 2 split, and
-# the bf16 operand mode, as K1-fwd's)
-BWD_ROWS = {"0": "K1-bwd", "1": "K1-bwd-stash", "2": "K1-bwd-split"}
-TABLE_ROWS = (("geometry_bwd_wg_sweep", "K1-bwd-bf16 (sweep)"),
+# __global__ function with its stash output switched on; the mma.sync
+# backward's template arguments are its BwdMode, 1 stash, 2 split, and the
+# bf16 operand mode, as K1-fwd's)
+BWD_ROWS = {"1": "K1-bwd-stash", "2": "K1-bwd-split"}
+TABLE_ROWS = (("geometry_bwd_wgf_sweep", "K1-bwd (sweep)"),
+              ("geometry_bwd_wgf_wgrad", "K1-bwd (weight-gradient pass)"),
+              ("geometry_bwd_wgf_reduce", "K1-bwd (reduce)"),
+              ("geometry_bwd_wg_sweep", "K1-bwd-bf16 (sweep)"),
               ("geometry_bwd_wg_wgrad", "K1-bwd-bf16 (weight-gradient pass)"),
               ("geometry_bwd_wg_reduce", "K1-bwd-bf16 (reduce)"),
               ("radiance_bwd_wg_sweep", "K3-bwd-bf16 (sweep)"),

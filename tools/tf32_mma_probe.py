@@ -23,7 +23,19 @@ k-slab each, waited on between them), and holds one m64n256 product of
 random bf16 values against the float64 product (the fragment and slab
 layouts), one m64n48 product, and the product X^T R with A and B both
 MN-major tile images in shared memory, as K1-bwd-bf16's weight-gradient
-pass (csrc/geometry_bwd_bf16_wg.cu) runs it.
+pass (csrc/geometry_bwd_bf16_wg.cu) runs it.  And the TF32 ``wgmma``
+(``m64nNk8.f32.tf32.tf32``) of K1-bwd (csrc/geometry_bwd_wg.cu), through
+csrc/wgmma.cuh's wrappers: with A from registers (the fragment {(g, t),
+(g + 8, t), (g, t + 4), (g + 8, t + 4)}) and from a K-major 128-byte
+swizzled tile in shared memory, B a K-major slab of 32 f32 k a row:
+whether it drops an f32 operand's 13 low bits as mma.sync does, how its
+accumulator rounds across k-steps and across commit groups, one m64n256
+product of random TF32 values against float64 from each A source, the
+weight-gradient pass's product X^T R with both operands laid out as the
+sweep writes its tile images, and one m64n128 product in 3xTF32 by the
+sweep's scheme (big_x read by the tensor core from the f32 tile, small_x
+= x - big_x from registers, W pre-split) against float64, beside one
+TF32 product of the same values.
 Prints one line per case and a JSON summary with the card's name and power
 limit.
 """
@@ -204,6 +216,141 @@ extern "C" int probe_wgmma_ss(const float* X, const float* R, float* D) {
   probe_wgmma_ss_kernel<<<1, 128>>>(X, R, D);
   return (int)cudaDeviceSynchronize();
 }
+// TF32 wgmma: D[64][N] = A[64][8 ks] B[8 ks][N] + C[64][N] (row-major), ks
+// <= 4 k-steps of one 32-k slab (B: (k, n) at n * 32 + swizzled k, as
+// tc_pack.pack_rev_f32 lays a slab out); amode 0: A from registers, 1:
+// from a K-major swizzled tile ((r, k) at r * 32 + swizzled k, as
+// geometry_bwd_wg.cu's A tile and, for X^T, its X images); split: each
+// k-step its own commit group, waited on before the next
+__device__ __forceinline__ int sw32(int r, int k) {
+  return r * 32 + ((((k >> 2) ^ (r & 7))) << 2) + (k & 3);
+}
+template <int N>
+__global__ void probe_tf32_kernel(const float* A, const float* B,
+                                  const float* C, float* D, int ks, int amode,
+                                  int split) {
+  __shared__ __align__(1024) float Bs[N * 32];
+  __shared__ __align__(1024) float As[64 * 32];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, K = 8 * ks, r0 = 16 * warp + g;
+  for (int i = tid; i < N * 32; i += 128) {
+    const int n = i / 32, k = i % 32;
+    Bs[sw32(n, k)] = k < K ? B[k * N + n] : 0.f;
+  }
+  for (int i = tid; i < 64 * 32; i += 128) {
+    const int r = i / 32, k = i % 32;
+    As[sw32(r, k)] = k < K ? A[r * K + k] : 0.f;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  uint32_t a[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const bool in = j < ks;
+    a[j][0] = in ? __float_as_uint(A[r0 * K + 8 * j + t]) : 0u;
+    a[j][1] = in ? __float_as_uint(A[(r0 + 8) * K + 8 * j + t]) : 0u;
+    a[j][2] = in ? __float_as_uint(A[r0 * K + 8 * j + t + 4]) : 0u;
+    a[j][3] = in ? __float_as_uint(A[(r0 + 8) * K + 8 * j + t + 4]) : 0u;
+  }
+  float acc[N / 2];
+#pragma unroll
+  for (int q = 0; q < N / 8; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[4 * q + e] = C[(r0 + 8 * (e >> 1)) * N + 8 * q + 2 * t + (e & 1)];
+  const uint64_t db = desc_sw128(smem_u32(Bs));
+  const uint64_t da = desc_sw128(smem_u32(As));
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j >= ks) break;
+    if constexpr (N == 8) {
+      if (amode) wgmma_tf32_ss_n8(acc, da + 2 * j, db + 2 * j, 1);
+      else wgmma_tf32_n8(acc, a[j], db + 2 * j, 1);
+    } else {
+      if (amode) wgmma_tf32_ss_n256(acc, da + 2 * j, db + 2 * j, 1);
+      else wgmma_tf32_n256(acc, a[j], db + 2 * j, 1);
+    }
+    if (split) {
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      wgmma_fence();
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+#pragma unroll
+  for (int q = 0; q < N / 8; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      D[(r0 + 8 * (e >> 1)) * N + 8 * q + 2 * t + (e & 1)] = acc[4 * q + e];
+}
+extern "C" int probe_tf32(const float* A, const float* B, const float* C,
+                          float* D, int n, int ks, int amode, int split) {
+  if (n == 8)
+    probe_tf32_kernel<8><<<1, 128>>>(A, B, C, D, ks, amode, split);
+  else
+    probe_tf32_kernel<256><<<1, 128>>>(A, B, C, D, ks, amode, split);
+  return (int)cudaDeviceSynchronize();
+}
+// D[64][128] = A[64][32] B[32][128] in 3xTF32 by the sweep's scheme: A
+// raw f32 in a K-major tile (big: the tensor core's truncation), small_A =
+// A - big from registers, B given pre-split (Bb, Bs); per k-step small_A
+// Bb + A Bs + A Bb, one commit group
+__global__ void probe_3x_kernel(const float* A, const float* Bb,
+                                const float* Bsm, float* D) {
+  __shared__ __align__(1024) float Bs[2 * 128 * 32];
+  __shared__ __align__(1024) float As[64 * 32];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, r0 = 16 * warp + g;
+  for (int i = tid; i < 128 * 32; i += 128) {
+    const int n = i / 32, k = i % 32;
+    Bs[sw32(n, k)] = Bb[k * 128 + n];
+    Bs[128 * 32 + sw32(n, k)] = Bsm[k * 128 + n];
+  }
+  for (int i = tid; i < 64 * 32; i += 128) As[sw32(i / 32, i % 32)] = A[i];
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  uint32_t sm[4][4];
+  auto small = [&](int r, int k) {
+    const float x = As[sw32(r, k)];
+    return __float_as_uint(x - __uint_as_float(__float_as_uint(x) &
+                                               0xffffe000u));
+  };
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    sm[j][0] = small(r0, 8 * j + t);
+    sm[j][1] = small(r0 + 8, 8 * j + t);
+    sm[j][2] = small(r0, 8 * j + t + 4);
+    sm[j][3] = small(r0 + 8, 8 * j + t + 4);
+  }
+  float acc[64];
+  const uint64_t bb = desc_sw128(smem_u32(Bs));
+  const uint64_t bs = desc_sw128(smem_u32(Bs + 128 * 32));
+  const uint64_t da = desc_sw128(smem_u32(As));
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    wgmma_tf32_n128(acc, sm[j], bb + 2 * j, j ? 1 : 0);
+    wgmma_tf32_ss_n128(acc, da + 2 * j, bs + 2 * j, 1);
+    wgmma_tf32_ss_n128(acc, da + 2 * j, bb + 2 * j, 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+#pragma unroll
+  for (int q = 0; q < 16; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      D[(r0 + 8 * (e >> 1)) * 128 + 8 * q + 2 * t + (e & 1)] = acc[4 * q + e];
+}
+extern "C" int probe_3x(const float* A, const float* Bb, const float* Bsm,
+                        float* D) {
+  probe_3x_kernel<<<1, 128>>>(A, Bb, Bsm, D);
+  return (int)cudaDeviceSynchronize();
+}
 extern "C" int probe(const float* A, const float* B, const float* C,
                      float* D) {
   probe_kernel<<<1, 32>>>(A, B, C, D);
@@ -317,6 +464,132 @@ def probe_wgmma(so, accum, u):
     return rows
 
 
+def probe_wgmma_tf32(so, u):
+    """The TF32 wgmma cases (K1-bwd's products): operand reading and
+    accumulation on m64n8k8 from both A sources, random m64n256k8 x 4
+    products of TF32 values from both against float64, the pass's X^T R
+    from the image layout, and a 3xTF32 m64n128 product by the sweep's
+    scheme against float64."""
+    import numpy as np
+    import torch
+    fn = so.probe_tf32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+
+    def run(A, B, C, n, ks, amode, split=0):
+        t = [torch.from_numpy(np.ascontiguousarray(v, np.float32)).cuda()
+             for v in (A, B, C)]
+        D = torch.zeros(64, n, device="cuda")
+        rc = fn(*[v.data_ptr() for v in t], D.data_ptr(), n, ks, amode,
+                split)
+        if rc:
+            raise RuntimeError(f"tf32 wgmma probe failed: cudaError_t {rc}")
+        return D.cpu().numpy().astype(np.float64)
+
+    rows = []
+    src = {0: "A from registers", 1: "A from shared memory"}
+    eye = np.eye(8, 8)
+    b4 = np.zeros((32, 8))
+    b4[[0, 8, 16, 24], 0] = 1.0
+    a4 = np.zeros(32)
+    a4[[0, 8, 16, 24]] = 0.75 * u
+    four = {1 + 4 * u: "each k-step rounds to nearest",
+            1.0: "each k-step rounds toward zero",
+            1 + 3 * u: "the k-steps summed before one rounding"}
+    cases = [
+        ("operand 1 + 0.75 * 2^-10 (below tf32's mantissa)", 1, 0,
+         [1 + 0.75 * 2.0 ** -10], 0.0, eye,
+         {1 + 2.0 ** -10: "operand rounded", 1.0: "operand truncated",
+          1 + 0.75 * 2.0 ** -10: "operand kept in f32"}),
+        ("accumulate +: 1 + 0.75 ulp", 1, 0, [0.75 * u], 1.0, eye,
+         {1 + u: "rounds to nearest", 1.0: "rounds toward zero"}),
+        ("accumulate -: -1 - 0.75 ulp", 1, 0, [-0.75 * u], -1.0, eye,
+         {-1 - u: "rounds to nearest", -1.0: "rounds toward zero"}),
+        ("eight products of 0.25 ulp into 1", 1, 0, [0.25 * u] * 8, 1.0,
+         np.ones((8, 8)),
+         {1 + 2 * u: "products summed before the accumulator",
+          1.0: "products added one by one, or their sum lost"}),
+        ("0.75 ulp into 1 in each of 4 k-steps, one group", 4, 0, a4, 1.0,
+         b4, four),
+        ("0.75 ulp into 1 in each of 4 k-steps, a group each", 4, 1, a4,
+         1.0, b4, four)]
+    for amode in (0, 1):
+        for name, ks, split, arow, c00, B, meaning in cases:
+            A = np.zeros((64, 8 * ks))
+            A[0, :len(arow)] = arow
+            C = np.zeros((64, 8))
+            C[0, 0] = c00
+            d = float(run(A, B, C, 8, ks, amode, split)[0, 0])
+            got = next((m for v, m in meaning.items()
+                        if d == float(np.float32(v))),
+                       "none of the expected results")
+            print(f"wgmma tf32 ({src[amode]}) {name}: {d!r} -> {got}")
+            rows.append({"mma": "wgmma-tf32", "a": src[amode], "case": name,
+                         "result": d, "reads_as": got})
+    rng = np.random.RandomState(1)
+    tf = TP_round
+    ok_all = True
+    for amode in (0, 1):
+        A, B = tf(rng.randn(64, 32)), tf(rng.randn(32, 256))
+        D = run(A, B, np.zeros((64, 256)), 256, 4, amode)
+        err = float(np.abs(D - A @ B).max() / np.abs(A @ B).max())
+        ok = err < 1e-6
+        ok_all &= ok
+        print(f"wgmma tf32 m64n256k8 x 4 k-steps ({src[amode]}), random "
+              f"tf32: max error {err:.2e} of max|AB| -> "
+              f"{'layouts agree' if ok else 'WRONG'}")
+        rows.append({"mma": "wgmma-tf32", "a": src[amode],
+                     "case": "m64n256 random", "result": err,
+                     "reads_as": "layouts agree" if ok else "wrong"})
+    # the pass: X [32 rows][64 columns], R [32][256], A = X^T (the X image
+    # of 64 columns is the K-major tile of X^T), B = R (the R image)
+    X, R = tf(rng.randn(32, 64)), tf(rng.randn(32, 256))
+    D = run(X.T.copy(), R, np.zeros((64, 256)), 256, 4, 1)
+    err = float(np.abs(D - X.T @ R).max() / np.abs(X.T @ R).max())
+    okp = err < 1e-6
+    print(f"wgmma tf32 X^T R from the tile images (32 rows): max error "
+          f"{err:.2e} of max|X^T R| -> {'layouts agree' if okp else 'WRONG'}")
+    rows.append({"mma": "wgmma-tf32", "case": "pass X^T R", "result": err,
+                 "reads_as": "layouts agree" if okp else "wrong"})
+    # 3xTF32 by the sweep's scheme against one TF32 product
+    fn3 = so.probe_3x
+    fn3.argtypes = [ctypes.c_void_p] * 4
+    fn3.restype = ctypes.c_int
+    A = rng.randn(64, 32).astype(np.float32)
+    W = rng.randn(32, 128).astype(np.float32)
+    Wb = TP_round(W).astype(np.float32)
+    Ws = (W - Wb).astype(np.float32)
+    t = [torch.from_numpy(np.ascontiguousarray(v)).cuda() for v in (A, Wb, Ws)]
+    D = torch.zeros(64, 128, device="cuda")
+    rc = fn3(*[v.data_ptr() for v in t], D.data_ptr())
+    if rc:
+        raise RuntimeError(f"3xTF32 probe failed: cudaError_t {rc}")
+    want = A.astype(np.float64) @ W.astype(np.float64)
+    e3 = float(np.abs(D.cpu().numpy() - want).max() / np.abs(want).max())
+    D1 = run(A, np.pad(W, ((0, 0), (0, 128))), np.zeros((64, 256)), 256, 4,
+             1)
+    e1 = float(np.abs(D1[:, :128] - want).max() / np.abs(want).max())
+    ok3 = e3 < 1e-5 and e3 < e1 / 100
+    print(f"wgmma 3xTF32 m64n128k8 x 4 (the sweep's scheme), random f32: "
+          f"max error {e3:.2e} of max|AW|, one TF32 product {e1:.2e} -> "
+          f"{'f32 accuracy' if ok3 else 'WRONG'}")
+    rows.append({"mma": "wgmma-tf32", "case": "3xTF32 sweep scheme",
+                 "result": e3, "tf32_result": e1,
+                 "reads_as": "f32 accuracy" if ok3 else "wrong"})
+    if not (ok_all and okp and ok3):
+        raise AssertionError("tf32 wgmma: fragment, tile or slab layout "
+                             "wrong")
+    return rows
+
+
+def TP_round(v):
+    """float32 values rounded to TF32 (to nearest, ties away), as
+    tc_pack.tf32_round."""
+    import numpy as np
+    b = np.asarray(v, np.float32).view(np.int32)
+    return ((b + 0x1000) & -8192).view(np.float32).astype(np.float64)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -377,6 +650,7 @@ def main() -> int:
         print(f"{kind} {name}: {d!r} -> {got}")
         rows.append({"mma": kind, "case": name, "result": d, "reads_as": got})
     rows += probe_wgmma(so, accum, u)
+    rows += probe_wgmma_tf32(so, u)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
