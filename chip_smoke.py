@@ -9,17 +9,19 @@
    TF32 off; K2 at both sweep shapes of a step, on K1's pack as in the
    step and bitwise against its own pack; K3-bwd against its f64 twin on
    the ReLU masks of its own forward, which may differ from the f32
-   forward's only within rounding of 0), checks that two K1-bwd, two
-   K3-fwd and two K3-bwd launches agree bit for bit, and times each kernel
-   and twin with CUDA events (K3-fwd on the weight pack it shares with
-   K3-bwd in a step, the pack's own time beside it); K1-bwd (3xTF32 on
-   wgmma, csrc/geometry_bwd_wg.cu: its ptxas report and SASS, which must
-   hold HGMMA and no HMMA) at the step's 65,536 points and a ragged 9,001,
-   each against the f64 twin (check_vjp) with two launches bitwise equal,
-   timed at both ("shapes"), its two kernels' registers and shared memory
-   read from the device ("attrs"), the bytes of its design and its f32
-   slab packs' build times; then K1-fwd, K3-fwd and K2 again at a
-   validation chunk's shapes (262,144 and 131,072 rows);
+   forward's only within rounding of 0), checks that two launches of
+   K1-fwd, K1-bwd, K3-fwd and K3-bwd agree bit for bit, and times each
+   kernel and twin with CUDA events (K3-fwd's pack's own time beside it);
+   K1-fwd, K1-bwd and K3-bwd (3xTF32 on wgmma: csrc/geometry_fwd_wg.cu,
+   geometry_bwd_wg.cu, radiance_bwd_wg.cu; each its ptxas report and
+   SASS, which must hold HGMMA and no HMMA) at the step's 65,536 rows and
+   a ragged 9,001, K1-fwd within 1e-5 abs of its twin, K1-bwd and K3-bwd
+   against the f64 twin (check_vjp), two launches bitwise equal, timed
+   at both ("shapes"), their kernels' registers and shared memory read
+   from the device ("attrs"), the bytes of each design and their f32
+   slab packs' build times; then K1-fwd (bitwise repeatable there too),
+   K3-fwd and K2 again at a validation chunk's shapes (262,144 and
+   131,072 rows);
 4. runs one full-width stage-1 step of confs/wmask.conf and one of
    confs/womask.conf (background NeRF) on the card (kernels) and the same
    steps on the CPU (twins), and compares the loss and every parameter
@@ -53,8 +55,9 @@
    three times, K3-fwd once, nothing else; the checkpoint loads back; K2
    at the secondary coarse sweep's 1,048,576 rows (its route with
    sweep_act_bf16 off) and the localisation sweep's 65,536, K1-fwd at 512
-   and 2,048 rows and K3-fwd at 2,048, on the run's packs, against their
-   twins at 1e-5 abs and timed; one 64-ray stage-2 step with the coarse
+   and 2,048 rows (on the f32 slab packs Stage2Model.kernel_weights built
+   without grad, bitwise repeatable) and K3-fwd at 2,048, on the run's
+   packs, against their twins at 1e-5 abs and timed; one 64-ray stage-2 step with the coarse
    sweep in f32 on the card against the same step on the CPU twins (same
    rays and hemisphere draws), and one with the default bf16 sweep (item
    13); --mode validate_image through the CLI (counters at 0: K2 5,
@@ -307,52 +310,31 @@ def check_vjp(label, got, ref64, ref32, names):
 
 
 def k3_bwd_masks(cfg, ws, bs, inputs, bf16: bool = False):
-    """(masks, summary): the ReLU masks h_l > 0 [N, outs[l]] of K3-bwd's own
-    forward recompute, for its f64 twin to differentiate the function the
-    kernel computes.  Where a pre-activation lies within f32 rounding of
-    0, a forward summed in another order falls on the other side of the
-    kink, one whole cotangent element apart.  K3-bwd runs over chunks of
-    one tile per block (SMs x TILE rows, ct_rgb = 0) into a scratch read
-    back here; a row's forward does not depend on the tile or block that
-    takes it.  The masks are held against the f32 forward's (cuBLAS),
-    which does not depend on the kernel: they may differ only where |a_l|
-    <= MASK_MARGIN max|a_l|, and in at most MAX_MASK_FLIPS places, else
-    this raises, so a kernel fault that zeroes or flips activations cannot
-    pass into the twin.  ``bf16``: K3-bwd-bf16's masks, the bits its sweep
-    keeps in registers and applies (written out through launch_backward's
-    ``masks``, one launch over every row), for its bf16 twin, held against
+    """(masks, summary): the ReLU masks a_l > 0 [N, outs[l]] of K3-bwd's
+    own forward recompute, for its f64 twin to differentiate the function
+    the kernel computes.  Where a pre-activation lies within f32 rounding
+    of 0, a forward summed in another order falls on the other side of the
+    kink, one whole cotangent element apart.  The masks are the bits the
+    sweep keeps in registers and applies, written out through
+    launch_backward's ``masks`` (one launch over every row, ct_rgb = 0).
+    They are held against the f32 forward's (cuBLAS), which does not
+    depend on the kernel: they may differ only where |a_l| <= MASK_MARGIN
+    max|a_l|, and in at most MAX_MASK_FLIPS places, else this raises, so a
+    kernel fault that zeroes or flips activations cannot pass into the
+    twin.  ``bf16``: K3-bwd-bf16's masks, for its bf16 twin, held against
     the twin's bf16 forward within BF16_MASK_ULP's margin of each element,
     in any number of places."""
     import torch
-    from factored_neus_tpu_torch.ops import _cuda
     from factored_neus_tpu_torch.ops import radiance_kernel as RK
     from factored_neus_tpu_torch.ops import tc_pack as TP
     from factored_neus_tpu_torch.ops.embedder import positional_encoding
     pts, normals, dirs, feat = inputs
     dev, n, L = pts.device, pts.shape[0], len(ws)
-    ins = [int(w.shape[1]) for w in ws]
-    outs = [int(w.shape[0]) for w in ws]
-    if bf16:
-        masks = []
-        RK.launch_backward(cfg, ws, bs, *inputs,
-                           torch.zeros(n, outs[-1], device=dev),
-                           pack=RK.make_bwd_slabs(cfg, ws), bf16=True,
-                           masks=masks)
-    else:
-        chunk = _cuda.sm_count(dev) * TP.TILE
-        masks = [[] for _ in range(L - 1)]
-        for r0 in range(0, n, chunk):
-            m = min(chunk, n - r0)
-            grid = -(-m // TP.TILE)
-            _, ld = RK.kernel_iargs(cfg, ws, m, grid,
-                                    TP.pack_layout(ins, outs))
-            scratch = torch.empty(grid, L - 1, TP.TILE, ld, device=dev)
-            RK.launch_backward(cfg, ws, bs, *(t[r0:r0 + m] for t in inputs),
-                               torch.zeros(m, outs[-1], device=dev), scratch)
-            for l in range(L - 1):
-                h = scratch[:, l, :, :outs[l]].reshape(-1, outs[l])
-                masks[l].append(h[:m] > 0)
-        masks = [torch.cat(m) for m in masks]
+    masks = []
+    RK.launch_backward(cfg, ws, bs, *inputs,
+                       torch.zeros(n, int(ws[-1].shape[0]), device=dev),
+                       pack=RK.make_bwd_slabs(cfg, ws, bf16), bf16=bf16,
+                       masks=masks)
     h = torch.cat([pts, positional_encoding(dirs, cfg.multires_view),
                    normals, feat], -1)
     flips = near = 0
@@ -445,8 +427,12 @@ def check_kernels(device):
             "library_ms": None,
             "bound_3xtf32_ms": 1e3 * max(3 * flops / TF32_PEAK, t_bytes)})
 
-    # K1-fwd: f32 dots of width <= 257 summed in another order than cuBLAS
-    out_k, grad_k = GK.launch_forward(cfg, x, ws, bs)
+    # K1-fwd (3xTF32 on wgmma, from its two f32 slab packs, built once as a
+    # step does, and shared with K1-bwd): f32 dots of width <= 257 summed
+    # in another order than cuBLAS
+    fbuild = wgmma_build_report("K1-fwd", "geometry_fwd_wg.cu")
+    slabs = GK.make_bwd_slabs(cfg, ws, bf16=False)
+    out_k, grad_k = GK.launch_forward(cfg, x, ws, bs, slabs)
     with torch.no_grad():
         out_p, grad_p = GK.geometry_plain(ws, bs, x, cfg)
     torch.cuda.synchronize()
@@ -463,12 +449,35 @@ def check_kernels(device):
     def plain_fwd():
         with torch.no_grad():
             GK.geometry_plain(ws, bs, x, cfg)
-    entry("geometry_fwd", "factored_neus_tpu_torch/csrc/geometry_fwd.cu",
+    entry("geometry_fwd", "factored_neus_tpu_torch/csrc/geometry_fwd_wg.cu",
           "factored_neus_tpu/ops/pallas_geometry.py:729",
           max(e_out, e_g),
-          cuda_ms(lambda: GK.launch_forward(cfg, x, ws, bs), 10),
+          cuda_ms(lambda: GK.launch_forward(cfg, x, ws, bs, slabs), 10),
           cuda_ms(lambda: plain_fwd(), 5),
           N_CORE * fwd_flops, fwd_bytes)
+    k1f = results[-1]
+    fshapes = []
+    for n in (N_CORE, N_RAGGED):
+        shape, e_n = k1_fwd_wgf_check(cfg, ws, bs, n, fwd_flops, slabs, gen)
+        fshapes.append(shape)
+        k1f["max_abs_err"] = max(k1f["max_abs_err"], e_n)
+    # its slab packs (K1-bwd's, the forward pack with the last layer's
+    # slabs appended), built by SDFNetwork.kernel_weights beside the
+    # 3xTF32 pack
+    pack_ms = {"pack_ms": cuda_ms(lambda: TP.pack_weights(ws), 10),
+               "sweep_pack_f32_ms": cuda_ms(lambda: TP.pack_sweep_f32(
+                   ws, sorted(SK.skip_layers(cfg, len(ws))), cfg.d_embed),
+                   10),
+               "rev_pack_f32_ms": cuda_ms(
+                   lambda: TP.pack_rev_f32(ws, cfg.d_embed), 10)}
+    print(f"K1-fwd's and K1-bwd's slab packs at full width: "
+          f"{pack_ms['sweep_pack_f32_ms']:.3f} ms (forward) + "
+          f"{pack_ms['rev_pack_f32_ms']:.3f} ms (reverse), beside the "
+          f"3xTF32 pack's {pack_ms['pack_ms']:.3f} ms (CUDA events around "
+          f"10 builds each)")
+    k1f.update(shapes=fshapes, sass=fbuild["sass"], ptxas=fbuild["ptxas"],
+               attrs=wg_attrs("geometry_fwd_wg.cu", "geometry_fwd_attrs",
+                              ("sweep",)), **pack_ms)
 
     # K1-bwd: adds weight-gradient sums over 131,072 stacked rows.  The
     # reference is the plain twin in float64: in float32 the twin's own
@@ -476,7 +485,6 @@ def check_kernels(device):
     # kernel's, so the f64 twin measures the kernel's error alone.  It runs
     # on wgmma from its two f32 slab packs, built once as a step does.
     build = wgmma_build_report("K1-bwd", "geometry_bwd_wg.cu")
-    slabs = GK.make_bwd_slabs(cfg, ws, bf16=False)
     ct_out = torch.randn(out_p.shape, device=device, generator=gen)
     ct_g = torch.randn(N_CORE, 3, device=device, generator=gen)
     ct_x, dws, dbs = GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g, slabs)
@@ -538,17 +546,8 @@ def check_kernels(device):
                                              slabs, gen)
         shapes.append(shape)
         k1b["max_abs_err"] = max(k1b["max_abs_err"], e_n)
-    # what K1-bwd adds to a step besides its kernels: its two slab packs,
-    # built by SDFNetwork.kernel_weights beside the 3xTF32 pack
-    pack_ms = {"pack_ms": cuda_ms(lambda: TP.pack_weights(ws), 10),
-               "sweep_pack_f32_ms": cuda_ms(lambda: TP.pack_sweep_f32(
-                   ws, sorted(SK.skip_layers(cfg, L)), cfg.d_embed), 10),
-               "rev_pack_f32_ms": cuda_ms(
-                   lambda: TP.pack_rev_f32(ws, cfg.d_embed), 10)}
-    print(f"K1-bwd's slab packs at full width: {pack_ms['sweep_pack_f32_ms']:.3f}"
-          f" ms (forward) + {pack_ms['rev_pack_f32_ms']:.3f} ms (reverse), "
-          f"beside the 3xTF32 pack's {pack_ms['pack_ms']:.3f} ms (CUDA "
-          f"events around 10 builds each)")
+    # what K1-bwd adds to a step besides its kernels: the two slab packs
+    # it shares with K1-fwd (timed there)
     k1b.update(shapes=shapes, sass=build["sass"], ptxas=build["ptxas"],
                attrs=attrs, **pack_ms)
     entry("geometry_bwd_split",
@@ -660,11 +659,15 @@ def check_kernels(device):
           N_CORE * 4 * (9 + d_feat + 3) + rwbytes)
     results[-1]["pack_ms"] = cuda_ms(lambda: TP.pack_weights(rws), 10)
 
-    # K3-bwd: dW and db sum 65,536 rows; against the f64 twin as K1-bwd,
-    # with the ReLU masks of the kernel's own forward, held against the f32
-    # forward's (k3_bwd_masks)
+    # K3-bwd (3xTF32 on wgmma, from its two f32 slab packs, built once as
+    # a step does): dW and db sum 65,536 rows; against the f64 twin as
+    # K1-bwd, with the ReLU masks of the kernel's own forward, held against
+    # the f32 forward's (k3_bwd_masks)
+    rbuild = wgmma_build_report("K3-bwd", "radiance_bwd_wg.cu")
+    rslabs = RK.make_bwd_slabs(rcfg, rws, bf16=False)
     ct_rgb = torch.randn(rgb_p.shape, device=device, generator=gen)
-    *rcts, rdws, rdbs = RK.launch_backward(rcfg, rws, rbs, *rin, ct_rgb)
+    *rcts, rdws, rdbs = RK.launch_backward(rcfg, rws, rbs, *rin, ct_rgb,
+                                           pack=rslabs)
     rL = len(rws)
     masks, text = k3_bwd_masks(rcfg, rws, rbs, rin)
     print(f"K3-bwd  ReLU masks of its own forward: {text}")
@@ -701,22 +704,41 @@ def check_kernels(device):
     e_rb = check_vjp(f"K3-bwd  N={N_CORE}", [*rcts, *rdws, *rdbs], ref64,
                      ref32, rnames)
     del ref32, ref64
-    # the second launch on K3-fwd's pack, as in a step
-    again = RK.launch_backward(rcfg, rws, rbs, *rin, ct_rgb, pack=rpack)
+    again = RK.launch_backward(rcfg, rws, rbs, *rin, ct_rgb, pack=rslabs)
     same = all(torch.equal(a, b) for a, b in zip(
         [*rcts, *rdws, *rdbs], [*again[:4], *again[4], *again[5]]))
-    print(f"K3-bwd  two launches (its own pack, K3-fwd's) bitwise equal: "
-          f"{same}")
+    print(f"K3-bwd  two launches bitwise equal: {same}")
     if not same:
         raise AssertionError("K3-bwd is not deterministic")
     del again, rpack
-    entry("radiance_bwd", "factored_neus_tpu_torch/csrc/radiance_bwd.cu",
+    rbwd_flops = 6 * rS
+    entry("radiance_bwd", "factored_neus_tpu_torch/csrc/radiance_bwd_wg.cu",
           "factored_neus_tpu/ops/pallas_radiance.py:227", e_rb,
-          cuda_ms(lambda: RK.launch_backward(rcfg, rws, rbs, *rin, ct_rgb),
-                  5),
-          cuda_ms(rplain32, 5), N_CORE * 6 * rS,
+          cuda_ms(lambda: RK.launch_backward(rcfg, rws, rbs, *rin, ct_rgb,
+                                             pack=rslabs), 5),
+          cuda_ms(rplain32, 5), N_CORE * rbwd_flops,
           N_CORE * 4 * (2 * (9 + d_feat) + 3) + 2 * rwbytes)
     del rplain32
+    k3b = results[-1]
+    shapes, attrs = [], None
+    for n in (N_CORE, N_RAGGED):
+        shape, attrs, e_n = k3_bwd_wgf_check(rcfg, rws, rbs, n, rbwd_flops,
+                                             rslabs, gen)
+        shapes.append(shape)
+        k3b["max_abs_err"] = max(k3b["max_abs_err"], e_n)
+    # what K3-bwd adds to a step besides its kernels: its two slab packs,
+    # built by RenderingNetwork.kernel_weights beside the 3xTF32 pack
+    rpack_ms = {"sweep_pack_f32_ms": cuda_ms(lambda: TP.pack_rad_sweep_f32(
+                    rws, 6 + rcfg.d_view), 10),
+                "rev_pack_f32_ms": cuda_ms(lambda: TP.pack_rad_rev_f32(
+                    rws, 6 + rcfg.d_view), 10)}
+    print(f"K3-bwd's slab packs at full width: "
+          f"{rpack_ms['sweep_pack_f32_ms']:.3f} ms (forward) + "
+          f"{rpack_ms['rev_pack_f32_ms']:.3f} ms (reverse) (CUDA events "
+          f"around 10 builds each)")
+    k3b.update(shapes=shapes, sass=rbuild["sass"], ptxas=rbuild["ptxas"],
+               attrs=attrs, **rpack_ms)
+    del rslabs
 
     # K1-fwd-stash: K1-fwd's exact (out, grad) plus the bf16 stash; an
     # entry may differ by one bf16 ulp where the two f32 sums round to
@@ -787,22 +809,23 @@ def check_kernels(device):
     return results
 
 
-def wg_attrs(src: str, symbol: str) -> dict:
-    """A wgmma backward's sweep and weight-gradient kernels as the device
+def wg_attrs(src: str, symbol: str, kernels=("sweep", "wgrad")) -> dict:
+    """A wgmma kernel's sweep and weight-gradient kernels (``kernels``:
+    which of them the source has, in its ``symbol``'s order) as the device
     holds them after a launch (cudaFuncGetAttributes through the source's
-    ``symbol``: geometry_bwd_attrs, geometry_bwd_bf16_attrs,
-    radiance_bwd_bf16_attrs):
+    ``symbol``: geometry_fwd_attrs, geometry_bwd_attrs,
+    geometry_bwd_bf16_attrs, radiance_bwd_attrs, radiance_bwd_bf16_attrs):
     registers a thread, dynamic shared memory a block as the launcher set
     it, static shared memory."""
     import ctypes
     from factored_neus_tpu_torch.ops import _cuda
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * (3 * len(kernels)))()
     rc = getattr(_cuda._load(src), symbol)(out)
     if rc:
         raise RuntimeError(f"{symbol}: cudaError {rc}")
     return {k: {"regs": out[3 * i], "dynamic_smem": out[3 * i + 1],
                 "static_smem": out[3 * i + 2]}
-            for i, k in enumerate(("sweep", "wgrad"))}
+            for i, k in enumerate(kernels)}
 
 
 def wg_shape(label, n, run, plain, bound_ms, plan, design, src,
@@ -835,6 +858,64 @@ def wg_shape(label, n, run, plain, bound_ms, plan, design, src,
               f"dynamic + {a['static_smem']} B static shared memory a block "
               f"(the plan's count: {plan[k + '_smem']} B)")
     return shape, attrs
+
+
+def k1_fwd_wgf_check(cfg, ws, bs, n, fwd_flops, slabs, gen) -> tuple:
+    """K1-fwd (3xTF32 on wgmma) at n points: (out, grad) against the f32
+    twin at 1e-5 abs with two launches bitwise equal, its time and its
+    twin's (CUDA events) against its 3xTF32 bound, the plan, the sweep's
+    registers and shared memory as the device holds them, and the bytes of
+    its design (geometry_fwd_wg.cu's note: the scratch of sigma(100 a)
+    written and read, the points read, out and grad written), a count, not
+    a measurement.  Returns (shape, max |err|)."""
+    import torch
+    from factored_neus_tpu_torch.ops import _cuda
+    from factored_neus_tpu_torch.ops import geometry_kernel as GK
+    dev = ws[0].device
+    x = torch.randn(n, 3, device=dev, generator=gen) * 0.5
+    run = lambda: GK.launch_forward(cfg, x, ws, bs, slabs)
+    got, again = run(), run()
+    with torch.no_grad():
+        want = GK.geometry_plain(ws, bs, x, cfg)
+    torch.cuda.synchronize()
+    e, r = max(worst(a, b, 1e-5, 0.0) for a, b in zip(got, want))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"K1-fwd (wgmma) N={n}: max|err| {e:.3e} against the f32 twin "
+          f"(1e-5 abs); two launches bitwise equal: {same}")
+    if r > 1.0 or not same or not all(torch.isfinite(t).all() for t in got):
+        raise AssertionError(f"K1-fwd disagrees with its twin or itself at "
+                             f"{n} points")
+    del got, again, want
+
+    def twin():
+        with torch.no_grad():
+            GK.geometry_plain(ws, bs, x, cfg)
+    plan = GK.fwd_wg_plan(cfg, ws, n, slabs, _cuda.sm_count(dev))
+    L = len(ws)
+    design = (2 * plan["tiles"] * (L - 1) * 64 * 256 * 4
+              + n * 4 * (3 + ws[-1].shape[0] + 3))
+    # every slab of the forward pack and the reverse pack's layers 0 ..
+    # L - 2 a tile (the last layer's reverse slabs are not streamed)
+    (_, flay), (_, rlay) = slabs
+    stream = plan["tiles"] * (flay.nbytes + rlay.off[L - 1])
+    shape = {"rows": n, "ms": cuda_ms(run, 5 if n >= N_CORE else 20),
+             "plain_ms": cuda_ms(twin, 3),
+             "bound_ms": 1e3 * n * 3 * fwd_flops / TF32_PEAK,
+             "max_abs_err": e, "design_bytes": design,
+             "slab_stream_bytes": stream}
+    attrs = wg_attrs("geometry_fwd_wg.cu", "geometry_fwd_attrs",
+                     ("sweep",))["sweep"]
+    print(f"  K1-fwd (wgmma) N={n}: {shape['ms']:.3f} ms (plain "
+          f"{shape['plain_ms']:.3f} ms), 3xTF32 bound {shape['bound_ms']:.3f}"
+          f" ms ({100 * shape['bound_ms'] / shape['ms']:.1f}% of it); by the "
+          f"source note's reckoning the design moves {design / 1e9:.2f} GB "
+          f"to and from device memory and streams {stream / 1e9:.2f} GB of "
+          f"slabs from L2; {plan['grid']} sweep blocks; sweep "
+          f"(cudaFuncGetAttributes): {attrs['regs']} registers a thread, "
+          f"{attrs['dynamic_smem']} B dynamic + {attrs['static_smem']} B "
+          f"static shared memory a block (the plan's count: "
+          f"{plan['sweep_smem']} B)")
+    return shape, e
 
 
 def k1_bwd_wg_shape(cfg, ws, n, run, plain, bwd_flops, slabs) -> tuple:
@@ -907,6 +988,62 @@ def k1_bwd_wgf_check(cfg, ws, bs, n, bwd_flops, slabs, gen) -> tuple:
         ws, bs, x, ct_out, ct_g, cfg), 1e3 * n * 3 * bwd_flops / TF32_PEAK,
         plan, scratch + written + read + slots, "geometry_bwd_wg.cu",
         "geometry_bwd_attrs", "3xTF32")
+    shape["max_abs_err"] = e
+    return shape, attrs, e
+
+
+def k3_bwd_wgf_check(cfg, ws, bs, n, bwd_flops, slabs, gen) -> tuple:
+    """K3-bwd (3xTF32 on wgmma) at n rows: against the f64 twin (check_vjp)
+    on the ReLU masks of its own forward (k3_bwd_masks) with two launches
+    bitwise equal, then wg_shape's times against its 3xTF32 bound,
+    attributes and the bytes of its design: each tile's X_l and R_l
+    images written, then read by the weight-gradient pass, X_l once for
+    each R half and R_l once for each X pair, the inputs read and the
+    cotangents written once, the slots and db slots (radiance_bwd_wg.cu's
+    note).  Returns (shape, attrs, max |err|)."""
+    import torch
+    from factored_neus_tpu_torch.ops import _cuda
+    from factored_neus_tpu_torch.ops import radiance_kernel as RK
+    dev = ws[0].device
+    inputs = [torch.randn(n, 3, device=dev, generator=gen) * 0.5,
+              torch.randn(n, 3, device=dev, generator=gen),
+              torch.nn.functional.normalize(
+                  torch.randn(n, 3, device=dev, generator=gen), dim=-1),
+              torch.randn(n, cfg.d_feature, device=dev, generator=gen) * 0.5]
+    ct = torch.randn(n, cfg.d_out, device=dev, generator=gen)
+    flat = lambda r: [*r[:4], *r[4], *r[5]]
+    L = len(ws)
+    names = ["ct_pts", "ct_normals", "ct_dirs", "ct_feat"] + [
+        f"dW{l}" for l in range(L)] + [f"db{l}" for l in range(L)]
+    run = lambda: flat(RK.launch_backward(cfg, ws, bs, *inputs, ct,
+                                          pack=slabs))
+    got, again = run(), run()
+    masks, text = k3_bwd_masks(cfg, ws, bs, inputs)
+    print(f"K3-bwd (wgmma) N={n}: ReLU masks of its own forward: {text}")
+    torch.cuda.synchronize()
+    ref64 = [t.float() for t in flat(RK.radiance_bwd_plain(
+        [w.double() for w in ws], [b.double() for b in bs], cfg,
+        *(v.double() for v in inputs), ct.double(), masks=masks))]
+    ref32 = flat(RK.radiance_bwd_plain(ws, bs, cfg, *inputs, ct,
+                                       masks=masks))
+    e = check_vjp(f"K3-bwd (wgmma) N={n}", got, ref64, ref32, names)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"K3-bwd (wgmma) N={n}: two launches bitwise equal: {same}")
+    if not same:
+        raise AssertionError("K3-bwd is not deterministic")
+    del got, again, ref64, ref32, masks
+    plan = RK.bwd_wg_plan(cfg, ws, n, slabs, _cuda.sm_count(dev))
+    tiles = plan["tiles"]
+    cx, cr = [320] + [256] * (L - 1), [256] * (L - 1) + [8]
+    written = plan["image_bytes"]
+    read = tiles * 4 * 64 * sum((2 if r > 128 else 1) * x + -(-x // 128) * r
+                                for x, r in zip(cx, cr))
+    io = n * 4 * (2 * (9 + cfg.d_feature) + cfg.d_out)
+    slots = 4 * (2 * plan["slot_floats"] + 2 * plan["db_floats"])
+    shape, attrs = wg_shape("K3-bwd", n, run, lambda: RK.radiance_bwd_plain(
+        ws, bs, cfg, *inputs, ct), 1e3 * n * 3 * bwd_flops / TF32_PEAK, plan,
+        written + read + io + slots, "radiance_bwd_wg.cu",
+        "radiance_bwd_attrs", "3xTF32")
     shape["max_abs_err"] = e
     return shape, attrs, e
 
@@ -1413,6 +1550,7 @@ def check_validation_shapes(device, results) -> None:
         ws, bs = net.effective_weights()
         rws, rbs = rnet.effective_weights()
     pack, rpack = TP.pack_weights(ws), TP.pack_weights(rws)
+    slabs = GK.make_bwd_slabs(cfg, ws, bf16=False)
     gen = torch.Generator(device=device).manual_seed(2)
     n = VAL_CHUNK * 128
     x = torch.randn(n, 3, device=device, generator=gen) * 0.5
@@ -1437,7 +1575,7 @@ def check_validation_shapes(device, results) -> None:
 
     cases = {
         "geometry_fwd": (N_CORE, n, lambda: GK.launch_forward(
-            cfg, x, ws, bs, pack), plain_k1),
+            cfg, x, ws, bs, slabs), plain_k1),
         "radiance_fwd": (N_CORE, n, lambda: RK.launch_forward(
             rcfg, rws, rbs, *rin, pack=rpack), plain_k3),
         "sdf_fwd": (N_SWEEP, VAL_CHUNK * 64, lambda: SK.sdf_forward(
@@ -1449,6 +1587,9 @@ def check_validation_shapes(device, results) -> None:
         want = want if isinstance(want, tuple) else (want,)
         torch.cuda.synchronize()
         err = max(worst(a, b, 1e-5, 0.0)[0] for a, b in zip(got, want))
+        if name == "geometry_fwd" and not all(
+                torch.equal(a, b) for a, b in zip(got, kernel())):
+            raise AssertionError("K1-fwd is not deterministic")
         e = by_name[name]
         if e["bound_by"] != "operations":
             raise AssertionError(f"{name}: bound by bytes at the step")
@@ -2031,7 +2172,15 @@ def check_stage2_shapes(device, results, model) -> None:
     from factored_neus_tpu_torch.ops import radiance_kernel as RK
     from factored_neus_tpu_torch.ops import sdf_kernel as SK
 
-    (ws, bs, pack, *_), (rws, rbs, rpack, *_) = model.kernel_weights()
+    sdf_w, color_w = model.kernel_weights()
+    ws, bs, pack = sdf_w.ws, sdf_w.bs, sdf_w.pack
+    rws, rbs, rpack = color_w.ws, color_w.bs, color_w.pack
+    # K1-fwd's two f32 slab packs, built once a run by
+    # Stage2Model.kernel_weights (no grad)
+    slabs = (sdf_w.sweep32, sdf_w.rev32)
+    if None in slabs:
+        raise AssertionError("Stage2Model.kernel_weights built no K1-fwd "
+                             "slabs")
     cfg, rcfg = model.stage1.sdf.cfg, model.stage1.color.cfg
     wn, bn = list(ws[:-1]) + [ws[-1][:1]], list(bs[:-1]) + [bs[-1][:1]]
     gen = torch.Generator(device=device).manual_seed(3)
@@ -2048,7 +2197,7 @@ def check_stage2_shapes(device, results, model) -> None:
             return (lambda: SK.sdf_forward(wn, bn, cfg, x, pack),
                     lambda: SK.sdf_forward_plain(wn, bn, cfg, x))
         if name == "geometry_fwd":
-            return (lambda: GK.launch_forward(cfg, x, ws, bs, pack),
+            return (lambda: GK.launch_forward(cfg, x, ws, bs, slabs),
                     lambda: GK.geometry_plain(ws, bs, x, cfg))
         rin = [x, rand(rows), torch.nn.functional.normalize(rand(rows), dim=-1),
                rand(rows, rcfg.d_feature)]
@@ -2067,6 +2216,11 @@ def check_stage2_shapes(device, results, model) -> None:
             want = want if isinstance(want, tuple) else (want,)
             torch.cuda.synchronize()
             err = max(worst(a, b, 1e-5, 0.0)[0] for a, b in zip(got, want))
+            if name == "geometry_fwd":
+                with torch.no_grad():
+                    again = kernel()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError("K1-fwd is not deterministic")
             reps = 5 if rows >= N_CORE else 20
 
             def plain_ng():

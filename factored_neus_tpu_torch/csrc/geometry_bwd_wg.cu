@@ -1,5 +1,6 @@
 // K1-bwd: the backward of K1-fwd in f32, on Hopper's warpgroup tensor
-// cores in 3xTF32 (wgmma.cuh).  Replaces the TPU kernel
+// cores in 3xTF32 (wgmma.cuh; the f32 engine's pieces, the pass and the
+// reduce in wgf.cuh, shared with K1-fwd and K3-bwd).  Replaces the TPU kernel
 // factored_neus_tpu/ops/pallas_geometry.py _make_geom.run_bwd (body
 // _build_bwd_kernel_stacked, f32 products): the primal forward and a
 // forward tangent along ct_grad recomputed as stacked rows (primal: bias
@@ -79,23 +80,23 @@
 //      tile, in order.
 //    - ct_x: the encoding's cotangents of the skip layer and layer 0 in
 //      shared memory, then pe_backward per point.
-// 2. The weight-gradient pass (geometry_bwd_wgf_wgrad): dW_l = X_l^T R_l
-//    over all stacked rows, split over K.  A block takes a unit (a layer,
-//    a pair of 64-column blocks of X_l, a 128-column half of R_l) and a
-//    chunk of tiles; its producer streams each tile's half-images (32 rows
-//    a stage: R_l's half and X_l's pair) into a ring; three more warps of
-//    the producer warpgroup write each stage's R - trunc(R) beside it
-//    (the B operand's small half must be in shared memory too), fence it
-//    to the async proxy and mark the stage ready; its two consumers (one
-//    an X block) run wgmma m64n128k8 (+ m64n8k8 for outputs 256 .. 263)
-//    with A = X^T from shared memory (big) and registers (small, made from
-//    the same tile) and B = R (big and small) from shared memory.  Each
+// 2. The weight-gradient pass (geometry_bwd_wgf_wgrad, wgf.cuh's
+//    wgf_wgrad_body): dW_l = X_l^T R_l over all stacked rows, split over K.  A
+//    block takes a unit (a layer, a pair of 64-column blocks of X_l, a
+//    128-column half of R_l) and a chunk of tiles; its producer streams each
+//    tile's half-images (32 rows a stage: R_l's half and X_l's pair) into a
+//    ring; three more warps of the producer warpgroup write each stage's R -
+//    trunc(R) beside it (the B operand's small half must be in shared memory
+//    too), fence it to the async proxy and mark the stage ready; its two
+//    consumers (one an X block) run wgmma m64n128k8 (+ m64n8k8 for outputs 256
+//    .. 263) with A = X^T from shared memory (big) and registers (small, made
+//    from the same tile) and B = R (big and small) from shared memory.  Each
 //    stage sums into a fresh accumulator and is added to the consumer's
-//    running sum with rounded adds (as the sweep); the running sum is
-//    stored to the chunk's f32 slot.
-// 3. The reduce (geometry_bwd_wgf_reduce): dW the sum of the chunks' slots
-//    and db of the warps' slots, each in a fixed order.  No float atomics:
-//    two launches are bitwise equal.
+//    running sum with rounded adds (as the sweep); the running sum is stored
+//    to the chunk's f32 slot.
+// 3. The reduce (geometry_bwd_wgf_reduce, wgf_reduce_body): dW the sum of the
+//    chunks' slots and db of the warps' slots, each in a fixed order.  No
+//    float atomics: two launches are bitwise equal.
 //
 // Bytes at full width, 65,536 points (2,048 tiles): the scratch 512 KB a
 // tile written and read (2.15 GB); the images 1.13 MB a tile written (X:
@@ -106,15 +107,10 @@
 // From L2, every tile streams each layer's slabs twice (forward and
 // reverse, 8.4 MB a tile, 17 GB a call).  The products need 2.29 ms.
 #include "sdf_mlp.cuh"
-#include "wg_bwd.cuh"
+#include "wgf.cuh"
 
 #define FW_PTS 32          // points of a tile (64 stacked rows)
 #define FW_EW 48           // row (floats) of the encoding tiles
-#define FW_STAGE 65536     // bytes of a ring stage: a 256-column slab pair
-#define FW_NS 2            // ring stages
-#define FW_KB 8192         // bytes of a 32-k block of the 64-row A tile
-#define FW_SN 136          // columns of a weight-gradient slot row
-#define FW_MAXU 64         // most weight-gradient units
 
 struct FwDims {
   int L, multires, d_embed, n, n_tiles;
@@ -132,52 +128,7 @@ struct FwDims {
   const float* b[GW_MAXL];
 };
 
-// softplus(beta=100) and sigma(100 a) from one exp: with z = 100 a and
-// e = exp(-|z|), sp = (max(z, 0) + log1p(e)) / 100 (sdf_mlp.cuh's sp100)
-// and sigma = 1 / (1 + e) for z >= 0, e / (1 + e) below
-__device__ __forceinline__ void sp_sig100(float a, float& sp, float& s) {
-  const float z = 100.f * a;
-  const float e = expf(-fabsf(z));
-  sp = (fmaxf(z, 0.f) + log1pf(e)) * 0.01f;
-  const float r = 1.f / (1.f + e);
-  s = z >= 0.f ? r : e * r;
-}
-
-// small = x - (x with its 13 low mantissa bits dropped): what 3xTF32 adds
-// to the big half the tensor core reads of an f32 operand
-__device__ __forceinline__ float tf32_small(float x) {
-  return x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);
-}
-
-__device__ __forceinline__ uint32_t small_bits(float x) {
-  return __float_as_uint(tf32_small(x));
-}
-
-// Byte of (row r, k slot k) in the A tile: 32-k blocks of 64 rows x 128
-// bytes, 16-byte chunks swizzled by the row (wgmma.cuh).
-__device__ __forceinline__ int at_byte(int r, int k) {
-  return (k >> 5) * FW_KB + r * 128 + ((((k & 31) >> 2) ^ (r & 7)) << 4) +
-         ((k & 3) << 2);
-}
-
-// Float offset of (row r, column c) in a tile image of C columns: per
-// 32-row block, its columns one after another, a column's 32 rows one
-// 128-byte row swizzled by the column.
-__device__ __forceinline__ int img_at(int r, int c, int C) {
-  return (r >> 5) * (C * 32) + c * 32 + ((((r & 31) >> 2) ^ (c & 7)) << 2) +
-         (r & 3);
-}
-
 // -- the sweep ---------------------------------------------------------------
-
-__device__ __forceinline__ void fw_put(unsigned char* ring, uint64_t* full,
-                                       uint64_t* empty, int it,
-                                       const unsigned char* src, int bytes) {
-  const int st = it % FW_NS;
-  mbar_wait(empty + st, ((it / FW_NS) & 1) ^ 1);
-  mbar_expect_tx(full + st, bytes);
-  bulk_g2s(ring + st * FW_STAGE, src, bytes, full + st);
-}
 
 __device__ __forceinline__ void fw_producer(const FwDims& d,
                                             unsigned char* ring,
@@ -192,186 +143,6 @@ __device__ __forceinline__ void fw_producer(const FwDims& d,
       for (int s = 0; s < 8 + (d.outs[l] > 256); ++s, ++it)
         fw_put(ring, full, empty, it, d.rpack + d.r_off[l] + s * d.r_bytes[l],
                d.r_bytes[l]);
-  }
-}
-
-// A sweep product's k-step: m64n128 (a hidden or last layer's half) or
-// m64n24 (layer 0's r W, half of the encoding's 48 columns)
-template <int N>
-__device__ __forceinline__ void tf32_mma(float (&acc)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t b,
-                                         int keep) {
-  if constexpr (N == 128) wgmma_tf32_n128(acc, a, b, keep);
-  else wgmma_tf32_n24(acc, a, b, keep);
-}
-
-template <int N>
-__device__ __forceinline__ void tf32_mma_ss(float (&acc)[N / 2], uint64_t a,
-                                            uint64_t b, int keep) {
-  if constexpr (N == 128) wgmma_tf32_ss_n128(acc, a, b, keep);
-  else wgmma_tf32_ss_n24(acc, a, b, keep);
-}
-
-// One slab of a layer's product into the running sum run: its NK k-steps
-// (A tile k-steps kk0 .. kk0 + NK - 1) against ring slab it (cols columns,
-// big then small; this consumer's N from column n0), each k-step small_x
-// big_w + big_x small_w + big_x big_w into a fresh accumulator, then,
-// once the products have retired (the slab's stage released), added to
-// run (FIRST: run = acc).
-template <int N, int NK, bool FIRST>
-__device__ __forceinline__ void fw_slab(int it, unsigned char* ring,
-                                        uint64_t* full, uint64_t* empty,
-                                        uint32_t atile, int kk0, int cols,
-                                        int n0, float (&acc)[N / 2],
-                                        float (&run)[N / 2],
-                                        const unsigned char* at, int w,
-                                        int g, int t, int lead) {
-  const int st = it % FW_NS;
-  mbar_wait(full + st, (it / FW_NS) & 1);
-  uint32_t sm[NK][4];
-#pragma unroll
-  for (int j = 0; j < NK; ++j) {
-    const int k = 8 * (kk0 + j) + t;
-    const int r = 16 * w + g;
-    sm[j][0] = small_bits(*(const float*)(at + at_byte(r, k)));
-    sm[j][1] = small_bits(*(const float*)(at + at_byte(r + 8, k)));
-    sm[j][2] = small_bits(*(const float*)(at + at_byte(r, k + 4)));
-    sm[j][3] = small_bits(*(const float*)(at + at_byte(r + 8, k + 4)));
-  }
-  const uint32_t sb = smem_u32(ring + st * FW_STAGE);
-  const uint64_t bb = desc_sw128(sb + n0 * 128);
-  const uint64_t bs = desc_sw128(sb + (cols + n0) * 128);
-  wgmma_fence();
-#pragma unroll
-  for (int j = 0; j < NK; ++j) {
-    const int kk = kk0 + j;
-    const uint64_t da = desc_sw128(atile + (kk >> 2) * FW_KB) + 2 * (kk & 3);
-    tf32_mma<N>(acc, sm[j], bb + 2 * j, j ? 1 : 0);
-    tf32_mma_ss<N>(acc, da, bs + 2 * j, 1);
-    tf32_mma_ss<N>(acc, da, bb + 2 * j, 1);
-  }
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(acc);
-  mbar_arrive_if(empty + st, lead);
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) run[i] = FIRST ? acc[i] : run[i] + acc[i];
-}
-
-// The extra k-step of a last layer over 256 wide (its outputs 256 .. 263,
-// k slots 256 .. 263 of ring slab it): A from registers, xr its raw f32
-// values, both halves; added to run as a slab of its own.
-template <int N>
-__device__ __forceinline__ void fw_slab_regs(int it, unsigned char* ring,
-                                             uint64_t* full, uint64_t* empty,
-                                             int cols, int n0,
-                                             float (&acc)[N / 2],
-                                             float (&run)[N / 2],
-                                             const uint32_t (&xr)[4],
-                                             int lead) {
-  const int st = it % FW_NS;
-  mbar_wait(full + st, (it / FW_NS) & 1);
-  uint32_t xs[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) xs[i] = small_bits(__uint_as_float(xr[i]));
-  const uint32_t sb = smem_u32(ring + st * FW_STAGE);
-  const uint64_t bb = desc_sw128(sb + n0 * 128);
-  const uint64_t bs = desc_sw128(sb + (cols + n0) * 128);
-  wgmma_fence();
-  tf32_mma<N>(acc, xs, bb, 0);
-  tf32_mma<N>(acc, xr, bs, 1);
-  tf32_mma<N>(acc, xr, bb, 1);
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(acc);
-  mbar_arrive_if(empty + st, lead);
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) run[i] += acc[i];
-}
-
-// A whole layer's product from ring slab it on: NSLAB slabs of 4 k-steps
-// (the last LASTK), with EXTRA one more from registers.
-template <int N, int NSLAB, int LASTK, bool EXTRA>
-__device__ __forceinline__ void fw_layer(int it, unsigned char* ring,
-                                         uint64_t* full, uint64_t* empty,
-                                         uint32_t atile, int cols, int n0,
-                                         float (&acc)[N / 2],
-                                         float (&run)[N / 2],
-                                         const uint32_t (&xr)[4],
-                                         const unsigned char* at, int w,
-                                         int g, int t, int lead) {
-  fw_slab<N, NSLAB == 1 ? LASTK : 4, true>(it, ring, full, empty, atile, 0,
-                                           cols, n0, acc, run, at, w, g, t,
-                                           lead);
-#pragma unroll
-  for (int s = 1; s < NSLAB; ++s) {
-    if (s + 1 < NSLAB)
-      fw_slab<N, 4, false>(it + s, ring, full, empty, atile, 4 * s, cols, n0,
-                           acc, run, at, w, g, t, lead);
-    else
-      fw_slab<N, LASTK, false>(it + s, ring, full, empty, atile, 4 * s, cols,
-                               n0, acc, run, at, w, g, t, lead);
-  }
-  if constexpr (EXTRA)
-    fw_slab_regs<N>(it + NSLAB, ring, full, empty, cols, n0, acc, run, xr,
-                    lead);
-}
-
-// Writes value v of (row r, column c) into the A tile (c's k slot).
-__device__ __forceinline__ void at_put(unsigned char* at, int r, int c,
-                                       float v) {
-  *(float*)(at + at_byte(r, (c & ~7) + ((c & 7) >> 1) + ((c & 1) << 2))) = v;
-}
-
-// A consumer's 128 columns of a layer result in run (primal row 16w + g,
-// tangent row 16w + 8 + g: run[4q + e], run[4q + 2 + e] at column n0 + 8q
-// + 2t + e) into the A tile.
-__device__ __forceinline__ void at_store(unsigned char* at,
-                                         const float (&run)[64], int n0,
-                                         int w, int g, int t) {
-  const int r = 16 * w + g;
-#pragma unroll
-  for (int q = 0; q < 16; ++q)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = n0 + 8 * q + 2 * t + e;
-      at_put(at, r, c, run[4 * q + e]);
-      at_put(at, r + 8, c, run[4 * q + 2 + e]);
-    }
-}
-
-// The same columns into a tile image of C columns.
-__device__ __forceinline__ void img_store(float* im, const float (&run)[64],
-                                          int n0, int C, int w, int g,
-                                          int t) {
-  const int r = 16 * w + g;
-#pragma unroll
-  for (int q = 0; q < 16; ++q)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = n0 + 8 * q + 2 * t + e;
-      im[img_at(r, c, C)] = run[4 * q + e];
-      im[img_at(r + 8, c, C)] = run[4 * q + 2 + e];
-    }
-}
-
-// The sum over the warp's 8 lane groups of run[4q + e] (the primal rows)
-// by a transposing shuffle reduction (wg_bwd.cuh's gw_db_reduce on 16
-// column groups): after it, run[32 m + e] holds column 64 m + 8 g + 2 t + e
-// of the consumer's 128 (m < 2).
-__device__ __forceinline__ void fw_db_reduce(float (&acc)[64], int g) {
-#pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    const bool bit = (g >> s) & 1;
-#pragma unroll
-    for (int q = 0; q < 16; q += 2 << s)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float lo = acc[4 * q + e], hi = acc[4 * (q + (1 << s)) + e];
-        const float send = bit ? lo : hi;
-        const float keep = bit ? hi : lo;
-        acc[4 * q + e] = keep + __shfl_xor_sync(0xffffffffu, send, 4 << s);
-      }
   }
 }
 
@@ -680,230 +451,16 @@ geometry_bwd_wgf_sweep(const __grid_constant__ FwDims d) {
   }
 }
 
-// -- the weight-gradient pass ------------------------------------------------
-
-struct FwgDims {
-  int n_img, per, S, ns, stage_bytes;
-  const float* img;
-  float* part;
-  long long x_img[GW_MAXL], r_img[GW_MAXL];   // floats
-  int cx[GW_MAXL], cr[GW_MAXL];
-  int u_layer[FW_MAXU], u_pair[FW_MAXU], u_half[FW_MAXU];
-};
-
-// a unit's stage: R_l's half (nh columns, then room for its small half)
-// and X_l's pair (xc columns) of one 32-row block of one tile
-__device__ __forceinline__ void fwg_producer(const FwgDims& d, int l, int pr,
-                                             int h, int nh, int xc, int t0,
-                                             int t1, unsigned char* ring,
-                                             uint64_t* full,
-                                             uint64_t* empty) {
-  const int cr = d.cr[l], cx = d.cx[l];
-  const int rbytes = nh * 128, xbytes = xc * 128;
-  int it = 0;
-  for (int tile = t0; tile < t1; ++tile)
-    for (int kb = 0; kb < 2; ++kb, ++it) {
-      const int st = it % d.ns;
-      unsigned char* s = ring + (size_t)st * d.stage_bytes;
-      mbar_wait(empty + st, ((it / d.ns) & 1) ^ 1);
-      mbar_expect_tx(full + st, rbytes + xbytes);
-      bulk_g2s(s,
-               d.img + d.r_img[l] + (size_t)tile * 2 * cr * 32 +
-                   kb * cr * 32 + h * 128 * 32,
-               rbytes, full + st);
-      bulk_g2s(s + 2 * rbytes,
-               d.img + d.x_img[l] + (size_t)tile * 2 * cx * 32 +
-                   kb * cx * 32 + pr * 128 * 32,
-               xbytes, full + st);
-    }
-}
-
-// The small half R - trunc(R) of each landed stage, written beside its R
-// half by the producer warpgroup's three other warps (i: 0 .. 95), fenced
-// to the async proxy; then one arrival a warp on the stage's ready barrier
-__device__ __forceinline__ void fwg_smaller(const FwgDims& d, int nh, int n,
-                                            int i, unsigned char* ring,
-                                            uint64_t* full,
-                                            uint64_t* ready) {
-  const int n4 = nh * 128 / 16;
-  for (int it = 0; it < n; ++it) {
-    const int st = it % d.ns;
-    mbar_wait(full + st, (it / d.ns) & 1);
-    float4* r = (float4*)(ring + (size_t)st * d.stage_bytes);
-    // four loads in flight before their stores
-    for (int j0 = i; j0 < n4; j0 += 4 * 96) {
-      float4 v[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (j0 + 96 * u < n4) v[u] = r[j0 + 96 * u];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (j0 + 96 * u < n4)
-          r[n4 + j0 + 96 * u] =
-              make_float4(tf32_small(v[u].x), tf32_small(v[u].y),
-                          tf32_small(v[u].z), tf32_small(v[u].w));
-    }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncwarp();
-    mbar_arrive_if(ready + st, (i & 31) == 0);
-  }
-}
-
-// A consumer's chunk: X block w of the stage (A: big from shared memory,
-// small from registers) against R's half (B: big and small, from shared
-// memory, once the stage is ready; TAIL: its columns 128 on by m64n8), a
-// fresh accumulator a stage, added to run; then run to the chunk's slot.
-template <bool TAIL>
-__device__ __forceinline__ void fwg_consumer(const FwgDims& d, int nh, int w,
-                                             int t0, int t1,
-                                             unsigned char* ring,
-                                             uint64_t* full, uint64_t* empty,
-                                             uint64_t* ready, float* slot) {
-  const int tid = threadIdx.x & 127, wp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3, lead = lane == 0;
-  float acc[64], run[64], acc8[4], run8[4];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) run[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) run8[i] = 0.f;
-  const int rbytes = nh * 128;
-  const int n = 2 * (t1 - t0);
-  for (int it = 0; it < n; ++it) {
-    const int st = it % d.ns;
-    mbar_wait(full + st, (it / d.ns) & 1);
-    mbar_wait(ready + st, (it / d.ns) & 1);
-    unsigned char* s = ring + (size_t)st * d.stage_bytes;
-    const unsigned char* xs = s + 2 * rbytes + w * 64 * 128;
-    uint32_t sm[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = 16 * wp + g, k = 8 * j + t;
-      sm[j][0] = small_bits(*(const float*)(xs + at_byte(m, k)));
-      sm[j][1] = small_bits(*(const float*)(xs + at_byte(m + 8, k)));
-      sm[j][2] = small_bits(*(const float*)(xs + at_byte(m, k + 4)));
-      sm[j][3] = small_bits(*(const float*)(xs + at_byte(m + 8, k + 4)));
-    }
-    const uint32_t sb = smem_u32(s);
-    const uint64_t rb = desc_sw128(sb), rs = desc_sw128(sb + rbytes);
-    const uint64_t xa = desc_sw128(smem_u32(xs));
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wgmma_tf32_n128(acc, sm[j], rb + 2 * j, j ? 1 : 0);
-      wgmma_tf32_ss_n128(acc, xa + 2 * j, rs + 2 * j, 1);
-      wgmma_tf32_ss_n128(acc, xa + 2 * j, rb + 2 * j, 1);
-      if constexpr (TAIL) {
-        const uint64_t tb = rb + (128 * 128 >> 4), ts = rs + (128 * 128 >> 4);
-        wgmma_tf32_n8(acc8, sm[j], tb + 2 * j, j ? 1 : 0);
-        wgmma_tf32_ss_n8(acc8, xa + 2 * j, ts + 2 * j, 1);
-        wgmma_tf32_ss_n8(acc8, xa + 2 * j, tb + 2 * j, 1);
-      }
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
-    if constexpr (TAIL) fence_regs(acc8);
-    mbar_arrive_if(empty + st, lead);
-#pragma unroll
-    for (int i = 0; i < 64; ++i) run[i] += acc[i];
-    if constexpr (TAIL)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) run8[i] += acc8[i];
-  }
-  const int m = 16 * wp + g;
-#pragma unroll
-  for (int q = 0; q < 16; ++q) {
-    *(float2*)(slot + m * FW_SN + 8 * q + 2 * t) =
-        make_float2(run[4 * q], run[4 * q + 1]);
-    *(float2*)(slot + (m + 8) * FW_SN + 8 * q + 2 * t) =
-        make_float2(run[4 * q + 2], run[4 * q + 3]);
-  }
-  if constexpr (TAIL) {
-    *(float2*)(slot + m * FW_SN + 128 + 2 * t) = make_float2(run8[0], run8[1]);
-    *(float2*)(slot + (m + 8) * FW_SN + 128 + 2 * t) =
-        make_float2(run8[2], run8[3]);
-  }
-}
+// -- the weight-gradient pass and the reduce (wgf.cuh) -----------------------
 
 __global__ void __launch_bounds__(384, 1)
 geometry_bwd_wgf_wgrad(const __grid_constant__ FwgDims d) {
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) &
-                                    1023);
-  uint64_t* full = (uint64_t*)(ring + (size_t)d.ns * d.stage_bytes);
-  uint64_t* empty = full + d.ns;
-  uint64_t* ready = empty + d.ns;
-  const int u = blockIdx.x / d.S, ch = blockIdx.x - u * d.S;
-  const int l = d.u_layer[u], pr = d.u_pair[u], h = d.u_half[u];
-  const int nh = h ? d.cr[l] - 128 : 128;
-  const int xc = min(128, d.cx[l] - 128 * pr);
-  const int nw = xc / 64;                       // active consumers
-  const int t0 = ch * d.per, t1 = min(d.n_img, t0 + d.per);
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < d.ns; ++s) {
-      mbar_init(full + s, 1);
-      mbar_init(empty + s, 4 * nw);
-      mbar_init(ready + s, 3);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-  const int wg = threadIdx.x >> 7;
-  if (threadIdx.x >= 256) {
-    regs_dec<40>();
-    if (threadIdx.x == 256)
-      fwg_producer(d, l, pr, h, nh, xc, t0, t1, ring, full, empty);
-    else if (threadIdx.x >= 288)
-      fwg_smaller(d, nh, 2 * (t1 - t0), threadIdx.x - 288, ring, full,
-                  ready);
-  } else {
-    regs_inc<232>();
-    if (wg >= nw) return;
-    float* slot = d.part + ((size_t)blockIdx.x * 2 + wg) * 64 * FW_SN;
-    if (nh > 128)
-      fwg_consumer<true>(d, nh, wg, t0, t1, ring, full, empty, ready, slot);
-    else
-      fwg_consumer<false>(d, nh, wg, t0, t1, ring, full, empty, ready,
-                          slot);
-  }
+  wgf_wgrad_body(d, smem_raw);
 }
 
-// -- the reduce --------------------------------------------------------------
-
-struct FrDims {
-  int L, S, n_wslots;
-  long long P;
-  const float *part, *dbp;
-  float* grads;
-  int ins[GW_MAXL], outs[GW_MAXL], u_first[GW_MAXL];
-};
-
-// grads[j]: per layer dW [in][out] (the sum of its chunks' slots, in
-// order), then db [out] (the sum of the warps' slots, in order)
 __global__ void geometry_bwd_wgf_reduce(const __grid_constant__ FrDims r) {
-  long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= r.P) return;
-  int l = 0;
-  for (; l < r.L; ++l) {
-    const long long sz = (long long)r.ins[l] * r.outs[l] + r.outs[l];
-    if (j < sz) break;
-    j -= sz;
-  }
-  const int out = r.outs[l];
-  float s = 0.f;
-  if (j < (long long)r.ins[l] * out) {
-    const int i = (int)(j / out), o = (int)(j - (long long)i * out);
-    const int h = o >= 128, n = o - 128 * h;
-    const int u = r.u_first[l] + 2 * (i >> 7) + h, w = (i >> 6) & 1;
-    const float* p = r.part + ((size_t)u * r.S * 2 + w) * 64 * FW_SN +
-                     (i & 63) * FW_SN + n;
-    for (int c = 0; c < r.S; ++c) s += p[(size_t)c * 2 * 64 * FW_SN];
-  } else {
-    const int n = (int)(j - (long long)r.ins[l] * out);
-    for (int ws = 0; ws < r.n_wslots; ++ws)
-      s += r.dbp[((size_t)ws * r.L + l) * GW_BW + n];
-  }
-  r.grads[blockIdx.x * (long long)blockDim.x + threadIdx.x] = s;
+  wgf_reduce_body(r);
 }
 
 // Integer arguments: [L, multires, d_embed, n, grid, n_tiles, S, per, then
@@ -992,7 +549,6 @@ extern "C" int geometry_bwd(const int* ia, const unsigned long long* p,
   w.part = (float*)p[7];
   if ((long long)S * per < w.n_img || (long long)(S - 1) * per >= w.n_img)
     return (int)cudaErrorInvalidValue;
-  int nu = 0, widest = 0;
   for (int l = 0; l < L; ++l) {
     w.x_img[l] = d.x_img[l];
     w.r_img[l] = d.r_img[l];
@@ -1000,24 +556,12 @@ extern "C" int geometry_bwd(const int* ia, const unsigned long long* p,
     w.cr[l] = d.cr[l];
     r.ins[l] = d.ins[l];
     r.outs[l] = d.outs[l];
-    r.u_first[l] = nu;
-    for (int pr = 0; 128 * pr < d.cx[l]; ++pr)
-      for (int h = 0; h < 2; ++h) {
-        if (nu == FW_MAXU) return (int)cudaErrorInvalidValue;
-        w.u_layer[nu] = l;
-        w.u_pair[nu] = pr;
-        w.u_half[nu] = h;
-        const int nh = h ? d.cr[l] - 128 : 128;
-        const int sb = 2 * nh * 128 + min(128, d.cx[l] - 128 * pr) * 128;
-        widest = widest > sb ? widest : sb;
-        ++nu;
-      }
+    r.xn[l] = r.xn_at[l] = 0;
   }
-  w.stage_bytes = (widest + 1023) / 1024 * 1024;
-  const int wns = (int)((GW_SMEM_MAX - 1024) / ((size_t)w.stage_bytes + 24));
-  w.ns = wns < GW_MAX_NS ? wns : GW_MAX_NS;
-  if (w.ns < 2) return (int)cudaErrorInvalidValue;
-  const size_t wsmem = 1024 + (size_t)w.ns * (w.stage_bytes + 24);
+  size_t wsmem;
+  int nu;
+  const int rc = wgf_plan_pass(L, &w, &r, &wsmem, &nu);
+  if (rc) return rc;
   e = cudaFuncSetAttribute(geometry_bwd_wgf_wgrad,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)wsmem);

@@ -1,5 +1,8 @@
-// K1-fwd: fused positional encoding -> SDF MLP -> [sdf/scale | feature] and
-// the input gradient dsdf/dx from an in-kernel reverse sweep.
+// The mma.sync body of K1-fwd: fused positional encoding -> SDF MLP ->
+// [sdf/scale | feature] and the input gradient dsdf/dx from an in-kernel
+// reverse sweep, which K1-fwd-stash and the bf16 mode's K1-fwd-bf16 and
+// K1-fwd-stash-bf16 run (K1-fwd itself, in f32, runs on wgmma:
+// geometry_fwd_wg.cu).
 //
 // Replaces the TPU kernel factored_neus_tpu/ops/pallas_geometry.py
 // (_make_geom.run_fwd, body _build_fwd_kernel).
@@ -216,21 +219,15 @@ static int launch_fwd(const int* ia, const unsigned long long* p, float scale,
 }
 
 // Integer arguments: tc_dims_from_args'.  Pointers: [x, out, grad, scratch,
-// pack, b[L]].  Returns a cudaError_t value; 0 when the launch was
-// accepted.
-extern "C" int geometry_fwd(const int* ia, const unsigned long long* p,
-                            float scale, unsigned long long stream) {
-  return launch_fwd<false>(ia, p, scale, stream, nullptr, 4);
-}
-
-// Integer arguments as geometry_fwd.  Pointers: [x, out, grad, scratch,
-// bf16 stash [n][sum of outs[0..L-2]], pack, b[L]].
+// bf16 stash [n][sum of outs[0..L-2]], pack, b[L]].  Returns a cudaError_t
+// value; 0 when the launch was accepted.
 extern "C" int geometry_fwd_stash(const int* ia, const unsigned long long* p,
                                   float scale, unsigned long long stream) {
   return launch_fwd<false>(ia, p, scale, stream, (__nv_bfloat16*)p[4], 5);
 }
 
-// geometry_fwd's arguments, the pack pack_weights_bf16's: K1-fwd-bf16.
+// Integer arguments: tc_dims_from_args'.  Pointers: [x, out, grad, scratch,
+// pack, b[L]], the pack pack_weights_bf16's: K1-fwd-bf16.
 extern "C" int geometry_fwd_bf16(const int* ia, const unsigned long long* p,
                                  float scale, unsigned long long stream) {
   return launch_fwd<true>(ia, p, scale, stream, nullptr, 4);

@@ -10,13 +10,12 @@
 // feature dominates) and 12 out.  Every product runs on the tensor cores
 // in 3xTF32 (tc_mma.cuh), so the least time is three TF32 products' worth
 // of those FLOPs over 495 TFLOP/s.  The design is K2's (sdf_fwd.cu) with
-// K3-bwd's forward half inside it: persistent blocks, one per SM, walk
-// 64-row tiles; a tile's activations stay in shared memory through the
-// whole layer chain while the W^T blocks of the weight pack (built once a
-// step and shared with K3-bwd, pre-split into TF32 big and small halves)
-// are staged slice by slice into the ring by cp.async.  No scratch.
-// K3-bwd's argument layout and shared-memory count: two tiles of 64 x 300
-// floats (ld = the 289-wide first input rounded to 8, plus 4), 153,600 B,
+// the radiance MLP inside it: persistent blocks, one per SM, walk 64-row
+// tiles; a tile's activations stay in shared memory through the whole
+// layer chain while the W^T blocks of the weight pack (built once a step,
+// pre-split into TF32 big and small halves) are staged slice by slice
+// into the ring by cp.async.  No scratch.  Its shared memory: two tiles
+// of 64 x 300 floats (ld = the 289-wide first input rounded to 8, plus 4), 153,600 B,
 // and the ring sized for the pack's widest block (W0 at stride 296),
 // 75,776 B: 229,376 B of the 232,448 a block may use.
 //
@@ -30,7 +29,8 @@
 // reads no column past 296, so the zero padding [289, 296) and ld 300
 // serve both modes; the pack pads the block to 304 rows).  The bf16 ring
 // stages one half of 16 rows a stage, a quarter of the 3xTF32 ring, and is
-// sized by K3-bwd's weight-gradient chunk: 220,176 B in all.
+// sized by a 64-row weight-gradient chunk (tc_pack.smem_bytes' count, the
+// larger): 220,176 B in all.
 #include "radiance_mlp.cuh"
 
 template <bool BF>
@@ -114,7 +114,7 @@ static int launch_radiance_fwd(const int* ia, const unsigned long long* p,
   return (int)cudaGetLastError();
 }
 
-// Integer arguments: rad_tc_dims_from_args' (K3-bwd's).  Pointers: [pts,
+// Integer arguments: rad_tc_dims_from_args'.  Pointers: [pts,
 // normals, dirs, feat, rgb, pack, b[L]].  Returns a cudaError_t value; 0
 // when the launch was accepted.
 extern "C" int radiance_fwd(const int* ia, const unsigned long long* p,

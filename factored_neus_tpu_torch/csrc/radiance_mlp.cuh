@@ -1,9 +1,8 @@
-// Shared device code of the radiance-MLP kernels (K3 forward and backward):
-// their one argument layout and the first layer's input row
-// [pts (3) | PE(dirs) (d_view) | normals (3) | feature (d_feat)] of the IDR
-// RenderingNetwork.  Both run their products on the tensor cores
-// (tc_mma.cuh) from one weight pack, in 3xTF32 or, in the bf16 operand
-// mode (K3-fwd-bf16, K3-bwd-bf16), on bf16 operands.
+// Device code of K3-fwd (radiance_fwd.cu): its argument layout and the
+// first layer's input row [pts (3) | PE(dirs) (d_view) | normals (3) |
+// feature (d_feat)] of the IDR RenderingNetwork.  It runs its products on
+// the tensor cores (tc_mma.cuh) from one weight pack, in 3xTF32 or, in the
+// bf16 operand mode (K3-fwd-bf16), on bf16 operands.
 #pragma once
 
 #include "sdf_mlp.cuh"
@@ -13,11 +12,8 @@
 // outs[L], then the pack's layout] (ops/radiance_kernel.kernel_iargs)
 // into TcDims: no skip, scale 1, d_embed = d_view.  The first layer's
 // input may be as wide as the row stride ld: a product's depth is
-// unbounded, and K3-bwd runs its input cotangent in products of at most
-// 256 columns, the second of which stages whole rows from 256 columns into
-// the block, past its end into the next block of the pack.  So only the
-// first layer's input, whose W block another block follows, may be wider
-// than 256.  bf16: the pack is pack_weights_bf16's (the ring sized for
+// unbounded.  Only the first layer's input, whose W block another block of
+// the pack follows, may be wider than 256.  bf16: the pack is pack_weights_bf16's (the ring sized for
 // it).  Returns 0, or cudaErrorInvalidValue for a network or layout this
 // code cannot run.
 static inline int rad_tc_dims_from_args(const int* ia, const float* pack,

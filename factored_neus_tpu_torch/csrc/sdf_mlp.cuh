@@ -1,7 +1,8 @@
 // Shared device code of the MLP kernels: the positional encoding and its
 // backward, softplus(beta=100), and the fixed-order sum of per-block weight
-// gradients (K1-bwd, K3-bwd).  Every kernel runs its products on the
-// tensor cores (tc_mma.cuh).
+// gradients (the mma.sync K1 backwards: K1-bwd-split, K1-bwd-stash and
+// their bf16 variants).  Every kernel runs its products on the tensor
+// cores.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -32,7 +32,7 @@ def sdf_grid_query(sdf_net) -> Callable[[torch.Tensor], torch.Tensor]:
     tensor, its plain twin on a CPU tensor; one weight pack for every
     slab of the mesh."""
     with torch.no_grad():
-        weights = sdf_net.kernel_weights()
+        weights = sdf_net.kernel_weights(k1=False)
     return lambda pts: -sdf_net.value_sweep(pts, weights)
 
 

@@ -6,7 +6,8 @@ shapes.  Counterpart of factored_neus_tpu/models/fields.py:
                           each also in the bf16 operand mode
   RenderingNetwork        IDR-mode radiance MLP (K3, also in the bf16
                           operand mode), on one weight pack a step and,
-                          for K3-bwd-bf16, two slab packs (kernel_weights)
+                          for K3-bwd or K3-bwd-bf16, two slab packs
+                          (kernel_weights)
   SingleVarianceNetwork   inv_s = exp(10 * variance)
   RefColor                surface reflection colour (diffuse + specular)
   NeRF                    NeRF++ background model of the womask configs
@@ -39,6 +40,12 @@ from ..ops.embedder import positional_encoding
 from ..ops.mlp import WNLinear, dense_init_, sdf_geometric_init_
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether kernel_weights builds the kernels' packs for weights on
+    t's device (a CUDA device; the CPU twins read none)."""
+    return t.is_cuda
+
+
 _Pack = Optional[Tuple[torch.Tensor, TP.PackLayout]]
 _Slabs = Optional[Tuple[torch.Tensor, TP.SweepLayout]]
 
@@ -47,16 +54,17 @@ class KernelWeights(NamedTuple):
     """_WNLayers.kernel_weights' result: the effective weights and biases,
     and the packs the kernels read, each None where it was not built.
     The slab packs are, for the SDF network, K2-bf16's and K1-bwd-bf16's
-    (sweep16, rev16) and K1-bwd's (sweep32, rev32); for the radiance MLP
-    K3-bwd-bf16's (sweep16, rev16)."""
+    (sweep16, rev16) and K1-fwd's and K1-bwd's (sweep32, rev32); for the
+    radiance MLP K3-bwd-bf16's (sweep16, rev16) and K3-bwd's (sweep32,
+    rev32)."""
     ws: List[torch.Tensor]
     bs: List[torch.Tensor]
     pack: _Pack = None         # 3xTF32 (tc_pack.pack_weights)
     pack16: _Pack = None       # bf16 (tc_pack.pack_weights_bf16)
     sweep16: _Slabs = None     # the forward bf16 slab pack
     rev16: _Slabs = None       # the reverse bf16 slab pack
-    sweep32: _Slabs = None     # the forward f32 slab pack (K1-bwd)
-    rev32: _Slabs = None       # the reverse f32 slab pack (K1-bwd)
+    sweep32: _Slabs = None     # the forward f32 slab pack (K1, K3-bwd)
+    rev32: _Slabs = None       # the reverse f32 slab pack (K1, K3-bwd)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,7 +121,7 @@ class _WNLayers(nn.Module):
         for the SDF network; K3-fwd and K3-bwd for the radiance MLP."""
         ws, bs = self.effective_weights()
         pack = pack16 = sweep16 = None
-        if ws[0].is_cuda:
+        if _on_card(ws[0]):
             with torch.no_grad():
                 pack = TP.pack_weights(ws) if f32 else None
                 pack16 = TP.pack_weights_bf16(ws) if bf16 else None
@@ -135,9 +143,9 @@ def sweep_pack(weights: KernelWeights, bf16: bool):
 
 
 def bwd_slabs(weights: KernelWeights, bf16: bool):
-    """The two slab packs that the operand mode's wgmma backward reads
-    (K1-bwd-bf16 or K3-bwd-bf16: sweep16, rev16; K1-bwd: sweep32,
-    rev32), or None where they were not built."""
+    """The two slab packs that the operand mode's wgmma kernels read
+    (K1-bwd-bf16 or K3-bwd-bf16: sweep16, rev16; K1-fwd, K1-bwd or
+    K3-bwd: sweep32, rev32), or None where they were not built."""
     if bf16:
         return ((weights.sweep16, weights.rev16)
                 if weights.rev16 is not None else None)
@@ -176,20 +184,22 @@ class SDFNetwork(_WNLayers):
         return SK.sdf_forward_plain(ws, bs, self.cfg, x)
 
     def kernel_weights(self, bf16: bool = False, f32: bool = True,
-                       sweep_bf16: bool = False) -> KernelWeights:
-        """_WNLayers.kernel_weights and, where a stacked backward can
-        follow (grad enabled and geometry_kernel.wg_backward()), its two
-        slab packs (geometry_kernel.make_bwd_slabs): in the bf16 mode
-        K1-bwd-bf16's (the first is K2-bf16's slab pack, sweep16, which
-        the sweeps share; the second tc_pack.pack_rev_bf16's, rev16), else,
-        where a parameter requires grad, K1-bwd's (tc_pack.pack_sweep_f32's
-        and pack_rev_f32's, sweep32 and rev32)."""
-        wg = torch.is_grad_enabled() and GK.wg_backward()
-        wg16 = wg and bf16
-        wg32 = wg and not bf16 and any(p.requires_grad
-                                       for p in self.parameters())
+                       sweep_bf16: bool = False, k1: bool = True
+                       ) -> KernelWeights:
+        """_WNLayers.kernel_weights and the slab packs of K1's wgmma
+        kernels (geometry_kernel.make_bwd_slabs): in the f32 mode, wherever
+        K1-fwd will run (``k1``, and not through the stash pair,
+        geometry_kernel.wg_forward()), K1-fwd's and K1-bwd's
+        (tc_pack.pack_sweep_f32's and pack_rev_f32's, sweep32 and rev32),
+        with or without grad; in the bf16 mode, where a stacked backward can
+        follow (grad enabled and geometry_kernel.wg_backward()),
+        K1-bwd-bf16's (the first is K2-bf16's slab pack, sweep16, which the
+        sweeps share; the second tc_pack.pack_rev_bf16's, rev16).  ``k1``
+        False: for the sweeps alone (K2: value_sweep, the grid fill)."""
+        wg16 = torch.is_grad_enabled() and GK.wg_backward() and bf16
+        wg32 = not bf16 and k1 and GK.wg_forward()
         kw = super().kernel_weights(bf16, f32, sweep_bf16 or wg16)
-        if kw.ws[0].is_cuda and (wg16 or wg32):
+        if _on_card(kw.ws[0]) and (wg16 or wg32):
             with torch.no_grad():
                 if wg16:
                     kw = kw._replace(
@@ -211,7 +221,8 @@ class SDFNetwork(_WNLayers):
         theirs has none)."""
         with torch.no_grad():
             weights = weights or self.kernel_weights(f32=not bf16,
-                                                     sweep_bf16=bf16)
+                                                     sweep_bf16=bf16,
+                                                     k1=False)
             ws, bs = weights.ws, weights.bs
             ws = list(ws[:-1]) + [ws[-1][:1]]
             bs = list(bs[:-1]) + [bs[-1][:1]]
@@ -281,20 +292,24 @@ class RenderingNetwork(_WNLayers):
         return RK.radiance(weights.ws, weights.bs, self.cfg, points,
                            normals, view_dirs, feature_vectors,
                            mode_pack(weights, bf16), bf16,
-                           slabs=bwd_slabs(weights, True))
+                           slabs=bwd_slabs(weights, bf16))
 
     def kernel_weights(self, bf16: bool = False, f32: bool = True,
                        sweep_bf16: bool = False) -> KernelWeights:
-        """_WNLayers.kernel_weights and, in the bf16 mode where a backward
-        through K3-bwd-bf16 can follow (mode 'idr', grad enabled),
-        K3-bwd-bf16's two slab packs (radiance_kernel.make_bwd_slabs) as
-        sweep16 and rev16."""
+        """_WNLayers.kernel_weights and, where a backward through the
+        radiance kernels can follow (mode 'idr', grad enabled), the two
+        slab packs of the mode's wgmma backward
+        (radiance_kernel.make_bwd_slabs): in the bf16 mode K3-bwd-bf16's
+        (sweep16, rev16), else, where a parameter requires grad, K3-bwd's
+        (sweep32, rev32)."""
         kw = super().kernel_weights(bf16, f32)
-        if bf16 and self.cfg.mode == "idr" and torch.is_grad_enabled() \
-                and kw.ws[0].is_cuda:
+        if self.cfg.mode == "idr" and torch.is_grad_enabled() \
+                and _on_card(kw.ws[0]) and (bf16 or any(
+                    p.requires_grad for p in self.parameters())):
             with torch.no_grad():
-                sweep16, rev16 = RK.make_bwd_slabs(self.cfg, kw.ws)
-            kw = kw._replace(sweep16=sweep16, rev16=rev16)
+                sweep, rev = RK.make_bwd_slabs(self.cfg, kw.ws, bf16)
+            kw = (kw._replace(sweep16=sweep, rev16=rev) if bf16
+                  else kw._replace(sweep32=sweep, rev32=rev))
         return kw
 
 

@@ -132,9 +132,11 @@ class Stage1Model(nn.Module):
         follow (fields.SDFNetwork.kernel_weights), also K1-bwd-bf16's two
         slab packs (geometry_kernel.make_bwd_slabs, the first K2-bf16's
         too) and K3-bwd-bf16's (radiance_kernel.make_bwd_slabs,
-        fields.RenderingNetwork.kernel_weights); without ``bf16``, where a
-        backward can follow, K1-bwd's two f32 slab packs
-        (make_bwd_slabs(bf16=False), sweep32 and rev32).  Built once a step by
+        fields.RenderingNetwork.kernel_weights); without ``bf16``, K1-fwd's
+        and K1-bwd's two f32 slab packs (geometry_kernel.make_bwd_slabs(
+        bf16=False), sweep32 and rev32, with or without grad: K1-fwd reads
+        them) and, where a backward can follow, K3-bwd's
+        (radiance_kernel.make_bwd_slabs(bf16=False)).  Built once a step by
         ``render``, or once a validation image by its caller."""
         return (self.sdf.kernel_weights(bf16, f32=not (bf16 and sweep_bf16),
                                         sweep_bf16=sweep_bf16),

@@ -34,10 +34,10 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "kernels")
-SOURCES = ("geometry_fwd.cu", "geometry_bwd_wg.cu", "geometry_bwd.cu",
-           "geometry_bwd_bf16.cu", "geometry_bwd_bf16_wg.cu", "sdf_fwd.cu",
-           "sdf_fwd_bf16.cu", "radiance_fwd.cu", "radiance_bwd.cu",
-           "radiance_bwd_bf16_wg.cu")
+SOURCES = ("geometry_fwd.cu", "geometry_fwd_wg.cu", "geometry_bwd_wg.cu",
+           "geometry_bwd.cu", "geometry_bwd_bf16.cu", "geometry_bwd_bf16_wg.cu",
+           "sdf_fwd.cu", "sdf_fwd_bf16.cu", "radiance_fwd.cu",
+           "radiance_bwd_wg.cu", "radiance_bwd_bf16_wg.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -1,6 +1,7 @@
-"""K1: the fused SDF geometry core and its backward (csrc/geometry_fwd.cu,
-csrc/geometry_bwd_wg.cu, csrc/geometry_bwd.cu), with their plain PyTorch
-twins.
+"""K1: the fused SDF geometry core and its backward (csrc/geometry_fwd_wg.cu,
+csrc/geometry_bwd_wg.cu; the switch-only and bf16 variants in
+csrc/geometry_fwd.cu, csrc/geometry_bwd.cu and their bf16 sources), with
+their plain PyTorch twins.
 
 Counterpart of factored_neus_tpu/ops/pallas_geometry.py
 (sdf_value_grad_feat_pallas).  ``geometry(ws, bs, x, cfg)`` returns
@@ -25,19 +26,22 @@ the JAX package) computes K1-bwd's function with the primal and tangent
 chains as separate half-tile products; its twin is K1-bwd's.  The stash
 switch takes precedence over it, as in the JAX package.
 
-The kernels multiply on the tensor cores in 3xTF32 (csrc/tc_mma.cuh), on
+K1-fwd and K1-bwd, the stacked backward, run on Hopper's warpgroup
+``wgmma`` in 3xTF32 (csrc/geometry_fwd_wg.cu, csrc/geometry_bwd_wg.cu, on
+the f32 engine of csrc/wgf.cuh that K3-bwd shares), their weights
+streamed as big and small TF32 slabs (``make_bwd_slabs(cfg, ws,
+bf16=False)``: tc_pack.pack_sweep_f32's for X W and pack_rev_f32's for r
+W, built once a step, once a validation image or once a stage-2/3 run by
+``fields.SDFNetwork.kernel_weights`` wherever K1-fwd runs): K1-fwd is the
+primal forward through all nine layers and the reverse sweep from e0 /
+scale (``geometry_explicit(mm=sweep_mm_f32)`` emulates its arithmetic);
+K1-bwd a stacked sweep that writes each layer's f32 X_l and R_l, then a
+split-K ``wgmma`` pass dW_l = X_l^T R_l and a fixed-order reduce
+(``weight_grad_pass_plain(f32=True)`` is that pass in plain PyTorch,
+``sweep_mm_f32`` the sweep's products).  K1-bwd-split and the stash pair
+stay on ``mma.sync`` (csrc/geometry_bwd.cuh, csrc/geometry_fwd.cu), on
 weights packed by ``tc_pack.pack_weights``: once a step, shared with K2's
-sweeps (``fields.SDFNetwork.kernel_weights``), or once per call when the
-caller gives no pack.  K1-bwd, the stacked backward, runs on Hopper's
-warpgroup ``wgmma`` in 3xTF32 (csrc/geometry_bwd_wg.cu): a stacked sweep
-whose weights stream as big and small TF32 slabs (``make_bwd_slabs(cfg,
-ws, bf16=False)``: tc_pack.pack_sweep_f32's for X W and pack_rev_f32's
-for r W, built once a step, where a backward can follow, by
-``fields.SDFNetwork.kernel_weights``), which writes each layer's f32 X_l
-and R_l, then a split-K ``wgmma`` pass dW_l = X_l^T R_l and a fixed-order
-reduce (``weight_grad_pass_plain(f32=True)`` is that pass in plain
-PyTorch, ``sweep_mm_f32`` the sweep's products).  K1-bwd-split and
-K1-bwd-stash stay on ``mma.sync`` (csrc/geometry_bwd.cuh).
+sweeps, or once per call when the caller gives no pack.
 
 The bf16 operand mode (``bf16=True``; the stage-1 renderer's
 ``RendererConfig.core_act_bf16``, ``FNEUS_CORE_ACT_BF16``, as in the JAX
@@ -79,7 +83,8 @@ from .tc_pack import (PackLayout, check_layout, layout_iargs, make_pack,
                       mm_bf16, round8)
 from .tc_pack import pack_for as _pack_for
 
-K1_FWD = _cuda.CudaKernel("geometry_fwd", "geometry_fwd.cu", "geometry_fwd")
+K1_FWD = _cuda.CudaKernel("geometry_fwd", "geometry_fwd_wg.cu",
+                          "geometry_fwd")
 K1_BWD = _cuda.CudaKernel("geometry_bwd", "geometry_bwd_wg.cu",
                           "geometry_bwd")
 K1_FWD_STASH = _cuda.CudaKernel("geometry_fwd_stash", "geometry_fwd.cu",
@@ -122,12 +127,18 @@ def _skip_layers(cfg, L: int):
     return {l for l in cfg.skip_in if 0 <= l < L}
 
 
-def _geometry_bf16(ws, bs, x: torch.Tensor, cfg,
-                   preacts: Optional[List[torch.Tensor]] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The bf16 mode's (out, grad), written out as pallas_geometry's
-    _build_fwd_kernel computes them: the forward with bf16 products, then
-    the reverse sweep from e0 / scale with bf16 products."""
+def geometry_explicit(ws, bs, x: torch.Tensor, cfg, mm=None,
+                      preacts: Optional[List[torch.Tensor]] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, grad) written out as pallas_geometry's _build_fwd_kernel
+    computes them, without gradient: the forward, then the reverse sweep
+    from e0 / scale, each product by ``mm``: mm_bf16 (the default; the
+    bf16 mode's, whose first reverse step rounds e0 / scale and W_last's
+    row 0 to bf16 as JAX's dot does), or another, e.g. sweep_mm_f32 (K1-fwd's
+    3xTF32 products, whose first reverse step is W_last's row 0 / scale
+    read exactly, with no product)."""
+    bf16 = mm is None
+    mm = mm or mm_bf16
     ins, _, _ = layer_dims(cfg, ws)
     L, skip = len(ws), _skip_layers(cfg, len(ws))
     inv_sqrt2 = 1.0 / math.sqrt(2.0)
@@ -139,7 +150,7 @@ def _geometry_bf16(ws, bs, x: torch.Tensor, cfg,
         for l in range(L):
             if l in skip:
                 h = torch.cat([h, enc], -1) * inv_sqrt2
-            a = mm_bf16(h, ws[l].t()) + bs[l]
+            a = mm(h, ws[l].t()) + bs[l]
             if l < L - 1:
                 pre.append(a)
                 h = softplus_beta(a, 100.0)
@@ -150,7 +161,10 @@ def _geometry_bf16(ws, bs, x: torch.Tensor, cfg,
         r[:, 0] = 1.0 / s
         r_enc = torch.zeros_like(enc)
         for l in range(L - 1, -1, -1):
-            r_in = mm_bf16(r, ws[l])
+            if l == L - 1 and not bf16:
+                r_in = (ws[l][0] * (1.0 / s)).expand(x.shape[0], -1)
+            else:
+                r_in = mm(r, ws[l])
             if l in skip:
                 hw = ins[l] - cfg.d_embed
                 r_in = r_in * inv_sqrt2
@@ -179,7 +193,7 @@ def geometry_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
     ``bf16``: the bf16 mode's (out, grad), without gradient (its backward
     is geometry_bwd_plain(bf16=True); ``geometry`` joins the two)."""
     if bf16:
-        return _geometry_bf16(ws, bs, x, cfg, preacts)
+        return geometry_explicit(ws, bs, x, cfg, preacts=preacts)
     create = torch.is_grad_enabled()
     with torch.enable_grad():
         xg = x if x.requires_grad else x.detach().requires_grad_(True)
@@ -433,8 +447,12 @@ def _launch_forward(entry, cfg, x, ws, bs, with_stash: bool, pack=None,
 
 def launch_forward(cfg, x, ws, bs, pack=None, bf16: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1-fwd (bf16: K1-fwd-bf16): (out [N, d_out], grad [N, 3]);
-    ``pack``: make_pack(ws, bf16), when the caller already has it."""
+    """K1-fwd (bf16: K1-fwd-bf16): (out [N, d_out], grad [N, 3]).
+    ``pack``: K1-fwd's make_bwd_slabs(cfg, ws, bf16=False), the two f32
+    slab packs it reads (it raises without them); K1-fwd-bf16's
+    make_pack(ws, bf16=True), when the caller already has it."""
+    if not bf16:
+        return _launch_forward_wg(cfg, x, ws, bs, pack)
     out, grad, _ = _launch_forward("fwd", cfg, x, ws, bs, False, pack, bf16)
     return out, grad
 
@@ -457,15 +475,22 @@ WG_DB_ROW = 264
 
 
 def make_bwd_slabs(cfg, ws: Sequence[torch.Tensor], bf16: bool = True):
-    """The two slab packs of ws that a wgmma backward reads: K1-bwd-bf16's
+    """The two slab packs of ws that K1's wgmma kernels read: K1-bwd-bf16's
     (pack_sweep_bf16's, the forward X W, also K2-bf16's; pack_rev_bf16's,
-    the reverse r W), or with ``bf16`` False K1-bwd's (pack_sweep_f32's,
-    pack_rev_f32's: TF32 big and small halves)."""
+    the reverse r W), or with ``bf16`` False K1-fwd's and K1-bwd's
+    (pack_sweep_f32's, pack_rev_f32's: TF32 big and small halves)."""
     if not bf16:
         skip = sorted(skip_layers(cfg, len(ws)))
         return (TP.pack_sweep_f32(ws, skip, cfg.d_embed),
                 TP.pack_rev_f32(ws, cfg.d_embed))
     return make_sweep_pack(cfg, ws), TP.pack_rev_bf16(ws, cfg.d_embed)
+
+
+def wg_forward(stash: Optional[bool] = None) -> bool:
+    """Whether geometry takes its f32 forward through K1-fwd, which reads
+    make_bwd_slabs(bf16=False)'s packs: not through the stash pair
+    (``stash``, default STASH_BWD)."""
+    return not (STASH_BWD if stash is None else stash)
 
 
 def wg_backward(stash: Optional[bool] = None,
@@ -523,6 +548,67 @@ def _bwd_wgf_plan(cfg, ws, n: int, slabs, sms: int) -> dict:
             "image_bytes": img,
             "db_floats": grid * 4 * L * WG_DB_ROW,
             "slot_floats": units * chunks * 2 * 64 * WGF_SLOT_COLS}
+
+
+# K1-fwd (csrc/geometry_fwd_wg.cu): a tile's points (GF_TILE), the sweep's
+# shared memory (its ring of two 66 KB slab stages, the 64 KB A tile, the
+# encoding tiles, the barriers)
+WGF_FWD_POINTS = 64
+WGF_FWD_SMEM = 1024 + 2 * 67584 + 65536 + 2 * 64 * 48 * 4 + 32
+
+
+def fwd_wg_plan(cfg, ws, n: int, slabs, sms: int) -> dict:
+    """K1-fwd's launch: its integer arguments (``iargs``,
+    geometry_fwd_wg.cu) and the sizes of what the wrapper allocates: tiles
+    of WGF_FWD_POINTS points, one persistent block a tile up to one a SM,
+    each with its f32 scratch of sigma(100 a) (``scratch_floats``).
+    Raises unless ``slabs`` holds make_bwd_slabs(bf16=False)'s layouts for
+    ws."""
+    ins, outs, _ = layer_dims(cfg, ws)
+    (_, flay), (_, rlay) = slabs
+    if getattr(flay, "operand", None) != "wgmma-f32" or \
+            getattr(rlay, "operand", None) != "wgmma-f32-rev":
+        raise ValueError("K1-fwd multiplies on wgmma: it takes "
+                         "make_bwd_slabs(bf16=False)'s two slab packs")
+    if flay != TP.sweep_layout_f32(ins, outs, skip_layers(cfg, len(ws)),
+                                   cfg.d_embed) or \
+            rlay != TP.rev_layout_f32(ins, outs, cfg.d_embed):
+        raise ValueError("K1-fwd: the slab packs' layouts do not match the "
+                         "network's widths")
+    L = len(ws)
+    tiles = -(-n // WGF_FWD_POINTS)
+    grid = min(tiles, sms)
+    iargs = [L, cfg.multires, cfg.d_embed, n, grid, tiles, *ins, *outs,
+             *flay.enc, *flay.off, *rlay.off, *rlay.cols, flay.cols[-1]]
+    return {"iargs": iargs, "grid": grid, "tiles": tiles,
+            "sweep_smem": WGF_FWD_SMEM,
+            "scratch_floats": grid * (L - 1) * 16 * 256 * 4}
+
+
+def _launch_forward_wg(cfg, x, ws, bs, slabs):
+    """K1-fwd on make_bwd_slabs(bf16=False)'s packs."""
+    kernel = K1_FWD
+    dev = x.device
+    if slabs is None:
+        raise ValueError("K1-fwd reads make_bwd_slabs(bf16=False)'s packs, "
+                         "built by SDFNetwork.kernel_weights: none was given")
+    if getattr(slabs[0][1], "operand", None) != "wgmma-f32":
+        raise ValueError("K1-fwd multiplies on wgmma-f32 slabs: it takes no "
+                         "other pack")
+    (fp, _), (rp, _) = slabs
+    x = x.detach().contiguous()
+    bs = [b.detach().contiguous() for b in bs]
+    _cuda.check_cuda_tensors(kernel.name, [x, fp, rp, *bs])
+    n = x.shape[0]
+    out = torch.empty(n, ws[-1].shape[0], device=dev, dtype=torch.float32)
+    grad = torch.empty(n, 3, device=dev, dtype=torch.float32)
+    if n > 0:
+        plan = fwd_wg_plan(cfg, ws, n, slabs, _cuda.sm_count(dev))
+        scratch = torch.empty(plan["scratch_floats"], device=dev,
+                              dtype=torch.float32)
+        kernel.launch(plan["iargs"], [x, out, grad, scratch, fp, rp, *bs],
+                      cfg.scale, dev)
+    return out, grad
 
 
 def bwd_wg_plan(cfg, ws, n: int, slabs, sms: int) -> dict:
@@ -675,11 +761,8 @@ def launch_backward(cfg, x, ws, bs, ct_out, ct_grad, pack=None,
                     ) -> Tuple[torch.Tensor, List[torch.Tensor],
                                List[torch.Tensor]]:
     """K1-bwd (bf16: K1-bwd-bf16): (ct_x [N, 3], dW per layer [out, in],
-    db per layer [out]).  ``pack``: make_bwd_slabs(cfg, ws, bf16), which
-    K1-bwd-bf16 raises without and K1-bwd builds here when it is None."""
-    if pack is None and not bf16:
-        with torch.no_grad():
-            pack = make_bwd_slabs(cfg, ws, bf16=False)
+    db per layer [out]).  ``pack``: make_bwd_slabs(cfg, ws, bf16), the two
+    slab packs the kernel reads (it raises without them)."""
     return _launch_backward_wg(cfg, x, ws, bs, ct_out, ct_grad, pack, bf16)
 
 
@@ -706,39 +789,41 @@ def launch_backward_stash(cfg, x, ws, stash, ct_out, ct_grad, pack=None,
 class GeometryFn(torch.autograd.Function):
     """(x, *ws, *bs) -> (out, grad) through K1-fwd; backward with both
     cotangents through K1-bwd, or K1-bwd-split when not ``stacked``; in
-    the bf16 mode through their bf16 kernels.  ``pack``: make_pack(ws,
-    bf16), built without grad by the caller; ``slabs``:
-    make_bwd_slabs(cfg, ws, bf16), the packs of K1-bwd or K1-bwd-bf16
-    (stacked), saved here for the backward.  On a CPU tensor (``pack``
-    None) the bf16 mode runs the explicit twins; the f32 mode does not
-    come here on the CPU (geometry_plain differentiates itself)."""
+    the bf16 mode through their bf16 kernels.  ``slabs``:
+    make_bwd_slabs(cfg, ws, bf16), the packs of K1-fwd and K1-bwd (f32) or
+    of K1-bwd-bf16 (stacked); ``pack``: make_pack(ws, bf16), the pack of
+    K1-fwd-bf16 and of K1-bwd-split (bf16 or not), built without grad by
+    the caller.  On a CPU tensor (``pack`` None) the bf16 mode runs the
+    explicit twins; the f32 mode does not come here on the CPU
+    (geometry_plain differentiates itself)."""
 
     @staticmethod
     def forward(ctx, cfg, stacked, bf16, pack, slabs, x, *params):
         L = len(params) // 2
         ws, bs = params[:L], params[L:]
         if x.is_cuda:
-            out, grad = launch_forward(cfg, x, ws, bs, pack, bf16)
-            ctx.layout, pack = pack[1], pack[0]
+            out, grad = launch_forward(cfg, x, ws, bs,
+                                       pack if bf16 else slabs, bf16)
         else:
             out, grad = geometry_plain(ws, bs, x, cfg, bf16=bf16)
-        ctx.cfg, ctx.stacked, ctx.bf16, ctx.slabs = cfg, stacked, bf16, slabs
-        ctx.save_for_backward(x, pack, *params)
+        ctx.cfg, ctx.stacked, ctx.bf16 = cfg, stacked, bf16
+        ctx.pack, ctx.slabs = pack, slabs
+        ctx.save_for_backward(x, *params)
         return out, grad
 
     @staticmethod
     @once_differentiable
     def backward(ctx, ct_out, ct_grad):
-        x, pack, *params = ctx.saved_tensors
+        x, *params = ctx.saved_tensors
         L = len(params) // 2
         ws, bs = params[:L], params[L:]
         if x.is_cuda and ctx.stacked:
             ct_x, dws, dbs = _launch_backward_wg(ctx.cfg, x, ws, bs, ct_out,
                                                  ct_grad, ctx.slabs, ctx.bf16)
         elif x.is_cuda:
-            launch = launch_backward if ctx.stacked else launch_backward_split
-            ct_x, dws, dbs = launch(ctx.cfg, x, ws, bs, ct_out, ct_grad,
-                                    (pack, ctx.layout), ctx.bf16)
+            ct_x, dws, dbs = launch_backward_split(ctx.cfg, x, ws, bs,
+                                                   ct_out, ct_grad, ctx.pack,
+                                                   ctx.bf16)
         else:
             ct_x, dws, dbs = geometry_bwd_plain(ws, bs, x, ct_out, ct_grad,
                                                 ctx.cfg, ctx.bf16)
@@ -788,24 +873,30 @@ def geometry(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [N, d_out], grad [N, 3]), differentiable in x, ws and bs;
     through the HBM-stash pair when ``stash`` (default STASH_BWD), else
-    with the backward through K1-bwd when ``stacked`` (default
-    STACKED_BWD) and K1-bwd-split when not; ``bf16``: in the bf16 operand
-    mode, each through its bf16 kernel.  ``pack``: make_pack(ws, bf16)
-    when the caller already has it (on a CUDA tensor; built here if not).
-    ``slabs``: make_bwd_slabs(cfg, ws, bf16), which a backward through
-    K1-bwd or K1-bwd-bf16 reads (on a CUDA tensor, where a backward can
-    follow, i.e. with grad enabled and x or a weight requiring it, it
-    raises without them where wg_backward(stash, stacked))."""
+    through K1-fwd with the backward through K1-bwd when ``stacked``
+    (default STACKED_BWD) and K1-bwd-split when not; ``bf16``: in the bf16
+    operand mode, each through its bf16 kernel.  ``slabs``:
+    make_bwd_slabs(cfg, ws, bf16), which K1-fwd and K1-bwd read (on a
+    CUDA tensor the f32 mode raises without them, and the bf16 mode where
+    a backward through K1-bwd-bf16 can follow, i.e. with grad enabled and
+    x or a weight requiring it).  ``pack``: make_pack(ws, bf16), which the
+    stash pair, K1-bwd-split and the bf16 mode's K1-fwd-bf16 read, when
+    the caller already has it (on a CUDA tensor; built here if not)."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"geometry: unsupported device {x.device}")
-    if x.is_cuda and pack is None:
+    stash = STASH_BWD if stash is None else stash
+    stacked = STACKED_BWD if stacked is None else bool(stacked)
+    wgf = x.is_cuda and not bf16 and not stash     # through K1-fwd
+    if x.is_cuda and pack is None and not (wgf and stacked):
         with torch.no_grad():
             pack = make_pack(ws, bf16)
-    if STASH_BWD if stash is None else stash:
+    if stash:
         return GeometryStashFn.apply(cfg, bf16, pack, x, *ws, *bs)
     if x.is_cuda or bf16:
-        stacked = STACKED_BWD if stacked is None else bool(stacked)
-        if (x.is_cuda and stacked and slabs is None
+        if wgf and slabs is None:
+            raise ValueError("geometry: K1-fwd reads make_bwd_slabs' packs "
+                             "(slabs=)")
+        if (x.is_cuda and bf16 and stacked and slabs is None
                 and torch.is_grad_enabled()
                 and any(t.requires_grad for t in (x, *ws, *bs))):
             raise ValueError("geometry: the stacked backward reads "

@@ -1,5 +1,5 @@
 """K3: the fused IDR radiance MLP and its backward (csrc/radiance_fwd.cu,
-csrc/radiance_bwd.cu), with their plain PyTorch twin.
+csrc/radiance_bwd_wg.cu), with their plain PyTorch twin.
 
 Counterpart of factored_neus_tpu/ops/pallas_radiance.py
 (rendering_apply_pallas).  ``radiance(ws, bs, cfg, pts, normals, dirs,
@@ -13,11 +13,19 @@ directions' through the encoding's Jacobian.  The kernels cover
 ``mode='idr'``, as the TPU kernel does; on a CUDA tensor another mode
 raises.  On a CPU tensor the wrapper runs the plain twin, in every mode.
 
-Both kernels multiply on the tensor cores in 3xTF32 (csrc/tc_mma.cuh),
-from one weight pack (tc_pack.pack_weights), built once a step or once a
-validation image (``fields.RenderingNetwork.kernel_weights``), which
-``RadianceFn`` hands from the forward to the backward; they take one
-argument layout (``kernel_iargs``) and the same shared-memory count.
+K3-fwd multiplies on the tensor cores in 3xTF32 on ``mma.sync``
+(csrc/tc_mma.cuh) from tc_pack.pack_weights' pack, built once a step or
+once a validation image (``fields.RenderingNetwork.kernel_weights``).
+K3-bwd runs on Hopper's warpgroup ``wgmma`` in 3xTF32
+(csrc/radiance_bwd_wg.cu, on the f32 engine of csrc/wgf.cuh that K1-bwd
+and K1-fwd share): a sweep whose weights stream as TF32 big and small
+slabs (``make_bwd_slabs(cfg, ws, bf16=False)``: tc_pack.pack_rad_sweep_f32's
+for X W and pack_rad_rev_f32's for r W, built once a step where a
+backward can follow, by ``fields.RenderingNetwork.kernel_weights``),
+which keeps the ReLU masks in registers and writes each layer's f32 X_l
+and R_l, then a split-K ``wgmma`` pass dW_l = X_l^T R_l and a
+fixed-order reduce (``weight_grad_pass_plain(f32=True)`` is that pass in
+plain PyTorch).
 
 The bf16 operand mode (``bf16=True``; the stage-1 render core under
 ``RendererConfig.core_act_bf16``, as the JAX step rounds the radiance
@@ -49,12 +57,17 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _cuda
+from . import geometry_kernel as GK
 from . import tc_pack as TP
 from .embedder import positional_encoding, positional_encoding_vjp
+# K3-bwd's pass runs on K1's f32 engine (csrc/wgf.cuh): a rounded add
+# every 32-row stage
+from .geometry_kernel import WGF_PASS_STAGE
 from .sdf_kernel import MAX_WIDTH, TILE
 
 K3_FWD = _cuda.CudaKernel("radiance_fwd", "radiance_fwd.cu", "radiance_fwd")
-K3_BWD = _cuda.CudaKernel("radiance_bwd", "radiance_bwd.cu", "radiance_bwd")
+K3_BWD = _cuda.CudaKernel("radiance_bwd", "radiance_bwd_wg.cu",
+                          "radiance_bwd")
 # the bf16 operand mode's entry points
 K3_FWD_BF16 = _cuda.CudaKernel("radiance_fwd_bf16", "radiance_fwd.cu",
                                "radiance_fwd_bf16")
@@ -102,7 +115,7 @@ def radiance_bwd_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
                        cfg, pts, normals, dirs, feat, ct_rgb,
                        bf16: bool = False,
                        masks: Optional[Sequence[torch.Tensor]] = None,
-                       operands: Optional[dict] = None):
+                       operands: Optional[dict] = None, mm=None):
     """Explicit twin of K3-bwd (bf16: K3-bwd-bf16), pallas_radiance's
     _build_bwd_kernel: the forward recomputed, the seed through the
     sigmoid, then per layer dW = r^T x_l, db = sum r and r W through the
@@ -111,11 +124,13 @@ def radiance_bwd_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
     the recompute's own (a kernel's, to hold it on the function it
     computes where a pre-activation lies within rounding of 0).
     ``operands``: receives, for each layer l, the weight gradient's
-    operands (x_l, r_l) (weight_grad_pass_plain).  Returns
+    operands (x_l, r_l) (weight_grad_pass_plain).  ``mm``: the products
+    (a, b) -> a @ b, in place of the operand mode's (sweep_mm_f32
+    emulates K3-bwd's sweep).  Returns
     launch_backward's (ct_pts, ct_normals, ct_dirs, ct_feat, dW per layer
     [out, in], db per layer), in pts' dtype; a cotangent of an input that
     the mode does not read is zero."""
-    mm = TP.mm_bf16 if bf16 else torch.matmul
+    mm = mm or (TP.mm_bf16 if bf16 else torch.matmul)
     L = len(ws)
     with torch.no_grad():
         xs = [_x0(cfg, pts, normals, dirs, feat)]
@@ -151,38 +166,61 @@ def radiance_bwd_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
     return ct_pts, ct_normals, ct_dirs, ct_feat, dws, dbs
 
 
-def weight_grad_pass_plain(operands: dict, tiles_per_chunk: int
+def weight_grad_pass_plain(operands: dict, tiles_per_chunk: int,
+                           f32: bool = False
                            ) -> Tuple[List[torch.Tensor],
                                       List[torch.Tensor]]:
-    """K3-bwd-bf16's weight-gradient pass in plain PyTorch, on the
-    operands radiance_bwd_plain(bf16=True, operands=...) recorded: (dW
-    per layer [out, in], db per layer).  The rows are cut into chunks of
+    """A wgmma radiance backward's weight-gradient pass in plain PyTorch, on
+    the operands radiance_bwd_plain(operands=...) recorded: (dW per layer
+    [out, in], db per layer).  The rows are cut into chunks of
     ``tiles_per_chunk`` tiles of WG_TILE rows; dW_l is the sum, chunk
-    after chunk, of x_l^T r_l over the chunk's rows on bf16-rounded
-    operands with an f32 sum (pallas_radiance's dot_at); db_l the f32 sum
-    of r_l, rounded to nothing."""
+    after chunk, of x_l^T r_l over the chunk's rows: on bf16-rounded
+    operands with an f32 sum (K3-bwd-bf16, pallas_radiance's dot_at), or
+    (``f32``: K3-bwd's) in 3xTF32 on both operands as the tensor core
+    reads them from the images, each 32-row stage into a fresh accumulator
+    added to the chunk's sum with a rounded add; db_l the f32 sum of r_l,
+    rounded to nothing."""
     dws, dbs = [], []
     step = WG_TILE * tiles_per_chunk
     for l in range(len(operands)):
         x, r = operands[l]
         dw = None
         for c0 in range(0, x.shape[0], step):
-            part = TP.mm_bf16(r[c0:c0 + step].t(), x[c0:c0 + step])
+            c = slice(c0, c0 + step)
+            part = (TP.mm_3xtf32(x[c].t(), r[c], WGF_PASS_STAGE, "trunc",
+                                 "trunc").t() if f32
+                    else TP.mm_bf16(r[c].t(), x[c]))
             dw = part if dw is None else dw + part
         dws.append(dw)
         dbs.append(r.sum(0))
     return dws, dbs
 
 
-MAX_HIDDEN = 256    # widest hidden layer the kernels take (radiance_mlp.cuh)
+def sweep_mm_f32(a: torch.Tensor, b: torch.Tensor,
+                 narrow: int = 0) -> torch.Tensor:
+    """a @ b as K3-bwd's sweep computes a product (radiance_bwd_plain's
+    ``mm``): K1's engine, geometry_kernel.sweep_mm_f32.  ``narrow``: a is
+    layer 0's input in the twin's order [narrow (that many columns) |
+    feature], summed in the kernel's k order: the feature's columns from k
+    = 0, zero up to 256, the narrow ones from k = 256 on."""
+    if narrow:
+        pad = TP.HIDDEN_COLS - (a.shape[1] - narrow)
+        a = torch.cat([a[:, narrow:], a.new_zeros(a.shape[0], pad),
+                       a[:, :narrow]], 1)
+        b = torch.cat([b[narrow:], b.new_zeros(pad, b.shape[1]),
+                       b[:narrow]], 0)
+    return GK.sweep_mm_f32(a, b)
+
+
+MAX_HIDDEN = 256    # widest hidden layer K3-fwd takes (radiance_mlp.cuh)
 
 
 def kernel_iargs(cfg, ws, n: int, grid: int, lay: TP.PackLayout
                  ) -> Tuple[List[int], int]:
-    """The kernels' integer arguments [L, multires, d_view, ld,
-    squeeze_out, n, grid, ins[L], outs[L], then the pack's layout] and the
-    row stride ld, the widest layer rounded up to 8, plus 4; raises for a
-    network the kernels cannot hold.  Both operand modes take the same
+    """K3-fwd's integer arguments [L, multires, d_view, ld, squeeze_out,
+    n, grid, ins[L], outs[L], then the pack's layout] and the row stride
+    ld, the widest layer rounded up to 8, plus 4; raises for a network the
+    kernel cannot hold.  Both operand modes take the same
     arguments and ld (a bf16 product's last k16 step of the 296-deep first
     layer is a half step, which reads no column past 296); the pack's
     layout, of either operand type, sizes the ring."""
@@ -210,8 +248,8 @@ def kernel_iargs(cfg, ws, n: int, grid: int, lay: TP.PackLayout
 
 
 def smem_bytes(lay: TP.PackLayout, outs, ld: int) -> int:
-    """Shared memory of K3-fwd and K3-bwd alike: two tiles of stride ld and
-    the weight ring (no tile of its own for x0)."""
+    """Shared memory of K3-fwd (either operand mode): two tiles of stride
+    ld and the weight ring (no tile of its own for x0)."""
     return TP.smem_bytes(lay, outs, 2 * TILE * ld)
 
 
@@ -258,67 +296,32 @@ def _unpack_grads(grads, ins, outs):
 
 
 def launch_backward(cfg, ws, bs, pts, normals, dirs, feat, ct_rgb,
-                    scratch=None, pack=None, bf16: bool = False,
+                    pack=None, bf16: bool = False,
                     masks: Optional[list] = None):
     """K3-bwd (bf16: K3-bwd-bf16): (ct_pts, ct_normals, ct_dirs, ct_feat,
-    dW per layer [out, in], db per layer [out]).  ``scratch``: K3-bwd's
-    per-block buffer [grid, L - 1, TILE, ld] (grid = min(tiles, SMs), ld
-    from kernel_iargs), where each block leaves h = relu(a) of the hidden
-    layers of the last tile it took; a fresh one when None.  ``pack``:
-    tc_pack.make_pack(ws), when the caller already has it; in the bf16
-    mode make_bwd_slabs(cfg, ws), which K3-bwd-bf16 reads (it raises
-    without them).  ``masks`` (bf16 only): a list that receives the ReLU
+    dW per layer [out, in], db per layer [out]).  ``pack``:
+    make_bwd_slabs(cfg, ws, bf16), the two slab packs the kernel reads
+    (it raises without them).  ``masks``: a list that receives the ReLU
     masks a_l > 0 [N, outs[l]] of the kernel's own forward, one a hidden
     layer (decode_mask_bits)."""
-    if bf16:
-        if scratch is not None:
-            raise ValueError("K3-bwd-bf16 keeps its ReLU masks in registers: "
-                             "it takes no scratch (masks= writes them out)")
-        return _launch_backward_wg(cfg, ws, bs, pts, normals, dirs, feat,
-                                   ct_rgb, pack, masks)
-    if masks is not None:
-        raise ValueError("K3-bwd leaves its ReLU masks in scratch= "
-                         "(masks= is K3-bwd-bf16's)")
-    kernel = K3_BWD
-    dev = pts.device
-    pts, normals, dirs, feat = _inputs(kernel.name, pts, normals, dirs,
-                                       feat)
-    bs = [b.detach().contiguous() for b in bs]
-    ct_rgb = ct_rgb.contiguous()
-    pack, lay = TP.pack_for(kernel, ws, pack, False)
-    _cuda.check_cuda_tensors(kernel.name, [pts, normals, dirs, feat,
-                                           ct_rgb, pack, *bs])
-    n, L = pts.shape[0], len(ws)
-    ins = [int(w.shape[1]) for w in ws]
-    outs = [int(w.shape[0]) for w in ws]
-    P = sum(i * o + o for i, o in zip(ins, outs))
-    cts = [torch.empty_like(v) for v in (pts, normals, dirs, feat)]
-    grads = torch.zeros(P, device=dev, dtype=torch.float32)
-    if n > 0:
-        grid = min(math.ceil(n / TILE), _cuda.sm_count(dev))
-        iargs, ld = kernel_iargs(cfg, ws, n, grid, lay)
-        shape = (grid, L - 1, TILE, ld)
-        if scratch is None:
-            scratch = torch.empty(shape, device=dev, dtype=torch.float32)
-        elif tuple(scratch.shape) != shape:
-            raise ValueError(f"{kernel.name}: scratch must be {shape}, "
-                             f"got {tuple(scratch.shape)}")
-        _cuda.check_cuda_tensors(kernel.name, [pts, scratch])
-        part = torch.empty(grid * P, device=dev, dtype=torch.float32)
-        kernel.launch(iargs, [pts, normals, dirs, feat, ct_rgb, *cts,
-                              scratch, part, grads, pack, *bs], 1.0, dev)
-    return (*cts, *_unpack_grads(grads, ins, outs))
+    return _launch_backward_wg(cfg, ws, bs, pts, normals, dirs, feat,
+                               ct_rgb, pack, masks, bf16)
 
 
-# K3-bwd-bf16 (csrc/radiance_bwd_bf16_wg.cu): a consumer warpgroup's tile
-# (RW_TILE rows), the float4 rows of a weight-gradient slot (GW_PQ), the
-# bytes of a 64-column block of a tile image (GW_XB), a db slot's row
-# (GW_BW), the row of a consumer's narrow-column tile (RW_EW)
+# K3-bwd-bf16 (csrc/radiance_bwd_bf16_wg.cu) and K3-bwd
+# (csrc/radiance_bwd_wg.cu): a tile (RW_TILE, RF_TILE rows), the float4
+# rows of a bf16 weight-gradient slot (GW_PQ), the bytes of a 64-column
+# block of a bf16 tile image (GW_XB), a db slot's row (GW_BW), the row of a
+# bf16 consumer's narrow-column tile (RW_EW); K3-bwd's weight-gradient slot
+# row (FW_SN) and sweep shared memory (its ring of two 64 KB slab stages,
+# the 80 KB A tile, the narrow tile, the barriers)
 WG_TILE = 64
 WG_SLOT_ROWS = 40
 WG_BLOCK = 8192
 WG_DB_ROW = 264
 WG_NARROW_ROW = 52
+WGF_SLOT_COLS = 136
+WGF_SWEEP_SMEM = 1024 + 2 * 65536 + 64 * 320 * 4 + 64 * 48 * 4 + 32
 
 
 def _narrow(cfg) -> int:
@@ -326,38 +329,94 @@ def _narrow(cfg) -> int:
     return 6 + cfg.d_view
 
 
-def make_bwd_slabs(cfg, ws: Sequence[torch.Tensor]):
-    """K3-bwd-bf16's two slab packs of ws: (tc_pack.pack_rad_sweep_bf16's,
-    the forward X W; pack_rad_rev_bf16's, the reverse r W)."""
+def make_bwd_slabs(cfg, ws: Sequence[torch.Tensor], bf16: bool = True):
+    """The two slab packs of ws that a wgmma radiance backward reads:
+    K3-bwd-bf16's (pack_rad_sweep_bf16's, the forward X W;
+    pack_rad_rev_bf16's, the reverse r W), or with ``bf16`` False K3-bwd's
+    (pack_rad_sweep_f32's, pack_rad_rev_f32's: TF32 big and small
+    halves)."""
+    if not bf16:
+        return (TP.pack_rad_sweep_f32(ws, _narrow(cfg)),
+                TP.pack_rad_rev_f32(ws, _narrow(cfg)))
     return (TP.pack_rad_sweep_bf16(ws, _narrow(cfg)),
             TP.pack_rad_rev_bf16(ws, _narrow(cfg)))
 
 
+def _bwd_wgf_plan(cfg, ws, n: int, slabs, sms: int,
+                  masks: bool = False) -> dict:
+    """K3-bwd's launch (bwd_wg_plan for make_bwd_slabs(bf16=False)'s
+    packs): the sweep, a block of two consumer warpgroups a tile of
+    WG_TILE rows, one persistent block a tile up to one a SM; the
+    weight-gradient pass, ``units`` (a layer, a 128-column X pair, an R
+    half: layer 0 three pairs, the last layer one 8-column half) times
+    ``chunks`` of ``per`` tiles."""
+    ins = [int(w.shape[1]) for w in ws]
+    outs = [int(w.shape[0]) for w in ws]
+    (_, flay), (_, rlay) = slabs
+    if flay != TP.rad_sweep_layout_f32(ins, outs, _narrow(cfg)) or \
+            rlay != TP.rad_rev_layout_f32(ins, outs, _narrow(cfg)):
+        raise ValueError("K3-bwd: the slab packs' layouts do not match the "
+                         "network's widths")
+    L = len(ws)
+    tiles = -(-n // WG_TILE)
+    grid = min(tiles, sms)
+    cx = [320] + [256] * (L - 1)
+    cr = [256] * (L - 1) + [8]
+    halves = [2 if r > 128 else 1 for r in cr]
+    units = sum(-(-x // 128) * h for x, h in zip(cx, halves))
+    per = -(-tiles // max(1, sms // units))
+    chunks = -(-tiles // per)
+    img = tiles * 4 * sum(2 * 32 * (x + r) for x, r in zip(cx, cr))
+    stage = max(2 * (min(r, 128) if h == 0 else r - 128) * 128
+                + min(128, x - 128 * p) * 128
+                for x, r, hs in zip(cx, cr, halves)
+                for p in range(-(-x // 128)) for h in range(hs))
+    stage = -(-stage // 1024) * 1024
+    wns = min(8, (TP.SMEM_MAX - 1024) // (stage + 24))
+    iargs = [L, cfg.multires_view, cfg.d_view, n, grid, tiles, chunks, per,
+             int(cfg.squeeze_out), int(masks), *ins, *outs, *flay.off,
+             *rlay.off]
+    return {"iargs": iargs, "grid": grid, "nc": 2, "n_pass": tiles,
+            "units": units, "chunks": chunks, "per": per,
+            "sweep_smem": WGF_SWEEP_SMEM,
+            "wgrad_smem": 1024 + wns * (stage + 24), "tiles": tiles,
+            "image_bytes": img,
+            "db_floats": grid * 4 * L * WG_DB_ROW,
+            "slot_floats": units * chunks * 2 * 64 * WGF_SLOT_COLS,
+            "mask_words": tiles * 256 * (L - 1) * 2 if masks else 0,
+            "mask_layout": (256, 2)}
+
+
 def bwd_wg_plan(cfg, ws, n: int, slabs, sms: int,
                 masks: bool = False) -> dict:
-    """K3-bwd-bf16's launch: its integer arguments (``iargs``,
-    radiance_bwd_bf16_wg.cu) and the sizes of what the wrapper allocates.
-    The sweep: tiles of WG_TILE rows, two consumer warpgroups a block when
+    """A wgmma radiance backward's launch: its integer arguments
+    (``iargs``, radiance_bwd_bf16_wg.cu, or for K3-bwd's f32 slab packs
+    radiance_bwd_wg.cu, _bwd_wgf_plan) and the sizes of what the wrapper
+    allocates.  K3-bwd-bf16's sweep: tiles of WG_TILE rows, two consumer warpgroups a block when
     there are more tiles than SMs, else one; one persistent block a pass
-    up to one a SM.  The weight-gradient pass: ``units`` (a layer and a
+    up to one a SM; its weight-gradient pass: ``units`` (a layer and a
     pair of 64-row blocks of its dW; layer 0 has five blocks, the
     feature's four and the narrow columns') times ``chunks`` of ``per``
     tiles, at most one block a SM where the tiles allow.  ``masks``: the
-    sweep also writes its ReLU masks' bits (``mask_words`` int32).  Raises
+    sweep also writes its ReLU masks' bits (``mask_words`` int32, in
+    ``mask_layout``: threads a tile, words a thread a layer).  Raises
     unless ``slabs`` holds make_bwd_slabs' layouts for ws."""
     ins = [int(w.shape[1]) for w in ws]
     outs = [int(w.shape[0]) for w in ws]
     if cfg.mode != "idr" or cfg.d_in != 9 or \
             ins[0] != _narrow(cfg) + cfg.d_feature:
-        raise ValueError("K3-bwd-bf16 takes [pts | PE(dirs) | normals | "
-                         "feature]")
+        raise ValueError("K3-bwd and K3-bwd-bf16 take [pts | PE(dirs) | "
+                         "normals | feature]")
     (_, flay), (_, rlay) = slabs
+    ops = tuple(getattr(lay, "operand", None) for lay in (flay, rlay))
+    if ops == ("wgmma-f32-rad", "wgmma-f32-rad-rev"):
+        return _bwd_wgf_plan(cfg, ws, n, slabs, sms, masks)
     if not (isinstance(flay, TP.SweepLayout)
             and flay.operand == "wgmma-bf16-rad"
             and isinstance(rlay, TP.SweepLayout)
             and rlay.operand == "wgmma-bf16-rad-rev"):
-        raise ValueError("K3-bwd-bf16 multiplies on wgmma: it takes "
-                         "make_bwd_slabs' two slab packs")
+        raise ValueError("K3-bwd and K3-bwd-bf16 multiply on wgmma: they "
+                         "take make_bwd_slabs' two slab packs")
     if flay != TP.rad_sweep_layout(ins, outs, _narrow(cfg)) or \
             rlay != TP.rad_rev_layout(ins, outs, _narrow(cfg)):
         raise ValueError("K3-bwd-bf16: the slab packs' layouts do not match "
@@ -390,35 +449,39 @@ def bwd_wg_plan(cfg, ws, n: int, slabs, sms: int,
             "tiles": tiles, "image_bytes": img,
             "db_floats": grid * nc * 4 * L * WG_DB_ROW,
             "slot_floats": units * chunks * 2 * WG_SLOT_ROWS * 128 * 4,
-            "mask_words": n_pass * nc * 128 * (L - 1) * 4 if masks else 0}
+            "mask_words": n_pass * nc * 128 * (L - 1) * 4 if masks else 0,
+            "mask_layout": (128, 4)}
 
 
-@functools.lru_cache(maxsize=4)
-def _mask_places(device: torch.device) -> Tuple[torch.Tensor, ...]:
-    """For thread tid of a consumer and accumulator index i = 4 q + e:
-    the row (16 w + g + 8 (e >= 2)) and column (8 q + 2 t + e % 2) of its
-    value in the tile, and the word (i / 32) and bit (i % 32) of its
-    mask."""
-    tid = torch.arange(128)[:, None]
-    i = torch.arange(128)[None, :]
+@functools.lru_cache(maxsize=8)
+def _mask_places(device: torch.device, threads: int,
+                 words: int) -> Tuple[torch.Tensor, ...]:
+    """For thread tid of a tile's ``threads`` (consumer tid / 128, its
+    output columns from 128 (tid / 128) on) and accumulator index i = 4 q
+    + e < 32 words: the row (16 w + g + 8 (e >= 2)) and column (8 q + 2 t
+    + e % 2 past the consumer's first) of its value in the tile, and the
+    word (i / 32) and bit (i % 32) of its mask."""
+    tid = torch.arange(threads)[:, None]
+    i = torch.arange(32 * words)[None, :]
     lane = tid % 32
-    row = 16 * (tid // 32) + lane // 4 + 8 * (i % 4 >= 2)
-    col = 8 * (i // 4) + 2 * (lane % 4) + i % 2
+    row = 16 * ((tid % 128) // 32) + lane // 4 + 8 * (i % 4 >= 2)
+    col = 128 * (tid // 128) + 8 * (i // 4) + 2 * (lane % 4) + i % 2
     return tuple(v.to(device) for v in (row, col, (i // 32)[0],
                                         (i % 32)[0]))
 
 
 def decode_mask_bits(bits: torch.Tensor, n: int,
                      outs: Sequence[int]) -> List[torch.Tensor]:
-    """The ReLU masks a_l > 0 [n, outs[l]] of each hidden layer from
-    K3-bwd-bf16's mask words ([tiles, 128 threads, hidden layers, 4]
-    int32: bit i % 32 of word i / 32 is accumulator index i of the
-    thread)."""
-    row, col, word, bit = _mask_places(bits.device)
-    tiles = bits.shape[0]
+    """The ReLU masks a_l > 0 [n, outs[l]] of each hidden layer from a
+    wgmma radiance backward's mask words ([tiles, threads, hidden layers,
+    words] int32: K3-bwd-bf16's 128 threads of 4 words, K3-bwd's two
+    consumers' 256 of 2; bit i % 32 of word i / 32 is accumulator index i
+    of the thread)."""
+    tiles, threads, H, words = bits.shape
+    row, col, word, bit = _mask_places(bits.device, threads, words)
     out = []
-    for l in range(bits.shape[2]):
-        b = (bits[:, :, l, word] >> bit) & 1               # [tiles, 128, 128]
+    for l in range(H):
+        b = (bits[:, :, l, word] >> bit) & 1           # [tiles, threads, i]
         m = torch.zeros(tiles, WG_TILE, 256, dtype=torch.bool,
                         device=bits.device)
         m[:, row, col] = b.bool()
@@ -427,14 +490,20 @@ def decode_mask_bits(bits: torch.Tensor, n: int,
 
 
 def _launch_backward_wg(cfg, ws, bs, pts, normals, dirs, feat, ct_rgb,
-                        slabs, masks: Optional[list] = None):
-    """K3-bwd-bf16 on make_bwd_slabs' packs."""
-    kernel = K3_BWD_BF16
+                        slabs, masks: Optional[list] = None,
+                        bf16: bool = True):
+    """K3-bwd-bf16 (``bf16``) or K3-bwd on make_bwd_slabs' packs of the
+    mode."""
+    kernel = KERNELS["bwd", bf16]
     dev = pts.device
     if slabs is None:
-        raise ValueError("K3-bwd-bf16 reads make_bwd_slabs' packs, built "
-                         "once a step by RenderingNetwork.kernel_weights: "
-                         "none was given")
+        raise ValueError(f"{kernel.name} reads make_bwd_slabs' packs, built "
+                         f"once a step by RenderingNetwork.kernel_weights: "
+                         f"none was given")
+    want = "wgmma-bf16-rad" if bf16 else "wgmma-f32-rad"
+    if getattr(slabs[0][1], "operand", None) != want:
+        raise ValueError(f"{kernel.name} multiplies on {want} slabs: it "
+                         f"takes no other pack")
     (fp, _), (rp, _) = slabs
     pts, normals, dirs, feat = _inputs(kernel.name, pts, normals, dirs,
                                        feat)
@@ -460,22 +529,22 @@ def _launch_backward_wg(cfg, ws, bs, pts, normals, dirs, feat, ct_rgb,
                        f32(plan["db_floats"]), f32(plan["slot_floats"]),
                        grads, fp, rp, bits, *bs], 1.0, dev)
         if masks is not None:
+            threads, words = plan["mask_layout"]
             masks.extend(decode_mask_bits(
-                bits.view(-1, 128, len(ws) - 1, 4), n, outs))
+                bits.view(-1, threads, len(ws) - 1, words), n, outs))
     else:
         grads = torch.zeros(P, device=dev, dtype=torch.float32)
     return (*cts, *_unpack_grads(grads, ins, outs))
 
 
 class RadianceFn(torch.autograd.Function):
-    """(pts, normals, dirs, feat, *ws, *bs) -> rgb through K3-fwd; backward
-    through K3-bwd, both on ``pack`` (tc_pack.make_pack(ws, bf16), built
-    without grad by the caller); ``bf16``: through K3-fwd-bf16 and
-    K3-bwd-bf16, the latter on ``slabs`` (make_bwd_slabs(cfg, ws), saved
-    here for the backward).
-    On a CPU tensor (``pack`` None) the bf16 mode runs the explicit twins;
-    the f32 mode does not come here on the CPU (radiance_plain
-    differentiates itself)."""
+    """(pts, normals, dirs, feat, *ws, *bs) -> rgb through K3-fwd (on
+    ``pack``, tc_pack.make_pack(ws, bf16), built without grad by the
+    caller); backward through K3-bwd on ``slabs`` (make_bwd_slabs(cfg, ws,
+    bf16), saved here for the backward); ``bf16``: through K3-fwd-bf16 and
+    K3-bwd-bf16.  On a CPU tensor (``pack`` None) the bf16 mode runs the
+    explicit twins; the f32 mode does not come here on the CPU
+    (radiance_plain differentiates itself)."""
 
     @staticmethod
     def forward(ctx, cfg, bf16, pack, slabs, pts, normals, dirs, feat,
@@ -485,24 +554,22 @@ class RadianceFn(torch.autograd.Function):
         if pts.is_cuda:
             rgb = launch_forward(cfg, ws, bs, pts, normals, dirs, feat, pack,
                                  bf16)
-            ctx.layout, pack = pack[1], pack[0]
         else:
             rgb = radiance_plain(ws, bs, cfg, pts, normals, dirs, feat, bf16)
         ctx.cfg, ctx.bf16, ctx.slabs = cfg, bf16, slabs
-        ctx.save_for_backward(pts, normals, dirs, feat, pack, *params)
+        ctx.save_for_backward(pts, normals, dirs, feat, *params)
         return rgb
 
     @staticmethod
     @once_differentiable
     def backward(ctx, ct_rgb):
-        pts, normals, dirs, feat, pack, *params = ctx.saved_tensors
+        pts, normals, dirs, feat, *params = ctx.saved_tensors
         L = len(params) // 2
         ws, bs = params[:L], params[L:]
         if pts.is_cuda:
             *cts, dws, dbs = launch_backward(
                 ctx.cfg, ws, bs, pts, normals, dirs, feat, ct_rgb,
-                pack=ctx.slabs if ctx.bf16 else (pack, ctx.layout),
-                bf16=ctx.bf16)
+                pack=ctx.slabs, bf16=ctx.bf16)
         else:
             *cts, dws, dbs = radiance_bwd_plain(ws, bs, ctx.cfg, pts,
                                                 normals, dirs, feat, ct_rgb,
@@ -521,16 +588,19 @@ def radiance(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor], cfg,
     operand mode, through K3-fwd-bf16 and K3-bwd-bf16 or their twins.
     ``pack``: tc_pack.make_pack(ws, bf16), when the caller already has it
     (on a CUDA tensor; built here if not).  ``slabs``: make_bwd_slabs(cfg,
-    ws), which a backward through K3-bwd-bf16 reads (on a CUDA tensor with
-    grad enabled, the bf16 mode raises without them)."""
+    ws, bf16), which a backward through K3-bwd or K3-bwd-bf16 reads (on a
+    CUDA tensor, where a backward can follow, i.e. with grad enabled and an
+    input or a weight requiring it, it raises without them)."""
     if pts.is_cuda:
         if cfg.mode != "idr":
             raise NotImplementedError(
                 f"the radiance kernels run mode 'idr' only, not "
                 f"{cfg.mode!r}")
-        if bf16 and slabs is None and torch.is_grad_enabled():
-            raise ValueError("radiance: the bf16 mode's backward reads "
-                             "make_bwd_slabs' packs (slabs=)")
+        if (slabs is None and torch.is_grad_enabled()
+                and any(t.requires_grad for t in (pts, normals, dirs, feat,
+                                                  *ws, *bs))):
+            raise ValueError("radiance: the backward reads make_bwd_slabs' "
+                             "packs (slabs=)")
         if pack is None:
             with torch.no_grad():
                 pack = TP.make_pack(ws, bf16)

@@ -1,7 +1,10 @@
-"""The weight pack and the arithmetic of the tensor-core kernels
-(csrc/tc_mma.cuh): K1 (ops/geometry_kernel.py), K2 (ops/sdf_kernel.py) and
-K3 (ops/radiance_kernel.py) multiply in 3xTF32 on ``mma.sync``, and each
-also in its bf16 operand mode, on bf16 ``mma.sync`` (K2-bf16 on ``wgmma``).
+"""The weight packs and the arithmetic of the tensor-core kernels: K2
+(ops/sdf_kernel.py), K3-fwd (ops/radiance_kernel.py) and the switch-only
+K1 variants (K1-bwd-split, the stash pair) multiply in 3xTF32 on
+``mma.sync`` (csrc/tc_mma.cuh), from ``pack_weights``; K1-fwd, K1-bwd and
+K3-bwd in 3xTF32 on ``wgmma`` (csrc/wgf.cuh), from the f32 slab packs
+below; each kernel also has a bf16 operand mode, on bf16 ``mma.sync``
+(K2-bf16, K1-bwd-bf16 and K3-bwd-bf16 on ``wgmma``).
 
 ``pack_weights`` lays every layer's weight out once in the form the kernels
 stage into shared memory, already split into TF32 big and small halves;
@@ -14,7 +17,10 @@ K1-bwd-bf16 (csrc/geometry_bwd_bf16_wg.cu) reads it for its forward and
 slabs, the B of r W.  K3-bwd-bf16 (csrc/radiance_bwd_bf16_wg.cu) has its
 own pair for the radiance MLP, ``pack_rad_sweep_bf16`` and
 ``pack_rad_rev_bf16`` (layer 0's feature rows first, its 33 narrow rows
-in a slab of their own).
+in a slab of their own).  The f32 slab packs hold each weight as TF32 big
+and small halves, k permuted by ``tf32_slot``: ``pack_sweep_f32`` and
+``pack_rev_f32`` are K1-fwd's and K1-bwd's, ``pack_rad_sweep_f32`` and
+``pack_rad_rev_f32`` K3-bwd's.
 ``layout_iargs`` is the layout as the kernels are told it, and
 ``smem_bytes`` mirrors their shared-memory count (tc_dims_from_args
 and tc_smem_bytes), so a network a kernel cannot hold is refused before
@@ -701,7 +707,7 @@ def rad_block(pack: torch.Tensor, lay: SweepLayout, l: int) -> torch.Tensor:
     return sweep_block(pack, lay, l)
 
 
-# -- K1-bwd's f32 packs: TF32 big and small slabs for wgmma ------------------
+# -- K1's f32 packs: TF32 big and small slabs for wgmma ---------------------
 
 F32_SLAB_K = 32            # k rows of an f32 slab: one 128-byte row of f32
 
@@ -725,14 +731,16 @@ def swizzle32(e: np.ndarray) -> np.ndarray:
 
 def sweep_layout_f32(ins: Sequence[int], outs: Sequence[int],
                      skip_layers: Sequence[int], d_embed: int) -> SweepLayout:
-    """The slab layout of pack_sweep_f32, the forward X W of K1-bwd: layer
-    l < L - 1's W^T with k its input in W's own column order (a skip
+    """The slab layout of pack_sweep_f32, the forward X W of K1-bwd and
+    K1-fwd: layer l's W^T with k its input in W's own column order (a skip
     layer's [h | enc]) at tf32_slot(k), zero-padded to 64 k (layer 0, the
     encoding) or 256 (the others); ``nslab[l]`` slabs of F32_SLAB_K k,
-    each HIDDEN_COLS columns, its big half then its small half (2 x 32 KB);
-    the last layer has none (``nslab`` 0).  ``enc[l]``: layer l reads the
-    encoding (layer 0, a skip layer).  Raises for a network K1-bwd cannot
-    run."""
+    each ``cols[l]`` columns, its big half then its small half (2 x 32 KB
+    for 256 columns): layer 0 two, a hidden layer eight, each HIDDEN_COLS
+    wide; the last layer (K1-fwd's alone) eight, FULL_LAST_COLS wide for a
+    last layer over 256 (else HIDDEN_COLS), after every byte K1-bwd reads.
+    ``enc[l]``: layer l reads the encoding (layer 0, a skip layer).
+    Raises for a network K1-bwd cannot run."""
     L = len(ins)
     if L < 2 or ins[0] != d_embed or d_embed > ENC_COLS or \
             any(i > HIDDEN_COLS for i in ins[1:]) or \
@@ -745,10 +753,11 @@ def sweep_layout_f32(ins: Sequence[int], outs: Sequence[int],
     enc, nslab, cols, off, pos = [], [], [], [], 0
     for l in range(L):
         enc.append(int(l == 0 or l in skip_layers))
-        nslab.append(0 if l == L - 1 else 2 if l == 0 else 8)
-        cols.append(HIDDEN_COLS)
+        nslab.append(2 if l == 0 else HIDDEN_COLS // F32_SLAB_K)
+        cols.append(FULL_LAST_COLS if l == L - 1 and outs[l] > HIDDEN_COLS
+                    else HIDDEN_COLS)
         off.append(pos)
-        pos += nslab[-1] * 2 * HIDDEN_COLS * SLAB_ROW
+        pos += nslab[-1] * 2 * cols[-1] * SLAB_ROW
     return SweepLayout(enc, nslab, cols, off, pos, "wgmma-f32")
 
 
@@ -830,9 +839,9 @@ def _pack_f32(ws: Sequence[torch.Tensor], skip_layers: Sequence[int],
 
 def pack_sweep_f32(ws: Sequence[torch.Tensor], skip_layers: Sequence[int],
                    d_embed: int) -> Tuple[torch.Tensor, SweepLayout]:
-    """K1-bwd's forward pack of an SDF network (effective weights ws,
-    layer 0 and ``skip_layers`` reading the encoding): every hidden layer's
-    W^T split into TF32 big (rounded to nearest, ties away) and small (W -
+    """K1-bwd's and K1-fwd's forward pack of an SDF network (effective
+    weights ws, layer 0 and ``skip_layers`` reading the encoding): every
+    layer's W^T split into TF32 big (rounded to nearest, ties away) and small (W -
     big, exact), in sweep_layout_f32's slabs, each half the
     128-byte-swizzled image one bulk copy lands in shared memory
     (swizzle32), zero in the padding.  big + small is W exactly."""
@@ -841,7 +850,7 @@ def pack_sweep_f32(ws: Sequence[torch.Tensor], skip_layers: Sequence[int],
 
 def pack_rev_f32(ws: Sequence[torch.Tensor], d_embed: int
                  ) -> Tuple[torch.Tensor, SweepLayout]:
-    """K1-bwd's reverse pack: every layer's W (k its output, n its input)
+    """K1-bwd's and K1-fwd's reverse pack: every layer's W (k its output, n its input)
     split as pack_sweep_f32's, in rev_layout_f32's slabs."""
     return _pack_f32(ws, (), d_embed, True)
 
@@ -860,3 +869,171 @@ def f32_block(pack: torch.Tensor, lay: SweepLayout, l: int
     blk = slabs.view(nslab, 2, cols, F32_SLAB_K).permute(1, 0, 3, 2)
     blk = blk.reshape(2, nslab * F32_SLAB_K, cols)
     return blk[0], blk[1]
+
+
+# -- K3-bwd's f32 packs: the radiance MLP in TF32 big and small slabs --------
+
+RAD_F32_NARROW = 48        # narrow columns of layer 0's A tile (six k-steps)
+RAD_F32_FWD0 = 10          # forward layer-0 slabs: the feature's 8, narrow 2
+
+
+def _rad_check_f32(ins: Sequence[int], outs: Sequence[int],
+                   d_narrow: int) -> None:
+    """Raises for a radiance MLP K3-bwd cannot run: _rad_check's limits
+    (at most RAD_MAX_HIDDEN hidden layers of at most 256, a last layer of
+    at most RAD_LAST_COLS, an even feature 2-256 wide) with at most
+    RAD_F32_NARROW narrow columns."""
+    try:
+        _rad_check(ins, outs, d_narrow)
+    except ValueError as e:
+        raise ValueError(str(e).replace("K3-bwd-bf16", "K3-bwd")) from None
+    if d_narrow > RAD_F32_NARROW:
+        raise ValueError(f"K3-bwd takes narrow columns <= {RAD_F32_NARROW}")
+
+
+def _f32_offsets(nbytes: Sequence[int]) -> Tuple[List[int], int]:
+    off, pos = [], 0
+    for b in nbytes:
+        off.append(pos)
+        pos += b
+    return off, pos
+
+
+def rad_sweep_layout_f32(ins: Sequence[int], outs: Sequence[int],
+                         d_narrow: int) -> SweepLayout:
+    """The slab layout of pack_rad_sweep_f32, the forward X W of K3-bwd:
+    layer 0's W^T with the feature's rows at k 0 .. 255 and the d_narrow
+    narrow rows [pts | PE(dirs) | normals] from k = 256 on (``enc``), ten
+    slabs of F32_SLAB_K k (RAD_F32_FWD0; the last two k-steps deep); a
+    hidden layer eight; each k at tf32_slot(k), HIDDEN_COLS columns wide,
+    big half then small half (2 x 32 KB), but the last layer's eight,
+    RAD_LAST_COLS wide (m64n8).  Raises for a network the kernel cannot
+    run."""
+    _rad_check_f32(ins, outs, d_narrow)
+    L = len(ins)
+    nslab = [RAD_F32_FWD0] + [HIDDEN_COLS // F32_SLAB_K] * (L - 1)
+    cols = [HIDDEN_COLS] * (L - 1) + [RAD_LAST_COLS]
+    off, pos = _f32_offsets([s * 2 * c * SLAB_ROW
+                             for s, c in zip(nslab, cols)])
+    return SweepLayout([1] + [0] * (L - 1), nslab, cols, off, pos,
+                       "wgmma-f32-rad")
+
+
+def rad_rev_layout_f32(ins: Sequence[int], outs: Sequence[int],
+                       d_narrow: int) -> SweepLayout:
+    """The slab layout of pack_rad_rev_f32, the reverse r W of K3-bwd:
+    layer l's W with k its output at tf32_slot(k) and n its input, big
+    half then small half.  A hidden layer and layer 0 eight slabs of
+    F32_SLAB_K outputs (zero-padded to 256), the last layer one (its
+    outputs in k-step 0); layer 0's n is the feature's 256 columns, then,
+    in eight more slabs ENC_COLS wide, the narrow columns (``nslab[0]`` =
+    16 and ``cols[0]`` = 256 + 48 count both)."""
+    _rad_check_f32(ins, outs, d_narrow)
+    L = len(ins)
+    nslab = [16] + [HIDDEN_COLS // F32_SLAB_K] * (L - 2) + [1]
+    cols = [HIDDEN_COLS + ENC_COLS] + [HIDDEN_COLS] * (L - 1)
+    per = 8 * 2 * F32_SLAB_K * 4
+    off, pos = _f32_offsets([per * (HIDDEN_COLS + ENC_COLS)]
+                            + [s * 2 * c * SLAB_ROW
+                               for s, c in zip(nslab[1:], cols[1:])])
+    return SweepLayout([0] * L, nslab, cols, off, pos, "wgmma-f32-rad-rev")
+
+
+@functools.lru_cache(maxsize=16)
+def _rad_f32_sources(ins: Tuple[int, ...], outs: Tuple[int, ...],
+                     d_narrow: int, reverse: bool, device: torch.device
+                     ) -> Tuple[torch.Tensor, torch.Tensor, SweepLayout]:
+    """As _f32_sources, for pack_rad_sweep_f32 (``reverse`` False: k = the
+    row of W^T at its kernel column, _rad_columns, for layer 0) and
+    pack_rad_rev_f32 (k = W's output, n its input, layer 0's narrow
+    columns in their own slabs)."""
+    lay = (rad_rev_layout_f32 if reverse else rad_sweep_layout_f32)(
+        ins, outs, d_narrow)
+    zero = sum(i * o for i, o in zip(ins, outs))
+    src = np.full(lay.nbytes // 4, zero, np.int64)
+    small = np.zeros(lay.nbytes // 4, bool)
+    base = 0
+    for l, (i, o) in enumerate(zip(ins, outs)):
+        o_idx = np.arange(o)[:, None]                        # [out, 1]
+        i_idx = np.arange(i)[None, :]                        # [1, in]
+        col = _rad_columns(i_idx, d_narrow) if l == 0 else i_idx
+        start = lay.off[l] // 4
+        for half in (False, True):
+            if not reverse:
+                e = _f32_elems(start, lay.cols[l], tf32_slot(col), o_idx,
+                               half)
+            elif l == 0:
+                k = tf32_slot(o_idx)
+                narrow = start + 8 * 2 * HIDDEN_COLS * F32_SLAB_K
+                e = np.where(col < HIDDEN_COLS,
+                             _f32_elems(start, HIDDEN_COLS, k, col, half),
+                             _f32_elems(narrow, ENC_COLS, k,
+                                        col - HIDDEN_COLS, half))
+            else:
+                e = _f32_elems(start, lay.cols[l], tf32_slot(o_idx), i_idx,
+                               half)
+            e = np.broadcast_to(e, (o, i)).ravel()
+            src[e] = base + np.arange(o * i)
+            small[e] = half
+        base += i * o
+    return (torch.from_numpy(src).to(device),
+            torch.from_numpy(small).to(device), lay)
+
+
+def _pack_rad_f32(ws: Sequence[torch.Tensor], d_narrow: int, reverse: bool
+                  ) -> Tuple[torch.Tensor, SweepLayout]:
+    if any(w.dtype != torch.float32 for w in ws):
+        raise ValueError("the tensor-core kernels take float32 weights")
+    ins = tuple(int(w.shape[1]) for w in ws)
+    outs = tuple(int(w.shape[0]) for w in ws)
+    dev = ws[0].device
+    idx, small, lay = _rad_f32_sources(ins, outs, d_narrow, reverse, dev)
+    src = torch.cat([w.detach().reshape(-1) for w in ws]
+                    + [torch.zeros(1, device=dev)])
+    big, sm = tf32_split(src)
+    return torch.where(small, sm[idx], big[idx]), lay
+
+
+def pack_rad_sweep_f32(ws: Sequence[torch.Tensor], d_narrow: int
+                       ) -> Tuple[torch.Tensor, SweepLayout]:
+    """K3-bwd's forward pack of the radiance MLP (effective weights ws,
+    layer 0 reading [d_narrow narrow columns | feature]): every layer's
+    W^T split into TF32 big (rounded to nearest, ties away) and small (W -
+    big, exact) in rad_sweep_layout_f32's slabs, each half the
+    128-byte-swizzled image one bulk copy lands in shared memory
+    (swizzle32), zero in the padding.  big + small is W exactly."""
+    return _pack_rad_f32(ws, d_narrow, False)
+
+
+def pack_rad_rev_f32(ws: Sequence[torch.Tensor], d_narrow: int
+                     ) -> Tuple[torch.Tensor, SweepLayout]:
+    """K3-bwd's reverse pack: every layer's W (k its output, n its input)
+    split as pack_rad_sweep_f32's, in rad_rev_layout_f32's slabs."""
+    return _pack_rad_f32(ws, d_narrow, True)
+
+
+def _read_f32(pack: torch.Tensor, start: int, nslab: int, cols: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``nslab`` f32 slabs of ``cols`` columns from float ``start`` of a
+    pack read back: (big, small), each [32 nslab, cols] (k slot by n)."""
+    sw = torch.from_numpy(swizzle32(np.arange(cols * F32_SLAB_K))).to(
+        pack.device)
+    slabs = pack[start:start + nslab * 2 * cols * F32_SLAB_K].view(
+        nslab, 2, cols * F32_SLAB_K)[:, :, sw]
+    blk = slabs.view(nslab, 2, cols, F32_SLAB_K).permute(1, 0, 3, 2)
+    blk = blk.reshape(2, nslab * F32_SLAB_K, cols)
+    return blk[0], blk[1]
+
+
+def rad_f32_block(pack: torch.Tensor, lay: SweepLayout, l: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Layer l of a K3-bwd f32 pack read back (f32_block); layer 0 of the
+    reverse pack as [256, 304], its narrow slabs' columns after the
+    feature's."""
+    if lay.operand == "wgmma-f32-rad-rev" and l == 0:
+        first = lay.off[0] // 4
+        fb, fs = _read_f32(pack, first, 8, HIDDEN_COLS)
+        nb, ns = _read_f32(pack, first + 8 * 2 * HIDDEN_COLS * F32_SLAB_K, 8,
+                           ENC_COLS)
+        return torch.cat([fb, nb], 1), torch.cat([fs, ns], 1)
+    return _read_f32(pack, lay.off[l] // 4, lay.nslab[l], lay.cols[l])

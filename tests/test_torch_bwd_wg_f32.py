@@ -73,16 +73,19 @@ def test_f32_packs_read_back_split_w(key):
     layer's slabs hold W (forward: W^T, k its input; reverse: W, k its
     output), each k at tf32_slot(k), split into big = tf32_round(W) and
     small = W - big, big + small == W exactly; fixed depths (forward 2
-    slabs for layer 0, 8 for the others, none for the last; reverse 8, 9
-    for the 257-wide last layer); columns 256 (reverse layer 0: 48); zero
-    elsewhere; every weight lands once in each half."""
+    slabs for layer 0, 8 for the others and for the last, K1-fwd's;
+    reverse 8, 9 for the 257-wide last layer); columns 256 (reverse layer
+    0: 48; the forward 257-wide last layer: 264); zero elsewhere; every
+    weight lands once in each half."""
     cfg, ws, _ = _net(key)
     skip = sorted(GK.skip_layers(cfg, len(ws)))
     fwd, flay = TP.pack_sweep_f32(ws, skip, cfg.d_embed)
     rev, rlay = TP.pack_rev_f32(ws, cfg.d_embed)
     assert (flay.operand, rlay.operand) == ("wgmma-f32", "wgmma-f32-rev")
     L = len(ws)
-    assert flay.nslab == [2] + [8] * (L - 2) + [0]
+    assert flay.nslab == [2] + [8] * (L - 1)
+    assert flay.cols == [256] * (L - 1) + [264 if ws[-1].shape[0] > 256
+                                           else 256]
     assert rlay.nslab == [8] * (L - 1) + [9 if ws[-1].shape[0] > 256 else 8]
     assert rlay.cols == [48] + [256] * (L - 1)
     for pack, lay, reverse in ((fwd, flay, False), (rev, rlay, True)):

@@ -15,6 +15,7 @@ import torch
 import chip_smoke
 from factored_neus_tpu_torch.data import rays as RAYS
 from factored_neus_tpu_torch.meshing import extract as MEXT
+from factored_neus_tpu_torch.models import fields as TF
 from factored_neus_tpu_torch.models import renderer as TR
 from factored_neus_tpu_torch.models.fields import (RefColorConfig,
                                                    RenderingConfig,
@@ -60,7 +61,8 @@ def _net(case, device):
 @pytest.mark.parametrize("case", CASES)
 def test_geometry_kernels_match_twin(cuda_device, case):
     cfg, ws, bs, x = _net(case, cuda_device)
-    out_k, grad_k = GK.launch_forward(cfg, x, ws, bs)
+    out_k, grad_k = GK.launch_forward(cfg, x, ws, bs,
+                                      GK.make_bwd_slabs(cfg, ws, bf16=False))
     with torch.no_grad():
         out_p, grad_p = GK.geometry_plain(ws, bs, x, cfg)
     torch.testing.assert_close(out_k, out_p, atol=1e-5, rtol=0)
@@ -69,7 +71,8 @@ def test_geometry_kernels_match_twin(cuda_device, case):
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     ct_out = torch.randn(out_p.shape, device=cuda_device, generator=gen)
     ct_g = torch.randn(x.shape, device=cuda_device, generator=gen)
-    ct_x, dws, dbs = GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g)
+    ct_x, dws, dbs = GK.launch_backward(
+        cfg, x, ws, bs, ct_out, ct_g, GK.make_bwd_slabs(cfg, ws, bf16=False))
     leaves = [t.clone().requires_grad_(True) for t in [x, *ws, *bs]]
     L = len(ws)
     o, g = GK.geometry_plain(leaves[1:1 + L], leaves[1 + L:], leaves[0], cfg)
@@ -175,10 +178,12 @@ def test_k1_ragged_tiles_over_several_rounds(cuda_device, variant):
                                            ct_g.double(), cfg)
         want = [want[0], *want[1], *want[2]]
     else:
-        out_k, grad_k = GK.launch_forward(cfg, x, ws, bs)
-        launch = (GK.launch_backward if variant == "stacked"
-                  else GK.launch_backward_split)
-        got = launch(cfg, x, ws, bs, ct_out, ct_g)
+        out_k, grad_k = GK.launch_forward(
+            cfg, x, ws, bs, GK.make_bwd_slabs(cfg, ws, bf16=False))
+        got = (GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g,
+                                  GK.make_bwd_slabs(cfg, ws, bf16=False))
+               if variant == "stacked" else
+               GK.launch_backward_split(cfg, x, ws, bs, ct_out, ct_g))
         want = f64_vjp(cfg, x, ws, bs, ct_out, ct_g)
     torch.testing.assert_close(out_k, out_p, atol=1e-5, rtol=0)
     torch.testing.assert_close(grad_k, grad_p, atol=1e-5, rtol=0)
@@ -200,10 +205,40 @@ def test_k1_backward_is_deterministic(cuda_device, launch):
                          generator=gen)
     ct_g = torch.randn(x.shape, device=cuda_device, generator=gen)
     fn = getattr(GK, launch)
-    a = fn(cfg, x, ws, bs, ct_out, ct_g)
-    b = fn(cfg, x, ws, bs, ct_out, ct_g)
+    pack = (GK.make_bwd_slabs(cfg, ws, bf16=False)
+            if launch == "launch_backward" else None)
+    a = fn(cfg, x, ws, bs, ct_out, ct_g, pack)
+    b = fn(cfg, x, ws, bs, ct_out, ct_g, pack)
     for u, v in zip([a[0], *a[1], *a[2]], [b[0], *b[1], *b[2]]):
         assert torch.equal(u, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [65536, 9001, 2048, 512])
+def test_k1_fwd_wgmma_f32_matches_twin(cuda_device, n):
+    """K1-fwd (csrc/geometry_fwd_wg.cu, 3xTF32 on wgmma) at full width
+    within 1e-5 abs of its f32 twin, out and grad, at the stage-1 and
+    stage-2 step's 65,536 points, a ragged 9,001 and stages 2-3's 2,048 and
+    512; two launches bitwise equal; on the slabs SDFNetwork.kernel_weights
+    builds without grad, bitwise as on its own; it raises without its
+    slabs and on the bf16 mode's or the 3xTF32 pack, and geometry raises
+    without them on a CUDA tensor."""
+    cfg, ws, bs, x = _net((8, 256, 257, (4,), 6, 1.0, n), cuda_device)
+    slabs = GK.make_bwd_slabs(cfg, ws, bf16=False)
+    got = GK.launch_forward(cfg, x, ws, bs, slabs)
+    with torch.no_grad():
+        want = GK.geometry_plain(ws, bs, x, cfg)
+        kw = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(
+            cuda_device).kernel_weights()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    again = GK.launch_forward(cfg, x, ws, bs, TF.bwd_slabs(kw, False))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for pack in (None, GK.make_bwd_slabs(cfg, ws), (TP.pack_weights(ws),) * 2):
+        with pytest.raises(ValueError):
+            GK.launch_forward(cfg, x, ws, bs, pack)
+    with pytest.raises(ValueError, match="slabs"):
+        GK.geometry(ws, bs, x, cfg, stash=False)
 
 
 @pytest.mark.gpu
@@ -301,13 +336,15 @@ def test_radiance_kernels_match_twin(cuda_device, case):
                                atol=1e-5, rtol=0)
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     ct = torch.randn(want.shape, device=cuda_device, generator=gen)
-    *cts, dws, dbs = RK.launch_backward(cfg, ws, bs, *inputs, ct)
-    leaves = [t.clone().requires_grad_(True) for t in [*inputs, *ws, *bs]]
-    L = len(ws)
-    rgb = RK.radiance_plain(leaves[4:4 + L], leaves[4 + L:], cfg,
-                            *leaves[:4])
-    ref = torch.autograd.grad(rgb, leaves, ct)
-    for a, b in zip([*cts, *dws, *dbs], ref):
+    *cts, dws, dbs = RK.launch_backward(
+        cfg, ws, bs, *inputs, ct, pack=RK.make_bwd_slabs(cfg, ws, False))
+    # the f32 twin differentiates the function the kernel computes: on the
+    # ReLU masks of the kernel's own forward (chip_smoke.k3_bwd_masks holds
+    # them to the f32 forward's within rounding of 0), as rad_f64_vjp
+    masks, _ = chip_smoke.k3_bwd_masks(cfg, ws, bs, inputs)
+    *rc, rw, rb = RK.radiance_bwd_plain(ws, bs, cfg, *inputs, ct,
+                                        masks=masks)
+    for a, b in zip([*cts, *dws, *dbs], [*rc, *rw, *rb]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
 
 
@@ -405,7 +442,7 @@ RAD_RAGGED = (256, 256, 4, 4, 9001)   # full width, 1-2 tiles a block
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", RAD_CASES + [RAD_RAGGED])
 def test_k3_bwd_matches_f64_twin(cuda_device, case):
-    """K3-bwd (tensor cores, 3xTF32) against the float64 twin per tensor at
+    """K3-bwd (3xTF32 on wgmma) against the float64 twin per tensor at
     |err| <= 1e-4 + 1e-5 max|ref|, the twin on the kernel's ReLU masks
     once they are held against the f32 forward's (rad_f64_vjp); 9,001 rows
     take the persistent blocks over several tiles, the last one ragged."""
@@ -415,7 +452,8 @@ def test_k3_bwd_matches_f64_twin(cuda_device, case):
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     ct = torch.randn(inputs[0].shape[0], cfg.d_out, device=cuda_device,
                      generator=gen)
-    *cts, dws, dbs = RK.launch_backward(cfg, ws, bs, *inputs, ct)
+    *cts, dws, dbs = RK.launch_backward(
+        cfg, ws, bs, *inputs, ct, pack=RK.make_bwd_slabs(cfg, ws, False))
     want = rad_f64_vjp(cfg, ws, bs, inputs, ct)
     for i, (a, b) in enumerate(zip([*cts, *dws, *dbs], want)):
         assert a.shape == b.shape
@@ -425,15 +463,17 @@ def test_k3_bwd_matches_f64_twin(cuda_device, case):
 @pytest.mark.gpu
 def test_k3_bwd_is_deterministic(cuda_device):
     """Two K3-bwd launches on the same inputs give bitwise-equal
-    cotangents, dW and db (per-block partial slices, fixed-order reduce)."""
+    cotangents, dW and db (per-warp db slots and per-chunk dW slots, a
+    fixed-order reduce)."""
     cfg, net, inputs = _rad(RAD_RAGGED, cuda_device)
     with torch.no_grad():
         ws, bs = net.effective_weights()
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     ct = torch.randn(inputs[0].shape[0], cfg.d_out, device=cuda_device,
                      generator=gen)
-    a = RK.launch_backward(cfg, ws, bs, *inputs, ct)
-    b = RK.launch_backward(cfg, ws, bs, *inputs, ct)
+    slabs = RK.make_bwd_slabs(cfg, ws, False)
+    a = RK.launch_backward(cfg, ws, bs, *inputs, ct, pack=slabs)
+    b = RK.launch_backward(cfg, ws, bs, *inputs, ct, pack=slabs)
     for u, v in zip([*a[:4], *a[4], *a[5]], [*b[:4], *b[4], *b[5]]):
         assert torch.equal(u, v)
 
@@ -466,21 +506,33 @@ def test_k3_fwd_is_deterministic(cuda_device):
 
 
 @pytest.mark.gpu
-def test_k3_bwd_on_the_forwards_pack_matches_its_own(cuda_device):
-    """K3-bwd handed the pack K3-fwd read (as RadianceFn does) gives the
-    bits of K3-bwd packing on its own."""
+def test_k3_bwd_reads_only_its_f32_slabs(cuda_device):
+    """K3-bwd on the slabs RenderingNetwork.kernel_weights builds (grad on,
+    sweep32 and rev32) gives the bits of its slabs built here, writes its
+    ReLU masks on request without changing a bit, and raises without its
+    slabs, on the bf16 mode's or on the 3xTF32 pack."""
     cfg, net, inputs = _rad(RAD_RAGGED, cuda_device)
-    with torch.no_grad():
-        ws, bs = net.effective_weights()
-    pack = TP.pack_weights(ws)
-    RK.launch_forward(cfg, ws, bs, *inputs, pack=pack)
+    kw = net.kernel_weights()
+    ws, bs = [w.detach() for w in kw.ws], [b.detach() for b in kw.bs]
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     ct = torch.randn(inputs[0].shape[0], cfg.d_out, device=cuda_device,
                      generator=gen)
-    a = RK.launch_backward(cfg, ws, bs, *inputs, ct, pack=pack)
-    b = RK.launch_backward(cfg, ws, bs, *inputs, ct)
-    for u, v in zip([*a[:4], *a[4], *a[5]], [*b[:4], *b[4], *b[5]]):
-        assert torch.equal(u, v)
+    flat = lambda r: [*r[:4], *r[4], *r[5]]
+    masks = []
+    a = flat(RK.launch_backward(cfg, ws, bs, *inputs, ct,
+                                pack=TF.bwd_slabs(kw, False)))
+    b = flat(RK.launch_backward(cfg, ws, bs, *inputs, ct,
+                                pack=RK.make_bwd_slabs(cfg, ws, False),
+                                masks=masks))
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    assert [tuple(m.shape) for m in masks] == [
+        (inputs[0].shape[0], 256)] * 4
+    for pack in (None, RK.make_bwd_slabs(cfg, ws),
+                 (TP.pack_weights(ws),) * 2):
+        with pytest.raises(ValueError):
+            RK.launch_backward(cfg, ws, bs, *inputs, ct, pack=pack)
+    with pytest.raises(ValueError, match="slabs"):
+        RK.radiance(list(kw.ws), list(kw.bs), cfg, *inputs)
 
 
 @pytest.mark.gpu
@@ -630,9 +682,9 @@ def test_k1_bwd_bf16_wgmma_matches_twin(cuda_device, n):
 def test_k1_bwd_wgmma_f32_matches_f64_twin(cuda_device, n):
     """K1-bwd (csrc/geometry_bwd_wg.cu, 3xTF32 on wgmma) at full width,
     the step's 65,536 points and a ragged 9,001, against the f64 twin at
-    chip_smoke.check_vjp's bound, two launches bitwise equal; a bf16 slab
-    pack is refused, and the f32 slab packs are built when none is
-    given."""
+    chip_smoke.check_vjp's bound, two launches (the second on slab packs
+    built anew) bitwise equal; a bf16 slab pack is refused, and so is a
+    launch without slab packs."""
     cfg = SDFConfig()
     net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(cuda_device)
     with torch.no_grad():
@@ -646,7 +698,8 @@ def test_k1_bwd_wgmma_f32_matches_f64_twin(cuda_device, n):
     flat = lambda r: [r[0], *r[1], *r[2]]
     slabs = GK.make_bwd_slabs(cfg, ws, bf16=False)
     got = flat(GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g, slabs))
-    again = flat(GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g))
+    again = flat(GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g,
+                                    GK.make_bwd_slabs(cfg, ws, bf16=False)))
     ref = [t.float() for t in flat(GK.geometry_bwd_plain(
         [w.double() for w in ws], [b.double() for b in bs], x.double(),
         ct_out.double(), ct_g.double(), cfg))]
@@ -659,15 +712,17 @@ def test_k1_bwd_wgmma_f32_matches_f64_twin(cuda_device, n):
     with pytest.raises(ValueError, match="wgmma-f32"):
         GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g,
                            GK.make_bwd_slabs(cfg, ws))
+    with pytest.raises(ValueError, match="make_bwd_slabs"):
+        GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g)
 
 
 @pytest.mark.gpu
 def test_f32_mode_builds_the_f32_slabs(cuda_device):
-    """kernel_weights() with grad on carries K1-bwd's two f32 slab packs
-    (sweep32, rev32), which value_grad_feat hands to the backward: one
-    K1-fwd and one K1-bwd launch; without grad, or with every parameter
-    frozen, none is built, and geometry() without them raises where a
-    backward can follow."""
+    """kernel_weights() carries K1-fwd's and K1-bwd's two f32 slab packs
+    (sweep32, rev32), which value_grad_feat hands to both: one K1-fwd and
+    one K1-bwd launch; K1-fwd reads them without grad too, or with every
+    parameter frozen, so they are built there as well, but not for the
+    sweeps alone (k1=False); geometry() without them raises."""
     cfg, _, _, x = _net(CASES[0], cuda_device)
     net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(cuda_device)
     weights = net.kernel_weights()
@@ -675,7 +730,8 @@ def test_f32_mode_builds_the_f32_slabs(cuda_device):
     assert weights.rev32[1].operand == "wgmma-f32-rev"
     assert weights.rev16 is None and weights.pack[1].operand == "3xtf32"
     with torch.no_grad():
-        assert net.kernel_weights().rev32 is None
+        assert net.kernel_weights().rev32 is not None
+        assert net.kernel_weights(k1=False).rev32 is None
     kernels = (GK.K1_FWD, GK.K1_BWD, GK.K1_BWD_BF16)
     before = [k.launches for k in kernels]
     s, f, g = net.value_grad_feat(x, weights)
@@ -685,7 +741,7 @@ def test_f32_mode_builds_the_f32_slabs(cuda_device):
     with pytest.raises(ValueError, match="slabs"):
         GK.geometry(weights.ws, weights.bs, x, cfg, pack=weights.pack)
     net.requires_grad_(False)
-    assert net.kernel_weights().rev32 is None
+    assert net.kernel_weights().rev32 is not None
 
 
 @pytest.mark.gpu

@@ -1,10 +1,10 @@
 """chip_smoke.py's guard on K3-bwd's ReLU masks, on the CPU: the f64 twin
 takes the masks of the kernel's own forward only where they differ from
-the f32 forward's within rounding of 0.  A stand-in for K3-bwd fills the
-scratch from the plain f32 forward (for K3-bwd-bf16: its mask output from
-the plain bf16 forward), with or without an injected fault; the guard
-passes a flip at a pre-activation within its margin and fails a row of
-zeroed activations and a flip far from 0."""
+the f32 forward's within rounding of 0.  A stand-in for K3-bwd fills its
+mask output from the plain f32 forward (for K3-bwd-bf16: from the plain
+bf16 forward), with or without an injected fault; the guard passes a flip
+at a pre-activation within its margin and fails a row of zeroed
+activations and a flip far from 0."""
 import numpy as np
 import pytest
 import torch
@@ -26,17 +26,16 @@ def _x0(cfg, pts, normals, dirs, feat):
 
 
 def _stand_in(fault):
-    """K3-bwd's scratch as the plain f32 forward fills it: each block's
-    h = relu(a) of its tile, with ``fault(l, a, h)`` applied per chunk."""
-    def launch(cfg, ws, bs, pts, normals, dirs, feat, ct, scratch=None):
+    """K3-bwd's mask output (launch_backward's ``masks``) as the plain f32
+    forward gives it, with ``fault(l, a, h)`` applied."""
+    def launch(cfg, ws, bs, pts, normals, dirs, feat, ct, pack=None,
+               bf16=False, masks=None):
+        assert not bf16 and pack[0][1].operand == "wgmma-f32-rad"
         h = _x0(cfg, pts, normals, dirs, feat)
         for l in range(len(ws) - 1):
             a = torch.nn.functional.linear(h, ws[l], bs[l])
             h = torch.relu(a)
-            pad = torch.zeros(scratch.shape[0] * TP.TILE, ws[l].shape[0])
-            pad[:len(h)] = fault(l, a, h.clone())
-            scratch[:, l, :, :ws[l].shape[0]] = pad.view(
-                scratch.shape[0], TP.TILE, -1)
+            masks.append(fault(l, a, h.clone()) > 0)
     return launch
 
 

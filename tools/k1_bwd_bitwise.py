@@ -1,18 +1,19 @@
 #!/usr/bin/env python3
-"""K1-bwd-bf16's results, this checkout's build against another
-version's, bit for bit, on a GPU.
+"""K1-bwd's and K1-bwd-bf16's results, this checkout's builds against
+another version's, bit for bit, on a GPU.
 
     python3 tools/k1_bwd_bitwise.py DIR
 
-Builds DIR's factored_neus_tpu_torch/csrc/geometry_bwd_bf16_wg.cu (for
-example a parent commit unpacked with ``git archive`` into a directory
-that .gitignore lists) into build/bitwise/, and runs it and this
-checkout's build through this checkout's wrapper
-(ops/geometry_kernel.launch_backward, whose arguments both versions take)
-on the same inputs: the full-width SDF network at chip_smoke.py's 65,536
-and 9,001 points.  Every output (ct_x, each dW and db) must be equal bit
-for bit.  Prints one line a size, the card's name and power limit, and a
-JSON summary; exits 1 on any difference.
+Builds DIR's factored_neus_tpu_torch/csrc/geometry_bwd_wg.cu (K1-bwd, f32)
+and geometry_bwd_bf16_wg.cu (K1-bwd-bf16) (for example a parent commit
+unpacked with ``git archive`` into a directory that .gitignore lists) into
+build/bitwise/, and runs each and this checkout's build through this
+checkout's wrapper (ops/geometry_kernel.launch_backward, whose arguments
+both versions take) on the same inputs and the mode's slab packs: the
+full-width SDF network at chip_smoke.py's 65,536 and 9,001 points.  Every
+output (ct_x, each dW and db) must be equal bit for bit.  Prints one line
+a kernel and size, the card's name and power limit, and a JSON summary;
+exits 1 on any difference.
 """
 import json
 import os
@@ -20,7 +21,10 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = "geometry_bwd_bf16_wg.cu"
+# (label, source, C function, bf16 operand mode)
+KERNELS = (("K1-bwd", "geometry_bwd_wg.cu", "geometry_bwd", False),
+           ("K1-bwd-bf16", "geometry_bwd_bf16_wg.cu", "geometry_bwd_bf16",
+            True))
 OUT = os.path.join(HERE, "build", "bitwise")
 
 
@@ -42,43 +46,47 @@ def main() -> int:
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
 
     os.makedirs(OUT, exist_ok=True)
-    lib = os.path.join(OUT, "lib_other.so")
-    p = subprocess.run(
-        [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib,
-         os.path.join(other, "factored_neus_tpu_torch", "csrc", SRC)],
-        capture_output=True, text=True)
-    if p.returncode:
-        raise RuntimeError(f"nvcc failed for {other}:\n{p.stdout}{p.stderr}")
     dev = torch.device("cuda")
     cfg = SDFConfig()
     net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(dev)
     with torch.no_grad():
         ws, bs = net.effective_weights()
     ws, bs = list(ws), list(bs)
-    slabs = GK.make_bwd_slabs(cfg, ws)
-    kernel = GK.K1_BWD_BF16
-    gen = torch.Generator(device=dev).manual_seed(5)
     flat = lambda r: [r[0], *r[1], *r[2]]
     sizes = []
-    for n in (chip_smoke.N_CORE, chip_smoke.N_RAGGED):
-        x = torch.randn(n, 3, device=dev, generator=gen) * 0.5
-        ct_out = torch.randn(n, ws[-1].shape[0], device=dev, generator=gen)
-        ct_g = torch.randn(n, 3, device=dev, generator=gen)
+    for label, src, symbol, bf16 in KERNELS:
+        lib = os.path.join(OUT, f"lib_other_{symbol}.so")
+        p = subprocess.run(
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib,
+             os.path.join(other, "factored_neus_tpu_torch", "csrc", src)],
+            capture_output=True, text=True)
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for {other}:\n{p.stdout}"
+                               f"{p.stderr}")
+        slabs = GK.make_bwd_slabs(cfg, ws, bf16)
+        kernel = GK.KERNELS["bwd", bf16]
+        gen = torch.Generator(device=dev).manual_seed(5)
+        for n in (chip_smoke.N_CORE, chip_smoke.N_RAGGED):
+            x = torch.randn(n, 3, device=dev, generator=gen) * 0.5
+            ct_out = torch.randn(n, ws[-1].shape[0], device=dev,
+                                 generator=gen)
+            ct_g = torch.randn(n, 3, device=dev, generator=gen)
 
-        def run():
-            return [t.clone() for t in flat(GK.launch_backward(
-                cfg, x, ws, bs, ct_out, ct_g, slabs, bf16=True))]
-        kernel._fn = None
-        mine = run()
-        k1_bwd_phases._bind(kernel, lib, "geometry_bwd_bf16")
-        theirs = run()
-        kernel._fn = None
-        torch.cuda.synchronize()
-        differ = [i for i, (a, b) in enumerate(zip(mine, theirs))
-                  if not torch.equal(a, b)]
-        sizes.append({"rows": n, "tensors": len(mine), "differ": differ})
-        print(f"K1-bwd-bf16 N={n}: {len(mine) - len(differ)} of "
-              f"{len(mine)} output tensors bitwise equal to {other}'s")
+            def run():
+                return [t.clone() for t in flat(GK.launch_backward(
+                    cfg, x, ws, bs, ct_out, ct_g, slabs, bf16=bf16))]
+            kernel._fn = None
+            mine = run()
+            k1_bwd_phases._bind(kernel, lib, symbol)
+            theirs = run()
+            kernel._fn = None
+            torch.cuda.synchronize()
+            differ = [i for i, (a, b) in enumerate(zip(mine, theirs))
+                      if not torch.equal(a, b)]
+            sizes.append({"kernel": label, "rows": n, "tensors": len(mine),
+                          "differ": differ})
+            print(f"{label} N={n}: {len(mine) - len(differ)} of "
+                  f"{len(mine)} output tensors bitwise equal to {other}'s")
     card = chip_smoke.card_line()
     print(card)
     print(json.dumps({"other": other, "card": card, "sizes": sizes}))

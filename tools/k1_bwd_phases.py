@@ -1,8 +1,21 @@
 #!/usr/bin/env python3
-"""Per-phase time of K1-bwd and K1-fwd (csrc/geometry_{bwd_wg,bwd,fwd}.cu)
-on a GPU.
+"""Per-phase time of K1-bwd and K1-fwd (csrc/geometry_{bwd_wg,fwd_wg,bwd,
+fwd}.cu) on a GPU.
 
-    python3 tools/k1_bwd_phases.py [--root DIR] [--bf16] [--clocks]
+    python3 tools/k1_bwd_phases.py [--root DIR] [--bf16 | --fwd] [--clocks]
+
+``--fwd``: K1-fwd in f32, on wgmma in 3xTF32 (geometry_fwd_wg.cu: the
+forward through all nine layers and the reverse sweep from e0 / scale), on
+its two f32 slab packs, with these cuts:
+- ``no_products``: without every wgmma;
+- ``no_scratch``: the sweep neither writes nor reads its f32 scratch of
+  sigma(100 a);
+- ``no_slabs``: the producer copies no weight slab (each stage is marked
+  full at once: the products read stale slabs);
+- ``no_softplus``: softplus and sigma(100 a) replaced by the argument and
+  0.5;
+``--clocks``: ``all`` and ``no_products`` also run back to back while
+nvidia-smi samples the SM clock and the power draw.
 
 K1-bwd in f32 runs on wgmma in 3xTF32 (geometry_bwd_wg.cu: a stacked
 sweep, a split-K weight-gradient pass, a reduce), on its two f32 slab
@@ -117,23 +130,46 @@ CUTS_WG = {
 ORDER_WG = ["all", "no_products", "no_wgrad_pass", "no_images",
             "no_scratch", "no_softplus", "all"]
 CLOCKED = ("all", "no_products", "no_softplus")
-# K1-bwd on wgmma in 3xTF32: (files, regular expression, replacement)
+# K1-bwd on wgmma in 3xTF32: (files, regular expression, replacement); the
+# f32 engine's pieces, the pass and the reduce moved from the kernel's
+# source into wgf.cuh, which K1-fwd and K3-bwd share
 WGF = "geometry_bwd_wg.cu"
+SHARED_F = (WGF, "wgf.cuh")
 CUTS_WGF = {
     "all": [],
-    "no_products": [((WGF,), r"tf32_mma(?:_ss)?<N>\([^;]*;", ";"),
-                    ((WGF,), r"wgmma_tf32_(?:ss_)?n(?:128|8)\(acc8?,[^;]*;",
+    "no_products": [(SHARED_F, r"tf32_mma(?:_ss)?<N>\([^;]*;", ";"),
+                    (SHARED_F, r"wgmma_tf32_(?:ss_)?n(?:128|8)\(acc8?,[^;]*;",
                      ";")],
     "no_wgrad_pass": [((WGF,), r"geometry_bwd_wgf_wgrad<<<[^;]*;", ";")],
-    "no_images": [((WGF,), r"(?:im|x0)\[img_at\([^;]*;", ";")],
+    "no_images": [(SHARED_F, r"(?:im|x0)\[img_at\([^;]*;", ";")],
     "no_scratch": [((WGF,), r"sl\[q \* 256\] = make_float4[^;]*;", ";"),
                    ((WGF,), r"const float4 v = sl\[q \* 256\];",
                     "const float4 v = make_float4(0.5f, 0.5f, 1.f, 1.f);"),
                    ((WGF,), r"l2_prefetch_if\([^;]*;", ";")],
-    "no_slabs": [((WGF,), r"mbar_expect_tx\(full \+ st, bytes\);\s*"
-                  r"bulk_g2s\(ring \+ st \* FW_STAGE[^;]*;",
+    "no_slabs": [(SHARED_F, r"mbar_expect_tx\(full \+ st, bytes\);\s*"
+                  r"bulk_g2s\(ring \+ st \* (?:FW_)?STAGE[^;]*;",
                   "mbar_arrive_if(full + st, 1);")],
 }
+# K1-fwd on wgmma in 3xTF32 (--fwd)
+GFW = "geometry_fwd_wg.cu"
+SHARED_G = (GFW, "wgf.cuh")
+CUTS_GFW = {
+    "all": [],
+    "no_products": [(SHARED_G, r"tf32_mma(?:_ss)?<N>\([^;]*;", ";"),
+                    ((GFW,), r"wgmma_tf32_(?:ss_)?n(?:128|8)\(acc8?,[^;]*;",
+                     ";")],
+    "no_scratch": [((GFW,), r"sl\[q \* 256\] = make_float4[^;]*;", ";"),
+                   ((GFW,), r"const float4 v = sl\[q \* 256\];",
+                    "const float4 v = make_float4(0.5f, 0.5f, 0.5f, 0.5f);"),
+                   ((GFW,), r"l2_prefetch_if\([^;]*;", ";")],
+    "no_slabs": [(SHARED_G, r"mbar_expect_tx\(full \+ st, bytes\);\s*"
+                  r"bulk_g2s\(ring \+ st \* (?:FW_)?STAGE[^;]*;",
+                  "mbar_arrive_if(full + st, 1);")],
+    "no_softplus": [((GFW,), r"sp_sig100\(a, sp, s4\[e\]\);",
+                     "sp = a; s4[e] = 0.5f;")],
+}
+ORDER_GFW = ["all", "no_products", "no_scratch", "no_slabs", "no_softplus",
+             "all"]
 ORDER_WGF = ["all", "no_products", "no_wgrad_pass", "no_images",
              "no_scratch", "no_slabs", "all"]
 CLOCKED_WGF = ("all", "no_products")
@@ -241,16 +277,58 @@ def build(root: str, bwd_entry: str = BWD) -> dict:
     return libs
 
 
+def fwd_main(root: str, clocks: bool) -> int:
+    """--fwd: K1-fwd on wgmma, phase by phase (CUTS_GFW)."""
+    import torch
+    import chip_smoke
+    import k2_bf16_phases
+    libs = build_cut(root, GFW, CUTS_GFW, "geometry_fwd_wg")
+    if not libs:
+        print(f"phases: {root} has no {GFW}", file=sys.stderr)
+        return 2
+    from factored_neus_tpu_torch.models.fields import SDFConfig, SDFNetwork
+    from factored_neus_tpu_torch.ops import geometry_kernel as GK
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = SDFConfig()
+    net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(dev)
+    with torch.no_grad():
+        ws, bs = net.effective_weights()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(N_CORE, 3, device=dev, generator=gen) * 0.5
+    slabs = GK.make_bwd_slabs(cfg, list(ws), bf16=False)
+    call = lambda: GK.launch_forward(cfg, x, ws, bs, slabs)
+    times = []
+    for phase in ORDER_GFW:
+        _bind(GK.K1_FWD, libs[phase], "geometry_fwd")
+        ms = chip_smoke.cuda_ms(call, 10)
+        times.append({"kernel": "K1-fwd", "phase": phase, "ms": ms})
+        print(f"K1-fwd (wgmma) {phase}: {ms:.3f} ms")
+        if clocks and phase in ("all", "no_products") and not any(
+                "sm_mhz" in t for t in times[:-1] if t["phase"] == phase):
+            times[-1].update(k2_bf16_phases.clocks_under(call, torch))
+            print(f"  under load: SM clock {times[-1]['sm_mhz']:.0f} MHz, "
+                  f"{times[-1]['power_w']:.1f} W "
+                  f"({times[-1]['samples']} samples)")
+    GK.K1_FWD._fn = None
+    card = chip_smoke.card_line()
+    print(card)
+    print(json.dumps({"root": root, "fwd": True, "card": card,
+                      "times": times}))
+    return 0
+
+
 def main() -> int:
     args = sys.argv[1:]
-    bf16, clocks = "--bf16" in args, "--clocks" in args
-    args = [a for a in args if a not in ("--bf16", "--clocks")]
+    bf16, clocks, fwd = ("--bf16" in args, "--clocks" in args,
+                         "--fwd" in args)
+    args = [a for a in args if a not in ("--bf16", "--clocks", "--fwd")]
     root = HERE
     if args[:1] == ["--root"] and len(args) == 2:
         root = os.path.abspath(args[1])
-    elif args:
-        print("usage: k1_bwd_phases.py [--root DIR] [--bf16] [--clocks]",
-              file=sys.stderr)
+    elif args or (bf16 and fwd):
+        print("usage: k1_bwd_phases.py [--root DIR] [--bf16 | --fwd] "
+              "[--clocks]", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -258,6 +336,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     sys.path.insert(0, os.path.join(HERE, "tools"))
+    if fwd:
+        return fwd_main(root, clocks)
     import chip_smoke
     libs_wg = build_wg(root, bf16)
     libs = build(root, "geometry_bwd_bf16.cu" if bf16 else BWD)
@@ -265,6 +345,10 @@ def main() -> int:
         # K1-bwd(-bf16) is the wgmma source's: the mma.sync body's cuts do
         # not apply to it
         libs = {k: v for k, v in libs.items() if k[0] != BWD}
+    if not bf16 and os.path.exists(os.path.join(
+            root, "factored_neus_tpu_torch", "csrc", GFW)):
+        # K1-fwd in f32 is the wgmma source's (--fwd)
+        libs = {k: v for k, v in libs.items() if k[0] != FWD}
     from factored_neus_tpu_torch.models.fields import SDFConfig, SDFNetwork
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
 
@@ -296,6 +380,7 @@ def main() -> int:
         kernels = {BWD: (GK.K1_BWD, "geometry_bwd",
                          lambda: GK.launch_backward(cfg, x, ws, bs, ct_out,
                                                     ct_g, slabs)),
+                   # a version whose K1-fwd is still the mma.sync body
                    FWD: (GK.K1_FWD, "geometry_fwd",
                          lambda: GK.launch_forward(cfg, x, ws, bs))}
     times = []

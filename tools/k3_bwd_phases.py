@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Per-phase time of K3-bwd-bf16 (csrc/radiance_bwd_bf16_wg.cu) on a GPU.
+"""Per-phase time of K3-bwd-bf16 (csrc/radiance_bwd_bf16_wg.cu) or, with
+--f32, K3-bwd (csrc/radiance_bwd_wg.cu, 3xTF32) on a GPU.
 
-    python3 tools/k3_bwd_phases.py [--rows N] [--clocks]
+    python3 tools/k3_bwd_phases.py [--f32] [--rows N] [--clocks]
 
 Builds copies of the kernel into build/phases/radiance_bwd_bf16_wg/, each
 with one part of its work cut out, and times them with CUDA events on the
@@ -20,7 +21,10 @@ rows (--rows: another count), on its two slab packs, as chip_smoke.py:
 - ``no_slab_copies``: the sweep's producer copies no slab (each full
   barrier completes on its arrival alone; the products read stale
   slabs): the sweep without its L2 slab stream and its latency.
-A cut copy computes garbage: only its time is read.  ``all`` is timed
+--f32 cuts the same phases out of K3-bwd (its slab ring, products,
+images and pass in csrc/wgf.cuh, which K1-bwd and K1-fwd share) and times
+it on its two f32 slab packs.  A cut copy computes garbage: only its time
+is read.  ``all`` is timed
 first and last, as a measure of the spread.  ``--clocks``: ``all`` and
 ``no_products`` also run back to back while nvidia-smi samples the SM
 clock and the power draw (k2_bf16_phases.clocks_under).  Prints one line
@@ -53,6 +57,25 @@ CUTS = {
                         "mbar_expect_tx(full + st, 0);"),
                        ((SH,), r"bulk_g2s\(ring \+ st \* GW_SLAB[^;]*;", ";")],
 }
+# K3-bwd (f32, 3xTF32 on wgmma)
+SRCF = "radiance_bwd_wg.cu"
+SHF = (SRCF, "wgf.cuh")
+CUTS_F32 = {
+    "all": [],
+    "no_products": [(SHF, r"tf32_mma(?:_ss)?<N>\([^;]*;", ";"),
+                    (SHF, r"wgmma_tf32_(?:ss_)?n(?:128|8)\(acc8?,[^;]*;",
+                     ";")],
+    "no_wgrad_pass": [((SRCF,), r"radiance_bwd_wgf_wgrad<<<[^;]*;", ";")],
+    "no_images": [(SHF, r"(?:im|x0)\[img_at\([^;]*;", ";")],
+    "no_layer0_epilogue": [
+        ((SRCF,), r"\*\(float2\*\)\(d\.ct_feat[^;]*;", ";"),
+        ((SRCF,), r"encode_backward_row\(u, nullptr, d\.multires[^;]*;",
+         ";"),
+        ((SRCF,), r"d\.ct_(?:pts|dirs|nrm)\[[^;]*;", ";")],
+    "no_slab_copies": [(SHF, r"mbar_expect_tx\(full \+ st, bytes\);\s*"
+                        r"bulk_g2s\(ring \+ st \* (?:FW_)?STAGE[^;]*;",
+                        "mbar_arrive_if(full + st, 1);")],
+}
 ORDER = ["all", "no_products", "no_wgrad_pass", "no_images",
          "no_layer0_epilogue", "no_slab_copies", "all"]
 CLOCKED = ("all", "no_products")
@@ -60,12 +83,12 @@ CLOCKED = ("all", "no_products")
 
 def main() -> int:
     args = sys.argv[1:]
-    rows, clocks = ROWS, "--clocks" in args
-    args = [a for a in args if a != "--clocks"]
+    rows, clocks, f32 = ROWS, "--clocks" in args, "--f32" in args
+    args = [a for a in args if a not in ("--clocks", "--f32")]
     if args[:1] == ["--rows"] and len(args) == 2:
         rows = int(args[1])
     elif args:
-        print("usage: k3_bwd_phases.py [--rows N] [--clocks]",
+        print("usage: k3_bwd_phases.py [--f32] [--rows N] [--clocks]",
               file=sys.stderr)
         return 2
     import torch
@@ -81,7 +104,9 @@ def main() -> int:
                                                        RenderingNetwork)
     from factored_neus_tpu_torch.ops import radiance_kernel as RK
 
-    libs = k1_bwd_phases.build_cut(HERE, SRC, CUTS, "radiance_bwd_bf16_wg")
+    libs = (k1_bwd_phases.build_cut(HERE, SRCF, CUTS_F32, "radiance_bwd_wg")
+            if f32 else k1_bwd_phases.build_cut(HERE, SRC, CUTS,
+                                                "radiance_bwd_bf16_wg"))
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     cfg = RenderingConfig()
@@ -96,17 +121,19 @@ def main() -> int:
               torch.randn(rows, cfg.d_feature, device=dev,
                           generator=gen) * 0.5]
     ct = torch.randn(rows, cfg.d_out, device=dev, generator=gen)
-    slabs = RK.make_bwd_slabs(cfg, ws)
-    kernel = RK.K3_BWD_BF16
+    slabs = RK.make_bwd_slabs(cfg, ws, bf16=not f32)
+    kernel = RK.KERNELS["bwd", not f32]
+    label = "K3-bwd" if f32 else "K3-bwd-bf16"
 
     def call():
-        RK.launch_backward(cfg, ws, bs, *inputs, ct, pack=slabs, bf16=True)
+        RK.launch_backward(cfg, ws, bs, *inputs, ct, pack=slabs,
+                           bf16=not f32)
     times = []
     for phase in ORDER:
-        k1_bwd_phases._bind(kernel, libs[phase], "radiance_bwd_bf16")
+        k1_bwd_phases._bind(kernel, libs[phase], kernel.symbol)
         ms = chip_smoke.cuda_ms(call, 10)
         times.append({"phase": phase, "ms": ms})
-        print(f"K3-bwd-bf16 {phase}: {ms:.3f} ms")
+        print(f"{label} {phase}: {ms:.3f} ms")
         if clocks and phase in CLOCKED and not any(
                 "sm_mhz" in t for t in times[:-1] if t["phase"] == phase):
             times[-1].update(k2_bf16_phases.clocks_under(call, torch))
@@ -116,7 +143,8 @@ def main() -> int:
     kernel._fn = None
     card = chip_smoke.card_line()
     print(card)
-    print(json.dumps({"rows": rows, "card": card, "times": times}))
+    print(json.dumps({"kernel": label, "rows": rows, "card": card,
+                      "times": times}))
     return 0
 
 

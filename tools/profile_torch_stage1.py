@@ -61,12 +61,15 @@ TABLE_ROWS = (("geometry_bwd_wgf_sweep", "K1-bwd (sweep)"),
               ("radiance_bwd_wg_sweep", "K3-bwd-bf16 (sweep)"),
               ("radiance_bwd_wg_wgrad", "K3-bwd-bf16 (weight-gradient pass)"),
               ("radiance_bwd_wg_reduce", "K3-bwd-bf16 (reduce)"),
+              ("radiance_bwd_wgf_sweep", "K3-bwd (sweep)"),
+              ("radiance_bwd_wgf_wgrad", "K3-bwd (weight-gradient pass)"),
+              ("radiance_bwd_wgf_reduce", "K3-bwd (reduce)"),
+              ("geometry_fwd_wgf_sweep", "K1-fwd"),
               ("geometry_fwd_kernel", "K1-fwd"),
               ("sdf_fwd_kernel", "K2"),
               ("sdf_fwd_bf16_kernel", "K2-bf16"),
               ("radiance_fwd_kernel", "K3-fwd"),
-              ("radiance_bwd_kernel", "K3-bwd"),
-              ("reduce_partials_kernel", "K1-bwd/K3-bwd partial sums"))
+              ("reduce_partials_kernel", "K1-bwd partial sums"))
 FLAGS = ("--womask", "--stash", "--split", "--stage2", "--stage3", "--bf16",
          "--sweep-f32", "--sampling")
 OUTER = "Lvis.outer"        # the profiler range of the visibility sweep
