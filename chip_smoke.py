@@ -6,22 +6,26 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels of factored_neus_tpu_torch/csrc with nvcc;
 3. holds each kernel against its plain PyTorch twin at full width (f32,
-   TF32 off; K2 at both sweep shapes of a step, on K1's pack as in the
-   step and bitwise against its own pack; K3-bwd against its f64 twin on
-   the ReLU masks of its own forward, which may differ from the f32
-   forward's only within rounding of 0), checks that two launches of
-   K1-fwd, K1-bwd, K3-fwd and K3-bwd agree bit for bit, and times each
-   kernel and twin with CUDA events (K3-fwd's pack's own time beside it);
-   K1-fwd, K1-bwd and K3-bwd (3xTF32 on wgmma: csrc/geometry_fwd_wg.cu,
-   geometry_bwd_wg.cu, radiance_bwd_wg.cu; each its ptxas report and
-   SASS, which must hold HGMMA and no HMMA) at the step's 65,536 rows and
-   a ragged 9,001, K1-fwd within 1e-5 abs of its twin, K1-bwd and K3-bwd
-   against the f64 twin (check_vjp), two launches bitwise equal, timed
-   at both ("shapes"), their kernels' registers and shared memory read
-   from the device ("attrs"), the bytes of each design and their f32
-   slab packs' build times; then K1-fwd (bitwise repeatable there too),
-   K3-fwd and K2 again at a validation chunk's shapes (262,144 and
-   131,072 rows);
+   TF32 off; K3-bwd against its f64 twin on the ReLU masks of its own
+   forward, which may differ from the f32 forward's only within rounding
+   of 0), checks that two launches of K1-fwd, K1-bwd, K2, K3-fwd and
+   K3-bwd agree bit for bit, and times each kernel and twin with CUDA
+   events (each pack's own time beside it); the f32 kernels run in 3xTF32
+   on wgmma (csrc/geometry_fwd_wg.cu, geometry_bwd_wg.cu, sdf_fwd_wg.cu,
+   radiance_fwd_wg.cu, radiance_bwd_wg.cu; each its ptxas report and
+   SASS, which must hold HGMMA and no HMMA, and its kernels' registers and
+   shared memory read from the device, "attrs"): K1-fwd, K1-bwd and
+   K3-bwd at the step's 65,536 rows and a ragged 9,001, K1-fwd within
+   1e-5 abs of its twin, K1-bwd and K3-bwd against the f64 twin
+   (check_vjp), timed at both ("shapes"), the bytes of each design and
+   their f32 slab packs' build times; K2 (narrowed, on K1's forward slab
+   pack as in the step, bitwise equal to K2 on its own narrowed pack, its
+   sdf's distance from K1-fwd's printed) at both sweep shapes of a step
+   and 9,001 rows, and its full 257-wide output at 9,001, and K3-fwd (on
+   K3-bwd's forward slab pack) at 65,536 and 9,001, each within 1e-5 abs
+   of its f32 and f64 twins (k2_check, k3_fwd_check); then K1-fwd, K3-fwd
+   and K2 again at a validation chunk's shapes (262,144 and 131,072
+   rows), each bitwise repeatable;
 4. runs one full-width stage-1 step of confs/wmask.conf and one of
    confs/womask.conf (background NeRF) on the card (kernels) and the same
    steps on the CPU (twins), and compares the loss and every parameter
@@ -47,7 +51,10 @@
    (FNEUS_PG_STACKED=0), counters at 0 there too;
 8. checks finite losses, that each run launched exactly its kernels (the
    stash pair only in the stash run, K1-bwd-split only in the split run),
-   and that the checkpoint loads back;
+   that the checkpoint loads back, and that tc_pack.pack_weights (the
+   3xTF32 mma.sync pack) was called 0 times in the 30-step wmask run,
+   the 512^3 mesh, the validation image and the stage-2 and stage-3 runs
+   (items 5-6, 9-10) and at least once in the stash and split runs;
 9. stage 2 on the 30-step stage-1 checkpoint: 30 full-width steps through
    the port's stage-2 CLI (python -m factored_neus_tpu_torch.lvis),
    counters at 0 just before: K2 five times a step, K2-bf16 once (the
@@ -55,10 +62,12 @@
    three times, K3-fwd once, nothing else; the checkpoint loads back; K2
    at the secondary coarse sweep's 1,048,576 rows (its route with
    sweep_act_bf16 off) and the localisation sweep's 65,536, K1-fwd at 512
-   and 2,048 rows (on the f32 slab packs Stage2Model.kernel_weights built
-   without grad, bitwise repeatable) and K3-fwd at 2,048, on the run's
-   packs, against their twins at 1e-5 abs and timed; one 64-ray stage-2 step with the coarse
-   sweep in f32 on the card against the same step on the CPU twins (same
+   and 2,048 rows and K3-fwd at 2,048, on the run's packs (the f32 slab
+   packs Stage2Model.kernel_weights built without grad; no 3xTF32 pack),
+   against their twins at 1e-5 abs (K2 at 65,536 and K3-fwd also against
+   the f64 twins), bitwise repeatable and timed; one 64-ray stage-2 step
+   with the coarse sweep in f32 on the card against the same step on the
+   CPU twins (same
    rays and hemisphere draws), and one with the default bf16 sweep (item
    13); --mode validate_image through the CLI (counters at 0: K2 5,
    K2-bf16 1, K1-fwd 3, K3-fwd 1 a chunk); and one 2048-ray chunk of that
@@ -124,7 +133,10 @@
    K3-fwd-bf16 and K3-bwd-bf16 in place of K3 (item 12); and in a
    subprocess with FNEUS_PALLAS_SAMPLING=1 (read at import) 10 wmask steps
    through the CLI (counters at 0: K2-bf16 four times a step, no K2);
-14. prints {"kernels": [...]} (each kernel's launches in the synthetic
+14. prints {"kernels": [...]} (bound_ms: for the f32 kernels three TF32
+   products' worth of the FLOPs over the tensor cores' TF32 peak, or the
+   bytes if larger, with the f32 CUDA cores' bound as bound_f32_ms; each
+   kernel's launches in the synthetic
    runs under "synthetic_launches"; K2-bf16's in the use_pallas_sampling
    run under "sampling_launches"), the card line, and as its last line
    {"ok": true, "device": {...}}.
@@ -251,6 +263,33 @@ SYN_STAGES = ((1, "indisg_synthetic", STAGE1_PER_STEP),
               (2, "synthetic", STAGE2_PER_STEP),
               (3, "synthetic", STAGE3_PER_STEP))
 W2C_TOL = 1e-6          # the w2c rays, card against the CPU
+
+
+# tc_pack.pack_weights calls (the 3xTF32 mma.sync pack), counted once
+# count_pack_calls has run
+PACK_CALLS = [0]
+
+
+def count_pack_calls() -> None:
+    """Counts every tc_pack.pack_weights call from now on in PACK_CALLS:
+    only the switch-only K1 variants read that pack, so the default f32
+    path builds none."""
+    from factored_neus_tpu_torch.ops import tc_pack as TP
+    inner = TP.pack_weights
+
+    def counted(ws):
+        PACK_CALLS[0] += 1
+        return inner(ws)
+    TP.pack_weights = counted
+
+
+def pack_calls_during(label: str, packs: dict, fn, *args, **kw):
+    """fn(*args, **kw), with the pack_weights calls it made in
+    packs[label]."""
+    before = PACK_CALLS[0]
+    out = fn(*args, **kw)
+    packs[label] = PACK_CALLS[0] - before
+    return out
 
 
 def card_line() -> str:
@@ -385,6 +424,64 @@ def bf16_ulps(a, b):
     return (a - b).abs() / torch.ldexp(torch.ones_like(a), e - 8)
 
 
+def k2_check(cfg, wn, bn, x, sweep32, own, label) -> float:
+    """K2 (narrowed, on K1's f32 slab pack sweep32) at x's rows: within
+    1e-5 abs of its f32 and f64 twins (f32 dots of <= 256 terms summed in
+    another order), two launches bitwise equal, and bitwise equal to K2
+    on its own narrowed pack (``own``; None: not checked).  Returns the
+    larger error."""
+    import torch
+    from factored_neus_tpu_torch.ops import sdf_kernel as SK
+    got = SK.sdf_forward(wn, bn, cfg, x, sweep32)
+    again = SK.sdf_forward(wn, bn, cfg, x, sweep32)
+    mine = True if own is None else torch.equal(
+        got, SK.sdf_forward(wn, bn, cfg, x, own))
+    with torch.no_grad():
+        p32 = SK.sdf_forward_plain(wn, bn, cfg, x)
+        p64 = SK.sdf_forward_plain([w.double() for w in wn],
+                                   [b.double() for b in bn], cfg, x.double())
+    torch.cuda.synchronize()
+    e32 = worst(got, p32, 1e-5, 0.0)[0]
+    e64 = float((got.double() - p64).abs().max())
+    same = torch.equal(got, again)
+    print(f"K2      {label}: max|sdf err| {e32:.3e} (f32 twin), {e64:.3e} "
+          f"(f64 twin), tolerance 1e-5 abs; two launches bitwise equal: "
+          f"{same}; on K1's pack bitwise equal to its own narrowed pack: "
+          f"{mine if own is not None else 'not checked'}")
+    if not max(e32, e64) <= 1e-5 or not (same and mine) or \
+            not torch.isfinite(got).all():
+        raise AssertionError(f"K2 disagrees with its twins or itself at "
+                             f"{label}")
+    return max(e32, e64)
+
+
+def k3_fwd_check(rcfg, rws, rbs, rin, pack, label) -> float:
+    """K3-fwd on its f32 slab pack at rin's rows: within 1e-5 abs of its
+    f32 and f64 twins (f32 dots of <= 289 terms summed in another order),
+    two launches bitwise equal.  Returns the larger error."""
+    import torch
+    from factored_neus_tpu_torch.ops import radiance_kernel as RK
+    got = RK.launch_forward(rcfg, rws, rbs, *rin, pack=pack)
+    again = RK.launch_forward(rcfg, rws, rbs, *rin, pack=pack)
+    with torch.no_grad():
+        p32 = RK.radiance_plain(rws, rbs, rcfg, *rin)
+        p64 = RK.radiance_plain([w.double() for w in rws],
+                                [b.double() for b in rbs], rcfg,
+                                *(t.double() for t in rin))
+    torch.cuda.synchronize()
+    e32 = worst(got, p32, 1e-5, 0.0)[0]
+    e64 = float((got.double() - p64).abs().max())
+    same = torch.equal(got, again)
+    print(f"K3-fwd  {label}: max|rgb err| {e32:.3e} (f32 twin), {e64:.3e} "
+          f"(f64 twin), tolerance 1e-5 abs; two launches bitwise equal: "
+          f"{same}")
+    if not max(e32, e64) <= 1e-5 or not same or \
+            not torch.isfinite(got).all():
+        raise AssertionError(f"K3-fwd disagrees with its twins or itself "
+                             f"at {label}")
+    return max(e32, e64)
+
+
 def check_kernels(device):
     """Each kernel against its plain twin at the wmask step's shapes."""
     import torch
@@ -412,20 +509,21 @@ def check_kernels(device):
     results, gflop = [], {}
 
     def entry(name, source, replaces, err, ms, plain_ms, flops, nbytes):
-        """bound_ms: the f32 CUDA-core bound; bound_3xtf32_ms: three TF32
-        products' worth of the same FLOPs over the TF32 peak (or the bytes,
-        if larger), as every kernel multiplies on the tensor cores in
-        3xTF32."""
-        t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_RATE
+        """bound_ms (also bound_3xtf32_ms): three TF32 products' worth of
+        the FLOPs over the TF32 tensor-core peak, or the bytes over the
+        memory rate if larger, as every f32 kernel multiplies on the tensor
+        cores in 3xTF32; bound_f32_ms: the same FLOPs over the f32
+        CUDA-core peak, for comparison."""
+        t_ops, t_bytes = 3 * flops / TF32_PEAK, nbytes / HBM_RATE
         gflop[name] = flops / 1e9
+        bound = 1e3 * max(t_ops, t_bytes)
         results.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None,
-            "bound_3xtf32_ms": 1e3 * max(3 * flops / TF32_PEAK, t_bytes)})
+            "library_ms": None, "bound_3xtf32_ms": bound,
+            "bound_f32_ms": 1e3 * max(flops / F32_PEAK, t_bytes)})
 
     # K1-fwd (3xTF32 on wgmma, from its two f32 slab packs, built once as a
     # step does, and shared with K1-bwd): f32 dots of width <= 257 summed
@@ -470,11 +568,12 @@ def check_kernels(device):
                    10),
                "rev_pack_f32_ms": cuda_ms(
                    lambda: TP.pack_rev_f32(ws, cfg.d_embed), 10)}
-    print(f"K1-fwd's and K1-bwd's slab packs at full width: "
-          f"{pack_ms['sweep_pack_f32_ms']:.3f} ms (forward) + "
+    print(f"K1-fwd's and K1-bwd's slab packs at full width (K2 reads the "
+          f"first): {pack_ms['sweep_pack_f32_ms']:.3f} ms (forward) + "
           f"{pack_ms['rev_pack_f32_ms']:.3f} ms (reverse), beside the "
-          f"3xTF32 pack's {pack_ms['pack_ms']:.3f} ms (CUDA events around "
-          f"10 builds each)")
+          f"3xTF32 pack's {pack_ms['pack_ms']:.3f} ms (built only under "
+          f"the switches of K1's variants) (CUDA events around 10 builds "
+          f"each)")
     k1f.update(shapes=fshapes, sass=fbuild["sass"], ptxas=fbuild["ptxas"],
                attrs=wg_attrs("geometry_fwd_wg.cu", "geometry_fwd_attrs",
                               ("sweep",)), **pack_ms)
@@ -558,28 +657,25 @@ def check_kernels(device):
           cuda_ms(plain32, 3), N_CORE * bwd_flops, bwd_bytes)
     del plain32
 
-    # K2: the ladder's narrowed no-grad sweeps (last layer = sdf column),
-    # on K1's pack of the same weights as in the step, at the two shapes of
-    # a step: the first sweep over N_SWEEP points and three of N_SWEEP_NEW
-    k1_pack = TP.pack_weights(ws)
+    # K2 (3xTF32 on wgmma): the ladder's narrowed no-grad sweeps (last
+    # layer = sdf column), on K1's f32 slab pack of the same weights as in
+    # the step (sweep32), at the two shapes of a step (the first sweep over
+    # N_SWEEP points and three of N_SWEEP_NEW) and a ragged one
+    k2_build = wgmma_build_report("K2", "sdf_fwd_wg.cu")
+    sweep32 = slabs[0]
     wn, bn = list(ws[:-1]) + [ws[-1][:1]], list(bs[:-1]) + [bs[-1][:1]]
+    own = SK.make_sweep_pack(cfg, wn, bf16=False)
     S_n = S - s_last + ins[-1]
     k2 = {}
-    for n in (N_SWEEP, N_SWEEP_NEW):
+    for n in (N_SWEEP, N_SWEEP_NEW, N_RAGGED):
         xs = x[:n].contiguous()
-        s_k = SK.sdf_forward(wn, bn, cfg, xs, k1_pack)
-        s_own = SK.sdf_forward(wn, bn, cfg, xs)
+        e_s = k2_check(cfg, wn, bn, xs, sweep32, own, f"N={n}")
         with torch.no_grad():
-            s_p = SK.sdf_forward_plain(wn, bn, cfg, xs)
-        torch.cuda.synchronize()
-        e_s, r_s = worst(s_k, s_p, 1e-5, 0.0)
-        same = torch.equal(s_k, s_own)
-        print(f"K2      N={n}: max|sdf err| {e_s:.3e} (tolerance 1e-5 "
-              f"abs: reordered f32 sums of <= 256 terms); on K1's pack "
-              f"bitwise equal to its own narrowed pack: {same}")
-        if r_s > 1.0 or not same:
-            raise AssertionError("K2 disagrees with its plain twin or with "
-                                 "itself on its own pack")
+            k1_sdf = GK.launch_forward(cfg, xs, ws, bs, slabs)[0][:, 0]
+            d_k1 = float((SK.sdf_forward(wn, bn, cfg, xs, sweep32)[:, 0]
+                          - k1_sdf).abs().max())
+        print(f"K2      N={n}: max|sdf - K1-fwd's sdf| {d_k1:.3e} (printed "
+              f"only)")
 
         def plain_sweep():
             with torch.no_grad():
@@ -587,39 +683,67 @@ def check_kernels(device):
         t_ops = n * 2 * S_n / F32_PEAK
         t_bytes = (n * (12 + 4) + 4 * sum(
             w.numel() + b.numel() for w, b in zip(wn, bn))) / HBM_RATE
-        k2[n] = {"err": e_s,
+        k2[n] = {"err": e_s, "k1_sdf_diff": d_k1,
                  "ms": cuda_ms(lambda: SK.sdf_forward(wn, bn, cfg, xs,
-                                                      k1_pack), 10),
+                                                      sweep32), 10),
                  "plain_ms": cuda_ms(plain_sweep, 10),
                  "flops": n * 2 * S_n, "bytes": t_bytes * HBM_RATE,
-                 "bound_ms": 1e3 * max(t_ops, t_bytes),
+                 "bound_f32_ms": 1e3 * max(t_ops, t_bytes),
                  "bound_3xtf32_ms": 1e3 * max(3 * n * 2 * S_n / TF32_PEAK,
                                               t_bytes)}
+    # the full 257-wide output (JAX's full_out=True) at the ragged shape
+    xs = x[:N_RAGGED].contiguous()
+    full = SK.sdf_forward(ws, bs, cfg, xs, sweep32)
+    with torch.no_grad():
+        f64 = SK.sdf_forward_plain([w.double() for w in ws],
+                                   [b.double() for b in bs], cfg,
+                                   xs.double())
+        k1_out = GK.launch_forward(cfg, xs, ws, bs, slabs)[0]
+    e_full = max(worst(full, SK.sdf_forward_plain(ws, bs, cfg, xs), 1e-5,
+                       0.0)[0], float((full.double() - f64).abs().max()))
+    same = torch.equal(full, SK.sdf_forward(ws, bs, cfg, xs, sweep32))
+    print(f"K2      full output N={N_RAGGED}: max|err| {e_full:.3e} against "
+          f"the f32 and f64 twins (1e-5 abs); two launches bitwise equal: "
+          f"{same}; max|out - K1-fwd's out| "
+          f"{float((full - k1_out).abs().max()):.3e} (printed only)")
+    if not e_full <= 1e-5 or not same:
+        raise AssertionError("K2's full output disagrees with its twins or "
+                             "itself")
     big, small = k2[N_SWEEP], k2[N_SWEEP_NEW]
-    entry("sdf_fwd", "factored_neus_tpu_torch/csrc/sdf_fwd.cu",
+    entry("sdf_fwd", "factored_neus_tpu_torch/csrc/sdf_fwd_wg.cu",
           "factored_neus_tpu/ops/pallas_sdf.py:221",
-          max(big["err"], small["err"]), big["ms"], big["plain_ms"],
-          big["flops"], big["bytes"])
+          max(big["err"], small["err"], k2[N_RAGGED]["err"], e_full),
+          big["ms"], big["plain_ms"], big["flops"], big["bytes"])
     sweeps = 1 + (UP_SAMPLE_STEPS - 1)
     results[-1].update({
         f"ms_{N_SWEEP_NEW}": small["ms"],
         f"plain_ms_{N_SWEEP_NEW}": small["plain_ms"],
-        f"bound_ms_{N_SWEEP_NEW}": small["bound_ms"],
+        f"bound_f32_ms_{N_SWEEP_NEW}": small["bound_f32_ms"],
         f"bound_3xtf32_ms_{N_SWEEP_NEW}": small["bound_3xtf32_ms"],
+        f"ms_{N_RAGGED}": k2[N_RAGGED]["ms"],
+        f"bound_3xtf32_ms_{N_RAGGED}": k2[N_RAGGED]["bound_3xtf32_ms"],
+        "k1_sdf_diff": max(v["k1_sdf_diff"] for v in k2.values()),
         "step_ms": big["ms"] + (UP_SAMPLE_STEPS - 1) * small["ms"],
         "step_plain_ms": big["plain_ms"] + (UP_SAMPLE_STEPS - 1) *
-        small["plain_ms"]})
+        small["plain_ms"], "sass": k2_build["sass"],
+        "ptxas": k2_build["ptxas"],
+        "attrs": wg_attrs("sdf_fwd_wg.cu", "sdf_fwd_attrs", ("sweep",))})
     print(f"K2 per step ({sweeps} sweeps: 1 x {N_SWEEP} + "
           f"{UP_SAMPLE_STEPS - 1} x {N_SWEEP_NEW} rows): "
           f"{results[-1]['step_ms']:.3f} ms (plain "
-          f"{results[-1]['step_plain_ms']:.3f}); at {N_SWEEP_NEW} rows "
-          f"{small['ms']:.3f} ms against bounds {small['bound_ms']:.3f} "
-          f"f32, {small['bound_3xtf32_ms']:.3f} 3xTF32")
-    del k1_pack
+          f"{results[-1]['step_plain_ms']:.3f}); at {N_SWEEP} rows "
+          f"{big['ms']:.3f} ms, {N_SWEEP_NEW} {small['ms']:.3f}, "
+          f"{N_RAGGED} {k2[N_RAGGED]['ms']:.3f}, against 3xTF32 bounds "
+          f"{big['bound_3xtf32_ms']:.3f}, {small['bound_3xtf32_ms']:.3f}, "
+          f"{k2[N_RAGGED]['bound_3xtf32_ms']:.3f}; sweep "
+          f"(cudaFuncGetAttributes): {results[-1]['attrs']['sweep']}")
+    del own
 
-    # K3-fwd: the radiance MLP of the same N points on the tensor cores
-    # (3xTF32), f32-accurate dots of width <= 289 summed in another order
-    # than cuBLAS; on the pack a step builds once for K3-fwd and K3-bwd
+    # K3-fwd (3xTF32 on wgmma): the radiance MLP of the same N points,
+    # f32-accurate dots of width <= 289 summed in another order than
+    # cuBLAS; on the forward slab pack a step builds once for K3-fwd and
+    # K3-bwd (sweep32)
+    k3_build = wgmma_build_report("K3-fwd", "radiance_fwd_wg.cu")
     rcfg = RenderingConfig()                            # 289 -> 4 x 256 -> 3
     rnet = RenderingNetwork(rcfg, torch.Generator().manual_seed(0)).to(
         device)
@@ -632,39 +756,42 @@ def check_kernels(device):
            torch.randn(N_CORE, d_feat, device=device, generator=gen) * 0.5]
     rS = sum(w.numel() for w in rws)                   # 271,360
     rwbytes = 4 * sum(w.numel() + b.numel() for w, b in zip(rws, rbs))
-    rpack = TP.pack_weights(rws)
-    rgb_k = RK.launch_forward(rcfg, rws, rbs, *rin, pack=rpack)
-    with torch.no_grad():
-        rgb_p = RK.radiance_plain(rws, rbs, rcfg, *rin)
-    torch.cuda.synchronize()
-    e_r, r_r = worst(rgb_k, rgb_p, 1e-5, 0.0)
-    print(f"K3-fwd  N={N_CORE}: max|rgb err| {e_r:.3e} (tolerance 1e-5 abs: "
-          f"reordered f32 sums of <= 289 terms)")
-    if r_r > 1.0 or not torch.isfinite(rgb_k).all():
-        raise AssertionError("K3-fwd disagrees with its plain twin")
-    same = torch.equal(rgb_k, RK.launch_forward(rcfg, rws, rbs, *rin,
-                                                pack=rpack))
-    print(f"K3-fwd  two launches bitwise equal: {same}")
-    if not same:
-        raise AssertionError("K3-fwd is not deterministic")
+    rslabs = RK.make_bwd_slabs(rcfg, rws, bf16=False)
+    rpack = rslabs[0]
+    e_r = k3_fwd_check(rcfg, rws, rbs, rin, rpack, f"N={N_CORE}")
+    rgb_p = RK.radiance_plain(rws, rbs, rcfg, *rin).detach()
+    rag = [t[:N_RAGGED].contiguous() for t in rin]
+    e_r = max(e_r, k3_fwd_check(rcfg, rws, rbs, rag, rpack,
+                                f"N={N_RAGGED}"))
 
     def plain_rad():
         with torch.no_grad():
             RK.radiance_plain(rws, rbs, rcfg, *rin)
-    entry("radiance_fwd", "factored_neus_tpu_torch/csrc/radiance_fwd.cu",
+    entry("radiance_fwd", "factored_neus_tpu_torch/csrc/radiance_fwd_wg.cu",
           "factored_neus_tpu/ops/pallas_radiance.py:209", e_r,
           cuda_ms(lambda: RK.launch_forward(rcfg, rws, rbs, *rin,
                                             pack=rpack), 10),
           cuda_ms(plain_rad, 10), N_CORE * 2 * rS,
           N_CORE * 4 * (9 + d_feat + 3) + rwbytes)
-    results[-1]["pack_ms"] = cuda_ms(lambda: TP.pack_weights(rws), 10)
+    results[-1].update({
+        "pack_ms": cuda_ms(lambda: RK.make_fwd_pack(rcfg, rws), 10),
+        f"ms_{N_RAGGED}": cuda_ms(lambda: RK.launch_forward(
+            rcfg, rws, rbs, *rag, pack=rpack), 20),
+        f"bound_3xtf32_ms_{N_RAGGED}": 1e3 * 3 * N_RAGGED * 2 * rS
+        / TF32_PEAK, "sass": k3_build["sass"], "ptxas": k3_build["ptxas"],
+        "attrs": wg_attrs("radiance_fwd_wg.cu", "radiance_fwd_attrs",
+                          ("sweep",))})
+    print(f"K3-fwd  N={N_RAGGED}: {results[-1][f'ms_{N_RAGGED}']:.3f} ms "
+          f"against its 3xTF32 bound "
+          f"{results[-1][f'bound_3xtf32_ms_{N_RAGGED}']:.3f}; its pack "
+          f"{results[-1]['pack_ms']:.3f} ms; sweep "
+          f"(cudaFuncGetAttributes): {results[-1]['attrs']['sweep']}")
 
     # K3-bwd (3xTF32 on wgmma, from its two f32 slab packs, built once as
     # a step does): dW and db sum 65,536 rows; against the f64 twin as
     # K1-bwd, with the ReLU masks of the kernel's own forward, held against
     # the f32 forward's (k3_bwd_masks)
     rbuild = wgmma_build_report("K3-bwd", "radiance_bwd_wg.cu")
-    rslabs = RK.make_bwd_slabs(rcfg, rws, bf16=False)
     ct_rgb = torch.randn(rgb_p.shape, device=device, generator=gen)
     *rcts, rdws, rdbs = RK.launch_backward(rcfg, rws, rbs, *rin, ct_rgb,
                                            pack=rslabs)
@@ -799,13 +926,12 @@ def check_kernels(device):
     del splain32, st_k
 
     for r in results:
-        tc = r["bound_3xtf32_ms"]
+        f32 = r["bound_f32_ms"]
         print(f"  {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} "
-              f"ms) for {gflop[r['name']]:.1f} GFLOP, f32 bound "
-              f"{r['bound_ms']:.3f} ms by {r['bound_by']} "
-              f"({100 * r['bound_ms'] / r['ms']:.1f}% of it); 3xTF32 "
-              f"tensor-core bound {tc:.3f} ms ({100 * tc / r['ms']:.1f}% of "
-              f"it)")
+              f"ms) for {gflop[r['name']]:.1f} GFLOP, 3xTF32 tensor-core "
+              f"bound {r['bound_ms']:.3f} ms by {r['bound_by']} "
+              f"({100 * r['bound_ms'] / r['ms']:.1f}% of it); f32 CUDA-core "
+              f"bound {f32:.3f} ms ({100 * f32 / r['ms']:.1f}% of it)")
     return results
 
 
@@ -1530,9 +1656,11 @@ def check_validation_shapes(device, results) -> None:
     """K1-fwd and K3-fwd at a validation chunk's VAL_CHUNK x 128 rows and
     K2 at its first sweep's VAL_CHUNK x 64 (the later three sweeps take
     the step's 32,768 rows, timed in check_kernels), on the weights and
-    packs check_kernels builds, against their twins at 1e-5 abs; the times
-    and bounds go into each kernel's entry under *_val.  Every bound here
-    is by operations, which scale with the rows."""
+    packs check_kernels builds, against their twins at 1e-5 abs (K2 and
+    K3-fwd also against their f64 twins, k2_check, k3_fwd_check), each
+    bitwise repeatable; the times and bounds go into each kernel's entry
+    under *_val.  Every bound here is by operations, which scale with the
+    rows."""
     import torch
     from factored_neus_tpu_torch.models.fields import (RenderingConfig,
                                                        RenderingNetwork,
@@ -1540,7 +1668,6 @@ def check_validation_shapes(device, results) -> None:
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
     from factored_neus_tpu_torch.ops import radiance_kernel as RK
     from factored_neus_tpu_torch.ops import sdf_kernel as SK
-    from factored_neus_tpu_torch.ops import tc_pack as TP
 
     cfg, rcfg = SDFConfig(), RenderingConfig()
     net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(device)
@@ -1549,8 +1676,8 @@ def check_validation_shapes(device, results) -> None:
     with torch.no_grad():
         ws, bs = net.effective_weights()
         rws, rbs = rnet.effective_weights()
-    pack, rpack = TP.pack_weights(ws), TP.pack_weights(rws)
     slabs = GK.make_bwd_slabs(cfg, ws, bf16=False)
+    pack, rpack = slabs[0], RK.make_fwd_pack(rcfg, rws)
     gen = torch.Generator(device=device).manual_seed(2)
     n = VAL_CHUNK * 128
     x = torch.randn(n, 3, device=device, generator=gen) * 0.5
@@ -1590,17 +1717,23 @@ def check_validation_shapes(device, results) -> None:
         if name == "geometry_fwd" and not all(
                 torch.equal(a, b) for a, b in zip(got, kernel())):
             raise AssertionError("K1-fwd is not deterministic")
+        if name == "sdf_fwd":
+            err = max(err, k2_check(cfg, wn, bn, xs, pack, None,
+                                    f"N={rows} (validation)"))
+        if name == "radiance_fwd":
+            err = max(err, k3_fwd_check(rcfg, rws, rbs, rin, rpack,
+                                        f"N={rows} (validation)"))
         e = by_name[name]
         if e["bound_by"] != "operations":
             raise AssertionError(f"{name}: bound by bytes at the step")
         e.update({"rows_val": rows, "max_abs_err_val": err,
                   "ms_val": cuda_ms(kernel, 5),
                   "plain_ms_val": cuda_ms(plain, 3),
-                  "bound_ms_val": e["bound_ms"] * rows / rows0,
+                  "bound_f32_ms_val": e["bound_f32_ms"] * rows / rows0,
                   "bound_3xtf32_ms_val": e["bound_3xtf32_ms"] * rows / rows0})
         print(f"validation shape {name} N={rows}: max|err| {err:.3e} "
               f"(tolerance 1e-5 abs), {e['ms_val']:.3f} ms (plain "
-              f"{e['plain_ms_val']:.3f}), bounds {e['bound_ms_val']:.3f} "
+              f"{e['plain_ms_val']:.3f}), bounds {e['bound_f32_ms_val']:.3f} "
               f"f32, {e['bound_3xtf32_ms_val']:.3f} 3xTF32 "
               f"({e['bound_3xtf32_ms_val'] / e['ms_val']:.1%} of it)")
         if not err <= 1e-5 or not all(torch.isfinite(g).all() for g in got):
@@ -2163,18 +2296,23 @@ def stage2_run(conf: str, card: str):
 
 def check_stage2_shapes(device, results, model) -> None:
     """K2, K1-fwd and K3-fwd at the stage-2 step's new shapes
-    (STAGE2_ROWS), on the stage-2 run's packs, against their twins at 1e-5
-    abs; times, plain times and bounds (by operations, which scale with
-    the rows: check_kernels' bounds at its rows) go into each kernel's
-    entry under "stage2"."""
+    (STAGE2_ROWS), on the stage-2 run's packs (their f32 slab packs: the
+    run builds no 3xTF32 pack), against their twins at 1e-5 abs (K2 up to
+    65,536 rows and K3-fwd also against their f64 twins, k2_check,
+    k3_fwd_check), each bitwise repeatable; times, plain times and bounds
+    (by operations, which scale with the rows: check_kernels' bounds at
+    its rows) go into each kernel's entry under "stage2"."""
     import torch
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
     from factored_neus_tpu_torch.ops import radiance_kernel as RK
     from factored_neus_tpu_torch.ops import sdf_kernel as SK
 
     sdf_w, color_w = model.kernel_weights()
-    ws, bs, pack = sdf_w.ws, sdf_w.bs, sdf_w.pack
-    rws, rbs, rpack = color_w.ws, color_w.bs, color_w.pack
+    ws, bs, pack = sdf_w.ws, sdf_w.bs, sdf_w.sweep32
+    rws, rbs, rpack = color_w.ws, color_w.bs, color_w.sweep32
+    if sdf_w.pack is not None or color_w.pack is not None or rpack is None:
+        raise AssertionError("Stage2Model.kernel_weights built a 3xTF32 "
+                             "pack, or no K3-fwd slab pack")
     # K1-fwd's two f32 slab packs, built once a run by
     # Stage2Model.kernel_weights (no grad)
     slabs = (sdf_w.sweep32, sdf_w.rev32)
@@ -2192,35 +2330,42 @@ def check_stage2_shapes(device, results, model) -> None:
         return torch.randn(n, d, device=device, generator=gen) * scale
 
     def case(name, rows):
+        """(kernel, twin, the f64 and repeat check or None)"""
         x = rand(rows)
+        label = f"N={rows} (stage 2)"
         if name == "sdf_fwd":
             return (lambda: SK.sdf_forward(wn, bn, cfg, x, pack),
-                    lambda: SK.sdf_forward_plain(wn, bn, cfg, x))
+                    lambda: SK.sdf_forward_plain(wn, bn, cfg, x),
+                    (lambda: k2_check(cfg, wn, bn, x, pack, None, label))
+                    if rows <= N_CORE else None)
         if name == "geometry_fwd":
             return (lambda: GK.launch_forward(cfg, x, ws, bs, slabs),
-                    lambda: GK.geometry_plain(ws, bs, x, cfg))
+                    lambda: GK.geometry_plain(ws, bs, x, cfg), None)
         rin = [x, rand(rows), torch.nn.functional.normalize(rand(rows), dim=-1),
                rand(rows, rcfg.d_feature)]
         return (lambda: RK.launch_forward(rcfg, rws, rbs, *rin, pack=rpack),
-                lambda: RK.radiance_plain(rws, rbs, rcfg, *rin))
+                lambda: RK.radiance_plain(rws, rbs, rcfg, *rin),
+                lambda: k3_fwd_check(rcfg, rws, rbs, rin, rpack, label))
 
     for name, shapes in STAGE2_ROWS.items():
         e = by_name[name]
         if e["bound_by"] != "operations":
             raise AssertionError(f"{name}: bound by bytes at the step")
         for rows in shapes:
-            kernel, plain = case(name, rows)
+            kernel, plain, check64 = case(name, rows)
             with torch.no_grad():
                 got, want = kernel(), plain()
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
             torch.cuda.synchronize()
             err = max(worst(a, b, 1e-5, 0.0)[0] for a, b in zip(got, want))
-            if name == "geometry_fwd":
-                with torch.no_grad():
-                    again = kernel()
-                if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                    raise AssertionError("K1-fwd is not deterministic")
+            with torch.no_grad():
+                again = kernel()
+            again = again if isinstance(again, tuple) else (again,)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name} is not deterministic")
+            if check64 is not None:
+                err = max(err, check64())
             reps = 5 if rows >= N_CORE else 20
 
             def plain_ng():
@@ -2229,13 +2374,13 @@ def check_stage2_shapes(device, results, model) -> None:
             row = {"rows": rows, "max_abs_err": err,
                    "ms": cuda_ms(kernel, reps), "plain_ms": cuda_ms(plain_ng,
                                                                     3),
-                   "bound_ms": e["bound_ms"] * rows / rows0[name],
+                   "bound_f32_ms": e["bound_f32_ms"] * rows / rows0[name],
                    "bound_3xtf32_ms": e["bound_3xtf32_ms"] * rows
                    / rows0[name]}
             e.setdefault("stage2", []).append(row)
             print(f"stage-2 shape {name} N={rows}: max|err| {err:.3e} "
                   f"(tolerance 1e-5 abs), {row['ms']:.3f} ms (plain "
-                  f"{row['plain_ms']:.3f}), bounds {row['bound_ms']:.3f} "
+                  f"{row['plain_ms']:.3f}), bounds {row['bound_f32_ms']:.3f} "
                   f"f32, {row['bound_3xtf32_ms']:.3f} 3xTF32 "
                   f"({row['bound_3xtf32_ms'] / row['ms']:.1%} of it)")
             if not err <= 1e-5 or not all(torch.isfinite(g).all()
@@ -2986,11 +3131,13 @@ def stash_run() -> int:
                              "stash pair on")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    count_pack_calls()
     with tempfile.TemporaryDirectory() as tmp:
         _, runner, launches = train_run(tmp, STASH_STEPS)
     check_launched("stash run", launches, STASH_SET)
     print(json.dumps({"launches": launches,
-                      "rays_per_sec": runner.history[-1]["rays_per_sec"]}))
+                      "rays_per_sec": runner.history[-1]["rays_per_sec"],
+                      "pack_weights_calls": PACK_CALLS[0]}))
     return 0
 
 
@@ -3008,6 +3155,7 @@ def split_run() -> int:
                              "on, or the stash switch is on")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    count_pack_calls()
     with tempfile.TemporaryDirectory() as tmp:
         _, runner, launches = train_run(tmp, SPLIT_STEPS, "womask.conf")
     if runner.cfg.n_outside != 32:
@@ -3017,7 +3165,8 @@ def split_run() -> int:
         raise AssertionError("split run: K1-bwd-split did not launch once a "
                              "step")
     print(json.dumps({"launches": launches,
-                      "rays_per_sec": runner.history[-1]["rays_per_sec"]}))
+                      "rays_per_sec": runner.history[-1]["rays_per_sec"],
+                      "pack_weights_calls": PACK_CALLS[0]}))
     return 0
 
 
@@ -3085,7 +3234,7 @@ def bf16_run() -> int:
               f"and K3's: {k13}")
         if not all(any(k in n for n in k13) for k in (
                 "geometry_fwd_kernel", "geometry_bwd_wg_sweep",
-                "geometry_bwd_wg_wgrad", "radiance_fwd_kernel<true>",
+                "geometry_bwd_wg_wgrad", "radiance_fwd_bf16_kernel",
                 "radiance_bwd_wg_sweep", "radiance_bwd_wg_wgrad")):
             raise AssertionError("the --profile trace does not name K1 and "
                                  "K3 in bf16")
@@ -3182,8 +3331,12 @@ def main() -> int:
         check_step_against_cpu(tmp)
     with tempfile.TemporaryDirectory() as tmp:
         check_step_against_cpu(tmp, "womask.conf", 3e-4, 2e-3)
+    count_pack_calls()
+    packs = {}
     with tempfile.TemporaryDirectory() as tmp:
-        conf, runner, launches = train_run(tmp, TRAIN_STEPS)
+        conf, runner, launches = pack_calls_during(
+            f"{TRAIN_STEPS}-step wmask run", packs, train_run, tmp,
+            TRAIN_STEPS)
         check_launched("main run", launches, MAIN_SET)
         per_step = STAGE1_PER_STEP
         if any(launches[k] != c * TRAIN_STEPS for k, c in per_step.items()):
@@ -3192,22 +3345,29 @@ def main() -> int:
                                  f"{launches}")
         print(f"rays/s at iter {runner.history[-1]['iter']}: "
               f"{runner.history[-1]['rays_per_sec']:.0f} on {card}")
-        mesh = check_mesh(conf)
-        check_validation(conf)
+        mesh = pack_calls_during(f"{MESH_RES}^3 mesh", packs, check_mesh,
+                                 conf)
+        pack_calls_during("validation image", packs, check_validation, conf)
         check_dtu_size_validation(tmp, conf, runner.last_checkpoint, card)
         check_other_modes(conf, mesh)
         check_eval(mesh)
-        runner2, launches2 = stage2_run(conf, card)
+        runner2, launches2 = pack_calls_during(
+            f"{STAGE2_STEPS}-step stage-2 run", packs, stage2_run, conf, card)
         check_stage2_shapes(device, kernels, runner2.model)
         del runner2
         check_stage2_step_against_cpu(conf)
         check_stage2_step_against_cpu(conf, sweep_bf16=True)
         check_stage2_validation(conf)
-        runner3, launches3 = stage3_run(conf, card)
+        runner3, launches3 = pack_calls_during(
+            f"{STAGE3_STEPS}-step stage-3 run", packs, stage3_run, conf, card)
         check_outer_sweep(device, runner3.model, card)
         del runner3
         check_stage3_step_against_cpu(conf)
         check_stage3_validation(conf)
+    print(f"tc_pack.pack_weights (3xTF32) calls on the default path: "
+          f"{packs}")
+    if any(packs.values()):
+        raise AssertionError("the default path built a 3xTF32 pack")
     t0 = time.perf_counter()
     synthetic = synthetic_phase(card)
     print(f"synthetic families phase: {time.perf_counter() - t0:.1f} s on "
@@ -3219,6 +3379,12 @@ def main() -> int:
     split = subprocess_run(SPLIT_RUN, {"FNEUS_PG_STACKED": "0"}, "split")
     print(f"womask split run rays/s over steps 11-{SPLIT_STEPS}: "
           f"{split['rays_per_sec']:.0f} on {card}")
+    print(f"tc_pack.pack_weights calls under the switches: stash run "
+          f"{stash['pack_weights_calls']}, split run "
+          f"{split['pack_weights_calls']}")
+    if not stash["pack_weights_calls"] or not split["pack_weights_calls"]:
+        raise AssertionError("a switch-only K1 variant ran without its "
+                             "3xTF32 pack built by kernel_weights")
     bf16 = subprocess_run(BF16_RUN, {"FNEUS_CORE_ACT_BF16": "1"}, "bf16")
     print(f"bf16 wmask run rays/s over steps 21-{BF16_STEPS}: "
           f"{bf16['rays_per_sec']:.0f} on {card}")

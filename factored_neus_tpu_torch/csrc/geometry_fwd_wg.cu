@@ -95,84 +95,6 @@ __device__ __forceinline__ void gf_producer(const GfDims& d,
   }
 }
 
-// One slab of the last layer's forward: fw_slab's m64n128 k-steps at n0
-// and, with TAIL, an m64n8 k-step of columns 256 .. 263 beside each, into
-// acc8 and then run8 (FIRST: run = acc, run8 = acc8).
-template <int NK, bool FIRST, bool TAIL>
-__device__ __forceinline__ void gf_last_slab(int it, unsigned char* ring,
-                                             uint64_t* full, uint64_t* empty,
-                                             uint32_t atile, int kk0,
-                                             int cols, int n0,
-                                             float (&acc)[64],
-                                             float (&run)[64],
-                                             float (&acc8)[4],
-                                             float (&run8)[4],
-                                             const unsigned char* at, int w,
-                                             int g, int t, int lead) {
-  const int st = it % FW_NS;
-  mbar_wait(full + st, (it / FW_NS) & 1);
-  uint32_t sm[NK][4];
-#pragma unroll
-  for (int j = 0; j < NK; ++j) {
-    const int k = 8 * (kk0 + j) + t;
-    const int r = 16 * w + g;
-    sm[j][0] = small_bits(*(const float*)(at + at_byte(r, k)));
-    sm[j][1] = small_bits(*(const float*)(at + at_byte(r + 8, k)));
-    sm[j][2] = small_bits(*(const float*)(at + at_byte(r, k + 4)));
-    sm[j][3] = small_bits(*(const float*)(at + at_byte(r + 8, k + 4)));
-  }
-  const uint32_t sb = smem_u32(ring + st * GF_STAGE);
-  const uint64_t bb = desc_sw128(sb + n0 * 128);
-  const uint64_t bs = desc_sw128(sb + (cols + n0) * 128);
-  const uint64_t tb = desc_sw128(sb + 256 * 128);
-  const uint64_t ts = desc_sw128(sb + (cols + 256) * 128);
-  wgmma_fence();
-#pragma unroll
-  for (int j = 0; j < NK; ++j) {
-    const int kk = kk0 + j;
-    const uint64_t da = desc_sw128(atile + (kk >> 2) * FW_KB) + 2 * (kk & 3);
-    wgmma_tf32_n128(acc, sm[j], bb + 2 * j, j ? 1 : 0);
-    wgmma_tf32_ss_n128(acc, da, bs + 2 * j, 1);
-    wgmma_tf32_ss_n128(acc, da, bb + 2 * j, 1);
-    if constexpr (TAIL) {
-      wgmma_tf32_n8(acc8, sm[j], tb + 2 * j, j ? 1 : 0);
-      wgmma_tf32_ss_n8(acc8, da, ts + 2 * j, 1);
-      wgmma_tf32_ss_n8(acc8, da, tb + 2 * j, 1);
-    }
-  }
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(acc);
-  if constexpr (TAIL) fence_regs(acc8);
-  mbar_arrive_if(empty + st, lead);
-#pragma unroll
-  for (int i = 0; i < 64; ++i) run[i] = FIRST ? acc[i] : run[i] + acc[i];
-  if constexpr (TAIL)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) run8[i] = FIRST ? acc8[i] : run8[i] + acc8[i];
-}
-
-// The last layer's product from ring slab it on: eight slabs of 4 k-steps
-template <bool TAIL>
-__device__ __forceinline__ void gf_last_layer(int it, unsigned char* ring,
-                                              uint64_t* full,
-                                              uint64_t* empty,
-                                              uint32_t atile, int cols,
-                                              int n0, float (&acc)[64],
-                                              float (&run)[64],
-                                              float (&acc8)[4],
-                                              float (&run8)[4],
-                                              const unsigned char* at, int w,
-                                              int g, int t, int lead) {
-  gf_last_slab<4, true, TAIL>(it, ring, full, empty, atile, 0, cols, n0, acc,
-                              run, acc8, run8, at, w, g, t, lead);
-#pragma unroll
-  for (int s = 1; s < 8; ++s)
-    gf_last_slab<4, false, TAIL>(it + s, ring, full, empty, atile, 4 * s,
-                                 cols, n0, acc, run, acc8, run8, at, w, g, t,
-                                 lead);
-}
-
 __device__ __forceinline__ void gf_consumer(const GfDims& d, int c,
                                             unsigned char* ring,
                                             unsigned char* at, float* E,
@@ -277,11 +199,13 @@ __device__ __forceinline__ void gf_consumer(const GfDims& d, int c,
       const int N = d.d_out;
       float acc8[4], run8[4];
       if (c == 1 && d.last_cols > 256)
-        gf_last_layer<true>(it, ring, full, empty, atile, d.last_cols, n0,
-                            acc, run, acc8, run8, at, w, g, t, lead);
+        fw_last_layer<true, GF_STAGE>(it, ring, full, empty, atile,
+                                      d.last_cols, n0, acc, run, acc8, run8,
+                                      at, w, g, t, lead);
       else
-        gf_last_layer<false>(it, ring, full, empty, atile, d.last_cols, n0,
-                             acc, run, acc8, run8, at, w, g, t, lead);
+        fw_last_layer<false, GF_STAGE>(it, ring, full, empty, atile,
+                                       d.last_cols, n0, acc, run, acc8, run8,
+                                       at, w, g, t, lead);
       it += 8;
 #pragma unroll
       for (int q = 0; q < 16; ++q)

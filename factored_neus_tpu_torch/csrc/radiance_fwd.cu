@@ -1,45 +1,39 @@
-// K3-fwd: the fused IDR radiance MLP.  Positional encoding of the view
-// directions, the concat [pts | PE(dirs) | normals | feature], the ReLU
-// hidden layers, the last layer and, with squeeze_out, the sigmoid -> rgb.
+// K3-fwd-bf16: the fused IDR radiance MLP in the bf16 operand mode.
+// Positional encoding of the view directions, the concat [pts | PE(dirs) |
+// normals | feature], the ReLU hidden layers, the last layer and, with
+// squeeze_out, the sigmoid -> rgb.
 //
 // Replaces the TPU kernel factored_neus_tpu/ops/pallas_radiance.py
-// (_make_radiance.run_fwd, body _build_fwd_kernel).
+// (_make_radiance(cfg, bf16=True).run_fwd, body _build_fwd_kernel with
+// _mm_fns(True), rendering_apply_pallas' default): every product on bf16
+// operands (to nearest even) with an f32 sum, on bf16 mma.sync
+// (tc_mma.cuh, BF) from pack_weights_bf16's pack; the encoding, biases,
+// ReLU and sigmoid stay f32.  K3-fwd, its f32 twin, is radiance_fwd_wg.cu
+// (3xTF32 on wgmma).
 //
 // Bound: operations.  At full width a row costs 2 x 271,360 FLOPs (layers
 // 289->256, 3 x 256->256, 256->3) against 1,036 bytes in (the 256-d
-// feature dominates) and 12 out.  Every product runs on the tensor cores
-// in 3xTF32 (tc_mma.cuh), so the least time is three TF32 products' worth
-// of those FLOPs over 495 TFLOP/s.  The design is K2's (sdf_fwd.cu) with
-// the radiance MLP inside it: persistent blocks, one per SM, walk 64-row
-// tiles; a tile's activations stay in shared memory through the whole
-// layer chain while the W^T blocks of the weight pack (built once a step,
-// pre-split into TF32 big and small halves) are staged slice by slice
-// into the ring by cp.async.  No scratch.  Its shared memory: two tiles
-// of 64 x 300 floats (ld = the 289-wide first input rounded to 8, plus 4), 153,600 B,
-// and the ring sized for the pack's widest block (W0 at stride 296),
-// 75,776 B: 229,376 B of the 232,448 a block may use.
-//
-// K3-fwd-bf16 (entry point radiance_fwd_bf16) replaces run_fwd with
-// bf16=True (_mm_fns(True), rendering_apply_pallas' default): every
-// product on bf16 operands (to nearest even) with an f32 sum, on bf16 mma
-// (tc_mma.cuh, BF) from pack_weights_bf16's pack; the encoding, biases,
-// ReLU and sigmoid stay f32.  Bound: operations, one bf16 product's worth
-// of the FLOPs over 989 TFLOP/s.  The 289-wide x0 is 18 full k16 steps and
-// a half one (the engine's last stage of a depth of 296 is 8 rows deep and
-// reads no column past 296, so the zero padding [289, 296) and ld 300
-// serve both modes; the pack pads the block to 304 rows).  The bf16 ring
-// stages one half of 16 rows a stage, a quarter of the 3xTF32 ring, and is
-// sized by a 64-row weight-gradient chunk (tc_pack.smem_bytes' count, the
-// larger): 220,176 B in all.
+// feature dominates) and 12 out: one bf16 product's worth of the FLOPs
+// over 989 TFLOP/s.  Persistent blocks, one per SM, walk 64-row tiles; a
+// tile's activations stay in shared memory through the whole layer chain
+// while the W^T blocks of the weight pack (built once a step) are staged
+// slice by slice into the ring by cp.async.  No scratch.  Its shared
+// memory: two tiles of 64 x 300 floats (ld = the 289-wide first input
+// rounded to 8, plus 4).  The 289-wide x0 is 18 full k16 steps and a half
+// one (the engine's last stage of a depth of 296 is 8 rows deep and reads
+// no column past 296, so the zero padding [289, 296) and ld 300 serve; the
+// pack pads the block to 304 rows).  The bf16 ring stages one half of 16
+// rows a stage and is sized by a 64-row weight-gradient chunk
+// (tc_pack.smem_bytes' count, the larger): 220,176 B in all.
 #include "radiance_mlp.cuh"
 
-template <bool BF>
 __global__ void __launch_bounds__(TC_THREADS, 1)
-radiance_fwd_kernel(TcDims d, int squeeze, const float* __restrict__ pts,
-                    const float* __restrict__ nrm,
-                    const float* __restrict__ dirs,
-                    const float* __restrict__ feat, float* out,
-                    int n_tiles) {
+radiance_fwd_bf16_kernel(TcDims d, int squeeze,
+                         const float* __restrict__ pts,
+                         const float* __restrict__ nrm,
+                         const float* __restrict__ dirs,
+                         const float* __restrict__ feat, float* out,
+                         int n_tiles) {
   extern __shared__ __align__(16) float smem[];
   const int ld = d.ld;
   float* A = smem;                      // [64][ld] layer input
@@ -64,8 +58,8 @@ radiance_fwd_kernel(TcDims d, int squeeze, const float* __restrict__ pts,
     // hidden layers: h_{l+1} = relu(h_l W_l^T + b_l), back into A
     for (int l = 0; l < lL; ++l) {
       const int N = d.outs[l];
-      tc_product<2, BF>(d, A, ld, d.kp[l], d.fwd_off[l], d.fwd_st[l], d.np[l],
-                        Y, ld, ring);
+      tc_product<2, true>(d, A, ld, d.kp[l], d.fwd_off[l], d.fwd_st[l],
+                          d.np[l], Y, ld, ring);
       __syncthreads();
       const float* bias = d.b[l];
       for (int idx = tid; idx < TC_TILE * N; idx += TC_THREADS) {
@@ -77,8 +71,8 @@ radiance_fwd_kernel(TcDims d, int squeeze, const float* __restrict__ pts,
 
     // last layer -> rgb, through the sigmoid with squeeze_out
     const int N = d.outs[lL];
-    tc_product<2, BF>(d, A, ld, d.kp[lL], d.fwd_off[lL], d.fwd_st[lL], d.np[lL],
-                      Y, ld, ring);
+    tc_product<2, true>(d, A, ld, d.kp[lL], d.fwd_off[lL], d.fwd_st[lL],
+                        d.np[lL], Y, ld, ring);
     __syncthreads();
     for (int idx = tid; idx < TC_TILE * N; idx += TC_THREADS) {
       const int r = idx / N, c = idx - r * N;
@@ -92,12 +86,15 @@ radiance_fwd_kernel(TcDims d, int squeeze, const float* __restrict__ pts,
   }
 }
 
-template <bool BF>
-static int launch_radiance_fwd(const int* ia, const unsigned long long* p,
-                               unsigned long long stream) {
+// K3-fwd-bf16.  Integer arguments: rad_tc_dims_from_args'.  Pointers:
+// [pts, normals, dirs, feat, rgb, pack (pack_weights_bf16's), b[L]].
+// Returns a cudaError_t value; 0 when the launch was accepted.
+extern "C" int radiance_fwd_bf16(const int* ia, const unsigned long long* p,
+                                 float scale, unsigned long long stream) {
+  (void)scale;
   TcDims d;
   int squeeze;
-  int rc = rad_tc_dims_from_args(ia, (const float*)p[5], &d, &squeeze, BF);
+  int rc = rad_tc_dims_from_args(ia, (const float*)p[5], &d, &squeeze);
   if (rc) return rc;
   for (int l = 0; l < d.L; ++l) d.b[l] = (const float*)p[6 + l];
   const int grid = ia[6];
@@ -105,27 +102,11 @@ static int launch_radiance_fwd(const int* ia, const unsigned long long* p,
   const size_t smem = tc_smem_bytes(d, (size_t)2 * TC_TILE * d.ld);
   if (!smem || grid < 1) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      radiance_fwd_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      radiance_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  radiance_fwd_kernel<BF><<<grid, TC_THREADS, smem, (cudaStream_t)stream>>>(
+  radiance_fwd_bf16_kernel<<<grid, TC_THREADS, smem, (cudaStream_t)stream>>>(
       d, squeeze, (const float*)p[0], (const float*)p[1],
       (const float*)p[2], (const float*)p[3], (float*)p[4], n_tiles);
   return (int)cudaGetLastError();
-}
-
-// Integer arguments: rad_tc_dims_from_args'.  Pointers: [pts,
-// normals, dirs, feat, rgb, pack, b[L]].  Returns a cudaError_t value; 0
-// when the launch was accepted.
-extern "C" int radiance_fwd(const int* ia, const unsigned long long* p,
-                            float scale, unsigned long long stream) {
-  (void)scale;
-  return launch_radiance_fwd<false>(ia, p, stream);
-}
-
-// K3-fwd-bf16: radiance_fwd's arguments, the pack pack_weights_bf16's.
-extern "C" int radiance_fwd_bf16(const int* ia, const unsigned long long* p,
-                                 float scale, unsigned long long stream) {
-  (void)scale;
-  return launch_radiance_fwd<true>(ia, p, stream);
 }

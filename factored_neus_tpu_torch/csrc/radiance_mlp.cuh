@@ -1,24 +1,22 @@
-// Device code of K3-fwd (radiance_fwd.cu): its argument layout and the
-// first layer's input row [pts (3) | PE(dirs) (d_view) | normals (3) |
+// Device code of K3-fwd-bf16 (radiance_fwd.cu): its argument layout and
+// the first layer's input row [pts (3) | PE(dirs) (d_view) | normals (3) |
 // feature (d_feat)] of the IDR RenderingNetwork.  It runs its products on
-// the tensor cores (tc_mma.cuh) from one weight pack, in 3xTF32 or, in the
-// bf16 operand mode (K3-fwd-bf16), on bf16 operands.
+// the tensor cores (tc_mma.cuh, bf16 mma.sync) from one weight pack.
 #pragma once
 
 #include "sdf_mlp.cuh"
 #include "tc_mma.cuh"
 
-// K3's arguments [L, multires, d_view, ld, squeeze_out, n, grid, ins[L],
-// outs[L], then the pack's layout] (ops/radiance_kernel.kernel_iargs)
-// into TcDims: no skip, scale 1, d_embed = d_view.  The first layer's
-// input may be as wide as the row stride ld: a product's depth is
-// unbounded.  Only the first layer's input, whose W block another block of
-// the pack follows, may be wider than 256.  bf16: the pack is pack_weights_bf16's (the ring sized for
-// it).  Returns 0, or cudaErrorInvalidValue for a network or layout this
-// code cannot run.
+// K3-fwd-bf16's arguments [L, multires, d_view, ld, squeeze_out, n, grid,
+// ins[L], outs[L], then the bf16 pack's layout]
+// (ops/radiance_kernel.kernel_iargs) into TcDims: no skip, scale 1,
+// d_embed = d_view, the pack pack_weights_bf16's (the ring sized for it).
+// The first layer's input may be as wide as the row stride ld: a product's
+// depth is unbounded.  Only the first layer's input, whose W block another
+// block of the pack follows, may be wider than 256.  Returns 0, or
+// cudaErrorInvalidValue for a network or layout this code cannot run.
 static inline int rad_tc_dims_from_args(const int* ia, const float* pack,
-                                        TcDims* d, int* squeeze,
-                                        bool bf16 = false) {
+                                        TcDims* d, int* squeeze) {
   const int L = ia[0];
   d->L = L;
   d->multires = ia[1];
@@ -33,7 +31,7 @@ static inline int rad_tc_dims_from_args(const int* ia, const float* pack,
   if (L < 2 || L > TC_MAXL || d->d_embed != 3 * (1 + 2 * d->multires) ||
       d->ld % 8 != 4)
     return (int)cudaErrorInvalidValue;
-  int rc = tc_layers_from_args(ia, d->ld, d, bf16);
+  int rc = tc_layers_from_args(ia, d->ld, d, true);
   if (rc) return rc;
   for (int l = 1; l < L; ++l)
     if (d->ins[l] != d->outs[l - 1] || d->kp[l] > 256)

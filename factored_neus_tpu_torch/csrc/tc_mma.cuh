@@ -1,8 +1,10 @@
-// Tensor-core product engine of every kernel: K1 (geometry_fwd.cu,
-// geometry_bwd.cu), K2 (sdf_fwd.cu) and K3 (radiance_fwd.cu,
-// radiance_bwd.cu): the products an MLP kernel runs on a 64-row tile held
-// in shared memory, in f32 accuracy through 3xTF32 on mma.sync, with the
-// weights staged into shared memory by cp.async.
+// Tensor-core product engine of the mma.sync kernels: the switch-only K1
+// variants (geometry_fwd.cu's stash forward, geometry_bwd.cu's split and
+// stash backwards, each also in bf16) and the bf16 bodies K1-fwd-bf16
+// (geometry_fwd.cu) and K3-fwd-bf16 (radiance_fwd.cu): the products an MLP
+// kernel runs on a 64-row tile held in shared memory, in f32 accuracy
+// through 3xTF32 on mma.sync (or on bf16 operands), with the weights
+// staged into shared memory by cp.async.
 //
 //   tc_mm   Y = X B          forward (B = W^T block) and input cotangents
 //                            (B = W block): X, Y in shared memory
@@ -151,9 +153,9 @@ static inline int tc_layers_from_args(const int* ia, int max_kp, TcDims* d,
   return 0;
 }
 
-// The SDF networks' arguments (K1, K2): tc_layers_from_args' layout with
-// skip_mask; bf16: the pack is pack_weights_bf16's.  Returns 0, or
-// cudaErrorInvalidValue for a network or layout this code cannot run.
+// The SDF network's arguments (K1's mma.sync kernels): tc_layers_from_args'
+// layout with skip_mask; bf16: the pack is pack_weights_bf16's.  Returns 0,
+// or cudaErrorInvalidValue for a network or layout this code cannot run.
 static inline int tc_dims_from_args(const int* ia, float scale,
                                     const float* pack, TcDims* d,
                                     bool bf16 = false) {

@@ -1,5 +1,6 @@
-// The f32 warpgroup engine (3xTF32 on wgmma) that three kernels share:
-// K1-bwd (geometry_bwd_wg.cu), K1-fwd (geometry_fwd_wg.cu) and K3-bwd
+// The f32 warpgroup engine (3xTF32 on wgmma) that five kernels share:
+// K1-bwd (geometry_bwd_wg.cu), K1-fwd (geometry_fwd_wg.cu), K2
+// (sdf_fwd_wg.cu), K3-fwd (radiance_fwd_wg.cu) and K3-bwd
 // (radiance_bwd_wg.cu).
 //
 //   the sweep's pieces  a 64-row f32 A tile in shared memory, K-major and
@@ -10,7 +11,8 @@
 //                 product, a consumer warpgroup's N columns, as 3xTF32
 //                 k-steps into a fresh accumulator a slab, added to the
 //                 running sum with rounded adds (fw_slab, fw_layer; a last
-//                 k-step from registers, fw_slab_regs); the f32 tile images
+//                 k-step from registers, fw_slab_regs; an SDF network's
+//                 257-wide last layer, fw_last_layer); the f32 tile images
 //                 of X_l and R_l (img_at, img_store); the transposing
 //                 shuffle that sums a warp's rows (fw_db_reduce)
 //   the pass      dW_l = X_l^T R_l over the images, split over K
@@ -215,6 +217,87 @@ __device__ __forceinline__ void fw_layer(int it, unsigned char* ring,
   if constexpr (EXTRA)
     fw_slab_regs<N, false, STAGE>(it + NSLAB, ring, full, empty, cols, n0,
                                   acc, run, xr, lead);
+}
+
+// One slab of an SDF network's full last layer (K1-fwd, K2): fw_slab's
+// m64n128 k-steps at n0 and, with TAIL, an m64n8 k-step of columns
+// 256 .. 263 beside each, into acc8 and then run8 (FIRST: run = acc, run8 =
+// acc8).
+template <int NK, bool FIRST, bool TAIL, int STAGE>
+__device__ __forceinline__ void fw_last_slab(int it, unsigned char* ring,
+                                             uint64_t* full, uint64_t* empty,
+                                             uint32_t atile, int kk0,
+                                             int cols, int n0,
+                                             float (&acc)[64],
+                                             float (&run)[64],
+                                             float (&acc8)[4],
+                                             float (&run8)[4],
+                                             const unsigned char* at, int w,
+                                             int g, int t, int lead) {
+  const int st = it % FW_NS;
+  mbar_wait(full + st, (it / FW_NS) & 1);
+  uint32_t sm[NK][4];
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    const int k = 8 * (kk0 + j) + t;
+    const int r = 16 * w + g;
+    sm[j][0] = small_bits(*(const float*)(at + at_byte(r, k)));
+    sm[j][1] = small_bits(*(const float*)(at + at_byte(r + 8, k)));
+    sm[j][2] = small_bits(*(const float*)(at + at_byte(r, k + 4)));
+    sm[j][3] = small_bits(*(const float*)(at + at_byte(r + 8, k + 4)));
+  }
+  const uint32_t sb = smem_u32(ring + st * STAGE);
+  const uint64_t bb = desc_sw128(sb + n0 * 128);
+  const uint64_t bs = desc_sw128(sb + (cols + n0) * 128);
+  const uint64_t tb = desc_sw128(sb + 256 * 128);
+  const uint64_t ts = desc_sw128(sb + (cols + 256) * 128);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    const int kk = kk0 + j;
+    const uint64_t da = desc_sw128(atile + (kk >> 2) * FW_KB) + 2 * (kk & 3);
+    wgmma_tf32_n128(acc, sm[j], bb + 2 * j, j ? 1 : 0);
+    wgmma_tf32_ss_n128(acc, da, bs + 2 * j, 1);
+    wgmma_tf32_ss_n128(acc, da, bb + 2 * j, 1);
+    if constexpr (TAIL) {
+      wgmma_tf32_n8(acc8, sm[j], tb + 2 * j, j ? 1 : 0);
+      wgmma_tf32_ss_n8(acc8, da, ts + 2 * j, 1);
+      wgmma_tf32_ss_n8(acc8, da, tb + 2 * j, 1);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if constexpr (TAIL) fence_regs(acc8);
+  mbar_arrive_if(empty + st, lead);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) run[i] = FIRST ? acc[i] : run[i] + acc[i];
+  if constexpr (TAIL)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) run8[i] = FIRST ? acc8[i] : run8[i] + acc8[i];
+}
+
+// An SDF network's full last layer from ring slab it on: eight slabs of 4
+// k-steps
+template <bool TAIL, int STAGE>
+__device__ __forceinline__ void fw_last_layer(int it, unsigned char* ring,
+                                              uint64_t* full,
+                                              uint64_t* empty,
+                                              uint32_t atile, int cols,
+                                              int n0, float (&acc)[64],
+                                              float (&run)[64],
+                                              float (&acc8)[4],
+                                              float (&run8)[4],
+                                              const unsigned char* at, int w,
+                                              int g, int t, int lead) {
+  fw_last_slab<4, true, TAIL, STAGE>(it, ring, full, empty, atile, 0, cols,
+                                     n0, acc, run, acc8, run8, at, w, g, t,
+                                     lead);
+#pragma unroll
+  for (int s = 1; s < 8; ++s)
+    fw_last_slab<4, false, TAIL, STAGE>(it + s, ring, full, empty, atile,
+                                        4 * s, cols, n0, acc, run, acc8,
+                                        run8, at, w, g, t, lead);
 }
 
 // Writes value v of (row r, column c) into the A tile (c's k slot).

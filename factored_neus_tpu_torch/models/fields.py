@@ -5,8 +5,7 @@ shapes.  Counterpart of factored_neus_tpu/models/fields.py:
                           the weight packs of a step (kernel_weights),
                           each also in the bf16 operand mode
   RenderingNetwork        IDR-mode radiance MLP (K3, also in the bf16
-                          operand mode), on one weight pack a step and,
-                          for K3-bwd or K3-bwd-bf16, two slab packs
+                          operand mode), on the packs of a step
                           (kernel_weights)
   SingleVarianceNetwork   inv_s = exp(10 * variance)
   RefColor                surface reflection colour (diffuse + specular)
@@ -51,20 +50,27 @@ _Slabs = Optional[Tuple[torch.Tensor, TP.SweepLayout]]
 
 
 class KernelWeights(NamedTuple):
-    """_WNLayers.kernel_weights' result: the effective weights and biases,
-    and the packs the kernels read, each None where it was not built.
-    The slab packs are, for the SDF network, K2-bf16's and K1-bwd-bf16's
-    (sweep16, rev16) and K1-fwd's and K1-bwd's (sweep32, rev32); for the
-    radiance MLP K3-bwd-bf16's (sweep16, rev16) and K3-bwd's (sweep32,
-    rev32)."""
+    """kernel_weights' result: the effective weights and biases, and the
+    packs the kernels read, each None where it was not built.  Who reads
+    which:
+      pack     the SDF network's 3xTF32 mma.sync pack: the switch-only K1
+               variants (the stash pair, K1-bwd-split)
+      pack16   the bf16 mma.sync pack: K1-fwd-bf16 and those variants in
+               bf16 (SDF), K3-fwd-bf16 (radiance)
+      sweep16  the forward bf16 slab pack: K2-bf16 and K1-bwd-bf16 (SDF),
+               K3-bwd-bf16 (radiance)
+      rev16    the reverse bf16 slab pack: K1-bwd-bf16, K3-bwd-bf16
+      sweep32  the forward f32 slab pack: K2, K1-fwd and K1-bwd (SDF),
+               K3-fwd and K3-bwd (radiance)
+      rev32    the reverse f32 slab pack: K1-fwd and K1-bwd, K3-bwd"""
     ws: List[torch.Tensor]
     bs: List[torch.Tensor]
     pack: _Pack = None         # 3xTF32 (tc_pack.pack_weights)
     pack16: _Pack = None       # bf16 (tc_pack.pack_weights_bf16)
     sweep16: _Slabs = None     # the forward bf16 slab pack
     rev16: _Slabs = None       # the reverse bf16 slab pack
-    sweep32: _Slabs = None     # the forward f32 slab pack (K1, K3-bwd)
-    rev32: _Slabs = None       # the reverse f32 slab pack (K1, K3-bwd)
+    sweep32: _Slabs = None     # the forward f32 slab pack
+    rev32: _Slabs = None       # the reverse f32 slab pack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,40 +112,33 @@ class _WNLayers(nn.Module):
         ls = self.layers()
         return [l.effective_weight() for l in ls], [l.bias for l in ls]
 
-    def kernel_weights(self, bf16: bool = False, f32: bool = True,
-                       sweep_bf16: bool = False) -> KernelWeights:
+    def kernel_weights(self, bf16: bool = False) -> KernelWeights:
         """KernelWeights: the effective weights and biases, differentiable
-        in g, v and b, and on a CUDA device their weight packs for the
-        kernels, built without grad (None on the CPU, or where not asked
-        for): ``f32``, tc_pack.pack_weights' (3xTF32, ``pack``); ``bf16``,
-        tc_pack.pack_weights_bf16's (the bf16 operand mode, ``pack16``);
-        ``sweep_bf16`` (the SDF network only), K2-bf16's slab pack
-        (sdf_kernel.make_sweep_pack, ``sweep16``); the backward's slab
-        packs, the subclasses' (SDFNetwork.kernel_weights).  Built once a step, or once a
-        validation image or a stage-2/3 run, they serve every launch on
-        these weights: K1 and the K2 sweeps, each on the pack of its mode,
-        for the SDF network; K3-fwd and K3-bwd for the radiance MLP."""
+        in g, v and b, and on a CUDA device with ``bf16`` (the bf16
+        operand mode) tc_pack.pack_weights_bf16's pack (``pack16``), built
+        without grad; the subclasses add the packs their kernels read
+        (SDFNetwork.kernel_weights, RenderingNetwork.kernel_weights).
+        Built once a step, or once a validation image, a stage-2/3 run or
+        a mesh, they serve every launch on these weights."""
         ws, bs = self.effective_weights()
-        pack = pack16 = sweep16 = None
-        if _on_card(ws[0]):
+        pack16 = None
+        if bf16 and _on_card(ws[0]):
             with torch.no_grad():
-                pack = TP.pack_weights(ws) if f32 else None
-                pack16 = TP.pack_weights_bf16(ws) if bf16 else None
-                sweep16 = (SK.make_sweep_pack(self.cfg, ws) if sweep_bf16
-                           else None)
-        return KernelWeights(ws, bs, pack, pack16, sweep16)
+                pack16 = TP.pack_weights_bf16(ws)
+        return KernelWeights(ws, bs, pack16=pack16)
 
 
 def mode_pack(weights: KernelWeights, bf16: bool):
-    """The pack of kernel_weights' result that K1's or K3's operand mode
-    reads (None where it was not built: the kernel wrapper builds its
-    own)."""
+    """The mma.sync pack of kernel_weights' result that K1's operand mode
+    reads: pack16 (K1-fwd-bf16 and the switch-only variants in bf16), else
+    pack (the switch-only variants; None where it was not built:
+    geometry_kernel.geometry builds its own)."""
     return weights.pack16 if bf16 else weights.pack
 
 
 def sweep_pack(weights: KernelWeights, bf16: bool):
-    """The pack that K2 (bf16: K2-bf16) reads, as mode_pack."""
-    return weights.sweep16 if bf16 else weights.pack
+    """The slab pack that K2 (bf16: K2-bf16) reads: sweep32 (sweep16)."""
+    return weights.sweep16 if bf16 else weights.sweep32
 
 
 def bwd_slabs(weights: KernelWeights, bf16: bool):
@@ -186,28 +185,44 @@ class SDFNetwork(_WNLayers):
     def kernel_weights(self, bf16: bool = False, f32: bool = True,
                        sweep_bf16: bool = False, k1: bool = True
                        ) -> KernelWeights:
-        """_WNLayers.kernel_weights and the slab packs of K1's wgmma
-        kernels (geometry_kernel.make_bwd_slabs): in the f32 mode, wherever
-        K1-fwd will run (``k1``, and not through the stash pair,
-        geometry_kernel.wg_forward()), K1-fwd's and K1-bwd's
-        (tc_pack.pack_sweep_f32's and pack_rev_f32's, sweep32 and rev32),
-        with or without grad; in the bf16 mode, where a stacked backward can
-        follow (grad enabled and geometry_kernel.wg_backward()),
-        K1-bwd-bf16's (the first is K2-bf16's slab pack, sweep16, which the
-        sweeps share; the second tc_pack.pack_rev_bf16's, rev16).  ``k1``
-        False: for the sweeps alone (K2: value_sweep, the grid fill)."""
+        """_WNLayers.kernel_weights (``bf16``: K1's bf16 mma.sync pack,
+        pack16) and on a CUDA device, without grad, the packs of the
+        kernels that will run on these weights:
+        - sweep32 (sdf_kernel.make_sweep_pack(bf16=False),
+          tc_pack.pack_sweep_f32) wherever K2 runs in f32 (``f32``: the
+          ladder outside use_pallas_sampling, the localisation sweep, the
+          grid fill; in either operand mode of the core) or K1-fwd does;
+        - rev32 (tc_pack.pack_rev_f32; with sweep32
+          geometry_kernel.make_bwd_slabs(bf16=False)) wherever K1-fwd runs
+          (``k1`` in the f32 mode, not through the stash pair:
+          geometry_kernel.wg_forward()), with or without grad;
+        - sweep16 (make_sweep_pack, tc_pack.pack_sweep_bf16) for K2-bf16
+          (``sweep_bf16``) and, with rev16 (tc_pack.pack_rev_bf16), in the
+          bf16 mode where a stacked backward can follow (grad enabled and
+          geometry_kernel.wg_backward()) for K1-bwd-bf16;
+        - pack (tc_pack.pack_weights, 3xTF32 on mma.sync) only where a
+          switch-only K1 variant runs in f32: the stash pair or
+          K1-bwd-split (``k1``, not geometry_kernel.wg_backward()).
+        ``k1`` False: for the sweeps alone (value_sweep, the grid fill)."""
+        kw = super().kernel_weights(bf16)
+        if not _on_card(kw.ws[0]):
+            return kw
+        ws, cfg = kw.ws, self.cfg
         wg16 = torch.is_grad_enabled() and GK.wg_backward() and bf16
         wg32 = not bf16 and k1 and GK.wg_forward()
-        kw = super().kernel_weights(bf16, f32, sweep_bf16 or wg16)
-        if _on_card(kw.ws[0]) and (wg16 or wg32):
-            with torch.no_grad():
-                if wg16:
-                    kw = kw._replace(
-                        rev16=TP.pack_rev_bf16(kw.ws, self.cfg.d_embed))
-                else:
-                    sweep32, rev32 = GK.make_bwd_slabs(self.cfg, kw.ws,
-                                                       bf16=False)
-                    kw = kw._replace(sweep32=sweep32, rev32=rev32)
+        with torch.no_grad():
+            if wg32:
+                sweep32, rev32 = GK.make_bwd_slabs(cfg, ws, bf16=False)
+                kw = kw._replace(sweep32=sweep32, rev32=rev32)
+            elif f32:
+                kw = kw._replace(
+                    sweep32=SK.make_sweep_pack(cfg, ws, bf16=False))
+            if sweep_bf16 or wg16:
+                kw = kw._replace(sweep16=SK.make_sweep_pack(cfg, ws))
+            if wg16:
+                kw = kw._replace(rev16=TP.pack_rev_bf16(ws, cfg.d_embed))
+            if not bf16 and k1 and not GK.wg_backward():
+                kw = kw._replace(pack=TP.pack_weights(ws))
         return kw
 
     def value_sweep(self, x: torch.Tensor,
@@ -291,25 +306,33 @@ class RenderingNetwork(_WNLayers):
         weights = weights or self.kernel_weights(bf16, f32=not bf16)
         return RK.radiance(weights.ws, weights.bs, self.cfg, points,
                            normals, view_dirs, feature_vectors,
-                           mode_pack(weights, bf16), bf16,
-                           slabs=bwd_slabs(weights, bf16))
+                           weights.pack16 if bf16 else weights.sweep32,
+                           bf16, slabs=bwd_slabs(weights, bf16))
 
-    def kernel_weights(self, bf16: bool = False, f32: bool = True,
-                       sweep_bf16: bool = False) -> KernelWeights:
-        """_WNLayers.kernel_weights and, where a backward through the
-        radiance kernels can follow (mode 'idr', grad enabled), the two
-        slab packs of the mode's wgmma backward
-        (radiance_kernel.make_bwd_slabs): in the bf16 mode K3-bwd-bf16's
-        (sweep16, rev16), else, where a parameter requires grad, K3-bwd's
-        (sweep32, rev32)."""
-        kw = super().kernel_weights(bf16, f32)
-        if self.cfg.mode == "idr" and torch.is_grad_enabled() \
-                and _on_card(kw.ws[0]) and (bf16 or any(
-                    p.requires_grad for p in self.parameters())):
-            with torch.no_grad():
-                sweep, rev = RK.make_bwd_slabs(self.cfg, kw.ws, bf16)
-            kw = (kw._replace(sweep16=sweep, rev16=rev) if bf16
-                  else kw._replace(sweep32=sweep, rev32=rev))
+    def kernel_weights(self, bf16: bool = False, f32: bool = True
+                       ) -> KernelWeights:
+        """_WNLayers.kernel_weights (``bf16``: K3-fwd-bf16's mma.sync pack,
+        pack16) and, on a CUDA device in mode 'idr', without grad, the slab
+        packs of the radiance kernels: with ``f32`` in the f32 mode K3-fwd's
+        forward pack (radiance_kernel.make_fwd_pack, sweep32), with or
+        without grad; where a backward can follow (grad enabled and, in
+        the f32 mode, a parameter requiring it) the two of the mode's
+        wgmma backward (radiance_kernel.make_bwd_slabs): K3-bwd's (sweep32,
+        rev32) or K3-bwd-bf16's (sweep16, rev16)."""
+        kw = super().kernel_weights(bf16)
+        if self.cfg.mode != "idr" or not _on_card(kw.ws[0]):
+            return kw
+        grad = torch.is_grad_enabled() and (bf16 or any(
+            p.requires_grad for p in self.parameters()))
+        with torch.no_grad():
+            if grad and bf16:
+                sweep16, rev16 = RK.make_bwd_slabs(self.cfg, kw.ws, True)
+                kw = kw._replace(sweep16=sweep16, rev16=rev16)
+            elif grad and f32:
+                sweep32, rev32 = RK.make_bwd_slabs(self.cfg, kw.ws, False)
+                kw = kw._replace(sweep32=sweep32, rev32=rev32)
+            elif f32 and not bf16:
+                kw = kw._replace(sweep32=RK.make_fwd_pack(self.cfg, kw.ws))
         return kw
 
 

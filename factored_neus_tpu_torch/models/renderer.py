@@ -125,19 +125,22 @@ class Stage1Model(nn.Module):
                        ) -> Tuple[F.KernelWeights, F.KernelWeights]:
         """The SDF network's and the radiance MLP's kernel weights, with
         the packs that their kernels read on a CUDA device: ``bf16``, the
-        render core in its bf16 mode (K1's and K3's bf16 packs, and no
-        3xTF32 radiance pack); ``sweep_bf16``, the ladder's sweeps on
-        K2-bf16 (the SDF network's slab pack; its 3xTF32 pack only where
-        K1 or a sweep still reads it); with ``bf16``, where a backward can
-        follow (fields.SDFNetwork.kernel_weights), also K1-bwd-bf16's two
-        slab packs (geometry_kernel.make_bwd_slabs, the first K2-bf16's
-        too) and K3-bwd-bf16's (radiance_kernel.make_bwd_slabs,
+        render core in its bf16 mode (K1's and K3's bf16 packs); with
+        ``sweep_bf16`` the ladder's sweeps on K2-bf16 (the SDF network's
+        bf16 slab pack, sweep16), else on K2 (its f32 slab pack, sweep32);
+        with ``bf16``, where a backward can follow
+        (fields.SDFNetwork.kernel_weights), also K1-bwd-bf16's two slab
+        packs (geometry_kernel.make_bwd_slabs, the first K2-bf16's too) and
+        K3-bwd-bf16's (radiance_kernel.make_bwd_slabs,
         fields.RenderingNetwork.kernel_weights); without ``bf16``, K1-fwd's
         and K1-bwd's two f32 slab packs (geometry_kernel.make_bwd_slabs(
-        bf16=False), sweep32 and rev32, with or without grad: K1-fwd reads
-        them) and, where a backward can follow, K3-bwd's
-        (radiance_kernel.make_bwd_slabs(bf16=False)).  Built once a step by
-        ``render``, or once a validation image by its caller."""
+        bf16=False), sweep32 and rev32, with or without grad: K1-fwd and K2
+        read the first), K3-fwd's (radiance_kernel.make_fwd_pack, sweep32)
+        and, where a backward can follow, K3-bwd's
+        (radiance_kernel.make_bwd_slabs(bf16=False), whose first is
+        K3-fwd's).  No 3xTF32 mma.sync pack but under the switches of
+        K1's variants.  Built once a step by ``render``, or once a
+        validation image by its caller."""
         return (self.sdf.kernel_weights(bf16, f32=not (bf16 and sweep_bf16),
                                         sweep_bf16=sweep_bf16),
                 self.color.kernel_weights(bf16, f32=not bf16))

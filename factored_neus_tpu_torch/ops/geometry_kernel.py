@@ -38,10 +38,12 @@ scale (``geometry_explicit(mm=sweep_mm_f32)`` emulates its arithmetic);
 K1-bwd a stacked sweep that writes each layer's f32 X_l and R_l, then a
 split-K ``wgmma`` pass dW_l = X_l^T R_l and a fixed-order reduce
 (``weight_grad_pass_plain(f32=True)`` is that pass in plain PyTorch,
-``sweep_mm_f32`` the sweep's products).  K1-bwd-split and the stash pair
-stay on ``mma.sync`` (csrc/geometry_bwd.cuh, csrc/geometry_fwd.cu), on
-weights packed by ``tc_pack.pack_weights``: once a step, shared with K2's
-sweeps, or once per call when the caller gives no pack.
+``sweep_mm_f32`` the sweep's products).  K2 reads the first of those
+packs too (sdf_kernel).  K1-bwd-split and the stash pair, which only a
+switch reaches, stay on ``mma.sync`` (csrc/geometry_bwd.cuh,
+csrc/geometry_fwd.cu), on weights packed by ``tc_pack.pack_weights``:
+once a step by ``fields.SDFNetwork.kernel_weights`` under their switches,
+or here when the caller gives no pack.
 
 The bf16 operand mode (``bf16=True``; the stage-1 renderer's
 ``RendererConfig.core_act_bf16``, ``FNEUS_CORE_ACT_BF16``, as in the JAX
@@ -478,12 +480,10 @@ def make_bwd_slabs(cfg, ws: Sequence[torch.Tensor], bf16: bool = True):
     """The two slab packs of ws that K1's wgmma kernels read: K1-bwd-bf16's
     (pack_sweep_bf16's, the forward X W, also K2-bf16's; pack_rev_bf16's,
     the reverse r W), or with ``bf16`` False K1-fwd's and K1-bwd's
-    (pack_sweep_f32's, pack_rev_f32's: TF32 big and small halves)."""
-    if not bf16:
-        skip = sorted(skip_layers(cfg, len(ws)))
-        return (TP.pack_sweep_f32(ws, skip, cfg.d_embed),
-                TP.pack_rev_f32(ws, cfg.d_embed))
-    return make_sweep_pack(cfg, ws), TP.pack_rev_bf16(ws, cfg.d_embed)
+    (pack_sweep_f32's, also K2's; pack_rev_f32's: TF32 big and small
+    halves)."""
+    rev = TP.pack_rev_bf16 if bf16 else TP.pack_rev_f32
+    return make_sweep_pack(cfg, ws, bf16), rev(ws, cfg.d_embed)
 
 
 def wg_forward(stash: Optional[bool] = None) -> bool:

@@ -1,4 +1,4 @@
-"""K3: the fused IDR radiance MLP and its backward (csrc/radiance_fwd.cu,
+"""K3: the fused IDR radiance MLP and its backward (csrc/radiance_fwd_wg.cu,
 csrc/radiance_bwd_wg.cu), with their plain PyTorch twin.
 
 Counterpart of factored_neus_tpu/ops/pallas_radiance.py
@@ -13,19 +13,22 @@ directions' through the encoding's Jacobian.  The kernels cover
 ``mode='idr'``, as the TPU kernel does; on a CUDA tensor another mode
 raises.  On a CPU tensor the wrapper runs the plain twin, in every mode.
 
-K3-fwd multiplies on the tensor cores in 3xTF32 on ``mma.sync``
-(csrc/tc_mma.cuh) from tc_pack.pack_weights' pack, built once a step or
-once a validation image (``fields.RenderingNetwork.kernel_weights``).
-K3-bwd runs on Hopper's warpgroup ``wgmma`` in 3xTF32
-(csrc/radiance_bwd_wg.cu, on the f32 engine of csrc/wgf.cuh that K1-bwd
-and K1-fwd share): a sweep whose weights stream as TF32 big and small
-slabs (``make_bwd_slabs(cfg, ws, bf16=False)``: tc_pack.pack_rad_sweep_f32's
-for X W and pack_rad_rev_f32's for r W, built once a step where a
-backward can follow, by ``fields.RenderingNetwork.kernel_weights``),
-which keeps the ReLU masks in registers and writes each layer's f32 X_l
-and R_l, then a split-K ``wgmma`` pass dW_l = X_l^T R_l and a
-fixed-order reduce (``weight_grad_pass_plain(f32=True)`` is that pass in
-plain PyTorch).
+K3-fwd and K3-bwd run on Hopper's warpgroup ``wgmma`` in 3xTF32
+(csrc/radiance_fwd_wg.cu, csrc/radiance_bwd_wg.cu, on the f32 engine of
+csrc/wgf.cuh that K1 and K2 share), their weights streamed as TF32 big
+and small slabs: K3-fwd the forward pack ``make_fwd_pack(cfg, ws)``
+(tc_pack.pack_rad_sweep_f32's, X W, built once a step, a validation image
+or a stage-2 run by ``fields.RenderingNetwork.kernel_weights``,
+``sweep32``), in K3-bwd's order, so the forward of a step and the one
+K3-bwd recomputes sum alike (``fwd_wg_plan`` is its launch,
+``radiance_plain(mm=sweep_mm_f32)`` its arithmetic); K3-bwd both packs of
+``make_bwd_slabs(cfg, ws, bf16=False)`` (the forward pack and
+pack_rad_rev_f32's for r W, ``rev32``, built where a backward can
+follow): a sweep which keeps the ReLU masks in registers and writes each
+layer's f32 X_l and R_l, then a split-K ``wgmma`` pass dW_l = X_l^T R_l
+and a fixed-order reduce (``weight_grad_pass_plain(f32=True)`` is that
+pass in plain PyTorch).  No launch builds a pack: on a CUDA tensor each
+raises without its own.
 
 The bf16 operand mode (``bf16=True``; the stage-1 render core under
 ``RendererConfig.core_act_bf16``, as the JAX step rounds the radiance
@@ -33,8 +36,8 @@ MLP's activations there) is rendering_apply_pallas(bf16=True)'s
 ``_mm_fns(True)``: every product of the forward, of the backward's
 recompute, of its weight gradients and of its input cotangents takes
 bf16-rounded operands and sums in f32; everything elementwise stays f32.
-K3-fwd-bf16 runs it on bf16 ``mma.sync`` from tc_pack.pack_weights_bf16's
-pack; K3-bwd-bf16 on Hopper's warpgroup ``wgmma``
+K3-fwd-bf16 runs it on bf16 ``mma.sync`` (csrc/radiance_fwd.cu) from
+tc_pack.pack_weights_bf16's pack; K3-bwd-bf16 on Hopper's warpgroup ``wgmma``
 (csrc/radiance_bwd_bf16_wg.cu): a sweep whose weights stream as slabs
 (``make_bwd_slabs``: tc_pack.pack_rad_sweep_bf16's for X W and
 pack_rad_rev_bf16's for r W, built once a step where a backward can
@@ -65,7 +68,8 @@ from .embedder import positional_encoding, positional_encoding_vjp
 from .geometry_kernel import WGF_PASS_STAGE
 from .sdf_kernel import MAX_WIDTH, TILE
 
-K3_FWD = _cuda.CudaKernel("radiance_fwd", "radiance_fwd.cu", "radiance_fwd")
+K3_FWD = _cuda.CudaKernel("radiance_fwd", "radiance_fwd_wg.cu",
+                          "radiance_fwd")
 K3_BWD = _cuda.CudaKernel("radiance_bwd", "radiance_bwd_wg.cu",
                           "radiance_bwd")
 # the bf16 operand mode's entry points
@@ -97,15 +101,22 @@ def _x0(cfg, pts, normals, dirs, feat) -> torch.Tensor:
 
 
 def radiance_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
-                   cfg, pts, normals, dirs, feat, bf16: bool = False
-                   ) -> torch.Tensor:
+                   cfg, pts, normals, dirs, feat, bf16: bool = False,
+                   mm=None) -> torch.Tensor:
     """The radiance MLP in plain PyTorch (fields.rendering_apply of the JAX
     package), in any of its modes.  ``bf16``: the bf16 operand mode's
-    forward, each product on bf16-rounded operands (tc_pack.mm_bf16)."""
+    forward, each product on bf16-rounded operands (tc_pack.mm_bf16).
+    ``mm``: the products (a, b) -> a @ b, as radiance_bwd_plain's
+    (sweep_mm_f32, with ``narrow`` for layer 0's, emulates K3-fwd's),
+    without gradient."""
     x = _x0(cfg, pts, normals, dirs, feat)
     for l, (w, b) in enumerate(zip(ws, bs)):
-        x = (TP.mm_bf16(x, w.t()) + b if bf16
-             else torch.nn.functional.linear(x, w, b))
+        if mm is not None:
+            x = mm(x, w.t()) + b
+        elif bf16:
+            x = TP.mm_bf16(x, w.t()) + b
+        else:
+            x = torch.nn.functional.linear(x, w, b)
         if l < len(ws) - 1:
             x = torch.relu(x)
     return torch.sigmoid(x) if cfg.squeeze_out else x
@@ -212,21 +223,23 @@ def sweep_mm_f32(a: torch.Tensor, b: torch.Tensor,
     return GK.sweep_mm_f32(a, b)
 
 
-MAX_HIDDEN = 256    # widest hidden layer K3-fwd takes (radiance_mlp.cuh)
+MAX_HIDDEN = 256    # widest hidden layer K3-fwd-bf16 takes (radiance_mlp.cuh)
 
 
 def kernel_iargs(cfg, ws, n: int, grid: int, lay: TP.PackLayout
                  ) -> Tuple[List[int], int]:
-    """K3-fwd's integer arguments [L, multires, d_view, ld, squeeze_out,
-    n, grid, ins[L], outs[L], then the pack's layout] and the row stride
-    ld, the widest layer rounded up to 8, plus 4; raises for a network the
-    kernel cannot hold.  Both operand modes take the same
-    arguments and ld (a bf16 product's last k16 step of the 296-deep first
-    layer is a half step, which reads no column past 296); the pack's
-    layout, of either operand type, sizes the ring."""
+    """K3-fwd-bf16's integer arguments [L, multires, d_view, ld,
+    squeeze_out, n, grid, ins[L], outs[L], then the pack's layout] and the
+    row stride ld, the widest layer rounded up to 8, plus 4 (a bf16
+    product's last k16 step of the 296-deep first layer is a half step,
+    which reads no column past 296); raises for a pack of another operand
+    type, or a network the kernel cannot hold."""
     ins = [int(w.shape[1]) for w in ws]
     outs = [int(w.shape[0]) for w in ws]
     d_view = cfg.d_view
+    if lay.operand != "bf16":
+        raise ValueError(f"K3-fwd-bf16 multiplies on bf16 operands: it "
+                         f"takes no {lay.operand} pack")
     if cfg.d_in != 9 or ins[0] != 6 + d_view + cfg.d_feature or len(ws) < 2:
         raise ValueError("radiance kernels take [pts | PE(dirs) | normals | "
                          "feature] and at least one hidden layer")
@@ -248,8 +261,8 @@ def kernel_iargs(cfg, ws, n: int, grid: int, lay: TP.PackLayout
 
 
 def smem_bytes(lay: TP.PackLayout, outs, ld: int) -> int:
-    """Shared memory of K3-fwd (either operand mode): two tiles of stride
-    ld and the weight ring (no tile of its own for x0)."""
+    """Shared memory of K3-fwd-bf16: two tiles of stride ld and the weight
+    ring (no tile of its own for x0)."""
     return TP.smem_bytes(lay, outs, 2 * TILE * ld)
 
 
@@ -264,23 +277,71 @@ def _inputs(name, pts, normals, dirs, feat):
     return t
 
 
+def make_fwd_pack(cfg, ws: Sequence[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, TP.SweepLayout]:
+    """K3-fwd's slab pack of ws: tc_pack.pack_rad_sweep_f32's, the first of
+    make_bwd_slabs(cfg, ws, bf16=False)."""
+    return TP.pack_rad_sweep_f32(ws, _narrow(cfg))
+
+
+# K3-fwd (csrc/radiance_fwd_wg.cu): the sweep's shared memory (its ring of
+# two 64 KB slab stages, the 80 KB A tile, the narrow tile, the barriers)
+WGF_FWD_SMEM = 1024 + 2 * 65536 + 64 * 320 * 4 + 64 * 48 * 4 + 32
+
+
+def fwd_wg_plan(cfg, ws, n: int, lay, sms: int) -> dict:
+    """K3-fwd's launch: its integer arguments (``iargs``,
+    csrc/radiance_fwd_wg.cu), tiles of WG_TILE rows, one persistent block a
+    tile up to one a SM.  Raises unless ``lay`` is make_fwd_pack's layout
+    for ws (tc_pack.rad_sweep_layout_f32)."""
+    ins = [int(w.shape[1]) for w in ws]
+    outs = [int(w.shape[0]) for w in ws]
+    if cfg.mode != "idr" or cfg.d_in != 9 or \
+            ins[0] != _narrow(cfg) + cfg.d_feature:
+        raise ValueError("K3-fwd takes [pts | PE(dirs) | normals | "
+                         "feature]")
+    if getattr(lay, "operand", None) != "wgmma-f32-rad":
+        raise ValueError("K3-fwd multiplies on wgmma: it takes the f32 slab "
+                         "pack (make_fwd_pack)")
+    if lay != TP.rad_sweep_layout_f32(ins, outs, _narrow(cfg)):
+        raise ValueError("K3-fwd: the slab pack's layout does not match the "
+                         "network's widths")
+    tiles = -(-n // WG_TILE)
+    grid = min(tiles, sms)
+    return {"iargs": [len(ws), cfg.multires_view, cfg.d_view, n, grid,
+                      tiles, int(cfg.squeeze_out), *ins, *outs, *lay.off],
+            "grid": grid, "tiles": tiles, "sweep_smem": WGF_FWD_SMEM}
+
+
 def launch_forward(cfg, ws, bs, pts, normals, dirs, feat, pack=None,
                    bf16: bool = False) -> torch.Tensor:
-    """K3-fwd (bf16: K3-fwd-bf16): rgb [N, d_out]; ``pack``:
-    tc_pack.make_pack(ws, bf16), when the caller already has it."""
+    """K3-fwd (bf16: K3-fwd-bf16): rgb [N, d_out].  ``pack``: K3-fwd's
+    make_fwd_pack(cfg, ws), K3-fwd-bf16's tc_pack.make_pack(ws, True); it
+    raises without one."""
     kernel = KERNELS["fwd", bf16]
     dev = pts.device
+    if pack is None:
+        what = "make_pack(ws, True)" if bf16 else "make_fwd_pack"
+        raise ValueError(f"{kernel.name} reads {what}'s pack, built by "
+                         f"RenderingNetwork.kernel_weights: none was given")
     pts, normals, dirs, feat = _inputs(kernel.name, pts, normals, dirs,
                                        feat)
     bs = [b.detach().contiguous() for b in bs]
-    pack, lay = TP.pack_for(kernel, ws, pack, bf16)
+    if bf16:
+        pack, lay = TP.pack_for(kernel, ws, pack, bf16)
+    else:
+        pack, lay = pack
     _cuda.check_cuda_tensors(kernel.name,
                              [pts, normals, dirs, feat, pack, *bs])
     n = pts.shape[0]
     out = torch.empty(n, ws[-1].shape[0], device=dev, dtype=torch.float32)
     if n > 0:
-        grid = min(math.ceil(n / TILE), _cuda.sm_count(dev))
-        iargs, _ = kernel_iargs(cfg, ws, n, grid, lay)
+        sms = _cuda.sm_count(dev)
+        if bf16:
+            iargs, _ = kernel_iargs(cfg, ws, n, min(math.ceil(n / TILE), sms),
+                                    lay)
+        else:
+            iargs = fwd_wg_plan(cfg, ws, n, lay, sms)["iargs"]
         kernel.launch(iargs, [pts, normals, dirs, feat, out, pack, *bs], 1.0,
                       dev)
     return out
@@ -336,8 +397,7 @@ def make_bwd_slabs(cfg, ws: Sequence[torch.Tensor], bf16: bool = True):
     (pack_rad_sweep_f32's, pack_rad_rev_f32's: TF32 big and small
     halves)."""
     if not bf16:
-        return (TP.pack_rad_sweep_f32(ws, _narrow(cfg)),
-                TP.pack_rad_rev_f32(ws, _narrow(cfg)))
+        return make_fwd_pack(cfg, ws), TP.pack_rad_rev_f32(ws, _narrow(cfg))
     return (TP.pack_rad_sweep_bf16(ws, _narrow(cfg)),
             TP.pack_rad_rev_bf16(ws, _narrow(cfg)))
 
@@ -539,12 +599,13 @@ def _launch_backward_wg(cfg, ws, bs, pts, normals, dirs, feat, ct_rgb,
 
 class RadianceFn(torch.autograd.Function):
     """(pts, normals, dirs, feat, *ws, *bs) -> rgb through K3-fwd (on
-    ``pack``, tc_pack.make_pack(ws, bf16), built without grad by the
-    caller); backward through K3-bwd on ``slabs`` (make_bwd_slabs(cfg, ws,
-    bf16), saved here for the backward); ``bf16``: through K3-fwd-bf16 and
-    K3-bwd-bf16.  On a CPU tensor (``pack`` None) the bf16 mode runs the
-    explicit twins; the f32 mode does not come here on the CPU
-    (radiance_plain differentiates itself)."""
+    ``pack``, make_fwd_pack(cfg, ws), or in bf16 tc_pack.make_pack(ws,
+    True), built without grad by the caller); backward through K3-bwd on
+    ``slabs`` (make_bwd_slabs(cfg, ws, bf16), saved here for the
+    backward); ``bf16``: through K3-fwd-bf16 and K3-bwd-bf16.  On a CPU
+    tensor (``pack`` None) the bf16 mode runs the explicit twins; the f32
+    mode does not come here on the CPU (radiance_plain differentiates
+    itself)."""
 
     @staticmethod
     def forward(ctx, cfg, bf16, pack, slabs, pts, normals, dirs, feat,
@@ -586,11 +647,12 @@ def radiance(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor], cfg,
     """rgb [N, d_out], differentiable in every input, ws and bs: K3 on a
     CUDA tensor, the plain twin on a CPU tensor; ``bf16``: in the bf16
     operand mode, through K3-fwd-bf16 and K3-bwd-bf16 or their twins.
-    ``pack``: tc_pack.make_pack(ws, bf16), when the caller already has it
-    (on a CUDA tensor; built here if not).  ``slabs``: make_bwd_slabs(cfg,
-    ws, bf16), which a backward through K3-bwd or K3-bwd-bf16 reads (on a
-    CUDA tensor, where a backward can follow, i.e. with grad enabled and an
-    input or a weight requiring it, it raises without them)."""
+    ``pack``: the pack K3-fwd reads, make_fwd_pack(cfg, ws) (bf16:
+    tc_pack.make_pack(ws, True)); on a CUDA tensor it raises without it.
+    ``slabs``: make_bwd_slabs(cfg, ws, bf16), which a backward through
+    K3-bwd or K3-bwd-bf16 reads (on a CUDA tensor, where a backward can
+    follow, i.e. with grad enabled and an input or a weight requiring it,
+    it raises without them)."""
     if pts.is_cuda:
         if cfg.mode != "idr":
             raise NotImplementedError(
@@ -602,8 +664,7 @@ def radiance(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor], cfg,
             raise ValueError("radiance: the backward reads make_bwd_slabs' "
                              "packs (slabs=)")
         if pack is None:
-            with torch.no_grad():
-                pack = TP.make_pack(ws, bf16)
+            raise ValueError("radiance: K3-fwd reads its pack (pack=)")
         return RadianceFn.apply(cfg, bf16, pack, slabs, pts, normals, dirs,
                                 feat, *ws, *bs)
     if pts.device.type == "cpu":

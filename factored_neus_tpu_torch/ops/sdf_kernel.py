@@ -1,30 +1,40 @@
 """K2: fused positional encoding + SDF MLP forward without gradient
-(csrc/sdf_fwd.cu), and its plain PyTorch twin.
+(csrc/sdf_fwd_wg.cu), and its plain PyTorch twin.
 
 Counterpart of factored_neus_tpu/ops/pallas_sdf.py (sdf_forward_pallas).
-It serves the no-grad SDF sweeps of the up-sampling ladder and the mesh
-grid fill, where the caller narrows the last layer to the sdf column
-(fields.SDFNetwork.value_sweep).  The wrapper runs the plain twin for CPU
+It serves the no-grad SDF sweeps of the up-sampling ladder, stages 2-3's
+localisation sweep and the mesh grid fill, where the caller narrows the
+last layer to the sdf column (fields.SDFNetwork.value_sweep), and full
+[sdf | feature] evaluations.  The wrapper runs the plain twin for CPU
 tensors only; for a CUDA tensor it launches the kernel or raises.
 
 The kernels take EFFECTIVE weights in torch layout ([out, in], weight norm
 already applied) and biases; the layer structure comes from the weights'
 shapes and the SDF config (positional encoding, skip layers, scale).  K2
-multiplies on the tensor cores in 3xTF32 (csrc/tc_mma.cuh) from a weight
-pack (tc_pack.pack_weights): its own, or K1's pack of the same step, whose
-last W^T block starts with the narrowed layer's column.
+multiplies on Hopper's warpgroup ``wgmma`` in 3xTF32 (the f32 engine of
+csrc/wgf.cuh that K1-fwd, K1-bwd and K3 share) from the f32 slab pack
+``make_sweep_pack(cfg, ws, bf16=False)`` (tc_pack.pack_sweep_f32: TF32
+big and small halves), the one a step, a validation image, a stage-2/3
+run or a mesh builds (fields.SDFNetwork.kernel_weights, ``sweep32``; K1-fwd
+and K1-bwd read it too): for a narrowed last layer it reads the first 8
+columns of each of that pack's last-layer slabs.  ``sweep_wg_plan`` is its
+launch; ``sdf_forward_plain(mm=geometry_kernel.sweep_mm_f32)`` emulates its
+arithmetic.
 
 K2-bf16 (``bf16=True``, csrc/sdf_fwd_bf16.cu) is
 sdf_forward_pallas(bf16_matmul=True): every layer's operands rounded to
 bf16 and summed in f32, on Hopper's warpgroup ``wgmma`` from
-tc_pack.pack_sweep_bf16's slab pack (make_sweep_pack: its own, or the one
-a run or step builds, fields.SDFNetwork.kernel_weights(sweep_bf16=True),
-which may hold the full last layer).  It serves the sweeps of the
-renderer's ``use_pallas_sampling`` and stage 2's secondary coarse sweep
-under ``sweep_act_bf16`` (models/renderer.py).  Its twin is
+tc_pack.pack_sweep_bf16's slab pack (make_sweep_pack: the one a run or
+step builds, fields.SDFNetwork.kernel_weights(sweep_bf16=True), which may
+hold the full last layer).  It serves the sweeps of the renderer's
+``use_pallas_sampling`` and stage 2's secondary coarse sweep under
+``sweep_act_bf16`` (models/renderer.py).  Its twin is
 ``sdf_forward_plain(bf16=True)``, each product explicit on bf16-rounded
 operands (tc_pack.mm_bf16); ``sdf_forward_slabs`` is the kernel's own
 arithmetic over its pack in plain PyTorch.
+
+Neither kernel builds a pack: a launch on a CUDA tensor without one
+raises.
 """
 from __future__ import annotations
 
@@ -38,7 +48,7 @@ from . import tc_pack as TP
 from .embedder import positional_encoding
 from .mlp import softplus_beta
 
-SDF_FWD = _cuda.CudaKernel("sdf_fwd", "sdf_fwd.cu", "sdf_fwd")
+SDF_FWD = _cuda.CudaKernel("sdf_fwd", "sdf_fwd_wg.cu", "sdf_fwd")
 SDF_FWD_BF16 = _cuda.CudaKernel("sdf_fwd_bf16", "sdf_fwd_bf16.cu",
                                 "sdf_fwd_bf16")
 # the kernel of each operand mode (bf16 or not)
@@ -46,7 +56,7 @@ KERNELS = {False: SDF_FWD, True: SDF_FWD_BF16}
 TILE = TP.TILE
 ENC_LD = 64               # widest positional encoding (TC_MAX_ENC)
 MAX_WIDTH = 288           # widest layer a tensor-core product covers
-WG_ROWS = 64              # rows of a K2-bf16 warpgroup's tile
+WG_ROWS = 64              # rows of a K2 or K2-bf16 warpgroup's tile
 SW_ENC_STRIDE = 48        # K2-bf16's encoding tile row (floats, SW_EW)
 SW_MAX_STAGES = 8         # most stages of K2-bf16's slab ring
 
@@ -73,39 +83,49 @@ def layer_dims(cfg, ws: Sequence[torch.Tensor]
     return ins, outs, skip_mask
 
 
-def enc_stride(cfg) -> int:
-    """Shared-memory row stride of the encoding tile: round8 + 4."""
-    return TP.round8(cfg.d_embed) + 4
-
-
-def kernel_iargs(cfg, ws, n: int, grid: int, lay: TP.PackLayout
-                 ) -> Tuple[List[int], int]:
-    """K2's integer arguments (tc_dims_from_args: the layers, then the
-    pack's layout) and the activation row stride ld, the widest layer
-    rounded up to 8, plus 4; raises for a pack of another operand type, or
-    a network whose tiles and weight ring do not fit in a block's shared
-    memory."""
-    ins, outs, skip_mask = layer_dims(cfg, ws)
-    if lay.operand != "3xtf32":
-        raise ValueError(f"K2 multiplies in 3xTF32: it takes no "
-                         f"{lay.operand} pack")
-    TP.check_layout(lay, ins, outs)
-    ld = TP.round8(max(ins + outs)) + 4
-    if smem_bytes(cfg, lay, outs, ld) > TP.SMEM_MAX:
-        raise ValueError("K2: the network's tiles and weight ring do not "
-                         "fit in shared memory")
-    return [len(ws), cfg.multires, cfg.d_embed, ld, skip_mask, n, grid,
-            *ins, *outs, *TP.layout_iargs(lay)], ld
-
-
 def skip_layers(cfg, n_layers: int) -> Tuple[int, ...]:
     return tuple(l for l in cfg.skip_in if 0 <= l < n_layers)
 
 
-def make_sweep_pack(cfg, ws: Sequence[torch.Tensor]
+def make_sweep_pack(cfg, ws: Sequence[torch.Tensor], bf16: bool = True
                     ) -> Tuple[torch.Tensor, TP.SweepLayout]:
-    """K2-bf16's slab pack of ws (tc_pack.pack_sweep_bf16)."""
-    return TP.pack_sweep_bf16(ws, skip_layers(cfg, len(ws)), cfg.d_embed)
+    """K2-bf16's slab pack of ws (tc_pack.pack_sweep_bf16), or with
+    ``bf16`` False K2's (tc_pack.pack_sweep_f32, the forward pack of K1-fwd
+    and K1-bwd too)."""
+    skip = skip_layers(cfg, len(ws))
+    if not bf16:
+        return TP.pack_sweep_f32(ws, sorted(skip), cfg.d_embed)
+    return TP.pack_sweep_bf16(ws, skip, cfg.d_embed)
+
+
+# K2 (csrc/sdf_fwd_wg.cu): the sweep's shared memory (its ring of two
+# 66 KB slab stages, the 64 KB A tile, the encoding tile, the barriers)
+WGF_SMEM = 1024 + 2 * 67584 + 64 * 256 * 4 + 64 * 48 * 4 + 32
+
+
+def sweep_wg_plan(cfg, ws, n: int, lay, sms: int) -> dict:
+    """K2's launch: its integer arguments (``iargs``, csrc/sdf_fwd_wg.cu),
+    tiles of WG_ROWS rows, one persistent block a tile up to one a SM.
+    Raises unless ``lay`` is tc_pack.sweep_layout_f32 of ws, or of the same
+    network with a wider last layer (the full network's pack, read
+    narrowed to at most 8 outputs: the first 8 columns of each slab of
+    its last layer)."""
+    ins, outs, _ = layer_dims(cfg, ws)
+    if getattr(lay, "operand", None) != "wgmma-f32":
+        raise ValueError("K2 multiplies on wgmma: it takes the f32 slab pack "
+                         "(make_sweep_pack(cfg, ws, bf16=False))")
+    want = TP.sweep_layout_f32(ins, outs, skip_layers(cfg, len(ws)),
+                               cfg.d_embed)
+    if (lay.enc, lay.nslab, lay.off, lay.cols[:-1]) != (
+            want.enc, want.nslab, want.off, want.cols[:-1]) or \
+            lay.cols[-1] < want.cols[-1]:
+        raise ValueError("K2: the slab pack's layout does not match the "
+                         "network's widths")
+    tiles = -(-n // WG_ROWS)
+    grid = min(tiles, sms)
+    return {"iargs": [len(ws), cfg.multires, cfg.d_embed, n, grid, tiles,
+                      lay.cols[-1], *ins, *outs, *lay.enc, *lay.off],
+            "grid": grid, "tiles": tiles, "sweep_smem": WGF_SMEM}
 
 
 def sweep_iargs(cfg, ws, n: int, lay, sms: int) -> Tuple[List[int], int]:
@@ -140,12 +160,6 @@ def sweep_iargs(cfg, ws, n: int, lay, sms: int) -> Tuple[List[int], int]:
             *stride, *lay.off, *outs], grid
 
 
-def smem_bytes(cfg, lay: TP.PackLayout, outs: Sequence[int], ld: int) -> int:
-    """K2's shared memory: the encoding tile, two activation tiles and the
-    weight ring."""
-    return TP.smem_bytes(lay, outs, TILE * (enc_stride(cfg) + 2 * ld))
-
-
 def sweep_smem(n_layers: int, nc: int, widest_copy: int) -> Tuple[int, int]:
     """(stages, bytes) of K2-bf16's shared memory (the mirror of
     sdf_fwd_bf16's launcher): alignment slack, nc encoding tiles, the
@@ -160,12 +174,14 @@ def sweep_smem(n_layers: int, nc: int, widest_copy: int) -> Tuple[int, int]:
 def sdf_forward_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
                       cfg, x: torch.Tensor,
                       preacts: Optional[List[torch.Tensor]] = None,
-                      bf16: bool = False) -> torch.Tensor:
+                      bf16: bool = False, mm=None) -> torch.Tensor:
     """[N, 3] -> [N, d_out] = [sdf / scale | feature], the kernels' math in
     plain PyTorch (fields.sdf_apply of the JAX package).  The hidden
     layers' pre-activations are appended to ``preacts`` when it is given.
     ``bf16``: K2-bf16's, each product on bf16-rounded operands
-    (tc_pack.mm_bf16), the skip input rounded once, after the 1/sqrt(2)."""
+    (tc_pack.mm_bf16), the skip input rounded once, after the 1/sqrt(2).
+    ``mm``: the products (a, b) -> a @ b (geometry_kernel.sweep_mm_f32
+    emulates K2's), without gradient."""
     enc = x * cfg.scale
     if cfg.multires > 0:
         enc = positional_encoding(enc, cfg.multires)
@@ -174,8 +190,10 @@ def sdf_forward_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
     for l, (w, b) in enumerate(zip(ws, bs)):
         if l in cfg.skip_in:
             h = torch.cat([h, enc], dim=-1) * inv_sqrt2
-        h = (TP.mm_bf16(h, w.t()) + b if bf16
-             else torch.nn.functional.linear(h, w, b))
+        if mm is not None or bf16:
+            h = (mm or TP.mm_bf16)(h, w.t()) + b
+        else:
+            h = torch.nn.functional.linear(h, w, b)
         if l < len(ws) - 1:
             if preacts is not None:
                 preacts.append(h)
@@ -225,10 +243,12 @@ def _launch(ws, bs, cfg, x: torch.Tensor, pack, bf16: bool
             ) -> torch.Tensor:
     kernel = KERNELS[bf16]
     dev = x.device
+    if pack is None:
+        raise ValueError(f"{kernel.name} reads make_sweep_pack(cfg, ws, "
+                         f"bf16={bf16})'s slab pack, built by "
+                         f"SDFNetwork.kernel_weights: none was given")
     x = x.detach().contiguous()
     bs = [b.detach().contiguous() for b in bs]
-    if pack is None:
-        pack = make_sweep_pack(cfg, ws) if bf16 else TP.make_pack(ws)
     pack, lay = pack
     _cuda.check_cuda_tensors(kernel.name, [x, pack, *bs])
     n = x.shape[0]
@@ -240,21 +260,19 @@ def _launch(ws, bs, cfg, x: torch.Tensor, pack, bf16: bool
     if bf16:
         iargs, _ = sweep_iargs(cfg, ws, n, lay, _cuda.sm_count(dev))
     else:
-        grid = min(-(-n // TILE), _cuda.sm_count(dev))
-        iargs, _ = kernel_iargs(cfg, ws, n, grid, lay)
+        iargs = sweep_wg_plan(cfg, ws, n, lay, _cuda.sm_count(dev))["iargs"]
     kernel.launch(iargs, [x, out, pack, *bs], cfg.scale, dev)
     return out
 
 
 def sdf_forward(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor], cfg,
                 x: torch.Tensor,
-                pack: Optional[Tuple[torch.Tensor, TP.PackLayout]] = None,
+                pack: Optional[Tuple[torch.Tensor, TP.SweepLayout]] = None,
                 bf16: bool = False) -> torch.Tensor:
     """No-grad SDF forward: K2 (bf16: K2-bf16) on a CUDA tensor, the plain
     twin on a CPU tensor.  The result carries no gradient.  ``pack``:
-    pack_weights (bf16: make_sweep_pack) of ws, or of the same network
-    with the full last layer (the step's pack); built here when not
-    given."""
+    make_sweep_pack(cfg, ws, bf16) of ws, or of the same network with the
+    full last layer (the step's pack); a launch raises without it."""
     if x.is_cuda:
         with torch.no_grad():
             return _launch(ws, bs, cfg, x, pack, bf16)

@@ -1,31 +1,40 @@
-"""The weight packs and the arithmetic of the tensor-core kernels: K2
-(ops/sdf_kernel.py), K3-fwd (ops/radiance_kernel.py) and the switch-only
-K1 variants (K1-bwd-split, the stash pair) multiply in 3xTF32 on
-``mma.sync`` (csrc/tc_mma.cuh), from ``pack_weights``; K1-fwd, K1-bwd and
-K3-bwd in 3xTF32 on ``wgmma`` (csrc/wgf.cuh), from the f32 slab packs
-below; each kernel also has a bf16 operand mode, on bf16 ``mma.sync``
-(K2-bf16, K1-bwd-bf16 and K3-bwd-bf16 on ``wgmma``).
+"""The weight packs and the arithmetic of the tensor-core kernels, and who
+reads which:
 
-``pack_weights`` lays every layer's weight out once in the form the kernels
-stage into shared memory, already split into TF32 big and small halves;
-``pack_weights_bf16`` lays them out rounded to bf16, two k-rows to a
-32-bit word.  ``pack_sweep_bf16`` is K2-bf16's (csrc/sdf_fwd_bf16.cu, on
-wgmma): each layer's bf16 W^T cut into slabs of 64 k, each slab the exact
-shared-memory image its wgmma B descriptor reads (csrc/wgmma.cuh).
-K1-bwd-bf16 (csrc/geometry_bwd_bf16_wg.cu) reads it for its forward and
-``pack_rev_bf16`` for its reverse sweep: each layer's bf16 W in the same
-slabs, the B of r W.  K3-bwd-bf16 (csrc/radiance_bwd_bf16_wg.cu) has its
-own pair for the radiance MLP, ``pack_rad_sweep_bf16`` and
-``pack_rad_rev_bf16`` (layer 0's feature rows first, its 33 narrow rows
-in a slab of their own).  The f32 slab packs hold each weight as TF32 big
-and small halves, k permuted by ``tf32_slot``: ``pack_sweep_f32`` and
-``pack_rev_f32`` are K1-fwd's and K1-bwd's, ``pack_rad_sweep_f32`` and
-``pack_rad_rev_f32`` K3-bwd's.
-``layout_iargs`` is the layout as the kernels are told it, and
-``smem_bytes`` mirrors their shared-memory count (tc_dims_from_args
-and tc_smem_bytes), so a network a kernel cannot hold is refused before
-any launch.  ``mm_3xtf32`` and ``mm_bf16`` emulate the kernels' product
-arithmetic in plain PyTorch for the CPU tests.
+  pack_weights         3xTF32 on ``mma.sync`` (csrc/tc_mma.cuh): the K1
+                       variants that only a switch reaches (K1-bwd-split,
+                       the stash pair), built by
+                       fields.SDFNetwork.kernel_weights under those
+                       switches alone (``make_pack``, ``pack_for``)
+  pack_weights_bf16    bf16 ``mma.sync``: K1-fwd-bf16, K3-fwd-bf16 and the
+                       switch-only K1 variants in bf16
+  pack_sweep_bf16      K2-bf16 (csrc/sdf_fwd_bf16.cu, wgmma) and the forward
+                       of K1-bwd-bf16 (csrc/geometry_bwd_bf16_wg.cu); with
+                       pack_rev_bf16, its reverse
+  pack_rad_sweep_bf16  K3-bwd-bf16 (csrc/radiance_bwd_bf16_wg.cu), with
+                       pack_rad_rev_bf16 (layer 0's feature rows first, its
+                       33 narrow rows in a slab of their own)
+  pack_sweep_f32       K2, K1-fwd and K1-bwd (csrc/sdf_fwd_wg.cu,
+                       geometry_fwd_wg.cu, geometry_bwd_wg.cu: 3xTF32 on
+                       wgmma, csrc/wgf.cuh); with pack_rev_f32, K1's
+                       reverse
+  pack_rad_sweep_f32   K3-fwd and K3-bwd (csrc/radiance_fwd_wg.cu,
+                       radiance_bwd_wg.cu); with pack_rad_rev_f32, K3-bwd's
+                       reverse
+
+``pack_weights`` lays every layer's weight out once in the form the
+mma.sync kernels stage into shared memory, already split into TF32 big
+and small halves; ``pack_weights_bf16`` lays them out rounded to bf16, two
+k-rows to a 32-bit word.  A bf16 slab pack cuts each layer's bf16 W^T (the
+reverse packs: W) into slabs of 64 k, each slab the exact shared-memory
+image its wgmma B descriptor reads (csrc/wgmma.cuh).  The f32 slab packs
+hold each weight as TF32 big and small halves, k permuted by
+``tf32_slot``, in slabs of 32 k.  ``layout_iargs`` is the layout as the
+mma.sync kernels are told it, and ``smem_bytes`` mirrors their
+shared-memory count (tc_dims_from_args and tc_smem_bytes), so a network a
+kernel cannot hold is refused before any launch.  ``mm_3xtf32`` and
+``mm_bf16`` emulate the kernels' product arithmetic in plain PyTorch for
+the CPU tests.
 """
 from __future__ import annotations
 
@@ -737,8 +746,9 @@ def sweep_layout_f32(ins: Sequence[int], outs: Sequence[int],
     encoding) or 256 (the others); ``nslab[l]`` slabs of F32_SLAB_K k,
     each ``cols[l]`` columns, its big half then its small half (2 x 32 KB
     for 256 columns): layer 0 two, a hidden layer eight, each HIDDEN_COLS
-    wide; the last layer (K1-fwd's alone) eight, FULL_LAST_COLS wide for a
-    last layer over 256 (else HIDDEN_COLS), after every byte K1-bwd reads.
+    wide; the last layer (K1-fwd's and K2's) eight, FULL_LAST_COLS wide
+    for a last layer over 256 (else HIDDEN_COLS), after every byte K1-bwd
+    reads.
     ``enc[l]``: layer l reads the encoding (layer 0, a skip layer).
     Raises for a network K1-bwd cannot run."""
     L = len(ins)
@@ -839,12 +849,12 @@ def _pack_f32(ws: Sequence[torch.Tensor], skip_layers: Sequence[int],
 
 def pack_sweep_f32(ws: Sequence[torch.Tensor], skip_layers: Sequence[int],
                    d_embed: int) -> Tuple[torch.Tensor, SweepLayout]:
-    """K1-bwd's and K1-fwd's forward pack of an SDF network (effective
-    weights ws, layer 0 and ``skip_layers`` reading the encoding): every
-    layer's W^T split into TF32 big (rounded to nearest, ties away) and small (W -
-    big, exact), in sweep_layout_f32's slabs, each half the
-    128-byte-swizzled image one bulk copy lands in shared memory
-    (swizzle32), zero in the padding.  big + small is W exactly."""
+    """K1-bwd's, K1-fwd's and K2's forward pack of an SDF network
+    (effective weights ws, layer 0 and ``skip_layers`` reading the
+    encoding): every layer's W^T split into TF32 big (rounded to nearest,
+    ties away) and small (W - big, exact), in sweep_layout_f32's slabs,
+    each half the 128-byte-swizzled image one bulk copy lands in shared
+    memory (swizzle32), zero in the padding.  big + small is W exactly."""
     return _pack_f32(ws, skip_layers, d_embed, False)
 
 
@@ -996,11 +1006,11 @@ def _pack_rad_f32(ws: Sequence[torch.Tensor], d_narrow: int, reverse: bool
 
 def pack_rad_sweep_f32(ws: Sequence[torch.Tensor], d_narrow: int
                        ) -> Tuple[torch.Tensor, SweepLayout]:
-    """K3-bwd's forward pack of the radiance MLP (effective weights ws,
-    layer 0 reading [d_narrow narrow columns | feature]): every layer's
-    W^T split into TF32 big (rounded to nearest, ties away) and small (W -
-    big, exact) in rad_sweep_layout_f32's slabs, each half the
-    128-byte-swizzled image one bulk copy lands in shared memory
+    """K3-fwd's and K3-bwd's forward pack of the radiance MLP (effective
+    weights ws, layer 0 reading [d_narrow narrow columns | feature]):
+    every layer's W^T split into TF32 big (rounded to nearest, ties away)
+    and small (W - big, exact) in rad_sweep_layout_f32's slabs, each half
+    the 128-byte-swizzled image one bulk copy lands in shared memory
     (swizzle32), zero in the padding.  big + small is W exactly."""
     return _pack_rad_f32(ws, d_narrow, False)
 

@@ -105,8 +105,9 @@ def test_bf16_pack_layout_and_round_trip():
 
 def test_bf16_pack_shared_memory_and_refusals():
     """The bf16 ring holds a quarter of the 3xTF32 ring's floats a stage,
-    so K1's shared memory does not grow; K2 refuses the bf16 pack and K1
-    refuses a pack of the other operand type."""
+    so K1's shared memory does not grow; K2 refuses the bf16 pack (it
+    reads the f32 slab pack) and K1 refuses a pack of the other operand
+    type."""
     cfg = TR.F.SDFConfig()
     ws = [torch.zeros(o, i) for i, o in zip(cfg.dims[:-1], (
         256, 256, 256, 217, 256, 256, 256, 256, 257))]
@@ -117,9 +118,9 @@ def test_bf16_pack_shared_memory_and_refusals():
     b16 = TP.smem_bytes(TP.pack_layout(ins, outs, "bf16"), outs, fixed)
     assert b16 <= f32 <= TP.SMEM_MAX
     lay16 = TP.pack_layout(ins, outs, "bf16")
-    with pytest.raises(ValueError, match="3xTF32"):
-        SK.kernel_iargs(cfg, [ws[0], *ws[1:-1], ws[-1][:1]], 64, 1,
-                        TP.pack_layout(ins, outs[:-1] + [1], "bf16"))
+    with pytest.raises(ValueError, match="f32 slab pack"):
+        SK.sweep_wg_plan(cfg, [ws[0], *ws[1:-1], ws[-1][:1]], 64,
+                         TP.pack_layout(ins, outs[:-1] + [1], "bf16"), 132)
     with pytest.raises(ValueError, match="bf16"):
         GK._pack_for(GK.K1_FWD_BF16, ws, (torch.zeros(1),
                                           TP.pack_layout(ins, outs)), True)

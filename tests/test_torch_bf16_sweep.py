@@ -80,11 +80,11 @@ def test_bf16_packs_serve_k2_narrowed_and_k3():
     first input padded to 304 rows, two to a word); K3 in bf16 takes the
     bf16 pack and refuses the 3xTF32 one; K2-bf16 takes the full network's
     slab pack (tc_pack.sweep_layout) for its narrowed last layer and
-    refuses the bf16 and 3xTF32 packs (and K2 the slab pack); the kernels'
+    refuses the bf16 and 3xTF32 packs (and K2 the bf16 packs); the kernels'
     shared memory at full width (K2-bf16's ring six slabs of 32 KB,
-    231,808 B, five of 33 KB for the full output; K3's bf16 pair
-    220,176 B: the bf16 ring is sized by K3-bwd's weight-gradient chunk,
-    so it does not grow) and their counters."""
+    231,808 B, five of 33 KB for the full output; K3-fwd-bf16 220,176 B:
+    the bf16 ring is sized by a weight-gradient chunk, so it does not
+    grow; K3-fwd on wgmma 226,336 B) and their counters."""
     rcfg = TF.RenderingConfig()
     rng = np.random.RandomState(0)
     rws = [t(rng.randn(o, i).astype(np.float32))
@@ -102,7 +102,8 @@ def test_bf16_packs_serve_k2_narrowed_and_k3():
     assert lay.rev_off[0] - lay.fwd_off[0] == TP.round16(289) // 2 * 264
     ins, outs = [w.shape[1] for w in rws], [w.shape[0] for w in rws]
     RK.kernel_iargs(rcfg, rws, 64, 1, lay)
-    RK.kernel_iargs(rcfg, rws, 64, 1, TP.pack_layout(ins, outs))
+    with pytest.raises(ValueError, match="bf16 operands"):
+        RK.kernel_iargs(rcfg, rws, 64, 1, TP.pack_layout(ins, outs))
     with pytest.raises(ValueError, match="bf16 operands"):
         TP.pack_for(RK.K3_FWD_BF16, rws, (pack, TP.pack_layout(ins, outs)),
                      True)
@@ -110,7 +111,7 @@ def test_bf16_packs_serve_k2_narrowed_and_k3():
         TP.pack_for(RK.K3_BWD, rws, (pack, lay), False)
     ld = TP.round8(289) + 4
     assert RK.smem_bytes(lay, outs, ld) == 220176
-    assert RK.smem_bytes(TP.pack_layout(ins, outs), outs, ld) == 229376
+    assert RK.WGF_FWD_SMEM == 226336 <= TP.SMEM_MAX
 
     cfg = TF.SDFConfig()
     ws = [torch.zeros(o, i) for i, o in zip(cfg.dims[:-1], (
@@ -132,10 +133,10 @@ def test_bf16_packs_serve_k2_narrowed_and_k3():
     assert grid == 128 and iargs[4:7] == [1, 128, 128]
     assert SK.sweep_smem(len(wn), 2, 256 * 128) == (6, 231808)
     assert SK.sweep_smem(len(wn), 2, 264 * 128) == (5, 204144)
-    with pytest.raises(ValueError, match="3xTF32"):
-        SK.kernel_iargs(cfg, wn, 64, 1, full16)
-    with pytest.raises(ValueError, match="3xTF32: it takes no wgmma-bf16"):
-        SK.kernel_iargs(cfg, wn, 64, 1, sweep)
+    with pytest.raises(ValueError, match="wgmma: it takes the f32"):
+        SK.sweep_wg_plan(cfg, wn, 64, full16, 132)
+    with pytest.raises(ValueError, match="wgmma: it takes the f32"):
+        SK.sweep_wg_plan(cfg, wn, 64, sweep, 132)
     with pytest.raises(ValueError, match="wgmma: it takes no bf16"):
         SK.sweep_iargs(cfg, wn, 64, full16, 132)
     with pytest.raises(ValueError, match="wgmma: it takes no 3xtf32"):

@@ -84,12 +84,18 @@ def test_geometry_kernels_match_twin(cuda_device, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", CASES)
 def test_sdf_sweep_kernel_matches_twin(cuda_device, case):
+    """K2 (wgmma, 3xTF32) with the full and the narrowed last layer, on the
+    full network's f32 slab pack, within 1e-5 abs of its twin; without a
+    pack it raises."""
     cfg, ws, bs, x = _net(case, cuda_device)
+    pack = SK.make_sweep_pack(cfg, ws, bf16=False)
     for wn, bn in ((ws, bs), (ws[:-1] + [ws[-1][:1]], bs[:-1] + [bs[-1][:1]])):
         with torch.no_grad():
             want = SK.sdf_forward_plain(wn, bn, cfg, x)
-        torch.testing.assert_close(SK.sdf_forward(wn, bn, cfg, x), want,
-                                   atol=1e-5, rtol=0)
+        torch.testing.assert_close(SK.sdf_forward(wn, bn, cfg, x, pack),
+                                   want, atol=1e-5, rtol=0)
+        with pytest.raises(ValueError, match="make_sweep_pack"):
+            SK.sdf_forward(wn, bn, cfg, x)
 
 
 @pytest.mark.gpu
@@ -332,8 +338,9 @@ def test_radiance_kernels_match_twin(cuda_device, case):
     with torch.no_grad():
         ws, bs = net.effective_weights()
         want = RK.radiance_plain(ws, bs, cfg, *inputs)
-    torch.testing.assert_close(RK.launch_forward(cfg, ws, bs, *inputs), want,
-                               atol=1e-5, rtol=0)
+    torch.testing.assert_close(RK.launch_forward(
+        cfg, ws, bs, *inputs, pack=RK.make_fwd_pack(cfg, ws)), want,
+        atol=1e-5, rtol=0)
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     ct = torch.randn(want.shape, device=cuda_device, generator=gen)
     *cts, dws, dbs = RK.launch_backward(
@@ -488,21 +495,28 @@ def test_k3_fwd_full_width_matches_twin(cuda_device, n):
     with torch.no_grad():
         ws, bs = net.effective_weights()
         want = RK.radiance_plain(ws, bs, cfg, *inputs)
-    got = RK.launch_forward(cfg, ws, bs, *inputs)
+    got = RK.launch_forward(cfg, ws, bs, *inputs,
+                            pack=RK.make_fwd_pack(cfg, ws))
     assert got.shape == (n, 3)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
 @pytest.mark.gpu
 def test_k3_fwd_is_deterministic(cuda_device):
-    """Two K3-fwd launches, one on a pack built beforehand and one packing
-    on its own, give the same bits."""
+    """Two K3-fwd launches, one on its own pack and one on the forward slab
+    pack that kernel_weights builds for K3-bwd, give the same bits; it
+    raises without a pack, on the reverse pack and on the 3xTF32 pack."""
     cfg, net, inputs = _rad(RAD_RAGGED, cuda_device)
+    kw = net.kernel_weights()
     with torch.no_grad():
         ws, bs = net.effective_weights()
-    a = RK.launch_forward(cfg, ws, bs, *inputs, pack=TP.pack_weights(ws))
-    b = RK.launch_forward(cfg, ws, bs, *inputs)
+    a = RK.launch_forward(cfg, ws, bs, *inputs,
+                          pack=RK.make_fwd_pack(cfg, ws))
+    b = RK.launch_forward(cfg, ws, bs, *inputs, pack=kw.sweep32)
     assert torch.equal(a, b)
+    for pack in (None, kw.rev32, TP.pack_weights(ws)):
+        with pytest.raises(ValueError):
+            RK.launch_forward(cfg, ws, bs, *inputs, pack=pack)
 
 
 @pytest.mark.gpu
@@ -540,14 +554,16 @@ def test_k3_bwd_reads_only_its_f32_slabs(cuda_device):
 def test_k2_sweep_shapes_match_twin(cuda_device, n):
     """K2 at the ladder's two sweep shapes (512 rays x 16 and x 64
     samples) and a ragged count, full width, last layer narrowed: fed K1's
-    pack of the same weights (the step's route) within 1e-5 abs of its
-    twin, and bitwise equal to K2 fed its own narrowed pack."""
+    f32 slab pack of the same weights (the step's route, sweep32) within
+    1e-5 abs of its twin, and bitwise equal to K2 fed its own narrowed
+    pack."""
     case = (8, 256, 257, (4,), 6, 1.0, n)
     cfg, ws, bs, x = _net(case, cuda_device)
     wn, bn = ws[:-1] + [ws[-1][:1]], bs[:-1] + [bs[-1][:1]]
-    k1_pack = TP.pack_weights(ws)
+    k1_pack = GK.make_bwd_slabs(cfg, ws, bf16=False)[0]
     got = SK.sdf_forward(wn, bn, cfg, x, k1_pack)
-    own = SK.sdf_forward(wn, bn, cfg, x)
+    own = SK.sdf_forward(wn, bn, cfg, x,
+                         SK.make_sweep_pack(cfg, wn, bf16=False))
     with torch.no_grad():
         want = SK.sdf_forward_plain(wn, bn, cfg, x)
     assert got.shape == (n, 1)
@@ -728,7 +744,7 @@ def test_f32_mode_builds_the_f32_slabs(cuda_device):
     weights = net.kernel_weights()
     assert weights.sweep32[1].operand == "wgmma-f32"
     assert weights.rev32[1].operand == "wgmma-f32-rev"
-    assert weights.rev16 is None and weights.pack[1].operand == "3xtf32"
+    assert weights.rev16 is None and weights.pack is None
     with torch.no_grad():
         assert net.kernel_weights().rev32 is not None
         assert net.kernel_weights(k1=False).rev32 is None
@@ -748,13 +764,14 @@ def test_f32_mode_builds_the_f32_slabs(cuda_device):
 def test_bf16_mode_launches_the_bf16_kernels(cuda_device):
     """value_grad_feat(bf16=True) through autograd: one K1-fwd-bf16 launch
     on the bf16 pack of kernel_weights(bf16=True) and one K1-bwd-bf16 on
-    its two slab packs, no f32 K1 launch; the f32 pack stays the K2
-    sweep's.  Without grad no backward follows, and the reverse slab pack
-    is not built."""
+    its two slab packs, no f32 K1 launch; the f32 slab pack stays the K2
+    sweep's, and no 3xTF32 pack is built.  Without grad no backward
+    follows, and the reverse slab pack is not built."""
     cfg, _, _, x = _net(CASES[0], cuda_device)
     net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(cuda_device)
     weights = net.kernel_weights(bf16=True)
-    assert weights[2][1].operand == "3xtf32"
+    assert weights[2] is None and weights[7] is None
+    assert weights[6][1].operand == "wgmma-f32"
     assert weights[3][1].operand == "bf16"
     assert weights[4][1].operand == "wgmma-bf16"
     assert weights[5][1].operand == "wgmma-bf16-rev"
@@ -789,7 +806,8 @@ def test_k2_bf16_matches_twin(cuda_device, case):
     chip_smoke.check_flips(f"K2-bf16 {case}", [got], [twin], [ref.float()],
                            ["sdf"])
     assert torch.equal(got, SK.sdf_forward(wn, bn, cfg, x, pack, bf16=True))
-    assert torch.equal(got, SK.sdf_forward(wn, bn, cfg, x, bf16=True))
+    assert torch.equal(got, SK.sdf_forward(
+        wn, bn, cfg, x, SK.make_sweep_pack(cfg, wn), bf16=True))
 
 
 @pytest.mark.gpu

@@ -178,7 +178,8 @@ def on_card(monkeypatch):
     monkeypatch.setattr(TP, "pack_weights", lambda ws: ("pack",))
     monkeypatch.setattr(TP, "pack_weights_bf16", lambda ws: ("pack16",))
     monkeypatch.setattr(TP, "pack_rev_bf16", lambda ws, d: ("rev16",))
-    monkeypatch.setattr(SK, "make_sweep_pack", lambda cfg, ws: ("sweep16",))
+    monkeypatch.setattr(SK, "make_sweep_pack", lambda cfg, ws, bf16=True: (
+        "sweep16",) if bf16 else ("sweep32",))
 
     def slabs(name):
         def make(cfg, ws, bf16=True):
@@ -196,7 +197,9 @@ def test_no_grad_kernel_weights_ask_for_f32_slabs(on_card, monkeypatch):
     under no_grad) and a stage-2 or stage-3 run's (Stage2Model's, built
     once); the radiance MLP's K3-bwd slabs only where a backward can
     follow.  The sweeps alone (value_sweep, the grid fill) and the stash
-    switch build none, nor does the bf16 mode."""
+    switch build none of them, only K2's forward slab pack (sweep32, with
+    the stash pair's 3xTF32 pack under the switch); the bf16 mode
+    builds none."""
     cfg = port_config(tiny_config())
     stage1 = TR.Stage1Model(cfg)
     with torch.no_grad():
@@ -213,10 +216,12 @@ def test_no_grad_kernel_weights_ask_for_f32_slabs(on_card, monkeypatch):
     assert on_card == [("sdf", False)]
     del on_card[:]
     net = stage1.sdf
-    assert net.kernel_weights(k1=False).sweep32 is None
+    kw = net.kernel_weights(k1=False)
+    assert (kw.sweep32, kw.rev32, kw.pack) == (("sweep32",), None, None)
     MEXT.sdf_grid_query(net)
     with torch.no_grad():
         assert net.kernel_weights(bf16=True, f32=False).sweep32 is None
     monkeypatch.setattr(GK, "STASH_BWD", True)
-    assert net.kernel_weights().sweep32 is None
+    kw = net.kernel_weights()
+    assert (kw.sweep32, kw.rev32, kw.pack) == (("sweep32",), None, ("pack",))
     assert on_card == []

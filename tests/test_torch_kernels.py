@@ -128,25 +128,31 @@ def test_cpu_path_launches_no_kernel():
 
 
 def test_kernel_arguments_describe_the_network():
-    """The integer arguments handed to K2, at full width: the layers, then
-    the weight pack's layout; the narrowed sweep with K1's pack."""
+    """The integer arguments handed to K2, at full width: the layers, the
+    last layer's slab width, then the f32 slab pack's layer offsets; the
+    narrowed sweep reads the full network's pack (264-wide last slabs) or
+    its own (256); a network wider than the slabs is refused."""
     net = TF.SDFNetwork(TF.SDFConfig())
     ws, _ = net.effective_weights()
-    pack, lay = TP.pack_weights(ws)
-    iargs, ld = SK.kernel_iargs(net.cfg, ws, n=1000, grid=7, lay=lay)
+    _, lay = SK.make_sweep_pack(net.cfg, ws, bf16=False)
+    p = SK.sweep_wg_plan(net.cfg, ws, n=1000, lay=lay, sms=7)
+    iargs = p["iargs"]
     L = 9
-    assert iargs[:7] == [L, 6, 39, 268, 1 << 4, 1000, 7]
+    assert iargs[:7] == [L, 6, 39, 1000, 7, 16, 264]
+    assert (p["grid"], p["tiles"]) == (7, 16)
     assert iargs[7:7 + L] == [39, 256, 256, 256, 256, 256, 256, 256, 256]
     assert iargs[7 + L:7 + 2 * L] == [256, 256, 256, 217, 256, 256, 256, 256,
                                       257]
-    assert iargs[7 + 2 * L:] == TP.layout_iargs(lay)
-    assert ld == 268
+    assert iargs[7 + 2 * L:] == [*lay.enc, *lay.off]
+    assert lay.enc == [1, 0, 0, 0, 1, 0, 0, 0, 0]
     narrowed = ws[:-1] + [ws[-1][:1]]
-    iargs, ld = SK.kernel_iargs(net.cfg, narrowed, 1000, 7, lay)
-    assert iargs[7 + L:7 + 2 * L][-1] == 1 and ld == 260
+    for ly, cols in ((lay, 264), (SK.make_sweep_pack(
+            net.cfg, narrowed, bf16=False)[1], 256)):
+        iargs = SK.sweep_wg_plan(net.cfg, narrowed, 1000, ly, 7)["iargs"]
+        assert iargs[6] == cols and iargs[7 + 2 * L - 1] == 1
     with pytest.raises(ValueError):
-        SK.kernel_iargs(TF.SDFConfig(d_hidden=512), [
-            torch.zeros(512, 39)] + [torch.zeros(512, 512)] * 2, 10, 1, lay)
+        SK.sweep_wg_plan(TF.SDFConfig(d_hidden=512), [
+            torch.zeros(512, 39)] + [torch.zeros(512, 512)] * 2, 10, lay, 1)
 
 
 @pytest.mark.parametrize("skip", [(2,), ()])

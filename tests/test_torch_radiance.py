@@ -105,17 +105,30 @@ def test_cpu_path_launches_no_kernel():
 
 
 def test_kernel_arguments_describe_the_network():
-    """The integer arguments handed to both kernels, at full width: the
-    row stride 300 (289 rounded to 8, plus 4), then the pack's layout."""
+    """The integer arguments handed to both forward kernels, at full
+    width: K3-fwd's (the layers, then its f32 slab pack's layer offsets)
+    and K3-fwd-bf16's (the row stride 300, 289 rounded to 8, plus 4, then
+    the bf16 pack's layout); each refuses the other's pack, and a hidden
+    layer over 256 is refused."""
     net = TF.RenderingNetwork(TF.RenderingConfig())
     ws, _ = net.effective_weights()
-    lay = TP.pack_layout([w.shape[1] for w in ws], [w.shape[0] for w in ws])
+    _, flay = RK.make_fwd_pack(net.cfg, ws)
+    p = RK.fwd_wg_plan(net.cfg, ws, n=1000, lay=flay, sms=7)
+    assert p["iargs"] == [5, 4, 27, 1000, 7, 16, 1,
+                          289, 256, 256, 256, 256, 256, 256, 256, 256, 3,
+                          *flay.off]
+    ins, outs = [w.shape[1] for w in ws], [w.shape[0] for w in ws]
+    lay = TP.pack_layout(ins, outs, "bf16")
     iargs, ld = RK.kernel_iargs(net.cfg, ws, n=1000, grid=7, lay=lay)
     assert iargs == [5, 4, 27, 300, 1, 1000, 7,
                      289, 256, 256, 256, 256, 256, 256, 256, 256, 3,
                      *TP.layout_iargs(lay)]
     assert ld == 300
+    with pytest.raises(ValueError, match="bf16 operands"):
+        RK.kernel_iargs(net.cfg, ws, 1000, 7, TP.pack_layout(ins, outs))
+    with pytest.raises(ValueError, match="wgmma"):
+        RK.fwd_wg_plan(net.cfg, ws, 1000, lay, 7)
     wide = [torch.zeros(512, 289), torch.zeros(3, 512)]
     with pytest.raises(ValueError):
         RK.kernel_iargs(TF.RenderingConfig(d_hidden=512), wide, 10, 1,
-                        TP.pack_layout([289, 512], [512, 3]))
+                        TP.pack_layout([289, 512], [512, 3], "bf16"))

@@ -334,100 +334,103 @@ def test_3xtf32_radiance_backward_within_k3_bwd_tolerance(case):
 
 
 def test_k3_pack_layout():
-    """K3's pack, one for K3-fwd and K3-bwd: the 289-wide first layer (W^T
-    [296][264], W [256][296]: 296 = 289 rounded to 8, already 8 mod 32),
-    the 3-wide last layer (W^T [256][8], W [8][264]), zero padding, and
-    its layout at the end of the kernels' arguments, with the row stride
-    300."""
+    """K3-fwd's pack is the forward slab pack K3-bwd reads, bit for bit
+    (make_fwd_pack, the first of make_bwd_slabs(bf16=False)): the
+    289-wide first layer in ten 32-k slabs (the feature's 256 rows, then
+    the narrow ones from k = 256), each hidden layer eight, the 3-wide last
+    layer eight 8 columns wide; its layer offsets end K3-fwd's arguments,
+    and a pack of another network's widths is refused."""
     cfg = RenderingConfig()
     ws, _, _, _ = _radiance(cfg, 1)
-    pack, lay = TP.pack_weights(ws)
-    _check_pack(ws, pack, lay)
-    assert (lay.fwd_stride[0], lay.rev_stride[0]) == (264, 296)
-    assert (lay.fwd_stride[-1], lay.rev_stride[-1]) == (8, 264)
-    assert lay.rev_off[-1] - lay.fwd_off[-1] == 256 * 8
-    assert lay.half - lay.rev_off[-1] == 8 * 264
-    iargs, ld = RK.kernel_iargs(cfg, ws, 1000, 7, lay)
-    assert ld == 300 and ld % 8 == 4
-    assert iargs[:7] == [5, 4, 27, 300, 1, 1000, 7]
+    pack, lay = RK.make_fwd_pack(cfg, ws)
+    (bpack, blay), _ = RK.make_bwd_slabs(cfg, ws, bf16=False)
+    assert lay == blay and torch.equal(pack, bpack)
+    assert lay.nslab == [10, 8, 8, 8, 8] and lay.cols == [256] * 4 + [8]
+    assert all(o % 1024 == 0 for o in lay.off)
+    assert lay.nbytes == 4 * pack.numel() == lay.off[-1] + 8 * 2 * 8 * 128
+    iargs = RK.fwd_wg_plan(cfg, ws, 1000, lay, 7)["iargs"]
+    assert iargs[:7] == [5, 4, 27, 1000, 7, 16, 1]
     assert iargs[7:17] == [289, 256, 256, 256, 256, 256, 256, 256, 256, 3]
-    assert iargs[17:] == TP.layout_iargs(lay)
+    assert iargs[17:] == lay.off
+    other = RenderingConfig(n_layers=3)
+    ows, _, _, _ = _radiance(other, 1)
     with pytest.raises(ValueError, match="layout"):
-        RK.kernel_iargs(cfg, ws, 1000, 7, TP.pack_layout(
-            [289, 256, 256, 256, 256], [256, 256, 256, 256, 16]))
+        RK.fwd_wg_plan(cfg, ws, 1000, RK.make_fwd_pack(other, ows)[1], 7)
 
 
 def test_k2_reads_k1_pack_narrowed():
-    """The narrowed sweep's weights in K1's pack of the same step: the
-    first column of the last W^T block (big + small) is the narrowed row,
-    and every W^T block K2 stages holds, in its first columns, what K2's
-    own narrowed pack holds; the layouts are accepted as the narrowed
-    network's."""
+    """The narrowed sweep's weights in K1's f32 slab pack of the same step
+    (sweep32): every layer before the last is K2's own narrowed pack's
+    bytes, and in each slab of the last layer the first column of both
+    halves (the first 32 f32 of each: K2 copies the first 8 columns, a
+    1 KB prefix) is the narrowed row, whose other 7 columns the own pack
+    holds as zero; the layouts are accepted as the narrowed network's and
+    a pack of other widths is refused."""
     cfg = SDFConfig()
     net = SDFNetwork(cfg, torch.Generator().manual_seed(0))
     with torch.no_grad():
         ws, _ = net.effective_weights()
     narrowed = ws[:-1] + [ws[-1][:1]]
-    k1, lay = TP.pack_weights(ws)
-    own, lay_n = TP.pack_weights(narrowed)
+    k1, lay = SK.make_sweep_pack(cfg, ws, bf16=False)
+    own, lay_n = SK.make_sweep_pack(cfg, narrowed, bf16=False)
     L = len(ws)
-    for l in range(L):
-        kp = -(-ws[l].shape[1] // 8) * 8
-        cols = lay_n.fwd_stride[l]
-        assert lay_n.fwd_off[l] == lay.fwd_off[l]
+    assert lay.off == lay_n.off and lay.cols[-1] == 264
+    assert lay_n.cols[-1] == 256
+    first = lay.off[-1] // 4
+    assert torch.equal(k1[:first], own[:first])
+    for s_ in range(8):
         for h in (0, 1):
-            a = k1[h * lay.half + lay.fwd_off[l]:][:kp * lay.fwd_stride[l]]
-            b = own[h * lay_n.half + lay_n.fwd_off[l]:][:kp * cols]
-            a = a.view(kp, lay.fwd_stride[l])[:, :cols]
-            b = b.view(kp, cols)
-            if l < L - 1:
-                assert torch.equal(a, b)
-            else:
-                assert torch.equal(a[:, :1], b[:, :1])
-                assert not b[:, 1:].any()
-    blk = (k1[:lay.half] + k1[lay.half:])[lay.fwd_off[-1]:][
-        :256 * lay.fwd_stride[-1]].view(256, lay.fwd_stride[-1])
-    assert torch.equal(blk[:, 0], narrowed[-1][0])
-    ins = [w.shape[1] for w in ws]
+            a = k1[first + (2 * s_ + h) * 264 * 32:][:8 * 32]
+            b = own[first + (2 * s_ + h) * 256 * 32:][:8 * 32]
+            assert torch.equal(a[:32], b[:32])
+            assert not b[32:].any()
+    big, small = TP.f32_block(own, lay_n, L - 1)
+    want = torch.zeros_like(big[:, 0])
+    want[TP.tf32_slot(np.arange(256))] = narrowed[-1][0]
+    assert torch.equal(big[:, 0] + small[:, 0], want)
     for ly in (lay, lay_n):
-        SK.kernel_iargs(cfg, narrowed, 100, 1, ly)
+        SK.sweep_wg_plan(cfg, narrowed, 100, ly, 1)
     with pytest.raises(ValueError, match="layout"):
-        SK.kernel_iargs(cfg, narrowed, 100, 1, TP.pack_layout(
-            ins, [256] * 8 + [257])._replace(fwd_off=[0] * L))
+        SK.sweep_wg_plan(cfg, narrowed, 100, lay._replace(off=[0] * L), 1)
 
 
 def test_shared_memory_counts_fit_a_block():
-    """The byte counts the kernels' headers state, from tc_pack.smem_bytes
-    (the mirror of tc_dims_from_args / tc_smem_bytes), at full width, all
-    within the 232,448 bytes a block may use: K1-fwd 216,064 (encoding,
-    two tiles at 268, ring of stride 264); K1-bwd 227,328 (four tiles);
-    K2 211,968 narrowed (two tiles at 260), from its own pack or K1's;
-    K3-fwd and K3-bwd 229,376 (two tiles at 300, ring of stride 296).  A
-    radiance MLP with 288-wide hidden layers is refused before any
-    launch."""
+    """The byte counts the kernels' headers state, at full width, all
+    within the 232,448 bytes a block may use: the mma.sync K1 variants
+    from tc_pack.smem_bytes (the mirror of tc_dims_from_args /
+    tc_smem_bytes): K1-fwd-stash 216,064 (encoding, two tiles at 268, ring
+    of stride 264), the stash and split backwards 227,328 (four tiles);
+    K2 on wgmma 214,048 (two 66 KB slab stages, the 64 KB A tile, the
+    encoding tile), narrowed or not; K3-fwd on wgmma 226,336 (two 64 KB
+    stages, the 80 KB A tile); K3-fwd-bf16 220,176 (two tiles at 300, the
+    bf16 ring).  A radiance MLP with 288-wide hidden layers is refused
+    before any launch."""
     cfg = SDFConfig()
     net = SDFNetwork(cfg, torch.Generator().manual_seed(0))
     with torch.no_grad():
         ws, _ = net.effective_weights()
     _, lay = TP.pack_weights(ws)
     outs = [w.shape[0] for w in ws]
-    eld = SK.enc_stride(cfg)
+    eld = TP.round8(cfg.d_embed) + 4
     assert eld == 44
     k1_fwd = TP.smem_bytes(lay, outs, 64 * (eld + 2 * 268))
     k1_bwd = TP.smem_bytes(lay, outs, 64 * 2 * (eld + 268))
     narrowed = ws[:-1] + [ws[-1][:1]]
-    n_outs = outs[:-1] + [1]
-    k2 = [SK.smem_bytes(cfg, ly, n_outs, SK.kernel_iargs(
-        cfg, narrowed, 100, 1, ly)[1]) for ly in
-        (lay, TP.pack_weights(narrowed)[1])]
+    flay = SK.make_sweep_pack(cfg, ws, bf16=False)[1]
+    k2 = [SK.sweep_wg_plan(cfg, w, 100, flay, 1)["sweep_smem"]
+          for w in (ws, narrowed)]
     rcfg = RenderingConfig()
     rws, _, _, _ = _radiance(rcfg, 1)
-    _, rlay = TP.pack_weights(rws)
-    k3 = RK.smem_bytes(rlay, [w.shape[0] for w in rws], 300)
-    assert (k1_fwd, k1_bwd, k2, k3) == (216064, 227328, [211968] * 2,
-                                        229376)
-    assert max(k1_fwd, k1_bwd, *k2, k3) <= TP.SMEM_MAX == 232448
+    k3 = RK.fwd_wg_plan(rcfg, rws, 100, RK.make_fwd_pack(rcfg, rws)[1],
+                        1)["sweep_smem"]
+    rlay16 = TP.pack_weights_bf16(rws)[1]
+    k3_16 = RK.smem_bytes(rlay16, [w.shape[0] for w in rws], 300)
+    assert (k1_fwd, k1_bwd, k2, k3, k3_16) == (216064, 227328, [214048] * 2,
+                                               226336, 220176)
+    assert max(k1_fwd, k1_bwd, *k2, k3, k3_16) <= TP.SMEM_MAX == 232448
     wide = RenderingConfig(d_hidden=288)
     wws, _, _, _ = _radiance(wide, 1)
     with pytest.raises(ValueError):
-        RK.kernel_iargs(wide, wws, 100, 1, TP.pack_weights(wws)[1])
+        RK.kernel_iargs(wide, wws, 100, 1, TP.pack_weights_bf16(wws)[1])
+    with pytest.raises(ValueError):
+        RK.make_fwd_pack(wide, wws)

@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""K1-bwd's and K1-bwd-bf16's results, this checkout's builds against
-another version's, bit for bit, on a GPU.
+"""The results of the f32 and bf16 wgmma kernels that K2 and K3-fwd share
+code with, this checkout's builds against another version's, bit for bit,
+on a GPU.
 
     python3 tools/k1_bwd_bitwise.py DIR
 
-Builds DIR's factored_neus_tpu_torch/csrc/geometry_bwd_wg.cu (K1-bwd, f32)
-and geometry_bwd_bf16_wg.cu (K1-bwd-bf16) (for example a parent commit
+Builds DIR's factored_neus_tpu_torch/csrc/geometry_bwd_wg.cu (K1-bwd, f32),
+geometry_bwd_bf16_wg.cu (K1-bwd-bf16), geometry_fwd_wg.cu (K1-fwd, f32)
+and radiance_bwd_wg.cu (K3-bwd, f32) (for example a parent commit
 unpacked with ``git archive`` into a directory that .gitignore lists) into
 build/bitwise/, and runs each and this checkout's build through this
-checkout's wrapper (ops/geometry_kernel.launch_backward, whose arguments
-both versions take) on the same inputs and the mode's slab packs: the
-full-width SDF network at chip_smoke.py's 65,536 and 9,001 points.  Every
-output (ct_x, each dW and db) must be equal bit for bit.  Prints one line
-a kernel and size, the card's name and power limit, and a JSON summary;
-exits 1 on any difference.
+checkout's wrapper (ops/geometry_kernel.launch_backward and
+launch_forward, ops/radiance_kernel.launch_backward, whose arguments both
+versions take) on the same inputs and the mode's slab packs: the
+full-width SDF network and radiance MLP at chip_smoke.py's 65,536 and
+9,001 rows.  Every output (K1-bwd's ct_x, each dW and db; K1-fwd's out
+and grad; K3-bwd's four input cotangents, each dW and db) must be equal
+bit for bit.  Prints one line a kernel and size, the card's name and
+power limit, and a JSON summary; exits 1 on any difference.
 """
 import json
 import os
@@ -21,10 +25,11 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# (label, source, C function, bf16 operand mode)
-KERNELS = (("K1-bwd", "geometry_bwd_wg.cu", "geometry_bwd", False),
-           ("K1-bwd-bf16", "geometry_bwd_bf16_wg.cu", "geometry_bwd_bf16",
-            True))
+# (label, source, C function)
+KERNELS = (("K1-bwd", "geometry_bwd_wg.cu", "geometry_bwd"),
+           ("K1-bwd-bf16", "geometry_bwd_bf16_wg.cu", "geometry_bwd_bf16"),
+           ("K1-fwd", "geometry_fwd_wg.cu", "geometry_fwd"),
+           ("K3-bwd", "radiance_bwd_wg.cu", "radiance_bwd"))
 OUT = os.path.join(HERE, "build", "bitwise")
 
 
@@ -41,20 +46,53 @@ def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "tools"))
     import chip_smoke
     import k1_bwd_phases
-    from factored_neus_tpu_torch.models.fields import SDFConfig, SDFNetwork
+    from factored_neus_tpu_torch.models.fields import (RenderingConfig,
+                                                       RenderingNetwork,
+                                                       SDFConfig, SDFNetwork)
     from factored_neus_tpu_torch.ops import _cuda
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
+    from factored_neus_tpu_torch.ops import radiance_kernel as RK
 
     os.makedirs(OUT, exist_ok=True)
     dev = torch.device("cuda")
-    cfg = SDFConfig()
+    cfg, rcfg = SDFConfig(), RenderingConfig()
     net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(dev)
+    rnet = RenderingNetwork(rcfg, torch.Generator().manual_seed(0)).to(dev)
     with torch.no_grad():
-        ws, bs = net.effective_weights()
-    ws, bs = list(ws), list(bs)
+        ws, bs = (list(t) for t in net.effective_weights())
+        rws, rbs = (list(t) for t in rnet.effective_weights())
     flat = lambda r: [r[0], *r[1], *r[2]]
+
+    def inputs(label, n, gen):
+        """The kernel, its slab packs and a call on n random rows."""
+        if label == "K3-bwd":
+            slabs = RK.make_bwd_slabs(rcfg, rws, bf16=False)
+            rin = [torch.randn(n, 3, device=dev, generator=gen) * 0.5,
+                   torch.randn(n, 3, device=dev, generator=gen),
+                   torch.nn.functional.normalize(torch.randn(
+                       n, 3, device=dev, generator=gen), dim=-1),
+                   torch.randn(n, rcfg.d_feature, device=dev,
+                               generator=gen) * 0.5]
+            ct = torch.randn(n, rcfg.d_out, device=dev, generator=gen)
+
+            def k3_bwd():
+                *cts, dws, dbs = RK.launch_backward(rcfg, rws, rbs, *rin, ct,
+                                                    pack=slabs)
+                return [*cts, *dws, *dbs]
+            return RK.K3_BWD, k3_bwd
+        bf16 = label == "K1-bwd-bf16"
+        slabs = GK.make_bwd_slabs(cfg, ws, bf16)
+        x = torch.randn(n, 3, device=dev, generator=gen) * 0.5
+        if label == "K1-fwd":
+            return GK.K1_FWD, lambda: list(GK.launch_forward(cfg, x, ws, bs,
+                                                             slabs))
+        ct_out = torch.randn(n, ws[-1].shape[0], device=dev, generator=gen)
+        ct_g = torch.randn(n, 3, device=dev, generator=gen)
+        return GK.KERNELS["bwd", bf16], lambda: flat(GK.launch_backward(
+            cfg, x, ws, bs, ct_out, ct_g, slabs, bf16=bf16))
+
     sizes = []
-    for label, src, symbol, bf16 in KERNELS:
+    for label, src, symbol in KERNELS:
         lib = os.path.join(OUT, f"lib_other_{symbol}.so")
         p = subprocess.run(
             [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib,
@@ -63,18 +101,12 @@ def main() -> int:
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {other}:\n{p.stdout}"
                                f"{p.stderr}")
-        slabs = GK.make_bwd_slabs(cfg, ws, bf16)
-        kernel = GK.KERNELS["bwd", bf16]
         gen = torch.Generator(device=dev).manual_seed(5)
         for n in (chip_smoke.N_CORE, chip_smoke.N_RAGGED):
-            x = torch.randn(n, 3, device=dev, generator=gen) * 0.5
-            ct_out = torch.randn(n, ws[-1].shape[0], device=dev,
-                                 generator=gen)
-            ct_g = torch.randn(n, 3, device=dev, generator=gen)
+            kernel, call = inputs(label, n, gen)
 
             def run():
-                return [t.clone() for t in flat(GK.launch_backward(
-                    cfg, x, ws, bs, ct_out, ct_g, slabs, bf16=bf16))]
+                return [t.clone() for t in call()]
             kernel._fn = None
             mine = run()
             k1_bwd_phases._bind(kernel, lib, symbol)

@@ -66,9 +66,10 @@ TABLE_ROWS = (("geometry_bwd_wgf_sweep", "K1-bwd (sweep)"),
               ("radiance_bwd_wgf_reduce", "K3-bwd (reduce)"),
               ("geometry_fwd_wgf_sweep", "K1-fwd"),
               ("geometry_fwd_kernel", "K1-fwd"),
-              ("sdf_fwd_kernel", "K2"),
+              ("sdf_fwd_wgf_sweep", "K2"),
               ("sdf_fwd_bf16_kernel", "K2-bf16"),
-              ("radiance_fwd_kernel", "K3-fwd"),
+              ("radiance_fwd_wgf_sweep", "K3-fwd"),
+              ("radiance_fwd_bf16_kernel", "K3-fwd-bf16"),
               ("reduce_partials_kernel", "K1-bwd partial sums"))
 FLAGS = ("--womask", "--stash", "--split", "--stage2", "--stage3", "--bf16",
          "--sweep-f32", "--sampling")
