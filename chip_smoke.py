@@ -102,12 +102,15 @@
    default): K1-fwd-bf16, K1-bwd-bf16, K1-bwd-split-bf16 and the stash
    pair in bf16 at 65,536 and 9,001 rows against their twins and an f64
    evaluation of the unrounded function (check_flips), two launches of
-   each bitwise equal, timed against their bf16 bound; K1-bwd-bf16 (on
-   wgmma: its ptxas report and SASS, which must hold HGMMA
-   and no HMMA) also timed at 9,001 rows ("shapes" in its kernels entry),
-   its kernels' registers and shared memory read from the device
-   ("attrs"), and the bytes its design moves by the source note's
-   reckoning printed beside them; one 64-ray
+   each bitwise equal, timed against their bf16 bound; K1-fwd-bf16 and
+   K1-bwd-bf16 (on wgmma: each its ptxas report and SASS, which must hold
+   HGMMA and no HMMA) also timed at 9,001 rows ("shapes" in their kernels
+   entries), their kernels' registers and shared memory read from the
+   device ("attrs"), and the bytes each design moves by the source note's
+   reckoning printed beside them; K1-fwd-bf16 also at a validation
+   chunk's 262,144 rows (check_flips, bitwise repeat, timed), and its out
+   at each size bit for bit K2-bf16's full 257-wide output on the same
+   slab pack (k1_k2_bits); one 64-ray
    full-width wmask step with the mode on (K1 and K3 in bf16, item 13),
    card against CPU; then in a subprocess with the switch on (read at
    import) 30 wmask steps through the CLI (counters at 0: K1-fwd-bf16,
@@ -115,17 +118,21 @@
    no f32 K1 or K3), 10 with the stash switch and 10 with the split
    backward (their bf16 kernels once a step), one stage-1 CLI run with
    --gpu 0 --profile DIR whose trace names K1's and K3's bf16 kernels,
-   and one with --debug_nans;
+   and one with --debug_nans; tc_pack.pack_weights_bf16 (the bf16
+   mma.sync pack, which only the switch-only variants read) built 0 times
+   in the 30 steps and once a step or more in the stash and split runs;
 13. the bf16 sweeps and the bf16 radiance MLP: K2-bf16 (on wgmma: its
    ptxas report and SASS, which must hold HGMMA and no HMMA.16816) at
    1,048,576, 65,536, 32,768, 9,001 and 8,192 rows (on the full network's
    slab pack, the last layer narrowed) and with the full 257-wide output
-   at 65,536 rows, K3-fwd-bf16 and K3-bwd-bf16 at 65,536 and 9,001 rows,
-   each against its twin and the f64 unrounded function (check_flips),
-   two launches of each bitwise equal, timed against the bf16 bound
-   (K3-bwd-bf16, on wgmma, as K1-bwd-bf16: its ptxas report,
-   SASS, attributes and both sizes' times, its twin on the ReLU masks the
-   kernel itself keeps, k3_bwd_masks; its slab packs' build times); the
+   at 65,536 rows, K3-fwd-bf16 and K3-bwd-bf16 at 65,536 and 9,001 rows
+   and K3-fwd-bf16 also at 262,144 (a validation chunk), each against its
+   twin and the f64 unrounded function (check_flips), two launches of
+   each bitwise equal, timed against the bf16 bound (both on wgmma, as
+   K1-bwd-bf16: each its ptxas report, SASS, attributes and every size's
+   time; K3-bwd-bf16's twin on the ReLU masks the kernel itself keeps,
+   k3_bwd_masks; K3-fwd-bf16 on K3-bwd-bf16's forward slab pack; the slab
+   packs' build times); the
    64-ray wmask step of item 12 now runs K1 and K3 in
    bf16; a 64-ray stage-2 step with the default bf16 coarse sweep, card
    against CPU, held to the float64 step (item 9); the stage-2 CLI runs
@@ -265,22 +272,29 @@ SYN_STAGES = ((1, "indisg_synthetic", STAGE1_PER_STEP),
 W2C_TOL = 1e-6          # the w2c rays, card against the CPU
 
 
-# tc_pack.pack_weights calls (the 3xTF32 mma.sync pack), counted once
+# tc_pack.pack_weights calls (the 3xTF32 mma.sync pack) and
+# tc_pack.pack_weights_bf16 calls (the bf16 one), counted once
 # count_pack_calls has run
 PACK_CALLS = [0]
+PACK16_CALLS = [0]
 
 
 def count_pack_calls() -> None:
-    """Counts every tc_pack.pack_weights call from now on in PACK_CALLS:
-    only the switch-only K1 variants read that pack, so the default f32
-    path builds none."""
+    """Counts every tc_pack.pack_weights call from now on in PACK_CALLS,
+    and every tc_pack.pack_weights_bf16 call in PACK16_CALLS: only the
+    switch-only K1 variants read those packs, so neither default path
+    (f32, or the core's bf16 mode) builds one."""
     from factored_neus_tpu_torch.ops import tc_pack as TP
-    inner = TP.pack_weights
+    inner, inner16 = TP.pack_weights, TP.pack_weights_bf16
 
     def counted(ws):
         PACK_CALLS[0] += 1
         return inner(ws)
-    TP.pack_weights = counted
+
+    def counted16(ws):
+        PACK16_CALLS[0] += 1
+        return inner16(ws)
+    TP.pack_weights, TP.pack_weights_bf16 = counted, counted16
 
 
 def pack_calls_during(label: str, packs: dict, fn, *args, **kw):
@@ -1068,6 +1082,57 @@ def k1_bwd_wg_shape(cfg, ws, n, run, plain, bwd_flops, slabs) -> tuple:
                     "geometry_bwd_bf16_attrs")
 
 
+def wg16_fwd_shape(label, n, run, plain, bound_ms, plan, design, src,
+                   symbol) -> tuple:
+    """A bf16 wgmma forward (K1-fwd-bf16, K3-fwd-bf16) at n rows: its time
+    and its twin's (CUDA events) against its bf16 bound, for the kernels
+    line; printed beside them, the sweep's registers and shared memory as
+    the device holds them (wg_attrs through ``symbol``), the launch plan,
+    and the bytes the design moves to and from device memory by the
+    reckoning of its source note (``design``), a count, not a
+    measurement."""
+    import torch
+
+    def twin():
+        with torch.no_grad():
+            plain()
+    shape = {"rows": n, "ms": cuda_ms(run, 5 if n >= N_CORE else 20),
+             "plain_ms": cuda_ms(twin, 3), "bound_ms": bound_ms,
+             "design_bytes": design}
+    attrs = wg_attrs(src, symbol, ("sweep",))["sweep"]
+    print(f"  {label} (wgmma) N={n}: {shape['ms']:.3f} ms (plain "
+          f"{shape['plain_ms']:.3f} ms), bf16 bound {bound_ms:.3f} ms "
+          f"({100 * bound_ms / shape['ms']:.1f}% of it); by the source "
+          f"note's reckoning the design moves {design / 1e9:.3f} GB to and "
+          f"from device memory; {plan['grid']} sweep blocks of {plan['nc']} "
+          f"consumers, {plan['n_pass']} passes; sweep "
+          f"(cudaFuncGetAttributes): {attrs['regs']} registers a thread, "
+          f"{attrs['dynamic_smem']} B dynamic + {attrs['static_smem']} B "
+          f"static shared memory a block (the plan's count: "
+          f"{plan['sweep_smem']} B)")
+    if attrs["dynamic_smem"] != plan["sweep_smem"]:
+        raise AssertionError(f"{label}: the launcher's shared memory is not "
+                             f"the plan's")
+    return shape, attrs
+
+
+def k1_fwd_bf16_shape(cfg, ws, bs, x, run, fwd_flops, slabs) -> tuple:
+    """K1-fwd-bf16 at x's rows (wg16_fwd_shape); the design's bytes: the
+    f32 scratch of sigma(100 a) written and read, the points read, out and
+    grad written (geometry_fwd_bf16_wg.cu's note)."""
+    from factored_neus_tpu_torch.ops import _cuda
+    from factored_neus_tpu_torch.ops import geometry_kernel as GK
+    n, L = x.shape[0], len(ws)
+    plan = GK.fwd_wg16_plan(cfg, ws, n, slabs, _cuda.sm_count(x.device))
+    design = (2 * plan["tiles"] * (L - 1) * 64 * 256 * 4
+              + n * 4 * (3 + ws[-1].shape[0] + 3))
+    return wg16_fwd_shape(
+        "K1-fwd-bf16", n, run,
+        lambda: GK.geometry_plain(ws, bs, x, cfg, bf16=True),
+        1e3 * n * fwd_flops / BF16_PEAK, plan, design,
+        "geometry_fwd_bf16_wg.cu", "geometry_fwd_bf16_attrs")
+
+
 def k1_bwd_wgf_check(cfg, ws, bs, n, bwd_flops, slabs, gen) -> tuple:
     """K1-bwd (3xTF32 on wgmma) at n points: against the f64 twin
     (check_vjp) with two launches bitwise equal, then wg_shape's times
@@ -1229,10 +1294,33 @@ def check_flips(label, got, twin, ref64, names):
     return e_kt
 
 
+def k1_k2_bits(cfg, ws, bs, x, slabs) -> None:
+    """K1-fwd-bf16's out against K2-bf16's full 257-wide output on the
+    same forward slab pack (sweep16) and rows: the same slabs, sums and
+    softplus (csrc/sweep16.cuh's sw_forward), so bit for bit; raises
+    otherwise, after printing the largest difference."""
+    import torch
+    from factored_neus_tpu_torch.ops import geometry_kernel as GK
+    from factored_neus_tpu_torch.ops import sdf_kernel as SK
+    out = GK.launch_forward(cfg, x, ws, bs, slabs, bf16=True)[0]
+    k2 = SK.sdf_forward(ws, bs, cfg, x, slabs[0], bf16=True)
+    torch.cuda.synchronize()
+    d = float((out - k2).abs().max())
+    same = torch.equal(out, k2)
+    print(f"K1-fwd-bf16's out against K2-bf16's full output N={x.shape[0]} "
+          f"(one slab pack): bitwise equal {same}, max|diff| {d:.3e}")
+    if not same:
+        raise AssertionError("K1-fwd-bf16's out is not K2-bf16's full "
+                             "output")
+
+
 def check_bf16_kernels(device):
     """K1's bf16 operand mode: each bf16 kernel against its twin at the
     step's 65,536 rows and at N_RAGGED rows (check_flips), two launches of
-    each bitwise equal, and its time against the bf16 bound."""
+    each bitwise equal, and its time against the bf16 bound; K1-fwd-bf16
+    (on wgmma, its build report first) also at a validation chunk's
+    VAL_CHUNK x 128 rows, and its out against K2-bf16's full output on the
+    same slab pack and rows, bit for bit."""
     import torch
     from factored_neus_tpu_torch.models.fields import SDFConfig, SDFNetwork
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
@@ -1251,11 +1339,13 @@ def check_bf16_kernels(device):
     fwd_flops = 2 * S + 2 * (S - s_last)
     bwd_flops = (4 * (S - s_last) + 2 * S + 2 * S
                  + 2 * (S - s_last) + 2 * ins[-1] + 2 * (S - s_last))
+    # the switch-only variants' bf16 mma.sync pack
     pack = GK.make_pack(ws, bf16=True)
-    # K1-bwd-bf16 runs on wgmma from its two slab packs
+    # K1-fwd-bf16 and K1-bwd-bf16 run on wgmma from their two slab packs
+    fwd_build = wgmma_build_report("K1-fwd-bf16", "geometry_fwd_bf16_wg.cu")
     build = wgmma_build_report("K1-bwd-bf16", "geometry_bwd_bf16_wg.cu")
     slabs = GK.make_bwd_slabs(cfg, list(ws))
-    wg_shapes = []
+    wg_shapes, fwd_shapes = [], []
     w64 = [w.double() for w in ws]
     b64 = [b.double() for b in bs]
     fnames = ["out", "grad"]
@@ -1287,7 +1377,7 @@ def check_bf16_kernels(device):
                                                  cfg, bf16=True))
         runs = {
             "geometry_fwd_bf16": (lambda: GK.launch_forward(
-                cfg, x, ws, bs, pack, bf16=True), tw_f, ref_f, fnames),
+                cfg, x, ws, bs, slabs, bf16=True), tw_f, ref_f, fnames),
             "geometry_fwd_stash_bf16": (lambda: GK.launch_forward_stash(
                 cfg, x, ws, bs, pack, bf16=True)[:2], tw_sf[:2], ref_f,
                 fnames),
@@ -1321,6 +1411,10 @@ def check_bf16_kernels(device):
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{name}: two launches differ")
         print(f"bf16 K1 kernels N={n}: two launches of each bitwise equal")
+        k1_k2_bits(cfg, ws, bs, x, slabs)
+        shape, fwd_attrs = k1_fwd_bf16_shape(
+            cfg, ws, bs, x, runs["geometry_fwd_bf16"][0], fwd_flops, slabs)
+        fwd_shapes.append(shape)
         shape, k1_attrs = k1_bwd_wg_shape(
             cfg, ws, n, runs["geometry_bwd_bf16"][0],
             lambda: GK.geometry_bwd_plain(ws, bs, x, ct_out, ct_g, cfg,
@@ -1346,10 +1440,10 @@ def check_bf16_kernels(device):
                 lambda: GK.geometry_bwd_stash_plain(ws, x, st_k, ct_out, ct_g,
                                                     cfg, bf16=True)), 3)}
         plain_ms["geometry_bwd_split_bf16"] = plain_ms["geometry_bwd_bf16"]
-        # what the bf16 mode adds to a step besides its kernels: the
-        # packs SDFNetwork.kernel_weights(bf16=True) builds beside the
-        # 3xTF32 one (the bf16 pack; K1-bwd-bf16's forward and reverse
-        # slab packs where a backward can follow)
+        # what the bf16 mode adds to a step besides its kernels: the two
+        # slab packs SDFNetwork.kernel_weights(bf16=True) builds for
+        # K1-fwd-bf16 and K1-bwd-bf16 (and, timed beside them, the
+        # mma.sync packs, 3xTF32 and bf16, built only under the switches)
         pack_ms = {"pack_ms": cuda_ms(lambda: GK.make_pack(ws), 10),
                    "pack_bf16_ms": cuda_ms(lambda: GK.make_pack(ws, True),
                                            10),
@@ -1358,8 +1452,9 @@ def check_bf16_kernels(device):
                    "rev_pack_bf16_ms": cuda_ms(
                        lambda: TP.pack_rev_bf16(ws, cfg.d_embed), 10)}
         print(f"weight packs at full width: 3xTF32 {pack_ms['pack_ms']:.3f} "
-              f"ms, bf16 {pack_ms['pack_bf16_ms']:.3f} ms, K1-bwd-bf16's "
-              f"slab packs {pack_ms['sweep_pack_bf16_ms']:.3f} ms (forward)"
+              f"ms, bf16 {pack_ms['pack_bf16_ms']:.3f} ms (both switch-only)"
+              f", K1-fwd-bf16's and K1-bwd-bf16's slab packs "
+              f"{pack_ms['sweep_pack_bf16_ms']:.3f} ms (forward)"
               f" + {pack_ms['rev_pack_bf16_ms']:.3f} ms (reverse) (CUDA "
               f"events around 10 builds each)")
         fwd_bytes = n * (12 + 4 * outs[-1] + 12) + wbytes
@@ -1375,9 +1470,10 @@ def check_bf16_kernels(device):
         for name, (run, _, _, _) in runs.items():
             flops, nbytes, line = work[name]
             t_ops, t_bytes = n * flops / BF16_PEAK, nbytes / HBM_RATE
-            src = "geometry_fwd.cu" if "fwd" in name else \
-                "geometry_bwd_bf16_wg.cu" if name == "geometry_bwd_bf16" \
-                else "geometry_bwd_bf16.cu"
+            src = {"geometry_fwd_bf16": "geometry_fwd_bf16_wg.cu",
+                   "geometry_fwd_stash_bf16": "geometry_fwd.cu",
+                   "geometry_bwd_bf16": "geometry_bwd_bf16_wg.cu"}.get(
+                       name, "geometry_bwd_bf16.cu")
             results.append({
                 "name": name, "route": "cuda",
                 "source": f"factored_neus_tpu_torch/csrc/{src}",
@@ -1390,11 +1486,33 @@ def check_bf16_kernels(device):
                 "library_ms": None})
         results[0].update(pack_ms)
         del tw_f, tw_b, tw_sf, tw_sb, ref_f, ref_b
+    # a validation chunk's rows (the mode on there: 1 a chunk)
+    n = VAL_CHUNK * 128
+    x = torch.randn(n, 3, device=device, generator=gen) * 0.5
+    run = lambda: GK.launch_forward(cfg, x, ws, bs, slabs, bf16=True)
+    with torch.no_grad():
+        ref_f = [t.float() for t in GK.geometry_plain(w64, b64, x.double(),
+                                                      cfg)]
+        tw_f = GK.geometry_plain(ws, bs, x, cfg, bf16=True)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    errs["geometry_fwd_bf16"] = max(errs["geometry_fwd_bf16"], check_flips(
+        f"geometry_fwd_bf16 N={n}", got, tw_f, ref_f, fnames))
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("geometry_fwd_bf16: two launches differ")
+    del got, again, ref_f, tw_f
+    k1_k2_bits(cfg, ws, bs, x, slabs)
+    fwd_shapes.append(k1_fwd_bf16_shape(cfg, ws, bs, x, run, fwd_flops,
+                                        slabs)[0])
+    del x
     for r in results:
         r["max_abs_err"] = errs[r["name"]]
         if r["name"] == "geometry_bwd_bf16":
             r.update(shapes=wg_shapes, sass=build["sass"],
                      ptxas=build["ptxas"], attrs=k1_attrs)
+        if r["name"] == "geometry_fwd_bf16":
+            r.update(shapes=fwd_shapes, sass=fwd_build["sass"],
+                     ptxas=fwd_build["ptxas"], attrs=fwd_attrs)
         print(f"  {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} "
               f"ms) at {N_CORE} rows, bf16 bound {r['bound_ms']:.3f} ms by "
               f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% of "
@@ -1449,11 +1567,13 @@ def check_bf16_sweep_kernels(device):
     """Item 13: K2-bf16 (its build report first; on the full network's
     slab pack, the last layer narrowed, as a stage-2 run reads it) at
     K2_BF16_ROWS and with the full output at K2_BF16_FULL_ROWS,
-    K3-fwd-bf16 and K3-bwd-bf16 (on one bf16 pack, as a step hands it
-    from the forward to the backward) at K3_BF16_ROWS, each against its
-    twin and the f64 unrounded function (check_flips), two launches of
-    each bitwise equal, and timed against its bf16 bound at the first
-    shape (K2-bf16: every shape, under "shapes").  K3-bwd-bf16's twin
+    K3-fwd-bf16 and K3-bwd-bf16 (both on wgmma, their build reports first;
+    on one pair of slab packs, as a step hands the forward pack from the
+    forward to the backward) at K3_BF16_ROWS and K3-fwd-bf16 also at a
+    validation chunk's VAL_CHUNK x 128 rows, each against its twin and the
+    f64 unrounded function (check_flips), two launches of each bitwise
+    equal, and timed against its bf16 bound at the first shape (K2-bf16,
+    K3-fwd-bf16 and K3-bwd-bf16: every shape, under "shapes").  K3-bwd-bf16's twin
     differentiates on the kernel's own ReLU masks (k3_bwd_masks with
     bf16)."""
     import torch
@@ -1547,16 +1667,36 @@ def check_bf16_sweep_kernels(device):
 
     rS = sum(w.numel() for w in rws)                   # 271,360
     rwbytes = sum(2 * w.numel() + 4 * b.numel() for w, b in zip(rws, rbs))
-    # K3-bwd-bf16 runs on wgmma from its two slab packs
+    # K3-fwd-bf16 and K3-bwd-bf16 run on wgmma from their slab packs (the
+    # forward's is the first of the backward's)
+    build3f = wgmma_build_report("K3-fwd-bf16", "radiance_fwd_bf16_wg.cu")
     build3 = wgmma_build_report("K3-bwd-bf16", "radiance_bwd_bf16_wg.cu")
-    rpack = TP.make_pack(rws, bf16=True)
     rslabs = RK.make_bwd_slabs(rcfg, rws)
+    rpack = rslabs[0]
+    if not torch.equal(rpack[0], RK.make_fwd_pack(rcfg, rws, bf16=True)[0]):
+        raise AssertionError("K3-fwd-bf16's pack is not K3-bwd-bf16's "
+                             "forward pack")
     d_feat = rcfg.d_feature
     flat = lambda r: [*r[:4], *r[4], *r[5]]
     names = ["ct_pts", "ct_normals", "ct_dirs", "ct_feat"] + [
         f"{k}{l}" for k in ("dW", "db") for l in range(len(rws))]
     w64, b64 = [w.double() for w in rws], [b.double() for b in rbs]
-    k3_shapes = []
+    k3_shapes, k3f_shapes = [], []
+
+    def k3_fwd_shape(rin, fwd):
+        """K3-fwd-bf16 at rin's rows (wg16_fwd_shape); the design's bytes:
+        the inputs read and rgb written once (radiance_fwd_bf16_wg.cu's
+        note)."""
+        from factored_neus_tpu_torch.ops import _cuda
+        n = rin[0].shape[0]
+        plan = RK.fwd_wg16_plan(rcfg, rws, n, rpack[1],
+                                _cuda.sm_count(device))
+        return wg16_fwd_shape(
+            "K3-fwd-bf16", n, fwd,
+            lambda: RK.radiance_plain(rws, rbs, rcfg, *rin, bf16=True),
+            1e3 * n * 2 * rS / BF16_PEAK, plan,
+            n * 4 * (9 + d_feat + rcfg.d_out), "radiance_fwd_bf16_wg.cu",
+            "radiance_fwd_bf16_attrs")
     for n in K3_BF16_ROWS:
         rin = [torch.randn(n, 3, device=device, generator=gen) * 0.5,
                torch.randn(n, 3, device=device, generator=gen),
@@ -1594,6 +1734,8 @@ def check_bf16_sweep_kernels(device):
                 raise AssertionError(f"{name}: two launches differ")
         print(f"K3 bf16 kernels N={n}: two launches of each bitwise equal")
         del tw_f, ref_f, tw_b, ref_b
+        shape, k3f_attrs = k3_fwd_shape(rin, fwd)
+        k3f_shapes.append(shape)
         shape, k3_attrs = k3_bwd_wg_shape(
             rcfg, rws, n, bwd, lambda: RK.radiance_bwd_plain(
                 rws, rbs, rcfg, *rin, ct, bf16=True), 6 * rS, rslabs)
@@ -1615,7 +1757,7 @@ def check_bf16_sweep_kernels(device):
                     rws, rbs, rcfg, *rin, ct, bf16=True)), 6 * rS,
                  2 * in_bytes + n * 12 + 2 * rwbytes, 227)):
             t_ops, t_bytes = n * flops / BF16_PEAK, nbytes / HBM_RATE
-            src = ("radiance_fwd.cu" if "fwd" in name
+            src = ("radiance_fwd_bf16_wg.cu" if "fwd" in name
                    else "radiance_bwd_bf16_wg.cu")
             results.append({
                 "name": name, "route": "cuda",
@@ -1627,24 +1769,48 @@ def check_bf16_sweep_kernels(device):
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "library_ms": None, "rows": n})
         # what the bf16 mode adds to a step besides its kernels: the
-        # radiance MLP's bf16 pack (K3-fwd-bf16) and, where a backward can
-        # follow, K3-bwd-bf16's two slab packs
+        # radiance MLP's forward slab pack (K3-fwd-bf16, with or without
+        # grad) and, where a backward can follow, K3-bwd-bf16's reverse one
         results[-1].update(
-            pack_bf16_ms=cuda_ms(lambda: TP.make_pack(rws, bf16=True), 10),
             sweep_pack_bf16_ms=cuda_ms(
                 lambda: TP.pack_rad_sweep_bf16(rws, 6 + rcfg.d_view), 10),
             rev_pack_bf16_ms=cuda_ms(
                 lambda: TP.pack_rad_rev_bf16(rws, 6 + rcfg.d_view), 10))
-        print(f"radiance weight packs at full width: bf16 "
-              f"{results[-1]['pack_bf16_ms']:.3f} ms, K3-bwd-bf16's slab "
-              f"packs {results[-1]['sweep_pack_bf16_ms']:.3f} ms (forward) "
+        print(f"radiance weight packs at full width: K3-fwd-bf16's and "
+              f"K3-bwd-bf16's slab packs "
+              f"{results[-1]['sweep_pack_bf16_ms']:.3f} ms (forward) "
               f"+ {results[-1]['rev_pack_bf16_ms']:.3f} ms (reverse) (CUDA "
               f"events around 10 builds each)")
+    # a validation chunk's rows (the mode on there: 1 a chunk)
+    n = VAL_CHUNK * 128
+    rin = [torch.randn(n, 3, device=device, generator=gen) * 0.5,
+           torch.randn(n, 3, device=device, generator=gen),
+           torch.nn.functional.normalize(
+               torch.randn(n, 3, device=device, generator=gen), dim=-1),
+           torch.randn(n, d_feat, device=device, generator=gen) * 0.5]
+    fwd = lambda: [RK.launch_forward(rcfg, rws, rbs, *rin, pack=rpack,
+                                     bf16=True)]
+    with torch.no_grad():
+        tw_f = [RK.radiance_plain(rws, rbs, rcfg, *rin, bf16=True)]
+        ref_f = [RK.radiance_plain(w64, b64, rcfg,
+                                   *(t.double() for t in rin)).float()]
+    got, again = fwd(), fwd()
+    torch.cuda.synchronize()
+    errs["radiance_fwd_bf16"] = max(errs["radiance_fwd_bf16"], check_flips(
+        f"radiance_fwd_bf16 N={n}", got, tw_f, ref_f, ["rgb"]))
+    if not torch.equal(got[0], again[0]):
+        raise AssertionError("radiance_fwd_bf16: two launches differ")
+    del got, again, tw_f, ref_f
+    k3f_shapes.append(k3_fwd_shape(rin, fwd)[0])
+    del rin
     for r in results:
         r["max_abs_err"] = errs[r["name"]]
         if r["name"] == "radiance_bwd_bf16":
             r.update(shapes=k3_shapes, sass=build3["sass"],
                      ptxas=build3["ptxas"], attrs=k3_attrs)
+        if r["name"] == "radiance_fwd_bf16":
+            r.update(shapes=k3f_shapes, sass=build3f["sass"],
+                     ptxas=build3f["ptxas"], attrs=k3f_attrs)
         print(f"  {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} "
               f"ms) at {r['rows']} rows, bf16 bound {r['bound_ms']:.3f} ms "
               f"by {r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% of "
@@ -3178,9 +3344,11 @@ def bf16_run() -> int:
     BF16_VARIANT_STEPS with the stash switch and as many with the split
     backward (their bf16 kernels once a step), then a stage-1 run with
     --gpu 0 --profile DIR, whose trace must name K1's and K3's bf16
-    kernels, and one with --debug_nans.  Its last line is
+    kernels, and one with --debug_nans.  tc_pack.pack_weights_bf16 (the
+    bf16 mma.sync pack) is built in no step of the first run and once a
+    step or more in the stash and split runs.  Its last line is
     {"launches": {"main": ..., "stash": ..., "split": ...},
-    "rays_per_sec": ...}."""
+    "pack_weights_bf16_calls": {...}, "rays_per_sec": ...}."""
     sys.path.insert(0, HERE)
     import torch
     from factored_neus_tpu_torch import exp_runner
@@ -3192,9 +3360,11 @@ def bf16_run() -> int:
                              "core's bf16 mode on, or another switch is on")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    launches = {}
+    count_pack_calls()
+    launches, packs16 = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         _, runner, launches["main"] = train_run(tmp, BF16_STEPS)
+    packs16["main"] = PACK16_CALLS[0]
     check_launched("bf16 run", launches["main"], BF16_SET)
     per_step = {**STAGE1_PER_STEP, "geometry_fwd": 0, "geometry_bwd": 0,
                 "radiance_fwd": 0, "radiance_bwd": 0,
@@ -3210,14 +3380,23 @@ def bf16_run() -> int:
             ("stash", True, True, BF16_STASH_SET),
             ("split", False, False, BF16_SPLIT_SET)):
         GK.STASH_BWD, GK.STACKED_BWD = stash, stacked
+        before = PACK16_CALLS[0]
         with tempfile.TemporaryDirectory() as tmp:
             _, _, launches[label] = train_run(tmp, BF16_VARIANT_STEPS)
+        packs16[label] = PACK16_CALLS[0] - before
         check_launched(f"bf16 {label} run", launches[label], want)
         for k in want - BF16_SHARED:
             if launches[label][k] != BF16_VARIANT_STEPS:
                 raise AssertionError(f"bf16 {label} run: {k} did not launch "
                                      f"once a step")
     GK.STASH_BWD, GK.STACKED_BWD = False, True
+    print(f"tc_pack.pack_weights_bf16 calls: {packs16} ({BF16_STEPS} steps "
+          f"of the bf16 run, {BF16_VARIANT_STEPS} of the stash and split "
+          f"runs)")
+    if packs16["main"] or min(packs16["stash"], packs16["split"]) < \
+            BF16_VARIANT_STEPS:
+        raise AssertionError("the bf16 run built the bf16 mma.sync pack, or "
+                             "a switch-only variant ran without it")
     with tempfile.TemporaryDirectory() as tmp:
         conf = write_conf(tmp, BF16_VARIANT_STEPS)
         base = ["--mode", "train", "--conf", conf, "--case", "sphere",
@@ -3233,8 +3412,8 @@ def bf16_run() -> int:
         print(f"--profile: {traces[0]} names {len(names)} kernels, K1's "
               f"and K3's: {k13}")
         if not all(any(k in n for n in k13) for k in (
-                "geometry_fwd_kernel", "geometry_bwd_wg_sweep",
-                "geometry_bwd_wg_wgrad", "radiance_fwd_bf16_kernel",
+                "geometry_fwd_bf16_sweep", "geometry_bwd_wg_sweep",
+                "geometry_bwd_wg_wgrad", "radiance_fwd_bf16_sweep",
                 "radiance_bwd_wg_sweep", "radiance_bwd_wg_wgrad")):
             raise AssertionError("the --profile trace does not name K1 and "
                                  "K3 in bf16")
@@ -3243,7 +3422,8 @@ def bf16_run() -> int:
         if r.iter_step != BF16_VARIANT_STEPS:
             raise AssertionError("the --debug_nans run stopped early")
         print(f"--debug_nans: {r.iter_step} steps, finite, no stop")
-    print(json.dumps({"launches": launches, "rays_per_sec": rays}))
+    print(json.dumps({"launches": launches, "pack_weights_bf16_calls": packs16,
+                      "rays_per_sec": rays}))
     return 0
 
 
@@ -3387,7 +3567,8 @@ def main() -> int:
                              "3xTF32 pack built by kernel_weights")
     bf16 = subprocess_run(BF16_RUN, {"FNEUS_CORE_ACT_BF16": "1"}, "bf16")
     print(f"bf16 wmask run rays/s over steps 21-{BF16_STEPS}: "
-          f"{bf16['rays_per_sec']:.0f} on {card}")
+          f"{bf16['rays_per_sec']:.0f} on {card}; tc_pack.pack_weights_bf16 "
+          f"calls {bf16['pack_weights_bf16_calls']}")
     sampling = subprocess_run(SAMPLING_RUN, {"FNEUS_PALLAS_SAMPLING": "1"},
                               "use_pallas_sampling")
     print(f"use_pallas_sampling wmask run rays/s over steps "

@@ -67,7 +67,9 @@
 //    two launches are bitwise equal.
 // The slab ring, the image writers, the db reduction, the pass and the
 // reduce are wg_bwd.cuh's, which K3-bwd-bf16 (radiance_bwd_bf16_wg.cu)
-// shares; their arithmetic is the same as before they moved there.
+// shares; softplus and sigma(100 a) on the SFU sweep16.cuh's, which
+// K2-bf16 and K1-fwd-bf16 share; their arithmetic is the same as before
+// they moved there.
 //
 // Bytes at full width, 65,536 points (2,048 tiles): the scratch 524 KB a
 // tile written and read (2.15 GB), the images 590 KB a tile written (X 8
@@ -78,8 +80,7 @@
 // counts it) -- against ~8.6 GB of partial-slice read-modify-writes and
 // ~3.2 GB of scratch in the mma.sync body.  The products need 0.38 ms at
 // the bf16 rate.
-#include "sdf_mlp.cuh"
-#include "wg_bwd.cuh"
+#include "sweep16.cuh"
 
 #define GW_EW 48          // row (floats) of the encoding tiles
 #define GW_PTS 32         // points of a consumer's tile (64 stacked rows)
@@ -102,25 +103,6 @@ struct GwDims {
   long long x_img[GW_MAXL], r_img[GW_MAXL];   // tile 0's image of each
   const float* b[GW_MAXL];
 };
-
-__device__ __forceinline__ float gw_ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float gw_lg2(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// softplus(beta=100) on the SFU, as K2-bf16: its result is rounded to
-// bf16 at once (2^-9 relative), far above the approximations' error
-__device__ __forceinline__ float gw_sp100(float a) {
-  const float e = gw_ex2(fabsf(a) * -144.26950408889634f);
-  return fmaxf(a, 0.f) + gw_lg2(1.f + e) * 0.006931471805599453f;
-}
 
 __device__ __forceinline__ float bf_lo(uint32_t v) {
   return __uint_as_float(v << 16);
@@ -190,15 +172,6 @@ __device__ __forceinline__ void gw_rev_layer(const GwDims& d, int it,
   fence_regs(acc);
 }
 
-// sigma(100 a) on the SFU (ex2.approx, rcp.approx: a few ulp in f32)
-__device__ __forceinline__ float gw_sig100(float a) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;\n"
-      : "=f"(r)
-      : "f"(1.f + gw_ex2(a * -144.26950408889634f)));
-  return r;
-}
-
 // Bias + softplus and sigma(100 a) ad (x 1/sqrt 2 before a skip, SKIP) of
 // a forward layer's stacked result, rounded to bf16: the next layer's A
 // fragments; sigma(100 a) and ad (f32) to the layer's scratch sc.
@@ -216,9 +189,9 @@ __device__ __forceinline__ void gw_activate(const float (&acc)[128],
       const float2 bb = *(const float2*)(bl + 8 * q + 2 * t);
       const float a0 = acc[4 * q] + bb.x, a1 = acc[4 * q + 1] + bb.y;
       const float ad0 = acc[4 * q + 2], ad1 = acc[4 * q + 3];
-      const float s0 = gw_sig100(a0), s1 = gw_sig100(a1);
+      const float s0 = sig100_sfu(a0), s1 = sig100_sfu(a1);
       sc[q * 128] = make_float4(s0, s1, ad0, ad1);
-      a[j][2 * h] = pack_bf16(gw_sp100(a0) * post, gw_sp100(a1) * post);
+      a[j][2 * h] = pack_bf16(sp100_sfu(a0) * post, sp100_sfu(a1) * post);
       a[j][2 * h + 1] = pack_bf16(s0 * ad0 * post, s1 * ad1 * post);
     }
 }

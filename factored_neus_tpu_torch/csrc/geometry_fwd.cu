@@ -1,8 +1,8 @@
 // The mma.sync body of K1-fwd: fused positional encoding -> SDF MLP ->
 // [sdf/scale | feature] and the input gradient dsdf/dx from an in-kernel
-// reverse sweep, which K1-fwd-stash and the bf16 mode's K1-fwd-bf16 and
-// K1-fwd-stash-bf16 run (K1-fwd itself, in f32, runs on wgmma:
-// geometry_fwd_wg.cu).
+// reverse sweep, which K1-fwd-stash and the bf16 mode's K1-fwd-stash-bf16
+// run, only under the stash switch (K1-fwd itself runs on wgmma:
+// geometry_fwd_wg.cu in f32, geometry_fwd_bf16_wg.cu in bf16).
 //
 // Replaces the TPU kernel factored_neus_tpu/ops/pallas_geometry.py
 // (_make_geom.run_fwd, body _build_fwd_kernel).
@@ -32,11 +32,11 @@
 // output for K1-bwd-stash: 4,018 bytes more per row at full width, still
 // far below the operations bound.  The stash never feeds (out, grad).
 //
-// K1-fwd-bf16 and K1-fwd-stash-bf16 (entry points geometry_fwd_bf16,
-// geometry_fwd_stash_bf16) are the same kernels in the bf16 operand mode
-// of pallas_geometry (_mm_fns(bf16=True), the JAX step's default): every
-// product on bf16 operands (rounded to nearest even) with an f32 sum, on
-// bf16 mma (tc_mma.cuh, BF) from pack_weights_bf16's pack; the encoding,
+// K1-fwd-stash-bf16 (entry point geometry_fwd_stash_bf16) is the same
+// kernel in the bf16 operand mode of pallas_geometry (_mm_fns(bf16=True),
+// the JAX step's default): every product on bf16 operands (rounded to
+// nearest even) with an f32 sum, on bf16 mma (tc_mma.cuh, BF) from
+// pack_weights_bf16's pack; the encoding,
 // softplus, skip, biases and the reverse sweep's elementwise steps stay
 // f32, and the sweep's seed e0 / scale meets the last layer's bf16 row 0
 // rounded to bf16 itself, as JAX's dot rounds it.  Bound: operations, one
@@ -224,13 +224,6 @@ static int launch_fwd(const int* ia, const unsigned long long* p, float scale,
 extern "C" int geometry_fwd_stash(const int* ia, const unsigned long long* p,
                                   float scale, unsigned long long stream) {
   return launch_fwd<false>(ia, p, scale, stream, (__nv_bfloat16*)p[4], 5);
-}
-
-// Integer arguments: tc_dims_from_args'.  Pointers: [x, out, grad, scratch,
-// pack, b[L]], the pack pack_weights_bf16's: K1-fwd-bf16.
-extern "C" int geometry_fwd_bf16(const int* ia, const unsigned long long* p,
-                                 float scale, unsigned long long stream) {
-  return launch_fwd<true>(ia, p, scale, stream, nullptr, 4);
 }
 
 // geometry_fwd_stash's arguments, the pack pack_weights_bf16's:

@@ -20,7 +20,8 @@
 //    rows 16 w + g and 16 w + 8 + g (warp w, g = lane / 4).
 //    - Products on wgmma with A in registers: a layer's result, after its
 //      bias, ReLU and rounding to bf16, is the next product's A
-//      (wgmma.cuh).  B streams as slabs by cp.async.bulk on mbarriers
+//      (wgmma.cuh).  The forward's pieces are sweep16.cuh's, which
+//      K3-fwd-bf16 runs too (the same bits).  B streams as slabs by cp.async.bulk on mbarriers
 //      (wg_bwd.cuh's ring): the forward X W from
 //      tc_pack.pack_rad_sweep_bf16, the reverse r W from
 //      pack_rad_rev_bf16.  Fixed depths: layer 0 reads the feature's 256
@@ -68,15 +69,7 @@
 // per-tile partial-slice read-modify-writes and its 40.6 MB scratch
 // written once and read twice.  The slab stream (~1.1 MB a pass of two
 // tiles) comes from L2.
-#include "sdf_mlp.cuh"
-#include "wg_bwd.cuh"
-
-#define RW_TILE 64        // rows of a consumer's tile
-#define RW_EW 52          // row (floats) of a consumer's narrow-column tile
-#define RW_NAR 48         // narrow columns a product covers (3 k-steps)
-#define RW_MAXH 4         // most hidden layers (their masks in registers)
-#define RW_MAXS 48        // most slabs a pass
-#define RW_LAST 8         // widest last layer (m64n8)
+#include "sweep16.cuh"
 
 struct RwDims {
   int L, multires, d_view, nar, d_feat, d_out, n, nc, ns, n_pass, squeeze;
@@ -101,49 +94,6 @@ __device__ __forceinline__ void rw_producer(const RwDims& d,
       gw_put(d.ns, ring, full, empty, it,
              (s < d.n_fwd_slab ? d.fpack : d.rpack) + d.slab_off[s],
              d.slab_bytes[s]);
-}
-
-// 256 columns of r W or X W from ring slab it on: the fragments a's 16
-// k-steps in four slabs
-template <int N>
-__device__ __forceinline__ void rw_layer(int ns, int it, unsigned char* ring,
-                                         uint64_t* full, uint64_t* empty,
-                                         float (&acc)[N / 2],
-                                         const uint32_t (&a)[16][4],
-                                         int lead) {
-  gw_slab<N, 4, 0, true>(ns, it, ring, full, acc, a);
-  gw_slab<N, 4, 4, false>(ns, it + 1, ring, full, acc, a);
-  gw_slab<N, 4, 8, false>(ns, it + 2, ring, full, acc, a);
-  gw_slab<N, 4, 12, false>(ns, it + 3, ring, full, acc, a);
-  gw_release<4>(ns, it, empty, lead);
-  fence_regs(acc);
-}
-
-// a = acc + bias (f32): its ReLU mask m (bit i % 32 of word i / 32: a > 0
-// at accumulator index i) and relu(a) rounded to bf16, the next layer's A
-// fragments
-__device__ __forceinline__ void rw_activate(const float (&acc)[128],
-                                            const float* bl, int t,
-                                            uint32_t (&a)[16][4],
-                                            uint32_t (&m)[4]) {
-#pragma unroll
-  for (int w = 0; w < 4; ++w) m[w] = 0u;
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int q = 2 * j + h;
-      const float2 bb = *(const float2*)(bl + 8 * q + 2 * t);
-      float v[4] = {acc[4 * q] + bb.x, acc[4 * q + 1] + bb.y,
-                    acc[4 * q + 2] + bb.x, acc[4 * q + 3] + bb.y};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        m[q >> 3] |= (v[e] > 0.f ? 1u : 0u) << ((4 * q + e) & 31);
-        v[e] = fmaxf(v[e], 0.f);
-      }
-      a[j][2 * h] = pack_bf16(v[0], v[1]);
-      a[j][2 * h + 1] = pack_bf16(v[2], v[3]);
-    }
 }
 
 // r = r_in where the mask m is set, else 0
@@ -211,49 +161,16 @@ __device__ __forceinline__ void rw_consumer(const RwDims& d, int wg,
     // the narrow columns [pts | PE(dirs) | normals | 0] of each row (every
     // thread is done with the last tile's)
     bar_sync(1 + wg, 128);
-    if (tid < RW_TILE) {
-      const int row = row0 + tid;
-      const bool valid = row < d.n;
-      float* e = E + tid * RW_EW;
-      float u[3];
-      for (int c = 0; c < 3; ++c) {
-        e[c] = valid ? d.pts[(size_t)row * 3 + c] : 0.f;
-        e[3 + d.d_view + c] = valid ? d.nrm[(size_t)row * 3 + c] : 0.f;
-        u[c] = valid ? d.dirs[(size_t)row * 3 + c] : 0.f;
-      }
-      encode_row(u, nullptr, d.multires, e + 3, nullptr);
-      for (int c = d.nar; c < RW_NAR; ++c) e[c] = 0.f;
-    }
+    if (tid < RW_TILE)
+      rw_narrow_row(E, tid, row0, d.n, d.pts, d.nrm, d.dirs, d.d_view,
+                    d.multires, d.nar);
     bar_sync(1 + wg, 128);
 
     // layer 0's A: the feature (k-steps 0 .. 15) rounded to bf16, and the
     // narrow columns (ef)
-    {
-      const float* f0 = d.feat + (size_t)R0 * d.d_feat;
-      const float* f1 = d.feat + (size_t)R1 * d.d_feat;
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int c = 16 * j + 8 * h + 2 * t;
-          const bool in = c < d.d_feat;
-          const float2 x = v0 && in ? __ldg((const float2*)(f0 + c))
-                                    : make_float2(0.f, 0.f);
-          const float2 y = v1 && in ? __ldg((const float2*)(f1 + c))
-                                    : make_float2(0.f, 0.f);
-          a[j][2 * h] = pack_bf16(x.x, x.y);
-          a[j][2 * h + 1] = pack_bf16(y.x, y.y);
-        }
-    }
+    rw_feat_frags(a, d.feat, d.d_feat, R0, R1, v0, v1, t);
     uint32_t ef[3][4];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int c = 16 * j + 2 * t;
-      ef[j][0] = pack_bf16(e0[c], e0[c + 1]);
-      ef[j][1] = pack_bf16(e1[c], e1[c + 1]);
-      ef[j][2] = pack_bf16(e0[c + 8], e0[c + 9]);
-      ef[j][3] = pack_bf16(e1[c + 8], e1[c + 9]);
-    }
+    rw_narrow_frags(ef, e0, e1, t);
     {
       // X_0's image: the feature in blocks 0 - 3, the narrow columns in
       // block 4
@@ -265,13 +182,7 @@ __device__ __forceinline__ void rw_consumer(const RwDims& d, int wg,
     }
 
     // the forward, layers 0 .. L - 2
-    gw_slab<256, 4, 0, true>(ns, it, ring, full, acc, a);
-    gw_slab<256, 4, 4, false>(ns, it + 1, ring, full, acc, a);
-    gw_slab<256, 4, 8, false>(ns, it + 2, ring, full, acc, a);
-    gw_slab<256, 4, 12, false>(ns, it + 3, ring, full, acc, a);
-    gw_slab<256, 3, 0, false>(ns, it + 4, ring, full, acc, ef);
-    gw_release<5>(ns, it, empty, lead);
-    fence_regs(acc);
+    rw_layer0(ns, it, ring, full, empty, acc, a, ef, lead);
     it += 5;
     for (int l = 0; l < lL; ++l) {
       if (l) {
@@ -298,12 +209,7 @@ __device__ __forceinline__ void rw_consumer(const RwDims& d, int wg,
     uint32_t ex[1][4];
     {
       float acc8[4];
-      gw_slab<8, 4, 0, true>(ns, it, ring, full, acc8, a);
-      gw_slab<8, 4, 4, false>(ns, it + 1, ring, full, acc8, a);
-      gw_slab<8, 4, 8, false>(ns, it + 2, ring, full, acc8, a);
-      gw_slab<8, 4, 12, false>(ns, it + 3, ring, full, acc8, a);
-      gw_release<4>(ns, it, empty, lead);
-      fence_regs(acc8);
+      rw_last_layer(ns, it, ring, full, empty, acc8, a, lead);
       it += 4;
       float r[4];
 #pragma unroll
@@ -532,11 +438,7 @@ extern "C" int radiance_bwd_bf16(const int* ia, const unsigned long long* p,
   // one), each hidden layer's four, the last layer's four of 8 columns;
   // reverse the last layer's one, each hidden layer's four, layer 0's four
   // of 256 columns and four of 48
-  for (int l = 0; l < L; ++l) {
-    const int fo = q[2 * L + l];
-    const int n = l ? 4 : 5, bytes = l < lL ? GW_SLAB : RW_LAST * 128;
-    for (int s = 0; s < n; ++s) slab(fo + s * bytes, bytes);
-  }
+  ns = rw_fwd_slabs(L, q + 2 * L, d.slab_off, d.slab_bytes, ns);
   d.n_fwd_slab = ns;
   for (int l = lL; l >= 0; --l) {
     const int ro = q[3 * L + l];

@@ -40,167 +40,23 @@
 //   rounded to bf16 at once (2^-9 relative), far above their error.
 // - Each layer's product sums over its full depth in one f32 accumulator
 //   (tools/tf32_mma_probe.py reads how wgmma adds).
-#include "sdf_mlp.cuh"
-#include "wgmma.cuh"
-
-#define SW_MAXL 16        // most layers
-#define SW_EW 48          // row stride (floats) of the encoding tile
-#define SW_BW 264         // bias row (floats) of a layer
-#define SW_MAX_NS 8       // most ring stages
-#define SW_SMEM_MAX 232448
-
-struct SwDims {
-  int L, multires, d_embed;
-  int n, nc, ns, n_pass, stage_bytes;
-  float scale;
-  const float* x;
-  float* out;
-  const unsigned char* pack;
-  int enc[SW_MAXL];       // layer l reads the encoding (after h)
-  int nslab[SW_MAXL];     // slabs of layer l
-  int copy_bytes[SW_MAXL];   // bytes a slab of layer l copies
-  int slab_stride[SW_MAXL];  // bytes between layer l's slabs in the pack
-  int off[SW_MAXL];          // byte offset of layer l's first slab
-  int outs[SW_MAXL];
-  int skip_next[SW_MAXL];    // layer l + 1 reads [h | enc] / sqrt 2
-  const float* b[SW_MAXL];
-};
-
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float lg2_approx(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// softplus(beta=100) = max(a, 0) + log(1 + exp(-100 |a|)) / 100
-__device__ __forceinline__ float sp100_sfu(float a) {
-  const float e = ex2_approx(fabsf(a) * -144.26950408889634f);
-  return fmaxf(a, 0.f) + lg2_approx(1.f + e) * 0.006931471805599453f;
-}
+// - The forward is sweep16.cuh's (sw_forward), which K1-fwd-bf16 runs too:
+//   the two give the same bits of [sdf / scale | feature].
+#include "sweep16.cuh"
 
 __device__ __forceinline__ void sw_producer(const SwDims& d,
                                             unsigned char* ring,
                                             uint64_t* full, uint64_t* empty) {
   int it = 0;
   for (int p = blockIdx.x; p < d.n_pass; p += gridDim.x)
-    for (int l = 0; l < d.L; ++l)
-      for (int s = 0; s < d.nslab[l]; ++s, ++it) {
-        const int st = it % d.ns;
-        mbar_wait(empty + st, ((it / d.ns) & 1) ^ 1);
-        mbar_expect_tx(full + st, d.copy_bytes[l]);
-        bulk_g2s(ring + st * d.stage_bytes,
-                 d.pack + d.off[l] + (size_t)s * d.slab_stride[l],
-                 d.copy_bytes[l], full + st);
-      }
-}
-
-// One slab's NK k-steps from fragments f[K0 ..], once the slab has landed
-// in ring slab s: MODE 0 multiplies into acc (256 columns), 1 into acc8
-// (8: the narrowed last layer), 2 into both (the full last layer, acc8 at
-// column 256).  FIRST: the layer's first slab, whose first product
-// overwrites the accumulators.  One commit group.  Every index is known
-// at compile time and nothing branches between the products, so the
-// compiler keeps them in flight together.
-template <int MODE, int NK, int K0, bool FIRST, int NA>
-__device__ __forceinline__ void sw_slab(const SwDims& d, int s,
-                                        unsigned char* ring, uint64_t* full,
-                                        float (&acc)[128], float (&acc8)[4],
-                                        const uint32_t (&f)[NA][4]) {
-  const int st = s % d.ns;
-  mbar_wait(full + st, (s / d.ns) & 1);
-  wgmma_fence();
-  const uint64_t desc = desc_sw128(smem_u32(ring + st * d.stage_bytes));
-#pragma unroll
-  for (int k = 0; k < NK; ++k) {
-    const int keep = FIRST && k == 0 ? 0 : 1;
-    if (MODE != 1) wgmma_n256(acc, f[K0 + k], desc + 2 * k, keep);
-    if (MODE != 0)  // the full last layer's 8 at column 256: 32 KB on
-      wgmma_n8(acc8, f[K0 + k], desc + 2 * k + (MODE == 2 ? 2048 : 0),
-               keep);
-  }
-  wgmma_commit();
-}
-
-// Waits for the layer's NS commit groups oldest first, releasing each
-// slab's stage (from ring slab it on) as its products retire: one arrival
-// a warp (lead, lane 0).
-template <int NS, int S = 0>
-__device__ __forceinline__ void sw_release(const SwDims& d, int it,
-                                           uint64_t* empty, int lead) {
-  if constexpr (S < NS) {
-    wgmma_wait<NS - 1 - S>();
-    mbar_arrive_if(empty + (it + S) % d.ns, lead);
-    sw_release<NS, S + 1>(d, it, empty, lead);
-  }
-}
-
-// One layer's products from ring slab it on: with H, h's 16 k-steps from
-// a in four slabs; with ENC (layer 0, a skip layer), the encoding's 3 from
-// ef in one more.  Then the slabs released as their products retire.
-template <int MODE, bool H, bool ENC>
-__device__ __forceinline__ void sw_layer(const SwDims& d, int it,
-                                         unsigned char* ring, uint64_t* full,
-                                         uint64_t* empty, float (&acc)[128],
-                                         float (&acc8)[4],
-                                         const uint32_t (&a)[16][4],
-                                         const uint32_t (&ef)[3][4],
-                                         int lead) {
-  if constexpr (H) {
-    sw_slab<MODE, 4, 0, true>(d, it, ring, full, acc, acc8, a);
-    sw_slab<MODE, 4, 4, false>(d, it + 1, ring, full, acc, acc8, a);
-    sw_slab<MODE, 4, 8, false>(d, it + 2, ring, full, acc, acc8, a);
-    sw_slab<MODE, 4, 12, false>(d, it + 3, ring, full, acc, acc8, a);
-  }
-  if constexpr (ENC)
-    sw_slab<MODE, 3, 0, !H>(d, it + (H ? 4 : 0), ring, full, acc, acc8, ef);
-  sw_release<(H ? 4 : 0) + (ENC ? 1 : 0)>(d, it, empty, lead);
-  fence_regs(acc);
-  fence_regs(acc8);
-}
-
-// Bias + softplus (x 1/sqrt 2 before a skip, SKIP) of a layer's result,
-// rounded to bf16: the next layer's A fragments (wgmma.cuh).
-template <bool SKIP>
-__device__ __forceinline__ void sw_activate(const float (&acc)[128],
-                                            const float* bl, int t,
-                                            uint32_t (&a)[16][4]) {
-  const float inv_sqrt2 = 0.70710678118654752f;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const float* bj = bl + 16 * j + 2 * t;
-    const float2 b0 = *(const float2*)bj, b1 = *(const float2*)(bj + 8);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 bi = i < 2 ? b0 : b1;
-      float v0 = sp100_sfu(acc[8 * j + 2 * i] + bi.x);
-      float v1 = sp100_sfu(acc[8 * j + 2 * i + 1] + bi.y);
-      if (SKIP) {
-        v0 *= inv_sqrt2;
-        v1 *= inv_sqrt2;
-      }
-      a[j][i] = pack_bf16(v0, v1);
-    }
-  }
+    it = sw_put_fwd(d, it, ring, full, empty);
 }
 
 __device__ __forceinline__ void sw_consumer(const SwDims& d, int w,
                                             unsigned char* ring, float* E,
                                             const float* bias, uint64_t* full,
                                             uint64_t* empty) {
-  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = 16 * warp + g;                 // rows r0 and r0 + 8
-  const int lead = lane == 0;
-  const float inv_sqrt2 = 0.70710678118654752f;
-  const float inv_scale = 1.f / d.scale;
-  const int lL = d.L - 1;
-  const bool narrow = d.outs[lL] <= 8;
+  const int tid = threadIdx.x & 127;
   uint32_t a[16][4];
   float acc[128], acc8[4];
   int it = 0;
@@ -209,86 +65,10 @@ __device__ __forceinline__ void sw_consumer(const SwDims& d, int w,
     const int row0 = (p * d.nc + w) * 64;
     // the encoding tile (every thread is done with the last tile's)
     bar_sync(1 + w, 128);
-    if (tid < 64) {
-      const int row = row0 + tid;
-      float u[3];
-      for (int c = 0; c < 3; ++c)
-        u[c] = row < d.n ? d.x[(size_t)row * 3 + c] * d.scale : 0.f;
-      float* e = E + tid * SW_EW;
-      encode_row(u, nullptr, d.multires, e, nullptr);
-      for (int c = d.d_embed; c < 48; ++c) e[c] = 0.f;
-    }
+    if (tid < 64) sw_encode_row(d, E, tid, row0);
     bar_sync(1 + w, 128);
-
-    for (int l = 0; l < d.L; ++l) {
-      // layer 0 and a skip layer also read the encoding (/ sqrt 2 at a
-      // skip), rounded once
-      uint32_t ef[3][4];
-      if (d.enc[l]) {
-        const float sc = l == 0 ? 1.f : inv_sqrt2;
-        const float* e0 = E + r0 * SW_EW + 2 * t;
-        const float* e1 = e0 + 8 * SW_EW;
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          ef[j][0] = pack_bf16(e0[16 * j] * sc, e0[16 * j + 1] * sc);
-          ef[j][1] = pack_bf16(e1[16 * j] * sc, e1[16 * j + 1] * sc);
-          ef[j][2] = pack_bf16(e0[16 * j + 8] * sc, e0[16 * j + 9] * sc);
-          ef[j][3] = pack_bf16(e1[16 * j + 8] * sc, e1[16 * j + 9] * sc);
-        }
-      }
-      if (l == 0)
-        sw_layer<0, false, true>(d, it, ring, full, empty, acc, acc8, a, ef,
-                                 lead);
-      else if (l == lL && narrow)
-        sw_layer<1, true, false>(d, it, ring, full, empty, acc, acc8, a, ef,
-                                 lead);
-      else if (l == lL)
-        sw_layer<2, true, false>(d, it, ring, full, empty, acc, acc8, a, ef,
-                                 lead);
-      else if (d.enc[l])
-        sw_layer<0, true, true>(d, it, ring, full, empty, acc, acc8, a, ef,
-                                lead);
-      else
-        sw_layer<0, true, false>(d, it, ring, full, empty, acc, acc8, a, ef,
-                                 lead);
-      it += d.nslab[l];
-
-      const float* bl = bias + l * SW_BW;
-      if (l < lL) {
-        // the next layer's A fragments
-        if (d.skip_next[l])
-          sw_activate<true>(acc, bl, t, a);
-        else
-          sw_activate<false>(acc, bl, t, a);
-      } else {
-        // [sdf / scale | feature]: column c of rows r0, r0 + 8 (acc8:
-        // columns 0 .. 7 of a narrowed layer, 256 .. 263 of a full one)
-        const int N = d.outs[lL], c8 = narrow ? 0 : 256;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = row0 + r0 + 8 * h;
-          if (row >= d.n) continue;
-          float* o = d.out + (size_t)row * N;
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int c = c8 + 2 * t + e;
-            if (c < N)
-              o[c] = (acc8[2 * h + e] + bl[c]) * (c == 0 ? inv_scale : 1.f);
-          }
-          if (!narrow) {
-#pragma unroll
-            for (int q = 0; q < 32; ++q)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const int c = 8 * q + 2 * t + e;
-                if (c < N)
-                  o[c] = (acc[4 * q + 2 * h + e] + bl[c]) *
-                         (c == 0 ? inv_scale : 1.f);
-              }
-          }
-        }
-      }
-    }
+    it = sw_forward<false>(d, it, row0, ring, E, bias, full, empty, nullptr,
+                           a, acc, acc8);
   }
 }
 

@@ -1,7 +1,6 @@
-// Tensor-core product engine of the mma.sync kernels: the switch-only K1
+// Tensor-core product engine of the mma.sync kernels, the switch-only K1
 // variants (geometry_fwd.cu's stash forward, geometry_bwd.cu's split and
-// stash backwards, each also in bf16) and the bf16 bodies K1-fwd-bf16
-// (geometry_fwd.cu) and K3-fwd-bf16 (radiance_fwd.cu): the products an MLP
+// stash backwards, each also in bf16): the products an MLP
 // kernel runs on a 64-row tile held in shared memory, in f32 accuracy
 // through 3xTF32 on mma.sync (or on bf16 operands), with the weights
 // staged into shared memory by cp.async.
@@ -29,7 +28,7 @@
 // (ops/tc_pack.pack_weights): big and small halves of one buffer, so
 // the kernel splits only activations, as it loads their fragments.  That
 // doubles the weight bytes staged, but they come from L2 (the SDF's 8.7 MB
-// pack and the radiance MLP's 4.5 MB fit in its 50 MB) under the products,
+// pack fits in its 50 MB) under the products,
 // while a split in the kernel would be redone by every warp that reads a
 // weight fragment, for every tile.
 //

@@ -5,7 +5,9 @@
 //                 lands a slab by one bulk copy, a consumer warpgroup runs
 //                 a slab's k-steps on wgmma with A in registers (m64n256,
 //                 m64n48 or m64n8) and releases each stage as its products
-//                 retire; every depth fixed at compile time
+//                 retire; every depth fixed at compile time (the bf16
+//                 forwards' too, sweep16.cuh: K2-bf16, K1-fwd-bf16,
+//                 K3-fwd-bf16, whose stages may be wider)
 //   gw_img, gw_perm, gw_img_chunk, gw_img256   the writers of a layer's bf16
 //                 X_l and R_l tile images (MN-major, 128-byte swizzle,
 //                 wgmma.cuh), from a thread's A fragments
@@ -38,30 +40,31 @@
 
 // -- the sweep's slab ring ---------------------------------------------------
 
-// slab it (bytes from src) into ring stage it % ns once the consumers
-// released it
+// slab it (bytes from src) into ring stage it % ns (stages of stage
+// bytes) once the consumers released it
 __device__ __forceinline__ void gw_put(int ns, unsigned char* ring,
                                        uint64_t* full, uint64_t* empty,
                                        int it, const unsigned char* src,
-                                       int bytes) {
+                                       int bytes, int stage = GW_SLAB) {
   const int st = it % ns;
   mbar_wait(empty + st, ((it / ns) & 1) ^ 1);
   mbar_expect_tx(full + st, bytes);
-  bulk_g2s(ring + st * GW_SLAB, src, bytes, full + st);
+  bulk_g2s(ring + st * stage, src, bytes, full + st);
 }
 
 // One slab's NK k-steps from fragments f[K0 ..] into acc (N columns: 256,
-// 48 or 8), once it has landed in ring slab s; FIRST: the layer's first
-// slab, whose first product overwrites acc.  One commit group, every index
-// known at compile time.
+// 48 or 8), once it has landed in ring slab s (stages of stage bytes);
+// FIRST: the layer's first slab, whose first product overwrites acc.  One
+// commit group, every index known at compile time.
 template <int N, int NK, int K0, bool FIRST, int NA>
 __device__ __forceinline__ void gw_slab(int ns, int s, unsigned char* ring,
                                         uint64_t* full, float (&acc)[N / 2],
-                                        const uint32_t (&f)[NA][4]) {
+                                        const uint32_t (&f)[NA][4],
+                                        int stage = GW_SLAB) {
   const int st = s % ns;
   mbar_wait(full + st, (s / ns) & 1);
   wgmma_fence();
-  const uint64_t desc = desc_sw128(smem_u32(ring + st * GW_SLAB));
+  const uint64_t desc = desc_sw128(smem_u32(ring + st * stage));
 #pragma unroll
   for (int k = 0; k < NK; ++k) {
     const int keep = FIRST && k == 0 ? 0 : 1;

@@ -55,11 +55,12 @@ class KernelWeights(NamedTuple):
     which:
       pack     the SDF network's 3xTF32 mma.sync pack: the switch-only K1
                variants (the stash pair, K1-bwd-split)
-      pack16   the bf16 mma.sync pack: K1-fwd-bf16 and those variants in
-               bf16 (SDF), K3-fwd-bf16 (radiance)
-      sweep16  the forward bf16 slab pack: K2-bf16 and K1-bwd-bf16 (SDF),
-               K3-bwd-bf16 (radiance)
-      rev16    the reverse bf16 slab pack: K1-bwd-bf16, K3-bwd-bf16
+      pack16   the SDF network's bf16 mma.sync pack: those variants in
+               bf16
+      sweep16  the forward bf16 slab pack: K2-bf16, K1-fwd-bf16 and
+               K1-bwd-bf16 (SDF), K3-fwd-bf16 and K3-bwd-bf16 (radiance)
+      rev16    the reverse bf16 slab pack: K1-fwd-bf16 and K1-bwd-bf16,
+               K3-bwd-bf16
       sweep32  the forward f32 slab pack: K2, K1-fwd and K1-bwd (SDF),
                K3-fwd and K3-bwd (radiance)
       rev32    the reverse f32 slab pack: K1-fwd and K1-bwd, K3-bwd"""
@@ -112,27 +113,21 @@ class _WNLayers(nn.Module):
         ls = self.layers()
         return [l.effective_weight() for l in ls], [l.bias for l in ls]
 
-    def kernel_weights(self, bf16: bool = False) -> KernelWeights:
+    def kernel_weights(self) -> KernelWeights:
         """KernelWeights: the effective weights and biases, differentiable
-        in g, v and b, and on a CUDA device with ``bf16`` (the bf16
-        operand mode) tc_pack.pack_weights_bf16's pack (``pack16``), built
-        without grad; the subclasses add the packs their kernels read
-        (SDFNetwork.kernel_weights, RenderingNetwork.kernel_weights).
-        Built once a step, or once a validation image, a stage-2/3 run or
-        a mesh, they serve every launch on these weights."""
+        in g, v and b; the subclasses add, on a CUDA device, the packs
+        their kernels read (SDFNetwork.kernel_weights,
+        RenderingNetwork.kernel_weights).  Built once a step, or once a
+        validation image, a stage-2/3 run or a mesh, they serve every
+        launch on these weights."""
         ws, bs = self.effective_weights()
-        pack16 = None
-        if bf16 and _on_card(ws[0]):
-            with torch.no_grad():
-                pack16 = TP.pack_weights_bf16(ws)
-        return KernelWeights(ws, bs, pack16=pack16)
+        return KernelWeights(ws, bs)
 
 
 def mode_pack(weights: KernelWeights, bf16: bool):
-    """The mma.sync pack of kernel_weights' result that K1's operand mode
-    reads: pack16 (K1-fwd-bf16 and the switch-only variants in bf16), else
-    pack (the switch-only variants; None where it was not built:
-    geometry_kernel.geometry builds its own)."""
+    """The mma.sync pack of kernel_weights' result that K1's switch-only
+    variants read in the operand mode: pack16 (bf16), else pack (None
+    where it was not built: geometry_kernel.geometry builds its own)."""
     return weights.pack16 if bf16 else weights.pack
 
 
@@ -185,9 +180,9 @@ class SDFNetwork(_WNLayers):
     def kernel_weights(self, bf16: bool = False, f32: bool = True,
                        sweep_bf16: bool = False, k1: bool = True
                        ) -> KernelWeights:
-        """_WNLayers.kernel_weights (``bf16``: K1's bf16 mma.sync pack,
-        pack16) and on a CUDA device, without grad, the packs of the
-        kernels that will run on these weights:
+        """_WNLayers.kernel_weights and on a CUDA device, without grad, the
+        packs of the kernels that will run on these weights (``bf16``: K1
+        in the bf16 operand mode):
         - sweep32 (sdf_kernel.make_sweep_pack(bf16=False),
           tc_pack.pack_sweep_f32) wherever K2 runs in f32 (``f32``: the
           ladder outside use_pallas_sampling, the localisation sweep, the
@@ -197,18 +192,20 @@ class SDFNetwork(_WNLayers):
           (``k1`` in the f32 mode, not through the stash pair:
           geometry_kernel.wg_forward()), with or without grad;
         - sweep16 (make_sweep_pack, tc_pack.pack_sweep_bf16) for K2-bf16
-          (``sweep_bf16``) and, with rev16 (tc_pack.pack_rev_bf16), in the
-          bf16 mode where a stacked backward can follow (grad enabled and
-          geometry_kernel.wg_backward()) for K1-bwd-bf16;
-        - pack (tc_pack.pack_weights, 3xTF32 on mma.sync) only where a
-          switch-only K1 variant runs in f32: the stash pair or
-          K1-bwd-split (``k1``, not geometry_kernel.wg_backward()).
+          (``sweep_bf16``) and, with rev16 (tc_pack.pack_rev_bf16;
+          geometry_kernel.make_bwd_slabs), wherever K1-fwd-bf16 runs
+          (``k1`` in the bf16 mode, not through the stash pair), with or
+          without grad: K1-bwd-bf16 reads them too;
+        - pack (tc_pack.pack_weights, 3xTF32 on mma.sync; bf16:
+          tc_pack.pack_weights_bf16, pack16) only where a switch-only K1
+          variant runs: the stash pair or K1-bwd-split (``k1``, not
+          geometry_kernel.wg_backward()).
         ``k1`` False: for the sweeps alone (value_sweep, the grid fill)."""
-        kw = super().kernel_weights(bf16)
+        kw = super().kernel_weights()
         if not _on_card(kw.ws[0]):
             return kw
         ws, cfg = kw.ws, self.cfg
-        wg16 = torch.is_grad_enabled() and GK.wg_backward() and bf16
+        wg16 = bf16 and k1 and GK.wg_forward()
         wg32 = not bf16 and k1 and GK.wg_forward()
         with torch.no_grad():
             if wg32:
@@ -221,8 +218,9 @@ class SDFNetwork(_WNLayers):
                 kw = kw._replace(sweep16=SK.make_sweep_pack(cfg, ws))
             if wg16:
                 kw = kw._replace(rev16=TP.pack_rev_bf16(ws, cfg.d_embed))
-            if not bf16 and k1 and not GK.wg_backward():
-                kw = kw._replace(pack=TP.pack_weights(ws))
+            if k1 and not GK.wg_backward():
+                kw = (kw._replace(pack16=TP.pack_weights_bf16(ws)) if bf16
+                      else kw._replace(pack=TP.pack_weights(ws)))
         return kw
 
     def value_sweep(self, x: torch.Tensor,
@@ -306,20 +304,21 @@ class RenderingNetwork(_WNLayers):
         weights = weights or self.kernel_weights(bf16, f32=not bf16)
         return RK.radiance(weights.ws, weights.bs, self.cfg, points,
                            normals, view_dirs, feature_vectors,
-                           weights.pack16 if bf16 else weights.sweep32,
-                           bf16, slabs=bwd_slabs(weights, bf16))
+                           sweep_pack(weights, bf16), bf16,
+                           slabs=bwd_slabs(weights, bf16))
 
     def kernel_weights(self, bf16: bool = False, f32: bool = True
                        ) -> KernelWeights:
-        """_WNLayers.kernel_weights (``bf16``: K3-fwd-bf16's mma.sync pack,
-        pack16) and, on a CUDA device in mode 'idr', without grad, the slab
-        packs of the radiance kernels: with ``f32`` in the f32 mode K3-fwd's
-        forward pack (radiance_kernel.make_fwd_pack, sweep32), with or
-        without grad; where a backward can follow (grad enabled and, in
-        the f32 mode, a parameter requiring it) the two of the mode's
-        wgmma backward (radiance_kernel.make_bwd_slabs): K3-bwd's (sweep32,
-        rev32) or K3-bwd-bf16's (sweep16, rev16)."""
-        kw = super().kernel_weights(bf16)
+        """_WNLayers.kernel_weights and, on a CUDA device in mode 'idr',
+        without grad, the slab packs of the radiance kernels: the mode's
+        forward pack (radiance_kernel.make_fwd_pack), with or without grad:
+        in the bf16 mode K3-fwd-bf16's (sweep16), with ``f32`` in the f32
+        mode K3-fwd's (sweep32); where a backward can follow (grad enabled
+        and, in the f32 mode, a parameter requiring it) the two of the
+        mode's wgmma backward (radiance_kernel.make_bwd_slabs, whose first
+        is the forward pack): K3-bwd's (sweep32, rev32) or K3-bwd-bf16's
+        (sweep16, rev16)."""
+        kw = super().kernel_weights()
         if self.cfg.mode != "idr" or not _on_card(kw.ws[0]):
             return kw
         grad = torch.is_grad_enabled() and (bf16 or any(
@@ -328,6 +327,9 @@ class RenderingNetwork(_WNLayers):
             if grad and bf16:
                 sweep16, rev16 = RK.make_bwd_slabs(self.cfg, kw.ws, True)
                 kw = kw._replace(sweep16=sweep16, rev16=rev16)
+            elif bf16:
+                kw = kw._replace(
+                    sweep16=RK.make_fwd_pack(self.cfg, kw.ws, bf16=True))
             elif grad and f32:
                 sweep32, rev32 = RK.make_bwd_slabs(self.cfg, kw.ws, False)
                 kw = kw._replace(sweep32=sweep32, rev32=rev32)

@@ -128,19 +128,22 @@ class Stage1Model(nn.Module):
         render core in its bf16 mode (K1's and K3's bf16 packs); with
         ``sweep_bf16`` the ladder's sweeps on K2-bf16 (the SDF network's
         bf16 slab pack, sweep16), else on K2 (its f32 slab pack, sweep32);
-        with ``bf16``, where a backward can follow
-        (fields.SDFNetwork.kernel_weights), also K1-bwd-bf16's two slab
-        packs (geometry_kernel.make_bwd_slabs, the first K2-bf16's too) and
-        K3-bwd-bf16's (radiance_kernel.make_bwd_slabs,
+        with ``bf16``, with or without grad, K1-fwd-bf16's and
+        K1-bwd-bf16's two bf16 slab packs (geometry_kernel.make_bwd_slabs,
+        sweep16 and rev16: K2-bf16 reads the first,
+        fields.SDFNetwork.kernel_weights) and K3-fwd-bf16's
+        (radiance_kernel.make_fwd_pack(bf16=True), sweep16) and, where a
+        backward can follow, K3-bwd-bf16's (radiance_kernel.make_bwd_slabs,
+        whose first is K3-fwd-bf16's,
         fields.RenderingNetwork.kernel_weights); without ``bf16``, K1-fwd's
         and K1-bwd's two f32 slab packs (geometry_kernel.make_bwd_slabs(
         bf16=False), sweep32 and rev32, with or without grad: K1-fwd and K2
         read the first), K3-fwd's (radiance_kernel.make_fwd_pack, sweep32)
         and, where a backward can follow, K3-bwd's
         (radiance_kernel.make_bwd_slabs(bf16=False), whose first is
-        K3-fwd's).  No 3xTF32 mma.sync pack but under the switches of
-        K1's variants.  Built once a step by ``render``, or once a
-        validation image by its caller."""
+        K3-fwd's).  No mma.sync pack (3xTF32 or bf16) but under the
+        switches of K1's variants.  Built once a step by ``render``, or
+        once a validation image by its caller."""
         return (self.sdf.kernel_weights(bf16, f32=not (bf16 and sweep_bf16),
                                         sweep_bf16=sweep_bf16),
                 self.color.kernel_weights(bf16, f32=not bf16))

@@ -1,7 +1,8 @@
 """K1: the fused SDF geometry core and its backward (csrc/geometry_fwd_wg.cu,
-csrc/geometry_bwd_wg.cu; the switch-only and bf16 variants in
-csrc/geometry_fwd.cu, csrc/geometry_bwd.cu and their bf16 sources), with
-their plain PyTorch twins.
+csrc/geometry_bwd_wg.cu; in the bf16 mode csrc/geometry_fwd_bf16_wg.cu,
+csrc/geometry_bwd_bf16_wg.cu; the switch-only variants in
+csrc/geometry_fwd.cu, csrc/geometry_bwd.cu and csrc/geometry_bwd_bf16.cu),
+with their plain PyTorch twins.
 
 Counterpart of factored_neus_tpu/ops/pallas_geometry.py
 (sdf_value_grad_feat_pallas).  ``geometry(ws, bs, x, cfg)`` returns
@@ -53,15 +54,20 @@ primal and tangent rows, the weight gradients and the input cotangents)
 takes both operands rounded to bf16 and sums in f32; everything
 elementwise stays f32.  Each entry point has a bf16 twin kernel
 (K1-fwd-bf16, K1-bwd-bf16, K1-bwd-split-bf16, K1-fwd-stash-bf16,
-K1-bwd-stash-bf16) on bf16 ``mma.sync``, from ``tc_pack.pack_weights_bf16``,
-but K1-bwd-bf16: it runs on Hopper's warpgroup ``wgmma``
-(csrc/geometry_bwd_bf16_wg.cu), a stacked sweep whose weights stream as
-slabs (``make_bwd_slabs``: tc_pack.pack_sweep_bf16's for X W and
-pack_rev_bf16's for r W, built once a step, where a backward can follow,
-by ``fields.SDFNetwork.kernel_weights(bf16=True)``), which writes each
-layer's bf16 X_l and R_l, then a split-K ``wgmma`` pass dW_l = X_l^T R_l
-and a fixed-order reduce (``weight_grad_pass_plain`` is that pass in plain
-PyTorch).  Its plain twins compute the same products explicitly
+K1-bwd-stash-bf16).  K1-fwd-bf16 and K1-bwd-bf16, the default, run on
+Hopper's warpgroup ``wgmma`` from the two bf16 slab packs of
+``make_bwd_slabs`` (tc_pack.pack_sweep_bf16's for X W and pack_rev_bf16's
+for r W), built once a step or a validation image, with or without grad,
+by ``fields.SDFNetwork.kernel_weights(bf16=True)`` wherever K1-fwd-bf16
+runs: K1-fwd-bf16 (csrc/geometry_fwd_bf16_wg.cu) is K2-bf16's forward
+with the full output, sigma(100 a) kept in an f32 scratch, and the reverse
+sweep from e0 / scale (``fwd_wg16_plan`` is its launch); K1-bwd-bf16
+(csrc/geometry_bwd_bf16_wg.cu) a stacked sweep which writes each layer's
+bf16 X_l and R_l, then a split-K ``wgmma`` pass dW_l = X_l^T R_l and a
+fixed-order reduce (``weight_grad_pass_plain`` is that pass in plain
+PyTorch).  The switch-only bf16 variants stay on bf16 ``mma.sync``, from
+``tc_pack.pack_weights_bf16``, which kernel_weights builds only under
+their switches.  The plain twins compute the same products explicitly
 (``geometry_plain(bf16=True)``, ``geometry_bwd_plain(bf16=True)``):
 autograd through a rounding would run the backward's products on
 unrounded cotangents.  On a CPU tensor the autograd Function runs them.
@@ -79,8 +85,9 @@ from . import _cuda
 from . import tc_pack as TP
 from .mlp import softplus_beta
 from .embedder import positional_encoding
-from .sdf_kernel import (TILE, layer_dims, make_sweep_pack, sdf_forward_plain,
-                         skip_layers)
+from .sdf_kernel import (SW_ENC_STRIDE, TILE, WG_ROWS, layer_dims,
+                         make_sweep_pack, sdf_forward_plain, skip_layers,
+                         sweep_iargs, sweep_smem)
 from .tc_pack import (PackLayout, check_layout, layout_iargs, make_pack,
                       mm_bf16, round8)
 from .tc_pack import pack_for as _pack_for
@@ -96,8 +103,8 @@ K1_BWD_STASH = _cuda.CudaKernel("geometry_bwd_stash", "geometry_bwd.cu",
 K1_BWD_SPLIT = _cuda.CudaKernel("geometry_bwd_split", "geometry_bwd.cu",
                                 "geometry_bwd_split")
 # the bf16 operand mode's entry points
-K1_FWD_BF16 = _cuda.CudaKernel("geometry_fwd_bf16", "geometry_fwd.cu",
-                               "geometry_fwd_bf16")
+K1_FWD_BF16 = _cuda.CudaKernel("geometry_fwd_bf16",
+                               "geometry_fwd_bf16_wg.cu", "geometry_fwd_bf16")
 K1_BWD_BF16 = _cuda.CudaKernel("geometry_bwd_bf16",
                                "geometry_bwd_bf16_wg.cu", "geometry_bwd_bf16")
 K1_FWD_STASH_BF16 = _cuda.CudaKernel("geometry_fwd_stash_bf16",
@@ -450,13 +457,9 @@ def _launch_forward(entry, cfg, x, ws, bs, with_stash: bool, pack=None,
 def launch_forward(cfg, x, ws, bs, pack=None, bf16: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1-fwd (bf16: K1-fwd-bf16): (out [N, d_out], grad [N, 3]).
-    ``pack``: K1-fwd's make_bwd_slabs(cfg, ws, bf16=False), the two f32
-    slab packs it reads (it raises without them); K1-fwd-bf16's
-    make_pack(ws, bf16=True), when the caller already has it."""
-    if not bf16:
-        return _launch_forward_wg(cfg, x, ws, bs, pack)
-    out, grad, _ = _launch_forward("fwd", cfg, x, ws, bs, False, pack, bf16)
-    return out, grad
+    ``pack``: make_bwd_slabs(cfg, ws, bf16), the two slab packs the kernel
+    reads (it raises without them)."""
+    return _launch_forward_wg(cfg, x, ws, bs, pack, bf16)
 
 
 def launch_forward_stash(cfg, x, ws, bs, pack=None, bf16: bool = False
@@ -585,16 +588,58 @@ def fwd_wg_plan(cfg, ws, n: int, slabs, sms: int) -> dict:
             "scratch_floats": grid * (L - 1) * 16 * 256 * 4}
 
 
-def _launch_forward_wg(cfg, x, ws, bs, slabs):
-    """K1-fwd on make_bwd_slabs(bf16=False)'s packs."""
-    kernel = K1_FWD
+def fwd_wg16_plan(cfg, ws, n: int, slabs, sms: int) -> dict:
+    """K1-fwd-bf16's launch: its integer arguments (``iargs``,
+    geometry_fwd_bf16_wg.cu: K2-bf16's for the forward pack,
+    sdf_kernel.sweep_iargs, then the reverse pack's layer offsets and slab
+    widths) and the sizes of what the wrapper allocates.  Tiles of
+    sdf_kernel.WG_ROWS points (K2-bf16's), two consumer warpgroups a block
+    when there are
+    more tiles than SMs, else one; one persistent block a pass up to one a
+    SM (``grid``, ``nc``, ``n_pass``: block b takes passes b, b + grid,
+    ..., consumer w of pass p tile nc p + w), each consumer with its f32
+    scratch of sigma(100 a) (``scratch_floats``).  Raises unless ``slabs``
+    holds make_bwd_slabs(bf16=True)'s layouts for ws, the forward pack's
+    last layer at full width."""
+    ins, outs, _ = layer_dims(cfg, ws)
+    (_, flay), (_, rlay) = slabs
+    if getattr(flay, "operand", None) != "wgmma-bf16" or \
+            getattr(rlay, "operand", None) != "wgmma-bf16-rev":
+        raise ValueError("K1-fwd-bf16 multiplies on wgmma: it takes "
+                         "make_bwd_slabs(bf16=True)'s two slab packs")
+    if flay != TP.sweep_layout(ins, outs, skip_layers(cfg, len(ws)),
+                               cfg.d_embed) or \
+            rlay != TP.rev_layout(ins, outs, cfg.d_embed):
+        raise ValueError("K1-fwd-bf16: the slab packs' layouts do not match "
+                         "the network's widths")
+    iargs, grid = sweep_iargs(cfg, ws, n, flay, sms)
+    L, nc, n_pass = len(ws), iargs[4], iargs[6]
+    # shared memory a block (the source's count): K2-bf16's and the
+    # encoding cotangents' tiles, as wide as the encoding's
+    ns, smem = sweep_smem(L, nc, TP.SLAB_ROW * max(flay.cols),
+                          nc * WG_ROWS * SW_ENC_STRIDE * 4)
+    if ns < max(flay.nslab):
+        raise ValueError("K1-fwd-bf16: a layer's slabs do not fit in the "
+                         "ring")
+    return {"iargs": iargs + [*rlay.off, *rlay.cols], "grid": grid,
+            "nc": nc, "n_pass": n_pass, "tiles": -(-n // WG_ROWS),
+            "sweep_smem": smem,
+            "scratch_floats": grid * nc * (L - 1) * 32 * 128 * 4}
+
+
+def _launch_forward_wg(cfg, x, ws, bs, slabs, bf16: bool = False):
+    """K1-fwd-bf16 (``bf16``) or K1-fwd on make_bwd_slabs' packs of the
+    mode; raises without them, before any CUDA call."""
+    kernel = KERNELS["fwd", bf16]
     dev = x.device
     if slabs is None:
-        raise ValueError("K1-fwd reads make_bwd_slabs(bf16=False)'s packs, "
-                         "built by SDFNetwork.kernel_weights: none was given")
-    if getattr(slabs[0][1], "operand", None) != "wgmma-f32":
-        raise ValueError("K1-fwd multiplies on wgmma-f32 slabs: it takes no "
-                         "other pack")
+        raise ValueError(f"{kernel.name} reads make_bwd_slabs(bf16={bf16})'s "
+                         f"packs, built by SDFNetwork.kernel_weights: none "
+                         f"was given")
+    want = "wgmma-bf16" if bf16 else "wgmma-f32"
+    if getattr(slabs[0][1], "operand", None) != want:
+        raise ValueError(f"{kernel.name} multiplies on {want} slabs: it "
+                         f"takes no other pack")
     (fp, _), (rp, _) = slabs
     x = x.detach().contiguous()
     bs = [b.detach().contiguous() for b in bs]
@@ -603,7 +648,8 @@ def _launch_forward_wg(cfg, x, ws, bs, slabs):
     out = torch.empty(n, ws[-1].shape[0], device=dev, dtype=torch.float32)
     grad = torch.empty(n, 3, device=dev, dtype=torch.float32)
     if n > 0:
-        plan = fwd_wg_plan(cfg, ws, n, slabs, _cuda.sm_count(dev))
+        plan = (fwd_wg16_plan if bf16 else fwd_wg_plan)(
+            cfg, ws, n, slabs, _cuda.sm_count(dev))
         scratch = torch.empty(plan["scratch_floats"], device=dev,
                               dtype=torch.float32)
         kernel.launch(plan["iargs"], [x, out, grad, scratch, fp, rp, *bs],
@@ -790,20 +836,18 @@ class GeometryFn(torch.autograd.Function):
     """(x, *ws, *bs) -> (out, grad) through K1-fwd; backward with both
     cotangents through K1-bwd, or K1-bwd-split when not ``stacked``; in
     the bf16 mode through their bf16 kernels.  ``slabs``:
-    make_bwd_slabs(cfg, ws, bf16), the packs of K1-fwd and K1-bwd (f32) or
-    of K1-bwd-bf16 (stacked); ``pack``: make_pack(ws, bf16), the pack of
-    K1-fwd-bf16 and of K1-bwd-split (bf16 or not), built without grad by
-    the caller.  On a CPU tensor (``pack`` None) the bf16 mode runs the
-    explicit twins; the f32 mode does not come here on the CPU
-    (geometry_plain differentiates itself)."""
+    make_bwd_slabs(cfg, ws, bf16), the packs of K1-fwd and K1-bwd (bf16:
+    K1-fwd-bf16 and K1-bwd-bf16); ``pack``: make_pack(ws, bf16), the pack
+    of K1-bwd-split (bf16 or not), built without grad by the caller.  On a
+    CPU tensor the bf16 mode runs the explicit twins; the f32 mode does not
+    come here on the CPU (geometry_plain differentiates itself)."""
 
     @staticmethod
     def forward(ctx, cfg, stacked, bf16, pack, slabs, x, *params):
         L = len(params) // 2
         ws, bs = params[:L], params[L:]
         if x.is_cuda:
-            out, grad = launch_forward(cfg, x, ws, bs,
-                                       pack if bf16 else slabs, bf16)
+            out, grad = launch_forward(cfg, x, ws, bs, slabs, bf16)
         else:
             out, grad = geometry_plain(ws, bs, x, cfg, bf16=bf16)
         ctx.cfg, ctx.stacked, ctx.bf16 = cfg, stacked, bf16
@@ -876,17 +920,16 @@ def geometry(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
     through K1-fwd with the backward through K1-bwd when ``stacked``
     (default STACKED_BWD) and K1-bwd-split when not; ``bf16``: in the bf16
     operand mode, each through its bf16 kernel.  ``slabs``:
-    make_bwd_slabs(cfg, ws, bf16), which K1-fwd and K1-bwd read (on a
-    CUDA tensor the f32 mode raises without them, and the bf16 mode where
-    a backward through K1-bwd-bf16 can follow, i.e. with grad enabled and
-    x or a weight requiring it).  ``pack``: make_pack(ws, bf16), which the
-    stash pair, K1-bwd-split and the bf16 mode's K1-fwd-bf16 read, when
-    the caller already has it (on a CUDA tensor; built here if not)."""
+    make_bwd_slabs(cfg, ws, bf16), which K1-fwd and K1-bwd read (bf16:
+    K1-fwd-bf16 and K1-bwd-bf16; on a CUDA tensor it raises without them
+    unless the stash pair runs).  ``pack``: make_pack(ws, bf16), which
+    the stash pair and K1-bwd-split read, when the caller already has it
+    (on a CUDA tensor; built here if not)."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"geometry: unsupported device {x.device}")
     stash = STASH_BWD if stash is None else stash
     stacked = STACKED_BWD if stacked is None else bool(stacked)
-    wgf = x.is_cuda and not bf16 and not stash     # through K1-fwd
+    wgf = x.is_cuda and not stash     # through K1-fwd or K1-fwd-bf16
     if x.is_cuda and pack is None and not (wgf and stacked):
         with torch.no_grad():
             pack = make_pack(ws, bf16)
@@ -894,13 +937,8 @@ def geometry(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
         return GeometryStashFn.apply(cfg, bf16, pack, x, *ws, *bs)
     if x.is_cuda or bf16:
         if wgf and slabs is None:
-            raise ValueError("geometry: K1-fwd reads make_bwd_slabs' packs "
-                             "(slabs=)")
-        if (x.is_cuda and bf16 and stacked and slabs is None
-                and torch.is_grad_enabled()
-                and any(t.requires_grad for t in (x, *ws, *bs))):
-            raise ValueError("geometry: the stacked backward reads "
-                             "make_bwd_slabs' packs (slabs=)")
+            raise ValueError(f"geometry: {KERNELS['fwd', bf16].name} reads "
+                             f"make_bwd_slabs' packs (slabs=)")
         return GeometryFn.apply(cfg, stacked, bf16, pack, slabs, x, *ws,
                                 *bs)
     return geometry_plain(ws, bs, x, cfg)

@@ -1,5 +1,6 @@
 """K3: the fused IDR radiance MLP and its backward (csrc/radiance_fwd_wg.cu,
-csrc/radiance_bwd_wg.cu), with their plain PyTorch twin.
+csrc/radiance_bwd_wg.cu; in the bf16 mode csrc/radiance_fwd_bf16_wg.cu,
+csrc/radiance_bwd_bf16_wg.cu), with their plain PyTorch twin.
 
 Counterpart of factored_neus_tpu/ops/pallas_radiance.py
 (rendering_apply_pallas).  ``radiance(ws, bs, cfg, pts, normals, dirs,
@@ -36,15 +37,18 @@ MLP's activations there) is rendering_apply_pallas(bf16=True)'s
 ``_mm_fns(True)``: every product of the forward, of the backward's
 recompute, of its weight gradients and of its input cotangents takes
 bf16-rounded operands and sums in f32; everything elementwise stays f32.
-K3-fwd-bf16 runs it on bf16 ``mma.sync`` (csrc/radiance_fwd.cu) from
-tc_pack.pack_weights_bf16's pack; K3-bwd-bf16 on Hopper's warpgroup ``wgmma``
-(csrc/radiance_bwd_bf16_wg.cu): a sweep whose weights stream as slabs
-(``make_bwd_slabs``: tc_pack.pack_rad_sweep_bf16's for X W and
-pack_rad_rev_bf16's for r W, built once a step where a backward can
-follow, by ``fields.RenderingNetwork.kernel_weights(bf16=True)``), which
-keeps the ReLU masks in registers and writes each layer's bf16 X_l and
-R_l, then the split-K ``wgmma`` pass dW_l = X_l^T R_l that K1-bwd-bf16
-shares (csrc/wg_bwd.cuh).  Their twins compute the same products
+Both kernels run it on Hopper's warpgroup ``wgmma``, their weights streamed
+as bf16 slabs: K3-fwd-bf16 (csrc/radiance_fwd_bf16_wg.cu) the forward pack
+``make_fwd_pack(cfg, ws, bf16=True)`` (tc_pack.pack_rad_sweep_bf16's, X W,
+built once a step or a validation image, with or without grad, by
+``fields.RenderingNetwork.kernel_weights(bf16=True)``, ``sweep16``), the
+forward half of K3-bwd-bf16's sweep in its order (``fwd_wg16_plan`` is
+its launch); K3-bwd-bf16 (csrc/radiance_bwd_bf16_wg.cu) both packs of
+``make_bwd_slabs`` (the forward pack and pack_rad_rev_bf16's for r W,
+``rev16``, built where a backward can follow): a sweep which keeps the
+ReLU masks in registers and writes each layer's bf16 X_l and R_l, then
+the split-K ``wgmma`` pass dW_l = X_l^T R_l that K1-bwd-bf16 shares
+(csrc/wg_bwd.cuh).  Their twins compute the same products
 explicitly (``radiance_plain(bf16=True)``, ``radiance_bwd_plain(
 bf16=True)``; ``weight_grad_pass_plain``, the pass's split-K sums):
 autograd through a rounding would run the backward's products on
@@ -53,7 +57,6 @@ unrounded cotangents.  On a CPU tensor the autograd Function runs them.
 from __future__ import annotations
 
 import functools
-import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -66,15 +69,14 @@ from .embedder import positional_encoding, positional_encoding_vjp
 # K3-bwd's pass runs on K1's f32 engine (csrc/wgf.cuh): a rounded add
 # every 32-row stage
 from .geometry_kernel import WGF_PASS_STAGE
-from .sdf_kernel import MAX_WIDTH, TILE
 
 K3_FWD = _cuda.CudaKernel("radiance_fwd", "radiance_fwd_wg.cu",
                           "radiance_fwd")
 K3_BWD = _cuda.CudaKernel("radiance_bwd", "radiance_bwd_wg.cu",
                           "radiance_bwd")
 # the bf16 operand mode's entry points
-K3_FWD_BF16 = _cuda.CudaKernel("radiance_fwd_bf16", "radiance_fwd.cu",
-                               "radiance_fwd_bf16")
+K3_FWD_BF16 = _cuda.CudaKernel("radiance_fwd_bf16",
+                               "radiance_fwd_bf16_wg.cu", "radiance_fwd_bf16")
 K3_BWD_BF16 = _cuda.CudaKernel("radiance_bwd_bf16",
                                "radiance_bwd_bf16_wg.cu", "radiance_bwd_bf16")
 # the kernel of each (entry, operand mode)
@@ -223,49 +225,6 @@ def sweep_mm_f32(a: torch.Tensor, b: torch.Tensor,
     return GK.sweep_mm_f32(a, b)
 
 
-MAX_HIDDEN = 256    # widest hidden layer K3-fwd-bf16 takes (radiance_mlp.cuh)
-
-
-def kernel_iargs(cfg, ws, n: int, grid: int, lay: TP.PackLayout
-                 ) -> Tuple[List[int], int]:
-    """K3-fwd-bf16's integer arguments [L, multires, d_view, ld,
-    squeeze_out, n, grid, ins[L], outs[L], then the pack's layout] and the
-    row stride ld, the widest layer rounded up to 8, plus 4 (a bf16
-    product's last k16 step of the 296-deep first layer is a half step,
-    which reads no column past 296); raises for a pack of another operand
-    type, or a network the kernel cannot hold."""
-    ins = [int(w.shape[1]) for w in ws]
-    outs = [int(w.shape[0]) for w in ws]
-    d_view = cfg.d_view
-    if lay.operand != "bf16":
-        raise ValueError(f"K3-fwd-bf16 multiplies on bf16 operands: it "
-                         f"takes no {lay.operand} pack")
-    if cfg.d_in != 9 or ins[0] != 6 + d_view + cfg.d_feature or len(ws) < 2:
-        raise ValueError("radiance kernels take [pts | PE(dirs) | normals | "
-                         "feature] and at least one hidden layer")
-    for l in range(1, len(ws)):
-        if ins[l] != outs[l - 1]:
-            raise ValueError(f"layer {l}: input {ins[l]} != {outs[l - 1]}")
-    if lay != TP.pack_layout(ins, outs, lay.operand):
-        raise ValueError("radiance kernels: the pack's layout is not the "
-                         "network's")
-    if max(ins[1:]) > MAX_HIDDEN or outs[-1] > MAX_WIDTH:
-        raise ValueError(f"radiance kernels take hidden widths <= "
-                         f"{MAX_HIDDEN} and outputs <= {MAX_WIDTH}")
-    ld = TP.round8(max(ins + outs)) + 4
-    if smem_bytes(lay, outs, ld) > TP.SMEM_MAX:
-        raise ValueError("radiance kernels: the network's tiles and weight "
-                         "ring do not fit in shared memory")
-    return [len(ws), cfg.multires_view, d_view, ld, int(cfg.squeeze_out), n,
-            grid, *ins, *outs, *TP.layout_iargs(lay)], ld
-
-
-def smem_bytes(lay: TP.PackLayout, outs, ld: int) -> int:
-    """Shared memory of K3-fwd-bf16: two tiles of stride ld and the weight
-    ring (no tile of its own for x0)."""
-    return TP.smem_bytes(lay, outs, 2 * TILE * ld)
-
-
 def _inputs(name, pts, normals, dirs, feat):
     t = [v.detach().contiguous() for v in (pts, normals, dirs, feat)]
     n = t[0].shape[0]
@@ -277,10 +236,13 @@ def _inputs(name, pts, normals, dirs, feat):
     return t
 
 
-def make_fwd_pack(cfg, ws: Sequence[torch.Tensor]
+def make_fwd_pack(cfg, ws: Sequence[torch.Tensor], bf16: bool = False
                   ) -> Tuple[torch.Tensor, TP.SweepLayout]:
     """K3-fwd's slab pack of ws: tc_pack.pack_rad_sweep_f32's, the first of
-    make_bwd_slabs(cfg, ws, bf16=False)."""
+    make_bwd_slabs(cfg, ws, bf16=False); with ``bf16`` K3-fwd-bf16's,
+    tc_pack.pack_rad_sweep_bf16's, the first of make_bwd_slabs(cfg, ws)."""
+    if bf16:
+        return TP.pack_rad_sweep_bf16(ws, _narrow(cfg))
     return TP.pack_rad_sweep_f32(ws, _narrow(cfg))
 
 
@@ -313,37 +275,66 @@ def fwd_wg_plan(cfg, ws, n: int, lay, sms: int) -> dict:
             "grid": grid, "tiles": tiles, "sweep_smem": WGF_FWD_SMEM}
 
 
+def fwd_wg16_plan(cfg, ws, n: int, lay, sms: int) -> dict:
+    """K3-fwd-bf16's launch: its integer arguments (``iargs``,
+    csrc/radiance_fwd_bf16_wg.cu) and its shared memory a block (the
+    source's count).  Tiles of WG_TILE rows, two consumer warpgroups a
+    block when there are more tiles than SMs, else one; one persistent
+    block a pass up to one a SM (``grid``, ``nc``, ``n_pass``: block b
+    takes passes b, b + grid, ..., consumer w of pass p tile nc p + w).
+    Raises unless ``lay`` is make_fwd_pack(cfg, ws, bf16=True)'s layout
+    (tc_pack.rad_sweep_layout)."""
+    ins = [int(w.shape[1]) for w in ws]
+    outs = [int(w.shape[0]) for w in ws]
+    if cfg.mode != "idr" or cfg.d_in != 9 or \
+            ins[0] != _narrow(cfg) + cfg.d_feature:
+        raise ValueError("K3-fwd-bf16 takes [pts | PE(dirs) | normals | "
+                         "feature]")
+    if getattr(lay, "operand", None) != "wgmma-bf16-rad":
+        raise ValueError("K3-fwd-bf16 multiplies on wgmma: it takes the bf16 "
+                         "slab pack (make_fwd_pack(cfg, ws, bf16=True))")
+    if lay != TP.rad_sweep_layout(ins, outs, _narrow(cfg)):
+        raise ValueError("K3-fwd-bf16: the slab pack's layout does not match "
+                         "the network's widths")
+    L = len(ws)
+    tiles = -(-n // WG_TILE)
+    nc = 2 if tiles > sms else 1
+    n_pass = -(-tiles // nc)
+    grid = min(n_pass, sms)
+    return {"iargs": [L, cfg.multires_view, cfg.d_view, n, nc, grid, n_pass,
+                      int(cfg.squeeze_out), *ins, *outs, *lay.off],
+            "grid": grid, "nc": nc, "n_pass": n_pass, "tiles": tiles,
+            "sweep_smem": _sweep16_smem(nc, L)}
+
+
 def launch_forward(cfg, ws, bs, pts, normals, dirs, feat, pack=None,
                    bf16: bool = False) -> torch.Tensor:
-    """K3-fwd (bf16: K3-fwd-bf16): rgb [N, d_out].  ``pack``: K3-fwd's
-    make_fwd_pack(cfg, ws), K3-fwd-bf16's tc_pack.make_pack(ws, True); it
-    raises without one."""
+    """K3-fwd (bf16: K3-fwd-bf16): rgb [N, d_out].  ``pack``:
+    make_fwd_pack(cfg, ws, bf16), the slab pack the kernel reads; it raises
+    without one, before any CUDA call."""
     kernel = KERNELS["fwd", bf16]
     dev = pts.device
     if pack is None:
-        what = "make_pack(ws, True)" if bf16 else "make_fwd_pack"
-        raise ValueError(f"{kernel.name} reads {what}'s pack, built by "
+        raise ValueError(f"{kernel.name} reads make_fwd_pack(cfg, ws, "
+                         f"bf16={bf16})'s pack, built by "
                          f"RenderingNetwork.kernel_weights: none was given")
+    pack, lay = pack
+    want = "wgmma-bf16-rad" if bf16 else "wgmma-f32-rad"
+    if getattr(lay, "operand", None) != want:
+        raise ValueError(f"{kernel.name} multiplies on {want} slabs: it "
+                         f"takes no other pack")
     pts, normals, dirs, feat = _inputs(kernel.name, pts, normals, dirs,
                                        feat)
     bs = [b.detach().contiguous() for b in bs]
-    if bf16:
-        pack, lay = TP.pack_for(kernel, ws, pack, bf16)
-    else:
-        pack, lay = pack
     _cuda.check_cuda_tensors(kernel.name,
                              [pts, normals, dirs, feat, pack, *bs])
     n = pts.shape[0]
     out = torch.empty(n, ws[-1].shape[0], device=dev, dtype=torch.float32)
     if n > 0:
-        sms = _cuda.sm_count(dev)
-        if bf16:
-            iargs, _ = kernel_iargs(cfg, ws, n, min(math.ceil(n / TILE), sms),
-                                    lay)
-        else:
-            iargs = fwd_wg_plan(cfg, ws, n, lay, sms)["iargs"]
-        kernel.launch(iargs, [pts, normals, dirs, feat, out, pack, *bs], 1.0,
-                      dev)
+        plan = (fwd_wg16_plan if bf16 else fwd_wg_plan)(
+            cfg, ws, n, lay, _cuda.sm_count(dev))
+        kernel.launch(plan["iargs"], [pts, normals, dirs, feat, out, pack,
+                                      *bs], 1.0, dev)
     return out
 
 
@@ -383,6 +374,15 @@ WG_DB_ROW = 264
 WG_NARROW_ROW = 52
 WGF_SLOT_COLS = 136
 WGF_SWEEP_SMEM = 1024 + 2 * 65536 + 64 * 320 * 4 + 64 * 48 * 4 + 32
+
+
+def _sweep16_smem(nc: int, n_layers: int) -> int:
+    """Shared memory a block of K3-fwd-bf16's or K3-bwd-bf16's sweep (the
+    sources' count): alignment slack, nc narrow tiles, the biases, and as
+    many 32 KB slab stages (with their two mbarriers) as fit, at most 8."""
+    fixed = 1024 + nc * WG_TILE * WG_NARROW_ROW * 4 + n_layers * WG_DB_ROW * 4
+    stage = 32768 + 16
+    return fixed + min(8, (TP.SMEM_MAX - fixed) // stage) * stage
 
 
 def _narrow(cfg) -> int:
@@ -494,17 +494,15 @@ def bwd_wg_plan(cfg, ws, n: int, slabs, sms: int,
     iargs = [L, cfg.multires_view, cfg.d_view, n, nc, grid, n_pass, chunks,
              per, int(cfg.squeeze_out), int(masks), *ins, *outs, *flay.off,
              *rlay.off]
-    # shared memory a block (the source's count): the sweep's narrow
-    # tiles, biases and slab ring; the pass's ring of R and X images
-    fixed = 1024 + nc * WG_TILE * WG_NARROW_ROW * 4 + L * WG_DB_ROW * 4
-    ns = min(8, (TP.SMEM_MAX - fixed) // (32768 + 16))
+    # shared memory a block (the source's count): the pass's ring of R and
+    # X images
     rblocks = [4] * (L - 1) + [1]
     stage = -(-max((r + min(2, b)) * WG_BLOCK for r, b in zip(rblocks, nmb))
               // 1024) * 1024
     wns = min(8, (TP.SMEM_MAX - 1024) // (stage + 16))
     return {"iargs": iargs, "grid": grid, "nc": nc, "n_pass": n_pass,
             "units": units, "chunks": chunks, "per": per,
-            "sweep_smem": fixed + ns * (32768 + 16),
+            "sweep_smem": _sweep16_smem(nc, L),
             "wgrad_smem": 1024 + wns * (stage + 16),
             "tiles": tiles, "image_bytes": img,
             "db_floats": grid * nc * 4 * L * WG_DB_ROW,
@@ -599,8 +597,8 @@ def _launch_backward_wg(cfg, ws, bs, pts, normals, dirs, feat, ct_rgb,
 
 class RadianceFn(torch.autograd.Function):
     """(pts, normals, dirs, feat, *ws, *bs) -> rgb through K3-fwd (on
-    ``pack``, make_fwd_pack(cfg, ws), or in bf16 tc_pack.make_pack(ws,
-    True), built without grad by the caller); backward through K3-bwd on
+    ``pack``, make_fwd_pack(cfg, ws, bf16), built without grad by the
+    caller); backward through K3-bwd on
     ``slabs`` (make_bwd_slabs(cfg, ws, bf16), saved here for the
     backward); ``bf16``: through K3-fwd-bf16 and K3-bwd-bf16.  On a CPU
     tensor (``pack`` None) the bf16 mode runs the explicit twins; the f32
@@ -647,8 +645,8 @@ def radiance(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor], cfg,
     """rgb [N, d_out], differentiable in every input, ws and bs: K3 on a
     CUDA tensor, the plain twin on a CPU tensor; ``bf16``: in the bf16
     operand mode, through K3-fwd-bf16 and K3-bwd-bf16 or their twins.
-    ``pack``: the pack K3-fwd reads, make_fwd_pack(cfg, ws) (bf16:
-    tc_pack.make_pack(ws, True)); on a CUDA tensor it raises without it.
+    ``pack``: the pack K3-fwd reads, make_fwd_pack(cfg, ws, bf16); on a
+    CUDA tensor it raises without it.
     ``slabs``: make_bwd_slabs(cfg, ws, bf16), which a backward through
     K3-bwd or K3-bwd-bf16 reads (on a CUDA tensor, where a backward can
     follow, i.e. with grad enabled and an input or a weight requiring it,

@@ -160,13 +160,16 @@ def sweep_iargs(cfg, ws, n: int, lay, sms: int) -> Tuple[List[int], int]:
             *stride, *lay.off, *outs], grid
 
 
-def sweep_smem(n_layers: int, nc: int, widest_copy: int) -> Tuple[int, int]:
+def sweep_smem(n_layers: int, nc: int, widest_copy: int,
+               extra: int = 0) -> Tuple[int, int]:
     """(stages, bytes) of K2-bf16's shared memory (the mirror of
     sdf_fwd_bf16's launcher): alignment slack, nc encoding tiles, the
-    biases, and as many ring stages of the widest slab copy (rounded to
-    1024 bytes, with its two mbarriers) as fit, at most SW_MAX_STAGES."""
+    biases, ``extra`` bytes (K1-fwd-bf16's encoding cotangents), and as
+    many ring stages of the widest slab copy (rounded to 1024 bytes, with
+    its two mbarriers) as fit, at most SW_MAX_STAGES."""
     stage = -(-widest_copy // 1024) * 1024
-    fixed = 1024 + nc * WG_ROWS * SW_ENC_STRIDE * 4 + n_layers * 264 * 4
+    fixed = 1024 + nc * WG_ROWS * SW_ENC_STRIDE * 4 + n_layers * 264 * 4 + \
+        extra
     ns = min(SW_MAX_STAGES, (TP.SMEM_MAX - fixed) // (stage + 16))
     return ns, fixed + ns * (stage + 16)
 

@@ -77,14 +77,16 @@ def _closer(port, j16, j32, atol, name):
 
 def test_bf16_packs_serve_k2_narrowed_and_k3():
     """pack_weights_bf16 holds the radiance MLP's five layers (the 289-wide
-    first input padded to 304 rows, two to a word); K3 in bf16 takes the
-    bf16 pack and refuses the 3xTF32 one; K2-bf16 takes the full network's
-    slab pack (tc_pack.sweep_layout) for its narrowed last layer and
-    refuses the bf16 and 3xTF32 packs (and K2 the bf16 packs); the kernels'
-    shared memory at full width (K2-bf16's ring six slabs of 32 KB,
-    231,808 B, five of 33 KB for the full output; K3-fwd-bf16 220,176 B:
-    the bf16 ring is sized by a weight-gradient chunk, so it does not
-    grow; K3-fwd on wgmma 226,336 B) and their counters."""
+    first input padded to 304 rows, two to a word); K3-fwd-bf16 takes the
+    bf16 slab pack (make_fwd_pack(bf16=True), K3-bwd-bf16's forward pack)
+    and refuses the bf16 mma.sync pack and the f32 slab pack; K2-bf16
+    takes the full network's slab pack (tc_pack.sweep_layout) for its
+    narrowed last layer and refuses the bf16 and 3xTF32 packs (and K2 the
+    bf16 packs); the kernels' shared memory at full width (K2-bf16's ring
+    six slabs of 32 KB, 231,808 B, five of 33 KB for the full output;
+    K3-fwd-bf16 on wgmma six slabs of 32 KB, 216,320 B with one consumer
+    and 229,632 B with two; K3-fwd on wgmma 226,336 B) and their
+    counters."""
     rcfg = TF.RenderingConfig()
     rng = np.random.RandomState(0)
     rws = [t(rng.randn(o, i).astype(np.float32))
@@ -100,17 +102,19 @@ def test_bf16_packs_serve_k2_narrowed_and_k3():
         assert torch.equal(unpack_bf16_block(
             pack, lay.rev_off[l], lay.rev_stride[l], o, i), TP.bf16_round(w))
     assert lay.rev_off[0] - lay.fwd_off[0] == TP.round16(289) // 2 * 264
-    ins, outs = [w.shape[1] for w in rws], [w.shape[0] for w in rws]
-    RK.kernel_iargs(rcfg, rws, 64, 1, lay)
-    with pytest.raises(ValueError, match="bf16 operands"):
-        RK.kernel_iargs(rcfg, rws, 64, 1, TP.pack_layout(ins, outs))
-    with pytest.raises(ValueError, match="bf16 operands"):
-        TP.pack_for(RK.K3_FWD_BF16, rws, (pack, TP.pack_layout(ins, outs)),
-                     True)
-    with pytest.raises(ValueError, match="3xtf32 operands"):
-        TP.pack_for(RK.K3_BWD, rws, (pack, lay), False)
-    ld = TP.round8(289) + 4
-    assert RK.smem_bytes(lay, outs, ld) == 220176
+    slab16 = RK.make_fwd_pack(rcfg, rws, bf16=True)
+    assert torch.equal(slab16[0], RK.make_bwd_slabs(rcfg, rws)[0][0])
+    for n, sms, nc in ((64, 132, 1), (65536, 132, 2)):
+        plan = RK.fwd_wg16_plan(rcfg, rws, n, slab16[1], sms)
+        assert plan["nc"] == nc
+        assert plan["sweep_smem"] == (216320 if nc == 1 else 229632)
+        assert plan["sweep_smem"] <= TP.SMEM_MAX
+    with pytest.raises(ValueError, match="takes the bf16 slab pack"):
+        RK.fwd_wg16_plan(rcfg, rws, 64, lay, 132)
+    with pytest.raises(ValueError, match="takes the bf16 slab pack"):
+        RK.fwd_wg16_plan(rcfg, rws, 64, RK.make_fwd_pack(rcfg, rws)[1], 132)
+    with pytest.raises(ValueError, match="takes the f32 slab"):
+        RK.fwd_wg_plan(rcfg, rws, 64, slab16[1], 132)
     assert RK.WGF_FWD_SMEM == 226336 <= TP.SMEM_MAX
 
     cfg = TF.SDFConfig()

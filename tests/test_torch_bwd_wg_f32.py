@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+from util_threads import one_thread  # noqa: F401 (autouse)
+
 from factored_neus_tpu.models import fields as JF
 from factored_neus_tpu.ops import pallas_geometry as PG
 from factored_neus_tpu_torch.models import fields as TF

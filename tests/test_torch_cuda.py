@@ -607,8 +607,8 @@ def _bf16_runs(cfg, ws, bs, x, ct_out, ct_g, pack):
     tw_b = flat(GK.geometry_bwd_plain(ws, bs, x, ct_out, ct_g, cfg,
                                       bf16=True))
     return {
-        "fwd": (lambda: list(GK.launch_forward(cfg, x, ws, bs, pack,
-                                               bf16=True)), tw_f),
+        "fwd": (lambda: list(GK.launch_forward(
+            cfg, x, ws, bs, GK.make_bwd_slabs(cfg, ws), bf16=True)), tw_f),
         "fwd_stash": (lambda: list(GK.launch_forward_stash(
             cfg, x, ws, bs, pack, bf16=True)[:2]), tw_f),
         "bwd": (lambda: flat(GK.launch_backward(
@@ -695,6 +695,74 @@ def test_k1_bwd_bf16_wgmma_matches_twin(cuda_device, n):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [65536, 9001])
+def test_k1_fwd_bf16_wgmma_matches_twin(cuda_device, n):
+    """K1-fwd-bf16 (csrc/geometry_fwd_bf16_wg.cu, on wgmma) at full width,
+    the step's 65,536 points and a ragged 9,001, against its twin and the
+    f64 unrounded function (chip_smoke.check_flips), two launches bitwise
+    equal, its out K2-bf16's full output on the same slab pack bit for
+    bit; another mode's packs are refused, and so is a launch without the
+    slab packs."""
+    cfg = SDFConfig()
+    net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(cuda_device)
+    with torch.no_grad():
+        ws, bs = net.effective_weights()
+    ws, bs = list(ws), list(bs)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn(n, 3, device=cuda_device, generator=gen) * 0.5
+    slabs = GK.make_bwd_slabs(cfg, ws)
+    got = list(GK.launch_forward(cfg, x, ws, bs, slabs, bf16=True))
+    again = list(GK.launch_forward(cfg, x, ws, bs, slabs, bf16=True))
+    twin = list(GK.geometry_plain(ws, bs, x, cfg, bf16=True))
+    ref = [t.float() for t in GK.geometry_plain(
+        [w.double() for w in ws], [b.double() for b in bs], x.double(),
+        cfg)]
+    chip_smoke.check_flips(f"K1-fwd-bf16 N={n}", got, twin, ref,
+                           ["out", "grad"])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got[0], SK.sdf_forward(ws, bs, cfg, x, slabs[0],
+                                              bf16=True))
+    with pytest.raises(ValueError, match="wgmma-bf16 slabs"):
+        GK.launch_forward(cfg, x, ws, bs, GK.make_bwd_slabs(cfg, ws, False),
+                          bf16=True)
+    with pytest.raises(ValueError, match="none was given"):
+        GK.launch_forward(cfg, x, ws, bs, None, bf16=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [65536, 9001])
+def test_k3_fwd_bf16_wgmma_matches_twin(cuda_device, n):
+    """K3-fwd-bf16 (csrc/radiance_fwd_bf16_wg.cu, on wgmma) at full width
+    against its twin and the f64 unrounded function
+    (chip_smoke.check_flips), two launches bitwise equal, on K3-bwd-bf16's
+    forward pack; K3-fwd's f32 pack is refused."""
+    rcfg = RenderingConfig()
+    net = RenderingNetwork(rcfg, torch.Generator().manual_seed(0)).to(
+        cuda_device)
+    with torch.no_grad():
+        ws, bs = net.effective_weights()
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    rin = [torch.randn(n, 3, device=cuda_device, generator=gen) * 0.5,
+           torch.randn(n, 3, device=cuda_device, generator=gen),
+           torch.nn.functional.normalize(torch.randn(
+               n, 3, device=cuda_device, generator=gen), dim=-1),
+           torch.randn(n, rcfg.d_feature, device=cuda_device,
+                       generator=gen) * 0.5]
+    pack = RK.make_bwd_slabs(rcfg, ws)[0]
+    got = [RK.launch_forward(rcfg, ws, bs, *rin, pack=pack, bf16=True)]
+    again = [RK.launch_forward(rcfg, ws, bs, *rin, pack=pack, bf16=True)]
+    twin = [RK.radiance_plain(ws, bs, rcfg, *rin, bf16=True)]
+    ref = [RK.radiance_plain([w.double() for w in ws],
+                             [b.double() for b in bs], rcfg,
+                             *(t.double() for t in rin)).float()]
+    chip_smoke.check_flips(f"K3-fwd-bf16 N={n}", got, twin, ref, ["rgb"])
+    assert torch.equal(got[0], again[0])
+    with pytest.raises(ValueError, match="wgmma-bf16-rad slabs"):
+        RK.launch_forward(rcfg, ws, bs, *rin, pack=RK.make_fwd_pack(rcfg, ws),
+                          bf16=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [65536, 9001])
 def test_k1_bwd_wgmma_f32_matches_f64_twin(cuda_device, n):
     """K1-bwd (csrc/geometry_bwd_wg.cu, 3xTF32 on wgmma) at full width,
     the step's 65,536 points and a ragged 9,001, against the f64 twin at
@@ -763,20 +831,20 @@ def test_f32_mode_builds_the_f32_slabs(cuda_device):
 @pytest.mark.gpu
 def test_bf16_mode_launches_the_bf16_kernels(cuda_device):
     """value_grad_feat(bf16=True) through autograd: one K1-fwd-bf16 launch
-    on the bf16 pack of kernel_weights(bf16=True) and one K1-bwd-bf16 on
-    its two slab packs, no f32 K1 launch; the f32 slab pack stays the K2
-    sweep's, and no 3xTF32 pack is built.  Without grad no backward
-    follows, and the reverse slab pack is not built."""
+    and one K1-bwd-bf16, both on the two slab packs of
+    kernel_weights(bf16=True), no f32 K1 launch; the f32 slab pack stays
+    the K2 sweep's, and no mma.sync pack (3xTF32 or bf16) is built.
+    Without grad the same slab packs are built: K1-fwd-bf16 reads both."""
     cfg, _, _, x = _net(CASES[0], cuda_device)
     net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(cuda_device)
     weights = net.kernel_weights(bf16=True)
-    assert weights[2] is None and weights[7] is None
+    assert weights[2] is None and weights[3] is None and weights[7] is None
     assert weights[6][1].operand == "wgmma-f32"
-    assert weights[3][1].operand == "bf16"
     assert weights[4][1].operand == "wgmma-bf16"
     assert weights[5][1].operand == "wgmma-bf16-rev"
     with torch.no_grad():
-        assert net.kernel_weights(bf16=True)[5] is None
+        assert net.kernel_weights(bf16=True)[5][1].operand == \
+            "wgmma-bf16-rev"
     kernels = (GK.K1_FWD, GK.K1_BWD, GK.K1_FWD_BF16, GK.K1_BWD_BF16)
     before = [k.launches for k in kernels]
     s, f, g = net.value_grad_feat(x, weights, bf16=True)
@@ -819,8 +887,9 @@ def test_k3_bf16_kernels_match_twins(cuda_device, case):
     the two forwards round pre-activations near 0 to opposite sides more
     often than in 3xTF32, so the masks are held to a margin of each
     element's bf16 rounding, in any number of places), two launches of
-    each bitwise equal, K3-bwd-bf16 (on wgmma, from its two slab packs)
-    bitwise equal with and without its mask output."""
+    each bitwise equal, both on wgmma from K3-bwd-bf16's two slab packs
+    (K3-fwd-bf16 the first), K3-bwd-bf16 bitwise equal with and without
+    its mask output."""
     cfg, net, inputs = _rad(case, cuda_device)
     with torch.no_grad():
         ws, bs = net.effective_weights()
@@ -830,9 +899,8 @@ def test_k3_bf16_kernels_match_twins(cuda_device, case):
     flat = lambda r: [*r[:4], *r[4], *r[5]]
     w64, b64 = [w.double() for w in ws], [b.double() for b in bs]
     in64 = [t.double() for t in inputs]
-    pack = TP.make_pack(ws, bf16=True)
     slabs = RK.make_bwd_slabs(cfg, ws)
-    fwd = lambda: RK.launch_forward(cfg, ws, bs, *inputs, pack=pack,
+    fwd = lambda: RK.launch_forward(cfg, ws, bs, *inputs, pack=slabs[0],
                                     bf16=True)
     bwd = lambda: flat(RK.launch_backward(cfg, ws, bs, *inputs, ct,
                                           pack=slabs, bf16=True))
@@ -903,8 +971,9 @@ def test_bf16_switches_launch_the_bf16_kernels(cuda_device):
     """A stage-1 render + backward with core_act_bf16 and
     use_pallas_sampling (narrow widths): K2-bf16 four times and no K2,
     K1-fwd-bf16, K1-bwd-bf16, K3-fwd-bf16 and K3-bwd-bf16 once and no f32
-    K1 or K3, every pack built once; then stage 2's lvis_render at the
-    defaults: the coarse sweep on K2-bf16, once, and K2 five times."""
+    K1 or K3, every slab pack built once and no mma.sync pack; then stage
+    2's lvis_render at the defaults: the coarse sweep on K2-bf16, once,
+    and K2 five times."""
     cfg = TR.RendererConfig(
         n_samples=16, n_importance=16, up_sample_steps=4,
         sdf=SDFConfig(n_layers=4, d_hidden=64, d_out=65, skip_in=(2,),
@@ -925,13 +994,14 @@ def test_bf16_switches_launch_the_bf16_kernels(cuda_device):
                RK.K3_FWD_BF16, RK.K3_BWD_BF16)
     geo = TR.Stage1Model(cfg, seed=0).to(cuda_device)
     weights = geo.kernel_weights(True, True)
-    assert [w[2] is None for w in weights] == [True, True]
-    assert [w[3][1].operand for w in weights] == ["bf16", "bf16"]
+    assert [w[2:4] for w in weights] == [(None, None)] * 2
     assert [w[1].operand for w in weights[1][4:6]] == [
         "wgmma-bf16-rad", "wgmma-bf16-rad-rev"]
     assert weights[1][6:] == (None, None)
     with torch.no_grad():
-        assert geo.kernel_weights(True, True)[1][4:] == (None,) * 4
+        no_grad = geo.kernel_weights(True, True)[1]
+        assert no_grad[4][1].operand == "wgmma-bf16-rad"
+        assert no_grad[5:] == (None,) * 3
     before = [k.launches for k in kernels]
     out = TR.render(geo, cfg, o, d, near, far, weights=weights)
     (out["color_fine"].sum() + out["gradient_error"].sum()).backward()

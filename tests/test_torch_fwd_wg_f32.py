@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from test_torch_render import port_config, tiny_config
+from util_threads import one_thread  # noqa: F401 (autouse)
 
 from factored_neus_tpu.models import fields as JF
 from factored_neus_tpu.ops import pallas_geometry as PG

@@ -18,6 +18,7 @@ import torch
 
 from test_torch_radiance import _setup
 from test_torch_rad_wg_f32 import _inputs, _net
+from util_threads import one_thread  # noqa: F401 (autouse)
 
 from factored_neus_tpu.ops import pallas_radiance as PR
 from factored_neus_tpu_torch.ops import radiance_kernel as RK

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from test_torch_radiance import SIZES
+from util_threads import one_thread  # noqa: F401 (autouse)
 
 from factored_neus_tpu.models import fields as JF
 from factored_neus_tpu.ops import pallas_radiance as PR

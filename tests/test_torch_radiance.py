@@ -107,9 +107,9 @@ def test_cpu_path_launches_no_kernel():
 def test_kernel_arguments_describe_the_network():
     """The integer arguments handed to both forward kernels, at full
     width: K3-fwd's (the layers, then its f32 slab pack's layer offsets)
-    and K3-fwd-bf16's (the row stride 300, 289 rounded to 8, plus 4, then
-    the bf16 pack's layout); each refuses the other's pack, and a hidden
-    layer over 256 is refused."""
+    and K3-fwd-bf16's (the tiles' consumers and passes, squeeze_out, the
+    layers, then its bf16 slab pack's layer offsets); each refuses the
+    other's pack, and a hidden layer over 256 is refused."""
     net = TF.RenderingNetwork(TF.RenderingConfig())
     ws, _ = net.effective_weights()
     _, flay = RK.make_fwd_pack(net.cfg, ws)
@@ -117,18 +117,16 @@ def test_kernel_arguments_describe_the_network():
     assert p["iargs"] == [5, 4, 27, 1000, 7, 16, 1,
                           289, 256, 256, 256, 256, 256, 256, 256, 256, 3,
                           *flay.off]
-    ins, outs = [w.shape[1] for w in ws], [w.shape[0] for w in ws]
-    lay = TP.pack_layout(ins, outs, "bf16")
-    iargs, ld = RK.kernel_iargs(net.cfg, ws, n=1000, grid=7, lay=lay)
-    assert iargs == [5, 4, 27, 300, 1, 1000, 7,
-                     289, 256, 256, 256, 256, 256, 256, 256, 256, 3,
-                     *TP.layout_iargs(lay)]
-    assert ld == 300
-    with pytest.raises(ValueError, match="bf16 operands"):
-        RK.kernel_iargs(net.cfg, ws, 1000, 7, TP.pack_layout(ins, outs))
+    _, lay = RK.make_fwd_pack(net.cfg, ws, bf16=True)
+    p16 = RK.fwd_wg16_plan(net.cfg, ws, n=1000, lay=lay, sms=7)
+    assert p16["iargs"] == [5, 4, 27, 1000, 2, 7, 8, 1,
+                            289, 256, 256, 256, 256, 256, 256, 256, 256, 3,
+                            *lay.off]
+    assert (p16["grid"], p16["nc"], p16["n_pass"]) == (7, 2, 8)
+    with pytest.raises(ValueError, match="bf16 slab pack"):
+        RK.fwd_wg16_plan(net.cfg, ws, 1000, flay, 7)
     with pytest.raises(ValueError, match="wgmma"):
         RK.fwd_wg_plan(net.cfg, ws, 1000, lay, 7)
     wide = [torch.zeros(512, 289), torch.zeros(3, 512)]
     with pytest.raises(ValueError):
-        RK.kernel_iargs(TF.RenderingConfig(d_hidden=512), wide, 10, 1,
-                        TP.pack_layout([289, 512], [512, 3], "bf16"))
+        RK.make_fwd_pack(TF.RenderingConfig(d_hidden=512), wide, bf16=True)

@@ -19,6 +19,7 @@ import torch
 
 from test_torch_kernels import _setup
 from test_torch_render import port_config, tiny_config
+from util_threads import one_thread  # noqa: F401 (autouse)
 
 from factored_neus_tpu.ops.pallas_sdf import sdf_forward_pallas
 from factored_neus_tpu_torch.meshing import extract as MEXT

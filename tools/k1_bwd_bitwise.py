@@ -1,23 +1,27 @@
 #!/usr/bin/env python3
-"""The results of the f32 and bf16 wgmma kernels that K2 and K3-fwd share
-code with, this checkout's builds against another version's, bit for bit,
+"""The results of the f32 and bf16 wgmma kernels that share code with one
+another, this checkout's builds against another version's, bit for bit,
 on a GPU.
 
     python3 tools/k1_bwd_bitwise.py DIR
 
 Builds DIR's factored_neus_tpu_torch/csrc/geometry_bwd_wg.cu (K1-bwd, f32),
-geometry_bwd_bf16_wg.cu (K1-bwd-bf16), geometry_fwd_wg.cu (K1-fwd, f32)
-and radiance_bwd_wg.cu (K3-bwd, f32) (for example a parent commit
-unpacked with ``git archive`` into a directory that .gitignore lists) into
-build/bitwise/, and runs each and this checkout's build through this
-checkout's wrapper (ops/geometry_kernel.launch_backward and
-launch_forward, ops/radiance_kernel.launch_backward, whose arguments both
-versions take) on the same inputs and the mode's slab packs: the
+geometry_bwd_bf16_wg.cu (K1-bwd-bf16), geometry_fwd_wg.cu (K1-fwd, f32),
+radiance_bwd_wg.cu (K3-bwd, f32), sdf_fwd_bf16.cu (K2-bf16, its full
+output), radiance_bwd_bf16_wg.cu (K3-bwd-bf16), geometry_fwd_bf16_wg.cu
+(K1-fwd-bf16) and radiance_fwd_bf16_wg.cu (K3-fwd-bf16) (for example a
+parent commit unpacked with ``git archive`` into a directory that
+.gitignore lists) into build/bitwise/, and runs each and this checkout's
+build through this checkout's wrapper (ops/geometry_kernel.launch_backward
+and launch_forward, ops/sdf_kernel.sdf_forward,
+ops/radiance_kernel.launch_backward and launch_forward, whose arguments
+both versions take) on the same inputs and the mode's slab packs: the
 full-width SDF network and radiance MLP at chip_smoke.py's 65,536 and
-9,001 rows.  Every output (K1-bwd's ct_x, each dW and db; K1-fwd's out
-and grad; K3-bwd's four input cotangents, each dW and db) must be equal
-bit for bit.  Prints one line a kernel and size, the card's name and
-power limit, and a JSON summary; exits 1 on any difference.
+9,001 rows.  Every output (the backwards' input cotangents, each dW and
+db; the forwards' out and grad, or rgb) must be equal bit for bit.  A
+kernel whose source DIR does not hold (a version before it was written)
+is skipped, and said so.  Prints one line a kernel and size, the card's
+name and power limit, and a JSON summary; exits 1 on any difference.
 """
 import json
 import os
@@ -29,7 +33,11 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = (("K1-bwd", "geometry_bwd_wg.cu", "geometry_bwd"),
            ("K1-bwd-bf16", "geometry_bwd_bf16_wg.cu", "geometry_bwd_bf16"),
            ("K1-fwd", "geometry_fwd_wg.cu", "geometry_fwd"),
-           ("K3-bwd", "radiance_bwd_wg.cu", "radiance_bwd"))
+           ("K3-bwd", "radiance_bwd_wg.cu", "radiance_bwd"),
+           ("K2-bf16", "sdf_fwd_bf16.cu", "sdf_fwd_bf16"),
+           ("K3-bwd-bf16", "radiance_bwd_bf16_wg.cu", "radiance_bwd_bf16"),
+           ("K1-fwd-bf16", "geometry_fwd_bf16_wg.cu", "geometry_fwd_bf16"),
+           ("K3-fwd-bf16", "radiance_fwd_bf16_wg.cu", "radiance_fwd_bf16"))
 OUT = os.path.join(HERE, "build", "bitwise")
 
 
@@ -52,6 +60,7 @@ def main() -> int:
     from factored_neus_tpu_torch.ops import _cuda
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
     from factored_neus_tpu_torch.ops import radiance_kernel as RK
+    from factored_neus_tpu_torch.ops import sdf_kernel as SK
 
     os.makedirs(OUT, exist_ok=True)
     dev = torch.device("cuda")
@@ -65,38 +74,48 @@ def main() -> int:
 
     def inputs(label, n, gen):
         """The kernel, its slab packs and a call on n random rows."""
-        if label == "K3-bwd":
-            slabs = RK.make_bwd_slabs(rcfg, rws, bf16=False)
+        bf16 = label.endswith("-bf16")
+        if label.startswith("K3"):
+            slabs = RK.make_bwd_slabs(rcfg, rws, bf16=bf16)
             rin = [torch.randn(n, 3, device=dev, generator=gen) * 0.5,
                    torch.randn(n, 3, device=dev, generator=gen),
                    torch.nn.functional.normalize(torch.randn(
                        n, 3, device=dev, generator=gen), dim=-1),
                    torch.randn(n, rcfg.d_feature, device=dev,
                                generator=gen) * 0.5]
+            if label == "K3-fwd-bf16":
+                return RK.K3_FWD_BF16, lambda: [RK.launch_forward(
+                    rcfg, rws, rbs, *rin, pack=slabs[0], bf16=True)]
             ct = torch.randn(n, rcfg.d_out, device=dev, generator=gen)
 
             def k3_bwd():
                 *cts, dws, dbs = RK.launch_backward(rcfg, rws, rbs, *rin, ct,
-                                                    pack=slabs)
+                                                    pack=slabs, bf16=bf16)
                 return [*cts, *dws, *dbs]
-            return RK.K3_BWD, k3_bwd
-        bf16 = label == "K1-bwd-bf16"
+            return RK.KERNELS["bwd", bf16], k3_bwd
         slabs = GK.make_bwd_slabs(cfg, ws, bf16)
         x = torch.randn(n, 3, device=dev, generator=gen) * 0.5
-        if label == "K1-fwd":
-            return GK.K1_FWD, lambda: list(GK.launch_forward(cfg, x, ws, bs,
-                                                             slabs))
+        if label == "K2-bf16":
+            return SK.SDF_FWD_BF16, lambda: [SK.sdf_forward(
+                ws, bs, cfg, x, slabs[0], bf16=True)]
+        if label.startswith("K1-fwd"):
+            return GK.KERNELS["fwd", bf16], lambda: list(GK.launch_forward(
+                cfg, x, ws, bs, slabs, bf16=bf16))
         ct_out = torch.randn(n, ws[-1].shape[0], device=dev, generator=gen)
         ct_g = torch.randn(n, 3, device=dev, generator=gen)
         return GK.KERNELS["bwd", bf16], lambda: flat(GK.launch_backward(
             cfg, x, ws, bs, ct_out, ct_g, slabs, bf16=bf16))
 
-    sizes = []
+    sizes, skipped = [], []
     for label, src, symbol in KERNELS:
+        path = os.path.join(other, "factored_neus_tpu_torch", "csrc", src)
+        if not os.path.exists(path):
+            print(f"{label}: {other} holds no {src}: skipped")
+            skipped.append(label)
+            continue
         lib = os.path.join(OUT, f"lib_other_{symbol}.so")
         p = subprocess.run(
-            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib,
-             os.path.join(other, "factored_neus_tpu_torch", "csrc", src)],
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib, path],
             capture_output=True, text=True)
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {other}:\n{p.stdout}"
@@ -121,7 +140,8 @@ def main() -> int:
                   f"{len(mine)} output tensors bitwise equal to {other}'s")
     card = chip_smoke.card_line()
     print(card)
-    print(json.dumps({"other": other, "card": card, "sizes": sizes}))
+    print(json.dumps({"other": other, "card": card, "sizes": sizes,
+                      "skipped": skipped}))
     return 1 if any(s["differ"] for s in sizes) else 0
 
 

@@ -2,7 +2,12 @@
 """Per-phase time of K1-bwd and K1-fwd (csrc/geometry_{bwd_wg,fwd_wg,bwd,
 fwd}.cu) on a GPU.
 
-    python3 tools/k1_bwd_phases.py [--root DIR] [--bf16 | --fwd] [--clocks]
+    python3 tools/k1_bwd_phases.py [--root DIR] [--bf16] [--fwd] [--clocks]
+
+``--fwd --bf16``: K1-fwd-bf16 on wgmma (geometry_fwd_bf16_wg.cu: K2-bf16's
+forward, csrc/sweep16.cuh, and the reverse sweep), on its two bf16 slab
+packs, with the cuts of ``--fwd`` below (``no_softplus``: softplus and
+sigma(100 a) replaced by the argument and 0.5).
 
 ``--fwd``: K1-fwd in f32, on wgmma in 3xTF32 (geometry_fwd_wg.cu: the
 forward through all nine layers and the reverse sweep from e0 / scale), on
@@ -53,7 +58,9 @@ another version of the port, e.g. a parent commit unpacked with ``git
 archive``; a phase whose code the version does not have (a version whose
 K1 multiplies on the CUDA cores has none but ``all``) is reported as not
 applicable.  ``--bf16``: K1's bf16 operand mode: K1-fwd-bf16 with the
-same cuts on the bf16 pack, and K1-bwd-bf16, which runs on
+same cuts on the bf16 pack (a version before geometry_fwd_bf16_wg.cu;
+since, K1-fwd-bf16 runs on wgmma and its cuts are not applicable), and
+K1-bwd-bf16, which runs on
 wgmma (geometry_bwd_bf16_wg.cu: a stacked sweep, a split-K weight-gradient
 pass, a reduce), on its two slab packs, with its own cuts:
 - ``no_products``: without every wgmma of the sweep and the pass;
@@ -124,8 +131,9 @@ CUTS_WG = {
                    ((WG,), r"const float4 v = sc\[q \* 128\];",
                     "const float4 v = make_float4(0.5f, 0.5f, 1.f, 1.f);"),
                    ((WG,), r"l2_prefetch_if\([^;]*;", ";")],
-    "no_softplus": [((WG,), r"return fmaxf\(a, 0\.f\) \+ gw_lg2\([^;]*;",
-                     "return a;")],
+    "no_softplus": [((WG, "sweep16.cuh"),
+                     r"return fmaxf\(a, 0\.f\) \+ (?:gw_lg2|lg2_approx)"
+                     r"\([^;]*;", "return a;")],
 }
 ORDER_WG = ["all", "no_products", "no_wgrad_pass", "no_images",
             "no_scratch", "no_softplus", "all"]
@@ -170,6 +178,25 @@ CUTS_GFW = {
 }
 ORDER_GFW = ["all", "no_products", "no_scratch", "no_slabs", "no_softplus",
              "all"]
+# K1-fwd-bf16 on wgmma (--fwd --bf16): its forward is sweep16.cuh's (K2-bf16
+# shares it), its slab ring wg_bwd.cuh's
+G16 = "geometry_fwd_bf16_wg.cu"
+SHARED_16 = (G16, "sweep16.cuh", "wg_bwd.cuh")
+CUTS_G16 = {
+    "all": [],
+    "no_products": [(SHARED_16, r"wgmma_n(?:256|48)\(acc,[^;]*;", ";"),
+                    (SHARED_16, r"wgmma_n8\(acc8,[^;]*;", ";")],
+    "no_scratch": [(SHARED_16, r"if \(SIG\) sc\[128 \* q\] = "
+                    r"make_float4[^;]*;", ";"),
+                   ((G16,), r"const float4 v = sc\[128 \* q\];",
+                    "const float4 v = make_float4(0.5f, 0.5f, 0.5f, 0.5f);"),
+                   (SHARED_16, r"l2_prefetch_if\([^;]*;", ";")],
+    "no_slabs": [(SHARED_16, r"mbar_expect_tx\(full \+ st, bytes\);\s*"
+                  r"bulk_g2s\(ring \+ st \* stage[^;]*;",
+                  "mbar_arrive_if(full + st, 1);")],
+    "no_softplus": [(SHARED_16, r"sp_sig100_sfu\(pre, v\[e\], s\[e\]\);",
+                     "{ v[e] = pre; s[e] = 0.5f; }")],
+}
 ORDER_WGF = ["all", "no_products", "no_wgrad_pass", "no_images",
              "no_scratch", "no_slabs", "all"]
 CLOCKED_WGF = ("all", "no_products")
@@ -277,14 +304,17 @@ def build(root: str, bwd_entry: str = BWD) -> dict:
     return libs
 
 
-def fwd_main(root: str, clocks: bool) -> int:
-    """--fwd: K1-fwd on wgmma, phase by phase (CUTS_GFW)."""
+def fwd_main(root: str, clocks: bool, bf16: bool = False) -> int:
+    """--fwd: K1-fwd on wgmma, phase by phase (CUTS_GFW); with --bf16
+    K1-fwd-bf16 (CUTS_G16)."""
     import torch
     import chip_smoke
     import k2_bf16_phases
-    libs = build_cut(root, GFW, CUTS_GFW, "geometry_fwd_wg")
+    src = G16 if bf16 else GFW
+    libs = (build_cut(root, G16, CUTS_G16, "geometry_fwd_bf16_wg") if bf16
+            else build_cut(root, GFW, CUTS_GFW, "geometry_fwd_wg"))
     if not libs:
-        print(f"phases: {root} has no {GFW}", file=sys.stderr)
+        print(f"phases: {root} has no {src}", file=sys.stderr)
         return 2
     from factored_neus_tpu_torch.models.fields import SDFConfig, SDFNetwork
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
@@ -296,24 +326,25 @@ def fwd_main(root: str, clocks: bool) -> int:
         ws, bs = net.effective_weights()
     gen = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn(N_CORE, 3, device=dev, generator=gen) * 0.5
-    slabs = GK.make_bwd_slabs(cfg, list(ws), bf16=False)
-    call = lambda: GK.launch_forward(cfg, x, ws, bs, slabs)
+    slabs = GK.make_bwd_slabs(cfg, list(ws), bf16=bf16)
+    call = lambda: GK.launch_forward(cfg, x, ws, bs, slabs, bf16=bf16)
+    kernel, label = GK.KERNELS["fwd", bf16], "K1-fwd-bf16" if bf16 else "K1-fwd"
     times = []
     for phase in ORDER_GFW:
-        _bind(GK.K1_FWD, libs[phase], "geometry_fwd")
+        _bind(kernel, libs[phase], kernel.symbol)
         ms = chip_smoke.cuda_ms(call, 10)
-        times.append({"kernel": "K1-fwd", "phase": phase, "ms": ms})
-        print(f"K1-fwd (wgmma) {phase}: {ms:.3f} ms")
+        times.append({"kernel": label, "phase": phase, "ms": ms})
+        print(f"{label} (wgmma) {phase}: {ms:.3f} ms")
         if clocks and phase in ("all", "no_products") and not any(
                 "sm_mhz" in t for t in times[:-1] if t["phase"] == phase):
             times[-1].update(k2_bf16_phases.clocks_under(call, torch))
             print(f"  under load: SM clock {times[-1]['sm_mhz']:.0f} MHz, "
                   f"{times[-1]['power_w']:.1f} W "
                   f"({times[-1]['samples']} samples)")
-    GK.K1_FWD._fn = None
+    kernel._fn = None
     card = chip_smoke.card_line()
     print(card)
-    print(json.dumps({"root": root, "fwd": True, "card": card,
+    print(json.dumps({"root": root, "fwd": True, "bf16": bf16, "card": card,
                       "times": times}))
     return 0
 
@@ -326,8 +357,8 @@ def main() -> int:
     root = HERE
     if args[:1] == ["--root"] and len(args) == 2:
         root = os.path.abspath(args[1])
-    elif args or (bf16 and fwd):
-        print("usage: k1_bwd_phases.py [--root DIR] [--bf16 | --fwd] "
+    elif args:
+        print("usage: k1_bwd_phases.py [--root DIR] [--bf16] [--fwd] "
               "[--clocks]", file=sys.stderr)
         return 2
     import torch
@@ -337,7 +368,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     sys.path.insert(0, os.path.join(HERE, "tools"))
     if fwd:
-        return fwd_main(root, clocks)
+        return fwd_main(root, clocks, bf16)
     import chip_smoke
     libs_wg = build_wg(root, bf16)
     libs = build(root, "geometry_bwd_bf16.cu" if bf16 else BWD)
@@ -345,9 +376,12 @@ def main() -> int:
         # K1-bwd(-bf16) is the wgmma source's: the mma.sync body's cuts do
         # not apply to it
         libs = {k: v for k, v in libs.items() if k[0] != BWD}
-    if not bf16 and os.path.exists(os.path.join(
-            root, "factored_neus_tpu_torch", "csrc", GFW)):
-        # K1-fwd in f32 is the wgmma source's (--fwd)
+    fwd16_wg = os.path.exists(os.path.join(
+        root, "factored_neus_tpu_torch", "csrc", "geometry_fwd_bf16_wg.cu"))
+    if os.path.exists(os.path.join(root, "factored_neus_tpu_torch", "csrc",
+                                   GFW)) and (fwd16_wg or not bf16):
+        # K1-fwd in f32 is the wgmma source's (--fwd), and so is K1-fwd-bf16
+        # where the version has geometry_fwd_bf16_wg.cu
         libs = {k: v for k, v in libs.items() if k[0] != FWD}
     from factored_neus_tpu_torch.models.fields import SDFConfig, SDFNetwork
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
@@ -372,8 +406,9 @@ def main() -> int:
                                                     ct_g, bwd_pack,
                                                     bf16=True)),
                    FWD: (GK.K1_FWD_BF16, "geometry_fwd_bf16",
-                         lambda: GK.launch_forward(cfg, x, ws, bs, pack,
-                                                   bf16=True))}
+                         lambda: GK.launch_forward(
+                             cfg, x, ws, bs, bwd_pack if fwd16_wg else pack,
+                             bf16=True))}
     else:
         slabs = (GK.make_bwd_slabs(cfg, list(ws), bf16=False) if libs_wg
                  else None)

@@ -40,16 +40,18 @@ SRC = "sdf_fwd_bf16.cu"
 ROWS = 512 * 4 * 512
 CLOCK_SECONDS = 4.0
 # phase: (file, regular expression, replacement) triples; each must match
-# (every match is replaced)
+# (every match is replaced).  K2-bf16's forward is csrc/sweep16.cuh's
+# (which K1-fwd-bf16 shares), its slab ring csrc/wg_bwd.cuh's.
+SW, RING = "sweep16.cuh", "wg_bwd.cuh"
 CUTS = {
     "all": [],
-    "no_softplus": [(SRC, r"return fmaxf\(a, 0\.f\) \+ lg2_approx\([^;]*;",
+    "no_softplus": [(SW, r"return fmaxf\(a, 0\.f\) \+ lg2_approx\([^;]*;",
                      "return a;")],
-    "no_products": [(SRC, r"wgmma_n256\(acc,[^;]*;", ";"),
-                    (SRC, r"wgmma_n8\(acc8,[^;]*;", ";")],
-    "no_slab_copies": [(SRC, r"mbar_expect_tx\(full \+ st, d\.copy_bytes"
-                        r"\[l\]\);", "mbar_expect_tx(full + st, 0);"),
-                       (SRC, r"bulk_g2s\(ring \+ st[^;]*;", ";")],
+    "no_products": [(SW, r"wgmma_n256\(acc,[^;]*;", ";"),
+                    (SW, r"wgmma_n8\(acc8,[^;]*;", ";")],
+    "no_slab_copies": [(RING, r"mbar_expect_tx\(full \+ st, bytes\);",
+                        "mbar_expect_tx(full + st, 0);"),
+                       (RING, r"bulk_g2s\(ring \+ st[^;]*;", ";")],
 }
 ORDER = ["all", "no_softplus", "no_products", "no_slab_copies", "all"]
 

@@ -55,7 +55,7 @@ CUTS = {
         ((SRC,), r"d\.ct_(?:pts|dirs|nrm)\[[^;]*;", ";")],
     "no_slab_copies": [((SH,), r"mbar_expect_tx\(full \+ st, bytes\);",
                         "mbar_expect_tx(full + st, 0);"),
-                       ((SH,), r"bulk_g2s\(ring \+ st \* GW_SLAB[^;]*;", ";")],
+                       ((SH,), r"bulk_g2s\(ring \+ st \* stage[^;]*;", ";")],
 }
 # K3-bwd (f32, 3xTF32 on wgmma)
 SRCF = "radiance_bwd_wg.cu"

@@ -65,10 +65,12 @@ TABLE_ROWS = (("geometry_bwd_wgf_sweep", "K1-bwd (sweep)"),
               ("radiance_bwd_wgf_wgrad", "K3-bwd (weight-gradient pass)"),
               ("radiance_bwd_wgf_reduce", "K3-bwd (reduce)"),
               ("geometry_fwd_wgf_sweep", "K1-fwd"),
+              ("geometry_fwd_bf16_sweep", "K1-fwd-bf16"),
               ("geometry_fwd_kernel", "K1-fwd"),
               ("sdf_fwd_wgf_sweep", "K2"),
               ("sdf_fwd_bf16_kernel", "K2-bf16"),
               ("radiance_fwd_wgf_sweep", "K3-fwd"),
+              ("radiance_fwd_bf16_sweep", "K3-fwd-bf16"),
               ("radiance_fwd_bf16_kernel", "K3-fwd-bf16"),
               ("reduce_partials_kernel", "K1-bwd partial sums"))
 FLAGS = ("--womask", "--stash", "--split", "--stage2", "--stage3", "--bf16",
