@@ -11,14 +11,18 @@
    of 0), checks that two launches of K1-fwd, K1-bwd, K2, K3-fwd and
    K3-bwd agree bit for bit, and times each kernel and twin with CUDA
    events (each pack's own time beside it); the f32 kernels run in 3xTF32
-   on wgmma (csrc/geometry_fwd_wg.cu, geometry_bwd_wg.cu, sdf_fwd_wg.cu,
-   radiance_fwd_wg.cu, radiance_bwd_wg.cu; each its ptxas report and
-   SASS, which must hold HGMMA and no HMMA, and its kernels' registers and
-   shared memory read from the device, "attrs"): K1-fwd, K1-bwd and
-   K3-bwd at the step's 65,536 rows and a ragged 9,001, K1-fwd within
-   1e-5 abs of its twin, K1-bwd and K3-bwd against the f64 twin
-   (check_vjp), timed at both ("shapes"), the bytes of each design and
-   their f32 slab packs' build times; K2 (narrowed, on K1's forward slab
+   on wgmma (csrc/geometry_fwd_wg.cu, geometry_bwd_wg.cu,
+   geometry_bwd_chains_wg.cu, sdf_fwd_wg.cu, radiance_fwd_wg.cu,
+   radiance_bwd_wg.cu; each its ptxas report and SASS, which must hold
+   HGMMA and no HMMA, K1-bwd-split's and K1-bwd-stash's kernels each,
+   and its kernels' registers and shared memory read from the device,
+   "attrs"), all but K1-fwd-stash: K1-fwd, K1-bwd, K1-bwd-split,
+   K1-bwd-stash and K3-bwd at the step's 65,536 rows and a ragged 9,001,
+   K1-fwd within 1e-5 abs of its twin, the backwards against their f64
+   twins (check_vjp; K1-bwd-stash's fed K1-fwd-stash's stash) with two
+   launches bitwise equal, K1-bwd-split's ct_x, dW and db against
+   K1-bwd's bit for bit or not (printed), timed at both ("shapes"), the
+   bytes of each design and their f32 slab packs' build times; K2 (narrowed, on K1's forward slab
    pack as in the step, bitwise equal to K2 on its own narrowed pack, its
    sdf's distance from K1-fwd's printed) at both sweep shapes of a step
    and 9,001 rows, and its full 257-wide output at 9,001, and K3-fwd (on
@@ -52,9 +56,10 @@
 8. checks finite losses, that each run launched exactly its kernels (the
    stash pair only in the stash run, K1-bwd-split only in the split run),
    that the checkpoint loads back, and that tc_pack.pack_weights (the
-   3xTF32 mma.sync pack) was called 0 times in the 30-step wmask run,
-   the 512^3 mesh, the validation image and the stage-2 and stage-3 runs
-   (items 5-6, 9-10) and at least once in the stash and split runs;
+   3xTF32 mma.sync pack, which only K1-fwd-stash reads) was called 0
+   times in the 30-step wmask run, the 512^3 mesh, the validation image,
+   the stage-2 and stage-3 runs (items 5-6, 9-10) and the split run, and
+   once a step in the stash run;
 9. stage 2 on the 30-step stage-1 checkpoint: 30 full-width steps through
    the port's stage-2 CLI (python -m factored_neus_tpu_torch.lvis),
    counters at 0 just before: K2 five times a step, K2-bf16 once (the
@@ -633,14 +638,7 @@ def check_kernels(device):
     print(f"K1-bwd  two launches bitwise equal: {same}")
     if not same:
         raise AssertionError("K1-bwd is not deterministic")
-    del again
-    # K1-bwd-split: the same function with the chains as separate
-    # half-tile products; the same f64 reference and criterion
-    got = GK.launch_backward_split(cfg, x, ws, bs, ct_out, ct_g)
-    torch.cuda.synchronize()
-    e_sp = check_vjp(f"K1-bwd-split N={N_CORE}", [got[0], *got[1], *got[2]],
-                     ref64, ref32, names)
-    del ref32, ref64, got
+    del again, ref32, ref64
     # primal and tangent forward (last layer not needed), the primal's
     # weight gradient and input cotangent, and the tangent's: its seed is
     # e0 / scale, so its last layer is a column of dW and a row of W
@@ -663,12 +661,30 @@ def check_kernels(device):
     # it shares with K1-fwd (timed there)
     k1b.update(shapes=shapes, sass=build["sass"], ptxas=build["ptxas"],
                attrs=attrs, **pack_ms)
-    entry("geometry_bwd_split",
-          "factored_neus_tpu_torch/csrc/geometry_bwd.cu",
+    # K1-bwd-split (3xTF32 on wgmma, on K1-bwd's two slab packs): K1-bwd's
+    # function, each chain's rows one product, at the step's points and a
+    # ragged count (k1_chains_check: the f64 twin, two launches bitwise
+    # equal, its bits against K1-bwd's printed)
+    chains = "factored_neus_tpu_torch/csrc/geometry_bwd_chains_wg.cu"
+    cbuild = wgmma_build_report("K1-bwd-split and K1-bwd-stash",
+                                "geometry_bwd_chains_wg.cu",
+                                ("geometry_bwd_split", "geometry_bwd_stash",
+                                 "geometry_bwd_chains_wgf_wgrad"))
+    shapes, e_sp = [], 0.0
+    for n in (N_CORE, N_RAGGED):
+        shape, e_n = k1_chains_check(cfg, ws, bs, n, bwd_flops, slabs, gen,
+                                     stash=False)
+        shapes.append(shape)
+        e_sp = max(e_sp, e_n)
+    entry("geometry_bwd_split", chains,
           "factored_neus_tpu/ops/pallas_geometry.py:529", e_sp,
           cuda_ms(lambda: GK.launch_backward_split(cfg, x, ws, bs, ct_out,
-                                                   ct_g), 5),
+                                                   ct_g, slabs=slabs), 5),
           cuda_ms(plain32, 3), N_CORE * bwd_flops, bwd_bytes)
+    results[-1].update(shapes=shapes, attrs=shapes[0]["attrs"],
+                       bits_vs_k1_bwd=[s["bits_vs_k1_bwd"] for s in shapes],
+                       sass=cbuild["sass"],
+                       ptxas=cbuild["ptxas"], **pack_ms)
     del plain32
 
     # K2 (3xTF32 on wgmma): the ladder's narrowed no-grad sweeps (last
@@ -912,32 +928,30 @@ def check_kernels(device):
           cuda_ms(plain_fwd_stash, 5), N_CORE * fwd_flops,
           fwd_bytes + stash_bytes)
 
-    # K1-bwd-stash: the kernel's own stash fed to both; the f64 twin
-    # computes from the same bf16 values
-    got = GK.launch_backward_stash(cfg, x, ws, st_k, ct_out, ct_g)
+    # K1-bwd-stash (3xTF32 on wgmma, on K1-bwd's two slab packs): the
+    # primal from K1-fwd-stash's stash, at the step's points and a ragged
+    # count (k1_chains_check: its f64 twin fed the same bf16 stash, two
+    # launches bitwise equal)
+    stash_flops = bwd_flops - 2 * (S - s_last)
+    shapes, e_sb = [], 0.0
+    for n in (N_CORE, N_RAGGED):
+        shape, e_n = k1_chains_check(cfg, ws, bs, n, stash_flops, slabs,
+                                     gen, stash=True)
+        shapes.append(shape)
+        e_sb = max(e_sb, e_n)
 
-    def plain_bwd_stash(dtype):
-        args = [t.to(dtype) for t in (x, ct_out, ct_g)]
-        wsd = [w.to(dtype) for w in ws]
-        return lambda: GK.geometry_bwd_stash_plain(wsd, args[0], st_k,
-                                                   args[1], args[2], cfg)
-
-    flat = lambda r: [r[0], *r[1], *r[2]]
-    ref64 = [r.float() for r in flat(plain_bwd_stash(torch.float64)())]
-    splain32 = plain_bwd_stash(torch.float32)
-    ref32 = flat(splain32())
-    torch.cuda.synchronize()
-    e_sb = check_vjp(f"K1-bwd-stash N={N_CORE}", flat(got), ref64, ref32,
-                     names)
-    del ref32, ref64
-    entry("geometry_bwd_stash",
-          "factored_neus_tpu_torch/csrc/geometry_bwd.cu",
+    def splain32():
+        GK.geometry_bwd_stash_plain(ws, x, st_k, ct_out, ct_g, cfg)
+    entry("geometry_bwd_stash", chains,
           "factored_neus_tpu/ops/pallas_geometry.py:797", e_sb,
           cuda_ms(lambda: GK.launch_backward_stash(cfg, x, ws, st_k, ct_out,
-                                                   ct_g), 5),
-          cuda_ms(splain32, 3),
-          N_CORE * (bwd_flops - 2 * (S - s_last)), bwd_bytes + stash_bytes)
-    del splain32, st_k
+                                                   ct_g, slabs=slabs), 5),
+          cuda_ms(splain32, 3), N_CORE * stash_flops,
+          bwd_bytes + stash_bytes)
+    results[-1].update(shapes=shapes, attrs=shapes[0]["attrs"],
+                       sass=cbuild["sass"],
+                       ptxas=cbuild["ptxas"], **pack_ms)
+    del st_k
 
     for r in results:
         f32 = r["bound_f32_ms"]
@@ -1181,6 +1195,80 @@ def k1_bwd_wgf_check(cfg, ws, bs, n, bwd_flops, slabs, gen) -> tuple:
         "geometry_bwd_attrs", "3xTF32")
     shape["max_abs_err"] = e
     return shape, attrs, e
+
+
+def k1_chains_check(cfg, ws, bs, n, flops, slabs, gen, stash) -> tuple:
+    """K1-bwd-split (``stash`` False) or K1-bwd-stash (3xTF32 on wgmma,
+    geometry_bwd_chains_wg.cu) at n points: against its f64 twin
+    (check_vjp; the stash's fed the stash K1-fwd-stash writes for the same
+    points) with two launches bitwise equal; the split's ct_x, dW and db
+    against K1-bwd's on the same inputs, bit for bit or not (printed only);
+    then wg_shape's times against its 3xTF32 bound (``flops`` a point),
+    attributes and the bytes of its design: the f32 scratch written and
+    read, the images written and read by K1-bwd's pass, the stash read,
+    the slots and db slots (the source note's reckoning), a count, not a
+    measurement.  Returns (shape, max |err|)."""
+    import torch
+    from factored_neus_tpu_torch.ops import _cuda
+    from factored_neus_tpu_torch.ops import geometry_kernel as GK
+    label = "K1-bwd-stash" if stash else "K1-bwd-split"
+    dev = ws[0].device
+    x = torch.randn(n, 3, device=dev, generator=gen) * 0.5
+    ct_out = torch.randn(n, ws[-1].shape[0], device=dev, generator=gen)
+    ct_g = torch.randn(n, 3, device=dev, generator=gen)
+    flat = lambda r: [r[0], *r[1], *r[2]]
+    L = len(ws)
+    names = ["ct_x"] + [f"dW{l}" for l in range(L)] + [
+        f"db{l}" for l in range(L)]
+    if stash:
+        st = GK.launch_forward_stash(cfg, x, ws, bs)[2]
+        run = lambda: flat(GK.launch_backward_stash(cfg, x, ws, st, ct_out,
+                                                    ct_g, slabs=slabs))
+        twin = lambda dt: flat(GK.geometry_bwd_stash_plain(
+            [w.to(dt) for w in ws], x.to(dt), st, ct_out.to(dt),
+            ct_g.to(dt), cfg))
+    else:
+        run = lambda: flat(GK.launch_backward_split(cfg, x, ws, bs, ct_out,
+                                                    ct_g, slabs=slabs))
+        twin = lambda dt: flat(GK.geometry_bwd_plain(
+            [w.to(dt) for w in ws], [b.to(dt) for b in bs], x.to(dt),
+            ct_out.to(dt), ct_g.to(dt), cfg))
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    ref64 = [t.float() for t in twin(torch.float64)]
+    ref32 = twin(torch.float32)
+    e = check_vjp(f"{label} (wgmma) N={n}", got, ref64, ref32, names)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"{label} (wgmma) N={n}: two launches bitwise equal: {same}")
+    if not same:
+        raise AssertionError(f"{label} is not deterministic")
+    bits = None
+    if not stash:
+        k1 = flat(GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g, slabs))
+        eq = [torch.equal(a, b) for a, b in zip(got, k1)]
+        bits = {"ct_x": eq[0], "dW": all(eq[1:1 + L]), "db": all(eq[1 + L:])}
+        print(f"{label} (wgmma) N={n}: bit for bit K1-bwd's on the same "
+              f"inputs: ct_x {bits['ct_x']}, dW {bits['dW']}, db "
+              f"{bits['db']} (printed only)")
+        del k1
+    del got, again, ref64, ref32
+    plan = GK.chains_wg_plan(cfg, ws, n, slabs, _cuda.sm_count(dev), stash)
+    k1_tiles, cx = -(-n // GK.WG_POINTS), [64] + [256] * (L - 1)
+    cr = [264 if w.shape[0] > 256 else 256 for w in ws]
+    scratch = 2 * plan["tiles"] * (L - 1) * GK.WGF_CHAIN_SQ * 256 * 16
+    read = k1_tiles * 4 * sum(2 * 2 * c * 32 + -(-c // 128) * 2 * r * 32
+                              for c, r in zip(cx, cr))
+    slots = 4 * (2 * plan["slot_floats"] + 2 * plan["db_floats"])
+    design = (scratch + plan["image_bytes"] + read + slots
+              + (n * 2 * GK.stash_columns(ws) if stash else 0))
+    shape, attrs = wg_shape(
+        label, n, run, lambda: twin(torch.float32),
+        1e3 * n * 3 * flops / TF32_PEAK, plan, design,
+        "geometry_bwd_chains_wg.cu",
+        "geometry_bwd_stash_attrs" if stash else "geometry_bwd_split_attrs",
+        "3xTF32")
+    shape.update(max_abs_err=e, attrs=attrs, bits_vs_k1_bwd=bits)
+    return shape, e
 
 
 def k3_bwd_wgf_check(cfg, ws, bs, n, bwd_flops, slabs, gen) -> tuple:
@@ -1528,35 +1616,58 @@ K2_BF16_ROWS = (512 * 4 * 512, 512 * 128, N_SWEEP, N_RAGGED, N_SWEEP_NEW)
 K2_BF16_FULL_ROWS = 512 * 128   # the full [sdf | feature] output's check
 
 
-def sass_counts(lib: str, opcodes) -> dict:
-    """How many SASS instructions of a shared library start with each
-    opcode (cuobjdump -sass of the toolkit beside nvcc)."""
+def sass_by_function(lib: str, opcodes) -> dict:
+    """{function: {opcode: count}} of a shared library's SASS (cuobjdump
+    -sass of the toolkit beside nvcc), each function by its mangled name,
+    each opcode counting the instructions that start with it."""
     from factored_neus_tpu_torch.ops import _cuda
     tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
-                     sass)
-    return {op: sum(o.startswith(op) for o in ops) for op in opcodes}
+    out, fn = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = dict.fromkeys(opcodes, 0)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                      line)
+        if fn and m:
+            for op in opcodes:
+                out[fn][op] += m.group(1).startswith(op)
+    return out
 
 
-def wgmma_build_report(label: str, src: str) -> dict:
+def wgmma_build_report(label: str, src: str, kernels=()) -> dict:
     """A wgmma kernel's registers, spills and shared memory as ptxas
     reported them at the build of its source, any wgmma serialization
-    ptxas warned of, and its library's SASS HGMMA (warpgroup) and HMMA
-    (mma.sync) counts; raises unless it runs on wgmma alone."""
+    ptxas warned of, and its SASS HGMMA (warpgroup) and HMMA (mma.sync)
+    counts ("sass": {name: counts}); raises unless each counted kernel
+    has HGMMA and no function of the source has HMMA.  The counts are
+    ``label``'s, over the source's functions, or, for a source of several
+    kernels, each of ``kernels``'s (the functions whose names hold it)."""
     from factored_neus_tpu_torch.ops import _cuda
     log = _cuda.BUILD_LOG.get(src, "")
     info = [l.strip() for l in log.splitlines()
             if "registers" in l or "spill" in l or "smem" in l
             or "wgmma" in l.lower()]
-    counts = sass_counts(_cuda._lib_path(src), ("HGMMA", "HMMA"))
     for line in info:
         print(f"  {label} ptxas: {line}")
-    print(f"  {label} SASS: {counts['HGMMA']} HGMMA, {counts['HMMA']} HMMA")
-    if counts["HGMMA"] == 0 or counts["HMMA"] != 0:
-        raise AssertionError(f"{label} must run on wgmma and not on "
-                             f"mma.sync")
+    ops = ("HGMMA", "HMMA")
+    fns = sass_by_function(_cuda._lib_path(src), ops)
+    counts = {k: {op: sum(c[op] for f, c in fns.items() if k in f)
+                  for op in ops} for k in (kernels or [""])}
+    if not kernels:
+        counts = {label: counts[""]}
+    for k, c in counts.items():
+        print(f"  {k} SASS: {c['HGMMA']} HGMMA, {c['HMMA']} HMMA")
+        if c["HGMMA"] == 0 or c["HMMA"] != 0:
+            raise AssertionError(f"{k} must run on wgmma and not on "
+                                 f"mma.sync")
+    mma = [f for f, c in fns.items() if c["HMMA"]]
+    if mma:
+        raise AssertionError(f"{label}: mma.sync in {mma}")
     return {"ptxas": info, "sass": counts}
 
 
@@ -3560,11 +3671,13 @@ def main() -> int:
     print(f"womask split run rays/s over steps 11-{SPLIT_STEPS}: "
           f"{split['rays_per_sec']:.0f} on {card}")
     print(f"tc_pack.pack_weights calls under the switches: stash run "
-          f"{stash['pack_weights_calls']}, split run "
+          f"{stash['pack_weights_calls']} ({STASH_STEPS} steps), split run "
           f"{split['pack_weights_calls']}")
-    if not stash["pack_weights_calls"] or not split["pack_weights_calls"]:
-        raise AssertionError("a switch-only K1 variant ran without its "
-                             "3xTF32 pack built by kernel_weights")
+    if stash["pack_weights_calls"] != STASH_STEPS or \
+            split["pack_weights_calls"]:
+        raise AssertionError("tc_pack.pack_weights must be built once a "
+                             "step in the stash run (K1-fwd-stash's pack, by "
+                             "kernel_weights) and never in the split run")
     bf16 = subprocess_run(BF16_RUN, {"FNEUS_CORE_ACT_BF16": "1"}, "bf16")
     print(f"bf16 wmask run rays/s over steps 21-{BF16_STEPS}: "
           f"{bf16['rays_per_sec']:.0f} on {card}; tc_pack.pack_weights_bf16 "

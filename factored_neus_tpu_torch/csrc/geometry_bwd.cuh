@@ -1,69 +1,43 @@
-// K1-bwd-stash and K1-bwd-split on mma.sync: the backward of K1-fwd.
-// Given the cotangents (ct_out, ct_grad) of (out, grad), it recomputes the
-// primal forward together with a forward tangent along ct_grad, 32 primal
-// + 32 tangent rows of one 64-row tile, then reverse-sweeps both chains
-// (reverse over forward: the Hessian-vector term of the eikonal loss) ->
-// ct_x and the weight and bias gradients summed over all rows.  K1-bwd,
-// the stacked call (_make_geom.run_bwd, body _build_bwd_kernel_stacked),
-// is geometry_bwd_wg.cu on wgmma; the notes below on the products, the
-// partial slices and the scratch hold for both variants here.
-//
-// Bound: operations.  The function needs about 11.0 S FLOPs per row
-// (S = 524,544 multiply-adds at full width): the primal and tangent
-// forward without the last layer, the primal's weight-gradient and
-// input-cotangent products, and the tangent's, whose last layer is only a
-// column of dW and a row of W since its seed is e0 / scale.  This kernel
-// does 11.5 S: it runs the tangent's last layer as full stacked products,
-// like the rest of the stacked forward and reverse sweep.  Every product
-// runs on the tensor cores in 3xTF32 (tc_mma.cuh: forward X W and input
-// cotangents R W^T with the weights staged by cp.async, weight gradients
-// X^T R from the two tiles in shared memory), so the least time is three
-// TF32 products' worth of those FLOPs over 495 TFLOP/s.  What differs
-// from the TPU: there the grid runs in order and the weight gradient
-// accumulates in revisited VMEM blocks.  Here blocks run in parallel, so
-// each persistent block accumulates into its own slice of a partial
-// buffer, tile after tile in a fixed order, and a second small kernel sums
-// the slices in a fixed order: the result is deterministic.  Each tile
-// adds its 64-row sums to the slice with a read-modify-write of the whole
-// slice (2.1 MB at full width); the 132 slices (278 MB) do not fit in the
-// 50 MB L2, so that is ~4.2 MB of device-memory traffic per tile, ~8.6 GB
-// a call.  The stacked pre-activations of one tile (9 x 64 x ld floats) do
-// not fit in shared memory next to the two 64-row work tiles, so they go
-// to a per-block scratch (82 MB over 132 blocks, also more than L2 holds):
-// written once and read twice (the layer input rebuilt, then the
-// activation's derivative), ~3.2 GB a call at full width.
-//
-// K1-bwd-stash (entry point geometry_bwd_stash) replaces
-// _make_geom.run_bwd_stash (body _build_bwd_kernel_from_stash): the primal
-// pre-activations come from the bf16 stash that K1-fwd-stash wrote, so
-// only the tangent forward is recomputed, as a 32-row product over the
-// tangent rows; biases are not read.  Bound: operations, 2 S' fewer FLOPs
-// per row than K1-bwd (S' = S without the last layer), against 4,018 more
-// bytes read per row at full width.
-//
-// K1-bwd-split (entry point geometry_bwd_split) replaces the same call with
-// stacked=False (body _build_bwd_kernel): the same function as K1-bwd, with
-// the primal and tangent chains as separate row sets.  Each product of the
-// stacked sweep becomes two 32-row products, one over each chain's rows
-// (forward a = x W + b and ad = xd W, input cotangents r W^T and rd W^T),
-// each streaming the layer's weights once; the weight gradient sums the
-// primal chain's 32 rows (k-steps 0-3) and the tangent chain's (4-7) into
-// the same registers before the one read-modify-write of the slice.
-// Bound: as K1-bwd.
-//
-// K1-bwd-split-bf16 and K1-bwd-stash-bf16 (BF, entry points in
-// geometry_bwd_bf16.cu) are two of the three in the bf16 operand mode of
-// pallas_geometry (_mm_fns(bf16=True), the JAX step's default; the third,
-// K1-bwd-bf16, is geometry_bwd_bf16_wg.cu on wgmma): every
-// product -- the stacked forward, the weight gradients X^T R and the input
-// cotangents R W^T, so the eikonal Hessian-vector term too -- on bf16
+// K1-bwd-stash-bf16 and K1-bwd-split-bf16 on bf16 mma.sync: the backward
+// of K1-fwd in the bf16 operand mode of pallas_geometry (_mm_fns(bf16=True),
+// the JAX step's default), under the switches that reach them; the entry
+// points are geometry_bwd_bf16.cu.  Given the cotangents (ct_out, ct_grad)
+// of (out, grad), it recomputes the primal forward together with a forward
+// tangent along ct_grad, 32 primal + 32 tangent rows of one 64-row tile,
+// then reverse-sweeps both chains (reverse over forward: the
+// Hessian-vector term of the eikonal loss) -> ct_x and the weight and bias
+// gradients summed over all rows.  Every product -- the forward, the
+// weight gradients X^T R and the input cotangents R W^T -- takes bf16
 // operands (rounded to nearest even, the seeds ct_out / scale and e0 /
 // scale included) with an f32 sum, on bf16 mma from pack_weights_bf16's
 // pack (tc_mma.cuh); the encoding, softplus and its derivatives, the skip
-// and the bias sums stay f32.  Bound: operations, one bf16 product's worth
-// of the same FLOPs over 989 TFLOP/s.  The body is this header; each
-// operand type's entry points are a source of their own, so that nvcc
-// builds the two in parallel.
+// and the bias sums stay f32.  K1-bwd-bf16, the stacked call, is
+// geometry_bwd_bf16_wg.cu on wgmma; the f32 variants are
+// geometry_bwd_chains_wg.cu on wgmma.
+//
+// Bound: operations, one bf16 product's worth over 989 TFLOP/s of about
+// 11.0 S FLOPs per row (S = 524,544 multiply-adds at full width); this
+// kernel does 11.5 S (the tangent's last layer as full stacked products).
+// Here blocks run in parallel, so each persistent block accumulates the
+// weight gradient into its own slice of a partial buffer, tile after tile
+// in a fixed order, and a second small kernel sums the slices in a fixed
+// order: the result is deterministic.  Each tile adds its 64-row sums to
+// the slice with a read-modify-write of the whole slice (2.1 MB at full
+// width), ~8.6 GB a call; the stacked pre-activations of one tile go to a
+// per-block scratch, written once and read twice.
+//
+// K1-bwd-stash-bf16 (entry point geometry_bwd_stash_bf16) replaces
+// _make_geom.run_bwd_stash with bf16=True (body
+// _build_bwd_kernel_from_stash): the primal pre-activations come from the
+// bf16 stash that K1-fwd-stash-bf16 wrote, so only the tangent forward is
+// recomputed, as a 32-row product over the tangent rows; biases are not
+// read.  K1-bwd-split-bf16 (entry point geometry_bwd_split_bf16) replaces
+// the same call as K1-bwd-bf16 with stacked=False (body _build_bwd_kernel):
+// the primal and tangent chains as separate row sets, each product of the
+// stacked sweep two 32-row products, one over each chain's rows; the
+// weight gradient sums the primal chain's 32 rows (k-steps 0-3) and the
+// tangent chain's (4-7) into the same registers before the one
+// read-modify-write of the slice.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -87,33 +61,33 @@ enum BwdMode { BWD_STASH = 1, BWD_SPLIT = 2 };
 
 // Forward product of layer l into R: both chains' rows (split: one 32-row
 // product per chain), or from the stash the tangent rows alone.
-template <int MODE, bool BF>
+template <int MODE>
 __device__ __forceinline__ void bwd_forward(const TcDims& d, int l,
                                             const float* xin, int ldx,
                                             float* R, float* ring) {
   const int kp = d.kp[l], off = d.fwd_off[l], S = d.fwd_st[l], np = d.np[l];
   if (MODE == BWD_SPLIT)
-    tc_product<1, BF>(d, xin, ldx, kp, off, S, np, R, d.ld, ring);
-  tc_product<1, BF>(d, xin + HALF * ldx, ldx, kp, off, S, np,
-                    R + HALF * d.ld, d.ld, ring);
+    tc_product<1, true>(d, xin, ldx, kp, off, S, np, R, d.ld, ring);
+  tc_product<1, true>(d, xin + HALF * ldx, ldx, kp, off, S, np,
+                      R + HALF * d.ld, d.ld, ring);
 }
 
 // Input cotangents of both chains, A = R W_l (the W block of the pack).
-template <int MODE, bool BF>
+template <int MODE>
 __device__ __forceinline__ void bwd_input_cot(const TcDims& d, int l,
                                               const float* R, float* A,
                                               float* ring) {
   const int kp = d.np[l], off = d.rev_off[l], S = d.rev_st[l], np = d.kp[l];
   if (MODE == BWD_SPLIT) {
-    tc_product<1, BF>(d, R, d.ld, kp, off, S, np, A, d.ld, ring);
-    tc_product<1, BF>(d, R + HALF * d.ld, d.ld, kp, off, S, np,
+    tc_product<1, true>(d, R, d.ld, kp, off, S, np, A, d.ld, ring);
+    tc_product<1, true>(d, R + HALF * d.ld, d.ld, kp, off, S, np,
                       A + HALF * d.ld, d.ld, ring);
   } else {
-    tc_product<2, BF>(d, R, d.ld, kp, off, S, np, A, d.ld, ring);
+    tc_product<2, true>(d, R, d.ld, kp, off, S, np, A, d.ld, ring);
   }
 }
 
-template <int MODE, bool BF>
+template <int MODE>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 geometry_bwd_kernel(TcDims d, const float* __restrict__ x,
                     const float* __restrict__ ct_out,
@@ -176,7 +150,7 @@ geometry_bwd_kernel(TcDims d, const float* __restrict__ x,
     // From the stash only the tangent rows are computed.
     for (int l = 0; l < lL; ++l) {
       const int N = d.outs[l];
-      bwd_forward<MODE, BF>(d, l, l == 0 ? E : A, l == 0 ? eld : ld, R,
+      bwd_forward<MODE>(d, l, l == 0 ? E : A, l == 0 ? eld : ld, R,
                             ring);
       __syncthreads();
       const bool skip_next = (d.skip_mask >> (l + 1)) & 1;
@@ -248,7 +222,7 @@ geometry_bwd_kernel(TcDims d, const float* __restrict__ x,
       }
 
       // weight gradient [in][out] over both halves; bias over primal rows
-      tc_weight_grad<BF>(l == 0 ? E : A, l == 0 ? eld : ld, K, R, ld, N,
+      tc_weight_grad<true>(l == 0 ? E : A, l == 0 ? eld : ld, K, R, ld, N,
                          part + off, first, ring);
       float* pb = part + off + (long long)K * N;
       for (int c = tid; c < N; c += TC_THREADS) {
@@ -259,7 +233,7 @@ geometry_bwd_kernel(TcDims d, const float* __restrict__ x,
       __syncthreads();
 
       // input cotangents of both chains: A = R @ W^T
-      bwd_input_cot<MODE, BF>(d, l, R, A, ring);
+      bwd_input_cot<MODE>(d, l, R, A, ring);
       __syncthreads();
       if (skip) {
         const int hw = K - d.d_embed;
@@ -317,13 +291,13 @@ geometry_bwd_kernel(TcDims d, const float* __restrict__ x,
 
 // Pointers: [x, ct_out, ct_grad, ct_x, scratch, partials, grads, then
 // (bf16 stash,) pack, b[L]]; from the stash without biases.
-template <int MODE, bool BF>
+template <int MODE>
 static int launch_bwd(const int* ia, const unsigned long long* p, float scale,
                       unsigned long long stream) {
   constexpr bool FROM_STASH = MODE == BWD_STASH;
   const int pw = FROM_STASH ? 8 : 7;
   TcDims d;
-  int rc = tc_dims_from_args(ia, scale, (const float*)p[pw], &d, BF);
+  int rc = tc_dims_from_args(ia, scale, (const float*)p[pw], &d, true);
   if (rc) return rc;
   long long P = 0;
   int stash_cols = 0;
@@ -339,11 +313,11 @@ static int launch_bwd(const int* ia, const unsigned long long* p, float scale,
   const size_t smem = tc_smem_bytes(d, (size_t)TC_TILE * 2 * (d.eld + d.ld));
   if (!smem) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      geometry_bwd_kernel<MODE, BF>,
+      geometry_bwd_kernel<MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
-  geometry_bwd_kernel<MODE, BF><<<grid, TC_THREADS, smem, s>>>(
+  geometry_bwd_kernel<MODE><<<grid, TC_THREADS, smem, s>>>(
       d, (const float*)p[0], (const float*)p[1], (const float*)p[2],
       (float*)p[3], (float*)p[4], (float*)p[5], P, n_tiles, bstash,
       stash_cols);

@@ -3,21 +3,20 @@
 // factored_neus_tpu/ops/pallas_geometry.py's _make_geom.run_bwd_stash and
 // the stacked=False call with bf16=True (the bodies
 // _build_bwd_kernel_from_stash and _build_bwd_kernel on
-// _mm_fns(bf16=True)).  Arguments as the f32 entry points'
-// (geometry_bwd.cu), the pack pack_weights_bf16's.  K1-bwd-bf16, the
-// stacked call, is geometry_bwd_bf16_wg.cu on wgmma.
+// _mm_fns(bf16=True)).  K1-bwd-bf16, the stacked call, is
+// geometry_bwd_bf16_wg.cu on wgmma.
 #include "geometry_bwd.cuh"
 
 extern "C" int geometry_bwd_stash_bf16(const int* ia,
                                        const unsigned long long* p,
                                        float scale,
                                        unsigned long long stream) {
-  return launch_bwd<BWD_STASH, true>(ia, p, scale, stream);
+  return launch_bwd<BWD_STASH>(ia, p, scale, stream);
 }
 
 extern "C" int geometry_bwd_split_bf16(const int* ia,
                                        const unsigned long long* p,
                                        float scale,
                                        unsigned long long stream) {
-  return launch_bwd<BWD_SPLIT, true>(ia, p, scale, stream);
+  return launch_bwd<BWD_SPLIT>(ia, p, scale, stream);
 }

@@ -1,7 +1,7 @@
 // Shared device code of the MLP kernels: the positional encoding and its
 // backward, softplus(beta=100), and the fixed-order sum of per-block weight
-// gradients (the mma.sync K1 backwards: K1-bwd-split, K1-bwd-stash and
-// their bf16 variants).  Every kernel runs its products on the tensor
+// gradients (the mma.sync K1 backwards: K1-bwd-split-bf16 and
+// K1-bwd-stash-bf16).  Every kernel runs its products on the tensor
 // cores.
 #pragma once
 

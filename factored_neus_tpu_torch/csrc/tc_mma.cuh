@@ -1,6 +1,6 @@
 // Tensor-core product engine of the mma.sync kernels, the switch-only K1
-// variants (geometry_fwd.cu's stash forward, geometry_bwd.cu's split and
-// stash backwards, each also in bf16): the products an MLP
+// variants (geometry_fwd.cu's stash forward, also in bf16, and
+// geometry_bwd.cuh's bf16 split and stash backwards): the products an MLP
 // kernel runs on a 64-row tile held in shared memory, in f32 accuracy
 // through 3xTF32 on mma.sync (or on bf16 operands), with the weights
 // staged into shared memory by cp.async.

@@ -53,17 +53,18 @@ class KernelWeights(NamedTuple):
     """kernel_weights' result: the effective weights and biases, and the
     packs the kernels read, each None where it was not built.  Who reads
     which:
-      pack     the SDF network's 3xTF32 mma.sync pack: the switch-only K1
-               variants (the stash pair, K1-bwd-split)
-      pack16   the SDF network's bf16 mma.sync pack: those variants in
-               bf16
+      pack     the SDF network's 3xTF32 mma.sync pack: K1-fwd-stash
+               (under the stash switch)
+      pack16   the SDF network's bf16 mma.sync pack: the switch-only K1
+               variants in bf16 (the stash pair, K1-bwd-split-bf16)
       sweep16  the forward bf16 slab pack: K2-bf16, K1-fwd-bf16 and
                K1-bwd-bf16 (SDF), K3-fwd-bf16 and K3-bwd-bf16 (radiance)
       rev16    the reverse bf16 slab pack: K1-fwd-bf16 and K1-bwd-bf16,
                K3-bwd-bf16
-      sweep32  the forward f32 slab pack: K2, K1-fwd and K1-bwd (SDF),
-               K3-fwd and K3-bwd (radiance)
-      rev32    the reverse f32 slab pack: K1-fwd and K1-bwd, K3-bwd"""
+      sweep32  the forward f32 slab pack: K2, K1-fwd, K1-bwd, K1-bwd-split
+               and K1-bwd-stash (SDF), K3-fwd and K3-bwd (radiance)
+      rev32    the reverse f32 slab pack: K1-fwd, K1-bwd, K1-bwd-split and
+               K1-bwd-stash, K3-bwd"""
     ws: List[torch.Tensor]
     bs: List[torch.Tensor]
     pack: _Pack = None         # 3xTF32 (tc_pack.pack_weights)
@@ -126,8 +127,9 @@ class _WNLayers(nn.Module):
 
 def mode_pack(weights: KernelWeights, bf16: bool):
     """The mma.sync pack of kernel_weights' result that K1's switch-only
-    variants read in the operand mode: pack16 (bf16), else pack (None
-    where it was not built: geometry_kernel.geometry builds its own)."""
+    variants read in the operand mode: pack16 (bf16), else pack
+    (K1-fwd-stash's; None where it was not built: geometry_kernel.geometry
+    builds its own where one runs)."""
     return weights.pack16 if bf16 else weights.pack
 
 
@@ -138,8 +140,9 @@ def sweep_pack(weights: KernelWeights, bf16: bool):
 
 def bwd_slabs(weights: KernelWeights, bf16: bool):
     """The two slab packs that the operand mode's wgmma kernels read
-    (K1-bwd-bf16 or K3-bwd-bf16: sweep16, rev16; K1-fwd, K1-bwd or
-    K3-bwd: sweep32, rev32), or None where they were not built."""
+    (K1-bwd-bf16 or K3-bwd-bf16: sweep16, rev16; K1-fwd, K1-bwd,
+    K1-bwd-split, K1-bwd-stash or K3-bwd: sweep32, rev32), or None where
+    they were not built."""
     if bf16:
         return ((weights.sweep16, weights.rev16)
                 if weights.rev16 is not None else None)
@@ -190,15 +193,18 @@ class SDFNetwork(_WNLayers):
         - rev32 (tc_pack.pack_rev_f32; with sweep32
           geometry_kernel.make_bwd_slabs(bf16=False)) wherever K1-fwd runs
           (``k1`` in the f32 mode, not through the stash pair:
-          geometry_kernel.wg_forward()), with or without grad;
+          geometry_kernel.wg_forward()), with or without grad (K1-bwd and
+          K1-bwd-split read them too), and under the stash switch with
+          grad (K1-bwd-stash);
         - sweep16 (make_sweep_pack, tc_pack.pack_sweep_bf16) for K2-bf16
           (``sweep_bf16``) and, with rev16 (tc_pack.pack_rev_bf16;
           geometry_kernel.make_bwd_slabs), wherever K1-fwd-bf16 runs
           (``k1`` in the bf16 mode, not through the stash pair), with or
           without grad: K1-bwd-bf16 reads them too;
-        - pack (tc_pack.pack_weights, 3xTF32 on mma.sync; bf16:
-          tc_pack.pack_weights_bf16, pack16) only where a switch-only K1
-          variant runs: the stash pair or K1-bwd-split (``k1``, not
+        - pack (tc_pack.pack_weights, 3xTF32 on mma.sync) only where
+          K1-fwd-stash runs (``k1`` under the stash switch); pack16
+          (tc_pack.pack_weights_bf16) only where a switch-only K1 variant
+          runs in bf16: the stash pair or K1-bwd-split-bf16 (``k1``, not
           geometry_kernel.wg_backward()).
         ``k1`` False: for the sweeps alone (value_sweep, the grid fill)."""
         kw = super().kernel_weights()
@@ -206,7 +212,8 @@ class SDFNetwork(_WNLayers):
             return kw
         ws, cfg = kw.ws, self.cfg
         wg16 = bf16 and k1 and GK.wg_forward()
-        wg32 = not bf16 and k1 and GK.wg_forward()
+        wg32 = not bf16 and k1 and (GK.wg_forward() or
+                                    torch.is_grad_enabled())
         with torch.no_grad():
             if wg32:
                 sweep32, rev32 = GK.make_bwd_slabs(cfg, ws, bf16=False)
@@ -218,9 +225,10 @@ class SDFNetwork(_WNLayers):
                 kw = kw._replace(sweep16=SK.make_sweep_pack(cfg, ws))
             if wg16:
                 kw = kw._replace(rev16=TP.pack_rev_bf16(ws, cfg.d_embed))
-            if k1 and not GK.wg_backward():
-                kw = (kw._replace(pack16=TP.pack_weights_bf16(ws)) if bf16
-                      else kw._replace(pack=TP.pack_weights(ws)))
+            if k1 and bf16 and not GK.wg_backward():
+                kw = kw._replace(pack16=TP.pack_weights_bf16(ws))
+            elif k1 and not bf16 and not GK.wg_forward():
+                kw = kw._replace(pack=TP.pack_weights(ws))
         return kw
 
     def value_sweep(self, x: torch.Tensor,

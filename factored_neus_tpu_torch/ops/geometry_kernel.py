@@ -1,8 +1,8 @@
 """K1: the fused SDF geometry core and its backward (csrc/geometry_fwd_wg.cu,
 csrc/geometry_bwd_wg.cu; in the bf16 mode csrc/geometry_fwd_bf16_wg.cu,
 csrc/geometry_bwd_bf16_wg.cu; the switch-only variants in
-csrc/geometry_fwd.cu, csrc/geometry_bwd.cu and csrc/geometry_bwd_bf16.cu),
-with their plain PyTorch twins.
+csrc/geometry_bwd_chains_wg.cu, csrc/geometry_fwd.cu and
+csrc/geometry_bwd_bf16.cu), with their plain PyTorch twins.
 
 Counterpart of factored_neus_tpu/ops/pallas_geometry.py
 (sdf_value_grad_feat_pallas).  ``geometry(ws, bs, x, cfg)`` returns
@@ -40,11 +40,17 @@ K1-bwd a stacked sweep that writes each layer's f32 X_l and R_l, then a
 split-K ``wgmma`` pass dW_l = X_l^T R_l and a fixed-order reduce
 (``weight_grad_pass_plain(f32=True)`` is that pass in plain PyTorch,
 ``sweep_mm_f32`` the sweep's products).  K2 reads the first of those
-packs too (sdf_kernel).  K1-bwd-split and the stash pair, which only a
-switch reaches, stay on ``mma.sync`` (csrc/geometry_bwd.cuh,
-csrc/geometry_fwd.cu), on weights packed by ``tc_pack.pack_weights``:
-once a step by ``fields.SDFNetwork.kernel_weights`` under their switches,
-or here when the caller gives no pack.
+packs too (sdf_kernel).  K1-bwd-split and K1-bwd-stash, which only a
+switch reaches, run on the same engine and read the same two packs
+(csrc/geometry_bwd_chains_wg.cu, ``chains_wg_plan``): tiles of 64 points,
+each chain's 64 rows one product, K1-bwd's pass over images in K1-bwd's
+row order (``geometry_bwd_plain(mm=sweep_mm_f32)`` emulates their
+arithmetic); a launch raises
+without the packs, which ``fields.SDFNetwork.kernel_weights`` builds under
+the split switch (K1-fwd's) and, with grad, under the stash switch.
+K1-fwd-stash alone stays on ``mma.sync`` (csrc/geometry_fwd.cu), on weights
+packed by ``tc_pack.pack_weights``: once a step by kernel_weights under
+the stash switch, or here when the caller gives no pack.
 
 The bf16 operand mode (``bf16=True``; the stage-1 renderer's
 ``RendererConfig.core_act_bf16``, ``FNEUS_CORE_ACT_BF16``, as in the JAX
@@ -98,9 +104,11 @@ K1_BWD = _cuda.CudaKernel("geometry_bwd", "geometry_bwd_wg.cu",
                           "geometry_bwd")
 K1_FWD_STASH = _cuda.CudaKernel("geometry_fwd_stash", "geometry_fwd.cu",
                                 "geometry_fwd_stash")
-K1_BWD_STASH = _cuda.CudaKernel("geometry_bwd_stash", "geometry_bwd.cu",
+K1_BWD_STASH = _cuda.CudaKernel("geometry_bwd_stash",
+                                "geometry_bwd_chains_wg.cu",
                                 "geometry_bwd_stash")
-K1_BWD_SPLIT = _cuda.CudaKernel("geometry_bwd_split", "geometry_bwd.cu",
+K1_BWD_SPLIT = _cuda.CudaKernel("geometry_bwd_split",
+                                "geometry_bwd_chains_wg.cu",
                                 "geometry_bwd_split")
 # the bf16 operand mode's entry points
 K1_FWD_BF16 = _cuda.CudaKernel("geometry_fwd_bf16",
@@ -268,8 +276,10 @@ def geometry_bwd_plain(ws: Sequence[torch.Tensor],
     operands, as the bf16 kernels compute them.  ``operands``: receives,
     for each layer l, the weight gradient's operands (x_l, xd_l, r_l, rd_l)
     (weight_grad_pass_plain).  ``mm``: the products of the sweep (a, b)
-    -> a @ b, in place of the operand mode's (sweep_mm_f32 emulates
-    K1-bwd's).  Computes in x's dtype."""
+    -> a @ b, in place of the operand mode's (sweep_mm_f32 emulates the
+    f32 wgmma kernels': each chain's rows one product, as K1-bwd-split and
+    K1-bwd-stash run them; K1-bwd's stacked rows give each row the same
+    products).  Computes in x's dtype."""
     dt = x.dtype
     mm = mm or (mm_bf16 if bf16 else torch.matmul)
     ins, _, _ = layer_dims(cfg, ws)
@@ -758,18 +768,96 @@ def _launch_backward_wg(cfg, x, ws, bs, ct_out, ct_grad, slabs,
     return ct_x, dws, dbs
 
 
-def _launch_backward(entry, cfg, x, ws, bs, stash, ct_out, ct_grad,
-                     pack=None, bf16: bool = False):
-    kernel = KERNELS[entry, bf16]
+# K1-bwd-split and K1-bwd-stash (csrc/geometry_bwd_chains_wg.cu): a tile's
+# points (FC_PTS: each chain's 64 rows one product), the scratch float4s a
+# thread a hidden layer (FC_SQ: sigma(100 a) and ad), the sweep's shared
+# memory (K1-bwd's ring and A tile, one encoding tile of 64 points)
+WGF_CHAIN_POINTS = 64
+WGF_CHAIN_SQ = 32
+WGF_CHAIN_SMEM = 1024 + 2 * 65536 + 65536 + 64 * 2 * 48 * 4 + 32
+
+
+def chains_wg_plan(cfg, ws, n: int, slabs, sms: int,
+                   stash: bool = False) -> dict:
+    """K1-bwd-split's launch (``stash``: K1-bwd-stash's): its integer
+    arguments (``iargs``, geometry_bwd_chains_wg.cu) and the sizes of what
+    the wrapper allocates.  The sweep: tiles of WGF_CHAIN_POINTS points,
+    one persistent block a tile up to one a SM, each with its f32 scratch
+    (``scratch_floats``), writing each tile's images as two of K1-bwd's
+    32-point image tiles; the weight-gradient pass and the reduce: K1-bwd's
+    (_bwd_wgf_plan), with its units and chunks over the image tiles that
+    hold a point.  Raises unless ``slabs`` holds make_bwd_slabs(bf16=False)'s
+    layouts for ws."""
+    name = "K1-bwd-stash" if stash else "K1-bwd-split"
+    (_, flay), (_, rlay) = slabs
+    if (getattr(flay, "operand", None), getattr(rlay, "operand", None)) != (
+            "wgmma-f32", "wgmma-f32-rev"):
+        raise ValueError(f"{name} multiplies on wgmma: it takes "
+                         f"make_bwd_slabs(bf16=False)'s two slab packs")
+    wgf = _bwd_wgf_plan(cfg, ws, n, slabs, sms)
+    L = len(ws)
+    tiles = -(-n // WGF_CHAIN_POINTS)
+    grid = min(tiles, sms)
+    per_img = wgf["image_bytes"] // wgf["tiles"]
+    iargs = list(wgf["iargs"])
+    iargs[4:6] = [grid, tiles]
+    iargs.insert(8, stash_columns(ws) if stash else 0)
+    return {**wgf, "iargs": iargs, "grid": grid, "tiles": tiles,
+            "n_pass": tiles, "nc": 2, "sweep_smem": WGF_CHAIN_SMEM,
+            "image_tiles": 2 * tiles, "image_bytes": 2 * tiles * per_img,
+            "scratch_floats": grid * ((L - 1) * WGF_CHAIN_SQ + 16) * 256 * 4,
+            "db_floats": grid * 4 * L * WG_DB_ROW}
+
+
+def _launch_backward_chains(cfg, x, ws, bs, stash, ct_out, ct_grad, slabs):
+    """K1-bwd-split (``stash`` None) or K1-bwd-stash on make_bwd_slabs'
+    f32 packs; raises without them, before any CUDA call."""
+    kernel = K1_BWD_STASH if stash is not None else K1_BWD_SPLIT
     dev = x.device
+    if slabs is None:
+        raise ValueError(f"{kernel.name} reads make_bwd_slabs(bf16=False)'s "
+                         f"packs, built by SDFNetwork.kernel_weights: none "
+                         f"was given")
+    if getattr(slabs[0][1], "operand", None) != "wgmma-f32":
+        raise ValueError(f"{kernel.name} multiplies on wgmma-f32 slabs: it "
+                         f"takes no other pack")
+    (fp, _), (rp, _) = slabs
     bs_c = [b.detach().contiguous() for b in bs]
-    pack, lay = _pack_for(kernel, ws, pack, bf16)
     x = x.detach().contiguous()
     ct_out = ct_out.contiguous()
     ct_grad = ct_grad.contiguous()
     _cuda.check_cuda_tensors(kernel.name,
-                             [x, ct_out, ct_grad, pack, *bs_c])
-    n, L = x.shape[0], len(ws)
+                             [x, ct_out, ct_grad, fp, rp, *bs_c])
+    n = x.shape[0]
+    _check_stash(kernel, stash, n, ws, dev)
+    ins = [int(w.shape[1]) for w in ws]
+    outs = [int(w.shape[0]) for w in ws]
+    P = sum(i * o + o for i, o in zip(ins, outs))
+    ct_x = torch.empty(n, 3, device=dev, dtype=torch.float32)
+    if n > 0:
+        plan = chains_wg_plan(cfg, ws, n, slabs, _cuda.sm_count(dev),
+                              stash is not None)
+        grads = torch.empty(P, device=dev, dtype=torch.float32)
+        f32 = lambda k: torch.empty(k, device=dev, dtype=torch.float32)
+        img = torch.empty(plan["image_bytes"], device=dev, dtype=torch.uint8)
+        tail = [stash] if stash is not None else bs_c
+        kernel.launch(plan["iargs"],
+                      [x, ct_out, ct_grad, ct_x, f32(plan["scratch_floats"]),
+                       img, f32(plan["db_floats"]), f32(plan["slot_floats"]),
+                       grads, fp, rp, *tail], cfg.scale, dev)
+    else:
+        grads = torch.zeros(P, device=dev, dtype=torch.float32)
+    dws, dbs, off = [], [], 0
+    for i, o in zip(ins, outs):
+        dws.append(grads[off:off + i * o].view(i, o).t())
+        dbs.append(grads[off + i * o:off + i * o + o])
+        off += i * o + o
+    return ct_x, dws, dbs
+
+
+def _check_stash(kernel, stash, n: int, ws, dev) -> None:
+    """Raises unless ``stash`` (where given) is a contiguous bf16 [n,
+    stash_columns(ws)] tensor on dev."""
     if stash is not None and (stash.device != dev or
                               stash.dtype != torch.bfloat16 or
                               not stash.is_contiguous() or
@@ -778,6 +866,23 @@ def _launch_backward(entry, cfg, x, ws, bs, stash, ct_out, ct_grad,
                          f"[{n}, {stash_columns(ws)}] on {dev}, got "
                          f"{stash.dtype} {tuple(stash.shape)} on "
                          f"{stash.device}")
+
+
+def _launch_backward(entry, cfg, x, ws, bs, stash, ct_out, ct_grad,
+                     pack=None):
+    """K1-bwd-split-bf16 or K1-bwd-stash-bf16 on bf16 mma.sync, on
+    make_pack(ws, bf16=True)'s pack (built here when None)."""
+    kernel = KERNELS[entry, True]
+    dev = x.device
+    bs_c = [b.detach().contiguous() for b in bs]
+    pack, lay = _pack_for(kernel, ws, pack, True)
+    x = x.detach().contiguous()
+    ct_out = ct_out.contiguous()
+    ct_grad = ct_grad.contiguous()
+    _cuda.check_cuda_tensors(kernel.name,
+                             [x, ct_out, ct_grad, pack, *bs_c])
+    n, L = x.shape[0], len(ws)
+    _check_stash(kernel, stash, n, ws, dev)
     ins = [int(w.shape[1]) for w in ws]
     outs = [int(w.shape[0]) for w in ws]
     sizes = [i * o + o for i, o in zip(ins, outs)]
@@ -813,32 +918,45 @@ def launch_backward(cfg, x, ws, bs, ct_out, ct_grad, pack=None,
 
 
 def launch_backward_split(cfg, x, ws, bs, ct_out, ct_grad, pack=None,
-                          bf16: bool = False
+                          bf16: bool = False, slabs=None
                           ) -> Tuple[torch.Tensor, List[torch.Tensor],
                                      List[torch.Tensor]]:
     """K1-bwd-split (bf16: K1-bwd-split-bf16): launch_backward's result,
-    the primal and tangent chains run as separate half-tile products."""
+    the primal and tangent chains run as separate row sets.  ``slabs``:
+    make_bwd_slabs(cfg, ws, bf16=False), the two slab packs K1-bwd-split
+    reads (it raises without them); ``pack``: make_pack(ws, bf16=True),
+    K1-bwd-split-bf16's."""
+    if not bf16:
+        return _launch_backward_chains(cfg, x, ws, bs, None, ct_out, ct_grad,
+                                       slabs)
     return _launch_backward("bwd_split", cfg, x, ws, bs, None, ct_out,
-                            ct_grad, pack, bf16)
+                            ct_grad, pack)
 
 
 def launch_backward_stash(cfg, x, ws, stash, ct_out, ct_grad, pack=None,
-                          bf16: bool = False
+                          bf16: bool = False, slabs=None
                           ) -> Tuple[torch.Tensor, List[torch.Tensor],
                                      List[torch.Tensor]]:
     """K1-bwd-stash (bf16: K1-bwd-stash-bf16): as launch_backward, the
-    primal taken from ``stash`` (biases are not needed)."""
+    primal taken from ``stash`` (biases are not needed).  ``slabs``:
+    make_bwd_slabs(cfg, ws, bf16=False), the two slab packs K1-bwd-stash
+    reads (it raises without them); ``pack``: make_pack(ws, bf16=True),
+    K1-bwd-stash-bf16's."""
+    if not bf16:
+        return _launch_backward_chains(cfg, x, ws, [], stash, ct_out,
+                                       ct_grad, slabs)
     return _launch_backward("bwd_stash", cfg, x, ws, [], stash, ct_out,
-                            ct_grad, pack, bf16)
+                            ct_grad, pack)
 
 
 class GeometryFn(torch.autograd.Function):
     """(x, *ws, *bs) -> (out, grad) through K1-fwd; backward with both
     cotangents through K1-bwd, or K1-bwd-split when not ``stacked``; in
     the bf16 mode through their bf16 kernels.  ``slabs``:
-    make_bwd_slabs(cfg, ws, bf16), the packs of K1-fwd and K1-bwd (bf16:
-    K1-fwd-bf16 and K1-bwd-bf16); ``pack``: make_pack(ws, bf16), the pack
-    of K1-bwd-split (bf16 or not), built without grad by the caller.  On a
+    make_bwd_slabs(cfg, ws, bf16), the packs of K1-fwd, K1-bwd and
+    K1-bwd-split (bf16: K1-fwd-bf16 and K1-bwd-bf16); ``pack``:
+    make_pack(ws, bf16=True), the pack of K1-bwd-split-bf16, built without
+    grad by the caller.  On a
     CPU tensor the bf16 mode runs the explicit twins; the f32 mode does not
     come here on the CPU (geometry_plain differentiates itself)."""
 
@@ -865,9 +983,9 @@ class GeometryFn(torch.autograd.Function):
             ct_x, dws, dbs = _launch_backward_wg(ctx.cfg, x, ws, bs, ct_out,
                                                  ct_grad, ctx.slabs, ctx.bf16)
         elif x.is_cuda:
-            ct_x, dws, dbs = launch_backward_split(ctx.cfg, x, ws, bs,
-                                                   ct_out, ct_grad, ctx.pack,
-                                                   ctx.bf16)
+            ct_x, dws, dbs = launch_backward_split(
+                ctx.cfg, x, ws, bs, ct_out, ct_grad, ctx.pack, ctx.bf16,
+                ctx.slabs)
         else:
             ct_x, dws, dbs = geometry_bwd_plain(ws, bs, x, ct_out, ct_grad,
                                                 ctx.cfg, ctx.bf16)
@@ -877,10 +995,12 @@ class GeometryFn(torch.autograd.Function):
 class GeometryStashFn(torch.autograd.Function):
     """(x, *ws, *bs) -> (out, grad) through K1-fwd-stash, which also keeps
     the bf16 stash for the backward through K1-bwd-stash (bf16: their bf16
-    kernels); on a CPU tensor through their twins (``pack`` None there)."""
+    kernels); on a CPU tensor through their twins (``pack`` None there).
+    ``pack``: make_pack(ws, bf16), K1-fwd-stash's (and K1-bwd-stash-bf16's);
+    ``slabs``: make_bwd_slabs(cfg, ws, bf16=False), K1-bwd-stash's."""
 
     @staticmethod
-    def forward(ctx, cfg, bf16, pack, x, *params):
+    def forward(ctx, cfg, bf16, pack, slabs, x, *params):
         L = len(params) // 2
         ws, bs = params[:L], params[L:]
         if x.is_cuda:
@@ -889,7 +1009,7 @@ class GeometryStashFn(torch.autograd.Function):
             ctx.layout, pack = pack[1], pack[0]
         else:
             out, grad, stash = geometry_fwd_stash_plain(ws, bs, x, cfg, bf16)
-        ctx.cfg, ctx.bf16 = cfg, bf16
+        ctx.cfg, ctx.bf16, ctx.slabs = cfg, bf16, slabs
         ctx.save_for_backward(x, stash, pack, *ws)
         return out, grad
 
@@ -898,15 +1018,14 @@ class GeometryStashFn(torch.autograd.Function):
     def backward(ctx, ct_out, ct_grad):
         x, stash, pack, *ws = ctx.saved_tensors
         if x.is_cuda:
-            ct_x, dws, dbs = launch_backward_stash(ctx.cfg, x, ws, stash,
-                                                   ct_out, ct_grad,
-                                                   (pack, ctx.layout),
-                                                   ctx.bf16)
+            ct_x, dws, dbs = launch_backward_stash(
+                ctx.cfg, x, ws, stash, ct_out, ct_grad, (pack, ctx.layout),
+                ctx.bf16, ctx.slabs)
         else:
             ct_x, dws, dbs = geometry_bwd_stash_plain(ws, x, stash, ct_out,
                                                       ct_grad, ctx.cfg,
                                                       ctx.bf16)
-        return (None, None, None, ct_x, *dws, *dbs)
+        return (None, None, None, None, ct_x, *dws, *dbs)
 
 
 def geometry(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
@@ -920,21 +1039,23 @@ def geometry(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
     through K1-fwd with the backward through K1-bwd when ``stacked``
     (default STACKED_BWD) and K1-bwd-split when not; ``bf16``: in the bf16
     operand mode, each through its bf16 kernel.  ``slabs``:
-    make_bwd_slabs(cfg, ws, bf16), which K1-fwd and K1-bwd read (bf16:
-    K1-fwd-bf16 and K1-bwd-bf16; on a CUDA tensor it raises without them
-    unless the stash pair runs).  ``pack``: make_pack(ws, bf16), which
-    the stash pair and K1-bwd-split read, when the caller already has it
-    (on a CUDA tensor; built here if not)."""
+    make_bwd_slabs(cfg, ws, bf16), which K1-fwd, K1-bwd, K1-bwd-split and
+    K1-bwd-stash read (bf16: K1-fwd-bf16 and K1-bwd-bf16; on a CUDA tensor
+    it raises without them unless the stash pair runs, and a backward
+    through K1-bwd-stash raises without them).  ``pack``: make_pack(ws,
+    bf16), which K1-fwd-stash and the bf16 variants of K1-bwd-stash and
+    K1-bwd-split read, when the caller already has it (on a CUDA tensor;
+    built here if not)."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"geometry: unsupported device {x.device}")
     stash = STASH_BWD if stash is None else stash
     stacked = STACKED_BWD if stacked is None else bool(stacked)
     wgf = x.is_cuda and not stash     # through K1-fwd or K1-fwd-bf16
-    if x.is_cuda and pack is None and not (wgf and stacked):
+    if x.is_cuda and pack is None and (stash or (bf16 and not stacked)):
         with torch.no_grad():
             pack = make_pack(ws, bf16)
     if stash:
-        return GeometryStashFn.apply(cfg, bf16, pack, x, *ws, *bs)
+        return GeometryStashFn.apply(cfg, bf16, pack, slabs, x, *ws, *bs)
     if x.is_cuda or bf16:
         if wgf and slabs is None:
             raise ValueError(f"geometry: {KERNELS['fwd', bf16].name} reads "

@@ -130,14 +130,17 @@ def worst_scaled_ratio(a, b, atol=1e-4, rtol=1e-5):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", CASES)
 def test_split_backward_matches_f64_twin(cuda_device, case):
-    """K1-bwd-split against the float64 twin per tensor at
-    |err| <= 1e-4 + 1e-5 max|ref|, as K1-bwd is held in chip_smoke.py."""
+    """K1-bwd-split (on wgmma, from K1-bwd's f32 slab packs) against the
+    float64 twin per tensor at |err| <= 1e-4 + 1e-5 max|ref|, as K1-bwd is
+    held in chip_smoke.py."""
     cfg, ws, bs, x = _net(case, cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     n_out = ws[-1].shape[0]
     ct_out = torch.randn(x.shape[0], n_out, device=cuda_device, generator=gen)
     ct_g = torch.randn(x.shape, device=cuda_device, generator=gen)
-    ct_x, dws, dbs = GK.launch_backward_split(cfg, x, ws, bs, ct_out, ct_g)
+    ct_x, dws, dbs = GK.launch_backward_split(
+        cfg, x, ws, bs, ct_out, ct_g,
+        slabs=GK.make_bwd_slabs(cfg, ws, bf16=False))
     leaves = [t.double().requires_grad_(True) for t in [x, *ws, *bs]]
     L = len(ws)
     o, g = GK.geometry_plain(leaves[1:1 + L], leaves[1 + L:], leaves[0], cfg)
@@ -174,22 +177,23 @@ def test_k1_ragged_tiles_over_several_rounds(cuda_device, variant):
     ct_out = torch.randn(x.shape[0], ws[-1].shape[0], device=cuda_device,
                          generator=gen)
     ct_g = torch.randn(x.shape, device=cuda_device, generator=gen)
+    slabs = GK.make_bwd_slabs(cfg, ws, bf16=False)
     with torch.no_grad():
         out_p, grad_p = GK.geometry_plain(ws, bs, x, cfg)
     if variant == "stash":
         out_k, grad_k, st = GK.launch_forward_stash(cfg, x, ws, bs)
-        got = GK.launch_backward_stash(cfg, x, ws, st, ct_out, ct_g)
+        got = GK.launch_backward_stash(cfg, x, ws, st, ct_out, ct_g,
+                                       slabs=slabs)
         want = GK.geometry_bwd_stash_plain([w.double() for w in ws],
                                            x.double(), st, ct_out.double(),
                                            ct_g.double(), cfg)
         want = [want[0], *want[1], *want[2]]
     else:
-        out_k, grad_k = GK.launch_forward(
-            cfg, x, ws, bs, GK.make_bwd_slabs(cfg, ws, bf16=False))
-        got = (GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g,
-                                  GK.make_bwd_slabs(cfg, ws, bf16=False))
+        out_k, grad_k = GK.launch_forward(cfg, x, ws, bs, slabs)
+        got = (GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g, slabs)
                if variant == "stacked" else
-               GK.launch_backward_split(cfg, x, ws, bs, ct_out, ct_g))
+               GK.launch_backward_split(cfg, x, ws, bs, ct_out, ct_g,
+                                        slabs=slabs))
         want = f64_vjp(cfg, x, ws, bs, ct_out, ct_g)
     torch.testing.assert_close(out_k, out_p, atol=1e-5, rtol=0)
     torch.testing.assert_close(grad_k, grad_p, atol=1e-5, rtol=0)
@@ -211,10 +215,10 @@ def test_k1_backward_is_deterministic(cuda_device, launch):
                          generator=gen)
     ct_g = torch.randn(x.shape, device=cuda_device, generator=gen)
     fn = getattr(GK, launch)
-    pack = (GK.make_bwd_slabs(cfg, ws, bf16=False)
-            if launch == "launch_backward" else None)
-    a = fn(cfg, x, ws, bs, ct_out, ct_g, pack)
-    b = fn(cfg, x, ws, bs, ct_out, ct_g, pack)
+    arg = {"launch_backward": "pack", "launch_backward_split": "slabs"}
+    slabs = {arg[launch]: GK.make_bwd_slabs(cfg, ws, bf16=False)}
+    a = fn(cfg, x, ws, bs, ct_out, ct_g, **slabs)
+    b = fn(cfg, x, ws, bs, ct_out, ct_g, **slabs)
     for u, v in zip([a[0], *a[1], *a[2]], [b[0], *b[1], *b[2]]):
         assert torch.equal(u, v)
 
@@ -302,11 +306,61 @@ def test_stash_kernels_match_twins(cuda_device, case):
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     ct_out = torch.randn(out_p.shape, device=cuda_device, generator=gen)
     ct_g = torch.randn(x.shape, device=cuda_device, generator=gen)
-    got = GK.launch_backward_stash(cfg, x, ws, st_k, ct_out, ct_g)
+    got = GK.launch_backward_stash(cfg, x, ws, st_k, ct_out, ct_g,
+                                   slabs=GK.make_bwd_slabs(cfg, ws,
+                                                           bf16=False))
     want = GK.geometry_bwd_stash_plain(ws, x, st_k, ct_out, ct_g, cfg)
     for a, b in zip([got[0], *got[1], *got[2]],
                     [want[0], *want[1], *want[2]]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [65536, 9001, 100])
+def test_k1_bwd_chains_wgmma_f32(cuda_device, n):
+    """K1-bwd-split and K1-bwd-stash (csrc/geometry_bwd_chains_wg.cu,
+    3xTF32 on wgmma) at full width against their f64 twins per tensor at
+    |err| <= 1e-4 + 1e-5 max|ref| (the stash's fed K1-fwd-stash's stash),
+    two launches bitwise equal; on the slab packs kernel_weights builds,
+    bitwise as on their own; each raises without K1-bwd's f32 slab packs
+    or on another pack.  Printed: whether the split's ct_x and dW are
+    K1-bwd's bit for bit."""
+    cfg, ws, bs, x = _net((8, 256, 257, (4,), 6, 1.0, n), cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    ct_out = torch.randn(n, ws[-1].shape[0], device=cuda_device,
+                         generator=gen)
+    ct_g = torch.randn(n, 3, device=cuda_device, generator=gen)
+    slabs = GK.make_bwd_slabs(cfg, ws, bf16=False)
+    flat = lambda r: [r[0], *r[1], *r[2]]
+    st = GK.launch_forward_stash(cfg, x, ws, bs)[2]
+    runs = {"split": lambda p: flat(GK.launch_backward_split(
+                cfg, x, ws, bs, ct_out, ct_g, slabs=p)),
+            "stash": lambda p: flat(GK.launch_backward_stash(
+                cfg, x, ws, st, ct_out, ct_g, slabs=p))}
+    w64 = [w.double() for w in ws]
+    refs = {"split": f64_vjp(cfg, x, ws, bs, ct_out, ct_g),
+            "stash": flat(GK.geometry_bwd_stash_plain(
+                w64, x.double(), st, ct_out.double(), ct_g.double(), cfg))}
+    with torch.no_grad():
+        kw = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(
+            cuda_device).kernel_weights()
+    for name, run in runs.items():
+        got, again = run(slabs), run(TF.bwd_slabs(kw, False))
+        for i, (a, b) in enumerate(zip(got, refs[name])):
+            assert a.shape == b.shape
+            assert worst_scaled_ratio(a.double(), b) <= 1.0, (name, i)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), name
+        for pack in (None, GK.make_bwd_slabs(cfg, ws),
+                     (TP.pack_weights(ws),) * 2):
+            with pytest.raises(ValueError):
+                run(pack)
+    k1 = flat(GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g, slabs))
+    split = runs["split"](slabs)
+    L = len(ws)
+    print(f"K1-bwd-split N={n}: ct_x bitwise K1-bwd's: "
+          f"{torch.equal(split[0], k1[0])}; dW: "
+          f"{all(torch.equal(a, b) for a, b in zip(split[1:1 + L], k1[1:1 + L]))}"
+          f"; db: {all(torch.equal(a, b) for a, b in zip(split[1 + L:], k1[1 + L:]))}")
 
 
 RAD_CASES = [  # (d_feature, d_hidden, n_layers, multires_view, n)

@@ -198,9 +198,10 @@ def test_no_grad_kernel_weights_ask_for_f32_slabs(on_card, monkeypatch):
     under no_grad) and a stage-2 or stage-3 run's (Stage2Model's, built
     once); the radiance MLP's K3-bwd slabs only where a backward can
     follow.  The sweeps alone (value_sweep, the grid fill) and the stash
-    switch build none of them, only K2's forward slab pack (sweep32, with
-    the stash pair's 3xTF32 pack under the switch); the bf16 mode
-    builds none."""
+    switch without grad build none of them, only K2's forward slab pack
+    (sweep32, with K1-fwd-stash's 3xTF32 pack under the switch); with
+    grad the stash switch builds both, which K1-bwd-stash reads; the bf16
+    mode builds none."""
     cfg = port_config(tiny_config())
     stage1 = TR.Stage1Model(cfg)
     with torch.no_grad():
@@ -223,6 +224,11 @@ def test_no_grad_kernel_weights_ask_for_f32_slabs(on_card, monkeypatch):
     with torch.no_grad():
         assert net.kernel_weights(bf16=True, f32=False).sweep32 is None
     monkeypatch.setattr(GK, "STASH_BWD", True)
-    kw = net.kernel_weights()
+    with torch.no_grad():
+        kw = net.kernel_weights()
     assert (kw.sweep32, kw.rev32, kw.pack) == (("sweep32",), None, ("pack",))
     assert on_card == []
+    kw = net.kernel_weights()
+    assert (kw.sweep32, kw.rev32, kw.pack) == (("sweep",), ("rev",),
+                                               ("pack",))
+    assert on_card == [("sdf", False)]

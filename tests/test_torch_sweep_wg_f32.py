@@ -236,17 +236,19 @@ def test_kernel_weights_build_no_3xtf32_pack_on_the_default_path(
 @pytest.mark.parametrize("switch", ["stash", "split"])
 def test_kernel_weights_build_the_3xtf32_pack_under_the_switches(
         packs, monkeypatch, switch):
-    """Under the stash switch (the stash pair) or the split switch
-    (K1-bwd-split) the SDF network's step weights carry the 3xTF32 pack
-    beside K2's sweep32 (and, with K1-fwd still running under the split
-    switch, rev32); the sweeps alone build none; the bf16 mode reads its
-    bf16 pack instead."""
+    """Under the stash switch the SDF network's step weights carry the
+    3xTF32 pack (K1-fwd-stash's) beside the two f32 slab packs (K1-bwd-stash
+    reads them, and K2 the first); under the split switch only the slab
+    packs (K1-fwd's, which K1-bwd-split reads too) and no 3xTF32 pack; the
+    sweeps alone build none; the bf16 mode reads its bf16 pack instead."""
     monkeypatch.setattr(GK, "STASH_BWD" if switch == "stash"
                         else "STACKED_BWD", switch == "stash")
     net = TR.Stage1Model(port_config(tiny_config())).sdf
     kw = net.kernel_weights()
-    want = {"pack", "sweep32"} | ({"rev32"} if switch == "split" else set())
-    assert _built(kw) == want and TF.mode_pack(kw, False) == ("pack",)
+    stash = switch == "stash"
+    assert _built(kw) == {"sweep32", "rev32"} | ({"pack"} if stash
+                                                 else set())
+    assert TF.mode_pack(kw, False) == (("pack",) if stash else None)
     assert _built(net.kernel_weights(k1=False)) == {"sweep32"}
     kw = net.kernel_weights(bf16=True, f32=False)
     assert "pack" not in _built(kw) and TF.mode_pack(kw, True) == ("pack16",)

@@ -3,6 +3,27 @@
 fwd}.cu) on a GPU.
 
     python3 tools/k1_bwd_phases.py [--root DIR] [--bf16] [--fwd] [--clocks]
+    python3 tools/k1_bwd_phases.py [--root DIR] [--split] [--stash] [--clocks]
+
+``--split``, ``--stash`` (either or both): K1-bwd-split and K1-bwd-stash
+in f32, on wgmma in 3xTF32 (geometry_bwd_chains_wg.cu: a sweep of 64-point
+tiles, each chain's rows one product, K1-bwd's split-K pass and reduce),
+on K1-bwd's two f32 slab packs (the stash's fed K1-fwd-stash's stash),
+from one set of cut copies of the source, with these cuts:
+- ``no_products``: without every wgmma of the sweep and the pass;
+- ``no_wgrad_pass``: the weight-gradient pass not launched;
+- ``no_images``: the sweep writes no X_l / R_l image (the pass and the
+  read-backs read stale ones);
+- ``no_readback``: the second chain's input is not read back from its
+  image (zeros go into the A tile);
+- ``no_scratch``: the sweep neither writes nor reads its f32 scratch
+  (sigma(100 a), ad, the first chain's r W);
+- ``no_epilogues``: softplus and sigma(100 a) replaced by the argument and
+  0.5;
+- ``no_slabs``: the sweep's producer copies no weight slab (each stage
+  is marked full at once: the products read stale slabs);
+``--clocks``: ``all`` and ``no_products`` also run back to back while
+nvidia-smi samples the SM clock and the power draw.
 
 ``--fwd --bf16``: K1-fwd-bf16 on wgmma (geometry_fwd_bf16_wg.cu: K2-bf16's
 forward, csrc/sweep16.cuh, and the reverse sweep), on its two bf16 slab
@@ -199,6 +220,29 @@ CUTS_G16 = {
 }
 ORDER_WGF = ["all", "no_products", "no_wgrad_pass", "no_images",
              "no_scratch", "no_slabs", "all"]
+# K1-bwd-split and K1-bwd-stash on wgmma in 3xTF32 (--split, --stash): one
+# source of both, on the f32 engine of wgf.cuh
+CH = "geometry_bwd_chains_wg.cu"
+SHARED_CH = (CH, "wgf.cuh")
+CUTS_CH = {
+    "all": [],
+    "no_products": CUTS_WGF["no_products"][:1] + [
+        (SHARED_CH, r"wgmma_tf32_(?:ss_)?n(?:128|8)\(acc8?,[^;]*;", ";")],
+    "no_wgrad_pass": [((CH,), r"geometry_bwd_chains_wgf_wgrad<<<[^;]*;",
+                       ";")],
+    "no_images": [((CH,), r"(?:im|x0|ro)\[img_at\([^;]*;", ";")],
+    "no_readback": [((CH,), r"src\[img_at\([^\]]*\)\]", "0.f")],
+    "no_scratch": [((CH,), r"(?:ss|sa|held)\[q \* 256\] = make_float4\("
+                    r"[^;]*;", ";"),
+                   ((CH,), r"= (?:ss|sa|held)\[q \* 256\]",
+                    "= make_float4(0.5f, 0.5f, 1.f, 1.f)"),
+                   ((CH,), r"l2_prefetch_if\([^;]*;", ";")],
+    "no_epilogues": [((CH,), r"sp_sig100\(a, sp, s\);",
+                      "sp = a; s = 0.5f;")],
+    "no_slabs": CUTS_WGF["no_slabs"],
+}
+ORDER_CH = ["all", "no_products", "no_wgrad_pass", "no_images",
+            "no_readback", "no_scratch", "no_epilogues", "no_slabs", "all"]
 CLOCKED_WGF = ("all", "no_products")
 
 
@@ -349,17 +393,71 @@ def fwd_main(root: str, clocks: bool, bf16: bool = False) -> int:
     return 0
 
 
+def chains_main(root: str, clocks: bool, variants) -> int:
+    """--split, --stash: K1-bwd-split and K1-bwd-stash on wgmma, phase by
+    phase (CUTS_CH), each cut copy built once for both."""
+    import torch
+    import chip_smoke
+    import k2_bf16_phases
+    libs = build_cut(root, CH, CUTS_CH, "geometry_bwd_chains_wg")
+    if not libs:
+        print(f"phases: {root} has no {CH}", file=sys.stderr)
+        return 2
+    from factored_neus_tpu_torch.models.fields import SDFConfig, SDFNetwork
+    from factored_neus_tpu_torch.ops import geometry_kernel as GK
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = SDFConfig()
+    net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(dev)
+    with torch.no_grad():
+        ws, bs = net.effective_weights()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(N_CORE, 3, device=dev, generator=gen) * 0.5
+    ct_out = torch.randn(N_CORE, ws[-1].shape[0], device=dev, generator=gen)
+    ct_g = torch.randn(N_CORE, 3, device=dev, generator=gen)
+    slabs = GK.make_bwd_slabs(cfg, list(ws), bf16=False)
+    st = GK.launch_forward_stash(cfg, x, ws, bs)[2]
+    calls = {"split": (GK.K1_BWD_SPLIT, lambda: GK.launch_backward_split(
+                 cfg, x, ws, bs, ct_out, ct_g, slabs=slabs)),
+             "stash": (GK.K1_BWD_STASH, lambda: GK.launch_backward_stash(
+                 cfg, x, ws, st, ct_out, ct_g, slabs=slabs))}
+    times = []
+    for v in variants:
+        kernel, call = calls[v]
+        label = f"K1-bwd-{v}"
+        for phase in ORDER_CH:
+            _bind(kernel, libs[phase], kernel.symbol)
+            ms = chip_smoke.cuda_ms(call, 5)
+            times.append({"kernel": label, "phase": phase, "ms": ms})
+            print(f"{label} (wgmma) {phase}: {ms:.3f} ms")
+            if clocks and phase in CLOCKED_WGF and not any(
+                    "sm_mhz" in t for t in times[:-1]
+                    if t["phase"] == phase and t["kernel"] == label):
+                times[-1].update(k2_bf16_phases.clocks_under(call, torch))
+                print(f"  under load: SM clock {times[-1]['sm_mhz']:.0f} "
+                      f"MHz, {times[-1]['power_w']:.1f} W "
+                      f"({times[-1]['samples']} samples)")
+        kernel._fn = None
+    card = chip_smoke.card_line()
+    print(card)
+    print(json.dumps({"root": root, "variants": list(variants),
+                      "card": card, "times": times}))
+    return 0
+
+
 def main() -> int:
     args = sys.argv[1:]
     bf16, clocks, fwd = ("--bf16" in args, "--clocks" in args,
                          "--fwd" in args)
-    args = [a for a in args if a not in ("--bf16", "--clocks", "--fwd")]
+    variants = [v for v in ("split", "stash") if f"--{v}" in args]
+    args = [a for a in args if a not in ("--bf16", "--clocks", "--fwd",
+                                         "--split", "--stash")]
     root = HERE
     if args[:1] == ["--root"] and len(args) == 2:
         root = os.path.abspath(args[1])
     elif args:
         print("usage: k1_bwd_phases.py [--root DIR] [--bf16] [--fwd] "
-              "[--clocks]", file=sys.stderr)
+              "[--split] [--stash] [--clocks]", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -367,6 +465,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     sys.path.insert(0, os.path.join(HERE, "tools"))
+    if variants:
+        return chains_main(root, clocks, variants)
     if fwd:
         return fwd_main(root, clocks, bf16)
     import chip_smoke

@@ -48,11 +48,16 @@ OUT = os.path.join(HERE, "build", "profile")
 STEPS = 10
 WARMUP = 5
 # device-side kernel name -> PERF.md's row (K1-fwd-stash runs K1-fwd's
-# __global__ function with its stash output switched on; the mma.sync
-# backward's template arguments are its BwdMode, 1 stash, 2 split, and the
-# bf16 operand mode, as K1-fwd's)
-BWD_ROWS = {"1": "K1-bwd-stash", "2": "K1-bwd-split"}
-TABLE_ROWS = (("geometry_bwd_wgf_sweep", "K1-bwd (sweep)"),
+# __global__ function with its stash output switched on; the bf16 mma.sync
+# backward's template argument is its BwdMode, 1 stash, 2 split; the f32
+# split and stash backwards share their pass and reduce, named by the run)
+BWD_ROWS = {"1": "K1-bwd-stash-bf16", "2": "K1-bwd-split-bf16"}
+TABLE_ROWS = (("geometry_bwd_split_wgf_sweep", "K1-bwd-split (sweep)"),
+              ("geometry_bwd_stash_wgf_sweep", "K1-bwd-stash (sweep)"),
+              ("geometry_bwd_chains_wgf_wgrad",
+               "K1-bwd-split (weight-gradient pass)"),
+              ("geometry_bwd_chains_wgf_reduce", "K1-bwd-split (reduce)"),
+              ("geometry_bwd_wgf_sweep", "K1-bwd (sweep)"),
               ("geometry_bwd_wgf_wgrad", "K1-bwd (weight-gradient pass)"),
               ("geometry_bwd_wgf_reduce", "K1-bwd (reduce)"),
               ("geometry_bwd_wg_sweep", "K1-bwd-bf16 (sweep)"),
@@ -80,16 +85,17 @@ OUTER_ROW = "Lvis.outer (visibility sweep, cuBLAS)"
 
 
 def table_row(kernel: str, stash: bool) -> str:
-    m = re.search(r"geometry_bwd_kernel<(?:\(int\))?(\d), (true|false)>",
-                  kernel)
+    m = re.search(r"geometry_bwd_kernel<(?:\(int\))?(\d)>", kernel)
     if m:
-        return BWD_ROWS[m.group(1)] + ("-bf16" if m.group(2) == "true"
-                                       else "")
+        return BWD_ROWS[m.group(1)]
     bf16 = "-bf16" if "_kernel<true>" in kernel else ""
     for key, row in TABLE_ROWS:
         if key in kernel:
-            return (row + "-stash" if stash and row == "K1-fwd" else row
-                    ) + bf16
+            if stash and row in ("K1-fwd", "K1-bwd-split (weight-gradient "
+                                 "pass)", "K1-bwd-split (reduce)"):
+                row = row.replace("K1-fwd", "K1-fwd-stash").replace(
+                    "K1-bwd-split", "K1-bwd-stash")
+            return row + bf16
     return ""
 
 
