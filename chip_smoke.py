@@ -107,12 +107,14 @@
    default): K1-fwd-bf16, K1-bwd-bf16, K1-bwd-split-bf16 and the stash
    pair in bf16 at 65,536 and 9,001 rows against their twins and an f64
    evaluation of the unrounded function (check_flips), two launches of
-   each bitwise equal, timed against their bf16 bound; K1-fwd-bf16 and
-   K1-bwd-bf16 (on wgmma: each its ptxas report and SASS, which must hold
-   HGMMA and no HMMA) also timed at 9,001 rows ("shapes" in their kernels
-   entries), their kernels' registers and shared memory read from the
-   device ("attrs"), and the bytes each design moves by the source note's
-   reckoning printed beside them; K1-fwd-bf16 also at a validation
+   each bitwise equal, timed against their bf16 bound; K1-fwd-bf16,
+   K1-bwd-bf16, K1-bwd-split-bf16 and K1-bwd-stash-bf16 (on wgmma: each
+   source's ptxas report and SASS, which must hold HGMMA and no HMMA) also
+   timed at 9,001 rows ("shapes" in their kernels entries), their kernels'
+   registers and shared memory read from the device ("attrs"), and the
+   FLOP and the bytes each design moves by the source note's reckoning
+   printed beside them; the split's ct_x, dW and db against K1-bwd-bf16's
+   on the same inputs, bit for bit or not (printed); K1-fwd-bf16 also at a validation
    chunk's 262,144 rows (check_flips, bitwise repeat, timed), and its out
    at each size bit for bit K2-bf16's full 257-wide output on the same
    slab pack (k1_k2_bits); one 64-ray
@@ -124,8 +126,8 @@
    backward (their bf16 kernels once a step), one stage-1 CLI run with
    --gpu 0 --profile DIR whose trace names K1's and K3's bf16 kernels,
    and one with --debug_nans; tc_pack.pack_weights_bf16 (the bf16
-   mma.sync pack, which only the switch-only variants read) built 0 times
-   in the 30 steps and once a step or more in the stash and split runs;
+   mma.sync pack, which only K1-fwd-stash-bf16 reads) built 0 times in the
+   30 steps and the split run and once a step or more in the stash run;
 13. the bf16 sweeps and the bf16 radiance MLP: K2-bf16 (on wgmma: its
    ptxas report and SASS, which must hold HGMMA and no HMMA.16816) at
    1,048,576, 65,536, 32,768, 9,001 and 8,192 rows (on the full network's
@@ -1147,18 +1149,21 @@ def k1_fwd_bf16_shape(cfg, ws, bs, x, run, fwd_flops, slabs) -> tuple:
         "geometry_fwd_bf16_wg.cu", "geometry_fwd_bf16_attrs")
 
 
-def k1_bwd_wgf_check(cfg, ws, bs, n, bwd_flops, slabs, gen) -> tuple:
-    """K1-bwd (3xTF32 on wgmma) at n points: against the f64 twin
-    (check_vjp) with two launches bitwise equal, then wg_shape's times
-    against its 3xTF32 bound, attributes and the bytes of its design: the
-    f32 scratch written and read, each tile's X_l and R_l images written,
-    then read by the weight-gradient pass, X_l once for each R half and
-    R_l once for each X pair, the slots and db slots (geometry_bwd_wg.cu's
-    note).  Returns (shape, attrs, max
-    |err|)."""
+def k1_bwd_held(cfg, ws, bs, n, slabs, gen, kind, bf16=False) -> dict:
+    """A K1 backward on wgmma (``kind``: "stacked" K1-bwd, "split"
+    K1-bwd-split, "stash" K1-bwd-stash; ``bf16``: its bf16 variant) at n
+    points on random inputs from gen, the part that k1_bwd_wgf_check and
+    k1_chains_check share: against its f64 twin (the stash's fed the stash
+    K1-fwd-stash, or K1-fwd-stash-bf16, writes for the same points), beside
+    its f32 twin (check_vjp) or its bf16 twin (check_flips), two launches
+    bitwise equal; the split's ct_x, dW and db against the stacked
+    kernel's on the same inputs, bit for bit or not (printed only).
+    Returns {"name", "run" (a launch), "plain" (the f32 or bf16 twin),
+    "err" (max |err|), "bits"}."""
     import torch
-    from factored_neus_tpu_torch.ops import _cuda
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
+    name = {"stacked": "K1-bwd", "split": "K1-bwd-split",
+            "stash": "K1-bwd-stash"}[kind] + ("-bf16" if bf16 else "")
     dev = ws[0].device
     x = torch.randn(n, 3, device=dev, generator=gen) * 0.5
     ct_out = torch.randn(n, ws[-1].shape[0], device=dev, generator=gen)
@@ -1167,20 +1172,61 @@ def k1_bwd_wgf_check(cfg, ws, bs, n, bwd_flops, slabs, gen) -> tuple:
     L = len(ws)
     names = ["ct_x"] + [f"dW{l}" for l in range(L)] + [
         f"db{l}" for l in range(L)]
-    run = lambda: flat(GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g,
-                                          slabs))
+    if kind == "stash":
+        st = GK.launch_forward_stash(cfg, x, ws, bs, bf16=bf16)[2]
+        run = lambda: flat(GK.launch_backward_stash(cfg, x, ws, st, ct_out,
+                                                    ct_g, slabs, bf16))
+        twin = lambda dt, b16: flat(GK.geometry_bwd_stash_plain(
+            [w.to(dt) for w in ws], x.to(dt), st, ct_out.to(dt),
+            ct_g.to(dt), cfg, b16))
+    else:
+        launch = (GK.launch_backward if kind == "stacked"
+                  else GK.launch_backward_split)
+        run = lambda: flat(launch(cfg, x, ws, bs, ct_out, ct_g, slabs, bf16))
+        twin = lambda dt, b16: flat(GK.geometry_bwd_plain(
+            [w.to(dt) for w in ws], [b.to(dt) for b in bs], x.to(dt),
+            ct_out.to(dt), ct_g.to(dt), cfg, b16))
     got, again = run(), run()
     torch.cuda.synchronize()
-    ref64 = [t.float() for t in flat(GK.geometry_bwd_plain(
-        [w.double() for w in ws], [b.double() for b in bs], x.double(),
-        ct_out.double(), ct_g.double(), cfg))]
-    ref32 = flat(GK.geometry_bwd_plain(ws, bs, x, ct_out, ct_g, cfg))
-    e = check_vjp(f"K1-bwd (wgmma) N={n}", got, ref64, ref32, names)
+    ref64 = [t.float() for t in twin(torch.float64, False)]
+    if bf16:
+        e = check_flips(f"{name} (wgmma) N={n}", got,
+                        twin(torch.float32, True), ref64, names)
+    else:
+        e = check_vjp(f"{name} (wgmma) N={n}", got, ref64,
+                      twin(torch.float32, False), names)
     same = all(torch.equal(a, b) for a, b in zip(got, again))
-    print(f"K1-bwd (wgmma) N={n}: two launches bitwise equal: {same}")
+    print(f"{name} (wgmma) N={n}: two launches bitwise equal: {same}")
     if not same:
-        raise AssertionError("K1-bwd is not deterministic")
-    del got, again, ref64, ref32
+        raise AssertionError(f"{name} is not deterministic")
+    bits = None
+    if kind == "split":
+        k1 = flat(GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g, slabs,
+                                     bf16))
+        eq = [torch.equal(a, b) for a, b in zip(got, k1)]
+        bits = {"ct_x": eq[0], "dW": all(eq[1:1 + L]), "db": all(eq[1 + L:])}
+        print(f"{name} (wgmma) N={n}: bit for bit "
+              f"{'K1-bwd-bf16' if bf16 else 'K1-bwd'}'s on the same inputs: "
+              f"ct_x {bits['ct_x']}, dW {bits['dW']}, db {bits['db']} "
+              f"(printed only)")
+        del k1
+    return {"name": name, "run": run, "err": e, "bits": bits,
+            "plain": lambda: twin(torch.float32, bf16)}
+
+
+def k1_bwd_wgf_check(cfg, ws, bs, n, bwd_flops, slabs, gen) -> tuple:
+    """K1-bwd (3xTF32 on wgmma) at n points: k1_bwd_held (the f64 twin,
+    check_vjp, two launches bitwise equal), then wg_shape's times against
+    its 3xTF32 bound, attributes and the bytes of its design: the f32
+    scratch written and read, each tile's X_l and R_l images written, then
+    read by the weight-gradient pass, X_l once for each R half and R_l once
+    for each X pair, the slots and db slots (geometry_bwd_wg.cu's note).
+    Returns (shape, attrs, max |err|)."""
+    from factored_neus_tpu_torch.ops import _cuda
+    from factored_neus_tpu_torch.ops import geometry_kernel as GK
+    dev = ws[0].device
+    held = k1_bwd_held(cfg, ws, bs, n, slabs, gen, "stacked")
+    L = len(ws)
     plan = GK.bwd_wg_plan(cfg, ws, n, slabs, _cuda.sm_count(dev))
     tiles, cx = plan["tiles"], [64] + [256] * (L - 1)
     cr = [264 if w.shape[0] > 256 else 256 for w in ws]
@@ -1189,86 +1235,67 @@ def k1_bwd_wgf_check(cfg, ws, bs, n, bwd_flops, slabs, gen) -> tuple:
     read = tiles * 4 * sum(2 * 2 * c * 32 + -(-c // 128) * 2 * r * 32
                            for c, r in zip(cx, cr))
     slots = 4 * (2 * plan["slot_floats"] + 2 * plan["db_floats"])
-    shape, attrs = wg_shape("K1-bwd", n, run, lambda: GK.geometry_bwd_plain(
-        ws, bs, x, ct_out, ct_g, cfg), 1e3 * n * 3 * bwd_flops / TF32_PEAK,
-        plan, scratch + written + read + slots, "geometry_bwd_wg.cu",
-        "geometry_bwd_attrs", "3xTF32")
-    shape["max_abs_err"] = e
-    return shape, attrs, e
+    shape, attrs = wg_shape("K1-bwd", n, held["run"], held["plain"],
+                            1e3 * n * 3 * bwd_flops / TF32_PEAK, plan,
+                            scratch + written + read + slots,
+                            "geometry_bwd_wg.cu", "geometry_bwd_attrs",
+                            "3xTF32")
+    shape["max_abs_err"] = held["err"]
+    return shape, attrs, held["err"]
 
 
-def k1_chains_check(cfg, ws, bs, n, flops, slabs, gen, stash) -> tuple:
+def k1_chains_check(cfg, ws, bs, n, flops, slabs, gen, stash,
+                    bf16=False) -> tuple:
     """K1-bwd-split (``stash`` False) or K1-bwd-stash (3xTF32 on wgmma,
-    geometry_bwd_chains_wg.cu) at n points: against its f64 twin
-    (check_vjp; the stash's fed the stash K1-fwd-stash writes for the same
-    points) with two launches bitwise equal; the split's ct_x, dW and db
-    against K1-bwd's on the same inputs, bit for bit or not (printed only);
-    then wg_shape's times against its 3xTF32 bound (``flops`` a point),
-    attributes and the bytes of its design: the f32 scratch written and
-    read, the images written and read by K1-bwd's pass, the stash read,
+    geometry_bwd_chains_wg.cu; ``bf16``: their bf16 variants on bf16
+    wgmma, geometry_bwd_chains_bf16_wg.cu) at n points: k1_bwd_held (the
+    f64 twin, check_vjp or check_flips, two launches bitwise equal, the
+    split's bits against the stacked kernel's printed); then wg_shape's
+    times against its 3xTF32 or bf16 bound (``flops`` a point), attributes
+    and the bytes of its design: the f32 scratch written and read, the
+    images written and read by the stacked kernel's pass, the stash read,
     the slots and db slots (the source note's reckoning), a count, not a
     measurement.  Returns (shape, max |err|)."""
-    import torch
     from factored_neus_tpu_torch.ops import _cuda
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
-    label = "K1-bwd-stash" if stash else "K1-bwd-split"
     dev = ws[0].device
-    x = torch.randn(n, 3, device=dev, generator=gen) * 0.5
-    ct_out = torch.randn(n, ws[-1].shape[0], device=dev, generator=gen)
-    ct_g = torch.randn(n, 3, device=dev, generator=gen)
-    flat = lambda r: [r[0], *r[1], *r[2]]
+    held = k1_bwd_held(cfg, ws, bs, n, slabs, gen,
+                       "stash" if stash else "split", bf16)
     L = len(ws)
-    names = ["ct_x"] + [f"dW{l}" for l in range(L)] + [
-        f"db{l}" for l in range(L)]
-    if stash:
-        st = GK.launch_forward_stash(cfg, x, ws, bs)[2]
-        run = lambda: flat(GK.launch_backward_stash(cfg, x, ws, st, ct_out,
-                                                    ct_g, slabs=slabs))
-        twin = lambda dt: flat(GK.geometry_bwd_stash_plain(
-            [w.to(dt) for w in ws], x.to(dt), st, ct_out.to(dt),
-            ct_g.to(dt), cfg))
+    sms = _cuda.sm_count(dev)
+    k1_tiles, blk = -(-n // GK.WG_POINTS), GK.WG_BLOCK
+    if bf16:
+        plan = GK.chains_wg16_plan(cfg, ws, n, slabs, sms, stash)
+        scratch = 2 * plan["tiles"] * (L - 1) * 2 * 32 * 128 * 16
+        read = k1_tiles * sum(
+            -(-w.shape[1] // 64) * blk + (-(-w.shape[1] // 64) + 1) // 2 * (
+                5 if w.shape[0] > 256 else 4) * blk for w in ws)
+        bound = 1e3 * n * flops / BF16_PEAK
     else:
-        run = lambda: flat(GK.launch_backward_split(cfg, x, ws, bs, ct_out,
-                                                    ct_g, slabs=slabs))
-        twin = lambda dt: flat(GK.geometry_bwd_plain(
-            [w.to(dt) for w in ws], [b.to(dt) for b in bs], x.to(dt),
-            ct_out.to(dt), ct_g.to(dt), cfg))
-    got, again = run(), run()
-    torch.cuda.synchronize()
-    ref64 = [t.float() for t in twin(torch.float64)]
-    ref32 = twin(torch.float32)
-    e = check_vjp(f"{label} (wgmma) N={n}", got, ref64, ref32, names)
-    same = all(torch.equal(a, b) for a, b in zip(got, again))
-    print(f"{label} (wgmma) N={n}: two launches bitwise equal: {same}")
-    if not same:
-        raise AssertionError(f"{label} is not deterministic")
-    bits = None
-    if not stash:
-        k1 = flat(GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g, slabs))
-        eq = [torch.equal(a, b) for a, b in zip(got, k1)]
-        bits = {"ct_x": eq[0], "dW": all(eq[1:1 + L]), "db": all(eq[1 + L:])}
-        print(f"{label} (wgmma) N={n}: bit for bit K1-bwd's on the same "
-              f"inputs: ct_x {bits['ct_x']}, dW {bits['dW']}, db "
-              f"{bits['db']} (printed only)")
-        del k1
-    del got, again, ref64, ref32
-    plan = GK.chains_wg_plan(cfg, ws, n, slabs, _cuda.sm_count(dev), stash)
-    k1_tiles, cx = -(-n // GK.WG_POINTS), [64] + [256] * (L - 1)
-    cr = [264 if w.shape[0] > 256 else 256 for w in ws]
-    scratch = 2 * plan["tiles"] * (L - 1) * GK.WGF_CHAIN_SQ * 256 * 16
-    read = k1_tiles * 4 * sum(2 * 2 * c * 32 + -(-c // 128) * 2 * r * 32
-                              for c, r in zip(cx, cr))
+        plan = GK.chains_wg_plan(cfg, ws, n, slabs, sms, stash)
+        cx = [64] + [256] * (L - 1)
+        cr = [264 if w.shape[0] > 256 else 256 for w in ws]
+        scratch = 2 * plan["tiles"] * (L - 1) * GK.WGF_CHAIN_SQ * 256 * 16
+        read = k1_tiles * 4 * sum(2 * 2 * c * 32 + -(-c // 128) * 2 * r * 32
+                                  for c, r in zip(cx, cr))
+        bound = 1e3 * n * 3 * flops / TF32_PEAK
     slots = 4 * (2 * plan["slot_floats"] + 2 * plan["db_floats"])
     design = (scratch + plan["image_bytes"] + read + slots
               + (n * 2 * GK.stash_columns(ws) if stash else 0))
-    shape, attrs = wg_shape(
-        label, n, run, lambda: twin(torch.float32),
-        1e3 * n * 3 * flops / TF32_PEAK, plan, design,
-        "geometry_bwd_chains_wg.cu",
-        "geometry_bwd_stash_attrs" if stash else "geometry_bwd_split_attrs",
-        "3xTF32")
-    shape.update(max_abs_err=e, attrs=attrs, bits_vs_k1_bwd=bits)
-    return shape, e
+    src = "geometry_bwd_chains_bf16_wg.cu" if bf16 else \
+        "geometry_bwd_chains_wg.cu"
+    symbol = (f"geometry_bwd_{'stash' if stash else 'split'}"
+              f"{'_bf16' if bf16 else ''}_attrs")
+    print(f"  {held['name']} (wgmma) N={n}: {n * flops / 1e9:.1f} GFLOP "
+          f"({flops} a point) over the {'bf16' if bf16 else '3xTF32'} "
+          f"peak; the design's {design / 1e9:.2f} GB over {HBM_RATE / 1e12} "
+          f"TB/s: {1e3 * design / HBM_RATE:.3f} ms")
+    shape, attrs = wg_shape(held["name"], n, held["run"], held["plain"],
+                            bound, plan, design, src, symbol,
+                            "bf16" if bf16 else "3xTF32")
+    shape.update(max_abs_err=held["err"], attrs=attrs,
+                 bits_vs_k1_bwd=held["bits"], design_bytes=design)
+    return shape, held["err"]
 
 
 def k3_bwd_wgf_check(cfg, ws, bs, n, bwd_flops, slabs, gen) -> tuple:
@@ -1408,7 +1435,9 @@ def check_bf16_kernels(device):
     each bitwise equal, and its time against the bf16 bound; K1-fwd-bf16
     (on wgmma, its build report first) also at a validation chunk's
     VAL_CHUNK x 128 rows, and its out against K2-bf16's full output on the
-    same slab pack and rows, bit for bit."""
+    same slab pack and rows, bit for bit; K1-bwd-split-bf16 and
+    K1-bwd-stash-bf16 (on wgmma, their build report first) through
+    k1_chains_check, the split's bits against K1-bwd-bf16's printed."""
     import torch
     from factored_neus_tpu_torch.models.fields import SDFConfig, SDFNetwork
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
@@ -1427,13 +1456,20 @@ def check_bf16_kernels(device):
     fwd_flops = 2 * S + 2 * (S - s_last)
     bwd_flops = (4 * (S - s_last) + 2 * S + 2 * S
                  + 2 * (S - s_last) + 2 * ins[-1] + 2 * (S - s_last))
-    # the switch-only variants' bf16 mma.sync pack
+    # K1-fwd-stash-bf16's bf16 mma.sync pack
     pack = GK.make_pack(ws, bf16=True)
-    # K1-fwd-bf16 and K1-bwd-bf16 run on wgmma from their two slab packs
+    # every other bf16 K1 kernel runs on wgmma from the two slab packs
     fwd_build = wgmma_build_report("K1-fwd-bf16", "geometry_fwd_bf16_wg.cu")
     build = wgmma_build_report("K1-bwd-bf16", "geometry_bwd_bf16_wg.cu")
+    cbuild = wgmma_build_report(
+        "K1-bwd-split-bf16 and K1-bwd-stash-bf16",
+        "geometry_bwd_chains_bf16_wg.cu",
+        ("geometry_bwd_split_wg16", "geometry_bwd_stash_wg16",
+         "geometry_bwd_chains_wg16_wgrad"))
     slabs = GK.make_bwd_slabs(cfg, list(ws))
     wg_shapes, fwd_shapes = [], []
+    chain_shapes = {"geometry_bwd_split_bf16": [],
+                    "geometry_bwd_stash_bf16": []}
     w64 = [w.double() for w in ws]
     b64 = [b.double() for b in bs]
     fnames = ["out", "grad"]
@@ -1461,8 +1497,6 @@ def check_bf16_kernels(device):
         out_k, grad_k, st_k = GK.launch_forward_stash(cfg, x, ws, bs, pack,
                                                       bf16=True)
         tw_sf = GK.geometry_fwd_stash_plain(ws, bs, x, cfg, bf16=True)
-        tw_sb = flat(GK.geometry_bwd_stash_plain(ws, x, st_k, ct_out, ct_g,
-                                                 cfg, bf16=True))
         runs = {
             "geometry_fwd_bf16": (lambda: GK.launch_forward(
                 cfg, x, ws, bs, slabs, bf16=True), tw_f, ref_f, fnames),
@@ -1471,14 +1505,7 @@ def check_bf16_kernels(device):
                 fnames),
             "geometry_bwd_bf16": (lambda: flat(GK.launch_backward(
                 cfg, x, ws, bs, ct_out, ct_g, slabs, bf16=True)), tw_b,
-                ref_b, names),
-            "geometry_bwd_split_bf16": (lambda: flat(
-                GK.launch_backward_split(cfg, x, ws, bs, ct_out, ct_g, pack,
-                                         bf16=True)), tw_b, ref_b, names),
-            "geometry_bwd_stash_bf16": (lambda: flat(
-                GK.launch_backward_stash(cfg, x, ws, st_k, ct_out, ct_g,
-                                         pack, bf16=True)), tw_sb, ref_b,
-                names)}
+                ref_b, names)}
         # the stash itself: the bf16 forward's pre-activations rounded to
         # bf16, held as the outputs are (a flip upstream moves an entry by
         # more than one bf16 ulp, unlike the f32 mode's stash)
@@ -1508,6 +1535,17 @@ def check_bf16_kernels(device):
             lambda: GK.geometry_bwd_plain(ws, bs, x, ct_out, ct_g, cfg,
                                           bf16=True), bwd_flops, slabs)
         wg_shapes.append(shape)
+        # K1-bwd-split-bf16 and K1-bwd-stash-bf16 on their own inputs
+        # (k1_chains_check: the f64 twin by check_flips, two launches
+        # bitwise equal, the split's bits against K1-bwd-bf16's)
+        for name, stash in (("geometry_bwd_split_bf16", False),
+                            ("geometry_bwd_stash_bf16", True)):
+            shape, e = k1_chains_check(
+                cfg, ws, bs, n, bwd_flops - (2 * (S - s_last) if stash
+                                             else 0),
+                slabs, gen, stash, bf16=True)
+            chain_shapes[name].append(shape)
+            errs[name] = max(errs.get(name, 0.0), e)
         if n != N_CORE:
             continue
 
@@ -1523,15 +1561,12 @@ def check_bf16_kernels(device):
                 lambda: GK.geometry_fwd_stash_plain(ws, bs, x, cfg,
                                                     bf16=True)), 5),
             "geometry_bwd_bf16": cuda_ms(plain(lambda: GK.geometry_bwd_plain(
-                ws, bs, x, ct_out, ct_g, cfg, bf16=True)), 3),
-            "geometry_bwd_stash_bf16": cuda_ms(plain(
-                lambda: GK.geometry_bwd_stash_plain(ws, x, st_k, ct_out, ct_g,
-                                                    cfg, bf16=True)), 3)}
-        plain_ms["geometry_bwd_split_bf16"] = plain_ms["geometry_bwd_bf16"]
+                ws, bs, x, ct_out, ct_g, cfg, bf16=True)), 3)}
         # what the bf16 mode adds to a step besides its kernels: the two
         # slab packs SDFNetwork.kernel_weights(bf16=True) builds for
-        # K1-fwd-bf16 and K1-bwd-bf16 (and, timed beside them, the
-        # mma.sync packs, 3xTF32 and bf16, built only under the switches)
+        # K1-fwd-bf16 and the bf16 K1 backwards (and, timed beside them,
+        # the mma.sync packs, 3xTF32 and bf16, built only under the stash
+        # switch)
         pack_ms = {"pack_ms": cuda_ms(lambda: GK.make_pack(ws), 10),
                    "pack_bf16_ms": cuda_ms(lambda: GK.make_pack(ws, True),
                                            10),
@@ -1541,39 +1576,44 @@ def check_bf16_kernels(device):
                        lambda: TP.pack_rev_bf16(ws, cfg.d_embed), 10)}
         print(f"weight packs at full width: 3xTF32 {pack_ms['pack_ms']:.3f} "
               f"ms, bf16 {pack_ms['pack_bf16_ms']:.3f} ms (both switch-only)"
-              f", K1-fwd-bf16's and K1-bwd-bf16's slab packs "
+              f", the bf16 wgmma kernels' slab packs "
               f"{pack_ms['sweep_pack_bf16_ms']:.3f} ms (forward)"
               f" + {pack_ms['rev_pack_bf16_ms']:.3f} ms (reverse) (CUDA "
               f"events around 10 builds each)")
         fwd_bytes = n * (12 + 4 * outs[-1] + 12) + wbytes
         bwd_bytes = n * (12 + 4 * outs[-1] + 12 + 12) + 2 * wbytes
-        work = {"geometry_fwd_bf16": (fwd_flops, fwd_bytes, 729),
+        work = {"geometry_fwd_bf16": (fwd_flops, fwd_bytes, 729,
+                                      "geometry_fwd_bf16_wg.cu"),
                 "geometry_fwd_stash_bf16": (fwd_flops, fwd_bytes +
-                                            n * stash_bytes, 764),
-                "geometry_bwd_bf16": (bwd_flops, bwd_bytes, 846),
-                "geometry_bwd_split_bf16": (bwd_flops, bwd_bytes, 529),
+                                            n * stash_bytes, 764,
+                                            "geometry_fwd.cu"),
+                "geometry_bwd_bf16": (bwd_flops, bwd_bytes, 846,
+                                      "geometry_bwd_bf16_wg.cu"),
+                "geometry_bwd_split_bf16": (bwd_flops, bwd_bytes, 529,
+                                            "geometry_bwd_chains_bf16_wg.cu"),
                 "geometry_bwd_stash_bf16": (bwd_flops - 2 * (S - s_last),
                                             bwd_bytes + n * stash_bytes,
-                                            797)}
-        for name, (run, _, _, _) in runs.items():
-            flops, nbytes, line = work[name]
+                                            797,
+                                            "geometry_bwd_chains_bf16_wg.cu")}
+        for name, (flops, nbytes, line, src) in work.items():
             t_ops, t_bytes = n * flops / BF16_PEAK, nbytes / HBM_RATE
-            src = {"geometry_fwd_bf16": "geometry_fwd_bf16_wg.cu",
-                   "geometry_fwd_stash_bf16": "geometry_fwd.cu",
-                   "geometry_bwd_bf16": "geometry_bwd_bf16_wg.cu"}.get(
-                       name, "geometry_bwd_bf16.cu")
+            if name in runs:
+                ms = cuda_ms(runs[name][0], 5 if "bwd" in name else 10)
+                p_ms = plain_ms[name]
+            else:   # timed by k1_chains_check at this n
+                ms = chain_shapes[name][-1]["ms"]
+                p_ms = chain_shapes[name][-1]["plain_ms"]
             results.append({
                 "name": name, "route": "cuda",
                 "source": f"factored_neus_tpu_torch/csrc/{src}",
                 "replaces": f"factored_neus_tpu/ops/pallas_geometry.py:{line}",
-                "launches": 0, "max_abs_err": 0.0,
-                "ms": cuda_ms(run, 5 if "bwd" in name else 10),
-                "plain_ms": plain_ms[name],
+                "launches": 0, "max_abs_err": 0.0, "ms": ms,
+                "plain_ms": p_ms,
                 "bound_ms": 1e3 * max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "library_ms": None})
         results[0].update(pack_ms)
-        del tw_f, tw_b, tw_sf, tw_sb, ref_f, ref_b
+        del tw_f, tw_b, tw_sf, ref_f, ref_b
     # a validation chunk's rows (the mode on there: 1 a chunk)
     n = VAL_CHUNK * 128
     x = torch.randn(n, 3, device=device, generator=gen) * 0.5
@@ -1601,6 +1641,12 @@ def check_bf16_kernels(device):
         if r["name"] == "geometry_fwd_bf16":
             r.update(shapes=fwd_shapes, sass=fwd_build["sass"],
                      ptxas=fwd_build["ptxas"], attrs=fwd_attrs)
+        if r["name"] in chain_shapes:
+            sh = chain_shapes[r["name"]]
+            r.update(shapes=sh, attrs=sh[0]["attrs"], sass=cbuild["sass"],
+                     ptxas=cbuild["ptxas"])
+            if "split" in r["name"]:
+                r["bits_vs_k1_bwd_bf16"] = [x["bits_vs_k1_bwd"] for x in sh]
         print(f"  {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} "
               f"ms) at {N_CORE} rows, bf16 bound {r['bound_ms']:.3f} ms by "
               f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% of "
@@ -3456,8 +3502,9 @@ def bf16_run() -> int:
     backward (their bf16 kernels once a step), then a stage-1 run with
     --gpu 0 --profile DIR, whose trace must name K1's and K3's bf16
     kernels, and one with --debug_nans.  tc_pack.pack_weights_bf16 (the
-    bf16 mma.sync pack) is built in no step of the first run and once a
-    step or more in the stash and split runs.  Its last line is
+    bf16 mma.sync pack, K1-fwd-stash-bf16's alone) is built in no step of
+    the first run or of the split run and once a step or more in the stash
+    run.  Its last line is
     {"launches": {"main": ..., "stash": ..., "split": ...},
     "pack_weights_bf16_calls": {...}, "rays_per_sec": ...}."""
     sys.path.insert(0, HERE)
@@ -3504,10 +3551,10 @@ def bf16_run() -> int:
     print(f"tc_pack.pack_weights_bf16 calls: {packs16} ({BF16_STEPS} steps "
           f"of the bf16 run, {BF16_VARIANT_STEPS} of the stash and split "
           f"runs)")
-    if packs16["main"] or min(packs16["stash"], packs16["split"]) < \
-            BF16_VARIANT_STEPS:
-        raise AssertionError("the bf16 run built the bf16 mma.sync pack, or "
-                             "a switch-only variant ran without it")
+    if packs16["main"] or packs16["split"] or \
+            packs16["stash"] < BF16_VARIANT_STEPS:
+        raise AssertionError("the bf16 or split run built the bf16 mma.sync "
+                             "pack, or the stash run ran without it")
     with tempfile.TemporaryDirectory() as tmp:
         conf = write_conf(tmp, BF16_VARIANT_STEPS)
         base = ["--mode", "train", "--conf", conf, "--case", "sphere",

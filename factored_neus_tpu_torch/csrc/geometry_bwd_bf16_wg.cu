@@ -104,14 +104,6 @@ struct GwDims {
   const float* b[GW_MAXL];
 };
 
-__device__ __forceinline__ float bf_lo(uint32_t v) {
-  return __uint_as_float(v << 16);
-}
-
-__device__ __forceinline__ float bf_hi(uint32_t v) {
-  return __uint_as_float(v & 0xFFFF0000u);
-}
-
 // -- the sweep ---------------------------------------------------------------
 
 __device__ __forceinline__ void gw_producer(const GwDims& d,
@@ -128,48 +120,6 @@ __device__ __forceinline__ void gw_producer(const GwDims& d,
         gw_put(d.ns, ring, full, empty, it,
                d.rpack + d.r_off[l] + s * d.r_copy[l], d.r_copy[l]);
   }
-}
-
-// A forward layer from ring slab it on: with H, h's 16 k-steps from a in
-// four slabs; with ENC (layer 0, a skip layer), the encoding's 3 from ef.
-template <bool H, bool ENC>
-__device__ __forceinline__ void gw_fwd_layer(const GwDims& d, int it,
-                                             unsigned char* ring,
-                                             uint64_t* full, uint64_t* empty,
-                                             float (&acc)[128],
-                                             const uint32_t (&a)[16][4],
-                                             const uint32_t (&ef)[3][4],
-                                             int lead) {
-  if constexpr (H) {
-    gw_slab<256, 4, 0, true>(d.ns, it, ring, full, acc, a);
-    gw_slab<256, 4, 4, false>(d.ns, it + 1, ring, full, acc, a);
-    gw_slab<256, 4, 8, false>(d.ns, it + 2, ring, full, acc, a);
-    gw_slab<256, 4, 12, false>(d.ns, it + 3, ring, full, acc, a);
-  }
-  if constexpr (ENC)
-    gw_slab<256, 3, 0, !H>(d.ns, it + (H ? 4 : 0), ring, full, acc, ef);
-  gw_release<(H ? 4 : 0) + (ENC ? 1 : 0)>(d.ns, it, empty, lead);
-  fence_regs(acc);
-}
-
-// A reverse layer from ring slab it on: r's 16 k-steps from a in four
-// slabs and, with EXTRA (a last layer over 256 wide), its 17th from ex.
-template <int N, bool EXTRA>
-__device__ __forceinline__ void gw_rev_layer(const GwDims& d, int it,
-                                             unsigned char* ring,
-                                             uint64_t* full, uint64_t* empty,
-                                             float (&acc)[N / 2],
-                                             const uint32_t (&a)[16][4],
-                                             const uint32_t (&ex)[1][4],
-                                             int lead) {
-  gw_slab<N, 4, 0, true>(d.ns, it, ring, full, acc, a);
-  gw_slab<N, 4, 4, false>(d.ns, it + 1, ring, full, acc, a);
-  gw_slab<N, 4, 8, false>(d.ns, it + 2, ring, full, acc, a);
-  gw_slab<N, 4, 12, false>(d.ns, it + 3, ring, full, acc, a);
-  if constexpr (EXTRA)
-    gw_slab<N, 1, 0, false>(d.ns, it + 4, ring, full, acc, ex);
-  gw_release<4 + (EXTRA ? 1 : 0)>(d.ns, it, empty, lead);
-  fence_regs(acc);
 }
 
 // Bias + softplus and sigma(100 a) ad (x 1/sqrt 2 before a skip, SKIP) of
@@ -196,99 +146,6 @@ __device__ __forceinline__ void gw_activate(const float (&acc)[128],
     }
 }
 
-// A skip layer's X image: [h (w columns) | enc (d_embed)] / sqrt 2 in W's
-// column order (gw_perm's positions), h from the fragments a (already /
-// sqrt 2), enc from the point's encoding rows ep (primal) and et
-// (tangent).
-__device__ __forceinline__ void gw_img256_skip(unsigned char* im,
-                                               const uint32_t (&a)[16][4],
-                                               const float* ep,
-                                               const float* et, int w,
-                                               int d_embed, int warp, int g,
-                                               int t) {
-  const float inv_sqrt2 = 0.70710678118654752f;
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    uint32_t f[2][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int ch = 0; ch < 2; ++ch) {
-        // pair q = 4r + i of the primal (ch 0) or tangent (ch 1) row
-        const int j = 2 * r + (i >> 1), ai = 2 * (i & 1) + ch;
-        const int c = 8 * (4 * r + i) + 2 * t;
-        const float* e = ch ? et : ep;
-        float v[2] = {bf_lo(a[j][ai]), bf_hi(a[j][ai])};
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          const int ce = c + k - w;
-          if (ce >= 0) v[k] = ce < d_embed ? e[ce] * inv_sqrt2 : 0.f;
-        }
-        f[ch][i] = pack_bf16(v[0], v[1]);
-      }
-    gw_img_chunk(im, r, make_uint4(f[0][0], f[0][1], f[0][2], f[0][3]),
-                 make_uint4(f[1][0], f[1][1], f[1][2], f[1][3]), warp, g, t);
-  }
-}
-
-// R_l in acc (f32, stacked): its bf16 A fragments a, its tile image im,
-// and its primal rows' column sums added to the warp's db slot row sl
-// (set on the block's first pass).
-__device__ __forceinline__ void gw_r_finish(float (&acc)[128],
-                                            uint32_t (&a)[16][4],
-                                            unsigned char* im, float* sl,
-                                            bool first, int warp, int g,
-                                            int t) {
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[j][i] = pack_bf16(acc[8 * j + 2 * i], acc[8 * j + 2 * i + 1]);
-  gw_img256(im, a, warp, g, t);
-  gw_db_reduce(acc, g);
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    float2* o = (float2*)(sl + 64 * m + 8 * g + 2 * t);
-    const float2 v = make_float2(acc[32 * m], acc[32 * m + 1]);
-    *o = first ? v : make_float2(o->x + v.x, o->y + v.y);
-  }
-}
-
-// The reverse step of layer l (l >= 1) from R_in = r W_l in acc: with SKIP
-// (layer l reads [h | enc] / sqrt 2) R_in / sqrt 2 and its encoding
-// columns (w on) added to the point's re rows; then h = sp(a), hd =
-// sigma(100 a) ad: r = r_h s + rd_h ds ad, rd = rd_h s (s and ad of layer
-// l - 1 from its scratch sc), zero from column w on.
-template <bool SKIP>
-__device__ __forceinline__ void gw_rev_step(float (&acc)[128],
-                                            const float4* sc, int w,
-                                            int d_embed, float* rp,
-                                            float* rt, int t) {
-  const float inv_sqrt2 = 0.70710678118654752f;
-#pragma unroll
-  for (int q = 0; q < 32; ++q) {
-    const float4 v = sc[q * 128];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = 8 * q + 2 * t + e;
-      float rh = acc[4 * q + e], rdh = acc[4 * q + 2 + e];
-      if (SKIP) {
-        rh *= inv_sqrt2;
-        rdh *= inv_sqrt2;
-        if (c >= w && c < w + d_embed) {
-          rp[c - w] += rh;
-          rt[c - w] += rdh;
-        }
-      }
-      const float s = e ? v.y : v.x, ad = e ? v.w : v.z;
-      const float ds = 100.f * s * (1.f - s);
-      const bool in = c < w;
-      acc[4 * q + e] = in ? rh * s + rdh * ds * ad : 0.f;
-      acc[4 * q + 2 + e] = in ? rdh * s : 0.f;
-    }
-  }
-}
-
 __device__ __forceinline__ void gw_consumer(const GwDims& d, int wg,
                                             unsigned char* ring, float* E,
                                             float* RE, const float* bias,
@@ -298,8 +155,7 @@ __device__ __forceinline__ void gw_consumer(const GwDims& d, int wg,
   const int pt = 8 * warp + g;                  // this thread's point
   const int lead = lane == 0;
   const float inv_sqrt2 = 0.70710678118654752f;
-  const float inv_scale = 1.f / d.scale;
-  const int L = d.L, lL = L - 1, N = d.outs[lL], de = d.d_embed;
+  const int L = d.L, lL = L - 1, de = d.d_embed;
   const int cid = blockIdx.x * d.nc + wg;
   float4* scr = (float4*)d.scratch + (size_t)cid * lL * 32 * 128 + tid;
   float* dbw = d.dbp + ((size_t)cid * 4 + warp) * L * GW_BW;
@@ -315,7 +171,6 @@ __device__ __forceinline__ void gw_consumer(const GwDims& d, int wg,
     const bool first = p == blockIdx.x;
     const int tile = p * d.nc + wg;
     const int P = tile * GW_PTS + pt;
-    const bool valid = P < d.n;
     // the encoding and its tangent, and zero cotangents (every thread is
     // done with the last tile's)
     bar_sync(1 + wg, 128);
@@ -351,15 +206,16 @@ __device__ __forceinline__ void gw_consumer(const GwDims& d, int wg,
         unsigned char* x0 = d.img + d.x_img[0] + (size_t)tile * d.xb[0];
         const uint32_t zero[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-        for (int j = 0; j < 3; ++j) gw_img(x0, j, ef[j], warp, g, t);
-        gw_img(x0, 3, zero, warp, g, t);
-        gw_fwd_layer<false, true>(d, it, ring, full, empty, acc, a, ef,
+        for (int j = 0; j < 3; ++j)
+          gw_img<8>(x0, j, ef[j], 16 * warp + g, g, t);
+        gw_img<8>(x0, 3, zero, 16 * warp + g, g, t);
+        gw_fwd_layer<false, true>(d.ns, it, ring, full, empty, acc, a, ef,
                                   lead);
       } else if (d.enc[l]) {
-        gw_fwd_layer<true, true>(d, it, ring, full, empty, acc, a, ef,
+        gw_fwd_layer<true, true>(d.ns, it, ring, full, empty, acc, a, ef,
                                  lead);
       } else {
-        gw_fwd_layer<true, false>(d, it, ring, full, empty, acc, a, ef,
+        gw_fwd_layer<true, false>(d.ns, it, ring, full, empty, acc, a, ef,
                                   lead);
       }
       it += d.f_nslab[l];
@@ -369,95 +225,17 @@ __device__ __forceinline__ void gw_consumer(const GwDims& d, int wg,
           d.img + d.x_img[l + 1] + (size_t)tile * d.xb[l + 1];
       if (d.enc[l + 1]) {
         gw_activate<true>(acc, bl, t, a, sl);
-        gw_img256_skip(xn, a, ep, et, d.outs[l], de, warp, g, t);
+        gw_img256_skip<8>(xn, a, ep, et, d.outs[l], de, 16 * warp + g, g,
+                          t);
       } else {
         gw_activate<false>(acc, bl, t, a, sl);
-        gw_img256(xn, a, warp, g, t);
+        gw_img256<8>(xn, a, 16 * warp + g, g, t);
       }
     }
 
-    // the seeds: ct_out (column 0 / scale) on the primal rows, e0 / scale
-    // on the tangent rows; a last layer over 256 wide has its columns 256
-    // on in ex (k-step 16)
-    uint32_t ex[1][4] = {{0u, 0u, 0u, 0u}};
-    {
-      const float* co = d.ct_out + (size_t)P * N;
-#pragma unroll
-      for (int q = 0; q < 32; ++q)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = 8 * q + 2 * t + e;
-          acc[4 * q + e] =
-              valid && c < N ? co[c] * (c == 0 ? inv_scale : 1.f) : 0.f;
-          acc[4 * q + 2 + e] = valid && c == 0 ? inv_scale : 0.f;
-        }
-      if (N > 256) {
-        float xv[2][2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int c = 256 + 8 * h + 2 * t + e;
-            xv[h][e] = valid && c < N ? co[c] : 0.f;
-          }
-        ex[0][0] = pack_bf16(xv[0][0], xv[0][1]);
-        ex[0][2] = pack_bf16(xv[1][0], xv[1][1]);
-        const uint32_t f[4] = {ex[0][0], 0u, ex[0][2], 0u};
-        gw_img(d.img + d.r_img[lL] + (size_t)tile * d.rb[lL], 16, f, warp,
-               g, t);
-        // db's columns 256 + 2t + e: summed over the warp's points
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float v = xv[0][e];
-#pragma unroll
-          for (int s = 4; s < 32; s <<= 1)
-            v += __shfl_xor_sync(0xffffffffu, v, s);
-          float* o = dbw + lL * GW_BW + 256 + 2 * t + e;
-          if (g == 0) *o = first ? v : *o + v;
-        }
-      }
-      gw_r_finish(acc, a, d.img + d.r_img[lL] + (size_t)tile * d.rb[lL],
-                  dbw + lL * GW_BW, first, warp, g, t);
-    }
-
-    // the reverse sweep: r W of layer l, then layer l - 1's step (its
-    // scratch on its way to L2 while the product runs)
-    for (int l = lL; l >= 1; --l) {
-      l2_prefetch_if(scr - tid + (l - 1) * 32 * 128, 32 * 128 * 16,
-                     tid == 0);
-      if (l == lL && N > 256)
-        gw_rev_layer<256, true>(d, it, ring, full, empty, acc, a, ex, lead);
-      else
-        gw_rev_layer<256, false>(d, it, ring, full, empty, acc, a, ex, lead);
-      it += d.r_nslab[l];
-      const float4* sl = scr + (l - 1) * 32 * 128;
-      if (d.enc[l]) {
-        __syncwarp();
-        gw_rev_step<true>(acc, sl, d.outs[l - 1], de, rp, rt, t);
-      } else {
-        gw_rev_step<false>(acc, sl, d.outs[l - 1], de, rp, rt, t);
-      }
-      gw_r_finish(acc, a,
-                  d.img + d.r_img[l - 1] + (size_t)tile * d.rb[l - 1],
-                  dbw + (l - 1) * GW_BW, first, warp, g, t);
-    }
-    {
-      // layer 0: r W_0, the encoding's cotangents
-      float acc48[24];
-      gw_rev_layer<48, false>(d, it, ring, full, empty, acc48, a, ex, lead);
-      it += d.r_nslab[0];
-      __syncwarp();
-#pragma unroll
-      for (int q = 0; q < 6; ++q)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = 8 * q + 2 * t + e;
-          if (c < de) {
-            rp[c] += acc48[4 * q + e];
-            rt[c] += acc48[4 * q + 2 + e];
-          }
-        }
-    }
+    // the reverse sweep (wg_bwd.cuh)
+    gw_reverse(d, it, ring, full, empty, acc, a, tile, P, scr, dbw, rp, rt,
+               first, tid, lead);
     bar_sync(1 + wg, 128);
     if (tid < GW_PTS) {
       const int row = tile * GW_PTS + tid;

@@ -117,7 +117,7 @@ __device__ __forceinline__ void rw_r_finish(float (&acc)[128],
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       a[j][i] = pack_bf16(acc[8 * j + 2 * i], acc[8 * j + 2 * i + 1]);
-  gw_img256(im, a, warp, g, t);
+  gw_img256<8>(im, a, 16 * warp + g, g, t);
 #pragma unroll
   for (int q = 0; q < 32; ++q) {
     acc[4 * q] += acc[4 * q + 2];
@@ -175,10 +175,11 @@ __device__ __forceinline__ void rw_consumer(const RwDims& d, int wg,
       // X_0's image: the feature in blocks 0 - 3, the narrow columns in
       // block 4
       unsigned char* x0 = d.img + d.x_img[0] + (size_t)tile * d.xb[0];
-      gw_img256(x0, a, warp, g, t);
+      gw_img256<8>(x0, a, 16 * warp + g, g, t);
 #pragma unroll
-      for (int j = 0; j < 3; ++j) gw_img(x0 + 4 * GW_XB, j, ef[j], warp, g, t);
-      gw_img(x0 + 4 * GW_XB, 3, zero, warp, g, t);
+      for (int j = 0; j < 3; ++j)
+        gw_img<8>(x0 + 4 * GW_XB, j, ef[j], 16 * warp + g, g, t);
+      gw_img<8>(x0 + 4 * GW_XB, 3, zero, 16 * warp + g, g, t);
     }
 
     // the forward, layers 0 .. L - 2
@@ -200,8 +201,8 @@ __device__ __forceinline__ void rw_consumer(const RwDims& d, int wg,
       if (d.masks)
         *(uint4*)(d.masks + (((size_t)tile * 128 + tid) * lL + l) * 4) =
             make_uint4(m[0], m[1], m[2], m[3]);
-      gw_img256(d.img + d.x_img[l + 1] + (size_t)tile * d.xb[l + 1], a,
-                warp, g, t);
+      gw_img256<8>(d.img + d.x_img[l + 1] + (size_t)tile * d.xb[l + 1], a,
+                   16 * warp + g, g, t);
     }
 
     // the last layer (m64n8) and the seed r = ct_rgb y (1 - y): column
@@ -233,9 +234,10 @@ __device__ __forceinline__ void rw_consumer(const RwDims& d, int wg,
       // R's image of the last layer: one block, columns 0 .. 15 from ex,
       // the rest zero
       unsigned char* im = d.img + d.r_img[lL] + (size_t)tile * d.rb[lL];
-      gw_img(im, 0, ex[0], warp, g, t);
+      gw_img<8>(im, 0, ex[0], 16 * warp + g, g, t);
 #pragma unroll
-      for (int j = 1; j < 4; ++j) gw_img(im, j, zero, warp, g, t);
+      for (int j = 1; j < 4; ++j)
+        gw_img<8>(im, j, zero, 16 * warp + g, g, t);
       // db's columns 2t + e: summed over the thread's rows and the warp's
 #pragma unroll
       for (int e = 0; e < 2; ++e) {

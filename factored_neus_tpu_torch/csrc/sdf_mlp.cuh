@@ -1,8 +1,6 @@
 // Shared device code of the MLP kernels: the positional encoding and its
-// backward, softplus(beta=100), and the fixed-order sum of per-block weight
-// gradients (the mma.sync K1 backwards: K1-bwd-split-bf16 and
-// K1-bwd-stash-bf16).  Every kernel runs its products on the tensor
-// cores.
+// backward, softplus(beta=100).  Every kernel runs its products on the
+// tensor cores.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -65,15 +63,4 @@ __device__ __forceinline__ void encode_backward_row(const float u[3],
     }
     f *= 2.f;
   }
-}
-
-// out[j] = sum over blocks b (in order) of part[b][j]: the fixed-order
-// second pass of the weight-gradient sums, so they are deterministic.
-__global__ void reduce_partials_kernel(const float* __restrict__ part, int G,
-                                       long long P, float* out) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= P) return;
-  float s = 0.f;
-  for (int b = 0; b < G; ++b) s += part[(size_t)b * P + j];
-  out[j] = s;
 }

@@ -1,16 +1,11 @@
-// Tensor-core product engine of the mma.sync kernels, the switch-only K1
-// variants (geometry_fwd.cu's stash forward, also in bf16, and
-// geometry_bwd.cuh's bf16 split and stash backwards): the products an MLP
-// kernel runs on a 64-row tile held in shared memory, in f32 accuracy
-// through 3xTF32 on mma.sync (or on bf16 operands), with the weights
-// staged into shared memory by cp.async.
+// Tensor-core product engine of the last mma.sync kernels, the
+// switch-only K1-fwd-stash and K1-fwd-stash-bf16 (geometry_fwd.cu): the
+// products an MLP kernel runs on a 64-row tile held in shared memory, in
+// f32 accuracy through 3xTF32 on mma.sync (or on bf16 operands), with the
+// weights staged into shared memory by cp.async.
 //
 //   tc_mm   Y = X B          forward (B = W^T block) and input cotangents
 //                            (B = W block): X, Y in shared memory
-//   tc_atb  C (+)= X^T R     weight gradient over the tile's 64 rows into a
-//                            global [in][out] slice, read and written
-//                            through the idle weight ring in coalesced
-//                            runs, the read by cp.async under the products
 //
 // 3xTF32.  Each operand a is split into big = a rounded to TF32 (10-bit
 // mantissa, to nearest, ties away: (bits + 0x1000) & ~0x1fff) and
@@ -22,9 +17,8 @@
 // over ~100 mma instructions of a 264-deep product, is biased and would
 // cost the forward ~1.5e-5 of absolute error at full width, above K1-fwd's
 // 1e-5 tolerance; so each ring stage (16 k) sums into fresh accumulators and
-// is added to the running sum with a rounded f32 add.  The weight-gradient
-// sums run over 64 rows (8 k-steps) only and are added to the partial slice
-// the same way.  The weights come pre-split from the packer
+// is added to the running sum with a rounded f32 add.  The weights come
+// pre-split from the packer
 // (ops/tc_pack.pack_weights): big and small halves of one buffer, so
 // the kernel splits only activations, as it loads their fragments.  That
 // doubles the weight bytes staged, but they come from L2 (the SDF's 8.7 MB
@@ -45,9 +39,7 @@
 // 4 k) hits 32 banks; a staged weight row has a stride S = 8 (mod 32), so a
 // B fragment (4 k x 8 n) does too.  Weight rows of one layer are copied in
 // slices of 16 rows through a two-stage ring: slice s + 1 is in flight
-// while slice s is multiplied.  In tc_atb the k index runs over tile rows
-// paired as (2t, 2t + 1), which keeps both fragments conflict-free at the
-// same strides.
+// while slice s is multiplied.
 //
 // bf16 operands (BF = true; K1's bf16 mode, the JAX package's
 // _mm_fns(bf16=True)).  Both operands of every product are rounded to bf16
@@ -62,10 +54,7 @@
 // weight rows into the words of its B fragment (tc_pack.bf16_pair_rows),
 // so the A fragment reads the same four floats a row as two TF32 k-steps
 // and the B fragment whole words, both conflict-free at the strides above
-// (ld = 4 mod 8, S = 8 mod 32 words).  In tc_atb the k index is the tile
-// row as it comes (rows 2t, 2t + 1 and 2t + 8, 2t + 9 of each 16): rows
-// 2t at ld = 4 (mod 8) start 8 banks apart, as in the TF32 pairing.
-// tools/tf32_mma_probe.py also reads how the bf16 mma sums; each stage
+// (ld = 4 mod 8, S = 8 mod 32 words).  tools/tf32_mma_probe.py also reads how the bf16 mma sums; each stage
 // still sums into fresh accumulators.
 #pragma once
 
@@ -104,8 +93,9 @@ struct TcDims {
 
 __host__ __device__ inline int tc_round8(int w) { return (w + 7) / 8 * 8; }
 
-// Shared-memory row stride of a weight-gradient chunk of width N (TcRows):
-// >= N + 3 and 4 (mod 32).
+// Shared-memory row stride of a 64-row chunk of width N: >= N + 3 and 4
+// (mod 32).  The ring keeps room for one (tc_pack.smem_bytes counts it),
+// the size the mma.sync backward's weight-gradient chunk needed.
 __host__ __device__ inline int tc_chunk_stride(int N) {
   const int sp = N + 3;
   return sp + (36 - sp % 32) % 32;
@@ -145,8 +135,7 @@ static inline int tc_layers_from_args(const int* ia, int max_kp, TcDims* d,
   d->H = ia[7 + 6 * L];
   if (d->H % 8) return (int)cudaErrorInvalidValue;
   // the ring: two stages of TC_KS weight rows (big and small, or bf16
-  // pairs); it also holds a 64-row weight-gradient chunk while no weights
-  // are staged
+  // pairs), at least a 64-row chunk (tc_chunk_stride)
   d->stage = (bf16 ? TC_KS / 2 : 2 * TC_KS) * widest;
   d->ring = ((2 * d->stage > chunk ? 2 * d->stage : chunk) + 3) / 4 * 4;
   return 0;
@@ -439,194 +428,4 @@ __device__ __forceinline__ void tc_rows_for(int rows, int W, L0 ld0, L1 ld1,
       }
     }
   }
-}
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-// Rows [0, rows) of a row-major global matrix at C (stride N, rows at any
-// 4-byte alignment) and their copy in shared memory: row r at r * SP +
-// (its float offset within 16 bytes), so that both sides of a row share
-// their alignment and move in 16-byte pieces with 4-byte ones at the ends.
-// SP = 4 (mod 32) and >= N + 3: the C fragments' accesses (8 rows x 4
-// column pairs) then meet at most two to a bank.  One warp copies a row.
-struct TcRows {
-  float* C;
-  float* smem;
-  int N, SP, rows;
-  __device__ __forceinline__ TcRows(float* C_, float* smem_, int N_,
-                                    int rows_)
-      : C(C_), smem(smem_), N(N_), SP(tc_chunk_stride(N_)), rows(rows_) {}
-  __device__ __forceinline__ float* grow(int r) const {
-    return C + (size_t)r * N;
-  }
-  __device__ __forceinline__ int align(int r) const {
-    return (int)(((size_t)grow(r) >> 2) & 3);
-  }
-  __device__ __forceinline__ float* srow(int r) const {
-    return smem + r * SP + align(r);
-  }
-  // LOAD: starts global -> shared by cp.async (one group); else stores
-  // shared -> global
-  template <bool LOAD>
-  __device__ __forceinline__ void copy() const {
-    const int lane = threadIdx.x & 31;
-    for (int r = threadIdx.x >> 5; r < rows; r += TC_THREADS / 32) {
-      float* g = grow(r);
-      float* s = srow(r);
-      const int head = min((4 - align(r)) & 3, N);
-      const int body = (N - head) >> 2, tail0 = head + 4 * body;
-      for (int i = lane; i < head + N - tail0; i += 32) {
-        const int e = i < head ? i : tail0 + i - head;
-        if (LOAD) cp_async4(s + e, g + e);
-        else g[e] = s[e];
-      }
-      for (int i = lane; i < body; i += 32) {
-        const int e = head + 4 * i;
-        if (LOAD) cp_async16(s + e, g + e);
-        else *(float4*)(g + e) = *(const float4*)(s + e);
-      }
-    }
-    if (LOAD) cp_async_commit();
-  }
-};
-
-// C[K][N] (+)= X[64][K]^T @ R[64][N] summed over the tile's 64 rows; X, R
-// in shared memory (strides ldx, ldr; columns up to round8(K), round8(N)
-// are read and must be finite), C in global memory, row-major with stride
-// N.  first: store instead of accumulate.  3xTF32: the k index of k-step s
-// runs over rows 8s + 2t (k = t) and 8s + 2t + 1 (k = t + 4); bf16: k-step
-// s is rows 16s .. 16s + 15 in order.  C is done in chunks of 64 rows,
-// each through the idle weight ring (as TcRows): its old values are
-// copied in by cp.async while its products run, each thread adds its sums
-// there, and the block writes the rows back in 16-byte pieces, so device
-// memory sees whole coalesced rows, not the fragments' scattered pairs.
-template <int NTW, bool BF>
-__device__ __forceinline__ void tc_atb(const float* X, int ldx, int K,
-                                       const float* R, int ldr, int N,
-                                       float* C, bool first, float* ring) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  constexpr int CG = TC_WARPS / 2;
-  const int wr = warp / CG, wc = warp % CG;
-  const int kp = tc_round8(K), nt = tc_round8(N) >> 3;
-  for (int mc = 0; mc < kp; mc += 64) {
-    const TcRows rows(C + (size_t)mc * N, ring, N, min(64, K - mc));
-    if (!first) rows.copy<true>();
-    float acc[2][NTW][4];
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int i = 0; i < NTW; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[m][i][e] = 0.f;
-    if (BF) {
-#pragma unroll 2
-      for (int s = 0; s < 4; ++s) {
-        const float* x0 = X + (16 * s + 2 * t) * ldx;
-        const float* r0 = R + (16 * s + 2 * t) * ldr + g;
-        uint32_t a[2][4];
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          const int m0 = mc + 32 * wr + 16 * m;
-          const bool hi = m0 + 8 < kp;
-          const float* xm = x0 + m0 + g;
-          if (m0 < kp) {
-            a[m][0] = bf16_pair(xm[0], xm[ldx]);
-            a[m][1] = hi ? bf16_pair(xm[8], xm[ldx + 8]) : 0u;
-            a[m][2] = bf16_pair(xm[8 * ldx], xm[9 * ldx]);
-            a[m][3] = hi ? bf16_pair(xm[8 * ldx + 8], xm[9 * ldx + 8]) : 0u;
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < NTW; ++i) {
-          const int j = wc + CG * i;
-          if (j < nt) {
-            const uint32_t b[2] = {
-                bf16_pair(r0[8 * j], r0[ldr + 8 * j]),
-                bf16_pair(r0[8 * ldr + 8 * j], r0[9 * ldr + 8 * j])};
-#pragma unroll
-            for (int m = 0; m < 2; ++m)
-              if (mc + 32 * wr + 16 * m < kp) mma_bf16(acc[m][i], a[m], b);
-          }
-        }
-      }
-    } else {
-#pragma unroll 2
-      for (int s = 0; s < 8; ++s) {
-        const float* x0 = X + (8 * s + 2 * t) * ldx;
-        const float* r0 = R + (8 * s + 2 * t) * ldr + g;
-        uint32_t ab[2][4], as[2][4];
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          const int m0 = mc + 32 * wr + 16 * m;
-          const bool hi = m0 + 8 < kp;
-          const float* xm = x0 + m0 + g;
-          if (m0 < kp) {
-            tf32_split(xm[0], ab[m][0], as[m][0]);
-            tf32_split(hi ? xm[8] : 0.f, ab[m][1], as[m][1]);
-            tf32_split(xm[ldx], ab[m][2], as[m][2]);
-            tf32_split(hi ? xm[ldx + 8] : 0.f, ab[m][3], as[m][3]);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < NTW; ++i) {
-          const int j = wc + CG * i;
-          if (j < nt) {
-            uint32_t bb[2], bs[2];
-            tf32_split(r0[8 * j], bb[0], bs[0]);
-            tf32_split(r0[ldr + 8 * j], bb[1], bs[1]);
-#pragma unroll
-            for (int m = 0; m < 2; ++m)
-              if (mc + 32 * wr + 16 * m < kp)
-                mma3(acc[m][i], ab[m], as[m], bb, bs);
-          }
-        }
-      }
-    }
-    if (!first) cp_async_wait<0>();
-    __syncthreads();
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = 32 * wr + 16 * m + 8 * h + g;
-        if (mc + r >= K) continue;
-        float* cr = rows.srow(r);
-        float v[NTW][2];
-#pragma unroll
-        for (int i = 0; i < NTW; ++i) {
-          const int n = 8 * (wc + CG * i) + 2 * t;
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            v[i][e] = first || n + e >= N ? 0.f : cr[n + e];
-        }
-#pragma unroll
-        for (int i = 0; i < NTW; ++i) {
-          const int n = 8 * (wc + CG * i) + 2 * t;
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (n + e < N) cr[n + e] = v[i][e] + acc[m][i][2 * h + e];
-        }
-      }
-    }
-    __syncthreads();
-    rows.copy<false>();
-    __syncthreads();
-  }
-}
-
-// C (+)= X^T R over the tile's 64 rows, dispatched on the column tiles;
-// BF: on bf16 operands.
-template <bool BF = false>
-__device__ __forceinline__ void tc_weight_grad(const float* X, int ldx, int K,
-                                               const float* R, int ldr, int N,
-                                               float* C, bool first,
-                                               float* ring) {
-  TC_NTW_DISPATCH(tc_ntw(tc_round8(N), 2),
-                  (tc_atb<NTW, BF>(X, ldx, K, R, ldr, N, C, first, ring)));
 }

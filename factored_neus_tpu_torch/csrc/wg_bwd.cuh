@@ -8,9 +8,12 @@
 //                 retire; every depth fixed at compile time (the bf16
 //                 forwards' too, sweep16.cuh: K2-bf16, K1-fwd-bf16,
 //                 K3-fwd-bf16, whose stages may be wider)
-//   gw_img, gw_perm, gw_img_chunk, gw_img256   the writers of a layer's bf16
-//                 X_l and R_l tile images (MN-major, 128-byte swizzle,
-//                 wgmma.cuh), from a thread's A fragments
+//   gw_fwd_layer, gw_rev_layer   an SDF layer's X W and r W from the ring
+//                 (K1-bwd-bf16 and the bf16 chains,
+//                 geometry_bwd_chains_bf16_wg.cu)
+//   gw_img, gw_perm, gw_img_chunk, gw_img256, gw_img256_skip   the writers
+//                 of a layer's bf16 X_l and R_l tile images (MN-major,
+//                 128-byte swizzle, wgmma.cuh), from a thread's A fragments
 //   gw_db_reduce  the transposing shuffle that sums a warp's accumulator
 //                 rows into per-column sums
 //   wg_wgrad_body the split-K weight-gradient pass dW_l = X_l^T R_l over the
@@ -21,10 +24,13 @@
 //   wg_plan_pass  the host's plan of the pass: its units, ring and the
 //                 reduce's arguments
 //
-// A tile image holds 64 rows (the product's depth in the pass); row i of a
-// tile is accumulator row i of the sweep's m64 tile (16 w + g and 16 w + 8
-// + g for warp w, lane group g).  K1 stacks a point's primal and tangent
-// rows there, K3 two points: the images do not care.
+// A tile image holds 64 rows (the product's depth in the pass).  The
+// writers put a thread's two accumulator rows (g and g + 8 of its warp's
+// 16) at image rows r0 and r0 + DR: K1-bwd-bf16 and K3-bwd-bf16 keep the
+// sweep's m64 rows (r0 = 16 w + g, DR = 8: K1 stacks a point's primal and
+// tangent rows there, K3 two points), the bf16 chains put one chain's rows
+// of two points in K1-bwd-bf16's places (DR = 16).  r0 % 8 = g: the
+// swizzle's row.  The images do not care which row is which.
 #pragma once
 
 #include "wgmma.cuh"
@@ -90,21 +96,66 @@ __device__ __forceinline__ void gw_release(int ns, int it, uint64_t* empty,
   }
 }
 
+// One SDF layer's X W from ring slab it on: with H, h's 16 k-steps from a
+// in four slabs; with ENC (layer 0, a skip layer), the encoding's 3 from ef
+// in one more.  Then the slabs released as their products retire.
+template <bool H, bool ENC>
+__device__ __forceinline__ void gw_fwd_layer(int ns, int it,
+                                             unsigned char* ring,
+                                             uint64_t* full, uint64_t* empty,
+                                             float (&acc)[128],
+                                             const uint32_t (&a)[16][4],
+                                             const uint32_t (&ef)[3][4],
+                                             int lead) {
+  if constexpr (H) {
+    gw_slab<256, 4, 0, true>(ns, it, ring, full, acc, a);
+    gw_slab<256, 4, 4, false>(ns, it + 1, ring, full, acc, a);
+    gw_slab<256, 4, 8, false>(ns, it + 2, ring, full, acc, a);
+    gw_slab<256, 4, 12, false>(ns, it + 3, ring, full, acc, a);
+  }
+  if constexpr (ENC)
+    gw_slab<256, 3, 0, !H>(ns, it + (H ? 4 : 0), ring, full, acc, ef);
+  gw_release<(H ? 4 : 0) + (ENC ? 1 : 0)>(ns, it, empty, lead);
+  fence_regs(acc);
+}
+
+// One SDF layer's r W (N columns: 256, or 48 for layer 0) from ring slab it
+// on: r's 16 k-steps from a in four slabs and, with EXTRA (a last layer
+// over 256 wide), its 17th from ex.
+template <int N, bool EXTRA>
+__device__ __forceinline__ void gw_rev_layer(int ns, int it,
+                                             unsigned char* ring,
+                                             uint64_t* full, uint64_t* empty,
+                                             float (&acc)[N / 2],
+                                             const uint32_t (&a)[16][4],
+                                             const uint32_t (&ex)[1][4],
+                                             int lead) {
+  gw_slab<N, 4, 0, true>(ns, it, ring, full, acc, a);
+  gw_slab<N, 4, 4, false>(ns, it + 1, ring, full, acc, a);
+  gw_slab<N, 4, 8, false>(ns, it + 2, ring, full, acc, a);
+  gw_slab<N, 4, 12, false>(ns, it + 3, ring, full, acc, a);
+  if constexpr (EXTRA)
+    gw_slab<N, 1, 0, false>(ns, it + 4, ring, full, acc, ex);
+  gw_release<4 + (EXTRA ? 1 : 0)>(ns, it, empty, lead);
+  fence_regs(acc);
+}
+
 // -- the tile images ---------------------------------------------------------
 
 // The four bf16 pairs of k-step j (f: a fragment) into a tile image in
-// its columns' own order: f[0], f[2] at row 16 warp + g, f[1], f[3] 8 rows
-// on, columns 16j + 2t (+ 8 for f[2], f[3]); MN-major, 128-byte swizzle
+// its columns' own order: f[0], f[2] at row r0, f[1], f[3] at row r0 + DR,
+// columns 16j + 2t (+ 8 for f[2], f[3]); MN-major, 128-byte swizzle
 // (wgmma.cuh).
+template <int DR>
 __device__ __forceinline__ void gw_img(unsigned char* im, int j,
-                                       const uint32_t (&f)[4], int warp,
-                                       int g, int t) {
-  unsigned char* o = im + (j >> 2) * GW_XB + (16 * warp + g) * 128 + 4 * t;
+                                       const uint32_t (&f)[4], int r0, int g,
+                                       int t) {
+  unsigned char* o = im + (j >> 2) * GW_XB + r0 * 128 + 4 * t;
   const int c0 = ((2 * (j & 3)) ^ g) << 4, c1 = ((2 * (j & 3) + 1) ^ g) << 4;
   *(uint32_t*)(o + c0) = f[0];
-  *(uint32_t*)(o + 1024 + c0) = f[1];
+  *(uint32_t*)(o + 128 * DR + c0) = f[1];
   *(uint32_t*)(o + c1) = f[2];
-  *(uint32_t*)(o + 1024 + c1) = f[3];
+  *(uint32_t*)(o + 128 * DR + c1) = f[3];
 }
 
 // The position of column c (< 256) of a 256-column tile image: thread
@@ -121,30 +172,77 @@ __device__ __forceinline__ int gw_perm(int c) {
          ((q & 3) << 1) + (c & 1);
 }
 
-// Chunk r (pairs of q = 4r .. 4r + 3) of a thread's row 16 warp + g (p)
-// and row 16 warp + 8 + g (t4) into a 256-column tile image, in gw_perm's
-// order.
+// Chunk r (pairs of q = 4r .. 4r + 3) of a thread's accumulator row g (p,
+// at image row r0) and row g + 8 (t4, at r0 + DR) into a 256-column tile
+// image, in gw_perm's order.
+template <int DR>
 __device__ __forceinline__ void gw_img_chunk(unsigned char* im, int r,
                                              const uint4& p, const uint4& t4,
-                                             int warp, int g, int t) {
-  unsigned char* o = im + (r >> 1) * GW_XB + (16 * warp + g) * 128 +
+                                             int r0, int g, int t) {
+  unsigned char* o = im + (r >> 1) * GW_XB + r0 * 128 +
                      (((((r & 1) << 2) + t) ^ g) << 4);
   *(uint4*)o = p;
-  *(uint4*)(o + 1024) = t4;
+  *(uint4*)(o + 128 * DR) = t4;
 }
 
 // The fragments a (k-steps 0 .. 15) into a 256-column tile image.
+template <int DR>
 __device__ __forceinline__ void gw_img256(unsigned char* im,
-                                          const uint32_t (&a)[16][4],
-                                          int warp, int g, int t) {
+                                          const uint32_t (&a)[16][4], int r0,
+                                          int g, int t) {
 #pragma unroll
   for (int r = 0; r < 8; ++r)
-    gw_img_chunk(im, r,
-                 make_uint4(a[2 * r][0], a[2 * r][2], a[2 * r + 1][0],
-                            a[2 * r + 1][2]),
-                 make_uint4(a[2 * r][1], a[2 * r][3], a[2 * r + 1][1],
-                            a[2 * r + 1][3]),
-                 warp, g, t);
+    gw_img_chunk<DR>(im, r,
+                     make_uint4(a[2 * r][0], a[2 * r][2], a[2 * r + 1][0],
+                                a[2 * r + 1][2]),
+                     make_uint4(a[2 * r][1], a[2 * r][3], a[2 * r + 1][1],
+                                a[2 * r + 1][3]),
+                     r0, g, t);
+}
+
+__device__ __forceinline__ float bf_lo(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+
+__device__ __forceinline__ float bf_hi(uint32_t v) {
+  return __uint_as_float(v & 0xFFFF0000u);
+}
+
+// An SDF skip layer's X image: [h (w columns) | enc (d_embed)] / sqrt 2 in
+// W's column order (gw_perm's positions), h from the fragments a (already
+// / sqrt 2), enc from the encoding rows e0 (accumulator row g's) and e1
+// (row g + 8's).
+template <int DR>
+__device__ __forceinline__ void gw_img256_skip(unsigned char* im,
+                                               const uint32_t (&a)[16][4],
+                                               const float* e0,
+                                               const float* e1, int w,
+                                               int d_embed, int r0, int g,
+                                               int t) {
+  const float inv_sqrt2 = 0.70710678118654752f;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    uint32_t f[2][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch) {
+        // pair q = 4r + i of accumulator row g (ch 0) or g + 8 (ch 1)
+        const int j = 2 * r + (i >> 1), ai = 2 * (i & 1) + ch;
+        const int c = 8 * (4 * r + i) + 2 * t;
+        const float* e = ch ? e1 : e0;
+        float v[2] = {bf_lo(a[j][ai]), bf_hi(a[j][ai])};
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int ce = c + k - w;
+          if (ce >= 0) v[k] = ce < d_embed ? e[ce] * inv_sqrt2 : 0.f;
+        }
+        f[ch][i] = pack_bf16(v[0], v[1]);
+      }
+    gw_img_chunk<DR>(im, r, make_uint4(f[0][0], f[0][1], f[0][2], f[0][3]),
+                     make_uint4(f[1][0], f[1][1], f[1][2], f[1][3]), r0, g,
+                     t);
+  }
 }
 
 // Sums over the warp's 8 lane groups of the entries acc[4q + e] (e < 2:
@@ -162,6 +260,175 @@ __device__ __forceinline__ void gw_db_reduce(float (&acc)[128], int g) {
         const float send = bit ? lo : hi;
         const float keep = bit ? hi : lo;
         acc[4 * q + e] = keep + __shfl_xor_sync(0xffffffffu, send, 4 << s);
+      }
+  }
+}
+
+// R_l in acc (f32, stacked): its bf16 A fragments a, its tile image im,
+// and its primal rows' column sums added to the warp's db slot row sl
+// (set on the block's first pass).
+__device__ __forceinline__ void gw_r_finish(float (&acc)[128],
+                                            uint32_t (&a)[16][4],
+                                            unsigned char* im, float* sl,
+                                            bool first, int warp, int g,
+                                            int t) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[j][i] = pack_bf16(acc[8 * j + 2 * i], acc[8 * j + 2 * i + 1]);
+  gw_img256<8>(im, a, 16 * warp + g, g, t);
+  gw_db_reduce(acc, g);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    float2* o = (float2*)(sl + 64 * m + 8 * g + 2 * t);
+    const float2 v = make_float2(acc[32 * m], acc[32 * m + 1]);
+    *o = first ? v : make_float2(o->x + v.x, o->y + v.y);
+  }
+}
+
+// The reverse step of layer l (l >= 1) from R_in = r W_l in acc: with SKIP
+// (layer l reads [h | enc] / sqrt 2) R_in / sqrt 2 and its encoding
+// columns (w on) added to the point's re rows; then h = sp(a), hd =
+// sigma(100 a) ad: r = r_h s + rd_h ds ad, rd = rd_h s (s and ad of layer
+// l - 1 from its scratch sc), zero from column w on.
+template <bool SKIP>
+__device__ __forceinline__ void gw_rev_step(float (&acc)[128],
+                                            const float4* sc, int w,
+                                            int d_embed, float* rp,
+                                            float* rt, int t) {
+  const float inv_sqrt2 = 0.70710678118654752f;
+#pragma unroll
+  for (int q = 0; q < 32; ++q) {
+    const float4 v = sc[q * 128];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * q + 2 * t + e;
+      float rh = acc[4 * q + e], rdh = acc[4 * q + 2 + e];
+      if (SKIP) {
+        rh *= inv_sqrt2;
+        rdh *= inv_sqrt2;
+        if (c >= w && c < w + d_embed) {
+          rp[c - w] += rh;
+          rt[c - w] += rdh;
+        }
+      }
+      const float s = e ? v.y : v.x, ad = e ? v.w : v.z;
+      const float ds = 100.f * s * (1.f - s);
+      const bool in = c < w;
+      acc[4 * q + e] = in ? rh * s + rdh * ds * ad : 0.f;
+      acc[4 * q + 2 + e] = in ? rdh * s : 0.f;
+    }
+  }
+}
+
+// K1's reverse sweep over a consumer's tile of 32 points (stacked: thread
+// (warp, g, t) holds point 8 warp + g's primal row, accumulator row g, and
+// its tangent row, g + 8), from the seeds ct_out (column 0 / scale) and e0
+// / scale through every layer's r W, its step and its R_l image (image
+// tile ``tile``, rows 16 warp + g and 16 warp + 8 + g) and db, to the
+// encoding's cotangents rp, rt: K1-bwd-bf16's (geometry_bwd_bf16_wg.cu),
+// which K1-bwd-split-bf16 and K1-bwd-stash-bf16 run too
+// (geometry_bwd_chains_bf16_wg.cu).  scr: this thread's f32 scratch, its
+// float4 of layer l and pair q at scr[(32 l + q) 128]: sigma(100 a) of the
+// primal row, then ad of the tangent row; dbw: the warp's db slot, set on
+// the block's first tile (first); P: the point, it: the ring's slab.
+template <class D>
+__device__ __forceinline__ void gw_reverse(const D& d, int& it,
+                                           unsigned char* ring,
+                                           uint64_t* full, uint64_t* empty,
+                                           float (&acc)[128],
+                                           uint32_t (&a)[16][4], int tile,
+                                           int P, const float4* scr,
+                                           float* dbw, float* rp, float* rt,
+                                           bool first, int tid, int lead) {
+  const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const float inv_scale = 1.f / d.scale;
+  const int lL = d.L - 1, N = d.outs[lL], de = d.d_embed;
+  const bool valid = P < d.n;
+  // the seeds: ct_out (column 0 / scale) on the primal rows, e0 / scale
+  // on the tangent rows; a last layer over 256 wide has its columns 256
+  // on in ex (k-step 16)
+  uint32_t ex[1][4] = {{0u, 0u, 0u, 0u}};
+  {
+    const float* co = d.ct_out + (size_t)P * N;
+#pragma unroll
+    for (int q = 0; q < 32; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * q + 2 * t + e;
+        acc[4 * q + e] =
+            valid && c < N ? co[c] * (c == 0 ? inv_scale : 1.f) : 0.f;
+        acc[4 * q + 2 + e] = valid && c == 0 ? inv_scale : 0.f;
+      }
+    if (N > 256) {
+      float xv[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 256 + 8 * h + 2 * t + e;
+          xv[h][e] = valid && c < N ? co[c] : 0.f;
+        }
+      ex[0][0] = pack_bf16(xv[0][0], xv[0][1]);
+      ex[0][2] = pack_bf16(xv[1][0], xv[1][1]);
+      const uint32_t f[4] = {ex[0][0], 0u, ex[0][2], 0u};
+      gw_img<8>(d.img + d.r_img[lL] + (size_t)tile * d.rb[lL], 16, f,
+                16 * warp + g, g, t);
+      // db's columns 256 + 2t + e: summed over the warp's points
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = xv[0][e];
+#pragma unroll
+        for (int s = 4; s < 32; s <<= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, s);
+        float* o = dbw + lL * GW_BW + 256 + 2 * t + e;
+        if (g == 0) *o = first ? v : *o + v;
+      }
+    }
+    gw_r_finish(acc, a, d.img + d.r_img[lL] + (size_t)tile * d.rb[lL],
+                dbw + lL * GW_BW, first, warp, g, t);
+  }
+
+  // the reverse sweep: r W of layer l, then layer l - 1's step (its
+  // scratch on its way to L2 while the product runs)
+  for (int l = lL; l >= 1; --l) {
+    l2_prefetch_if(scr - tid + (l - 1) * 32 * 128, 32 * 128 * 16,
+                   tid == 0);
+    if (l == lL && N > 256)
+      gw_rev_layer<256, true>(d.ns, it, ring, full, empty, acc, a, ex,
+                              lead);
+    else
+      gw_rev_layer<256, false>(d.ns, it, ring, full, empty, acc, a, ex,
+                               lead);
+    it += d.r_nslab[l];
+    const float4* sl = scr + (l - 1) * 32 * 128;
+    if (d.enc[l]) {
+      __syncwarp();
+      gw_rev_step<true>(acc, sl, d.outs[l - 1], de, rp, rt, t);
+    } else {
+      gw_rev_step<false>(acc, sl, d.outs[l - 1], de, rp, rt, t);
+    }
+    gw_r_finish(acc, a,
+                d.img + d.r_img[l - 1] + (size_t)tile * d.rb[l - 1],
+                dbw + (l - 1) * GW_BW, first, warp, g, t);
+  }
+  {
+    // layer 0: r W_0, the encoding's cotangents
+    float acc48[24];
+    gw_rev_layer<48, false>(d.ns, it, ring, full, empty, acc48, a, ex,
+                            lead);
+    it += d.r_nslab[0];
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < 6; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * q + 2 * t + e;
+        if (c < de) {
+          rp[c] += acc48[4 * q + e];
+          rt[c] += acc48[4 * q + 2 + e];
+        }
       }
   }
 }

@@ -55,12 +55,13 @@ class KernelWeights(NamedTuple):
     which:
       pack     the SDF network's 3xTF32 mma.sync pack: K1-fwd-stash
                (under the stash switch)
-      pack16   the SDF network's bf16 mma.sync pack: the switch-only K1
-               variants in bf16 (the stash pair, K1-bwd-split-bf16)
-      sweep16  the forward bf16 slab pack: K2-bf16, K1-fwd-bf16 and
-               K1-bwd-bf16 (SDF), K3-fwd-bf16 and K3-bwd-bf16 (radiance)
-      rev16    the reverse bf16 slab pack: K1-fwd-bf16 and K1-bwd-bf16,
-               K3-bwd-bf16
+      pack16   the SDF network's bf16 mma.sync pack: K1-fwd-stash-bf16
+               (under the stash switch)
+      sweep16  the forward bf16 slab pack: K2-bf16, K1-fwd-bf16,
+               K1-bwd-bf16, K1-bwd-split-bf16 and K1-bwd-stash-bf16 (SDF),
+               K3-fwd-bf16 and K3-bwd-bf16 (radiance)
+      rev16    the reverse bf16 slab pack: K1-fwd-bf16, K1-bwd-bf16,
+               K1-bwd-split-bf16 and K1-bwd-stash-bf16, K3-bwd-bf16
       sweep32  the forward f32 slab pack: K2, K1-fwd, K1-bwd, K1-bwd-split
                and K1-bwd-stash (SDF), K3-fwd and K3-bwd (radiance)
       rev32    the reverse f32 slab pack: K1-fwd, K1-bwd, K1-bwd-split and
@@ -126,10 +127,9 @@ class _WNLayers(nn.Module):
 
 
 def mode_pack(weights: KernelWeights, bf16: bool):
-    """The mma.sync pack of kernel_weights' result that K1's switch-only
-    variants read in the operand mode: pack16 (bf16), else pack
-    (K1-fwd-stash's; None where it was not built: geometry_kernel.geometry
-    builds its own where one runs)."""
+    """The mma.sync pack of kernel_weights' result that K1-fwd-stash reads
+    in the operand mode: pack16 (bf16), else pack (None where it was not
+    built: geometry_kernel.geometry builds its own where one runs)."""
     return weights.pack16 if bf16 else weights.pack
 
 
@@ -200,20 +200,19 @@ class SDFNetwork(_WNLayers):
           (``sweep_bf16``) and, with rev16 (tc_pack.pack_rev_bf16;
           geometry_kernel.make_bwd_slabs), wherever K1-fwd-bf16 runs
           (``k1`` in the bf16 mode, not through the stash pair), with or
-          without grad: K1-bwd-bf16 reads them too;
-        - pack (tc_pack.pack_weights, 3xTF32 on mma.sync) only where
-          K1-fwd-stash runs (``k1`` under the stash switch); pack16
-          (tc_pack.pack_weights_bf16) only where a switch-only K1 variant
-          runs in bf16: the stash pair or K1-bwd-split-bf16 (``k1``, not
-          geometry_kernel.wg_backward()).
+          without grad (K1-bwd-bf16 and K1-bwd-split-bf16 read them too),
+          and under the stash switch with grad (K1-bwd-stash-bf16);
+        - pack (tc_pack.pack_weights, 3xTF32 on mma.sync) or, in the bf16
+          mode, pack16 (tc_pack.pack_weights_bf16) only where
+          K1-fwd-stash or K1-fwd-stash-bf16 runs (``k1`` under the stash
+          switch).
         ``k1`` False: for the sweeps alone (value_sweep, the grid fill)."""
         kw = super().kernel_weights()
         if not _on_card(kw.ws[0]):
             return kw
         ws, cfg = kw.ws, self.cfg
-        wg16 = bf16 and k1 and GK.wg_forward()
-        wg32 = not bf16 and k1 and (GK.wg_forward() or
-                                    torch.is_grad_enabled())
+        slabs = k1 and (GK.wg_forward() or torch.is_grad_enabled())
+        wg16, wg32 = bf16 and slabs, not bf16 and slabs
         with torch.no_grad():
             if wg32:
                 sweep32, rev32 = GK.make_bwd_slabs(cfg, ws, bf16=False)
@@ -225,9 +224,9 @@ class SDFNetwork(_WNLayers):
                 kw = kw._replace(sweep16=SK.make_sweep_pack(cfg, ws))
             if wg16:
                 kw = kw._replace(rev16=TP.pack_rev_bf16(ws, cfg.d_embed))
-            if k1 and bf16 and not GK.wg_backward():
+            if k1 and bf16 and not GK.wg_forward():
                 kw = kw._replace(pack16=TP.pack_weights_bf16(ws))
-            elif k1 and not bf16 and not GK.wg_forward():
+            elif k1 and not GK.wg_forward():
                 kw = kw._replace(pack=TP.pack_weights(ws))
         return kw
 

@@ -35,7 +35,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "kernels")
 SOURCES = ("geometry_fwd.cu", "geometry_fwd_wg.cu", "geometry_bwd_wg.cu",
-           "geometry_bwd_chains_wg.cu", "geometry_bwd_bf16.cu",
+           "geometry_bwd_chains_wg.cu", "geometry_bwd_chains_bf16_wg.cu",
            "geometry_bwd_bf16_wg.cu",
            "geometry_fwd_bf16_wg.cu", "sdf_fwd_wg.cu", "sdf_fwd_bf16.cu",
            "radiance_fwd_wg.cu", "radiance_fwd_bf16_wg.cu",

@@ -1,8 +1,8 @@
 """K1: the fused SDF geometry core and its backward (csrc/geometry_fwd_wg.cu,
 csrc/geometry_bwd_wg.cu; in the bf16 mode csrc/geometry_fwd_bf16_wg.cu,
 csrc/geometry_bwd_bf16_wg.cu; the switch-only variants in
-csrc/geometry_bwd_chains_wg.cu, csrc/geometry_fwd.cu and
-csrc/geometry_bwd_bf16.cu), with their plain PyTorch twins.
+csrc/geometry_bwd_chains_wg.cu, csrc/geometry_bwd_chains_bf16_wg.cu and
+csrc/geometry_fwd.cu), with their plain PyTorch twins.
 
 Counterpart of factored_neus_tpu/ops/pallas_geometry.py
 (sdf_value_grad_feat_pallas).  ``geometry(ws, bs, x, cfg)`` returns
@@ -71,9 +71,15 @@ sweep from e0 / scale (``fwd_wg16_plan`` is its launch); K1-bwd-bf16
 (csrc/geometry_bwd_bf16_wg.cu) a stacked sweep which writes each layer's
 bf16 X_l and R_l, then a split-K ``wgmma`` pass dW_l = X_l^T R_l and a
 fixed-order reduce (``weight_grad_pass_plain`` is that pass in plain
-PyTorch).  The switch-only bf16 variants stay on bf16 ``mma.sync``, from
-``tc_pack.pack_weights_bf16``, which kernel_weights builds only under
-their switches.  The plain twins compute the same products explicitly
+PyTorch).  K1-bwd-split-bf16 and K1-bwd-stash-bf16
+(csrc/geometry_bwd_chains_bf16_wg.cu, ``chains_wg16_plan``) read the same
+two packs: tiles of 64 points, in the forward a consumer warpgroup a
+chain, each chain's 64 rows one product (the stash's tangent forward
+alone, beside the softplus of K1-fwd-stash-bf16's bf16 stash), then
+K1-bwd-bf16's stacked reverse, pass and reduce.  K1-fwd-stash-bf16 alone
+stays on bf16 ``mma.sync``, from
+``tc_pack.pack_weights_bf16``, which kernel_weights builds only under the
+stash switch.  The plain twins compute the same products explicitly
 (``geometry_plain(bf16=True)``, ``geometry_bwd_plain(bf16=True)``):
 autograd through a rounding would run the backward's products on
 unrounded cotangents.  On a CPU tensor the autograd Function runs them.
@@ -119,10 +125,10 @@ K1_FWD_STASH_BF16 = _cuda.CudaKernel("geometry_fwd_stash_bf16",
                                      "geometry_fwd.cu",
                                      "geometry_fwd_stash_bf16")
 K1_BWD_STASH_BF16 = _cuda.CudaKernel("geometry_bwd_stash_bf16",
-                                     "geometry_bwd_bf16.cu",
+                                     "geometry_bwd_chains_bf16_wg.cu",
                                      "geometry_bwd_stash_bf16")
 K1_BWD_SPLIT_BF16 = _cuda.CudaKernel("geometry_bwd_split_bf16",
-                                     "geometry_bwd_bf16.cu",
+                                     "geometry_bwd_chains_bf16_wg.cu",
                                      "geometry_bwd_split_bf16")
 # the kernel of each (entry, operand mode)
 KERNELS = {("fwd", False): K1_FWD, ("fwd", True): K1_FWD_BF16,
@@ -506,16 +512,6 @@ def wg_forward(stash: Optional[bool] = None) -> bool:
     return not (STASH_BWD if stash is None else stash)
 
 
-def wg_backward(stash: Optional[bool] = None,
-                stacked: Optional[bool] = None) -> bool:
-    """Whether geometry takes its backward through a wgmma kernel (K1-bwd,
-    or K1-bwd-bf16 in the bf16 mode), which reads make_bwd_slabs' packs:
-    not through the stash pair (``stash``, default STASH_BWD) and stacked
-    (``stacked``, default STACKED_BWD)."""
-    return (not (STASH_BWD if stash is None else stash)
-            and (STACKED_BWD if stacked is None else bool(stacked)))
-
-
 # K1-bwd (csrc/geometry_bwd_wg.cu): a weight-gradient slot row (FW_SN), the
 # sweep's shared memory (its ring of two 64 KB slab stages, the 64 KB A
 # tile, the encoding tiles, the barriers)
@@ -809,17 +805,57 @@ def chains_wg_plan(cfg, ws, n: int, slabs, sms: int,
             "db_floats": grid * 4 * L * WG_DB_ROW}
 
 
-def _launch_backward_chains(cfg, x, ws, bs, stash, ct_out, ct_grad, slabs):
+def chains_wg16_plan(cfg, ws, n: int, slabs, sms: int,
+                     stash: bool = False) -> dict:
+    """K1-bwd-split-bf16's launch (``stash``: K1-bwd-stash-bf16's): its
+    integer arguments (``iargs``, geometry_bwd_chains_bf16_wg.cu) and the
+    sizes of what the wrapper allocates.  The sweep: tiles of
+    WGF_CHAIN_POINTS points, one persistent block a tile up to one a SM,
+    its two consumer warpgroups a chain each in the forward and 32 points
+    each in the reverse, each with K1-bwd-bf16's f32 scratch
+    (``scratch_floats``), writing each tile's images as two of
+    K1-bwd-bf16's 32-point image tiles; the weight-gradient pass and the
+    reduce: K1-bwd-bf16's (bwd_wg_plan: the same units, chunks and slots
+    over the image tiles that hold a point).  Raises unless ``slabs`` holds
+    make_bwd_slabs(bf16=True)'s layouts for ws."""
+    name = "K1-bwd-stash-bf16" if stash else "K1-bwd-split-bf16"
+    (_, flay), (_, rlay) = slabs
+    if (getattr(flay, "operand", None), getattr(rlay, "operand", None)) != (
+            "wgmma-bf16", "wgmma-bf16-rev"):
+        raise ValueError(f"{name} multiplies on wgmma: it takes "
+                         f"make_bwd_slabs(bf16=True)'s two slab packs")
+    k1 = bwd_wg_plan(cfg, ws, n, slabs, sms)
+    L = len(ws)
+    tiles = -(-n // WGF_CHAIN_POINTS)
+    grid = min(tiles, sms)
+    per_img = k1["image_bytes"] // (k1["n_pass"] * k1["nc"])
+    # the sweep's shared memory (the source's count): the encoding tile
+    # (its cotangents' after the forward), the biases, the slab ring
+    fixed = 1024 + WGF_CHAIN_POINTS * 2 * 48 * 4 + L * WG_DB_ROW * 4
+    ns = min(8, (TP.SMEM_MAX - fixed) // (32768 + 16))
+    iargs = [L, cfg.multires, cfg.d_embed, n, grid, tiles, k1["chunks"],
+             k1["per"], stash_columns(ws) if stash else 0, *k1["iargs"][9:]]
+    return {**k1, "iargs": iargs, "grid": grid, "tiles": tiles,
+            "n_pass": tiles, "nc": 2, "sweep_smem": fixed + ns * (32768 + 16),
+            "image_tiles": 2 * tiles, "image_bytes": 2 * tiles * per_img,
+            "scratch_floats": grid * 2 * (L - 1) * 32 * 128 * 4,
+            "db_floats": grid * 2 * 4 * L * WG_DB_ROW}
+
+
+def _launch_backward_chains(cfg, x, ws, bs, stash, ct_out, ct_grad, slabs,
+                            bf16: bool = False):
     """K1-bwd-split (``stash`` None) or K1-bwd-stash on make_bwd_slabs'
-    f32 packs; raises without them, before any CUDA call."""
-    kernel = K1_BWD_STASH if stash is not None else K1_BWD_SPLIT
+    packs of the mode (``bf16``: their bf16 variants); raises without them,
+    before any CUDA call."""
+    kernel = KERNELS["bwd_stash" if stash is not None else "bwd_split", bf16]
     dev = x.device
     if slabs is None:
-        raise ValueError(f"{kernel.name} reads make_bwd_slabs(bf16=False)'s "
+        raise ValueError(f"{kernel.name} reads make_bwd_slabs(bf16={bf16})'s "
                          f"packs, built by SDFNetwork.kernel_weights: none "
                          f"was given")
-    if getattr(slabs[0][1], "operand", None) != "wgmma-f32":
-        raise ValueError(f"{kernel.name} multiplies on wgmma-f32 slabs: it "
+    want = "wgmma-bf16" if bf16 else "wgmma-f32"
+    if getattr(slabs[0][1], "operand", None) != want:
+        raise ValueError(f"{kernel.name} multiplies on {want} slabs: it "
                          f"takes no other pack")
     (fp, _), (rp, _) = slabs
     bs_c = [b.detach().contiguous() for b in bs]
@@ -835,8 +871,8 @@ def _launch_backward_chains(cfg, x, ws, bs, stash, ct_out, ct_grad, slabs):
     P = sum(i * o + o for i, o in zip(ins, outs))
     ct_x = torch.empty(n, 3, device=dev, dtype=torch.float32)
     if n > 0:
-        plan = chains_wg_plan(cfg, ws, n, slabs, _cuda.sm_count(dev),
-                              stash is not None)
+        plan = (chains_wg16_plan if bf16 else chains_wg_plan)(
+            cfg, ws, n, slabs, _cuda.sm_count(dev), stash is not None)
         grads = torch.empty(P, device=dev, dtype=torch.float32)
         f32 = lambda k: torch.empty(k, device=dev, dtype=torch.float32)
         img = torch.empty(plan["image_bytes"], device=dev, dtype=torch.uint8)
@@ -868,45 +904,6 @@ def _check_stash(kernel, stash, n: int, ws, dev) -> None:
                          f"{stash.device}")
 
 
-def _launch_backward(entry, cfg, x, ws, bs, stash, ct_out, ct_grad,
-                     pack=None):
-    """K1-bwd-split-bf16 or K1-bwd-stash-bf16 on bf16 mma.sync, on
-    make_pack(ws, bf16=True)'s pack (built here when None)."""
-    kernel = KERNELS[entry, True]
-    dev = x.device
-    bs_c = [b.detach().contiguous() for b in bs]
-    pack, lay = _pack_for(kernel, ws, pack, True)
-    x = x.detach().contiguous()
-    ct_out = ct_out.contiguous()
-    ct_grad = ct_grad.contiguous()
-    _cuda.check_cuda_tensors(kernel.name,
-                             [x, ct_out, ct_grad, pack, *bs_c])
-    n, L = x.shape[0], len(ws)
-    _check_stash(kernel, stash, n, ws, dev)
-    ins = [int(w.shape[1]) for w in ws]
-    outs = [int(w.shape[0]) for w in ws]
-    sizes = [i * o + o for i, o in zip(ins, outs)]
-    P = sum(sizes)
-    ct_x = torch.empty(n, 3, device=dev, dtype=torch.float32)
-    grads = torch.zeros(P, device=dev, dtype=torch.float32)
-    if n > 0:
-        half = TILE // 2
-        grid = min(math.ceil(n / half), _cuda.sm_count(dev))
-        iargs, ld = kernel_iargs(cfg, ws, n, grid, lay)
-        scratch = torch.empty(grid * L * TILE * ld, device=dev,
-                              dtype=torch.float32)
-        part = torch.empty(grid * P, device=dev, dtype=torch.float32)
-        tail = [stash, pack] if stash is not None else [pack, *bs_c]
-        kernel.launch(iargs, [x, ct_out, ct_grad, ct_x, scratch, part, grads,
-                              *tail], cfg.scale, dev)
-    dws, dbs, off = [], [], 0
-    for i, o in zip(ins, outs):
-        dws.append(grads[off:off + i * o].view(i, o).t())
-        dbs.append(grads[off + i * o:off + i * o + o])
-        off += i * o + o
-    return ct_x, dws, dbs
-
-
 def launch_backward(cfg, x, ws, bs, ct_out, ct_grad, pack=None,
                     bf16: bool = False
                     ) -> Tuple[torch.Tensor, List[torch.Tensor],
@@ -917,59 +914,47 @@ def launch_backward(cfg, x, ws, bs, ct_out, ct_grad, pack=None,
     return _launch_backward_wg(cfg, x, ws, bs, ct_out, ct_grad, pack, bf16)
 
 
-def launch_backward_split(cfg, x, ws, bs, ct_out, ct_grad, pack=None,
-                          bf16: bool = False, slabs=None
+def launch_backward_split(cfg, x, ws, bs, ct_out, ct_grad, slabs=None,
+                          bf16: bool = False
                           ) -> Tuple[torch.Tensor, List[torch.Tensor],
                                      List[torch.Tensor]]:
     """K1-bwd-split (bf16: K1-bwd-split-bf16): launch_backward's result,
     the primal and tangent chains run as separate row sets.  ``slabs``:
-    make_bwd_slabs(cfg, ws, bf16=False), the two slab packs K1-bwd-split
-    reads (it raises without them); ``pack``: make_pack(ws, bf16=True),
-    K1-bwd-split-bf16's."""
-    if not bf16:
-        return _launch_backward_chains(cfg, x, ws, bs, None, ct_out, ct_grad,
-                                       slabs)
-    return _launch_backward("bwd_split", cfg, x, ws, bs, None, ct_out,
-                            ct_grad, pack)
+    make_bwd_slabs(cfg, ws, bf16), the two slab packs the kernel reads (it
+    raises without them)."""
+    return _launch_backward_chains(cfg, x, ws, bs, None, ct_out, ct_grad,
+                                   slabs, bf16)
 
 
-def launch_backward_stash(cfg, x, ws, stash, ct_out, ct_grad, pack=None,
-                          bf16: bool = False, slabs=None
+def launch_backward_stash(cfg, x, ws, stash, ct_out, ct_grad, slabs=None,
+                          bf16: bool = False
                           ) -> Tuple[torch.Tensor, List[torch.Tensor],
                                      List[torch.Tensor]]:
     """K1-bwd-stash (bf16: K1-bwd-stash-bf16): as launch_backward, the
     primal taken from ``stash`` (biases are not needed).  ``slabs``:
-    make_bwd_slabs(cfg, ws, bf16=False), the two slab packs K1-bwd-stash
-    reads (it raises without them); ``pack``: make_pack(ws, bf16=True),
-    K1-bwd-stash-bf16's."""
-    if not bf16:
-        return _launch_backward_chains(cfg, x, ws, [], stash, ct_out,
-                                       ct_grad, slabs)
-    return _launch_backward("bwd_stash", cfg, x, ws, [], stash, ct_out,
-                            ct_grad, pack)
+    make_bwd_slabs(cfg, ws, bf16), the two slab packs the kernel reads (it
+    raises without them)."""
+    return _launch_backward_chains(cfg, x, ws, [], stash, ct_out, ct_grad,
+                                   slabs, bf16)
 
 
 class GeometryFn(torch.autograd.Function):
     """(x, *ws, *bs) -> (out, grad) through K1-fwd; backward with both
     cotangents through K1-bwd, or K1-bwd-split when not ``stacked``; in
     the bf16 mode through their bf16 kernels.  ``slabs``:
-    make_bwd_slabs(cfg, ws, bf16), the packs of K1-fwd, K1-bwd and
-    K1-bwd-split (bf16: K1-fwd-bf16 and K1-bwd-bf16); ``pack``:
-    make_pack(ws, bf16=True), the pack of K1-bwd-split-bf16, built without
-    grad by the caller.  On a
-    CPU tensor the bf16 mode runs the explicit twins; the f32 mode does not
+    make_bwd_slabs(cfg, ws, bf16), the packs all of them read.  On a CPU
+    tensor the bf16 mode runs the explicit twins; the f32 mode does not
     come here on the CPU (geometry_plain differentiates itself)."""
 
     @staticmethod
-    def forward(ctx, cfg, stacked, bf16, pack, slabs, x, *params):
+    def forward(ctx, cfg, stacked, bf16, slabs, x, *params):
         L = len(params) // 2
         ws, bs = params[:L], params[L:]
         if x.is_cuda:
             out, grad = launch_forward(cfg, x, ws, bs, slabs, bf16)
         else:
             out, grad = geometry_plain(ws, bs, x, cfg, bf16=bf16)
-        ctx.cfg, ctx.stacked, ctx.bf16 = cfg, stacked, bf16
-        ctx.pack, ctx.slabs = pack, slabs
+        ctx.cfg, ctx.stacked, ctx.bf16, ctx.slabs = cfg, stacked, bf16, slabs
         ctx.save_for_backward(x, *params)
         return out, grad
 
@@ -984,20 +969,19 @@ class GeometryFn(torch.autograd.Function):
                                                  ct_grad, ctx.slabs, ctx.bf16)
         elif x.is_cuda:
             ct_x, dws, dbs = launch_backward_split(
-                ctx.cfg, x, ws, bs, ct_out, ct_grad, ctx.pack, ctx.bf16,
-                ctx.slabs)
+                ctx.cfg, x, ws, bs, ct_out, ct_grad, ctx.slabs, ctx.bf16)
         else:
             ct_x, dws, dbs = geometry_bwd_plain(ws, bs, x, ct_out, ct_grad,
                                                 ctx.cfg, ctx.bf16)
-        return (None, None, None, None, None, ct_x, *dws, *dbs)
+        return (None, None, None, None, ct_x, *dws, *dbs)
 
 
 class GeometryStashFn(torch.autograd.Function):
     """(x, *ws, *bs) -> (out, grad) through K1-fwd-stash, which also keeps
     the bf16 stash for the backward through K1-bwd-stash (bf16: their bf16
     kernels); on a CPU tensor through their twins (``pack`` None there).
-    ``pack``: make_pack(ws, bf16), K1-fwd-stash's (and K1-bwd-stash-bf16's);
-    ``slabs``: make_bwd_slabs(cfg, ws, bf16=False), K1-bwd-stash's."""
+    ``pack``: make_pack(ws, bf16), K1-fwd-stash's; ``slabs``:
+    make_bwd_slabs(cfg, ws, bf16), K1-bwd-stash's."""
 
     @staticmethod
     def forward(ctx, cfg, bf16, pack, slabs, x, *params):
@@ -1006,21 +990,19 @@ class GeometryStashFn(torch.autograd.Function):
         if x.is_cuda:
             out, grad, stash = launch_forward_stash(cfg, x, ws, bs, pack,
                                                     bf16)
-            ctx.layout, pack = pack[1], pack[0]
         else:
             out, grad, stash = geometry_fwd_stash_plain(ws, bs, x, cfg, bf16)
         ctx.cfg, ctx.bf16, ctx.slabs = cfg, bf16, slabs
-        ctx.save_for_backward(x, stash, pack, *ws)
+        ctx.save_for_backward(x, stash, *ws)
         return out, grad
 
     @staticmethod
     @once_differentiable
     def backward(ctx, ct_out, ct_grad):
-        x, stash, pack, *ws = ctx.saved_tensors
+        x, stash, *ws = ctx.saved_tensors
         if x.is_cuda:
             ct_x, dws, dbs = launch_backward_stash(
-                ctx.cfg, x, ws, stash, ct_out, ct_grad, (pack, ctx.layout),
-                ctx.bf16, ctx.slabs)
+                ctx.cfg, x, ws, stash, ct_out, ct_grad, ctx.slabs, ctx.bf16)
         else:
             ct_x, dws, dbs = geometry_bwd_stash_plain(ws, x, stash, ct_out,
                                                       ct_grad, ctx.cfg,
@@ -1039,27 +1021,23 @@ def geometry(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
     through K1-fwd with the backward through K1-bwd when ``stacked``
     (default STACKED_BWD) and K1-bwd-split when not; ``bf16``: in the bf16
     operand mode, each through its bf16 kernel.  ``slabs``:
-    make_bwd_slabs(cfg, ws, bf16), which K1-fwd, K1-bwd, K1-bwd-split and
-    K1-bwd-stash read (bf16: K1-fwd-bf16 and K1-bwd-bf16; on a CUDA tensor
-    it raises without them unless the stash pair runs, and a backward
-    through K1-bwd-stash raises without them).  ``pack``: make_pack(ws,
-    bf16), which K1-fwd-stash and the bf16 variants of K1-bwd-stash and
-    K1-bwd-split read, when the caller already has it (on a CUDA tensor;
-    built here if not)."""
+    make_bwd_slabs(cfg, ws, bf16), which every kernel but K1-fwd-stash
+    reads (on a CUDA tensor it raises without them unless the stash pair
+    runs, and a backward through K1-bwd-stash raises without them).
+    ``pack``: make_pack(ws, bf16), which K1-fwd-stash reads, when the
+    caller already has it (on a CUDA tensor; built here if not)."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"geometry: unsupported device {x.device}")
     stash = STASH_BWD if stash is None else stash
     stacked = STACKED_BWD if stacked is None else bool(stacked)
-    wgf = x.is_cuda and not stash     # through K1-fwd or K1-fwd-bf16
-    if x.is_cuda and pack is None and (stash or (bf16 and not stacked)):
-        with torch.no_grad():
-            pack = make_pack(ws, bf16)
     if stash:
+        if x.is_cuda and pack is None:
+            with torch.no_grad():
+                pack = make_pack(ws, bf16)
         return GeometryStashFn.apply(cfg, bf16, pack, slabs, x, *ws, *bs)
     if x.is_cuda or bf16:
-        if wgf and slabs is None:
+        if x.is_cuda and slabs is None:
             raise ValueError(f"geometry: {KERNELS['fwd', bf16].name} reads "
                              f"make_bwd_slabs' packs (slabs=)")
-        return GeometryFn.apply(cfg, stacked, bf16, pack, slabs, x, *ws,
-                                *bs)
+        return GeometryFn.apply(cfg, stacked, bf16, slabs, x, *ws, *bs)
     return geometry_plain(ws, bs, x, cfg)

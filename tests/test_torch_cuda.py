@@ -363,6 +363,65 @@ def test_k1_bwd_chains_wgmma_f32(cuda_device, n):
           f"; db: {all(torch.equal(a, b) for a, b in zip(split[1 + L:], k1[1 + L:]))}")
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [65536, 9001, 100])
+def test_k1_bwd_chains_wgmma_bf16(cuda_device, n):
+    """K1-bwd-split-bf16 and K1-bwd-stash-bf16
+    (csrc/geometry_bwd_chains_bf16_wg.cu, bf16 wgmma) at full width
+    against their twins and the f64 unrounded function
+    (chip_smoke.check_flips; the stash's fed K1-fwd-stash-bf16's stash),
+    two launches bitwise equal; on the slab packs kernel_weights builds,
+    bitwise as on their own; each raises without K1-bwd-bf16's slab packs
+    or on another pack.  Printed: whether the split's ct_x and dW are
+    K1-bwd-bf16's bit for bit."""
+    cfg, ws, bs, x = _net((8, 256, 257, (4,), 6, 1.0, n), cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    ct_out = torch.randn(n, ws[-1].shape[0], device=cuda_device,
+                         generator=gen)
+    ct_g = torch.randn(n, 3, device=cuda_device, generator=gen)
+    slabs = GK.make_bwd_slabs(cfg, ws)
+    flat = lambda r: [r[0], *r[1], *r[2]]
+    st = GK.launch_forward_stash(cfg, x, ws, bs, bf16=True)[2]
+    runs = {"split": lambda p: flat(GK.launch_backward_split(
+                cfg, x, ws, bs, ct_out, ct_g, p, bf16=True)),
+            "stash": lambda p: flat(GK.launch_backward_stash(
+                cfg, x, ws, st, ct_out, ct_g, p, bf16=True))}
+    w64 = [w.double() for w in ws]
+    twins = {"split": (flat(GK.geometry_bwd_plain(
+                 ws, bs, x, ct_out, ct_g, cfg, bf16=True)),
+                 flat(GK.geometry_bwd_plain(
+                     w64, [b.double() for b in bs], x.double(),
+                     ct_out.double(), ct_g.double(), cfg))),
+             "stash": (flat(GK.geometry_bwd_stash_plain(
+                 ws, x, st, ct_out, ct_g, cfg, bf16=True)),
+                 flat(GK.geometry_bwd_stash_plain(
+                     w64, x.double(), st, ct_out.double(), ct_g.double(),
+                     cfg)))}
+    L = len(ws)
+    names = ["ct_x"] + [f"dW{l}" for l in range(L)] + [
+        f"db{l}" for l in range(L)]
+    with torch.no_grad():
+        kw = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(
+            cuda_device).kernel_weights(bf16=True)
+    for name, run in runs.items():
+        got, again = run(slabs), run(TF.bwd_slabs(kw, True))
+        twin, ref = twins[name]
+        chip_smoke.check_flips(f"K1-bwd-{name}-bf16 N={n}", got, twin,
+                               [t.float() for t in ref], names)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), name
+        for pack in (None, GK.make_bwd_slabs(cfg, ws, bf16=False),
+                     (TP.pack_weights_bf16(ws),) * 2):
+            with pytest.raises(ValueError):
+                run(pack)
+    k1 = flat(GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g, slabs,
+                                 bf16=True))
+    split = runs["split"](slabs)
+    print(f"K1-bwd-split-bf16 N={n}: ct_x bitwise K1-bwd-bf16's: "
+          f"{torch.equal(split[0], k1[0])}; dW: "
+          f"{all(torch.equal(a, b) for a, b in zip(split[1:1 + L], k1[1:1 + L]))}"
+          f"; db: {all(torch.equal(a, b) for a, b in zip(split[1 + L:], k1[1 + L:]))}")
+
+
 RAD_CASES = [  # (d_feature, d_hidden, n_layers, multires_view, n)
     (64, 64, 3, 4, 300),
     (64, 64, 1, 4, 150),
@@ -669,9 +728,11 @@ def _bf16_runs(cfg, ws, bs, x, ct_out, ct_g, pack):
             cfg, x, ws, bs, ct_out, ct_g, GK.make_bwd_slabs(cfg, ws),
             bf16=True)), tw_b),
         "bwd_split": (lambda: flat(GK.launch_backward_split(
-            cfg, x, ws, bs, ct_out, ct_g, pack, bf16=True)), tw_b),
+            cfg, x, ws, bs, ct_out, ct_g, GK.make_bwd_slabs(cfg, ws),
+            bf16=True)), tw_b),
         "bwd_stash": (lambda: flat(GK.launch_backward_stash(
-            cfg, x, ws, st_k, ct_out, ct_g, pack, bf16=True)),
+            cfg, x, ws, st_k, ct_out, ct_g, GK.make_bwd_slabs(cfg, ws),
+            bf16=True)),
             flat(GK.geometry_bwd_stash_plain(ws, x, st_k, ct_out, ct_g, cfg,
                                              bf16=True)))}
 

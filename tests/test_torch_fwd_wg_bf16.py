@@ -171,11 +171,13 @@ def test_bf16_kernel_weights_build_the_slab_packs(card, monkeypatch, switch,
                                                   grad):
     """The bf16 mode's kernel weights, with grad (a step) or without (a
     validation image): the SDF network's carry sweep16 and rev16 wherever
-    K1-fwd-bf16 runs (not under the stash switch) and the bf16 mma.sync
-    pack (pack_weights_bf16, pack16) only under the stash or split
-    switch, which reach K1's mma.sync variants; the radiance MLP's carry
-    K3-fwd-bf16's sweep16 (and, with grad, K3-bwd-bf16's rev16) and never
-    a bf16 mma.sync pack."""
+    K1-fwd-bf16 runs (not under the stash switch; K1-bwd-split-bf16 reads
+    them too) and, under the stash switch, where a backward can follow
+    (with grad: K1-bwd-stash-bf16), and the bf16 mma.sync pack
+    (pack_weights_bf16, pack16) only under the stash switch, which reaches
+    K1-fwd-stash-bf16 on mma.sync; the radiance MLP's carry K3-fwd-bf16's
+    sweep16 (and, with grad, K3-bwd-bf16's rev16) and never a bf16
+    mma.sync pack."""
     if switch:
         monkeypatch.setattr(GK, "STASH_BWD" if switch == "stash"
                             else "STACKED_BWD", switch == "stash")
@@ -184,16 +186,17 @@ def test_bf16_kernel_weights_build_the_slab_packs(card, monkeypatch, switch,
     with torch.set_grad_enabled(grad):
         kw = net.kernel_weights(bf16=True, f32=False)
         rkw = rnet.kernel_weights(bf16=True, f32=False)
-    want = set() if switch == "stash" else {"sweep16", "rev16"}
-    if switch:
+    slabs_built = switch != "stash" or grad
+    want = {"sweep16", "rev16"} if slabs_built else set()
+    if switch == "stash":
         want.add("pack16")
     assert _built(kw) == want
-    assert len(card) == (1 if switch else 0)
-    if switch != "stash":
+    assert len(card) == (1 if switch == "stash" else 0)
+    if slabs_built:
         slabs = TF.bwd_slabs(kw, True)
         assert GK.fwd_wg16_plan(SDF_CFG, ws, 100, slabs, 132)["tiles"] == 2
         assert torch.equal(slabs[0][0], GK.make_sweep_pack(SDF_CFG, ws)[0])
     assert _built(rkw) == ({"sweep16", "rev16"} if grad else {"sweep16"})
     assert torch.equal(TF.sweep_pack(rkw, True)[0],
                        RK.make_fwd_pack(RAD_CFG, rws, bf16=True)[0])
-    assert len(card) == (1 if switch else 0)
+    assert len(card) == (1 if switch == "stash" else 0)

@@ -240,7 +240,8 @@ def test_kernel_weights_build_the_3xtf32_pack_under_the_switches(
     3xTF32 pack (K1-fwd-stash's) beside the two f32 slab packs (K1-bwd-stash
     reads them, and K2 the first); under the split switch only the slab
     packs (K1-fwd's, which K1-bwd-split reads too) and no 3xTF32 pack; the
-    sweeps alone build none; the bf16 mode reads its bf16 pack instead."""
+    sweeps alone build none; the bf16 mode reads its bf16 pack instead,
+    built only under the stash switch (K1-fwd-stash-bf16's)."""
     monkeypatch.setattr(GK, "STASH_BWD" if switch == "stash"
                         else "STACKED_BWD", switch == "stash")
     net = TR.Stage1Model(port_config(tiny_config())).sdf
@@ -251,4 +252,5 @@ def test_kernel_weights_build_the_3xtf32_pack_under_the_switches(
     assert TF.mode_pack(kw, False) == (("pack",) if stash else None)
     assert _built(net.kernel_weights(k1=False)) == {"sweep32"}
     kw = net.kernel_weights(bf16=True, f32=False)
-    assert "pack" not in _built(kw) and TF.mode_pack(kw, True) == ("pack16",)
+    assert "pack" not in _built(kw)
+    assert TF.mode_pack(kw, True) == (("pack16",) if stash else None)

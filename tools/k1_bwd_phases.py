@@ -3,7 +3,8 @@
 fwd}.cu) on a GPU.
 
     python3 tools/k1_bwd_phases.py [--root DIR] [--bf16] [--fwd] [--clocks]
-    python3 tools/k1_bwd_phases.py [--root DIR] [--split] [--stash] [--clocks]
+    python3 tools/k1_bwd_phases.py [--root DIR] [--bf16] [--split] [--stash]
+                                   [--clocks]
 
 ``--split``, ``--stash`` (either or both): K1-bwd-split and K1-bwd-stash
 in f32, on wgmma in 3xTF32 (geometry_bwd_chains_wg.cu: a sweep of 64-point
@@ -24,6 +25,29 @@ from one set of cut copies of the source, with these cuts:
   is marked full at once: the products read stale slabs);
 ``--clocks``: ``all`` and ``no_products`` also run back to back while
 nvidia-smi samples the SM clock and the power draw.
+
+``--bf16 --split``, ``--bf16 --stash``: K1-bwd-split-bf16 and
+K1-bwd-stash-bf16 on bf16 wgmma (geometry_bwd_chains_bf16_wg.cu: a sweep
+of 64-point tiles, a consumer warpgroup a chain, K1-bwd-bf16's split-K
+pass and reduce), on K1-bwd-bf16's two slab packs (the stash's fed
+K1-fwd-stash-bf16's stash), from one set of cut copies, with these cuts:
+- ``no_products``: without every wgmma of the sweep and the pass;
+- ``no_wgrad_pass``: the weight-gradient pass not launched;
+- ``no_images``: the sweep writes no X_l / R_l image (the pass reads
+  stale ones);
+- ``no_scratch``: the sweep neither writes nor reads its f32 scratch
+  (sigma(100 a) and ad: the forward's exchange and the reverse's reads);
+- ``no_exchange_bars``: without the forward's bar.sync of the two
+  consumers at each exchange (a race: only the time is read);
+- ``no_epilogues``: softplus and sigma(100 a) replaced by the argument and
+  0.5;
+- ``no_stash_reads``: the stash's pre-activations read as 0 (the stash
+  alone);
+- ``no_slabs``: the producer copies no weight slab (each stage is marked
+  full at once: the products read stale slabs);
+``--clocks`` as above.  A version of DIR without
+geometry_bwd_chains_bf16_wg.cu (the variants on mma.sync) has none of these
+cuts.
 
 ``--fwd --bf16``: K1-fwd-bf16 on wgmma (geometry_fwd_bf16_wg.cu: K2-bf16's
 forward, csrc/sweep16.cuh, and the reverse sweep), on its two bf16 slab
@@ -149,9 +173,9 @@ CUTS_WG = {
     "no_images": [(SHARED, r"\*\(uint32_t\*\)\(o \+[^;]*;", ";"),
                   (SHARED, r"\*\(uint4\*\)\(?o[^;]*;", ";")],
     "no_scratch": [((WG,), r"sc\[q \* 128\] = make_float4[^;]*;", ";"),
-                   ((WG,), r"const float4 v = sc\[q \* 128\];",
+                   (SHARED, r"const float4 v = sc\[q \* 128\];",
                     "const float4 v = make_float4(0.5f, 0.5f, 1.f, 1.f);"),
-                   ((WG,), r"l2_prefetch_if\([^;]*;", ";")],
+                   (SHARED, r"l2_prefetch_if\([^;]*;", ";")],
     "no_softplus": [((WG, "sweep16.cuh"),
                      r"return fmaxf\(a, 0\.f\) \+ (?:gw_lg2|lg2_approx)"
                      r"\([^;]*;", "return a;")],
@@ -244,6 +268,40 @@ CUTS_CH = {
 ORDER_CH = ["all", "no_products", "no_wgrad_pass", "no_images",
             "no_readback", "no_scratch", "no_epilogues", "no_slabs", "all"]
 CLOCKED_WGF = ("all", "no_products")
+# K1-bwd-split-bf16 and K1-bwd-stash-bf16 on bf16 wgmma (--bf16 --split,
+# --bf16 --stash): one source of both, on wg_bwd.cuh's ring, image writers
+# and pass
+CH16 = "geometry_bwd_chains_bf16_wg.cu"
+SHARED_CH16 = (CH16, "wg_bwd.cuh")
+CUTS_CH16 = {
+    "all": [],
+    "no_products": [(SHARED_CH16, pat, rep)
+                    for _, pat, rep in CUTS_WG["no_products"]],
+    "no_wgrad_pass": [((CH16,), r"geometry_bwd_chains_wg16_wgrad<<<[^;]*;",
+                       ";")],
+    "no_images": [(SHARED_CH16, pat, rep)
+                  for _, pat, rep in CUTS_WG["no_images"]],
+    "no_scratch": [((CH16,), r"\*\(\(?float2\*\)\(s[ab] \+ q \* 128\)"
+                    r"(?: \+ 1\))? =[^;]*;", ";"),
+                   ((CH16,), r"s[ab]\[q \* 128\] = make_float4[^;]*;", ";"),
+                   ((CH16,), r"__ldcg\(\(const float2\*\)\(s[ab] \+ q \* "
+                    r"128\)\)", "make_float2(0.5f, 0.5f)"),
+                   (SHARED_CH16, r"const float4 v = sc\[q \* 128\];",
+                    "const float4 v = make_float4(0.5f, 0.5f, 1.f, 1.f);"),
+                   (SHARED_CH16, r"l2_prefetch_if\([^;]*;", ";")],
+    "no_exchange_bars": [((CH16,), r"bar_sync\(2, 256\);", ";")],
+    "no_epilogues": [((CH16,), r"\bsp100(?:_sfu)?\(", "("),
+                     ((CH16,), r"\bsig100(?:_sfu)?\(", "0.5f + 0.f * (")],
+    "no_stash_reads": [((CH16,), r"return st && c < W \? "
+                        r"__bfloat162float\(st\[c\]\) : 0\.f;",
+                        "return 0.f;"),
+                       ((CH16,), r"asm volatile\(\"prefetch\.global\.L2"
+                        r"[^)]*\(at\)\);", ";")],
+    "no_slabs": CUTS_G16["no_slabs"],
+}
+ORDER_CH16 = ["all", "no_products", "no_wgrad_pass", "no_images",
+              "no_scratch", "no_exchange_bars", "no_epilogues",
+              "no_stash_reads", "no_slabs", "all"]
 
 
 def build_cut(root: str, src: str, cuts: dict, name: str) -> dict:
@@ -393,15 +451,19 @@ def fwd_main(root: str, clocks: bool, bf16: bool = False) -> int:
     return 0
 
 
-def chains_main(root: str, clocks: bool, variants) -> int:
+def chains_main(root: str, clocks: bool, variants, bf16: bool = False
+                ) -> int:
     """--split, --stash: K1-bwd-split and K1-bwd-stash on wgmma, phase by
-    phase (CUTS_CH), each cut copy built once for both."""
+    phase (CUTS_CH; ``bf16``: their bf16 variants, CUTS_CH16), each cut
+    copy built once for both."""
     import torch
     import chip_smoke
     import k2_bf16_phases
-    libs = build_cut(root, CH, CUTS_CH, "geometry_bwd_chains_wg")
+    src, cuts, order = ((CH16, CUTS_CH16, ORDER_CH16) if bf16
+                        else (CH, CUTS_CH, ORDER_CH))
+    libs = build_cut(root, src, cuts, os.path.splitext(src)[0])
     if not libs:
-        print(f"phases: {root} has no {CH}", file=sys.stderr)
+        print(f"phases: {root} has no {src}", file=sys.stderr)
         return 2
     from factored_neus_tpu_torch.models.fields import SDFConfig, SDFNetwork
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
@@ -415,17 +477,19 @@ def chains_main(root: str, clocks: bool, variants) -> int:
     x = torch.randn(N_CORE, 3, device=dev, generator=gen) * 0.5
     ct_out = torch.randn(N_CORE, ws[-1].shape[0], device=dev, generator=gen)
     ct_g = torch.randn(N_CORE, 3, device=dev, generator=gen)
-    slabs = GK.make_bwd_slabs(cfg, list(ws), bf16=False)
-    st = GK.launch_forward_stash(cfg, x, ws, bs)[2]
-    calls = {"split": (GK.K1_BWD_SPLIT, lambda: GK.launch_backward_split(
-                 cfg, x, ws, bs, ct_out, ct_g, slabs=slabs)),
-             "stash": (GK.K1_BWD_STASH, lambda: GK.launch_backward_stash(
-                 cfg, x, ws, st, ct_out, ct_g, slabs=slabs))}
+    slabs = GK.make_bwd_slabs(cfg, list(ws), bf16=bf16)
+    st = GK.launch_forward_stash(cfg, x, ws, bs, bf16=bf16)[2]
+    calls = {"split": lambda: GK.launch_backward_split(
+                 cfg, x, ws, bs, ct_out, ct_g, slabs=slabs, bf16=bf16),
+             "stash": lambda: GK.launch_backward_stash(
+                 cfg, x, ws, st, ct_out, ct_g, slabs=slabs, bf16=bf16)}
     times = []
     for v in variants:
-        kernel, call = calls[v]
-        label = f"K1-bwd-{v}"
-        for phase in ORDER_CH:
+        kernel, call = GK.KERNELS[f"bwd_{v}", bf16], calls[v]
+        label = f"K1-bwd-{v}{'-bf16' if bf16 else ''}"
+        for phase in order:
+            if phase == "no_stash_reads" and v != "stash":
+                continue
             _bind(kernel, libs[phase], kernel.symbol)
             ms = chip_smoke.cuda_ms(call, 5)
             times.append({"kernel": label, "phase": phase, "ms": ms})
@@ -441,7 +505,7 @@ def chains_main(root: str, clocks: bool, variants) -> int:
     card = chip_smoke.card_line()
     print(card)
     print(json.dumps({"root": root, "variants": list(variants),
-                      "card": card, "times": times}))
+                      "bf16": bf16, "card": card, "times": times}))
     return 0
 
 
@@ -466,7 +530,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     sys.path.insert(0, os.path.join(HERE, "tools"))
     if variants:
-        return chains_main(root, clocks, variants)
+        return chains_main(root, clocks, variants, bf16)
     if fwd:
         return fwd_main(root, clocks, bf16)
     import chip_smoke

@@ -38,7 +38,6 @@ config's sweep modes.
 """
 import json
 import os
-import re
 import sys
 import tempfile
 import time
@@ -48,11 +47,16 @@ OUT = os.path.join(HERE, "build", "profile")
 STEPS = 10
 WARMUP = 5
 # device-side kernel name -> PERF.md's row (K1-fwd-stash runs K1-fwd's
-# __global__ function with its stash output switched on; the bf16 mma.sync
-# backward's template argument is its BwdMode, 1 stash, 2 split; the f32
-# split and stash backwards share their pass and reduce, named by the run)
-BWD_ROWS = {"1": "K1-bwd-stash-bf16", "2": "K1-bwd-split-bf16"}
-TABLE_ROWS = (("geometry_bwd_split_wgf_sweep", "K1-bwd-split (sweep)"),
+# __global__ function with its stash output switched on; the split and
+# stash backwards of each mode share their pass and reduce, named by the
+# run)
+TABLE_ROWS = (("geometry_bwd_split_wg16_sweep", "K1-bwd-split-bf16 (sweep)"),
+              ("geometry_bwd_stash_wg16_sweep", "K1-bwd-stash-bf16 (sweep)"),
+              ("geometry_bwd_chains_wg16_wgrad",
+               "K1-bwd-split-bf16 (weight-gradient pass)"),
+              ("geometry_bwd_chains_wg16_reduce",
+               "K1-bwd-split-bf16 (reduce)"),
+              ("geometry_bwd_split_wgf_sweep", "K1-bwd-split (sweep)"),
               ("geometry_bwd_stash_wgf_sweep", "K1-bwd-stash (sweep)"),
               ("geometry_bwd_chains_wgf_wgrad",
                "K1-bwd-split (weight-gradient pass)"),
@@ -76,8 +80,7 @@ TABLE_ROWS = (("geometry_bwd_split_wgf_sweep", "K1-bwd-split (sweep)"),
               ("sdf_fwd_bf16_kernel", "K2-bf16"),
               ("radiance_fwd_wgf_sweep", "K3-fwd"),
               ("radiance_fwd_bf16_sweep", "K3-fwd-bf16"),
-              ("radiance_fwd_bf16_kernel", "K3-fwd-bf16"),
-              ("reduce_partials_kernel", "K1-bwd partial sums"))
+              ("radiance_fwd_bf16_kernel", "K3-fwd-bf16"))
 FLAGS = ("--womask", "--stash", "--split", "--stage2", "--stage3", "--bf16",
          "--sweep-f32", "--sampling")
 OUTER = "Lvis.outer"        # the profiler range of the visibility sweep
@@ -85,14 +88,11 @@ OUTER_ROW = "Lvis.outer (visibility sweep, cuBLAS)"
 
 
 def table_row(kernel: str, stash: bool) -> str:
-    m = re.search(r"geometry_bwd_kernel<(?:\(int\))?(\d)>", kernel)
-    if m:
-        return BWD_ROWS[m.group(1)]
     bf16 = "-bf16" if "_kernel<true>" in kernel else ""
     for key, row in TABLE_ROWS:
         if key in kernel:
-            if stash and row in ("K1-fwd", "K1-bwd-split (weight-gradient "
-                                 "pass)", "K1-bwd-split (reduce)"):
+            if stash and (row == "K1-fwd" or row.startswith("K1-bwd-split")
+                          and "(sweep)" not in row):
                 row = row.replace("K1-fwd", "K1-fwd-stash").replace(
                     "K1-bwd-split", "K1-bwd-stash")
             return row + bf16
