@@ -14,15 +14,20 @@
    on wgmma (csrc/geometry_fwd_wg.cu, geometry_bwd_wg.cu,
    geometry_bwd_chains_wg.cu, sdf_fwd_wg.cu, radiance_fwd_wg.cu,
    radiance_bwd_wg.cu; each its ptxas report and SASS, which must hold
-   HGMMA and no HMMA, K1-bwd-split's and K1-bwd-stash's kernels each,
-   and its kernels' registers and shared memory read from the device,
-   "attrs"), all but K1-fwd-stash: K1-fwd, K1-bwd, K1-bwd-split,
-   K1-bwd-stash and K3-bwd at the step's 65,536 rows and a ragged 9,001,
-   K1-fwd within 1e-5 abs of its twin, the backwards against their f64
-   twins (check_vjp; K1-bwd-stash's fed K1-fwd-stash's stash) with two
-   launches bitwise equal, K1-bwd-split's ct_x, dW and db against
-   K1-bwd's bit for bit or not (printed), timed at both ("shapes"), the
-   bytes of each design and their f32 slab packs' build times; K2 (narrowed, on K1's forward slab
+   HGMMA and no HMMA, K1-fwd's and K1-fwd-stash's, K1-bwd-split's and
+   K1-bwd-stash's kernels each, and its kernels' registers and shared
+   memory read from the device, "attrs"; no library built from csrc/ may
+   hold an HMMA, no_hmma_anywhere): K1-fwd, K1-fwd-stash, K1-bwd,
+   K1-bwd-split, K1-bwd-stash and K3-bwd at the step's 65,536 rows and a
+   ragged 9,001, K1-fwd and K1-fwd-stash within 1e-5 abs of their twin
+   (the stash entry by entry: equal, one bf16 ulp apart, or within 1e-5)
+   and K1-fwd-stash's out and grad K1-fwd's bit for bit
+   (k1_fwd_stash_bits), the backwards against their f64 twins
+   (check_vjp; K1-bwd-stash's fed K1-fwd-stash's stash) with two launches
+   bitwise equal, K1-bwd-split's ct_x, dW and db against K1-bwd's bit for
+   bit or not (printed), timed at both ("shapes"), the bytes of each
+   design and their f32 slab packs' build times; K2 (narrowed, on K1's
+   forward slab
    pack as in the step, bitwise equal to K2 on its own narrowed pack, its
    sdf's distance from K1-fwd's printed) at both sweep shapes of a step
    and 9,001 rows, and its full 257-wide output at 9,001, and K3-fwd (on
@@ -55,11 +60,13 @@
    (FNEUS_PG_STACKED=0), counters at 0 there too;
 8. checks finite losses, that each run launched exactly its kernels (the
    stash pair only in the stash run, K1-bwd-split only in the split run),
-   that the checkpoint loads back, and that tc_pack.pack_weights (the
-   3xTF32 mma.sync pack, which only K1-fwd-stash reads) was called 0
-   times in the 30-step wmask run, the 512^3 mesh, the validation image,
-   the stage-2 and stage-3 runs (items 5-6, 9-10) and the split run, and
-   once a step in the stash run;
+   that the checkpoint loads back, that no mma.sync pack exists in any
+   run (count_pack_calls: tc_pack builds none, KernelWeights has no field
+   for one), and that K1's reverse slab pack (tc_pack.pack_rev_f32, which
+   every f32 K1 kernel reads) was built once a step in the 30-step wmask
+   run, the stash run and the split run and never for the 512^3 mesh (its
+   builds in the validation image and the stage-2 and stage-3 runs,
+   items 5-6, 9-10, printed);
 9. stage 2 on the 30-step stage-1 checkpoint: 30 full-width steps through
    the port's stage-2 CLI (python -m factored_neus_tpu_torch.lvis),
    counters at 0 just before: K2 five times a step, K2-bf16 once (the
@@ -68,7 +75,7 @@
    at the secondary coarse sweep's 1,048,576 rows (its route with
    sweep_act_bf16 off) and the localisation sweep's 65,536, K1-fwd at 512
    and 2,048 rows and K3-fwd at 2,048, on the run's packs (the f32 slab
-   packs Stage2Model.kernel_weights built without grad; no 3xTF32 pack),
+   packs Stage2Model.kernel_weights built without grad; no mma.sync pack),
    against their twins at 1e-5 abs (K2 at 65,536 and K3-fwd also against
    the f64 twins), bitwise repeatable and timed; one 64-ray stage-2 step
    with the coarse sweep in f32 on the card against the same step on the
@@ -108,8 +115,10 @@
    pair in bf16 at 65,536 and 9,001 rows against their twins and an f64
    evaluation of the unrounded function (check_flips), two launches of
    each bitwise equal, timed against their bf16 bound; K1-fwd-bf16,
-   K1-bwd-bf16, K1-bwd-split-bf16 and K1-bwd-stash-bf16 (on wgmma: each
-   source's ptxas report and SASS, which must hold HGMMA and no HMMA) also
+   K1-bwd-bf16, K1-bwd-split-bf16, K1-fwd-stash-bf16 and K1-bwd-stash-bf16
+   (on wgmma: each source's ptxas report and SASS, which must hold HGMMA
+   and no HMMA; K1-fwd-stash-bf16's out and grad K1-fwd-bf16's bit for bit
+   at both shapes, k1_fwd_stash_bits) also
    timed at 9,001 rows ("shapes" in their kernels entries), their kernels'
    registers and shared memory read from the device ("attrs"), and the
    FLOP and the bytes each design moves by the source note's reckoning
@@ -125,9 +134,9 @@
    no f32 K1 or K3), 10 with the stash switch and 10 with the split
    backward (their bf16 kernels once a step), one stage-1 CLI run with
    --gpu 0 --profile DIR whose trace names K1's and K3's bf16 kernels,
-   and one with --debug_nans; tc_pack.pack_weights_bf16 (the bf16
-   mma.sync pack, which only K1-fwd-stash-bf16 reads) built 0 times in the
-   30 steps and the split run and once a step or more in the stash run;
+   and one with --debug_nans; no mma.sync pack exists there either, and
+   K1's reverse bf16 slab pack (tc_pack.pack_rev_bf16) is built once a
+   step or more in the 30 steps, the stash run and the split run;
 13. the bf16 sweeps and the bf16 radiance MLP: K2-bf16 (on wgmma: its
    ptxas report and SASS, which must hold HGMMA and no HMMA.16816) at
    1,048,576, 65,536, 32,768, 9,001 and 8,192 rows (on the full network's
@@ -279,33 +288,55 @@ SYN_STAGES = ((1, "indisg_synthetic", STAGE1_PER_STEP),
 W2C_TOL = 1e-6          # the w2c rays, card against the CPU
 
 
-# tc_pack.pack_weights calls (the 3xTF32 mma.sync pack) and
-# tc_pack.pack_weights_bf16 calls (the bf16 one), counted once
+# the builds of K1's reverse slab packs (tc_pack.pack_rev_f32 and
+# tc_pack.pack_rev_bf16, which only K1's kernels read), counted once
 # count_pack_calls has run
 PACK_CALLS = [0]
 PACK16_CALLS = [0]
+# the builders and KernelWeights fields an mma.sync pack had: none is left
+MMA_SYNC_PACKS = ("pack_weights", "pack_weights_bf16", "make_pack",
+                  "pack_for")
+
+
+def mma_sync_packs_left() -> list:
+    """What is left of the mma.sync packs: tc_pack's builders of one and
+    fields.KernelWeights' fields for one (none: every kernel reads slab
+    packs)."""
+    from factored_neus_tpu_torch.models import fields as TF
+    from factored_neus_tpu_torch.ops import tc_pack as TP
+    return ([f"tc_pack.{n}" for n in MMA_SYNC_PACKS if hasattr(TP, n)]
+            + [f"KernelWeights.{f}" for f in ("pack", "pack16")
+               if f in TF.KernelWeights._fields])
 
 
 def count_pack_calls() -> None:
-    """Counts every tc_pack.pack_weights call from now on in PACK_CALLS,
-    and every tc_pack.pack_weights_bf16 call in PACK16_CALLS: only the
-    switch-only K1 variants read those packs, so neither default path
-    (f32, or the core's bf16 mode) builds one."""
+    """Raises where an mma.sync pack is left (mma_sync_packs_left); then
+    counts, once, every tc_pack.pack_rev_f32 call from now on in
+    PACK_CALLS and every tc_pack.pack_rev_bf16 call in PACK16_CALLS: K1's
+    reverse slab packs, which SDFNetwork.kernel_weights builds once a step
+    wherever K1 runs, in either mode and under either switch, and never
+    for the sweeps alone (a mesh)."""
     from factored_neus_tpu_torch.ops import tc_pack as TP
-    inner, inner16 = TP.pack_weights, TP.pack_weights_bf16
+    left = mma_sync_packs_left()
+    if left:
+        raise AssertionError(f"an mma.sync pack is left: {left}")
+    if getattr(TP.pack_rev_f32, "counted", False):
+        return
+    inner, inner16 = TP.pack_rev_f32, TP.pack_rev_bf16
 
-    def counted(ws):
+    def counted(ws, d_embed):
         PACK_CALLS[0] += 1
-        return inner(ws)
+        return inner(ws, d_embed)
 
-    def counted16(ws):
+    def counted16(ws, d_embed):
         PACK16_CALLS[0] += 1
-        return inner16(ws)
-    TP.pack_weights, TP.pack_weights_bf16 = counted, counted16
+        return inner16(ws, d_embed)
+    counted.counted = counted16.counted = True
+    TP.pack_rev_f32, TP.pack_rev_bf16 = counted, counted16
 
 
 def pack_calls_during(label: str, packs: dict, fn, *args, **kw):
-    """fn(*args, **kw), with the pack_weights calls it made in
+    """fn(*args, **kw), with the pack_rev_f32 calls it made in
     packs[label]."""
     before = PACK_CALLS[0]
     out = fn(*args, **kw)
@@ -549,7 +580,10 @@ def check_kernels(device):
     # K1-fwd (3xTF32 on wgmma, from its two f32 slab packs, built once as a
     # step does, and shared with K1-bwd): f32 dots of width <= 257 summed
     # in another order than cuBLAS
-    fbuild = wgmma_build_report("K1-fwd", "geometry_fwd_wg.cu")
+    fbuild = wgmma_build_report("K1-fwd and K1-fwd-stash",
+                                "geometry_fwd_wg.cu",
+                                ("geometry_fwd_wgf_sweep",
+                                 "geometry_fwd_stash_wgf_sweep"))
     slabs = GK.make_bwd_slabs(cfg, ws, bf16=False)
     out_k, grad_k = GK.launch_forward(cfg, x, ws, bs, slabs)
     with torch.no_grad():
@@ -581,20 +615,16 @@ def check_kernels(device):
         fshapes.append(shape)
         k1f["max_abs_err"] = max(k1f["max_abs_err"], e_n)
     # its slab packs (K1-bwd's, the forward pack with the last layer's
-    # slabs appended), built by SDFNetwork.kernel_weights beside the
-    # 3xTF32 pack
-    pack_ms = {"pack_ms": cuda_ms(lambda: TP.pack_weights(ws), 10),
-               "sweep_pack_f32_ms": cuda_ms(lambda: TP.pack_sweep_f32(
+    # slabs appended), built by SDFNetwork.kernel_weights wherever K1 runs
+    pack_ms = {"sweep_pack_f32_ms": cuda_ms(lambda: TP.pack_sweep_f32(
                    ws, sorted(SK.skip_layers(cfg, len(ws))), cfg.d_embed),
                    10),
                "rev_pack_f32_ms": cuda_ms(
                    lambda: TP.pack_rev_f32(ws, cfg.d_embed), 10)}
-    print(f"K1-fwd's and K1-bwd's slab packs at full width (K2 reads the "
-          f"first): {pack_ms['sweep_pack_f32_ms']:.3f} ms (forward) + "
-          f"{pack_ms['rev_pack_f32_ms']:.3f} ms (reverse), beside the "
-          f"3xTF32 pack's {pack_ms['pack_ms']:.3f} ms (built only under "
-          f"the switches of K1's variants) (CUDA events around 10 builds "
-          f"each)")
+    print(f"K1's f32 slab packs at full width (every f32 K1 kernel reads "
+          f"both, K2 the first): {pack_ms['sweep_pack_f32_ms']:.3f} ms "
+          f"(forward) + {pack_ms['rev_pack_f32_ms']:.3f} ms (reverse) (CUDA "
+          f"events around 10 builds each)")
     k1f.update(shapes=fshapes, sass=fbuild["sass"], ptxas=fbuild["ptxas"],
                attrs=wg_attrs("geometry_fwd_wg.cu", "geometry_fwd_attrs",
                               ("sweep",)), **pack_ms)
@@ -899,10 +929,13 @@ def check_kernels(device):
                attrs=attrs, **rpack_ms)
     del rslabs
 
-    # K1-fwd-stash: K1-fwd's exact (out, grad) plus the bf16 stash; an
-    # entry may differ by one bf16 ulp where the two f32 sums round to
-    # neighbours, or by more near zero, within K1-fwd's f32 tolerance
-    out_k, grad_k, st_k = GK.launch_forward_stash(cfg, x, ws, bs)
+    # K1-fwd-stash (3xTF32 on wgmma: K1-fwd's sweep, which also stores the
+    # bf16 stash, on K1-fwd's slab packs): its (out, grad) against the twin
+    # at 1e-5 abs, the stash entry by entry (equal, one bf16 ulp apart
+    # where the two f32 sums round to neighbours, or within 1e-5 near
+    # zero), and out and grad K1-fwd's bit for bit at the step's points
+    # and a ragged count (k1_fwd_stash_bits)
+    out_k, grad_k, st_k = GK.launch_forward_stash(cfg, x, ws, bs, slabs)
     out_p, grad_p, st_p = GK.geometry_fwd_stash_plain(ws, bs, x, cfg)
     torch.cuda.synchronize()
     e_out, r_out = worst(out_k, out_p, 1e-5, 0.0)
@@ -919,16 +952,24 @@ def check_kernels(device):
     if max(r_out, r_g) > 1.0 or bad:
         raise AssertionError("K1-fwd-stash disagrees with its plain twin")
     del out_p, grad_p, st_p, ulps, d_st
+    sshapes = [k1_fwd_stash_bits(cfg, ws, bs, n, slabs, fwd_flops)
+               for n in (N_CORE, N_RAGGED)]
 
     def plain_fwd_stash():
         GK.geometry_fwd_stash_plain(ws, bs, x, cfg)
     stash_bytes = N_CORE * 2 * stash_cols
     entry("geometry_fwd_stash",
-          "factored_neus_tpu_torch/csrc/geometry_fwd.cu",
+          "factored_neus_tpu_torch/csrc/geometry_fwd_wg.cu",
           "factored_neus_tpu/ops/pallas_geometry.py:764", max(e_out, e_g),
-          cuda_ms(lambda: GK.launch_forward_stash(cfg, x, ws, bs), 10),
+          cuda_ms(lambda: GK.launch_forward_stash(cfg, x, ws, bs, slabs), 10),
           cuda_ms(plain_fwd_stash, 5), N_CORE * fwd_flops,
           fwd_bytes + stash_bytes)
+    results[-1].update(shapes=sshapes, sass=fbuild["sass"],
+                       ptxas=fbuild["ptxas"],
+                       bits_vs_k1_fwd=[sh["bits_vs_k1_fwd"] for sh in sshapes],
+                       attrs=wg_attrs("geometry_fwd_wg.cu",
+                                      "geometry_fwd_stash_attrs",
+                                      ("sweep",)), **pack_ms)
 
     # K1-bwd-stash (3xTF32 on wgmma, on K1-bwd's two slab packs): the
     # primal from K1-fwd-stash's stash, at the step's points and a ragged
@@ -969,8 +1010,7 @@ def wg_attrs(src: str, symbol: str, kernels=("sweep", "wgrad")) -> dict:
     """A wgmma kernel's sweep and weight-gradient kernels (``kernels``:
     which of them the source has, in its ``symbol``'s order) as the device
     holds them after a launch (cudaFuncGetAttributes through the source's
-    ``symbol``: geometry_fwd_attrs, geometry_bwd_attrs,
-    geometry_bwd_bf16_attrs, radiance_bwd_attrs, radiance_bwd_bf16_attrs):
+    ``symbol``, its entry point's name with ``_attrs`` appended):
     registers a thread, dynamic shared memory a block as the launcher set
     it, static shared memory."""
     import ctypes
@@ -1074,6 +1114,46 @@ def k1_fwd_wgf_check(cfg, ws, bs, n, fwd_flops, slabs, gen) -> tuple:
     return shape, e
 
 
+def k1_fwd_stash_bits(cfg, ws, bs, n, slabs, fwd_flops,
+                      bf16: bool = False) -> dict:
+    """K1-fwd-stash (``bf16``: K1-fwd-stash-bf16) at n random points (a
+    generator of their own: the other checks' draws stay as they were): its
+    out and grad against K1-fwd's (K1-fwd-bf16's) on the same inputs and
+    slab packs, which must be equal bit for bit (the same sweep, the stash
+    a side output), two launches bitwise equal, stash included; its time
+    beside K1-fwd's (CUDA events) and its bound, 3xTF32 or bf16, by
+    operations.  Raises otherwise; returns the shape's entry."""
+    import torch
+    from factored_neus_tpu_torch.ops import geometry_kernel as GK
+    dev = ws[0].device
+    gen = torch.Generator(device=dev).manual_seed(22 + n)
+    x = torch.randn(n, 3, device=dev, generator=gen) * 0.5
+    run = lambda: GK.launch_forward_stash(cfg, x, ws, bs, slabs, bf16)
+    fwd = lambda: GK.launch_forward(cfg, x, ws, bs, slabs, bf16)
+    got, again, k1 = run(), run(), fwd()
+    torch.cuda.synchronize()
+    bits = torch.equal(got[0], k1[0]) and torch.equal(got[1], k1[1])
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    name = "K1-fwd-stash-bf16" if bf16 else "K1-fwd-stash"
+    print(f"{name} (wgmma) N={n}: out and grad bit for bit "
+          f"{'K1-fwd-bf16' if bf16 else 'K1-fwd'}'s on the same inputs: "
+          f"{bits}; two launches bitwise equal: {same}")
+    if not (bits and same):
+        raise AssertionError(f"{name} is not its forward's sweep bit for "
+                             f"bit, or not deterministic, at {n} points")
+    del got, again, k1
+    reps = 10 if n >= N_CORE else 20
+    bound = 1e3 * n * (fwd_flops / BF16_PEAK if bf16
+                       else 3 * fwd_flops / TF32_PEAK)
+    shape = {"rows": n, "ms": cuda_ms(run, reps),
+             "fwd_ms": cuda_ms(fwd, reps), "bound_ms": bound,
+             "bits_vs_k1_fwd": bits}
+    print(f"  {name} (wgmma) N={n}: {shape['ms']:.3f} ms, its forward "
+          f"{shape['fwd_ms']:.3f} ms, {'bf16' if bf16 else '3xTF32'} bound "
+          f"{bound:.3f} ms ({100 * bound / shape['ms']:.1f}% of it)")
+    return shape
+
+
 def k1_bwd_wg_shape(cfg, ws, n, run, plain, bwd_flops, slabs) -> tuple:
     """K1-bwd-bf16 (on wgmma) at n points (wg_shape); the design's bytes:
     the f32 scratch written and read, each tile's X_l and R_l images
@@ -1173,7 +1253,7 @@ def k1_bwd_held(cfg, ws, bs, n, slabs, gen, kind, bf16=False) -> dict:
     names = ["ct_x"] + [f"dW{l}" for l in range(L)] + [
         f"db{l}" for l in range(L)]
     if kind == "stash":
-        st = GK.launch_forward_stash(cfg, x, ws, bs, bf16=bf16)[2]
+        st = GK.launch_forward_stash(cfg, x, ws, bs, slabs, bf16)[2]
         run = lambda: flat(GK.launch_backward_stash(cfg, x, ws, st, ct_out,
                                                     ct_g, slabs, bf16))
         twin = lambda dt, b16: flat(GK.geometry_bwd_stash_plain(
@@ -1435,7 +1515,9 @@ def check_bf16_kernels(device):
     each bitwise equal, and its time against the bf16 bound; K1-fwd-bf16
     (on wgmma, its build report first) also at a validation chunk's
     VAL_CHUNK x 128 rows, and its out against K2-bf16's full output on the
-    same slab pack and rows, bit for bit; K1-bwd-split-bf16 and
+    same slab pack and rows, bit for bit; K1-fwd-stash-bf16 (its sweep
+    with the stash stored) its out and grad K1-fwd-bf16's bit for bit at
+    both shapes (k1_fwd_stash_bits); K1-bwd-split-bf16 and
     K1-bwd-stash-bf16 (on wgmma, their build report first) through
     k1_chains_check, the split's bits against K1-bwd-bf16's printed."""
     import torch
@@ -1456,10 +1538,11 @@ def check_bf16_kernels(device):
     fwd_flops = 2 * S + 2 * (S - s_last)
     bwd_flops = (4 * (S - s_last) + 2 * S + 2 * S
                  + 2 * (S - s_last) + 2 * ins[-1] + 2 * (S - s_last))
-    # K1-fwd-stash-bf16's bf16 mma.sync pack
-    pack = GK.make_pack(ws, bf16=True)
-    # every other bf16 K1 kernel runs on wgmma from the two slab packs
-    fwd_build = wgmma_build_report("K1-fwd-bf16", "geometry_fwd_bf16_wg.cu")
+    # every bf16 K1 kernel runs on wgmma from the two slab packs
+    fwd_build = wgmma_build_report("K1-fwd-bf16 and K1-fwd-stash-bf16",
+                                   "geometry_fwd_bf16_wg.cu",
+                                   ("geometry_fwd_bf16_sweep",
+                                    "geometry_fwd_stash_bf16_sweep"))
     build = wgmma_build_report("K1-bwd-bf16", "geometry_bwd_bf16_wg.cu")
     cbuild = wgmma_build_report(
         "K1-bwd-split-bf16 and K1-bwd-stash-bf16",
@@ -1467,7 +1550,7 @@ def check_bf16_kernels(device):
         ("geometry_bwd_split_wg16", "geometry_bwd_stash_wg16",
          "geometry_bwd_chains_wg16_wgrad"))
     slabs = GK.make_bwd_slabs(cfg, list(ws))
-    wg_shapes, fwd_shapes = [], []
+    wg_shapes, fwd_shapes, stash_shapes = [], [], []
     chain_shapes = {"geometry_bwd_split_bf16": [],
                     "geometry_bwd_stash_bf16": []}
     w64 = [w.double() for w in ws]
@@ -1494,14 +1577,14 @@ def check_bf16_kernels(device):
         tw_f = GK.geometry_plain(ws, bs, x, cfg, bf16=True)
         tw_b = flat(GK.geometry_bwd_plain(ws, bs, x, ct_out, ct_g, cfg,
                                           bf16=True))
-        out_k, grad_k, st_k = GK.launch_forward_stash(cfg, x, ws, bs, pack,
+        out_k, grad_k, st_k = GK.launch_forward_stash(cfg, x, ws, bs, slabs,
                                                       bf16=True)
         tw_sf = GK.geometry_fwd_stash_plain(ws, bs, x, cfg, bf16=True)
         runs = {
             "geometry_fwd_bf16": (lambda: GK.launch_forward(
                 cfg, x, ws, bs, slabs, bf16=True), tw_f, ref_f, fnames),
             "geometry_fwd_stash_bf16": (lambda: GK.launch_forward_stash(
-                cfg, x, ws, bs, pack, bf16=True)[:2], tw_sf[:2], ref_f,
+                cfg, x, ws, bs, slabs, bf16=True)[:2], tw_sf[:2], ref_f,
                 fnames),
             "geometry_bwd_bf16": (lambda: flat(GK.launch_backward(
                 cfg, x, ws, bs, ct_out, ct_g, slabs, bf16=True)), tw_b,
@@ -1527,6 +1610,8 @@ def check_bf16_kernels(device):
                 raise AssertionError(f"{name}: two launches differ")
         print(f"bf16 K1 kernels N={n}: two launches of each bitwise equal")
         k1_k2_bits(cfg, ws, bs, x, slabs)
+        stash_shapes.append(k1_fwd_stash_bits(cfg, ws, bs, n, slabs,
+                                              fwd_flops, bf16=True))
         shape, fwd_attrs = k1_fwd_bf16_shape(
             cfg, ws, bs, x, runs["geometry_fwd_bf16"][0], fwd_flops, slabs)
         fwd_shapes.append(shape)
@@ -1563,20 +1648,13 @@ def check_bf16_kernels(device):
             "geometry_bwd_bf16": cuda_ms(plain(lambda: GK.geometry_bwd_plain(
                 ws, bs, x, ct_out, ct_g, cfg, bf16=True)), 3)}
         # what the bf16 mode adds to a step besides its kernels: the two
-        # slab packs SDFNetwork.kernel_weights(bf16=True) builds for
-        # K1-fwd-bf16 and the bf16 K1 backwards (and, timed beside them,
-        # the mma.sync packs, 3xTF32 and bf16, built only under the stash
-        # switch)
-        pack_ms = {"pack_ms": cuda_ms(lambda: GK.make_pack(ws), 10),
-                   "pack_bf16_ms": cuda_ms(lambda: GK.make_pack(ws, True),
-                                           10),
-                   "sweep_pack_bf16_ms": cuda_ms(
+        # slab packs SDFNetwork.kernel_weights(bf16=True) builds for every
+        # bf16 K1 kernel
+        pack_ms = {"sweep_pack_bf16_ms": cuda_ms(
                        lambda: GK.make_sweep_pack(cfg, ws), 10),
                    "rev_pack_bf16_ms": cuda_ms(
                        lambda: TP.pack_rev_bf16(ws, cfg.d_embed), 10)}
-        print(f"weight packs at full width: 3xTF32 {pack_ms['pack_ms']:.3f} "
-              f"ms, bf16 {pack_ms['pack_bf16_ms']:.3f} ms (both switch-only)"
-              f", the bf16 wgmma kernels' slab packs "
+        print(f"the bf16 K1 kernels' slab packs at full width: "
               f"{pack_ms['sweep_pack_bf16_ms']:.3f} ms (forward)"
               f" + {pack_ms['rev_pack_bf16_ms']:.3f} ms (reverse) (CUDA "
               f"events around 10 builds each)")
@@ -1586,7 +1664,7 @@ def check_bf16_kernels(device):
                                       "geometry_fwd_bf16_wg.cu"),
                 "geometry_fwd_stash_bf16": (fwd_flops, fwd_bytes +
                                             n * stash_bytes, 764,
-                                            "geometry_fwd.cu"),
+                                            "geometry_fwd_bf16_wg.cu"),
                 "geometry_bwd_bf16": (bwd_flops, bwd_bytes, 846,
                                       "geometry_bwd_bf16_wg.cu"),
                 "geometry_bwd_split_bf16": (bwd_flops, bwd_bytes, 529,
@@ -1641,6 +1719,14 @@ def check_bf16_kernels(device):
         if r["name"] == "geometry_fwd_bf16":
             r.update(shapes=fwd_shapes, sass=fwd_build["sass"],
                      ptxas=fwd_build["ptxas"], attrs=fwd_attrs)
+        if r["name"] == "geometry_fwd_stash_bf16":
+            r.update(shapes=stash_shapes, sass=fwd_build["sass"],
+                     ptxas=fwd_build["ptxas"],
+                     bits_vs_k1_fwd_bf16=[sh["bits_vs_k1_fwd"]
+                                          for sh in stash_shapes],
+                     attrs=wg_attrs("geometry_fwd_bf16_wg.cu",
+                                    "geometry_fwd_stash_bf16_attrs",
+                                    ("sweep",)))
         if r["name"] in chain_shapes:
             sh = chain_shapes[r["name"]]
             r.update(shapes=sh, attrs=sh[0]["attrs"], sass=cbuild["sass"],
@@ -1715,6 +1801,24 @@ def wgmma_build_report(label: str, src: str, kernels=()) -> dict:
     if mma:
         raise AssertionError(f"{label}: mma.sync in {mma}")
     return {"ptxas": info, "sass": counts}
+
+
+def no_hmma_anywhere() -> dict:
+    """The HMMA (mma.sync) instructions of every library built from
+    csrc/ (_cuda.SOURCES), by the functions' SASS: raises unless there is
+    none.  Returns {source: [functions counted]}."""
+    from factored_neus_tpu_torch.ops import _cuda
+    seen, mma = {}, []
+    for src in _cuda.SOURCES:
+        fns = sass_by_function(_cuda._lib_path(src), ("HMMA",))
+        seen[src] = sorted(fns)
+        mma += [f"{src}: {f}" for f, c in fns.items() if c["HMMA"]]
+    print(f"no library built from csrc/ has an HMMA: {not mma} "
+          f"({len(seen)} libraries, {sum(len(v) for v in seen.values())} "
+          f"functions)")
+    if mma:
+        raise AssertionError(f"mma.sync left in {mma}")
+    return seen
 
 
 K3_BF16_ROWS = (N_CORE, N_RAGGED)
@@ -2633,9 +2737,10 @@ def check_stage2_shapes(device, results, model) -> None:
     sdf_w, color_w = model.kernel_weights()
     ws, bs, pack = sdf_w.ws, sdf_w.bs, sdf_w.sweep32
     rws, rbs, rpack = color_w.ws, color_w.bs, color_w.sweep32
-    if sdf_w.pack is not None or color_w.pack is not None or rpack is None:
-        raise AssertionError("Stage2Model.kernel_weights built a 3xTF32 "
-                             "pack, or no K3-fwd slab pack")
+    if mma_sync_packs_left() or rpack is None:
+        raise AssertionError("an mma.sync pack is left, or "
+                             "Stage2Model.kernel_weights built no K3-fwd "
+                             "slab pack")
     # K1-fwd's two f32 slab packs, built once a run by
     # Stage2Model.kernel_weights (no grad)
     slabs = (sdf_w.sweep32, sdf_w.rev32)
@@ -3460,7 +3565,8 @@ def stash_run() -> int:
     check_launched("stash run", launches, STASH_SET)
     print(json.dumps({"launches": launches,
                       "rays_per_sec": runner.history[-1]["rays_per_sec"],
-                      "pack_weights_calls": PACK_CALLS[0]}))
+                      "rev_pack_calls": PACK_CALLS[0],
+                      "mma_sync_packs": mma_sync_packs_left()}))
     return 0
 
 
@@ -3489,7 +3595,8 @@ def split_run() -> int:
                              "step")
     print(json.dumps({"launches": launches,
                       "rays_per_sec": runner.history[-1]["rays_per_sec"],
-                      "pack_weights_calls": PACK_CALLS[0]}))
+                      "rev_pack_calls": PACK_CALLS[0],
+                      "mma_sync_packs": mma_sync_packs_left()}))
     return 0
 
 
@@ -3501,12 +3608,12 @@ def bf16_run() -> int:
     BF16_VARIANT_STEPS with the stash switch and as many with the split
     backward (their bf16 kernels once a step), then a stage-1 run with
     --gpu 0 --profile DIR, whose trace must name K1's and K3's bf16
-    kernels, and one with --debug_nans.  tc_pack.pack_weights_bf16 (the
-    bf16 mma.sync pack, K1-fwd-stash-bf16's alone) is built in no step of
-    the first run or of the split run and once a step or more in the stash
-    run.  Its last line is
-    {"launches": {"main": ..., "stash": ..., "split": ...},
-    "pack_weights_bf16_calls": {...}, "rays_per_sec": ...}."""
+    kernels, and one with --debug_nans.  No mma.sync pack exists
+    (count_pack_calls), and K1's reverse bf16 slab pack
+    (tc_pack.pack_rev_bf16, which every bf16 K1 kernel reads, the stash
+    pair too) is built once a step or more in each of the three runs.  Its
+    last line is {"launches": {"main": ..., "stash": ..., "split": ...},
+    "rev16_pack_calls": {...}, "rays_per_sec": ...}."""
     sys.path.insert(0, HERE)
     import torch
     from factored_neus_tpu_torch import exp_runner
@@ -3548,13 +3655,13 @@ def bf16_run() -> int:
                 raise AssertionError(f"bf16 {label} run: {k} did not launch "
                                      f"once a step")
     GK.STASH_BWD, GK.STACKED_BWD = False, True
-    print(f"tc_pack.pack_weights_bf16 calls: {packs16} ({BF16_STEPS} steps "
-          f"of the bf16 run, {BF16_VARIANT_STEPS} of the stash and split "
-          f"runs)")
-    if packs16["main"] or packs16["split"] or \
-            packs16["stash"] < BF16_VARIANT_STEPS:
-        raise AssertionError("the bf16 or split run built the bf16 mma.sync "
-                             "pack, or the stash run ran without it")
+    print(f"no mma.sync pack exists; tc_pack.pack_rev_bf16 calls: {packs16} "
+          f"({BF16_STEPS} steps of the bf16 run, {BF16_VARIANT_STEPS} of the "
+          f"stash and split runs)")
+    if packs16["main"] < BF16_STEPS or any(
+            packs16[k] < BF16_VARIANT_STEPS for k in ("stash", "split")):
+        raise AssertionError("a bf16 run ran a step without K1's bf16 slab "
+                             "packs")
     with tempfile.TemporaryDirectory() as tmp:
         conf = write_conf(tmp, BF16_VARIANT_STEPS)
         base = ["--mode", "train", "--conf", conf, "--case", "sphere",
@@ -3580,7 +3687,7 @@ def bf16_run() -> int:
         if r.iter_step != BF16_VARIANT_STEPS:
             raise AssertionError("the --debug_nans run stopped early")
         print(f"--debug_nans: {r.iter_step} steps, finite, no stop")
-    print(json.dumps({"launches": launches, "pack_weights_bf16_calls": packs16,
+    print(json.dumps({"launches": launches, "rev16_pack_calls": packs16,
                       "rays_per_sec": rays}))
     return 0
 
@@ -3658,6 +3765,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
+    no_hmma_anywhere()
     device = torch.device("cuda")
     kernels = check_kernels(device)
     check_validation_shapes(device, kernels)
@@ -3702,10 +3810,12 @@ def main() -> int:
         del runner3
         check_stage3_step_against_cpu(conf)
         check_stage3_validation(conf)
-    print(f"tc_pack.pack_weights (3xTF32) calls on the default path: "
-          f"{packs}")
-    if any(packs.values()):
-        raise AssertionError("the default path built a 3xTF32 pack")
+    print(f"no mma.sync pack exists; K1's reverse slab pack "
+          f"(tc_pack.pack_rev_f32) built on the default path: {packs}")
+    if packs[f"{TRAIN_STEPS}-step wmask run"] != TRAIN_STEPS or \
+            packs[f"{MESH_RES}^3 mesh"]:
+        raise AssertionError("K1's slab packs must be built once a training "
+                             "step and never for a mesh (K2 alone)")
     t0 = time.perf_counter()
     synthetic = synthetic_phase(card)
     print(f"synthetic families phase: {time.perf_counter() - t0:.1f} s on "
@@ -3717,18 +3827,20 @@ def main() -> int:
     split = subprocess_run(SPLIT_RUN, {"FNEUS_PG_STACKED": "0"}, "split")
     print(f"womask split run rays/s over steps 11-{SPLIT_STEPS}: "
           f"{split['rays_per_sec']:.0f} on {card}")
-    print(f"tc_pack.pack_weights calls under the switches: stash run "
-          f"{stash['pack_weights_calls']} ({STASH_STEPS} steps), split run "
-          f"{split['pack_weights_calls']}")
-    if stash["pack_weights_calls"] != STASH_STEPS or \
-            split["pack_weights_calls"]:
-        raise AssertionError("tc_pack.pack_weights must be built once a "
-                             "step in the stash run (K1-fwd-stash's pack, by "
-                             "kernel_weights) and never in the split run")
+    print(f"under the switches no mma.sync pack exists (stash run: "
+          f"{stash['mma_sync_packs']}, split run: {split['mma_sync_packs']});"
+          f" tc_pack.pack_rev_f32 calls: stash run "
+          f"{stash['rev_pack_calls']} ({STASH_STEPS} steps), split run "
+          f"{split['rev_pack_calls']} ({SPLIT_STEPS} steps)")
+    if stash["rev_pack_calls"] != STASH_STEPS or stash["mma_sync_packs"] or \
+            split["rev_pack_calls"] != SPLIT_STEPS or split["mma_sync_packs"]:
+        raise AssertionError("K1's slab packs must be built once a step "
+                             "by kernel_weights in the stash and split runs, "
+                             "and no mma.sync pack may exist")
     bf16 = subprocess_run(BF16_RUN, {"FNEUS_CORE_ACT_BF16": "1"}, "bf16")
     print(f"bf16 wmask run rays/s over steps 21-{BF16_STEPS}: "
-          f"{bf16['rays_per_sec']:.0f} on {card}; tc_pack.pack_weights_bf16 "
-          f"calls {bf16['pack_weights_bf16_calls']}")
+          f"{bf16['rays_per_sec']:.0f} on {card}; tc_pack.pack_rev_bf16 "
+          f"calls {bf16['rev16_pack_calls']}")
     sampling = subprocess_run(SAMPLING_RUN, {"FNEUS_PALLAS_SAMPLING": "1"},
                               "use_pallas_sampling")
     print(f"use_pallas_sampling wmask run rays/s over steps "

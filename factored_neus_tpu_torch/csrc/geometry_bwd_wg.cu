@@ -9,8 +9,8 @@
 // X^T R summed over every stacked row, db the sum of the primal R, ct_x
 // through the encoding's backward (the eikonal Hessian-vector term
 // included).  Every product runs in 3xTF32: small_a big_b + big_a small_b
-// + big_a big_b, 8 k an instruction (tc_mma.cuh's scheme); everything
-// elementwise stays f32.
+// + big_a big_b, 8 k an instruction (tc_pack.mm_3xtf32 emulates it);
+// everything elementwise stays f32.
 //
 // Bound: operations, 5,768,704 FLOP a point at full width, three TF32
 // products' worth over 495 TFLOP/s (2.291 ms at 65,536 points).  Three
@@ -46,7 +46,7 @@
 //      the same tile and given as the register A of small_x big_w.  The
 //      weights come pre-split (tc_pack.pack_sweep_f32, pack_rev_f32: big =
 //      W rounded to TF32, small = W - big, each a K-major slab of 32 f32
-//      k).  A k-step is three products, in tc_mma.cuh's order.
+//      k).  A k-step is three products, in the order above.
 //    - The accumulator rounds toward zero (tools/tf32_mma_probe.py).  One
 //      accumulator over a 256-deep product (96 truncating adds) misses
 //      check_vjp's bound by 2x in the CPU emulation

@@ -52,6 +52,21 @@
 // L2); the points read (12 B) and out and grad written (1,040 B), 69 MB.
 // From L2 every tile streams 63 slabs of the forward (~2.1 MB) and 32 of
 // the reverse (~0.9 MB).
+//
+// K1-fwd-stash-bf16 (entry point geometry_fwd_stash_bf16, kernel
+// geometry_fwd_stash_bf16_sweep) replaces _make_geom.run_fwd_stash with
+// bf16=True (body _build_fwd_kernel_stashing): the same sweep, whose
+// forward (sw_forward with its STASH flag) also stores each hidden layer's
+// pre-activation bf16(acc + bias) (the f32 sum of the bf16 products plus
+// the f32 bias, rounded once to nearest even, as JAX's
+// ``row.astype(jnp.bfloat16)``) into a side output for K1-bwd-stash-bf16:
+// bf16 [n][sum of outs[0 .. L - 2]], layer l from column sum(outs[0 .. l -
+// 1]); 2-byte stores straight from the accumulator (an odd row of the
+// 2,009-column stash starts on a 2-byte boundary), 4,018 B a point, 263 MB
+// a call at 65,536 points (0.08 ms at 3.35 TB/s).  On an H100 they cost
+// ~0.7 ms, as much again as the sweep; neither 4-byte stores nor rows staged
+// for 128-byte stores changed that (PERF.md).  Its out and grad are
+// K1-fwd-bf16's bit for bit.
 #include "sweep16.cuh"
 
 #define GB_ENC_RE 48      // row (floats) of a consumer's encoding cotangents
@@ -62,6 +77,7 @@ struct GbDims {
   const unsigned char* rpack;
   int r_off[SW_MAXL];     // byte offset of reverse layer l's first slab
   int r_copy[SW_MAXL];    // bytes of one of its reverse slabs
+  SwStash stash;          // K1-fwd-stash-bf16's
 };
 
 // A pass's slabs: the forward's (sw_put_fwd), then the reverse's, layers
@@ -112,6 +128,7 @@ __device__ __forceinline__ void gb_rev_step(float (&acc)[128],
   }
 }
 
+template <bool STASH>
 __device__ __forceinline__ void gb_consumer(const GbDims& g, int w,
                                             unsigned char* ring, float* E,
                                             float* RE, const float* bias,
@@ -147,8 +164,9 @@ __device__ __forceinline__ void gb_consumer(const GbDims& g, int w,
     bar_sync(1 + w, 128);
 
     // the forward (K2-bf16's), sigma(100 a_l) to the scratch
-    it = sw_forward<true>(d, it, row0, ring, E, bias, full, empty, scr, a,
-                          acc, acc8);
+    it = sw_forward<true, STASH>(d, it, row0, ring, E, bias, full, empty,
+                                 scr, a, acc, acc8,
+                                 STASH ? &g.stash : nullptr);
 
     // the last layer's input cotangent, then layer l's r W and layer
     // l - 1's step (its scratch on its way to L2 while the product runs)
@@ -215,8 +233,8 @@ __device__ __forceinline__ void gb_consumer(const GbDims& g, int w,
   }
 }
 
-__global__ void __launch_bounds__(384, 1)
-geometry_fwd_bf16_sweep(const __grid_constant__ GbDims g) {
+template <bool STASH>
+__device__ __forceinline__ void gb_sweep(const GbDims& g) {
   extern __shared__ unsigned char smem_raw[];
   const SwDims& d = g.f;
   // 1024-byte aligned for the swizzle
@@ -245,20 +263,31 @@ geometry_fwd_bf16_sweep(const __grid_constant__ GbDims g) {
     if (threadIdx.x == 0) gb_producer(g, ring, full, empty);
   } else {
     regs_inc<240>();
-    gb_consumer(g, wg - 1, ring, E0 + (wg - 1) * 64 * SW_EW,
-                RE0 + (wg - 1) * 64 * GB_ENC_RE, bias, full, empty);
+    gb_consumer<STASH>(g, wg - 1, ring, E0 + (wg - 1) * 64 * SW_EW,
+                       RE0 + (wg - 1) * 64 * GB_ENC_RE, bias, full, empty);
   }
+}
+
+__global__ void __launch_bounds__(384, 1)
+geometry_fwd_bf16_sweep(const __grid_constant__ GbDims g) {
+  gb_sweep<false>(g);
+}
+
+__global__ void __launch_bounds__(384, 1)
+geometry_fwd_stash_bf16_sweep(const __grid_constant__ GbDims g) {
+  gb_sweep<true>(g);
 }
 
 // Integer arguments: [L, multires, d_embed, n, nc, grid, n_pass, then per
 // layer enc[L], slab_stride[L], off[L], outs[L], r_off[L], r_cols[L]]
 // (ops/geometry_kernel.fwd_wg16_plan: sdf_kernel.sweep_iargs' for the
 // forward pack, tc_pack.sweep_layout, then the reverse pack's layer
-// offsets and slab widths, tc_pack.rev_layout).  Pointers: [x, out, grad,
-// scratch, forward pack, reverse pack, b[L]].  Returns a cudaError_t
-// value; 0 when the launch was accepted.
-extern "C" int geometry_fwd_bf16(const int* ia, const unsigned long long* p,
-                                 float scale, unsigned long long stream) {
+// offsets and slab widths, tc_pack.rev_layout; for K1-fwd-stash-bf16 then
+// the stash's columns).  Pointers: [x, out, grad, scratch, (K1-fwd-stash-
+// bf16: the bf16 stash,) forward pack, reverse pack, b[L]].  Returns a
+// cudaError_t value; 0 when the launch was accepted.
+static int gb_launch(const int* ia, const unsigned long long* p, float scale,
+                     unsigned long long stream, bool stash) {
   GbDims g;
   SwDims& d = g.f;
   d.L = ia[0];
@@ -273,15 +302,17 @@ extern "C" int geometry_fwd_bf16(const int* ia, const unsigned long long* p,
   d.out = (float*)p[1];
   g.grad = (float*)p[2];
   g.scratch = (float*)p[3];
-  d.pack = (const unsigned char*)p[4];
-  g.rpack = (const unsigned char*)p[5];
+  const int pk = stash ? 5 : 4;     // the packs' pointers
+  g.stash.p = stash ? (__nv_bfloat16*)p[4] : nullptr;
+  d.pack = (const unsigned char*)p[pk];
+  g.rpack = (const unsigned char*)p[pk + 1];
   const int L = d.L, lL = L - 1;
   if (L < 2 || L > SW_MAXL || d.d_embed > SW_EW ||
       d.d_embed != 3 * (1 + 2 * d.multires) || d.nc < 1 || d.nc > 2 ||
       grid < 1 || d.n_pass < 1 ||
       (long long)d.n_pass * d.nc * 64 < d.n)
     return (int)cudaErrorInvalidValue;
-  int widest = 0;
+  int widest = 0, cols = 0;
   for (int l = 0; l < L; ++l) {
     const int* q = ia + 7 + l;
     d.enc[l] = q[0];
@@ -291,8 +322,10 @@ extern "C" int geometry_fwd_bf16(const int* ia, const unsigned long long* p,
     g.r_off[l] = q[4 * L];
     const int r_cols = q[5 * L];
     g.r_copy[l] = r_cols * 128;
-    d.b[l] = (const float*)p[6 + l];
+    d.b[l] = (const float*)p[pk + 2 + l];
     const bool last = l == lL;
+    g.stash.off[l] = cols;
+    if (!last) cols += d.outs[l];
     d.nslab[l] = (l ? 4 : 0) + (d.enc[l] ? 1 : 0);
     d.skip_next[l] = last ? 0 : q[1];
     // a copy is the slab's first 8 (narrowed last layer), 256 (hidden) or
@@ -309,6 +342,9 @@ extern "C" int geometry_fwd_bf16(const int* ia, const unsigned long long* p,
       return (int)cudaErrorInvalidValue;
     widest = widest > d.copy_bytes[l] ? widest : d.copy_bytes[l];
   }
+  // the stash's rows hold every hidden layer's columns, no more
+  g.stash.cols = stash ? ia[7 + 6 * L] : 0;
+  if (stash && g.stash.cols != cols) return (int)cudaErrorInvalidValue;
   d.stage_bytes = (widest + 1023) / 1024 * 1024;
   const size_t fixed = 1024 + (size_t)d.nc * 64 * (SW_EW + GB_ENC_RE) * 4 +
                        (size_t)L * SW_BW * 4;
@@ -319,26 +355,52 @@ extern "C" int geometry_fwd_bf16(const int* ia, const unsigned long long* p,
   // retire
   if (d.ns < 5) return (int)cudaErrorInvalidValue;
   const size_t smem = fixed + (size_t)d.ns * (d.stage_bytes + 16);
+  const void* fn = stash ? (const void*)geometry_fwd_stash_bf16_sweep
+                         : (const void*)geometry_fwd_bf16_sweep;
   cudaError_t e = cudaFuncSetAttribute(
-      geometry_fwd_bf16_sweep, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  geometry_fwd_bf16_sweep<<<grid, 128 * (1 + d.nc), smem,
-                            (cudaStream_t)stream>>>(g);
+  if (stash)
+    geometry_fwd_stash_bf16_sweep<<<grid, 128 * (1 + d.nc), smem,
+                                    (cudaStream_t)stream>>>(g);
+  else
+    geometry_fwd_bf16_sweep<<<grid, 128 * (1 + d.nc), smem,
+                              (cudaStream_t)stream>>>(g);
   return (int)cudaGetLastError();
 }
 
-// The sweep's attributes as the device holds them, read after a launch:
+// K1-fwd-bf16.
+extern "C" int geometry_fwd_bf16(const int* ia, const unsigned long long* p,
+                                 float scale, unsigned long long stream) {
+  return gb_launch(ia, p, scale, stream, false);
+}
+
+// K1-fwd-stash-bf16: K1-fwd-bf16's arguments and the stash (gb_launch).
+extern "C" int geometry_fwd_stash_bf16(const int* ia,
+                                       const unsigned long long* p,
+                                       float scale,
+                                       unsigned long long stream) {
+  return gb_launch(ia, p, scale, stream, true);
+}
+
+// A sweep's attributes as the device holds them, read after a launch:
 // out[0 .. 2] = registers a thread, dynamic shared memory a block (as the
 // launcher last set it), static shared memory.  Returns a cudaError_t
 // value.
-extern "C" int geometry_fwd_bf16_attrs(int* out) {
+static int sweep_attrs(const void* kernel, int* out) {
   cudaFuncAttributes a;
-  const cudaError_t e =
-      cudaFuncGetAttributes(&a, (const void*)geometry_fwd_bf16_sweep);
+  const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
   if (e != cudaSuccess) return (int)e;
   out[0] = a.numRegs;
   out[1] = a.maxDynamicSharedSizeBytes;
   out[2] = (int)a.sharedSizeBytes;
   return 0;
+}
+
+extern "C" int geometry_fwd_bf16_attrs(int* out) {
+  return sweep_attrs((const void*)geometry_fwd_bf16_sweep, out);
+}
+
+extern "C" int geometry_fwd_stash_bf16_attrs(int* out) {
+  return sweep_attrs((const void*)geometry_fwd_stash_bf16_sweep, out);
 }

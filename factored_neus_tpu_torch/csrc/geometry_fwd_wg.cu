@@ -45,6 +45,20 @@
 //   inputs (12 B) and outputs (1,040 B) a point, ~1.14 GB, 0.34 ms.
 // - From L2 every tile streams 130 slabs, ~8.2 MB (the forward's 66, the
 //   reverse's 64): ~8.4 GB a call at 65,536 points.
+// - K1-fwd-stash (entry point geometry_fwd_stash, kernel
+//   geometry_fwd_stash_wgf_sweep) replaces _make_geom.run_fwd_stash (body
+//   _build_fwd_kernel_stashing): the same sweep, which also stores each
+//   hidden layer's pre-activation a (the f32 value whose sigma(100 a)
+//   goes to the scratch) rounded to bf16 (nearest even) into a side
+//   output for K1-bwd-stash: bf16 [n][sum of outs[0 .. L - 2]], layer l
+//   from column sum(outs[0 .. l - 1]); the stash never feeds (out, grad),
+//   which are K1-fwd's bit for bit.  A row is 2,009 columns at full
+//   width, so an odd row starts on a 2-byte boundary: each element is a
+//   2-byte store straight from the thread's accumulator entry (the shared
+//   memory is full).  4,018 B a point, 263 MB a call at 65,536 points
+//   (0.08 ms at 3.35 TB/s); on an H100 the stores cost ~0.4 ms, and
+//   neither 4-byte stores nor rows staged for 64-byte stores changed that
+//   (PERF.md).
 // - Between layers, two named barriers over the two consumers: every
 //   product of the layer has read the A tile before it is overwritten, and
 //   the new tile is written (and fenced to the async proxy) before any
@@ -69,6 +83,11 @@ struct GfDims {
   int r_off[GW_MAXL];      // byte offset of reverse layer l's first slab
   int r_bytes[GW_MAXL];    // bytes of one of its reverse slabs
   const float* b[GW_MAXL];
+  // K1-fwd-stash: the bf16 stash [n][stash_cols], hidden layer l from
+  // column s_off[l]
+  __nv_bfloat16* stash;
+  int stash_cols;
+  int s_off[GW_MAXL];
 };
 
 // A tile's slabs: forward layer 0 (two), each hidden layer (eight), the
@@ -95,6 +114,7 @@ __device__ __forceinline__ void gf_producer(const GfDims& d,
   }
 }
 
+template <bool STASH>
 __device__ __forceinline__ void gf_consumer(const GfDims& d, int c,
                                             unsigned char* ring,
                                             unsigned char* at, float* E,
@@ -167,6 +187,13 @@ __device__ __forceinline__ void gf_consumer(const GfDims& d, int c,
       const bool skip = d.enc[l + 1];
       const float post = skip ? inv_sqrt2 : 1.f;
       float4* sl = scr + l * 16 * 256;
+      // K1-fwd-stash: the stash rows of points P0 and P1 (none past n)
+      __nv_bfloat16 *st0 = nullptr, *st1 = nullptr;
+      if (STASH) {
+        __nv_bfloat16* st = d.stash + d.s_off[l];
+        if (v0) st0 = st + (size_t)P0 * d.stash_cols;
+        if (v1) st1 = st + (size_t)P1 * d.stash_cols;
+      }
 #pragma unroll
       for (int q = 0; q < 16; ++q) {
         float s4[4];
@@ -175,6 +202,10 @@ __device__ __forceinline__ void gf_consumer(const GfDims& d, int c,
           const int i = 4 * q + e, col = n0 + 8 * q + 2 * t + (e & 1);
           const int r = e < 2 ? rg : rg + 8;
           const float a = run[i] + (col < W ? __ldg(bl + col) : 0.f);
+          if (STASH && col < W) {
+            __nv_bfloat16* st = e < 2 ? st0 : st1;
+            if (st) st[col] = __float2bfloat16_rn(a);
+          }
           float sp;
           sp_sig100(a, sp, s4[e]);
           float h = sp * post;
@@ -311,8 +342,8 @@ __device__ __forceinline__ void gf_consumer(const GfDims& d, int c,
   }
 }
 
-__global__ void __launch_bounds__(384, 1)
-geometry_fwd_wgf_sweep(const __grid_constant__ GfDims d) {
+template <bool STASH>
+__device__ __forceinline__ void gf_sweep(const GfDims& d) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) &
                                     1023);
@@ -338,18 +369,30 @@ geometry_fwd_wgf_sweep(const __grid_constant__ GfDims d) {
     if (threadIdx.x == 256) gf_producer(d, ring, full, empty);
   } else {
     regs_inc<240>();
-    gf_consumer(d, threadIdx.x >> 7, ring, at, E, RE, full, empty);
+    gf_consumer<STASH>(d, threadIdx.x >> 7, ring, at, E, RE, full, empty);
   }
+}
+
+__global__ void __launch_bounds__(384, 1)
+geometry_fwd_wgf_sweep(const __grid_constant__ GfDims d) {
+  gf_sweep<false>(d);
+}
+
+__global__ void __launch_bounds__(384, 1)
+geometry_fwd_stash_wgf_sweep(const __grid_constant__ GfDims d) {
+  gf_sweep<true>(d);
 }
 
 // Integer arguments: [L, multires, d_embed, n, grid, n_tiles, then per
 // layer ins[L], outs[L], enc[L], f_off[L], r_off[L], r_cols[L], then the
-// last layer's forward slab columns] (ops/geometry_kernel.fwd_wg_plan: the
-// two f32 slab packs' layouts, tc_pack.pack_sweep_f32 and pack_rev_f32).
-// Pointers: [x, out, grad, scratch, forward pack, reverse pack, b[L]].
-// Returns a cudaError_t value; 0 when the launch was accepted.
-extern "C" int geometry_fwd(const int* ia, const unsigned long long* p,
-                            float scale, unsigned long long stream) {
+// last layer's forward slab columns, and for K1-fwd-stash the stash's
+// columns] (ops/geometry_kernel.fwd_wg_plan: the two f32 slab packs'
+// layouts, tc_pack.pack_sweep_f32 and pack_rev_f32).  Pointers: [x, out,
+// grad, scratch, (K1-fwd-stash: the bf16 stash,) forward pack, reverse
+// pack, b[L]].  Returns a cudaError_t value; 0 when the launch was
+// accepted.
+static int gf_launch(const int* ia, const unsigned long long* p,
+                     float scale, unsigned long long stream, bool stash) {
   GfDims d;
   d.L = ia[0];
   d.multires = ia[1];
@@ -369,8 +412,11 @@ extern "C" int geometry_fwd(const int* ia, const unsigned long long* p,
   d.out = (float*)p[1];
   d.grad = (float*)p[2];
   d.scratch = (float*)p[3];
-  d.fpack = (const unsigned char*)p[4];
-  d.rpack = (const unsigned char*)p[5];
+  const int pk = stash ? 5 : 4;     // the packs' pointers
+  d.stash = stash ? (__nv_bfloat16*)p[4] : nullptr;
+  d.fpack = (const unsigned char*)p[pk];
+  d.rpack = (const unsigned char*)p[pk + 1];
+  int cols = 0;
   for (int l = 0; l < L; ++l) {
     const int in = q[l];
     d.outs[l] = q[L + l];
@@ -379,8 +425,10 @@ extern "C" int geometry_fwd(const int* ia, const unsigned long long* p,
     d.r_off[l] = q[4 * L + l];
     const int r_cols = q[5 * L + l];
     d.r_bytes[l] = 2 * r_cols * 128;
-    d.b[l] = (const float*)p[6 + l];
+    d.b[l] = (const float*)p[pk + 2 + l];
+    d.s_off[l] = cols;
     const bool last = l == lL;
+    if (!last) cols += d.outs[l];
     // layer 0 reads the encoding alone, a skip layer [h | enc] in W's own
     // column order, the last layer h alone
     if (in > (l ? 256 : de) || d.outs[l] > (last ? d.last_cols : 256) ||
@@ -391,28 +439,55 @@ extern "C" int geometry_fwd(const int* ia, const unsigned long long* p,
     if (l && in != d.outs[l - 1] + (d.enc[l] ? de : 0))
       return (int)cudaErrorInvalidValue;
   }
+  // the stash's rows hold every hidden layer's columns, no more
+  d.stash_cols = stash ? q[6 * L + 1] : 0;
+  if (stash && d.stash_cols != cols) return (int)cudaErrorInvalidValue;
   d.d_out = d.outs[lL];
   const size_t smem = 1024 + (size_t)FW_NS * GF_STAGE + 64 * 256 * 4 +
                       2 * GF_TILE * GF_EW * 4 + 2 * FW_NS * 8;
+  const void* fn = stash ? (const void*)geometry_fwd_stash_wgf_sweep
+                         : (const void*)geometry_fwd_wgf_sweep;
   cudaError_t e = cudaFuncSetAttribute(
-      geometry_fwd_wgf_sweep, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  geometry_fwd_wgf_sweep<<<grid, 384, smem, (cudaStream_t)stream>>>(d);
+  if (stash)
+    geometry_fwd_stash_wgf_sweep<<<grid, 384, smem, (cudaStream_t)stream>>>(
+        d);
+  else
+    geometry_fwd_wgf_sweep<<<grid, 384, smem, (cudaStream_t)stream>>>(d);
   return (int)cudaGetLastError();
 }
 
-// The sweep's attributes as the device holds them, read after a launch:
+// K1-fwd.
+extern "C" int geometry_fwd(const int* ia, const unsigned long long* p,
+                            float scale, unsigned long long stream) {
+  return gf_launch(ia, p, scale, stream, false);
+}
+
+// K1-fwd-stash: K1-fwd's arguments and the stash (gf_launch).
+extern "C" int geometry_fwd_stash(const int* ia, const unsigned long long* p,
+                                  float scale, unsigned long long stream) {
+  return gf_launch(ia, p, scale, stream, true);
+}
+
+// A sweep's attributes as the device holds them, read after a launch:
 // out[0 .. 2] = registers a thread, dynamic shared memory a block (as the
 // launcher last set it), static shared memory.  Returns a cudaError_t
 // value.
-extern "C" int geometry_fwd_attrs(int* out) {
+static int sweep_attrs(const void* kernel, int* out) {
   cudaFuncAttributes a;
-  const cudaError_t e =
-      cudaFuncGetAttributes(&a, (const void*)geometry_fwd_wgf_sweep);
+  const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
   if (e != cudaSuccess) return (int)e;
   out[0] = a.numRegs;
   out[1] = a.maxDynamicSharedSizeBytes;
   out[2] = (int)a.sharedSizeBytes;
   return 0;
+}
+
+extern "C" int geometry_fwd_attrs(int* out) {
+  return sweep_attrs((const void*)geometry_fwd_wgf_sweep, out);
+}
+
+extern "C" int geometry_fwd_stash_attrs(int* out) {
+  return sweep_attrs((const void*)geometry_fwd_stash_wgf_sweep, out);
 }

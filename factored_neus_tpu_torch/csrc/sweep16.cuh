@@ -5,14 +5,16 @@
 //   ex2_approx, lg2_approx, sp100_sfu, sp_sig100_sfu, sig100_sfu
 //                 softplus(beta=100) and sigma(100 a) on the SFU (K2-bf16,
 //                 K1-fwd-bf16, K1-bwd-bf16)
-//   SwDims, sw_put_fwd, sw_encode_row, sw_slab, sw_layer, sw_enc_frags,
-//   sw_activate, sw_forward
+//   SwDims, SwStash, sw_put_fwd, sw_encode_row, sw_slab, sw_layer,
+//   sw_enc_frags, sw_activate, sw_forward
 //                 the SDF network's forward over a consumer's 64-row tile
 //                 from tc_pack.pack_sweep_bf16's slabs, its output [sdf /
 //                 scale | feature] written: K2-bf16 (sdf_fwd_bf16.cu) and
 //                 K1-fwd-bf16 (geometry_fwd_bf16_wg.cu), which also keeps
-//                 sigma(100 a) of each hidden layer; the same code, so the
-//                 two give the same bits
+//                 sigma(100 a) of each hidden layer, and K1-fwd-stash-bf16
+//                 (the same file), which also stashes each pre-activation
+//                 in bf16 (SwStash); the same code, so they give the same
+//                 bits
 //   rw_narrow_row, rw_feat_frags, rw_narrow_frags, rw_layer0, rw_layer,
 //   rw_activate, rw_last_layer, rw_fwd_slabs
 //                 the radiance MLP's forward over a 64-row tile from
@@ -95,6 +97,14 @@ struct SwDims {
   int outs[SW_MAXL];
   int skip_next[SW_MAXL];    // layer l + 1 reads [h | enc] / sqrt 2
   const float* b[SW_MAXL];
+};
+
+// K1-fwd-stash-bf16's side output: bf16 [n][cols], hidden layer l's
+// pre-activations from column off[l]
+struct SwStash {
+  __nv_bfloat16* p;
+  int cols;
+  int off[SW_MAXL];
 };
 
 // The forward's slabs of one tile into the ring from slab it on; returns
@@ -195,12 +205,17 @@ __device__ __forceinline__ void sw_enc_frags(const float* E, int r0, int t,
 // rounded to bf16: the next layer's A fragments (wgmma.cuh).  SIG: also
 // sigma(100 a) of the f32 pre-activation a, accumulator entries 4q .. 4q
 // + 3 as the float4 sc[128 q] (the thread's own, coalesced over the
-// warpgroup).
-template <bool SKIP, bool SIG>
+// warpgroup).  STASH (K1-fwd-stash-bf16): also a rounded to bf16 (nearest
+// even) at column c < W of the thread's rows' stash rows s0 and s1
+// (nullptr: a row past n), two bytes a store.
+template <bool SKIP, bool SIG, bool STASH = false>
 __device__ __forceinline__ void sw_activate(const float (&acc)[128],
                                             const float* bl, int t,
                                             uint32_t (&a)[16][4],
-                                            float4* sc) {
+                                            float4* sc,
+                                            __nv_bfloat16* s0 = nullptr,
+                                            __nv_bfloat16* s1 = nullptr,
+                                            int W = 0) {
   const float inv_sqrt2 = 0.70710678118654752f;
 #pragma unroll
   for (int q = 0; q < 32; ++q) {
@@ -209,6 +224,11 @@ __device__ __forceinline__ void sw_activate(const float (&acc)[128],
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float pre = acc[4 * q + e] + (e & 1 ? bq.y : bq.x);
+      if (STASH) {
+        const int c = 8 * q + 2 * t + (e & 1);
+        __nv_bfloat16* st = e < 2 ? s0 : s1;
+        if (st && c < W) st[c] = __float2bfloat16_rn(pre);
+      }
       if (SIG)
         sp_sig100_sfu(pre, v[e], s[e]);
       else
@@ -229,15 +249,18 @@ __device__ __forceinline__ void sw_activate(const float (&acc)[128],
 // (sw_activate's order, the thread's own float4s), and the last hidden
 // layer's is sent on to L2 (scr - tid: the warpgroup's) while the last
 // layer's products run, for the reverse sweep that reads it first.
-// Returns the ring slab after the tile's.
-template <bool SIG>
+// With STASH (K1-fwd-stash-bf16), each hidden layer's pre-activations
+// also go to the stash ``st`` (sw_activate).  Returns the ring slab after
+// the tile's.
+template <bool SIG, bool STASH = false>
 __device__ __forceinline__ int sw_forward(const SwDims& d, int it, int row0,
                                           unsigned char* ring, const float* E,
                                           const float* bias, uint64_t* full,
                                           uint64_t* empty, float4* scr,
                                           uint32_t (&a)[16][4],
                                           float (&acc)[128],
-                                          float (&acc8)[4]) {
+                                          float (&acc8)[4],
+                                          const SwStash* st = nullptr) {
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp + g;                 // rows r0 and r0 + 8
@@ -275,10 +298,17 @@ __device__ __forceinline__ int sw_forward(const SwDims& d, int it, int row0,
     if (l < lL) {
       // the next layer's A fragments
       float4* sl = SIG ? scr + l * 32 * 128 : nullptr;
+      __nv_bfloat16 *s0 = nullptr, *s1 = nullptr;
+      if (STASH) {
+        const int row = row0 + r0;
+        __nv_bfloat16* sb = st->p + st->off[l];
+        if (row < d.n) s0 = sb + (size_t)row * st->cols;
+        if (row + 8 < d.n) s1 = sb + (size_t)(row + 8) * st->cols;
+      }
       if (d.skip_next[l])
-        sw_activate<true, SIG>(acc, bl, t, a, sl);
+        sw_activate<true, SIG, STASH>(acc, bl, t, a, sl, s0, s1, d.outs[l]);
       else
-        sw_activate<false, SIG>(acc, bl, t, a, sl);
+        sw_activate<false, SIG, STASH>(acc, bl, t, a, sl, s0, s1, d.outs[l]);
     } else {
       // [sdf / scale | feature]: column c of rows r0, r0 + 8 (acc8:
       // columns 0 .. 7 of a narrowed layer, 256 .. 263 of a full one)

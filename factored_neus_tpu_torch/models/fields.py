@@ -45,7 +45,6 @@ def _on_card(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
-_Pack = Optional[Tuple[torch.Tensor, TP.PackLayout]]
 _Slabs = Optional[Tuple[torch.Tensor, TP.SweepLayout]]
 
 
@@ -53,23 +52,17 @@ class KernelWeights(NamedTuple):
     """kernel_weights' result: the effective weights and biases, and the
     packs the kernels read, each None where it was not built.  Who reads
     which:
-      pack     the SDF network's 3xTF32 mma.sync pack: K1-fwd-stash
-               (under the stash switch)
-      pack16   the SDF network's bf16 mma.sync pack: K1-fwd-stash-bf16
-               (under the stash switch)
-      sweep16  the forward bf16 slab pack: K2-bf16, K1-fwd-bf16,
-               K1-bwd-bf16, K1-bwd-split-bf16 and K1-bwd-stash-bf16 (SDF),
-               K3-fwd-bf16 and K3-bwd-bf16 (radiance)
-      rev16    the reverse bf16 slab pack: K1-fwd-bf16, K1-bwd-bf16,
-               K1-bwd-split-bf16 and K1-bwd-stash-bf16, K3-bwd-bf16
-      sweep32  the forward f32 slab pack: K2, K1-fwd, K1-bwd, K1-bwd-split
-               and K1-bwd-stash (SDF), K3-fwd and K3-bwd (radiance)
-      rev32    the reverse f32 slab pack: K1-fwd, K1-bwd, K1-bwd-split and
-               K1-bwd-stash, K3-bwd"""
+      sweep16  the forward bf16 slab pack: K2-bf16 and every bf16 K1
+               kernel (SDF), K3-fwd-bf16 and K3-bwd-bf16 (radiance)
+      rev16    the reverse bf16 slab pack: every bf16 K1 kernel,
+               K3-bwd-bf16
+      sweep32  the forward f32 slab pack: K2 and every f32 K1 kernel
+               (SDF), K3-fwd and K3-bwd (radiance)
+      rev32    the reverse f32 slab pack: every f32 K1 kernel, K3-bwd
+    (every K1 kernel: K1-fwd, K1-bwd, K1-bwd-split, K1-fwd-stash and
+    K1-bwd-stash, or their bf16 variants)"""
     ws: List[torch.Tensor]
     bs: List[torch.Tensor]
-    pack: _Pack = None         # 3xTF32 (tc_pack.pack_weights)
-    pack16: _Pack = None       # bf16 (tc_pack.pack_weights_bf16)
     sweep16: _Slabs = None     # the forward bf16 slab pack
     rev16: _Slabs = None       # the reverse bf16 slab pack
     sweep32: _Slabs = None     # the forward f32 slab pack
@@ -126,13 +119,6 @@ class _WNLayers(nn.Module):
         return KernelWeights(ws, bs)
 
 
-def mode_pack(weights: KernelWeights, bf16: bool):
-    """The mma.sync pack of kernel_weights' result that K1-fwd-stash reads
-    in the operand mode: pack16 (bf16), else pack (None where it was not
-    built: geometry_kernel.geometry builds its own where one runs)."""
-    return weights.pack16 if bf16 else weights.pack
-
-
 def sweep_pack(weights: KernelWeights, bf16: bool):
     """The slab pack that K2 (bf16: K2-bf16) reads: sweep32 (sweep16)."""
     return weights.sweep16 if bf16 else weights.sweep32
@@ -140,9 +126,9 @@ def sweep_pack(weights: KernelWeights, bf16: bool):
 
 def bwd_slabs(weights: KernelWeights, bf16: bool):
     """The two slab packs that the operand mode's wgmma kernels read
-    (K1-bwd-bf16 or K3-bwd-bf16: sweep16, rev16; K1-fwd, K1-bwd,
-    K1-bwd-split, K1-bwd-stash or K3-bwd: sweep32, rev32), or None where
-    they were not built."""
+    (every bf16 K1 kernel or K3-bwd-bf16: sweep16, rev16; every f32 K1
+    kernel or K3-bwd: sweep32, rev32), or None where they were not
+    built."""
     if bf16:
         return ((weights.sweep16, weights.rev16)
                 if weights.rev16 is not None else None)
@@ -189,30 +175,22 @@ class SDFNetwork(_WNLayers):
         - sweep32 (sdf_kernel.make_sweep_pack(bf16=False),
           tc_pack.pack_sweep_f32) wherever K2 runs in f32 (``f32``: the
           ladder outside use_pallas_sampling, the localisation sweep, the
-          grid fill; in either operand mode of the core) or K1-fwd does;
+          grid fill; in either operand mode of the core) or K1 does;
         - rev32 (tc_pack.pack_rev_f32; with sweep32
-          geometry_kernel.make_bwd_slabs(bf16=False)) wherever K1-fwd runs
-          (``k1`` in the f32 mode, not through the stash pair:
-          geometry_kernel.wg_forward()), with or without grad (K1-bwd and
-          K1-bwd-split read them too), and under the stash switch with
-          grad (K1-bwd-stash);
+          geometry_kernel.make_bwd_slabs(bf16=False)) wherever K1 runs in
+          f32 (``k1`` in the f32 mode), with or without grad and under
+          either switch: every f32 K1 kernel reads both;
         - sweep16 (make_sweep_pack, tc_pack.pack_sweep_bf16) for K2-bf16
           (``sweep_bf16``) and, with rev16 (tc_pack.pack_rev_bf16;
-          geometry_kernel.make_bwd_slabs), wherever K1-fwd-bf16 runs
-          (``k1`` in the bf16 mode, not through the stash pair), with or
-          without grad (K1-bwd-bf16 and K1-bwd-split-bf16 read them too),
-          and under the stash switch with grad (K1-bwd-stash-bf16);
-        - pack (tc_pack.pack_weights, 3xTF32 on mma.sync) or, in the bf16
-          mode, pack16 (tc_pack.pack_weights_bf16) only where
-          K1-fwd-stash or K1-fwd-stash-bf16 runs (``k1`` under the stash
-          switch).
+          geometry_kernel.make_bwd_slabs), wherever K1 runs in the bf16
+          mode (``k1`` with ``bf16``), with or without grad and under
+          either switch: every bf16 K1 kernel reads both.
         ``k1`` False: for the sweeps alone (value_sweep, the grid fill)."""
         kw = super().kernel_weights()
         if not _on_card(kw.ws[0]):
             return kw
         ws, cfg = kw.ws, self.cfg
-        slabs = k1 and (GK.wg_forward() or torch.is_grad_enabled())
-        wg16, wg32 = bf16 and slabs, not bf16 and slabs
+        wg16, wg32 = bf16 and k1, not bf16 and k1
         with torch.no_grad():
             if wg32:
                 sweep32, rev32 = GK.make_bwd_slabs(cfg, ws, bf16=False)
@@ -224,10 +202,6 @@ class SDFNetwork(_WNLayers):
                 kw = kw._replace(sweep16=SK.make_sweep_pack(cfg, ws))
             if wg16:
                 kw = kw._replace(rev16=TP.pack_rev_bf16(ws, cfg.d_embed))
-            if k1 and bf16 and not GK.wg_forward():
-                kw = kw._replace(pack16=TP.pack_weights_bf16(ws))
-            elif k1 and not GK.wg_forward():
-                kw = kw._replace(pack=TP.pack_weights(ws))
         return kw
 
     def value_sweep(self, x: torch.Tensor,
@@ -254,12 +228,10 @@ class SDFNetwork(_WNLayers):
                         bf16: bool = False):
         """(sdf [N], feature [N, d_out-1], grad [N, 3]) through K1, in its
         bf16 operand mode when ``bf16``; ``weights``: kernel_weights(bf16),
-        when the caller already has them (K1's pack is built here when
-        theirs has none of the mode's operand type)."""
+        when the caller already has them."""
         weights = weights or self.kernel_weights(bf16, f32=not bf16)
         out, grad = GK.geometry(weights.ws, weights.bs, x, self.cfg,
-                                pack=mode_pack(weights, bf16), bf16=bf16,
-                                slabs=bwd_slabs(weights, bf16))
+                                bf16=bf16, slabs=bwd_slabs(weights, bf16))
         return out[:, 0], out[:, 1:], grad
 
 

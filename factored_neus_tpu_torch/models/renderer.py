@@ -141,9 +141,9 @@ class Stage1Model(nn.Module):
         read the first), K3-fwd's (radiance_kernel.make_fwd_pack, sweep32)
         and, where a backward can follow, K3-bwd's
         (radiance_kernel.make_bwd_slabs(bf16=False), whose first is
-        K3-fwd's).  No mma.sync pack (3xTF32 or bf16) but under the
-        switches of K1's variants.  Built once a step by ``render``, or
-        once a validation image by its caller."""
+        K3-fwd's).  Every K1 kernel, the stash pair included, reads the
+        mode's two slab packs; no mma.sync pack exists.  Built once a step
+        by ``render``, or once a validation image by its caller."""
         return (self.sdf.kernel_weights(bf16, f32=not (bf16 and sweep_bf16),
                                         sweep_bf16=sweep_bf16),
                 self.color.kernel_weights(bf16, f32=not bf16))

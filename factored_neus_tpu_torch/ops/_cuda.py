@@ -12,11 +12,9 @@ Every exported C function has the signature
 ``int fn(const int* iargs, const unsigned long long* ptrs, float scale,
 unsigned long long stream)`` and returns a ``cudaError_t`` value: the
 wrapper raises on anything but 0, so a refused launch never passes
-silently.  Integer arguments are
-``[L, multires, d_embed, ld, skip_mask, n, grid, ins[L], outs[L]]``, then
-the layout of the kernel's weight pack (``tc_pack.layout_iargs``); the
-radiance kernels, which have no skip, take squeeze_out in place of
-skip_mask.  The pointer list is documented beside each C function.
+silently.  The integer arguments (a kernel's launch plan, e.g.
+``geometry_kernel.fwd_wg_plan``'s ``iargs``) and the pointer list are
+documented beside each C function.
 """
 from __future__ import annotations
 
@@ -34,7 +32,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "kernels")
-SOURCES = ("geometry_fwd.cu", "geometry_fwd_wg.cu", "geometry_bwd_wg.cu",
+SOURCES = ("geometry_fwd_wg.cu", "geometry_bwd_wg.cu",
            "geometry_bwd_chains_wg.cu", "geometry_bwd_chains_bf16_wg.cu",
            "geometry_bwd_bf16_wg.cu",
            "geometry_fwd_bf16_wg.cu", "sdf_fwd_wg.cu", "sdf_fwd_bf16.cu",

@@ -1,8 +1,8 @@
 """K1: the fused SDF geometry core and its backward (csrc/geometry_fwd_wg.cu,
 csrc/geometry_bwd_wg.cu; in the bf16 mode csrc/geometry_fwd_bf16_wg.cu,
-csrc/geometry_bwd_bf16_wg.cu; the switch-only variants in
-csrc/geometry_bwd_chains_wg.cu, csrc/geometry_bwd_chains_bf16_wg.cu and
-csrc/geometry_fwd.cu), with their plain PyTorch twins.
+csrc/geometry_bwd_bf16_wg.cu; the switch-only backwards in
+csrc/geometry_bwd_chains_wg.cu and csrc/geometry_bwd_chains_bf16_wg.cu),
+with their plain PyTorch twins.
 
 Counterpart of factored_neus_tpu/ops/pallas_geometry.py
 (sdf_value_grad_feat_pallas).  ``geometry(ws, bs, x, cfg)`` returns
@@ -27,30 +27,26 @@ the JAX package) computes K1-bwd's function with the primal and tangent
 chains as separate half-tile products; its twin is K1-bwd's.  The stash
 switch takes precedence over it, as in the JAX package.
 
-K1-fwd and K1-bwd, the stacked backward, run on Hopper's warpgroup
-``wgmma`` in 3xTF32 (csrc/geometry_fwd_wg.cu, csrc/geometry_bwd_wg.cu, on
-the f32 engine of csrc/wgf.cuh that K3-bwd shares), their weights
-streamed as big and small TF32 slabs (``make_bwd_slabs(cfg, ws,
-bf16=False)``: tc_pack.pack_sweep_f32's for X W and pack_rev_f32's for r
-W, built once a step, once a validation image or once a stage-2/3 run by
-``fields.SDFNetwork.kernel_weights`` wherever K1-fwd runs): K1-fwd is the
-primal forward through all nine layers and the reverse sweep from e0 /
-scale (``geometry_explicit(mm=sweep_mm_f32)`` emulates its arithmetic);
-K1-bwd a stacked sweep that writes each layer's f32 X_l and R_l, then a
-split-K ``wgmma`` pass dW_l = X_l^T R_l and a fixed-order reduce
-(``weight_grad_pass_plain(f32=True)`` is that pass in plain PyTorch,
-``sweep_mm_f32`` the sweep's products).  K2 reads the first of those
-packs too (sdf_kernel).  K1-bwd-split and K1-bwd-stash, which only a
-switch reaches, run on the same engine and read the same two packs
-(csrc/geometry_bwd_chains_wg.cu, ``chains_wg_plan``): tiles of 64 points,
-each chain's 64 rows one product, K1-bwd's pass over images in K1-bwd's
-row order (``geometry_bwd_plain(mm=sweep_mm_f32)`` emulates their
-arithmetic); a launch raises
-without the packs, which ``fields.SDFNetwork.kernel_weights`` builds under
-the split switch (K1-fwd's) and, with grad, under the stash switch.
-K1-fwd-stash alone stays on ``mma.sync`` (csrc/geometry_fwd.cu), on weights
-packed by ``tc_pack.pack_weights``: once a step by kernel_weights under
-the stash switch, or here when the caller gives no pack.
+Every K1 kernel runs on Hopper's warpgroup ``wgmma`` and reads the two
+slab packs of its operand mode, ``make_bwd_slabs(cfg, ws, bf16)``, built
+once a step, once a validation image or once a stage-2/3 run by
+``fields.SDFNetwork.kernel_weights`` wherever K1 runs; a launch raises
+without them, before any CUDA call.  In f32 they run in 3xTF32
+(csrc/wgf.cuh's engine, which K3-bwd shares) on the TF32 big and small
+slabs of tc_pack.pack_sweep_f32 (X W) and pack_rev_f32 (r W): K1-fwd is
+the primal forward through all nine layers and the reverse sweep from e0
+/ scale (``geometry_explicit(mm=sweep_mm_f32)`` emulates its arithmetic),
+and K1-fwd-stash the same sweep with the bf16 stash stored from its
+hidden layers' epilogues (``fwd_wg_plan(stash=True)``), so its out and
+grad are K1-fwd's bit for bit; K1-bwd a stacked sweep that writes each
+layer's f32 X_l and R_l, then a split-K ``wgmma`` pass dW_l = X_l^T R_l
+and a fixed-order reduce (``weight_grad_pass_plain(f32=True)`` is that
+pass in plain PyTorch, ``sweep_mm_f32`` the sweep's products).  K2 reads
+the first of those packs too (sdf_kernel).  K1-bwd-split and
+K1-bwd-stash (csrc/geometry_bwd_chains_wg.cu, ``chains_wg_plan``): tiles
+of 64 points, each chain's 64 rows one product, K1-bwd's pass over images
+in K1-bwd's row order (``geometry_bwd_plain(mm=sweep_mm_f32)`` emulates
+their arithmetic).
 
 The bf16 operand mode (``bf16=True``; the stage-1 renderer's
 ``RendererConfig.core_act_bf16``, ``FNEUS_CORE_ACT_BF16``, as in the JAX
@@ -60,26 +56,21 @@ primal and tangent rows, the weight gradients and the input cotangents)
 takes both operands rounded to bf16 and sums in f32; everything
 elementwise stays f32.  Each entry point has a bf16 twin kernel
 (K1-fwd-bf16, K1-bwd-bf16, K1-bwd-split-bf16, K1-fwd-stash-bf16,
-K1-bwd-stash-bf16).  K1-fwd-bf16 and K1-bwd-bf16, the default, run on
-Hopper's warpgroup ``wgmma`` from the two bf16 slab packs of
-``make_bwd_slabs`` (tc_pack.pack_sweep_bf16's for X W and pack_rev_bf16's
-for r W), built once a step or a validation image, with or without grad,
-by ``fields.SDFNetwork.kernel_weights(bf16=True)`` wherever K1-fwd-bf16
-runs: K1-fwd-bf16 (csrc/geometry_fwd_bf16_wg.cu) is K2-bf16's forward
-with the full output, sigma(100 a) kept in an f32 scratch, and the reverse
-sweep from e0 / scale (``fwd_wg16_plan`` is its launch); K1-bwd-bf16
+K1-bwd-stash-bf16), each on the two bf16 slab packs (tc_pack.pack_sweep_bf16's
+for X W and pack_rev_bf16's for r W): K1-fwd-bf16
+(csrc/geometry_fwd_bf16_wg.cu) is K2-bf16's forward with the full output,
+sigma(100 a) kept in an f32 scratch, and the reverse sweep from e0 /
+scale (``fwd_wg16_plan`` is its launch), K1-fwd-stash-bf16 the same sweep
+with the bf16 stash stored from its hidden layers' epilogues; K1-bwd-bf16
 (csrc/geometry_bwd_bf16_wg.cu) a stacked sweep which writes each layer's
 bf16 X_l and R_l, then a split-K ``wgmma`` pass dW_l = X_l^T R_l and a
 fixed-order reduce (``weight_grad_pass_plain`` is that pass in plain
 PyTorch).  K1-bwd-split-bf16 and K1-bwd-stash-bf16
-(csrc/geometry_bwd_chains_bf16_wg.cu, ``chains_wg16_plan``) read the same
-two packs: tiles of 64 points, in the forward a consumer warpgroup a
-chain, each chain's 64 rows one product (the stash's tangent forward
-alone, beside the softplus of K1-fwd-stash-bf16's bf16 stash), then
-K1-bwd-bf16's stacked reverse, pass and reduce.  K1-fwd-stash-bf16 alone
-stays on bf16 ``mma.sync``, from
-``tc_pack.pack_weights_bf16``, which kernel_weights builds only under the
-stash switch.  The plain twins compute the same products explicitly
+(csrc/geometry_bwd_chains_bf16_wg.cu, ``chains_wg16_plan``): tiles of 64
+points, in the forward a consumer warpgroup a chain, each chain's 64 rows
+one product (the stash's tangent forward alone, beside the softplus of
+K1-fwd-stash-bf16's bf16 stash), then K1-bwd-bf16's stacked reverse,
+pass and reduce.  The plain twins compute the same products explicitly
 (``geometry_plain(bf16=True)``, ``geometry_bwd_plain(bf16=True)``):
 autograd through a rounding would run the backward's products on
 unrounded cotangents.  On a CPU tensor the autograd Function runs them.
@@ -97,18 +88,16 @@ from . import _cuda
 from . import tc_pack as TP
 from .mlp import softplus_beta
 from .embedder import positional_encoding
-from .sdf_kernel import (SW_ENC_STRIDE, TILE, WG_ROWS, layer_dims,
+from .sdf_kernel import (SW_ENC_STRIDE, WG_ROWS, layer_dims,
                          make_sweep_pack, sdf_forward_plain, skip_layers,
                          sweep_iargs, sweep_smem)
-from .tc_pack import (PackLayout, check_layout, layout_iargs, make_pack,
-                      mm_bf16, round8)
-from .tc_pack import pack_for as _pack_for
+from .tc_pack import mm_bf16
 
 K1_FWD = _cuda.CudaKernel("geometry_fwd", "geometry_fwd_wg.cu",
                           "geometry_fwd")
 K1_BWD = _cuda.CudaKernel("geometry_bwd", "geometry_bwd_wg.cu",
                           "geometry_bwd")
-K1_FWD_STASH = _cuda.CudaKernel("geometry_fwd_stash", "geometry_fwd.cu",
+K1_FWD_STASH = _cuda.CudaKernel("geometry_fwd_stash", "geometry_fwd_wg.cu",
                                 "geometry_fwd_stash")
 K1_BWD_STASH = _cuda.CudaKernel("geometry_bwd_stash",
                                 "geometry_bwd_chains_wg.cu",
@@ -122,7 +111,7 @@ K1_FWD_BF16 = _cuda.CudaKernel("geometry_fwd_bf16",
 K1_BWD_BF16 = _cuda.CudaKernel("geometry_bwd_bf16",
                                "geometry_bwd_bf16_wg.cu", "geometry_bwd_bf16")
 K1_FWD_STASH_BF16 = _cuda.CudaKernel("geometry_fwd_stash_bf16",
-                                     "geometry_fwd.cu",
+                                     "geometry_fwd_bf16_wg.cu",
                                      "geometry_fwd_stash_bf16")
 K1_BWD_STASH_BF16 = _cuda.CudaKernel("geometry_bwd_stash_bf16",
                                      "geometry_bwd_chains_bf16_wg.cu",
@@ -423,51 +412,9 @@ def geometry_bwd_stash_plain(ws: Sequence[torch.Tensor], x: torch.Tensor,
                               stash)
 
 
-# widest layer whose tiles, weight ring and weight-gradient chunk fit in
-# K1-bwd's shared memory (227 KB): the full-width SDF's 257
-MAX_WIDTH = 257
-
-
-def kernel_iargs(cfg, ws, n: int, grid: int, lay: PackLayout
-                 ) -> Tuple[List[int], int]:
-    """Integer arguments of the K1 kernels (tc_dims_from_args) and the
-    activation row stride ld: the widest layer rounded up to 8, plus 4."""
-    ins, outs, skip_mask = layer_dims(cfg, ws)
-    if max(ins + outs) > MAX_WIDTH:
-        raise ValueError(f"K1 kernels take widths <= {MAX_WIDTH}")
-    check_layout(lay, ins, outs)
-    ld = round8(max(ins + outs)) + 4
-    return [len(ws), cfg.multires, cfg.d_embed, ld, skip_mask, n, grid,
-            *ins, *outs, *layout_iargs(lay)], ld
-
-
 def stash_columns(ws: Sequence[torch.Tensor]) -> int:
     """Width of a stash row: the hidden layers' widths summed."""
     return sum(int(w.shape[0]) for w in ws[:-1])
-
-
-def _launch_forward(entry, cfg, x, ws, bs, with_stash: bool, pack=None,
-                    bf16: bool = False):
-    kernel = KERNELS[entry, bf16]
-    dev = x.device
-    x = x.detach().contiguous()
-    bs = [b.detach().contiguous() for b in bs]
-    pack, lay = _pack_for(kernel, ws, pack, bf16)
-    _cuda.check_cuda_tensors(kernel.name, [x, pack, *bs])
-    n, L = x.shape[0], len(ws)
-    out = torch.empty(n, ws[-1].shape[0], device=dev, dtype=torch.float32)
-    grad = torch.empty(n, 3, device=dev, dtype=torch.float32)
-    stash = (torch.empty(n, stash_columns(ws), device=dev,
-                         dtype=torch.bfloat16) if with_stash else None)
-    if n > 0:
-        grid = min(math.ceil(n / TILE), _cuda.sm_count(dev))
-        iargs, ld = kernel_iargs(cfg, ws, n, grid, lay)
-        scratch = torch.empty(grid * L * TILE * ld, device=dev,
-                              dtype=torch.float32)
-        side = [stash] if with_stash else []
-        kernel.launch(iargs, [x, out, grad, scratch, *side, pack, *bs],
-                      cfg.scale, dev)
-    return out, grad, stash
 
 
 def launch_forward(cfg, x, ws, bs, pack=None, bf16: bool = False
@@ -475,14 +422,15 @@ def launch_forward(cfg, x, ws, bs, pack=None, bf16: bool = False
     """K1-fwd (bf16: K1-fwd-bf16): (out [N, d_out], grad [N, 3]).
     ``pack``: make_bwd_slabs(cfg, ws, bf16), the two slab packs the kernel
     reads (it raises without them)."""
-    return _launch_forward_wg(cfg, x, ws, bs, pack, bf16)
+    return _launch_forward_wg(cfg, x, ws, bs, pack, bf16)[:2]
 
 
-def launch_forward_stash(cfg, x, ws, bs, pack=None, bf16: bool = False
+def launch_forward_stash(cfg, x, ws, bs, slabs=None, bf16: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1-fwd-stash (bf16: K1-fwd-stash-bf16): (out, grad, bf16 stash
-    [N, stash_columns(ws)])."""
-    return _launch_forward("fwd_stash", cfg, x, ws, bs, True, pack, bf16)
+    [N, stash_columns(ws)]).  ``slabs``: make_bwd_slabs(cfg, ws, bf16), the
+    two slab packs the kernel reads (it raises without them)."""
+    return _launch_forward_wg(cfg, x, ws, bs, slabs, bf16, stash=True)
 
 
 # K1-bwd-bf16 (csrc/geometry_bwd_bf16_wg.cu): a consumer warpgroup's tile
@@ -503,13 +451,6 @@ def make_bwd_slabs(cfg, ws: Sequence[torch.Tensor], bf16: bool = True):
     halves)."""
     rev = TP.pack_rev_bf16 if bf16 else TP.pack_rev_f32
     return make_sweep_pack(cfg, ws, bf16), rev(ws, cfg.d_embed)
-
-
-def wg_forward(stash: Optional[bool] = None) -> bool:
-    """Whether geometry takes its f32 forward through K1-fwd, which reads
-    make_bwd_slabs(bf16=False)'s packs: not through the stash pair
-    (``stash``, default STASH_BWD)."""
-    return not (STASH_BWD if stash is None else stash)
 
 
 # K1-bwd (csrc/geometry_bwd_wg.cu): a weight-gradient slot row (FW_SN), the
@@ -566,58 +507,66 @@ WGF_FWD_POINTS = 64
 WGF_FWD_SMEM = 1024 + 2 * 67584 + 65536 + 2 * 64 * 48 * 4 + 32
 
 
-def fwd_wg_plan(cfg, ws, n: int, slabs, sms: int) -> dict:
-    """K1-fwd's launch: its integer arguments (``iargs``,
-    geometry_fwd_wg.cu) and the sizes of what the wrapper allocates: tiles
-    of WGF_FWD_POINTS points, one persistent block a tile up to one a SM,
-    each with its f32 scratch of sigma(100 a) (``scratch_floats``).
-    Raises unless ``slabs`` holds make_bwd_slabs(bf16=False)'s layouts for
-    ws."""
+def fwd_wg_plan(cfg, ws, n: int, slabs, sms: int,
+                stash: bool = False) -> dict:
+    """K1-fwd's launch (``stash``: K1-fwd-stash's): its integer arguments
+    (``iargs``, geometry_fwd_wg.cu; K1-fwd-stash's end with the stash's
+    columns, ``stash_columns``) and the sizes of what the wrapper
+    allocates: tiles of WGF_FWD_POINTS points, one persistent block a tile
+    up to one a SM, each with its f32 scratch of sigma(100 a)
+    (``scratch_floats``).  Raises unless ``slabs`` holds
+    make_bwd_slabs(bf16=False)'s layouts for ws."""
+    name = "K1-fwd-stash" if stash else "K1-fwd"
     ins, outs, _ = layer_dims(cfg, ws)
     (_, flay), (_, rlay) = slabs
     if getattr(flay, "operand", None) != "wgmma-f32" or \
             getattr(rlay, "operand", None) != "wgmma-f32-rev":
-        raise ValueError("K1-fwd multiplies on wgmma: it takes "
-                         "make_bwd_slabs(bf16=False)'s two slab packs")
+        raise ValueError(f"{name} multiplies on wgmma: it takes "
+                         f"make_bwd_slabs(bf16=False)'s two slab packs")
     if flay != TP.sweep_layout_f32(ins, outs, skip_layers(cfg, len(ws)),
                                    cfg.d_embed) or \
             rlay != TP.rev_layout_f32(ins, outs, cfg.d_embed):
-        raise ValueError("K1-fwd: the slab packs' layouts do not match the "
-                         "network's widths")
+        raise ValueError(f"{name}: the slab packs' layouts do not match "
+                         f"the network's widths")
     L = len(ws)
     tiles = -(-n // WGF_FWD_POINTS)
     grid = min(tiles, sms)
+    cols = stash_columns(ws) if stash else 0
     iargs = [L, cfg.multires, cfg.d_embed, n, grid, tiles, *ins, *outs,
              *flay.enc, *flay.off, *rlay.off, *rlay.cols, flay.cols[-1]]
-    return {"iargs": iargs, "grid": grid, "tiles": tiles,
-            "sweep_smem": WGF_FWD_SMEM,
-            "scratch_floats": grid * (L - 1) * 16 * 256 * 4}
+    return {"iargs": iargs + ([cols] if stash else []), "grid": grid,
+            "tiles": tiles, "sweep_smem": WGF_FWD_SMEM,
+            "scratch_floats": grid * (L - 1) * 16 * 256 * 4,
+            "stash_columns": cols}
 
 
-def fwd_wg16_plan(cfg, ws, n: int, slabs, sms: int) -> dict:
-    """K1-fwd-bf16's launch: its integer arguments (``iargs``,
-    geometry_fwd_bf16_wg.cu: K2-bf16's for the forward pack,
-    sdf_kernel.sweep_iargs, then the reverse pack's layer offsets and slab
-    widths) and the sizes of what the wrapper allocates.  Tiles of
-    sdf_kernel.WG_ROWS points (K2-bf16's), two consumer warpgroups a block
-    when there are
-    more tiles than SMs, else one; one persistent block a pass up to one a
-    SM (``grid``, ``nc``, ``n_pass``: block b takes passes b, b + grid,
-    ..., consumer w of pass p tile nc p + w), each consumer with its f32
-    scratch of sigma(100 a) (``scratch_floats``).  Raises unless ``slabs``
-    holds make_bwd_slabs(bf16=True)'s layouts for ws, the forward pack's
-    last layer at full width."""
+def fwd_wg16_plan(cfg, ws, n: int, slabs, sms: int,
+                  stash: bool = False) -> dict:
+    """K1-fwd-bf16's launch (``stash``: K1-fwd-stash-bf16's): its integer
+    arguments (``iargs``, geometry_fwd_bf16_wg.cu: K2-bf16's for the
+    forward pack, sdf_kernel.sweep_iargs, then the reverse pack's layer
+    offsets and slab widths; K1-fwd-stash-bf16's then the stash's columns,
+    ``stash_columns``) and the sizes of what the wrapper allocates.  Tiles
+    of sdf_kernel.WG_ROWS points (K2-bf16's), two consumer warpgroups a
+    block when there are more tiles than SMs, else one; one persistent
+    block a pass up to one a SM (``grid``, ``nc``, ``n_pass``: block b
+    takes passes b, b + grid, ..., consumer w of pass p tile nc p + w),
+    each consumer with its f32 scratch of sigma(100 a)
+    (``scratch_floats``).  Raises unless ``slabs`` holds
+    make_bwd_slabs(bf16=True)'s layouts for ws, the forward pack's last
+    layer at full width."""
+    name = "K1-fwd-stash-bf16" if stash else "K1-fwd-bf16"
     ins, outs, _ = layer_dims(cfg, ws)
     (_, flay), (_, rlay) = slabs
     if getattr(flay, "operand", None) != "wgmma-bf16" or \
             getattr(rlay, "operand", None) != "wgmma-bf16-rev":
-        raise ValueError("K1-fwd-bf16 multiplies on wgmma: it takes "
-                         "make_bwd_slabs(bf16=True)'s two slab packs")
+        raise ValueError(f"{name} multiplies on wgmma: it takes "
+                         f"make_bwd_slabs(bf16=True)'s two slab packs")
     if flay != TP.sweep_layout(ins, outs, skip_layers(cfg, len(ws)),
                                cfg.d_embed) or \
             rlay != TP.rev_layout(ins, outs, cfg.d_embed):
-        raise ValueError("K1-fwd-bf16: the slab packs' layouts do not match "
-                         "the network's widths")
+        raise ValueError(f"{name}: the slab packs' layouts do not match "
+                         f"the network's widths")
     iargs, grid = sweep_iargs(cfg, ws, n, flay, sms)
     L, nc, n_pass = len(ws), iargs[4], iargs[6]
     # shared memory a block (the source's count): K2-bf16's and the
@@ -625,18 +574,22 @@ def fwd_wg16_plan(cfg, ws, n: int, slabs, sms: int) -> dict:
     ns, smem = sweep_smem(L, nc, TP.SLAB_ROW * max(flay.cols),
                           nc * WG_ROWS * SW_ENC_STRIDE * 4)
     if ns < max(flay.nslab):
-        raise ValueError("K1-fwd-bf16: a layer's slabs do not fit in the "
-                         "ring")
-    return {"iargs": iargs + [*rlay.off, *rlay.cols], "grid": grid,
+        raise ValueError(f"{name}: a layer's slabs do not fit in the ring")
+    cols = stash_columns(ws) if stash else 0
+    return {"iargs": iargs + [*rlay.off, *rlay.cols]
+            + ([cols] if stash else []), "grid": grid,
             "nc": nc, "n_pass": n_pass, "tiles": -(-n // WG_ROWS),
             "sweep_smem": smem,
-            "scratch_floats": grid * nc * (L - 1) * 32 * 128 * 4}
+            "scratch_floats": grid * nc * (L - 1) * 32 * 128 * 4,
+            "stash_columns": cols}
 
 
-def _launch_forward_wg(cfg, x, ws, bs, slabs, bf16: bool = False):
+def _launch_forward_wg(cfg, x, ws, bs, slabs, bf16: bool = False,
+                       stash: bool = False):
     """K1-fwd-bf16 (``bf16``) or K1-fwd on make_bwd_slabs' packs of the
-    mode; raises without them, before any CUDA call."""
-    kernel = KERNELS["fwd", bf16]
+    mode, or with ``stash`` their stash variants: (out, grad, stash or
+    None).  Raises without the packs before any CUDA call."""
+    kernel = KERNELS["fwd_stash" if stash else "fwd", bf16]
     dev = x.device
     if slabs is None:
         raise ValueError(f"{kernel.name} reads make_bwd_slabs(bf16={bf16})'s "
@@ -647,20 +600,24 @@ def _launch_forward_wg(cfg, x, ws, bs, slabs, bf16: bool = False):
         raise ValueError(f"{kernel.name} multiplies on {want} slabs: it "
                          f"takes no other pack")
     (fp, _), (rp, _) = slabs
+    n = x.shape[0]
+    st = torch.empty(n, stash_columns(ws), device=dev,
+                     dtype=torch.bfloat16) if stash else None
     x = x.detach().contiguous()
     bs = [b.detach().contiguous() for b in bs]
     _cuda.check_cuda_tensors(kernel.name, [x, fp, rp, *bs])
-    n = x.shape[0]
     out = torch.empty(n, ws[-1].shape[0], device=dev, dtype=torch.float32)
     grad = torch.empty(n, 3, device=dev, dtype=torch.float32)
     if n > 0:
         plan = (fwd_wg16_plan if bf16 else fwd_wg_plan)(
-            cfg, ws, n, slabs, _cuda.sm_count(dev))
+            cfg, ws, n, slabs, _cuda.sm_count(dev), stash)
         scratch = torch.empty(plan["scratch_floats"], device=dev,
                               dtype=torch.float32)
-        kernel.launch(plan["iargs"], [x, out, grad, scratch, fp, rp, *bs],
+        side = [st] if stash else []
+        kernel.launch(plan["iargs"],
+                      [x, out, grad, scratch, *side, fp, rp, *bs],
                       cfg.scale, dev)
-    return out, grad
+    return out, grad, st
 
 
 def bwd_wg_plan(cfg, ws, n: int, slabs, sms: int) -> dict:
@@ -979,16 +936,15 @@ class GeometryFn(torch.autograd.Function):
 class GeometryStashFn(torch.autograd.Function):
     """(x, *ws, *bs) -> (out, grad) through K1-fwd-stash, which also keeps
     the bf16 stash for the backward through K1-bwd-stash (bf16: their bf16
-    kernels); on a CPU tensor through their twins (``pack`` None there).
-    ``pack``: make_pack(ws, bf16), K1-fwd-stash's; ``slabs``:
-    make_bwd_slabs(cfg, ws, bf16), K1-bwd-stash's."""
+    kernels); on a CPU tensor through their twins (``slabs`` None there).
+    ``slabs``: make_bwd_slabs(cfg, ws, bf16), which both read."""
 
     @staticmethod
-    def forward(ctx, cfg, bf16, pack, slabs, x, *params):
+    def forward(ctx, cfg, bf16, slabs, x, *params):
         L = len(params) // 2
         ws, bs = params[:L], params[L:]
         if x.is_cuda:
-            out, grad, stash = launch_forward_stash(cfg, x, ws, bs, pack,
+            out, grad, stash = launch_forward_stash(cfg, x, ws, bs, slabs,
                                                     bf16)
         else:
             out, grad, stash = geometry_fwd_stash_plain(ws, bs, x, cfg, bf16)
@@ -1007,37 +963,30 @@ class GeometryStashFn(torch.autograd.Function):
             ct_x, dws, dbs = geometry_bwd_stash_plain(ws, x, stash, ct_out,
                                                       ct_grad, ctx.cfg,
                                                       ctx.bf16)
-        return (None, None, None, None, ct_x, *dws, *dbs)
+        return (None, None, None, ct_x, *dws, *dbs)
 
 
 def geometry(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
              x: torch.Tensor, cfg, stash: Optional[bool] = None,
-             stacked: Optional[bool] = None,
-             pack: Optional[Tuple[torch.Tensor, PackLayout]] = None,
-             bf16: bool = False, slabs=None
+             stacked: Optional[bool] = None, bf16: bool = False, slabs=None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [N, d_out], grad [N, 3]), differentiable in x, ws and bs;
     through the HBM-stash pair when ``stash`` (default STASH_BWD), else
     through K1-fwd with the backward through K1-bwd when ``stacked``
     (default STACKED_BWD) and K1-bwd-split when not; ``bf16``: in the bf16
     operand mode, each through its bf16 kernel.  ``slabs``:
-    make_bwd_slabs(cfg, ws, bf16), which every kernel but K1-fwd-stash
-    reads (on a CUDA tensor it raises without them unless the stash pair
-    runs, and a backward through K1-bwd-stash raises without them).
-    ``pack``: make_pack(ws, bf16), which K1-fwd-stash reads, when the
-    caller already has it (on a CUDA tensor; built here if not)."""
+    make_bwd_slabs(cfg, ws, bf16), which every K1 kernel reads (on a CUDA
+    tensor it raises without them)."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"geometry: unsupported device {x.device}")
     stash = STASH_BWD if stash is None else stash
     stacked = STACKED_BWD if stacked is None else bool(stacked)
+    if x.is_cuda and slabs is None:
+        name = KERNELS["fwd_stash" if stash else "fwd", bf16].name
+        raise ValueError(f"geometry: {name} reads make_bwd_slabs' packs "
+                         f"(slabs=)")
     if stash:
-        if x.is_cuda and pack is None:
-            with torch.no_grad():
-                pack = make_pack(ws, bf16)
-        return GeometryStashFn.apply(cfg, bf16, pack, slabs, x, *ws, *bs)
+        return GeometryStashFn.apply(cfg, bf16, slabs, x, *ws, *bs)
     if x.is_cuda or bf16:
-        if x.is_cuda and slabs is None:
-            raise ValueError(f"geometry: {KERNELS['fwd', bf16].name} reads "
-                             f"make_bwd_slabs' packs (slabs=)")
         return GeometryFn.apply(cfg, stacked, bf16, slabs, x, *ws, *bs)
     return geometry_plain(ws, bs, x, cfg)

@@ -640,7 +640,7 @@ class RadianceFn(torch.autograd.Function):
 
 def radiance(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor], cfg,
              pts, normals, dirs, feat,
-             pack: Optional[Tuple[torch.Tensor, TP.PackLayout]] = None,
+             pack: Optional[Tuple[torch.Tensor, TP.SweepLayout]] = None,
              bf16: bool = False, slabs=None) -> torch.Tensor:
     """rgb [N, d_out], differentiable in every input, ws and bs: K3 on a
     CUDA tensor, the plain twin on a CPU tensor; ``bf16``: in the bf16

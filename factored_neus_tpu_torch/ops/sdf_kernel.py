@@ -53,7 +53,6 @@ SDF_FWD_BF16 = _cuda.CudaKernel("sdf_fwd_bf16", "sdf_fwd_bf16.cu",
                                 "sdf_fwd_bf16")
 # the kernel of each operand mode (bf16 or not)
 KERNELS = {False: SDF_FWD, True: SDF_FWD_BF16}
-TILE = TP.TILE
 ENC_LD = 64               # widest positional encoding (TC_MAX_ENC)
 MAX_WIDTH = 288           # widest layer a tensor-core product covers
 WG_ROWS = 64              # rows of a K2 or K2-bf16 warpgroup's tile
@@ -137,9 +136,9 @@ def sweep_iargs(cfg, ws, n: int, lay, sms: int) -> Tuple[List[int], int]:
     with a wider last layer (the full network's pack, read narrowed: the
     first 8 columns of each slab of its last layer)."""
     ins, outs, _ = layer_dims(cfg, ws)
-    if not isinstance(lay, TP.SweepLayout):
+    if getattr(lay, "operand", None) != "wgmma-bf16":
         raise ValueError(f"K2-bf16 multiplies on wgmma: it takes no "
-                         f"{lay.operand} pack")
+                         f"{getattr(lay, 'operand', None)} pack")
     want = TP.sweep_layout(ins, outs, skip_layers(cfg, len(ws)),
                            cfg.d_embed)
     if (lay.enc, lay.nslab, lay.off, lay.cols[:-1]) != (

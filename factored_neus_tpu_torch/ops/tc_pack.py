@@ -1,40 +1,30 @@
 """The weight packs and the arithmetic of the tensor-core kernels, and who
-reads which:
+reads which (every kernel multiplies on Hopper's warpgroup ``wgmma``):
 
-  pack_weights         3xTF32 on ``mma.sync`` (csrc/tc_mma.cuh): the K1
-                       variants that only a switch reaches (K1-bwd-split,
-                       the stash pair), built by
-                       fields.SDFNetwork.kernel_weights under those
-                       switches alone (``make_pack``, ``pack_for``)
-  pack_weights_bf16    bf16 ``mma.sync``: K1-fwd-bf16, K3-fwd-bf16 and the
-                       switch-only K1 variants in bf16
-  pack_sweep_bf16      K2-bf16 (csrc/sdf_fwd_bf16.cu, wgmma) and the forward
-                       of K1-bwd-bf16 (csrc/geometry_bwd_bf16_wg.cu); with
-                       pack_rev_bf16, its reverse
-  pack_rad_sweep_bf16  K3-bwd-bf16 (csrc/radiance_bwd_bf16_wg.cu), with
-                       pack_rad_rev_bf16 (layer 0's feature rows first, its
-                       33 narrow rows in a slab of their own)
-  pack_sweep_f32       K2, K1-fwd and K1-bwd (csrc/sdf_fwd_wg.cu,
-                       geometry_fwd_wg.cu, geometry_bwd_wg.cu: 3xTF32 on
-                       wgmma, csrc/wgf.cuh); with pack_rev_f32, K1's
-                       reverse
+  pack_sweep_bf16      K2-bf16 (csrc/sdf_fwd_bf16.cu) and the forward of
+                       every bf16 K1 kernel (csrc/geometry_fwd_bf16_wg.cu,
+                       geometry_bwd_bf16_wg.cu,
+                       geometry_bwd_chains_bf16_wg.cu); with pack_rev_bf16,
+                       their reverse
+  pack_rad_sweep_bf16  K3-fwd-bf16 and K3-bwd-bf16
+                       (csrc/radiance_fwd_bf16_wg.cu,
+                       radiance_bwd_bf16_wg.cu), with pack_rad_rev_bf16
+                       (layer 0's feature rows first, its 33 narrow rows in
+                       a slab of their own)
+  pack_sweep_f32       K2 and every f32 K1 kernel (csrc/sdf_fwd_wg.cu,
+                       geometry_fwd_wg.cu, geometry_bwd_wg.cu,
+                       geometry_bwd_chains_wg.cu: 3xTF32 on wgmma,
+                       csrc/wgf.cuh); with pack_rev_f32, K1's reverse
   pack_rad_sweep_f32   K3-fwd and K3-bwd (csrc/radiance_fwd_wg.cu,
                        radiance_bwd_wg.cu); with pack_rad_rev_f32, K3-bwd's
                        reverse
 
-``pack_weights`` lays every layer's weight out once in the form the
-mma.sync kernels stage into shared memory, already split into TF32 big
-and small halves; ``pack_weights_bf16`` lays them out rounded to bf16, two
-k-rows to a 32-bit word.  A bf16 slab pack cuts each layer's bf16 W^T (the
-reverse packs: W) into slabs of 64 k, each slab the exact shared-memory
-image its wgmma B descriptor reads (csrc/wgmma.cuh).  The f32 slab packs
-hold each weight as TF32 big and small halves, k permuted by
-``tf32_slot``, in slabs of 32 k.  ``layout_iargs`` is the layout as the
-mma.sync kernels are told it, and ``smem_bytes`` mirrors their
-shared-memory count (tc_dims_from_args and tc_smem_bytes), so a network a
-kernel cannot hold is refused before any launch.  ``mm_3xtf32`` and
-``mm_bf16`` emulate the kernels' product arithmetic in plain PyTorch for
-the CPU tests.
+A bf16 slab pack cuts each layer's bf16 W^T (the reverse packs: W) into
+slabs of 64 k, each slab the exact shared-memory image its wgmma B
+descriptor reads (csrc/wgmma.cuh).  The f32 slab packs hold each weight
+as TF32 big and small halves, k permuted by ``tf32_slot``, in slabs of 32
+k.  ``mm_3xtf32`` and ``mm_bf16`` emulate the kernels' product arithmetic in
+plain PyTorch for the CPU tests.
 """
 from __future__ import annotations
 
@@ -44,9 +34,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-TILE = 64                  # rows of a tile (TC_TILE)
-RING_ROWS = 16             # weight rows per ring stage (TC_KS)
-SMEM_MAX = 232448          # shared memory a block may use (TC_SMEM_MAX)
+SMEM_MAX = 232448          # shared memory a block may use
 
 
 TF32_MASK = -8192          # 0xffffe000: sign, exponent, 10 mantissa bits
@@ -80,7 +68,7 @@ def _toward_zero(t: torch.Tensor) -> torch.Tensor:
 
 def _split(x: torch.Tensor, how: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """(big, small) of float32 x: big rounded to TF32 (``round``, the
-    packer's and tc_mma.cuh's split) or its 13 low mantissa bits dropped
+    f32 slab packers' split) or its 13 low mantissa bits dropped
     (``trunc``: the tensor core's own reading of an f32 operand in shared
     memory, with small = x - big made beside it); small exact in f32."""
     big = tf32_round(x) if how == "round" else tf32_truncate(x)
@@ -132,226 +120,6 @@ def mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     float32, so only the sum's order and rounding differ from the
     kernels'."""
     return bf16_round(a) @ bf16_round(b)
-
-
-def round8(n: int) -> int:
-    return -(-n // 8) * 8
-
-
-def round16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
-def staged_stride(width: int) -> int:
-    """Row stride (floats) of a packed weight block of ``width`` columns:
-    the width rounded up to 8, then up to 8 (mod 32), so that a B fragment
-    (4 rows x 8 columns) read from a slice staged with this stride hits 32
-    different shared-memory banks."""
-    s = round8(width)
-    return s + (8 - s) % 32
-
-
-class PackLayout(NamedTuple):
-    """Offsets and row strides (32-bit words) of each layer's two blocks in
-    one half of the pack: W^T [round8(in)][fwd_stride] for x W^T and W
-    [round8(out)][rev_stride] for r W; ``half`` words per half.
-    ``operand``: "3xtf32" (float32 words; a big and a small half) or
-    "bf16" (one half; a block's k rows rounded up to 16 and paired into
-    words, bf16_pair_rows)."""
-    fwd_off: List[int]
-    fwd_stride: List[int]
-    rev_off: List[int]
-    rev_stride: List[int]
-    half: int
-    operand: str = "3xtf32"
-
-
-OPERANDS = ("3xtf32", "bf16")
-
-
-def block_rows(k: int, operand: str) -> int:
-    """Word rows of a packed block of k weight rows (the product's depth):
-    k rounded up to 8 (3xTF32), or up to 16 and two to a word (bf16)."""
-    return round8(k) if operand == "3xtf32" else round16(k) // 2
-
-
-def pack_layout(ins: Sequence[int], outs: Sequence[int],
-                operand: str = "3xtf32") -> PackLayout:
-    if operand not in OPERANDS:
-        raise ValueError(f"unknown operand type {operand!r}")
-    fo, fs, ro, rs, off = [], [], [], [], 0
-    for i, o in zip(ins, outs):
-        fo.append(off)
-        fs.append(staged_stride(o))
-        off += block_rows(i, operand) * fs[-1]
-        ro.append(off)
-        rs.append(staged_stride(i))
-        off += block_rows(o, operand) * rs[-1]
-    return PackLayout(fo, fs, ro, rs, off, operand)
-
-
-def pack_weights(ws: Sequence[torch.Tensor]
-                 ) -> Tuple[torch.Tensor, PackLayout]:
-    """The tensor-core kernels' weight buffer: [big | small] (tf32_split)
-    of every layer's W^T and W block in pack_layout's places, zero in the
-    padding; big + small is the weight exactly."""
-    if any(w.dtype != torch.float32 for w in ws):
-        raise ValueError("the tensor-core kernels take float32 weights")
-    ins = [int(w.shape[1]) for w in ws]
-    outs = [int(w.shape[0]) for w in ws]
-    lay = pack_layout(ins, outs)
-    flat = torch.zeros(lay.half, device=ws[0].device, dtype=torch.float32)
-    for l, w in enumerate(ws):
-        i, o = ins[l], outs[l]
-        fwd = flat[lay.fwd_off[l]:lay.fwd_off[l] + round8(i) *
-                   lay.fwd_stride[l]].view(round8(i), lay.fwd_stride[l])
-        fwd[:i, :o] = w.detach().t()
-        rev = flat[lay.rev_off[l]:lay.rev_off[l] + round8(o) *
-                   lay.rev_stride[l]].view(round8(o), lay.rev_stride[l])
-        rev[:o, :i] = w.detach()
-    big, small = tf32_split(flat)
-    return torch.cat([big, small]), lay
-
-
-def bf16_pair_rows(k: int) -> torch.Tensor:
-    """[round16(k) // 2, 2] weight-row indices of a bf16 block's word rows:
-    in each group of 16 rows k0 .. k0 + 15, word row 8 g + t (t < 4) holds
-    rows (k0 + t, k0 + t + 4) and word row 8 g + 4 + t rows (k0 + 8 + t,
-    k0 + 12 + t), low half first.  That is the order in which thread t of
-    a warp reads an m16n8k16 B fragment (its k pairs 2t, 2t + 1 and
-    2t + 8, 2t + 9), with the A fragment's k permuted the same way, so
-    that both read single 32-bit words without bank conflicts
-    (csrc/tc_mma.cuh)."""
-    idx = []
-    for k0 in range(0, round16(k), 16):
-        for t in range(4):
-            idx.append((k0 + t, k0 + t + 4))
-        for t in range(4):
-            idx.append((k0 + 8 + t, k0 + 12 + t))
-    return torch.tensor(idx, dtype=torch.long)
-
-
-@functools.lru_cache(maxsize=16)
-def _bf16_sources(ins: Tuple[int, ...], outs: Tuple[int, ...],
-                  device: torch.device
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """For each word of a bf16 pack of layers ins -> outs, the indices of
-    its low and high halves in the weights flattened one after another
-    (each [out, in] row-major), or the index one past them (a zero) in
-    the padding; on ``device``, built once."""
-    lay = pack_layout(ins, outs, "bf16")
-    zero = sum(i * o for i, o in zip(ins, outs))
-    lo = np.full(lay.half, zero, np.int64)
-    hi = np.full(lay.half, zero, np.int64)
-    base = 0
-    for l, (i, o) in enumerate(zip(ins, outs)):
-        # W^T block: row k, column n is W[n][k]; W block: row k, column n
-        # is W[k][n]
-        for off, st, k_dim, n_dim, step_k, step_n in (
-                (lay.fwd_off[l], lay.fwd_stride[l], i, o, 1, i),
-                (lay.rev_off[l], lay.rev_stride[l], o, i, i, 1)):
-            n = base + step_n * np.arange(n_dim)
-            for r, (k0, k1) in enumerate(bf16_pair_rows(k_dim).tolist()):
-                row = slice(off + r * st, off + r * st + n_dim)
-                if k0 < k_dim:
-                    lo[row] = n + step_k * k0
-                if k1 < k_dim:
-                    hi[row] = n + step_k * k1
-        base += i * o
-    return torch.from_numpy(lo).to(device), torch.from_numpy(hi).to(device)
-
-
-def pack_weights_bf16(ws: Sequence[torch.Tensor]
-                      ) -> Tuple[torch.Tensor, PackLayout]:
-    """The bf16 kernels' weight buffer (K1's and K2-bf16's of the SDF
-    network, K3's of the radiance MLP): every layer's W^T and W block
-    rounded to bf16 (to nearest even, as JAX's ``astype``), two k-rows to
-    a 32-bit word (bf16_pair_rows), in pack_layout(..., "bf16")'s places,
-    zero in the padding (a block's k rows padded to 16: the radiance MLP's
-    289-wide first layer to 304).  A float32 tensor of words; no small
-    half."""
-    if any(w.dtype != torch.float32 for w in ws):
-        raise ValueError("the tensor-core kernels take float32 weights")
-    ins = tuple(int(w.shape[1]) for w in ws)
-    outs = tuple(int(w.shape[0]) for w in ws)
-    dev = ws[0].device
-    # one gather for each half from the weights laid end to end: a
-    # handful of launches a pack, whatever the depth (the pack is built
-    # once a step, beside the 3xTF32 pack)
-    lo, hi = _bf16_sources(ins, outs, dev)
-    src = torch.cat([w.detach().reshape(-1) for w in ws]
-                    + [torch.zeros(1, device=dev)])
-    half = [src[i].to(torch.bfloat16).view(torch.int16).to(torch.int32)
-            for i in (lo, hi)]
-    words = (half[0] & 0xFFFF) | (half[1] << 16)
-    return words.view(torch.float32), pack_layout(ins, outs, "bf16")
-
-
-def make_pack(ws: Sequence[torch.Tensor], bf16: bool = False
-              ) -> Tuple[torch.Tensor, PackLayout]:
-    """The kernels' weight pack of ws in the operand mode."""
-    return pack_weights_bf16(ws) if bf16 else pack_weights(ws)
-
-
-def pack_for(kernel, ws: Sequence[torch.Tensor], pack, bf16: bool
-             ) -> Tuple[torch.Tensor, PackLayout]:
-    """``pack`` (make_pack(ws, bf16), built here if None), refused when
-    its operand type is not that of ``kernel`` (a CudaKernel): no mode
-    runs on another's pack."""
-    pack, lay = pack if pack is not None else make_pack(ws, bf16)
-    want = "bf16" if bf16 else "3xtf32"
-    if lay.operand != want:
-        raise ValueError(f"{kernel.name} multiplies on {want} operands: it "
-                         f"takes no {lay.operand} pack")
-    return pack, lay
-
-
-def layout_iargs(lay: PackLayout) -> List[int]:
-    """The pack layout as the kernels' integer arguments take it after
-    ins and outs: fwd_off, fwd_stride, rev_off, rev_stride, half."""
-    return [*lay.fwd_off, *lay.fwd_stride, *lay.rev_off, *lay.rev_stride,
-            lay.half]
-
-
-def check_layout(lay: PackLayout, ins: Sequence[int],
-                 outs: Sequence[int]) -> None:
-    """Raises unless ``lay`` is the pack layout of layers ins -> outs, or of
-    the same network with a wider last layer (K2 reads K1's pack, and
-    K2-bf16 the step's bf16 pack, with the last layer narrowed to the sdf
-    column: it stages only the W^T blocks, whose first columns are the
-    narrowed layer's), in the layout's operand type."""
-    want = pack_layout(ins, outs, lay.operand)
-    L = len(ins)
-    ok = len(lay.fwd_off) == L and lay.fwd_off == want.fwd_off
-    ok = ok and lay.fwd_stride[:-1] == want.fwd_stride[:-1]
-    ok = ok and lay.rev_stride[:-1] == want.rev_stride[:-1]
-    ok = ok and lay.rev_off[:-1] == want.rev_off[:-1]
-    ok = ok and lay.fwd_stride[-1] >= want.fwd_stride[-1]
-    ok = ok and lay.rev_stride[-1] == want.rev_stride[-1]
-    if not ok:
-        raise ValueError("the weight pack's layout does not match the "
-                         "network's widths")
-
-
-def chunk_stride(width: int) -> int:
-    """Shared-memory row stride of a weight-gradient chunk (tc_chunk_stride):
-    >= width + 3 and 4 (mod 32)."""
-    sp = width + 3
-    return sp + (36 - sp % 32) % 32
-
-
-def smem_bytes(lay: PackLayout, outs: Sequence[int],
-               fixed_floats: int) -> int:
-    """Shared memory of a tensor-core kernel with ``fixed_floats`` of its own
-    tiles and the weight ring: two stages of RING_ROWS rows of the widest
-    staged block (3xTF32: big and small, a word a value; bf16: two values
-    a word), or one 64-row weight-gradient chunk where that is larger."""
-    widest = max(lay.fwd_stride + lay.rev_stride)
-    stage = (2 * RING_ROWS if lay.operand == "3xtf32"
-             else RING_ROWS // 2) * widest
-    chunk = max(TILE * chunk_stride(o) + 3 for o in outs)
-    ring = -(-max(2 * stage, chunk) // 4) * 4
-    return 4 * (fixed_floats + ring)
 
 
 # -- K2-bf16's pack: slabs for wgmma ----------------------------------------

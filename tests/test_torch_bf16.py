@@ -1,5 +1,5 @@
 """K1's bf16 operand mode in the PyTorch port (FNEUS_CORE_ACT_BF16, the
-JAX step's default): the bf16 weight pack, and the plain twins of the bf16
+JAX step's default): the packs' refusals, and the plain twins of the bf16
 kernels against the JAX package's bf16 Pallas bodies
 (sdf_value_grad_feat_pallas(bf16=True), interpret mode) and a stage-1 step
 with the mode on in both packages.  Each comparison also asks that the port
@@ -42,90 +42,26 @@ SDF_ATOL, GRAD_ATOL = 3e-2, 5e-2
 TWIN_RTOL = 1e-3
 
 
-def _widths(seed=0):
-    rng = np.random.RandomState(seed)
-    return [torch.from_numpy(rng.randn(o, i).astype(np.float32))
-            for i, o in ((39, 64), (64, 25), (64, 65))]
-
-
-def unpack_bf16_block(pack: torch.Tensor, off: int, stride: int, k: int,
-                      n: int) -> torch.Tensor:
-    """The [k, n] float32 block (bf16 values) stored at ``off`` of a bf16
-    pack: the inverse of its word pairing."""
-    r = TP.round16(k) // 2
-    words = pack[off:off + r * stride].view(r, stride)[:, :n].contiguous()
-    bits = words.view(torch.int32)
-    lo = (bits << 16).view(torch.float32)
-    hi = (bits & -65536).view(torch.float32)
-    out = torch.zeros(TP.round16(k), n, dtype=torch.float32)
-    idx = TP.bf16_pair_rows(k)
-    out[idx[:, 0]] = lo
-    out[idx[:, 1]] = hi
-    return out[:k]
-
-
-def test_bf16_pack_layout_and_round_trip():
-    """Each block of the bf16 pack holds its weights rounded to bf16 (ties
-    to even), two k-rows to a word in bf16_pair_rows' order, zero in the
-    padding; the layout records the operand type."""
-    ws = _widths()
-    pack, lay = TP.pack_weights_bf16(ws)
-    assert lay.operand == "bf16" and pack.dtype == torch.float32
-    assert pack.numel() == lay.half
-    ins = [w.shape[1] for w in ws]
-    outs = [w.shape[0] for w in ws]
-    assert lay == TP.pack_layout(ins, outs, "bf16")
-    TP.check_layout(lay, ins, outs)
-    for l, w in enumerate(ws):
-        i, o = ins[l], outs[l]
-        fwd = unpack_bf16_block(pack, lay.fwd_off[l], lay.fwd_stride[l],
-                                   i, o)
-        rev = unpack_bf16_block(pack, lay.rev_off[l], lay.rev_stride[l],
-                                   o, i)
-        assert torch.equal(fwd, TP.bf16_round(w.t()))
-        assert torch.equal(rev, TP.bf16_round(w))
-        assert lay.fwd_stride[l] % 32 == 8 and lay.rev_stride[l] % 32 == 8
-    # every word row pairs two distinct rows, each row once
-    for k in (39, 64, 65):
-        idx = TP.bf16_pair_rows(k)
-        assert sorted(idx.flatten().tolist()) == list(range(TP.round16(k)))
-    # what is not a weight is zero: the pack's sum of squares is the
-    # rounded weights'
-    total = sum(float((2 * TP.bf16_round(w) ** 2).sum()) for w in ws)
-    lo = (pack.view(torch.int32) << 16).view(torch.float32)
-    hi = (pack.view(torch.int32) & -65536).view(torch.float32)
-    assert float((lo ** 2).sum() + (hi ** 2).sum()) == pytest.approx(
-        total, rel=1e-6)
-    # ties round to even, not away (the TF32 split's rule)
-    ties = torch.tensor([[1 + 2.0 ** -8, 1 + 3 * 2.0 ** -8]])
-    p1, l1 = TP.pack_weights_bf16([ties])
-    got = unpack_bf16_block(p1, l1.fwd_off[0], l1.fwd_stride[0], 2, 1)
-    assert got.flatten().tolist() == [1.0, 1 + 2.0 ** -6]
-
-
 def test_bf16_pack_shared_memory_and_refusals():
-    """The bf16 ring holds a quarter of the 3xTF32 ring's floats a stage,
-    so K1's shared memory does not grow; K2 refuses the bf16 pack (it
-    reads the f32 slab pack) and K1 refuses a pack of the other operand
-    type."""
+    """K2 refuses a bf16 layout (it reads the f32 slab pack), and K1-fwd
+    refuses the slab packs of the other operand mode: no mode runs on
+    another's pack."""
     cfg = TR.F.SDFConfig()
     ws = [torch.zeros(o, i) for i, o in zip(cfg.dims[:-1], (
         256, 256, 256, 217, 256, 256, 256, 256, 257))]
     ins = [int(w.shape[1]) for w in ws]
     outs = [int(w.shape[0]) for w in ws]
-    fixed = 64 * 2 * (44 + 268)       # K1-bwd: two tiles of enc and ld
-    f32 = TP.smem_bytes(TP.pack_layout(ins, outs), outs, fixed)
-    b16 = TP.smem_bytes(TP.pack_layout(ins, outs, "bf16"), outs, fixed)
-    assert b16 <= f32 <= TP.SMEM_MAX
-    lay16 = TP.pack_layout(ins, outs, "bf16")
     with pytest.raises(ValueError, match="f32 slab pack"):
         SK.sweep_wg_plan(cfg, [ws[0], *ws[1:-1], ws[-1][:1]], 64,
-                         TP.pack_layout(ins, outs[:-1] + [1], "bf16"), 132)
-    with pytest.raises(ValueError, match="bf16"):
-        GK._pack_for(GK.K1_FWD_BF16, ws, (torch.zeros(1),
-                                          TP.pack_layout(ins, outs)), True)
-    with pytest.raises(ValueError, match="3xtf32"):
-        GK._pack_for(GK.K1_FWD, ws, (torch.zeros(1), lay16), False)
+                         TP.sweep_layout(ins, outs[:-1] + [1], (4,),
+                                         cfg.d_embed), 132)
+    x = torch.zeros(5, 3)
+    with pytest.raises(ValueError, match="wgmma-bf16 slabs"):
+        GK.launch_forward(cfg, x, ws, [], GK.make_bwd_slabs(cfg, ws, False),
+                          bf16=True)
+    with pytest.raises(ValueError, match="wgmma-f32 slabs"):
+        GK.launch_forward(cfg, x, ws, [], GK.make_bwd_slabs(cfg, ws, True),
+                          bf16=False)
 
 
 def test_mm_bf16_is_the_rounded_product():

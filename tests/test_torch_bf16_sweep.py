@@ -21,12 +21,13 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_bf16 import SDF_ATOL, TWIN_RTOL, unpack_bf16_block
+from test_torch_bf16 import SDF_ATOL, TWIN_RTOL
 from test_torch_kernels import CASES, _setup
 from test_torch_radiance import _setup as _rad_setup
 from test_torch_render import build_pair, make_rays
 from test_torch_secondary import jax_draws, pair2
 from test_torch_stage1 import GROUPS, _batch, _jax_loss_and_grads
+from util_packs import ROW_MAJOR
 
 from factored_neus_tpu.data.rays import near_far_from_sphere
 from factored_neus_tpu.models import fields as F
@@ -76,13 +77,13 @@ def _closer(port, j16, j32, atol, name):
 # -- the packs and the kernels' arguments ------------------------------------
 
 def test_bf16_packs_serve_k2_narrowed_and_k3():
-    """pack_weights_bf16 holds the radiance MLP's five layers (the 289-wide
-    first input padded to 304 rows, two to a word); K3-fwd-bf16 takes the
-    bf16 slab pack (make_fwd_pack(bf16=True), K3-bwd-bf16's forward pack)
-    and refuses the bf16 mma.sync pack and the f32 slab pack; K2-bf16
-    takes the full network's slab pack (tc_pack.sweep_layout) for its
-    narrowed last layer and refuses the bf16 and 3xTF32 packs (and K2 the
-    bf16 packs); the kernels' shared memory at full width (K2-bf16's ring
+    """K3-fwd-bf16 takes the bf16 slab pack (make_fwd_pack(bf16=True),
+    K3-bwd-bf16's forward pack) and refuses a row-major layout and the
+    f32 slab pack; K2-bf16 takes the full network's slab pack
+    (tc_pack.sweep_layout) for its narrowed last layer and refuses the
+    f32 slab layout and a row-major one (and K2 a row-major and the bf16
+    slab layout); the
+    kernels' shared memory at full width (K2-bf16's ring
     six slabs of 32 KB, 231,808 B, five of 33 KB for the full output;
     K3-fwd-bf16 on wgmma six slabs of 32 KB, 216,320 B with one consumer
     and 229,632 B with two; K3-fwd on wgmma 226,336 B) and their
@@ -91,17 +92,7 @@ def test_bf16_packs_serve_k2_narrowed_and_k3():
     rng = np.random.RandomState(0)
     rws = [t(rng.randn(o, i).astype(np.float32))
            for i, o in zip(rcfg.dims[:-1], rcfg.dims[1:])]
-    pack, lay = TP.pack_weights_bf16(rws)
     assert [w.shape[1] for w in rws] == [289, 256, 256, 256, 256]
-    assert lay.fwd_stride[0] == 264 and lay.rev_stride[0] == 296
-    for l, w in enumerate(rws):
-        o, i = w.shape
-        assert torch.equal(unpack_bf16_block(
-            pack, lay.fwd_off[l], lay.fwd_stride[l], i, o),
-            TP.bf16_round(w.t()))
-        assert torch.equal(unpack_bf16_block(
-            pack, lay.rev_off[l], lay.rev_stride[l], o, i), TP.bf16_round(w))
-    assert lay.rev_off[0] - lay.fwd_off[0] == TP.round16(289) // 2 * 264
     slab16 = RK.make_fwd_pack(rcfg, rws, bf16=True)
     assert torch.equal(slab16[0], RK.make_bwd_slabs(rcfg, rws)[0][0])
     for n, sms, nc in ((64, 132, 1), (65536, 132, 2)):
@@ -110,7 +101,7 @@ def test_bf16_packs_serve_k2_narrowed_and_k3():
         assert plan["sweep_smem"] == (216320 if nc == 1 else 229632)
         assert plan["sweep_smem"] <= TP.SMEM_MAX
     with pytest.raises(ValueError, match="takes the bf16 slab pack"):
-        RK.fwd_wg16_plan(rcfg, rws, 64, lay, 132)
+        RK.fwd_wg16_plan(rcfg, rws, 64, ROW_MAJOR[1], 132)
     with pytest.raises(ValueError, match="takes the bf16 slab pack"):
         RK.fwd_wg16_plan(rcfg, rws, 64, RK.make_fwd_pack(rcfg, rws)[1], 132)
     with pytest.raises(ValueError, match="takes the f32 slab"):
@@ -120,11 +111,8 @@ def test_bf16_packs_serve_k2_narrowed_and_k3():
     cfg = TF.SDFConfig()
     ws = [torch.zeros(o, i) for i, o in zip(cfg.dims[:-1], (
         256, 256, 256, 217, 256, 256, 256, 256, 257))]
-    full16 = TP.pack_layout([w.shape[1] for w in ws],
-                            [w.shape[0] for w in ws], "bf16")
     wn = ws[:-1] + [ws[-1][:1]]
     ins, outs, _ = SK.layer_dims(cfg, wn)
-    TP.check_layout(full16, ins, outs)
     sweep = TP.sweep_layout([w.shape[1] for w in ws],
                             [w.shape[0] for w in ws], (4,), cfg.d_embed)
     assert sweep.nslab == [1, 4, 4, 4, 5, 4, 4, 4, 4]
@@ -138,13 +126,14 @@ def test_bf16_packs_serve_k2_narrowed_and_k3():
     assert SK.sweep_smem(len(wn), 2, 256 * 128) == (6, 231808)
     assert SK.sweep_smem(len(wn), 2, 264 * 128) == (5, 204144)
     with pytest.raises(ValueError, match="wgmma: it takes the f32"):
-        SK.sweep_wg_plan(cfg, wn, 64, full16, 132)
+        SK.sweep_wg_plan(cfg, wn, 64, ROW_MAJOR[1], 132)
     with pytest.raises(ValueError, match="wgmma: it takes the f32"):
         SK.sweep_wg_plan(cfg, wn, 64, sweep, 132)
-    with pytest.raises(ValueError, match="wgmma: it takes no bf16"):
-        SK.sweep_iargs(cfg, wn, 64, full16, 132)
-    with pytest.raises(ValueError, match="wgmma: it takes no 3xtf32"):
-        SK.sweep_iargs(cfg, wn, 64, TP.pack_layout(ins, outs), 132)
+    with pytest.raises(ValueError, match="wgmma: it takes no wgmma-f32"):
+        SK.sweep_iargs(cfg, wn, 64, TP.sweep_layout_f32(
+            ins, outs, (4,), cfg.d_embed), 132)
+    with pytest.raises(ValueError, match="wgmma: it takes no row-major"):
+        SK.sweep_iargs(cfg, wn, 64, ROW_MAJOR[1], 132)
     with pytest.raises(ValueError, match="slab layout"):
         SK.sweep_iargs(cfg, ws, 64, TP.sweep_layout(ins, outs, (4,), 39),
                        132)

@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from util_packs import ROW_MAJOR
+
 from factored_neus_tpu.models import fields as JF
 from factored_neus_tpu.ops import pallas_geometry as PG
 from factored_neus_tpu_torch.models.fields import SDFConfig, SDFNetwork
@@ -102,7 +104,7 @@ def test_bwd_wg_plan_covers_every_tile(n):
     assert max(p["sweep_smem"], p["wgrad_smem"]) <= TP.SMEM_MAX
     assert len(p["iargs"]) == 9 + 8 * len(ws)
     with pytest.raises(ValueError, match="wgmma"):
-        GK.bwd_wg_plan(cfg, ws, n, (TP.make_pack(ws, True),) * 2, sms)
+        GK.bwd_wg_plan(cfg, ws, n, (ROW_MAJOR,) * 2, sms)
 
 
 @functools.lru_cache(maxsize=None)

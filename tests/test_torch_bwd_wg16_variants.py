@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from util_packs import ROW_MAJOR
 from util_threads import one_thread  # noqa: F401 (autouse)
 
 import chip_smoke
@@ -105,8 +106,9 @@ def test_chains16_plan_covers_every_tile(n, stash):
 def test_launches_raise_without_bf16_slabs(variant):
     """K1-bwd-split-bf16 and K1-bwd-stash-bf16 read make_bwd_slabs(bf16=
     True)'s two packs and build none: without them, or on the f32 slab
-    packs or the bf16 mma.sync pack, the launch raises before any CUDA
-    call, and so does the plan; the bf16 mma.sync pack is never built."""
+    packs or a row-major bf16 layout, the launch raises before any CUDA
+    call, and so does the plan; the kernel weights carry no mma.sync
+    pack."""
     cfg, ws, bs = _net("3 x 64, skip")
     x, ct_out, ct_g = _inputs(cfg, ws, 10)
     stash = torch.zeros(10, GK.stash_columns(ws), dtype=torch.bfloat16)
@@ -117,49 +119,32 @@ def test_launches_raise_without_bf16_slabs(variant):
                                             pack, bf16=True)
         return GK.launch_backward_stash(cfg, x, ws, stash, ct_out, ct_g,
                                         pack, bf16=True)
-    others = (GK.make_bwd_slabs(cfg, ws, bf16=False),
-              (TP.make_pack(ws, True),) * 2)
-    calls = []
-    inner = TP.pack_weights_bf16
-    TP.pack_weights_bf16 = lambda w: calls.append(1) or inner(w)
-    try:
-        for pack, match in zip((None, *others),
-                               ("make_bwd_slabs", "wgmma-bf16",
-                                "wgmma-bf16")):
-            with pytest.raises(ValueError, match=match):
-                launch(pack)
-        for pack in others:
-            with pytest.raises(ValueError, match="wgmma"):
-                GK.chains_wg16_plan(cfg, ws, 10, pack, SMS,
-                                    variant == "stash")
-    finally:
-        TP.pack_weights_bf16 = inner
-    assert calls == []
+    others = (GK.make_bwd_slabs(cfg, ws, bf16=False), (ROW_MAJOR,) * 2)
+    for pack, match in zip((None, *others),
+                           ("make_bwd_slabs", "wgmma-bf16", "wgmma-bf16")):
+        with pytest.raises(ValueError, match=match):
+            launch(pack)
+    for pack in others:
+        with pytest.raises(ValueError, match="wgmma"):
+            GK.chains_wg16_plan(cfg, ws, 10, pack, SMS, variant == "stash")
+    assert "pack16" not in TF.KernelWeights._fields
 
 
 @pytest.fixture
 def card(monkeypatch):
-    """kernel_weights as on a card (the packs built on the CPU), the bf16
-    mma.sync pack's builds counted."""
-    calls = []
-    inner = TP.pack_weights_bf16
+    """kernel_weights as on a card (the packs built on the CPU)."""
     monkeypatch.setattr(TF, "_on_card", lambda t: True)
-    monkeypatch.setattr(TP, "pack_weights_bf16",
-                        lambda ws: calls.append(1) or inner(ws))
-    return calls
 
 
 @pytest.mark.parametrize("grad", [True, False])
 @pytest.mark.parametrize("switch", ["split", "stash"])
 def test_kernel_weights_build_what_the_chains16_read(card, monkeypatch,
                                                      switch, grad):
-    """The bf16 mode's SDF kernel weights under each switch: the split
-    switch builds K1-fwd-bf16's two slab packs, which K1-bwd-split-bf16's
-    plan takes as they are, and no bf16 mma.sync pack (pack16;
-    tc_pack.pack_weights_bf16 never called); the stash switch builds
-    pack16 once for
-    K1-fwd-stash-bf16 and, where a backward can follow (with grad), the
-    two slab packs K1-bwd-stash-bf16's plan takes."""
+    """The bf16 mode's SDF kernel weights under each switch, with grad or
+    without: K1-fwd-bf16's two slab packs, which K1-bwd-split-bf16's plan
+    takes as they are (the split switch), and K1-fwd-stash-bf16's and
+    K1-bwd-stash-bf16's plans take (the stash switch); no other pack
+    (KernelWeights has no field for a bf16 mma.sync pack)."""
     monkeypatch.setattr(GK, "STASH_BWD" if switch == "stash"
                         else "STACKED_BWD", switch == "stash")
     cfg = SDFConfig(n_layers=3, d_hidden=64, d_out=65, skip_in=(2,),
@@ -169,15 +154,16 @@ def test_kernel_weights_build_what_the_chains16_read(card, monkeypatch,
         kw = net.kernel_weights(bf16=True, f32=False)
     built = {f for f in kw._fields[2:] if getattr(kw, f) is not None}
     stash = switch == "stash"
-    slabs = not stash or grad
-    assert built == ({"sweep16", "rev16"} if slabs else set()) | (
-        {"pack16"} if stash else set())
-    assert card == ([1] if stash else [])
-    if slabs:
-        ws = [w.detach() for w in kw.ws]
-        p = GK.chains_wg16_plan(cfg, ws, 100, TF.bwd_slabs(kw, True), SMS,
-                                stash)
-        assert p["tiles"] == 2
+    assert built == {"sweep16", "rev16"}
+    assert "pack16" not in kw._fields
+    ws = [w.detach() for w in kw.ws]
+    p = GK.chains_wg16_plan(cfg, ws, 100, TF.bwd_slabs(kw, True), SMS,
+                            stash)
+    assert p["tiles"] == 2
+    if stash:
+        assert GK.fwd_wg16_plan(cfg, ws, 100, TF.bwd_slabs(kw, True), SMS,
+                                stash)["stash_columns"] == \
+            GK.stash_columns(ws)
 
 
 def _design(key, n, stash=None, per=2, seed=1):

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from util_packs import ROW_MAJOR
 from util_threads import one_thread  # noqa: F401 (autouse)
 
 from factored_neus_tpu.models import fields as JF
@@ -162,7 +163,7 @@ def test_f32_plan_covers_every_tile(n):
     assert p["iargs"][8 + 5 * L:] == [48] + [256] * (L - 1)
     assert p["slot_floats"] == p["units"] * p["chunks"] * 2 * 64 * 136
     with pytest.raises(ValueError, match="wgmma"):
-        GK.bwd_wg_plan(cfg, ws, n, (TP.make_pack(ws),) * 2, sms)
+        GK.bwd_wg_plan(cfg, ws, n, (ROW_MAJOR,) * 2, sms)
     with pytest.raises(ValueError, match="wgmma-f32"):
         GK._launch_backward_wg(cfg, torch.zeros(n, 3), ws, [], None, None,
                                GK.make_bwd_slabs(cfg, ws), bf16=False)
@@ -257,23 +258,20 @@ def test_design_accumulation_within_check_vjp_bound():
 
 def test_kernel_weights_name_their_packs():
     """fields.KernelWeights is a NamedTuple whose fields name the packs
-    (read by mode_pack, sweep_pack, bwd_slabs); on the CPU no pack is
-    built, and the f32 mode's backward differentiates through the twin."""
+    (read by sweep_pack, bwd_slabs), every one a slab pack (it carries no
+    mma.sync pack); on the CPU no pack is built, and the f32 mode's
+    backward differentiates through the twin."""
     cfg, _, _ = _net("2 x 64, no skip")
     net = SDFNetwork(cfg, torch.Generator().manual_seed(0))
     w = net.kernel_weights()
     assert isinstance(w, TF.KernelWeights)
-    assert w._fields == ("ws", "bs", "pack", "pack16", "sweep16", "rev16",
-                         "sweep32", "rev32")
-    assert w[2:] == (None,) * 6
+    assert w._fields == ("ws", "bs", "sweep16", "rev16", "sweep32", "rev32")
+    assert w[2:] == (None,) * 4
     ws, bs, *_ = w
     assert ws is w.ws and bs is w.bs
     assert TF.bwd_slabs(w, False) is None and TF.bwd_slabs(w, True) is None
-    fake = w._replace(sweep32=("f",), rev32=("r",), pack=("p",),
-                      pack16=("q",), sweep16=("s",))
+    fake = w._replace(sweep32=("f",), rev32=("r",), sweep16=("s",))
     assert TF.bwd_slabs(fake, False) == (("f",), ("r",))
-    assert TF.mode_pack(fake, False) == ("p",)
-    assert TF.mode_pack(fake, True) == ("q",)
     assert TF.sweep_pack(fake, True) == ("s",)
     x = torch.from_numpy(_inputs(cfg, [torch.zeros(65, 1)], 40)[0])
     s, f, g = net.value_grad_feat(x, w)

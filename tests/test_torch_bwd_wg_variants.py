@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from util_packs import ROW_MAJOR
 from util_threads import one_thread  # noqa: F401 (autouse)
 
 from factored_neus_tpu.models import fields as JF
@@ -101,9 +102,9 @@ def test_chains_plan_covers_every_tile(n, stash):
 @pytest.mark.parametrize("variant", ["split", "stash"])
 def test_launches_raise_without_slabs(variant):
     """K1-bwd-split and K1-bwd-stash read make_bwd_slabs(bf16=False)'s two
-    packs and build none: without them, or on the bf16 slab packs or the
-    3xTF32 mma.sync pack, the launch raises before any CUDA call, and so
-    does the plan."""
+    packs and build none: without them, or on the bf16 slab packs or a
+    row-major 3xTF32 layout, the launch raises before any CUDA call, and
+    so does the plan; the kernel weights carry no mma.sync pack."""
     cfg, ws, bs = _net("3 x 64, skip")
     x, ct_out, ct_g = _inputs(cfg, ws, 10)
     stash = torch.zeros(10, GK.stash_columns(ws), dtype=torch.bfloat16)
@@ -114,21 +115,15 @@ def test_launches_raise_without_slabs(variant):
                                             slabs=pack)
         return GK.launch_backward_stash(cfg, x, ws, stash, ct_out, ct_g,
                                         slabs=pack)
-    others = (GK.make_bwd_slabs(cfg, ws), (TP.make_pack(ws),) * 2)
-    calls = []
-    inner = TP.pack_weights
-    TP.pack_weights = lambda w: calls.append(1) or inner(w)
-    try:
-        for pack, match in zip((None, *others),
-                               ("make_bwd_slabs", "wgmma-f32", "wgmma-f32")):
-            with pytest.raises(ValueError, match=match):
-                launch(pack)
-        for pack in others:
-            with pytest.raises(ValueError, match="wgmma"):
-                GK.chains_wg_plan(cfg, ws, 10, pack, SMS, variant == "stash")
-    finally:
-        TP.pack_weights = inner
-    assert calls == []
+    others = (GK.make_bwd_slabs(cfg, ws), (ROW_MAJOR,) * 2)
+    for pack, match in zip((None, *others),
+                           ("make_bwd_slabs", "wgmma-f32", "wgmma-f32")):
+        with pytest.raises(ValueError, match=match):
+            launch(pack)
+    for pack in others:
+        with pytest.raises(ValueError, match="wgmma"):
+            GK.chains_wg_plan(cfg, ws, 10, pack, SMS, variant == "stash")
+    assert "pack" not in TF.KernelWeights._fields
 
 
 def _design(key, n, stash=None, per=2, seed=1):
@@ -270,17 +265,12 @@ def test_stash_design_matches_jax():
 @pytest.fixture
 def card(monkeypatch):
     """kernel_weights as on a card, every pack replaced by a marker of its
-    kind; the 3xTF32 mma.sync pack's builds counted."""
-    calls = []
+    kind."""
     monkeypatch.setattr(TF, "_on_card", lambda t: True)
-    monkeypatch.setattr(TP, "pack_weights",
-                        lambda ws: calls.append(1) or ("pack",))
-    monkeypatch.setattr(TP, "pack_weights_bf16", lambda ws: ("pack16",))
     monkeypatch.setattr(GK, "make_bwd_slabs", lambda cfg, ws, bf16=True: (
         ("sweep32",), ("rev32",)))
     monkeypatch.setattr(SK, "make_sweep_pack",
                         lambda cfg, ws, bf16=True: ("sweep32",))
-    return calls
 
 
 def _built(kw):
@@ -291,26 +281,20 @@ def _built(kw):
 @pytest.mark.parametrize("switch", ["split", "stash"])
 def test_kernel_weights_build_the_chains_packs(card, monkeypatch, switch,
                                                grad):
-    """The f32 mode's SDF kernel weights under each switch: the split
-    switch builds K1-fwd's two slab packs, which K1-bwd-split reads too,
-    and no 3xTF32 pack (tc_pack.pack_weights never called); the stash
-    switch builds the 3xTF32 pack once for K1-fwd-stash and, where a
-    backward can follow (with grad), the two slab packs K1-bwd-stash
-    reads, without grad only K2's sweep32."""
+    """The f32 mode's SDF kernel weights under each switch, with grad or
+    without: K1-fwd's two slab packs, which K1-bwd-split reads too (the
+    split switch) and K1-fwd-stash and K1-bwd-stash read (the stash
+    switch), and no other pack (KernelWeights has no field for an
+    mma.sync pack)."""
     monkeypatch.setattr(GK, "STASH_BWD" if switch == "stash"
                         else "STACKED_BWD", switch == "stash")
     net = SDFNetwork(SDFConfig(n_layers=2, d_hidden=64, d_out=65,
                                skip_in=(), multires=4))
     with torch.set_grad_enabled(grad):
         kw = net.kernel_weights()
-    if switch == "split":
-        assert _built(kw) == {"sweep32", "rev32"} and card == []
-    else:
-        assert _built(kw) == ({"pack", "sweep32", "rev32"} if grad
-                              else {"pack", "sweep32"})
-        assert card == [1]
-    assert TF.bwd_slabs(kw, False) == (
-        (("sweep32",), ("rev32",)) if "rev32" in _built(kw) else None)
+    assert _built(kw) == {"sweep32", "rev32"}
+    assert "pack" not in kw._fields
+    assert TF.bwd_slabs(kw, False) == (("sweep32",), ("rev32",))
 
 
 SASS = """

@@ -13,6 +13,8 @@ import pytest
 import torch
 
 import chip_smoke
+from util_packs import ROW_MAJOR
+
 from factored_neus_tpu_torch.data import rays as RAYS
 from factored_neus_tpu_torch.meshing import extract as MEXT
 from factored_neus_tpu_torch.models import fields as TF
@@ -24,7 +26,6 @@ from factored_neus_tpu_torch.models.fields import (RefColorConfig,
 from factored_neus_tpu_torch.ops import geometry_kernel as GK
 from factored_neus_tpu_torch.ops import radiance_kernel as RK
 from factored_neus_tpu_torch.ops import sdf_kernel as SK
-from factored_neus_tpu_torch.ops import tc_pack as TP
 from factored_neus_tpu_torch.ops.embedder import positional_encoding
 
 
@@ -43,6 +44,12 @@ CASES = [  # (n_layers, d_hidden, d_out, skip_in, multires, scale, n)
     (2, 64, 65, (), 4, 1.0, 77),
     (8, 256, 257, (4,), 6, 1.0, 1000),
 ]
+
+
+def _row_major(ws):
+    """A stand-in for a row-major weight buffer on ws' device, which no
+    kernel reads: each refuses it (tests/util_packs.py)."""
+    return (torch.zeros(1, device=ws[0].device), ROW_MAJOR[1])
 
 
 def _net(case, device):
@@ -181,7 +188,7 @@ def test_k1_ragged_tiles_over_several_rounds(cuda_device, variant):
     with torch.no_grad():
         out_p, grad_p = GK.geometry_plain(ws, bs, x, cfg)
     if variant == "stash":
-        out_k, grad_k, st = GK.launch_forward_stash(cfg, x, ws, bs)
+        out_k, grad_k, st = GK.launch_forward_stash(cfg, x, ws, bs, slabs)
         got = GK.launch_backward_stash(cfg, x, ws, st, ct_out, ct_g,
                                        slabs=slabs)
         want = GK.geometry_bwd_stash_plain([w.double() for w in ws],
@@ -244,7 +251,7 @@ def test_k1_fwd_wgmma_f32_matches_twin(cuda_device, n):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
     again = GK.launch_forward(cfg, x, ws, bs, TF.bwd_slabs(kw, False))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    for pack in (None, GK.make_bwd_slabs(cfg, ws), (TP.pack_weights(ws),) * 2):
+    for pack in (None, GK.make_bwd_slabs(cfg, ws), (_row_major(ws),) * 2):
         with pytest.raises(ValueError):
             GK.launch_forward(cfg, x, ws, bs, pack)
     with pytest.raises(ValueError, match="slabs"):
@@ -296,7 +303,8 @@ def test_stash_kernels_match_twins(cuda_device, case):
     bf16 ulp of the twin's; K1-bwd-stash and its twin fed the kernel's own
     stash."""
     cfg, ws, bs, x = _net(case, cuda_device)
-    out_k, grad_k, st_k = GK.launch_forward_stash(cfg, x, ws, bs)
+    out_k, grad_k, st_k = GK.launch_forward_stash(
+        cfg, x, ws, bs, GK.make_bwd_slabs(cfg, ws, bf16=False))
     out_p, grad_p, st_p = GK.geometry_fwd_stash_plain(ws, bs, x, cfg)
     torch.testing.assert_close(out_k, out_p, atol=1e-5, rtol=0)
     torch.testing.assert_close(grad_k, grad_p, atol=1e-5, rtol=0)
@@ -316,6 +324,42 @@ def test_stash_kernels_match_twins(cuda_device, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [65536, 9001, 100])
+def test_k1_fwd_stash_wgmma_is_k1_fwd_with_a_stash(cuda_device, n, bf16):
+    """K1-fwd-stash (bf16: K1-fwd-stash-bf16), K1-fwd's (K1-fwd-bf16's)
+    wgmma sweep with the stash stored from its epilogues, at full width:
+    out and grad K1-fwd's (K1-fwd-bf16's) bit for bit, two launches
+    bitwise equal; the stash
+    against its twin's (f32: each entry within one bf16 ulp or 1e-5;
+    bf16: chip_smoke.check_flips beside the f64 pre-activations); the
+    launch raises without the mode's slab packs or on another pack."""
+    cfg, ws, bs, x = _net((8, 256, 257, (4,), 6, 1.0, n), cuda_device)
+    slabs = GK.make_bwd_slabs(cfg, ws, bf16=bf16)
+    out, grad, st = GK.launch_forward_stash(cfg, x, ws, bs, slabs, bf16)
+    again = GK.launch_forward_stash(cfg, x, ws, bs, slabs, bf16)
+    k1 = GK.launch_forward(cfg, x, ws, bs, slabs, bf16)
+    assert torch.equal(out, k1[0]) and torch.equal(grad, k1[1])
+    assert all(torch.equal(a, b) for a, b in zip((out, grad, st), again))
+    st_p = GK.geometry_fwd_stash_plain(ws, bs, x, cfg, bf16)[2]
+    assert st.shape == st_p.shape == (n, GK.stash_columns(ws))
+    if bf16:
+        pre = []
+        with torch.no_grad():
+            GK.geometry_plain([w.double() for w in ws],
+                              [b.double() for b in bs], x.double(), cfg, pre)
+        chip_smoke.check_flips(f"K1-fwd-stash-bf16 stash N={n}",
+                               [st.float()], [st_p.float()],
+                               [torch.cat(pre, -1).float()], ["stash"])
+    else:
+        assert stash_agrees(st, st_p)
+    for pack in (None, GK.make_bwd_slabs(cfg, ws, bf16=not bf16),
+                 (_row_major(ws),) * 2):
+        with pytest.raises(ValueError):
+            GK.launch_forward_stash(cfg, x, ws, bs, pack, bf16)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n", [65536, 9001, 100])
 def test_k1_bwd_chains_wgmma_f32(cuda_device, n):
     """K1-bwd-split and K1-bwd-stash (csrc/geometry_bwd_chains_wg.cu,
@@ -332,7 +376,7 @@ def test_k1_bwd_chains_wgmma_f32(cuda_device, n):
     ct_g = torch.randn(n, 3, device=cuda_device, generator=gen)
     slabs = GK.make_bwd_slabs(cfg, ws, bf16=False)
     flat = lambda r: [r[0], *r[1], *r[2]]
-    st = GK.launch_forward_stash(cfg, x, ws, bs)[2]
+    st = GK.launch_forward_stash(cfg, x, ws, bs, slabs)[2]
     runs = {"split": lambda p: flat(GK.launch_backward_split(
                 cfg, x, ws, bs, ct_out, ct_g, slabs=p)),
             "stash": lambda p: flat(GK.launch_backward_stash(
@@ -351,7 +395,7 @@ def test_k1_bwd_chains_wgmma_f32(cuda_device, n):
             assert worst_scaled_ratio(a.double(), b) <= 1.0, (name, i)
         assert all(torch.equal(a, b) for a, b in zip(got, again)), name
         for pack in (None, GK.make_bwd_slabs(cfg, ws),
-                     (TP.pack_weights(ws),) * 2):
+                     (_row_major(ws),) * 2):
             with pytest.raises(ValueError):
                 run(pack)
     k1 = flat(GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g, slabs))
@@ -381,7 +425,7 @@ def test_k1_bwd_chains_wgmma_bf16(cuda_device, n):
     ct_g = torch.randn(n, 3, device=cuda_device, generator=gen)
     slabs = GK.make_bwd_slabs(cfg, ws)
     flat = lambda r: [r[0], *r[1], *r[2]]
-    st = GK.launch_forward_stash(cfg, x, ws, bs, bf16=True)[2]
+    st = GK.launch_forward_stash(cfg, x, ws, bs, slabs, bf16=True)[2]
     runs = {"split": lambda p: flat(GK.launch_backward_split(
                 cfg, x, ws, bs, ct_out, ct_g, p, bf16=True)),
             "stash": lambda p: flat(GK.launch_backward_stash(
@@ -410,7 +454,7 @@ def test_k1_bwd_chains_wgmma_bf16(cuda_device, n):
                                [t.float() for t in ref], names)
         assert all(torch.equal(a, b) for a, b in zip(got, again)), name
         for pack in (None, GK.make_bwd_slabs(cfg, ws, bf16=False),
-                     (TP.pack_weights_bf16(ws),) * 2):
+                     (_row_major(ws),) * 2):
             with pytest.raises(ValueError):
                 run(pack)
     k1 = flat(GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g, slabs,
@@ -627,7 +671,7 @@ def test_k3_fwd_is_deterministic(cuda_device):
                           pack=RK.make_fwd_pack(cfg, ws))
     b = RK.launch_forward(cfg, ws, bs, *inputs, pack=kw.sweep32)
     assert torch.equal(a, b)
-    for pack in (None, kw.rev32, TP.pack_weights(ws)):
+    for pack in (None, kw.rev32, _row_major(ws)):
         with pytest.raises(ValueError):
             RK.launch_forward(cfg, ws, bs, *inputs, pack=pack)
 
@@ -655,7 +699,7 @@ def test_k3_bwd_reads_only_its_f32_slabs(cuda_device):
     assert [tuple(m.shape) for m in masks] == [
         (inputs[0].shape[0], 256)] * 4
     for pack in (None, RK.make_bwd_slabs(cfg, ws),
-                 (TP.pack_weights(ws),) * 2):
+                 (_row_major(ws),) * 2):
         with pytest.raises(ValueError):
             RK.launch_backward(cfg, ws, bs, *inputs, ct, pack=pack)
     with pytest.raises(ValueError, match="slabs"):
@@ -711,11 +755,12 @@ def test_step_launches_each_kernel_once_and_k2_four_times(cuda_device):
                                                                  1, 1]
 
 
-def _bf16_runs(cfg, ws, bs, x, ct_out, ct_g, pack):
+def _bf16_runs(cfg, ws, bs, x, ct_out, ct_g, slabs):
     """Each bf16 K1 kernel and its plain twin: {name: (launch, twin)}, the
-    kernels' outputs as lists of tensors."""
+    kernels' outputs as lists of tensors; ``slabs``: the bf16 slab packs
+    of ws."""
     flat = lambda r: [r[0], *r[1], *r[2]]
-    st_k = GK.launch_forward_stash(cfg, x, ws, bs, pack, bf16=True)[2]
+    st_k = GK.launch_forward_stash(cfg, x, ws, bs, slabs, bf16=True)[2]
     tw_f = list(GK.geometry_plain(ws, bs, x, cfg, bf16=True))
     tw_b = flat(GK.geometry_bwd_plain(ws, bs, x, ct_out, ct_g, cfg,
                                       bf16=True))
@@ -723,7 +768,7 @@ def _bf16_runs(cfg, ws, bs, x, ct_out, ct_g, pack):
         "fwd": (lambda: list(GK.launch_forward(
             cfg, x, ws, bs, GK.make_bwd_slabs(cfg, ws), bf16=True)), tw_f),
         "fwd_stash": (lambda: list(GK.launch_forward_stash(
-            cfg, x, ws, bs, pack, bf16=True)[:2]), tw_f),
+            cfg, x, ws, bs, slabs, bf16=True)[:2]), tw_f),
         "bwd": (lambda: flat(GK.launch_backward(
             cfg, x, ws, bs, ct_out, ct_g, GK.make_bwd_slabs(cfg, ws),
             bf16=True)), tw_b),
@@ -756,7 +801,7 @@ def test_bf16_kernels_match_twins(cuda_device, case):
     L = len(ws)
     names_b = ["ct_x"] + [f"dW{l}" for l in range(L)] + [
         f"db{l}" for l in range(L)]
-    pack = GK.make_pack(ws, bf16=True)
+    pack = GK.make_bwd_slabs(cfg, ws)
     for name, (run, twin) in _bf16_runs(cfg, ws, bs, x, ct_out, ct_g,
                                          pack).items():
         got, again = run(), run()
@@ -803,7 +848,7 @@ def test_k1_bwd_bf16_wgmma_matches_twin(cuda_device, n):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     with pytest.raises(ValueError, match="wgmma"):
         GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g,
-                           (GK.make_pack(ws, True),) * 2, bf16=True)
+                           (_row_major(ws),) * 2, bf16=True)
     with pytest.raises(ValueError, match="none was given"):
         GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g, None, bf16=True)
 
@@ -927,7 +972,7 @@ def test_f32_mode_builds_the_f32_slabs(cuda_device):
     weights = net.kernel_weights()
     assert weights.sweep32[1].operand == "wgmma-f32"
     assert weights.rev32[1].operand == "wgmma-f32-rev"
-    assert weights.rev16 is None and weights.pack is None
+    assert weights.rev16 is None and "pack" not in weights._fields
     with torch.no_grad():
         assert net.kernel_weights().rev32 is not None
         assert net.kernel_weights(k1=False).rev32 is None
@@ -938,7 +983,7 @@ def test_f32_mode_builds_the_f32_slabs(cuda_device):
      + s.abs().mean()).backward()
     assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 0]
     with pytest.raises(ValueError, match="slabs"):
-        GK.geometry(weights.ws, weights.bs, x, cfg, pack=weights.pack)
+        GK.geometry(weights.ws, weights.bs, x, cfg)
     net.requires_grad_(False)
     assert net.kernel_weights().rev32 is not None
 
@@ -953,12 +998,13 @@ def test_bf16_mode_launches_the_bf16_kernels(cuda_device):
     cfg, _, _, x = _net(CASES[0], cuda_device)
     net = SDFNetwork(cfg, torch.Generator().manual_seed(0)).to(cuda_device)
     weights = net.kernel_weights(bf16=True)
-    assert weights[2] is None and weights[3] is None and weights[7] is None
-    assert weights[6][1].operand == "wgmma-f32"
-    assert weights[4][1].operand == "wgmma-bf16"
-    assert weights[5][1].operand == "wgmma-bf16-rev"
+    assert not {"pack", "pack16"} & set(weights._fields)
+    assert weights.rev32 is None
+    assert weights.sweep32[1].operand == "wgmma-f32"
+    assert weights.sweep16[1].operand == "wgmma-bf16"
+    assert weights.rev16[1].operand == "wgmma-bf16-rev"
     with torch.no_grad():
-        assert net.kernel_weights(bf16=True)[5][1].operand == \
+        assert net.kernel_weights(bf16=True).rev16[1].operand == \
             "wgmma-bf16-rev"
     kernels = (GK.K1_FWD, GK.K1_BWD, GK.K1_FWD_BF16, GK.K1_BWD_BF16)
     before = [k.launches for k in kernels]
@@ -1076,7 +1122,7 @@ def test_k3_bwd_bf16_wgmma_matches_twin(cuda_device, n):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     with pytest.raises(ValueError, match="wgmma"):
         RK.launch_backward(cfg, ws, bs, *inputs, ct,
-                           pack=(TP.make_pack(ws, True),) * 2, bf16=True)
+                           pack=(_row_major(ws),) * 2, bf16=True)
     with pytest.raises(ValueError, match="none was given"):
         RK.launch_backward(cfg, ws, bs, *inputs, ct, bf16=True)
 
@@ -1109,14 +1155,15 @@ def test_bf16_switches_launch_the_bf16_kernels(cuda_device):
                RK.K3_FWD_BF16, RK.K3_BWD_BF16)
     geo = TR.Stage1Model(cfg, seed=0).to(cuda_device)
     weights = geo.kernel_weights(True, True)
-    assert [w[2:4] for w in weights] == [(None, None)] * 2
-    assert [w[1].operand for w in weights[1][4:6]] == [
-        "wgmma-bf16-rad", "wgmma-bf16-rad-rev"]
-    assert weights[1][6:] == (None, None)
+    assert not any({"pack", "pack16"} & set(w._fields) for w in weights)
+    assert [w[1].operand for w in (weights[1].sweep16, weights[1].rev16)] \
+        == ["wgmma-bf16-rad", "wgmma-bf16-rad-rev"]
+    assert (weights[1].sweep32, weights[1].rev32) == (None, None)
     with torch.no_grad():
         no_grad = geo.kernel_weights(True, True)[1]
-        assert no_grad[4][1].operand == "wgmma-bf16-rad"
-        assert no_grad[5:] == (None,) * 3
+        assert no_grad.sweep16[1].operand == "wgmma-bf16-rad"
+        assert (no_grad.rev16, no_grad.sweep32, no_grad.rev32) == \
+            (None,) * 3
     before = [k.launches for k in kernels]
     out = TR.render(geo, cfg, o, d, near, far, weights=weights)
     (out["color_fine"].sum() + out["gradient_error"].sum()).backward()

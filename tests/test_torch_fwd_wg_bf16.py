@@ -4,8 +4,8 @@ tile, their launches refuse to run without their slab packs (before any
 CUDA call), the reverse sweep's first step reads W_last's row 0 where the
 kernel reads it in the reverse slab pack, and which packs kernel_weights
 builds for the bf16 mode: the slab packs wherever the kernels run, with
-grad or without, and the bf16 mma.sync pack (tc_pack.pack_weights_bf16)
-only under the switches of K1's variants.  The kernels are held against
+grad or without, under either switch, and no other pack.  The kernels
+are held against
 their twins on a card by chip_smoke.py and tests/test_torch_cuda.py; the
 bf16 stage-1 step against the JAX package's by
 tests/test_torch_bf16_sweep.py.
@@ -13,6 +13,8 @@ tests/test_torch_bf16_sweep.py.
 import numpy as np
 import pytest
 import torch
+
+from util_packs import ROW_MAJOR
 
 from factored_neus_tpu_torch.models import fields as TF
 from factored_neus_tpu_torch.models.fields import (RenderingConfig,
@@ -103,8 +105,7 @@ def test_fwd_bf16_launches_raise_without_their_slab_packs():
                           GK.make_bwd_slabs(SDF_CFG, ws, bf16=False),
                           bf16=True)
     with pytest.raises(ValueError, match="wgmma-bf16 slabs"):
-        GK.launch_forward(SDF_CFG, x, ws, bs,
-                          (TP.pack_weights_bf16(ws), None), bf16=True)
+        GK.launch_forward(SDF_CFG, x, ws, bs, (ROW_MAJOR, None), bf16=True)
     with pytest.raises(ValueError, match="takes make_bwd_slabs"):
         GK.fwd_wg16_plan(SDF_CFG, ws, 5,
                          GK.make_bwd_slabs(SDF_CFG, ws, bf16=False), 132)
@@ -119,8 +120,7 @@ def test_fwd_bf16_launches_raise_without_their_slab_packs():
     rin = [torch.zeros(5, 3)] * 3 + [torch.zeros(5, RAD_CFG.d_feature)]
     with pytest.raises(ValueError, match="make_fwd_pack"):
         RK.launch_forward(RAD_CFG, rws, rbs, *rin, pack=None, bf16=True)
-    for other in (RK.make_fwd_pack(RAD_CFG, rws),
-                  TP.pack_weights_bf16(rws)):
+    for other in (RK.make_fwd_pack(RAD_CFG, rws), ROW_MAJOR):
         with pytest.raises(ValueError, match="wgmma-bf16-rad slabs"):
             RK.launch_forward(RAD_CFG, rws, rbs, *rin, pack=other,
                               bf16=True)
@@ -151,14 +151,8 @@ def test_reverse_seed_reads_w_last_row_0_from_the_reverse_pack():
 
 @pytest.fixture
 def card(monkeypatch):
-    """kernel_weights as on a card (the packs built on the CPU), the bf16
-    mma.sync pack's builds counted."""
-    calls = []
-    inner = TP.pack_weights_bf16
+    """kernel_weights as on a card (the packs built on the CPU)."""
     monkeypatch.setattr(TF, "_on_card", lambda t: True)
-    monkeypatch.setattr(TP, "pack_weights_bf16",
-                        lambda ws: calls.append(1) or inner(ws))
-    return calls
 
 
 def _built(kw):
@@ -171,13 +165,11 @@ def test_bf16_kernel_weights_build_the_slab_packs(card, monkeypatch, switch,
                                                   grad):
     """The bf16 mode's kernel weights, with grad (a step) or without (a
     validation image): the SDF network's carry sweep16 and rev16 wherever
-    K1-fwd-bf16 runs (not under the stash switch; K1-bwd-split-bf16 reads
-    them too) and, under the stash switch, where a backward can follow
-    (with grad: K1-bwd-stash-bf16), and the bf16 mma.sync pack
-    (pack_weights_bf16, pack16) only under the stash switch, which reaches
-    K1-fwd-stash-bf16 on mma.sync; the radiance MLP's carry K3-fwd-bf16's
-    sweep16 (and, with grad, K3-bwd-bf16's rev16) and never a bf16
-    mma.sync pack."""
+    K1 runs in the mode (K1-fwd-bf16, which K1-bwd-bf16 and
+    K1-bwd-split-bf16 follow, or under the stash switch K1-fwd-stash-bf16
+    and K1-bwd-stash-bf16), and no other pack (KernelWeights has no field
+    for a bf16 mma.sync pack); the radiance MLP's carry K3-fwd-bf16's
+    sweep16 (and, with grad, K3-bwd-bf16's rev16)."""
     if switch:
         monkeypatch.setattr(GK, "STASH_BWD" if switch == "stash"
                             else "STACKED_BWD", switch == "stash")
@@ -186,17 +178,12 @@ def test_bf16_kernel_weights_build_the_slab_packs(card, monkeypatch, switch,
     with torch.set_grad_enabled(grad):
         kw = net.kernel_weights(bf16=True, f32=False)
         rkw = rnet.kernel_weights(bf16=True, f32=False)
-    slabs_built = switch != "stash" or grad
-    want = {"sweep16", "rev16"} if slabs_built else set()
-    if switch == "stash":
-        want.add("pack16")
-    assert _built(kw) == want
-    assert len(card) == (1 if switch == "stash" else 0)
-    if slabs_built:
-        slabs = TF.bwd_slabs(kw, True)
-        assert GK.fwd_wg16_plan(SDF_CFG, ws, 100, slabs, 132)["tiles"] == 2
-        assert torch.equal(slabs[0][0], GK.make_sweep_pack(SDF_CFG, ws)[0])
+    assert _built(kw) == {"sweep16", "rev16"}
+    assert "pack16" not in kw._fields
+    slabs = TF.bwd_slabs(kw, True)
+    assert GK.fwd_wg16_plan(SDF_CFG, ws, 100, slabs, 132,
+                            switch == "stash")["tiles"] == 2
+    assert torch.equal(slabs[0][0], GK.make_sweep_pack(SDF_CFG, ws)[0])
     assert _built(rkw) == ({"sweep16", "rev16"} if grad else {"sweep16"})
     assert torch.equal(TF.sweep_pack(rkw, True)[0],
                        RK.make_fwd_pack(RAD_CFG, rws, bf16=True)[0])
-    assert len(card) == (1 if switch == "stash" else 0)

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from test_torch_render import port_config, tiny_config
+from util_packs import ROW_MAJOR
 from util_threads import one_thread  # noqa: F401 (autouse)
 
 from factored_neus_tpu.models import fields as JF
@@ -92,8 +93,8 @@ def test_fwd_wg_plan_covers_every_tile(n):
     of 64 points, one block a tile up to one a SM, a scratch of sigma(100
     a) for each block's eight hidden layers, shared memory within a
     block's 227 KB; its integer arguments name both packs' layouts and the
-    last layer's slab width; the bf16 mode's packs and the 3xTF32 pack are
-    refused."""
+    last layer's slab width; the bf16 mode's packs and a row-major 3xTF32
+    layout are refused."""
     cfg, ws, _ = _net("full width")
     slabs = GK.make_bwd_slabs(cfg, ws, bf16=False)
     (_, flay), (_, rlay) = slabs
@@ -108,7 +109,7 @@ def test_fwd_wg_plan_covers_every_tile(n):
     assert p["iargs"][6 + 2 * L:6 + 3 * L] == flay.enc
     assert p["iargs"][6 + 3 * L:6 + 5 * L] == [*flay.off, *rlay.off]
     assert p["iargs"][-L - 1:] == [48] + [256] * (L - 1) + [264]
-    for bad in (GK.make_bwd_slabs(cfg, ws), (TP.make_pack(ws),) * 2):
+    for bad in (GK.make_bwd_slabs(cfg, ws), (ROW_MAJOR,) * 2):
         with pytest.raises(ValueError, match="wgmma"):
             GK.fwd_wg_plan(cfg, ws, n, bad, sms)
         with pytest.raises(ValueError, match="wgmma-f32"):
@@ -176,8 +177,6 @@ def on_card(monkeypatch):
     the list of networks whose f32 slabs were built."""
     built = []
     monkeypatch.setattr(TF, "_on_card", lambda t: True)
-    monkeypatch.setattr(TP, "pack_weights", lambda ws: ("pack",))
-    monkeypatch.setattr(TP, "pack_weights_bf16", lambda ws: ("pack16",))
     monkeypatch.setattr(TP, "pack_rev_bf16", lambda ws, d: ("rev16",))
     monkeypatch.setattr(SK, "make_sweep_pack", lambda cfg, ws, bf16=True: (
         "sweep16",) if bf16 else ("sweep32",))
@@ -197,11 +196,10 @@ def test_no_grad_kernel_weights_ask_for_f32_slabs(on_card, monkeypatch):
     its two slab packs: a validation image's (Stage1Model.kernel_weights
     under no_grad) and a stage-2 or stage-3 run's (Stage2Model's, built
     once); the radiance MLP's K3-bwd slabs only where a backward can
-    follow.  The sweeps alone (value_sweep, the grid fill) and the stash
-    switch without grad build none of them, only K2's forward slab pack
-    (sweep32, with K1-fwd-stash's 3xTF32 pack under the switch); with
-    grad the stash switch builds both, which K1-bwd-stash reads; the bf16
-    mode builds none."""
+    follow.  The sweeps alone (value_sweep, the grid fill) build none of
+    them, only K2's forward slab pack (sweep32); the stash switch builds
+    both with grad or without, which K1-fwd-stash reads (and K1-bwd-stash
+    after it); the bf16 mode builds none."""
     cfg = port_config(tiny_config())
     stage1 = TR.Stage1Model(cfg)
     with torch.no_grad():
@@ -219,16 +217,16 @@ def test_no_grad_kernel_weights_ask_for_f32_slabs(on_card, monkeypatch):
     del on_card[:]
     net = stage1.sdf
     kw = net.kernel_weights(k1=False)
-    assert (kw.sweep32, kw.rev32, kw.pack) == (("sweep32",), None, None)
+    assert (kw.sweep32, kw.rev32) == (("sweep32",), None)
     MEXT.sdf_grid_query(net)
     with torch.no_grad():
         assert net.kernel_weights(bf16=True, f32=False).sweep32 is None
     monkeypatch.setattr(GK, "STASH_BWD", True)
     with torch.no_grad():
         kw = net.kernel_weights()
-    assert (kw.sweep32, kw.rev32, kw.pack) == (("sweep32",), None, ("pack",))
-    assert on_card == []
-    kw = net.kernel_weights()
-    assert (kw.sweep32, kw.rev32, kw.pack) == (("sweep",), ("rev",),
-                                               ("pack",))
+    assert (kw.sweep32, kw.rev32) == (("sweep",), ("rev",))
     assert on_card == [("sdf", False)]
+    kw = net.kernel_weights()
+    assert (kw.sweep32, kw.rev32) == (("sweep",), ("rev",))
+    assert on_card == [("sdf", False)] * 2
+    assert "pack" not in kw._fields

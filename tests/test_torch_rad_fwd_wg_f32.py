@@ -18,6 +18,7 @@ import torch
 
 from test_torch_radiance import _setup
 from test_torch_rad_wg_f32 import _inputs, _net
+from util_packs import ROW_MAJOR
 from util_threads import one_thread  # noqa: F401 (autouse)
 
 from factored_neus_tpu.ops import pallas_radiance as PR
@@ -72,15 +73,13 @@ def test_k3_fwd_plan_covers_every_tile(n):
 
 def test_k3_fwd_refuses_other_packs_and_none():
     """K3-fwd takes its f32 slab pack only: K3-bwd-bf16's slab pack, the
-    reverse f32 pack, the 3xTF32 and bf16 mma.sync packs and the pack of
-    another network are refused; a launch, and K3-fwd-bf16's, given no
-    pack raises before it reads the tensors (on a CUDA tensor it never
-    builds one)."""
+    reverse f32 pack, a row-major layout and the pack of another network
+    are refused; a launch, and K3-fwd-bf16's, given no pack raises before
+    it reads the tensors (on a CUDA tensor it never builds one)."""
     cfg, ws, bs = _net("full width")
     bad = [RK.make_bwd_slabs(cfg, ws)[0][1],
            RK.make_bwd_slabs(cfg, ws, bf16=False)[1][1],
-           TP.pack_layout([w.shape[1] for w in ws],
-                          [w.shape[0] for w in ws])]
+           ROW_MAJOR[1]]
     for lay in bad:
         with pytest.raises(ValueError, match="wgmma"):
             RK.fwd_wg_plan(cfg, ws, 64, lay, 132)

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from test_torch_radiance import SIZES
+from util_packs import ROW_MAJOR
 
 from factored_neus_tpu.models import fields as JF
 from factored_neus_tpu.ops import pallas_radiance as PR
@@ -138,9 +139,7 @@ def test_rad_bwd_wg_plan_covers_every_tile(n):
     assert RK.bwd_wg_plan(cfg, ws, n, slabs, sms, masks=True)[
         "mask_words"] == p["n_pass"] * p["nc"] * 128 * 4 * 4
     with pytest.raises(ValueError, match="wgmma"):
-        RK.bwd_wg_plan(cfg, ws, n, ((None, TP.pack_layout(ins, outs,
-                                                          "bf16")),) * 2,
-                       sms)
+        RK.bwd_wg_plan(cfg, ws, n, (ROW_MAJOR,) * 2, sms)
     other = [int(w.shape[1]) for w in _net("1 x 64")[1]], [
         int(w.shape[0]) for w in _net("1 x 64")[1]], 33
     with pytest.raises(ValueError, match="layouts"):

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from test_torch_radiance import SIZES
+from util_packs import ROW_MAJOR
 from util_threads import one_thread  # noqa: F401 (autouse)
 
 from factored_neus_tpu.models import fields as JF
@@ -169,8 +170,7 @@ def test_rad_f32_plan_covers_every_tile(n):
     assert RK.bwd_wg_plan(cfg, ws, n, slabs, sms, masks=True)[
         "mask_words"] == tiles * 256 * 4 * 2
     with pytest.raises(ValueError, match="wgmma"):
-        RK.bwd_wg_plan(cfg, ws, n, ((None, TP.pack_layout(ins, outs)),) * 2,
-                       sms)
+        RK.bwd_wg_plan(cfg, ws, n, (ROW_MAJOR,) * 2, sms)
     with pytest.raises(ValueError, match="wgmma-f32-rad"):
         RK._launch_backward_wg(cfg, ws, [], *([torch.zeros(n, 3)] * 4), None,
                                RK.make_bwd_slabs(cfg, ws), bf16=False)

@@ -6,8 +6,8 @@ every path's shapes and its refusals, the design's accumulation
 the float64 twin at chip_smoke's 1e-5 abs, the same arithmetic and the
 twin at a small width against the JAX package's sdf_forward_pallas
 (interpret mode, narrowed and full), and which packs kernel_weights builds
-on each path: no 3xTF32 pack (tc_pack.pack_weights) but under the
-switches of K1's variants.  The kernel itself is held against the twin
+on each path: slab packs only, under either switch too.  The kernel
+itself is held against the twin
 on a card by tests/test_torch_cuda.py and chip_smoke.py.
 """
 import functools
@@ -19,6 +19,7 @@ import torch
 
 from test_torch_kernels import _setup
 from test_torch_render import port_config, tiny_config
+from util_packs import ROW_MAJOR
 from util_threads import one_thread  # noqa: F401 (autouse)
 
 from factored_neus_tpu.ops.pallas_sdf import sdf_forward_pallas
@@ -116,14 +117,15 @@ def test_k2_plan_covers_every_tile(n):
 
 
 def test_k2_refuses_other_packs_and_none():
-    """K2 takes the f32 slab pack only: the bf16 slab pack, the 3xTF32 and
-    bf16 mma.sync packs and a pack of other widths are refused, and a
-    launch given no pack raises before it reads the tensor (on a CUDA
-    tensor it never builds one); so does K2-bf16's."""
+    """K2 takes the f32 slab pack only: the bf16 slab pack, K1's f32
+    reverse pack, a row-major layout and a pack of other widths are
+    refused, and a launch given no pack raises before it reads the tensor
+    (on a CUDA tensor it never builds one); so does K2-bf16's."""
     cfg, ws, bs = _net("full width")
     wn, bn = _narrow(ws, bs)
-    for bad in (SK.make_sweep_pack(cfg, ws)[1], TP.make_pack(ws)[1],
-                TP.make_pack(ws, True)[1]):
+    ins, outs = [w.shape[1] for w in ws], [w.shape[0] for w in ws]
+    for bad in (SK.make_sweep_pack(cfg, ws)[1],
+                TP.rev_layout_f32(ins, outs, cfg.d_embed), ROW_MAJOR[1]):
         with pytest.raises(ValueError, match="wgmma"):
             SK.sweep_wg_plan(cfg, wn, 64, bad, 132)
     other = _net("3 x 64, skip")
@@ -184,8 +186,6 @@ def packs(monkeypatch):
     """kernel_weights as on a card, every pack replaced by a marker of its
     kind."""
     monkeypatch.setattr(TF, "_on_card", lambda t: True)
-    monkeypatch.setattr(TP, "pack_weights", lambda ws: ("pack",))
-    monkeypatch.setattr(TP, "pack_weights_bf16", lambda ws: ("pack16",))
     monkeypatch.setattr(TP, "pack_rev_bf16", lambda ws, d: ("rev16",))
     monkeypatch.setattr(SK, "make_sweep_pack", lambda cfg, ws, bf16=True: (
         "sweep16",) if bf16 else ("sweep32",))
@@ -205,7 +205,8 @@ def _built(kw):
 def test_kernel_weights_build_no_3xtf32_pack_on_the_default_path(
         packs, path):
     """The f32 path's kernel weights, built as each caller builds them,
-    carry no 3xTF32 mma.sync pack (tc_pack.pack_weights): K2 reads sweep32,
+    carry no 3xTF32 mma.sync pack (KernelWeights has no field for one):
+    K2 reads sweep32,
     which the SDF network's weights carry wherever K2 or K1-fwd runs, and
     K3-fwd the radiance MLP's sweep32, with or without grad."""
     model = TR.Stage1Model(port_config(tiny_config()))
@@ -230,27 +231,24 @@ def test_kernel_weights_build_no_3xtf32_pack_on_the_default_path(
             MEXT.sdf_grid_query(model.sdf)
         assert _built(sdf) == {"sweep32"}
     assert TF.sweep_pack(sdf, False) == ("sweep32",)
-    assert TF.mode_pack(sdf, False) is None
+    assert "pack" not in sdf._fields
 
 
 @pytest.mark.parametrize("switch", ["stash", "split"])
 def test_kernel_weights_build_the_3xtf32_pack_under_the_switches(
         packs, monkeypatch, switch):
-    """Under the stash switch the SDF network's step weights carry the
-    3xTF32 pack (K1-fwd-stash's) beside the two f32 slab packs (K1-bwd-stash
-    reads them, and K2 the first); under the split switch only the slab
-    packs (K1-fwd's, which K1-bwd-split reads too) and no 3xTF32 pack; the
-    sweeps alone build none; the bf16 mode reads its bf16 pack instead,
-    built only under the stash switch (K1-fwd-stash-bf16's)."""
+    """Under either switch the SDF network's step weights carry the two
+    f32 slab packs and no 3xTF32 pack (KernelWeights has no field for
+    one): K1-fwd-stash and K1-bwd-stash read them under the stash switch,
+    K1-fwd and K1-bwd-split under the split switch, and K2 the first; the
+    sweeps alone build none; the bf16 mode builds its bf16 slab packs
+    instead, under either switch."""
     monkeypatch.setattr(GK, "STASH_BWD" if switch == "stash"
                         else "STACKED_BWD", switch == "stash")
     net = TR.Stage1Model(port_config(tiny_config())).sdf
     kw = net.kernel_weights()
-    stash = switch == "stash"
-    assert _built(kw) == {"sweep32", "rev32"} | ({"pack"} if stash
-                                                 else set())
-    assert TF.mode_pack(kw, False) == (("pack",) if stash else None)
+    assert _built(kw) == {"sweep32", "rev32"}
+    assert "pack" not in kw._fields
     assert _built(net.kernel_weights(k1=False)) == {"sweep32"}
     kw = net.kernel_weights(bf16=True, f32=False)
-    assert "pack" not in _built(kw)
-    assert TF.mode_pack(kw, True) == (("pack16",) if stash else None)
+    assert _built(kw) == {"sweep16", "rev16"}

@@ -1,8 +1,8 @@
 """The arithmetic and weight layout of the tensor-core kernels (K1, K2,
-K3; csrc/tc_mma.cuh), on the CPU: the 3xTF32 emulation of
+K3; 3xTF32 on wgmma), on the CPU: the 3xTF32 emulation of
 ops/tc_pack.py against float64 at the kernels' shapes and the card's
-tolerances, the packed weight buffers the kernels stage from, and their
-shared-memory counts."""
+tolerances, the slab packs the kernels stream, and their shared-memory
+counts."""
 import math
 
 import numpy as np
@@ -22,74 +22,19 @@ from factored_neus_tpu_torch.ops.embedder import positional_encoding
 from factored_neus_tpu_torch.ops.mlp import softplus_beta
 
 
-def _bits(x):
-    return x.contiguous().view(torch.int32)
-
-
-NETS = [SDFConfig(),                                        # full width
-        SDFConfig(n_layers=4, d_hidden=64, d_out=65, skip_in=(2,),
-                  multires=4)]
-
-
-def _check_pack(ws, pack, lay):
-    """big + small == w exactly, big has no bits below TF32's mantissa,
-    padding is zero in both halves, and the blocks tile the half in
-    order, 16-byte aligned, a staged row 8 mod 32."""
-    H = lay.half
-    assert pack.shape == (2 * H,) and pack.dtype == torch.float32
-    big, small = pack[:H], pack[H:]
-    assert torch.equal(_bits(big) & 0x1fff, torch.zeros_like(_bits(big)))
-    assert (small.abs() <= big.abs() * 2.0 ** -11).all()
-    covered = torch.zeros(H, dtype=torch.bool)
-    off = 0
-    for l, w in enumerate(ws):
-        o, i = w.shape
-        kp, np_ = -(-i // 8) * 8, -(-o // 8) * 8
-        for start, stride, rows, cols, want in (
-                (lay.fwd_off[l], lay.fwd_stride[l], kp, np_, w.t()),
-                (lay.rev_off[l], lay.rev_stride[l], np_, kp, w)):
-            assert start == off and start % 8 == 0
-            assert stride % 32 == 8 and cols <= stride < cols + 32
-            n = rows * stride
-            blk = (big + small)[start:start + n].view(rows, stride)
-            assert torch.equal(blk[:want.shape[0], :want.shape[1]], want)
-            pad = torch.ones(rows, stride, dtype=torch.bool)
-            pad[:want.shape[0], :want.shape[1]] = False
-            for half in (big, small):
-                assert not half[start:start + n].view(rows, stride)[pad].any()
-            covered[start:start + n] = True
-            off += n
-    assert off == H and covered.all()
-
-
-@pytest.mark.parametrize("cfg", NETS, ids=["full", "small"])
-def test_pack_layout_and_split(cfg):
-    """The K1 pack (_check_pack), and the offsets and strides the kernels
-    are told."""
-    net = SDFNetwork(cfg, torch.Generator().manual_seed(0))
-    with torch.no_grad():
-        ws, _ = net.effective_weights()
-    pack, lay = TP.pack_weights(ws)
-    _check_pack(ws, pack, lay)
-    H = lay.half
-    iargs, ld = GK.kernel_iargs(cfg, ws, 1000, 7, lay)
-    L = len(ws)
-    assert ld % 8 == 4 and ld >= max(-(-w // 8) * 8 for w in
-                                     [*(x.shape[0] for x in ws),
-                                      *(x.shape[1] for x in ws)])
-    assert iargs[7 + 2 * L:] == [*lay.fwd_off, *lay.fwd_stride,
-                                 *lay.rev_off, *lay.rev_stride, H]
-
-
 def test_k1_refuses_layers_wider_than_its_shared_memory():
-    """The full-width 257 is the widest layer K1 takes; a wider one is
-    refused before any launch."""
+    """The full-width 257 is the widest last layer K1 takes and 256 the
+    widest hidden layer (a 64 KB A tile of f32, 256 columns of a
+    product); a wider one is refused before any launch: the slab packs
+    that every K1 kernel's plan reads cannot be built for it, in either
+    mode."""
     cfg = SDFConfig(n_layers=2, d_hidden=264, d_out=65, skip_in=())
     net = SDFNetwork(cfg, torch.Generator().manual_seed(0))
     with torch.no_grad():
         ws, _ = net.effective_weights()
-    with pytest.raises(ValueError, match="257"):
-        GK.kernel_iargs(cfg, ws, 100, 1, TP.pack_weights(ws)[1])
+    for bf16 in (False, True):
+        with pytest.raises(ValueError, match="hidden widths <= 256"):
+            GK.make_bwd_slabs(cfg, ws, bf16=bf16)
 
 
 def test_tf32_round_and_truncate():
@@ -401,25 +346,21 @@ def test_k2_reads_k1_pack_narrowed():
 
 def test_shared_memory_counts_fit_a_block():
     """The byte counts the kernels' headers state, at full width, all
-    within the 232,448 bytes a block may use: the mma.sync K1 variants
-    from tc_pack.smem_bytes (the mirror of tc_dims_from_args /
-    tc_smem_bytes): K1-fwd-stash 216,064 (encoding, two tiles at 268, ring
-    of stride 264), the stash and split backwards 227,328 (four tiles);
-    K2 on wgmma 214,048 (two 66 KB slab stages, the 64 KB A tile, the
-    encoding tile), narrowed or not; K3-fwd on wgmma 226,336 (two 64 KB
-    stages, the 80 KB A tile); K3-fwd-bf16 on wgmma 229,632 (two
-    consumers' narrow tiles, six 32 KB bf16 slab stages).  A radiance MLP
-    with 288-wide hidden layers is refused before any launch."""
+    within the 232,448 bytes a block may use: K1-fwd and K1-fwd-stash on
+    wgmma 226,336 (two 66 KB slab stages, the 64 KB A tile, the encoding
+    tile and its cotangents); K2 on wgmma 214,048 (two 66 KB slab stages,
+    the 64 KB A tile, the encoding tile), narrowed or not;
+    K3-fwd on wgmma 226,336 (two 64 KB stages, the 80 KB A tile);
+    K3-fwd-bf16 on wgmma 229,632 (two consumers' narrow tiles, six 32 KB
+    bf16 slab stages).  A radiance MLP with 288-wide hidden layers is
+    refused before any launch."""
     cfg = SDFConfig()
     net = SDFNetwork(cfg, torch.Generator().manual_seed(0))
     with torch.no_grad():
         ws, _ = net.effective_weights()
-    _, lay = TP.pack_weights(ws)
-    outs = [w.shape[0] for w in ws]
-    eld = TP.round8(cfg.d_embed) + 4
-    assert eld == 44
-    k1_fwd = TP.smem_bytes(lay, outs, 64 * (eld + 2 * 268))
-    k1_bwd = TP.smem_bytes(lay, outs, 64 * 2 * (eld + 268))
+    slabs = GK.make_bwd_slabs(cfg, ws, bf16=False)
+    k1 = [GK.fwd_wg_plan(cfg, ws, 100, slabs, 1, stash)["sweep_smem"]
+          for stash in (False, True)]
     narrowed = ws[:-1] + [ws[-1][:1]]
     flay = SK.make_sweep_pack(cfg, ws, bf16=False)[1]
     k2 = [SK.sweep_wg_plan(cfg, w, 100, flay, 1)["sweep_smem"]
@@ -430,9 +371,9 @@ def test_shared_memory_counts_fit_a_block():
                         1)["sweep_smem"]
     k3_16 = RK.fwd_wg16_plan(rcfg, rws, 100, RK.make_fwd_pack(
         rcfg, rws, bf16=True)[1], 1)["sweep_smem"]
-    assert (k1_fwd, k1_bwd, k2, k3, k3_16) == (216064, 227328, [214048] * 2,
-                                               226336, 229632)
-    assert max(k1_fwd, k1_bwd, *k2, k3, k3_16) <= TP.SMEM_MAX == 232448
+    assert (k1, k2, k3, k3_16) == ([226336] * 2, [214048] * 2, 226336,
+                                   229632)
+    assert max(*k1, *k2, k3, k3_16) <= TP.SMEM_MAX == 232448
     wide = RenderingConfig(d_hidden=288)
     wws, _, _, _ = _radiance(wide, 1)
     with pytest.raises(ValueError):

@@ -1,16 +1,58 @@
 #!/usr/bin/env python3
-"""Per-phase time of K1-bwd and K1-fwd (csrc/geometry_{bwd_wg,fwd_wg,bwd,
-fwd}.cu) on a GPU.
+"""Per-phase time of K1's wgmma kernels (csrc/geometry_{bwd,fwd}_wg.cu,
+their bf16 sources and the chains' sources) on a GPU.
 
-    python3 tools/k1_bwd_phases.py [--root DIR] [--bf16] [--fwd] [--clocks]
+    python3 tools/k1_bwd_phases.py [--root DIR] [--bf16] [--clocks]
+    python3 tools/k1_bwd_phases.py [--root DIR] [--bf16] --fwd [--stash]
+                                   [--clocks]
     python3 tools/k1_bwd_phases.py [--root DIR] [--bf16] [--split] [--stash]
                                    [--clocks]
 
-``--split``, ``--stash`` (either or both): K1-bwd-split and K1-bwd-stash
-in f32, on wgmma in 3xTF32 (geometry_bwd_chains_wg.cu: a sweep of 64-point
-tiles, each chain's rows one product, K1-bwd's split-K pass and reduce),
-on K1-bwd's two f32 slab packs (the stash's fed K1-fwd-stash's stash),
-from one set of cut copies of the source, with these cuts:
+Each run builds copies of one source with parts cut out (each in
+build/phases/, every header beside it; a cut copy computes garbage: only
+its time is read), launches each through this checkout's wrappers on the
+full-width SDF network at 65,536 points and prints its time (CUDA
+events); ``all`` (nothing cut) runs first and last, as a measure of the
+spread.  DIR: another version of the port (e.g. a parent commit unpacked
+with ``git archive`` into a directory that .gitignore lists) whose
+sources are cut instead; a cut its code does not have fails the build.
+``--clocks``: ``all`` and ``no_products`` (and K1-bwd-bf16's
+``no_softplus``) also run back to back while nvidia-smi samples the SM
+clock and the power draw (k2_bf16_phases.clocks_under).  Prints one line
+a phase, the card's name and power limit, and a JSON summary.
+
+Without ``--fwd``, ``--split`` or ``--stash``: K1-bwd (3xTF32 on wgmma,
+geometry_bwd_wg.cu: a stacked sweep, a split-K weight-gradient pass, a
+reduce), or with ``--bf16`` K1-bwd-bf16 (geometry_bwd_bf16_wg.cu), on its
+two slab packs, with these cuts:
+- ``no_products``: without every wgmma of the sweep and the pass;
+- ``no_wgrad_pass``: the weight-gradient pass not launched;
+- ``no_images``: the sweep writes no X_l / R_l image (the pass reads
+  stale ones);
+- ``no_scratch``: the sweep neither writes nor reads its f32 scratch;
+- ``no_slabs`` (f32): the producer copies no weight slab (each stage is
+  marked full at once: the products read stale slabs);
+- ``no_softplus`` (bf16): each softplus replaced by its argument.
+
+``--fwd``: K1-fwd in f32 (geometry_fwd_wg.cu: the forward through all
+nine layers and the reverse sweep from e0 / scale), or with ``--bf16``
+K1-fwd-bf16 (geometry_fwd_bf16_wg.cu: K2-bf16's forward, csrc/sweep16.cuh,
+and the reverse sweep), on its two slab packs; with ``--stash``
+K1-fwd-stash (K1-fwd-stash-bf16), the same sweep with the bf16 stash
+stored.  The cuts:
+- ``no_products``: without every wgmma;
+- ``no_scratch``: without the f32 scratch of sigma(100 a);
+- ``no_slabs``: the producer copies no weight slab;
+- ``no_softplus``: softplus and sigma(100 a) replaced by the argument and
+  0.5;
+- ``no_stash`` (``--stash``): without the stash's stores.
+
+``--split``, ``--stash`` (either or both, without ``--fwd``):
+K1-bwd-split and K1-bwd-stash in f32, on wgmma in 3xTF32
+(geometry_bwd_chains_wg.cu: a sweep of 64-point tiles, each chain's rows
+one product, K1-bwd's split-K pass and reduce), on K1-bwd's two f32 slab
+packs (the stash's fed K1-fwd-stash's stash), from one set of cut copies
+of the source, with these cuts:
 - ``no_products``: without every wgmma of the sweep and the pass;
 - ``no_wgrad_pass``: the weight-gradient pass not launched;
 - ``no_images``: the sweep writes no X_l / R_l image (the pass and the
@@ -21,20 +63,14 @@ from one set of cut copies of the source, with these cuts:
   (sigma(100 a), ad, the first chain's r W);
 - ``no_epilogues``: softplus and sigma(100 a) replaced by the argument and
   0.5;
-- ``no_slabs``: the sweep's producer copies no weight slab (each stage
-  is marked full at once: the products read stale slabs);
-``--clocks``: ``all`` and ``no_products`` also run back to back while
-nvidia-smi samples the SM clock and the power draw.
-
-``--bf16 --split``, ``--bf16 --stash``: K1-bwd-split-bf16 and
-K1-bwd-stash-bf16 on bf16 wgmma (geometry_bwd_chains_bf16_wg.cu: a sweep
-of 64-point tiles, a consumer warpgroup a chain, K1-bwd-bf16's split-K
-pass and reduce), on K1-bwd-bf16's two slab packs (the stash's fed
-K1-fwd-stash-bf16's stash), from one set of cut copies, with these cuts:
-- ``no_products``: without every wgmma of the sweep and the pass;
-- ``no_wgrad_pass``: the weight-gradient pass not launched;
-- ``no_images``: the sweep writes no X_l / R_l image (the pass reads
-  stale ones);
+- ``no_slabs``: the sweep's producer copies no weight slab.
+With ``--bf16``: K1-bwd-split-bf16 and K1-bwd-stash-bf16 on bf16 wgmma
+(geometry_bwd_chains_bf16_wg.cu: a sweep of 64-point tiles, a consumer
+warpgroup a chain, K1-bwd-bf16's split-K pass and reduce), on
+K1-bwd-bf16's two slab packs (the stash's fed K1-fwd-stash-bf16's stash),
+with these cuts:
+- ``no_products``, ``no_wgrad_pass``, ``no_images``, ``no_slabs``: as
+  above;
 - ``no_scratch``: the sweep neither writes nor reads its f32 scratch
   (sigma(100 a) and ad: the forward's exchange and the reverse's reads);
 - ``no_exchange_bars``: without the forward's bar.sync of the two
@@ -42,85 +78,7 @@ K1-fwd-stash-bf16's stash), from one set of cut copies, with these cuts:
 - ``no_epilogues``: softplus and sigma(100 a) replaced by the argument and
   0.5;
 - ``no_stash_reads``: the stash's pre-activations read as 0 (the stash
-  alone);
-- ``no_slabs``: the producer copies no weight slab (each stage is marked
-  full at once: the products read stale slabs);
-``--clocks`` as above.  A version of DIR without
-geometry_bwd_chains_bf16_wg.cu (the variants on mma.sync) has none of these
-cuts.
-
-``--fwd --bf16``: K1-fwd-bf16 on wgmma (geometry_fwd_bf16_wg.cu: K2-bf16's
-forward, csrc/sweep16.cuh, and the reverse sweep), on its two bf16 slab
-packs, with the cuts of ``--fwd`` below (``no_softplus``: softplus and
-sigma(100 a) replaced by the argument and 0.5).
-
-``--fwd``: K1-fwd in f32, on wgmma in 3xTF32 (geometry_fwd_wg.cu: the
-forward through all nine layers and the reverse sweep from e0 / scale), on
-its two f32 slab packs, with these cuts:
-- ``no_products``: without every wgmma;
-- ``no_scratch``: the sweep neither writes nor reads its f32 scratch of
-  sigma(100 a);
-- ``no_slabs``: the producer copies no weight slab (each stage is marked
-  full at once: the products read stale slabs);
-- ``no_softplus``: softplus and sigma(100 a) replaced by the argument and
-  0.5;
-``--clocks``: ``all`` and ``no_products`` also run back to back while
-nvidia-smi samples the SM clock and the power draw.
-
-K1-bwd in f32 runs on wgmma in 3xTF32 (geometry_bwd_wg.cu: a stacked
-sweep, a split-K weight-gradient pass, a reduce), on its two f32 slab
-packs, with these cuts:
-- ``no_products``: without every wgmma of the sweep and the pass;
-- ``no_wgrad_pass``: the weight-gradient pass not launched;
-- ``no_images``: the sweep writes no X_l / R_l image (the pass reads
-  stale ones);
-- ``no_scratch``: the sweep neither writes nor reads its f32 scratch;
-- ``no_slabs``: the sweep's producer copies no weight slab (each stage
-  is marked full at once: the products read stale slabs);
-``--clocks``: ``all`` and ``no_products`` also run back to back while
-nvidia-smi samples the SM clock and the power draw.  A version of DIR
-without geometry_bwd_wg.cu (K1-bwd on mma.sync, geometry_bwd.cuh) gets
-the cuts below instead.
-
-Builds copies of DIR's factored_neus_tpu_torch/csrc kernels (default: this
-checkout) into build/phases/, each with one phase cut out, and times them
-with CUDA events at the main path's shapes (full-width SDF, 65,536 points,
-as chip_smoke.py).  K1-bwd (stacked):
-- ``all``: the kernel as it is;
-- ``no_weight_grad``: without the weight-gradient products X^T R and their
-  read-modify-write of the per-block partial slice;
-- ``no_slice_traffic``: with the products but without the slice's copies
-  between device and shared memory;
-- ``no_input_cot``: without the input-cotangent products R W^T;
-- ``no_forward``: without the stacked forward products X W;
-- ``no_products``: without all three (what is left: encoding, elementwise
-  work, scratch traffic, bias sums, barriers).
-K1-fwd: ``all`` and ``no_products``.  The cuts match the tensor-core
-kernels (tc_mma.cuh's products).  A cut copy computes garbage: only its
-time is read.  The kernels are called through DIR's own wrappers
-(ops/geometry_kernel.launch_backward, launch_forward), so DIR may hold
-another version of the port, e.g. a parent commit unpacked with ``git
-archive``; a phase whose code the version does not have (a version whose
-K1 multiplies on the CUDA cores has none but ``all``) is reported as not
-applicable.  ``--bf16``: K1's bf16 operand mode: K1-fwd-bf16 with the
-same cuts on the bf16 pack (a version before geometry_fwd_bf16_wg.cu;
-since, K1-fwd-bf16 runs on wgmma and its cuts are not applicable), and
-K1-bwd-bf16, which runs on
-wgmma (geometry_bwd_bf16_wg.cu: a stacked sweep, a split-K weight-gradient
-pass, a reduce), on its two slab packs, with its own cuts:
-- ``no_products``: without every wgmma of the sweep and the pass;
-- ``no_wgrad_pass``: the weight-gradient pass not launched;
-- ``no_images``: the sweep writes no X_l / R_l image (the pass reads
-  stale ones);
-- ``no_scratch``: the sweep neither writes nor reads its f32 scratch;
-- ``no_softplus``: each softplus replaced by its argument;
-and ``--clocks``: ``all``, ``no_products`` and ``no_softplus`` also run
-back to back while nvidia-smi samples the SM clock and the power draw
-(k2_bf16_phases.clocks_under).  A version of DIR without
-geometry_bwd_bf16_wg.cu has none of these but ``all`` (the mma.sync
-body's cuts apply there instead).  ``all`` is timed first and last, as
-a measure of the spread.  Prints one line per phase, the card's name and
-power limit, and a JSON summary.
+  alone).
 """
 import ctypes
 import json
@@ -133,30 +91,6 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(HERE, "build", "phases")
 N_CORE = 512 * 128
-BWD, FWD = "geometry_bwd.cu", "geometry_fwd.cu"
-# K1-bwd's body: its own source, or (since the bf16 mode) a header that
-# the f32 and bf16 entry points share; the cuts go to whichever DIR has
-BWD_BODY = (BWD, "geometry_bwd.cuh")
-WG = [(f, r"\n\s*tc_weight_grad(?:<BF>)?\(.*?\);") for f in BWD_BODY]
-IC = [(f, r"\n\s*bwd_input_cot<MODE(?:, BF)?>\(.*?\);") for f in BWD_BODY]
-FW = [(f, r"\n\s*bwd_forward<MODE(?:, BF)?>\(.*?\);") for f in BWD_BODY]
-# (kernel source, phase): (file, regular expression) pairs whose matches are
-# cut (the tensor-core kernels of tc_mma.cuh), where DIR has the file; at
-# least one must match
-CUTS = {
-    (BWD, "all"): [],
-    (BWD, "no_weight_grad"): WG,
-    (BWD, "no_slice_traffic"): [("tc_mma.cuh",
-                                 r"rows\.copy<(?:true|false)>\(\);")],
-    (BWD, "no_input_cot"): IC,
-    (BWD, "no_forward"): FW,
-    (BWD, "no_products"): WG + IC + FW,
-    (FWD, "all"): [],
-    (FWD, "no_products"): [(FWD, r"\n\s*tc_product<2(?:, BF)?>\(.*?\);")],
-}
-ORDER = [(BWD, p) for p in ("all", "no_weight_grad", "no_slice_traffic",
-                            "no_input_cot", "no_forward", "no_products",
-                            "all")] + [(FWD, "all"), (FWD, "no_products")]
 # K1-bwd-bf16 on wgmma: (files, regular expression, replacement) triples;
 # a cut applies to each of its files that the version has (the slab ring,
 # image writers and pass moved from the kernel's source into wg_bwd.cuh,
@@ -209,8 +143,8 @@ SHARED_G = (GFW, "wgf.cuh")
 CUTS_GFW = {
     "all": [],
     "no_products": [(SHARED_G, r"tf32_mma(?:_ss)?<N>\([^;]*;", ";"),
-                    ((GFW,), r"wgmma_tf32_(?:ss_)?n(?:128|8)\(acc8?,[^;]*;",
-                     ";")],
+                    (SHARED_G, r"wgmma_tf32_(?:ss_)?n(?:128|8)\(acc8?,"
+                     r"[^;]*;", ";")],
     "no_scratch": [((GFW,), r"sl\[q \* 256\] = make_float4[^;]*;", ";"),
                    ((GFW,), r"const float4 v = sl\[q \* 256\];",
                     "const float4 v = make_float4(0.5f, 0.5f, 0.5f, 0.5f);"),
@@ -242,6 +176,11 @@ CUTS_G16 = {
     "no_softplus": [(SHARED_16, r"sp_sig100_sfu\(pre, v\[e\], s\[e\]\);",
                      "{ v[e] = pre; s[e] = 0.5f; }")],
 }
+# --fwd --stash: K1-fwd-stash's (K1-fwd-stash-bf16's) stash stores cut
+NO_STASH = {False: [((GFW,), r"if \(st\) st\[col\] = __float2bfloat16_rn"
+                     r"\(a\);", ";")],
+            True: [(SHARED_16, r"if \(st && c < W\) st\[c\] = "
+                    r"__float2bfloat16_rn\(pre\);", ";")]}
 ORDER_WGF = ["all", "no_products", "no_wgrad_pass", "no_images",
              "no_scratch", "no_slabs", "all"]
 # K1-bwd-split and K1-bwd-stash on wgmma in 3xTF32 (--split, --stash): one
@@ -310,11 +249,10 @@ def build_cut(root: str, src: str, cuts: dict, name: str) -> dict:
     build/phases/<name>/<phase>/ with every header beside it: {phase:
     library}; each cut must match."""
     sys.path.insert(0, root)
-    from factored_neus_tpu_torch.ops import _cuda
     csrc = os.path.join(root, "factored_neus_tpu_torch", "csrc")
     if not os.path.exists(os.path.join(csrc, src)):
         return {}
-    libs, procs = {}, []
+    libs, jobs = {}, []
     for phase, phase_cuts in cuts.items():
         files = {src, *(f for f in os.listdir(csrc) if f.endswith(".cuh"))}
         texts = {f: open(os.path.join(csrc, f)).read() for f in files}
@@ -333,15 +271,48 @@ def build_cut(root: str, src: str, cuts: dict, name: str) -> dict:
             with open(os.path.join(d, f), "w") as fh:
                 fh.write(text)
         libs[phase] = os.path.join(d, "lib.so")
-        procs.append((phase, subprocess.Popen(
-            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", libs[phase],
-             os.path.join(d, src)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
-    for phase, p in procs:
+        jobs.append((phase, os.path.join(d, src), libs[phase]))
+    nvcc_all(jobs, spills=False)
+    return libs
+
+
+def nvcc_all(jobs, mine=(), spills: bool = True) -> None:
+    """Compiles each (label, source, library) of ``jobs`` with nvcc, all
+    started together and while this checkout's sources ``mine`` build
+    (_cuda.build_all); raises with nvcc's output if one fails.
+    ``spills``: prints each build's ptxas lines that report spills."""
+    from factored_neus_tpu_torch.ops import _cuda
+    procs = [(label, subprocess.Popen(
+        [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib, src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for label, src, lib in jobs]
+    if mine:
+        _cuda.build_all(mine)
+    for label, p in procs:
         log, _ = p.communicate()
         if p.returncode:
-            raise RuntimeError(f"nvcc failed for {phase}:\n{log}")
-    return libs
+            raise RuntimeError(f"nvcc failed for {label}:\n{log}")
+        for line in log.splitlines():
+            if spills and "spill" in line:
+                print(f"  {label} ptxas: {line.strip()}")
+
+
+def time_in_turns(kernel, order, libs: dict, run, reps: int,
+                  others: dict = None) -> dict:
+    """Each name of ``order`` timed once, in that order (CUDA events,
+    chip_smoke.cuda_ms over ``reps`` calls): ``others[name]`` where
+    given, else ``run`` with ``kernel`` bound to ``libs[name]`` (to this
+    checkout's build for a name libs lacks): {name: [ms, ...]}."""
+    import chip_smoke
+    got = {}
+    for name in order:
+        kernel._fn = None
+        if name in libs:
+            _bind(kernel, libs[name], kernel.symbol)
+        got.setdefault(name, []).append(
+            chip_smoke.cuda_ms((others or {}).get(name, run), reps))
+    kernel._fn = None
+    return got
 
 
 def build_wg(root: str, bf16: bool = True) -> dict:
@@ -361,60 +332,21 @@ def _bind(kernel, lib: str, symbol: str) -> None:
     kernel._fn = fn
 
 
-def build(root: str, bwd_entry: str = BWD) -> dict:
-    """Writes and compiles the cut copies; returns {(source, phase):
-    library}, without the phases this version has no code for.
-    ``bwd_entry``: the source that is compiled for K1-bwd's cuts (its
-    body's cuts apply where they match)."""
-    sys.path.insert(0, root)
-    from factored_neus_tpu_torch.ops import _cuda
-    csrc = os.path.join(root, "factored_neus_tpu_torch", "csrc")
-    libs, procs = {}, []
-    for (src, phase), cuts in CUTS.items():
-        entry = bwd_entry if src == BWD else src
-        if not os.path.exists(os.path.join(csrc, entry)):
-            continue
-        cuts = [(f, pat) for f, pat in cuts
-                if os.path.exists(os.path.join(csrc, f))]
-        # every header is copied beside the entry, so that an include
-        # inside a header finds the cut copy, not the source's
-        files = {entry, *(f for f, _ in cuts),
-                 *(f for f in os.listdir(csrc) if f.endswith(".cuh"))}
-        texts = {f: open(os.path.join(csrc, f)).read() for f in files}
-        n = 0
-        for f, pat in cuts:
-            texts[f], k = re.subn(pat, ";", texts[f], flags=re.S)
-            n += k
-        if CUTS[src, phase] and n == 0:
-            continue
-        d = os.path.join(OUT, os.path.splitext(src)[0], phase)
-        shutil.rmtree(d, ignore_errors=True)
-        os.makedirs(d)
-        for f, text in texts.items():
-            with open(os.path.join(d, f), "w") as fh:
-                fh.write(text)
-        lib = os.path.join(d, "lib.so")
-        libs[(src, phase)] = lib
-        procs.append((phase, subprocess.Popen(
-            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib,
-             os.path.join(d, entry)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
-    for phase, p in procs:
-        log, _ = p.communicate()
-        if p.returncode:
-            raise RuntimeError(f"nvcc failed for {phase}:\n{log}")
-    return libs
-
-
-def fwd_main(root: str, clocks: bool, bf16: bool = False) -> int:
+def fwd_main(root: str, clocks: bool, bf16: bool = False,
+             stash: bool = False) -> int:
     """--fwd: K1-fwd on wgmma, phase by phase (CUTS_GFW); with --bf16
-    K1-fwd-bf16 (CUTS_G16)."""
+    K1-fwd-bf16 (CUTS_G16); with --stash their stash variants, with the
+    stash's stores cut too (NO_STASH)."""
     import torch
     import chip_smoke
     import k2_bf16_phases
-    src = G16 if bf16 else GFW
-    libs = (build_cut(root, G16, CUTS_G16, "geometry_fwd_bf16_wg") if bf16
-            else build_cut(root, GFW, CUTS_GFW, "geometry_fwd_wg"))
+    src, cuts = (G16, CUTS_G16) if bf16 else (GFW, CUTS_GFW)
+    order = list(ORDER_GFW)
+    if stash:
+        cuts = {**cuts, "no_stash": NO_STASH[bf16]}
+        order.insert(-1, "no_stash")
+    libs = build_cut(root, src, cuts, os.path.splitext(src)[0]
+                     + ("_stash" if stash else ""))
     if not libs:
         print(f"phases: {root} has no {src}", file=sys.stderr)
         return 2
@@ -429,10 +361,15 @@ def fwd_main(root: str, clocks: bool, bf16: bool = False) -> int:
     gen = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn(N_CORE, 3, device=dev, generator=gen) * 0.5
     slabs = GK.make_bwd_slabs(cfg, list(ws), bf16=bf16)
-    call = lambda: GK.launch_forward(cfg, x, ws, bs, slabs, bf16=bf16)
-    kernel, label = GK.KERNELS["fwd", bf16], "K1-fwd-bf16" if bf16 else "K1-fwd"
+    if stash:
+        call = lambda: GK.launch_forward_stash(cfg, x, ws, bs, slabs, bf16)
+    else:
+        call = lambda: GK.launch_forward(cfg, x, ws, bs, slabs, bf16=bf16)
+    kernel = GK.KERNELS["fwd_stash" if stash else "fwd", bf16]
+    label = (f"K1-fwd{'-stash' if stash else ''}"
+             f"{'-bf16' if bf16 else ''}")
     times = []
-    for phase in ORDER_GFW:
+    for phase in order:
         _bind(kernel, libs[phase], kernel.symbol)
         ms = chip_smoke.cuda_ms(call, 10)
         times.append({"kernel": label, "phase": phase, "ms": ms})
@@ -446,8 +383,8 @@ def fwd_main(root: str, clocks: bool, bf16: bool = False) -> int:
     kernel._fn = None
     card = chip_smoke.card_line()
     print(card)
-    print(json.dumps({"root": root, "fwd": True, "bf16": bf16, "card": card,
-                      "times": times}))
+    print(json.dumps({"root": root, "fwd": True, "bf16": bf16,
+                      "stash": stash, "card": card, "times": times}))
     return 0
 
 
@@ -478,7 +415,7 @@ def chains_main(root: str, clocks: bool, variants, bf16: bool = False
     ct_out = torch.randn(N_CORE, ws[-1].shape[0], device=dev, generator=gen)
     ct_g = torch.randn(N_CORE, 3, device=dev, generator=gen)
     slabs = GK.make_bwd_slabs(cfg, list(ws), bf16=bf16)
-    st = GK.launch_forward_stash(cfg, x, ws, bs, bf16=bf16)[2]
+    st = GK.launch_forward_stash(cfg, x, ws, bs, slabs, bf16)[2]
     calls = {"split": lambda: GK.launch_backward_split(
                  cfg, x, ws, bs, ct_out, ct_g, slabs=slabs, bf16=bf16),
              "stash": lambda: GK.launch_backward_stash(
@@ -519,9 +456,9 @@ def main() -> int:
     root = HERE
     if args[:1] == ["--root"] and len(args) == 2:
         root = os.path.abspath(args[1])
-    elif args:
-        print("usage: k1_bwd_phases.py [--root DIR] [--bf16] [--fwd] "
-              "[--split] [--stash] [--clocks]", file=sys.stderr)
+    elif args or (fwd and "split" in variants):
+        print("usage: k1_bwd_phases.py [--root DIR] [--bf16] [--fwd "
+              "[--stash] | --split | --stash] [--clocks]", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -529,24 +466,17 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     sys.path.insert(0, os.path.join(HERE, "tools"))
+    if fwd:
+        return fwd_main(root, clocks, bf16, "stash" in variants)
     if variants:
         return chains_main(root, clocks, variants, bf16)
-    if fwd:
-        return fwd_main(root, clocks, bf16)
     import chip_smoke
-    libs_wg = build_wg(root, bf16)
-    libs = build(root, "geometry_bwd_bf16.cu" if bf16 else BWD)
-    if libs_wg:
-        # K1-bwd(-bf16) is the wgmma source's: the mma.sync body's cuts do
-        # not apply to it
-        libs = {k: v for k, v in libs.items() if k[0] != BWD}
-    fwd16_wg = os.path.exists(os.path.join(
-        root, "factored_neus_tpu_torch", "csrc", "geometry_fwd_bf16_wg.cu"))
-    if os.path.exists(os.path.join(root, "factored_neus_tpu_torch", "csrc",
-                                   GFW)) and (fwd16_wg or not bf16):
-        # K1-fwd in f32 is the wgmma source's (--fwd), and so is K1-fwd-bf16
-        # where the version has geometry_fwd_bf16_wg.cu
-        libs = {k: v for k, v in libs.items() if k[0] != FWD}
+    import k2_bf16_phases
+    libs = build_wg(root, bf16)
+    if not libs:
+        print(f"phases: {root} has no {WG if bf16 else WGF}",
+              file=sys.stderr)
+        return 2
     from factored_neus_tpu_torch.models.fields import SDFConfig, SDFNetwork
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
 
@@ -560,61 +490,26 @@ def main() -> int:
     x = torch.randn(N_CORE, 3, device=dev, generator=gen) * 0.5
     ct_out = torch.randn(N_CORE, ws[-1].shape[0], device=dev, generator=gen)
     ct_g = torch.randn(N_CORE, 3, device=dev, generator=gen)
-
-    if bf16:
-        pack = GK.make_pack(ws, bf16=True)
-        bwd_pack = (GK.make_bwd_slabs(cfg, list(ws))
-                    if hasattr(GK, "make_bwd_slabs") else pack)
-        kernels = {BWD: (GK.K1_BWD_BF16, "geometry_bwd_bf16",
-                         lambda: GK.launch_backward(cfg, x, ws, bs, ct_out,
-                                                    ct_g, bwd_pack,
-                                                    bf16=True)),
-                   FWD: (GK.K1_FWD_BF16, "geometry_fwd_bf16",
-                         lambda: GK.launch_forward(
-                             cfg, x, ws, bs, bwd_pack if fwd16_wg else pack,
-                             bf16=True))}
-    else:
-        slabs = (GK.make_bwd_slabs(cfg, list(ws), bf16=False) if libs_wg
-                 else None)
-        kernels = {BWD: (GK.K1_BWD, "geometry_bwd",
-                         lambda: GK.launch_backward(cfg, x, ws, bs, ct_out,
-                                                    ct_g, slabs)),
-                   # a version whose K1-fwd is still the mma.sync body
-                   FWD: (GK.K1_FWD, "geometry_fwd",
-                         lambda: GK.launch_forward(cfg, x, ws, bs))}
+    slabs = GK.make_bwd_slabs(cfg, list(ws), bf16=bf16)
+    kernel = GK.KERNELS["bwd", bf16]
+    call = lambda: GK.launch_backward(cfg, x, ws, bs, ct_out, ct_g, slabs,
+                                      bf16=bf16)
+    order, clocked = ((ORDER_WG, CLOCKED) if bf16
+                      else (ORDER_WGF, CLOCKED_WGF))
     times = []
-    if libs_wg:
-        import k2_bf16_phases
-        kernel, symbol, call = kernels[BWD]
-        order, clocked = ((ORDER_WG, CLOCKED) if bf16
-                          else (ORDER_WGF, CLOCKED_WGF))
-        for phase in order:
-            _bind(kernel, libs_wg[phase], symbol)
-            ms = chip_smoke.cuda_ms(call, 5)
-            times.append({"kernel": "K1-bwd", "phase": phase, "ms": ms})
-            print(f"K1-bwd{'-bf16' if bf16 else ''} (wgmma) {phase}: "
-                  f"{ms:.3f} ms")
-            if clocks and phase in clocked and not any(
-                    "sm_mhz" in t for t in times[:-1]
-                    if t["phase"] == phase):
-                times[-1].update(k2_bf16_phases.clocks_under(call, torch))
-                print(f"  under load: SM clock {times[-1]['sm_mhz']:.0f} "
-                      f"MHz, {times[-1]['power_w']:.1f} W "
-                      f"({times[-1]['samples']} samples)")
-        kernel._fn = None
-    for src, phase in ORDER:
-        if libs_wg and src == BWD:
-            continue
-        label = (f"K1-{'bwd' if src == BWD else 'fwd'}"
-                 f"{'-bf16' if bf16 else ''} {phase}")
-        if (src, phase) not in libs:
-            print(f"{label}: not applicable")
-            continue
-        kernel, symbol, call = kernels[src]
-        _bind(kernel, libs[(src, phase)], symbol)
+    for phase in order:
+        _bind(kernel, libs[phase], kernel.symbol)
         ms = chip_smoke.cuda_ms(call, 5)
-        times.append({"kernel": label[:6], "phase": phase, "ms": ms})
-        print(f"{label}: {ms:.3f} ms")
+        times.append({"kernel": "K1-bwd", "phase": phase, "ms": ms})
+        print(f"K1-bwd{'-bf16' if bf16 else ''} (wgmma) {phase}: "
+              f"{ms:.3f} ms")
+        if clocks and phase in clocked and not any(
+                "sm_mhz" in t for t in times[:-1] if t["phase"] == phase):
+            times[-1].update(k2_bf16_phases.clocks_under(call, torch))
+            print(f"  under load: SM clock {times[-1]['sm_mhz']:.0f} "
+                  f"MHz, {times[-1]['power_w']:.1f} W "
+                  f"({times[-1]['samples']} samples)")
+    kernel._fn = None
     card = chip_smoke.card_line()
     print(card)
     print(json.dumps({"root": root, "bf16": bf16, "card": card,

@@ -24,7 +24,6 @@ summary of the times.
 """
 import json
 import os
-import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -61,28 +60,16 @@ def main() -> int:
     sys.path.insert(0, HERE)
     sys.path.insert(0, os.path.join(HERE, "tools"))
     import chip_smoke
-    from k1_bwd_phases import _bind
+    from k1_bwd_phases import _bind, nvcc_all, time_in_turns
     from factored_neus_tpu_torch.models.fields import SDFConfig, SDFNetwork
-    from factored_neus_tpu_torch.ops import _cuda
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
     variants = dict(a.split("=", 1) for a in args)
-    libs, procs = {}, []
-    for name, d in variants.items():
-        libs[name] = os.path.join(HERE, "build", "ab", f"{name}.so")
-        os.makedirs(os.path.dirname(libs[name]), exist_ok=True)
-        procs.append((name, subprocess.Popen(
-            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", libs[name],
-             os.path.join(os.path.abspath(d), SRC)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    _cuda.build_all(("geometry_bwd_bf16_wg.cu", "geometry_fwd.cu", SRC))
-    for name, p in procs:
-        log, _ = p.communicate()
-        if p.returncode:
-            print(f"nvcc failed for {name}:\n{log}", file=sys.stderr)
-            return 1
-        for line in log.splitlines():
-            if "spill" in line:
-                print(f"  {name} ptxas: {line.strip()}")
+    libs = {name: os.path.join(HERE, "build", "ab", f"{name}.so")
+            for name in variants}
+    os.makedirs(os.path.join(HERE, "build", "ab"), exist_ok=True)
+    nvcc_all([(name, os.path.join(os.path.abspath(d), SRC), libs[name])
+              for name, d in variants.items()],
+             ("geometry_bwd_bf16_wg.cu", "geometry_fwd_bf16_wg.cu", SRC))
     plan = GK.chains_wg16_plan
     GK.chains_wg16_plan = lambda *a, **k: {
         **plan(*a, **k),
@@ -105,7 +92,7 @@ def main() -> int:
         x = torch.randn(n, 3, device=dev, generator=gen) * 0.5
         ct_out = torch.randn(n, ws[-1].shape[0], device=dev, generator=gen)
         ct_g = torch.randn(n, 3, device=dev, generator=gen)
-        st = GK.launch_forward_stash(cfg, x, ws, bs, bf16=True)[2]
+        st = GK.launch_forward_stash(cfg, x, ws, bs, slabs, bf16=True)[2]
         return x, ct_out, ct_g, st
 
     def launch(v, x, ct_out, ct_g, st):
@@ -156,14 +143,14 @@ def main() -> int:
         for n in (9001, 65536):
             x, ct_out, ct_g, st = inputs(n, gen)
             for v in ("split", "stash"):
-                kernel = GK.KERNELS[f"bwd_{v}", True]
-                for name in list(variants) + list(variants)[::-1]:
-                    _bind(kernel, libs[name], kernel.symbol)
-                    ms = chip_smoke.cuda_ms(
-                        lambda: launch(v, x, ct_out, ct_g, st), 10)
-                    times.setdefault(f"{v} {n} {name}", []).append(ms)
-                    print(f"  {v} N={n} {name}: {ms:.3f} ms")
-                kernel._fn = None
+                got = time_in_turns(
+                    GK.KERNELS[f"bwd_{v}", True],
+                    [*variants, *reversed(variants)], libs,
+                    lambda: launch(v, x, ct_out, ct_g, st), 10)
+                for name, ms in got.items():
+                    times[f"{v} {n} {name}"] = ms
+                    print(f"  {v} N={n} {name}: "
+                          f"{' / '.join(f'{t:.3f}' for t in ms)} ms")
             ms = chip_smoke.cuda_ms(lambda: GK.launch_backward(
                 cfg, x, ws, bs, ct_out, ct_g, slabs, bf16=True), 10)
             times[f"K1-bwd-bf16 {n}"] = [ms]

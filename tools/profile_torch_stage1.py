@@ -46,10 +46,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(HERE, "build", "profile")
 STEPS = 10
 WARMUP = 5
-# device-side kernel name -> PERF.md's row (K1-fwd-stash runs K1-fwd's
-# __global__ function with its stash output switched on; the split and
-# stash backwards of each mode share their pass and reduce, named by the
-# run)
+# device-side kernel name -> PERF.md's row (the split and stash backwards
+# of each mode share their pass and reduce, named by the run)
 TABLE_ROWS = (("geometry_bwd_split_wg16_sweep", "K1-bwd-split-bf16 (sweep)"),
               ("geometry_bwd_stash_wg16_sweep", "K1-bwd-stash-bf16 (sweep)"),
               ("geometry_bwd_chains_wg16_wgrad",
@@ -75,7 +73,8 @@ TABLE_ROWS = (("geometry_bwd_split_wg16_sweep", "K1-bwd-split-bf16 (sweep)"),
               ("radiance_bwd_wgf_reduce", "K3-bwd (reduce)"),
               ("geometry_fwd_wgf_sweep", "K1-fwd"),
               ("geometry_fwd_bf16_sweep", "K1-fwd-bf16"),
-              ("geometry_fwd_kernel", "K1-fwd"),
+              ("geometry_fwd_stash_wgf_sweep", "K1-fwd-stash"),
+              ("geometry_fwd_stash_bf16_sweep", "K1-fwd-stash-bf16"),
               ("sdf_fwd_wgf_sweep", "K2"),
               ("sdf_fwd_bf16_kernel", "K2-bf16"),
               ("radiance_fwd_wgf_sweep", "K3-fwd"),
@@ -88,14 +87,12 @@ OUTER_ROW = "Lvis.outer (visibility sweep, cuBLAS)"
 
 
 def table_row(kernel: str, stash: bool) -> str:
-    bf16 = "-bf16" if "_kernel<true>" in kernel else ""
     for key, row in TABLE_ROWS:
         if key in kernel:
-            if stash and (row == "K1-fwd" or row.startswith("K1-bwd-split")
-                          and "(sweep)" not in row):
-                row = row.replace("K1-fwd", "K1-fwd-stash").replace(
-                    "K1-bwd-split", "K1-bwd-stash")
-            return row + bf16
+            if stash and row.startswith("K1-bwd-split") and \
+                    "(sweep)" not in row:
+                row = row.replace("K1-bwd-split", "K1-bwd-stash")
+            return row
     return ""
 
 

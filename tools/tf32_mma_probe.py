@@ -6,7 +6,9 @@
 Builds one warp-wide ``mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32``
 and one ``mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`` (nvcc,
 sm_90a, into build/probe/) and runs them on inputs whose exact result is
-known, to read what the products of csrc/tc_mma.cuh depend on:
+known, to read how the tensor cores' products round (the mma.sync
+products are the probe's alone: every kernel of csrc/ multiplies on
+wgmma, read below):
 - whether an f32 operand's bits below TF32's 10-bit mantissa are dropped
   (truncated) or rounded (TF32; the bf16 operands are rounded to nearest
   even by the kernels themselves, as here);
@@ -76,7 +78,7 @@ __global__ void probe_kernel(const float* A, const float* B, const float* C,
   D[(g + 8) * 8 + 2 * t + 1] = c[3];
 }
 // the same with A[16][16] B[16][8] on bf16 operands (each f32 input
-// rounded to nearest even as csrc/tc_mma.cuh's bf16_pair does)
+// rounded to nearest even, as csrc/wgmma.cuh's pack_bf16 does)
 __device__ uint32_t pair(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
