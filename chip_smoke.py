@@ -38,10 +38,21 @@
 4. runs one full-width stage-1 step of confs/wmask.conf and one of
    confs/womask.conf (background NeRF) on the card (kernels) and the same
    steps on the CPU (twins), and compares the loss and every parameter
-   gradient;
+   gradient; then train.block_steps on the card (check_block_graph): for
+   the f32 and bf16 wmask steps, womask with the split backward, stage 2
+   and stage 3, 24 full-width steps with block_steps 8 (the step
+   captured into a CUDA graph and replayed) and 1 (eager steps) from the
+   same weights and seeds, the losses at each report, every parameter and
+   both Adam moments bit for bit (or within 3e-4 + 2e-3 max|p|, the
+   worst ratio printed), and 16 more steps of each timed (wall ms/step,
+   the CUDA-event span of a window);
 5. writes the analytic-sphere DTU scene (6 views, 128 x 160) with the
    port's PNG writer and trains 30 steps of confs/wmask.conf on it through
-   the port's CLI, with every launch counter set to 0 just before;
+   the port's CLI, with every launch counter set to 0 just before (its
+   block_steps = 8: blocks of 8, 2, 8, 2, 8, 2, three eager steps, then
+   one replay of the step's CUDA graph a step; a launch, or a pack build,
+   recorded in the capture counts once a replay; every CLI training run
+   below goes through its graph alike, check_graph_run);
 6. extracts the 512^3 mesh of that run's checkpoint through the CLI
    (--mode validate_mesh --is_continue; the grid fill on K2), counters at
    0 just before, checks it, and holds a 64^3 grid filled on the card
@@ -315,7 +326,9 @@ def count_pack_calls() -> None:
     PACK_CALLS and every tc_pack.pack_rev_bf16 call in PACK16_CALLS: K1's
     reverse slab packs, which SDFNetwork.kernel_weights builds once a step
     wherever K1 runs, in either mode and under either switch, and never
-    for the sweeps alone (a mesh)."""
+    for the sweeps alone (a mesh); a build recorded into a step's CUDA
+    graph counts at each replay, not at the capture."""
+    from factored_neus_tpu_torch.ops import _cuda
     from factored_neus_tpu_torch.ops import tc_pack as TP
     left = mma_sync_packs_left()
     if left:
@@ -324,12 +337,20 @@ def count_pack_calls() -> None:
         return
     inner, inner16 = TP.pack_rev_f32, TP.pack_rev_bf16
 
-    def counted(ws, d_embed):
+    def bump():
         PACK_CALLS[0] += 1
+
+    def bump16():
+        PACK16_CALLS[0] += 1
+
+    # a build captured into a step's CUDA graph runs, and counts, once a
+    # replay (_cuda.count)
+    def counted(ws, d_embed):
+        _cuda.count(bump)
         return inner(ws, d_embed)
 
     def counted16(ws, d_embed):
-        PACK16_CALLS[0] += 1
+        _cuda.count(bump16)
         return inner16(ws, d_embed)
     counted.counted = counted16.counted = True
     TP.pack_rev_f32, TP.pack_rev_bf16 = counted, counted16
@@ -2362,6 +2383,161 @@ def check_step_against_cpu(tmp: str, base: str = "wmask.conf",
         raise AssertionError(f"the card's step ran only {launched}")
 
 
+# check_block_graph: each run's steps (blocks of 8, 2, 8, 2, 4 with a
+# report every 10 steps), then the steps of each timed window (two blocks
+# of 8)
+BLOCK_CHECK_STEPS, BLOCK_TIMED_STEPS = 24, 16
+# the variants: (label, conf, stage, the core's bf16 mode, split backward)
+BLOCK_VARIANTS = (("stage-1 wmask f32", "wmask.conf", 1, False, False),
+                  ("stage-1 wmask bf16", "wmask.conf", 1, True, False),
+                  ("stage-1 womask split", "womask.conf", 1, False, True),
+                  ("stage 2", "wmask.conf", 2, False, False),
+                  ("stage 3", "wmask.conf", 3, False, False))
+# where graph and eager steps part, the stage-1 step's tolerance per
+# tensor (3e-4 + 2e-3 max|p|)
+BLOCK_ATOL, BLOCK_RTOL = 3e-4, 2e-3
+
+
+def block_graph_variant(tmp: str, card: str, label: str, base: str,
+                        stage: int, bf16: bool, split: bool) -> dict:
+    """BLOCK_CHECK_STEPS full-width steps of one stage from the same
+    seed-0 weights and seeds, with block_steps 8 (a CUDA graph) and 1
+    (eager steps): the losses at each report, every parameter and both
+    Adam moments bit for bit (or else within BLOCK_ATOL + BLOCK_RTOL
+    max|p|, the worst ratio printed); then BLOCK_TIMED_STEPS more steps of
+    each, timed: wall ms/step on the host clock and the device span
+    ms/step between two CUDA events (a graph's replays run back to back,
+    so its span is the step's device-busy time)."""
+    import numpy as np
+    import torch
+    from factored_neus_tpu_torch.data.datasets import make_dataset
+    from factored_neus_tpu_torch.models import renderer as R
+    from factored_neus_tpu_torch.ops import geometry_kernel as GK
+    from factored_neus_tpu_torch.train import common as TC
+    from factored_neus_tpu_torch.train.stage1 import Stage1Trainer
+    from factored_neus_tpu_torch.train.stage2 import Stage2Trainer
+    from factored_neus_tpu_torch.train.stage3 import Stage3Trainer
+    from factored_neus_tpu_torch.utils import config as CFG
+
+    dev = torch.device("cuda")
+    conf = CFG.load(write_conf(tmp, BLOCK_CHECK_STEPS, base), "sphere")
+    ds = make_dataset("dtu", conf["dataset"], dev)
+    n = ds.n_images
+    cfg = CFG.renderer_config(conf, "model.lvis_renderer" if stage > 1
+                              else "model.neus_renderer")
+    cfg = dataclasses.replace(cfg, core_act_bf16=bf16)
+    model_cls, trainer_cls = {1: (R.Stage1Model, Stage1Trainer),
+                              2: (R.Stage2Model, Stage2Trainer),
+                              3: (R.Stage3Model, Stage3Trainer)}[stage]
+    runs = {}
+    stacked = GK.STACKED_BWD
+    GK.STACKED_BWD = not split
+    try:
+        for block in (8, 1):
+            tcfg = dataclasses.replace(
+                TC.TrainConfig.from_conf(conf, stage=stage),
+                block_steps=block,
+                end_iter=BLOCK_CHECK_STEPS + BLOCK_TIMED_STEPS)
+            model = model_cls(cfg, CFG.variance_init_val(conf), seed=0,
+                              device=dev)
+            trainer = trainer_cls(model, cfg, tcfg, ds.train_data(),
+                                  seed=stage)
+            stepper = TC.BlockStepper(trainer, tcfg, n,
+                                      (tcfg.report_freq, BLOCK_CHECK_STEPS))
+            rng = np.random.RandomState(0)
+            stepper.start(rng, rng.permutation(n))
+            it, losses = 0, {}
+            while it < BLOCK_CHECK_STEPS:
+                metrics, k = stepper.advance(it)
+                it += k
+                if it % tcfg.report_freq == 0 or it == BLOCK_CHECK_STEPS:
+                    losses[it] = TC.boundary_metrics(metrics)["loss"]
+            torch.cuda.synchronize()
+            state = {"param": [p.detach().clone() for p in
+                               model.parameters()],
+                     "exp_avg": [], "exp_avg_sq": []}
+            for p in trainer.opt.param_groups[0]["params"]:
+                st = trainer.opt.state.get(p, {})
+                for m in ("exp_avg", "exp_avg_sq"):
+                    if m in st:
+                        state[m].append(st[m].clone())
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(BLOCK_TIMED_STEPS // 8):
+                trainer.run_block(it, [(it + i) % n for i in range(8)],
+                                  graph=stepper.graph)
+                it += 8
+            end.record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / BLOCK_TIMED_STEPS
+            span = start.elapsed_time(end) / BLOCK_TIMED_STEPS
+            runs[block] = {"losses": losses, "state": state, "wall": wall,
+                           "span": span, "replays": trainer.replays}
+            del stepper, trainer, model
+            torch.cuda.empty_cache()
+    finally:
+        GK.STACKED_BWD = stacked
+    g, e = runs[8], runs[1]
+    if g["replays"] != BLOCK_CHECK_STEPS + BLOCK_TIMED_STEPS \
+            - TC.WARMUP_STEPS or e["replays"]:
+        raise AssertionError(f"{label}: the blocked run did not replay its "
+                             f"graph ({g['replays']} replays)")
+    bitwise = g["losses"] == e["losses"] and all(
+        len(g["state"][k]) == len(e["state"][k]) and all(
+            torch.equal(a, b) for a, b in zip(g["state"][k], e["state"][k]))
+        for k in g["state"])
+    worst = max((float((a - b).abs().max()) / (
+        BLOCK_ATOL + BLOCK_RTOL * float(b.abs().max()))
+        for k in g["state"] for a, b in zip(g["state"][k], e["state"][k])),
+        default=0.0)
+    print(f"block graph, {label}: {BLOCK_CHECK_STEPS} steps, losses at "
+          f"{sorted(g['losses'])} graph {list(g['losses'].values())} eager "
+          f"{list(e['losses'].values())}; {len(g['state']['param'])} "
+          f"parameters and {len(g['state']['exp_avg'])} x 2 Adam moments "
+          + ("bit for bit" if bitwise else
+             f"NOT bit for bit: worst ratio {worst:.3f} to ({BLOCK_ATOL:g}"
+             f" + {BLOCK_RTOL:g} max|p|)"))
+    print(f"block graph, {label}, {BLOCK_TIMED_STEPS} steps timed on "
+          f"{card}: eager {e['wall']:.2f} ms/step wall, device span "
+          f"{e['span']:.2f}; graph {g['wall']:.2f} ms/step wall, device "
+          f"span (busy) {g['span']:.2f}; {512 / g['wall'] * 1e3:.0f} "
+          f"against {512 / e['wall'] * 1e3:.0f} rays/s")
+    if not bitwise and (worst > 1.0 or len(g["losses"]) != len(e["losses"])
+                        or not all(math.isfinite(v)
+                                   for v in g["losses"].values())):
+        raise AssertionError(f"{label}: the graph's steps part from the "
+                             f"eager steps")
+    return {"label": label, "bitwise": bitwise, "worst_ratio": worst,
+            "eager_wall_ms": e["wall"], "eager_span_ms": e["span"],
+            "graph_wall_ms": g["wall"], "graph_span_ms": g["span"]}
+
+
+def check_block_graph(card: str) -> list:
+    """train.block_steps on the card: each of BLOCK_VARIANTS graph against
+    eager (block_graph_variant)."""
+    out = []
+    for variant in BLOCK_VARIANTS:
+        with tempfile.TemporaryDirectory() as tmp:
+            out.append(block_graph_variant(tmp, card, *variant))
+    return out
+
+
+def check_graph_run(label: str, runner, steps: int) -> None:
+    """A CLI training run of ``steps`` steps with block_steps > 1 went
+    through its CUDA graph: WARMUP_STEPS eager steps, then one replay a
+    step."""
+    from factored_neus_tpu_torch.train.common import WARMUP_STEPS
+    replays = runner.trainer.replays
+    print(f"{label}: block_steps {runner.tcfg.block_steps}, "
+          f"{WARMUP_STEPS} eager steps, {replays} replays of the step's "
+          f"CUDA graph")
+    if runner.tcfg.block_steps <= 1 or replays != steps - WARMUP_STEPS:
+        raise AssertionError(f"{label} did not run its steps through a "
+                             f"CUDA graph")
+
+
 def train_run(tmp: str, steps: int, base: str = "wmask.conf"):
     """Trains ``steps`` steps of full-width confs/<base> through the CLI;
     returns (conf path, runner, launches per kernel during training)."""
@@ -2386,6 +2562,7 @@ def train_run(tmp: str, steps: int, base: str = "wmask.conf"):
     if runner.iter_step != steps or len(runner.history) != steps // 10:
         raise AssertionError("training did not run its steps")
     print(f"launches during {steps} training steps: {launches}")
+    check_graph_run(f"{steps}-step {base} run", runner, steps)
     ckpt = CK.load_checkpoint(runner.last_checkpoint)
     if int(ckpt["iter_step"]) != steps:
         raise AssertionError("checkpoint iter_step")
@@ -2695,6 +2872,7 @@ def stage2_run(conf: str, card: str):
     launches = {name: k.launches for name, k in kernels.items()}
     check_stage2_launches(f"stage-2 CLI, {STAGE2_STEPS} steps", launches,
                           STAGE2_STEPS)
+    check_graph_run("stage-2 CLI", runner, STAGE2_STEPS)
     for m in runner.history:
         print(f"stage 2 iter {m['iter']}: lvis loss {m['lvis_loss']:.5f} "
               f"trace radiance loss {m['trace_radiance_loss']:.5f} hit rays "
@@ -3025,6 +3203,7 @@ def stage3_run(conf: str, card: str):
     launches = {name: k.launches for name, k in kernels.items()}
     check_stage2_launches(f"stage-3 CLI, {STAGE3_STEPS} steps", launches,
                           STAGE3_STEPS, STAGE3_PER_STEP)
+    check_graph_run("stage-3 CLI", runner, STAGE3_STEPS)
     for m in runner.history:
         print(f"stage 3 iter {m['iter']}: rgb loss {m['rgb_loss']:.5f} "
               f"encoder loss {m['encoder_loss']:.6f} psnr {m['psnr']:.2f} "
@@ -3280,6 +3459,7 @@ def synthetic_train(conf: str, stage: int, type: str, per_step, card: str):
     check_stage2_launches(f"synthetic stage {stage} ({type}), "
                           f"{TRAIN_STEPS} steps", launches, TRAIN_STEPS,
                           per_step)
+    check_graph_run(f"synthetic stage {stage}", runner, TRAIN_STEPS)
     if (runner.iter_step != TRAIN_STEPS or runner.tcfg.batch_size != 512
             or not all(math.isfinite(m["loss"]) for m in runner.history)):
         raise AssertionError(f"synthetic stage {stage}: steps or losses "
@@ -3777,6 +3957,9 @@ def main() -> int:
         check_step_against_cpu(tmp)
     with tempfile.TemporaryDirectory() as tmp:
         check_step_against_cpu(tmp, "womask.conf", 3e-4, 2e-3)
+    t0 = time.perf_counter()
+    check_block_graph(card)
+    print(f"block graph phase: {time.perf_counter() - t0:.1f} s on {card}")
     count_pack_calls()
     packs = {}
     with tempfile.TemporaryDirectory() as tmp:

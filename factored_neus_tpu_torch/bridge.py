@@ -99,8 +99,14 @@ def _set_layer(lin: nn.Module, p: Dict[str, Any],
     assign(lin.bias, t(p["b"]))
 
 
-def _get_layer(lin: nn.Module, value: Value) -> Dict[str, np.ndarray]:
-    a = lambda x: value(x).detach().cpu().numpy()
+def _fetch(x: torch.Tensor, host: bool = True):
+    """A value read out: a host array, or the detached tensor itself."""
+    return x.detach().cpu().numpy() if host else x.detach()
+
+
+def _get_layer(lin: nn.Module, value: Value,
+               host: bool = True) -> Dict[str, Any]:
+    a = lambda x: _fetch(value(x), host)
     if isinstance(lin, WNLinear):
         return {"v": a(lin.weight_v).T, "g": a(lin.weight_g).reshape(-1),
                 "b": a(lin.bias)}
@@ -173,40 +179,45 @@ def load_nerf(nerf: nn.Module, params: Dict[str, Any],
 
 
 def jax_tree_layers(module: nn.Module, grads: bool = False,
-                    value: Optional[Value] = None
-                    ) -> List[Dict[str, np.ndarray]]:
+                    value: Optional[Value] = None, host: bool = True
+                    ) -> List[Dict[str, Any]]:
     """An SDFNetwork's or RenderingNetwork's layers (or their .grad, or
     ``value`` of each parameter) in the JAX layout."""
     get = _value(grads, value)
-    return [_get_layer(l, get) for l in _linears(module)]
+    return [_get_layer(l, get, host) for l in _linears(module)]
 
 
-def _jax_group(module: nn.Module, group: str, get: Value) -> Any:
+def _jax_group(module: nn.Module, group: str, get: Value,
+               host: bool) -> Any:
+    layer = lambda l: _get_layer(l, get, host)
     if group in ("sdf", "color"):
-        return jax_tree_layers(module, value=get)
+        return jax_tree_layers(module, value=get, host=host)
     if group == "variance":
-        return {"variance": get(module.variance).detach().cpu().numpy()}
+        return {"variance": _fetch(get(module.variance), host)}
     if group == "ref_color":
-        return {name: [_get_layer(l, get) for l in lins]
+        return {name: [layer(l) for l in lins]
                 for name, lins in _refcolor_linears(module).items()}
     if group == "nerf":
-        return {name: ([_get_layer(l, get) for l in lins]
-                       if isinstance(lins, list) else _get_layer(lins, get))
+        return {name: ([layer(l) for l in lins]
+                       if isinstance(lins, list) else layer(lins))
                 for name, lins in _nerf_linears(module).items()}
     if group == "material":
-        return {"lgtSGs": get(module.lgtSGs).detach().cpu().numpy(),
-                **{name: [_get_layer(l, get)
+        return {"lgtSGs": _fetch(get(module.lgtSGs), host),
+                **{name: [layer(l)
                           for l in _mlp_linears(getattr(module, seq))]
                    for name, seq in _MATERIAL_MLP.items()}}
-    return [_get_layer(l, get)
-            for l in _mlp_linears(getattr(module, _MLP[group]))]
+    return [layer(l) for l in _mlp_linears(getattr(module, _MLP[group]))]
 
 
 def jax_tree(model: nn.Module, grads: bool = False,
              value: Optional[Value] = None,
-             groups: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+             groups: Optional[Sequence[str]] = None,
+             host: bool = True) -> Dict[str, Any]:
     """The parameters (or their .grad, or ``value`` of each parameter) of
-    the model's groups (or ``groups``) in the JAX pytree layout."""
+    the model's groups (or ``groups``) in the JAX pytree layout: host
+    arrays, or with ``host`` False the detached tensors in that layout
+    (views of the parameters; checkpoints.save_checkpoint_async copies
+    them on the device)."""
     get = _value(grads, value)
-    return {g: _jax_group(_module(model, g), g, get)
+    return {g: _jax_group(_module(model, g), g, get, host)
             for g in groups or model.GROUPS}

@@ -13,6 +13,11 @@ deterministic ``rays_from_pixels`` so that a test can hand the same pixels
 to both packages.  Sk3d scans draw a share ``roi_prob`` of the pixels from
 their region-of-interest box dilated by 10 px; with that share 0 the draw
 is the uniform one alone.
+
+The image index may be an int or an integer tensor on the tables' device,
+and each image's dilated box is read from a device table
+(``roi_table``): a training step captured into a CUDA graph reads both
+from device memory, so that every replay draws from its own image.
 """
 from __future__ import annotations
 
@@ -69,22 +74,32 @@ def gen_rays_grid(intr_inv, pose, H: int, W: int, level: int = 1,
     return _dirs_origin(intr_inv, pose, p, convention)
 
 
+def image_index(img_idx, device) -> torch.Tensor:
+    """img_idx (an int, or an integer tensor of one element on ``device``)
+    as a one-element int64 tensor."""
+    if torch.is_tensor(img_idx):
+        return img_idx.reshape(1).to(torch.int64)
+    return torch.tensor([int(img_idx)], device=device)
+
+
 def rays_from_pixels(px, py, images, masks, intr_inv_all, pose_all,
-                     img_idx: int, convention: str = "c2w",
+                     img_idx, convention: str = "c2w",
                      mask_ones: bool = False):
     """(rays_o, rays_d, color, mask[:, :1]) for integer pixels px, py [B]
-    of image img_idx; images/masks [n, H, W, 3] on the rays' device.  With
-    ``mask_ones`` the mask is the constant 255/256 and the mask stack is
-    not read."""
-    color = images[img_idx][py, px]
+    of image img_idx (image_index); images/masks [n, H, W, 3] on the rays'
+    device.  With ``mask_ones`` the mask is the constant 255/256 and the
+    mask stack is not read."""
+    i = image_index(img_idx, images.device)
+    color = images[i, py, px]
     if mask_ones:
         mask = torch.full((px.shape[0], 1), MASK_ONES, device=images.device)
     else:
-        mask = masks[img_idx][py, px][:, :1]
+        mask = masks[i, py, px][:, :1]
     p = torch.stack([px.to(torch.float32), py.to(torch.float32),
                      torch.ones_like(px, dtype=torch.float32)], dim=-1)
-    rays_o, rays_d = _dirs_origin(intr_inv_all[img_idx], pose_all[img_idx],
-                                  p, convention)
+    rays_o, rays_d = _dirs_origin(intr_inv_all.index_select(0, i)[0],
+                                  pose_all.index_select(0, i)[0], p,
+                                  convention)
     return rays_o, rays_d, color, mask
 
 
@@ -100,44 +115,74 @@ def roi_bounds(box: Sequence[int], H: int, W: int) -> Tuple[int, int, int,
     return left, max(right, left + 1), top, max(bottom, top + 1)
 
 
+def roi_table(boxes: Sequence[Sequence[int]], H: int, W: int,
+              device) -> torch.Tensor:
+    """[n, 4] int64 on ``device``: each image's box dilated and clipped
+    (roi_bounds: left, right, top, bottom)."""
+    return torch.tensor([roi_bounds(b, H, W) for b in boxes],
+                        dtype=torch.int64, device=device)
+
+
 def gen_random_rays(gen: torch.Generator, images, masks, intr_inv_all,
-                    pose_all, img_idx: int, batch_size: int,
+                    pose_all, img_idx, batch_size: int,
                     convention: str = "c2w", mask_ones: bool = False,
                     roi_box: Optional[Sequence[int]] = None,
-                    roi_prob: float = 0.0):
+                    roi_prob: float = 0.0,
+                    roi: Optional[torch.Tensor] = None):
     """One training batch: uniform pixels of image img_idx drawn from gen
-    (a generator on the images' device); with an ROI box and roi_prob > 0,
+    (a generator on the images' device); with an ROI and roi_prob > 0,
     each pixel is replaced with probability roi_prob by one drawn
-    uniformly from the dilated box (roi_bounds), the draws made after the
-    uniform ones."""
+    uniformly from the dilated box, the draws made after the uniform
+    ones.  The box is ``roi``, its (left, right, top, bottom) [4] on the
+    device (a row of roi_table), or else ``roi_box``, the undilated box
+    on the host (roi_bounds)."""
     _, H, W = images.shape[:3]
     dev = images.device
     px = torch.randint(0, W, (batch_size,), generator=gen, device=dev)
     py = torch.randint(0, H, (batch_size,), generator=gen, device=dev)
-    if roi_box is not None and roi_prob > 0.0:
-        left, right, top, bottom = roi_bounds(roi_box, H, W)
-        in_x = torch.randint(left, right, (batch_size,), generator=gen,
-                             device=dev)
-        in_y = torch.randint(top, bottom, (batch_size,), generator=gen,
-                             device=dev)
+    if roi is None and roi_box is not None:
+        roi = torch.tensor(roi_bounds(roi_box, H, W), device=dev)
+    if roi is not None and roi_prob > 0.0:
+        lo = roi[0::2, None]                       # left, top
+        span = roi[1::2, None] - lo                # width, height
+        u = torch.rand((2, batch_size), generator=gen, device=dev)
+        inside = lo + torch.minimum((u * span).to(torch.int64), span - 1)
         take = torch.rand(batch_size, generator=gen, device=dev) < roi_prob
-        px, py = torch.where(take, in_x, px), torch.where(take, in_y, py)
+        px, py = torch.where(take, inside[0], px), torch.where(
+            take, inside[1], py)
     return rays_from_pixels(px, py, images, masks, intr_inv_all, pose_all,
                             img_idx, convention, mask_ones)
 
 
-def sample_batch(gen: torch.Generator, data: Dict, img_idx: int,
+def sample_batch(gen: torch.Generator, data: Dict, img_idx,
                  batch_size: int):
     """gen_random_rays on a dataset's training tables (``train_data()`` of
     data.datasets: images, masks, intr_inv, poses and the optional
-    convention, mask_ones, roi_boxes and roi_prob)."""
-    boxes = data.get("roi_boxes")
+    convention, mask_ones, roi_boxes and roi_prob; the boxes' roi_table
+    under "roi_table" where the caller made it, draw_tables)."""
+    roi = None
+    if data.get("roi_boxes") is not None and data.get("roi_prob", 0.0) > 0:
+        table = data.get("roi_table")
+        if table is None:
+            table = draw_tables(data)["roi_table"]
+        roi = table.index_select(
+            0, image_index(img_idx, table.device))[0]
     return gen_random_rays(
         gen, data["images"], data["masks"], data["intr_inv"], data["poses"],
         img_idx, batch_size, convention=data.get("convention", "c2w"),
-        mask_ones=data.get("mask_ones", False),
-        roi_box=None if boxes is None else boxes[img_idx],
+        mask_ones=data.get("mask_ones", False), roi=roi,
         roi_prob=data.get("roi_prob", 0.0))
+
+
+def draw_tables(data: Dict) -> Dict:
+    """The training tables with the device table of their ROI boxes
+    ("roi_table", roi_table) where an ROI draw is on: made once, so that
+    no step copies from the host."""
+    if data.get("roi_boxes") is None or data.get("roi_prob", 0.0) <= 0:
+        return data
+    H, W = data["images"].shape[1:3]
+    return dict(data, roi_table=roi_table(data["roi_boxes"], H, W,
+                                          data["images"].device))
 
 
 def near_far_from_sphere(rays_o, rays_d) -> Tuple[torch.Tensor, torch.Tensor]:

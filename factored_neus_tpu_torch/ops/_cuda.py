@@ -18,13 +18,14 @@ documented beside each C function.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, Iterator, List, Sequence
 
 import torch
 
@@ -44,6 +45,39 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
+# the host counts of each CUDA graph capture in progress (recording())
+_RECORDERS: List[List[Callable[[], None]]] = []
+
+
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph."""
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
+def count(bump: Callable[[], None]) -> None:
+    """Adds one to a host count of device work (``bump``): now, or, while
+    a CUDA graph is captured, at each replay of that graph (the launch
+    was only recorded).  A capture outside ``recording()`` raises."""
+    if not capturing():
+        bump()
+    elif _RECORDERS:
+        _RECORDERS[-1].append(bump)
+    else:
+        raise RuntimeError("a counted launch was captured outside "
+                           "_cuda.recording()")
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[List[Callable[[], None]]]:
+    """Collects the counts of the launches captured in the scope; the
+    graph's owner calls each once a replay."""
+    calls: List[Callable[[], None]] = []
+    _RECORDERS.append(calls)
+    try:
+        yield calls
+    finally:
+        _RECORDERS.pop()
 
 
 def _nvcc() -> str:
@@ -116,8 +150,9 @@ def _load(src: str) -> ctypes.CDLL:
 class CudaKernel:
     """One exported C function of one source, with its launch count.
 
-    ``launches`` grows by one for every call that the C function accepted,
-    and nowhere else."""
+    ``launches`` grows by one for every call that the C function accepted
+    and nowhere else; a call captured into a CUDA graph counts once at
+    each replay of the graph (``count``)."""
 
     def __init__(self, name: str, source: str, symbol: str):
         self.name = name
@@ -148,6 +183,9 @@ class CudaKernel:
         if rc != 0:
             raise RuntimeError(f"CUDA kernel {self.name} was not launched: "
                                f"cudaError_t {rc}")
+        count(self._bump)
+
+    def _bump(self) -> None:
         self.launches += 1
 
 

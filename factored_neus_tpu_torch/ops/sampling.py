@@ -39,11 +39,33 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor,
     return bins_b + t * (bins_a - bins_b)
 
 
+class _CumprodNonzero(torch.autograd.Function):
+    """torch.cumprod along the last axis of a tensor with no zero, whose
+    gradient is torch's for that case, the reversed cumulative sum of
+    grad * out over the input, bit for bit; torch's own backward first
+    asks the host whether the input holds a zero, a sync that a CUDA
+    graph cannot capture."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        if x.shape[-1] == 1:
+            return grad
+        return (out * grad).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def alpha_to_weights(alpha: torch.Tensor) -> torch.Tensor:
-    """w_i = a_i * prod_{j<i}(1 - a_j + 1e-7)."""
+    """w_i = a_i * prod_{j<i}(1 - a_j + 1e-7); alpha in [0, 1], so no
+    factor of the product is 0."""
     ones = torch.ones_like(alpha[:, :1])
-    trans = torch.cumprod(torch.cat([ones, 1.0 - alpha + 1e-7], dim=-1),
-                          dim=-1)[:, :-1]
+    trans = _CumprodNonzero.apply(
+        torch.cat([ones, 1.0 - alpha + 1e-7], dim=-1))[:, :-1]
     return alpha * trans
 
 

@@ -7,7 +7,8 @@ and ``interpolate_<i>_<j>``: the loop, reports and TensorBoard scalars
 under logs/, checkpoints in the JAX package's format (either package
 resumes from the other's), validation panels at ``val_freq`` and meshes at
 ``val_mesh_freq`` (each chosen by the dataset type, as the JAX runner
-chooses).
+chooses); ``train.block_steps`` steps a block (CUDA graphs on the card,
+common.BlockStepper), checkpoints written in the background.
 """
 from __future__ import annotations
 
@@ -32,10 +33,10 @@ from ..utils import checkpoints as CK
 from ..utils import config as CFG
 from ..utils import schedule
 from ..utils.device import resolve_device
-from ..utils.logging import MetricsWriter, ThroughputMeter
 from ..utils.video import write_video
-from .common import (TrainConfig, chunked_render, load_optimizer_leaves,
-                     optimizer_leaves, val_chunk_size)
+from .common import (BlockStepper, Reports, TrainConfig, chunked_render,
+                     load_optimizer_leaves, optimizer_leaves,
+                     val_chunk_size)
 from .stage1 import Stage1Trainer
 
 log = logging.getLogger("factored_neus_tpu_torch")
@@ -59,6 +60,12 @@ CKPT_KEYS = {
 # groups of the later stages that a JAX stage-1 checkpoint carries; the
 # port keeps them as they were read and writes them back
 PASS_THROUGH = ("lvis_network", "indiLgt_network", "mateIllu_network")
+# TensorBoard tag -> the step's metric, at each report
+REPORT_SCALARS = {"Loss/loss": "loss", "Loss/color_loss": "color_loss",
+                  "Loss/eikonal_loss": "eikonal_loss",
+                  "Statistics/s_val": "s_val", "Statistics/cdf": "cdf",
+                  "Statistics/weight_max": "weight_max",
+                  "Statistics/psnr": "psnr"}
 
 
 def check_mode(mode: str) -> None:
@@ -94,9 +101,6 @@ class Runner:
         self.tcfg = TrainConfig.from_conf(self.conf,
                                           surface_weight=surface_weight)
         self.cfg = CFG.renderer_config(self.conf)
-        if self.tcfg.block_steps > 1:
-            log.info("train.block_steps = %d: steps run one at a time",
-                     self.tcfg.block_steps)
         self.model = R.Stage1Model(self.cfg, CFG.variance_init_val(self.conf),
                                    seed=seed, device=self.device)
         self.trainer = Stage1Trainer(
@@ -120,42 +124,28 @@ class Runner:
             self.file_backup()
 
     def train(self) -> None:
+        """The training loop, in blocks of ``train.block_steps`` steps
+        (common.BlockStepper: CUDA graphs on the card) that end at every
+        report, save, validation and mesh iteration; checkpoints are
+        written in the background and waited for at the end."""
         tcfg, n = self.tcfg, self.dataset.n_images
-        writer = MetricsWriter(os.path.join(self.base_exp_dir, "logs"))
+        reports = Reports(os.path.join(self.base_exp_dir, "logs"),
+                          tcfg.batch_size, self.history, REPORT_SCALARS,
+                          "iter {iter} loss={loss:.5f} psnr={psnr:.2f} "
+                          "rays/s={rays_per_sec:.0f}")
+        stepper = BlockStepper(self.trainer, tcfg, n, (
+            tcfg.report_freq, tcfg.save_freq, tcfg.val_freq,
+            tcfg.val_mesh_freq))
         rng = np.random.RandomState(self.iter_step)
-        perm = rng.permutation(n)
-        t_last, steps_since = time.perf_counter(), 0
-        meter = ThroughputMeter()
-        meter.start()
+        stepper.start(rng, rng.permutation(n))
         while self.iter_step < tcfg.end_iter:
-            metrics = self.trainer.step(int(perm[self.iter_step % n]),
-                                        self.iter_step)
-            self.iter_step += 1
-            steps_since += 1
-            meter.step(tcfg.batch_size)
+            metrics, k = stepper.advance(self.iter_step)
+            self.iter_step += k
+            reports.steps(k)
             if self.iter_step % tcfg.report_freq == 0:
-                m = {k: float(v) for k, v in metrics.items()}  # syncs
-                now = time.perf_counter()
-                m["rays_per_sec"] = (tcfg.batch_size * steps_since
-                                     / (now - t_last))
-                m["iter"] = self.iter_step
-                t_last, steps_since = now, 0
-                self.history.append(m)
-                writer.scalars(
-                    {"Loss/loss": m["loss"],
-                     "Loss/color_loss": m["color_loss"],
-                     "Loss/eikonal_loss": m["eikonal_loss"],
-                     "Statistics/s_val": m["s_val"],
-                     "Statistics/cdf": m["cdf"],
-                     "Statistics/weight_max": m["weight_max"],
-                     "Statistics/psnr": m["psnr"],
-                     "Perf/rays_per_sec": meter.rays_per_sec},
-                    self.iter_step)
-                log.info("iter %d loss=%.5f psnr=%.2f rays/s=%.0f",
-                         self.iter_step, m["loss"], m["psnr"],
-                         m["rays_per_sec"])
+                reports.report(self.iter_step, metrics)
             if self.iter_step % tcfg.save_freq == 0:
-                self.save_checkpoint()
+                self.save_checkpoint(background=True)
             if self.iter_step % tcfg.val_freq == 0:
                 if self.type in IMAGE_TYPES:
                     self.validate_image()
@@ -167,24 +157,26 @@ class Runner:
                 else:
                     self.validate_mesh(
                         world_space=self.type in WORLD_MESH_TYPES)
-            if self.iter_step % n == 0:
-                perm = rng.permutation(n)
-        writer.close()
+        reports.close()
+        CK.wait_for_async_saves()
 
     # -- checkpoints --------------------------------------------------------
 
-    def save_checkpoint(self) -> str:
+    def save_checkpoint(self, background: bool = False) -> str:
         """The JAX runner's groups and layout: the params groups as JAX
         trees, the optimizer as its optax leaves, iter_step, and the
-        later stages' groups where a loaded checkpoint carried them."""
-        tree = bridge.jax_tree(self.model)
+        later stages' groups where a loaded checkpoint carried them.
+        ``background``: snapshot on the device and write in a thread
+        (checkpoints.save_checkpoint_async)."""
+        tree = bridge.jax_tree(self.model, host=False)
         groups: Dict[str, object] = {ck: tree[pk]
                                      for pk, ck in CKPT_KEYS.items()}
-        groups["optimizer"] = optimizer_leaves(self.model, self.trainer.opt)
+        groups["optimizer"] = optimizer_leaves(self.model, self.trainer.opt,
+                                               host=False)
         groups["iter_step"] = np.asarray(self.iter_step)
         groups.update(self.passed_through)
-        self.last_checkpoint = CK.save_checkpoint(self.base_exp_dir,
-                                                  self.iter_step, groups)
+        save = CK.save_checkpoint_async if background else CK.save_checkpoint
+        self.last_checkpoint = save(self.base_exp_dir, self.iter_step, groups)
         return self.last_checkpoint
 
     def load_checkpoint(self, path: str) -> None:

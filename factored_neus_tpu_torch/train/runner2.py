@@ -13,7 +13,6 @@ from __future__ import annotations
 import logging
 import os
 import shutil
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -27,9 +26,9 @@ from ..models import renderer as R
 from ..utils import checkpoints as CK
 from ..utils import config as CFG
 from ..utils.device import resolve_device
-from ..utils.logging import MetricsWriter, ThroughputMeter
-from .common import (TrainConfig, chunked_render, load_optimizer_leaves,
-                     optimizer_leaves, val_chunk_size)
+from .common import (BlockStepper, Reports, TrainConfig, chunked_render,
+                     load_optimizer_leaves, optimizer_leaves,
+                     val_chunk_size)
 from .runner1 import CKPT_KEYS
 from .stage2 import Stage2Trainer
 
@@ -87,42 +86,34 @@ class Runner:
             self.file_backup()
 
     def train(self) -> None:
+        """The training loop, in blocks of ``train.block_steps`` steps
+        (common.BlockStepper: CUDA graphs on the card) that end at every
+        report, save and validation iteration; checkpoints are written in
+        the background and waited for at the end."""
         tcfg, n = self.tcfg, self.dataset.n_images
-        writer = MetricsWriter(os.path.join(self.base_exp_dir, "logs"))
+        reports = Reports(os.path.join(self.base_exp_dir, "logs"),
+                          tcfg.batch_size, self.history,
+                          {"Loss/loss": "lvis_loss",
+                           "Loss/trace_radiance": "trace_radiance_loss"},
+                          "iter {iter} lvis={lvis_loss:.5f} "
+                          "trace={trace_radiance_loss:.5f} "
+                          "rays/s={rays_per_sec:.0f}")
+        stepper = BlockStepper(self.trainer, tcfg, n, (
+            tcfg.report_freq, tcfg.save_freq, tcfg.val_freq))
         rng = np.random.RandomState(self.iter_step)
-        perm = rng.permutation(n)
-        t_last, steps_since = time.perf_counter(), 0
-        meter = ThroughputMeter()
-        meter.start()
+        stepper.start(rng, rng.permutation(n))
         while self.iter_step < tcfg.end_iter:
-            metrics = self.trainer.step(int(perm[self.iter_step % n]),
-                                        self.iter_step)
-            self.iter_step += 1
-            steps_since += 1
-            meter.step(tcfg.batch_size)
+            metrics, k = stepper.advance(self.iter_step)
+            self.iter_step += k
+            reports.steps(k)
             if self.iter_step % tcfg.report_freq == 0:
-                m = {k: float(v) for k, v in metrics.items()}  # syncs
-                now = time.perf_counter()
-                m["rays_per_sec"] = (tcfg.batch_size * steps_since
-                                     / (now - t_last))
-                m["iter"] = self.iter_step
-                t_last, steps_since = now, 0
-                self.history.append(m)
-                writer.scalars(
-                    {"Loss/loss": m["lvis_loss"],
-                     "Loss/trace_radiance": m["trace_radiance_loss"],
-                     "Perf/rays_per_sec": meter.rays_per_sec},
-                    self.iter_step)
-                log.info("iter %d lvis=%.5f trace=%.5f rays/s=%.0f",
-                         self.iter_step, m["lvis_loss"],
-                         m["trace_radiance_loss"], m["rays_per_sec"])
+                reports.report(self.iter_step, metrics)
             if self.iter_step % tcfg.save_freq == 0:
-                self.save_checkpoint()
+                self.save_checkpoint(background=True)
             if self.iter_step % tcfg.val_freq == 0:
                 self.validate_image()
-            if self.iter_step % n == 0:
-                perm = rng.permutation(n)
-        writer.close()
+        reports.close()
+        CK.wait_for_async_saves()
 
     # -- checkpoints --------------------------------------------------------
 
@@ -137,20 +128,21 @@ class Runner:
         package)."""
         self._load_groups(CK.load_checkpoint(path), CKPT_KEYS)
 
-    def save_checkpoint(self) -> str:
+    def save_checkpoint(self, background: bool = False) -> str:
         """The JAX stage-2 runner's groups and layout: the params groups
         as JAX trees, the optimizer as its stage-2 optax leaves,
         iter_step, and the stage-3 group where a loaded checkpoint carried
-        it."""
-        tree = bridge.jax_tree(self.model)
+        it.  ``background``: snapshot on the device and write in a thread
+        (checkpoints.save_checkpoint_async)."""
+        tree = bridge.jax_tree(self.model, host=False)
         groups: Dict[str, object] = {ck: tree[pk]
                                      for pk, ck in STAGE2_KEYS.items()}
         groups["optimizer"] = optimizer_leaves(self.model, self.trainer.opt,
-                                               stage=2)
+                                               stage=2, host=False)
         groups["iter_step"] = np.asarray(self.iter_step)
         groups.update(self.passed_through)
-        self.last_checkpoint = CK.save_checkpoint(self.base_exp_dir,
-                                                  self.iter_step, groups)
+        save = CK.save_checkpoint_async if background else CK.save_checkpoint
+        self.last_checkpoint = save(self.base_exp_dir, self.iter_step, groups)
         return self.last_checkpoint
 
     def load_checkpoint(self, path: str) -> None:

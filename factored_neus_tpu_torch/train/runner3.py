@@ -18,7 +18,6 @@ from __future__ import annotations
 import logging
 import os
 import shutil
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -35,10 +34,10 @@ from ..ops import sg as SG
 from ..utils import checkpoints as CK
 from ..utils import config as CFG
 from ..utils.device import resolve_device
-from ..utils.logging import MetricsWriter, ThroughputMeter
 from ..utils.video import write_video
-from .common import (TrainConfig, chunked_render, load_optimizer_leaves,
-                     optimizer_leaves, val_chunk_size)
+from .common import (BlockStepper, Reports, TrainConfig, chunked_render,
+                     load_optimizer_leaves, optimizer_leaves,
+                     val_chunk_size)
 from .runner2 import STAGE2_KEYS
 from .stage3 import Stage3Trainer
 
@@ -103,44 +102,36 @@ class Runner:
             self.file_backup()
 
     def train(self) -> None:
+        """The training loop, in blocks of ``train.block_steps`` steps
+        (common.BlockStepper: CUDA graphs on the card) that end at every
+        report, save and validation iteration; checkpoints are written in
+        the background and waited for at the end."""
         tcfg, n = self.tcfg, self.dataset.n_images
-        writer = MetricsWriter(os.path.join(self.base_exp_dir, "logs"))
+        reports = Reports(os.path.join(self.base_exp_dir, "logs"),
+                          tcfg.batch_size, self.history,
+                          {"Loss/loss": "rgb_loss",
+                           "Statistics/psnr": "psnr"},
+                          "iter {iter} rgb={rgb_loss:.5f} psnr={psnr:.2f} "
+                          "rays/s={rays_per_sec:.0f}")
+        stepper = BlockStepper(self.trainer, tcfg, n, (
+            tcfg.report_freq, tcfg.save_freq, tcfg.val_freq))
         rng = np.random.RandomState(self.iter_step)
-        perm = rng.permutation(n)
-        t_last, steps_since = time.perf_counter(), 0
-        meter = ThroughputMeter()
-        meter.start()
+        stepper.start(rng, rng.permutation(n))
         while self.iter_step < tcfg.end_iter:
-            metrics = self.trainer.step(int(perm[self.iter_step % n]),
-                                        self.iter_step)
-            self.iter_step += 1
-            steps_since += 1
-            meter.step(tcfg.batch_size)
+            metrics, k = stepper.advance(self.iter_step)
+            self.iter_step += k
+            reports.steps(k)
             if self.iter_step % tcfg.report_freq == 0:
-                m = {k: float(v) for k, v in metrics.items()}  # syncs
-                now = time.perf_counter()
-                m["rays_per_sec"] = (tcfg.batch_size * steps_since
-                                     / (now - t_last))
-                m["iter"] = self.iter_step
-                t_last, steps_since = now, 0
-                self.history.append(m)
-                writer.scalars({"Loss/loss": m["rgb_loss"],
-                                "Statistics/psnr": m["psnr"],
-                                "Perf/rays_per_sec": meter.rays_per_sec},
-                               self.iter_step)
-                log.info("iter %d rgb=%.5f psnr=%.2f rays/s=%.0f",
-                         self.iter_step, m["rgb_loss"], m["psnr"],
-                         m["rays_per_sec"])
+                reports.report(self.iter_step, metrics)
             if self.iter_step % tcfg.save_freq == 0:
-                self.save_checkpoint()
+                self.save_checkpoint(background=True)
             if self.iter_step % tcfg.val_freq == 0:
                 if self.type in ("dtu", "sk3d"):
                     self.validate_image()
                 else:
                     self.validate_synthetic_img()
-            if self.iter_step % n == 0:
-                perm = rng.permutation(n)
-        writer.close()
+        reports.close()
+        CK.wait_for_async_saves()
 
     # -- checkpoints --------------------------------------------------------
 
@@ -153,18 +144,19 @@ class Runner:
         (of either package)."""
         self._load_groups(CK.load_checkpoint(path), STAGE2_KEYS)
 
-    def save_checkpoint(self) -> str:
+    def save_checkpoint(self, background: bool = False) -> str:
         """The JAX stage-3 runner's groups and layout: every params group
         as a JAX tree, the optimizer as its stage-3 optax leaves and
-        iter_step."""
-        tree = bridge.jax_tree(self.model)
+        iter_step.  ``background``: snapshot on the device and write in a
+        thread (checkpoints.save_checkpoint_async)."""
+        tree = bridge.jax_tree(self.model, host=False)
         groups: Dict[str, object] = {ck: tree[pk]
                                      for pk, ck in STAGE3_KEYS.items()}
         groups["optimizer"] = optimizer_leaves(self.model, self.trainer.opt,
-                                               stage=3)
+                                               stage=3, host=False)
         groups["iter_step"] = np.asarray(self.iter_step)
-        self.last_checkpoint = CK.save_checkpoint(self.base_exp_dir,
-                                                  self.iter_step, groups)
+        save = CK.save_checkpoint_async if background else CK.save_checkpoint
+        self.last_checkpoint = save(self.base_exp_dir, self.iter_step, groups)
         return self.last_checkpoint
 
     def load_checkpoint(self, path: str) -> None:

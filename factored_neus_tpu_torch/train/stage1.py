@@ -1,7 +1,7 @@
 """Stage-1 (geometry + radiance) train step.  Counterpart of
 factored_neus_tpu/train/stage1.py on one device: ray generation on the
 device -> NeuS render -> 4-term loss -> Adam with the warmup + cosine
-schedule."""
+schedule (common.StepTrainer: eager, or replayed from a CUDA graph)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -10,20 +10,23 @@ import torch
 
 from ..data import rays as RAYS
 from ..models import renderer as R
-from ..utils import logging as LOG
 from ..utils import schedule
 from . import losses as L
-from .common import TrainConfig, make_optimizer, set_lr
+from .common import StepTrainer, TrainConfig
 
 
 def loss_on_batch(model: R.Stage1Model, cfg: R.RendererConfig,
                   tcfg: TrainConfig, rays_o, rays_d, color, mask, step: int,
                   t_rand: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None,
-                  t_rand_out: Optional[torch.Tensor] = None):
+                  t_rand_out: Optional[torch.Tensor] = None,
+                  cos_anneal_ratio=None):
     """(loss, metrics) of one batch; the z jitters are t_rand (and, with
     the background model, t_rand_out) when given, else drawn from
-    generator."""
+    generator; cos_anneal_ratio (a float or a 0-dim tensor) that of
+    ``step`` unless given."""
+    if cos_anneal_ratio is None:
+        cos_anneal_ratio = schedule.cos_anneal_ratio(step, tcfg.anneal_end)
     near, far = RAYS.near_far_from_sphere(rays_o, rays_d)
     background_rgb = (torch.ones(1, 3, device=rays_o.device)
                       if tcfg.use_white_bkgd else None)
@@ -34,8 +37,7 @@ def loss_on_batch(model: R.Stage1Model, cfg: R.RendererConfig,
     out = R.render(model, cfg, rays_o, rays_d, near, far, t_rand=t_rand,
                    generator=generator, t_rand_out=t_rand_out,
                    background_rgb=background_rgb,
-                   cos_anneal_ratio=schedule.cos_anneal_ratio(
-                       step, tcfg.anneal_end))
+                   cos_anneal_ratio=cos_anneal_ratio)
     loss, metrics = L.stage1_losses(out, color, mask, tcfg)
     mask_sum = torch.sum(mask) + 1e-5
     metrics["s_val"] = torch.mean(out["s_val"])
@@ -44,27 +46,18 @@ def loss_on_batch(model: R.Stage1Model, cfg: R.RendererConfig,
     return loss, metrics
 
 
-class Stage1Trainer:
-    """Owns the model's optimizer and the step's random generator."""
+class Stage1Trainer(StepTrainer):
+    """The stage-1 step on the model's optimizer and generator."""
 
     def __init__(self, model: R.Stage1Model, cfg: R.RendererConfig,
                  tcfg: TrainConfig, data: Dict,
                  seed: int = 1):
-        self.model, self.cfg, self.tcfg, self.data = model, cfg, tcfg, data
-        self.opt = make_optimizer(model, tcfg)
-        device = data["images"].device
-        self.gen = torch.Generator(device=device).manual_seed(seed)
+        super().__init__(model, tcfg, data, stage=1, seed=seed)
+        self.cfg = cfg
 
-    def step(self, img_idx: int, step: int) -> Dict[str, torch.Tensor]:
+    def loss(self, step, img_idx, anneal):
         rays_o, rays_d, color, mask = RAYS.sample_batch(
             self.gen, self.data, img_idx, self.tcfg.batch_size)
-        loss, metrics = loss_on_batch(self.model, self.cfg, self.tcfg,
-                                      rays_o, rays_d, color, mask, step,
-                                      generator=self.gen)
-        set_lr(self.opt, self.tcfg, step)
-        self.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        LOG.check_finite(step, loss, ((n, p.grad) for n, p in
-                                      self.model.named_parameters()))
-        self.opt.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return loss_on_batch(self.model, self.cfg, self.tcfg, rays_o, rays_d,
+                             color, mask, step, generator=self.gen,
+                             cos_anneal_ratio=anneal)

@@ -13,9 +13,8 @@ import torch
 
 from ..data import rays as RAYS
 from ..models import renderer as R
-from ..utils import logging as LOG
 from . import losses as L
-from .common import TrainConfig, make_optimizer, set_lr
+from .common import StepTrainer, TrainConfig
 
 
 def loss_on_batch(model: R.Stage2Model, cfg: R.RendererConfig, rays_o,
@@ -30,27 +29,18 @@ def loss_on_batch(model: R.Stage2Model, cfg: R.RendererConfig, rays_o,
     return L.stage2_losses(out)
 
 
-class Stage2Trainer:
-    """Owns the optimizer of Lvis and IndirectLight and the step's random
-    generator."""
+class Stage2Trainer(StepTrainer):
+    """The stage-2 step on the optimizer of Lvis and IndirectLight and
+    the step's generator."""
 
     def __init__(self, model: R.Stage2Model, cfg: R.RendererConfig,
                  tcfg: TrainConfig, data: Dict,
                  seed: int = 2):
-        self.model, self.cfg, self.tcfg, self.data = model, cfg, tcfg, data
-        self.opt = make_optimizer(model, tcfg, stage=2)
-        device = data["images"].device
-        self.gen = torch.Generator(device=device).manual_seed(seed)
+        super().__init__(model, tcfg, data, stage=2, seed=seed)
+        self.cfg = cfg
 
-    def step(self, img_idx: int, step: int) -> Dict[str, torch.Tensor]:
+    def loss(self, step, img_idx, anneal):
         rays_o, rays_d, _, _ = RAYS.sample_batch(
             self.gen, self.data, img_idx, self.tcfg.batch_size)
-        loss, metrics = loss_on_batch(self.model, self.cfg, rays_o, rays_d,
-                                      generator=self.gen)
-        set_lr(self.opt, self.tcfg, step)
-        self.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        LOG.check_finite(step, loss, ((n, p.grad) for n, p in
-                                      self.model.named_parameters()))
-        self.opt.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return loss_on_batch(self.model, self.cfg, rays_o, rays_d,
+                             generator=self.gen)

@@ -1177,3 +1177,48 @@ def test_bf16_switches_launch_the_bf16_kernels(cuda_device):
                        generator=torch.Generator(device=cuda_device))
     assert [k.launches - b for k, b in zip(kernels, before)] == [
         5, 1, 3, 0, 0, 0, 1, 0, 0, 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", chip_smoke.BLOCK_VARIANTS,
+                         ids=[v[0] for v in chip_smoke.BLOCK_VARIANTS])
+def test_block_graph_follows_the_eager_steps(cuda_device, tmp_path,
+                                             variant):
+    """train.block_steps = 8 on the card (a captured step, replayed)
+    against eager steps at full width: bit for bit, or within the
+    stage-1 step's tolerance (chip_smoke.block_graph_variant)."""
+    out = chip_smoke.block_graph_variant(str(tmp_path), "", *variant)
+    assert out["bitwise"] or out["worst_ratio"] <= 1.0
+
+
+@pytest.mark.gpu
+def test_block_graph_debug_nans_stops_at_the_replay(cuda_device, tmp_path):
+    """Under debug_nans a NaN that reaches the graph's loss stops the run
+    at that step (checked after each replay); the count and moments of a
+    capturable Adam live on the card, and load back there."""
+    from factored_neus_tpu_torch.data.datasets import make_dataset
+    from factored_neus_tpu_torch.train import common as TC
+    from factored_neus_tpu_torch.train.stage1 import Stage1Trainer
+    from factored_neus_tpu_torch.utils import config as CFG
+    from factored_neus_tpu_torch.utils import logging as LOG
+
+    conf = CFG.load(chip_smoke.write_conf(str(tmp_path), 16), "sphere")
+    ds = make_dataset("dtu", conf["dataset"], cuda_device)
+    cfg = CFG.renderer_config(conf)
+    tcfg = TC.TrainConfig.from_conf(conf)
+    model = TR.Stage1Model(cfg, seed=0, device=cuda_device)
+    trainer = Stage1Trainer(model, cfg, tcfg, ds.train_data(), seed=1)
+    idxs = [i % ds.n_images for i in range(8)]
+    with LOG.debug_nans(True):
+        trainer.run_block(0, idxs, graph=True)
+        assert trainer.replays == 8 - TC.WARMUP_STEPS
+        with torch.no_grad():
+            model.sdf.lin0.bias.fill_(float("nan"))
+        with pytest.raises(FloatingPointError, match="loss at step 8$"):
+            trainer.run_block(8, idxs, graph=True)
+    leaves = TC.optimizer_leaves(model, trainer.opt)
+    fresh = TC.make_optimizer(model, tcfg)
+    TC.load_optimizer_leaves(model, fresh, leaves)
+    assert all(st["step"].device == p.device and st["step"].is_cuda
+               for p, st in fresh.state.items())
+    assert fresh.defaults["capturable"]

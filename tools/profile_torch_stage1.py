@@ -26,6 +26,12 @@ Prints ms/step, rays/s, the device-busy share of the profiled window and
 device time by kernel, each hand-written kernel named by its row of
 PERF.md's table, and writes the table as JSON to build/profile/
 profile_torch_stage1[_womask][_stash][_split][_stage2][_stage3].json.
+Where the conf's stage has train.block_steps = K > 1 (read as the runners
+read it), the same trainer then runs its steps as the runners do on the
+card, through the step's CUDA graph in blocks of K (warm-up blocks first,
+which capture it), and the timed and profiled windows are repeated for
+it (the JSON's "graph"), beside the CUDA-event span of its timed window
+(its replays run back to back: the span is the device's busy time).
 --stash sets FNEUS_PG_HBM_STASH=1, --split FNEUS_PG_STACKED=0, --bf16
 FNEUS_CORE_ACT_BF16=1 (the render core's bf16 operand mode, K1 and K3;
 without it the tool sets 0) and --sweep-f32 FNEUS_SWEEP_ACT_BF16=0 (stage
@@ -197,21 +203,65 @@ def main() -> int:
             step += 1
         torch.cuda.synchronize()
 
-    run(WARMUP)
-    t0 = time.perf_counter()
-    run(STEPS)
-    wall = (time.perf_counter() - t0) / STEPS
-    print(f"stage-{stage} step: {1e3 * wall:.2f} ms, "
-          f"{tcfg.batch_size / wall:.0f} rays/s on {card}")
+    def run_graph(n):
+        nonlocal step
+        for _ in range(n // block):
+            trainer.run_block(step, [(step + i) % ds.n_images
+                                     for i in range(block)], graph=True)
+            step += block
+        torch.cuda.synchronize()
 
+    run(WARMUP)
+    out = {"card": card, "conf": base, "stash": stash, "split": split,
+           "bf16": bf16, "sweep_act_bf16": cfg.sweep_act_bf16,
+           "use_pallas_sampling": cfg.use_pallas_sampling, "stage": stage,
+           "block_steps": tcfg.block_steps,
+           **measure(run, STEPS, stage, stash, card, tcfg.batch_size,
+                     "eager steps")}
+    block = tcfg.block_steps
+    if block > 1:
+        steps = block * -(-STEPS // block)
+        run_graph(2 * block)
+        out["graph"] = measure(run_graph, steps, stage, stash, card,
+                               tcfg.batch_size,
+                               f"CUDA graph, blocks of {block}")
+        print(f"graph against eager: {out['graph']['step_ms']:.2f} against "
+              f"{out['step_ms']:.2f} ms/step wall on {card}")
+    else:
+        print("block_steps = 1 in the conf: eager steps only")
+    os.makedirs(OUT, exist_ok=True)
+    name = "profile_torch_stage1" + "".join(
+        f.replace("--", "_") for f in FLAGS if f in args) + ".json"
+    with open(os.path.join(OUT, name), "w") as f:
+        json.dump(out, f, indent=1)
+    return 0
+
+
+def measure(run, steps: int, stage: int, stash: bool, card: str,
+            batch: int, label: str) -> dict:
+    """A timed window of ``steps`` steps (host clock, and the span between
+    two CUDA events) and a torch.profiler window of as many: ms/step,
+    device busy and device time by kernel."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    run(steps)
+    end.record()
+    wall = (time.perf_counter() - t0) / steps
+    span = start.elapsed_time(end) / steps
+    print(f"stage-{stage} step, {label}: {1e3 * wall:.2f} ms, "
+          f"{batch / wall:.0f} rays/s; CUDA-event span {span:.2f} ms/step, "
+          f"on {card}")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(STEPS)
+        run(steps)
         window = time.perf_counter() - t0
     rows, spans = [], {}
-    grouped = outer_kernels(prof) if stage3 else {}
+    grouped = outer_kernels(prof) if stage == 3 else {}
     for e in prof.key_averages():
         # device-side events only: CPU ops also carry their kernels' time
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -223,43 +273,34 @@ def main() -> int:
         # rows of their own: keep it apart from the kernels' busy time
         if (getattr(e, "is_user_annotation", False) or e.key == OUTER
                 or e.key.startswith("Optimizer.")):
-            spans[e.key] = dev_us / 1e3 / STEPS
+            spans[e.key] = dev_us / 1e3 / steps
             continue
         us, n = grouped.get(e.key, (0.0, 0))
         if e.count > n:
             rows.append({"name": e.key, "row": table_row(e.key, stash),
                          "calls": e.count - n,
-                         "ms_per_step": (dev_us - us) / 1e3 / STEPS})
+                         "ms_per_step": (dev_us - us) / 1e3 / steps})
     if grouped:
         rows.append({"name": OUTER, "row": OUTER_ROW,
                      "calls": sum(n for _, n in grouped.values()),
                      "ms_per_step": sum(us for us, _ in grouped.values())
-                     / 1e3 / STEPS,
-                     "kernels": {k: us / 1e3 / STEPS
+                     / 1e3 / steps,
+                     "kernels": {k: us / 1e3 / steps
                                  for k, (us, _) in grouped.items()}})
     rows.sort(key=lambda r: -r["ms_per_step"])
     busy = sum(r["ms_per_step"] for r in rows)
-    step_ms = 1e3 * window / STEPS
-    print(f"profiled window: {step_ms:.2f} ms/step wall, device busy "
-          f"{busy:.2f} ms/step ({100 * busy / step_ms:.1f}%)")
+    step_ms = 1e3 * window / steps
+    print(f"profiled window, {label}: {step_ms:.2f} ms/step wall, device "
+          f"busy {busy:.2f} ms/step ({100 * busy / step_ms:.1f}%)")
     for r in rows[:25]:
-        print(f"  {r['ms_per_step']:9.3f} ms  {r['calls'] // STEPS:5d}x "
+        print(f"  {r['ms_per_step']:9.3f} ms  {r['calls'] // steps:5d}x "
               f" {r['row'] or '-':>26}  {r['name'][:80]}")
-    print(f"  launches a step: {sum(r['calls'] for r in rows) // STEPS}; "
+    print(f"  launches a step: {sum(r['calls'] for r in rows) // steps}; "
           f"profiler ranges on the device (spans, not busy time): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in spans.items()))
-    os.makedirs(OUT, exist_ok=True)
-    name = "profile_torch_stage1" + "".join(
-        f.replace("--", "_") for f in FLAGS if f in args) + ".json"
-    with open(os.path.join(OUT, name), "w") as f:
-        json.dump({"card": card, "conf": base, "stash": stash,
-                   "split": split, "bf16": bf16,
-                   "sweep_act_bf16": cfg.sweep_act_bf16,
-                   "use_pallas_sampling": cfg.use_pallas_sampling,
-                   "stage": stage, "step_ms": 1e3 * wall,
-                   "profiled_step_ms": step_ms, "busy_ms": busy,
-                   "spans_ms": spans, "kernels": rows}, f, indent=1)
-    return 0
+    return {"step_ms": 1e3 * wall, "span_ms": span,
+            "profiled_step_ms": step_ms, "busy_ms": busy,
+            "spans_ms": spans, "kernels": rows}
 
 
 if __name__ == "__main__":
