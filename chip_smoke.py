@@ -45,7 +45,19 @@
    same weights and seeds, the losses at each report, every parameter and
    both Adam moments bit for bit (or within 3e-4 + 2e-3 max|p|, the
    worst ratio printed), and 16 more steps of each timed (wall ms/step,
-   the CUDA-event span of a window);
+   the CUDA-event span of a window); then the three JAX switches and the
+   checkpoint importer: (a) FNEUS_MATMUL_PRECISION=default (ops/mlp.py)
+   in the 64-ray wmask step against the CPU under the same mode (K2-bf16
+   four times where K2 was, K3 in its bf16 mode), alone and with the
+   core's bf16 mode, 24 + 16 graph steps bit for bit the eager ones, and
+   Lvis.outer at 4,096 x 512 in the mode beside f32 (ms, max distance);
+   (b) FNEUS_PALLAS_GEOMETRY=0: a 512-ray wmask step through autograd
+   against the K1 step within the stage-1 gate, K1 launched 0 times
+   under the switch and once without; (c) a womask step with the core's
+   bf16 mode and FNEUS_NERF_ACT_BF16=1 against the CPU; (d) a full-width
+   .pth of stages 1-3 in both weight-norm key layouts through the
+   importer's CLI, read by the stage-1 runner's --is_continue, its first
+   step bit for bit the source models', and trained on through the CLI;
 5. writes the analytic-sphere DTU scene (6 views, 128 x 160) with the
    port's PNG writer and trains 30 steps of confs/wmask.conf on it through
    the port's CLI, with every launch counter set to 0 just before (its
@@ -2271,7 +2283,9 @@ def check_launched(label: str, launches, want) -> None:
 
 def check_step_against_cpu(tmp: str, base: str = "wmask.conf",
                            atol: float = 1e-4, rtol: float = 1e-5,
-                           bf16: bool = False):
+                           bf16: bool = False, mode=None,
+                           nerf_bf16: bool = False, want=None,
+                           counts=None):
     """One full-width stage-1 step of confs/<base> at STEP_RAYS rays: the
     card (kernels) against the CPU (twins), both float32, on the same
     weights, rays and jitters; the loss and every parameter gradient at
@@ -2288,10 +2302,19 @@ def check_step_against_cpu(tmp: str, base: str = "wmask.conf",
     max|ref| and FLIP_SHARE_TOL x the CPU's distance from its step with
     the mode off (the card and the CPU sum in other orders, so their bf16
     roundings part in single elements, and an sdf within that of 0 moves
-    the first sign change that the surface branch reads)."""
+    the first sign change that the surface branch reads).  ``mode``: the
+    matmul mode (FNEUS_MATMUL_PRECISION) of all three steps, ``nerf_bf16``
+    the background NeRF's bf16 activations (with ``bf16``): with either,
+    the card is held to the CPU's step under the same switches within
+    atol + rtol max|ref| plus the CPU's distance from its step with every
+    rounding off (the CPU tests' rule: closer to the rounded step than
+    the unrounded one is).  ``want``: the kernels the card's step
+    must launch, and only those (default: at least the mode's set);
+    ``counts``: launches a step of the named kernels."""
     import numpy as np
     import torch
     from factored_neus_tpu_torch.data import rays as RAYS
+    from factored_neus_tpu_torch.ops import mlp as M
     from factored_neus_tpu_torch.data.datasets import make_dataset
     from factored_neus_tpu_torch.models.renderer import Stage1Model
     from factored_neus_tpu_torch.train import stage1 as TS1
@@ -2302,7 +2325,9 @@ def check_step_against_cpu(tmp: str, base: str = "wmask.conf",
     cpu = torch.device("cpu")
     ds = make_dataset("dtu", conf["dataset"], cpu)
     cfg_off = CFG.renderer_config(conf)
-    cfg = dataclasses.replace(cfg_off, core_act_bf16=bf16)
+    cfg = dataclasses.replace(cfg_off, core_act_bf16=bf16,
+                              nerf_act_bf16=nerf_bf16)
+    rounded = bf16 or nerf_bf16 or M.matmul_mode_of(mode) != "f32"
     tcfg = TrainConfig.from_conf(conf)
     rng = np.random.RandomState(0)
     H, W = ds.images.shape[1:3]
@@ -2318,14 +2343,18 @@ def check_step_against_cpu(tmp: str, base: str = "wmask.conf",
     kernels = all_kernels()
     before = {n: k.launches for n, k in kernels.items()}
 
-    def step(m, device, dtype, c=cfg):
+    def step(m, device, dtype, c=cfg, mode=mode):
         m = copy.deepcopy(m).to(device=device, dtype=dtype)
         args = [t.to(device=device, dtype=dtype) for t in batch]
-        loss, _ = TS1.loss_on_batch(
-            m, c, tcfg, *args, step=10,
-            t_rand=t_rand.to(device=device, dtype=dtype),
-            t_rand_out=t_out.to(device=device, dtype=dtype))
-        loss.backward()
+        M.set_matmul_precision(mode)
+        try:
+            loss, _ = TS1.loss_on_batch(
+                m, c, tcfg, *args, step=10,
+                t_rand=t_rand.to(device=device, dtype=dtype),
+                t_rand_out=t_out.to(device=device, dtype=dtype))
+            loss.backward()
+        finally:
+            M.set_matmul_precision(None)
         # the background NeRF takes no part where n_outside = 0
         return float(loss.detach()), {
             n: p.grad.detach().to(cpu, torch.float64)
@@ -2333,7 +2362,8 @@ def check_step_against_cpu(tmp: str, base: str = "wmask.conf",
 
     l_card, g_card = step(model, torch.device("cuda"), torch.float32)
     torch.cuda.synchronize()
-    launched = [n for n, k in kernels.items() if k.launches > before[n]]
+    deltas = {n: k.launches - before[n] for n, k in kernels.items()}
+    launched = [n for n, c in deltas.items() if c > 0]
     l32, g32 = step(model, cpu, torch.float32)
     l64, g64 = step(model, cpu, torch.float64)
 
@@ -2351,8 +2381,29 @@ def check_step_against_cpu(tmp: str, base: str = "wmask.conf",
     rc = ratios(g_card, g32)
     at = max(rc, key=rc.get)
     l_ratio = loss_ratio(l_card, l32)
-    if bf16:
-        l_off, g_off = step(model, cpu, torch.float32, cfg_off)
+    if rounded and (mode is not None or nerf_bf16):
+        # the switches' rounding (the matmul mode, the NeRF's bf16
+        # activations) is held as the CPU tests hold the port against
+        # JAX (tests/test_torch_switches.closer): the card closer to the
+        # CPU's step with it than the CPU's step without it is, plus
+        # atol + rtol max|ref|.  Their bf16 sweeps and bf16 RefColor part
+        # the card's sample positions and surface branch from the CPU's
+        # by more single flips than the core's bf16 mode alone does
+        l_off, g_off = step(model, cpu, torch.float32, cfg_off, None)
+        dist = lambda a, b: float((a - b).abs().max())
+        rc = {n: dist(g_card[n], g32[n]) / (
+            atol + rtol * float(g32[n].abs().max()) + dist(g32[n], g_off[n]))
+            for n in g32}
+        at = max(rc, key=rc.get)
+        l_ratio = abs(l_card - l32) / (atol + rtol * abs(l32)
+                                       + abs(l32 - l_off))
+        print(f"bf16 mode {bf16}, matmul mode {mode}, NeRF bf16 "
+              f"{nerf_bf16}: CPU loss {l32:.8f} against {l_off:.8f} with "
+              f"them off; the card's loss and gradients held to the CPU's "
+              f"step with them, within its distance from the step without "
+              f"them: worst ratio {max(l_ratio, rc[at]):.3f} ({at})")
+    elif rounded:
+        l_off, g_off = step(model, cpu, torch.float32, cfg_off, None)
         dist = lambda a, b: float((a - b).abs().max())
         rc = {n: dist(g_card[n], g64[n]) / (
             atol + rtol * float(g64[n].abs().max())
@@ -2362,10 +2413,11 @@ def check_step_against_cpu(tmp: str, base: str = "wmask.conf",
         l_ratio = abs(l_card - l64) / (
             atol + rtol * abs(l64) + FLIP_GAIN * abs(l32 - l64)
             + FLIP_SHARE_TOL * abs(l32 - l_off))
-        print(f"bf16 mode: CPU loss {l32:.8f} against {l_off:.8f} with it "
-              f"off; the card's loss and gradients held to their distance "
-              f"from the float64 step: worst ratio {max(l_ratio, rc[at]):.3f} "
-              f"({at})")
+        print(f"bf16 mode {bf16}, matmul mode {mode}, NeRF bf16 "
+              f"{nerf_bf16}: CPU loss {l32:.8f} against {l_off:.8f} with "
+              f"them off; the card's loss and gradients held to their "
+              f"distance from the float64 step: worst ratio "
+              f"{max(l_ratio, rc[at]):.3f} ({at})")
     print(f"step check {base}, {STEP_RAYS} rays full width, {len(g32)} "
           f"parameter tensors (kernels {launched}): "
           f"loss card {l_card:.8f} CPU {l32:.8f} (ratio {l_ratio:.3f}); "
@@ -2379,8 +2431,17 @@ def check_step_against_cpu(tmp: str, base: str = "wmask.conf",
     if l_ratio > 1.0 or rc[at] > 1.0 or not math.isfinite(l_card):
         raise AssertionError("the card's stage-1 step disagrees with the "
                              "CPU's")
-    if not (BF16_SET if bf16 else MAIN_SET) <= set(launched):
+    if want is not None:
+        check_launched(f"step check {base} (mode {mode})",
+                       {n: deltas[n] for n in deltas}, want)
+    elif not (BF16_SET if bf16 else MAIN_SET) <= set(launched):
         raise AssertionError(f"the card's step ran only {launched}")
+    for name, c in (counts or {}).items():
+        if deltas[name] != c:
+            raise AssertionError(f"step check {base} (mode {mode}): {name} "
+                                 f"launched {deltas[name]} times, expected "
+                                 f"{c}")
+    return deltas
 
 
 # check_block_graph: each run's steps (blocks of 8, 2, 8, 2, 4 with a
@@ -2512,6 +2573,242 @@ def block_graph_variant(tmp: str, card: str, label: str, base: str,
     return {"label": label, "bitwise": bitwise, "worst_ratio": worst,
             "eager_wall_ms": e["wall"], "eager_span_ms": e["span"],
             "graph_wall_ms": g["wall"], "graph_span_ms": g["span"]}
+
+
+# the switches' phases: the stage-1 step's kernels under
+# FNEUS_MATMUL_PRECISION=default (the ladder's four sweeps on K2-bf16, the
+# radiance MLP in K3's bf16 mode), alone and with FNEUS_CORE_ACT_BF16=1
+DEFAULT_MODE_SET = {"geometry_fwd", "geometry_bwd", "sdf_fwd_bf16",
+                    "radiance_fwd_bf16", "radiance_bwd_bf16"}
+DEFAULT_BF16_SET = (BF16_SET - {"sdf_fwd"}) | {"sdf_fwd_bf16"}
+DEFAULT_MODE_COUNTS = {"sdf_fwd_bf16": 4, "sdf_fwd": 0}
+GEOMETRY_KERNELS = ("geometry_fwd", "geometry_bwd")
+# the stage-1 gate of the autograd geometry against K1 (PERF.md §2)
+GATE_ATOL, GATE_RTOL = 3e-4, 2e-3
+
+
+def check_matmul_mode(card: str, device) -> dict:
+    """FNEUS_MATMUL_PRECISION=default on the card (ops/mlp.py's one bf16
+    pass): a 64-ray full-width wmask step against the CPU's under the same
+    mode (K2-bf16 four times where K2 was, K3 in its bf16 mode), the same
+    with FNEUS_CORE_ACT_BF16=1, 24 + 16 graph steps against eager ones bit
+    for bit (block_graph_variant), and Lvis.outer at a stage-3 step's
+    4,096 x 512 pairs in the mode beside f32: its ms, and its largest
+    distance from the f32 sweep."""
+    import torch
+    from factored_neus_tpu_torch.models import fields as F
+    from factored_neus_tpu_torch.ops import mlp as M
+    from factored_neus_tpu_torch.ops import sg as SG
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        check_step_against_cpu(tmp, mode="default", want=DEFAULT_MODE_SET,
+                               counts=DEFAULT_MODE_COUNTS)
+    with tempfile.TemporaryDirectory() as tmp:
+        check_step_against_cpu(tmp, bf16=True, mode="default",
+                               want=DEFAULT_BF16_SET,
+                               counts=DEFAULT_MODE_COUNTS)
+    M.set_matmul_precision("default")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out["graph"] = block_graph_variant(
+                tmp, card, "stage-1 wmask, matmul mode default",
+                "wmask.conf", 1, False, False)
+    finally:
+        M.set_matmul_precision(None)
+    if not out["graph"]["bitwise"]:
+        raise AssertionError("under the matmul mode the graph's steps are "
+                             "not the eager steps bit for bit")
+    gen = torch.Generator().manual_seed(5)
+    lvis = F.Lvis(F.LvisConfig(), gen).to(device)
+    D, P = OUTER_SHAPES[0]
+    pts = (torch.randn(P, 3, generator=gen) * 0.4).to(device)
+    dirs = SG._normalize(torch.randn(D, 3, generator=gen)).to(device)
+    res = {}
+    with torch.no_grad():
+        for mode in (None, "default"):
+            M.set_matmul_precision(mode)
+            try:
+                vis = lvis.outer(pts, dirs)
+                ms = cuda_ms(lambda: lvis.outer(pts, dirs), 5)
+            finally:
+                M.set_matmul_precision(None)
+            res[mode] = (vis, ms)
+    (v32, ms32), (v16, ms16) = res[None], res["default"]
+    err = float((v16 - v32).abs().max())
+    print(f"visibility sweep Lvis.outer D={D} x P={P} under "
+          f"FNEUS_MATMUL_PRECISION=default: {ms16:.3f} ms against "
+          f"{ms32:.3f} ms in f32; max |default - f32| {err:.3e} (mean "
+          f"{float((v16 - v32).abs().mean()):.3e}) on {card}")
+    if not torch.isfinite(v16).all() or err > 5e-2:
+        raise AssertionError(f"Lvis.outer under the matmul mode is "
+                             f"{err:.3e} from f32")
+    out["outer"] = {"ms_default": ms16, "ms_f32": ms32, "max_err": err}
+    return out
+
+
+def check_geometry_switch(tmp: str, card: str) -> dict:
+    """FNEUS_PALLAS_GEOMETRY=0 on the card (RendererConfig.
+    use_pallas_geometry False): one full-width wmask step at batch 512
+    with the geometry through autograd (SDFNetwork.
+    value_grad_feat_autograd) against the K1 step on the same weights,
+    rays and jitter: the loss and every gradient within the stage-1 gate
+    (GATE_ATOL + GATE_RTOL max|g|); K1 launches 0 times under the switch
+    and once (K1-fwd, K1-bwd) without it."""
+    import numpy as np
+    import torch
+    from factored_neus_tpu_torch.data import rays as RAYS
+    from factored_neus_tpu_torch.data.datasets import make_dataset
+    from factored_neus_tpu_torch.models.renderer import Stage1Model
+    from factored_neus_tpu_torch.train import stage1 as TS1
+    from factored_neus_tpu_torch.train.common import TrainConfig
+    from factored_neus_tpu_torch.utils import config as CFG
+
+    dev = torch.device("cuda")
+    conf = CFG.load(write_conf(tmp), "sphere")
+    ds = make_dataset("dtu", conf["dataset"], dev)
+    cfg = CFG.renderer_config(conf)
+    tcfg = TrainConfig.from_conf(conf)
+    rng = np.random.RandomState(1)
+    H, W = ds.images.shape[1:3]
+    B = tcfg.batch_size
+    px = torch.from_numpy(rng.randint(0, W, B)).to(dev)
+    py = torch.from_numpy(rng.randint(0, H, B)).to(dev)
+    batch = RAYS.rays_from_pixels(px, py, ds.images, ds.masks,
+                                  ds.intrinsics_all_inv, ds.pose_all, 0)
+    t_rand = torch.from_numpy(rng.uniform(-0.5, 0.5, (B, 1)).astype(
+        np.float32)).to(dev)
+    model = Stage1Model(cfg, CFG.variance_init_val(conf), seed=0, device=dev)
+    kernels = all_kernels()
+    runs = {}
+    for on in (True, False):
+        m = copy.deepcopy(model)
+        c = dataclasses.replace(cfg, use_pallas_geometry=on)
+        before = {n: k.launches for n, k in kernels.items()}
+        t0 = time.perf_counter()
+        loss, _ = TS1.loss_on_batch(m, c, tcfg, *batch, step=10,
+                                    t_rand=t_rand)
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        runs[on] = (float(loss.detach()),
+                    {n: p.grad.detach().clone()
+                     for n, p in m.named_parameters() if p.grad is not None},
+                    {n: kernels[n].launches - before[n]
+                     for n in GEOMETRY_KERNELS}, ms)
+    (l_k1, g_k1, n_k1, ms_k1), (l_ag, g_ag, n_ag, ms_ag) = runs[True], \
+        runs[False]
+    if set(g_k1) != set(g_ag):
+        raise AssertionError("the autograd geometry's step reached other "
+                             "parameters than K1's")
+    ratios = {n: worst_scaled(g_ag[n], g_k1[n], GATE_ATOL, GATE_RTOL)[1]
+              for n in g_k1}
+    at = max(ratios, key=ratios.get)
+    l_ratio = abs(l_ag - l_k1) / (GATE_ATOL + GATE_RTOL * abs(l_k1))
+    print(f"FNEUS_PALLAS_GEOMETRY=0, one wmask step of {B} rays full width "
+          f"on {card}: loss {l_ag:.8f} against K1's {l_k1:.8f} (ratio "
+          f"{l_ratio:.3f}); worst gradient ratio to ({GATE_ATOL:g} + "
+          f"{GATE_RTOL:g} max|g|) {ratios[at]:.3f} in {at}; K1 launches "
+          f"{n_ag} under the switch, {n_k1} without; one eager step "
+          f"{ms_ag:.1f} ms against {ms_k1:.1f} (first calls, host clock)")
+    if l_ratio > 1.0 or ratios[at] > 1.0 or not math.isfinite(l_ag):
+        raise AssertionError("the autograd geometry's step misses the "
+                             "stage-1 gate against K1's")
+    if any(n_ag.values()) or any(c != 1 for c in n_k1.values()):
+        raise AssertionError(f"K1 launches: {n_ag} under the switch, "
+                             f"{n_k1} without (expected 0 and 1)")
+    return {"loss_ratio": l_ratio, "worst_grad_ratio": ratios[at]}
+
+
+def check_importer(tmp: str, card: str) -> dict:
+    """The reference-checkpoint importer on the card: a full-width .pth of
+    stages 1-3 (the wmask conf's stage-1 networks, seed 0, and Lvis,
+    IndirectLight and the material, seed 1) in each weight-norm key
+    layout goes through the CLI (python -m
+    factored_neus_tpu_torch.utils.torch_import), the stage-1 runner reads
+    the npz with --is_continue on the card, its first step's loss and
+    gradients equal the source models' step bit for bit, and the CLI then
+    trains on from it."""
+    import numpy as np
+    import torch
+    from factored_neus_tpu_torch import exp_runner
+    from factored_neus_tpu_torch.models.renderer import (Stage1Model,
+                                                         Stage3Model)
+    from factored_neus_tpu_torch.train import stage1 as TS1
+    from factored_neus_tpu_torch.train.runner1 import Runner
+    from factored_neus_tpu_torch.utils import config as CFG
+
+    steps = 8
+    conf_path = write_conf(tmp, steps)
+    conf = CFG.load(conf_path, "sphere")
+    cfg = CFG.renderer_config(conf)
+    src = Stage1Model(cfg, CFG.variance_init_val(conf), seed=0)
+    later = Stage3Model(CFG.renderer_config(conf, "model.lvis_renderer"),
+                        seed=1)
+    out = {}
+    for it, layout in ((5, "legacy"), (6, "parametrizations")):
+        groups = reference_pth(src, it, layout)
+        groups.update({k: v for k, v in reference_pth(later, it).items()
+                       if k in ("lvis_network", "indiLgt_network",
+                                "mateIllu_network")})
+        pth = os.path.join(tmp, f"ref_{layout}.pth")
+        torch.save(groups, pth)
+        exp = conf["general.base_exp_dir_geo"]
+        child = subprocess.run(
+            [sys.executable, "-m", "factored_neus_tpu_torch.utils."
+             "torch_import", pth, exp], cwd=HERE, capture_output=True,
+            text=True, timeout=300)
+        if child.returncode != 0:
+            raise AssertionError(f"torch_import CLI failed: "
+                                 f"{child.stderr[-2000:]}")
+        runner = Runner(conf_path, case="sphere", is_continue=True)
+        if runner.iter_step != it or runner.trainer.opt.state or sorted(
+                runner.passed_through) != ["indiLgt_network", "lvis_network",
+                                           "mateIllu_network"]:
+            raise AssertionError(f"{layout}: the runner did not continue "
+                                 f"from the imported checkpoint")
+        model = copy.deepcopy(src).to(runner.device)
+        rng = np.random.RandomState(it)
+        B = runner.tcfg.batch_size
+        o = torch.from_numpy(rng.randn(B, 3).astype(np.float32) * 0.1
+                             + np.array([0, 0, -2.5], np.float32))
+        d = torch.from_numpy(np.tile(np.array([0, 0, 1], np.float32),
+                                     (B, 1)) + rng.randn(B, 3).astype(
+                                         np.float32) * 0.2)
+        d = d / d.norm(dim=-1, keepdim=True)
+        rgb = torch.from_numpy(rng.rand(B, 3).astype(np.float32))
+        mask = torch.ones(B, 1)
+        t_rand = torch.from_numpy(rng.rand(B, 1).astype(np.float32) - 0.5)
+        args = [t.to(runner.device) for t in (o, d, rgb, mask)]
+        steps_out = []
+        for m in (model, runner.model):
+            loss, _ = TS1.loss_on_batch(m, cfg, runner.tcfg, *args, it,
+                                        t_rand=t_rand.to(runner.device))
+            loss.backward()
+            steps_out.append([loss.detach()] + [
+                p.grad for p in m.parameters() if p.grad is not None])
+        bitwise = len(steps_out[0]) == len(steps_out[1]) and all(
+            torch.equal(a, b) for a, b in zip(*steps_out))
+        print(f"torch_import ({layout} layout, {len(groups) - 2} groups) "
+              f"-> ckpt_{it:06d}.npz -> --is_continue on {card}: first "
+              f"step loss {float(steps_out[1][0]):.8f} against the source "
+              f"models' {float(steps_out[0][0]):.8f}, loss and "
+              f"{len(steps_out[0]) - 1} gradients "
+              + ("bit for bit" if bitwise else "NOT bit for bit"))
+        if not bitwise:
+            raise AssertionError(f"{layout}: a step on the imported weights "
+                                 f"is not the source models' step")
+        out[layout] = float(steps_out[1][0])
+        del runner, model
+    cont = exp_runner.main(["--mode", "train", "--conf", conf_path,
+                            "--case", "sphere", "--type", "dtu",
+                            "--is_continue"])
+    if cont.iter_step != steps or not all(
+            math.isfinite(h["loss"]) for h in cont.history):
+        raise AssertionError("the CLI did not train on from the imported "
+                             "checkpoint")
+    print(f"the stage-1 CLI trained on from the imported ckpt_000006.npz "
+          f"to step {cont.iter_step} on {card}")
+    return out
 
 
 def check_block_graph(card: str) -> list:
@@ -3713,6 +4010,33 @@ def synthetic_phase(card: str):
     return out
 
 
+def reference_pth(model, iter_step: int, layout: str = "legacy") -> dict:
+    """The reference's checkpoint dict (torch_import's groups) of a
+    Stage1Model, Stage2Model or Stage3Model: each group's state dict on the
+    host, its weight-normed layers' keys in the legacy layout (weight_g,
+    weight_v: the port's own) or the ``parametrizations`` one
+    (parametrizations.weight.original0/1), iter_step and an optimizer
+    group, which the importer skips."""
+    from factored_neus_tpu_torch.utils import torch_import as TI
+    names = {"legacy": (".weight_g", ".weight_v"),
+             "parametrizations": (".parametrizations.weight.original0",
+                                  ".parametrizations.weight.original1")}
+    g_key, v_key = names[layout]
+    out = {}
+    for name, (_, group) in TI.GROUP_CONVERTERS.items():
+        if group not in model.GROUPS:
+            continue
+        owner = model.stage1 if hasattr(model, "stage1") and group in \
+            model.stage1.GROUPS else model
+        sd = getattr(owner, group).state_dict()
+        out[name] = {k.replace(".weight_g", g_key).replace(
+                         ".weight_v", v_key): v.detach().cpu().clone()
+                     for k, v in sd.items()}
+    out["iter_step"] = iter_step
+    out["optimizer"] = {"state": {}, "param_groups": []}
+    return out
+
+
 def subprocess_run(flag: str, env: dict, label: str) -> dict:
     """Runs this script with ``flag`` in a child process (the switches are
     read at import); returns its last line's JSON."""
@@ -3926,6 +4250,11 @@ def main() -> int:
     os.environ["FNEUS_CORE_ACT_BF16"] = "0"
     os.environ["FNEUS_SWEEP_ACT_BF16"] = "1"
     os.environ["FNEUS_PALLAS_SAMPLING"] = "0"
+    # the main path: the matmul mode f32, K1, the NeRF in f32 (the
+    # switches' phases set them explicitly)
+    for switch in ("FNEUS_MATMUL_PRECISION", "FNEUS_PALLAS_GEOMETRY",
+                   "FNEUS_NERF_ACT_BF16"):
+        os.environ.pop(switch, None)
     sys.path.insert(0, HERE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3960,6 +4289,17 @@ def main() -> int:
     t0 = time.perf_counter()
     check_block_graph(card)
     print(f"block graph phase: {time.perf_counter() - t0:.1f} s on {card}")
+    t0 = time.perf_counter()
+    check_matmul_mode(card, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        check_geometry_switch(tmp, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        check_step_against_cpu(tmp, "womask.conf", 3e-4, 2e-3, bf16=True,
+                               nerf_bf16=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        check_importer(tmp, card)
+    print(f"switches and importer phases: {time.perf_counter() - t0:.1f} s "
+          f"on {card}")
     count_pack_calls()
     packs = {}
     with tempfile.TemporaryDirectory() as tmp:

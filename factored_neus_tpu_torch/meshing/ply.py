@@ -1,5 +1,6 @@
 """Minimal PLY mesh I/O (host side): binary-little-endian and ascii,
-vertices with optional normals and colours, triangle faces.  Counterpart of
+vertices with optional normals and colours, triangle faces and line
+segments (the edge element).  Counterpart of
 factored_neus_tpu/meshing/ply.py (write_ply, read_ply, read_ply_points,
 read_ply_mesh): the port writes the same bytes for the same mesh.
 """
@@ -21,9 +22,16 @@ _PLY_TO_NP = {
 def write_ply(path: str, vertices: np.ndarray,
               faces: Optional[np.ndarray] = None,
               colors: Optional[np.ndarray] = None,
-              normals: Optional[np.ndarray] = None) -> None:
+              normals: Optional[np.ndarray] = None,
+              edges: Optional[np.ndarray] = None,
+              color_names: Tuple[str, str, str] = ("red", "green", "blue"),
+              ) -> None:
     """Binary-little-endian PLY with float32 xyz, optional float32 normals
-    (nx/ny/nz), optional uchar rgb and int32 triangle faces."""
+    (nx/ny/nz), optional uchar rgb, int32 triangle faces and an optional
+    edge element (vertex1/vertex2 line segments: the wireframe of
+    colmap_tools.visualize).  ``color_names``: the colour properties'
+    names (colmap_tools.interchange writes Bundler/VisualSfM's
+    ``diffuse_*``)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     v = np.asarray(vertices, np.float32)
     header = ["ply", "format binary_little_endian 1.0",
@@ -35,11 +43,14 @@ def write_ply(path: str, vertices: np.ndarray,
                    "property float nz"]
         fields.append(("n", "<f4", 3))
     if colors is not None:
-        header += [f"property uchar {c}" for c in ("red", "green", "blue")]
+        header += [f"property uchar {c}" for c in color_names]
         fields.append(("rgb", "u1", 3))
     if faces is not None:
         header += [f"element face {len(faces)}",
                    "property list uchar int vertex_indices"]
+    if edges is not None:
+        header += [f"element edge {len(edges)}",
+                   "property int vertex1", "property int vertex2"]
     header.append("end_header")
 
     with open(path, "wb") as f:
@@ -57,6 +68,8 @@ def write_ply(path: str, vertices: np.ndarray,
             frec["n"] = 3
             frec["idx"] = fa
             f.write(frec.tobytes())
+        if edges is not None:
+            f.write(np.asarray(edges, "<i4").tobytes())
 
 
 def _parse_header(f):

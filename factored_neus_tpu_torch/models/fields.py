@@ -36,7 +36,9 @@ from ..ops import radiance_kernel as RK
 from ..ops import sdf_kernel as SK
 from ..ops import tc_pack as TP
 from ..ops.embedder import positional_encoding
-from ..ops.mlp import WNLinear, dense_init_, sdf_geometric_init_
+from ..ops import mlp as M
+from ..ops.mlp import (WNLinear, dense_init_, sdf_geometric_init_,
+                       softplus_beta)
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -161,10 +163,50 @@ class SDFNetwork(_WNLayers):
             for lin in self.layers():
                 dense_init_(lin, gen)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[N, 3] -> [N, d_out] = [sdf / scale | feature] (plain PyTorch)."""
+    def forward(self, x: torch.Tensor, act_bf16: bool = False
+                ) -> torch.Tensor:
+        """[N, 3] -> [N, d_out] = [sdf / scale | feature] in plain PyTorch,
+        differentiable twice: the JAX package's sdf_apply, its products in
+        the matmul mode (ops/mlp.py); ``act_bf16``: its act_dtype bf16
+        (each product's operands rounded to bf16, the hidden activations
+        stored in bf16, the skip input rounded again after the
+        1/sqrt(2))."""
+        cfg = self.cfg
         ws, bs = self.effective_weights()
-        return SK.sdf_forward_plain(ws, bs, self.cfg, x)
+        lin = M.linear_act_bf16 if act_bf16 else M.linear
+        enc = x * cfg.scale
+        if cfg.multires > 0:
+            enc = positional_encoding(enc, cfg.multires)
+        h = enc
+        inv_sqrt2 = 1.0 / math.sqrt(2.0)
+        for l, (w, b) in enumerate(zip(ws, bs)):
+            if l in cfg.skip_in:
+                h = torch.cat([h, enc], dim=-1) * inv_sqrt2
+            h = lin(h, w, b)
+            if l < len(ws) - 1:
+                h = softplus_beta(h, 100.0)
+                if act_bf16:
+                    h = M.round_bf16(h)
+        return torch.cat([h[:, :1] / cfg.scale, h[:, 1:]], dim=-1)
+
+    def value_grad_feat_autograd(self, x: torch.Tensor,
+                                 act_bf16: bool = False):
+        """(sdf [N], feature [N, d_out-1], grad [N, 3]) from ``forward``
+        with the input gradient by torch.autograd.grad, kept
+        differentiable where grad is enabled (the eikonal loss): the JAX
+        package's XLA path, sdf_value_and_grad_feat, which
+        FNEUS_PALLAS_GEOMETRY=0 selects in place of K1 on either device.
+        Not K1's twin (geometry_kernel.geometry_plain)."""
+        create = torch.is_grad_enabled()
+        with torch.enable_grad():
+            if not x.requires_grad:
+                x = x.detach().requires_grad_(True)
+            out = self.forward(x, act_bf16)
+            (grad,) = torch.autograd.grad(out[:, 0].sum(), x,
+                                          create_graph=create)
+        if not create:
+            out = out.detach()
+        return out[:, 0], out[:, 1:], grad
 
     def kernel_weights(self, bf16: bool = False, f32: bool = True,
                        sweep_bf16: bool = False, k1: bool = True
@@ -346,7 +388,8 @@ class RefColorConfig:
 
 
 def _linear(d_in: int, d_out: int, gen) -> nn.Linear:
-    lin = nn.Linear(d_in, d_out)
+    """A Linear whose product follows the matmul mode (ops/mlp.py)."""
+    lin = M.Linear(d_in, d_out)
     dense_init_(lin, gen)
     return lin
 
@@ -412,9 +455,13 @@ class NeRFConfig:
 class NeRF(nn.Module):
     """(pts4 [N, 4], dirs [N, 3]) -> (density [N, 1], rgb [N, 3]), both raw
     (the renderer applies softplus and sigmoid).  A plain ReLU MLP on
-    cuBLAS, as the JAX package leaves it to XLA.  The skip is the
-    reference NeRF's: after layer i in ``skips``, relu then concat
-    [encoded pts, h], with no 1/sqrt(2) (unlike the SDF network's)."""
+    cuBLAS, as the JAX package leaves it to XLA, its products in the
+    matmul mode.  The skip is the reference NeRF's: after layer i in
+    ``skips``, relu then concat [encoded pts, h], with no 1/sqrt(2)
+    (unlike the SDF network's).  ``act_bf16``: the JAX package's
+    act_dtype bf16 (nerf_apply; FNEUS_NERF_ACT_BF16 under core_act_bf16):
+    the hidden layers' operands and activations in bf16, the density and
+    rgb heads on f32 operands."""
 
     def __init__(self, cfg: NeRFConfig = NeRFConfig(),
                  gen: Optional[torch.Generator] = None):
@@ -431,17 +478,23 @@ class NeRF(nn.Module):
         self.alpha_linear = _linear(W, 1, gen)
         self.rgb_linear = _linear(W // 2, 3, gen)
 
-    def forward(self, input_pts, input_views):
+    def forward(self, input_pts, input_views, act_bf16: bool = False):
         pts_e = positional_encoding(input_pts, self.cfg.multires)
         views_e = positional_encoding(input_views, self.cfg.multires_view)
+        if act_bf16:
+            store = M.round_bf16
+            apply = lambda l, h: M.linear_act_bf16(h, l.weight, l.bias)
+        else:
+            store = lambda h: h
+            apply = lambda l, h: l(h)
         h = pts_e
         for i, lin in enumerate(self.pts_linears):
-            h = torch.relu(lin(h))
+            h = store(torch.relu(apply(lin, h)))
             if i in self.cfg.skips:
-                h = torch.cat([pts_e, h], -1)
+                h = torch.cat([store(pts_e), h], -1)
         alpha = self.alpha_linear(h)
-        h = torch.cat([self.feature_linear(h), views_e], -1)
-        h = torch.relu(self.views_linears[0](h))
+        h = torch.cat([apply(self.feature_linear, h), views_e], -1)
+        h = store(torch.relu(apply(self.views_linears[0], h)))
         return alpha, self.rgb_linear(h)
 
 
@@ -472,7 +525,8 @@ class LvisConfig:
 class Lvis(nn.Module):
     """(pts [N, 3], dirs [N, 3]) -> visibility [N, 1]: the two encodings,
     a 4x256 ReLU MLP, then 256 -> 1 and the sigmoid.  A plain MLP on
-    cuBLAS, as the JAX package leaves it to XLA."""
+    cuBLAS, as the JAX package leaves it to XLA, its products in the
+    matmul mode."""
 
     def __init__(self, cfg: LvisConfig = LvisConfig(),
                  gen: Optional[torch.Generator] = None):
@@ -492,20 +546,23 @@ class Lvis(nn.Module):
         two factors, split by the first layer's input columns, and meet in
         a broadcast add, bias and ReLU as [D P, 256]; layers 2-5 and the
         sigmoid run on that.  The same function as the flat forward on
-        the D P pairs, up to the order of the first layer's sums."""
+        the D P pairs, up to the order of the first layer's sums.  Every
+        product follows the matmul mode; in a bf16 mode the two halves of
+        the first layer's weight and the two encodings are rounded apart,
+        as the JAX package's lvis_apply_outer rounds them."""
         with torch.autograd.profiler.record_function("Lvis.outer"):
             lins = [m for m in self.lvis if isinstance(m, nn.Linear)]
             pe_p = positional_encoding(pts, self.cfg.multires_pts)
             pe_d = positional_encoding(dirs, self.cfg.multires_view)
             dp = pe_p.shape[-1]
             w1 = lins[0].weight
-            a_p = torch.matmul(pe_p, w1[:, :dp].T)              # [P, H]
-            a_d = torch.matmul(pe_d, w1[:, dp:].T)              # [D, H]
+            a_p = M.matmul(pe_p, w1[:, :dp].T)                  # [P, H]
+            a_d = M.matmul(pe_d, w1[:, dp:].T)                  # [D, H]
             x = torch.relu(a_d[:, None, :] + a_p[None, :, :] + lins[0].bias)
             x = x.reshape(-1, x.shape[-1])
             for lin in lins[1:-1]:
-                x = nn.functional.linear(x, lin.weight, lin.bias).relu_()
-            x = nn.functional.linear(x, lins[-1].weight, lins[-1].bias)
+                x = M.linear(x, lin.weight, lin.bias).relu_()
+            x = M.linear(x, lins[-1].weight, lins[-1].bias)
             return torch.sigmoid(x).reshape(dirs.shape[0], pts.shape[0])
 
 
@@ -523,7 +580,7 @@ class IndirectLight(nn.Module):
     """pts [N, 3] -> num_lgt_sgs SGs [N, L, 7] (axis 3, sharpness 1,
     amplitude 3): the encoding, a 4x512 ReLU MLP, then 512 -> 6 L; the
     axis from two sigmoid angles, sharpness 30 sigmoid + 0.1, amplitude
-    ReLU.  A plain MLP on cuBLAS."""
+    ReLU.  A plain MLP on cuBLAS, its products in the matmul mode."""
 
     def __init__(self, cfg: IndirectLightConfig = IndirectLightConfig(),
                  gen: Optional[torch.Generator] = None):

@@ -33,6 +33,7 @@ from torch import nn
 from ..ops import math as U
 from ..ops import sg as SG
 from ..ops.embedder import positional_encoding
+from ..ops import mlp as M
 from ..ops.mlp import dense_init_
 from .fields import Lvis
 
@@ -283,11 +284,12 @@ def kl_divergence(rho: float, raw_latent: torch.Tensor,
 
 def _leaky_mlp(dims: List[int], gen: torch.Generator,
                last: Optional[nn.Module] = None) -> nn.Sequential:
-    """Linears dims[0] -> ... -> dims[-1] at the even indices, leaky ReLU
-    (0.2) between them and ``last`` after the last one."""
+    """Linears dims[0] -> ... -> dims[-1] at the even indices (their
+    products in the matmul mode, ops/mlp.py), leaky ReLU (0.2) between
+    them and ``last`` after the last one."""
     mods: List[nn.Module] = []
     for i in range(len(dims) - 1):
-        lin = nn.Linear(dims[i], dims[i + 1])
+        lin = M.Linear(dims[i], dims[i + 1])
         dense_init_(lin, gen)
         mods.append(lin)
         if i < len(dims) - 2:

@@ -35,6 +35,19 @@ reaches only EnvmapMaterial, through cuBLAS MLPs and the SG shading.
 ``use_pallas_sampling`` (off by default, as in the JAX package) puts every
 sweep that the JAX package's _sdf_fwd_sampling serves on K2-bf16: the
 ladder's four in every stage and stage 2's coarse sweep.
+
+The matmul mode (ops/mlp.py, FNEUS_MATMUL_PRECISION) reaches every site
+that the JAX package computes with MATMUL_PRECISION: the cuBLAS MLPs
+(RefColor, the background NeRF, Lvis and its factorised sweep,
+IndirectLight, the material MLPs) and, in its one-pass bf16 mode, the
+ladder's sweeps (XLA sweeps in the JAX package: K2-bf16 here, in every
+stage) and stage 1's radiance MLP (K3's bf16 operand mode).  K1 does not
+change with it: the JAX package's Pallas body ignores it.
+``use_pallas_geometry`` False (FNEUS_PALLAS_GEOMETRY=0) puts stage 1's
+geometry on the JAX package's XLA path in place of K1
+(fields.SDFNetwork.value_grad_feat_autograd), and ``nerf_act_bf16``
+(FNEUS_NERF_ACT_BF16=1) stores the background NeRF's activations in bf16
+under core_act_bf16, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -46,11 +59,24 @@ import torch
 from torch import nn
 
 from ..ops import math as U
+from ..ops import mlp as M
 from ..ops import sampling as S
 from . import fields as F
 from . import secondary as SEC
 from .materials import EnvmapMaterial, EnvmapMaterialConfig
 from .secondary import first_crossing, section_geometry
+
+
+def pallas_geometry_switch(value: Optional[str]) -> bool:
+    """Whether a FNEUS_PALLAS_GEOMETRY value puts stage 1's geometry on K1:
+    unset, 'auto' and '1' do (K1 on the card, its twin on the CPU), '0'
+    selects the JAX package's XLA path; any other value raises."""
+    if value in (None, "auto", "1"):
+        return True
+    if value == "0":
+        return False
+    raise ValueError(f"FNEUS_PALLAS_GEOMETRY={value!r}: expected 'auto', "
+                     f"'1' or '0' (or unset)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +122,15 @@ class RendererConfig:
     # activations (act_dtype); read from FNEUS_CORE_ACT_BF16 like the JAX
     # package's.  The ladder's sweeps stay as use_pallas_sampling says
     core_act_bf16: bool = os.environ.get("FNEUS_CORE_ACT_BF16", "0") == "1"
+    # stage 1's geometry on K1 (the JAX package's Pallas geometry core),
+    # or with FNEUS_PALLAS_GEOMETRY=0 on the JAX package's XLA path
+    # (SDFNetwork.value_grad_feat_autograd) on either device: an explicit
+    # ablation; nothing falls back to it
+    use_pallas_geometry: bool = pallas_geometry_switch(
+        os.environ.get("FNEUS_PALLAS_GEOMETRY"))
+    # the background NeRF's activations in bf16 under core_act_bf16
+    # (FNEUS_NERF_ACT_BF16=1; off by default), as the JAX package reads it
+    nerf_act_bf16: bool = os.environ.get("FNEUS_NERF_ACT_BF16", "0") == "1"
 
     @property
     def n_total(self) -> int:
@@ -121,7 +156,8 @@ class Stage1Model(nn.Module):
         self.nerf = F.NeRF(cfg.nerf, gen)
         self.to(device)
 
-    def kernel_weights(self, bf16: bool = False, sweep_bf16: bool = False
+    def kernel_weights(self, bf16: bool = False, sweep_bf16: bool = False,
+                       k1: bool = True, color_bf16: Optional[bool] = None
                        ) -> Tuple[F.KernelWeights, F.KernelWeights]:
         """The SDF network's and the radiance MLP's kernel weights, with
         the packs that their kernels read on a CUDA device: ``bf16``, the
@@ -142,20 +178,49 @@ class Stage1Model(nn.Module):
         and, where a backward can follow, K3-bwd's
         (radiance_kernel.make_bwd_slabs(bf16=False), whose first is
         K3-fwd's).  Every K1 kernel, the stash pair included, reads the
-        mode's two slab packs; no mma.sync pack exists.  Built once a step
-        by ``render``, or once a validation image by its caller."""
-        return (self.sdf.kernel_weights(bf16, f32=not (bf16 and sweep_bf16),
-                                        sweep_bf16=sweep_bf16),
-                self.color.kernel_weights(bf16, f32=not bf16))
+        mode's two slab packs; no mma.sync pack exists.  ``k1`` False: no
+        K1 pack (the geometry off K1, use_pallas_geometry).
+        ``color_bf16`` (default ``bf16``): the radiance MLP's packs in the
+        bf16 mode.  Built once a step by ``render`` (step_weights), or once
+        a validation image by its caller."""
+        color_bf16 = bf16 if color_bf16 is None else color_bf16
+        return (self.sdf.kernel_weights(
+                    bf16, f32=not sweep_bf16 or (k1 and not bf16),
+                    sweep_bf16=sweep_bf16, k1=k1),
+                self.color.kernel_weights(color_bf16, f32=not color_bf16))
+
+
+def ladder_bf16(cfg: RendererConfig) -> bool:
+    """Whether the ladder's sweeps run on K2-bf16: under
+    use_pallas_sampling, or in the one-pass bf16 matmul mode (the JAX
+    package's XLA sweeps at MATMUL_PRECISION)."""
+    return cfg.use_pallas_sampling or M.one_pass()
+
+
+def color_bf16(cfg: RendererConfig) -> bool:
+    """Whether stage 1's radiance MLP runs in K3's bf16 operand mode:
+    under core_act_bf16, or in the one-pass bf16 matmul mode."""
+    return cfg.core_act_bf16 or M.one_pass()
+
+
+def step_weights(model: Stage1Model, cfg: RendererConfig
+                 ) -> Tuple[F.KernelWeights, F.KernelWeights]:
+    """The kernel weights of a stage-1 render under ``cfg`` and the matmul
+    mode (``model``: a Stage1Model, or a Stage2Model, whose packs of the
+    frozen stage-1 networks are kept): once a step, or once a validation
+    image."""
+    return model.kernel_weights(cfg.core_act_bf16, ladder_bf16(cfg),
+                                k1=cfg.use_pallas_geometry,
+                                color_bf16=color_bf16(cfg))
 
 
 def sampling_sweep(sdf_net: F.SDFNetwork, cfg: RendererConfig,
                    weights: F.KernelWeights, coarse: bool = False):
     """sdf_fwd for a no-grad sampling sweep, with the JAX package's
-    precedence (_sdf_fwd_sampling): K2-bf16 under use_pallas_sampling;
-    else K2-bf16 for the stage-2 coarse sweep (``coarse``) under
-    sweep_act_bf16; else K2."""
-    bf16 = cfg.use_pallas_sampling or (coarse and cfg.sweep_act_bf16)
+    precedence (_sdf_fwd_sampling): K2-bf16 under use_pallas_sampling or
+    the one-pass matmul mode (ladder_bf16); else K2-bf16 for the stage-2
+    coarse sweep (``coarse``) under sweep_act_bf16; else K2."""
+    bf16 = ladder_bf16(cfg) or (coarse and cfg.sweep_act_bf16)
     return lambda p: sdf_net.value_sweep(p, weights, bf16)
 
 
@@ -169,7 +234,9 @@ def render_core_outside(model: Stage1Model, cfg: RendererConfig, rays_o,
                                 1.0, 1e10)
     pts4 = torch.cat([pts / dis_to_center, 1.0 / dis_to_center], -1)
     dirs = rays_d[:, None, :].expand(B, T, 3)
-    density, color = model.nerf(pts4.reshape(-1, 4), dirs.reshape(-1, 3))
+    density, color = model.nerf(pts4.reshape(-1, 4), dirs.reshape(-1, 3),
+                                act_bf16=cfg.core_act_bf16
+                                and cfg.nerf_act_bf16)
     sampled_color = torch.sigmoid(color).reshape(B, T, 3)
     alpha = 1.0 - torch.exp(
         -torch.nn.functional.softplus(density.reshape(B, T)) * dists)
@@ -200,8 +267,12 @@ def render_core(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d,
     pts_flat = pts.reshape(-1, 3)
     dirs_flat = dirs.reshape(-1, 3)
 
-    sdf, feature, gradients = model.sdf.value_grad_feat(
-        pts_flat, sdf_weights, bf16=cfg.core_act_bf16)
+    if cfg.use_pallas_geometry:
+        sdf, feature, gradients = model.sdf.value_grad_feat(
+            pts_flat, sdf_weights, bf16=cfg.core_act_bf16)
+    else:
+        sdf, feature, gradients = model.sdf.value_grad_feat_autograd(
+            pts_flat, act_bf16=cfg.core_act_bf16)
     sdf = sdf[:, None]
     inv_s = torch.clamp(model.variance.inv_s(), 1e-6, 1e6)
 
@@ -216,7 +287,7 @@ def render_core(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d,
     inside_sphere_mask = torch.sum(inside_sphere, -1) > 0.0
 
     sampled_color = model.color(pts_flat, gradients, dirs_flat, feature,
-                                color_weights, cfg.core_act_bf16
+                                color_weights, color_bf16(cfg)
                                 ).reshape(B, T, 3)
 
     # surface branch: first SDF sign change, RefColor at the two bracketing
@@ -341,8 +412,7 @@ def render(model: Stage1Model, cfg: RendererConfig, rays_o, rays_d, near,
 
     # the SDF weight packs, for the ladder's sweeps (K2) and K1, and the
     # radiance pack for K3, once a step (or a validation image)
-    sdf_weights, color_weights = weights or model.kernel_weights(
-        cfg.core_act_bf16, cfg.use_pallas_sampling)
+    sdf_weights, color_weights = weights or step_weights(model, cfg)
     if cfg.n_importance > 0:
         z_vals = S.hierarchical_z_vals(
             sampling_sweep(model.sdf, cfg, sdf_weights), rays_o.detach(),
@@ -406,7 +476,8 @@ class Stage2Model(nn.Module):
         self.to(device)
         self._packs: Optional[Tuple[Any, Tuple]] = None
 
-    def kernel_weights(self, bf16: bool = False, sweep_bf16: bool = False
+    def kernel_weights(self, bf16: bool = False, sweep_bf16: bool = False,
+                       k1: bool = True, color_bf16: Optional[bool] = None
                        ) -> Tuple[F.KernelWeights, F.KernelWeights]:
         """The frozen SDF network's and radiance MLP's kernel weights
         (Stage1Model.kernel_weights' packs; ``sweep_bf16``: with the SDF
@@ -414,11 +485,12 @@ class Stage2Model(nn.Module):
         kept until a stage-1 parameter changes (a checkpoint or bridge load
         writes into them) or moves, or other packs are asked for."""
         key = (tuple((p.data_ptr(), p._version)
-                     for p in self.stage1.parameters()), bf16, sweep_bf16)
+                     for p in self.stage1.parameters()), bf16, sweep_bf16,
+               k1, color_bf16)
         if self._packs is None or self._packs[1] != key:
             with torch.no_grad():
-                self._packs = (self.stage1.kernel_weights(bf16, sweep_bf16),
-                               key)
+                self._packs = (self.stage1.kernel_weights(
+                    bf16, sweep_bf16, k1=k1, color_bf16=color_bf16), key)
         return self._packs[0]
 
 
@@ -456,7 +528,7 @@ def lvis_render(model: Stage2Model, cfg: RendererConfig, rays_o, rays_d,
     ``generator``."""
     geo = model.stage1
     sdf_w, color_w = model.kernel_weights(
-        sweep_bf16=cfg.use_pallas_sampling or cfg.sweep_act_bf16)
+        sweep_bf16=ladder_bf16(cfg) or cfg.sweep_act_bf16)
     with torch.no_grad():
         mid_z, sdf, inside_mask = _stage23_util(geo, cfg, rays_o, rays_d,
                                                 near, far, sdf_w)
@@ -527,7 +599,7 @@ def mate_illu_render(model: Stage3Model, cfg: RendererConfig, rays_o,
     [num_lgt_sgs, vis_nsamp] in [0, 1) when given, else drawn from
     ``generator``."""
     geo = model.stage1
-    sdf_w, _ = model.kernel_weights(sweep_bf16=cfg.use_pallas_sampling)
+    sdf_w, _ = model.kernel_weights(sweep_bf16=ladder_bf16(cfg))
     with torch.no_grad():
         mid_z, sdf, inside_mask = _stage23_util(geo, cfg, rays_o, rays_d,
                                                 near, far, sdf_w)

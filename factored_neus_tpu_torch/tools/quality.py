@@ -52,6 +52,7 @@ from ..data.fake_scene import SPHERE_R, write_sphere_scene
 from ..evaltools.pointcloud import nn_distances, sample_mesh_points
 from ..meshing.ply import read_ply_mesh
 from ..models.renderer import RendererConfig
+from ..ops import mlp as M
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -300,10 +301,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
         # modes (stage 2's coarse sweep on K2-bf16; every sampling sweep
         # on K2-bf16), as the runs (children of this process) read them
         # from FNEUS_CORE_ACT_BF16, FNEUS_SWEEP_ACT_BF16 and
-        # FNEUS_PALLAS_SAMPLING
+        # FNEUS_PALLAS_SAMPLING; the matmul mode of the cuBLAS MLPs
+        # (FNEUS_MATMUL_PRECISION, null: unset, f32), the geometry's route
+        # (FNEUS_PALLAS_GEOMETRY) and the background NeRF's bf16
+        # activations (FNEUS_NERF_ACT_BF16)
         "core_act_bf16": RendererConfig().core_act_bf16,
         "sweep_act_bf16": RendererConfig().sweep_act_bf16,
         "use_pallas_sampling": RendererConfig().use_pallas_sampling,
+        "matmul_precision": M.MATMUL_PRECISION,
+        "use_pallas_geometry": RendererConfig().use_pallas_geometry,
+        "nerf_act_bf16": RendererConfig().nerf_act_bf16,
         "stage2": args.stage2, "stage3": args.stage3,
         "from_stage": args.from_stage, "failed": failed}
     bars = {}

@@ -34,6 +34,7 @@ import torch
 from .. import bridge
 from ..data import rays as RAYS
 from ..ops import _cuda
+from ..ops import mlp as M
 from ..utils import checkpoints as CK
 from ..utils import logging as LOG
 from ..utils import schedule
@@ -246,7 +247,9 @@ class StepTrainer:
     A capture or replay that fails raises; nothing falls back to eager
     steps.  Kernel launches recorded in the capture count once a replay
     (_cuda.count); under ``debug_nans`` the graph's loss and gradients
-    are checked after each replay."""
+    are checked after each replay.  A graph holds the matmul mode
+    (ops/mlp.py) it was captured in: after a change of mode it is
+    dropped, and the next graph step warms up and captures anew."""
 
     def __init__(self, model: torch.nn.Module, tcfg: TrainConfig,
                  data: Dict, stage: int, seed: int):
@@ -263,6 +266,7 @@ class StepTrainer:
         self._counts: List[Callable[[], None]] = []
         self._side: Optional[Any] = None
         self._warm = 0
+        self._graph_mode: Optional[str] = None   # the capture's matmul mode
         self.replays = 0            # steps run as replays of the graph
 
     def loss(self, step: int, img_idx: torch.Tensor,
@@ -282,6 +286,8 @@ class StepTrainer:
         if graph and self.device.type != "cuda":
             raise ValueError("step graphs need a CUDA device")
         table = self._table(step0, idxs)
+        if graph:
+            self._drop_stale_graph()
         for i in range(len(idxs)):
             step = step0 + i
             if not graph:
@@ -336,6 +342,16 @@ class StepTrainer:
         self._warm += 1
         return metrics
 
+    def _drop_stale_graph(self) -> None:
+        """Drops the captured graph if the matmul mode has changed since
+        its capture: its products would replay the old mode."""
+        if self._graph is None or self._graph_mode == M.matmul_mode():
+            return
+        log.info("matmul mode %s -> %s: the step graph is captured anew",
+                 self._graph_mode, M.matmul_mode())
+        self._graph, self._static, self._counts = None, None, []
+        self._graph_mode, self._warm = None, 0
+
     def _capture(self, step: int) -> None:
         CK.join_writers()
         graph = torch.cuda.CUDAGraph()
@@ -345,6 +361,7 @@ class StepTrainer:
             with torch.cuda.graph(graph):
                 self._static = self._body(step)
         self._graph, self._counts = graph, counts
+        self._graph_mode = M.matmul_mode()
         log.info("training step captured into a CUDA graph at step %d "
                  "(%d counted kernel launches a replay)", step, len(counts))
 

@@ -209,8 +209,7 @@ class Runner:
         anneal = schedule.cos_anneal_ratio(self.iter_step,
                                            self.tcfg.anneal_end)
         with torch.no_grad():
-            weights = self.model.kernel_weights(
-                self.cfg.core_act_bf16, self.cfg.use_pallas_sampling)
+            weights = R.step_weights(self.model, self.cfg)
 
             def fn(o, d, _i):
                 near, far = RAYS.near_far_from_sphere(o, d)

@@ -1192,6 +1192,43 @@ def test_block_graph_follows_the_eager_steps(cuda_device, tmp_path,
 
 
 @pytest.mark.gpu
+def test_block_graph_is_captured_anew_after_a_matmul_mode_change(
+        cuda_device, tmp_path):
+    """A step graph captured in the f32 matmul mode is not replayed after
+    FNEUS_MATMUL_PRECISION changes to 'default': the next block warms up
+    and captures a graph of its own, whose steps launch K2-bf16 where the
+    first graph's launched K2."""
+    from factored_neus_tpu_torch.data.datasets import make_dataset
+    from factored_neus_tpu_torch.ops import mlp as M
+    from factored_neus_tpu_torch.train import common as TC
+    from factored_neus_tpu_torch.train.stage1 import Stage1Trainer
+    from factored_neus_tpu_torch.utils import config as CFG
+
+    conf = CFG.load(chip_smoke.write_conf(str(tmp_path), 16), "sphere")
+    ds = make_dataset("dtu", conf["dataset"], cuda_device)
+    cfg = CFG.renderer_config(conf)
+    tcfg = TC.TrainConfig.from_conf(conf)
+    model = TR.Stage1Model(cfg, seed=0, device=cuda_device)
+    trainer = Stage1Trainer(model, cfg, tcfg, ds.train_data(), seed=1)
+    idxs = [i % ds.n_images for i in range(8)]
+    kernels = chip_smoke.all_kernels()
+    try:
+        trainer.run_block(0, idxs, graph=True)
+        first = trainer._graph
+        M.set_matmul_precision("default")
+        before = {n: k.launches for n, k in kernels.items()}
+        trainer.run_block(8, idxs, graph=True)
+        torch.cuda.synchronize()
+    finally:
+        M.set_matmul_precision(None)
+    assert trainer._graph is not first
+    assert trainer._graph_mode == "bf16"
+    assert trainer.replays == 2 * (8 - TC.WARMUP_STEPS)
+    assert kernels["sdf_fwd_bf16"].launches - before["sdf_fwd_bf16"] == 32
+    assert kernels["sdf_fwd"].launches == before["sdf_fwd"]
+
+
+@pytest.mark.gpu
 def test_block_graph_debug_nans_stops_at_the_replay(cuda_device, tmp_path):
     """Under debug_nans a NaN that reaches the graph's loss stops the run
     at that step (checked after each replay); the count and moments of a

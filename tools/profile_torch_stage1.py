@@ -40,7 +40,9 @@ without it the tool sets 0) and --sweep-f32 FNEUS_SWEEP_ACT_BF16=0 (stage
 without it the tool sets 0) before the port is imported (the switches
 are read at import); --bf16 and --sampling combine with the other flags.
 The table names each kernel's operand mode (-bf16) and records the
-config's sweep modes.
+config's sweep modes and the matmul mode of the cuBLAS MLPs
+(FNEUS_MATMUL_PRECISION, read from the environment as the port reads it;
+a set mode adds "_<mode>" to the JSON's name).
 """
 import json
 import os
@@ -149,6 +151,7 @@ def main() -> int:
                                                          Stage3Model)
     from factored_neus_tpu_torch.ops import _cuda
     from factored_neus_tpu_torch.ops import geometry_kernel as GK
+    from factored_neus_tpu_torch.ops import mlp as M
     from factored_neus_tpu_torch.train.common import TrainConfig
     from factored_neus_tpu_torch.train.stage1 import Stage1Trainer
     from factored_neus_tpu_torch.train.stage2 import Stage2Trainer
@@ -167,7 +170,9 @@ def main() -> int:
           "in the core's bf16 mode (K1, K3)" if bf16 else "",
           "coarse sweep on K2" if stage2 and sweep_f32
           else "coarse sweep on K2-bf16" if stage2 else "",
-          "every sampling sweep on K2-bf16" if sampling else "")
+          "every sampling sweep on K2-bf16" if sampling else "",
+          f"matmul mode {M.MATMUL_PRECISION}" if M.MATMUL_PRECISION
+          else "")
     _cuda.build_all()
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
@@ -215,6 +220,7 @@ def main() -> int:
     out = {"card": card, "conf": base, "stash": stash, "split": split,
            "bf16": bf16, "sweep_act_bf16": cfg.sweep_act_bf16,
            "use_pallas_sampling": cfg.use_pallas_sampling, "stage": stage,
+           "matmul_precision": M.MATMUL_PRECISION,
            "block_steps": tcfg.block_steps,
            **measure(run, STEPS, stage, stash, card, tcfg.batch_size,
                      "eager steps")}
@@ -231,7 +237,8 @@ def main() -> int:
         print("block_steps = 1 in the conf: eager steps only")
     os.makedirs(OUT, exist_ok=True)
     name = "profile_torch_stage1" + "".join(
-        f.replace("--", "_") for f in FLAGS if f in args) + ".json"
+        f.replace("--", "_") for f in FLAGS if f in args) + (
+        f"_{M.MATMUL_PRECISION}" if M.MATMUL_PRECISION else "") + ".json"
     with open(os.path.join(OUT, name), "w") as f:
         json.dump(out, f, indent=1)
     return 0
